@@ -1,0 +1,18 @@
+"""PyTorch/CUDA port of ``analytics_zoo_tpu``.
+
+The JAX package stays the reference; this package mirrors its module paths
+and public names so each counterpart is easy to find
+(``analytics_zoo_tpu_torch.models.transformer.TransformerLM`` ports
+``analytics_zoo_tpu.models.transformer.TransformerLM``, and so on).
+
+What is ported so far is the autoregressive LM serving path: ``TransformerLM``
+over the paged KV cache, driven by ``serving.generation.ContinuousBatcher``.
+Its two attention kernels are CUDA C++ for Hopper (``csrc/``), built with
+``nvcc`` at first use (``ops/_build.py``). Plain PyTorch versions of both sit
+beside them; a wrapper takes the plain version only for CPU tensors.
+
+This package imports ``torch`` and never ``jax`` or ``analytics_zoo_tpu``.
+Importing it starts no thread and builds nothing.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,190 @@
+"""TransformerLM (port of ``analytics_zoo_tpu/models/transformer.py``).
+
+A decoder-only transformer over int token ids (B, T) → logits (B, T, V),
+with the cache-threaded serving steps ``prefill`` and ``decode_step`` over
+the paged KV cache. Parameters live in the module, named as in the JAX
+param tree (``token_embeddings``, ``block0.attn.qkv_kernel``, ``ln_f.gamma``,
+...), so ``model.load_state_dict(bridge.params_from_jax(tree))`` loads a JAX
+model's weights. The JAX methods take ``params`` first; here the module's
+own parameters are used and the remaining arguments are the same. Like the
+layers, the model keeps the JAX method name ``apply`` for its forward,
+which shadows ``nn.Module.apply(fn)``.
+
+Not ported yet: remat, ``prefill_from``, ``prefill_chunk``,
+``verify_step`` and ``PipelinedTransformerLM`` (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..nn.layers.attention import TransformerLayer
+from ..nn.layers.normalization import LayerNormalization
+from ..nn.module import (as_compute, compute_dtype, embedding_normal,
+                         glorot_uniform, resolve_device)
+from ..ops.kv_cache import (KVCacheConfig, init_cache, prefill_write,
+                            sample_tokens)
+
+
+class TransformerLM(nn.Module):
+    """Decoder-only LM. ``device``: where the weights live — CUDA unless
+    the caller names another device; raises when CUDA is absent and no
+    device is given. ``seed`` draws the initial weights (normal·0.02
+    embeddings, glorot-uniform kernels, zero biases) from a CPU generator,
+    so a seed gives the same weights on every device."""
+
+    def __init__(self, vocab: int, hidden_size: int = 256, n_block: int = 4,
+                 n_head: int = 8, seq_len: int = 512,
+                 intermediate_size: Optional[int] = None,
+                 attn_strategy: str = "auto", remat=False, *,
+                 device=None, seed: int = 0):
+        super().__init__()
+        if remat:
+            raise NotImplementedError(
+                "remat is part of training (ROADMAP Queue 1, training the "
+                "LM); the serving port runs without it")
+        self.device = resolve_device(device)
+        self.vocab = vocab
+        self.hidden_size = hidden_size
+        self.n_block = n_block
+        self.seq_len = seq_len
+        self.intermediate_size = intermediate_size
+        self.attn_strategy = attn_strategy
+        g = torch.Generator().manual_seed(int(seed))
+        dev = self.device
+        self.token_embeddings = nn.Parameter(
+            embedding_normal(g, (vocab, hidden_size)).to(dev))
+        self.pos_embeddings = nn.Parameter(
+            embedding_normal(g, (seq_len, hidden_size)).to(dev))
+        self.logits_kernel = nn.Parameter(
+            glorot_uniform(g, (hidden_size, vocab)).to(dev))
+        self.blocks = []
+        for i in range(n_block):
+            blk = TransformerLayer(hidden_size, n_head, intermediate_size,
+                                   causal=True, attn_strategy=attn_strategy,
+                                   generator=g, device=dev)
+            self.add_module(f"block{i}", blk)
+            self.blocks.append(blk)
+        self.ln_f = LayerNormalization(hidden_size, device=dev)
+
+    def _ids(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device).long()
+
+    def _i32(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device).to(torch.int32)
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
+        return h @ self.logits_kernel.to(h.dtype)
+
+    @torch.no_grad()
+    def apply_features(self, x) -> torch.Tensor:
+        """Hidden states before the LM head: (B, T, hidden)."""
+        ids = self._ids(x)
+        h = self.token_embeddings[ids] + self.pos_embeddings[:ids.shape[1]][None]
+        h = as_compute(h)
+        for blk in self.blocks:
+            h = blk.apply(h)
+        return self.ln_f(h)
+
+    @torch.no_grad()
+    def apply(self, x) -> torch.Tensor:
+        """Logits (B, T, vocab) in the compute dtype."""
+        return self._head(self.apply_features(x))
+
+    def forward(self, x) -> torch.Tensor:
+        return self.apply(x)
+
+    # -------------------------------------------------------- decode serving
+
+    def init_kv_cache(self, n_slots: int, *, page_size: int = 16,
+                      max_seq_len: Optional[int] = None,
+                      n_pages: Optional[int] = None, dtype=None
+                      ) -> Tuple[KVCacheConfig, Dict[str, torch.Tensor]]:
+        """Build a paged KV cache for ``n_slots`` concurrent sequences on
+        the model's device. Returns ``(KVCacheConfig, {"k", "v"})``."""
+        max_seq = int(max_seq_len or self.seq_len)
+        pps = -(-max_seq // page_size)          # ceil: full pages only
+        if pps * page_size > self.seq_len:
+            # the rounded capacity is what decode positions can reach;
+            # positions past the table would index past the embeddings
+            raise ValueError(
+                f"max_seq_len {max_seq} rounds up to {pps * page_size} "
+                f"(full pages of {page_size}), exceeding the model's "
+                f"position table ({self.seq_len}); choose max_seq_len <= "
+                f"{self.seq_len // page_size * page_size}")
+        attn = self.blocks[0].attn
+        cfg = KVCacheConfig(
+            n_layers=self.n_block, n_heads=attn.n_head,
+            head_dim=attn.head_dim, n_slots=n_slots, page_size=page_size,
+            pages_per_slot=pps, n_pages=n_pages,
+            dtype=dtype or compute_dtype())
+        return cfg, init_cache(cfg, self.device)
+
+    @torch.no_grad()
+    def prefill(self, cache, ids, lengths, table, *, page_size: int):
+        """One batched forward that fills the cache (in place) and returns
+        last-token logits.
+
+        ``ids``: (B, T_bucket) right-padded to a bucket that is a multiple
+        of ``page_size``; ``lengths``: (B,) true prompt lengths; ``table``:
+        (B, pages_per_slot) page tables (entries past the allocated prefix
+        = scratch). Returns ``(logits (B, V) f32 at position length-1,
+        cache)``."""
+        ids = self._ids(ids)
+        lengths = self._ids(lengths)
+        table = self._i32(table)
+        h = self.token_embeddings[ids] + self.pos_embeddings[:ids.shape[1]][None]
+        h = as_compute(h)
+        for i, blk in enumerate(self.blocks):
+            h, k, v = blk.apply_with_kv(h)
+            prefill_write(cache["k"][i], table, k, page_size=page_size)
+            prefill_write(cache["v"][i], table, v, page_size=page_size)
+        h = self.ln_f(h)
+        last = h[torch.arange(h.shape[0], device=h.device),
+                 (lengths - 1).clamp_min(0)]                  # (B, hidden)
+        return self._head(last).float(), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache, ids, lengths, table, seeds, token_idx,
+                    temperature, *, page_size: int, top_k: int = 0):
+        """One fixed-shape decode step over every slot.
+
+        ``ids``: (B,) the token sampled by the previous step; ``lengths``:
+        (B,) tokens already cached (the position ``ids`` occupies);
+        ``seeds``/``token_idx``/``temperature``: (B,) per-request sampling
+        state (:func:`~analytics_zoo_tpu_torch.ops.kv_cache.sample_tokens`).
+        Returns ``(next_ids (B,) int32, logits (B, V) f32, cache)``."""
+        ids = self._ids(ids)
+        pos = self._i32(lengths)
+        table = self._i32(table)
+        h = (self.token_embeddings[ids]
+             + self.pos_embeddings[pos.long()])[:, None]
+        h = as_compute(h)
+        for i, blk in enumerate(self.blocks):
+            h, _, _ = blk.decode_step(h, cache["k"][i], cache["v"][i], table,
+                                      pos, page_size=page_size)
+        h = self.ln_f(h)
+        logits = self._head(h[:, 0]).float()
+        next_ids = sample_tokens(logits, seeds, token_idx, temperature,
+                                 top_k=top_k)
+        return next_ids, logits, cache
+
+    def prefill_from(self, *args, **kwargs):
+        raise NotImplementedError("prefill_from is not ported yet (ROADMAP "
+                                  "Queue 1: shared-prefix cache)")
+
+    def prefill_chunk(self, *args, **kwargs):
+        raise NotImplementedError("prefill_chunk is not ported yet (ROADMAP "
+                                  "Queue 1: speculative verify + chunked "
+                                  "prefill)")
+
+    def verify_step(self, *args, **kwargs):
+        raise NotImplementedError("verify_step is not ported yet (ROADMAP "
+                                  "Queue 1: speculative verify + chunked "
+                                  "prefill)")
+
+
+__all__ = ["TransformerLM"]

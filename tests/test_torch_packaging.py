@@ -1,0 +1,57 @@
+"""Packaging rules of the PyTorch port: it imports neither ``jax`` nor the
+JAX package, and ``chip_smoke.py`` imports neither either."""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "analytics_zoo_tpu_torch"
+
+
+def test_importing_every_port_module_leaves_jax_out():
+    """A subprocess, because this test process already imported jax."""
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import analytics_zoo_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'analytics_zoo_tpu'))\n"
+        "print(json.dumps({'modules': mods, 'bad': bad}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    assert "analytics_zoo_tpu_torch.serving.generation" in res["modules"]
+    assert "analytics_zoo_tpu_torch.ops.paged_attention" in res["modules"]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_of_the_port_or_chip_smoke_names_jax():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "analytics_zoo_tpu"), \
+                f"{f.relative_to(ROOT)} imports {mod}"
+
+
+def test_kernel_sources_ship_with_the_package():
+    srcs = {p.name for p in (PKG / "csrc").iterdir()}
+    assert {"flash_fwd.cu", "paged_attention.cu", "zoo_cuda.cuh"} <= srcs
+    text = (ROOT / "pyproject.toml").read_text()
+    assert "csrc/*.cu" in text and "csrc/*.cuh" in text

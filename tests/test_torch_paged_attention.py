@@ -1,0 +1,77 @@
+"""K2 (fused paged attention) in the PyTorch port.
+
+On the CPU: the plain version against the JAX package's Pallas kernel run in
+interpret mode, on the JAX fixture's serving-cache layouts at q_len 1 and 4
+(max |diff| <= 1e-5 in f32; zero-length slots exactly 0), and the wrapper's
+routing. The kernel itself is held against its plain version on the card by
+``tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from analytics_zoo_tpu.ops.paged_attention import (
+    paged_attention as jpaged, synthetic_paged_case as jcase)
+from analytics_zoo_tpu_torch.ops import _build
+from analytics_zoo_tpu_torch.ops import paged_attention as tpa
+
+TOL = 1e-5
+SLOTS, PPS, PAGE, H, D = 4, 4, 4, 2, 8
+
+
+def _to_torch(case):
+    return tuple(torch.from_numpy(np.array(x)) for x in case)
+
+
+@pytest.mark.parametrize("q_len", [1, 4])
+@pytest.mark.parametrize("lengths", [None, [0, 5, 16, 0]])
+def test_plain_matches_jax_kernel(q_len, lengths):
+    if lengths is not None:
+        lengths = [max(n, q_len) if n else 0 for n in lengths]
+    case = jcase(SLOTS, PPS, PAGE, H, D, q_len=q_len, lengths=lengths,
+                 rng=np.random.default_rng(q_len))
+    want = np.asarray(jpaged(*case, page_size=PAGE, interpret=True))
+    got = tpa.paged_attention_plain(*_to_torch(case), page_size=PAGE)
+    assert got.shape == (SLOTS, q_len, H, D)
+    assert float(np.abs(want - got.numpy()).max()) <= TOL
+    for b, n in enumerate(np.asarray(case[4])):
+        if n == 0:          # inactive slot: exactly zero on both sides
+            assert float(got[b].abs().max()) == 0.0
+            assert float(np.abs(want[b]).max()) == 0.0
+
+
+def test_synthetic_case_matches_the_jax_layout():
+    lengths = [0, 3, 9, 16]
+    jq, jk, jv, jt, jl = jcase(SLOTS, PPS, PAGE, H, D, lengths=lengths)
+    q, k, v, t, ln = tpa.synthetic_paged_case(SLOTS, PPS, PAGE, H, D,
+                                              lengths=lengths)
+    np.testing.assert_array_equal(np.asarray(jt), t.numpy())
+    np.testing.assert_array_equal(np.asarray(jl), ln.numpy())
+    assert k.shape == tuple(jk.shape) and q.shape == tuple(jq.shape)
+
+
+def test_wrapper_on_cpu_takes_plain_version_without_launching():
+    case = _to_torch(jcase(SLOTS, PPS, PAGE, H, D, q_len=1))
+    before = tpa.paged_attention.launches
+    out = tpa.paged_attention(*case, page_size=PAGE)
+    ref = tpa.paged_attention_plain(*case, page_size=PAGE)
+    assert torch.equal(out, ref)
+    assert tpa.paged_attention.launches == before
+
+
+def test_non_cpu_tensor_never_gets_the_plain_result(monkeypatch):
+    def broken(*a, **kw):
+        raise RuntimeError("nvcc failed for paged_attention.cu")
+
+    monkeypatch.setattr(_build, "load_library", broken)
+    q = torch.empty((2, 1, 2, 64), device="meta")
+    pages = torch.empty((5, 16, 2, 64), device="meta")
+    table = torch.empty((2, 2), dtype=torch.int32, device="meta")
+    lens = torch.empty((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tpa.paged_attention(q, pages, pages, table, lens, page_size=16)
+    monkeypatch.setattr(_build, "load_library", lambda *a, **kw: object())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tpa.paged_attention(q, pages, pages, table, lens, page_size=16)
+
