@@ -5,11 +5,15 @@ and public names so each counterpart is easy to find
 (``analytics_zoo_tpu_torch.models.transformer.TransformerLM`` ports
 ``analytics_zoo_tpu.models.transformer.TransformerLM``, and so on).
 
-What is ported so far is the autoregressive LM serving path: ``TransformerLM``
-over the paged KV cache, driven by ``serving.generation.ContinuousBatcher``.
-Its two attention kernels are CUDA C++ for Hopper (``csrc/``), built with
-``nvcc`` at first use (``ops/_build.py``). Plain PyTorch versions of both sit
-beside them; a wrapper takes the plain version only for CPU tensors.
+What is ported so far: the autoregressive LM serving path (``TransformerLM``
+over the paged KV cache, driven by ``serving.generation.ContinuousBatcher``)
+and the LM training path (``engine.estimator.Estimator``, or
+``compile``/``fit`` on the model, with the optimizers, losses and
+mixed-precision master weights). Their four attention kernels (flash
+forward and backward, paged attention) are CUDA C++ for Hopper
+(``csrc/``), built with ``nvcc`` at first use (``ops/_build.py``). Plain
+PyTorch versions sit beside them; a wrapper takes the plain version only
+for CPU tensors.
 
 This package imports ``torch`` and never ``jax`` or ``analytics_zoo_tpu``.
 Importing it starts no thread and builds nothing.

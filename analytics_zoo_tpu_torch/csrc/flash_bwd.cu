@@ -1,0 +1,331 @@
+// K3 and K4 — flash-attention backward for Hopper (sm_90a).
+//
+// Replaces: analytics_zoo_tpu/ops/flash_attention.py, `_bwd_dq_kernel` (K3)
+// and `_bwd_dkv_kernel` (K4), launched by `_flash_bwd` under the custom VJP
+// of `flash_attention`; both recompute the tile math of `_bwd_p_ds`.
+//
+// For q, dO (B, Tq, H, D) and k, v (B, Tk, H, D) in their storage dtype (f32
+// or bf16), the f32 row log-sum-exp lse (B, H, Tq) saved by K1 and the f32
+// delta = rowsum(dO * O) (B, H, Tq) computed outside:
+//   P  = exp(q k^T * scale - lse)             (causal: 0 where q_pos < k_pos)
+//   dS = P * (dO v^T - delta) * scale
+//   K3: dQ = dS k                              in q's dtype
+//   K4: dV = P^T dO,  dK = dS^T q              in k's / v's dtype
+// As in the JAX kernels, P and dS are rounded to the operand dtype before
+// each product (a no-op in f32), and every sum is kept in f32.
+//
+// What bounds them on the H100: at the training shape (B=4, T=2048, H=16,
+// D=64, causal) K3 does ~3 and K4 ~4 multiply-adds of length D per (query,
+// key) pair below the diagonal, ~52 and ~69 GFLOP, against ~34 MB of inputs
+// and outputs: bound by operations (tensor-core rate), by a factor of ~50
+// over bytes.
+//
+// What the simple design does about it: nothing yet for the tensor cores —
+// products are f32 FMA loops from shared memory, correct first, as in K1;
+// wgmma/TMA are later work. The structure is the JAX one and needs no
+// atomics: K3 has one block per (64-row Q tile, b*h) that walks the K tiles
+// up to the causal limit and keeps dQ in registers; K4 has one block per
+// (64-key tile, b*h) that walks the Q tiles from the causal start and keeps
+// dK and dV in registers. D/32 neighbouring threads own one row, each
+// holding 32 interleaved elements (d = TPR*i + part) of the row's operands
+// and accumulators, so a dot product is D/32 partial sums joined by
+// shuffles. The streamed tiles are staged as f32 in shared memory with
+// coalesced loads (32 rows: 16 KB at D=64, 32 KB at D=128, under the 48 KB
+// static limit). Keys past Tk and rows past Tq are masked inside the
+// kernels, as in K1, so a ragged T needs no fallback.
+#include <stdint.h>
+
+#include "zoo_cuda.cuh"
+
+namespace {
+
+constexpr int kRows = 64;  // rows a block owns (Q rows in K3, keys in K4)
+constexpr int kTile = 32;  // rows of the streamed tile per shared-memory load
+
+// element strides (batch, position, head) of q, k, v and dO (g)
+struct Strides {
+  long long q[3], k[3], v[3], g[3];
+};
+
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return zoo::to_f(zoo::from_f<T>(x));
+}
+
+// sum of one row's TPR partial dot products (neighbouring lanes)
+template <int TPR>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < TPR; off <<= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void load_row(const T* __restrict__ src, int part,
+                                         float (&dst)[32]) {
+  constexpr int TPR = D / 32;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dst[i] = zoo::to_f(src[TPR * i + part]);
+}
+
+// stage rows [r0, r0 + kTile) of two (rows, D) operands as f32; rows at or
+// past n are zero
+template <typename T, int D, int NT>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ a,
+                                           long long as, const T* __restrict__ b,
+                                           long long bs, int r0, int n,
+                                           float (*sa)[D], float (*sb)[D]) {
+  for (int idx = threadIdx.x; idx < kTile * D; idx += NT) {
+    const int r = idx / D;
+    const int c = idx % D;
+    const int p = r0 + r;
+    float x = 0.f, y = 0.f;
+    if (p < n) {
+      x = zoo::to_f(a[(long long)p * as + c]);
+      y = zoo::to_f(b[(long long)p * bs + c]);
+    }
+    sa[r][c] = x;
+    sb[r][c] = y;
+  }
+}
+
+// K3: dQ for one 64-row Q tile of one (b, h)
+template <typename T, int D>
+__global__ void __launch_bounds__(kRows * D / 32)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ g,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int H, int Tq, int Tk, const Strides s, int causal,
+                        float scale) {
+  constexpr int TPR = D / 32;
+  constexpr int NT = kRows * TPR;
+  __shared__ float ks[kTile][D];
+  __shared__ float vs[kTile][D];
+
+  const int tid = threadIdx.x;
+  const int part = tid % TPR;
+  const int row = tid / TPR;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.x * kRows;
+  const int qpos = q0 + row;
+  const bool active = qpos < Tq;
+  const int qp = active ? qpos : Tq - 1;  // inactive rows compute, never store
+
+  float qr[32], gr[32], acc[32];
+  load_row<T, D>(q + b * s.q[0] + qp * s.q[1] + h * s.q[2], part, qr);
+  load_row<T, D>(g + b * s.g[0] + qp * s.g[1] + h * s.g[2], part, gr);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const float row_lse = lse[(long long)bh * Tq + qp];
+  const float row_delta = delta[(long long)bh * Tq + qp];
+
+  const T* kbase = k + b * s.k[0] + h * s.k[2];
+  const T* vbase = v + b * s.v[0] + h * s.v[2];
+  // causal: keys past the tile's last query row are in every row's future
+  const int kend = causal ? min(Tk, q0 + kRows) : Tk;
+
+  for (int k0 = 0; k0 < kend; k0 += kTile) {
+    __syncthreads();  // the previous tile is fully consumed
+    stage_tile<T, D, NT>(kbase, s.k[1], vbase, s.v[1], k0, Tk, ks, vs);
+    __syncthreads();
+#pragma unroll 2
+    for (int j = 0; j < kTile; ++j) {
+      float sc = 0.f, dp = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc = fmaf(qr[i], ks[j][TPR * i + part], sc);
+        dp = fmaf(gr[i], vs[j][TPR * i + part], dp);
+      }
+      sc = row_sum<TPR>(sc);
+      dp = row_sum<TPR>(dp);
+      const int kp = k0 + j;
+      const bool ok = kp < Tk && (!causal || kp <= qpos);
+      const float p = ok ? expf(sc * scale - row_lse) : 0.f;
+      const float ds = round_to<T>(p * (dp - row_delta) * scale);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = fmaf(ds, ks[j][TPR * i + part], acc[i]);
+    }
+  }
+
+  if (active) {
+    T* out = dq + (((long long)b * Tq + qpos) * H + h) * D;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) out[TPR * i + part] = zoo::from_f<T>(acc[i]);
+  }
+}
+
+// K4: dK and dV for one 64-key tile of one (b, h)
+template <typename T, int D>
+__global__ void __launch_bounds__(kRows * D / 32)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ g,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv, int H, int Tq, int Tk,
+                         const Strides s, int causal, float scale) {
+  constexpr int TPR = D / 32;
+  constexpr int NT = kRows * TPR;
+  __shared__ float qs[kTile][D];
+  __shared__ float gs[kTile][D];
+  __shared__ float ls[kTile];
+  __shared__ float dls[kTile];
+
+  const int tid = threadIdx.x;
+  const int part = tid % TPR;
+  const int row = tid / TPR;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = blockIdx.x * kRows;
+  const int kpos = k0 + row;
+  const bool active = kpos < Tk;
+  const int kp = active ? kpos : Tk - 1;
+
+  float kr[32], vr[32], dka[32], dva[32];
+  load_row<T, D>(k + b * s.k[0] + kp * s.k[1] + h * s.k[2], part, kr);
+  load_row<T, D>(v + b * s.v[0] + kp * s.v[1] + h * s.v[2], part, vr);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    dka[i] = 0.f;
+    dva[i] = 0.f;
+  }
+
+  const T* qbase = q + b * s.q[0] + h * s.q[2];
+  const T* gbase = g + b * s.g[0] + h * s.g[2];
+  const float* lrow = lse + (long long)bh * Tq;
+  const float* drow = delta + (long long)bh * Tq;
+  // causal: query rows before the tile's first key see none of its keys
+  const int qstart = causal ? k0 : 0;
+
+  for (int q0 = qstart; q0 < Tq; q0 += kTile) {
+    __syncthreads();
+    stage_tile<T, D, NT>(qbase, s.q[1], gbase, s.g[1], q0, Tq, qs, gs);
+    if (tid < kTile) {
+      const int p = q0 + tid;
+      ls[tid] = p < Tq ? lrow[p] : 0.f;
+      dls[tid] = p < Tq ? drow[p] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int i = 0; i < kTile; ++i) {
+      float sc = 0.f, dp = 0.f;
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        sc = fmaf(kr[c], qs[i][TPR * c + part], sc);
+        dp = fmaf(vr[c], gs[i][TPR * c + part], dp);
+      }
+      sc = row_sum<TPR>(sc);
+      dp = row_sum<TPR>(dp);
+      const int qp = q0 + i;
+      const bool ok = qp < Tq && (!causal || kpos <= qp);
+      const float p = ok ? expf(sc * scale - ls[i]) : 0.f;
+      const float ds = round_to<T>(p * (dp - dls[i]) * scale);
+      const float pr = round_to<T>(p);
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        dva[c] = fmaf(pr, gs[i][TPR * c + part], dva[c]);
+        dka[c] = fmaf(ds, qs[i][TPR * c + part], dka[c]);
+      }
+    }
+  }
+
+  if (active) {
+    const long long o = (((long long)b * Tk + kpos) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      dk[o + TPR * c + part] = zoo::from_f<T>(dka[c]);
+      dv[o + TPR * c + part] = zoo::from_f<T>(dva[c]);
+    }
+  }
+}
+
+template <typename T, int D>
+void launch_dq(const void* q, const void* k, const void* v, const void* g,
+               const void* lse, const void* delta, void* dq, int B, int H,
+               int Tq, int Tk, const Strides& s, int causal, float scale,
+               cudaStream_t stream) {
+  dim3 grid((Tq + kRows - 1) / kRows, B * H);
+  flash_bwd_dq_kernel<T, D><<<grid, kRows * D / 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), H, Tq, Tk, s, causal, scale);
+}
+
+template <typename T, int D>
+void launch_dkv(const void* q, const void* k, const void* v, const void* g,
+                const void* lse, const void* delta, void* dk, void* dv, int B,
+                int H, int Tq, int Tk, const Strides& s, int causal,
+                float scale, cudaStream_t stream) {
+  dim3 grid((Tk + kRows - 1) / kRows, B * H);
+  flash_bwd_dkv_kernel<T, D><<<grid, kRows * D / 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, Tk, s, causal, scale);
+}
+
+}  // namespace
+
+// Strides are in elements: (batch, position, head) for q, k, v and dO (g);
+// head dims are contiguous. lse and delta are contiguous (B, H, Tq) f32;
+// dq is a contiguous (B, Tq, H, D) tensor and dk, dv contiguous
+// (B, Tk, H, D) tensors in the storage dtype. Each entry returns
+// cudaGetLastError() after its launch (cudaErrorInvalidValue for a
+// dtype/head-dim it does not take).
+extern "C" int zoo_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* g, const void* lse,
+                                const void* delta, void* dq, int dtype, int B,
+                                int H, int Tq, int Tk, int D, long long qsb,
+                                long long qst, long long qsh, long long ksb,
+                                long long kst, long long ksh, long long vsb,
+                                long long vst, long long vsh, long long gsb,
+                                long long gst, long long gsh, int causal,
+                                float scale, void* stream) {
+  const Strides s{{qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh},
+                  {gsb, gst, gsh}};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Tq < 1 || Tk < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == zoo::kF32 && D == 64)
+    launch_dq<float, 64>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
+  else if (dtype == zoo::kF32 && D == 128)
+    launch_dq<float, 128>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
+  else if (dtype == zoo::kBF16 && D == 64)
+    launch_dq<__nv_bfloat16, 64>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
+  else if (dtype == zoo::kBF16 && D == 128)
+    launch_dq<__nv_bfloat16, 128>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int zoo_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* g, const void* lse,
+                                 const void* delta, void* dk, void* dv,
+                                 int dtype, int B, int H, int Tq, int Tk,
+                                 int D, long long qsb, long long qst,
+                                 long long qsh, long long ksb, long long kst,
+                                 long long ksh, long long vsb, long long vst,
+                                 long long vsh, long long gsb, long long gst,
+                                 long long gsh, int causal, float scale,
+                                 void* stream) {
+  const Strides s{{qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh},
+                  {gsb, gst, gsh}};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Tq < 1 || Tk < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == zoo::kF32 && D == 64)
+    launch_dkv<float, 64>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
+  else if (dtype == zoo::kF32 && D == 128)
+    launch_dkv<float, 128>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
+  else if (dtype == zoo::kBF16 && D == 64)
+    launch_dkv<__nv_bfloat16, 64>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
+  else if (dtype == zoo::kBF16 && D == 128)
+    launch_dkv<__nv_bfloat16, 128>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}

@@ -8,9 +8,23 @@ param tree (``token_embeddings``, ``block0.attn.qkv_kernel``, ``ln_f.gamma``,
 model's weights. The JAX methods take ``params`` first; here the module's
 own parameters are used and the remaining arguments are the same. Like the
 layers, the model keeps the JAX method name ``apply`` for its forward,
-which shadows ``nn.Module.apply(fn)``.
+which shadows ``nn.Module.apply(fn)``; as a :class:`KerasNet` it also keeps
+``compile``/``fit``/``predict``, and ``compile`` shadows
+``nn.Module.compile``.
 
-Not ported yet: remat, ``prefill_from``, ``prefill_chunk``,
+``apply`` and ``apply_features`` are differentiable: training runs them
+through the Estimator (``model.compile(optimizer="adam", loss=lm_loss);
+model.fit(x, y, batch_size, nb_epoch)``). The serving steps stay under
+``torch.no_grad``. Remat modes: ``False`` keeps every activation;
+``"full"`` checkpoints each block whole, so K1 runs again in backward;
+``True``/``"flash"`` checkpoints the ln1+QKV segment and the
+out-projection+MLP segment of each block separately and keeps the flash
+call between them, whose Function holds its own ``(q, k, v, out, lse)`` —
+K1 never runs again in backward (the guarantee of the JAX
+``FLASH_REMAT_POLICY``; unlike it, q/k/v stay saved rather than being
+recomputed from the block input). ``"dots"`` is not ported.
+
+Not ported yet: remat ``"dots"``, ``prefill_from``, ``prefill_chunk``,
 ``verify_step`` and ``PipelinedTransformerLM`` (ROADMAP Queue 1).
 """
 
@@ -20,21 +34,39 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.layers.attention import TransformerLayer
 from ..nn.layers.normalization import LayerNormalization
 from ..nn.module import (as_compute, compute_dtype, embedding_normal,
-                         glorot_uniform, resolve_device)
+                         glorot_uniform, precision_policy, resolve_device)
+from ..nn.topology import KerasNet
 from ..ops.kv_cache import (KVCacheConfig, init_cache, prefill_write,
                             sample_tokens)
 
+_REMAT_MODES = (False, "flash", "full")
 
-class TransformerLM(nn.Module):
+
+def _checkpointed(fn, *args):
+    """``torch.utils.checkpoint`` of ``fn`` with the compute dtype of this
+    forward pinned for its recompute in backward."""
+    dt = compute_dtype()
+
+    def seg(*a):
+        with precision_policy(compute_dtype=dt):
+            return fn(*a)
+
+    return checkpoint(seg, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+class TransformerLM(KerasNet, nn.Module):
     """Decoder-only LM. ``device``: where the weights live — CUDA unless
     the caller names another device; raises when CUDA is absent and no
     device is given. ``seed`` draws the initial weights (normal·0.02
     embeddings, glorot-uniform kernels, zero biases) from a CPU generator,
-    so a seed gives the same weights on every device."""
+    so a seed gives the same weights on every device. ``remat``: False,
+    True/"flash" or "full" (module docstring)."""
 
     def __init__(self, vocab: int, hidden_size: int = 256, n_block: int = 4,
                  n_head: int = 8, seq_len: int = 512,
@@ -42,10 +74,15 @@ class TransformerLM(nn.Module):
                  attn_strategy: str = "auto", remat=False, *,
                  device=None, seed: int = 0):
         super().__init__()
-        if remat:
+        remat = "flash" if remat is True else remat
+        if remat == "dots":
             raise NotImplementedError(
-                "remat is part of training (ROADMAP Queue 1, training the "
-                "LM); the serving port runs without it")
+                "remat='dots' (the flash policy plus saved matmul outputs) "
+                "is not ported (ROADMAP Queue 1); use 'flash' or 'full'")
+        if remat not in _REMAT_MODES:
+            raise ValueError(f"unknown remat mode {remat!r}; known: False, "
+                             f"True/'flash', 'full', 'dots'")
+        self.remat = remat
         self.device = resolve_device(device)
         self.vocab = vocab
         self.hidden_size = hidden_size
@@ -79,17 +116,28 @@ class TransformerLM(nn.Module):
     def _head(self, h: torch.Tensor) -> torch.Tensor:
         return h @ self.logits_kernel.to(h.dtype)
 
-    @torch.no_grad()
+    def _block(self, blk: TransformerLayer, h: torch.Tensor) -> torch.Tensor:
+        if not self.remat or not torch.is_grad_enabled():
+            return blk.apply(h)
+        if self.remat == "full":
+            return _checkpointed(blk.apply, h)
+        # "flash": the attention call sits between two checkpointed
+        # segments, so its saved (q, k, v, out, lse) survive and backward
+        # goes straight to K3 + K4
+        qkv = _checkpointed(blk.attn_qkv, h)
+        return _checkpointed(blk.attn_tail, h, blk.attend(qkv))
+
     def apply_features(self, x) -> torch.Tensor:
-        """Hidden states before the LM head: (B, T, hidden)."""
+        """Hidden states before the LM head: (B, T, hidden). Pair with
+        :func:`~analytics_zoo_tpu_torch.ops.fused_ce.fused_softmax_xent`
+        to train without the (B, T, vocab) logits."""
         ids = self._ids(x)
         h = self.token_embeddings[ids] + self.pos_embeddings[:ids.shape[1]][None]
         h = as_compute(h)
         for blk in self.blocks:
-            h = blk.apply(h)
+            h = self._block(blk, h)
         return self.ln_f(h)
 
-    @torch.no_grad()
     def apply(self, x) -> torch.Tensor:
         """Logits (B, T, vocab) in the compute dtype."""
         return self._head(self.apply_features(x))
@@ -187,4 +235,15 @@ class TransformerLM(nn.Module):
                                   "prefill)")
 
 
-__all__ = ["TransformerLM"]
+def lm_loss(y_true, logits) -> torch.Tensor:
+    """Next-token cross entropy over (B, T) int targets and (B, T, V)
+    logits, in f32 and in the lse form (CE = logsumexp(z) − z[label]), as
+    the JAX package computes it."""
+    logits = logits.float()
+    labels = torch.as_tensor(y_true, device=logits.device).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(lse - picked)
+
+
+__all__ = ["TransformerLM", "lm_loss"]

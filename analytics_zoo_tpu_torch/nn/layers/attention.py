@@ -6,8 +6,18 @@ projection is one ``qkv_kernel`` of shape (d, 3·hidden) computed as
 without transposes (:mod:`analytics_zoo_tpu_torch.bridge`). The forward
 keeps the JAX name ``apply``, which shadows ``nn.Module.apply(fn)``.
 
+The forwards are differentiable: training runs them under autograd, with
+the flash strategy going through ``FlashAttentionFunction`` (K1 forward,
+K3 + K4 backward). ``TransformerLayer`` also exposes its two remat split
+points, :meth:`~TransformerLayer.attn_qkv` (ln1 + fused QKV) and
+:meth:`~TransformerLayer.attn_tail` (out-projection + residual + MLP), so a
+caller can checkpoint each segment while the attention call between them
+keeps its own saved tensors (``TransformerLM(remat="flash")``).
+
 Not ported yet: ``PositionalEmbedding``, ``BERT``, the mesh-sharded
-strategies (``ring``, ``zigzag``, ``ulysses``) and training-mode dropout.
+strategies (``ring``, ``zigzag``, ``ulysses``) and dropout: ``TransformerLM``
+builds its blocks with ``dropout=0.0``, and ``TransformerLayer`` raises for
+any other rate (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -60,12 +70,16 @@ class MultiHeadAttention(nn.Module):
                                  device)
         self.out_bias = _param(zeros_init((hidden_size,)), device)
 
+    def qkv_fused(self, x: torch.Tensor) -> torch.Tensor:
+        """Fused QKV projection → one (B, T, 3, n_head, head_dim) tensor."""
+        b, t, _ = x.shape
+        qkv = x @ self.qkv_kernel.to(x.dtype) + self.qkv_bias.to(x.dtype)
+        return qkv.reshape(b, t, 3, self.n_head, self.head_dim)
+
     def qkv_proj(self, x: torch.Tensor):
         """Fused QKV projection → (q, k, v), each a (B, T, n_head, head_dim)
         view into one (B, T, 3, H, Dh) tensor."""
-        b, t, _ = x.shape
-        qkv = x @ self.qkv_kernel.to(x.dtype) + self.qkv_bias.to(x.dtype)
-        qkv = qkv.reshape(b, t, 3, self.n_head, self.head_dim)
+        qkv = self.qkv_fused(x)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
     def out_proj(self, o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -75,6 +89,8 @@ class MultiHeadAttention(nn.Module):
         return o @ self.out_kernel.to(dtype) + self.out_bias.to(dtype)
 
     def _attend(self, q, k, v, t: int):
+        """Strategy dispatch: (B, T, n_head, head_dim) q/k/v → output of
+        the same shape."""
         if self._flash_single_device(t, q.device):
             return flash_attention(q, k, v, self.causal)
         return full_attention(q, k, v, causal=self.causal)
@@ -111,9 +127,13 @@ class TransformerLayer(nn.Module):
     def __init__(self, hidden_size: int, n_head: int,
                  intermediate_size: Optional[int] = None,
                  causal: bool = False, activation="gelu",
-                 attn_strategy: str = "auto", *,
+                 dropout: float = 0.0, attn_strategy: str = "auto", *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
+        if dropout:
+            raise NotImplementedError(
+                f"dropout={dropout}: training-mode dropout is not ported "
+                f"(ROADMAP Queue 1); TransformerLM builds its blocks with 0")
         self.hidden_size = hidden_size
         self.intermediate = intermediate_size or 4 * hidden_size
         self.activation = get_activation(activation)
@@ -146,6 +166,21 @@ class TransformerLayer(nn.Module):
         x = as_compute(x)
         x = x + self.attn.apply(self.ln1(x))
         return self._mlp(x)
+
+    def attn_qkv(self, x: torch.Tensor) -> torch.Tensor:
+        """Remat split point 1: ln1 + the fused QKV projection, as one
+        (B, T, 3, n_head, head_dim) tensor."""
+        return self.attn.qkv_fused(self.ln1(as_compute(x)))
+
+    def attend(self, qkv: torch.Tensor) -> torch.Tensor:
+        """The attention call between the split points."""
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        return self.attn._attend(q, k, v, qkv.shape[1])
+
+    def attn_tail(self, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+        """Remat split point 2: out-projection + residual + ln2/MLP."""
+        x = as_compute(x)
+        return self._mlp(x + self.attn.out_proj(o, x.dtype))
 
     def apply_with_kv(self, x: torch.Tensor):
         """Prefill forward: the ``apply`` computation that also returns this

@@ -1,8 +1,9 @@
 """Precision policy, device resolution and the initializers the LM uses.
 
 Port of the parts of ``analytics_zoo_tpu/nn/module.py`` that the serving
-path needs: the process-wide (param, compute) dtype policy, ``as_compute``,
-and the ``glorot_uniform`` / normal·0.02 / zeros initializers that
+and training paths need: the process-wide (param, compute) dtype policy,
+its scoped form ``precision_policy``, ``as_compute``, ``cast_params``, and
+the ``glorot_uniform`` / normal·0.02 / zeros initializers that
 ``TransformerLM.build`` draws from. Draws come from an explicit
 ``torch.Generator`` on the CPU, so a seed gives the same weights whatever
 device they end up on (they do not reproduce JAX's draws: parity tests load
@@ -11,6 +12,7 @@ the JAX weights through :mod:`analytics_zoo_tpu_torch.bridge`).
 
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 from typing import Sequence, Tuple, Union
@@ -47,6 +49,35 @@ def param_dtype() -> torch.dtype:
 
 def compute_dtype() -> torch.dtype:
     return _POLICY["compute_dtype"]
+
+
+@contextlib.contextmanager
+def precision_policy(param_dtype=None, compute_dtype=None):
+    """Scoped :func:`set_policy`: the override holds for the dynamic
+    extent of the block and the previous policy is restored on exit. The
+    training engine wraps each step in it, so ``TrainConfig.compute_dtype``
+    reaches exactly the forward passes it owns."""
+    with _POLICY_LOCK:
+        prev = dict(_POLICY)
+    set_policy(param_dtype, compute_dtype)
+    try:
+        yield
+    finally:
+        with _POLICY_LOCK:
+            _POLICY.clear()
+            _POLICY.update(prev)
+
+
+def cast_params(module: torch.nn.Module, dtype) -> torch.nn.Module:
+    """Cast every floating parameter of ``module`` to ``dtype`` in place
+    (the JAX ``cast_params`` over a param tree); integer buffers keep
+    their dtype. Returns the module."""
+    dt = _as_dtype(dtype)
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.is_floating_point() and p.dtype != dt:
+                p.data = p.data.to(dt)
+    return module
 
 
 def as_compute(x: torch.Tensor) -> torch.Tensor:
@@ -105,6 +136,6 @@ def ones_init(shape: Sequence[int]) -> torch.Tensor:
     return torch.ones(tuple(shape), dtype=param_dtype())
 
 
-__all__ = ["as_compute", "compute_dtype", "embedding_normal",
-           "glorot_uniform", "ones_init", "param_dtype", "resolve_device",
-           "set_policy", "zeros_init"]
+__all__ = ["as_compute", "cast_params", "compute_dtype", "embedding_normal",
+           "glorot_uniform", "ones_init", "param_dtype", "precision_policy",
+           "resolve_device", "set_policy", "zeros_init"]

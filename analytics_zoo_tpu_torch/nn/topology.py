@@ -1,0 +1,87 @@
+"""Keras-style training API (port of ``KerasNet`` in ``nn/topology.py``).
+
+:class:`KerasNet` is the mixin that gives a module ``compile`` / ``fit`` /
+``predict`` over the port's :class:`~..engine.estimator.Estimator`. Put it
+before ``nn.Module`` in the bases: its ``compile`` (the Keras one)
+shadows ``nn.Module.compile``.
+
+Not ported yet: ``evaluate`` and metrics (``nn/metrics.py``), weights
+files, TensorBoard and checkpoint sugar, and the ``Sequential`` / ``Model``
+graph containers (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+
+from ..common.config import TrainConfig
+from ..common.triggers import Trigger
+
+
+class KerasNet:
+    """Mixin adding compile/fit/predict to a module whose ``apply(x)`` is
+    its forward."""
+
+    def compile(self, optimizer="sgd", loss="mse", metrics: Sequence = (),
+                config: Optional[TrainConfig] = None, mesh=None,
+                param_sharding=None, *, device=None) -> "KerasNet":
+        """Configure the learning process: builds the Estimator."""
+        from ..engine.estimator import Estimator
+
+        if metrics:
+            raise NotImplementedError(
+                "metrics need evaluate and nn/metrics.py (ROADMAP Queue 1)")
+        self.estimator = Estimator(self, optimizer=optimizer, loss=loss,
+                                   mesh=mesh, config=config,
+                                   param_sharding=param_sharding,
+                                   device=device)
+        return self
+
+    def _require_compiled(self):
+        if getattr(self, "estimator", None) is None:
+            raise RuntimeError("call compile(...) first")
+
+    def set_gradient_clipping_by_l2_norm(self, clip_norm: float):
+        self._require_compiled()
+        self.estimator.set_gradient_clipping(clip_norm=clip_norm)
+        return self
+
+    def set_constant_gradient_clipping(self, min_value: float,
+                                       max_value: float):
+        self._require_compiled()
+        self.estimator.set_gradient_clipping(clip_value=(min_value,
+                                                         max_value))
+        return self
+
+    def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 1,
+            validation_data=None, end_trigger: Optional[Trigger] = None,
+            seed: int = 0):
+        """Train on a FeatureSet, or on ``x`` (an array or a list of
+        arrays) and ``y``."""
+        from ..data.featureset import FeatureSet
+
+        self._require_compiled()
+        if isinstance(x, FeatureSet):
+            data = x
+        else:
+            xs = tuple(x) if isinstance(x, (list, tuple)) else x
+            data = FeatureSet.from_numpy(xs, y)
+        self.estimator.fit(data, batch_size=batch_size, epochs=nb_epoch,
+                           end_trigger=end_trigger,
+                           validation_data=validation_data, seed=seed)
+        return self
+
+    def predict(self, x, batch_size: int = 256,
+                distributed: bool = True) -> np.ndarray:
+        self._require_compiled()
+        return self.estimator.predict(x, batch_size=batch_size)
+
+    def predict_classes(self, x, batch_size: int = 256,
+                        zero_based_label=True):
+        cls = np.argmax(self.predict(x, batch_size), axis=-1)
+        return cls if zero_based_label else cls + 1
+
+
+__all__ = ["KerasNet"]

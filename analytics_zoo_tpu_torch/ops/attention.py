@@ -1,6 +1,8 @@
 """Single-device attention (port of the parts of ``ops/attention.py`` the
-serving path uses). The sequence-parallel strategies (ring, zigzag, Ulysses)
-are not ported yet."""
+serving and training paths use). ``full_attention`` is plain differentiable
+PyTorch: the "full" strategy, and the oracle the flash kernels are tested
+against. The sequence-parallel strategies (ring, zigzag, Ulysses) are not
+ported yet."""
 
 from __future__ import annotations
 

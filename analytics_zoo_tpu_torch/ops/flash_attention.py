@@ -1,15 +1,23 @@
-"""Flash-attention forward: the K1 kernel, its wrapper and its plain version.
+"""Flash attention: the K1 forward and K3/K4 backward kernels, their
+wrappers, their plain versions and the autograd Function joining them.
 
-Port of the forward half of ``analytics_zoo_tpu/ops/flash_attention.py``.
-The kernel (``csrc/flash_fwd.cu``) replaces the Pallas ``_fwd_kernel``: a
-tiled online-softmax attention that never materializes the (T, T) scores,
-skips K tiles wholly in the future under the causal mask, and writes the
-output in the storage dtype plus the f32 row log-sum-exp (B, H, T). The LSE
-is part of the contract: ring attention and rematerialization in later
-slices consume it. Unlike the JAX entry point, a T that does not divide the
-tile is masked inside the kernel; there is no fall back to full attention.
+Port of ``analytics_zoo_tpu/ops/flash_attention.py``. K1
+(``csrc/flash_fwd.cu``) replaces the Pallas ``_fwd_kernel``: a tiled
+online-softmax attention that never materializes the (T, T) scores, skips K
+tiles wholly in the future under the causal mask, and writes the output in
+the storage dtype plus the f32 row log-sum-exp (B, H, T). K3 and K4
+(``csrc/flash_bwd.cu``) replace ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``:
+they recompute P = exp(S - lse) tile by tile from the saved LSE, so the
+backward never holds the (T, T) probabilities either. δ = rowsum(dO∘O) is a
+plain op outside the kernels, as in JAX. Unlike the JAX entry point, a T
+that does not divide the tile is masked inside the kernels; there is no fall
+back to full attention.
 
-The backward kernels (K3, K4) are not ported yet.
+:class:`FlashAttentionFunction` is the counterpart of the JAX custom VJP:
+K1 forward, saving ``(q, k, v, out, lse)``; K3 + K4 backward. Because the
+Function keeps its own saved tensors, a block checkpointed around it (the
+``remat="flash"`` mode of ``TransformerLM``) never re-runs K1 in backward —
+what ``FLASH_REMAT_POLICY`` guarantees in JAX.
 
 Layout (B, T, H, D) as everywhere in the package. The wrapper takes any
 strides with a contiguous head dim, so q/k/v sliced out of the fused QKV
@@ -32,6 +40,12 @@ _HEAD_DIMS = (64, 128)
 _SIG = {"zoo_flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
         + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_float,
                                      ctypes.c_void_p]}
+_TAIL = [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_void_p]
+_BWD_SIG = {"zoo_flash_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+            + _TAIL,
+            "zoo_flash_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+            + _TAIL}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,10 +125,191 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 
 
+def _bwd_p_ds_plain(q, k, v, g, lse, delta, causal: bool):
+    """The shared backward tile math of ``_bwd_p_ds``, over whole rows: P
+    recomputed from the saved LSE and dS = P∘(dP − δ)·scale, both
+    (B, H, Tq, Tk) f32. Storage-dtype operands are multiplied in f32 (a
+    bf16×bf16 product is exact there) and summed in f32."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        q_pos = torch.arange(q.shape[1], device=q.device)
+        k_pos = torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_bwd_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """δ = rowsum(dO∘O) in f32 as a contiguous (B, H, Tq) tensor — a plain
+    op outside the kernels, as in JAX (O(T·D))."""
+    return (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _dq_from(ds, q, k):
+    return torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
+                        k.float()).to(q.dtype)
+
+
+def _dkv_from(p, ds, q, k, v, g):
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).float(), g.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, causal=False):
+    """What K3 computes: dQ = dS·K with dS rounded to k's dtype first."""
+    _, ds = _bwd_p_ds_plain(q, k, v, g, lse, delta, causal)
+    return _dq_from(ds, q, k)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, causal=False):
+    """What K4 computes: dV = Pᵀ·dO and dK = dSᵀ·Q, with P and dS rounded
+    to the operand dtype first. Returns ``(dk, dv)``."""
+    p, ds = _bwd_p_ds_plain(q, k, v, g, lse, delta, causal)
+    return _dkv_from(p, ds, q, k, v, g)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, g: torch.Tensor,
+                              causal: bool = False
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """What K3 and K4 compute together, step by step as ``_bwd_p_ds``
+    does: δ, then P recomputed from the saved LSE, dS = P∘(dP − δ)·scale,
+    and P/dS rounded to the operand dtype before each product. Returns
+    ``(dq, dk, dv)`` in q's, k's and v's dtypes."""
+    delta = flash_bwd_delta(out, g)
+    p, ds = _bwd_p_ds_plain(q, k, v, g, lse, delta, causal)
+    return (_dq_from(ds, q, k), *_dkv_from(p, ds, q, k, v, g))
+
+
+def _check_bwd(q, k, v, g, lse, delta) -> None:
+    _check(q, k, v)
+    b, t_q, h, _ = q.shape
+    if g.device != q.device or g.shape != q.shape or g.dtype != q.dtype \
+            or g.stride(-1) != 1:
+        raise ValueError(f"flash_attention_bwd: g must be a (B, Tq, H, D) "
+                         f"CUDA tensor like q, in its dtype, with a "
+                         f"contiguous head dim; got {g.dtype}"
+                         f"{tuple(g.shape)} on {g.device}, stride "
+                         f"{g.stride()}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.device != q.device or t.dtype != torch.float32 \
+                or t.shape != (b, h, t_q) or not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be a "
+                             f"contiguous (B, H, Tq) f32 CUDA tensor, got "
+                             f"{t.dtype}{tuple(t.shape)} on {t.device}")
+
+
+def _bwd_args(q, k, v, g, lse, delta, causal):
+    b, t_q, h, d = q.shape
+    strides = []
+    for t in (q, k, v, g):
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+             lse.data_ptr(), delta.data_ptr()),
+            (_DTYPE_CODES[q.dtype], b, h, t_q, k.shape[1], d, *strides,
+             int(bool(causal)), 1.0 / math.sqrt(d),
+             torch.cuda.current_stream(q.device).cuda_stream))
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, g: torch.Tensor,
+                           lse: torch.Tensor, delta: torch.Tensor,
+                           causal: bool = False) -> torch.Tensor:
+    """K3: dQ (B, Tq, H, D) in q's dtype from the saved LSE and δ. CPU
+    tensors take :func:`flash_attention_bwd_dq_plain`; CUDA tensors launch
+    K3 or raise."""
+    if all(t.device.type == "cpu" for t in (q, k, v, g, lse, delta)):
+        return flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, causal)
+    lib = _build.load_library("flash_bwd", _BWD_SIG)
+    _check_bwd(q, k, v, g, lse, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    ptrs, rest = _bwd_args(q, k, v, g, lse, delta, causal)
+    err = lib.zoo_flash_bwd_dq(*ptrs, dq.data_ptr(), *rest)
+    _build.check_launch(err, "flash_attention_bwd_dq (K3)")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, g: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor,
+                            causal: bool = False
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: ``(dk, dv)``, each (B, Tk, H, D) in k's/v's dtype. CPU tensors
+    take :func:`flash_attention_bwd_dkv_plain`; CUDA tensors launch K4 or
+    raise."""
+    if all(t.device.type == "cpu" for t in (q, k, v, g, lse, delta)):
+        return flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, causal)
+    lib = _build.load_library("flash_bwd", _BWD_SIG)
+    _check_bwd(q, k, v, g, lse, delta)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    ptrs, rest = _bwd_args(q, k, v, g, lse, delta, causal)
+    err = lib.zoo_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *rest)
+    _build.check_launch(err, "flash_attention_bwd_dkv (K4)")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+#: K3 / K4 launches since the count was last set to 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                        causal: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash backward from K1's ``out`` and ``lse`` (B, H, Tq) f32 and the
+    output grad ``g`` → ``(dq, dk, dv)``. CPU tensors take
+    :func:`flash_attention_bwd_plain`; CUDA tensors launch K3 then K4 or
+    raise."""
+    if all(t.device.type == "cpu" for t in (q, k, v, out, lse, g)):
+        return flash_attention_bwd_plain(q, k, v, out, lse, g, causal)
+    if out.shape != q.shape or out.device != q.device:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} on "
+                         f"{out.device} does not match q {tuple(q.shape)}")
+    delta = flash_bwd_delta(out, g)
+    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K1 forward saving ``(q, k, v, out, lse)``; K3 + K4 backward (the
+    port of the JAX custom VJP). On CPU tensors both halves take their
+    plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g.stride(-1) != 1:
+            g = g.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
-    """Blockwise attention, (B, T, H, D) → (B, T, H, D)."""
-    return flash_attention_fwd(q, k, v, causal)[0]
+    """Blockwise attention, (B, T, H, D) → (B, T, H, D); differentiable
+    through :class:`FlashAttentionFunction`."""
+    return FlashAttentionFunction.apply(q, k, v, causal)
 
 
-__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain"]
+__all__ = ["FlashAttentionFunction", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dq_plain", "flash_attention_bwd_plain",
+           "flash_attention_fwd", "flash_attention_plain", "flash_bwd_delta"]

@@ -13,12 +13,18 @@ package donating the cache into each jitted step
 copy. The write functions still return the pool, so call sites read like
 the JAX ones.
 
+Sampling at temperature > 0 reproduces the JAX package's threefry draw bit
+for bit: :func:`gumbel_max_plain` in torch ops (the CPU path and the
+yardstick), :func:`gumbel_max` in one CUDA launch (``csrc/sample.cu``) for
+tensors on the card.
+
 Not ported yet: ``PrefixCache``, ``prefix_block_key`` and ``copy_page``
 (the shared-prefix cache).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 import threading
@@ -26,6 +32,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from . import _build
 
 NEG_INF = -1e30
 
@@ -271,8 +279,13 @@ def decode_attention_multi(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# sampling — per-request generators so scheduling never changes a stream
+# sampling — per-request keys so scheduling never changes a stream, drawn
+# with the JAX package's threefry bits so both packages sample alike
 # ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
 
 def _host_list(x) -> list:
     if isinstance(x, torch.Tensor):
@@ -280,14 +293,105 @@ def _host_list(x) -> list:
     return np.asarray(x).reshape(-1).tolist()
 
 
-def _row_generator(seed: int, token_idx: int) -> torch.Generator:
-    """The draw for token ``token_idx`` of request ``seed``: a CPU
-    generator seeded from the pair, so the token does not depend on the
-    slot or decode step it lands in, nor on the device."""
-    g = torch.Generator(device="cpu")
-    g.manual_seed(((int(seed) & 0xFFFFFFFF) << 32)
-                  | (int(token_idx) & 0xFFFFFFFF))
-    return g
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash (20 rounds), as ``jax.random`` computes it:
+    uint32 arithmetic carried in Python ints or int64 tensors (every value
+    in ``[0, 2**32)``, masked after each add). Tensor arguments broadcast;
+    returns the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = ((x2 << r) | (x2 >> (32 - r))) & _M32
+            x2 = x1 ^ x2
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x1, x2
+
+
+def _fold_keys(seeds, token_idx) -> List[tuple]:
+    """``fold_in(PRNGKey(seed), idx)`` per row, on the host in Python ints
+    (a few rows, no device launches): the key ``(0, seed mod 2**32)``
+    hashes the count pair ``(0, idx)``."""
+    return [threefry2x32(0, int(s) & _M32, 0, int(i) & _M32)
+            for s, i in zip(_host_list(seeds), _host_list(token_idx))]
+
+
+def sample_bits(seeds, token_idx, v: int, device=None) -> torch.Tensor:
+    """``jax.random.bits(fold_in(PRNGKey(seed), token_idx), (v,), uint32)``
+    for each row, as an int64 (B, v) tensor on ``device``: with
+    ``jax_threefry_partitionable`` (the default of the JAX the package is
+    tested against) element ``j`` is the xor of the two words hashed from
+    the count pair ``(0, j)`` under the folded key."""
+    keys = _fold_keys(seeds, token_idx)
+    k1, k2 = (torch.tensor([k[w] for k in keys], dtype=torch.int64,
+                           device=device)[:, None] for w in (0, 1))
+    j = torch.arange(v, dtype=torch.int64, device=device)[None, :]
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(j), j)
+    return b1 ^ b2
+
+
+def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.gumbel``'s default ("low") transform of 32 random bits:
+    a uniform in [tiny, 1) from the top 23 bits as the mantissa of a float
+    in [1, 2), then ``-log(-log(u))``."""
+    tiny = torch.finfo(torch.float32).tiny
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    # uniform(minval=tiny, maxval=1): the span 1 - tiny rounds to 1 in f32
+    u = torch.clamp_min(mant.view(torch.float32) - 1.0 + tiny, tiny)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_max_plain(scaled: torch.Tensor, rows: Sequence[int], seeds,
+                     token_idx) -> torch.Tensor:
+    """What the sampling kernel computes, in torch ops: for each hot row
+    ``rows[i]`` of the (B, V) f32 ``scaled`` logits, the argmax of
+    Gumbel noise from :func:`sample_bits` plus the row — the draw of
+    ``jax.random.categorical``. Returns (n,) int64 token ids."""
+    bits = sample_bits(seeds, token_idx, scaled.shape[-1], scaled.device)
+    idx = torch.tensor(list(rows), device=scaled.device)
+    return torch.argmax(gumbel_from_bits(bits) + scaled[idx], dim=-1)
+
+
+_SAMPLE_SIG = {"zoo_gumbel_max": [ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_int, ctypes.c_void_p]}
+
+
+def gumbel_max(scaled: torch.Tensor, rows: Sequence[int], seeds,
+               token_idx) -> torch.Tensor:
+    """:func:`gumbel_max_plain` in one launch of ``csrc/sample.cu``
+    (threefry bits, the Gumbel transform and the row argmax fused). CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise. ``scaled`` must be a contiguous (B, V) f32 tensor."""
+    if scaled.device.type == "cpu":
+        return gumbel_max_plain(scaled, rows, seeds, token_idx)
+    lib = _build.load_library("sample", _SAMPLE_SIG)
+    if scaled.device.type != "cuda" or scaled.dtype != torch.float32 \
+            or scaled.dim() != 2 or not scaled.is_contiguous():
+        raise ValueError(f"gumbel_max: scaled must be a contiguous (B, V) "
+                         f"f32 CUDA tensor, got {scaled.dtype}"
+                         f"{tuple(scaled.shape)} on {scaled.device}")
+    rows = [int(r) for r in rows]
+    if not rows or not all(0 <= r < scaled.shape[0] for r in rows):
+        raise ValueError(f"gumbel_max: rows {rows} not in [0, "
+                         f"{scaled.shape[0]})")
+    keys = _fold_keys(seeds, token_idx)
+    meta = torch.tensor([[r, k1, k2] for r, (k1, k2) in zip(rows, keys)],
+                        dtype=torch.int64).to(scaled.device)
+    out = torch.empty(len(rows), dtype=torch.int64, device=scaled.device)
+    err = lib.zoo_gumbel_max(
+        scaled.data_ptr(), scaled.shape[1], meta.data_ptr(), out.data_ptr(),
+        len(rows), torch.cuda.current_stream(scaled.device).cuda_stream)
+    _build.check_launch(err, "gumbel_max")
+    gumbel_max.launches += 1
+    return out
+
+
+#: sampling-kernel launches since the count was last set to 0
+gumbel_max.launches = 0
 
 
 def sample_tokens(logits: torch.Tensor, seeds, token_idx, temperature, *,
@@ -298,15 +402,16 @@ def sample_tokens(logits: torch.Tensor, seeds, token_idx, temperature, *,
     the request's seed and the token's ordinal in the stream;
     ``temperature``: (B,); rows at <= 0 take argmax (greedy, first index on
     ties, as in the JAX package). ``top_k``: 0 = full distribution, else
-    only the k highest logits. Rows at temperature > 0 draw by Gumbel-max
-    with noise from a generator seeded by (seed, token_idx): deterministic
-    per stream, but not the JAX package's threefry bits.
+    only the k highest logits. Rows at temperature > 0 draw as
+    ``jax.random.categorical(fold_in(PRNGKey(seed), token_idx), row)`` does
+    — Gumbel-max over :func:`sample_bits`, through :func:`gumbel_max` — so
+    a stream's tokens are the JAX package's and do not depend on the slot
+    or the decode step.
 
     ``return_probs``: also return the (B, V) f32 post-temperature/top_k
     distribution.
     """
     logits = logits.float()
-    seeds, token_idx = _host_list(seeds), _host_list(token_idx)
     temp = torch.tensor(_host_list(temperature), dtype=torch.float32)
     greedy = torch.argmax(logits, dim=-1)
     scaled = logits / temp.clamp_min(1e-6).to(logits.device)[:, None]
@@ -317,13 +422,10 @@ def sample_tokens(logits: torch.Tensor, seeds, token_idx, temperature, *,
     tokens = greedy.clone()
     hot = [i for i, t in enumerate(temp.tolist()) if t > 0]
     if hot:
-        v = logits.shape[-1]
-        u = torch.stack([torch.rand(v, generator=_row_generator(
-            seeds[i], token_idx[i])) for i in hot]).to(logits.device)
-        tiny = torch.finfo(torch.float32).tiny
-        gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
-        rows = torch.tensor(hot, device=logits.device)
-        tokens[rows] = torch.argmax(scaled[rows] + gumbel, dim=-1)
+        seeds, token_idx = _host_list(seeds), _host_list(token_idx)
+        tokens[torch.tensor(hot, device=logits.device)] = gumbel_max(
+            scaled.contiguous(), hot, [seeds[i] for i in hot],
+            [token_idx[i] for i in hot])
     tokens = tokens.to(torch.int32)
     if not return_probs:
         return tokens
@@ -332,6 +434,8 @@ def sample_tokens(logits: torch.Tensor, seeds, token_idx, temperature, *,
 
 __all__ = [
     "KVCacheConfig", "OutOfPages", "PagePool", "SCRATCH_PAGE",
-    "decode_attention", "decode_attention_multi", "init_cache", "paged_read",
-    "paged_write", "paged_write_multi", "prefill_write", "sample_tokens",
+    "decode_attention", "decode_attention_multi", "gumbel_max",
+    "gumbel_max_plain", "init_cache", "paged_read",
+    "paged_write", "paged_write_multi", "prefill_write", "sample_bits",
+    "sample_tokens", "threefry2x32",
 ]

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel checks only
@@ -10,14 +11,23 @@ Phases, each fatal on failure (no result line is printed then):
    for matmuls and cuDNN so the f32 checks compare f32 arithmetic.
 2. build: compile every kernel in ``analytics_zoo_tpu_torch/csrc`` with
    nvcc (one process per source, all at once), timed.
-3. kernels: K1 (flash forward, out + LSE) and K2 (paged attention, q_len 1
-   and 4, with a zero-length slot) against their plain PyTorch versions on
-   the card, f32 within 1e-4 and bf16 within 2e-2, and timed with CUDA
-   events (median of 30 launches after warm-up, L2 flushed before each):
-   the kernel, its plain version, one library call computing the same
-   function (a yardstick the port never calls), and the bound — the larger
-   of bytes over 3.35 TB/s and operations over the peak rate of the inputs'
-   type.
+3. kernels: K1 (flash forward, out + LSE), K2 (paged attention, q_len 1
+   and 4, with a zero-length slot), K3 (flash backward dQ) and K4 (flash
+   backward dK/dV; D in {64, 128}, T in {16, 100, 1024}, causal and not)
+   against their plain PyTorch versions on the card, f32 within 1e-4 and
+   bf16 within 2e-2 (K3/K4 at B 1 and 2, and K1, K3 and K4 again at the
+   training shapes B=2 and B=4, T=2048, H=16, D=64, causal, bf16), and
+   timed with CUDA events (median of 30 launches, 20 for K3/K4, after
+   warm-up, L2 flushed before each): the kernel, its plain version, one
+   library call computing the same function (a yardstick the port never
+   calls; for K3/K4 SDPA's backward, which computes dQ, dK and dV in one
+   call), and the bound — the larger of bytes over 3.35 TB/s and
+   operations over the peak rate of the inputs' type. K1/K2 are timed at
+   the serving shapes, K3/K4 at the training micro-batch (B=2, the shape
+   the main path launches them at; the kernels line) and the whole batch
+   (B=4, under ``whole_batch``). The sampling kernel (threefry bits,
+   Gumbel transform and row argmax fused) must draw its plain version's
+   tokens exactly, at the decode step's (8, 32000) logits.
 4. parity: the full-width f32 model on the card (kernels) against the same
    seeded model on the CPU (plain versions): a 128-token prefill and 8
    decode steps teacher-forced with the CPU's tokens, logits within 1e-3
@@ -27,9 +37,25 @@ Phases, each fatal on failure (no result line is printed then):
    in 8..700, 32 new tokens each, 12 greedy and 4 at temperature 0.8. Every
    stream must end ok with 32 tokens, the launch counts of both kernels
    (set to 0 just before) must show one K1 launch per prefill and layer and
-   one K2 launch per decode step and layer, and greedy tokens must be the
-   argmax of a full forward over the emitted sequence.
+   one K2 launch per decode step and layer, the sampling kernel at least
+   once, and greedy tokens must be the argmax of a full forward over the
+   emitted sequence.
+6. training parity: the full-width f32 model on the card (K1, K3, K4)
+   against the same seeded model on the CPU on one (1, 256) batch: loss
+   within 1e-4 relative, every gradient leaf's max |d| within 1e-3 of that
+   leaf's max |g|, and the loss after one Estimator Adam step on each side
+   within 1e-3.
+7. training (the slice's main path): the full-width model through
+   ``compile``/``fit`` in bf16 with f32 masters, remat "flash", Adam,
+   global-norm clipping 1.0, grad_accum_steps 2: 8 seeded sequences of
+   2048+1 ids, batch 4, 4 epochs = 8 optimizer steps, 16 micro-steps. Every
+   loss finite, the last below the first, and K1 = K3 = K4 = 12 x 16
+   launches (set to 0 just before), so remat never re-ran K1. Prints the
+   median step time, tokens/s, peak device memory and the losses.
 
+The kernels line's ``launches`` are each kernel's count on its path (K1's
+on training, with ``launches_by_path`` for serving and training; the
+sampling kernel's on serving).
 The last three lines of standard output are the card's name and power
 limit, the per-kernel JSON, and ``{"ok": true, "device": {...}}``.
 """
@@ -39,6 +65,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -51,6 +78,8 @@ ROOT = Path(__file__).resolve().parent
 # the repo's documented serving model (docs/programming-guide/generation.md)
 VOCAB, HIDDEN, N_BLOCK, N_HEAD, SEQ_LEN = 32000, 1024, 12, 16, 2048
 N_SLOTS, PAGE, MAX_SEQ = 8, 16, 1024
+# the training phase: micro-batches of TRAIN_BATCH // GRAD_ACCUM sequences
+TRAIN_BATCH, GRAD_ACCUM, TRAIN_SEQS, TRAIN_EPOCHS = 4, 2, 8, 4
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -126,9 +155,25 @@ def phase_build():
     log(f"[build] {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f}s into {_build.BUILD_DIR}")
     for name, text in _build.BUILD_LOG.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = _kernel_label(m.group(1))
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name} {entry}: {line.strip()}")
+
+
+def _kernel_label(mangled: str) -> str:
+    """'flash_bwd_dq_kernel<bf16,64>' (or 'gumbel_max_kernel', not a
+    template) from a mangled entry name."""
+    m = re.search(r"([a-z][a-z_]*_kernel)(I?)", mangled)
+    if m and not m.group(2):
+        return m.group(1)
+    d = re.search(r"Li(\d+)E", mangled)
+    dt = "bf16" if "bfloat16" in mangled else "f32"
+    return (f"{m.group(1)}<{dt},{d.group(1) if d else '?'}>" if m
+            else mangled[:40])
 
 
 def check_k1(torch, timer):
@@ -245,6 +290,202 @@ def check_k2(torch, timer):
             "dtype": "bfloat16"}
 
 
+def _bwd_case(torch, gen, b, t, d, dtype, causal):
+    """q, k, v as strided views of one fused (B, T, 3, H, D) tensor (as the
+    QKV projection hands them over), K1's out and LSE, a random output
+    grad and δ."""
+    from analytics_zoo_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd, flash_bwd_delta)
+
+    qkv = torch.randn((b, t, 3, N_HEAD, d), generator=gen,
+                      device="cuda").to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    g = torch.randn((b, t, N_HEAD, d), generator=gen, device="cuda").to(dtype)
+    return q, k, v, g, lse, flash_bwd_delta(out, g)
+
+
+def _rel_err(got, ref) -> float:
+    """max |got - ref| over max(1, max |ref|): bf16 gradients reach
+    magnitudes where one bf16 ulp exceeds the absolute tolerance."""
+    return maxerr(got, ref) / max(1.0, float(ref.float().abs().max()))
+
+
+def _check_bwd_case(torch, case, causal, dt, label):
+    """K3 and K4 on one case against their plain versions, each error
+    relative; raises on a disagreement. Returns the absolute max errors
+    (dq, worst of dk and dv)."""
+    from analytics_zoo_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_plain)
+
+    dq = flash_attention_bwd_dq(*case, causal)
+    dk, dv = flash_attention_bwd_dkv(*case, causal)
+    rq = flash_attention_bwd_dq_plain(*case, causal)
+    e3, a3 = _rel_err(dq, rq), maxerr(dq, rq)
+    del dq, rq
+    rk, rv = flash_attention_bwd_dkv_plain(*case, causal)
+    torch.cuda.synchronize()
+    e4 = max(_rel_err(dk, rk), _rel_err(dv, rv))
+    a4 = max(maxerr(dk, rk), maxerr(dv, rv))
+    ok = e3 <= TOL[dt] and e4 <= TOL[dt]
+    log(f"[K3/K4] {label} {dt} causal={causal}: rel max|d dq| {e3:.3g} "
+        f"rel max|d dk,dv| {e4:.3g} (tol {TOL[dt]}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K3/K4 disagree with their plain versions at "
+                             f"{label} {dt} causal={causal}")
+    return a3, a4
+
+
+def _train_shape_bwd(torch, timer, gen, b):
+    """K1, K3 and K4 at one training shape (B=b, T=2048, H=16, D=64,
+    causal, bf16, q/k/v strided out of one fused QKV tensor): held to
+    their plain versions with the grid's tolerances, then K3/K4 timed
+    beside their plain versions, SDPA's backward and their bounds."""
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
+        flash_attention_fwd, flash_attention_plain)
+
+    t, d, dt = SEQ_LEN, HIDDEN // N_HEAD, "bfloat16"
+    label = f"B={b} T={t} H={N_HEAD} D={d}"
+    case = _bwd_case(torch, gen, b, t, d, torch.bfloat16, True)
+    q, k, v, g, lse, delta = case
+    out, lse1 = flash_attention_fwd(q, k, v, True)
+    ref, ref_lse = flash_attention_plain(q, k, v, True)
+    e_out, e_lse = maxerr(out, ref), maxerr(lse1, ref_lse)
+    del out, lse1, ref, ref_lse
+    ok = e_out <= TOL[dt] and e_lse <= TOL[dt]
+    log(f"[K1] {label} {dt} causal (training shape): max|d out| {e_out:.3g} "
+        f"max|d lse| {e_lse:.3g} (tol {TOL[dt]}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K1 disagrees with its plain version at "
+                             f"{label} {dt}")
+    err3, err4 = _check_bwd_case(torch, case, True, dt,
+                                 f"{label} (training shape)")
+    ms3 = timer(lambda: flash_attention_bwd_dq(*case, True), n=20)
+    ms4 = timer(lambda: flash_attention_bwd_dkv(*case, True), n=20)
+    plain3 = timer(lambda: flash_attention_bwd_dq_plain(*case, True), n=5)
+    plain4 = timer(lambda: flash_attention_bwd_dkv_plain(*case, True), n=5)
+    # the library yardstick: SDPA's backward (dQ, dK and dV in one call),
+    # its forward taken outside the timed window
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    go = g.transpose(1, 2)
+    lib = timer(lambda: torch.autograd.grad(o, (qt, kt, vt), go,
+                                            retain_graph=True), n=20)
+    del o
+    pairs = b * N_HEAD * (t * (t + 1) // 2)
+    elt = 2
+    tens = b * t * N_HEAD * d * elt                 # one (B, T, H, D) tensor
+    rows = 2 * b * N_HEAD * t * 4                   # lse and delta, f32
+    b3, by3 = bound_ms(5 * tens + rows, 6 * d * pairs, dt)
+    b4, by4 = bound_ms(6 * tens + rows, 8 * d * pairs, dt)
+    log(f"[K3/K4] {label} causal {dt}: K3 {ms3:.4f} ms (plain {plain3:.4f},"
+        f" bound {b3:.5f} by {by3}), K4 {ms4:.4f} ms (plain {plain4:.4f}, "
+        f"bound {b4:.5f} by {by4}), SDPA backward {lib:.4f} ms")
+    common = {"library_ms": lib, "shape": f"{label} causal", "dtype": dt}
+    return ({"max_abs_err": err3, "ms": ms3, "plain_ms": plain3,
+             "bound_ms": b3, "bound_by": by3, **common},
+            {"max_abs_err": err4, "ms": ms4, "plain_ms": plain4,
+             "bound_ms": b4, "bound_by": by4, **common})
+
+
+def check_k3_k4(torch, timer):
+    """K3 (dQ) and K4 (dK, dV) against their plain versions over the grid,
+    then at the training micro-batch (B=2, the shape the main path
+    launches them at) and at the whole batch (B=4), each checked and
+    timed; the kernels line carries the micro-batch's numbers. Errors are
+    relative to max(1, max|plain|)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for b in (1, 2):
+        for d in (64, 128):
+            for t in (16, 100, 1024):
+                for causal in (False, True):
+                    for dt in ("float32", "bfloat16"):
+                        case = _bwd_case(torch, gen, b, t, d,
+                                         getattr(torch, dt), causal)
+                        _check_bwd_case(torch, case, causal, dt,
+                                        f"B={b} T={t} D={d}")
+                        del case
+    micro = TRAIN_BATCH // GRAD_ACCUM
+    k3, k4 = _train_shape_bwd(torch, timer, gen, micro)
+    w3, w4 = _train_shape_bwd(torch, timer, gen, TRAIN_BATCH)
+    lib_note = ("SDPA backward via torch.autograd.grad: dQ, dK and dV in "
+                "one call, shared by K3 and K4")
+    return [
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": "analytics_zoo_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "analytics_zoo_tpu/ops/flash_attention.py:191",
+         "launches": None, **k3, "library_note": lib_note,
+         "whole_batch": w3},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": "analytics_zoo_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "analytics_zoo_tpu/ops/flash_attention.py:222",
+         "launches": None, **k4, "library_note": lib_note,
+         "whole_batch": w4}]
+
+
+# operations per element of the sampling kernel: threefry2x32 (2 + 20 x 3
+# + 5 x 3 + 1 integer ops), the uniform (5), two logs and two negations,
+# the add and the compare
+SAMPLE_OPS = 89
+
+
+def check_sampler(torch, timer):
+    """The fused sampling kernel (threefry bits, Gumbel transform, row
+    argmax) against its plain version at the decode step's shape, (8,
+    32000) f32 logits with 4 rows at temperature > 0: the same tokens for
+    256 (seed, idx) pairs, with and without top-k; then timed."""
+    from analytics_zoo_tpu_torch.ops.kv_cache import (NEG_INF, gumbel_max,
+                                                      gumbel_max_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    hot = [0, 2, 5, 7]
+    temps = torch.tensor([0.8, 1.0, 0.8, 1.0, 1.0, 0.5, 1.0, 1.3],
+                         device="cuda")
+    worst = 0
+    for top_k in (0, 40):
+        for call in range(32):
+            scaled = torch.randn((N_SLOTS, VOCAB), generator=gen,
+                                 device="cuda") * 3 / temps[:, None]
+            if top_k:
+                kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+                scaled = torch.where(scaled >= kth, scaled,
+                                     torch.full_like(scaled, NEG_INF))
+            seeds = [1000 * call + i for i in hot]
+            idx = [17 * call + i for i in hot]
+            got = gumbel_max(scaled, hot, seeds, idx)
+            want = gumbel_max_plain(scaled, hot, seeds, idx)
+            worst = max(worst, int((got - want).abs().max()))
+    ok = worst == 0
+    log(f"[sampler] rows={N_SLOTS} hot={len(hot)} V={VOCAB}, 256 (seed, idx)"
+        f" pairs, top_k 0 and 40: max|d token| {worst} (must be 0) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the sampling kernel draws other tokens than "
+                             "its plain version")
+    seeds, idx = [7, 8, 9, 10], [100, 101, 102, 103]
+    ms = timer(lambda: gumbel_max(scaled, hot, seeds, idx))
+    plain = timer(lambda: gumbel_max_plain(scaled, hot, seeds, idx))
+    n = len(hot)
+    bms, by = bound_ms(n * VOCAB * 4 + n * 3 * 8 + n * 8,
+                       n * VOCAB * SAMPLE_OPS, "float32")
+    return {"name": "gumbel_max", "route": "cuda",
+            "source": "analytics_zoo_tpu_torch/csrc/sample.cu",
+            "replaces": "analytics_zoo_tpu/ops/kv_cache.py:662",
+            "replaces_note": ("no Pallas kernel: the jax.random.categorical "
+                              "draw of sample_tokens, fused"),
+            "launches": None, "max_abs_err": float(worst), "ms": ms,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "shape": f"rows={N_SLOTS} hot={n} V={VOCAB}",
+            "dtype": "float32"}
+
+
 def full_model(torch, device):
     from analytics_zoo_tpu_torch.models.transformer import TransformerLM
 
@@ -313,6 +554,7 @@ def phase_serving(torch, model, smi):
     from analytics_zoo_tpu_torch.nn.module import set_policy
     from analytics_zoo_tpu_torch.ops.flash_attention import \
         flash_attention_fwd
+    from analytics_zoo_tpu_torch.ops.kv_cache import gumbel_max
     from analytics_zoo_tpu_torch.ops.paged_attention import paged_attention
     from analytics_zoo_tpu_torch.serving.generation import ContinuousBatcher
 
@@ -331,6 +573,7 @@ def phase_serving(torch, model, smi):
     try:
         flash_attention_fwd.launches = 0
         paged_attention.launches = 0
+        gumbel_max.launches = 0
         t0 = time.perf_counter()
         handles = []
         for i in range(n_req):
@@ -344,6 +587,7 @@ def phase_serving(torch, model, smi):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k1, k2 = flash_attention_fwd.launches, paged_attention.launches
+        ks = gumbel_max.launches
         stats = batcher.stats()
     finally:
         batcher.close()
@@ -355,9 +599,10 @@ def phase_serving(torch, model, smi):
     steps = stats["steps"]
     log(f"[serving] launches: K1 {k1} (need {n_req} prefills x {N_BLOCK} "
         f"layers = {n_req * N_BLOCK}), K2 {k2} (need {steps} decode steps x "
-        f"{N_BLOCK} layers = {steps * N_BLOCK})")
-    if k1 < n_req * N_BLOCK or k2 < steps * N_BLOCK or steps < 1:
-        raise AssertionError("the serving path did not go through both "
+        f"{N_BLOCK} layers = {steps * N_BLOCK}), sampler {ks} (one per "
+        f"decode step with a row at temperature > 0; need >= 1)")
+    if k1 < n_req * N_BLOCK or k2 < steps * N_BLOCK or steps < 1 or ks < 1:
+        raise AssertionError("the serving path did not go through its "
                              "kernels")
     # greedy streams must be the argmax of a full forward (flash path) over
     # prompt + emitted tokens, up to bf16 rounding: the chosen token's logit
@@ -365,7 +610,8 @@ def phase_serving(torch, model, smi):
     margins = []
     for i in range(3):
         seq = np.concatenate([prompts[i], np.asarray(outs[i][:-1], np.int32)])
-        lg = model.apply(torch.as_tensor(seq[None]))[0].float()
+        with torch.no_grad():
+            lg = model.apply(torch.as_tensor(seq[None]))[0].float()
         rows = lg[len(prompts[i]) - 1:]
         chosen = rows[torch.arange(n_new), torch.as_tensor(outs[i]).long()]
         margins.append(float((rows.max(dim=-1).values - chosen).max()))
@@ -374,6 +620,7 @@ def phase_serving(torch, model, smi):
     if max(margins) > 0.1:
         raise AssertionError("greedy tokens are not the argmax of a full "
                              "forward")
+    sample_ms = time_sampling(torch)
     ttft = [f[0][3]["ttft_s"] for f in emits]
     itl = []
     for e in emits:
@@ -385,9 +632,145 @@ def phase_serving(torch, model, smi):
            "itl_p50_ms": pct(itl, 50) * 1e3, "itl_p95_ms": pct(itl, 95) * 1e3,
            "decode_steps": steps, "prompt_tokens": int(lens.sum()),
            "prefill_buckets": stats["prefill_buckets"],
-           "slot_occupancy": stats["slot_occupancy"], "card": smi}
+           "slot_occupancy": stats["slot_occupancy"],
+           "sample_tokens_ms": sample_ms, "card": smi}
     log(f"[serving] {json.dumps(res)}")
-    return k1, k2
+    return k1, k2, ks
+
+
+def phase_train_parity(torch):
+    """The full-width f32 model on the card (K1, K3, K4) against the same
+    seeded model on the CPU (plain versions): loss and every gradient leaf
+    of one (1, 256) batch, then one Estimator Adam step on each side and a
+    second forward."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.models.transformer import lm_loss
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+
+    set_policy(compute_dtype="float32")
+    ids = np.random.default_rng(7).integers(0, VOCAB, size=(1, 257))
+    x, y = ids[:, :-1].astype(np.int32), ids[:, 1:].astype(np.int32)
+    models = {"cuda": full_model(torch, "cuda"), "cpu": full_model(torch, "cpu")}
+    loss, grads = {}, {}
+    for name, m in models.items():
+        out = lm_loss(y, m.apply(x))
+        params = dict(m.named_parameters())
+        g = torch.autograd.grad(out, list(params.values()))
+        loss[name] = float(out.detach())
+        grads[name] = {n: t.detach().cpu() for n, t in zip(params, g)}
+    rel_loss = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    worst = max(maxerr(grads["cuda"][n], g) / max(float(g.abs().max()), 1e-30)
+                for n, g in grads["cpu"].items())
+    after = {}
+    for name, m in models.items():
+        est = Estimator(m, optimizer="adam", loss=lm_loss,
+                        config=TrainConfig(shuffle=False, log_every_n_steps=1))
+        est.fit((x, y), batch_size=1, epochs=1)
+        with torch.no_grad():
+            after[name] = float(lm_loss(y, m.apply(x)))
+    d_after = abs(after["cuda"] - after["cpu"])
+    ok = rel_loss <= 1e-4 and worst <= 1e-3 and d_after <= 1e-3
+    log(f"[train-parity] full-width f32 cuda vs cpu, B=1 T=256 flash: loss "
+        f"{loss['cuda']:.6f} vs {loss['cpu']:.6f} (rel {rel_loss:.3g}, tol "
+        f"1e-4), worst grad leaf max|d|/max|g| {worst:.3g} (tol 1e-3), loss "
+        f"after one Adam step {after['cuda']:.6f} vs {after['cpu']:.6f} "
+        f"(|d| {d_after:.3g}, tol 1e-3) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("full-width training on the card disagrees "
+                             "with the cpu")
+
+
+def phase_training(torch, smi, profile: bool = False):
+    """The slice's main path: the full-width model trained through
+    ``compile``/``fit`` in bf16 with f32 masters, remat="flash", gradient
+    accumulation 2: 8 optimizer steps, 16 micro-steps."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.models.transformer import (TransformerLM,
+                                                            lm_loss)
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    set_policy(compute_dtype="float32")
+    model = TransformerLM(vocab=VOCAB, hidden_size=HIDDEN, n_block=N_BLOCK,
+                          n_head=N_HEAD, seq_len=SEQ_LEN,
+                          attn_strategy="flash", remat="flash",
+                          device="cuda", seed=0)
+    model.compile(optimizer="adam", loss=lm_loss, config=TrainConfig(
+        compute_dtype="bfloat16", gradient_clip_norm=1.0,
+        grad_accum_steps=GRAD_ACCUM, shuffle=False, log_every_n_steps=1))
+    ids = np.random.default_rng(8).integers(
+        0, VOCAB, size=(TRAIN_SEQS, SEQ_LEN + 1)).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfa.flash_attention_fwd.launches = 0
+    tfa.flash_attention_bwd_dq.launches = 0
+    tfa.flash_attention_bwd_dkv.launches = 0
+    t0 = time.perf_counter()
+    model.fit(ids[:, :-1], ids[:, 1:], batch_size=TRAIN_BATCH,
+              nb_epoch=TRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = tfa.flash_attention_fwd.launches
+    k3 = tfa.flash_attention_bwd_dq.launches
+    k4 = tfa.flash_attention_bwd_dkv.launches
+    peak = torch.cuda.max_memory_allocated()
+    hist = model.estimator.history
+    losses = [h["loss"] for h in hist]
+    steps_ms = [h["data_ms"] + h["compute_ms"] for h in hist]
+    n_steps = TRAIN_SEQS // TRAIN_BATCH * TRAIN_EPOCHS
+    micro = n_steps * GRAD_ACCUM
+    med = statistics.median(steps_ms)
+    res = {"steps": len(hist), "micro_steps": micro,
+           "batch": TRAIN_BATCH, "seq_len": SEQ_LEN, "wall_s": wall,
+           "step_ms_median": med, "step_ms": steps_ms,
+           "tokens_per_s": TRAIN_BATCH * SEQ_LEN / (med / 1e3),
+           "max_memory_allocated": peak, "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in hist], "card": smi}
+    log(f"[training] {json.dumps(res)}")
+    log(f"[training] launches: K1 {k1}, K3 {k3}, K4 {k4} (need {N_BLOCK} "
+        f"layers x {micro} micro-steps = {N_BLOCK * micro} each; remat "
+        f"'flash' never re-runs K1)")
+    if len(losses) != n_steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"training losses not finite or missing: "
+                             f"{losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    if not k1 == k3 == k4 == N_BLOCK * micro:
+        raise AssertionError("the training path did not run K1, K3 and K4 "
+                             "once per layer and micro-step")
+    if profile:
+        profile_training_step(torch, model, ids, smi)
+    return k1, k3, k4
+
+
+def time_sampling(torch):
+    """Median CUDA-event time of one ``sample_tokens`` call over the
+    decode step's (8, vocab) f32 logits: all rows greedy, and 4 of 8 rows
+    at temperature 0.8 (the threefry bits and Gumbel-max)."""
+    from analytics_zoo_tpu_torch.ops.kv_cache import sample_tokens
+
+    logits = torch.randn((N_SLOTS, VOCAB), device="cuda")
+    seeds, idx = list(range(N_SLOTS)), [7] * N_SLOTS
+    out = {}
+    for name, hot in (("greedy", 0), ("hot4", 4)):
+        temps = [0.8] * hot + [0.0] * (N_SLOTS - hot)
+        times = []
+        for i in range(23):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            sample_tokens(logits, seeds, idx, temps)
+            b.record()
+            b.synchronize()
+            if i >= 3:
+                times.append(a.elapsed_time(b))
+        out[name] = statistics.median(times)
+    return out
 
 
 def phase_profile(torch, model, smi):
@@ -418,19 +801,53 @@ def phase_profile(torch, model, smi):
     finally:
         batcher.close()
 
+    rows, busy = _device_rows(prof)
+    log(f"[profile] {smi} | burst of {N_SLOTS} x (256 prompt + 32 new), "
+        f"{steps} decode steps, wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms ({busy / wall_ms:.3f} of wall)")
+    for key, count, ms in rows[:15]:
+        log(f"[profile] {ms:9.3f} ms {count:6d} calls  {key[:100]}")
+
+
+def _device_rows(prof):
+    """(kernel name, calls, device ms) rows of a trace's device events,
+    largest first, and their sum."""
     def dev_ms(evt, attr):
         v = getattr(evt, attr.replace("cuda", "device"), None)
         return (v if v is not None else getattr(evt, attr, 0.0)) / 1e3
 
+    from torch.autograd import DeviceType
+
+    # device-side events only: a host op's row also carries the device
+    # time of the kernels it launched, which would count them twice
     rows = [(e.key, e.count, dev_ms(e, "self_cuda_time_total"))
-            for e in prof.key_averages()]
-    rows = [r for r in rows if r[2] > 0]
-    busy = sum(r[2] for r in rows)
-    log(f"[profile] {smi} | burst of {N_SLOTS} x (256 prompt + 32 new), "
-        f"{steps} decode steps, wall {wall_ms:.1f} ms, device busy "
-        f"{busy:.1f} ms ({busy / wall_ms:.3f} of wall)")
-    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:15]:
-        log(f"[profile] {ms:9.3f} ms {count:6d} calls  {key[:100]}")
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+    return rows, sum(r[2] for r in rows)
+
+
+def profile_training_step(torch, model, ids, smi):
+    """Trace one optimizer step of the training phase (2 micro-steps of 2
+    sequences) and print the device time by kernel and the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    est = model.estimator
+    batch = est._to_device((ids[:TRAIN_BATCH, :-1], ids[:TRAIN_BATCH, 1:]))
+    est._step(batch)                                   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        est._step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, busy = _device_rows(prof)
+    log(f"[profile-train] {smi} | one step, batch {TRAIN_BATCH} x "
+        f"{SEQ_LEN} in {GRAD_ACCUM} micro-steps, wall {wall_ms:.1f} ms, "
+        f"device busy {busy:.1f} ms ({busy / wall_ms:.3f} of wall)")
+    for key, count, ms in rows[:20]:
+        log(f"[profile-train] {ms:9.3f} ms {count:6d} calls  {key[:100]}")
 
 
 def main(argv=None) -> int:
@@ -438,9 +855,9 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="device, build and kernel checks only")
     ap.add_argument("--profile", action="store_true",
-                    help="after serving, trace one more burst with "
-                         "torch.profiler and print where the device time "
-                         "goes")
+                    help="after serving, trace one more burst, and after "
+                         "training one more step, with torch.profiler and "
+                         "print where the device time goes")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -460,18 +877,29 @@ def main(argv=None) -> int:
         smi = phase_device(torch)
         phase_build()
         timer = Timer(torch)
-        kernels = [check_k1(torch, timer), check_k2(torch, timer)]
+        kernels = [check_k1(torch, timer), check_k2(torch, timer),
+                   *check_k3_k4(torch, timer), check_sampler(torch, timer)]
         del timer
         if not args.quick:
             gpu_model = full_model(torch, "cuda")
             phase_parity(torch, gpu_model)
-            k1, k2 = phase_serving(torch, gpu_model, smi)
-            kernels[0]["launches"], kernels[1]["launches"] = k1, k2
+            k1_serving, k2, ks = phase_serving(torch, gpu_model, smi)
             if args.profile:
                 phase_profile(torch, gpu_model, smi)
+            del gpu_model
+            torch.cuda.empty_cache()
+            phase_train_parity(torch)
+            torch.cuda.empty_cache()
+            k1, k3, k4 = phase_training(torch, smi, profile=args.profile)
+            for k, n in zip(kernels, (k1, k2, k3, k4, ks)):
+                k["launches"] = n
+            kernels[0]["launches_by_path"] = {"serving": k1_serving,
+                                              "training": k1}
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):
+                if k[key] is None and key == "library_ms":
+                    continue
                 if not math.isfinite(k[key]):
                     raise AssertionError(f"{k['name']}: {key} not finite")
     except Exception:

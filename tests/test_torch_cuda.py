@@ -6,9 +6,14 @@ here skips. On the card (where the JAX package need not be installed):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Each kernel is held against its plain PyTorch version on the same inputs:
-f32 within 1e-4, bf16 within 2e-2. The small model runs its cache-threaded
-path on the card (both kernels) against the same seeded model on the CPU
-(plain versions), f32 logits within 1e-4.
+f32 within 1e-4, bf16 within 2e-2 (the backward kernels' gradients
+relative to max(1, max|plain|)). The small model runs its cache-threaded
+path on the card (K1, K2) against the same seeded model on the CPU (plain
+versions), f32 logits within 1e-4; the sampling kernel draws the plain
+version's tokens exactly; it trains on the card (K1, K3, K4) to
+the CPU's loss, with K1 launched once per block and micro-step under
+remat "flash" and twice under "full"; autograd through the flash Function
+matches SDPA's grads, and no CUDA tensor takes a plain backward.
 """
 
 import numpy as np
@@ -17,6 +22,7 @@ import torch
 
 from analytics_zoo_tpu_torch.models.transformer import TransformerLM
 from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+from analytics_zoo_tpu_torch.ops import kv_cache as kvc
 from analytics_zoo_tpu_torch.ops import paged_attention as tpa
 from analytics_zoo_tpu_torch.ops.kv_cache import SCRATCH_PAGE
 
@@ -92,6 +98,41 @@ def test_paged_kernel_rejects_bad_input(cuda):
                             page_size=16)
 
 
+@pytest.mark.parametrize("top_k", [0, 40])
+def test_sampling_kernel_matches_plain_bit_for_bit(cuda, top_k):
+    """The fused threefry/Gumbel-max kernel draws the plain version's token
+    for 512 (seed, idx) pairs at V=32000, and sample_tokens on a CUDA
+    tensor goes through it."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    temps = [0.8, 0.0, 1.3, 0.5, 0.0, 2.0, 0.8, 0.1]
+    for step in range(64):
+        logits = torch.randn((8, 32000), generator=g, device=cuda) * 3
+        seeds = [step * 8 + i for i in range(8)]
+        idx = [step * 37 + i for i in range(8)]
+        before = kvc.gumbel_max.launches
+        got = kvc.sample_tokens(logits, seeds, idx, temps, top_k=top_k)
+        assert kvc.gumbel_max.launches == before + 1
+        hot = [i for i, t in enumerate(temps) if t > 0]
+        scaled = logits / torch.tensor(temps, device=cuda).clamp_min(
+            1e-6)[:, None]
+        if top_k:
+            kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+            scaled = torch.where(scaled >= kth, scaled,
+                                 torch.full_like(scaled, kvc.NEG_INF))
+        want = kvc.gumbel_max_plain(scaled, hot, [seeds[i] for i in hot],
+                                    [idx[i] for i in hot])
+        assert torch.equal(got[hot].long(), want)
+        assert torch.equal(got[[1, 4]].long(), logits[[1, 4]].argmax(-1))
+
+
+def test_sampling_kernel_rejects_bad_input(cuda):
+    x = torch.zeros((2, 10), device=cuda)
+    with pytest.raises(ValueError, match="f32"):
+        kvc.gumbel_max(x.to(torch.bfloat16), [0], [1], [2])
+    with pytest.raises(ValueError, match="rows"):
+        kvc.gumbel_max(x, [2], [1], [2])
+
+
 def test_small_model_cached_path_on_card_matches_cpu(cuda):
     kw = dict(vocab=128, hidden_size=128, n_block=2, n_head=2, seq_len=64,
               attn_strategy="flash", seed=5)
@@ -122,3 +163,118 @@ def test_small_model_cached_path_on_card_matches_cpu(cuda):
         tok = np.array([int(logits["cpu"][0].argmax()), 0], np.int32)
     assert tfa.flash_attention_fwd.launches - k1 == 2
     assert tpa.paged_attention.launches - k2 == 2 * 4
+
+
+# ------------------------------------------------------- K3/K4 and training
+
+def _bwd_case(cuda, dtype, t, d, causal, t_k=None, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    t_k = t if t_k is None else t_k
+    qkv = torch.randn((2, t, 3, 4, d), generator=g, device=cuda).to(dtype)
+    q = qkv[:, :, 0]
+    k = torch.randn((2, t_k, 4, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((2, t_k, 4, d), generator=g, device=cuda).to(dtype)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    go = torch.randn((2, t, 4, d), generator=g, device=cuda).to(dtype)
+    return q, k, v, go, lse, tfa.flash_bwd_delta(out, go)
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("t,t_k,d,causal", [
+    (16, None, 64, True), (100, None, 64, True), (77, None, 128, False),
+    (130, None, 64, False), (40, 70, 64, True), (70, 40, 128, True)])
+def test_flash_backward_kernels_match_plain(cuda, dtype, tol, t, t_k, d,
+                                            causal):
+    """K3 (dq) and K4 (dk, dv) against their plain versions, strided q,
+    ragged T and Tq != Tk included; errors relative to max(1, max|plain|)
+    (bf16 gradients reach magnitudes where one ulp exceeds 2e-2)."""
+    case = _bwd_case(cuda, dtype, t, d, causal, t_k, seed=t)
+    before = (tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    dq = tfa.flash_attention_bwd_dq(*case, causal)
+    dk, dv = tfa.flash_attention_bwd_dkv(*case, causal)
+    rq = tfa.flash_attention_bwd_dq_plain(*case, causal)
+    rk, rv = tfa.flash_attention_bwd_dkv_plain(*case, causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.dtype == dtype
+        scale = max(1.0, float(ref.float().abs().max()))
+        assert float((got.float() - ref.float()).abs().max()) <= tol * scale
+
+
+def test_flash_autograd_on_card_matches_sdpa_grads(cuda):
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, go = (torch.randn((2, 96, 4, 64), generator=g, device=cuda)
+                   for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(tfa.flash_attention(*leaves, True), leaves, go)
+    ref_leaves = [x.transpose(1, 2).clone().requires_grad_()
+                  for x in (q, k, v)]
+    ref_out = F.scaled_dot_product_attention(*ref_leaves, is_causal=True)
+    ref = torch.autograd.grad(ref_out, ref_leaves, go.transpose(1, 2))
+    for a, b in zip(got, ref):
+        assert float((a - b.transpose(1, 2)).abs().max()) <= 1e-4
+
+
+def test_cuda_tensors_never_take_the_plain_backward(cuda, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("a plain backward ran on CUDA tensors")
+
+    for name in ("flash_attention_bwd_plain", "flash_attention_bwd_dq_plain",
+                 "flash_attention_bwd_dkv_plain", "flash_attention_plain"):
+        monkeypatch.setattr(tfa, name, refuse)
+    q, k, v = (torch.randn((1, 64, 2, 64), device=cuda).requires_grad_()
+               for _ in range(3))
+    before = tfa.flash_attention_bwd_dkv.launches
+    tfa.flash_attention(q, k, v, True).sum().backward()
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd_dkv.launches == before + 1
+    assert q.grad.is_cuda and torch.isfinite(q.grad).all()
+
+
+@pytest.mark.parametrize("remat,per_block", [(False, 1), ("flash", 1),
+                                             ("full", 2)])
+def test_k1_launches_per_micro_step_under_each_remat_mode(cuda, remat,
+                                                          per_block):
+    """Two blocks, grad accumulation 2: "flash" (and no remat) run K1 once
+    per block and micro-step, "full" twice (its recompute); K3 and K4 run
+    once per block and micro-step in every mode."""
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.models.transformer import lm_loss
+
+    m = TransformerLM(vocab=128, hidden_size=128, n_block=2, n_head=2,
+                      seq_len=64, attn_strategy="flash", remat=remat,
+                      device=cuda, seed=1)
+    m.compile(optimizer="adam", loss=lm_loss,
+              config=TrainConfig(grad_accum_steps=2, shuffle=False))
+    ids = np.random.default_rng(0).integers(0, 128, size=(4, 65))
+    counts = (tfa.flash_attention_fwd.launches,
+              tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    m.fit(ids[:, :-1], ids[:, 1:], batch_size=4, nb_epoch=1)
+    got = (tfa.flash_attention_fwd.launches - counts[0],
+           tfa.flash_attention_bwd_dq.launches - counts[1],
+           tfa.flash_attention_bwd_dkv.launches - counts[2])
+    assert got == (2 * 2 * per_block, 2 * 2, 2 * 2)
+
+
+def test_small_model_training_step_on_card_matches_cpu(cuda):
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.models.transformer import lm_loss
+
+    kw = dict(vocab=128, hidden_size=128, n_block=2, n_head=2, seq_len=64,
+              attn_strategy="flash", remat="flash", seed=5)
+    ids = np.random.default_rng(1).integers(0, 128, size=(2, 65))
+    data = (ids[:, :-1], ids[:, 1:])
+    losses = {}
+    for name, dev in (("cuda", cuda), ("cpu", "cpu")):
+        est = Estimator(TransformerLM(device=dev, **kw), optimizer="sgd",
+                        loss=lm_loss)
+        est.fit(data, batch_size=2, epochs=2)
+        losses[name] = est.trainer_state.last_loss
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4

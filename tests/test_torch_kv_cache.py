@@ -182,3 +182,71 @@ def test_sampling_distribution_matches_jax_probabilities():
     p = np.asarray(want)[0]
     assert set(np.flatnonzero(freq)) <= set(np.flatnonzero(p > 1e-6))
     np.testing.assert_allclose(freq, p, atol=0.03)
+
+
+def _jax_bits(seeds, idx, v):
+    import jax
+
+    f = jax.jit(jax.vmap(lambda s, i: jax.random.bits(
+        jax.random.fold_in(jax.random.PRNGKey(s), i), (v,), jnp.uint32)))
+    return np.asarray(f(jnp.asarray(seeds.astype(np.uint32)),
+                        jnp.asarray(idx.astype(np.uint32))))
+
+
+@pytest.mark.parametrize("top_k", [0, 40])
+def test_temperature_sampling_is_bit_identical_to_jax(top_k):
+    """256 (seed, token_idx) pairs at V=32000: the threefry bits equal
+    ``jax.random.bits`` under ``fold_in(PRNGKey(seed), idx)`` bit for bit,
+    and the sampled tokens equal the JAX package's, with and without
+    top-k."""
+    v, n = 32000, 256
+    rng = np.random.default_rng(11 + top_k)
+    seeds = rng.integers(0, 2 ** 32, size=n, dtype=np.uint64).astype(np.int64)
+    idx = rng.integers(0, 4096, size=n)
+    bits = tkv.sample_bits(seeds, idx, v)
+    assert bits.dtype == torch.int64 and bits.shape == (n, v)
+    np.testing.assert_array_equal(_jax_bits(seeds, idx, v).astype(np.int64),
+                                  bits.numpy())
+    logits = (rng.normal(size=(n, v)) * 3).astype(np.float32)
+    temps = rng.uniform(0.3, 1.5, size=n).astype(np.float32)
+    temps[::17] = 0.0                      # greedy rows mixed in
+    want = jkv.sample_tokens(jnp.asarray(logits),
+                             jnp.asarray(seeds.astype(np.uint32)),
+                             jnp.asarray(idx.astype(np.uint32)),
+                             jnp.asarray(temps), top_k=top_k)
+    got = tkv.sample_tokens(torch.from_numpy(logits), seeds, idx, temps,
+                            top_k=top_k)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+def test_threefry_matches_the_jax_hash_on_edge_words():
+    """The hash itself on all-zero, all-one and mixed words (JAX's
+    ``threefry_2x32`` over a two-element count)."""
+    from jax._src import prng
+
+    words = [0, 1, 0x1BD11BDA, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF]
+    for k1 in words:
+        for k2 in words[::2]:
+            for c in words[::3]:
+                want = np.asarray(prng.threefry_2x32(
+                    jnp.asarray([k1, k2], jnp.uint32),
+                    jnp.asarray([c, k1 ^ c], jnp.uint32)))
+                t = lambda x: torch.tensor([x], dtype=torch.int64)
+                got = tkv.threefry2x32(t(k1), t(k2), t(c), t(k1 ^ c))
+                assert [int(got[0]), int(got[1])] == want.tolist()
+
+
+def test_gumbel_max_takes_its_plain_version_on_cpu():
+    """The sampling kernel's wrapper runs its plain version on CPU tensors
+    (no launch counted); its source is one of the built kernels."""
+    from analytics_zoo_tpu_torch.ops import _build
+
+    scaled = torch.from_numpy(
+        np.random.default_rng(5).normal(size=(3, 50)).astype(np.float32))
+    before = tkv.gumbel_max.launches
+    got = tkv.gumbel_max(scaled, [0, 2], [7, 8], [1, 2])
+    assert tkv.gumbel_max.launches == before
+    assert torch.equal(got, tkv.gumbel_max_plain(scaled, [0, 2], [7, 8],
+                                                 [1, 2]))
+    assert got.dtype == torch.int64 and got.shape == (2,)
+    assert "sample" in _build.KERNELS

@@ -29,6 +29,11 @@ def test_importing_every_port_module_leaves_jax_out():
     assert res["bad"] == []
     assert "analytics_zoo_tpu_torch.serving.generation" in res["modules"]
     assert "analytics_zoo_tpu_torch.ops.paged_attention" in res["modules"]
+    for mod in ("engine.estimator", "nn.optimizers", "nn.losses",
+                "nn.topology", "ops.fused_ce", "common.config",
+                "common.triggers", "data.featureset",
+                "parallel.update_sharding"):
+        assert f"analytics_zoo_tpu_torch.{mod}" in res["modules"]
 
 
 def _imports(path: Path):
@@ -52,6 +57,7 @@ def test_no_source_of_the_port_or_chip_smoke_names_jax():
 
 def test_kernel_sources_ship_with_the_package():
     srcs = {p.name for p in (PKG / "csrc").iterdir()}
-    assert {"flash_fwd.cu", "paged_attention.cu", "zoo_cuda.cuh"} <= srcs
+    assert {"flash_fwd.cu", "flash_bwd.cu", "paged_attention.cu", "sample.cu",
+            "zoo_cuda.cuh"} <= srcs
     text = (ROOT / "pyproject.toml").read_text()
     assert "csrc/*.cu" in text and "csrc/*.cuh" in text

@@ -75,3 +75,27 @@ def test_non_cpu_tensor_never_gets_the_plain_result(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensor"):
         tpa.paged_attention(q, pages, pages, table, lens, page_size=16)
 
+
+
+@pytest.mark.parametrize("q_len", [1, 4, 16])
+def test_every_row_a_caller_can_produce_matches_jax(q_len):
+    """Callers (decode, speculative verify, prefill chunks) write the q_len
+    new tokens before attending, so a slot's length is 0 (inactive) or at
+    least q_len, and every row then has a valid position. On every such
+    length the port equals both JAX paths: the Pallas kernel and the plain
+    ``decode_attention_multi`` over the gathered cache. (Rows with no valid
+    position but a length > 0 have no reference value — the two JAX paths
+    disagree there — and no caller produces them.)"""
+    from analytics_zoo_tpu.ops.kv_cache import (decode_attention_multi,
+                                                paged_read)
+
+    lengths = list(range(q_len, PPS * PAGE + 1))
+    case = jcase(len(lengths), PPS, PAGE, H, D, q_len=q_len, lengths=lengths,
+                 rng=np.random.default_rng(20 + q_len))
+    q, k_pages, v_pages, table, lens = case
+    got = tpa.paged_attention_plain(*_to_torch(case), page_size=PAGE).numpy()
+    kernel = np.asarray(jpaged(*case, page_size=PAGE, interpret=True))
+    plain = np.asarray(decode_attention_multi(
+        q, paged_read(k_pages, table), paged_read(v_pages, table), lens))
+    assert float(np.abs(kernel - got).max()) <= TOL
+    assert float(np.abs(plain - got).max()) <= TOL

@@ -40,7 +40,7 @@ def test_apply_logits_match_jax(models):
     x = np.random.default_rng(0).integers(0, VOCAB, size=(2, 24)) \
         .astype(np.int32)
     want, _ = jm.apply(params, {}, x)
-    got = tm.apply(torch.from_numpy(x))
+    got = tm.apply(torch.from_numpy(x)).detach()
     assert got.shape == (2, 24, VOCAB)
     assert float(np.abs(np.asarray(want) - got.numpy()).max()) <= TOL
 
@@ -149,5 +149,12 @@ def test_seeded_init_is_deterministic_and_remat_unported():
                                   b.state_dict().items()):
         assert na == nb and torch.equal(pa, pb)
     assert abs(float(a.token_embeddings.detach().std()) - 0.02) < 0.005
+    # remat is ported: True means "flash", as in the JAX package; "dots"
+    # is the one mode still queued, and an unknown mode is an error
+    assert TransformerLM(remat=True, **kw).remat == "flash"
+    assert TransformerLM(remat="full", **kw).remat == "full"
+    assert TransformerLM(**kw).remat is False
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerLM(remat=True, **kw)
+        TransformerLM(remat="dots", **kw)
+    with pytest.raises(ValueError, match="remat"):
+        TransformerLM(remat="everything", **kw)
