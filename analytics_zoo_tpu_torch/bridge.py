@@ -8,6 +8,13 @@ and keeps the JAX (in, out) layout, so the bridge is a lossless rename:
     tree = jax.tree_util.tree_map(np.asarray, params)   # in the JAX process
     model.load_state_dict(params_from_jax(tree, device=model.device))
 
+A graph model's params and state trees (BatchNormalization's
+``moving_mean``/``moving_var`` live in the state tree in JAX and are
+buffers in the port) share their slot keys (``12_convolution2d``,
+``13_batchnormalization``); :func:`state_dict_from_jax` merges the two:
+
+    model.load_state_dict(state_dict_from_jax(params, state))
+
 bf16 leaves (numpy arrays of ``ml_dtypes.bfloat16``) cross as their raw
 16-bit patterns, so no value is rounded either way.
 """
@@ -47,6 +54,19 @@ def params_from_jax(tree: Mapping[str, Any], *, device="cpu"
     return out
 
 
+def state_dict_from_jax(params: Mapping[str, Any],
+                        state: Mapping[str, Any] = None, *, device="cpu"
+                        ) -> Dict[str, torch.Tensor]:
+    """One state dict from a JAX model's params tree and its state tree
+    (numpy leaves, as in :func:`params_from_jax`); a key in both raises."""
+    out = params_from_jax(params, device=device)
+    for k, v in params_from_jax(state or {}, device=device).items():
+        if k in out:
+            raise ValueError(f"{k} is in both the params and the state tree")
+        out[k] = v
+    return out
+
+
 def params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
     """The inverse: the module's parameters as a nested dict of numpy
     arrays in the JAX tree's shape. bf16 parameters come back as
@@ -69,4 +89,4 @@ def params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
     return tree
 
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "state_dict_from_jax"]

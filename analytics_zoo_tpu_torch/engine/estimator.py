@@ -236,8 +236,15 @@ class Estimator:
             epochs if epochs is not None else cfg.max_epochs)
         if self.train_state is None:
             self._init_state()
-        while not end_trigger(self.trainer_state):
-            self._run_epoch(train_set, batch_size)
+        # training mode for the steps, as JAX's apply(training=True); a
+        # layer whose training mode is not ported (BatchNormalization)
+        # raises instead of silently running its inference form
+        self.model.train()
+        try:
+            while not end_trigger(self.trainer_state):
+                self._run_epoch(train_set, batch_size)
+        finally:
+            self.model.eval()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self

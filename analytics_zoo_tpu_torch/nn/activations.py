@@ -1,4 +1,4 @@
-"""Activations used by the ported layers.
+"""Activations used by the ported layers (port of ``nn/activations.py``).
 
 ``analytics_zoo_tpu.nn.activations.gelu`` is ``jax.nn.gelu``, whose default
 is the tanh approximation; torch's default gelu is the exact erf form, which
@@ -11,16 +11,39 @@ import torch
 import torch.nn.functional as F
 
 
+def linear(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return torch.softmax(x, dim=axis)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+ACTIVATIONS = {"linear": linear, "identity": linear, "relu": relu,
+               "softmax": softmax, "gelu": gelu}
+
+
 def get_activation(name):
+    """The activation for ``name`` (case-insensitive); ``None`` is linear,
+    a callable passes through."""
+    if name is None:
+        return linear
     if callable(name):
         return name
-    if name == "gelu":
-        return gelu
-    raise ValueError(f"activation {name!r} is not ported yet; known: gelu")
+    try:
+        return ACTIVATIONS[name.lower()]
+    except KeyError:
+        raise ValueError(f"activation {name!r} is not ported yet; known: "
+                         f"{sorted(ACTIVATIONS)}") from None
 
 
-__all__ = ["gelu", "get_activation"]
+__all__ = ["ACTIVATIONS", "gelu", "get_activation", "linear", "relu",
+           "softmax"]

@@ -1,0 +1,105 @@
+"""Core layers: InputLayer, Dense, Activation (port of
+``analytics_zoo_tpu/nn/layers/core.py``).
+
+Parameters keep the JAX names and layout: ``kernel`` (in, out) and
+``bias``. After ``InferenceModel.quantize_int8`` packs a Dense, its
+``kernel`` parameter is replaced by the buffers ``kernel_q`` (int8) and
+``kernel_scale`` (f32, per output channel) and the forward runs the int8
+matmul (``ops/int8.py``: K5 on the card).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ...ops.int8 import int8_matmul
+from ..activations import get_activation
+from ..module import Layer, as_compute, get_initializer
+
+
+class InputLayer(Layer):
+    """Placeholder layer carrying an input shape (graph inputs)."""
+
+    def __init__(self, input_shape, name: Optional[str] = None):
+        super().__init__(name=name, input_shape=input_shape)
+
+    def apply(self, x):
+        return x
+
+
+class Int8Kernel:
+    """Mixin of the layers whose forward computes in int8 once packed."""
+
+    @property
+    def is_int8(self) -> bool:
+        return "kernel_q" in self._buffers
+
+    @property
+    def packed_kernel(self):
+        return {"q": self.kernel_q, "scale": self.kernel_scale}
+
+    def pack_int8(self, packed) -> None:
+        """Replace the float ``kernel`` by ``quantize_weight``'s numpy
+        packing, as buffers on the kernel's device."""
+        dev = self.kernel.device
+        del self.kernel
+        self.register_buffer("kernel_q", torch.from_numpy(
+            np.ascontiguousarray(packed["q"])).to(dev))
+        self.register_buffer("kernel_scale", torch.from_numpy(
+            np.ascontiguousarray(packed["scale"])).to(dev))
+
+
+class Dense(Int8Kernel, Layer):
+    """Fully-connected layer: ``y = act(x @ W + b)``, ``W`` stored (in,
+    out)."""
+
+    def __init__(self, output_dim: int, activation=None, use_bias: bool = True,
+                 init="glorot_uniform", bias_init="zeros", w_regularizer=None,
+                 b_regularizer=None, name: Optional[str] = None,
+                 input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        if w_regularizer is not None or b_regularizer is not None:
+            raise NotImplementedError(
+                "regularizers are not ported (ROADMAP Queue 1, item 11)")
+        self.output_dim = int(output_dim)
+        self.activation = get_activation(activation)
+        self.use_bias = use_bias
+        self.init = get_initializer(init)
+        self.bias_init = get_initializer(bias_init)
+
+    def build(self, input_shape, gen: torch.Generator) -> None:
+        self.kernel = nn.Parameter(self.init(gen, (input_shape[-1],
+                                                   self.output_dim)))
+        if self.use_bias:
+            self.bias = nn.Parameter(self.bias_init(gen, (self.output_dim,)))
+        self.built = True
+
+    def apply(self, x):
+        x = as_compute(x)
+        if self.is_int8:
+            y = int8_matmul(x, self.packed_kernel)
+        else:
+            y = x @ self.kernel.to(x.dtype)
+        if self.use_bias:
+            y = y + self.bias.to(x.dtype)
+        return self.activation(y)
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape[:-1]) + (self.output_dim,)
+
+
+class Activation(Layer):
+    def __init__(self, activation, name: Optional[str] = None,
+                 input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.activation = get_activation(activation)
+
+    def apply(self, x):
+        return self.activation(as_compute(x))
+
+
+__all__ = ["Activation", "Dense", "InputLayer", "Int8Kernel"]

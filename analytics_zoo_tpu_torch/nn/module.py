@@ -1,10 +1,11 @@
-"""Precision policy, device resolution and the initializers the LM uses.
+"""Precision policy, device resolution, initializers and the ``Layer`` base.
 
-Port of the parts of ``analytics_zoo_tpu/nn/module.py`` that the serving
-and training paths need: the process-wide (param, compute) dtype policy,
-its scoped form ``precision_policy``, ``as_compute``, ``cast_params``, and
-the ``glorot_uniform`` / normal·0.02 / zeros initializers that
-``TransformerLM.build`` draws from. Draws come from an explicit
+Port of the parts of ``analytics_zoo_tpu/nn/module.py`` that the serving,
+training and int8 inference paths need: the process-wide (param, compute)
+dtype policy, its scoped form ``precision_policy``, ``as_compute``,
+``cast_params``, the ``glorot_uniform`` / normal·0.02 / zeros initializers
+that ``TransformerLM.build`` and the Keras-style layers draw from, and
+:class:`Layer`, the base of those layers. Draws come from an explicit
 ``torch.Generator`` on the CPU, so a seed gives the same weights whatever
 device they end up on (they do not reproduce JAX's draws: parity tests load
 the JAX weights through :mod:`analytics_zoo_tpu_torch.bridge`).
@@ -13,11 +14,13 @@ the JAX weights through :mod:`analytics_zoo_tpu_torch.bridge`).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import threading
-from typing import Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+from torch import nn
 
 _POLICY_LOCK = threading.Lock()
 _POLICY = {"param_dtype": torch.float32, "compute_dtype": torch.float32}
@@ -136,6 +139,79 @@ def ones_init(shape: Sequence[int]) -> torch.Tensor:
     return torch.ones(tuple(shape), dtype=param_dtype())
 
 
-__all__ = ["as_compute", "cast_params", "compute_dtype", "embedding_normal",
-           "glorot_uniform", "ones_init", "param_dtype", "precision_policy",
-           "resolve_device", "set_policy", "zeros_init"]
+def get_initializer(init: Union[str, Callable]) -> Callable:
+    """``init(gen, shape) -> tensor``: the Keras layers' kernel and bias
+    initializers that are ported (glorot-uniform, zeros, ones)."""
+    if callable(init):
+        return init
+    table: Dict[str, Callable] = {
+        "glorot_uniform": glorot_uniform, "xavier": glorot_uniform,
+        "zero": lambda gen, shape: zeros_init(shape),
+        "zeros": lambda gen, shape: zeros_init(shape),
+        "one": lambda gen, shape: ones_init(shape),
+        "ones": lambda gen, shape: ones_init(shape)}
+    try:
+        return table[init]
+    except KeyError:
+        raise NotImplementedError(
+            f"initializer {init!r} is not ported (known: {sorted(table)}; "
+            f"the rest is ROADMAP Queue 1, item 11)") from None
+
+
+# ---------------------------------------------------------------- layers
+
+_NAME_COUNTS: Dict[str, "itertools.count"] = {}
+_NAME_LOCK = threading.Lock()
+
+
+def _auto_name(cls_name: str) -> str:
+    with _NAME_LOCK:
+        n = next(_NAME_COUNTS.setdefault(cls_name, itertools.count()))
+    return f"{cls_name.lower()}_{n}"
+
+
+class Layer(nn.Module):
+    """Base of the Keras-style layers (port of the JAX ``Layer``).
+
+    A layer is made from its Keras arguments alone; ``build(input_shape,
+    gen)`` (shape without the batch dim) creates its parameters on the CPU
+    from the generator, once, when a graph or a Sequential that holds it is
+    built. ``apply(x)`` is the forward (the JAX method name; it shadows
+    ``nn.Module.apply(fn)``), so ``layer(tensor)`` runs it, while
+    ``layer(node)`` on a graph :class:`~..graph.Node` connects the layer
+    into a functional graph, as in the JAX package."""
+
+    def __init__(self, name: Optional[str] = None,
+                 input_shape: Optional[Sequence[int]] = None):
+        super().__init__()
+        self.name = name or _auto_name(type(self).__name__)
+        self.input_shape_hint = (tuple(input_shape) if input_shape is not None
+                                 else None)
+        self.built = False
+
+    def build(self, input_shape, gen: torch.Generator) -> None:
+        """Create the parameters for ``input_shape`` (batch dim excluded).
+        Layers without parameters keep this default."""
+
+    def apply(self, x):
+        raise NotImplementedError
+
+    def forward(self, x):
+        return self.apply(x)
+
+    def compute_output_shape(self, input_shape):
+        return input_shape
+
+    def __call__(self, x, *args, **kwargs):
+        from .graph import Node, apply_layer
+
+        if isinstance(x, Node) or (isinstance(x, (list, tuple)) and x and
+                                   all(isinstance(n, Node) for n in x)):
+            return apply_layer(self, x)
+        return super().__call__(x, *args, **kwargs)
+
+
+__all__ = ["Layer", "as_compute", "cast_params", "compute_dtype",
+           "embedding_normal", "get_initializer", "glorot_uniform",
+           "ones_init", "param_dtype", "precision_policy", "resolve_device",
+           "set_policy", "zeros_init"]

@@ -1,13 +1,14 @@
-"""Keras-style training API (port of ``KerasNet`` in ``nn/topology.py``).
+"""Keras-style training API (port of ``nn/topology.py``): ``KerasNet``,
+``Sequential`` and ``Model``.
 
 :class:`KerasNet` is the mixin that gives a module ``compile`` / ``fit`` /
 ``predict`` over the port's :class:`~..engine.estimator.Estimator`. Put it
 before ``nn.Module`` in the bases: its ``compile`` (the Keras one)
-shadows ``nn.Module.compile``.
+shadows ``nn.Module.compile``. :class:`Sequential` and :class:`Model` are
+the graph containers of ``nn/graph.py`` with that API.
 
 Not ported yet: ``evaluate`` and metrics (``nn/metrics.py``), weights
-files, TensorBoard and checkpoint sugar, and the ``Sequential`` / ``Model``
-graph containers (ROADMAP Queue 1).
+files, TensorBoard and checkpoint sugar (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 
 from ..common.config import TrainConfig
 from ..common.triggers import Trigger
+from .graph import GraphModule, SequentialModule
 
 
 class KerasNet:
@@ -84,4 +86,13 @@ class KerasNet:
         return cls if zero_based_label else cls + 1
 
 
-__all__ = ["KerasNet"]
+class Sequential(KerasNet, SequentialModule):
+    """``Sequential([...], device=None, seed=0)`` with the training API."""
+
+
+class Model(KerasNet, GraphModule):
+    """``Model(inputs, outputs, name=None, device=None, seed=0)``: a
+    functional graph with the training API."""
+
+
+__all__ = ["KerasNet", "Model", "Sequential"]

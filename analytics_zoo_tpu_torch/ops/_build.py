@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("flash_fwd", "flash_bwd", "paged_attention", "sample")
+KERNELS = ("flash_fwd", "flash_bwd", "paged_attention", "sample",
+           "int8_matmul", "int8_conv")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

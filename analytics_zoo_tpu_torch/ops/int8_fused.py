@@ -1,0 +1,338 @@
+"""Fused int8 matmul and conv: the K5 and K6 kernels, their wrappers and
+their plain versions.
+
+Port of ``analytics_zoo_tpu/ops/int8_fused.py``. K5 (``csrc/int8_matmul.cu``)
+replaces the Pallas ``_int8_matmul_kernel`` and K6 (``csrc/int8_conv.cu``)
+replaces ``_int8_conv_kernel``: the activations are quantized inside the
+kernel, the products run in int32, and the per-row (or per-pixel) scale and
+the per-channel weight scale are applied on the f32 accumulator, so no int8
+or dequantized intermediate reaches device memory.
+
+The JAX package has two routes with different arithmetic, and the port
+reproduces each as the TPU takes it (``fused_mode() == "compiled"``, the
+default blocks, no tuning cache, no env override):
+
+* the **fused** route: a matmul's activation scale is per (row, ``block_k``
+  segment) with ``block_k`` from :func:`resolve_blocks`, a conv's per input
+  pixel, and the scale is ``max(amax, 1e-12) * (1/127)`` (rule
+  ``"fused"``);
+* the **lax** route (``ops/int8.py``'s ``int8_matmul_unfused`` /
+  ``int8_conv2d_unfused``): a matmul's scale is per whole row, a conv's per
+  pixel at any stride, and the scale is ``max(amax, 1e-12) / 127`` (rule
+  ``"lax"``), which can differ from the fused rule by one ulp.
+
+``torch.matmul`` cannot multiply int8 on CUDA, so on the card both routes
+run on the kernels: K5 takes the scale-group length (``block_k`` on the
+fused route, K on the lax one) and K6 the stride and the rule. There is no
+routing switch: CPU tensors take the plain versions, CUDA tensors launch
+the kernel or raise.
+
+The plain versions compute the integer products in float64, which is exact
+(|sum| <= 127^2 * K < 2^53) and runs on CUDA too, then round to f32 as
+``part.astype(f32)`` does, and fold segments and taps in JAX's order with
+one rounding per multiply and per add.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+#: The TPU route's fixed schedule (``DEFAULT_BLOCK_M/N/K``) and its tiling
+#: floors (``_MIN_M/N/K``): the shapes that tile there take the fused route.
+DEFAULT_BLOCK_M, DEFAULT_BLOCK_N, DEFAULT_BLOCK_K = 256, 256, 512
+_MIN_M, _MIN_N, _MIN_K = 8, 128, 128
+
+RULES = ("fused", "lax")
+_RULE_CODES = {"fused": 0, "lax": 1}
+_RECIP127 = float(np.float32(1.0 / 127.0))
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GROUP = (2 ** 31 - 1) // (127 * 127)    # int32 partials cannot overflow
+# serving threads launch concurrently; a count must not lose an increment
+_COUNT_LOCK = threading.Lock()
+
+_SIG_MM = {"zoo_int8_matmul": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+           + [ctypes.c_float, ctypes.c_void_p]}
+_SIG_CONV = {"zoo_int8_conv": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
+             + [ctypes.c_float, ctypes.c_void_p]}
+
+
+def _pow2_floor(v: int) -> int:
+    return 1 << (int(v).bit_length() - 1)
+
+
+def _pow2_ceil(v: int) -> int:
+    return 1 << (int(v) - 1).bit_length() if v > 1 else 1
+
+
+def _shrink_to_divisor(dim: int, block: int, floor: int) -> Optional[int]:
+    """Largest power of two <= ``block`` that divides ``dim`` and is >=
+    ``floor``; None when there is none."""
+    b = _pow2_floor(block)
+    while b >= floor:
+        if dim % b == 0:
+            return b
+        b //= 2
+    return None
+
+
+def resolve_blocks(m: int, n: int, k: int) -> Optional[Tuple[int, int, int]]:
+    """The TPU's ``(block_m, block_n, block_k)`` for an (M, K) x (K, N)
+    fused matmul, or None when N or K cannot tile (the lax route). Pinned
+    to the TPU's default decision: the defaults 256/256/512 and the floors
+    8/128/128, with no env override and no tuning cache. Only ``block_k``
+    changes the arithmetic (it is the scale-group length)."""
+    bm = max(min(_pow2_floor(DEFAULT_BLOCK_M), _pow2_ceil(max(m, 1))), _MIN_M)
+    bn = _shrink_to_divisor(n, min(DEFAULT_BLOCK_N, n), _MIN_N)
+    bk = _shrink_to_divisor(k, min(DEFAULT_BLOCK_K, k), _MIN_K)
+    if bn is None or bk is None:
+        return None
+    return bm, bn, bk
+
+
+def _check_rule(rule: str) -> None:
+    if rule not in _RULE_CODES:
+        raise ValueError(f"rule must be one of {RULES}, got {rule!r}")
+
+
+def group_scale(amax: torch.Tensor, rule: str) -> torch.Tensor:
+    """The activation scale of a group from its f32 abs-max: ``max(amax,
+    1e-12) * f32(1/127)`` (rule "fused") or ``/ 127`` (rule "lax"). Both
+    operands are full tensors on amax's device, so neither side turns the
+    division into a multiply by a reciprocal (CUDA does for a host
+    scalar)."""
+    m = torch.clamp_min(amax, 1e-12)
+    if rule == "fused":
+        return m * torch.full_like(m, _RECIP127)
+    return m / torch.full_like(m, 127.0)
+
+
+def quantize_groups(xf: torch.Tensor, rule: str
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 codes of ``xf`` (f32) with one abs-max scale per
+    slice along the last dim: ``(codes as f32, scale (..., 1) f32)``;
+    ``round`` is half to even, as ``jnp.round``."""
+    scale = group_scale(xf.abs().amax(dim=-1, keepdim=True), rule)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q, scale
+
+
+# ----------------------------------------------------------------- K5 matmul
+
+def int8_matmul_fused_plain(x: torch.Tensor, packed: Dict[str, torch.Tensor],
+                            block_k: int, rule: str = "fused") -> torch.Tensor:
+    """What K5 computes, step by step: for each ``block_k`` segment of K,
+    quantize x's rows over the segment, multiply the codes by the int8
+    weights exactly, add ``f32(part) * scale`` to the f32 accumulator; then
+    ``* s_channel`` and cast to x's dtype. ``block_k = K`` with rule "lax"
+    is ``int8_matmul_unfused``."""
+    _check_rule(rule)
+    wq = packed["q"]
+    k, n = wq.shape
+    if k % block_k:
+        raise ValueError(f"block_k {block_k} does not divide K={k}")
+    lead = tuple(x.shape[:-1])
+    x2 = x.reshape(-1, k).float()
+    w = wq.to(torch.float64)
+    acc = torch.zeros((x2.shape[0], n), dtype=torch.float32, device=x.device)
+    for s0 in range(0, k, block_k):
+        q, scale = quantize_groups(x2[:, s0:s0 + block_k], rule)
+        part = (q.to(torch.float64) @ w[s0:s0 + block_k]).to(torch.float32)
+        acc = acc + part * scale
+    ws = packed["scale"].reshape(-1).float()
+    return (acc * ws).to(x.dtype).reshape(lead + (n,))
+
+
+def _check_packed(packed, ndim: int, what: str, dev) -> Tuple[torch.Tensor,
+                                                             torch.Tensor]:
+    wq, ws = packed["q"], packed["scale"]
+    if wq.dtype != torch.int8 or wq.dim() != ndim or not wq.is_contiguous():
+        raise ValueError(f"{what}: packed['q'] must be a contiguous "
+                         f"{ndim}-d int8 tensor, got {wq.dtype}"
+                         f"{tuple(wq.shape)}")
+    ws = ws.reshape(-1)
+    if ws.dtype != torch.float32 or ws.numel() != wq.shape[-1] \
+            or not ws.is_contiguous():
+        raise ValueError(f"{what}: packed['scale'] must hold {wq.shape[-1]} "
+                         f"f32 channel scales, got {ws.dtype}"
+                         f"{tuple(packed['scale'].shape)}")
+    for name, t in (("q", wq), ("scale", ws)):
+        if t.device != dev:
+            raise ValueError(f"{what}: packed[{name!r}] lives on {t.device}, "
+                             f"x on {dev}")
+    return wq, ws
+
+
+def int8_matmul_fused(x: torch.Tensor, packed: Dict[str, torch.Tensor],
+                      block_k: int, rule: str = "fused") -> torch.Tensor:
+    """``x @ W`` over a packed (K, N) int8 kernel with the activations
+    quantized per (row, ``block_k`` segment) inside the kernel. Returns
+    ``x.shape[:-1] + (N,)`` in x's dtype. CPU tensors take
+    :func:`int8_matmul_fused_plain`; CUDA tensors launch K5 or raise."""
+    if x.device.type == "cpu":
+        return int8_matmul_fused_plain(x, packed, block_k, rule)
+    _check_rule(rule)
+    lib = _build.load_library("int8_matmul", _SIG_MM)
+    if x.device.type != "cuda" or x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"int8_matmul_fused: x must be a float32/bfloat16 "
+                         f"CUDA tensor, got {x.dtype} on {x.device}")
+    wq, ws = _check_packed(packed, 2, "int8_matmul_fused", x.device)
+    k, n = wq.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"int8_matmul_fused: x's last dim {x.shape[-1]} != "
+                         f"K={k}")
+    if not 1 <= block_k <= _MAX_GROUP or k % block_k:
+        raise ValueError(f"int8_matmul_fused: block_k {block_k} must divide "
+                         f"K={k} and be at most {_MAX_GROUP}")
+    lead = tuple(x.shape[:-1])
+    m = math.prod(lead)
+    y = torch.empty(lead + (n,), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    x2 = x.reshape(m, k).contiguous()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.zoo_int8_matmul(x2.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+                              y.data_ptr(), _DTYPE_CODES[x.dtype], m, n, k,
+                              block_k, _RULE_CODES[rule], _RECIP127, stream)
+    _build.check_launch(err, "int8_matmul_fused")
+    with _COUNT_LOCK:
+        int8_matmul_fused.launches += 1
+    return y
+
+
+#: K5 launches since the count was last set to 0
+int8_matmul_fused.launches = 0
+
+
+# ------------------------------------------------------------------- K6 conv
+
+def conv_out_size(size: int, k: int, stride: int, pad: Tuple[int, int]
+                  ) -> int:
+    return (size + pad[0] + pad[1] - k) // stride + 1
+
+
+def same_pads(in_hw: Sequence[int], k_hw: Sequence[int],
+              strides: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    """TF-style SAME padding (``lax.padtype_to_pads``): the output is
+    ceil(in / stride), the extra pixel goes to the bottom/right."""
+    pads = []
+    for size, k, s in zip(in_hw, k_hw, strides):
+        out = -(-size // s)
+        total = max((out - 1) * s + k - size, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
+def conv_pads(padding, in_hw: Sequence[int], k_hw: Sequence[int],
+              strides: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    """((top, bottom), (left, right)) for ``padding``: "SAME" (TF-style),
+    "VALID", or explicit pairs."""
+    if isinstance(padding, str):
+        if padding.upper() == "SAME":
+            return same_pads(in_hw, k_hw, strides)
+        if padding.upper() == "VALID":
+            return ((0, 0), (0, 0))
+        raise ValueError(f"unknown padding {padding!r}")
+    return tuple(tuple(int(v) for v in p) for p in padding)
+
+
+def int8_conv2d_fused_plain(x: torch.Tensor, packed: Dict[str, torch.Tensor],
+                            stride: Sequence[int] = (1, 1),
+                            pads=((0, 0), (0, 0)),
+                            rule: str = "fused") -> torch.Tensor:
+    """What K6 computes, step by step: quantize each input pixel over its
+    channels, zero-pad, and for each tap t = kh·KW + kw in order multiply
+    the tap's strided window by the tap's (Cin, Cout) int8 slice exactly and
+    add ``f32(part) * pixel scale`` to the f32 accumulator; then ``*
+    s_channel`` and cast to x's dtype. With rule "lax" at any stride this
+    is ``int8_conv2d_unfused``."""
+    _check_rule(rule)
+    wq = packed["q"]
+    kh, kw, _, cout = wq.shape
+    sh, sw = tuple(stride)
+    (pt, pb), (pl, pr) = pads
+    b, h, w, _ = x.shape
+    ho = conv_out_size(h, kh, sh, (pt, pb))
+    wo = conv_out_size(w, kw, sw, (pl, pr))
+    if ho < 1 or wo < 1:
+        raise ValueError(f"int8 conv: window {kh}x{kw} larger than the "
+                         f"padded input {h}x{w}")
+    q, scale = quantize_groups(x.float(), rule)           # per pixel
+    q = F.pad(q, (0, 0, pl, pr, pt, pb))
+    scale = F.pad(scale, (0, 0, pl, pr, pt, pb), value=1.0)
+    w64 = wq.to(torch.float64)
+    acc = torch.zeros((b, ho, wo, cout), dtype=torch.float32, device=x.device)
+    for i in range(kh):
+        for j in range(kw):
+            rows = slice(i, i + (ho - 1) * sh + 1, sh)
+            cols = slice(j, j + (wo - 1) * sw + 1, sw)
+            part = (q[:, rows, cols, :].to(torch.float64) @ w64[i, j]).to(
+                torch.float32)
+            acc = acc + part * scale[:, rows, cols, :]
+    ws = packed["scale"].reshape(-1).float()
+    return (acc * ws).to(x.dtype)
+
+
+def int8_conv2d_fused(x: torch.Tensor, packed: Dict[str, torch.Tensor],
+                      stride: Sequence[int] = (1, 1), pads=((0, 0), (0, 0)),
+                      rule: str = "fused") -> torch.Tensor:
+    """NHWC x HWIO int8 conv with per-pixel activation quantization inside
+    the kernel; ``pads`` ((top, bottom), (left, right)) are zeros the
+    kernel reads without a padded copy of x. Returns (B, Ho, Wo, Cout) in
+    x's dtype. CPU tensors take :func:`int8_conv2d_fused_plain`; CUDA
+    tensors launch K6 or raise."""
+    if x.device.type == "cpu":
+        return int8_conv2d_fused_plain(x, packed, stride, pads, rule)
+    _check_rule(rule)
+    lib = _build.load_library("int8_conv", _SIG_CONV)
+    if x.device.type != "cuda" or x.dtype not in _DTYPE_CODES \
+            or x.dim() != 4:
+        raise ValueError(f"int8_conv2d_fused: x must be a (B, H, W, Cin) "
+                         f"float32/bfloat16 CUDA tensor, got {x.dtype}"
+                         f"{tuple(x.shape)} on {x.device}")
+    wq, ws = _check_packed(packed, 4, "int8_conv2d_fused", x.device)
+    kh, kw, cin, cout = wq.shape
+    b, h, w, c = x.shape
+    sh, sw = (int(s) for s in stride)
+    (pt, pb), (pl, pr) = pads
+    if c != cin or sh < 1 or sw < 1 or min(pt, pb, pl, pr) < 0 \
+            or cin > _MAX_GROUP:
+        raise ValueError(f"int8_conv2d_fused: x {tuple(x.shape)} vs kernel "
+                         f"{tuple(wq.shape)}, stride {stride}, pads {pads}")
+    ho = conv_out_size(h, kh, sh, (pt, pb))
+    wo = conv_out_size(w, kw, sw, (pl, pr))
+    if ho < 1 or wo < 1:
+        raise ValueError(f"int8 conv: window {kh}x{kw} larger than the "
+                         f"padded input {h}x{w}")
+    y = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
+    if b == 0:
+        return y
+    x = x.contiguous()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.zoo_int8_conv(x.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+                            y.data_ptr(), _DTYPE_CODES[x.dtype], b, h, w,
+                            cin, ho, wo, cout, kh, kw, sh, sw, pt, pl,
+                            _RULE_CODES[rule], _RECIP127, stream)
+    _build.check_launch(err, "int8_conv2d_fused")
+    with _COUNT_LOCK:
+        int8_conv2d_fused.launches += 1
+    return y
+
+
+#: K6 launches since the count was last set to 0
+int8_conv2d_fused.launches = 0
+
+
+__all__ = ["DEFAULT_BLOCK_K", "DEFAULT_BLOCK_M", "DEFAULT_BLOCK_N", "RULES",
+           "conv_out_size", "conv_pads", "group_scale", "int8_conv2d_fused",
+           "int8_conv2d_fused_plain", "int8_matmul_fused",
+           "int8_matmul_fused_plain", "quantize_groups", "resolve_blocks",
+           "same_pads"]

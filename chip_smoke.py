@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
-card.
+"""Drive the PyTorch/CUDA port's serving, training and int8 inference
+paths on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel checks only
+    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns
 
 Phases, each fatal on failure (no result line is printed then):
 
@@ -53,9 +54,36 @@ Phases, each fatal on failure (no result line is printed then):
    launches (set to 0 just before), so remat never re-ran K1. Prints the
    median step time, tokens/s, peak device memory and the losses.
 
+8. int8 serving (the int8 slice's main path): InferenceModel(
+   supported_concurrent_num=4, max_batch_size=32) over full-width
+   ResNet-50 (224x224x3, 1000 classes, weights from seed 0,
+   BatchNormalization's statistics calibrated on 4 seeded images): float
+   predicts timed at f32 and bf16, then quantize_int8 and warm_up, then a
+   burst of requests of 1, 5, 32 and 40 images from 4 threads: rows finite
+   and summing to 1, equal rows for equal images, K6 = 53 and K5 = 1
+   launches per dispatched chunk (counts set to 0 just before); then int8
+   timed at f32 and bf16 (images/s at batch 32, batch-1 p50) and the peak
+   device memory.
+9. int8 MLP: serving_bench.py's model (Dense 4096 relu x 2, Dense 128
+   softmax; seed 0) at batch 2048 through InferenceModel: K5 = 3 per
+   predict, the output within 1e-5 of the plain route on the card, predict
+   ms float and int8 at f32 and bf16.
+10. int8 parity: that ResNet-50, quantized, on the card (K5, K6) against
+   the same model on the CPU (plain versions) at batch 2: max |d prob| <=
+   1e-3 and the same top-1 wherever the CPU's top-2 margin is above 1e-3.
+
+Phase 3 also holds K5 (the MLP's shapes with block_k 512 in f32 and bf16,
+a ragged M = 1000, the ResNet head on the lax route) and K6 (ResNet-50's
+3x3/1 and 1x1/1 convs at 56 px, the 1x1/2 at 28 px and the 7x7/2 stem,
+batch 32, f32 and bf16) to their plain versions, f32 within 1e-5 and bf16
+within 1e-2 of max(1, max|plain|), and times them beside their bounds at
+1979 TOP/s int8 and a labelled library call (``torch._int_mm``, the int8
+product alone; ``F.conv2d`` in bf16, a float conv).
+
 The kernels line's ``launches`` are each kernel's count on its path (K1's
 on training, with ``launches_by_path`` for serving and training; the
-sampling kernel's on serving).
+sampling kernel's on serving; K5's and K6's on the int8 serving burst,
+with K5's per MLP predict beside it).
 The last three lines of standard output are the card's name and power
 limit, the per-kernel JSON, and ``{"ok": true, "device": {...}}``.
 """
@@ -69,9 +97,12 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
@@ -81,8 +112,16 @@ N_SLOTS, PAGE, MAX_SEQ = 8, 16, 1024
 # the training phase: micro-batches of TRAIN_BATCH // GRAD_ACCUM sequences
 TRAIN_BATCH, GRAD_ACCUM, TRAIN_SEQS, TRAIN_EPOCHS = 4, 2, 8, 4
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM dense peaks; int8 counts 2·M·N·K operations on the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the int8 slice: ResNet-50 (ImageClassifier's default backbone) served by
+# InferenceModel, and the int8 MLP of serving_bench.py (Dense 4096 relu,
+# Dense 4096 relu, Dense 128 softmax at batch 2048)
+IMG, CLASSES, IMG_BATCH, IMG_THREADS = 224, 1000, 32, 4
+MLP_HIDDEN, MLP_CLASSES, MLP_BATCH = 4096, 128, 2048
+# K5/K6 vs their plain versions: relative to max(1, max|plain|)
+I8_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
 def log(*a):
@@ -486,6 +525,151 @@ def check_sampler(torch, timer):
             "dtype": "float32"}
 
 
+def _i8_packed(torch, rng, shape):
+    from analytics_zoo_tpu_torch.ops.int8 import quantize_weight
+
+    return {k: torch.from_numpy(v).cuda() for k, v in
+            quantize_weight(rng.normal(size=shape).astype("float32")).items()}
+
+
+def _i8_check(got, ref, dt: str, label: str) -> float:
+    """Hold a K5/K6 result to its plain version; returns max |d|."""
+    e = _rel_err(got, ref)
+    ok = e <= I8_TOL[dt]
+    log(f"{label} {dt}: max|d|/max(1, max|plain|) {e:.3g} (tol "
+        f"{I8_TOL[dt]}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version "
+                             f"in {dt}")
+    return maxerr(got, ref)
+
+
+def _int_mm_ms(torch, timer, m: int, n: int, k: int):
+    """torch._int_mm at (M, K) x (K, N): the int8 product alone, a
+    yardstick that excludes K5's quantize and rescale. Returns (ms,
+    note)."""
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda")
+    b = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda")
+    return (timer(lambda: torch._int_mm(a, b)),
+            "torch._int_mm: int8 product only, excludes quantize/rescale")
+
+
+def check_k5(torch, timer):
+    """K5 against its plain version: the MLP's layers with block_k 512 (f32
+    and bf16 x), a ragged M = 1000, and the ResNet head (32, 2048) x (2048,
+    1000) on the lax route (one group of K, ``/ 127``); timed at the MLP
+    and head shapes. The kernels line carries the MLP's first layer."""
+    from analytics_zoo_tpu_torch.ops.int8_fused import (
+        int8_matmul_fused, int8_matmul_fused_plain)
+
+    rng = np.random.default_rng(20)
+    cases = [("MLP hidden", MLP_BATCH, MLP_HIDDEN, MLP_HIDDEN, 512, "fused",
+              "float32", True),
+             ("MLP hidden", MLP_BATCH, MLP_HIDDEN, MLP_HIDDEN, 512, "fused",
+              "bfloat16", False),
+             ("MLP head", MLP_BATCH, MLP_HIDDEN, MLP_CLASSES, 512, "fused",
+              "float32", True),
+             ("ragged M", 1000, MLP_HIDDEN, MLP_HIDDEN, 512, "fused",
+              "float32", False),
+             ("ResNet head", IMG_BATCH, 2048, CLASSES, 2048, "lax",
+              "float32", True)]
+    packs = {}
+    out = []
+    for label, m, k, n, g, rule, dt, timed in cases:
+        packed = packs.setdefault((k, n), _i8_packed(torch, rng, (k, n)))
+        x = (torch.randn((m, k), device="cuda") * 3).to(getattr(torch, dt))
+        tag = f"[K5] {label} ({m}, {k}) x ({k}, {n}) g={g} {rule}"
+        err = _i8_check(int8_matmul_fused(x, packed, g, rule),
+                        int8_matmul_fused_plain(x, packed, g, rule), dt, tag)
+        if not timed:
+            continue
+        ms = timer(lambda: int8_matmul_fused(x, packed, g, rule))
+        plain = timer(lambda: int8_matmul_fused_plain(x, packed, g, rule),
+                      n=5)
+        lib, note = _int_mm_ms(torch, timer, m, n, k)
+        elt = x.element_size()
+        bms, by = bound_ms(m * k * elt + k * n + 4 * n + m * n * elt,
+                           2 * m * n * k, "int8")
+        log(f"{tag} {dt}: {ms:.4f} ms (plain {plain:.4f}, bound {bms:.5f} "
+            f"by {by}, torch._int_mm {lib})")
+        out.append({"case": label, "shape": f"({m}, {k}) x ({k}, {n})",
+                    "block_k": g, "rule": rule, "dtype": dt,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                    "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                    "library_note": note})
+    main = out[0]
+    return {"name": "int8_matmul", "route": "cuda",
+            "source": "analytics_zoo_tpu_torch/csrc/int8_matmul.cu",
+            "replaces": "analytics_zoo_tpu/ops/int8_fused.py:157",
+            "launches": None,
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "library_note", "shape", "dtype")},
+            "cases": out}
+
+
+def check_k6(torch, timer):
+    """K6 against its plain version at ResNet-50's conv shapes, batch 32, f32
+    and bf16: 3x3/1 64->64 and 1x1/1 256->64 at 56 px (fused rule), 1x1/2
+    512->1024 at 28 px and the 7x7/2 stem 3->64 at 224 px (lax rule), SAME
+    padding; each timed in f32. The kernels line carries the 3x3."""
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.int8_fused import (
+        int8_conv2d_fused, int8_conv2d_fused_plain, same_pads)
+
+    rng = np.random.default_rng(21)
+    cases = [("3x3/1 64->64 @56", 56, 3, 64, 64, 1, "fused"),
+             ("1x1/1 256->64 @56", 56, 1, 256, 64, 1, "fused"),
+             ("1x1/2 512->1024 @28", 28, 1, 512, 1024, 2, "lax"),
+             ("stem 7x7/2 3->64 @224", IMG, 7, 3, 64, 2, "lax")]
+    out = []
+    for label, hw, k, cin, cout, st, rule in cases:
+        packed = _i8_packed(torch, rng, (k, k, cin, cout))
+        pads = same_pads((hw, hw), (k, k), (st, st))
+        args = ((st, st), pads, rule)
+        x32 = torch.randn((IMG_BATCH, hw, hw, cin), device="cuda")
+        tag = f"[K6] {label} B={IMG_BATCH} {rule}"
+        for dt in ("float32", "bfloat16"):
+            x = x32.to(getattr(torch, dt))
+            err = _i8_check(int8_conv2d_fused(x, packed, *args),
+                            int8_conv2d_fused_plain(x, packed, *args), dt,
+                            tag)
+            if dt == "float32":
+                err32 = err
+        ms = timer(lambda: int8_conv2d_fused(x32, packed, *args))
+        plain = timer(lambda: int8_conv2d_fused_plain(x32, packed, *args),
+                      n=5)
+        xc = x32.permute(0, 3, 1, 2).to(torch.bfloat16)
+        wc = torch.randn((cout, cin, k, k), device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        lib = timer(lambda: F.conv2d(xc, wc, stride=st, padding=k // 2))
+        ho, wo = -(-hw // st), -(-hw // st)
+        bms, by = bound_ms(
+            x32.numel() * 4 + k * k * cin * cout + 4 * cout
+            + IMG_BATCH * ho * wo * cout * 4,
+            2 * IMG_BATCH * ho * wo * cout * k * k * cin, "int8")
+        log(f"{tag} float32: {ms:.4f} ms (plain {plain:.4f}, bound "
+            f"{bms:.5f} by {by}, F.conv2d bf16 {lib:.4f})")
+        out.append({"case": label, "shape": f"B={IMG_BATCH} {hw}x{hw}x{cin}"
+                    f" -> {ho}x{wo}x{cout}, {k}x{k}/{st} SAME",
+                    "rule": rule, "dtype": "float32", "max_abs_err": err32,
+                    "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                    "bound_by": by, "library_ms": lib,
+                    "library_note": "F.conv2d in bf16 (cuDNN, channels-"
+                                    "last): a float conv, not the same "
+                                    "function"})
+    main = out[0]
+    return {"name": "int8_conv", "route": "cuda",
+            "source": "analytics_zoo_tpu_torch/csrc/int8_conv.cu",
+            "replaces": "analytics_zoo_tpu/ops/int8_fused.py:248",
+            "launches": None,
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "library_note", "shape", "dtype")},
+            "cases": out}
+
+
 def full_model(torch, device):
     from analytics_zoo_tpu_torch.models.transformer import TransformerLM
 
@@ -850,14 +1034,281 @@ def profile_training_step(torch, model, ids, smi):
         log(f"[profile-train] {ms:9.3f} ms {count:6d} calls  {key[:100]}")
 
 
+# ------------------------------------------------------------ int8 slice
+
+def _bn_calibrate(torch, model, x) -> None:
+    """Set every BatchNormalization's moving statistics to the batch
+    statistics of its input over ``x``, in one forward in graph order, so
+    that the seeded random network keeps unit-scale activations as a
+    trained one does (uncalibrated, its softmax is flat to 1e-5)."""
+    from analytics_zoo_tpu_torch.nn.layers import BatchNormalization
+
+    def take_stats(mod, args):
+        a = args[0].float()
+        mod.moving_mean.copy_(a.mean(dim=(0, 1, 2)))
+        mod.moving_var.copy_(a.var(dim=(0, 1, 2), unbiased=False))
+
+    hooks = [layer.register_forward_pre_hook(take_stats)
+             for layer in model.layers
+             if isinstance(layer, BatchNormalization)]
+    try:
+        with torch.no_grad():
+            model(torch.from_numpy(x))
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def resnet_state(torch):
+    """Full-width ResNet-50 (224x224x3, 1000 classes), weights from seed 0
+    and BN calibrated on 4 seeded images, on the CPU: its state dict."""
+    from analytics_zoo_tpu_torch.models.image.backbones import resnet50
+
+    model = resnet50((IMG, IMG, 3), CLASSES, device="cpu", seed=0)
+    x = np.random.default_rng(10).normal(size=(4, IMG, IMG, 3)).astype(
+        np.float32)
+    _bn_calibrate(torch, model, x)
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def resnet_on(torch, state, device):
+    from analytics_zoo_tpu_torch.models.image.backbones import resnet50
+
+    model = resnet50((IMG, IMG, 3), CLASSES, device=device, seed=0)
+    model.load_state_dict(state)
+    return model
+
+
+def phase_int8_parity(torch, state):
+    """The quantized full-width ResNet-50 on the card (K5, K6) against the
+    same model on the CPU (plain versions), at batch 2: max |d prob| <=
+    1e-3 and the same top-1 on every image whose CPU top-2 margin is above
+    1e-3. Up to the pooling both compute the same int8 arithmetic; upstream
+    f32 differences (the pooling's sum order) may flip a rare code."""
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+
+    x = np.random.default_rng(11).normal(size=(2, IMG, IMG, 3)).astype(
+        np.float32)
+    probs = {}
+    for dev in ("cuda", "cpu"):
+        im = InferenceModel(max_batch_size=2, device=dev).load(
+            resnet_on(torch, state, dev)).quantize_int8()
+        probs[dev] = im.predict(x)
+        del im
+    d = float(np.abs(probs["cuda"] - probs["cpu"]).max())
+    top2 = np.sort(probs["cpu"], axis=1)[:, ::-1]
+    margin = top2[:, 0] - top2[:, 1]
+    same = probs["cuda"].argmax(1) == probs["cpu"].argmax(1)
+    ok = d <= 1e-3 and bool(np.all(same | (margin <= 1e-3)))
+    log(f"[int8-parity] full-width ResNet-50 int8 cuda vs cpu, batch 2: "
+        f"max|d prob| {d:.3g} (tol 1e-3), cpu top-1 "
+        f"{probs['cpu'].argmax(1).tolist()} cuda "
+        f"{probs['cuda'].argmax(1).tolist()}, cpu top-2 margins "
+        f"{[round(float(m), 5) for m in margin]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the int8 ResNet-50 on the card disagrees with "
+                             "the cpu")
+
+
+def _img_timing(im, xb, x1, n: int = 20):
+    """Median wall time of ``predict`` (numpy out, so synced) at batch 32
+    and at batch 1."""
+    out = {}
+    for key, x in (("batch32", xb), ("batch1", x1)):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            im.predict(x)
+            times.append(time.perf_counter() - t0)
+        out[f"{key}_ms_p50"] = statistics.median(times) * 1e3
+    out["images_per_s"] = len(xb) / (out["batch32_ms_p50"] / 1e3)
+    return out
+
+
+def phase_int8_serving(torch, state, smi, profile: bool = False):
+    """The slice's main path: InferenceModel(supported_concurrent_num=4,
+    max_batch_size=32) over the full-width ResNet-50. The float model is
+    timed at f32 and bf16 compute, then quantize_int8 and warm_up; a burst
+    of requests of 1, 5, 32 and 40 images from 4 threads (40 runs as 32 +
+    8) must give finite rows summing to 1, the same rows for the same
+    images, and K6 = 53 and K5 = 1 launches per dispatched chunk (counts
+    set to 0 just before); then the int8 model is timed at f32 and bf16."""
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    set_policy(compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(12)
+    images = rng.normal(size=(40, IMG, IMG, 3)).astype(np.float32)
+    xb, x1 = images[:IMG_BATCH], images[:1]
+    im = InferenceModel(supported_concurrent_num=IMG_THREADS,
+                        max_batch_size=IMG_BATCH, device="cuda")
+    im.load(resnet_on(torch, state, "cuda"))
+    res = {}
+    for dt in ("float32", "bfloat16"):
+        set_policy(compute_dtype=dt)
+        im.warm_up(x1)
+        res[f"float_{dt}"] = _img_timing(im, xb, x1)
+    set_policy(compute_dtype="float32")
+    float_top1 = im.predict(xb).argmax(1)
+    im.quantize_int8()
+    im.warm_up(x1)
+    sizes = [1, 5, IMG_BATCH, 40]
+    outs, errors = {}, []
+
+    def client(t):
+        try:
+            for n in sizes[t:] + sizes[:t]:
+                outs[(t, n)] = im.predict(images[:n])
+        except Exception as e:               # reported below
+            errors.append(repr(e))
+
+    f8.int8_matmul_fused.launches = 0
+    f8.int8_conv2d_fused.launches = 0
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(IMG_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    burst_s = time.perf_counter() - t0
+    k5, k6 = f8.int8_matmul_fused.launches, f8.int8_conv2d_fused.launches
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"burst clients failed: {errors}")
+    chunks = IMG_THREADS * sum(-(-n // IMG_BATCH) for n in sizes)
+    bad = [(key, y.shape) for key, y in outs.items()
+           if y.shape != (key[1], CLASSES) or not np.isfinite(y).all()
+           or np.abs(y.sum(1) - 1).max() > 1e-4]
+    same = all(np.array_equal(outs[(t, n)], outs[(0, n)])
+               for t in range(IMG_THREADS) for n in sizes)
+    same = same and np.array_equal(outs[(0, 40)][:IMG_BATCH],
+                                   outs[(0, IMG_BATCH)])
+    log(f"[int8-serving] burst: {len(outs)} requests of {sizes} images from "
+        f"{IMG_THREADS} threads in {burst_s:.3f} s, {chunks} chunks; "
+        f"launches K6 {k6} (need 53 x {chunks} = {53 * chunks}), K5 {k5} "
+        f"(need {chunks}); borrowed_peak {im.borrowed_peak}; same rows for "
+        f"the same images: {same}")
+    if bad or not same:
+        raise AssertionError(f"burst results wrong: {bad}, same={same}")
+    if k6 != 53 * chunks or k5 != chunks:
+        raise AssertionError("the int8 serving path did not run K6 on every "
+                             "conv and K5 on the head of every chunk")
+    res["int8_float32"] = _img_timing(im, xb, x1)
+    int8_top1 = im.predict(xb).argmax(1)
+    set_policy(compute_dtype="bfloat16")
+    im.warm_up(x1)
+    res["int8_bfloat16"] = _img_timing(im, xb, x1)
+    set_policy(compute_dtype="float32")
+    res.update({"int8_vs_float_top1_agreement": float(
+                    (int8_top1 == float_top1).mean()),
+                "burst_s": burst_s, "compile_stats": im.compile_stats(),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "card": smi})
+    log(f"[int8-serving] {json.dumps(res)}")
+    if profile:
+        profile_int8_predict(torch, im, xb, smi)
+    return k5, k6
+
+
+def phase_int8_mlp(torch, smi):
+    """The int8 MLP of serving_bench.py (Dense 4096 relu, Dense 4096 relu,
+    Dense 128 softmax; seed 0) at batch 2048 through
+    InferenceModel(max_batch_size=2048): K5 three times per predict, every
+    layer on the fused route (block_k 512), the output within 1e-5 of the
+    plain route on the card; predict ms float and int8, f32 and bf16."""
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.nn.layers import Dense
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.nn.topology import Sequential
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    set_policy(compute_dtype="float32")
+    model = Sequential([
+        Dense(MLP_HIDDEN, activation="relu", input_shape=(MLP_HIDDEN,)),
+        Dense(MLP_HIDDEN, activation="relu"),
+        Dense(MLP_CLASSES, activation="softmax")], device="cuda", seed=0)
+    im = InferenceModel(max_batch_size=MLP_BATCH, device="cuda").load(model)
+    x = np.random.default_rng(13).normal(size=(MLP_BATCH, MLP_HIDDEN)).astype(
+        np.float32)
+
+    def predict_ms(n: int = 10) -> float:
+        im.predict(x)
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            im.predict(x)
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    res = {}
+    for dt in ("float32", "bfloat16"):
+        set_policy(compute_dtype=dt)
+        res[f"float_{dt}_ms"] = predict_ms()
+    set_policy(compute_dtype="float32")
+    im.quantize_int8()
+    f8.int8_matmul_fused.launches = 0
+    y = im.predict(x)
+    k5 = f8.int8_matmul_fused.launches
+    # the same forward with the plain version on the card
+    h = torch.from_numpy(x).cuda()
+    with torch.no_grad():
+        for layer in model.layers:
+            packed = layer.packed_kernel
+            k, n = packed["q"].shape
+            blocks = f8.resolve_blocks(MLP_BATCH, n, k)
+            assert blocks is not None and blocks[2] == 512
+            h = layer.activation(f8.int8_matmul_fused_plain(
+                h, packed, blocks[2], "fused") + layer.bias)
+    ref = h.cpu().numpy()
+    e = float(np.abs(y - ref).max()) / max(1.0, float(np.abs(ref).max()))
+    ok = k5 == 3 and e <= 1e-5
+    log(f"[int8-mlp] launches K5 {k5} per predict (need 3), max|d| vs the "
+        f"plain route on the card {e:.3g} (tol 1e-5) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the int8 MLP did not run K5 on every layer or "
+                             "disagrees with its plain route")
+    for dt in ("float32", "bfloat16"):
+        set_policy(compute_dtype=dt)
+        res[f"int8_{dt}_ms"] = predict_ms()
+    set_policy(compute_dtype="float32")
+    res.update({"batch": MLP_BATCH, "hidden": MLP_HIDDEN, "card": smi})
+    log(f"[int8-mlp] {json.dumps(res)}")
+    return k5
+
+
+def profile_int8_predict(torch, im, xb, smi):
+    """Trace one int8 batch-32 predict and print the device time by kernel
+    and the device's busy share of the traced wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        im.predict(xb)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, busy = _device_rows(prof)
+    log(f"[profile-int8] {smi} | one int8 ResNet-50 predict at batch "
+        f"{len(xb)}, wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+        f"({busy / wall_ms:.3f} of wall)")
+    for key, count, ms in rows[:15]:
+        log(f"[profile-int8] {ms:9.3f} ms {count:6d} calls  {key[:100]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="device, build and kernel checks only")
     ap.add_argument("--profile", action="store_true",
-                    help="after serving, trace one more burst, and after "
-                         "training one more step, with torch.profiler and "
-                         "print where the device time goes")
+                    help="after serving, trace one more burst, after "
+                         "training one more step and after the int8 burst "
+                         "one int8 predict, with torch.profiler, and print "
+                         "where the device time goes")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -878,7 +1329,8 @@ def main(argv=None) -> int:
         phase_build()
         timer = Timer(torch)
         kernels = [check_k1(torch, timer), check_k2(torch, timer),
-                   *check_k3_k4(torch, timer), check_sampler(torch, timer)]
+                   *check_k3_k4(torch, timer), check_sampler(torch, timer),
+                   check_k5(torch, timer), check_k6(torch, timer)]
         del timer
         if not args.quick:
             gpu_model = full_model(torch, "cuda")
@@ -895,6 +1347,16 @@ def main(argv=None) -> int:
                 k["launches"] = n
             kernels[0]["launches_by_path"] = {"serving": k1_serving,
                                               "training": k1}
+            torch.cuda.empty_cache()
+            state = resnet_state(torch)
+            k5, k6 = phase_int8_serving(torch, state, smi,
+                                        profile=args.profile)
+            k5_mlp = phase_int8_mlp(torch, smi)
+            phase_int8_parity(torch, state)
+            kernels[5]["launches"] = k5
+            kernels[5]["launches_by_path"] = {"resnet_serving": k5,
+                                              "mlp_per_predict": k5_mlp}
+            kernels[6]["launches"] = k6
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):

@@ -16,6 +16,8 @@ remat "flash" and twice under "full"; autograd through the flash Function
 matches SDPA's grads, and no CUDA tensor takes a plain backward.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -278,3 +280,120 @@ def test_small_model_training_step_on_card_matches_cpu(cuda):
         est.fit(data, batch_size=2, epochs=2)
         losses[name] = est.trainer_state.last_loss
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
+
+
+# ------------------------------------------------------------------ K5 / K6
+
+def _packed(rng, shape, cuda):
+    from analytics_zoo_tpu_torch.ops.int8 import quantize_weight
+
+    w = quantize_weight(rng.normal(size=shape).astype(np.float32))
+    return {k: torch.from_numpy(v).to(cuda) for k, v in w.items()}
+
+
+def _rel(got, ref):
+    return float((got.float() - ref.float()).abs().max()) / max(
+        1.0, float(ref.float().abs().max()))
+
+
+I8_TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)]
+
+
+@pytest.mark.parametrize("dtype,tol", I8_TOLS)
+@pytest.mark.parametrize("lead,k,n,g,rule", [
+    ((64,), 512, 256, 128, "fused"), ((100,), 1024, 384, 512, "fused"),
+    ((2, 9), 256, 128, 256, "fused"), ((8,), 2048, 1000, 2048, "lax"),
+    ((5,), 96, 20, 96, "lax"), ((0,), 256, 128, 128, "fused")])
+def test_int8_matmul_kernel_matches_plain(cuda, dtype, tol, lead, k, n, g,
+                                          rule):
+    """K5 against its plain version: the fused route's segments, ragged M,
+    3-D leading dims, the lax route's one group of K (N = 1000 and a K
+    that is no multiple of the chunk), M = 0 (no launch)."""
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    rng = np.random.default_rng(k + n)
+    packed = _packed(rng, (k, n), cuda)
+    x = torch.from_numpy(rng.normal(size=lead + (k,)).astype(np.float32)
+                         * 3).to(cuda).to(dtype)
+    before = f8.int8_matmul_fused.launches
+    y = f8.int8_matmul_fused(x, packed, g, rule)
+    ref = f8.int8_matmul_fused_plain(x, packed, g, rule)
+    torch.cuda.synchronize()
+    assert y.shape == lead + (n,) and y.dtype == dtype
+    assert f8.int8_matmul_fused.launches == before + (math.prod(lead) > 0)
+    if math.prod(lead):
+        assert _rel(y, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", I8_TOLS)
+@pytest.mark.parametrize("hw,k,cin,cout,stride,padding,rule", [
+    (14, 3, 16, 32, 1, "SAME", "fused"), (8, 1, 64, 16, 1, "SAME", "fused"),
+    (9, 3, 8, 70, 1, "VALID", "fused"), (14, 1, 32, 64, 2, "SAME", "lax"),
+    (32, 7, 3, 16, 2, "SAME", "lax"), (70, 3, 4, 8, 1, "SAME", "fused")])
+def test_int8_conv_kernel_matches_plain(cuda, dtype, tol, hw, k, cin, cout,
+                                        stride, padding, rule):
+    """K6 against its plain version: 3x3 and 1x1 at stride 1 (fused rule),
+    VALID with a ragged Cout, the stride-2 1x1 and the 7x7/2 stem on the
+    lax rule, and an output row wider than the 64-column tile."""
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    rng = np.random.default_rng(hw + cin)
+    packed = _packed(rng, (k, k, cin, cout), cuda)
+    x = torch.from_numpy(rng.normal(size=(2, hw, hw, cin)).astype(
+        np.float32)).to(cuda).to(dtype)
+    pads = (f8.same_pads((hw, hw), (k, k), (stride, stride))
+            if padding == "SAME" else ((0, 0), (0, 0)))
+    before = f8.int8_conv2d_fused.launches
+    y = f8.int8_conv2d_fused(x, packed, (stride, stride), pads, rule)
+    ref = f8.int8_conv2d_fused_plain(x, packed, (stride, stride), pads, rule)
+    torch.cuda.synchronize()
+    assert y.shape == ref.shape and y.dtype == dtype
+    assert f8.int8_conv2d_fused.launches == before + 1
+    assert _rel(y, ref) <= tol
+
+
+def test_int8_routers_launch_the_kernels_on_both_routes(cuda):
+    """On CUDA tensors the routers take K5 on both matmul routes and K6 on
+    both conv routes; bad inputs raise."""
+    from analytics_zoo_tpu_torch.ops import int8 as i8
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    rng = np.random.default_rng(0)
+    x = torch.randn((16, 256), device=cuda)
+    for n in (256, 100):                                # fused, lax
+        before = f8.int8_matmul_fused.launches
+        i8.int8_matmul(x, _packed(rng, (256, n), cuda))
+        assert f8.int8_matmul_fused.launches == before + 1
+    xi = torch.randn((1, 8, 8, 16), device=cuda)
+    for s in (1, 2):
+        before = f8.int8_conv2d_fused.launches
+        i8.int8_conv2d(xi, _packed(rng, (3, 3, 16, 8), cuda), strides=(s, s),
+                       padding="SAME")
+        assert f8.int8_conv2d_fused.launches == before + 1
+    with pytest.raises(ValueError, match="block_k"):
+        f8.int8_matmul_fused(x, _packed(rng, (256, 64), cuda), 100)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        f8.int8_matmul_fused(x.half(), _packed(rng, (256, 64), cuda), 128)
+
+
+def test_small_int8_resnet_on_card_matches_cpu(cuda):
+    """ResNet-50 at 32x32 with 10 classes, quantized: every conv launches
+    K6 and the head K5 (53 + 1 per predict), probabilities on the card
+    within 1e-4 of the same seeded model on the CPU (plain versions)."""
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.models.image.backbones import resnet50
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    x = np.random.default_rng(0).normal(size=(3, 32, 32, 3)).astype(
+        np.float32)
+    probs = {}
+    for dev in ("cuda", "cpu"):
+        im = InferenceModel(max_batch_size=4, device=dev).load(
+            resnet50((32, 32, 3), 10, device=dev, seed=2)).quantize_int8()
+        k5, k6 = f8.int8_matmul_fused.launches, f8.int8_conv2d_fused.launches
+        probs[dev] = im.predict(x)
+        if dev == "cuda":
+            assert (f8.int8_matmul_fused.launches - k5,
+                    f8.int8_conv2d_fused.launches - k6) == (1, 53)
+    assert float(np.abs(probs["cuda"] - probs["cpu"]).max()) <= 1e-4

@@ -32,7 +32,10 @@ def test_importing_every_port_module_leaves_jax_out():
     for mod in ("engine.estimator", "nn.optimizers", "nn.losses",
                 "nn.topology", "ops.fused_ce", "common.config",
                 "common.triggers", "data.featureset",
-                "parallel.update_sharding"):
+                "parallel.update_sharding", "ops.int8", "ops.int8_fused",
+                "nn.graph", "nn.layers.core", "nn.layers.convolution",
+                "nn.layers.merge", "inference.inference_model",
+                "models.image.backbones", "models.image.classification"):
         assert f"analytics_zoo_tpu_torch.{mod}" in res["modules"]
 
 
@@ -48,6 +51,10 @@ def _imports(path: Path):
 def test_no_source_of_the_port_or_chip_smoke_names_jax():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {f.relative_to(PKG).as_posix() for f in files[:-1]}
+    assert {"inference/inference_model.py", "models/image/backbones.py",
+            "models/image/classification.py", "ops/int8.py",
+            "ops/int8_fused.py", "nn/graph.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -58,6 +65,11 @@ def test_no_source_of_the_port_or_chip_smoke_names_jax():
 def test_kernel_sources_ship_with_the_package():
     srcs = {p.name for p in (PKG / "csrc").iterdir()}
     assert {"flash_fwd.cu", "flash_bwd.cu", "paged_attention.cu", "sample.cu",
+            "int8_matmul.cu", "int8_conv.cu", "int8_tile.cuh",
             "zoo_cuda.cuh"} <= srcs
+    from analytics_zoo_tpu_torch.ops import _build
+
+    assert {"int8_matmul", "int8_conv"} <= set(_build.KERNELS)
+    assert all((PKG / "csrc" / f"{k}.cu").is_file() for k in _build.KERNELS)
     text = (ROOT / "pyproject.toml").read_text()
     assert "csrc/*.cu" in text and "csrc/*.cuh" in text
