@@ -20,9 +20,14 @@
 // and outputs: bound by operations (tensor-core rate), by a factor of ~50
 // over bytes.
 //
-// What the simple design does about it: nothing yet for the tensor cores —
-// products are f32 FMA loops from shared memory, correct first, as in K1;
-// wgmma/TMA are later work. The structure is the JAX one and needs no
+// K3 has two kernels, chosen by dtype in `zoo_flash_bwd_dq`: bf16 takes
+// `flash_bwd_dq_mma_kernel`, on the tensor cores (its own note is below);
+// f32 takes `flash_bwd_dq_kernel`, FMA loops (TF32 would not hold the f32
+// checks at 1e-4). K4 is one FMA kernel for both dtypes.
+//
+// What the FMA kernels' simple design does about it: nothing for the tensor
+// cores — products are f32 FMA loops from shared memory, correct first;
+// K4 on the tensor cores is next. The structure is the JAX one and needs no
 // atomics: K3 has one block per (64-row Q tile, b*h) that walks the K tiles
 // up to the causal limit and keeps dQ in registers; K4 has one block per
 // (64-key tile, b*h) that walks the Q tiles from the causal start and keeps
@@ -35,6 +40,7 @@
 // kernels, as in K1, so a ragged T needs no fallback.
 #include <stdint.h>
 
+#include "attn_mma.cuh"
 #include "zoo_cuda.cuh"
 
 namespace {
@@ -90,15 +96,17 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ a,
   }
 }
 
-// K3: dQ for one 64-row Q tile of one (b, h)
-template <typename T, int D>
+// K3 in f32: dQ for one 64-row Q tile of one (b, h)
+template <int D>
 __global__ void __launch_bounds__(kRows * D / 32)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ g,
+    flash_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ g,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        int H, int Tq, int Tk, const Strides s, int causal,
-                        float scale) {
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int H, int Tq, int Tk,
+                        const Strides s, int causal, float scale) {
   constexpr int TPR = D / 32;
   constexpr int NT = kRows * TPR;
   __shared__ float ks[kTile][D];
@@ -116,21 +124,21 @@ __global__ void __launch_bounds__(kRows * D / 32)
   const int qp = active ? qpos : Tq - 1;  // inactive rows compute, never store
 
   float qr[32], gr[32], acc[32];
-  load_row<T, D>(q + b * s.q[0] + qp * s.q[1] + h * s.q[2], part, qr);
-  load_row<T, D>(g + b * s.g[0] + qp * s.g[1] + h * s.g[2], part, gr);
+  load_row<float, D>(q + b * s.q[0] + qp * s.q[1] + h * s.q[2], part, qr);
+  load_row<float, D>(g + b * s.g[0] + qp * s.g[1] + h * s.g[2], part, gr);
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   const float row_lse = lse[(long long)bh * Tq + qp];
   const float row_delta = delta[(long long)bh * Tq + qp];
 
-  const T* kbase = k + b * s.k[0] + h * s.k[2];
-  const T* vbase = v + b * s.v[0] + h * s.v[2];
+  const float* kbase = k + b * s.k[0] + h * s.k[2];
+  const float* vbase = v + b * s.v[0] + h * s.v[2];
   // causal: keys past the tile's last query row are in every row's future
   const int kend = causal ? min(Tk, q0 + kRows) : Tk;
 
   for (int k0 = 0; k0 < kend; k0 += kTile) {
     __syncthreads();  // the previous tile is fully consumed
-    stage_tile<T, D, NT>(kbase, s.k[1], vbase, s.v[1], k0, Tk, ks, vs);
+    stage_tile<float, D, NT>(kbase, s.k[1], vbase, s.v[1], k0, Tk, ks, vs);
     __syncthreads();
 #pragma unroll 2
     for (int j = 0; j < kTile; ++j) {
@@ -145,16 +153,16 @@ __global__ void __launch_bounds__(kRows * D / 32)
       const int kp = k0 + j;
       const bool ok = kp < Tk && (!causal || kp <= qpos);
       const float p = ok ? expf(sc * scale - row_lse) : 0.f;
-      const float ds = round_to<T>(p * (dp - row_delta) * scale);
+      const float ds = p * (dp - row_delta) * scale;
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[i] = fmaf(ds, ks[j][TPR * i + part], acc[i]);
     }
   }
 
   if (active) {
-    T* out = dq + (((long long)b * Tq + qpos) * H + h) * D;
+    float* out = dq + (((long long)b * Tq + qpos) * H + h) * D;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) out[TPR * i + part] = zoo::from_f<T>(acc[i]);
+    for (int i = 0; i < 32; ++i) out[TPR * i + part] = acc[i];
   }
 }
 
@@ -243,17 +251,211 @@ __global__ void __launch_bounds__(kRows * D / 32)
   }
 }
 
-template <typename T, int D>
+// K3 for bf16, designed for Hopper's tensor cores.
+//
+// Replaces the same TPU kernel, `_bwd_dq_kernel`
+// (analytics_zoo_tpu/ops/flash_attention.py:191), for bf16 inputs.
+//
+// What bounds it on the H100: at the training micro-batch (B=2, T=2048,
+// H=16, D=64, causal) its three products (S = Q K^T, dP = dO V^T,
+// dQ = dS K) come to ~26 GFLOP against ~6 MB of inputs and outputs:
+// operations at the tensor cores' rate (~26 us at 989 TFLOP/s) bound it,
+// by ~15x over bytes. So all three products run on the tensor cores, and
+// P and dS never leave registers.
+//
+// What the design does about it: one block of 4 warps per (64-row Q tile,
+// b*h), each warp owning 16 query rows. Q and dO are staged once through
+// shared memory into A fragments held in registers for the whole walk,
+// with the rows' lse (prescaled by log2(e)) and delta. The K and V tiles up
+// to the causal limit stream through the same two-stage cp.async ring as
+// K1's. Per 16-key chunk of a tile: S and dP on mma.sync (B fragments of K
+// and V by ldmatrix, non-transposed), P = exp2(S scale log2(e) - lse) and
+// dS = P (dP - delta) scale in f32 registers, dS rounded to bf16 and
+// repacked as an A fragment, then dQ += dS K with K's fragments by
+// ldmatrix.trans. Working a chunk at a time keeps 16 score and 16 dP
+// registers live instead of a whole tile's, and a chunk wholly in the
+// future of a warp's rows is skipped. dQ stays in f32 registers and goes
+// out once, in bf16, through shared memory as 16-byte stores. Blocks run
+// the Q tiles in reverse, the longest causal walks first. D=64 takes BK =
+// 64 and 54 KB of shared memory; D=128 takes BK = 32 and 68 KB.
+// Next: wgmma with a TMA producer warp, persistent blocks, and K4 on the
+// same tiles.
+template <int D, int BK>
+__global__ void __launch_bounds__(zoo::mma::kThreads)
+    flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dq, int H, int Tq,
+                            int Tk, const Strides s, int causal,
+                            float scale) {
+  namespace mm = zoo::mma;
+  using bf16 = __nv_bfloat16;
+  constexpr int BQ = mm::kRows;
+  constexpr int STAGES = mm::kStages;
+  constexpr int P = mm::Tile<D>::kPitch;
+  constexpr int KD = D / 16;  // k16 steps over the head dim
+  constexpr int ND = D / 8;   // n8 tiles of dQ
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sq = reinterpret_cast<bf16*>(smem);  // BQ x P
+  bf16* sg = sq + BQ * P;                    // BQ x P (dO)
+  bf16* sk = sg + BQ * P;                    // STAGES x BK x P
+  bf16* sv = sk + STAGES * BK * P;           // STAGES x BK x P
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int wrow = q0 + warp * 16;  // the warp's first query row
+  const int row0 = wrow + g;        // this lane's rows: row0, row0 + 8
+
+  // causal: keys past the tile's last query row are in every row's future
+  const int kend = causal ? min(Tk, q0 + BQ) : Tk;
+  const int nk = (kend + BK - 1) / BK;
+
+  // Q and dO, then the first STAGES - 1 K/V tiles, one commit group per
+  // tile
+  mm::load_tile<D, BQ>(sq, q + b * s.q[0] + h * s.q[2], s.q[1], q0, Tq);
+  mm::load_tile<D, BQ>(sg, dout + b * s.g[0] + h * s.g[2], s.g[1], q0, Tq);
+  const mm::TileRing<D, BK> ring{sk, sv, k + b * s.k[0] + h * s.k[2],
+                                 v + b * s.v[0] + h * s.v[2], s.k[1],
+                                 s.v[1], Tk, nk};
+  ring.prologue();
+
+  const float sl2 = scale * mm::kLog2e;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const bool ok = row < Tq;  // rows past Tq compute, never store
+    lse2[i] = ok ? lse[(long long)bh * Tq + row] * mm::kLog2e : 0.f;
+    dl[i] = ok ? delta[(long long)bh * Tq + row] : 0.f;
+  }
+  uint32_t qf[KD][4], gf[KD][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * BK;
+    ring.step(j);
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        mm::load_a<D>(qf[kk], sq, warp * 16, kk * 16);
+        mm::load_a<D>(gf[kk], sg, warp * 16, kk * 16);
+      }
+    }
+    const bf16* ks = ring.tile_a(j);
+    const bf16* vs = ring.tile_b(j);
+
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      const int key0 = k0 + 16 * kc;
+      // warp-uniform: every key of the chunk past Tk or in the future of
+      // all of this warp's rows
+      if (key0 >= Tk || (causal && key0 > wrow + 15)) continue;
+      float sc[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[n][e] = 0.f;
+          dp[n][e] = 0.f;
+        }
+      // the chunk's K and V fragments are all loaded before its products,
+      // so one ldmatrix latency is exposed per chunk, not one per product
+      uint32_t kf[KD][4], vf[KD][4];
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        mm::load_b<D>(kf[kk], ks, kc * 16, kk * 16);
+        mm::load_b<D>(vf[kk], vs, kc * 16, kk * 16);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        mm::mma_bf16(sc[0], qf[kk], kf[kk][0], kf[kk][1]);
+        mm::mma_bf16(sc[1], qf[kk], kf[kk][2], kf[kk][3]);
+        mm::mma_bf16(dp[0], gf[kk], vf[kk][0], vf[kk][1]);
+        mm::mma_bf16(dp[1], gf[kk], vf[kk][2], vf[kk][3]);
+      }
+      const bool edge = key0 + 16 > Tk || (causal && key0 + 15 > wrow);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = mm::ex2(sc[n][e] * sl2 - lse2[e >> 1]);
+          if (edge) {
+            const int key = key0 + 8 * n + 2 * t + (e & 1);
+            const int row = row0 + (e >> 1) * 8;
+            if (key >= Tk || (causal && key > row)) p = 0.f;
+          }
+          sc[n][e] = p * (dp[n][e] - dl[e >> 1]) * scale;  // dS
+        }
+      }
+      // dQ += dS K: dS rounded to bf16 in registers is the A operand
+      uint32_t da[4];
+      mm::c_to_a(da, sc[0], sc[1]);
+      uint32_t kt[D / 16][4];
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd)
+        mm::load_bt<D>(kt[dd], ks, kc * 16, dd * 16);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        mm::mma_bf16(acc[2 * dd], da, kt[dd][0], kt[dd][1]);
+        mm::mma_bf16(acc[2 * dd + 1], da, kt[dd][2], kt[dd][3]);
+      }
+    }
+  }
+
+  // the warp's rows of sq were read only by this warp, into qf
+  mm::store_rows<D>(acc, 1.f, 1.f, sq + warp * 16 * P,
+                    dq + ((long long)b * Tq * H + h) * D, (long long)H * D,
+                    wrow, Tq);
+}
+
+template <int D, int BK>
+int launch_dq_mma(const void* q, const void* k, const void* v, const void* g,
+                  const void* lse, const void* delta, void* dq, int B, int H,
+                  int Tq, int Tk, const Strides& s, int causal, float scale,
+                  cudaStream_t stream) {
+  namespace mm = zoo::mma;
+  constexpr int smem =
+      (2 * mm::kRows + 2 * mm::kStages * BK) * mm::Tile<D>::kPitch * 2;
+  static std::atomic<uint64_t> granted{0};
+  const cudaError_t err =
+      mm::grant_smem(flash_bwd_dq_mma_kernel<D, BK>, smem, granted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Tq + mm::kRows - 1) / mm::kRows, B * H);
+  flash_bwd_dq_mma_kernel<D, BK><<<grid, mm::kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), H,
+      Tq, Tk, s, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 void launch_dq(const void* q, const void* k, const void* v, const void* g,
                const void* lse, const void* delta, void* dq, int B, int H,
                int Tq, int Tk, const Strides& s, int causal, float scale,
                cudaStream_t stream) {
   dim3 grid((Tq + kRows - 1) / kRows, B * H);
-  flash_bwd_dq_kernel<T, D><<<grid, kRows * D / 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g),
+  flash_bwd_dq_kernel<D><<<grid, kRows * D / 32, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Tq, Tk, s, causal, scale);
+      static_cast<float*>(dq), H, Tq, Tk, s, causal, scale);
 }
 
 template <typename T, int D>
@@ -274,9 +476,10 @@ void launch_dkv(const void* q, const void* k, const void* v, const void* g,
 // Strides are in elements: (batch, position, head) for q, k, v and dO (g);
 // head dims are contiguous. lse and delta are contiguous (B, H, Tq) f32;
 // dq is a contiguous (B, Tq, H, D) tensor and dk, dv contiguous
-// (B, Tk, H, D) tensors in the storage dtype. Each entry returns
-// cudaGetLastError() after its launch (cudaErrorInvalidValue for a
-// dtype/head-dim it does not take).
+// (B, Tk, H, D) tensors in the storage dtype. bf16 rows must start 16-byte
+// aligned (the wrapper checks: K3's cp.async moves 16-byte chunks). Each
+// entry returns cudaGetLastError() after its launch (cudaErrorInvalidValue
+// for a dtype/head-dim it does not take).
 extern "C" int zoo_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* g, const void* lse,
                                 const void* delta, void* dq, int dtype, int B,
@@ -290,14 +493,17 @@ extern "C" int zoo_flash_bwd_dq(const void* q, const void* k, const void* v,
                   {gsb, gst, gsh}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Tq < 1 || Tk < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == zoo::kBF16) {
+    if (D == 64)
+      return launch_dq_mma<64, 64>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
+    if (D == 128)
+      return launch_dq_mma<128, 32>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == zoo::kF32 && D == 64)
-    launch_dq<float, 64>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
+    launch_dq<64>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
   else if (dtype == zoo::kF32 && D == 128)
-    launch_dq<float, 128>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
-  else if (dtype == zoo::kBF16 && D == 64)
-    launch_dq<__nv_bfloat16, 64>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
-  else if (dtype == zoo::kBF16 && D == 128)
-    launch_dq<__nv_bfloat16, 128>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
+    launch_dq<128>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

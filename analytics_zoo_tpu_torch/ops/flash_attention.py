@@ -19,9 +19,15 @@ Function keeps its own saved tensors, a block checkpointed around it (the
 ``remat="flash"`` mode of ``TransformerLM``) never re-runs K1 in backward —
 what ``FLASH_REMAT_POLICY`` guarantees in JAX.
 
+bf16 runs on tensor-core kernels (``mma.sync`` on bf16 tiles that
+``cp.async`` stages in shared memory; K1 and K3), f32 on FMA kernels; K4
+is an FMA kernel for both.
+
 Layout (B, T, H, D) as everywhere in the package. The wrapper takes any
 strides with a contiguous head dim, so q/k/v sliced out of the fused QKV
-projection go in without a copy.
+projection go in without a copy. A bf16 operand must also start on a
+16-byte boundary with (batch, position, head) strides that are multiples
+of 8 elements: ``cp.async`` moves 16-byte chunks.
 """
 
 from __future__ import annotations
@@ -52,9 +58,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """What K1 computes, step by step in plain PyTorch: f32 scores, the
-    causal mask on absolute positions, the row log-sum-exp, normalized
-    probabilities times V. Returns ``(out in q's dtype, lse (B, H, Tq)
-    f32)``. Used for CPU tensors and as the kernel's yardstick in tests."""
+    causal mask on absolute positions, e = exp(s − rowmax) rounded to v's
+    dtype before e·V (as the JAX kernel rounds P; a no-op in f32), divided
+    by the f32 row sum of e, and the row log-sum-exp. Returns ``(out in q's
+    dtype, lse (B, H, Tq) f32)``. Used for CPU tensors and as the kernel's
+    yardstick in tests."""
     d = q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
         1.0 / math.sqrt(d))
@@ -62,10 +70,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_pos = torch.arange(q.shape[1], device=q.device)
         k_pos = torch.arange(k.shape[1], device=q.device)
         s = s.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
-    lse = torch.logsumexp(s, dim=-1)                      # (B, H, Tq)
-    p = torch.exp(s - lse[..., None])
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
-    return out, lse
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1)                                     # (B, H, Tq)
+    out = torch.einsum("bhqk,bkhd->bqhd", e.to(v.dtype).float(), v.float())
+    out = (out / l.transpose(1, 2)[..., None]).to(q.dtype)
+    return out, m[..., 0] + torch.log(l)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -94,6 +104,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: empty sequence")
 
 
+def _check_aligned(what: str, **tensors: torch.Tensor) -> None:
+    """bf16 operands feed ``cp.async``'s 16-byte copies: each must start on
+    a 16-byte boundary, and its (batch, position, head) strides, where the
+    dim has more than one entry, must be multiples of 8 elements."""
+    for name, t in tensors.items():
+        if t.dtype != torch.bfloat16:
+            continue
+        bad = [i for i in range(3) if t.shape[i] > 1 and t.stride(i) % 8]
+        if t.data_ptr() % 16 or bad:
+            raise ValueError(
+                f"{what}: bf16 {name} must start 16-byte aligned with "
+                f"(batch, position, head) strides that are multiples of 8 "
+                f"elements; got data_ptr % 16 = {t.data_ptr() % 16}, "
+                f"strides {t.stride()}")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -104,6 +130,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal)
     lib = _build.load_library("flash_fwd", _SIG)
     _check(q, k, v)
+    _check_aligned("flash_attention", q=q, k=k, v=v)
     b, t_q, h, d = q.shape
     t_k = k.shape[1]
     out = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
@@ -202,6 +229,7 @@ def _check_bwd(q, k, v, g, lse, delta) -> None:
             raise ValueError(f"flash_attention_bwd: {name} must be a "
                              f"contiguous (B, H, Tq) f32 CUDA tensor, got "
                              f"{t.dtype}{tuple(t.shape)} on {t.device}")
+    _check_aligned("flash_attention_bwd", q=q, k=k, v=v, g=g)
 
 
 def _bwd_args(q, k, v, g, lse, delta, causal):
@@ -295,8 +323,11 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        if g.stride(-1) != 1:
-            g = g.contiguous()
+        if not g.is_contiguous() or g.data_ptr() % 16:
+            # the incoming grad is ours to lay out (one broadcast from
+            # .sum() has stride 0): the kernels take a contiguous head dim
+            # and, in bf16, 16-byte-aligned rows
+            g = g.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.causal)
         return dq, dk, dv, None
 

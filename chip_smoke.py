@@ -14,19 +14,22 @@ Phases, each fatal on failure (no result line is printed then):
    nvcc (one process per source, all at once), timed.
 3. kernels: K1 (flash forward, out + LSE), K2 (paged attention, q_len 1
    and 4, with a zero-length slot), K3 (flash backward dQ) and K4 (flash
-   backward dK/dV; D in {64, 128}, T in {16, 100, 1024}, causal and not)
-   against their plain PyTorch versions on the card, f32 within 1e-4 and
-   bf16 within 2e-2 (K3/K4 at B 1 and 2, and K1, K3 and K4 again at the
-   training shapes B=2 and B=4, T=2048, H=16, D=64, causal, bf16), and
-   timed with CUDA events (median of 30 launches, 20 for K3/K4, after
-   warm-up, L2 flushed before each): the kernel, its plain version, one
-   library call computing the same function (a yardstick the port never
-   calls; for K3/K4 SDPA's backward, which computes dQ, dK and dV in one
-   call), and the bound — the larger of bytes over 3.35 TB/s and
-   operations over the peak rate of the inputs' type. K1/K2 are timed at
-   the serving shapes, K3/K4 at the training micro-batch (B=2, the shape
-   the main path launches them at; the kernels line) and the whole batch
-   (B=4, under ``whole_batch``). The sampling kernel (threefry bits,
+   backward dK/dV; D in {64, 128}, T in {16, 100, 1024} and at the 64-row
+   tile edges {1, 63, 64, 65, 127, 129}, causal and not) against their
+   plain PyTorch versions on the card, f32 within 1e-4 and bf16 within
+   2e-2 (K3/K4 at B 1 and 2, and K1, K3 and K4 again at the training
+   shapes B=2 and B=4, T=2048, H=16, D=64, causal, bf16); bf16 K1 and K3
+   run on the tensor-core kernels, f32 on the FMA ones. Timed with CUDA
+   events (median of 30 launches, 20 for K3/K4, after warm-up, L2 flushed
+   before each): the kernel, its plain version, one library call
+   computing the same function (a yardstick the port never calls; for
+   K3/K4 SDPA's backward, which computes dQ, dK and dV in one call), and
+   the bound — the larger of bytes over 3.35 TB/s and operations over the
+   peak rate of the inputs' type. K1/K2 are timed at the serving shapes,
+   K1 also at the training micro-batch (under ``training_shape``), K3/K4
+   at the training micro-batch (B=2, the shape the main path launches
+   them at; the kernels line) and the whole batch (B=4, under
+   ``whole_batch``). The sampling kernel (threefry bits,
    Gumbel transform and row argmax fused) must draw its plain version's
    tokens exactly, at the decode step's (8, 32000) logits.
 4. parity: the full-width f32 model on the card (kernels) against the same
@@ -115,6 +118,8 @@ HBM_BYTES_PER_S = 3.35e12
 # H100 SXM dense peaks; int8 counts 2·M·N·K operations on the tensor cores
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# sequence lengths at and around the flash kernels' 64-row tiles
+EDGE_T = (1, 63, 64, 65, 127, 129)
 # the int8 slice: ResNet-50 (ImageClassifier's default backbone) served by
 # InferenceModel, and the int8 MLP of serving_bench.py (Dense 4096 relu,
 # Dense 4096 relu, Dense 128 softmax at batch 2048)
@@ -222,24 +227,26 @@ def check_k1(torch, timer):
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = 0.0
-    cases = [(t, 64, dt) for t in (16, 100, 1024)
-             for dt in ("float32", "bfloat16")]
-    cases += [(100, 128, "float32"), (100, 128, "bfloat16")]
-    for t, d, dt in cases:
+    dts = ("float32", "bfloat16")
+    cases = [(t, 64, dt, True) for t in (16, 100, 1024) for dt in dts]
+    cases += [(100, 128, dt, True) for dt in dts]
+    cases += [(t, d, dt, causal) for t in EDGE_T for d in (64, 128)
+              for dt in dts for causal in (False, True)]
+    for t, d, dt, causal in cases:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn((1, t, N_HEAD, d), generator=gen,
                                device="cuda").to(dtype) for _ in range(3))
-        out, lse = flash_attention_fwd(q, k, v, True)
-        ref, ref_lse = flash_attention_plain(q, k, v, True)
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        ref, ref_lse = flash_attention_plain(q, k, v, causal)
         torch.cuda.synchronize()
         e_out, e_lse = maxerr(out, ref), maxerr(lse, ref_lse)
         ok = e_out <= TOL[dt] and e_lse <= TOL[dt]
-        log(f"[K1] T={t} D={d} {dt} causal: max|d out| {e_out:.3g} "
-            f"max|d lse| {e_lse:.3g} (tol {TOL[dt]}) "
+        log(f"[K1] T={t} D={d} {dt} causal={causal}: max|d out| "
+            f"{e_out:.3g} max|d lse| {e_lse:.3g} (tol {TOL[dt]}) "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version at "
-                                 f"T={t} D={d} {dt}")
+                                 f"T={t} D={d} {dt} causal={causal}")
     # timed at the longest prefill bucket of the serving path, in bf16
     t, d, dt = 1024, 64, "bfloat16"
     q, k, v = (torch.randn((1, t, N_HEAD, d), generator=gen,
@@ -257,13 +264,41 @@ def check_k1(torch, timer):
     nbytes = 4 * t * N_HEAD * d * elt + N_HEAD * t * 4
     flops = 4 * N_HEAD * d * (t * (t + 1) // 2)
     bms, by = bound_ms(nbytes, flops, dt)
+    # and at the training micro-batch, q/k/v strided out of one fused QKV
+    # tensor as the model hands them over
+    b, t = TRAIN_BATCH // GRAD_ACCUM, SEQ_LEN
+    qkv = torch.randn((b, t, 3, N_HEAD, d), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    out, lse = flash_attention_fwd(q, k, v, True)
+    ref, ref_lse = flash_attention_plain(q, k, v, True)
+    e_train = max(maxerr(out, ref), maxerr(lse, ref_lse))
+    del out, lse, ref, ref_lse
+    if e_train > TOL[dt]:
+        raise AssertionError(f"K1 disagrees with its plain version at the "
+                             f"training shape: {e_train:.3g}")
+    ms_t = timer(lambda: flash_attention_fwd(q, k, v, True))
+    plain_t = timer(lambda: flash_attention_plain(q, k, v, True), n=5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_t = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True))
+    b_t, by_t = bound_ms(4 * b * t * N_HEAD * d * elt + b * N_HEAD * t * 4,
+                         4 * b * N_HEAD * d * (t * (t + 1) // 2), dt)
+    label = f"B={b} T={t} H={N_HEAD} D={d}"
+    log(f"[K1] {label} causal {dt} (training shape): {ms_t:.4f} ms "
+        f"(plain {plain_t:.4f}, bound {b_t:.5f} by {by_t}), SDPA forward "
+        f"{lib_t:.4f} ms, max err {e_train:.3g}")
     return {"name": "flash_fwd", "route": "cuda",
             "source": "analytics_zoo_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "analytics_zoo_tpu/ops/flash_attention.py:46",
             "launches": None, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib,
-            "shape": f"B=1 T={t} H={N_HEAD} D={d} causal", "dtype": dt}
+            "shape": f"B=1 T=1024 H={N_HEAD} D={d} causal", "dtype": dt,
+            "training_shape": {
+                "max_abs_err": e_train, "ms": ms_t, "plain_ms": plain_t,
+                "bound_ms": b_t, "bound_by": by_t, "library_ms": lib_t,
+                "shape": f"{label} causal", "dtype": dt}}
 
 
 def check_k2(torch, timer):
@@ -442,7 +477,7 @@ def check_k3_k4(torch, timer):
     gen = torch.Generator(device="cuda").manual_seed(6)
     for b in (1, 2):
         for d in (64, 128):
-            for t in (16, 100, 1024):
+            for t in (16, 100, 1024) + (EDGE_T if b == 2 else ()):
                 for causal in (False, True):
                     for dt in ("float32", "bfloat16"):
                         case = _bwd_case(torch, gen, b, t, d,

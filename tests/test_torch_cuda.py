@@ -7,13 +7,17 @@ here skips. On the card (where the JAX package need not be installed):
 
 Each kernel is held against its plain PyTorch version on the same inputs:
 f32 within 1e-4, bf16 within 2e-2 (the backward kernels' gradients
-relative to max(1, max|plain|)). The small model runs its cache-threaded
-path on the card (K1, K2) against the same seeded model on the CPU (plain
-versions), f32 logits within 1e-4; the sampling kernel draws the plain
-version's tokens exactly; it trains on the card (K1, K3, K4) to
-the CPU's loss, with K1 launched once per block and micro-step under
-remat "flash" and twice under "full"; autograd through the flash Function
-matches SDPA's grads, and no CUDA tensor takes a plain backward.
+relative to max(1, max|plain|)). The flash kernels are checked at every
+tile edge (T = 1, 63, 64, 65, 127, 129), with Tq != Tk both ways, at
+D = 64 and 128 and on q/k/v strided out of one fused QKV tensor; the bf16
+tensor-core kernels (K1, K3) must give the same bits twice and refuse a
+view their 16-byte copies cannot take. The small model runs its
+cache-threaded path on the card (K1, K2) against the same seeded model on
+the CPU (plain versions), f32 logits within 1e-4; the sampling kernel
+draws the plain version's tokens exactly; it trains on the card (K1, K3,
+K4) to the CPU's loss, with K1 launched once per block and micro-step
+under remat "flash" and twice under "full"; autograd through the flash
+Function matches SDPA's grads, and no CUDA tensor takes a plain backward.
 """
 
 import math
@@ -30,6 +34,8 @@ from analytics_zoo_tpu_torch.ops.kv_cache import SCRATCH_PAGE
 
 pytestmark = pytest.mark.cuda
 TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+#: sequence lengths at and around the 64-row tiles of the flash kernels
+EDGE_T = (1, 63, 64, 65, 127, 129)
 
 
 @pytest.fixture()
@@ -41,13 +47,31 @@ def cuda():
     return torch.device("cuda")
 
 
+def _fwd_case(cuda, dtype, t, t_k, d, fused, seed):
+    """q (2, t, 4, d) and k, v (2, t_k, 4, d): three tensors, or (fused,
+    t_k = t) strided views of one (2, t, 3, 4, d) QKV tensor."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if fused:
+        qkv = torch.randn((2, t, 3, 4, d), generator=g, device=cuda).to(dtype)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    t_k = t if t_k is None else t_k
+    return tuple(torch.randn((2, n, 4, d), generator=g, device=cuda)
+                 .to(dtype) for n in (t, t_k, t_k))
+
+
 @pytest.mark.parametrize("dtype,tol", TOLS)
-@pytest.mark.parametrize("t,d,causal", [(16, 64, True), (100, 64, True),
-                                        (77, 128, False)])
-def test_flash_kernel_matches_plain(cuda, dtype, tol, t, d, causal):
-    g = torch.Generator(device=cuda).manual_seed(t)
-    q, k, v = (torch.randn((2, t, 4, d), generator=g, device=cuda)
-               .to(dtype) for _ in range(3))
+@pytest.mark.parametrize("t,t_k,d,causal,fused", [
+    (16, None, 64, True, False), (100, None, 64, True, False),
+    (77, None, 128, False, False),
+    *[(t, None, 64, c, False) for t in EDGE_T for c in (False, True)],
+    *[(t, None, 128, True, False) for t in EDGE_T],
+    (40, 70, 64, True, False), (70, 40, 64, True, False),
+    (63, 129, 128, True, False), (129, 63, 128, True, False),
+    (65, 130, 64, False, False),
+    (129, None, 64, True, True), (100, None, 128, True, True)])
+def test_flash_kernel_matches_plain(cuda, dtype, tol, t, t_k, d, causal,
+                                    fused):
+    q, k, v = _fwd_case(cuda, dtype, t, t_k, d, fused, seed=t)
     before = tfa.flash_attention_fwd.launches
     out, lse = tfa.flash_attention_fwd(q, k, v, causal)
     ref, ref_lse = tfa.flash_attention_plain(q, k, v, causal)
@@ -169,28 +193,39 @@ def test_small_model_cached_path_on_card_matches_cpu(cuda):
 
 # ------------------------------------------------------- K3/K4 and training
 
-def _bwd_case(cuda, dtype, t, d, causal, t_k=None, seed=0):
+def _bwd_case(cuda, dtype, t, d, causal, t_k=None, seed=0, fused=False):
+    """q strided out of a fused QKV tensor; k and v from the same tensor
+    (``fused``, t_k = t) or separate (2, t_k, 4, d) tensors."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     t_k = t if t_k is None else t_k
     qkv = torch.randn((2, t, 3, 4, d), generator=g, device=cuda).to(dtype)
     q = qkv[:, :, 0]
-    k = torch.randn((2, t_k, 4, d), generator=g, device=cuda).to(dtype)
-    v = torch.randn((2, t_k, 4, d), generator=g, device=cuda).to(dtype)
+    if fused:
+        k, v = qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        k = torch.randn((2, t_k, 4, d), generator=g, device=cuda).to(dtype)
+        v = torch.randn((2, t_k, 4, d), generator=g, device=cuda).to(dtype)
     out, lse = tfa.flash_attention_fwd(q, k, v, causal)
     go = torch.randn((2, t, 4, d), generator=g, device=cuda).to(dtype)
     return q, k, v, go, lse, tfa.flash_bwd_delta(out, go)
 
 
 @pytest.mark.parametrize("dtype,tol", TOLS)
-@pytest.mark.parametrize("t,t_k,d,causal", [
-    (16, None, 64, True), (100, None, 64, True), (77, None, 128, False),
-    (130, None, 64, False), (40, 70, 64, True), (70, 40, 128, True)])
+@pytest.mark.parametrize("t,t_k,d,causal,fused", [
+    (16, None, 64, True, False), (100, None, 64, True, False),
+    (77, None, 128, False, False), (130, None, 64, False, False),
+    (40, 70, 64, True, False), (70, 40, 128, True, False),
+    *[(t, None, 64, True, False) for t in EDGE_T],
+    *[(t, None, 128, False, False) for t in EDGE_T],
+    (63, 129, 64, True, False), (129, 63, 64, True, False),
+    (65, 127, 128, False, False),
+    (129, None, 64, True, True), (100, None, 128, True, True)])
 def test_flash_backward_kernels_match_plain(cuda, dtype, tol, t, t_k, d,
-                                            causal):
+                                            causal, fused):
     """K3 (dq) and K4 (dk, dv) against their plain versions, strided q,
     ragged T and Tq != Tk included; errors relative to max(1, max|plain|)
     (bf16 gradients reach magnitudes where one ulp exceeds 2e-2)."""
-    case = _bwd_case(cuda, dtype, t, d, causal, t_k, seed=t)
+    case = _bwd_case(cuda, dtype, t, d, causal, t_k, seed=t, fused=fused)
     before = (tfa.flash_attention_bwd_dq.launches,
               tfa.flash_attention_bwd_dkv.launches)
     dq = tfa.flash_attention_bwd_dq(*case, causal)
@@ -205,6 +240,37 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, tol, t, t_k, d,
         assert got.dtype == dtype
         scale = max(1.0, float(ref.float().abs().max()))
         assert float((got.float() - ref.float()).abs().max()) <= tol * scale
+
+
+def test_bf16_flash_kernels_give_the_same_bits_twice(cuda):
+    """K1 and K3 in bf16 sum in a fixed order (no atomics): two launches on
+    the same inputs give bitwise-equal out, lse and dq."""
+    q, k, v, go, lse, delta = _bwd_case(cuda, torch.bfloat16, 200, 64, True,
+                                        seed=9, fused=True)
+    runs = [(*tfa.flash_attention_fwd(q, k, v, True),
+             tfa.flash_attention_bwd_dq(q, k, v, go, lse, delta, True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_bf16_view_the_kernels_cannot_copy_raises(cuda):
+    """cp.async moves 16-byte chunks: a bf16 view that starts off a 16-byte
+    boundary, or whose head stride is not a multiple of 8 elements, raises
+    ValueError instead of faulting."""
+    n = 2 * 64 * 4 * 64
+    buf = torch.randn((n + 8,), device=cuda).to(torch.bfloat16)
+    odd = buf[1:n + 1].view(2, 64, 4, 64)
+    assert odd.data_ptr() % 16
+    padded = torch.randn((2, 64, 4, 68), device=cuda).to(
+        torch.bfloat16)[..., :64]
+    lse = torch.zeros((2, 4, 64), device=cuda)
+    for x in (odd, padded):
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa.flash_attention_fwd(x, x, x, True)
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa.flash_attention_bwd_dq(x, x, x, x, lse, lse, True)
 
 
 def test_flash_autograd_on_card_matches_sdpa_grads(cuda):

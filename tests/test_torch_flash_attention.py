@@ -1,7 +1,9 @@
 """K1 (flash-attention forward) in the PyTorch port.
 
 On the CPU: the plain version against the JAX package's Pallas kernel run in
-interpret mode (out and LSE, max |diff| <= 1e-5 in f32), and the wrapper's
+interpret mode (the LSE within 1e-5; out within 1e-5 in f32 and, in bf16,
+where both round the probabilities to bf16 before P·V, within 2e-2), and
+the wrapper's
 routing — CPU tensors take the plain version, anything else goes to the
 kernel or raises. The kernel itself is held against its plain version on
 the card by ``tests/test_torch_cuda.py``.
@@ -18,6 +20,10 @@ from analytics_zoo_tpu_torch.ops import _build
 from analytics_zoo_tpu_torch.ops import flash_attention as tfa
 
 TOL = 1e-5
+#: (dtype name, tolerance of out): f32 agrees to rounding; a bf16 out
+#: rounds P at other places in the two frameworks (the running vs the
+#: final row max). The LSE is f32 from the same inputs in both: TOL.
+DTYPES = [("float32", TOL), ("bfloat16", 2e-2)]
 
 
 def _qkv(t, h=2, d=16, b=2, seed=0):
@@ -26,35 +32,71 @@ def _qkv(t, h=2, d=16, b=2, seed=0):
                  for _ in range(3))
 
 
-def _jax_out_lse(q, k, v, causal, block=None):
-    out, res = _flash_attention_fwd_res(jnp.asarray(q), jnp.asarray(k),
-                                        jnp.asarray(v), causal, block, block,
-                                        True)
+def _jax_out_lse(q, k, v, causal, block=None, dtype="float32"):
+    out, res = _flash_attention_fwd_res(
+        *(jnp.asarray(x).astype(dtype) for x in (q, k, v)), causal, block,
+        block, True)
     assert res is not None, "the JAX call fell back to full attention"
-    return np.asarray(out), np.asarray(res[4])
+    assert out.dtype == dtype
+    return np.asarray(out.astype(jnp.float32)), np.asarray(res[4])
 
 
+def _plain_out_lse(q, k, v, causal, dtype="float32"):
+    out, lse = tfa.flash_attention_plain(
+        *(torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v)),
+        causal)
+    assert out.dtype == getattr(torch, dtype) and lse.dtype == torch.float32
+    return out.float().numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("t", [16, 12, 37])
 @pytest.mark.parametrize("causal", [False, True])
-def test_plain_matches_jax_kernel_out_and_lse(t, causal):
+def test_plain_matches_jax_kernel_out_and_lse(t, causal, dtype, tol):
     q, k, v = _qkv(t, seed=t)
-    want_out, want_lse = _jax_out_lse(q, k, v, causal)
-    out, lse = tfa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
-                                         causal)
-    assert lse.dtype == torch.float32 and lse.shape == (2, 2, t)
-    assert float(np.abs(want_out - out.numpy()).max()) <= TOL
-    assert float(np.abs(want_lse - lse.numpy()).max()) <= TOL
+    want_out, want_lse = _jax_out_lse(q, k, v, causal, dtype=dtype)
+    out, lse = _plain_out_lse(q, k, v, causal, dtype)
+    assert lse.shape == (2, 2, t)
+    assert float(np.abs(want_out - out).max()) <= tol
+    assert float(np.abs(want_lse - lse).max()) <= TOL
 
 
-def test_plain_matches_jax_multi_tile_causal_skip():
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_plain_matches_jax_multi_tile_causal_skip(dtype, tol):
     """T=64 over 16-wide JAX tiles: the reference skips future K tiles; the
     plain version must agree with that tiled result."""
     q, k, v = _qkv(64, seed=3)
-    want_out, want_lse = _jax_out_lse(q, k, v, True, block=16)
-    out, lse = tfa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
-                                         True)
-    assert float(np.abs(want_out - out.numpy()).max()) <= TOL
-    assert float(np.abs(want_lse - lse.numpy()).max()) <= TOL
+    want_out, want_lse = _jax_out_lse(q, k, v, True, block=16, dtype=dtype)
+    out, lse = _plain_out_lse(q, k, v, True, dtype)
+    assert float(np.abs(want_out - out).max()) <= tol
+    assert float(np.abs(want_lse - lse).max()) <= TOL
+
+
+@pytest.mark.parametrize("block", [None, 16])
+def test_plain_rounds_probabilities_like_jax_kernel_bf16(block):
+    """Near-tied scores whose probabilities all round down in bf16: key 0
+    scores 0 and the 63 others 2.5 · -1.078125 / 4, so each p = 0.50975 is
+    stored as 0.50781 (-0.38%). With v = 16 everywhere, rounding P before
+    P·V gives out = 15.9375, keeping it in f32 gives 16. The plain version
+    must land where the JAX kernel does, in one tile and in four, and a
+    softmax that does not round P must not."""
+    t, h, d = 64, 2, 16
+    q = np.zeros((1, t, h, d), np.float32)
+    q[..., 0] = 2.5
+    k = np.zeros_like(q)
+    k[:, 1:, :, 0] = -1.078125
+    v = np.full_like(q, 16.0)
+    tol = dict(DTYPES)["bfloat16"]
+    want_out, want_lse = _jax_out_lse(q, k, v, False, block=block,
+                                      dtype="bfloat16")
+    out, lse = _plain_out_lse(q, k, v, False, "bfloat16")
+    assert float(np.abs(want_out - out).max()) <= tol
+    assert float(np.abs(want_lse - lse).max()) <= TOL
+    qt, kt, vt = (torch.from_numpy(x).to(torch.bfloat16).float()
+                  for x in (q, k, v))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qt, kt) / d ** 0.5, -1)
+    unrounded = torch.einsum("bhqk,bkhd->bqhd", p, vt).to(torch.bfloat16)
+    assert float(np.abs(want_out - unrounded.float().numpy()).max()) > tol
 
 
 def test_wrapper_on_cpu_takes_plain_version_without_launching():
