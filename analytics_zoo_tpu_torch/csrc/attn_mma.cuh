@@ -1,5 +1,6 @@
-// Tensor-core tile machinery of the bf16 flash-attention kernels (K1 in
-// csrc/flash_fwd.cu, K3 in csrc/flash_bwd.cu): staging (rows, D) bf16 tiles
+// Tensor-core tile machinery of the bf16 attention kernels (K1 in
+// csrc/flash_fwd.cu, K3 and K4 in csrc/flash_bwd.cu, K2 in
+// csrc/paged_attention.cu): staging (rows, D) bf16 tiles
 // into shared memory with cp.async, the ring of stages the kernels walk
 // their streamed operands through, fragment loads with ldmatrix, the
 // m16n8k16 bf16 mma.sync with f32 accumulators, the accumulator-to-operand
@@ -72,6 +73,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
+// 4 bytes global -> shared, asynchronously; zero-filled when not valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -104,9 +113,11 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
 
 // The ring of kStages shared-memory stages through which a kernel walks
 // two (rows, D) bf16 operands a BK-row tile at a time (K and V in K1 and
-// K3). Each tile is one commit group; copies the caller starts before
-// prologue() (its own Q tile) join the first tile's group.
-template <int D, int BK>
+// K3, Q and dO in K4). With kRowVals, two f32 values per row (K4: the
+// query rows' lse and delta) travel with each tile. Each tile is one
+// commit group; copies the caller starts before prologue() (its own Q
+// tile, K4's K and V) join the first tile's group.
+template <int D, int BK, bool kRowVals = false>
 struct TileRing {
   static constexpr int kStage = BK * Tile<D>::kPitch;  // elements a stage
   bf16* sa;  // kStages stages of a
@@ -116,6 +127,12 @@ struct TileRing {
   long long as, bs;  // row strides, elements
   int n;             // rows of a and b; rows at or past n are zero-filled
   int tiles;         // tiles to walk
+  // kRowVals only: contiguous f32 values of the rows, and their kStages
+  // stages of BK values each
+  const float* ra = nullptr;
+  const float* rb = nullptr;
+  float* sra = nullptr;
+  float* srb = nullptr;
 
   // start tile j's copies into its stage (none past the last tile), and
   // commit them as one group
@@ -123,6 +140,15 @@ struct TileRing {
     if (j < tiles) {
       load_tile<D, BK>(sa + (j % kStages) * kStage, a, as, j * BK, n);
       load_tile<D, BK>(sb + (j % kStages) * kStage, b, bs, j * BK, n);
+      if constexpr (kRowVals) {
+        for (int i = threadIdx.x; i < 2 * BK; i += kThreads) {
+          const int r = i % BK;
+          const int p = j * BK + r;
+          const bool ok = p < n;
+          float* dst = (i < BK ? sra : srb) + (j % kStages) * BK + r;
+          cp_async4(smem_addr(dst), (i < BK ? ra : rb) + (ok ? p : 0), ok);
+        }
+      }
     }
     cp_async_commit();
   }
@@ -146,6 +172,12 @@ struct TileRing {
   }
   __device__ __forceinline__ const bf16* tile_b(int j) const {
     return sb + (j % kStages) * kStage;
+  }
+  __device__ __forceinline__ const float* rows_a(int j) const {
+    return sra + (j % kStages) * BK;
+  }
+  __device__ __forceinline__ const float* rows_b(int j) const {
+    return srb + (j % kStages) * BK;
   }
 };
 
@@ -226,6 +258,14 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[0] and c[1] += a b over the two n8 tiles of one load_b / load_bt
+// fragment pair b
+__device__ __forceinline__ void mma_pair(float (*c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[4]) {
+  mma_bf16(c[0], a, b[0], b[1]);
+  mma_bf16(c[1], a, b[2], b[3]);
 }
 
 // two f32 rounded to bf16 (round to nearest even), lo in the low half

@@ -20,23 +20,23 @@
 // and outputs: bound by operations (tensor-core rate), by a factor of ~50
 // over bytes.
 //
-// K3 has two kernels, chosen by dtype in `zoo_flash_bwd_dq`: bf16 takes
-// `flash_bwd_dq_mma_kernel`, on the tensor cores (its own note is below);
-// f32 takes `flash_bwd_dq_kernel`, FMA loops (TF32 would not hold the f32
-// checks at 1e-4). K4 is one FMA kernel for both dtypes.
+// Each has two kernels, chosen by dtype in `zoo_flash_bwd_dq` and
+// `zoo_flash_bwd_dkv`: bf16 takes `flash_bwd_dq_mma_kernel` and
+// `flash_bwd_dkv_mma_kernel`, on the tensor cores (their own notes are
+// below); f32 takes `flash_bwd_dq_kernel` and `flash_bwd_dkv_kernel`, FMA
+// loops (TF32 would not hold the f32 checks at 1e-4).
 //
-// What the FMA kernels' simple design does about it: nothing for the tensor
-// cores — products are f32 FMA loops from shared memory, correct first;
-// K4 on the tensor cores is next. The structure is the JAX one and needs no
-// atomics: K3 has one block per (64-row Q tile, b*h) that walks the K tiles
-// up to the causal limit and keeps dQ in registers; K4 has one block per
-// (64-key tile, b*h) that walks the Q tiles from the causal start and keeps
-// dK and dV in registers. D/32 neighbouring threads own one row, each
-// holding 32 interleaved elements (d = TPR*i + part) of the row's operands
-// and accumulators, so a dot product is D/32 partial sums joined by
-// shuffles. The streamed tiles are staged as f32 in shared memory with
-// coalesced loads (32 rows: 16 KB at D=64, 32 KB at D=128, under the 48 KB
-// static limit). Keys past Tk and rows past Tq are masked inside the
+// The f32 FMA kernels do nothing for the tensor cores: products are f32
+// FMA loops from shared memory, correct first. The structure is the JAX
+// one and needs no atomics: K3 has one block per (64-row Q tile, b*h) that
+// walks the K tiles up to the causal limit and keeps dQ in registers; K4
+// has one block per (64-key tile, b*h) that walks the Q tiles from the
+// causal start and keeps dK and dV in registers. D/32 neighbouring threads
+// own one row, each holding 32 interleaved elements (d = TPR*i + part) of
+// the row's operands and accumulators, so a dot product is D/32 partial
+// sums joined by shuffles. The streamed tiles are staged in shared memory
+// with coalesced loads (32 rows: 16 KB at D=64, 32 KB at D=128, under the
+// 48 KB static limit). Keys past Tk and rows past Tq are masked inside the
 // kernels, as in K1, so a ragged T needs no fallback.
 #include <stdint.h>
 
@@ -53,11 +53,6 @@ struct Strides {
   long long q[3], k[3], v[3], g[3];
 };
 
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return zoo::to_f(zoo::from_f<T>(x));
-}
-
 // sum of one row's TPR partial dot products (neighbouring lanes)
 template <int TPR>
 __device__ __forceinline__ float row_sum(float x) {
@@ -67,19 +62,20 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void load_row(const T* __restrict__ src, int part,
-                                         float (&dst)[32]) {
+template <int D>
+__device__ __forceinline__ void load_row(const float* __restrict__ src,
+                                         int part, float (&dst)[32]) {
   constexpr int TPR = D / 32;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dst[i] = zoo::to_f(src[TPR * i + part]);
+  for (int i = 0; i < 32; ++i) dst[i] = src[TPR * i + part];
 }
 
-// stage rows [r0, r0 + kTile) of two (rows, D) operands as f32; rows at or
-// past n are zero
-template <typename T, int D, int NT>
-__device__ __forceinline__ void stage_tile(const T* __restrict__ a,
-                                           long long as, const T* __restrict__ b,
+// stage rows [r0, r0 + kTile) of two (rows, D) operands; rows at or past n
+// are zero
+template <int D, int NT>
+__device__ __forceinline__ void stage_tile(const float* __restrict__ a,
+                                           long long as,
+                                           const float* __restrict__ b,
                                            long long bs, int r0, int n,
                                            float (*sa)[D], float (*sb)[D]) {
   for (int idx = threadIdx.x; idx < kTile * D; idx += NT) {
@@ -88,8 +84,8 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ a,
     const int p = r0 + r;
     float x = 0.f, y = 0.f;
     if (p < n) {
-      x = zoo::to_f(a[(long long)p * as + c]);
-      y = zoo::to_f(b[(long long)p * bs + c]);
+      x = a[(long long)p * as + c];
+      y = b[(long long)p * bs + c];
     }
     sa[r][c] = x;
     sb[r][c] = y;
@@ -124,8 +120,8 @@ __global__ void __launch_bounds__(kRows * D / 32)
   const int qp = active ? qpos : Tq - 1;  // inactive rows compute, never store
 
   float qr[32], gr[32], acc[32];
-  load_row<float, D>(q + b * s.q[0] + qp * s.q[1] + h * s.q[2], part, qr);
-  load_row<float, D>(g + b * s.g[0] + qp * s.g[1] + h * s.g[2], part, gr);
+  load_row<D>(q + b * s.q[0] + qp * s.q[1] + h * s.q[2], part, qr);
+  load_row<D>(g + b * s.g[0] + qp * s.g[1] + h * s.g[2], part, gr);
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   const float row_lse = lse[(long long)bh * Tq + qp];
@@ -138,7 +134,7 @@ __global__ void __launch_bounds__(kRows * D / 32)
 
   for (int k0 = 0; k0 < kend; k0 += kTile) {
     __syncthreads();  // the previous tile is fully consumed
-    stage_tile<float, D, NT>(kbase, s.k[1], vbase, s.v[1], k0, Tk, ks, vs);
+    stage_tile<D, NT>(kbase, s.k[1], vbase, s.v[1], k0, Tk, ks, vs);
     __syncthreads();
 #pragma unroll 2
     for (int j = 0; j < kTile; ++j) {
@@ -166,15 +162,18 @@ __global__ void __launch_bounds__(kRows * D / 32)
   }
 }
 
-// K4: dK and dV for one 64-key tile of one (b, h)
-template <typename T, int D>
+// K4 in f32: dK and dV for one 64-key tile of one (b, h)
+template <int D>
 __global__ void __launch_bounds__(kRows * D / 32)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ g,
+    flash_bwd_dkv_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ g,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int H, int Tq, int Tk,
-                         const Strides s, int causal, float scale) {
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int H, int Tq, int Tk, const Strides s, int causal,
+                         float scale) {
   constexpr int TPR = D / 32;
   constexpr int NT = kRows * TPR;
   __shared__ float qs[kTile][D];
@@ -194,16 +193,16 @@ __global__ void __launch_bounds__(kRows * D / 32)
   const int kp = active ? kpos : Tk - 1;
 
   float kr[32], vr[32], dka[32], dva[32];
-  load_row<T, D>(k + b * s.k[0] + kp * s.k[1] + h * s.k[2], part, kr);
-  load_row<T, D>(v + b * s.v[0] + kp * s.v[1] + h * s.v[2], part, vr);
+  load_row<D>(k + b * s.k[0] + kp * s.k[1] + h * s.k[2], part, kr);
+  load_row<D>(v + b * s.v[0] + kp * s.v[1] + h * s.v[2], part, vr);
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     dka[i] = 0.f;
     dva[i] = 0.f;
   }
 
-  const T* qbase = q + b * s.q[0] + h * s.q[2];
-  const T* gbase = g + b * s.g[0] + h * s.g[2];
+  const float* qbase = q + b * s.q[0] + h * s.q[2];
+  const float* gbase = g + b * s.g[0] + h * s.g[2];
   const float* lrow = lse + (long long)bh * Tq;
   const float* drow = delta + (long long)bh * Tq;
   // causal: query rows before the tile's first key see none of its keys
@@ -211,7 +210,7 @@ __global__ void __launch_bounds__(kRows * D / 32)
 
   for (int q0 = qstart; q0 < Tq; q0 += kTile) {
     __syncthreads();
-    stage_tile<T, D, NT>(qbase, s.q[1], gbase, s.g[1], q0, Tq, qs, gs);
+    stage_tile<D, NT>(qbase, s.q[1], gbase, s.g[1], q0, Tq, qs, gs);
     if (tid < kTile) {
       const int p = q0 + tid;
       ls[tid] = p < Tq ? lrow[p] : 0.f;
@@ -231,11 +230,10 @@ __global__ void __launch_bounds__(kRows * D / 32)
       const int qp = q0 + i;
       const bool ok = qp < Tq && (!causal || kpos <= qp);
       const float p = ok ? expf(sc * scale - ls[i]) : 0.f;
-      const float ds = round_to<T>(p * (dp - dls[i]) * scale);
-      const float pr = round_to<T>(p);
+      const float ds = p * (dp - dls[i]) * scale;
 #pragma unroll
       for (int c = 0; c < 32; ++c) {
-        dva[c] = fmaf(pr, gs[i][TPR * c + part], dva[c]);
+        dva[c] = fmaf(p, gs[i][TPR * c + part], dva[c]);
         dka[c] = fmaf(ds, qs[i][TPR * c + part], dka[c]);
       }
     }
@@ -245,8 +243,8 @@ __global__ void __launch_bounds__(kRows * D / 32)
     const long long o = (((long long)b * Tk + kpos) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
-      dk[o + TPR * c + part] = zoo::from_f<T>(dka[c]);
-      dv[o + TPR * c + part] = zoo::from_f<T>(dva[c]);
+      dk[o + TPR * c + part] = dka[c];
+      dv[o + TPR * c + part] = dva[c];
     }
   }
 }
@@ -278,8 +276,7 @@ __global__ void __launch_bounds__(kRows * D / 32)
 // out once, in bf16, through shared memory as 16-byte stores. Blocks run
 // the Q tiles in reverse, the longest causal walks first. D=64 takes BK =
 // 64 and 54 KB of shared memory; D=128 takes BK = 32 and 68 KB.
-// Next: wgmma with a TMA producer warp, persistent blocks, and K4 on the
-// same tiles.
+// Next: wgmma with a TMA producer warp, and persistent blocks.
 template <int D, int BK>
 __global__ void __launch_bounds__(zoo::mma::kThreads)
     flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -422,6 +419,249 @@ __global__ void __launch_bounds__(zoo::mma::kThreads)
                     wrow, Tq);
 }
 
+// K4 for bf16, designed for Hopper's tensor cores.
+//
+// Replaces the same TPU kernel, `_bwd_dkv_kernel`
+// (analytics_zoo_tpu/ops/flash_attention.py:222), for bf16 inputs.
+//
+// What bounds it on the H100: at the training micro-batch (B=2, T=2048,
+// H=16, D=64, causal) its four products (S^T = K Q^T, dP^T = V dO^T,
+// dV = P^T dO, dK = dS^T Q) come to ~34 GFLOP against ~7 MB of inputs and
+// outputs: operations at the tensor cores' rate (~35 us at 989 TFLOP/s)
+// bound it, by ~17x over bytes. So all four products run on the tensor
+// cores, and P^T and dS^T never leave registers.
+//
+// What the design does about it: it is K3's design with the two sequence
+// axes swapped, so every operand keeps the layout K3 reads it in and no
+// shared-memory transpose is needed. One block of 4 warps per (64-key
+// tile, b*h), each warp owning 16 keys. K and V are staged once through
+// shared memory; at D=64 their A fragments are then held in registers for
+// the whole walk, at D=128 (whose dK and dV alone take 128 registers a
+// thread) they are loaded from shared memory per query chunk. The Q and dO
+// tiles from the causal start (query k0) stream through the two-stage
+// cp.async ring, with the rows' lse and delta beside them (per column of
+// S^T now). Per 16-query chunk: S^T and dP^T on mma.sync (B fragments of
+// Q and dO by ldmatrix, non-transposed, as K3 loads K and V),
+// P^T = exp2(S^T scale log2(e) - lse log2(e)) and
+// dS^T = P^T (dP^T - delta) scale in f32 registers, both repacked as bf16
+// A fragments (the JAX kernel's p.astype(g.dtype) and ds.astype(q.dtype)),
+// then dV += P^T dO and dK += dS^T Q with B fragments by ldmatrix.trans.
+// A chunk wholly before the warp's first key is skipped; only chunks that
+// cross Tq or the diagonal are masked. dK and dV stay in f32 registers and
+// go out once, in bf16, through shared memory as 16-byte stores. Blocks
+// run in key order, so the longest causal walks (small k0) start first.
+// D=64 takes BQ = 64 and 55 KB of shared memory; D=128 takes BQ = 32 and
+// 69 KB. The launch bounds ask for two blocks an SM: left to itself ptxas
+// aims at three at D=64 (168 registers) and spills a 64-bit value.
+// Next: wgmma with a TMA producer warp, and persistent blocks.
+template <int D, int BQ>
+__global__ void __launch_bounds__(zoo::mma::kThreads, 2)
+    flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, int H, int Tq,
+                             int Tk, const Strides s, int causal,
+                             float scale) {
+  namespace mm = zoo::mma;
+  using bf16 = __nv_bfloat16;
+  constexpr int BK = mm::kRows;  // keys a block owns
+  constexpr int STAGES = mm::kStages;
+  constexpr int P = mm::Tile<D>::kPitch;
+  constexpr int KD = D / 16;  // k16 steps over the head dim
+  constexpr int ND = D / 8;   // n8 tiles of dK and dV
+  // K/V A fragments held in registers for the walk (D=64), or loaded per
+  // chunk (D=128); KG k16 steps (and DG n16 column pairs) of fragments are
+  // loaded together before their products
+  constexpr bool kHold = D <= 64;
+  constexpr int KG = kHold ? KD : 2;
+  constexpr int DG = kHold ? D / 16 : 2;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sk = reinterpret_cast<bf16*>(smem);  // BK x P
+  bf16* sv = sk + BK * P;                    // BK x P
+  bf16* sq = sv + BK * P;                    // STAGES x BQ x P
+  bf16* sg = sq + STAGES * BQ * P;           // STAGES x BQ x P (dO)
+  float* sl = reinterpret_cast<float*>(sg + STAGES * BQ * P);  // lse
+  float* sd = sl + STAGES * BQ;                                // delta
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = blockIdx.x * BK;
+  const int wkey = k0 + warp * 16;  // the warp's first key
+  const int key0 = wkey + g;        // this lane's keys: key0, key0 + 8
+
+  // causal: query rows before the tile's first key see none of its keys
+  const int qstart = causal ? min(k0, Tq) : 0;
+  const int nq = (Tq - qstart + BQ - 1) / BQ;
+
+  // K and V, then the first STAGES - 1 Q/dO tiles, one commit group per
+  // tile
+  mm::load_tile<D, BK>(sk, k + b * s.k[0] + h * s.k[2], s.k[1], k0, Tk);
+  mm::load_tile<D, BK>(sv, v + b * s.v[0] + h * s.v[2], s.v[1], k0, Tk);
+  const long long rows = (long long)bh * Tq + qstart;
+  const mm::TileRing<D, BQ, true> ring{
+      sq, sg, q + b * s.q[0] + h * s.q[2] + qstart * s.q[1],
+      dout + b * s.g[0] + h * s.g[2] + qstart * s.g[1], s.q[1], s.g[1],
+      Tq - qstart, nq, lse + rows, delta + rows, sl, sd};
+  ring.prologue();
+
+  const float sl2 = scale * mm::kLog2e;
+  uint32_t kf[kHold ? KD : 1][4], vf[kHold ? KD : 1][4];
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dka[j][e] = 0.f;
+      dva[j][e] = 0.f;
+    }
+
+  for (int j = 0; j < nq; ++j) {
+    const int q0 = qstart + j * BQ;
+    ring.step(j);
+    if constexpr (kHold) {
+      if (j == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          mm::load_a<D>(kf[kk], sk, warp * 16, kk * 16);
+          mm::load_a<D>(vf[kk], sv, warp * 16, kk * 16);
+        }
+      }
+    }
+    const bf16* qs = ring.tile_a(j);
+    const bf16* gs = ring.tile_b(j);
+    const float* ls = ring.rows_a(j);
+    const float* ds = ring.rows_b(j);
+
+#pragma unroll
+    for (int qc = 0; qc < BQ / 16; ++qc) {
+      const int qq0 = q0 + 16 * qc;
+      // warp-uniform: every query of the chunk past Tq, every key of the
+      // warp past Tk, or (causal) every query before all of the warp's keys
+      if (qq0 >= Tq || wkey >= Tk || (causal && qq0 + 15 < wkey)) continue;
+      float sc[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[n][e] = 0.f;
+          dp[n][e] = 0.f;
+        }
+      // S^T = K Q^T and dP^T = V dO^T; a group's fragments are all loaded
+      // before its products, so one ldmatrix latency is exposed per group
+#pragma unroll
+      for (int kg = 0; kg < KD; kg += KG) {
+        uint32_t qb[KG][4], gb[KG][4];
+        uint32_t ka[kHold ? 1 : KG][4], va[kHold ? 1 : KG][4];
+#pragma unroll
+        for (int i = 0; i < KG; ++i) {
+          mm::load_b<D>(qb[i], qs, qc * 16, (kg + i) * 16);
+          mm::load_b<D>(gb[i], gs, qc * 16, (kg + i) * 16);
+          if constexpr (!kHold) {
+            mm::load_a<D>(ka[i], sk, warp * 16, (kg + i) * 16);
+            mm::load_a<D>(va[i], sv, warp * 16, (kg + i) * 16);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < KG; ++i) {
+          if constexpr (kHold) {
+            mm::mma_pair(sc, kf[kg + i], qb[i]);
+            mm::mma_pair(dp, vf[kg + i], gb[i]);
+          } else {
+            mm::mma_pair(sc, ka[i], qb[i]);
+            mm::mma_pair(dp, va[i], gb[i]);
+          }
+        }
+      }
+      // P^T and dS^T; the rows' lse and delta are this tile's columns
+      const bool edge = qq0 + 16 > Tq || (causal && wkey + 15 > qq0);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int c = 16 * qc + 8 * n + 2 * t;  // column within the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(ds + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lc = (e & 1) ? l2.y : l2.x;
+          const float dc = (e & 1) ? d2.y : d2.x;
+          float p = mm::ex2(sc[n][e] * sl2 - lc * mm::kLog2e);
+          if (edge) {
+            const int query = q0 + c + (e & 1);
+            const int key = key0 + (e >> 1) * 8;
+            if (query >= Tq || (causal && key > query)) p = 0.f;
+          }
+          dp[n][e] = p * (dp[n][e] - dc) * scale;  // dS^T
+          sc[n][e] = p;                            // P^T
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to bf16 in
+      // registers are the A operands
+      uint32_t pa[4], da[4];
+      mm::c_to_a(pa, sc[0], sc[1]);
+      mm::c_to_a(da, dp[0], dp[1]);
+#pragma unroll
+      for (int dg = 0; dg < D / 16; dg += DG) {
+        uint32_t gt[DG][4], qt[DG][4];
+#pragma unroll
+        for (int i = 0; i < DG; ++i) {
+          mm::load_bt<D>(gt[i], gs, qc * 16, (dg + i) * 16);
+          mm::load_bt<D>(qt[i], qs, qc * 16, (dg + i) * 16);
+        }
+#pragma unroll
+        for (int i = 0; i < DG; ++i) {
+          mm::mma_pair(dva + 2 * (dg + i), pa, gt[i]);
+          mm::mma_pair(dka + 2 * (dg + i), da, qt[i]);
+        }
+      }
+    }
+  }
+
+  // every copy has landed (a block with no query tile still has K and V
+  // in flight) and every warp is done reading the ring; each warp's rows
+  // of sk and sv were read only by that warp
+  mm::cp_async_wait<0>();
+  __syncthreads();
+  const long long out = ((long long)b * Tk * H + h) * D;
+  mm::store_rows<D>(dka, 1.f, 1.f, sk + warp * 16 * P, dk + out,
+                    (long long)H * D, wkey, Tk);
+  mm::store_rows<D>(dva, 1.f, 1.f, sv + warp * 16 * P, dv + out,
+                    (long long)H * D, wkey, Tk);
+}
+
+template <int D, int BQ>
+int launch_dkv_mma(const void* q, const void* k, const void* v,
+                   const void* g, const void* lse, const void* delta,
+                   void* dk, void* dv, int B, int H, int Tq, int Tk,
+                   const Strides& s, int causal, float scale,
+                   cudaStream_t stream) {
+  namespace mm = zoo::mma;
+  constexpr int smem =
+      (2 * mm::kRows + 2 * mm::kStages * BQ) * mm::Tile<D>::kPitch * 2 +
+      2 * mm::kStages * BQ * 4;
+  static std::atomic<uint64_t> granted{0};
+  const cudaError_t err =
+      mm::grant_smem(flash_bwd_dkv_mma_kernel<D, BQ>, smem, granted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Tk + mm::kRows - 1) / mm::kRows, B * H);
+  flash_bwd_dkv_mma_kernel<D, BQ><<<grid, mm::kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, Tq, Tk, s, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int D, int BK>
 int launch_dq_mma(const void* q, const void* k, const void* v, const void* g,
                   const void* lse, const void* delta, void* dq, int B, int H,
@@ -458,17 +698,18 @@ void launch_dq(const void* q, const void* k, const void* v, const void* g,
       static_cast<float*>(dq), H, Tq, Tk, s, causal, scale);
 }
 
-template <typename T, int D>
+template <int D>
 void launch_dkv(const void* q, const void* k, const void* v, const void* g,
                 const void* lse, const void* delta, void* dk, void* dv, int B,
                 int H, int Tq, int Tk, const Strides& s, int causal,
                 float scale, cudaStream_t stream) {
   dim3 grid((Tk + kRows - 1) / kRows, B * H);
-  flash_bwd_dkv_kernel<T, D><<<grid, kRows * D / 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g),
+  flash_bwd_dkv_kernel<D><<<grid, kRows * D / 32, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, Tk, s, causal, scale);
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, s, causal,
+      scale);
 }
 
 }  // namespace
@@ -477,7 +718,7 @@ void launch_dkv(const void* q, const void* k, const void* v, const void* g,
 // head dims are contiguous. lse and delta are contiguous (B, H, Tq) f32;
 // dq is a contiguous (B, Tq, H, D) tensor and dk, dv contiguous
 // (B, Tk, H, D) tensors in the storage dtype. bf16 rows must start 16-byte
-// aligned (the wrapper checks: K3's cp.async moves 16-byte chunks). Each
+// aligned (the wrapper checks: cp.async moves 16-byte chunks). Each
 // entry returns cudaGetLastError() after its launch (cudaErrorInvalidValue
 // for a dtype/head-dim it does not take).
 extern "C" int zoo_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -523,14 +764,17 @@ extern "C" int zoo_flash_bwd_dkv(const void* q, const void* k, const void* v,
                   {gsb, gst, gsh}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Tq < 1 || Tk < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == zoo::kBF16) {
+    if (D == 64)
+      return launch_dkv_mma<64, 64>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
+    if (D == 128)
+      return launch_dkv_mma<128, 32>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == zoo::kF32 && D == 64)
-    launch_dkv<float, 64>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
+    launch_dkv<64>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
   else if (dtype == zoo::kF32 && D == 128)
-    launch_dkv<float, 128>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
-  else if (dtype == zoo::kBF16 && D == 64)
-    launch_dkv<__nv_bfloat16, 64>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
-  else if (dtype == zoo::kBF16 && D == 128)
-    launch_dkv<__nv_bfloat16, 128>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
+    launch_dkv<128>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

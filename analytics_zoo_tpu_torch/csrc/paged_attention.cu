@@ -14,21 +14,27 @@
 // What bounds it on the H100: the bytes of K/V it reads,
 // slots * length * H * D * 2 (K and V) * bytes per element per layer per
 // decode step; the FLOPs (4 per K/V element per query row) are far below the
-// card's ratio of operations to bytes.
+// card's ratio of operations to bytes. At the serving decode step (8 slots,
+// ~2300 valid positions, H=16, D=64, bf16) that is ~9.5 MB, ~2.8 us, less
+// than a launch: what the card can be made to do is read those bytes with
+// enough requests in flight, and no more.
 //
-// What the simple design does about it: one block per (head, slot). The block
-// reads its own lengths[b] and table row (the TPU kernel's scalar prefetch)
-// and walks only the positions below the length, 64 keys per tile (32 at
-// D=128): each tile
-// gathers the keys' pages from the pool with coalesced row loads into shared
-// memory as f32, so no contiguous copy of the cache and no dtype copy of the
-// pool ever exists. Scores come from thread pairs (interleaved half dots
-// joined by a shuffle), one warp per query row folds a tile into the f32
-// online softmax (m, l), and the f32 accumulator is spread over the block.
-// FMA loops: correct first; more heads per block, split-K over long contexts
-// and tensor cores are later work.
+// Two kernels, chosen by dtype in `zoo_paged_attention`:
+// - bf16: `paged_attn_mma_kernel`, split across the context on the tensor
+//   cores (its note is below);
+// - f32: `paged_attn_kernel`, one block per (head, slot) walking the whole
+//   context with FMA loops. The block reads its own lengths[b] and table
+//   row (the TPU kernel's scalar prefetch) and walks only the positions
+//   below the length, 64 keys per tile (32 at D=128): each tile gathers the
+//   keys' pages from the pool with coalesced row loads into shared memory,
+//   so no contiguous copy of the cache ever exists. Scores come from thread
+//   pairs (interleaved half dots joined by a shuffle), one warp per query
+//   row folds a tile into the f32 online softmax (m, l), and the f32
+//   accumulator is spread over the block. f32 is not the serving dtype, and
+//   TF32 would not hold its 1e-4 check.
 #include <stdint.h>
 
+#include "attn_mma.cuh"
 #include "zoo_cuda.cuh"
 
 namespace {
@@ -37,11 +43,13 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxQLen = 16;  // decode (1), speculative verify (k), chunks
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                      const T* __restrict__ vp, const int* __restrict__ table,
-                      const int* __restrict__ lengths, T* __restrict__ o,
+    paged_attn_kernel(const float* __restrict__ q,
+                      const float* __restrict__ kp,
+                      const float* __restrict__ vp,
+                      const int* __restrict__ table,
+                      const int* __restrict__ lengths, float* __restrict__ o,
                       int H, int q_len, int page_size, int pages_per_slot,
                       long long qsb, long long qst, long long qsh,
                       long long psp, long long pst, long long psh,
@@ -69,7 +77,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int idx = tid; idx < q_len * D; idx += kThreads) {
     const int r = idx / D;
     const int c = idx % D;
-    qs[r][c] = zoo::to_f(q[b * qsb + r * qst + h * qsh + c]);
+    qs[r][c] = q[b * qsb + r * qst + h * qsh + c];
   }
   if (tid < q_len) {
     m_s[tid] = zoo::kNegInf;
@@ -97,8 +105,8 @@ __global__ void __launch_bounds__(kThreads)
         const int page = trow[pos / page_size];
         const long long off = page * psp + (long long)(pos % page_size) * pst +
                               h * psh + c;
-        kv = zoo::to_f(kp[off]);
-        vv = zoo::to_f(vp[off]);
+        kv = kp[off];
+        vv = vp[off];
       }
       ks[j][c] = kv;
       vs[j][c] = vv;
@@ -170,23 +178,347 @@ __global__ void __launch_bounds__(kThreads)
     if (r < q_len) {
       const float l = l_s[r];
       const float safe_l = l == 0.f ? 1.f : l;  // no valid position -> 0
-      o[(((long long)b * q_len + r) * H + h) * D + d] =
-          zoo::from_f<T>(acc[u] / safe_l);
+      o[(((long long)b * q_len + r) * H + h) * D + d] = acc[u] / safe_l;
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 void launch(const void* q, const void* kp, const void* vp, const int* table,
             const int* lengths, void* o, int B, int H, int q_len,
             int page_size, int pages_per_slot, const long long* qs,
             const long long* ps, float scale, cudaStream_t stream) {
   dim3 grid(H, B);
-  paged_attn_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, lengths, static_cast<T*>(o), H, q_len,
-      page_size, pages_per_slot, qs[0], qs[1], qs[2], ps[0], ps[1], ps[2],
-      scale);
+  paged_attn_kernel<D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kp),
+      static_cast<const float*>(vp), table, lengths, static_cast<float*>(o),
+      H, q_len, page_size, pages_per_slot, qs[0], qs[1], qs[2], ps[0], ps[1],
+      ps[2], scale);
+}
+
+// K2 for bf16, designed for Hopper: split across the context, on the
+// tensor cores.
+//
+// Replaces the same TPU kernel, `_paged_kernel`
+// (analytics_zoo_tpu/ops/paged_attention.py:113), for bf16 pools.
+//
+// What the design does about the bound above (bytes, and the latency of
+// reaching them): the grid is (head, slot, split), each split a fixed span
+// of `span` positions (a multiple of the page size, 128 for pages up to
+// 128), so the serving step's 8 slots x 16 heads become hundreds of
+// blocks, each with its whole span of K/V requested at once; a split at or
+// past the slot's length returns at once. A block reads its span's table
+// entries once into shared memory, then gathers each position's head row
+// (D contiguous bf16 in the pool) with 16-byte cp.async copies through the
+// table into 64-key tiles of a two-stage ring; pages are never copied to a
+// contiguous tensor. The q_len <= 16 query rows are one m16 A fragment
+// (rows past q_len zero; at q_len 1 the MMA wastes 15/16, irrelevant to a
+// kernel bound by bytes). Each of the 4 warps owns 16 keys of a tile:
+// S = Q K^T on mma.sync, the per-row bound length - q_len + i and the
+// split's end applied in registers, an online softmax in the log2 domain,
+// P rounded to bf16 as the A operand of O += P V (the JAX kernel's
+// p.astype(v.dtype)). The 4 warps' (m, l, acc) are merged through shared
+// memory into the split's f32 partial; the last split of a (head, slot)
+// to finish, chosen by an atomic counter, folds the slot's partials into
+// the output, writing 0 for a row with no valid position (l == 0), as the
+// TPU kernel does. One launch a call: the wrapper runs 12 times a decode
+// step in a host-bound loop, and a second launch would cost it host time.
+// The launch bounds ask for two blocks an SM: left to itself ptxas aims
+// at five at D=64 (96 registers) and spills a 64-bit value.
+// Next: more heads per block (one K/V row read feeds every head of a
+// GQA group once the model has them).
+constexpr int kBK = 64;             // keys a tile, 16 per warp
+constexpr int kMaxSpanPages = 128;  // table entries a split reads
+
+template <int D>
+__global__ void __launch_bounds__(zoo::mma::kThreads, 2)
+    paged_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ kp,
+                          const __nv_bfloat16* __restrict__ vp,
+                          const int* __restrict__ table,
+                          const int* __restrict__ lengths,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ part_ml,
+                          float* __restrict__ part_acc,
+                          unsigned int* __restrict__ done, int H,
+                          int q_len, int page_size, int pages_per_slot,
+                          int span, int n_split, long long qsb, long long qst,
+                          long long qsh, long long psp, long long pst,
+                          long long psh, float scale) {
+  namespace mm = zoo::mma;
+  using bf16 = __nv_bfloat16;
+  constexpr int P = mm::Tile<D>::kPitch;
+  constexpr int KD = D / 16;  // k16 steps over the head dim
+  constexpr int ND = D / 8;   // n8 tiles of the output
+  constexpr int kChunks = mm::Tile<D>::kChunks;
+  constexpr int STAGES = 2;
+  constexpr int kStage = kBK * P;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sq = reinterpret_cast<bf16*>(smem);  // 16 x P
+  bf16* sk = sq + 16 * P;                    // STAGES x kBK x P
+  bf16* sv = sk + STAGES * kStage;           // STAGES x kBK x P
+  __shared__ int tbl[kMaxSpanPages];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int length = lengths[b];
+  const int n_pos = min(length, pages_per_slot * page_size);
+  const int s0 = split * span;
+  bf16* orow = o + ((long long)b * q_len * H + h) * D;  // row r at r * H * D
+  if (s0 >= n_pos) {  // block-uniform; an empty slot's rows are 0
+    if (n_pos == 0 && split == 0)
+      for (int i = tid; i < q_len * D; i += mm::kThreads)
+        orow[(long long)(i / D) * H * D + i % D] = __float2bfloat16(0.f);
+    return;
+  }
+  const int s1 = min(s0 + span, n_pos);
+  const int nt = (s1 - s0 + kBK - 1) / kBK;
+
+  // the span's table entries, read once; the query rows, zero past q_len
+  const int pg0 = s0 / page_size;
+  for (int i = tid; i < (s1 - s0 + page_size - 1) / page_size; i += kThreads)
+    tbl[i] = table[(long long)b * pages_per_slot + pg0 + i];
+  for (int i = tid; i < 16 * D; i += kThreads) {
+    const int r = i / D;
+    const int c = i % D;
+    sq[r * P + c] = r < q_len ? q[b * qsb + r * qst + h * qsh + c]
+                              : __float2bfloat16(0.f);
+  }
+  __syncthreads();
+
+  // start tile j's gather into its stage and commit it as one group
+  const bf16* kh = kp + h * psh;
+  const bf16* vh = vp + h * psh;
+  auto load = [&](int j) {
+    if (j < nt) {
+      bf16* ks = sk + (j % STAGES) * kStage;
+      bf16* vs = sv + (j % STAGES) * kStage;
+#pragma unroll
+      for (int i = 0; i < kBK * kChunks / mm::kThreads; ++i) {
+        const int idx = tid + i * mm::kThreads;
+        const int r = idx / kChunks;
+        const int c = idx % kChunks;
+        const int rel = j * kBK + r;  // position s0 + rel
+        const bool ok = s0 + rel < s1;
+        const long long off =
+            ok ? (long long)tbl[rel / page_size] * psp +
+                     (long long)(rel % page_size) * pst + c * 8
+               : 0;
+        mm::cp_async16(mm::smem_addr(ks + r * P + c * 8), kh + off, ok);
+        mm::cp_async16(mm::smem_addr(vs + r * P + c * 8), vh + off, ok);
+      }
+    }
+    mm::cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < STAGES; ++j) load(j);
+
+  const float sl2 = scale * mm::kLog2e;
+  const float ninf = mm::neg_inf();
+  const int bound0 = length - q_len;  // the last position row 0 sees
+  uint32_t qf[KD][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {ninf, ninf};  // running row max, log2 domain
+  float l[2] = {0.f, 0.f};    // this lane's part of the row sum
+
+  for (int j = 0; j < nt; ++j) {
+    mm::cp_async_wait<STAGES - 1>();
+    __syncthreads();  // tile j has landed for the whole block
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) mm::load_a<D>(qf[kk], sq, 0, kk * 16);
+    }
+    const bf16* ks = sk + (j % STAGES) * kStage;
+    const bf16* vs = sv + (j % STAGES) * kStage;
+    const int key0 = s0 + j * kBK + warp * 16;  // the warp's first key
+    // warp-uniform: every key of the warp past the split's end
+    if (key0 < s1) {
+      float s[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      uint32_t kf[KD][4];
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        mm::load_b<D>(kf[kk], ks, warp * 16, kk * 16);
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) mm::mma_pair(s, qf[kk], kf[kk]);
+
+      // mask keys past the split's end or past a row's bound; only a key
+      // group that crosses either is masked
+      const bool edge = key0 + 16 > s1 || key0 + 15 > bound0;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * sl2;
+          if (edge) {
+            const int key = key0 + 8 * n + 2 * t + (e & 1);
+            const int bound = bound0 + g + (e >> 1) * 8;
+            if (key >= s1 || key > bound) x = ninf;
+          }
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float corr[2], base[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = mm::quad_max(mx[i]);
+        // a row with no visible key yet keeps its sums at 0
+        base[i] = mx[i] == ninf ? 0.f : mx[i];
+        corr[i] = mm::ex2(m[i] - base[i]);
+        m[i] = mx[i];
+        l[i] *= corr[i];
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = mm::ex2(s[n][e] - base[e >> 1]);
+          s[n][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int jd = 0; jd < ND; ++jd) {
+        acc[jd][0] *= corr[0];
+        acc[jd][1] *= corr[0];
+        acc[jd][2] *= corr[1];
+        acc[jd][3] *= corr[1];
+      }
+      // O += P V: P rounded to bf16 in registers is the A operand
+      uint32_t pa[4], vf[D / 16][4];
+      mm::c_to_a(pa, s[0], s[1]);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd)
+        mm::load_bt<D>(vf[dd], vs, warp * 16, dd * 16);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) mm::mma_pair(acc + 2 * dd, pa, vf[dd]);
+    }
+    __syncthreads();  // every warp is done with tile j's stage
+    load(j + STAGES);
+  }
+
+  // merge the 4 warps' (m, l, acc) through the ring's shared memory, now
+  // free (only empty commit groups are outstanding)
+  float* wacc = reinterpret_cast<float*>(sk);  // kWarps x 16 x D
+  float* wm = wacc + mm::kWarps * 16 * D;      // kWarps x 16
+  float* wl = wm + mm::kWarps * 16;            // kWarps x 16
+  float* mine = wacc + warp * 16 * D;
+#pragma unroll
+  for (int jd = 0; jd < ND; ++jd) {
+    mine[g * D + 8 * jd + 2 * t] = acc[jd][0];
+    mine[g * D + 8 * jd + 2 * t + 1] = acc[jd][1];
+    mine[(g + 8) * D + 8 * jd + 2 * t] = acc[jd][2];
+    mine[(g + 8) * D + 8 * jd + 2 * t + 1] = acc[jd][3];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float li = mm::quad_sum(l[i]);
+    if (t == 0) {
+      wm[warp * 16 + g + 8 * i] = m[i];
+      wl[warp * 16 + g + 8 * i] = li;
+    }
+  }
+  __syncthreads();
+  const long long slot0 = (long long)(b * H + h) * n_split;  // split 0
+  const long long pr0 = (slot0 + split) * q_len;
+  for (int i = tid; i < q_len * D; i += mm::kThreads) {
+    const int r = i / D;
+    const int c = i % D;
+    float M = ninf;
+#pragma unroll
+    for (int w = 0; w < mm::kWarps; ++w) M = fmaxf(M, wm[w * 16 + r]);
+    float L = 0.f, a = 0.f;
+    if (M != ninf) {
+#pragma unroll
+      for (int w = 0; w < mm::kWarps; ++w) {
+        const float f = mm::ex2(wm[w * 16 + r] - M);
+        L += f * wl[w * 16 + r];
+        a += f * wacc[(w * 16 + r) * D + c];
+      }
+    }
+    part_acc[(pr0 + r) * D + c] = a;
+    if (c == 0) {
+      part_ml[2 * (pr0 + r)] = M;
+      part_ml[2 * (pr0 + r) + 1] = L;
+    }
+  }
+
+  // the last of the slot's ns live splits to finish folds their partials
+  // into the output; atomicInc wraps the counter back to 0 for the next
+  // launch on the stream
+  __shared__ bool last;
+  __threadfence();  // this thread's partials, device-wide, before the count
+  __syncthreads();
+  const int ns = (n_pos + span - 1) / span;
+  if (tid == 0)
+    last = atomicInc(done + b * H + h, (unsigned)(ns - 1)) == (unsigned)(ns - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = tid; i < q_len * D; i += mm::kThreads) {
+    const int r = i / D;
+    const int c = i % D;
+    float M = ninf;
+    for (int sp = 0; sp < ns; ++sp)
+      M = fmaxf(M, __ldcg(part_ml + 2 * ((slot0 + sp) * q_len + r)));
+    float L = 0.f, a = 0.f;
+    if (M != ninf) {
+      for (int sp = 0; sp < ns; ++sp) {
+        const long long pr = (slot0 + sp) * q_len + r;
+        const float f = mm::ex2(__ldcg(part_ml + 2 * pr) - M);
+        L += f * __ldcg(part_ml + 2 * pr + 1);
+        a += f * __ldcg(part_acc + pr * D + c);
+      }
+    }
+    orow[(long long)r * H * D + c] = __float2bfloat16(L > 0.f ? a / L : 0.f);
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* kp, const void* vp,
+               const int* table, const int* lengths, void* o, void* work,
+               void* done, int B, int H, int q_len, int page_size,
+               int pages_per_slot, int span, const long long* qs,
+               const long long* ps, float scale, cudaStream_t stream) {
+  namespace mm = zoo::mma;
+  constexpr int smem = (16 + 4 * kBK) * mm::Tile<D>::kPitch * 2;
+  static_assert((mm::kWarps * 16 * D + 2 * mm::kWarps * 16) * 4 <=
+                    4 * kBK * mm::Tile<D>::kPitch * 2,
+                "the warps' merge does not fit in the ring");
+  if constexpr (smem > 48 * 1024) {  // D=128; D=64 fits the default
+    static std::atomic<uint64_t> granted{0};
+    const cudaError_t err =
+        mm::grant_smem(paged_attn_mma_kernel<D>, smem, granted);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int n_split = (pages_per_slot * page_size + span - 1) / span;
+  float* part_ml = static_cast<float*>(work);
+  float* part_acc = part_ml + 2LL * B * H * n_split * q_len;
+  paged_attn_mma_kernel<D><<<dim3(H, B, n_split), mm::kThreads, smem,
+                             stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), table, lengths,
+      static_cast<__nv_bfloat16*>(o), part_ml, part_acc,
+      static_cast<unsigned int*>(done), H, q_len, page_size, pages_per_slot,
+      span, n_split, qs[0], qs[1], qs[2], ps[0], ps[1], ps[2], scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -194,16 +526,24 @@ void launch(const void* q, const void* kp, const void* vp, const int* table,
 // q strides (slot, query row, head) and pool strides (page, in-page position,
 // head) are in elements; the head dim is contiguous in both, and k_pages and
 // v_pages share their strides. o is a contiguous (B, q_len, H, D) tensor.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// shape or dtype it does not take).
+// bf16 takes `work`, f32 scratch of B * H * n_split * q_len * (D + 2)
+// values, n_split = ceil(pages_per_slot * page_size / span), with `span` a
+// multiple of page_size of at most 128 pages; `done`, B * H unsigned
+// counters that are 0 before the launch and 0 again after it (so launches
+// on one stream may share them); and pools whose rows start 16-byte
+// aligned (the wrapper checks: cp.async moves 16-byte chunks). f32 takes
+// none of them. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a shape or dtype it does not take).
 extern "C" int zoo_paged_attention(const void* q, const void* k_pages,
                                    const void* v_pages, const void* table,
-                                   const void* lengths, void* o, int dtype,
-                                   int B, int H, int D, int q_len,
+                                   const void* lengths, void* o, void* work,
+                                   void* done, int dtype, int B, int H, int D,
+                                   int q_len,
                                    int page_size, int pages_per_slot,
-                                   long long qsb, long long qst, long long qsh,
-                                   long long psp, long long pst, long long psh,
-                                   float scale, void* stream) {
+                                   int span, long long qsb, long long qst,
+                                   long long qsh, long long psp,
+                                   long long pst, long long psh, float scale,
+                                   void* stream) {
   const long long qs[3] = {qsb, qst, qsh};
   const long long ps[3] = {psp, pst, psh};
   const int* tb = static_cast<const int*>(table);
@@ -212,14 +552,21 @@ extern "C" int zoo_paged_attention(const void* q, const void* k_pages,
   if (q_len < 1 || q_len > kMaxQLen || B < 1 || H < 1 || page_size < 1 ||
       pages_per_slot < 1)
     return (int)cudaErrorInvalidValue;
+  if (dtype == zoo::kBF16) {
+    if (span < page_size || span % page_size ||
+        span / page_size > kMaxSpanPages || work == nullptr ||
+        done == nullptr)
+      return (int)cudaErrorInvalidValue;
+    if (D == 64)
+      return launch_mma<64>(q, k_pages, v_pages, tb, ln, o, work, done, B, H, q_len, page_size, pages_per_slot, span, qs, ps, scale, st);
+    if (D == 128)
+      return launch_mma<128>(q, k_pages, v_pages, tb, ln, o, work, done, B, H, q_len, page_size, pages_per_slot, span, qs, ps, scale, st);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == zoo::kF32 && D == 64)
-    launch<float, 64>(q, k_pages, v_pages, tb, ln, o, B, H, q_len, page_size, pages_per_slot, qs, ps, scale, st);
+    launch<64>(q, k_pages, v_pages, tb, ln, o, B, H, q_len, page_size, pages_per_slot, qs, ps, scale, st);
   else if (dtype == zoo::kF32 && D == 128)
-    launch<float, 128>(q, k_pages, v_pages, tb, ln, o, B, H, q_len, page_size, pages_per_slot, qs, ps, scale, st);
-  else if (dtype == zoo::kBF16 && D == 64)
-    launch<__nv_bfloat16, 64>(q, k_pages, v_pages, tb, ln, o, B, H, q_len, page_size, pages_per_slot, qs, ps, scale, st);
-  else if (dtype == zoo::kBF16 && D == 128)
-    launch<__nv_bfloat16, 128>(q, k_pages, v_pages, tb, ln, o, B, H, q_len, page_size, pages_per_slot, qs, ps, scale, st);
+    launch<128>(q, k_pages, v_pages, tb, ln, o, B, H, q_len, page_size, pages_per_slot, qs, ps, scale, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -20,8 +20,7 @@ Function keeps its own saved tensors, a block checkpointed around it (the
 what ``FLASH_REMAT_POLICY`` guarantees in JAX.
 
 bf16 runs on tensor-core kernels (``mma.sync`` on bf16 tiles that
-``cp.async`` stages in shared memory; K1 and K3), f32 on FMA kernels; K4
-is an FMA kernel for both.
+``cp.async`` stages in shared memory; K1, K3 and K4), f32 on FMA kernels.
 
 Layout (B, T, H, D) as everywhere in the package. The wrapper takes any
 strides with a contiguous head dim, so q/k/v sliced out of the fused QKV
@@ -106,18 +105,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _check_aligned(what: str, **tensors: torch.Tensor) -> None:
     """bf16 operands feed ``cp.async``'s 16-byte copies: each must start on
-    a 16-byte boundary, and its (batch, position, head) strides, where the
-    dim has more than one entry, must be multiples of 8 elements."""
+    a 16-byte boundary, and its first three strides ((batch, position,
+    head), or a pool's (page, position, head)), where the dim has more
+    than one entry, must be multiples of 8 elements."""
     for name, t in tensors.items():
         if t.dtype != torch.bfloat16:
             continue
-        bad = [i for i in range(3) if t.shape[i] > 1 and t.stride(i) % 8]
-        if t.data_ptr() % 16 or bad:
+        sh, st = t.shape, t.stride()
+        if t.data_ptr() % 16 or (sh[0] > 1 and st[0] % 8) \
+                or (sh[1] > 1 and st[1] % 8) or (sh[2] > 1 and st[2] % 8):
             raise ValueError(
-                f"{what}: bf16 {name} must start 16-byte aligned with "
-                f"(batch, position, head) strides that are multiples of 8 "
-                f"elements; got data_ptr % 16 = {t.data_ptr() % 16}, "
-                f"strides {t.stride()}")
+                f"{what}: bf16 {name} must start 16-byte aligned with its "
+                f"first three strides multiples of 8 elements; got "
+                f"data_ptr % 16 = {t.data_ptr() % 16}, strides {t.stride()}")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -13,6 +13,18 @@ positions ``<= lengths[b] - q_len + i``. Positions past the length are never
 read, and a row with no valid position (an inactive slot, length 0) is 0.
 q_len may be 1 (decode) up to 16 (speculative verify, prefill chunks).
 
+bf16 runs split across the context on the tensor cores: one block per
+(head, slot, span of ``SPLIT_POSITIONS`` positions rounded up to whole
+pages) writes an f32 partial (m, l, acc), and the last split of a (head,
+slot) to finish, counted by an atomic counter, folds the slot's partials
+into the output. The partials and the counters (which every launch
+leaves at 0) are made once per (device, stream) and reused: the wrapper
+runs once per layer and decode step in a host-bound loop, so it
+allocates nothing but the output and adds no launch, sync or pass over
+the data. f32 runs one FMA block per (head, slot). A bf16 pool must
+start 16-byte aligned with (page, position, head) strides that are
+multiples of 8 elements: ``cp.async`` moves 16-byte chunks.
+
 There is no routing switch: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise.
 """
@@ -25,13 +37,35 @@ import math
 import torch
 
 from . import _build
+from .flash_attention import _check_aligned
 from .kv_cache import decode_attention_multi, paged_read
 
 MAX_Q_LEN = 16
+#: positions one split of the bf16 kernel covers, rounded up to whole pages
+SPLIT_POSITIONS = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_SIG = {"zoo_paged_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+_SIG = {"zoo_paged_attention": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
         + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p]}
+#: the bf16 kernel's scratch by (device, stream), made once and grown as
+#: calls need: (B*H split counters, zero when made and left at zero by
+#: every launch; the splits' f32 partials). Launches in one stream's
+#: order share it.
+_SCRATCH = {}
+
+
+def _scratch(device, stream: int, n_done: int, n_work: int):
+    """Pointers to at least ``n_done`` zero counters and ``n_work`` f32
+    partials for a launch on ``stream``; grown (both anew) when short."""
+    done, work = _SCRATCH.get((device, stream), (None, None))
+    if done is None or done.numel() < n_done or work.numel() < n_work:
+        if done is not None:
+            n_done = max(n_done, done.numel())
+            n_work = max(n_work, work.numel())
+        done = torch.zeros(n_done, dtype=torch.int32, device=device)
+        work = torch.empty(n_work, dtype=torch.float32, device=device)
+        _SCRATCH[(device, stream)] = done, work
+    return done.data_ptr(), work.data_ptr()
 
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -56,7 +90,7 @@ def _check(q, k_pages, v_pages, table, lengths, page_size):
     dev = q.device
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("table", table), ("lengths", lengths)):
-        if t.device.type != "cuda" or t.device != dev:
+        if not t.is_cuda or t.device != dev:
             raise ValueError(f"paged_attention: {name} must be a CUDA tensor "
                              f"on {dev}, got {t.device}")
     if q.dim() != 4 or k_pages.dim() != 4:
@@ -92,6 +126,7 @@ def _check(q, k_pages, v_pages, table, lengths, page_size):
                          f"(B, pages_per_slot) int32 and lengths a (B,) "
                          f"int32; got {table.dtype}{tuple(table.shape)}, "
                          f"{lengths.dtype}{tuple(lengths.shape)}")
+    _check_aligned("paged_attention", k_pages=k_pages, v_pages=v_pages)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -101,19 +136,29 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     ``k_pages``/``v_pages``: (P, page_size, H, D) — ONE layer's pool;
     ``table``: (B, pages_per_slot) int32; ``lengths``: (B,) int32 valid
     positions INCLUDING the q_len new tokens. Returns (B, q_len, H, D)."""
-    if all(t.device.type == "cpu"
-           for t in (q, k_pages, v_pages, table, lengths)):
+    if q.is_cpu and k_pages.is_cpu and v_pages.is_cpu and table.is_cpu \
+            and lengths.is_cpu:
         return paged_attention_plain(q, k_pages, v_pages, table, lengths,
                                      page_size=page_size)
     lib = _build.load_library("paged_attention", _SIG)
     _check(q, k_pages, v_pages, table, lengths, page_size)
     b, q_len, h, d = q.shape
+    pps = table.shape[1]
     out = torch.empty((b, q_len, h, d), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # the current stream's handle, without building a torch Stream (what
+    # torch's own compiled kernels read)
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    span, done, work = 0, None, None
+    if q.dtype == torch.bfloat16:
+        # (m, l, acc) in f32 for each (slot, head, split, row)
+        span = page_size * -(-SPLIT_POSITIONS // page_size)
+        n_split = -(-(pps * page_size) // span)
+        done, work = _scratch(q.device, stream, b * h,
+                              b * h * n_split * q_len * (d + 2))
     err = lib.zoo_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, h, d, q_len, page_size, table.shape[1],
+        table.data_ptr(), lengths.data_ptr(), out.data_ptr(), work, done,
+        _DTYPE_CODES[q.dtype], b, h, d, q_len, page_size, pps, span,
         q.stride(0), q.stride(1), q.stride(2),
         k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         1.0 / math.sqrt(d), stream)
@@ -154,5 +199,5 @@ def synthetic_paged_case(n_slots: int, pages_per_slot: int, page_size: int,
     return tuple(t.to(device) for t in (q, k_pages, v_pages, table, lengths))
 
 
-__all__ = ["MAX_Q_LEN", "paged_attention", "paged_attention_plain",
-           "synthetic_paged_case"]
+__all__ = ["MAX_Q_LEN", "SPLIT_POSITIONS", "paged_attention",
+           "paged_attention_plain", "synthetic_paged_case"]

@@ -5,6 +5,8 @@ paths on one NVIDIA card.
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel checks only
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns
+    python3 chip_smoke.py --parent _archive/parent   # plus the parent's
+                                     # K2 and K4, timed beside this tree's
 
 Phases, each fatal on failure (no result line is printed then):
 
@@ -12,24 +14,28 @@ Phases, each fatal on failure (no result line is printed then):
    for matmuls and cuDNN so the f32 checks compare f32 arithmetic.
 2. build: compile every kernel in ``analytics_zoo_tpu_torch/csrc`` with
    nvcc (one process per source, all at once), timed.
-3. kernels: K1 (flash forward, out + LSE), K2 (paged attention, q_len 1
-   and 4, with a zero-length slot), K3 (flash backward dQ) and K4 (flash
-   backward dK/dV; D in {64, 128}, T in {16, 100, 1024} and at the 64-row
-   tile edges {1, 63, 64, 65, 127, 129}, causal and not) against their
-   plain PyTorch versions on the card, f32 within 1e-4 and bf16 within
-   2e-2 (K3/K4 at B 1 and 2, and K1, K3 and K4 again at the training
-   shapes B=2 and B=4, T=2048, H=16, D=64, causal, bf16); bf16 K1 and K3
-   run on the tensor-core kernels, f32 on the FMA ones. Timed with CUDA
+3. kernels: K1 (flash forward, out + LSE), K2 (paged attention, q_len 1,
+   4 and 16, with a zero-length slot; bf16 also at pages of 8 and 32), K3
+   (flash backward dQ) and K4 (flash backward dK/dV; D in {64, 128}, T in
+   {16, 100, 1024} and at the 64-row tile edges {1, 63, 64, 65, 127, 129},
+   causal and not) against their plain PyTorch versions on the card, f32
+   within 1e-4 and bf16 within 2e-2 (K3/K4 at B 1 and 2, and K1, K3 and K4
+   again at the training shapes B=2 and B=4, T=2048, H=16, D=64, and at
+   B=2 with D=128, causal, bf16); bf16 K1-K4 run on the tensor-core
+   kernels (K2 split across the context), f32 on the FMA ones. Timed with CUDA
    events (median of 30 launches, 20 for K3/K4, after warm-up, L2 flushed
    before each): the kernel, its plain version, one library call
    computing the same function (a yardstick the port never calls; for
    K3/K4 SDPA's backward, which computes dQ, dK and dV in one call), and
    the bound — the larger of bytes over 3.35 TB/s and operations over the
-   peak rate of the inputs' type. K1/K2 are timed at the serving shapes,
-   K1 also at the training micro-batch (under ``training_shape``), K3/K4
-   at the training micro-batch (B=2, the shape the main path launches
-   them at; the kernels line) and the whole batch (B=4, under
-   ``whole_batch``). The sampling kernel (threefry bits,
+   peak rate of the inputs' type. K1/K2 are timed at the serving shapes
+   (K2 also at q_len 16 and on 8 full-length slots, with the wrapper's
+   host microseconds a call), K1 also at the training micro-batch (under
+   ``training_shape``), K3/K4 at the training micro-batch (B=2, the shape
+   the main path launches them at; the kernels line), the whole batch
+   (B=4, under ``whole_batch``) and D=128 (``head_dim_128``); with
+   ``--parent`` the parent's K2 and K4 beside them (``parent_ms``). The
+   sampling kernel (threefry bits,
    Gumbel transform and row argmax fused) must draw its plain version's
    tokens exactly, at the decode step's (8, 32000) logits.
 4. parity: the full-width f32 model on the card (kernels) against the same
@@ -191,11 +197,51 @@ def phase_device(torch):
     return smi
 
 
-def phase_build():
+def load_parent(path):
+    """``--parent DIR``: the port package of another checkout (the parent
+    commit, unpacked with ``git archive``), imported as ``parent_port``
+    beside this one, so that its K2 and K4 are timed in the same process,
+    on the same inputs, by the same Timer. Its kernels build from its own
+    sources into its own ``_build/``."""
+    import importlib
+    import importlib.util
+    import types
+
+    pkg = Path(path).resolve() / "analytics_zoo_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_port"] = mod
+    spec.loader.exec_module(mod)
+    return types.SimpleNamespace(
+        root=str(pkg.parent),
+        build=importlib.import_module("parent_port.ops._build"),
+        flash=importlib.import_module("parent_port.ops.flash_attention"),
+        paged=importlib.import_module("parent_port.ops.paged_attention"))
+
+
+def phase_build(parent=None):
     from analytics_zoo_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    errors = []
+    if parent is not None:
+        # the parent's K2 and K4 sources build beside this checkout's
+        def build_parent():
+            try:
+                parent.build.build(["flash_bwd", "paged_attention"])
+            except Exception as e:            # raised below
+                errors.append(e)
+
+        side = threading.Thread(target=build_parent)
+        side.start()
     secs = _build.build()
+    if parent is not None:
+        side.join()
+        if errors:
+            raise errors[0]
+        log(f"[build] parent {parent.root}: flash_bwd, paged_attention")
     log(f"[build] {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f}s into {_build.BUILD_DIR}")
     for name, text in _build.BUILD_LOG.items():
@@ -301,67 +347,135 @@ def check_k1(torch, timer):
                 "shape": f"{label} causal", "dtype": dt}}
 
 
-def check_k2(torch, timer):
+def _k2_case(torch, gen, lengths, q_len, page=PAGE, dtype="bfloat16"):
+    from analytics_zoo_tpu_torch.ops.paged_attention import \
+        synthetic_paged_case
+
+    return synthetic_paged_case(
+        N_SLOTS, MAX_SEQ // page, page, N_HEAD, HIDDEN // N_HEAD,
+        q_len=q_len, dtype=getattr(torch, dtype), lengths=lengths,
+        device="cuda", generator=gen)
+
+
+def host_us(fns, n: int = 200, rounds: int = 5):
+    """Host microseconds per call of each of ``fns``, enqueue only (no
+    sync inside the window): the wrapper's Python and launch work, which
+    a Timer window holds wherever it outlasts the L2 flush on the device.
+    The median of ``rounds`` rounds of ``n`` calls, the functions in
+    turns, so that a slow spell of the host falls on both."""
+    import torch
+
+    times = [[] for _ in fns]
+    for fn in fns:
+        fn()
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            t.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return [statistics.median(t) for t in times]
+
+
+def check_k2(torch, timer, parent=None):
+    """K2 against its plain version: f32 and bf16 at q_len 1, 4 and 16 on
+    a ladder with a zero-length slot, bf16 at pages of 8 and 32 too; then
+    timed in bf16 at the decode shape (q_len 1, a half-full ladder: the
+    kernels line), at q_len 16 on the same ladder, and on 8 full-length
+    (1024) slots, each beside its plain version, SDPA over the pre-gathered
+    K/V with a length mask, its bound and (``--parent``) the parent's
+    kernel."""
     import torch.nn.functional as F
     from analytics_zoo_tpu_torch.ops.kv_cache import paged_read
     from analytics_zoo_tpu_torch.ops.paged_attention import (
-        paged_attention, paged_attention_plain, synthetic_paged_case)
+        paged_attention, paged_attention_plain)
 
-    pps = MAX_SEQ // PAGE
     gen = torch.Generator().manual_seed(2)
     # a zero-length (inactive) slot among a ladder of live lengths
     lengths = [0, 37, 130, 255, 400, 600, 777, 1024]
-    for dt in ("float32", "bfloat16"):
-        for q_len in (1, 4):
-            dtype = getattr(torch, dt)
-            case = synthetic_paged_case(
-                N_SLOTS, pps, PAGE, N_HEAD, HIDDEN // N_HEAD, q_len=q_len,
-                dtype=dtype, lengths=lengths, device="cuda", generator=gen)
-            out = paged_attention(*case, page_size=PAGE)
-            ref = paged_attention_plain(*case, page_size=PAGE)
-            torch.cuda.synchronize()
-            e = maxerr(out, ref)
-            zero = float(out[0].float().abs().max())
-            ok = e <= TOL[dt] and zero == 0.0
-            log(f"[K2] slots={N_SLOTS} pps={pps} page={PAGE} q_len={q_len} "
-                f"{dt}: max|d| {e:.3g} (tol {TOL[dt]}), zero-length slot "
-                f"max|out| {zero} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"K2 disagrees with its plain version "
-                                     f"at q_len={q_len} {dt}")
-    # timed at the decode shape of the serving path (q_len 1, bf16), with a
-    # half-full ladder of lengths (the steady serving regime)
+    checks = [(dt, q_len, PAGE) for dt in ("float32", "bfloat16")
+              for q_len in (1, 4, 16)]
+    checks += [("bfloat16", q_len, page) for page in (8, 32)
+               for q_len in (1, 16)]
+    for dt, q_len, page in checks:
+        case = _k2_case(torch, gen, lengths, q_len, page, dt)
+        out = paged_attention(*case, page_size=page)
+        ref = paged_attention_plain(*case, page_size=page)
+        torch.cuda.synchronize()
+        e = maxerr(out, ref)
+        zero = float(out[0].float().abs().max())
+        ok = e <= TOL[dt] and zero == 0.0
+        log(f"[K2] slots={N_SLOTS} pps={MAX_SEQ // page} page={page} "
+            f"q_len={q_len} {dt}: max|d| {e:.3g} (tol {TOL[dt]}), "
+            f"zero-length slot max|out| {zero} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K2 disagrees with its plain version "
+                                 f"at q_len={q_len} page={page} {dt}")
     d = HIDDEN // N_HEAD
-    case = synthetic_paged_case(N_SLOTS, pps, PAGE, N_HEAD, d, q_len=1,
-                                dtype=torch.bfloat16, device="cuda",
-                                generator=gen)
-    q, kp, vp, table, lens = case
-    out = paged_attention(*case, page_size=PAGE)
-    worst = maxerr(out, paged_attention_plain(*case, page_size=PAGE))
-    ks, vs = paged_read(kp, table), paged_read(vp, table)
-    mask = (torch.arange(ks.shape[1], device="cuda")[None, :]
-            < lens.long()[:, None])[:, None, None, :]         # (B,1,1,T)
-    qt, kt, vt = q.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
-    ms = timer(lambda: paged_attention(*case, page_size=PAGE))
-    plain = timer(lambda: paged_attention_plain(*case, page_size=PAGE))
-    lib = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                       attn_mask=mask))
-    n_valid = int(lens.sum())
-    elt = 2
-    nbytes = (2 * n_valid * N_HEAD * d * elt          # K and V read
-              + 2 * N_SLOTS * N_HEAD * d * elt        # q read, out written
-              + sum(-(-int(x) // PAGE) for x in lens) * 4 + N_SLOTS * 4)
-    flops = 4 * N_HEAD * d * n_valid
-    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    timed = {}
+    # the decode shape of the serving path (q_len 1, bf16) with a half-full
+    # ladder of lengths (the steady serving regime), then q_len 16 on the
+    # same ladder, then every slot at the full context
+    for label, q_len, lens_in in (("decode", 1, None), ("q_len16", 16, None),
+                                  ("full_context", 1, [MAX_SEQ] * N_SLOTS)):
+        case = _k2_case(torch, gen, lens_in, q_len)
+        q, kp, vp, table, lens = case
+        out = paged_attention(*case, page_size=PAGE)
+        err = maxerr(out, paged_attention_plain(*case, page_size=PAGE))
+        if err > TOL["bfloat16"]:
+            raise AssertionError(f"K2 disagrees with its plain version at "
+                                 f"the timed {label} shape: {err:.3g}")
+        ks, vs = paged_read(kp, table), paged_read(vp, table)
+        bound = (lens.long()[:, None] - q_len
+                 + torch.arange(q_len, device="cuda")[None])  # (B, q_len)
+        mask = (torch.arange(ks.shape[1], device="cuda")[None, None, :]
+                <= bound[:, :, None])[:, None]               # (B,1,q,T)
+        qt, kt, vt = q.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
+        ms = timer(lambda: paged_attention(*case, page_size=PAGE))
+        plain = timer(lambda: paged_attention_plain(*case, page_size=PAGE))
+        lib = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           attn_mask=mask))
+        fns = [lambda: paged_attention(*case, page_size=PAGE)]
+        parent_ms = parent_hus = None
+        if parent is not None:
+            pk = parent.paged.paged_attention
+            parent_ms = timer(lambda: pk(*case, page_size=PAGE))
+            fns.append(lambda: pk(*case, page_size=PAGE))
+        hus, *rest = host_us(fns)
+        if rest:
+            parent_hus = rest[0]
+        n_valid = int(lens.sum())
+        pairs = int((bound + 1).clamp(min=0).sum())   # (row, position)
+        elt = 2
+        nbytes = (2 * n_valid * N_HEAD * d * elt          # K and V read
+                  + 2 * N_SLOTS * q_len * N_HEAD * d * elt  # q in, out
+                  + sum(-(-int(x) // PAGE) for x in lens) * 4 + N_SLOTS * 4)
+        flops = 4 * N_HEAD * d * pairs
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
+        timed[label] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            "parent_ms": parent_ms, "host_us": hus,
+            "parent_host_us": parent_hus,
+            "shape": (f"slots={N_SLOTS} pps={MAX_SEQ // PAGE} page={PAGE} "
+                      f"H={N_HEAD} D={d} q_len={q_len} "
+                      f"lengths={lens.tolist()}"), "dtype": "bfloat16"}
+        log(f"[K2] {label} q_len={q_len} bf16: {ms:.4f} ms (parent "
+            f"{parent_ms}, plain {plain:.4f}, bound {bms:.5f} by {by}), "
+            f"SDPA {lib:.4f} ms; wrapper host {hus:.1f} us (parent "
+            f"{parent_hus}); max err {err:.3g}")
+    main = timed.pop("decode")
     return {"name": "paged_attention", "route": "cuda",
             "source": "analytics_zoo_tpu_torch/csrc/paged_attention.cu",
             "replaces": "analytics_zoo_tpu/ops/paged_attention.py:113",
-            "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib,
-            "shape": (f"slots={N_SLOTS} pps={pps} page={PAGE} H={N_HEAD} "
-                      f"D={d} q_len=1 lengths={lens.tolist()}"),
-            "dtype": "bfloat16"}
+            "cuda_kernels": ("bf16: paged_attn_mma_kernel; f32: "
+                             "paged_attn_kernel"),
+            "launches": None, **main,
+            "library_note": ("SDPA with a length mask over K/V gathered "
+                             "beforehand (the gather not timed)"),
+            **timed}
 
 
 def _bwd_case(torch, gen, b, t, d, dtype, causal):
@@ -411,11 +525,13 @@ def _check_bwd_case(torch, case, causal, dt, label):
     return a3, a4
 
 
-def _train_shape_bwd(torch, timer, gen, b):
-    """K1, K3 and K4 at one training shape (B=b, T=2048, H=16, D=64,
+def _train_shape_bwd(torch, timer, gen, b, d=HIDDEN // N_HEAD,
+                     parent=None):
+    """K1, K3 and K4 at one training shape (B=b, T=2048, H=16, D=d,
     causal, bf16, q/k/v strided out of one fused QKV tensor): held to
     their plain versions with the grid's tolerances, then K3/K4 timed
-    beside their plain versions, SDPA's backward and their bounds."""
+    beside their plain versions, SDPA's backward, their bounds and
+    (``--parent``) the parent's K4."""
     import torch.nn.functional as F
 
     from analytics_zoo_tpu_torch.ops.flash_attention import (
@@ -423,7 +539,7 @@ def _train_shape_bwd(torch, timer, gen, b):
         flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
         flash_attention_fwd, flash_attention_plain)
 
-    t, d, dt = SEQ_LEN, HIDDEN // N_HEAD, "bfloat16"
+    t, dt = SEQ_LEN, "bfloat16"
     label = f"B={b} T={t} H={N_HEAD} D={d}"
     case = _bwd_case(torch, gen, b, t, d, torch.bfloat16, True)
     q, k, v, g, lse, delta = case
@@ -441,6 +557,10 @@ def _train_shape_bwd(torch, timer, gen, b):
                                  f"{label} (training shape)")
     ms3 = timer(lambda: flash_attention_bwd_dq(*case, True), n=20)
     ms4 = timer(lambda: flash_attention_bwd_dkv(*case, True), n=20)
+    parent4 = None
+    if parent is not None:
+        parent4 = timer(lambda: parent.flash.flash_attention_bwd_dkv(
+            *case, True), n=20)
     plain3 = timer(lambda: flash_attention_bwd_dq_plain(*case, True), n=5)
     plain4 = timer(lambda: flash_attention_bwd_dkv_plain(*case, True), n=5)
     # the library yardstick: SDPA's backward (dQ, dK and dV in one call),
@@ -459,21 +579,23 @@ def _train_shape_bwd(torch, timer, gen, b):
     b3, by3 = bound_ms(5 * tens + rows, 6 * d * pairs, dt)
     b4, by4 = bound_ms(6 * tens + rows, 8 * d * pairs, dt)
     log(f"[K3/K4] {label} causal {dt}: K3 {ms3:.4f} ms (plain {plain3:.4f},"
-        f" bound {b3:.5f} by {by3}), K4 {ms4:.4f} ms (plain {plain4:.4f}, "
-        f"bound {b4:.5f} by {by4}), SDPA backward {lib:.4f} ms")
+        f" bound {b3:.5f} by {by3}), K4 {ms4:.4f} ms (parent {parent4}, "
+        f"plain {plain4:.4f}, bound {b4:.5f} by {by4}), SDPA backward "
+        f"{lib:.4f} ms")
     common = {"library_ms": lib, "shape": f"{label} causal", "dtype": dt}
     return ({"max_abs_err": err3, "ms": ms3, "plain_ms": plain3,
              "bound_ms": b3, "bound_by": by3, **common},
             {"max_abs_err": err4, "ms": ms4, "plain_ms": plain4,
-             "bound_ms": b4, "bound_by": by4, **common})
+             "bound_ms": b4, "bound_by": by4, "parent_ms": parent4,
+             **common})
 
 
-def check_k3_k4(torch, timer):
+def check_k3_k4(torch, timer, parent=None):
     """K3 (dQ) and K4 (dK, dV) against their plain versions over the grid,
     then at the training micro-batch (B=2, the shape the main path
-    launches them at) and at the whole batch (B=4), each checked and
-    timed; the kernels line carries the micro-batch's numbers. Errors are
-    relative to max(1, max|plain|)."""
+    launches them at), at the whole batch (B=4) and at the micro-batch
+    with D=128, each checked and timed; the kernels line carries the
+    micro-batch's numbers. Errors are relative to max(1, max|plain|)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     for b in (1, 2):
         for d in (64, 128):
@@ -486,21 +608,27 @@ def check_k3_k4(torch, timer):
                                         f"B={b} T={t} D={d}")
                         del case
     micro = TRAIN_BATCH // GRAD_ACCUM
-    k3, k4 = _train_shape_bwd(torch, timer, gen, micro)
-    w3, w4 = _train_shape_bwd(torch, timer, gen, TRAIN_BATCH)
+    k3, k4 = _train_shape_bwd(torch, timer, gen, micro, parent=parent)
+    w3, w4 = _train_shape_bwd(torch, timer, gen, TRAIN_BATCH, parent=parent)
+    h3, h4 = _train_shape_bwd(torch, timer, gen, micro, d=128,
+                              parent=parent)
     lib_note = ("SDPA backward via torch.autograd.grad: dQ, dK and dV in "
                 "one call, shared by K3 and K4")
     return [
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": "analytics_zoo_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "analytics_zoo_tpu/ops/flash_attention.py:191",
+         "cuda_kernels": ("bf16: flash_bwd_dq_mma_kernel; f32: "
+                          "flash_bwd_dq_kernel"),
          "launches": None, **k3, "library_note": lib_note,
-         "whole_batch": w3},
+         "whole_batch": w3, "head_dim_128": h3},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": "analytics_zoo_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "analytics_zoo_tpu/ops/flash_attention.py:222",
+         "cuda_kernels": ("bf16: flash_bwd_dkv_mma_kernel; f32: "
+                          "flash_bwd_dkv_kernel"),
          "launches": None, **k4, "library_note": lib_note,
-         "whole_batch": w4}]
+         "whole_batch": w4, "head_dim_128": h4}]
 
 
 # operations per element of the sampling kernel: threefry2x32 (2 + 20 x 3
@@ -1024,8 +1152,15 @@ def phase_profile(torch, model, smi):
     log(f"[profile] {smi} | burst of {N_SLOTS} x (256 prompt + 32 new), "
         f"{steps} decode steps, wall {wall_ms:.1f} ms, device busy "
         f"{busy:.1f} ms ({busy / wall_ms:.3f} of wall)")
-    for key, count, ms in rows[:15]:
+    for key, count, ms in _shown(rows, 15):
         log(f"[profile] {ms:9.3f} ms {count:6d} calls  {key[:100]}")
+
+
+def _shown(rows, n):
+    """The n largest rows, then every other row of a kernel in an
+    anonymous namespace, where the port's kernels are (a few of PyTorch's
+    are too), so that each of the port's kernels shows its device time."""
+    return rows[:n] + [r for r in rows[n:] if "(anonymous namespace)" in r[0]]
 
 
 def _device_rows(prof):
@@ -1065,7 +1200,7 @@ def profile_training_step(torch, model, ids, smi):
     log(f"[profile-train] {smi} | one step, batch {TRAIN_BATCH} x "
         f"{SEQ_LEN} in {GRAD_ACCUM} micro-steps, wall {wall_ms:.1f} ms, "
         f"device busy {busy:.1f} ms ({busy / wall_ms:.3f} of wall)")
-    for key, count, ms in rows[:20]:
+    for key, count, ms in _shown(rows, 20):
         log(f"[profile-train] {ms:9.3f} ms {count:6d} calls  {key[:100]}")
 
 
@@ -1331,7 +1466,7 @@ def profile_int8_predict(torch, im, xb, smi):
     log(f"[profile-int8] {smi} | one int8 ResNet-50 predict at batch "
         f"{len(xb)}, wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
         f"({busy / wall_ms:.3f} of wall)")
-    for key, count, ms in rows[:15]:
+    for key, count, ms in _shown(rows, 15):
         log(f"[profile-int8] {ms:9.3f} ms {count:6d} calls  {key[:100]}")
 
 
@@ -1344,6 +1479,10 @@ def main(argv=None) -> int:
                          "training one more step and after the int8 burst "
                          "one int8 predict, with torch.profiler, and print "
                          "where the device time goes")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="another checkout of the repo (e.g. the parent "
+                         "commit from git archive): time its K2 and K4 "
+                         "beside this one's, in this process")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1361,10 +1500,12 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     try:
         smi = phase_device(torch)
-        phase_build()
+        parent = load_parent(args.parent) if args.parent else None
+        phase_build(parent)
         timer = Timer(torch)
-        kernels = [check_k1(torch, timer), check_k2(torch, timer),
-                   *check_k3_k4(torch, timer), check_sampler(torch, timer),
+        kernels = [check_k1(torch, timer), check_k2(torch, timer, parent),
+                   *check_k3_k4(torch, timer, parent),
+                   check_sampler(torch, timer),
                    check_k5(torch, timer), check_k6(torch, timer)]
         del timer
         if not args.quick:

@@ -10,8 +10,12 @@ f32 within 1e-4, bf16 within 2e-2 (the backward kernels' gradients
 relative to max(1, max|plain|)). The flash kernels are checked at every
 tile edge (T = 1, 63, 64, 65, 127, 129), with Tq != Tk both ways, at
 D = 64 and 128 and on q/k/v strided out of one fused QKV tensor; the bf16
-tensor-core kernels (K1, K3) must give the same bits twice and refuse a
-view their 16-byte copies cannot take. The small model runs its
+tensor-core kernels (K1, K3, K4, and K2 split across the context) must
+give the same bits twice and refuse a view their 16-byte copies cannot
+take. The bf16 K4 is held over D in {64, 128}, causal or not, T in {1, 63,
+64, 65, 127, 129, 2048} and Tq != Tk both ways; K2 over q_len {1, 4, 16},
+pages of 8, 16 and 32 positions and lengths at 0, 1, q_len, on and around
+each split boundary and at the full 1024. The small model runs its
 cache-threaded path on the card (K1, K2) against the same seeded model on
 the CPU (plain versions), f32 logits within 1e-4; the sampling kernel
 draws the plain version's tokens exactly; it trains on the card (K1, K3,
@@ -111,6 +115,36 @@ def test_paged_kernel_matches_plain(cuda, dtype, tol, q_len):
     assert float(out[0].abs().max()) == 0.0
 
 
+#: K2 lengths: 0, 1, q_len, on and around the 128-position split
+#: boundaries, and the full context
+PAGED_LENGTHS = (0, 1, None, 127, 128, 129, 255, 256, 257, 640, 1023, 1024)
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("q_len", [1, 4, 16])
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_kernel_split_across_the_context_matches_plain(
+        cuda, dtype, tol, q_len, page, d):
+    """K2 (bf16: split into 128-position spans, then combined) against its
+    plain version at every page size the pool may have, on slots whose
+    lengths sit at 0, 1, q_len, on and around the split boundaries and at
+    the full 1024; a zero-length slot is exactly 0."""
+    lengths = [q_len if n is None else n for n in PAGED_LENGTHS]
+    case = tpa.synthetic_paged_case(
+        len(lengths), 1024 // page, page, 4, d, q_len=q_len, dtype=dtype,
+        lengths=lengths, device=cuda,
+        generator=torch.Generator().manual_seed(page + q_len))
+    before = tpa.paged_attention.launches
+    out = tpa.paged_attention(*case, page_size=page)
+    ref = tpa.paged_attention_plain(*case, page_size=page)
+    torch.cuda.synchronize()
+    assert tpa.paged_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert float(out[0].abs().max()) == 0.0
+
+
 def test_paged_kernel_rejects_bad_input(cuda):
     q, kp, vp, table, lens = tpa.synthetic_paged_case(
         2, 4, 16, 2, 64, q_len=17, device=cuda)
@@ -122,6 +156,13 @@ def test_paged_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="dtype"):
         tpa.paged_attention(q[:, :1].to(torch.bfloat16), kp, vp, table, lens,
                             page_size=16)
+    # a bf16 pool whose rows cp.async cannot copy in 16-byte chunks
+    q1 = q[:, :1].to(torch.bfloat16)
+    n = kp.numel()
+    buf = torch.zeros((n + 8,), device=cuda, dtype=torch.bfloat16)
+    odd = buf[1:n + 1].view(kp.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        tpa.paged_attention(q1, odd, odd, table, lens, page_size=16)
 
 
 @pytest.mark.parametrize("top_k", [0, 40])
@@ -242,13 +283,55 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, tol, t, t_k, d,
         assert float((got.float() - ref.float()).abs().max()) <= tol * scale
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [*EDGE_T, 2048])
+def test_bf16_dkv_tensor_core_kernel_matches_plain(cuda, d, causal, t):
+    """The bf16 K4 (mma.sync, keys owned per warp, Q/dO streamed) against
+    its plain version on q/k/v strided out of one fused QKV tensor, errors
+    relative to max(1, max|plain|)."""
+    case = _bwd_case(cuda, torch.bfloat16, t, d, causal, seed=t + d,
+                     fused=True)
+    before = tfa.flash_attention_bwd_dkv.launches
+    dk, dv = tfa.flash_attention_bwd_dkv(*case, causal)
+    rk, rv = tfa.flash_attention_bwd_dkv_plain(*case, causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd_dkv.launches == before + 1
+    for got, ref in ((dk, rk), (dv, rv)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        scale = max(1.0, float(ref.float().abs().max()))
+        assert float((got.float() - ref.float()).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,t_k", [(63, 129), (129, 63), (1, 65), (65, 1),
+                                   (100, 2048), (2048, 100)])
+def test_bf16_dkv_tensor_core_kernel_with_tq_ne_tk(cuda, d, causal, t, t_k):
+    """The bf16 K4 with Tq != Tk both ways: under the causal mask (absolute
+    positions) key tiles past Tq get no query and write zeros."""
+    case = _bwd_case(cuda, torch.bfloat16, t, d, causal, t_k, seed=t * t_k)
+    dk, dv = tfa.flash_attention_bwd_dkv(*case, causal)
+    rk, rv = tfa.flash_attention_bwd_dkv_plain(*case, causal)
+    torch.cuda.synchronize()
+    for got, ref in ((dk, rk), (dv, rv)):
+        scale = max(1.0, float(ref.float().abs().max()))
+        assert float((got.float() - ref.float()).abs().max()) <= 2e-2 * scale
+
+
 def test_bf16_flash_kernels_give_the_same_bits_twice(cuda):
-    """K1 and K3 in bf16 sum in a fixed order (no atomics): two launches on
-    the same inputs give bitwise-equal out, lse and dq."""
+    """K1, K3, K4 and the split K2 in bf16 sum in a fixed order (no
+    atomics): two launches on the same inputs give bitwise-equal out, lse,
+    dq, dk, dv and paged output."""
     q, k, v, go, lse, delta = _bwd_case(cuda, torch.bfloat16, 200, 64, True,
                                         seed=9, fused=True)
+    paged = tpa.synthetic_paged_case(4, 64, 16, 4, 64, q_len=4,
+                                     dtype=torch.bfloat16, device=cuda,
+                                     lengths=[0, 300, 777, 1024])
     runs = [(*tfa.flash_attention_fwd(q, k, v, True),
-             tfa.flash_attention_bwd_dq(q, k, v, go, lse, delta, True))
+             tfa.flash_attention_bwd_dq(q, k, v, go, lse, delta, True),
+             *tfa.flash_attention_bwd_dkv(q, k, v, go, lse, delta, True),
+             tpa.paged_attention(*paged, page_size=16))
             for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(*runs):
@@ -271,6 +354,8 @@ def test_bf16_view_the_kernels_cannot_copy_raises(cuda):
             tfa.flash_attention_fwd(x, x, x, True)
         with pytest.raises(ValueError, match="16-byte"):
             tfa.flash_attention_bwd_dq(x, x, x, x, lse, lse, True)
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa.flash_attention_bwd_dkv(x, x, x, x, lse, lse, True)
 
 
 def test_flash_autograd_on_card_matches_sdpa_grads(cuda):

@@ -1,12 +1,13 @@
 """K2 (fused paged attention) in the PyTorch port.
 
 On the CPU: the plain version against the JAX package's Pallas kernel run in
-interpret mode, on the JAX fixture's serving-cache layouts at q_len 1 and 4
-(max |diff| <= 1e-5 in f32; zero-length slots exactly 0), and the wrapper's
-routing. The kernel itself is held against its plain version on the card by
-``tests/test_torch_cuda.py``.
+interpret mode, on the JAX fixture's serving-cache layouts at q_len 1, 4 and
+16 (max |diff| <= 1e-5 in f32 and <= 2e-2 in bf16; zero-length slots
+exactly 0), and the wrapper's routing. The kernel itself is held against
+its plain version on the card by ``tests/test_torch_cuda.py``.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,20 +22,35 @@ SLOTS, PPS, PAGE, H, D = 4, 4, 4, 2, 8
 
 
 def _to_torch(case):
-    return tuple(torch.from_numpy(np.array(x)) for x in case)
+    """numpy/JAX arrays -> torch tensors; bf16 (which numpy holds as
+    ml_dtypes) goes through f32, exactly."""
+    out = []
+    for x in case:
+        if str(x.dtype) == "bfloat16":
+            out.append(torch.from_numpy(np.asarray(x, np.float32)).to(
+                torch.bfloat16))
+        else:
+            out.append(torch.from_numpy(np.array(x)))
+    return tuple(out)
 
 
-@pytest.mark.parametrize("q_len", [1, 4])
+@pytest.mark.parametrize("dtype,tol", [("float32", TOL), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("q_len", [1, 4, 16])
 @pytest.mark.parametrize("lengths", [None, [0, 5, 16, 0]])
-def test_plain_matches_jax_kernel(q_len, lengths):
+def test_plain_matches_jax_kernel(q_len, lengths, dtype, tol):
+    """The plain version is the oracle the card's kernel is held to: it
+    agrees with the Pallas kernel within ``tol`` (in bf16 each side
+    rounds to bf16 at its own places)."""
     if lengths is not None:
         lengths = [max(n, q_len) if n else 0 for n in lengths]
     case = jcase(SLOTS, PPS, PAGE, H, D, q_len=q_len, lengths=lengths,
-                 rng=np.random.default_rng(q_len))
-    want = np.asarray(jpaged(*case, page_size=PAGE, interpret=True))
+                 dtype=getattr(jnp, dtype), rng=np.random.default_rng(q_len))
+    want = np.asarray(jpaged(*case, page_size=PAGE, interpret=True),
+                      np.float32)
     got = tpa.paged_attention_plain(*_to_torch(case), page_size=PAGE)
     assert got.shape == (SLOTS, q_len, H, D)
-    assert float(np.abs(want - got.numpy()).max()) <= TOL
+    assert got.dtype == getattr(torch, dtype)
+    assert float(np.abs(want - got.float().numpy()).max()) <= tol
     for b, n in enumerate(np.asarray(case[4])):
         if n == 0:          # inactive slot: exactly zero on both sides
             assert float(got[b].abs().max()) == 0.0
