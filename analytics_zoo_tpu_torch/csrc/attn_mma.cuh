@@ -1,6 +1,7 @@
-// Tensor-core tile machinery of the bf16 attention kernels (K1 in
-// csrc/flash_fwd.cu, K3 and K4 in csrc/flash_bwd.cu, K2 in
-// csrc/paged_attention.cu): staging (rows, D) bf16 tiles
+// Tensor-core tile machinery of the bf16 mma.sync attention kernels (K3
+// and K4 in csrc/flash_bwd.cu, K2 in csrc/paged_attention.cu; K1's wgmma
+// kernel takes its fragment layouts, quad reductions and bf16 packing
+// from here too): staging (rows, D) bf16 tiles
 // into shared memory with cp.async, the ring of stages the kernels walk
 // their streamed operands through, fragment loads with ldmatrix, the
 // m16n8k16 bf16 mma.sync with f32 accumulators, the accumulator-to-operand
@@ -91,12 +92,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Start the copies of rows [r0, r0 + ROWS) of a (rows, D) bf16 operand whose
-// rows lie `stride` elements apart into a padded tile; rows at or past n
-// are zero-filled. Every thread of the block takes part; the caller commits.
+// Start the copies of rows [r0, r0 + ROWS) of a (rows, d) bf16 operand
+// whose rows lie `stride` elements apart into a padded tile D columns wide
+// (D, a multiple of 16, at least the runtime head dim d, a multiple of 8):
+// rows at or past n, and columns d..D, are zero-filled, so the padding
+// changes no product. Every thread of the block takes part; the caller
+// commits.
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
-                                          long long stride, int r0, int n) {
+                                          long long stride, int r0, int n,
+                                          int d) {
   constexpr int kChunks = Tile<D>::kChunks;
   static_assert(ROWS * kChunks % kThreads == 0, "tile does not split evenly");
 #pragma unroll
@@ -105,15 +110,15 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
     const int r = idx / kChunks;
     const int c = idx % kChunks;
     const int p = r0 + r;
-    const bool ok = p < n;
+    const bool ok = p < n && c * 8 < d;
     cp_async16(smem_addr(tile + r * Tile<D>::kPitch + c * 8),
-               src + (long long)(ok ? p : 0) * stride + c * 8, ok);
+               src + (ok ? (long long)p * stride + c * 8 : 0), ok);
   }
 }
 
 // The ring of kStages shared-memory stages through which a kernel walks
-// two (rows, D) bf16 operands a BK-row tile at a time (K and V in K1 and
-// K3, Q and dO in K4). With kRowVals, two f32 values per row (K4: the
+// two (rows, D) bf16 operands a BK-row tile at a time (K and V in K3, Q
+// and dO in K4). With kRowVals, two f32 values per row (K4: the
 // query rows' lse and delta) travel with each tile. Each tile is one
 // commit group; copies the caller starts before prologue() (its own Q
 // tile, K4's K and V) join the first tile's group.
@@ -127,6 +132,7 @@ struct TileRing {
   long long as, bs;  // row strides, elements
   int n;             // rows of a and b; rows at or past n are zero-filled
   int tiles;         // tiles to walk
+  int d;             // the head dim; columns d..D are zero-filled
   // kRowVals only: contiguous f32 values of the rows, and their kStages
   // stages of BK values each
   const float* ra = nullptr;
@@ -138,8 +144,8 @@ struct TileRing {
   // commit them as one group
   __device__ __forceinline__ void load(int j) const {
     if (j < tiles) {
-      load_tile<D, BK>(sa + (j % kStages) * kStage, a, as, j * BK, n);
-      load_tile<D, BK>(sb + (j % kStages) * kStage, b, bs, j * BK, n);
+      load_tile<D, BK>(sa + (j % kStages) * kStage, a, as, j * BK, n, d);
+      load_tile<D, BK>(sb + (j % kStages) * kStage, b, bs, j * BK, n, d);
       if constexpr (kRowVals) {
         for (int i = threadIdx.x; i < 2 * BK; i += kThreads) {
           const int r = i % BK;
@@ -294,24 +300,24 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Write a warp's 16 x D f32 accumulator rows, times f0 (rows g) and f1
-// (rows g + 8), as bf16 rows [row0, row0 + 16) of a (rows, D) output whose
-// rows lie `stride` elements apart; rows at or past n are not written. The
-// rows go through the warp's 16 rows of a padded tile (`stage`) so that the
-// global stores are 16 bytes a lane, neighbouring lanes on neighbouring
-// addresses.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
+// Write a warp's 16 x DO f32 accumulator rows, times f0 (rows g) and f1
+// (rows g + 8), as bf16 rows [row0, row0 + 16) of a (rows, ncols) output
+// whose rows lie `stride` elements apart; rows at or past n and columns at
+// or past ncols (a multiple of 8) are not written. The rows go through 16
+// rows of shared memory (`stage`, a pitch of DO + 8) so that the global
+// stores are 16 bytes a lane, neighbouring lanes on neighbouring addresses.
+template <int DO>
+__device__ __forceinline__ void store_rows(const float (&acc)[DO / 8][4],
                                            float f0, float f1, bf16* stage,
                                            bf16* out, long long stride,
-                                           int row0, int n) {
-  constexpr int kPitch = Tile<D>::kPitch;
-  constexpr int kChunks = Tile<D>::kChunks;
+                                           int row0, int n, int ncols) {
+  constexpr int kPitch = Tile<DO>::kPitch;
+  constexpr int kChunks = Tile<DO>::kChunks;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DO / 8; ++j) {
     *reinterpret_cast<uint32_t*>(stage + g * kPitch + 8 * j + 2 * t) =
         pack_bf16(acc[j][0] * f0, acc[j][1] * f0);
     *reinterpret_cast<uint32_t*>(stage + (g + 8) * kPitch + 8 * j + 2 * t) =
@@ -323,7 +329,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
     const int idx = lane + 32 * i;
     const int r = idx / kChunks;
     const int c = idx % kChunks;
-    if (row0 + r < n)
+    if (row0 + r < n && c * 8 < ncols)
       *reinterpret_cast<uint4*>(out + (long long)(row0 + r) * stride + c * 8) =
           *reinterpret_cast<const uint4*>(stage + r * kPitch + c * 8);
   }

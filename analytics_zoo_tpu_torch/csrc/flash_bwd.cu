@@ -35,9 +35,11 @@
 // own one row, each holding 32 interleaved elements (d = TPR*i + part) of
 // the row's operands and accumulators, so a dot product is D/32 partial
 // sums joined by shuffles. The streamed tiles are staged in shared memory
-// with coalesced loads (32 rows: 16 KB at D=64, 32 KB at D=128, under the
-// 48 KB static limit). Keys past Tk and rows past Tq are masked inside the
-// kernels, as in K1, so a ragged T needs no fallback.
+// with coalesced loads (32 rows: 16 KB at D=64, 32 KB at D=128; 16 rows,
+// 32 KB, at D=256; under the 48 KB static limit). Keys past Tk and rows
+// past Tq are masked inside the kernels, as in K1, so a ragged T needs no
+// fallback. D is the compile-time tile (32, 64, 128 or 256) and d <= D the
+// head dim: columns d..D are zero and never stored.
 #include <stdint.h>
 
 #include "attn_mma.cuh"
@@ -46,7 +48,10 @@
 namespace {
 
 constexpr int kRows = 64;  // rows a block owns (Q rows in K3, keys in K4)
-constexpr int kTile = 32;  // rows of the streamed tile per shared-memory load
+// rows of the streamed tile per shared-memory load: two (rows, D) f32
+// tiles stay under the 48 KB of static shared memory
+template <int D>
+constexpr int kTile = D <= 128 ? 32 : 16;
 
 // element strides (batch, position, head) of q, k, v and dO (g)
 struct Strides {
@@ -62,28 +67,30 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
+// a row's elements TPR*i + part, zero at or past the head dim d
 template <int D>
 __device__ __forceinline__ void load_row(const float* __restrict__ src,
-                                         int part, float (&dst)[32]) {
+                                         int part, int d, float (&dst)[32]) {
   constexpr int TPR = D / 32;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dst[i] = src[TPR * i + part];
+  for (int i = 0; i < 32; ++i)
+    dst[i] = TPR * i + part < d ? src[TPR * i + part] : 0.f;
 }
 
-// stage rows [r0, r0 + kTile) of two (rows, D) operands; rows at or past n
-// are zero
+// stage rows [r0, r0 + kTile) of two (rows, d) operands into D-wide tiles;
+// rows at or past n and columns at or past d are zero
 template <int D, int NT>
 __device__ __forceinline__ void stage_tile(const float* __restrict__ a,
                                            long long as,
                                            const float* __restrict__ b,
-                                           long long bs, int r0, int n,
+                                           long long bs, int r0, int n, int d,
                                            float (*sa)[D], float (*sb)[D]) {
-  for (int idx = threadIdx.x; idx < kTile * D; idx += NT) {
+  for (int idx = threadIdx.x; idx < kTile<D> * D; idx += NT) {
     const int r = idx / D;
     const int c = idx % D;
     const int p = r0 + r;
     float x = 0.f, y = 0.f;
-    if (p < n) {
+    if (p < n && c < d) {
       x = a[(long long)p * as + c];
       y = b[(long long)p * bs + c];
     }
@@ -102,11 +109,12 @@ __global__ void __launch_bounds__(kRows * D / 32)
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         float* __restrict__ dq, int H, int Tq, int Tk,
-                        const Strides s, int causal, float scale) {
+                        int d, const Strides s, int causal, float scale) {
   constexpr int TPR = D / 32;
   constexpr int NT = kRows * TPR;
-  __shared__ float ks[kTile][D];
-  __shared__ float vs[kTile][D];
+  constexpr int kT = kTile<D>;
+  __shared__ float ks[kT][D];
+  __shared__ float vs[kT][D];
 
   const int tid = threadIdx.x;
   const int part = tid % TPR;
@@ -120,8 +128,8 @@ __global__ void __launch_bounds__(kRows * D / 32)
   const int qp = active ? qpos : Tq - 1;  // inactive rows compute, never store
 
   float qr[32], gr[32], acc[32];
-  load_row<D>(q + b * s.q[0] + qp * s.q[1] + h * s.q[2], part, qr);
-  load_row<D>(g + b * s.g[0] + qp * s.g[1] + h * s.g[2], part, gr);
+  load_row<D>(q + b * s.q[0] + qp * s.q[1] + h * s.q[2], part, d, qr);
+  load_row<D>(g + b * s.g[0] + qp * s.g[1] + h * s.g[2], part, d, gr);
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   const float row_lse = lse[(long long)bh * Tq + qp];
@@ -132,12 +140,12 @@ __global__ void __launch_bounds__(kRows * D / 32)
   // causal: keys past the tile's last query row are in every row's future
   const int kend = causal ? min(Tk, q0 + kRows) : Tk;
 
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
+  for (int k0 = 0; k0 < kend; k0 += kT) {
     __syncthreads();  // the previous tile is fully consumed
-    stage_tile<D, NT>(kbase, s.k[1], vbase, s.v[1], k0, Tk, ks, vs);
+    stage_tile<D, NT>(kbase, s.k[1], vbase, s.v[1], k0, Tk, d, ks, vs);
     __syncthreads();
 #pragma unroll 2
-    for (int j = 0; j < kTile; ++j) {
+    for (int j = 0; j < kT; ++j) {
       float sc = 0.f, dp = 0.f;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
@@ -156,9 +164,10 @@ __global__ void __launch_bounds__(kRows * D / 32)
   }
 
   if (active) {
-    float* out = dq + (((long long)b * Tq + qpos) * H + h) * D;
+    float* out = dq + (((long long)b * Tq + qpos) * H + h) * d;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) out[TPR * i + part] = acc[i];
+    for (int i = 0; i < 32; ++i)
+      if (TPR * i + part < d) out[TPR * i + part] = acc[i];
   }
 }
 
@@ -172,14 +181,15 @@ __global__ void __launch_bounds__(kRows * D / 32)
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv,
-                         int H, int Tq, int Tk, const Strides s, int causal,
-                         float scale) {
+                         int H, int Tq, int Tk, int d, const Strides s,
+                         int causal, float scale) {
   constexpr int TPR = D / 32;
   constexpr int NT = kRows * TPR;
-  __shared__ float qs[kTile][D];
-  __shared__ float gs[kTile][D];
-  __shared__ float ls[kTile];
-  __shared__ float dls[kTile];
+  constexpr int kT = kTile<D>;
+  __shared__ float qs[kT][D];
+  __shared__ float gs[kT][D];
+  __shared__ float ls[kT];
+  __shared__ float dls[kT];
 
   const int tid = threadIdx.x;
   const int part = tid % TPR;
@@ -193,8 +203,8 @@ __global__ void __launch_bounds__(kRows * D / 32)
   const int kp = active ? kpos : Tk - 1;
 
   float kr[32], vr[32], dka[32], dva[32];
-  load_row<D>(k + b * s.k[0] + kp * s.k[1] + h * s.k[2], part, kr);
-  load_row<D>(v + b * s.v[0] + kp * s.v[1] + h * s.v[2], part, vr);
+  load_row<D>(k + b * s.k[0] + kp * s.k[1] + h * s.k[2], part, d, kr);
+  load_row<D>(v + b * s.v[0] + kp * s.v[1] + h * s.v[2], part, d, vr);
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     dka[i] = 0.f;
@@ -208,17 +218,17 @@ __global__ void __launch_bounds__(kRows * D / 32)
   // causal: query rows before the tile's first key see none of its keys
   const int qstart = causal ? k0 : 0;
 
-  for (int q0 = qstart; q0 < Tq; q0 += kTile) {
+  for (int q0 = qstart; q0 < Tq; q0 += kT) {
     __syncthreads();
-    stage_tile<D, NT>(qbase, s.q[1], gbase, s.g[1], q0, Tq, qs, gs);
-    if (tid < kTile) {
+    stage_tile<D, NT>(qbase, s.q[1], gbase, s.g[1], q0, Tq, d, qs, gs);
+    if (tid < kT) {
       const int p = q0 + tid;
       ls[tid] = p < Tq ? lrow[p] : 0.f;
       dls[tid] = p < Tq ? drow[p] : 0.f;
     }
     __syncthreads();
 #pragma unroll 2
-    for (int i = 0; i < kTile; ++i) {
+    for (int i = 0; i < kT; ++i) {
       float sc = 0.f, dp = 0.f;
 #pragma unroll
       for (int c = 0; c < 32; ++c) {
@@ -240,11 +250,13 @@ __global__ void __launch_bounds__(kRows * D / 32)
   }
 
   if (active) {
-    const long long o = (((long long)b * Tk + kpos) * H + h) * D;
+    const long long o = (((long long)b * Tk + kpos) * H + h) * d;
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
-      dk[o + TPR * c + part] = dka[c];
-      dv[o + TPR * c + part] = dva[c];
+      if (TPR * c + part < d) {
+        dk[o + TPR * c + part] = dka[c];
+        dv[o + TPR * c + part] = dva[c];
+      }
     }
   }
 }
@@ -262,22 +274,30 @@ __global__ void __launch_bounds__(kRows * D / 32)
 // P and dS never leave registers.
 //
 // What the design does about it: one block of 4 warps per (64-row Q tile,
-// b*h), each warp owning 16 query rows. Q and dO are staged once through
-// shared memory into A fragments held in registers for the whole walk,
-// with the rows' lse (prescaled by log2(e)) and delta. The K and V tiles up
-// to the causal limit stream through the same two-stage cp.async ring as
-// K1's. Per 16-key chunk of a tile: S and dP on mma.sync (B fragments of K
-// and V by ldmatrix, non-transposed), P = exp2(S scale log2(e) - lse) and
+// b*h, DO-column slice of dQ), each warp owning 16 query rows. Q and dO
+// are staged once through shared memory, with the rows' lse (prescaled by
+// log2(e)) and delta; up to D = 128 their A fragments are then held in
+// registers for the whole walk, above it they are loaded from shared
+// memory per key chunk, KG k16 steps at a time. The K and V tiles up to the
+// causal limit stream through the same two-stage cp.async ring as K1's.
+// Per 16-key chunk of a tile: S and dP on mma.sync (B fragments of K and V
+// by ldmatrix, non-transposed), P = exp2(S scale log2(e) - lse) and
 // dS = P (dP - delta) scale in f32 registers, dS rounded to bf16 and
-// repacked as an A fragment, then dQ += dS K with K's fragments by
-// ldmatrix.trans. Working a chunk at a time keeps 16 score and 16 dP
-// registers live instead of a whole tile's, and a chunk wholly in the
-// future of a warp's rows is skipped. dQ stays in f32 registers and goes
-// out once, in bf16, through shared memory as 16-byte stores. Blocks run
-// the Q tiles in reverse, the longest causal walks first. D=64 takes BK =
-// 64 and 54 KB of shared memory; D=128 takes BK = 32 and 68 KB.
+// repacked as an A fragment, then dQ += dS K over the block's DO columns
+// with K's fragments by ldmatrix.trans. Working a chunk at a time keeps 16
+// score and 16 dP registers live instead of a whole tile's, and a chunk
+// wholly in the future of a warp's rows is skipped. dQ stays in f32
+// registers and goes out once, in bf16, through shared memory as 16-byte
+// stores. Blocks run the Q tiles in reverse, the longest causal walks
+// first. D is the compile-time tile (32, 64, 128 or 256) and d <= D the
+// head dim: columns d..D load as zeros, which change no product, and are
+// not stored. Up to D = 128 a block owns all of dQ's columns (DO = D); at
+// D = 256 two blocks own 128 columns each and both compute S and dP, since
+// 256 f32 accumulators a row would not fit in registers beside the
+// operands. D <= 64 takes BK = 64, D = 128 and 256 BK = 32; shared memory
+// is 54 KB at D = 64, 68 KB at 128 and 135 KB at 256.
 // Next: wgmma with a TMA producer warp, and persistent blocks.
-template <int D, int BK>
+template <int D, int BK, int DO>
 __global__ void __launch_bounds__(zoo::mma::kThreads)
     flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
@@ -286,7 +306,7 @@ __global__ void __launch_bounds__(zoo::mma::kThreads)
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             __nv_bfloat16* __restrict__ dq, int H, int Tq,
-                            int Tk, const Strides s, int causal,
+                            int Tk, int d, const Strides s, int causal,
                             float scale) {
   namespace mm = zoo::mma;
   using bf16 = __nv_bfloat16;
@@ -294,7 +314,13 @@ __global__ void __launch_bounds__(zoo::mma::kThreads)
   constexpr int STAGES = mm::kStages;
   constexpr int P = mm::Tile<D>::kPitch;
   constexpr int KD = D / 16;  // k16 steps over the head dim
-  constexpr int ND = D / 8;   // n8 tiles of dQ
+  constexpr int NO = DO / 8;  // n8 tiles of the block's dQ columns
+  // Q/dO A fragments held in registers for the walk (D <= 128), or loaded
+  // per chunk; KG k16 steps (and DG n16 column pairs) of fragments are
+  // loaded together before their products
+  constexpr bool kHold = D <= 128;
+  constexpr int KG = kHold ? KD : 2;
+  constexpr int DG = kHold ? DO / 16 : 2;
 
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);  // BQ x P
@@ -309,6 +335,7 @@ __global__ void __launch_bounds__(zoo::mma::kThreads)
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
+  const int c0 = blockIdx.z * DO;   // the block's first dQ column
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int wrow = q0 + warp * 16;  // the warp's first query row
   const int row0 = wrow + g;        // this lane's rows: row0, row0 + 8
@@ -319,11 +346,12 @@ __global__ void __launch_bounds__(zoo::mma::kThreads)
 
   // Q and dO, then the first STAGES - 1 K/V tiles, one commit group per
   // tile
-  mm::load_tile<D, BQ>(sq, q + b * s.q[0] + h * s.q[2], s.q[1], q0, Tq);
-  mm::load_tile<D, BQ>(sg, dout + b * s.g[0] + h * s.g[2], s.g[1], q0, Tq);
+  mm::load_tile<D, BQ>(sq, q + b * s.q[0] + h * s.q[2], s.q[1], q0, Tq, d);
+  mm::load_tile<D, BQ>(sg, dout + b * s.g[0] + h * s.g[2], s.g[1], q0, Tq,
+                       d);
   const mm::TileRing<D, BK> ring{sk, sv, k + b * s.k[0] + h * s.k[2],
                                  v + b * s.v[0] + h * s.v[2], s.k[1],
-                                 s.v[1], Tk, nk};
+                                 s.v[1], Tk, nk, d};
   ring.prologue();
 
   const float sl2 = scale * mm::kLog2e;
@@ -335,21 +363,23 @@ __global__ void __launch_bounds__(zoo::mma::kThreads)
     lse2[i] = ok ? lse[(long long)bh * Tq + row] * mm::kLog2e : 0.f;
     dl[i] = ok ? delta[(long long)bh * Tq + row] : 0.f;
   }
-  uint32_t qf[KD][4], gf[KD][4];
-  float acc[ND][4];
+  uint32_t qf[kHold ? KD : 1][4], gf[kHold ? KD : 1][4];
+  float acc[NO][4];
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
+  for (int j = 0; j < NO; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * BK;
     ring.step(j);
-    if (j == 0) {
+    if constexpr (kHold) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        mm::load_a<D>(qf[kk], sq, warp * 16, kk * 16);
-        mm::load_a<D>(gf[kk], sg, warp * 16, kk * 16);
+        for (int kk = 0; kk < KD; ++kk) {
+          mm::load_a<D>(qf[kk], sq, warp * 16, kk * 16);
+          mm::load_a<D>(gf[kk], sg, warp * 16, kk * 16);
+        }
       }
     }
     const bf16* ks = ring.tile_a(j);
@@ -369,20 +399,31 @@ __global__ void __launch_bounds__(zoo::mma::kThreads)
           sc[n][e] = 0.f;
           dp[n][e] = 0.f;
         }
-      // the chunk's K and V fragments are all loaded before its products,
-      // so one ldmatrix latency is exposed per chunk, not one per product
-      uint32_t kf[KD][4], vf[KD][4];
+      // a group's K and V fragments are all loaded before its products, so
+      // one ldmatrix latency is exposed per group, not one per product
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        mm::load_b<D>(kf[kk], ks, kc * 16, kk * 16);
-        mm::load_b<D>(vf[kk], vs, kc * 16, kk * 16);
-      }
+      for (int kg = 0; kg < KD; kg += KG) {
+        uint32_t kf[KG][4], vf[KG][4];
+        uint32_t qa[kHold ? 1 : KG][4], ga[kHold ? 1 : KG][4];
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        mm::mma_bf16(sc[0], qf[kk], kf[kk][0], kf[kk][1]);
-        mm::mma_bf16(sc[1], qf[kk], kf[kk][2], kf[kk][3]);
-        mm::mma_bf16(dp[0], gf[kk], vf[kk][0], vf[kk][1]);
-        mm::mma_bf16(dp[1], gf[kk], vf[kk][2], vf[kk][3]);
+        for (int i = 0; i < KG; ++i) {
+          mm::load_b<D>(kf[i], ks, kc * 16, (kg + i) * 16);
+          mm::load_b<D>(vf[i], vs, kc * 16, (kg + i) * 16);
+          if constexpr (!kHold) {
+            mm::load_a<D>(qa[i], sq, warp * 16, (kg + i) * 16);
+            mm::load_a<D>(ga[i], sg, warp * 16, (kg + i) * 16);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < KG; ++i) {
+          if constexpr (kHold) {
+            mm::mma_pair(sc, qf[kg + i], kf[i]);
+            mm::mma_pair(dp, gf[kg + i], vf[i]);
+          } else {
+            mm::mma_pair(sc, qa[i], kf[i]);
+            mm::mma_pair(dp, ga[i], vf[i]);
+          }
+        }
       }
       const bool edge = key0 + 16 > Tk || (causal && key0 + 15 > wrow);
 #pragma unroll
@@ -398,25 +439,26 @@ __global__ void __launch_bounds__(zoo::mma::kThreads)
           sc[n][e] = p * (dp[n][e] - dl[e >> 1]) * scale;  // dS
         }
       }
-      // dQ += dS K: dS rounded to bf16 in registers is the A operand
+      // dQ += dS K over the block's columns: dS rounded to bf16 in
+      // registers is the A operand
       uint32_t da[4];
       mm::c_to_a(da, sc[0], sc[1]);
-      uint32_t kt[D / 16][4];
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd)
-        mm::load_bt<D>(kt[dd], ks, kc * 16, dd * 16);
+      for (int dg = 0; dg < DO / 16; dg += DG) {
+        uint32_t kt[DG][4];
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        mm::mma_bf16(acc[2 * dd], da, kt[dd][0], kt[dd][1]);
-        mm::mma_bf16(acc[2 * dd + 1], da, kt[dd][2], kt[dd][3]);
+        for (int i = 0; i < DG; ++i)
+          mm::load_bt<D>(kt[i], ks, kc * 16, c0 + (dg + i) * 16);
+#pragma unroll
+        for (int i = 0; i < DG; ++i) mm::mma_pair(acc + 2 * (dg + i), da, kt[i]);
       }
     }
   }
 
-  // the warp's rows of sq were read only by this warp, into qf
-  mm::store_rows<D>(acc, 1.f, 1.f, sq + warp * 16 * P,
-                    dq + ((long long)b * Tq * H + h) * D, (long long)H * D,
-                    wrow, Tq);
+  // the warp's rows of sq were read only by this warp
+  mm::store_rows<DO>(acc, 1.f, 1.f, sq + warp * 16 * P,
+                     dq + ((long long)b * Tq * H + h) * d + c0,
+                     (long long)H * d, wrow, Tq, min(DO, d - c0));
 }
 
 // K4 for bf16, designed for Hopper's tensor cores.
@@ -434,27 +476,31 @@ __global__ void __launch_bounds__(zoo::mma::kThreads)
 // What the design does about it: it is K3's design with the two sequence
 // axes swapped, so every operand keeps the layout K3 reads it in and no
 // shared-memory transpose is needed. One block of 4 warps per (64-key
-// tile, b*h), each warp owning 16 keys. K and V are staged once through
-// shared memory; at D=64 their A fragments are then held in registers for
-// the whole walk, at D=128 (whose dK and dV alone take 128 registers a
-// thread) they are loaded from shared memory per query chunk. The Q and dO
-// tiles from the causal start (query k0) stream through the two-stage
-// cp.async ring, with the rows' lse and delta beside them (per column of
-// S^T now). Per 16-query chunk: S^T and dP^T on mma.sync (B fragments of
-// Q and dO by ldmatrix, non-transposed, as K3 loads K and V),
+// tile, b*h, DO-column slice of dK and dV), each warp owning 16 keys. K
+// and V are staged once through shared memory; up to D = 64 their A
+// fragments are then held in registers for the whole walk, above it
+// (whose dK and dV alone take 128 registers a thread at DO = 128) they
+// are loaded from shared memory per query chunk. The Q and dO tiles from
+// the causal start (query k0) stream through the two-stage cp.async ring,
+// with the rows' lse and delta beside them (per column of S^T now). Per
+// 16-query chunk: S^T and dP^T on mma.sync (B fragments of Q and dO by
+// ldmatrix, non-transposed, as K3 loads K and V),
 // P^T = exp2(S^T scale log2(e) - lse log2(e)) and
 // dS^T = P^T (dP^T - delta) scale in f32 registers, both repacked as bf16
 // A fragments (the JAX kernel's p.astype(g.dtype) and ds.astype(q.dtype)),
-// then dV += P^T dO and dK += dS^T Q with B fragments by ldmatrix.trans.
-// A chunk wholly before the warp's first key is skipped; only chunks that
-// cross Tq or the diagonal are masked. dK and dV stay in f32 registers and
-// go out once, in bf16, through shared memory as 16-byte stores. Blocks
-// run in key order, so the longest causal walks (small k0) start first.
-// D=64 takes BQ = 64 and 55 KB of shared memory; D=128 takes BQ = 32 and
-// 69 KB. The launch bounds ask for two blocks an SM: left to itself ptxas
-// aims at three at D=64 (168 registers) and spills a 64-bit value.
+// then dV += P^T dO and dK += dS^T Q over the block's DO columns with B
+// fragments by ldmatrix.trans. A chunk wholly before the warp's first key
+// is skipped; only chunks that cross Tq or the diagonal are masked. dK and
+// dV stay in f32 registers and go out once, in bf16, through shared memory
+// as 16-byte stores. Blocks run in key order, so the longest causal walks
+// (small k0) start first. The head dim is handled as in K3 (D the tile,
+// d <= D; DO = D up to 128, two 128-column slices at D = 256). D <= 64
+// takes BQ = 64, D = 128 and 256 BQ = 32; shared memory is 55 KB at
+// D = 64, 69 KB at 128 and 136 KB at 256. The launch bounds ask for two
+// blocks an SM: left to itself ptxas aims at three at D=64 (168
+// registers) and spills a 64-bit value.
 // Next: wgmma with a TMA producer warp, and persistent blocks.
-template <int D, int BQ>
+template <int D, int BQ, int DO>
 __global__ void __launch_bounds__(zoo::mma::kThreads, 2)
     flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
@@ -464,7 +510,7 @@ __global__ void __launch_bounds__(zoo::mma::kThreads, 2)
                              const float* __restrict__ delta,
                              __nv_bfloat16* __restrict__ dk,
                              __nv_bfloat16* __restrict__ dv, int H, int Tq,
-                             int Tk, const Strides s, int causal,
+                             int Tk, int d, const Strides s, int causal,
                              float scale) {
   namespace mm = zoo::mma;
   using bf16 = __nv_bfloat16;
@@ -472,13 +518,13 @@ __global__ void __launch_bounds__(zoo::mma::kThreads, 2)
   constexpr int STAGES = mm::kStages;
   constexpr int P = mm::Tile<D>::kPitch;
   constexpr int KD = D / 16;  // k16 steps over the head dim
-  constexpr int ND = D / 8;   // n8 tiles of dK and dV
-  // K/V A fragments held in registers for the walk (D=64), or loaded per
-  // chunk (D=128); KG k16 steps (and DG n16 column pairs) of fragments are
-  // loaded together before their products
+  constexpr int NO = DO / 8;  // n8 tiles of the block's dK and dV columns
+  // K/V A fragments held in registers for the walk (D <= 64), or loaded per
+  // chunk; KG k16 steps (and DG n16 column pairs) of fragments are loaded
+  // together before their products
   constexpr bool kHold = D <= 64;
   constexpr int KG = kHold ? KD : 2;
-  constexpr int DG = kHold ? D / 16 : 2;
+  constexpr int DG = kHold ? DO / 16 : 2;
 
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sk = reinterpret_cast<bf16*>(smem);  // BK x P
@@ -495,6 +541,7 @@ __global__ void __launch_bounds__(zoo::mma::kThreads, 2)
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
+  const int c0 = blockIdx.z * DO;   // the block's first dK/dV column
   const int k0 = blockIdx.x * BK;
   const int wkey = k0 + warp * 16;  // the warp's first key
   const int key0 = wkey + g;        // this lane's keys: key0, key0 + 8
@@ -505,20 +552,20 @@ __global__ void __launch_bounds__(zoo::mma::kThreads, 2)
 
   // K and V, then the first STAGES - 1 Q/dO tiles, one commit group per
   // tile
-  mm::load_tile<D, BK>(sk, k + b * s.k[0] + h * s.k[2], s.k[1], k0, Tk);
-  mm::load_tile<D, BK>(sv, v + b * s.v[0] + h * s.v[2], s.v[1], k0, Tk);
+  mm::load_tile<D, BK>(sk, k + b * s.k[0] + h * s.k[2], s.k[1], k0, Tk, d);
+  mm::load_tile<D, BK>(sv, v + b * s.v[0] + h * s.v[2], s.v[1], k0, Tk, d);
   const long long rows = (long long)bh * Tq + qstart;
   const mm::TileRing<D, BQ, true> ring{
       sq, sg, q + b * s.q[0] + h * s.q[2] + qstart * s.q[1],
       dout + b * s.g[0] + h * s.g[2] + qstart * s.g[1], s.q[1], s.g[1],
-      Tq - qstart, nq, lse + rows, delta + rows, sl, sd};
+      Tq - qstart, nq, d, lse + rows, delta + rows, sl, sd};
   ring.prologue();
 
   const float sl2 = scale * mm::kLog2e;
   uint32_t kf[kHold ? KD : 1][4], vf[kHold ? KD : 1][4];
-  float dka[ND][4], dva[ND][4];
+  float dka[NO][4], dva[NO][4];
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
+  for (int j = 0; j < NO; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       dka[j][e] = 0.f;
@@ -603,18 +650,18 @@ __global__ void __launch_bounds__(zoo::mma::kThreads, 2)
           sc[n][e] = p;                            // P^T
         }
       }
-      // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to bf16 in
-      // registers are the A operands
+      // dV += P^T dO and dK += dS^T Q over the block's columns: P^T and
+      // dS^T rounded to bf16 in registers are the A operands
       uint32_t pa[4], da[4];
       mm::c_to_a(pa, sc[0], sc[1]);
       mm::c_to_a(da, dp[0], dp[1]);
 #pragma unroll
-      for (int dg = 0; dg < D / 16; dg += DG) {
+      for (int dg = 0; dg < DO / 16; dg += DG) {
         uint32_t gt[DG][4], qt[DG][4];
 #pragma unroll
         for (int i = 0; i < DG; ++i) {
-          mm::load_bt<D>(gt[i], gs, qc * 16, (dg + i) * 16);
-          mm::load_bt<D>(qt[i], qs, qc * 16, (dg + i) * 16);
+          mm::load_bt<D>(gt[i], gs, qc * 16, c0 + (dg + i) * 16);
+          mm::load_bt<D>(qt[i], qs, qc * 16, c0 + (dg + i) * 16);
         }
 #pragma unroll
         for (int i = 0; i < DG; ++i) {
@@ -630,86 +677,95 @@ __global__ void __launch_bounds__(zoo::mma::kThreads, 2)
   // of sk and sv were read only by that warp
   mm::cp_async_wait<0>();
   __syncthreads();
-  const long long out = ((long long)b * Tk * H + h) * D;
-  mm::store_rows<D>(dka, 1.f, 1.f, sk + warp * 16 * P, dk + out,
-                    (long long)H * D, wkey, Tk);
-  mm::store_rows<D>(dva, 1.f, 1.f, sv + warp * 16 * P, dv + out,
-                    (long long)H * D, wkey, Tk);
+  const long long out = ((long long)b * Tk * H + h) * d + c0;
+  const int ncols = min(DO, d - c0);
+  mm::store_rows<DO>(dka, 1.f, 1.f, sk + warp * 16 * P, dk + out,
+                     (long long)H * d, wkey, Tk, ncols);
+  mm::store_rows<DO>(dva, 1.f, 1.f, sv + warp * 16 * P, dv + out,
+                     (long long)H * d, wkey, Tk, ncols);
 }
+
+// the column slice a bf16 backward block owns: all of D up to 128
+template <int D>
+constexpr int kSlice = D <= 128 ? D : 128;
 
 template <int D, int BQ>
 int launch_dkv_mma(const void* q, const void* k, const void* v,
                    const void* g, const void* lse, const void* delta,
-                   void* dk, void* dv, int B, int H, int Tq, int Tk,
+                   void* dk, void* dv, int B, int H, int Tq, int Tk, int d,
                    const Strides& s, int causal, float scale,
                    cudaStream_t stream) {
   namespace mm = zoo::mma;
+  constexpr int DO = kSlice<D>;
   constexpr int smem =
       (2 * mm::kRows + 2 * mm::kStages * BQ) * mm::Tile<D>::kPitch * 2 +
       2 * mm::kStages * BQ * 4;
   static std::atomic<uint64_t> granted{0};
   const cudaError_t err =
-      mm::grant_smem(flash_bwd_dkv_mma_kernel<D, BQ>, smem, granted);
+      mm::grant_smem(flash_bwd_dkv_mma_kernel<D, BQ, DO>, smem, granted);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Tk + mm::kRows - 1) / mm::kRows, B * H);
-  flash_bwd_dkv_mma_kernel<D, BQ><<<grid, mm::kThreads, smem, stream>>>(
+  dim3 grid((Tk + mm::kRows - 1) / mm::kRows, B * H, D / DO);
+  flash_bwd_dkv_mma_kernel<D, BQ, DO><<<grid, mm::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, Tq, Tk, s, causal, scale);
+      static_cast<__nv_bfloat16*>(dv), H, Tq, Tk, d, s, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D, int BK>
 int launch_dq_mma(const void* q, const void* k, const void* v, const void* g,
                   const void* lse, const void* delta, void* dq, int B, int H,
-                  int Tq, int Tk, const Strides& s, int causal, float scale,
-                  cudaStream_t stream) {
+                  int Tq, int Tk, int d, const Strides& s, int causal,
+                  float scale, cudaStream_t stream) {
   namespace mm = zoo::mma;
+  constexpr int DO = kSlice<D>;
   constexpr int smem =
       (2 * mm::kRows + 2 * mm::kStages * BK) * mm::Tile<D>::kPitch * 2;
   static std::atomic<uint64_t> granted{0};
   const cudaError_t err =
-      mm::grant_smem(flash_bwd_dq_mma_kernel<D, BK>, smem, granted);
+      mm::grant_smem(flash_bwd_dq_mma_kernel<D, BK, DO>, smem, granted);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Tq + mm::kRows - 1) / mm::kRows, B * H);
-  flash_bwd_dq_mma_kernel<D, BK><<<grid, mm::kThreads, smem, stream>>>(
+  dim3 grid((Tq + mm::kRows - 1) / mm::kRows, B * H, D / DO);
+  flash_bwd_dq_mma_kernel<D, BK, DO><<<grid, mm::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), H,
-      Tq, Tk, s, causal, scale);
+      Tq, Tk, d, s, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-void launch_dq(const void* q, const void* k, const void* v, const void* g,
-               const void* lse, const void* delta, void* dq, int B, int H,
-               int Tq, int Tk, const Strides& s, int causal, float scale,
-               cudaStream_t stream) {
+int launch_dq(const void* q, const void* k, const void* v, const void* g,
+              const void* lse, const void* delta, void* dq, int B, int H,
+              int Tq, int Tk, int d, const Strides& s, int causal,
+              float scale, cudaStream_t stream) {
   dim3 grid((Tq + kRows - 1) / kRows, B * H);
   flash_bwd_dq_kernel<D><<<grid, kRows * D / 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), H, Tq, Tk, s, causal, scale);
+      static_cast<float*>(dq), H, Tq, Tk, d, s, causal, scale);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
-void launch_dkv(const void* q, const void* k, const void* v, const void* g,
-                const void* lse, const void* delta, void* dk, void* dv, int B,
-                int H, int Tq, int Tk, const Strides& s, int causal,
-                float scale, cudaStream_t stream) {
+int launch_dkv(const void* q, const void* k, const void* v, const void* g,
+               const void* lse, const void* delta, void* dk, void* dv, int B,
+               int H, int Tq, int Tk, int d, const Strides& s, int causal,
+               float scale, cudaStream_t stream) {
   dim3 grid((Tk + kRows - 1) / kRows, B * H);
   flash_bwd_dkv_kernel<D><<<grid, kRows * D / 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, s, causal,
-      scale);
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, d, s,
+      causal, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -717,10 +773,12 @@ void launch_dkv(const void* q, const void* k, const void* v, const void* g,
 // Strides are in elements: (batch, position, head) for q, k, v and dO (g);
 // head dims are contiguous. lse and delta are contiguous (B, H, Tq) f32;
 // dq is a contiguous (B, Tq, H, D) tensor and dk, dv contiguous
-// (B, Tk, H, D) tensors in the storage dtype. bf16 rows must start 16-byte
-// aligned (the wrapper checks: cp.async moves 16-byte chunks). Each
-// entry returns cudaGetLastError() after its launch (cudaErrorInvalidValue
-// for a dtype/head-dim it does not take).
+// (B, Tk, H, D) tensors in the storage dtype. D is a multiple of 8 from 8
+// to 256; each dtype runs on the smallest compile-time tile of 32, 64, 128
+// or 256 columns that holds it. bf16 rows must start 16-byte aligned (the
+// wrapper checks: cp.async moves 16-byte chunks). Each entry returns
+// cudaGetLastError() after its launch (cudaErrorInvalidValue for a
+// dtype/head dim it does not take).
 extern "C" int zoo_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* g, const void* lse,
                                 const void* delta, void* dq, int dtype, int B,
@@ -733,21 +791,21 @@ extern "C" int zoo_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Strides s{{qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh},
                   {gsb, gst, gsh}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Tq < 1 || Tk < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == zoo::kBF16) {
-    if (D == 64)
-      return launch_dq_mma<64, 64>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
-    if (D == 128)
-      return launch_dq_mma<128, 32>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
+  if (Tq < 1 || Tk < 1 || B < 1 || H < 1 || D < 8 || D > 256 || D % 8)
     return (int)cudaErrorInvalidValue;
-  }
-  if (dtype == zoo::kF32 && D == 64)
-    launch_dq<64>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
-  else if (dtype == zoo::kF32 && D == 128)
-    launch_dq<128>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, s, causal, scale, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+#define ZOO_DQ(F, ...) F<__VA_ARGS__>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, D, s, causal, scale, st)
+  if (dtype == zoo::kBF16)
+    return D <= 32    ? ZOO_DQ(launch_dq_mma, 32, 64)
+           : D <= 64  ? ZOO_DQ(launch_dq_mma, 64, 64)
+           : D <= 128 ? ZOO_DQ(launch_dq_mma, 128, 32)
+                      : ZOO_DQ(launch_dq_mma, 256, 32);
+  if (dtype == zoo::kF32)
+    return D <= 32    ? ZOO_DQ(launch_dq, 32)
+           : D <= 64  ? ZOO_DQ(launch_dq, 64)
+           : D <= 128 ? ZOO_DQ(launch_dq, 128)
+                      : ZOO_DQ(launch_dq, 256);
+#undef ZOO_DQ
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int zoo_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -763,19 +821,19 @@ extern "C" int zoo_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Strides s{{qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh},
                   {gsb, gst, gsh}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Tq < 1 || Tk < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == zoo::kBF16) {
-    if (D == 64)
-      return launch_dkv_mma<64, 64>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
-    if (D == 128)
-      return launch_dkv_mma<128, 32>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
+  if (Tq < 1 || Tk < 1 || B < 1 || H < 1 || D < 8 || D > 256 || D % 8)
     return (int)cudaErrorInvalidValue;
-  }
-  if (dtype == zoo::kF32 && D == 64)
-    launch_dkv<64>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
-  else if (dtype == zoo::kF32 && D == 128)
-    launch_dkv<128>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, s, causal, scale, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+#define ZOO_DKV(F, ...) F<__VA_ARGS__>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, D, s, causal, scale, st)
+  if (dtype == zoo::kBF16)
+    return D <= 32    ? ZOO_DKV(launch_dkv_mma, 32, 64)
+           : D <= 64  ? ZOO_DKV(launch_dkv_mma, 64, 64)
+           : D <= 128 ? ZOO_DKV(launch_dkv_mma, 128, 32)
+                      : ZOO_DKV(launch_dkv_mma, 256, 32);
+  if (dtype == zoo::kF32)
+    return D <= 32    ? ZOO_DKV(launch_dkv, 32)
+           : D <= 64  ? ZOO_DKV(launch_dkv, 64)
+           : D <= 128 ? ZOO_DKV(launch_dkv, 128)
+                      : ZOO_DKV(launch_dkv, 256);
+#undef ZOO_DKV
+  return (int)cudaErrorInvalidValue;
 }

@@ -11,21 +11,27 @@
 // dtype before the P V product (a no-op in f32) and l sums them in f32.
 //
 // Two kernels, chosen by dtype in `zoo_flash_fwd`:
-// - bf16: `flash_fwd_mma_kernel`, on the tensor cores;
+// - bf16: `flash_fwd_wgmma_kernel`, on wgmma fed by TMA (its note is below);
 // - f32: `flash_fwd_kernel`, f32 FMA loops. On the tensor cores f32 would
 //   run as TF32, about three decimal digits, which the f32 checks against
 //   the plain version (1e-4) cannot take; f32 is neither the training nor
 //   the serving dtype.
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attn_mma.cuh"
+#include "wgmma.cuh"
 #include "zoo_cuda.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;            // query rows per block
-constexpr int kBK = 32;            // keys per shared-memory tile
 constexpr int kThreads = 2 * kBQ;  // two threads per query row
+// keys per shared-memory tile: two (keys, D) f32 tiles stay under the 48 KB
+// of static shared memory
+template <int D>
+constexpr int kBK = D <= 128 ? 32 : 16;
 
 // The f32 kernel, written "correct first". Two threads own one query row,
 // each holding the interleaved half of the q row and of the f32 accumulator
@@ -33,19 +39,22 @@ constexpr int kThreads = 2 * kBQ;  // two threads per query row
 // by one shuffle. K/V tiles of 32 keys are staged in shared memory with
 // coalesced loads; the online softmax (m, l, acc) stays in f32; K tiles
 // wholly in the future of the Q tile are never loaded under the causal
-// mask; keys past Tk and rows past Tq are masked inside the kernel.
+// mask; keys past Tk and rows past Tq are masked inside the kernel. D is
+// the compile-time tile (32, 64, 128 or 256) and d <= D the head dim:
+// columns d..D are zero and never stored.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int H, int Tq, int Tk,
+                     float* __restrict__ lse, int H, int Tq, int Tk, int d,
                      long long qsb, long long qst, long long qsh,
                      long long ksb, long long kst, long long ksh,
                      long long vsb, long long vst, long long vsh, int causal,
                      float scale) {
   constexpr int DH = D / 2;
-  __shared__ float ks[kBK][D];
-  __shared__ float vs[kBK][D];
+  constexpr int BK = kBK<D>;
+  __shared__ float ks[BK][D];
+  __shared__ float vs[BK][D];
 
   const int tid = threadIdx.x;
   const int half = tid & 1;
@@ -64,7 +73,7 @@ __global__ void __launch_bounds__(kThreads)
     const float* qrow = q + b * qsb + (long long)qrow_pos * qst + h * qsh;
 #pragma unroll
     for (int i = 0; i < DH; ++i) {
-      qr[i] = qrow[2 * i + half];
+      qr[i] = 2 * i + half < d ? qrow[2 * i + half] : 0.f;
       acc[i] = 0.f;
     }
   }
@@ -76,14 +85,14 @@ __global__ void __launch_bounds__(kThreads)
   // causal: keys past the tile's last query row are in every row's future
   const int kend = causal ? min(Tk, q0 + kBQ) : Tk;
 
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
+  for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile is fully consumed
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
+    for (int idx = tid; idx < BK * D; idx += kThreads) {
       const int r = idx / D;
       const int c = idx % D;
       const int kp = k0 + r;
       float kv = 0.f, vv = 0.f;
-      if (kp < Tk) {
+      if (kp < Tk && c < d) {
         kv = kbase[(long long)kp * kst + c];
         vv = vbase[(long long)kp * vst + c];
       }
@@ -92,10 +101,10 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    float s[kBK];
+    float s[BK];
     float tile_max = zoo::kNegInf;
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
+    for (int j = 0; j < BK; ++j) {
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < DH; ++i) part = fmaf(qr[i], ks[j][2 * i + half], part);
@@ -109,7 +118,7 @@ __global__ void __launch_bounds__(kThreads)
     const float corr = expf(m - m_new);
     float psum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
+    for (int j = 0; j < BK; ++j) {
       const int kp = k0 + j;
       const bool ok = kp < Tk && (!causal || kp <= qpos);
       const float p = ok ? expf(s[j] - m_new) : 0.f;
@@ -121,7 +130,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < DH; ++i) {
       float a = acc[i] * corr;
 #pragma unroll
-      for (int j = 0; j < kBK; ++j) a = fmaf(s[j], vs[j][2 * i + half], a);
+      for (int j = 0; j < BK; ++j) a = fmaf(s[j], vs[j][2 * i + half], a);
       acc[i] = a;
     }
     m = m_new;
@@ -129,14 +138,15 @@ __global__ void __launch_bounds__(kThreads)
 
   if (active) {
     const float safe_l = l == 0.f ? 1.f : l;
-    float* orow = o + (((long long)b * Tq + qpos) * H + h) * D;
+    float* orow = o + (((long long)b * Tq + qpos) * H + h) * d;
 #pragma unroll
-    for (int i = 0; i < DH; ++i) orow[2 * i + half] = acc[i] / safe_l;
+    for (int i = 0; i < DH; ++i)
+      if (2 * i + half < d) orow[2 * i + half] = acc[i] / safe_l;
     if (half == 0) lse[(long long)bh * Tq + qpos] = m + logf(safe_l);
   }
 }
 
-// The bf16 kernel, designed for Hopper's tensor cores.
+// The bf16 kernel, redesigned for Hopper: wgmma fed by TMA.
 //
 // Replaces the same TPU kernel, `_fwd_kernel`
 // (analytics_zoo_tpu/ops/flash_attention.py:46), for bf16 inputs.
@@ -144,241 +154,480 @@ __global__ void __launch_bounds__(kThreads)
 // What bounds it on the H100: at the serving prefill (B=1, T=1024, H=16,
 // D=64, causal) the bound is bytes, ~8.5 MB in ~2.5 us, below what a
 // launch itself costs; at the training micro-batch (B=2, T=2048) it is the
-// ~17 GFLOP of the two products, ~17 us at 989 TFLOP/s. So both products
-// must run on the tensor cores, fed from shared memory without stalling
-// the warps.
+// ~17 GFLOP of the two products, ~17 us at 989 TFLOP/s. Only wgmma reaches
+// that rate (mma.sync, the previous design, cannot), and it needs its
+// operands in shared memory on time without the warps spending issue
+// slots on copies.
 //
-// What the design does about it: one block of 4 warps per (64-row Q tile,
-// b*h), each warp owning 16 query rows. Q is staged once through shared
-// memory into A fragments held in registers. K and V tiles of BK keys
-// stream through a two-stage cp.async ring of bf16 tiles (rows past Tk
-// zero-filled), so the next tile loads while this one is multiplied.
-// S = Q K^T runs on mma.sync m16n8k16 with K's fragments from ldmatrix;
-// the online softmax runs on the f32 accumulators in registers, in the
-// log2 domain (exp2f of scores prescaled by scale * log2(e)), with row max
-// and sum over the quad of lanes that holds a row; P, rounded to bf16 in
-// registers, is the A operand of O += P V, with V's fragments from
-// ldmatrix.trans. Only tiles that cross Tk or the diagonal of a warp's rows
-// are masked; tiles wholly in the future are never loaded. O / l goes out
-// in bf16 through shared memory as 16-byte stores, the LSE in f32. The
-// grid's x runs over the Q tiles in reverse, so the longest causal rows
-// start first. D=64 takes BK = 64 and 45 KB of shared memory; D=128 takes
-// BK = 32 (fewer score registers) and 51 KB.
-// Next: wgmma with a TMA producer warp, and persistent blocks.
-template <int D, int BK>
-__global__ void __launch_bounds__(zoo::mma::kThreads)
-    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int H, int Tq, int Tk,
-                         long long qsb, long long qst, long long qsh,
-                         long long ksb, long long kst, long long ksh,
-                         long long vsb, long long vst, long long vsh,
-                         int causal, float scale) {
+// What the design does about it: persistent blocks, one an SM, of three
+// warpgroups. The work items are (128 query rows, b*h), the query tiles in
+// reverse so the longest causal walks of every head start first, dealt to
+// the blocks in snake order. One thread of the producer warpgroup keeps
+// TMA loads in flight (its warpgroup gives its registers to the others
+// with setmaxnreg): an item's Q, then its K and V tiles of BK keys up to
+// the causal limit into a two-stage ring of 128-byte-swizzled tiles. Each
+// stage has "full" mbarriers for K and for V, which the TMA transactions
+// complete, and "empty" ones for K and for V, which the consumers' 256
+// threads complete: K as soon as S has read it, V after P V, so the next K
+// streams in while this tile's P V runs; the next item's Q loads under
+// this item's epilogue. Two consumer warpgroups own 64 query rows each:
+// S = Q K^T is wgmma m64nBKk16 with both operands in shared memory (D/16
+// k-steps); P, rounded to bf16 in registers (the JAX kernel's
+// p.astype(v.dtype)), is the A operand of O += P V, wgmma m64nDk16 with V
+// read MN-major from its tile (no transpose copy). Within a warpgroup,
+// S(j) and P(j-1) V(j-1) are issued together and the online softmax of
+// S(j) (f32, the exponent one FFMA and one MUFU an element, l summing the
+// unrounded e) runs while P V is on the tensor cores; across the two
+// warpgroups a pair of named barriers makes them take turns issuing, so
+// one's exponentials overlap the other's products. ptxas serializes every
+// wgmma (C7513) if a register a pending wgmma reads or writes is also
+// written by another instruction; so the scores are fresh registers each
+// tile, masked on reading (only tiles crossing Tk or the diagonal), and P
+// is double-buffered (the loop unrolled by two), never copied. TMA's
+// out-of-bounds fill gives zeros for rows past Tq/Tk and for columns
+// d..D (D = 64, 128 or 256, the 64-column boxes that hold d), so any head
+// dim that is a multiple of 8 and any T need no masking of the loads. O / l
+// goes out in bf16 from registers, the LSE in f32. D = 64 and 128 take
+// BK = 128 (80 and 160 KB of shared memory), D = 256 BK = 32 (128 KB),
+// which keeps the 240 registers a consumer thread has free of spills.
+// Next: three consumer warpgroups (192 rows) at D = 64, exponentials
+// partly on the FMA pipes, a TMA store of O.
+constexpr int kWgRows = 64;                 // query rows a warpgroup owns
+constexpr int kWgBlockRows = 2 * kWgRows;   // query rows a block owns
+constexpr int kWgThreads = 3 * 128;  // two consumer warpgroups, a producer
+constexpr int kBox = 64;                    // columns a TMA box holds
+constexpr int kWgStages = 2;                // stages of the K/V ring
+
+template <int NB, int BK>
+struct WgLayout {
+  static constexpr int D = kBox * NB;
+  static constexpr int kQ = NB * kWgBlockRows * 128;  // bytes of Q
+  static constexpr int kKV = NB * BK * 128;           // bytes of a K/V tile
+  static constexpr int kSmem = kQ + 2 * kWgStages * kKV;
+};
+
+// The work of a block of flash_fwd_wgmma_kernel: items i = 0 .. items - 1
+// are (Q tile, b*h) pairs, the Q tiles in reverse (the longest causal walks
+// first, over every head); block `blk` of `nblk` takes items in snake
+// order (blk, 2 nblk - 1 - blk, 2 nblk + blk, ...), which evens out the
+// blocks' work.
+struct WgItems {
+  int blk, nblk, items, bhs, nqt;
+  __device__ __forceinline__ int item(int n) const {
+    const int r = n / 2, odd = n & 1;
+    return 2 * r * nblk + (odd ? 2 * nblk - 1 - blk : blk);
+  }
+  __device__ __forceinline__ int bh(int it) const { return it % bhs; }
+  __device__ __forceinline__ int q0(int it) const {
+    return (nqt - 1 - it / bhs) * kWgBlockRows;
+  }
+};
+
+// A consumer warpgroup of flash_fwd_wgmma_kernel: 64 query rows of each
+// item's 128, over the K/V tiles the producer streams in (`jt` counts
+// them across items: ring stage jt % S, phase (jt / S) & 1).
+template <int NB, int BK>
+__device__ __forceinline__ void consume(
+    const unsigned char* sq, const unsigned char* sk, const unsigned char* sv,
+    uint64_t* q_full, uint64_t* q_empty, uint64_t* k_full, uint64_t* v_full,
+    uint64_t* k_empty, uint64_t* v_empty, const WgItems& work,
+    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int Tq,
+    int Tk, int d, int causal, float scale) {
   namespace mm = zoo::mma;
-  using bf16 = __nv_bfloat16;
-  constexpr int BQ = mm::kRows;
-  constexpr int STAGES = mm::kStages;
-  constexpr int P = mm::Tile<D>::kPitch;
-  constexpr int NT = BK / 8;  // n8 score tiles per key tile
-  constexpr int KD = D / 16;  // k16 steps over the head dim
-  constexpr int ND = D / 8;   // n8 output tiles
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);  // BQ x P
-  bf16* sk = sq + BQ * P;                    // STAGES x BK x P
-  bf16* sv = sk + STAGES * BK * P;           // STAGES x BK x P
-
+  namespace wg = zoo::wg;
+  using L = WgLayout<NB, BK>;
+  constexpr int S = kWgStages;
+  constexpr int D = L::D;
+  wg::set_max_regs_inc<240>();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int w = warp >> 2;  // warpgroup 0 or 1
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int wrow = q0 + warp * 16;  // the warp's first query row
-  const int row0 = wrow + g;        // this lane's rows: row0, row0 + 8
-
-  // causal: keys past the tile's last query row are in every row's future
-  const int kend = causal ? min(Tk, q0 + BQ) : Tk;
-  const int nk = (kend + BK - 1) / BK;
-
-  // Q, then the first STAGES - 1 K/V tiles, one commit group per tile
-  mm::load_tile<D, BQ>(sq, q + b * qsb + h * qsh, qst, q0, Tq);
-  const mm::TileRing<D, BK> ring{sk, sv, k + b * ksb + h * ksh,
-                                 v + b * vsb + h * vsh, kst, vst, Tk, nk};
-  ring.prologue();
-
   const float sl2 = scale * mm::kLog2e;
   const float ninf = mm::neg_inf();
-  uint32_t qf[KD][4];
-  float acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m[2] = {ninf, ninf};  // running row max, log2 domain
-  float l[2] = {0.f, 0.f};    // this lane's part of the row sum
+  const uint32_t q_addr = wg::smem_u32(sq) + w * kWgRows * 128;
+  int jt0 = 0;  // K/V tiles of the items before this one
 
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * BK;
-    ring.step(j);
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        mm::load_a<D>(qf[kk], sq, warp * 16, kk * 16);
-    }
-    const bf16* ks = ring.tile_a(j);
-    const bf16* vs = ring.tile_b(j);
+  for (int n = 0; work.item(n) < work.items; ++n) {
+    const int item = work.item(n);
+    const int bh = work.bh(item);
+    const int q0 = work.q0(item);
+    const int kend = causal ? min(Tk, q0 + kWgBlockRows) : Tk;
+    const int nk = (kend + BK - 1) / BK;
+    const int wrow = q0 + w * kWgRows + (warp & 3) * 16;  // the warp's rows
+    const int row0 = wrow + g;  // this lane's rows: row0, row0 + 8
 
-    // S = Q K^T; a k16 step's K fragments are all loaded before its
-    // products, so one ldmatrix latency is exposed per step
-    float s[NT][4];
+    float acc[D / 2];
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {ninf, ninf};  // running row max of the raw scores
+    float l[2] = {0.f, 0.f};    // this lane's part of the row sum
+    // P of two tiles in turn: the one P V reads and the one the softmax
+    // writes (a copy from one to the other makes ptxas serialize, C7513)
+    uint32_t pa0[BK / 16][4], pa1[BK / 16][4];
+
+    // S = Q K^T of tile j (ring index jt) into sc, fresh each tile: D/16
+    // k-steps, both operands K-major
+    auto issue_s = [&](int jt, float (&sc)[BK / 2]) {
+      const int s = jt % S;
+      wg::mbar_wait(&k_full[s], (jt / S) & 1);
+      const uint32_t k_addr = wg::smem_u32(sk) + s * L::kKV;
+      wg::fence_regs(sc);
+      wg::fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t kf[NT / 2][4];
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np)
-        mm::load_b<D>(kf[np], ks, np * 16, kk * 16);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        mm::mma_bf16(s[2 * np], qf[kk], kf[np][0], kf[np][1]);
-        mm::mma_bf16(s[2 * np + 1], qf[kk], kf[np][2], kf[np][3]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;  // a k16 step in the box
+        wg::Wgmma<BK>::ss(
+            sc,
+            wg::desc(q_addr + (kk >> 2) * kWgBlockRows * 128 + off, 16,
+                     1024),
+            wg::desc(k_addr + (kk >> 2) * BK * 128 + off, 16, 1024),
+            kk > 0);
       }
-    }
-
-    // the online softmax in the log2 domain; only a tile that crosses Tk
-    // or the diagonal of this warp's rows is masked
-    const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > wrow);
-    float mx[2] = {m[0], m[1]};
+      wg::commit();
+    };
+    // O += P V of ring tile jt, V MN-major: 16 keys a k-step, the next 64
+    // columns one box on
+    auto issue_pv = [&](int jt, const uint32_t (&pa)[BK / 16][4]) {
+      const int s = jt % S;
+      wg::mbar_wait(&v_full[s], (jt / S) & 1);
+      const uint32_t v_addr = wg::smem_u32(sv) + s * L::kKV;
+      wg::fence_regs(acc);
+      wg::fence();
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+      for (int kc = 0; kc < BK / 16; ++kc)
+        wg::Wgmma<D>::rs(acc, pa[kc],
+                         wg::desc(v_addr + kc * 16 * 128, BK * 128, 1024));
+      wg::commit();
+    };
+    // the online softmax of tile j's scores in sc: the new row max, the
+    // factor corr for what O and l hold, and P rounded to bf16 into pn.
+    // exp2(s scale log2(e) - m scale log2(e)) is one FFMA and one MUFU an
+    // element. Only a tile that crosses Tk or the diagonal of this warp's
+    // rows is masked, and sc is only read: a write to it while P V is in
+    // flight makes ptxas serialize every wgmma (C7513)
+    auto softmax_tile = [&](int j, const float (&sc)[BK / 2],
+                            uint32_t (&pn)[BK / 16][4], float (&corr)[2],
+                            auto edge) {
+      const int k0 = j * BK;
+      auto hidden = [&](int i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const int row = row0 + ((i >> 1) & 1) * 8;
+        return decltype(edge)::value &&
+               (key >= Tk || (causal && key > row));
+      };
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * sl2;
-        if (edge) {
-          const int key = k0 + 8 * n + 2 * t + (e & 1);
-          const int row = row0 + (e >> 1) * 8;
-          if (key >= Tk || (causal && key > row)) x = ninf;
+      for (int i = 0; i < BK / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], hidden(i) ? ninf : sc[i]);
+      float nb[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = mm::quad_max(mx[r]);
+        // a row with no visible key yet keeps its sums at 0
+        const float base = mx[r] == ninf ? 0.f : mx[r] * sl2;
+        corr[r] = mm::ex2(m[r] * sl2 - base);
+        nb[r] = -base;
+        m[r] = mx[r];
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) {
+        float p[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          p[e] = hidden(8 * kc + e)
+                     ? 0.f
+                     : mm::ex2(fmaf(sc[8 * kc + e], sl2, nb[(e >> 1) & 1]));
+          l[(e >> 1) & 1] += p[e];
         }
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        // keys 16 kc .. 16 kc + 15 (n8 blocks 2 kc, 2 kc + 1): the A
+        // fragment of one k16 step of P V
+        pn[kc][0] = mm::pack_bf16(p[0], p[1]);
+        pn[kc][1] = mm::pack_bf16(p[2], p[3]);
+        pn[kc][2] = mm::pack_bf16(p[4], p[5]);
+        pn[kc][3] = mm::pack_bf16(p[6], p[7]);
       }
-    }
-    float corr[2], base[2];
+    };
+    auto softmax = [&](int j, const float (&sc)[BK / 2],
+                       uint32_t (&pn)[BK / 16][4], float (&corr)[2]) {
+      if (j * BK + BK > Tk || (causal && j * BK + BK - 1 > wrow))
+        softmax_tile(j, sc, pn, corr, std::true_type{});
+      else
+        softmax_tile(j, sc, pn, corr, std::false_type{});
+    };
+    // tile j: S_j and P_{j-1} V_{j-1} issued in this warpgroup's turn;
+    // the softmax of S_j runs while P_{j-1} V_{j-1} is on the tensor cores
+    // (and the other warpgroup's products after it)
+    auto step = [&](int j, const uint32_t (&pv)[BK / 16][4],
+                    uint32_t (&pn)[BK / 16][4]) {
+      float sc[BK / 2], corr[2];
+      wg::bar_sync(1 + w, 256);
+      issue_s(jt0 + j, sc);
+      issue_pv(jt0 + j - 1, pv);
+      wg::bar_arrive(2 - w, 256);  // the other warpgroup's turn
+      wg::wait<1>();               // S_j has landed
+      wg::fence_regs(sc);
+      wg::mbar_arrive(&k_empty[(jt0 + j) % S]);
+      softmax(j, sc, pn, corr);
+      wg::wait<0>();               // P_{j-1} V_{j-1} too
+      wg::fence_regs(acc);
+      wg::mbar_arrive(&v_empty[(jt0 + j - 1) % S]);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = mm::quad_max(mx[i]);
-      // a row with no visible key yet keeps its sums at 0
-      base[i] = mx[i] == ninf ? 0.f : mx[i];
-      corr[i] = mm::ex2(m[i] - base[i]);
-      m[i] = mx[i];
-      l[i] *= corr[i];
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = mm::ex2(s[n][e] - base[e >> 1]);
-        s[n][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int jd = 0; jd < ND; ++jd) {
-      acc[jd][0] *= corr[0];
-      acc[jd][1] *= corr[0];
-      acc[jd][2] *= corr[1];
-      acc[jd][3] *= corr[1];
-    }
+      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    };
 
-    // O += P V: P rounded to bf16 in registers is the A operand
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t pa[4], vf[D / 16][4];
-      mm::c_to_a(pa, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp)
-        mm::load_bt<D>(vf[dp], vs, kc * 16, dp * 16);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        mm::mma_bf16(acc[2 * dp], pa, vf[dp][0], vf[dp][1]);
-        mm::mma_bf16(acc[2 * dp + 1], pa, vf[dp][2], vf[dp][3]);
-      }
+    wg::mbar_wait(q_full, n & 1);
+    // named barrier 1 + w: warpgroup w may issue its S product; warpgroup
+    // 0 goes first. (Past q_full: warpgroup 0 has ended the last item.)
+    if (w == 1) wg::bar_arrive(1, 256);
+    {  // tile 0: S in this warpgroup's turn, then its softmax
+      float sc[BK / 2], corr[2];
+      wg::bar_sync(1 + w, 256);
+      issue_s(jt0, sc);
+      wg::bar_arrive(2 - w, 256);
+      wg::wait<0>();
+      wg::fence_regs(sc);
+      wg::mbar_arrive(&k_empty[jt0 % S]);
+      softmax(0, sc, pa0, corr);
     }
-  }
+    for (int j = 1; j < nk; j += 2) {
+      step(j, pa0, pa1);
+      if (j + 1 < nk) step(j + 1, pa1, pa0);
+    }
+    if ((nk - 1) & 1)
+      issue_pv(jt0 + nk - 1, pa1);
+    else
+      issue_pv(jt0 + nk - 1, pa0);
+    wg::wait<0>();
+    wg::fence_regs(acc);
+    wg::mbar_arrive(&v_empty[(jt0 + nk - 1) % S]);
+    // the other warpgroup's arrival after its last S product; then Q is
+    // free for the next item's load, which overlaps this epilogue
+    if (w == 0) wg::bar_sync(1, 256);
+    wg::mbar_arrive(q_empty);
+    jt0 += nk;
 
-  float inv[2];
+    float inv[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] = mm::quad_sum(l[i]);
-    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
-  }
-  // the warp's rows of sq were read only by this warp, into qf
-  mm::store_rows<D>(acc, inv[0], inv[1], sq + warp * 16 * P,
-                    o + ((long long)b * Tq * H + h) * D, (long long)H * D,
-                    wrow, Tq);
-  if (t == 0) {
+    for (int r = 0; r < 2; ++r) {
+      l[r] = mm::quad_sum(l[r]);
+      inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    }
+    const int b = bh / H;
+    const int h = bh % H;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = row0 + 8 * i;
-      if (row < Tq)
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= Tq) continue;
+      __nv_bfloat16* orow = o + (((long long)b * Tq + row) * H + h) * d;
+#pragma unroll
+      for (int n8 = 0; n8 < D / 8; ++n8) {
+        if (8 * n8 < d)
+          *reinterpret_cast<uint32_t*>(orow + 8 * n8 + 2 * t) =
+              mm::pack_bf16(acc[4 * n8 + 2 * r] * inv[r],
+                            acc[4 * n8 + 2 * r + 1] * inv[r]);
+      }
+      if (t == 0)
         lse[(long long)bh * Tq + row] =
-            m[i] * mm::kLn2 + logf(l[i] > 0.f ? l[i] : 1.f);
+            m[r] * scale + logf(l[r] > 0.f ? l[r] : 1.f);
     }
   }
 }
 
-template <int D, int BK>
-int launch_mma(const void* q, const void* k, const void* v, void* o,
-               void* lse, int B, int H, int Tq, int Tk, const long long* qs,
-               const long long* ks, const long long* vs, int causal,
-               float scale, cudaStream_t stream) {
-  namespace mm = zoo::mma;
-  constexpr int smem =
-      (mm::kRows + 2 * mm::kStages * BK) * mm::Tile<D>::kPitch * 2;
+template <int NB, int BK>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int B, int H, int Tq,
+                           int Tk, int d, int causal, float scale) {
+  namespace wg = zoo::wg;
+  using L = WgLayout<NB, BK>;
+  constexpr int S = kWgStages;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t q_full, q_empty, k_full[S], v_full[S], k_empty[S],
+      v_empty[S];
+  // the swizzle atoms need 1024-byte alignment
+  unsigned char* base = smem + ((1024 - (wg::smem_u32(smem) & 1023)) & 1023);
+  unsigned char* sq = base;              // NB boxes x 128 rows x 128 B
+  unsigned char* sk = sq + L::kQ;        // S stages x NB boxes x BK x 128 B
+  unsigned char* sv = sk + S * L::kKV;   // the same for V
+  const int nqt = (Tq + kWgBlockRows - 1) / kWgBlockRows;
+  const WgItems work{(int)blockIdx.x, (int)gridDim.x, nqt * B * H, B * H,
+                     nqt};
+
+  if (threadIdx.x == 0) {
+    wg::mbar_init(&q_full, 1);
+    wg::mbar_init(&q_empty, 256);
+    for (int s = 0; s < S; ++s) {
+      wg::mbar_init(&k_full[s], 1);
+      wg::mbar_init(&v_full[s], 1);
+      wg::mbar_init(&k_empty[s], 256);
+      wg::mbar_init(&v_empty[s], 256);
+    }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // the producer warpgroup: one thread loads
+    wg::set_max_regs_dec<24>();
+    if (threadIdx.x == 256) {
+      int jt = 0;  // K/V tiles loaded, over the items
+      for (int n = 0; work.item(n) < work.items; ++n) {
+        const int item = work.item(n);
+        const int bh = work.bh(item);
+        const int b = bh / H;
+        const int h = bh % H;
+        const int q0 = work.q0(item);
+        // causal: keys past the item's last query row are in every row's
+        // future
+        const int kend = causal ? min(Tk, q0 + kWgBlockRows) : Tk;
+        const int nk = (kend + BK - 1) / BK;
+        if (n > 0) wg::mbar_wait(&q_empty, (n - 1) & 1);
+        wg::mbar_expect_tx(&q_full, L::kQ);
+        for (int nb = 0; nb < NB; ++nb)
+          wg::tma_load_4d(sq + nb * kWgBlockRows * 128, &tq, &q_full,
+                          nb * kBox, h, q0, b);
+        for (int j = 0; j < nk; ++j, ++jt) {
+          const int s = jt % S;
+          if (jt >= S) wg::mbar_wait(&k_empty[s], (jt / S - 1) & 1);
+          wg::mbar_expect_tx(&k_full[s], L::kKV);
+          for (int nb = 0; nb < NB; ++nb)
+            wg::tma_load_4d(sk + s * L::kKV + nb * BK * 128, &tk,
+                            &k_full[s], nb * kBox, h, j * BK, b);
+          if (jt >= S) wg::mbar_wait(&v_empty[s], (jt / S - 1) & 1);
+          wg::mbar_expect_tx(&v_full[s], L::kKV);
+          for (int nb = 0; nb < NB; ++nb)
+            wg::tma_load_4d(sv + s * L::kKV + nb * BK * 128, &tv,
+                            &v_full[s], nb * kBox, h, j * BK, b);
+        }
+      }
+    }
+  } else {
+    consume<NB, BK>(sq, sk, sv, &q_full, &q_empty, k_full, v_full,
+                       k_empty, v_empty, work, o, lse, H, Tq, Tk, d, causal,
+                       scale);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's
+// cudaGetDriverEntryPoint (no link to libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The 4-D map (d, H, T, B) of a bf16 operand with element strides (sb, st,
+// sh) and a contiguous head dim, read in boxes of 64 columns x `rows`
+// positions of one head and batch, 128-byte swizzled; coordinates past
+// the tensor read as zeros. The stride of a dim of size 1 is never used:
+// it is replaced by one TMA accepts (a multiple of 16 bytes).
+bool encode_operand(CUtensorMap* map, const void* ptr, int B, int H, int T,
+                    int d, long long sb, long long st, long long sh,
+                    int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)T,
+                        (cuuint64_t)B};
+  long long el[3] = {sh, st, sb};
+  cuuint64_t strides[3];
+  long long span = (long long)d * 2;  // bytes the dims below reach
+  for (int i = 0; i < 3; ++i) {
+    long long s = el[i] * 2;
+    if (dims[i + 1] == 1) s = (span + 15) / 16 * 16;
+    strides[i] = (cuuint64_t)s;
+    span = s * (long long)dims[i + 1];
+  }
+  cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)rows, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a tensor map that cuTensorMapEncodeTiled refused (or could not be found)
+constexpr int kErrTensorMap = 10000;
+
+template <int NB, int BK>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int B, int H, int Tq, int Tk, int d,
+                 const long long* qs, const long long* ks,
+                 const long long* vs, int causal, float scale,
+                 cudaStream_t stream) {
+  constexpr int smem = WgLayout<NB, BK>::kSmem + 1024;
+  CUtensorMap tq, tk, tv;
+  if (!encode_operand(&tq, q, B, H, Tq, d, qs[0], qs[1], qs[2],
+                      kWgBlockRows) ||
+      !encode_operand(&tk, k, B, H, Tk, d, ks[0], ks[1], ks[2], BK) ||
+      !encode_operand(&tv, v, B, H, Tk, d, vs[0], vs[1], vs[2], BK))
+    return kErrTensorMap;
   static std::atomic<uint64_t> granted{0};
-  const cudaError_t err =
-      mm::grant_smem(flash_fwd_mma_kernel<D, BK>, smem, granted);
+  const cudaError_t err = zoo::mma::grant_smem(
+      flash_fwd_wgmma_kernel<NB, BK>, smem, granted);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Tq + mm::kRows - 1) / mm::kRows, B * H);
-  flash_fwd_mma_kernel<D, BK><<<grid, mm::kThreads, smem, stream>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v),
-          static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, Tq,
-          Tk, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-          causal, scale);
+  // persistent: one block an SM (its registers fill the SM), each taking
+  // its share of the items
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const long long items =
+      (long long)B * H * ((Tq + kWgBlockRows - 1) / kWgBlockRows);
+  if (items > (1ll << 30)) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(items < sms ? items : sms);
+  flash_fwd_wgmma_kernel<NB, BK><<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      B, H, Tq, Tk, d, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-void launch(const void* q, const void* k, const void* v, void* o, void* lse,
-            int B, int H, int Tq, int Tk, const long long* qs,
-            const long long* ks, const long long* vs, int causal, float scale,
-            cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int H, int Tq, int Tk, int d, const long long* qs,
+           const long long* ks, const long long* vs, int causal, float scale,
+           cudaStream_t stream) {
   dim3 grid((Tq + kBQ - 1) / kBQ, B * H);
   flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), H, Tq, Tk, qs[0], qs[1], qs[2], ks[0], ks[1],
-      ks[2], vs[0], vs[1], vs[2], causal, scale);
+      static_cast<float*>(lse), H, Tq, Tk, d, qs[0], qs[1], qs[2], ks[0],
+      ks[1], ks[2], vs[0], vs[1], vs[2], causal, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Strides are in elements: (batch, position, head) for q, k and v; the head
 // dim is contiguous. o is a contiguous (B, Tq, H, D) tensor and lse a
-// contiguous (B, H, Tq) f32 tensor. bf16 rows must start 16-byte aligned
-// (the wrapper checks: cp.async moves 16-byte chunks). Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// dtype/head-dim it does not take).
+// contiguous (B, H, Tq) f32 tensor. D is a multiple of 8 from 8 to 256;
+// f32 runs on the smallest compile-time tile of 32, 64, 128 or 256 columns
+// that holds it, bf16 on 64, 128 or 256. bf16 q, k and v must start
+// 16-byte aligned with strides of multiples of 8 elements (the wrapper
+// checks: TMA's tensor maps take no other). Returns cudaGetLastError()
+// after the launch, cudaErrorInvalidValue for a dtype/head dim it does not
+// take, or kErrTensorMap when a tensor map cannot be encoded.
 extern "C" int zoo_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int dtype, int B, int H,
                              int Tq, int Tk, int D, long long qsb,
@@ -390,19 +639,18 @@ extern "C" int zoo_flash_fwd(const void* q, const void* k, const void* v,
   const long long kss[3] = {ksb, kst, ksh};
   const long long vss[3] = {vsb, vst, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Tq < 1 || Tk < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == zoo::kBF16) {
-    if (D == 64)
-      return launch_mma<64, 64>(q, k, v, o, lse, B, H, Tq, Tk, qs, kss, vss, causal, scale, st);
-    if (D == 128)
-      return launch_mma<128, 32>(q, k, v, o, lse, B, H, Tq, Tk, qs, kss, vss, causal, scale, st);
+  if (Tq < 1 || Tk < 1 || B < 1 || H < 1 || D < 8 || D > 256 || D % 8)
     return (int)cudaErrorInvalidValue;
-  }
-  if (dtype == zoo::kF32 && D == 64)
-    launch<64>(q, k, v, o, lse, B, H, Tq, Tk, qs, kss, vss, causal, scale, st);
-  else if (dtype == zoo::kF32 && D == 128)
-    launch<128>(q, k, v, o, lse, B, H, Tq, Tk, qs, kss, vss, causal, scale, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+#define ZOO_FWD(F, ...) F<__VA_ARGS__>(q, k, v, o, lse, B, H, Tq, Tk, D, qs, kss, vss, causal, scale, st)
+  if (dtype == zoo::kBF16)
+    return D <= 64    ? ZOO_FWD(launch_wgmma, 1, 128)
+           : D <= 128 ? ZOO_FWD(launch_wgmma, 2, 128)
+                      : ZOO_FWD(launch_wgmma, 4, 32);
+  if (dtype == zoo::kF32)
+    return D <= 32    ? ZOO_FWD(launch, 32)
+           : D <= 64  ? ZOO_FWD(launch, 64)
+           : D <= 128 ? ZOO_FWD(launch, 128)
+                      : ZOO_FWD(launch, 256);
+#undef ZOO_FWD
+  return (int)cudaErrorInvalidValue;
 }

@@ -6,9 +6,14 @@ ported yet."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 NEG_INF = -1e30
+
+#: the largest head dim the attention kernels (K1-K4) take on the card
+MAX_HEAD_DIM = 256
 
 #: Shortest query length at which ``attn_strategy="auto"`` takes the flash
 #: kernel on CUDA. The JAX rule's TPU threshold (2048) does not carry over;
@@ -35,6 +40,26 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def kernel_envelope(d: int, q_len: int = 1,
+                    dtype: torch.dtype = torch.bfloat16) -> Optional[str]:
+    """What the card's attention kernels (flash K1, K3, K4 and paged K2)
+    take: ``None`` when they take head dim ``d`` at ``q_len`` query rows in
+    ``dtype``, else why not. They take every head dim that is a multiple
+    of 8 from 8 to ``MAX_HEAD_DIM`` (on compile-time column tiles, the
+    columns past d zero), any q_len from 1, and float32 or bfloat16.
+    Other head dims are an open fault against the JAX kernels, which
+    take any (ROADMAP Queue 3)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return f"dtype {dtype} is not float32/bfloat16"
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        return (f"head dim {d} is not a multiple of 8 from 8 to "
+                f"{MAX_HEAD_DIM}: the attention kernels do not take it on "
+                f"the card yet (ROADMAP Queue 3)")
+    if q_len < 1:
+        return f"q_len {q_len} is not positive"
+    return None
+
+
 def prefer_flash_single_device(t: int, device: torch.device) -> bool:
     """The "auto" dispatch rule: flash from a length threshold up, on CUDA
     only (plain attention on the CPU). Query length 1 — the decode step —
@@ -44,5 +69,5 @@ def prefer_flash_single_device(t: int, device: torch.device) -> bool:
     return torch.device(device).type == "cuda" and t >= FLASH_MIN_T_CUDA
 
 
-__all__ = ["FLASH_MIN_T_CUDA", "NEG_INF", "full_attention",
-           "prefer_flash_single_device"]
+__all__ = ["FLASH_MIN_T_CUDA", "MAX_HEAD_DIM", "NEG_INF", "full_attention",
+           "kernel_envelope", "prefer_flash_single_device"]

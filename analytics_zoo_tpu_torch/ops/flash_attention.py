@@ -19,14 +19,19 @@ Function keeps its own saved tensors, a block checkpointed around it (the
 ``remat="flash"`` mode of ``TransformerLM``) never re-runs K1 in backward —
 what ``FLASH_REMAT_POLICY`` guarantees in JAX.
 
-bf16 runs on tensor-core kernels (``mma.sync`` on bf16 tiles that
-``cp.async`` stages in shared memory; K1, K3 and K4), f32 on FMA kernels.
+bf16 runs on the tensor cores: K1 on ``wgmma`` fed by TMA (persistent
+blocks, a producer warpgroup and two consumer warpgroups), K3 and K4 on
+``mma.sync`` over bf16 tiles that ``cp.async`` stages in shared memory;
+f32 runs on FMA kernels. Every head dim that is a multiple of 8 from 8 to
+256 runs on the card (``attention.kernel_envelope``), on the smallest
+compile-time tile that holds it, the columns past it zero.
 
 Layout (B, T, H, D) as everywhere in the package. The wrapper takes any
 strides with a contiguous head dim, so q/k/v sliced out of the fused QKV
 projection go in without a copy. A bf16 operand must also start on a
 16-byte boundary with (batch, position, head) strides that are multiples
-of 8 elements: ``cp.async`` moves 16-byte chunks.
+of 8 elements: ``cp.async`` moves 16-byte chunks, and TMA's tensor maps
+take no other.
 """
 
 from __future__ import annotations
@@ -38,10 +43,9 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .attention import NEG_INF
+from .attention import NEG_INF, kernel_envelope
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
 _SIG = {"zoo_flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
         + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_float,
                                      ctypes.c_void_p]}
@@ -96,11 +100,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"flash_attention: k/v shape {tuple(k.shape)}/"
                          f"{tuple(v.shape)} does not match q {tuple(q.shape)}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not supported "
-                         f"(kernel takes {_HEAD_DIMS})")
     if q.shape[1] < 1 or k.shape[1] < 1:
         raise ValueError("flash_attention: empty sequence")
+    why = kernel_envelope(d, q.shape[1], q.dtype)
+    if why:
+        raise ValueError(f"flash_attention: {why}")
 
 
 def _check_aligned(what: str, **tensors: torch.Tensor) -> None:

@@ -11,19 +11,21 @@ Semantics match ``decode_attention_multi``: ``lengths[b]`` counts valid
 positions INCLUDING the q_len new tokens, and query ``i`` attends to
 positions ``<= lengths[b] - q_len + i``. Positions past the length are never
 read, and a row with no valid position (an inactive slot, length 0) is 0.
-q_len may be 1 (decode) up to 16 (speculative verify, prefill chunks).
+q_len is 1 at decode and any positive count for the speculative verify
+and prefill chunks (48, 64, 128 in the JAX package's benchmarks); the
+head dim is any multiple of 8 from 8 to 256 (``attention.kernel_envelope``).
 
 bf16 runs split across the context on the tensor cores: one block per
 (head, slot, span of ``SPLIT_POSITIONS`` positions rounded up to whole
-pages) writes an f32 partial (m, l, acc), and the last split of a (head,
-slot) to finish, counted by an atomic counter, folds the slot's partials
-into the output. The partials and the counters (which every launch
-leaves at 0) are made once per (device, stream) and reused: the wrapper
-runs once per layer and decode step in a host-bound loop, so it
-allocates nothing but the output and adds no launch, sync or pass over
-the data. f32 runs one FMA block per (head, slot). A bf16 pool must
-start 16-byte aligned with (page, position, head) strides that are
-multiples of 8 elements: ``cp.async`` moves 16-byte chunks.
+pages, 16-row q tile) writes an f32 partial (m, l, acc), and the last
+split of a (head, slot, q tile) to finish, counted by an atomic counter,
+folds the partials into the output. The partials and the counters (which
+every launch leaves at 0) are made once per (device, stream) and reused:
+the wrapper runs once per layer and decode step in a host-bound loop, so
+it allocates nothing but the output and adds no launch, sync or pass
+over the data. f32 runs one FMA block per (head, slot, q tile). A bf16
+pool must start 16-byte aligned with (page, position, head) strides that
+are multiples of 8 elements: ``cp.async`` moves 16-byte chunks.
 
 There is no routing switch: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise.
@@ -37,19 +39,20 @@ import math
 import torch
 
 from . import _build
+from .attention import kernel_envelope
 from .flash_attention import _check_aligned
 from .kv_cache import decode_attention_multi, paged_read
 
-MAX_Q_LEN = 16
 #: positions one split of the bf16 kernel covers, rounded up to whole pages
 SPLIT_POSITIONS = 128
+#: query rows a block of either kernel owns
+_Q_TILE = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
 _SIG = {"zoo_paged_attention": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
         + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p]}
 #: the bf16 kernel's scratch by (device, stream), made once and grown as
-#: calls need: (B*H split counters, zero when made and left at zero by
-#: every launch; the splits' f32 partials). Launches in one stream's
+#: calls need: (B*H*q-tile split counters, zero when made and left at zero
+#: by every launch; the splits' f32 partials). Launches in one stream's
 #: order share it.
 _SCRATCH = {}
 
@@ -112,12 +115,9 @@ def _check(q, k_pages, v_pages, table, lengths, page_size):
         raise ValueError(f"paged_attention: q and the pool must share one "
                          f"dtype of float32/bfloat16, got {q.dtype}, "
                          f"{k_pages.dtype}, {v_pages.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"paged_attention: head dim {d} not supported "
-                         f"(kernel takes {_HEAD_DIMS})")
-    if not 1 <= q_len <= MAX_Q_LEN:
-        raise ValueError(f"paged_attention: q_len {q_len} outside "
-                         f"1..{MAX_Q_LEN}")
+    why = kernel_envelope(d, q_len, q.dtype)
+    if why:
+        raise ValueError(f"paged_attention: {why}")
     if table.dtype != torch.int32 or lengths.dtype != torch.int32 \
             or table.dim() != 2 or table.shape[0] != b \
             or tuple(lengths.shape) != (b,) or not table.is_contiguous() \
@@ -153,7 +153,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         # (m, l, acc) in f32 for each (slot, head, split, row)
         span = page_size * -(-SPLIT_POSITIONS // page_size)
         n_split = -(-(pps * page_size) // span)
-        done, work = _scratch(q.device, stream, b * h,
+        done, work = _scratch(q.device, stream, b * h * -(-q_len // _Q_TILE),
                               b * h * n_split * q_len * (d + 2))
     err = lib.zoo_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -199,5 +199,5 @@ def synthetic_paged_case(n_slots: int, pages_per_slot: int, page_size: int,
     return tuple(t.to(device) for t in (q, k_pages, v_pages, table, lengths))
 
 
-__all__ = ["MAX_Q_LEN", "SPLIT_POSITIONS", "paged_attention",
+__all__ = ["SPLIT_POSITIONS", "paged_attention",
            "paged_attention_plain", "synthetic_paged_case"]

@@ -6,35 +6,46 @@ paths on one NVIDIA card.
     python3 chip_smoke.py --quick    # device, build and kernel checks only
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns
     python3 chip_smoke.py --parent _archive/parent   # plus the parent's
-                                     # K2 and K4, timed beside this tree's
+                                     # K1, K2 and K4, timed beside this
+                                     # tree's
 
 Phases, each fatal on failure (no result line is printed then):
 
 1. device: the card's name and power limit, torch/CUDA versions; TF32 off
    for matmuls and cuDNN so the f32 checks compare f32 arithmetic.
 2. build: compile every kernel in ``analytics_zoo_tpu_torch/csrc`` with
-   nvcc (one process per source, all at once), timed.
+   nvcc (one process per source, all at once), timed; print ptxas'
+   registers and spills per kernel, and check from ``cuobjdump -sass``
+   that K1's bf16 kernel runs on wgmma (HGMMA) fed by TMA (UTMALDG).
 3. kernels: K1 (flash forward, out + LSE), K2 (paged attention, q_len 1,
-   4 and 16, with a zero-length slot; bf16 also at pages of 8 and 32), K3
+   4 and 16, with a zero-length slot; bf16 also at pages of 8 and 32; then
+   q_len 1, 16, 17, 48, 64 and 128, and head dims 16, 32 and 96), K3
    (flash backward dQ) and K4 (flash backward dK/dV; D in {64, 128}, T in
    {16, 100, 1024} and at the 64-row tile edges {1, 63, 64, 65, 127, 129},
-   causal and not) against their plain PyTorch versions on the card, f32
+   causal and not; then the head dims 8, 16, 32, 96, 160 and 256 at the
+   tile edges) against their plain PyTorch versions on the card, f32
    within 1e-4 and bf16 within 2e-2 (K3/K4 at B 1 and 2, and K1, K3 and K4
    again at the training shapes B=2 and B=4, T=2048, H=16, D=64, and at
-   B=2 with D=128, causal, bf16); bf16 K1-K4 run on the tensor-core
-   kernels (K2 split across the context), f32 on the FMA ones. Timed with CUDA
+   B=2 with D=128, causal, bf16); bf16 K1 runs on wgmma fed by TMA, bf16
+   K2-K4 on mma.sync (K2 split across the context), f32 on FMA kernels.
+   Timed with CUDA
    events (median of 30 launches, 20 for K3/K4, after warm-up, L2 flushed
    before each): the kernel, its plain version, one library call
    computing the same function (a yardstick the port never calls; for
    K3/K4 SDPA's backward, which computes dQ, dK and dV in one call), and
    the bound — the larger of bytes over 3.35 TB/s and operations over the
    peak rate of the inputs' type. K1/K2 are timed at the serving shapes
-   (K2 also at q_len 16 and on 8 full-length slots, with the wrapper's
-   host microseconds a call), K1 also at the training micro-batch (under
-   ``training_shape``), K3/K4 at the training micro-batch (B=2, the shape
-   the main path launches them at; the kernels line), the whole batch
-   (B=4, under ``whole_batch``) and D=128 (``head_dim_128``); with
-   ``--parent`` the parent's K2 and K4 beside them (``parent_ms``). The
+   (K2 also at q_len 16 and 64 and on 8 full-length slots, with the
+   wrapper's host microseconds a call), K1 also at the training
+   micro-batch (under ``training_shape``), K3/K4 at the training
+   micro-batch (B=2, the shape the main path launches them at; the
+   kernels line), the whole batch (B=4, under ``whole_batch``) and D=128
+   (``head_dim_128``); with ``--parent`` the parent's K1, K2 and K4 beside
+   them (``parent_ms``, and the parent's wrapper host microseconds for K1
+   and K2). Device-only times (``device_ms``: torch.profiler's device time
+   of the kernels a call launches, the L2 flush's own kernel left out, over
+   20 calls) for K1 and SDPA's forward at the training micro-batch, SDPA's
+   backward, and K2 at decode, q_len 16 and 64 and full context. The
    sampling kernel (threefry bits,
    Gumbel transform and row argmax fused) must draw its plain version's
    tokens exactly, at the decode step's (8, 32000) logits.
@@ -80,6 +91,12 @@ Phases, each fatal on failure (no result line is printed then):
 10. int8 parity: that ResNet-50, quantized, on the card (K5, K6) against
    the same model on the CPU (plain versions) at batch 2: max |d prob| <=
    1e-3 and the same top-1 wherever the CPU's top-2 margin is above 1e-3.
+11. example: examples/transformer_lm.py's model (vocab 256, hidden 64, 2
+   blocks, 4 heads, so head dim 16; seed 0) on the card against the same
+   seeded model on the CPU: 4 greedy requests through ContinuousBatcher
+   (K1 prefill, K2 decode, counted) give the CPU's token streams, and one
+   Estimator Adam step (K1, K3, K4) gives the CPU's loss within 1e-4 and
+   its next loss within 1e-3.
 
 Phase 3 also holds K5 (the MLP's shapes with block_k 512 in f32 and bf16,
 a ragged M = 1000, the ResNet head on the lax route) and K6 (ResNet-50's
@@ -126,6 +143,12 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # sequence lengths at and around the flash kernels' 64-row tiles
 EDGE_T = (1, 63, 64, 65, 127, 129)
+# head dims besides 64 and 128 (examples/transformer_lm.py has 16, bench.py's
+# small LMs 32), and K2's q_len and head-dim grids (the JAX package chunks
+# prefill at 48, 64 and 128)
+MORE_D = (8, 16, 32, 96, 160, 256)
+K2_QLEN = (1, 16, 17, 48, 64, 128)
+K2_D = (16, 32, 96)
 # the int8 slice: ResNet-50 (ImageClassifier's default backbone) served by
 # InferenceModel, and the int8 MLP of serving_bench.py (Dense 4096 relu,
 # Dense 4096 relu, Dense 128 softmax at batch 2048)
@@ -179,6 +202,42 @@ class Timer:
         return statistics.median(times)
 
 
+class DeviceTimer:
+    """Device-only ms per call of ``fn``: torch.profiler's device time of
+    the kernels ``n`` calls launch, after warm-up, with the L2 cache
+    flushed before each call (the flush's own kernel left out), over
+    ``n``. Unlike the Timer, no host work of the wrapper is in it."""
+
+    def __init__(self, torch, flush):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.torch, self.flush = torch, flush
+        self.profile = lambda: profile(activities=[ProfilerActivity.CUDA])
+        with self.profile() as prof:
+            flush.zero_()
+            torch.cuda.synchronize()
+        self.skip = {key for key, _, _ in _device_rows(prof)[0]}
+
+    def __call__(self, fn, n: int = 20) -> float:
+        for _ in range(3):
+            fn()
+        # a trace now and then comes back without some of its device
+        # events: each call launches the same kernels, so a whole trace
+        # holds a multiple of n of them; try again until one does
+        for _ in range(3):
+            self.torch.cuda.synchronize()
+            with self.profile() as prof:
+                for _ in range(n):
+                    self.flush.zero_()
+                    fn()
+                self.torch.cuda.synchronize()
+            rows = [r for r in _device_rows(prof)[0] if r[0] not in self.skip]
+            calls = sum(c for _, c, _ in rows)
+            if calls and calls % n == 0:
+                return sum(ms for _, _, ms in rows) / n
+        raise AssertionError("the profiler saw no whole trace of the calls")
+
+
 def maxerr(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -227,10 +286,11 @@ def phase_build(parent=None):
     t0 = time.perf_counter()
     errors = []
     if parent is not None:
-        # the parent's K2 and K4 sources build beside this checkout's
+        # the parent's K1, K2 and K4 sources build beside this checkout's
         def build_parent():
             try:
-                parent.build.build(["flash_bwd", "paged_attention"])
+                parent.build.build(["flash_fwd", "flash_bwd",
+                                    "paged_attention"])
             except Exception as e:            # raised below
                 errors.append(e)
 
@@ -241,7 +301,8 @@ def phase_build(parent=None):
         side.join()
         if errors:
             raise errors[0]
-        log(f"[build] parent {parent.root}: flash_bwd, paged_attention")
+        log(f"[build] parent {parent.root}: flash_fwd, flash_bwd, "
+            f"paged_attention")
     log(f"[build] {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f}s into {_build.BUILD_DIR}")
     for name, text in _build.BUILD_LOG.items():
@@ -252,6 +313,27 @@ def phase_build(parent=None):
                 entry = _kernel_label(m.group(1))
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name} {entry}: {line.strip()}")
+    check_k1_sass(_build)
+
+
+def check_k1_sass(_build):
+    """K1's bf16 kernel must run on wgmma (HGMMA) fed by TMA (UTMALDG):
+    read from ``cuobjdump -sass`` of the built library."""
+    cuobjdump = str(Path(_build.nvcc_path()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path("flash_fwd"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if "flash_fwd_wgmma_kernel" in name:
+            found[_kernel_label(name)] = (part.count("HGMMA"),
+                                          part.count("UTMALDG"))
+    log(f"[build] flash_fwd SASS (HGMMA, UTMALDG) per wgmma kernel: {found}")
+    if not found or not all(a and b for a, b in found.values()):
+        raise AssertionError("K1's bf16 kernel does not run on HGMMA fed by "
+                             "UTMALDG")
 
 
 def _kernel_label(mangled: str) -> str:
@@ -266,7 +348,7 @@ def _kernel_label(mangled: str) -> str:
             else mangled[:40])
 
 
-def check_k1(torch, timer):
+def check_k1(torch, timer, dtimer, parent=None):
     import torch.nn.functional as F
     from analytics_zoo_tpu_torch.ops.flash_attention import (
         flash_attention_fwd, flash_attention_plain)
@@ -276,7 +358,7 @@ def check_k1(torch, timer):
     dts = ("float32", "bfloat16")
     cases = [(t, 64, dt, True) for t in (16, 100, 1024) for dt in dts]
     cases += [(100, 128, dt, True) for dt in dts]
-    cases += [(t, d, dt, causal) for t in EDGE_T for d in (64, 128)
+    cases += [(t, d, dt, causal) for t in EDGE_T for d in (64, 128) + MORE_D
               for dt in dts for causal in (False, True)]
     for t, d, dt, causal in cases:
         dtype = getattr(torch, dt)
@@ -306,10 +388,26 @@ def check_k1(torch, timer):
     plain = timer(lambda: flash_attention_plain(q, k, v, True))
     lib = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=True))
+    fns = [lambda: flash_attention_fwd(q, k, v, True)]
+    parent_ms = parent_hus = None
+    if parent is not None:
+        pk = parent.flash.flash_attention_fwd
+        parent_ms = timer(lambda: pk(q, k, v, True))
+        fns.append(lambda: pk(q, k, v, True))
+    hus, *rest = host_us(fns)
+    dev_s = dtimer(fns[0])
+    parent_dev_s = None
+    if rest:
+        parent_hus = rest[0]
+        parent_dev_s = dtimer(fns[1])
     elt = 2
     nbytes = 4 * t * N_HEAD * d * elt + N_HEAD * t * 4
     flops = 4 * N_HEAD * d * (t * (t + 1) // 2)
     bms, by = bound_ms(nbytes, flops, dt)
+    log(f"[K1] B=1 T={t} H={N_HEAD} D={d} causal {dt} (serving): {ms:.4f} "
+        f"ms, device {dev_s:.4f} (parent {parent_ms}, device {parent_dev_s};"
+        f" plain {plain:.4f}, bound {bms:.5f} by {by}), SDPA {lib:.4f} ms; "
+        f"wrapper host {hus:.1f} us (parent {parent_hus})")
     # and at the training micro-batch, q/k/v strided out of one fused QKV
     # tensor as the model hands them over
     b, t = TRAIN_BATCH // GRAD_ACCUM, SEQ_LEN
@@ -323,38 +421,65 @@ def check_k1(torch, timer):
     if e_train > TOL[dt]:
         raise AssertionError(f"K1 disagrees with its plain version at the "
                              f"training shape: {e_train:.3g}")
-    ms_t = timer(lambda: flash_attention_fwd(q, k, v, True))
-    plain_t = timer(lambda: flash_attention_plain(q, k, v, True), n=5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    # parent, change, change, parent, each device-only and in the Timer
+    turns = [("change", lambda: flash_attention_fwd(q, k, v, True))]
+    if parent is not None:
+        pk = parent.flash.flash_attention_fwd
+        turns = [("parent", lambda: pk(q, k, v, True))] + turns * 2 + [
+            ("parent", lambda: pk(q, k, v, True))]
+    dev = {"change": [], "parent": []}
+    tim = {"change": [], "parent": []}
+    for who, fn in turns:
+        dev[who].append(dtimer(fn))
+        tim[who].append(timer(fn))
+    dev_t = statistics.median(dev["change"])
+    ms_t = statistics.median(tim["change"])
+    parent_t = statistics.median(tim["parent"]) if parent else None
+    parent_dev_t = statistics.median(dev["parent"]) if parent else None
+    plain_t = timer(lambda: flash_attention_plain(q, k, v, True), n=5)
     lib_t = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                          is_causal=True))
+    lib_dev_t = dtimer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
     b_t, by_t = bound_ms(4 * b * t * N_HEAD * d * elt + b * N_HEAD * t * 4,
                          4 * b * N_HEAD * d * (t * (t + 1) // 2), dt)
     label = f"B={b} T={t} H={N_HEAD} D={d}"
-    log(f"[K1] {label} causal {dt} (training shape): {ms_t:.4f} ms "
-        f"(plain {plain_t:.4f}, bound {b_t:.5f} by {by_t}), SDPA forward "
-        f"{lib_t:.4f} ms, max err {e_train:.3g}")
+    log(f"[K1] {label} causal {dt} (training shape): {ms_t:.4f} ms, device "
+        f"{dev_t:.4f} ms (turns {dev['change']}; parent {parent_t}, device "
+        f"{parent_dev_t} (turns {dev['parent']}); plain {plain_t:.4f}, "
+        f"bound {b_t:.5f} by {by_t}), SDPA forward {lib_t:.4f} ms, device "
+        f"{lib_dev_t:.4f} ms; max err {e_train:.3g}")
     return {"name": "flash_fwd", "route": "cuda",
             "source": "analytics_zoo_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "analytics_zoo_tpu/ops/flash_attention.py:46",
+            "cuda_kernels": ("bf16: flash_fwd_wgmma_kernel (wgmma, TMA); "
+                             "f32: flash_fwd_kernel"),
             "launches": None, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib,
+            "library_ms": lib, "device_ms": dev_s, "parent_ms": parent_ms,
+            "parent_device_ms": parent_dev_s, "host_us": hus,
+            "parent_host_us": parent_hus,
             "shape": f"B=1 T=1024 H={N_HEAD} D={d} causal", "dtype": dt,
             "training_shape": {
-                "max_abs_err": e_train, "ms": ms_t, "plain_ms": plain_t,
+                "max_abs_err": e_train, "ms": ms_t, "device_ms": dev_t,
+                "device_ms_turns": dev["change"], "plain_ms": plain_t,
                 "bound_ms": b_t, "bound_by": by_t, "library_ms": lib_t,
+                "library_device_ms": lib_dev_t, "parent_ms": parent_t,
+                "parent_device_ms": parent_dev_t,
+                "parent_device_ms_turns": dev["parent"],
                 "shape": f"{label} causal", "dtype": dt}}
 
 
-def _k2_case(torch, gen, lengths, q_len, page=PAGE, dtype="bfloat16"):
+def _k2_case(torch, gen, lengths, q_len, page=PAGE, dtype="bfloat16",
+             d=HIDDEN // N_HEAD):
     from analytics_zoo_tpu_torch.ops.paged_attention import \
         synthetic_paged_case
 
     return synthetic_paged_case(
-        N_SLOTS, MAX_SEQ // page, page, N_HEAD, HIDDEN // N_HEAD,
-        q_len=q_len, dtype=getattr(torch, dtype), lengths=lengths,
-        device="cuda", generator=gen)
+        N_SLOTS, MAX_SEQ // page, page, N_HEAD, d, q_len=q_len,
+        dtype=getattr(torch, dtype), lengths=lengths, device="cuda",
+        generator=gen)
 
 
 def host_us(fns, n: int = 200, rounds: int = 5):
@@ -379,14 +504,16 @@ def host_us(fns, n: int = 200, rounds: int = 5):
     return [statistics.median(t) for t in times]
 
 
-def check_k2(torch, timer, parent=None):
+def check_k2(torch, timer, dtimer, parent=None):
     """K2 against its plain version: f32 and bf16 at q_len 1, 4 and 16 on
-    a ladder with a zero-length slot, bf16 at pages of 8 and 32 too; then
-    timed in bf16 at the decode shape (q_len 1, a half-full ladder: the
-    kernels line), at q_len 16 on the same ladder, and on 8 full-length
+    a ladder with a zero-length slot, bf16 at pages of 8 and 32 too, then
+    at q_len 1, 16, 17, 48, 64 and 128 and at head dims 16, 32 and 96 (a
+    live slot at least q_len long, as every caller makes it); then timed
+    in bf16 at the decode shape (q_len 1, a half-full ladder: the kernels
+    line), at q_len 16 and 64 on the same ladder, and on 8 full-length
     (1024) slots, each beside its plain version, SDPA over the pre-gathered
-    K/V with a length mask, its bound and (``--parent``) the parent's
-    kernel."""
+    K/V with a length mask, its bound, its device-only time and
+    (``--parent``) the parent's kernel (which takes q_len up to 16)."""
     import torch.nn.functional as F
     from analytics_zoo_tpu_torch.ops.kv_cache import paged_read
     from analytics_zoo_tpu_torch.ops.paged_attention import (
@@ -399,8 +526,14 @@ def check_k2(torch, timer, parent=None):
               for q_len in (1, 4, 16)]
     checks += [("bfloat16", q_len, page) for page in (8, 32)
                for q_len in (1, 16)]
-    for dt, q_len, page in checks:
-        case = _k2_case(torch, gen, lengths, q_len, page, dt)
+    checks = [(dt, q_len, page, HIDDEN // N_HEAD)
+              for dt, q_len, page in checks]
+    checks += [(dt, q_len, PAGE, d) for dt in ("float32", "bfloat16")
+               for q_len, d in [(n, HIDDEN // N_HEAD) for n in K2_QLEN]
+               + [(n, d) for d in K2_D for n in (1, 17, 64)]]
+    for dt, q_len, page, d in checks:
+        lens = [max(n, q_len) if n else 0 for n in lengths]
+        case = _k2_case(torch, gen, lens, q_len, page, dt, d)
         out = paged_attention(*case, page_size=page)
         ref = paged_attention_plain(*case, page_size=page)
         torch.cuda.synchronize()
@@ -408,17 +541,18 @@ def check_k2(torch, timer, parent=None):
         zero = float(out[0].float().abs().max())
         ok = e <= TOL[dt] and zero == 0.0
         log(f"[K2] slots={N_SLOTS} pps={MAX_SEQ // page} page={page} "
-            f"q_len={q_len} {dt}: max|d| {e:.3g} (tol {TOL[dt]}), "
+            f"q_len={q_len} D={d} {dt}: max|d| {e:.3g} (tol {TOL[dt]}), "
             f"zero-length slot max|out| {zero} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K2 disagrees with its plain version "
-                                 f"at q_len={q_len} page={page} {dt}")
+                                 f"at q_len={q_len} page={page} D={d} {dt}")
     d = HIDDEN // N_HEAD
     timed = {}
     # the decode shape of the serving path (q_len 1, bf16) with a half-full
-    # ladder of lengths (the steady serving regime), then q_len 16 on the
-    # same ladder, then every slot at the full context
+    # ladder of lengths (the steady serving regime), then q_len 16 and 64
+    # on the same ladder, then every slot at the full context
     for label, q_len, lens_in in (("decode", 1, None), ("q_len16", 16, None),
+                                  ("q_len64", 64, None),
                                   ("full_context", 1, [MAX_SEQ] * N_SLOTS)):
         case = _k2_case(torch, gen, lens_in, q_len)
         q, kp, vp, table, lens = case
@@ -434,14 +568,16 @@ def check_k2(torch, timer, parent=None):
                 <= bound[:, :, None])[:, None]               # (B,1,q,T)
         qt, kt, vt = q.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
         ms = timer(lambda: paged_attention(*case, page_size=PAGE))
+        dev = dtimer(lambda: paged_attention(*case, page_size=PAGE))
         plain = timer(lambda: paged_attention_plain(*case, page_size=PAGE))
         lib = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                            attn_mask=mask))
         fns = [lambda: paged_attention(*case, page_size=PAGE)]
-        parent_ms = parent_hus = None
-        if parent is not None:
+        parent_ms = parent_hus = parent_dev = None
+        if parent is not None and q_len <= 16:
             pk = parent.paged.paged_attention
             parent_ms = timer(lambda: pk(*case, page_size=PAGE))
+            parent_dev = dtimer(lambda: pk(*case, page_size=PAGE))
             fns.append(lambda: pk(*case, page_size=PAGE))
         hus, *rest = host_us(fns)
         if rest:
@@ -455,15 +591,17 @@ def check_k2(torch, timer, parent=None):
         flops = 4 * N_HEAD * d * pairs
         bms, by = bound_ms(nbytes, flops, "bfloat16")
         timed[label] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib,
-            "parent_ms": parent_ms, "host_us": hus,
+            "max_abs_err": err, "ms": ms, "device_ms": dev,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib, "parent_ms": parent_ms,
+            "parent_device_ms": parent_dev, "host_us": hus,
             "parent_host_us": parent_hus,
             "shape": (f"slots={N_SLOTS} pps={MAX_SEQ // PAGE} page={PAGE} "
                       f"H={N_HEAD} D={d} q_len={q_len} "
                       f"lengths={lens.tolist()}"), "dtype": "bfloat16"}
-        log(f"[K2] {label} q_len={q_len} bf16: {ms:.4f} ms (parent "
-            f"{parent_ms}, plain {plain:.4f}, bound {bms:.5f} by {by}), "
+        log(f"[K2] {label} q_len={q_len} bf16: {ms:.4f} ms, device "
+            f"{dev:.4f} ms (parent {parent_ms}, device {parent_dev}; plain "
+            f"{plain:.4f}, bound {bms:.5f} by {by}), "
             f"SDPA {lib:.4f} ms; wrapper host {hus:.1f} us (parent "
             f"{parent_hus}); max err {err:.3g}")
     main = timed.pop("decode")
@@ -525,13 +663,14 @@ def _check_bwd_case(torch, case, causal, dt, label):
     return a3, a4
 
 
-def _train_shape_bwd(torch, timer, gen, b, d=HIDDEN // N_HEAD,
+def _train_shape_bwd(torch, timer, dtimer, gen, b, d=HIDDEN // N_HEAD,
                      parent=None):
     """K1, K3 and K4 at one training shape (B=b, T=2048, H=16, D=d,
     causal, bf16, q/k/v strided out of one fused QKV tensor): held to
     their plain versions with the grid's tolerances, then K3/K4 timed
     beside their plain versions, SDPA's backward, their bounds and
-    (``--parent``) the parent's K4."""
+    (``--parent``) the parent's K4; K3, K4 and SDPA's backward also
+    device-only."""
     import torch.nn.functional as F
 
     from analytics_zoo_tpu_torch.ops.flash_attention import (
@@ -571,46 +710,56 @@ def _train_shape_bwd(torch, timer, gen, b, d=HIDDEN // N_HEAD,
     go = g.transpose(1, 2)
     lib = timer(lambda: torch.autograd.grad(o, (qt, kt, vt), go,
                                             retain_graph=True), n=20)
+    lib_dev = dtimer(lambda: torch.autograd.grad(o, (qt, kt, vt), go,
+                                                 retain_graph=True))
     del o
+    dev3 = dtimer(lambda: flash_attention_bwd_dq(*case, True))
+    dev4 = dtimer(lambda: flash_attention_bwd_dkv(*case, True))
     pairs = b * N_HEAD * (t * (t + 1) // 2)
     elt = 2
     tens = b * t * N_HEAD * d * elt                 # one (B, T, H, D) tensor
     rows = 2 * b * N_HEAD * t * 4                   # lse and delta, f32
     b3, by3 = bound_ms(5 * tens + rows, 6 * d * pairs, dt)
     b4, by4 = bound_ms(6 * tens + rows, 8 * d * pairs, dt)
-    log(f"[K3/K4] {label} causal {dt}: K3 {ms3:.4f} ms (plain {plain3:.4f},"
-        f" bound {b3:.5f} by {by3}), K4 {ms4:.4f} ms (parent {parent4}, "
-        f"plain {plain4:.4f}, bound {b4:.5f} by {by4}), SDPA backward "
-        f"{lib:.4f} ms")
-    common = {"library_ms": lib, "shape": f"{label} causal", "dtype": dt}
-    return ({"max_abs_err": err3, "ms": ms3, "plain_ms": plain3,
-             "bound_ms": b3, "bound_by": by3, **common},
-            {"max_abs_err": err4, "ms": ms4, "plain_ms": plain4,
-             "bound_ms": b4, "bound_by": by4, "parent_ms": parent4,
-             **common})
+    log(f"[K3/K4] {label} causal {dt}: K3 {ms3:.4f} ms, device {dev3:.4f} "
+        f"(plain {plain3:.4f}, bound {b3:.5f} by {by3}), K4 {ms4:.4f} ms, "
+        f"device {dev4:.4f} (parent {parent4}, plain {plain4:.4f}, bound "
+        f"{b4:.5f} by {by4}), SDPA backward {lib:.4f} ms, device "
+        f"{lib_dev:.4f}")
+    common = {"library_ms": lib, "library_device_ms": lib_dev,
+              "shape": f"{label} causal", "dtype": dt}
+    return ({"max_abs_err": err3, "ms": ms3, "device_ms": dev3,
+             "plain_ms": plain3, "bound_ms": b3, "bound_by": by3, **common},
+            {"max_abs_err": err4, "ms": ms4, "device_ms": dev4,
+             "plain_ms": plain4, "bound_ms": b4, "bound_by": by4,
+             "parent_ms": parent4, **common})
 
 
-def check_k3_k4(torch, timer, parent=None):
-    """K3 (dQ) and K4 (dK, dV) against their plain versions over the grid,
-    then at the training micro-batch (B=2, the shape the main path
-    launches them at), at the whole batch (B=4) and at the micro-batch
-    with D=128, each checked and timed; the kernels line carries the
-    micro-batch's numbers. Errors are relative to max(1, max|plain|)."""
+def check_k3_k4(torch, timer, dtimer, parent=None):
+    """K3 (dQ) and K4 (dK, dV) against their plain versions over the grid
+    (and at the head dims of ``MORE_D`` on the tile edges), then at the
+    training micro-batch (B=2, the shape the main path launches them at),
+    at the whole batch (B=4) and at the micro-batch with D=128, each
+    checked and timed; the kernels line carries the micro-batch's numbers.
+    Errors are relative to max(1, max|plain|)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for b in (1, 2):
-        for d in (64, 128):
-            for t in (16, 100, 1024) + (EDGE_T if b == 2 else ()):
-                for causal in (False, True):
-                    for dt in ("float32", "bfloat16"):
-                        case = _bwd_case(torch, gen, b, t, d,
-                                         getattr(torch, dt), causal)
-                        _check_bwd_case(torch, case, causal, dt,
-                                        f"B={b} T={t} D={d}")
-                        del case
+    grid = [(b, d, t) for b in (1, 2) for d in (64, 128)
+            for t in (16, 100, 1024) + (EDGE_T if b == 2 else ())]
+    grid += [(2, d, t) for d in MORE_D for t in EDGE_T]
+    for b, d, t in grid:
+        for causal in (False, True):
+            for dt in ("float32", "bfloat16"):
+                case = _bwd_case(torch, gen, b, t, d, getattr(torch, dt),
+                                 causal)
+                _check_bwd_case(torch, case, causal, dt,
+                                f"B={b} T={t} D={d}")
+                del case
     micro = TRAIN_BATCH // GRAD_ACCUM
-    k3, k4 = _train_shape_bwd(torch, timer, gen, micro, parent=parent)
-    w3, w4 = _train_shape_bwd(torch, timer, gen, TRAIN_BATCH, parent=parent)
-    h3, h4 = _train_shape_bwd(torch, timer, gen, micro, d=128,
+    k3, k4 = _train_shape_bwd(torch, timer, dtimer, gen, micro,
+                              parent=parent)
+    w3, w4 = _train_shape_bwd(torch, timer, dtimer, gen, TRAIN_BATCH,
+                              parent=parent)
+    h3, h4 = _train_shape_bwd(torch, timer, dtimer, gen, micro, d=128,
                               parent=parent)
     lib_note = ("SDPA backward via torch.autograd.grad: dQ, dK and dV in "
                 "one call, shared by K3 and K4")
@@ -1470,6 +1619,83 @@ def profile_int8_predict(torch, im, xb, smi):
         log(f"[profile-int8] {ms:9.3f} ms {count:6d} calls  {key[:100]}")
 
 
+def phase_example(torch):
+    """examples/transformer_lm.py's configuration (vocab 256, hidden 64, 2
+    blocks, 4 heads: head dim 16; remat "flash"; seed 0) in f32 on the card
+    against the same seeded model on the CPU: 4 greedy requests through
+    ContinuousBatcher must give the same token streams (K1 on every prefill
+    and layer, K2 on every decode step and layer), and one Estimator Adam
+    step (K1 = K3 = K4 = 2, one a layer) the same loss within 1e-4 and the
+    same next loss within 1e-3."""
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.models.transformer import (TransformerLM,
+                                                            lm_loss)
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+    from analytics_zoo_tpu_torch.ops.paged_attention import paged_attention
+    from analytics_zoo_tpu_torch.serving.generation import ContinuousBatcher
+
+    set_policy(compute_dtype="float32")
+    vocab, seq, blocks = 256, 64, 2
+    kw = dict(vocab=vocab, hidden_size=64, n_block=blocks, n_head=4,
+              seq_len=seq, attn_strategy="flash", remat="flash", seed=0)
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(1, vocab, size=n).astype(np.int32)
+               for n in (5, 17, 30, 40)]
+    ids = rng.integers(0, vocab, size=(8, seq + 1))
+    x, y = ids[:, :-1].astype(np.int32), ids[:, 1:].astype(np.int32)
+    streams, losses, counts = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        model = TransformerLM(device=dev, **kw)
+        batcher = ContinuousBatcher(model, n_slots=4, page_size=16,
+                                    max_seq_len=seq, device=dev,
+                                    autostart=False)
+        try:
+            tfa.flash_attention_fwd.launches = 0
+            paged_attention.launches = 0
+            handles = [batcher.submit(p, max_new_tokens=12) for p in prompts]
+            batcher.start()
+            streams[dev] = [h.result(timeout_s=300) for h in handles]
+            steps = batcher.stats()["steps"]
+        finally:
+            batcher.close()
+        counts[dev] = {"K1": tfa.flash_attention_fwd.launches,
+                       "K2": paged_attention.launches, "steps": steps}
+        with torch.no_grad():
+            before = float(lm_loss(y, model.apply(x)))
+        est = Estimator(model, optimizer="adam", loss=lm_loss,
+                        config=TrainConfig(shuffle=False))
+        for f in (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                  tfa.flash_attention_bwd_dkv):
+            f.launches = 0
+        est.fit((x, y), batch_size=len(x), epochs=1)
+        counts[dev]["train"] = (tfa.flash_attention_fwd.launches,
+                                tfa.flash_attention_bwd_dq.launches,
+                                tfa.flash_attention_bwd_dkv.launches)
+        with torch.no_grad():
+            losses[dev] = (before, float(lm_loss(y, model.apply(x))))
+        del model, est
+    c = counts["cuda"]
+    same = streams["cuda"] == streams["cpu"]
+    d0 = abs(losses["cuda"][0] - losses["cpu"][0])
+    d1 = abs(losses["cuda"][1] - losses["cpu"][1])
+    launched = (c["K1"] >= len(prompts) * blocks
+                and c["K2"] >= c["steps"] * blocks and c["steps"] >= 1
+                and c["train"] == (blocks,) * 3)
+    ok = same and d0 <= 1e-4 and d1 <= 1e-3 and launched
+    log(f"[example] examples/transformer_lm.py config (hidden 64, 4 heads, "
+        f"D=16) f32 cuda vs cpu: greedy streams identical {same}; launches "
+        f"{c} (need K1 >= {len(prompts) * blocks}, K2 >= steps x {blocks}, "
+        f"train K1 = K3 = K4 = {blocks}); loss {losses['cuda'][0]:.6f} vs "
+        f"{losses['cpu'][0]:.6f} (|d| {d0:.3g}, tol 1e-4), after one Adam "
+        f"step {losses['cuda'][1]:.6f} vs {losses['cpu'][1]:.6f} (|d| "
+        f"{d1:.3g}, tol 1e-3) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the example model on the card disagrees with "
+                             "the cpu or skipped its kernels")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1481,7 +1707,7 @@ def main(argv=None) -> int:
                          "where the device time goes")
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout of the repo (e.g. the parent "
-                         "commit from git archive): time its K2 and K4 "
+                         "commit from git archive): time its K1, K2 and K4 "
                          "beside this one's, in this process")
     args = ap.parse_args(argv)
     try:
@@ -1503,11 +1729,13 @@ def main(argv=None) -> int:
         parent = load_parent(args.parent) if args.parent else None
         phase_build(parent)
         timer = Timer(torch)
-        kernels = [check_k1(torch, timer), check_k2(torch, timer, parent),
-                   *check_k3_k4(torch, timer, parent),
+        dtimer = DeviceTimer(torch, timer.flush)
+        kernels = [check_k1(torch, timer, dtimer, parent),
+                   check_k2(torch, timer, dtimer, parent),
+                   *check_k3_k4(torch, timer, dtimer, parent),
                    check_sampler(torch, timer),
                    check_k5(torch, timer), check_k6(torch, timer)]
-        del timer
+        del timer, dtimer
         if not args.quick:
             gpu_model = full_model(torch, "cuda")
             phase_parity(torch, gpu_model)
@@ -1533,6 +1761,8 @@ def main(argv=None) -> int:
             kernels[5]["launches_by_path"] = {"resnet_serving": k5,
                                               "mlp_per_predict": k5_mlp}
             kernels[6]["launches"] = k6
+            torch.cuda.empty_cache()
+            phase_example(torch)
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):

@@ -15,7 +15,11 @@ give the same bits twice and refuse a view their 16-byte copies cannot
 take. The bf16 K4 is held over D in {64, 128}, causal or not, T in {1, 63,
 64, 65, 127, 129, 2048} and Tq != Tk both ways; K2 over q_len {1, 4, 16},
 pages of 8, 16 and 32 positions and lengths at 0, 1, q_len, on and around
-each split boundary and at the full 1024. The small model runs its
+each split boundary and at the full 1024. Every head dim that is a
+multiple of 8 up to 256 runs K1-K4 (8, 16, 24, 32, 96, 160 and 256 over
+the tile edges, causal or not; D = 20 is refused), and K2 runs at q_len
+1, 16, 17, 48, 64 and 128 over head dims 16, 32, 64, 96 and 256. The
+small model runs its
 cache-threaded path on the card (K1, K2) against the same seeded model on
 the CPU (plain versions), f32 logits within 1e-4; the sampling kernel
 draws the plain version's tokens exactly; it trains on the card (K1, K3,
@@ -40,6 +44,8 @@ pytestmark = pytest.mark.cuda
 TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 #: sequence lengths at and around the 64-row tiles of the flash kernels
 EDGE_T = (1, 63, 64, 65, 127, 129)
+#: head dims besides 64 and 128 (every multiple of 8 up to 256 runs)
+MORE_D = (8, 16, 24, 32, 96, 160, 256)
 
 
 @pytest.fixture()
@@ -92,8 +98,8 @@ def test_flash_kernel_takes_strided_qkv_and_rejects_bad_input(cuda):
     out = tfa.flash_attention(q, k, v, True)
     ref, _ = tfa.flash_attention_plain(q, k, v, True)
     assert float((out - ref).abs().max()) <= 1e-4
-    with pytest.raises(ValueError, match="head dim"):
-        x = torch.randn((1, 8, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="head dim 20 .*Queue 3"):
+        x = torch.randn((1, 8, 2, 20), device=cuda)
         tfa.flash_attention(x, x, x)
     with pytest.raises(ValueError, match="dtype"):
         x = torch.randn((1, 8, 2, 64), device=cuda, dtype=torch.float16)
@@ -145,11 +151,36 @@ def test_paged_kernel_split_across_the_context_matches_plain(
     assert float(out[0].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("q_len", [1, 16, 17, 48, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 256])
+def test_paged_kernel_at_any_q_len_and_head_dim_matches_plain(
+        cuda, dtype, tol, q_len, d):
+    """K2 past one 16-row q tile (speculative verify, prefill chunks of 48,
+    64, 128) and at head dims besides 64 and 128, on slots at 0, q_len,
+    around the split boundaries and at the full 1024."""
+    lengths = [0, q_len, q_len + 1, 127, 129, 257, 640, 1024]
+    lengths = [max(n, q_len) if n else 0 for n in lengths]
+    case = tpa.synthetic_paged_case(
+        len(lengths), 64, 16, 4, d, q_len=q_len, dtype=dtype,
+        lengths=lengths, device=cuda,
+        generator=torch.Generator().manual_seed(q_len + d))
+    before = tpa.paged_attention.launches
+    out = tpa.paged_attention(*case, page_size=16)
+    ref = tpa.paged_attention_plain(*case, page_size=16)
+    torch.cuda.synchronize()
+    assert tpa.paged_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert float(out[0].abs().max()) == 0.0
+
+
 def test_paged_kernel_rejects_bad_input(cuda):
     q, kp, vp, table, lens = tpa.synthetic_paged_case(
         2, 4, 16, 2, 64, q_len=17, device=cuda)
-    with pytest.raises(ValueError, match="q_len"):
-        tpa.paged_attention(q, kp, vp, table, lens, page_size=16)
+    x = tpa.synthetic_paged_case(2, 4, 16, 2, 20, q_len=17, device=cuda)
+    with pytest.raises(ValueError, match="head dim 20 .*Queue 3"):
+        tpa.paged_attention(*x, page_size=16)
     with pytest.raises(ValueError, match="int32"):
         tpa.paged_attention(q[:, :1], kp, vp, table.long(), lens,
                             page_size=16)
@@ -281,6 +312,35 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, tol, t, t_k, d,
         assert got.dtype == dtype
         scale = max(1.0, float(ref.float().abs().max()))
         assert float((got.float() - ref.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", EDGE_T)
+@pytest.mark.parametrize("d", MORE_D)
+def test_flash_kernels_at_every_head_dim_match_plain(cuda, dtype, tol, d, t,
+                                                     causal):
+    """K1, K3 and K4 at head dims besides 64 and 128 (run on the smallest
+    tile of 32, 64, 128 or 256 columns that holds them), q/k/v strided out
+    of one fused QKV tensor; backward errors relative to
+    max(1, max|plain|)."""
+    q, k, v, go, lse, delta = _bwd_case(cuda, dtype, t, d, causal,
+                                        seed=t + d, fused=True)
+    out, lse1 = tfa.flash_attention_fwd(q, k, v, causal)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, causal)
+    case = (q, k, v, go, lse, delta)
+    dq = tfa.flash_attention_bwd_dq(*case, causal)
+    dk, dv = tfa.flash_attention_bwd_dkv(*case, causal)
+    rq = tfa.flash_attention_bwd_dq_plain(*case, causal)
+    rk, rv = tfa.flash_attention_bwd_dkv_plain(*case, causal)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert float((lse1 - ref_lse).abs().max()) <= tol
+    for got, want in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        scale = max(1.0, float(want.float().abs().max()))
+        assert float((got.float() - want.float()).abs().max()) <= tol * scale
 
 
 @pytest.mark.parametrize("d", [64, 128])

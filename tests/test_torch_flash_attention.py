@@ -99,6 +99,43 @@ def test_plain_rounds_probabilities_like_jax_kernel_bf16(block):
     assert float(np.abs(want_out - unrounded.float().numpy()).max()) > tol
 
 
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [24, 32, 96])
+def test_plain_matches_jax_kernel_at_other_head_dims(d, causal, dtype, tol):
+    """Head dims besides 64 and 128 (examples/transformer_lm.py has 16,
+    bench.py's small LMs 32): the plain version, which the card's kernels
+    are held to at every multiple of 8 up to 256, agrees with the Pallas
+    kernel in one tile and across 16-wide tiles."""
+    q, k, v = _qkv(32, d=d, seed=d + causal)
+    for block in (None, 16):
+        want_out, want_lse = _jax_out_lse(q, k, v, causal, block=block,
+                                          dtype=dtype)
+        out, lse = _plain_out_lse(q, k, v, causal, dtype)
+        assert out.shape == (2, 32, 2, d)
+        assert float(np.abs(want_out - out).max()) <= tol
+        assert float(np.abs(want_lse - lse).max()) <= TOL
+
+
+def test_kernel_envelope_takes_every_multiple_of_8_up_to_256():
+    """The head dims, q_len and dtypes the card's attention kernels take:
+    every multiple of 8 from 8 to 256 at any q_len, in f32 and bf16; any
+    other head dim is refused naming the open fault (ROADMAP Queue 3)."""
+    from analytics_zoo_tpu_torch.ops.attention import (MAX_HEAD_DIM,
+                                                       kernel_envelope)
+
+    assert MAX_HEAD_DIM == 256
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in range(8, 257, 8):
+            for q_len in (1, 16, 17, 48, 64, 128, 2048):
+                assert kernel_envelope(d, q_len, dtype) is None
+        for d in [x for x in range(0, 300) if x % 8 or x > 256 or x == 0]:
+            why = kernel_envelope(d, 1, dtype)
+            assert why is not None and "Queue 3" in why, (d, why)
+        assert "q_len" in kernel_envelope(64, 0, dtype)
+    assert "dtype" in kernel_envelope(64, 1, torch.float16)
+
+
 def test_wrapper_on_cpu_takes_plain_version_without_launching():
     q, k, v = map(torch.from_numpy, _qkv(12, seed=4))
     before = tfa.flash_attention_fwd.launches

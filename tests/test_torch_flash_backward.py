@@ -70,6 +70,23 @@ def test_plain_backward_matches_jax_kernel_vjp(dtype, causal, t, block):
         assert _err(w, x) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [24, 32, 96])
+def test_plain_backward_matches_jax_kernel_vjp_at_other_head_dims(dtype,
+                                                                  causal, d):
+    """K3/K4's plain versions at head dims besides 64 and 128, against the
+    VJP through the Pallas kernels across 8-wide tiles."""
+    q, k, v, g = _case(32, dtype, d=d, seed=d + causal)
+    _, vjp = jax.vjp(lambda *a: jflash(*a, causal, 8, 8, True),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    got = _port_grads(q, k, v, g, causal, dtype)
+    for w, x in zip(want, got):
+        assert x.dtype == _TORCH[dtype] and x.shape[-1] == d
+        assert _err(w, x) <= TOL[dtype]
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("t", [12, 37])
 def test_ragged_t_backward_matches_jax_full_attention(causal, t):

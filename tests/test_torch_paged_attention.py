@@ -2,9 +2,10 @@
 
 On the CPU: the plain version against the JAX package's Pallas kernel run in
 interpret mode, on the JAX fixture's serving-cache layouts at q_len 1, 4 and
-16 (max |diff| <= 1e-5 in f32 and <= 2e-2 in bf16; zero-length slots
-exactly 0), and the wrapper's routing. The kernel itself is held against
-its plain version on the card by ``tests/test_torch_cuda.py``.
+16 and at the prefill chunk widths 48 and 64 (max |diff| <= 1e-5 in f32 and
+<= 2e-2 in bf16; zero-length slots exactly 0), and the wrapper's routing.
+The kernel itself is held against its plain version on the card by
+``tests/test_torch_cuda.py``.
 """
 
 import jax.numpy as jnp
@@ -55,6 +56,24 @@ def test_plain_matches_jax_kernel(q_len, lengths, dtype, tol):
         if n == 0:          # inactive slot: exactly zero on both sides
             assert float(got[b].abs().max()) == 0.0
             assert float(np.abs(want[b]).max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", TOL), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("q_len", [48, 64])
+def test_plain_matches_jax_kernel_at_prefill_chunk_widths(q_len, dtype, tol):
+    """q_len at the JAX package's prefill chunk widths (48, 64), past the
+    16 rows of one q tile, on 20 pages of 4 per slot: every live length
+    from q_len up to the full 80 positions, and an inactive slot."""
+    lengths = [0, q_len, q_len + 7, 80]
+    case = jcase(len(lengths), 20, PAGE, H, D, q_len=q_len, lengths=lengths,
+                 dtype=getattr(jnp, dtype),
+                 rng=np.random.default_rng(q_len))
+    want = np.asarray(jpaged(*case, page_size=PAGE, interpret=True),
+                      np.float32)
+    got = tpa.paged_attention_plain(*_to_torch(case), page_size=PAGE)
+    assert got.shape == (len(lengths), q_len, H, D)
+    assert float(np.abs(want - got.float().numpy()).max()) <= tol
+    assert float(got[0].abs().max()) == 0.0
 
 
 def test_synthetic_case_matches_the_jax_layout():
