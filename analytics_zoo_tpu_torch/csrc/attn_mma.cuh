@@ -1,14 +1,12 @@
-// Tensor-core tile machinery of the bf16 mma.sync attention kernels (K3
-// and K4 in csrc/flash_bwd.cu, K2 in csrc/paged_attention.cu; K1's wgmma
-// kernel takes its fragment layouts, quad reductions and bf16 packing
-// from here too): staging (rows, D) bf16 tiles
-// into shared memory with cp.async, the ring of stages the kernels walk
-// their streamed operands through, fragment loads with ldmatrix, the
-// m16n8k16 bf16 mma.sync with f32 accumulators, the accumulator-to-operand
-// repack that keeps P and dS in registers between two products, quad row
-// reductions and the coalesced bf16 epilogue.
+// Tensor-core tile machinery of the bf16 mma.sync attention kernel (K2 in
+// csrc/paged_attention.cu; the wgmma kernels, K1 in csrc/flash_fwd.cu and
+// K3/K4 in csrc/flash_bwd.cu, take its fragment layouts, quad reductions,
+// bf16 packing and shared-memory grant from here too): 16-byte cp.async
+// copies, fragment loads with ldmatrix, the m16n8k16 bf16 mma.sync with
+// f32 accumulators, the accumulator-to-operand repack that keeps P in
+// registers between two products, and quad row reductions.
 //
-// A block has 4 warps; each warp owns 16 rows of the block's 64-row tile.
+// A block has 4 warps; each warp owns 16 rows of the block's tile.
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16), lane = 4 g + t:
 // - A (16 x 16, row major), 4 x b32: a0 (row g, cols 2t, 2t+1),
 //   a1 (row g+8, same cols), a2 (row g, cols 2t+8, 2t+9), a3 (row g+8, ...);
@@ -39,10 +37,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // rows of a block's Q tile
-constexpr int kStages = 2;          // depth of the K/V tile ring
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Tile {
@@ -74,14 +69,6 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
-// 4 bytes global -> shared, asynchronously; zero-filled when not valid
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -91,101 +78,6 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-
-// Start the copies of rows [r0, r0 + ROWS) of a (rows, d) bf16 operand
-// whose rows lie `stride` elements apart into a padded tile D columns wide
-// (D, a multiple of 16, at least the runtime head dim d, a multiple of 8):
-// rows at or past n, and columns d..D, are zero-filled, so the padding
-// changes no product. Every thread of the block takes part; the caller
-// commits.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
-                                          long long stride, int r0, int n,
-                                          int d) {
-  constexpr int kChunks = Tile<D>::kChunks;
-  static_assert(ROWS * kChunks % kThreads == 0, "tile does not split evenly");
-#pragma unroll
-  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx / kChunks;
-    const int c = idx % kChunks;
-    const int p = r0 + r;
-    const bool ok = p < n && c * 8 < d;
-    cp_async16(smem_addr(tile + r * Tile<D>::kPitch + c * 8),
-               src + (ok ? (long long)p * stride + c * 8 : 0), ok);
-  }
-}
-
-// The ring of kStages shared-memory stages through which a kernel walks
-// two (rows, D) bf16 operands a BK-row tile at a time (K and V in K3, Q
-// and dO in K4). With kRowVals, two f32 values per row (K4: the
-// query rows' lse and delta) travel with each tile. Each tile is one
-// commit group; copies the caller starts before prologue() (its own Q
-// tile, K4's K and V) join the first tile's group.
-template <int D, int BK, bool kRowVals = false>
-struct TileRing {
-  static constexpr int kStage = BK * Tile<D>::kPitch;  // elements a stage
-  bf16* sa;  // kStages stages of a
-  bf16* sb;  // kStages stages of b
-  const bf16* a;
-  const bf16* b;
-  long long as, bs;  // row strides, elements
-  int n;             // rows of a and b; rows at or past n are zero-filled
-  int tiles;         // tiles to walk
-  int d;             // the head dim; columns d..D are zero-filled
-  // kRowVals only: contiguous f32 values of the rows, and their kStages
-  // stages of BK values each
-  const float* ra = nullptr;
-  const float* rb = nullptr;
-  float* sra = nullptr;
-  float* srb = nullptr;
-
-  // start tile j's copies into its stage (none past the last tile), and
-  // commit them as one group
-  __device__ __forceinline__ void load(int j) const {
-    if (j < tiles) {
-      load_tile<D, BK>(sa + (j % kStages) * kStage, a, as, j * BK, n, d);
-      load_tile<D, BK>(sb + (j % kStages) * kStage, b, bs, j * BK, n, d);
-      if constexpr (kRowVals) {
-        for (int i = threadIdx.x; i < 2 * BK; i += kThreads) {
-          const int r = i % BK;
-          const int p = j * BK + r;
-          const bool ok = p < n;
-          float* dst = (i < BK ? sra : srb) + (j % kStages) * BK + r;
-          cp_async4(smem_addr(dst), (i < BK ? ra : rb) + (ok ? p : 0), ok);
-        }
-      }
-    }
-    cp_async_commit();
-  }
-
-  __device__ __forceinline__ void prologue() const {
-#pragma unroll
-    for (int j = 0; j < kStages - 1; ++j) load(j);
-  }
-
-  // at the head of step j: tile j has landed for the whole block, tile
-  // j - 1 is consumed, and tile j + kStages - 1 starts loading into the
-  // stage tile j - 1 used, while tile j is multiplied
-  __device__ __forceinline__ void step(int j) const {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    load(j + kStages - 1);
-  }
-
-  __device__ __forceinline__ const bf16* tile_a(int j) const {
-    return sa + (j % kStages) * kStage;
-  }
-  __device__ __forceinline__ const bf16* tile_b(int j) const {
-    return sb + (j % kStages) * kStage;
-  }
-  __device__ __forceinline__ const float* rows_a(int j) const {
-    return sra + (j % kStages) * BK;
-  }
-  __device__ __forceinline__ const float* rows_b(int j) const {
-    return srb + (j % kStages) * BK;
-  }
-};
 
 // Grant `bytes` of dynamic shared memory (past the 48 KB default) to a
 // kernel, once per device; `granted` is the caller's record for that
@@ -298,41 +190,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Write a warp's 16 x DO f32 accumulator rows, times f0 (rows g) and f1
-// (rows g + 8), as bf16 rows [row0, row0 + 16) of a (rows, ncols) output
-// whose rows lie `stride` elements apart; rows at or past n and columns at
-// or past ncols (a multiple of 8) are not written. The rows go through 16
-// rows of shared memory (`stage`, a pitch of DO + 8) so that the global
-// stores are 16 bytes a lane, neighbouring lanes on neighbouring addresses.
-template <int DO>
-__device__ __forceinline__ void store_rows(const float (&acc)[DO / 8][4],
-                                           float f0, float f1, bf16* stage,
-                                           bf16* out, long long stride,
-                                           int row0, int n, int ncols) {
-  constexpr int kPitch = Tile<DO>::kPitch;
-  constexpr int kChunks = Tile<DO>::kChunks;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < DO / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(stage + g * kPitch + 8 * j + 2 * t) =
-        pack_bf16(acc[j][0] * f0, acc[j][1] * f0);
-    *reinterpret_cast<uint32_t*>(stage + (g + 8) * kPitch + 8 * j + 2 * t) =
-        pack_bf16(acc[j][2] * f1, acc[j][3] * f1);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < 16 * kChunks / 32; ++i) {
-    const int idx = lane + 32 * i;
-    const int r = idx / kChunks;
-    const int c = idx % kChunks;
-    if (row0 + r < n && c * 8 < ncols)
-      *reinterpret_cast<uint4*>(out + (long long)(row0 + r) * stride + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * kPitch + c * 8);
-  }
 }
 
 }  // namespace mma

@@ -10,17 +10,22 @@
 // as the JAX kernel does. As there, the probabilities are rounded to v's
 // dtype before the P V product (a no-op in f32) and l sums them in f32.
 //
-// Two kernels, chosen by dtype in `zoo_flash_fwd`:
-// - bf16: `flash_fwd_wgmma_kernel`, on wgmma fed by TMA (its note is below);
-// - f32: `flash_fwd_kernel`, f32 FMA loops. On the tensor cores f32 would
-//   run as TF32, about three decimal digits, which the f32 checks against
-//   the plain version (1e-4) cannot take; f32 is neither the training nor
-//   the serving dtype.
+// Three kernels, chosen by dtype and head dim in `zoo_flash_fwd`:
+// - bf16 up to D = 256: `flash_fwd_wgmma_kernel`, on wgmma fed by TMA (its
+//   note is below);
+// - f32 up to D = 256: `flash_fwd_kernel`, f32 FMA loops. On the tensor
+//   cores f32 would run as TF32, about three decimal digits, which the f32
+//   checks against the plain version (1e-4) cannot take; f32 is neither
+//   the training nor the serving dtype;
+// - either dtype above D = 256: `flash_fwd_wide_kernel`, the FMA tiles of
+//   csrc/attn_wide.cuh, which take any head dim.
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "attn_mma.cuh"
+#include "attn_wide.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 #include "zoo_cuda.cuh"
 
@@ -195,7 +200,7 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kWgRows = 64;                 // query rows a warpgroup owns
 constexpr int kWgBlockRows = 2 * kWgRows;   // query rows a block owns
 constexpr int kWgThreads = 3 * 128;  // two consumer warpgroups, a producer
-constexpr int kBox = 64;                    // columns a TMA box holds
+constexpr int kBox = zoo::tma::kBox;        // columns a TMA box holds
 constexpr int kWgStages = 2;                // stages of the K/V ring
 
 template <int NB, int BK>
@@ -214,8 +219,7 @@ struct WgLayout {
 struct WgItems {
   int blk, nblk, items, bhs, nqt;
   __device__ __forceinline__ int item(int n) const {
-    const int r = n / 2, odd = n & 1;
-    return 2 * r * nblk + (odd ? 2 * nblk - 1 - blk : blk);
+    return zoo::wg::snake_item(n, blk, nblk);
   }
   __device__ __forceinline__ int bh(int it) const { return it % bhs; }
   __device__ __forceinline__ int q0(int it) const {
@@ -514,61 +518,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime's
-// cudaGetDriverEntryPoint (no link to libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// The 4-D map (d, H, T, B) of a bf16 operand with element strides (sb, st,
-// sh) and a contiguous head dim, read in boxes of 64 columns x `rows`
-// positions of one head and batch, 128-byte swizzled; coordinates past
-// the tensor read as zeros. The stride of a dim of size 1 is never used:
-// it is replaced by one TMA accepts (a multiple of 16 bytes).
-bool encode_operand(CUtensorMap* map, const void* ptr, int B, int H, int T,
-                    int d, long long sb, long long st, long long sh,
-                    int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)T,
-                        (cuuint64_t)B};
-  long long el[3] = {sh, st, sb};
-  cuuint64_t strides[3];
-  long long span = (long long)d * 2;  // bytes the dims below reach
-  for (int i = 0; i < 3; ++i) {
-    long long s = el[i] * 2;
-    if (dims[i + 1] == 1) s = (span + 15) / 16 * 16;
-    strides[i] = (cuuint64_t)s;
-    span = s * (long long)dims[i + 1];
-  }
-  cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)rows, 1};
-  cuuint32_t estr[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, estr,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// a tensor map that cuTensorMapEncodeTiled refused (or could not be found)
-constexpr int kErrTensorMap = 10000;
-
 template <int NB, int BK>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  void* lse, int B, int H, int Tq, int Tk, int d,
@@ -576,30 +525,71 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  const long long* vs, int causal, float scale,
                  cudaStream_t stream) {
   constexpr int smem = WgLayout<NB, BK>::kSmem + 1024;
+  namespace tma = zoo::tma;
   CUtensorMap tq, tk, tv;
-  if (!encode_operand(&tq, q, B, H, Tq, d, qs[0], qs[1], qs[2],
-                      kWgBlockRows) ||
-      !encode_operand(&tk, k, B, H, Tk, d, ks[0], ks[1], ks[2], BK) ||
-      !encode_operand(&tv, v, B, H, Tk, d, vs[0], vs[1], vs[2], BK))
-    return kErrTensorMap;
+  if (!tma::cached_operand(&tq, q, B, H, Tq, d, qs[0], qs[1], qs[2],
+                           kWgBlockRows) ||
+      !tma::cached_operand(&tk, k, B, H, Tk, d, ks[0], ks[1], ks[2], BK) ||
+      !tma::cached_operand(&tv, v, B, H, Tk, d, vs[0], vs[1], vs[2], BK))
+    return tma::kErrTensorMap;
   static std::atomic<uint64_t> granted{0};
   const cudaError_t err = zoo::mma::grant_smem(
       flash_fwd_wgmma_kernel<NB, BK>, smem, granted);
   if (err != cudaSuccess) return (int)err;
   // persistent: one block an SM (its registers fill the SM), each taking
   // its share of the items
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t e;
+  const int grid = tma::persistent_grid(
+      (long long)B * H * ((Tq + kWgBlockRows - 1) / kWgBlockRows), &e);
   if (e != cudaSuccess) return (int)e;
-  const long long items =
-      (long long)B * H * ((Tq + kWgBlockRows - 1) / kWgBlockRows);
-  if (items > (1ll << 30)) return (int)cudaErrorInvalidValue;
-  const int grid = (int)(items < sms ? items : sms);
   flash_fwd_wgmma_kernel<NB, BK><<<grid, kWgThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
       B, H, Tq, Tk, d, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// K1 at a head dim above 256, in f32 or bf16: one block per (32 query
+// rows, b*h, 64-column slice of O) runs zoo::wide::attend over the keys up
+// to the causal limit (csrc/attn_wide.cuh). Any head dim and any strides.
+template <typename T>
+__global__ void __launch_bounds__(zoo::wide::kThreads)
+    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o,
+                          float* __restrict__ lse, int H, int Tq, int Tk,
+                          int d, long long qsb, long long qst, long long qsh,
+                          long long ksb, long long kst, long long ksh,
+                          long long vsb, long long vst, long long vsh,
+                          int causal, float scale) {
+  namespace wd = zoo::wide;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.x * wd::kRows;
+  auto qr = [&](int i) -> const T* {
+    return q0 + i < Tq ? q + b * qsb + (q0 + i) * qst + h * qsh : nullptr;
+  };
+  auto kr = [&](int j) -> const T* { return k + b * ksb + j * kst + h * ksh; };
+  auto vr = [&](int j) -> const T* { return v + b * vsb + j * vst + h * vsh; };
+  auto visible = [&](int i, int j) { return !causal || j <= q0 + i; };
+  wd::attend<T>(qr, kr, vr, causal ? min(Tk, q0 + wd::kRows) : Tk, visible,
+                d, scale, o + (((long long)b * Tq + q0) * H + h) * d,
+                (long long)H * d, min(wd::kRows, Tq - q0),
+                lse + (long long)bh * Tq + q0);
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, int H, int Tq, int Tk, int d,
+                const long long* qs, const long long* ks, const long long* vs,
+                int causal, float scale, cudaStream_t stream) {
+  namespace wd = zoo::wide;
+  dim3 grid((Tq + wd::kRows - 1) / wd::kRows, B * H,
+            min(wd::slices(d), 65535));
+  flash_fwd_wide_kernel<T><<<grid, wd::kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      H, Tq, Tk, d, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1],
+      vs[2], causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -621,13 +611,15 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 
 // Strides are in elements: (batch, position, head) for q, k and v; the head
 // dim is contiguous. o is a contiguous (B, Tq, H, D) tensor and lse a
-// contiguous (B, H, Tq) f32 tensor. D is a multiple of 8 from 8 to 256;
+// contiguous (B, H, Tq) f32 tensor. D is any head dim from 1; up to 256,
 // f32 runs on the smallest compile-time tile of 32, 64, 128 or 256 columns
-// that holds it, bf16 on 64, 128 or 256. bf16 q, k and v must start
-// 16-byte aligned with strides of multiples of 8 elements (the wrapper
-// checks: TMA's tensor maps take no other). Returns cudaGetLastError()
-// after the launch, cudaErrorInvalidValue for a dtype/head dim it does not
-// take, or kErrTensorMap when a tensor map cannot be encoded.
+// that holds it and bf16, at a multiple of 8 (the wrapper pads other head
+// dims), on 64, 128 or 256; above 256 both run the wide kernel. bf16 q, k
+// and v up to 256 must start 16-byte aligned with strides of multiples of
+// 8 elements (the wrapper checks: TMA's tensor maps take no other).
+// Returns cudaGetLastError() after the launch, cudaErrorInvalidValue for a
+// dtype/head dim it does not take, or kErrTensorMap when a tensor map
+// cannot be encoded.
 extern "C" int zoo_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int dtype, int B, int H,
                              int Tq, int Tk, int D, long long qsb,
@@ -639,10 +631,14 @@ extern "C" int zoo_flash_fwd(const void* q, const void* k, const void* v,
   const long long kss[3] = {ksb, kst, ksh};
   const long long vss[3] = {vsb, vst, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Tq < 1 || Tk < 1 || B < 1 || H < 1 || D < 8 || D > 256 || D % 8)
+  if (Tq < 1 || Tk < 1 || B < 1 || H < 1 || D < 1)
     return (int)cudaErrorInvalidValue;
 #define ZOO_FWD(F, ...) F<__VA_ARGS__>(q, k, v, o, lse, B, H, Tq, Tk, D, qs, kss, vss, causal, scale, st)
-  if (dtype == zoo::kBF16)
+  if (D > 256)
+    return dtype == zoo::kBF16 ? ZOO_FWD(launch_wide, __nv_bfloat16)
+           : dtype == zoo::kF32 ? ZOO_FWD(launch_wide, float)
+                                : (int)cudaErrorInvalidValue;
+  if (dtype == zoo::kBF16 && D % 8 == 0)
     return D <= 64    ? ZOO_FWD(launch_wgmma, 1, 128)
            : D <= 128 ? ZOO_FWD(launch_wgmma, 2, 128)
                       : ZOO_FWD(launch_wgmma, 4, 32);

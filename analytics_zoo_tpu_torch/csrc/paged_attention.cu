@@ -19,10 +19,15 @@
 // than a launch: what the card can be made to do is read those bytes with
 // enough requests in flight, and no more.
 //
-// Two kernels, chosen by dtype in `zoo_paged_attention`:
-// - bf16: `paged_attn_mma_kernel`, split across the context on the tensor
-//   cores (its note is below);
-// - f32: `paged_attn_kernel`, one block per (head, slot, 16-row q tile)
+// Three kernels, chosen by dtype and head dim in `zoo_paged_attention`:
+// - bf16 at a multiple of 8 up to D = 256: `paged_attn_mma_kernel`, split
+//   across the context on the tensor cores (its note is below);
+// - either dtype above D = 256, and bf16 at a head dim that is not a
+//   multiple of 8: `paged_attn_wide_kernel`, the FMA tiles of
+//   csrc/attn_wide.cuh, which take any head dim and any strides (a pool
+//   row of such a bf16 head dim is not 16 bytes long, and the pool is
+//   neither copied nor allocated wider for it);
+// - f32 up to D = 256: `paged_attn_kernel`, one block per (head, slot, 16-row q tile)
 //   walking the whole context with FMA loops. The block reads its own
 //   lengths[b] and table row (the TPU kernel's scalar prefetch) and walks
 //   only the positions below the length, 64 keys per tile (32 above
@@ -36,6 +41,7 @@
 #include <stdint.h>
 
 #include "attn_mma.cuh"
+#include "attn_wide.cuh"
 #include "zoo_cuda.cuh"
 
 namespace {
@@ -217,6 +223,64 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
       static_cast<const float*>(vp), table, lengths, static_cast<float*>(o),
       H, d, q_len, page_size, pages_per_slot, qs[0], qs[1], qs[2], ps[0],
       ps[1], ps[2], scale);
+  return (int)cudaGetLastError();
+}
+
+// K2 at the head dims the other two kernels do not take (see the top):
+// one block per (32 query rows, slot * H + head, 64-column slice of the
+// output) runs zoo::wide::attend over the slot's valid positions, each
+// key's K/V row found through the page table.
+template <typename T>
+__global__ void __launch_bounds__(zoo::wide::kThreads)
+    paged_attn_wide_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                           const T* __restrict__ vp,
+                           const int* __restrict__ table,
+                           const int* __restrict__ lengths,
+                           T* __restrict__ o, int H, int d, int q_len,
+                           int page_size, int pages_per_slot, long long qsb,
+                           long long qst, long long qsh, long long psp,
+                           long long pst, long long psh, float scale) {
+  namespace wd = zoo::wide;
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int r0 = blockIdx.x * wd::kRows;
+  const int length = lengths[b];
+  const int* trow = table + (long long)b * pages_per_slot;
+  auto qr = [&](int i) -> const T* {
+    return r0 + i < q_len ? q + b * qsb + (r0 + i) * qst + h * qsh : nullptr;
+  };
+  auto kr = [&](int pos) -> const T* {
+    return kp + trow[pos / page_size] * psp + (pos % page_size) * pst +
+           h * psh;
+  };
+  auto vr = [&](int pos) -> const T* {
+    return vp + trow[pos / page_size] * psp + (pos % page_size) * pst +
+           h * psh;
+  };
+  // query row i sees positions up to length - q_len + i
+  auto visible = [&](int i, int pos) {
+    return pos <= length - q_len + r0 + i;
+  };
+  wd::attend<T>(qr, kr, vr, min(length, pages_per_slot * page_size),
+                visible, d, scale,
+                o + ((long long)(b * q_len + r0) * H + h) * d,
+                (long long)H * d, min(wd::kRows, q_len - r0), nullptr);
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* kp, const void* vp,
+                const int* table, const int* lengths, void* o, int B, int H,
+                int d, int q_len, int page_size, int pages_per_slot,
+                const long long* qs, const long long* ps, float scale,
+                cudaStream_t stream) {
+  namespace wd = zoo::wide;
+  dim3 grid((q_len + wd::kRows - 1) / wd::kRows, B * H,
+            min(wd::slices(d), 65535));
+  paged_attn_wide_kernel<T><<<grid, wd::kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), table, lengths, static_cast<T*>(o), H, d,
+      q_len, page_size, pages_per_slot, qs[0], qs[1], qs[2], ps[0], ps[1],
+      ps[2], scale);
   return (int)cudaGetLastError();
 }
 
@@ -591,17 +655,18 @@ int launch_mma(const void* q, const void* kp, const void* vp,
 }  // namespace
 
 // q strides (slot, query row, head) and pool strides (page, in-page position,
-// head) are in elements; the head dim D, a multiple of 8 from 8 to 256, is
-// contiguous in both, and k_pages and v_pages share their strides. o is a
-// contiguous (B, q_len, H, D) tensor; q_len is any positive count, run in
-// tiles of 16 rows. bf16 takes `work`, f32 scratch of
+// head) are in elements; the head dim D, any from 1, is contiguous in
+// both, and k_pages and v_pages share their strides. o is a contiguous
+// (B, q_len, H, D) tensor; q_len is any positive count. The bf16 tensor-
+// core kernel (D a multiple of 8 up to 256) takes `work`, f32 scratch of
 // B * H * n_split * q_len * (D + 2) values, n_split =
 // ceil(pages_per_slot * page_size / span), with `span` a multiple of
 // page_size of at most 128 pages; `done`, B * H * ceil(q_len / 16)
 // unsigned counters that are 0 before the launch and 0 again after it (so
 // launches on one stream may share them); and pools whose rows start
-// 16-byte aligned (the wrapper checks: cp.async moves 16-byte chunks). f32
-// takes none of them. Returns cudaGetLastError() after the launch
+// 16-byte aligned (the wrapper checks: cp.async moves 16-byte chunks) when D
+// is a multiple of 8 up to 256. f32, and the wide kernel, take none of
+// them. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a shape or dtype it does not take).
 extern "C" int zoo_paged_attention(const void* q, const void* k_pages,
                                    const void* v_pages, const void* table,
@@ -619,8 +684,14 @@ extern "C" int zoo_paged_attention(const void* q, const void* k_pages,
   const int* ln = static_cast<const int*>(lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_len < 1 || B < 1 || H < 1 || page_size < 1 || pages_per_slot < 1 ||
-      D < 8 || D > 256 || D % 8)
+      D < 1)
     return (int)cudaErrorInvalidValue;
+#define ZOO_K2(T) launch_wide<T>(q, k_pages, v_pages, tb, ln, o, B, H, D, q_len, page_size, pages_per_slot, qs, ps, scale, st)
+  if (D > 256 || (dtype == zoo::kBF16 && D % 8))
+    return dtype == zoo::kBF16 ? ZOO_K2(__nv_bfloat16)
+           : dtype == zoo::kF32 ? ZOO_K2(float)
+                                : (int)cudaErrorInvalidValue;
+#undef ZOO_K2
   if (dtype == zoo::kBF16) {
     if (span < page_size || span % page_size ||
         span / page_size > kMaxSpanPages || work == nullptr ||

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) machinery of the wgmma + TMA attention kernel (K1's bf16
-// kernel in csrc/flash_fwd.cu): shared-memory matrix descriptors of
+// Hopper (sm_90a) machinery of the wgmma + TMA attention kernels (the bf16
+// K1 in csrc/flash_fwd.cu, K3 and K4 in csrc/flash_bwd.cu): shared-memory matrix descriptors of
 // 128-byte-swizzled tiles, warpgroup MMA (wgmma.mma_async) with operands
 // in shared memory or, for A, in registers, the wgmma fences, mbarriers,
 // TMA tile loads (cp.async.bulk.tensor) and named barriers.
@@ -125,9 +125,18 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// Item n of block `blk` of a persistent grid of `nblk` blocks, dealt in
+// snake order (blk, 2 nblk - 1 - blk, 2 nblk + blk, ...): with the items
+// sorted heaviest first, this evens out the blocks' work.
+__device__ __forceinline__ int snake_item(int n, int blk, int nblk) {
+  const int r = n / 2, odd = n & 1;
+  return 2 * r * nblk + (odd ? 2 * nblk - 1 - blk : blk);
+}
+
 // m64nNk16 bf16 products with f32 accumulators: ss (A and B in shared
-// memory) for S at N = BK = 32, 128; rs (A in registers) for P V at
-// N = D = 64, 128, 256
+// memory) for the score tiles (S, dP and their transposes) at N = 32, 64
+// and 128; rs (A in registers) for P V, dQ += dS K, dV += P^T dO and
+// dK += dS^T Q at N = 64, 128 and 256
 template <int N>
 struct Wgmma;
 
@@ -149,6 +158,20 @@ struct Wgmma<32> {
 
 template <>
 struct Wgmma<64> {
+  // d (64 x 64, f32) (+)= A B, A and B K-major bf16 in shared memory
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
   // d (64 x 64, f32) += A B, A (64 x 16 bf16) in registers as the
   // mma.sync A fragment, B MN-major (B[k][n] contiguous along n) in shared
   // memory

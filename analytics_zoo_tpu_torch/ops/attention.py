@@ -12,8 +12,10 @@ import torch
 
 NEG_INF = -1e30
 
-#: the largest head dim the attention kernels (K1-K4) take on the card
-MAX_HEAD_DIM = 256
+#: the largest head dim the attention kernels' compile-time tiles hold
+#: (bf16 on the tensor cores, f32 on FMA loops); above it every family (K1-K4)
+#: runs its wide FMA kernel, which takes any head dim
+TILE_MAX_HEAD_DIM = 256
 
 #: Shortest query length at which ``attn_strategy="auto"`` takes the flash
 #: kernel on CUDA. The JAX rule's TPU threshold (2048) does not carry over;
@@ -44,17 +46,17 @@ def kernel_envelope(d: int, q_len: int = 1,
                     dtype: torch.dtype = torch.bfloat16) -> Optional[str]:
     """What the card's attention kernels (flash K1, K3, K4 and paged K2)
     take: ``None`` when they take head dim ``d`` at ``q_len`` query rows in
-    ``dtype``, else why not. They take every head dim that is a multiple
-    of 8 from 8 to ``MAX_HEAD_DIM`` (on compile-time column tiles, the
-    columns past d zero), any q_len from 1, and float32 or bfloat16.
-    Other head dims are an open fault against the JAX kernels, which
-    take any (ROADMAP Queue 3)."""
+    ``dtype``, else why not. They take every head dim from 1, any q_len
+    from 1, and float32 or bfloat16. Up to ``TILE_MAX_HEAD_DIM`` a head dim
+    runs on compile-time column tiles with the columns past d zero (bf16
+    flash operands at a head dim that is not a multiple of 8 go through one
+    zero-padded copy, ``flash_attention.pad_head_dim``; K2 runs such a bf16
+    head dim on its wide kernel); above it every family runs its wide
+    kernel (``csrc/attn_wide.cuh``)."""
     if dtype not in (torch.float32, torch.bfloat16):
         return f"dtype {dtype} is not float32/bfloat16"
-    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
-        return (f"head dim {d} is not a multiple of 8 from 8 to "
-                f"{MAX_HEAD_DIM}: the attention kernels do not take it on "
-                f"the card yet (ROADMAP Queue 3)")
+    if d < 1:
+        return f"head dim {d} is not positive"
     if q_len < 1:
         return f"q_len {q_len} is not positive"
     return None
@@ -69,5 +71,5 @@ def prefer_flash_single_device(t: int, device: torch.device) -> bool:
     return torch.device(device).type == "cuda" and t >= FLASH_MIN_T_CUDA
 
 
-__all__ = ["FLASH_MIN_T_CUDA", "MAX_HEAD_DIM", "NEG_INF", "full_attention",
-           "kernel_envelope", "prefer_flash_single_device"]
+__all__ = ["FLASH_MIN_T_CUDA", "NEG_INF", "TILE_MAX_HEAD_DIM",
+           "full_attention", "kernel_envelope", "prefer_flash_single_device"]

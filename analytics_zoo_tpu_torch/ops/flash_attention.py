@@ -19,31 +19,35 @@ Function keeps its own saved tensors, a block checkpointed around it (the
 ``remat="flash"`` mode of ``TransformerLM``) never re-runs K1 in backward —
 what ``FLASH_REMAT_POLICY`` guarantees in JAX.
 
-bf16 runs on the tensor cores: K1 on ``wgmma`` fed by TMA (persistent
-blocks, a producer warpgroup and two consumer warpgroups), K3 and K4 on
-``mma.sync`` over bf16 tiles that ``cp.async`` stages in shared memory;
-f32 runs on FMA kernels. Every head dim that is a multiple of 8 from 8 to
-256 runs on the card (``attention.kernel_envelope``), on the smallest
-compile-time tile that holds it, the columns past it zero.
+bf16 runs on the tensor cores: K1, K3 and K4 on ``wgmma`` fed by TMA
+(persistent blocks, a producer warpgroup and two consumer warpgroups);
+f32 runs on FMA kernels. Every head dim from 1 runs on the card
+(``attention.kernel_envelope``): up to 256 on the smallest compile-time
+tile that holds it, the columns past it zero; above 256, in both dtypes,
+on the wide FMA kernels (``csrc/attn_wide.cuh``). A bf16 head dim up to
+256 that is not a multiple of 8 goes through one zero-padded copy of each
+operand at the next multiple of 8 (:func:`pad_head_dim`), with the scale
+kept at 1/√d of the true d; the outputs' padded columns come out zero and
+are sliced off.
 
 Layout (B, T, H, D) as everywhere in the package. The wrapper takes any
 strides with a contiguous head dim, so q/k/v sliced out of the fused QKV
-projection go in without a copy. A bf16 operand must also start on a
-16-byte boundary with (batch, position, head) strides that are multiples
-of 8 elements: ``cp.async`` moves 16-byte chunks, and TMA's tensor maps
-take no other.
+projection go in without a copy. A bf16 operand of the tensor-core kernels
+must also start on a 16-byte boundary with (batch, position, head) strides
+that are multiples of 8 elements: TMA's tensor maps take no other.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
-from .attention import NEG_INF, kernel_envelope
+from .attention import NEG_INF, TILE_MAX_HEAD_DIM, kernel_envelope
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIG = {"zoo_flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
@@ -57,18 +61,21 @@ _BWD_SIG = {"zoo_flash_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
             + _TAIL}
 
 
+def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = False
+                          causal: bool = False, scale: Optional[float] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What K1 computes, step by step in plain PyTorch: f32 scores, the
-    causal mask on absolute positions, e = exp(s − rowmax) rounded to v's
-    dtype before e·V (as the JAX kernel rounds P; a no-op in f32), divided
-    by the f32 row sum of e, and the row log-sum-exp. Returns ``(out in q's
-    dtype, lse (B, H, Tq) f32)``. Used for CPU tensors and as the kernel's
-    yardstick in tests."""
-    d = q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
-        1.0 / math.sqrt(d))
+    """What K1 computes, step by step in plain PyTorch: f32 scores times
+    ``scale`` (default 1/√d), the causal mask on absolute positions,
+    e = exp(s − rowmax) rounded to v's dtype before e·V (as the JAX kernel
+    rounds P; a no-op in f32), divided by the f32 row sum of e, and the row
+    log-sum-exp. Returns ``(out in q's dtype, lse (B, H, Tq) f32)``. Used
+    for CPU tensors and as the kernel's yardstick in tests."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(
+        q, scale)
     if causal:
         q_pos = torch.arange(q.shape[1], device=q.device)
         k_pos = torch.arange(k.shape[1], device=q.device)
@@ -108,10 +115,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _check_aligned(what: str, **tensors: torch.Tensor) -> None:
-    """bf16 operands feed ``cp.async``'s 16-byte copies: each must start on
-    a 16-byte boundary, and its first three strides ((batch, position,
-    head), or a pool's (page, position, head)), where the dim has more
-    than one entry, must be multiples of 8 elements."""
+    """bf16 operands of the tensor-core kernels feed TMA or ``cp.async``'s
+    16-byte copies: each must start on a 16-byte boundary, and its first
+    three strides ((batch, position, head), or a pool's (page, position,
+    head)), where the dim has more than one entry, must be multiples of 8
+    elements."""
     for name, t in tensors.items():
         if t.dtype != torch.bfloat16:
             continue
@@ -124,6 +132,43 @@ def _check_aligned(what: str, **tensors: torch.Tensor) -> None:
                 f"data_ptr % 16 = {t.data_ptr() % 16}, strides {t.stride()}")
 
 
+def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
+    """The head dim the flash kernels run a head dim ``d`` at: a bf16 head
+    dim up to ``TILE_MAX_HEAD_DIM`` that is not a multiple of 8 rounds up
+    to the next multiple of 8 (the rows of TMA's tiles are whole 16-byte
+    chunks); every other head dim runs as it is."""
+    if dtype == torch.bfloat16 and d % 8 and d <= TILE_MAX_HEAD_DIM:
+        return -(-d // 8) * 8
+    return d
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with its head dim zero-padded to ``width``: one contiguous
+    copy, or ``t`` itself when it has that width. Zero columns change
+    neither Q·Kᵀ nor any kept output column, and the outputs' padded
+    columns come out zero."""
+    return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+
+
+def _prepare(what: str, **tensors: torch.Tensor):
+    """The operands at the kernels' head dim (:func:`kernel_head_dim`),
+    checked for the tensor-core kernels' alignment where they take them.
+    Returns ``(head dim, width, operands)``."""
+    first = next(iter(tensors.values()))
+    d = first.shape[-1]
+    width = kernel_head_dim(d, first.dtype)
+    if width != d:
+        tensors = {n: pad_head_dim(t, width) for n, t in tensors.items()}
+    if width <= TILE_MAX_HEAD_DIM:
+        _check_aligned(what, **tensors)
+    return d, width, tensors.values()
+
+
+def _unpad(t: torch.Tensor, d: int) -> torch.Tensor:
+    """An output's first ``d`` columns (itself when it has no others)."""
+    return t if t.shape[-1] == d else t[..., :d]
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -134,34 +179,34 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal)
     lib = _build.load_library("flash_fwd", _SIG)
     _check(q, k, v)
-    _check_aligned("flash_attention", q=q, k=k, v=v)
-    b, t_q, h, d = q.shape
+    b, t_q, h, _ = q.shape
     t_k = k.shape[1]
-    out = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
+    d, width, (q, k, v) = _prepare("flash_attention", q=q, k=k, v=v)
+    out = torch.empty((b, t_q, h, width), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.zoo_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), _DTYPE_CODES[q.dtype], b, h, t_q, t_k, d,
+        lse.data_ptr(), _DTYPE_CODES[q.dtype], b, h, t_q, t_k, width,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         int(bool(causal)), 1.0 / math.sqrt(d), stream)
     _build.check_launch(err, "flash_attention")
     flash_attention_fwd.launches += 1
-    return out, lse
+    return _unpad(out, d), lse
 
 
 #: K1 launches since the count was last set to 0
 flash_attention_fwd.launches = 0
 
 
-def _bwd_p_ds_plain(q, k, v, g, lse, delta, causal: bool):
+def _bwd_p_ds_plain(q, k, v, g, lse, delta, causal: bool, scale=None):
     """The shared backward tile math of ``_bwd_p_ds``, over whole rows: P
     recomputed from the saved LSE and dS = P∘(dP − δ)·scale, both
     (B, H, Tq, Tk) f32. Storage-dtype operands are multiplied in f32 (a
     bf16×bf16 product is exact there) and summed in f32."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _scale(q, scale)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         q_pos = torch.arange(q.shape[1], device=q.device)
@@ -189,16 +234,18 @@ def _dkv_from(p, ds, q, k, v, g):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, causal=False):
+def flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, causal=False,
+                                 scale=None):
     """What K3 computes: dQ = dS·K with dS rounded to k's dtype first."""
-    _, ds = _bwd_p_ds_plain(q, k, v, g, lse, delta, causal)
+    _, ds = _bwd_p_ds_plain(q, k, v, g, lse, delta, causal, scale)
     return _dq_from(ds, q, k)
 
 
-def flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, causal=False):
+def flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, causal=False,
+                                  scale=None):
     """What K4 computes: dV = Pᵀ·dO and dK = dSᵀ·Q, with P and dS rounded
     to the operand dtype first. Returns ``(dk, dv)``."""
-    p, ds = _bwd_p_ds_plain(q, k, v, g, lse, delta, causal)
+    p, ds = _bwd_p_ds_plain(q, k, v, g, lse, delta, causal, scale)
     return _dkv_from(p, ds, q, k, v, g)
 
 
@@ -233,18 +280,19 @@ def _check_bwd(q, k, v, g, lse, delta) -> None:
             raise ValueError(f"flash_attention_bwd: {name} must be a "
                              f"contiguous (B, H, Tq) f32 CUDA tensor, got "
                              f"{t.dtype}{tuple(t.shape)} on {t.device}")
-    _check_aligned("flash_attention_bwd", q=q, k=k, v=v, g=g)
 
 
-def _bwd_args(q, k, v, g, lse, delta, causal):
-    b, t_q, h, d = q.shape
+def _bwd_args(q, k, v, g, lse, delta, causal, scale):
+    """The C entries' pointers and the rest of their arguments, for
+    operands already at the kernels' head dim."""
+    b, t_q, h, width = q.shape
     strides = []
     for t in (q, k, v, g):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
     return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              lse.data_ptr(), delta.data_ptr()),
-            (_DTYPE_CODES[q.dtype], b, h, t_q, k.shape[1], d, *strides,
-             int(bool(causal)), 1.0 / math.sqrt(d),
+            (_DTYPE_CODES[q.dtype], b, h, t_q, k.shape[1], width, *strides,
+             int(bool(causal)), scale,
              torch.cuda.current_stream(q.device).cuda_stream))
 
 
@@ -259,12 +307,15 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, causal)
     lib = _build.load_library("flash_bwd", _BWD_SIG)
     _check_bwd(q, k, v, g, lse, delta)
+    d, _, (q, k, v, g) = _prepare("flash_attention_bwd", q=q, k=k, v=v,
+                                  g=g)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    ptrs, rest = _bwd_args(q, k, v, g, lse, delta, causal)
+    ptrs, rest = _bwd_args(q, k, v, g, lse, delta, causal,
+                           1.0 / math.sqrt(d))
     err = lib.zoo_flash_bwd_dq(*ptrs, dq.data_ptr(), *rest)
     _build.check_launch(err, "flash_attention_bwd_dq (K3)")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return _unpad(dq, d)
 
 
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
@@ -279,13 +330,16 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, causal)
     lib = _build.load_library("flash_bwd", _BWD_SIG)
     _check_bwd(q, k, v, g, lse, delta)
+    d, _, (q, k, v, g) = _prepare("flash_attention_bwd", q=q, k=k, v=v,
+                                  g=g)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    ptrs, rest = _bwd_args(q, k, v, g, lse, delta, causal)
+    ptrs, rest = _bwd_args(q, k, v, g, lse, delta, causal,
+                           1.0 / math.sqrt(d))
     err = lib.zoo_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *rest)
     _build.check_launch(err, "flash_attention_bwd_dkv (K4)")
     flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 #: K3 / K4 launches since the count was last set to 0
@@ -347,4 +401,5 @@ __all__ = ["FlashAttentionFunction", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_plain",
-           "flash_attention_fwd", "flash_attention_plain", "flash_bwd_delta"]
+           "flash_attention_fwd", "flash_attention_plain", "flash_bwd_delta",
+           "kernel_head_dim", "pad_head_dim"]

@@ -13,7 +13,7 @@ positions ``<= lengths[b] - q_len + i``. Positions past the length are never
 read, and a row with no valid position (an inactive slot, length 0) is 0.
 q_len is 1 at decode and any positive count for the speculative verify
 and prefill chunks (48, 64, 128 in the JAX package's benchmarks); the
-head dim is any multiple of 8 from 8 to 256 (``attention.kernel_envelope``).
+head dim is any from 1 (``attention.kernel_envelope``).
 
 bf16 runs split across the context on the tensor cores: one block per
 (head, slot, span of ``SPLIT_POSITIONS`` positions rounded up to whole
@@ -24,8 +24,12 @@ every launch leaves at 0) are made once per (device, stream) and reused:
 the wrapper runs once per layer and decode step in a host-bound loop, so
 it allocates nothing but the output and adds no launch, sync or pass
 over the data. f32 runs one FMA block per (head, slot, q tile). A bf16
-pool must start 16-byte aligned with (page, position, head) strides that
-are multiples of 8 elements: ``cp.async`` moves 16-byte chunks.
+pool there must start 16-byte aligned with (page, position, head) strides
+that are multiples of 8 elements: ``cp.async`` moves 16-byte chunks.
+Above head dim 256 (both dtypes), and at a bf16 head dim that is not a
+multiple of 8 (whose pool rows are not whole 16-byte chunks; the pool is
+neither copied nor allocated wider for it), K2 runs its wide FMA kernel
+(``csrc/attn_wide.cuh``), which takes any head dim and any strides.
 
 There is no routing switch: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise.
@@ -39,7 +43,7 @@ import math
 import torch
 
 from . import _build
-from .attention import kernel_envelope
+from .attention import TILE_MAX_HEAD_DIM, kernel_envelope
 from .flash_attention import _check_aligned
 from .kv_cache import decode_attention_multi, paged_read
 
@@ -126,7 +130,16 @@ def _check(q, k_pages, v_pages, table, lengths, page_size):
                          f"(B, pages_per_slot) int32 and lengths a (B,) "
                          f"int32; got {table.dtype}{tuple(table.shape)}, "
                          f"{lengths.dtype}{tuple(lengths.shape)}")
-    _check_aligned("paged_attention", k_pages=k_pages, v_pages=v_pages)
+    if _on_tensor_cores(q):
+        _check_aligned("paged_attention", k_pages=k_pages, v_pages=v_pages)
+
+
+def _on_tensor_cores(q: torch.Tensor) -> bool:
+    """Whether K2 runs its bf16 tensor-core kernel (split across the
+    context, with scratch) rather than an FMA kernel for ``q``."""
+    d = q.shape[-1]
+    return q.dtype == torch.bfloat16 and d % 8 == 0 \
+        and d <= TILE_MAX_HEAD_DIM
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -149,7 +162,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     # torch's own compiled kernels read)
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
     span, done, work = 0, None, None
-    if q.dtype == torch.bfloat16:
+    if _on_tensor_cores(q):
         # (m, l, acc) in f32 for each (slot, head, split, row)
         span = page_size * -(-SPLIT_POSITIONS // page_size)
         n_split = -(-(pps * page_size) // span)

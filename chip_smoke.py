@@ -6,8 +6,7 @@ paths on one NVIDIA card.
     python3 chip_smoke.py --quick    # device, build and kernel checks only
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns
     python3 chip_smoke.py --parent _archive/parent   # plus the parent's
-                                     # K1, K2 and K4, timed beside this
-                                     # tree's
+                                     # K1-K4, timed beside this tree's
 
 Phases, each fatal on failure (no result line is printed then):
 
@@ -16,37 +15,43 @@ Phases, each fatal on failure (no result line is printed then):
 2. build: compile every kernel in ``analytics_zoo_tpu_torch/csrc`` with
    nvcc (one process per source, all at once), timed; print ptxas'
    registers and spills per kernel, and check from ``cuobjdump -sass``
-   that K1's bf16 kernel runs on wgmma (HGMMA) fed by TMA (UTMALDG).
+   that the bf16 K1, K3 and K4 run on wgmma (HGMMA) fed by TMA (UTMALDG).
 3. kernels: K1 (flash forward, out + LSE), K2 (paged attention, q_len 1,
    4 and 16, with a zero-length slot; bf16 also at pages of 8 and 32; then
-   q_len 1, 16, 17, 48, 64 and 128, and head dims 16, 32 and 96), K3
+   q_len 1, 16, 17, 48, 64 and 128, and at q_len 1, 17 and 64 head dims
+   16, 32, 96 and the WIDE_D ones 4, 12, 20, 100, 264, 384 and 512), K3
    (flash backward dQ) and K4 (flash backward dK/dV; D in {64, 128}, T in
    {16, 100, 1024} and at the 64-row tile edges {1, 63, 64, 65, 127, 129},
-   causal and not; then the head dims 8, 16, 32, 96, 160 and 256 at the
-   tile edges) against their plain PyTorch versions on the card, f32
-   within 1e-4 and bf16 within 2e-2 (K3/K4 at B 1 and 2, and K1, K3 and K4
-   again at the training shapes B=2 and B=4, T=2048, H=16, D=64, and at
-   B=2 with D=128, causal, bf16); bf16 K1 runs on wgmma fed by TMA, bf16
-   K2-K4 on mma.sync (K2 split across the context), f32 on FMA kernels.
-   Timed with CUDA
+   causal and not; then the head dims 8, 16, 32, 96, 160 and 256 and the
+   WIDE_D ones at the tile edges, K1 too) against their plain PyTorch
+   versions on the card, f32 within 1e-4 and bf16 within 2e-2 (K3/K4 at B
+   1 and 2, and K1, K3 and K4 again at the training shapes B=2 and B=4,
+   T=2048, H=16, D=64, and at B=2 with D=128, causal, bf16, where K3 and
+   K4 called twice must give the same bits); bf16 K1, K3 and K4 run on
+   wgmma fed by TMA, bf16 K2 on mma.sync (split across the context), f32
+   on FMA kernels, head dims above 256 (and K2's bf16 ones off the 8 grid)
+   on the wide FMA kernels. Timed with CUDA
    events (median of 30 launches, 20 for K3/K4, after warm-up, L2 flushed
    before each): the kernel, its plain version, one library call
    computing the same function (a yardstick the port never calls; for
    K3/K4 SDPA's backward, which computes dQ, dK and dV in one call), and
    the bound — the larger of bytes over 3.35 TB/s and operations over the
    peak rate of the inputs' type. K1/K2 are timed at the serving shapes
-   (K2 also at q_len 16 and 64 and on 8 full-length slots, with the
-   wrapper's host microseconds a call), K1 also at the training
-   micro-batch (under ``training_shape``), K3/K4 at the training
-   micro-batch (B=2, the shape the main path launches them at; the
-   kernels line), the whole batch (B=4, under ``whole_batch``) and D=128
-   (``head_dim_128``); with ``--parent`` the parent's K1, K2 and K4 beside
-   them (``parent_ms``, and the parent's wrapper host microseconds for K1
-   and K2). Device-only times (``device_ms``: torch.profiler's device time
-   of the kernels a call launches, the L2 flush's own kernel left out, over
-   20 calls) for K1 and SDPA's forward at the training micro-batch, SDPA's
-   backward, and K2 at decode, q_len 16 and 64 and full context. The
-   sampling kernel (threefry bits,
+   (K2 also at q_len 16 and 64 and on 8 full-length slots), K1 also at
+   the training micro-batch (under ``training_shape``), K3/K4 at the
+   training micro-batch (B=2, the shape the main path launches them at;
+   the kernels line), the whole batch (B=4, under ``whole_batch``) and
+   D=128 (``head_dim_128``), each with the wrapper's host microseconds a
+   call; with ``--parent`` the parent's K1-K4 beside them (``parent_ms``,
+   ``parent_device_ms``, ``parent_host_us``; K1 at the training shape
+   and K3/K4 in turns parent, change, change, parent). Device-only times
+   (``device_ms``: torch.profiler's device time of the kernels a call
+   launches, the L2 flush's own kernel left out, over 20 calls) for K1
+   and SDPA's forward at the training micro-batch, K3, K4 and SDPA's
+   backward, and K2 at decode, q_len 16 and 64 and full context. The wide
+   kernels of K1, K3, K4 (B=1 T=1024 H=16 causal) and K2 (decode) are
+   timed at D=264 and 512 in bf16 (``wide_head``). The sampling kernel
+   (threefry bits,
    Gumbel transform and row argmax fused) must draw its plain version's
    tokens exactly, at the decode step's (8, 32000) logits.
 4. parity: the full-width f32 model on the card (kernels) against the same
@@ -147,6 +152,11 @@ EDGE_T = (1, 63, 64, 65, 127, 129)
 # small LMs 32), and K2's q_len and head-dim grids (the JAX package chunks
 # prefill at 48, 64 and 128)
 MORE_D = (8, 16, 32, 96, 160, 256)
+# head dims off the 8 grid (bf16 K1/K3/K4 through one zero-padded copy, K2
+# on its wide kernel) and past the compile-time tiles (the wide kernels)
+WIDE_D = (4, 12, 20, 100, 264, 384, 512)
+# the wide kernels' timed head dims
+WIDE_TIMED = (264, 512)
 K2_QLEN = (1, 16, 17, 48, 64, 128)
 K2_D = (16, 32, 96)
 # the int8 slice: ResNet-50 (ImageClassifier's default backbone) served by
@@ -206,7 +216,8 @@ class DeviceTimer:
     """Device-only ms per call of ``fn``: torch.profiler's device time of
     the kernels ``n`` calls launch, after warm-up, with the L2 cache
     flushed before each call (the flush's own kernel left out), over
-    ``n``. Unlike the Timer, no host work of the wrapper is in it."""
+    ``n`` (a kernel whose trace lost one event counts the mean of the
+    others). Unlike the Timer, no host work of the wrapper is in it."""
 
     def __init__(self, torch, flush):
         from torch.profiler import ProfilerActivity, profile
@@ -221,10 +232,13 @@ class DeviceTimer:
     def __call__(self, fn, n: int = 20) -> float:
         for _ in range(3):
             fn()
-        # a trace now and then comes back without some of its device
-        # events: each call launches the same kernels, so a whole trace
-        # holds a multiple of n of them; try again until one does
-        for _ in range(3):
+        # a trace now and then comes back without one of a kernel's
+        # events (seen with K2 at decode: 19 of 20 launches): each call
+        # launches the same kernels, k of each, so a kernel seen c times
+        # counts its mean launch k = round(c / n) times a call, where c is
+        # within one of k n; otherwise try again
+        seen = []
+        for _ in range(5):
             self.torch.cuda.synchronize()
             with self.profile() as prof:
                 for _ in range(n):
@@ -232,10 +246,18 @@ class DeviceTimer:
                     fn()
                 self.torch.cuda.synchronize()
             rows = [r for r in _device_rows(prof)[0] if r[0] not in self.skip]
-            calls = sum(c for _, c, _ in rows)
-            if calls and calls % n == 0:
-                return sum(ms for _, _, ms in rows) / n
-        raise AssertionError("the profiler saw no whole trace of the calls")
+            per_call = 0.0
+            for _, c, ms in rows:
+                k = round(c / n)
+                if k == 0 or abs(c - k * n) > 1:
+                    break
+                per_call += ms / c * k
+            else:
+                if rows:
+                    return per_call
+            seen.append([(name[:60], c) for name, c, _ in rows])
+        raise AssertionError(f"the profiler saw no whole trace of {n} calls:"
+                             f" kernels and counts seen {seen}")
 
 
 def maxerr(a, b) -> float:
@@ -259,7 +281,7 @@ def phase_device(torch):
 def load_parent(path):
     """``--parent DIR``: the port package of another checkout (the parent
     commit, unpacked with ``git archive``), imported as ``parent_port``
-    beside this one, so that its K2 and K4 are timed in the same process,
+    beside this one, so that its K1-K4 are timed in the same process,
     on the same inputs, by the same Timer. Its kernels build from its own
     sources into its own ``_build/``."""
     import importlib
@@ -286,7 +308,7 @@ def phase_build(parent=None):
     t0 = time.perf_counter()
     errors = []
     if parent is not None:
-        # the parent's K1, K2 and K4 sources build beside this checkout's
+        # the parent's K1-K4 sources build beside this checkout's
         def build_parent():
             try:
                 parent.build.build(["flash_fwd", "flash_bwd",
@@ -313,31 +335,35 @@ def phase_build(parent=None):
                 entry = _kernel_label(m.group(1))
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name} {entry}: {line.strip()}")
-    check_k1_sass(_build)
+    for lib, kernels in (("flash_fwd", ("flash_fwd_wgmma_kernel",)),
+                         ("flash_bwd", ("flash_bwd_dq_wgmma_kernel",
+                                        "flash_bwd_dkv_wgmma_kernel"))):
+        check_wgmma_sass(_build, lib, kernels)
 
 
-def check_k1_sass(_build):
-    """K1's bf16 kernel must run on wgmma (HGMMA) fed by TMA (UTMALDG):
-    read from ``cuobjdump -sass`` of the built library."""
+def check_wgmma_sass(_build, lib: str, kernels):
+    """The bf16 K1, K3 and K4 must run on wgmma (HGMMA) fed by TMA
+    (UTMALDG): read from ``cuobjdump -sass`` of the built library, every
+    compiled instance of each of ``kernels``."""
     cuobjdump = str(Path(_build.nvcc_path()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass",
-                           str(_build.library_path("flash_fwd"))],
+                           str(_build.library_path(lib))],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    found = {}
+    found = {k: [] for k in kernels}
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0].strip()
-        if "flash_fwd_wgmma_kernel" in name:
-            found[_kernel_label(name)] = (part.count("HGMMA"),
-                                          part.count("UTMALDG"))
-    log(f"[build] flash_fwd SASS (HGMMA, UTMALDG) per wgmma kernel: {found}")
-    if not found or not all(a and b for a, b in found.values()):
-        raise AssertionError("K1's bf16 kernel does not run on HGMMA fed by "
-                             "UTMALDG")
+        for k in kernels:
+            if k in name:
+                found[k].append((part.count("HGMMA"), part.count("UTMALDG")))
+    log(f"[build] {lib} SASS (HGMMA, UTMALDG) per instance: {found}")
+    for k, counts in found.items():
+        if not counts or not all(a and b for a, b in counts):
+            raise AssertionError(f"{k} does not run on HGMMA fed by UTMALDG")
 
 
 def _kernel_label(mangled: str) -> str:
-    """'flash_bwd_dq_kernel<bf16,64>' (or 'gumbel_max_kernel', not a
+    """'flash_bwd_dq_kernel<f32,64>' (or 'gumbel_max_kernel', not a
     template) from a mangled entry name."""
     m = re.search(r"([a-z][a-z_]*_kernel)(I?)", mangled)
     if m and not m.group(2):
@@ -358,7 +384,8 @@ def check_k1(torch, timer, dtimer, parent=None):
     dts = ("float32", "bfloat16")
     cases = [(t, 64, dt, True) for t in (16, 100, 1024) for dt in dts]
     cases += [(100, 128, dt, True) for dt in dts]
-    cases += [(t, d, dt, causal) for t in EDGE_T for d in (64, 128) + MORE_D
+    cases += [(t, d, dt, causal) for t in EDGE_T
+              for d in (64, 128) + MORE_D + WIDE_D
               for dt in dts for causal in (False, True)]
     for t, d, dt, causal in cases:
         dtype = getattr(torch, dt)
@@ -422,21 +449,9 @@ def check_k1(torch, timer, dtimer, parent=None):
         raise AssertionError(f"K1 disagrees with its plain version at the "
                              f"training shape: {e_train:.3g}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    # parent, change, change, parent, each device-only and in the Timer
-    turns = [("change", lambda: flash_attention_fwd(q, k, v, True))]
-    if parent is not None:
-        pk = parent.flash.flash_attention_fwd
-        turns = [("parent", lambda: pk(q, k, v, True))] + turns * 2 + [
-            ("parent", lambda: pk(q, k, v, True))]
-    dev = {"change": [], "parent": []}
-    tim = {"change": [], "parent": []}
-    for who, fn in turns:
-        dev[who].append(dtimer(fn))
-        tim[who].append(timer(fn))
-    dev_t = statistics.median(dev["change"])
-    ms_t = statistics.median(tim["change"])
-    parent_t = statistics.median(tim["parent"]) if parent else None
-    parent_dev_t = statistics.median(dev["parent"]) if parent else None
+    tt = in_turns(timer, dtimer, lambda: flash_attention_fwd(q, k, v, True),
+                  parent and (lambda: parent.flash.flash_attention_fwd(
+                      q, k, v, True)))
     plain_t = timer(lambda: flash_attention_plain(q, k, v, True), n=5)
     lib_t = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                          is_causal=True))
@@ -445,10 +460,11 @@ def check_k1(torch, timer, dtimer, parent=None):
     b_t, by_t = bound_ms(4 * b * t * N_HEAD * d * elt + b * N_HEAD * t * 4,
                          4 * b * N_HEAD * d * (t * (t + 1) // 2), dt)
     label = f"B={b} T={t} H={N_HEAD} D={d}"
-    log(f"[K1] {label} causal {dt} (training shape): {ms_t:.4f} ms, device "
-        f"{dev_t:.4f} ms (turns {dev['change']}; parent {parent_t}, device "
-        f"{parent_dev_t} (turns {dev['parent']}); plain {plain_t:.4f}, "
-        f"bound {b_t:.5f} by {by_t}), SDPA forward {lib_t:.4f} ms, device "
+    log(f"[K1] {label} causal {dt} (training shape): {tt['ms']:.4f} ms, "
+        f"device {tt['device_ms']:.4f} ms (turns {tt['device_ms_turns']}; "
+        f"parent {tt['parent_ms']}, device {tt['parent_device_ms']} (turns "
+        f"{tt['parent_device_ms_turns']}); plain {plain_t:.4f}, bound "
+        f"{b_t:.5f} by {by_t}), SDPA forward {lib_t:.4f} ms, device "
         f"{lib_dev_t:.4f} ms; max err {e_train:.3g}")
     return {"name": "flash_fwd", "route": "cuda",
             "source": "analytics_zoo_tpu_torch/csrc/flash_fwd.cu",
@@ -462,13 +478,30 @@ def check_k1(torch, timer, dtimer, parent=None):
             "parent_host_us": parent_hus,
             "shape": f"B=1 T=1024 H={N_HEAD} D={d} causal", "dtype": dt,
             "training_shape": {
-                "max_abs_err": e_train, "ms": ms_t, "device_ms": dev_t,
-                "device_ms_turns": dev["change"], "plain_ms": plain_t,
+                "max_abs_err": e_train, **tt, "plain_ms": plain_t,
                 "bound_ms": b_t, "bound_by": by_t, "library_ms": lib_t,
-                "library_device_ms": lib_dev_t, "parent_ms": parent_t,
-                "parent_device_ms": parent_dev_t,
-                "parent_device_ms_turns": dev["parent"],
+                "library_device_ms": lib_dev_t,
                 "shape": f"{label} causal", "dtype": dt}}
+
+
+def in_turns(timer, dtimer, fn, parent_fn=None, n: int = 30):
+    """``fn`` timed device-only (``dtimer``) and in the Timer (``n``
+    launches); with ``parent_fn``, in turns parent, change, change, parent
+    on the same card in one process. Returns the medians and each turn's
+    device time."""
+    turns = [("change", fn)]
+    if parent_fn is not None:
+        turns = [("parent", parent_fn)] + turns * 2 + [("parent", parent_fn)]
+    dev = {"change": [], "parent": []}
+    tim = {"change": [], "parent": []}
+    for who, f in turns:
+        dev[who].append(dtimer(f))
+        tim[who].append(timer(f, n=n))
+    med = lambda xs: statistics.median(xs) if xs else None  # noqa: E731
+    return {"ms": med(tim["change"]), "device_ms": med(dev["change"]),
+            "device_ms_turns": dev["change"], "parent_ms": med(tim["parent"]),
+            "parent_device_ms": med(dev["parent"]),
+            "parent_device_ms_turns": dev["parent"]}
 
 
 def _k2_case(torch, gen, lengths, q_len, page=PAGE, dtype="bfloat16",
@@ -530,7 +563,7 @@ def check_k2(torch, timer, dtimer, parent=None):
               for dt, q_len, page in checks]
     checks += [(dt, q_len, PAGE, d) for dt in ("float32", "bfloat16")
                for q_len, d in [(n, HIDDEN // N_HEAD) for n in K2_QLEN]
-               + [(n, d) for d in K2_D for n in (1, 17, 64)]]
+               + [(n, d) for d in K2_D + WIDE_D for n in (1, 17, 64)]]
     for dt, q_len, page, d in checks:
         lens = [max(n, q_len) if n else 0 for n in lengths]
         case = _k2_case(torch, gen, lens, q_len, page, dt, d)
@@ -667,10 +700,12 @@ def _train_shape_bwd(torch, timer, dtimer, gen, b, d=HIDDEN // N_HEAD,
                      parent=None):
     """K1, K3 and K4 at one training shape (B=b, T=2048, H=16, D=d,
     causal, bf16, q/k/v strided out of one fused QKV tensor): held to
-    their plain versions with the grid's tolerances, then K3/K4 timed
-    beside their plain versions, SDPA's backward, their bounds and
-    (``--parent``) the parent's K4; K3, K4 and SDPA's backward also
-    device-only."""
+    their plain versions with the grid's tolerances, K3 and K4 called
+    twice on the same inputs must give the same bits, then K3/K4 timed
+    (Timer and device-only; with ``--parent`` in turns with the parent's
+    K3 and K4) beside their plain versions, SDPA's backward (also
+    device-only), their bounds and each wrapper's host microseconds (and
+    the parent's)."""
     import torch.nn.functional as F
 
     from analytics_zoo_tpu_torch.ops.flash_attention import (
@@ -694,12 +729,25 @@ def _train_shape_bwd(torch, timer, dtimer, gen, b, d=HIDDEN // N_HEAD,
                              f"{label} {dt}")
     err3, err4 = _check_bwd_case(torch, case, True, dt,
                                  f"{label} (training shape)")
-    ms3 = timer(lambda: flash_attention_bwd_dq(*case, True), n=20)
-    ms4 = timer(lambda: flash_attention_bwd_dkv(*case, True), n=20)
-    parent4 = None
+    k3 = lambda: flash_attention_bwd_dq(*case, True)     # noqa: E731
+    k4 = lambda: flash_attention_bwd_dkv(*case, True)    # noqa: E731
+    first, again = ((k3(), *k4()) for _ in range(2))
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError(f"K3/K4 gave other bits on a repeated call at "
+                             f"{label}")
+    del first, again
+    p3 = p4 = None
     if parent is not None:
-        parent4 = timer(lambda: parent.flash.flash_attention_bwd_dkv(
-            *case, True), n=20)
+        p3 = lambda: parent.flash.flash_attention_bwd_dq(   # noqa: E731
+            *case, True)
+        p4 = lambda: parent.flash.flash_attention_bwd_dkv(  # noqa: E731
+            *case, True)
+    t3 = in_turns(timer, dtimer, k3, p3, n=20)
+    t4 = in_turns(timer, dtimer, k4, p4, n=20)
+    hus = host_us([k3, k4] + ([p3, p4] if parent else []))
+    t3["host_us"], t4["host_us"] = hus[:2]
+    t3["parent_host_us"], t4["parent_host_us"] = (hus[2:] if parent
+                                                  else (None, None))
     plain3 = timer(lambda: flash_attention_bwd_dq_plain(*case, True), n=5)
     plain4 = timer(lambda: flash_attention_bwd_dkv_plain(*case, True), n=5)
     # the library yardstick: SDPA's backward (dQ, dK and dV in one call),
@@ -713,26 +761,28 @@ def _train_shape_bwd(torch, timer, dtimer, gen, b, d=HIDDEN // N_HEAD,
     lib_dev = dtimer(lambda: torch.autograd.grad(o, (qt, kt, vt), go,
                                                  retain_graph=True))
     del o
-    dev3 = dtimer(lambda: flash_attention_bwd_dq(*case, True))
-    dev4 = dtimer(lambda: flash_attention_bwd_dkv(*case, True))
     pairs = b * N_HEAD * (t * (t + 1) // 2)
     elt = 2
     tens = b * t * N_HEAD * d * elt                 # one (B, T, H, D) tensor
     rows = 2 * b * N_HEAD * t * 4                   # lse and delta, f32
     b3, by3 = bound_ms(5 * tens + rows, 6 * d * pairs, dt)
     b4, by4 = bound_ms(6 * tens + rows, 8 * d * pairs, dt)
-    log(f"[K3/K4] {label} causal {dt}: K3 {ms3:.4f} ms, device {dev3:.4f} "
-        f"(plain {plain3:.4f}, bound {b3:.5f} by {by3}), K4 {ms4:.4f} ms, "
-        f"device {dev4:.4f} (parent {parent4}, plain {plain4:.4f}, bound "
-        f"{b4:.5f} by {by4}), SDPA backward {lib:.4f} ms, device "
-        f"{lib_dev:.4f}")
+    for name, t, plain, bms, by in (("K3", t3, plain3, b3, by3),
+                                    ("K4", t4, plain4, b4, by4)):
+        log(f"[K3/K4] {label} causal {dt}: {name} {t['ms']:.4f} ms, device "
+            f"{t['device_ms']:.4f} (turns {t['device_ms_turns']}; parent "
+            f"{t['parent_ms']}, device {t['parent_device_ms']} (turns "
+            f"{t['parent_device_ms_turns']}); plain {plain:.4f}, bound "
+            f"{bms:.5f} by {by}); wrapper host {t['host_us']:.1f} us "
+            f"(parent {t['parent_host_us']})")
+    log(f"[K3/K4] {label} causal {dt}: SDPA backward {lib:.4f} ms, device "
+        f"{lib_dev:.4f}; K3 + K4 device {t3['device_ms'] + t4['device_ms']:.4f}")
     common = {"library_ms": lib, "library_device_ms": lib_dev,
               "shape": f"{label} causal", "dtype": dt}
-    return ({"max_abs_err": err3, "ms": ms3, "device_ms": dev3,
-             "plain_ms": plain3, "bound_ms": b3, "bound_by": by3, **common},
-            {"max_abs_err": err4, "ms": ms4, "device_ms": dev4,
-             "plain_ms": plain4, "bound_ms": b4, "bound_by": by4,
-             "parent_ms": parent4, **common})
+    return ({"max_abs_err": err3, **t3, "plain_ms": plain3, "bound_ms": b3,
+             "bound_by": by3, **common},
+            {"max_abs_err": err4, **t4, "plain_ms": plain4, "bound_ms": b4,
+             "bound_by": by4, **common})
 
 
 def check_k3_k4(torch, timer, dtimer, parent=None):
@@ -745,7 +795,7 @@ def check_k3_k4(torch, timer, dtimer, parent=None):
     gen = torch.Generator(device="cuda").manual_seed(6)
     grid = [(b, d, t) for b in (1, 2) for d in (64, 128)
             for t in (16, 100, 1024) + (EDGE_T if b == 2 else ())]
-    grid += [(2, d, t) for d in MORE_D for t in EDGE_T]
+    grid += [(2, d, t) for d in MORE_D + WIDE_D for t in EDGE_T]
     for b, d, t in grid:
         for causal in (False, True):
             for dt in ("float32", "bfloat16"):
@@ -778,6 +828,95 @@ def check_k3_k4(torch, timer, dtimer, parent=None):
                           "flash_bwd_dkv_kernel"),
          "launches": None, **k4, "library_note": lib_note,
          "whole_batch": w4, "head_dim_128": h4}]
+
+
+def check_wide(torch, timer, dtimer):
+    """The wide-head kernels of K1, K3, K4 and K2 (head dims past the
+    compile-time tiles) at WIDE_TIMED head dims, bf16: K1/K3/K4 at the
+    serving prefill's B=1 T=1024 H=16 causal, K2 at the decode shape (q_len
+    1, a half-full ladder); each held to its plain version and timed
+    (Timer and device-only) beside it, its bound and one library call
+    (SDPA's forward or backward; for K2 SDPA over the gathered K/V).
+    Returns ``{kernel name: {"D=<d>": {...}}}``."""
+    import torch.nn.functional as F
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    from analytics_zoo_tpu_torch.ops.kv_cache import paged_read
+    from analytics_zoo_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, t, dt, elt = 1, 1024, "bfloat16", 2
+    pairs = b * N_HEAD * (t * (t + 1) // 2)
+    found = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {},
+             "paged_attention": {}}
+    for d in WIDE_TIMED:
+        case = _bwd_case(torch, gen, b, t, d, torch.bfloat16, True)
+        q, k, v, g, lse, delta = case
+        tens = b * t * N_HEAD * d * elt
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        go = g.transpose(1, 2)
+        sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True)
+        sdpa_bwd = lambda: torch.autograd.grad(             # noqa: E731
+            o, (qt, kt, vt), go, retain_graph=True)
+        rows = [
+            ("flash_fwd", lambda: fa.flash_attention_fwd(q, k, v, True)[0],
+             lambda: fa.flash_attention_plain(q, k, v, True)[0],
+             4 * tens, 4 * d * pairs, sdpa_fwd),
+            ("flash_bwd_dq", lambda: fa.flash_attention_bwd_dq(*case, True),
+             lambda: fa.flash_attention_bwd_dq_plain(*case, True),
+             5 * tens, 6 * d * pairs, sdpa_bwd),
+            ("flash_bwd_dkv",
+             lambda: fa.flash_attention_bwd_dkv(*case, True)[0],
+             lambda: fa.flash_attention_bwd_dkv_plain(*case, True)[0],
+             6 * tens, 8 * d * pairs, sdpa_bwd)]
+        for name, fn, plain_fn, nbytes, flops, lib_fn in rows:
+            err = _rel_err(fn(), plain_fn())
+            if err > TOL[dt]:
+                raise AssertionError(f"{name} (wide) disagrees with its "
+                                     f"plain version at D={d}: {err:.3g}")
+            bms, by = bound_ms(nbytes + 2 * b * N_HEAD * t * 4, flops, dt)
+            found[name][f"D={d}"] = {
+                "max_rel_err": err, "ms": timer(fn, n=10),
+                "device_ms": dtimer(fn, n=5), "plain_ms": timer(plain_fn, n=3),
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": timer(lib_fn, n=10),
+                "shape": f"B={b} T={t} H={N_HEAD} D={d} causal", "dtype": dt}
+        del o, case, q, k, v, g, qt, kt, vt
+        kc = _k2_case(torch, torch.Generator().manual_seed(2), None, 1, d=d)
+        qp, kp, vp, table, lens = kc
+        fn = lambda: paged_attention(*kc, page_size=PAGE)           # noqa
+        plain_fn = lambda: paged_attention_plain(*kc, page_size=PAGE)  # noqa
+        err = maxerr(fn(), plain_fn())
+        if err > TOL[dt]:
+            raise AssertionError(f"K2 (wide) disagrees with its plain "
+                                 f"version at D={d}: {err:.3g}")
+        ks, vs = paged_read(kp, table), paged_read(vp, table)
+        mask = (torch.arange(ks.shape[1], device="cuda")[None, None, :]
+                < lens.long()[:, None, None])[:, None]
+        n_valid = int(lens.sum())
+        bms, by = bound_ms(2 * n_valid * N_HEAD * d * elt
+                           + 2 * N_SLOTS * N_HEAD * d * elt,
+                           4 * N_HEAD * d * n_valid, dt)
+        found["paged_attention"][f"D={d}"] = {
+            "max_abs_err": err, "ms": timer(fn), "device_ms": dtimer(fn),
+            "plain_ms": timer(plain_fn, n=5), "bound_ms": bms,
+            "bound_by": by, "library_ms": timer(
+                lambda: F.scaled_dot_product_attention(
+                    qp.transpose(1, 2), ks.transpose(1, 2),
+                    vs.transpose(1, 2), attn_mask=mask)),
+            "shape": (f"slots={N_SLOTS} pps={MAX_SEQ // PAGE} page={PAGE} "
+                      f"H={N_HEAD} D={d} q_len=1 lengths={lens.tolist()}"),
+            "dtype": dt}
+    for name, by_d in found.items():
+        for key, r in by_d.items():
+            log(f"[wide] {name} {key} {r['shape'].split(' lengths')[0]} bf16:"
+                f" {r['ms']:.4f} ms, device {r['device_ms']:.4f} (plain "
+                f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} by "
+                f"{r['bound_by']}), library {r['library_ms']:.4f} ms")
+    return found
 
 
 # operations per element of the sampling kernel: threefry2x32 (2 + 20 x 3
@@ -1707,7 +1846,7 @@ def main(argv=None) -> int:
                          "where the device time goes")
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout of the repo (e.g. the parent "
-                         "commit from git archive): time its K1, K2 and K4 "
+                         "commit from git archive): time its K1-K4 "
                          "beside this one's, in this process")
     args = ap.parse_args(argv)
     try:
@@ -1735,6 +1874,10 @@ def main(argv=None) -> int:
                    *check_k3_k4(torch, timer, dtimer, parent),
                    check_sampler(torch, timer),
                    check_k5(torch, timer), check_k6(torch, timer)]
+        wide = check_wide(torch, timer, dtimer)
+        for k in kernels:
+            if k["name"] in wide:
+                k["wide_head"] = wide[k["name"]]
         del timer, dtimer
         if not args.quick:
             gpu_model = full_model(torch, "cuda")

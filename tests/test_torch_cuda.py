@@ -12,14 +12,16 @@ tile edge (T = 1, 63, 64, 65, 127, 129), with Tq != Tk both ways, at
 D = 64 and 128 and on q/k/v strided out of one fused QKV tensor; the bf16
 tensor-core kernels (K1, K3, K4, and K2 split across the context) must
 give the same bits twice and refuse a view their 16-byte copies cannot
-take. The bf16 K4 is held over D in {64, 128}, causal or not, T in {1, 63,
-64, 65, 127, 129, 2048} and Tq != Tk both ways; K2 over q_len {1, 4, 16},
-pages of 8, 16 and 32 positions and lengths at 0, 1, q_len, on and around
-each split boundary and at the full 1024. Every head dim that is a
-multiple of 8 up to 256 runs K1-K4 (8, 16, 24, 32, 96, 160 and 256 over
-the tile edges, causal or not; D = 20 is refused), and K2 runs at q_len
-1, 16, 17, 48, 64 and 128 over head dims 16, 32, 64, 96 and 256. The
-small model runs its
+take; the wgmma K3 and K4 give the same bits twice at the training
+shape too. The bf16 K4 is held over D in {64, 128}, causal or not, T in
+{1, 63, 64, 65, 127, 129, 2048} and Tq != Tk both ways; K2 over q_len
+{1, 4, 16}, pages of 8, 16 and 32 positions and lengths at 0, 1, q_len, on
+and around each split boundary and at the full 1024. Every head dim runs
+K1-K4: 4, 8, 12, 16, 20, 24, 32, 96, 100, 160, 256, 264, 384 and 512 over
+the tile edges, causal or not (off the 8 grid through the bf16 pad route,
+above 256 on the wide kernels), and K2 runs at q_len 1, 16, 17, 48, 64 and
+128 over head dims 16, 32, 64, 96 and 256, and at q_len 1, 17 and 64 over
+4, 12, 20, 100, 264, 384 and 512. The small model runs its
 cache-threaded path on the card (K1, K2) against the same seeded model on
 the CPU (plain versions), f32 logits within 1e-4; the sampling kernel
 draws the plain version's tokens exactly; it trains on the card (K1, K3,
@@ -44,8 +46,11 @@ pytestmark = pytest.mark.cuda
 TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 #: sequence lengths at and around the 64-row tiles of the flash kernels
 EDGE_T = (1, 63, 64, 65, 127, 129)
-#: head dims besides 64 and 128 (every multiple of 8 up to 256 runs)
-MORE_D = (8, 16, 24, 32, 96, 160, 256)
+#: head dims besides 64 and 128 (every head dim runs): multiples of 8 on
+#: the compile-time tiles, others off the 8 grid, and past the tiles (the
+#: wide kernels)
+WIDE_D = (4, 12, 20, 100, 264, 384, 512)
+MORE_D = (8, 16, 24, 32, 96, 160, 256) + WIDE_D
 
 
 @pytest.fixture()
@@ -98,8 +103,8 @@ def test_flash_kernel_takes_strided_qkv_and_rejects_bad_input(cuda):
     out = tfa.flash_attention(q, k, v, True)
     ref, _ = tfa.flash_attention_plain(q, k, v, True)
     assert float((out - ref).abs().max()) <= 1e-4
-    with pytest.raises(ValueError, match="head dim 20 .*Queue 3"):
-        x = torch.randn((1, 8, 2, 20), device=cuda)
+    with pytest.raises(ValueError, match="head dim 0 is not positive"):
+        x = torch.randn((1, 8, 2, 0), device=cuda)
         tfa.flash_attention(x, x, x)
     with pytest.raises(ValueError, match="dtype"):
         x = torch.randn((1, 8, 2, 64), device=cuda, dtype=torch.float16)
@@ -175,11 +180,35 @@ def test_paged_kernel_at_any_q_len_and_head_dim_matches_plain(
     assert float(out[0].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("q_len", [1, 17, 64])
+@pytest.mark.parametrize("d", WIDE_D)
+def test_paged_kernel_at_every_head_dim_matches_plain(cuda, dtype, tol,
+                                                      q_len, d):
+    """K2 at head dims off the 8 grid (bf16 there runs the wide kernel: the
+    pool's rows are not whole 16-byte chunks) and past the compile-time
+    tiles (the wide kernel in both dtypes)."""
+    lengths = [0, q_len, q_len + 1, 127, 129, 257, 640, 1024]
+    lengths = [max(n, q_len) if n else 0 for n in lengths]
+    case = tpa.synthetic_paged_case(
+        len(lengths), 64, 16, 4, d, q_len=q_len, dtype=dtype,
+        lengths=lengths, device=cuda,
+        generator=torch.Generator().manual_seed(q_len + d))
+    before = tpa.paged_attention.launches
+    out = tpa.paged_attention(*case, page_size=16)
+    ref = tpa.paged_attention_plain(*case, page_size=16)
+    torch.cuda.synchronize()
+    assert tpa.paged_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert float(out[0].abs().max()) == 0.0
+
+
 def test_paged_kernel_rejects_bad_input(cuda):
     q, kp, vp, table, lens = tpa.synthetic_paged_case(
         2, 4, 16, 2, 64, q_len=17, device=cuda)
-    x = tpa.synthetic_paged_case(2, 4, 16, 2, 20, q_len=17, device=cuda)
-    with pytest.raises(ValueError, match="head dim 20 .*Queue 3"):
+    x = tpa.synthetic_paged_case(2, 4, 16, 2, 0, q_len=17, device=cuda)
+    with pytest.raises(ValueError, match="head dim 0 is not positive"):
         tpa.paged_attention(*x, page_size=16)
     with pytest.raises(ValueError, match="int32"):
         tpa.paged_attention(q[:, :1], kp, vp, table.long(), lens,
@@ -321,8 +350,9 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, tol, t, t_k, d,
 def test_flash_kernels_at_every_head_dim_match_plain(cuda, dtype, tol, d, t,
                                                      causal):
     """K1, K3 and K4 at head dims besides 64 and 128 (run on the smallest
-    tile of 32, 64, 128 or 256 columns that holds them), q/k/v strided out
-    of one fused QKV tensor; backward errors relative to
+    tile of 32, 64, 128 or 256 columns that holds them, bf16 off the 8
+    grid through one zero-padded copy, and above 256 on the wide kernels),
+    q/k/v strided out of one fused QKV tensor; backward errors relative to
     max(1, max|plain|)."""
     q, k, v, go, lse, delta = _bwd_case(cuda, dtype, t, d, causal,
                                         seed=t + d, fused=True)
@@ -347,7 +377,7 @@ def test_flash_kernels_at_every_head_dim_match_plain(cuda, dtype, tol, d, t,
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("t", [*EDGE_T, 2048])
 def test_bf16_dkv_tensor_core_kernel_matches_plain(cuda, d, causal, t):
-    """The bf16 K4 (mma.sync, keys owned per warp, Q/dO streamed) against
+    """The bf16 K4 (wgmma, keys owned per warpgroup, Q/dO streamed) against
     its plain version on q/k/v strided out of one fused QKV tensor, errors
     relative to max(1, max|plain|)."""
     case = _bwd_case(cuda, torch.bfloat16, t, d, causal, seed=t + d,
@@ -393,6 +423,26 @@ def test_bf16_flash_kernels_give_the_same_bits_twice(cuda):
              *tfa.flash_attention_bwd_dkv(q, k, v, go, lse, delta, True),
              tpa.paged_attention(*paged, page_size=16))
             for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_bf16_backward_kernels_give_the_same_bits_at_the_training_shape(cuda,
+                                                                        d):
+    """The wgmma K3 and K4 write every dQ, dK and dV element once, summed
+    in a fixed order by one warpgroup: two launches at T=2048 (many items
+    a persistent block) give bitwise-equal results."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    qkv = torch.randn((2, 2048, 3, 4, d), generator=g, device=cuda).to(
+        torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    out, lse = tfa.flash_attention_fwd(q, k, v, True)
+    go = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
+    case = (q, k, v, go, lse, tfa.flash_bwd_delta(out, go))
+    runs = [(tfa.flash_attention_bwd_dq(*case, True),
+             *tfa.flash_attention_bwd_dkv(*case, True)) for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)

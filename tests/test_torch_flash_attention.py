@@ -101,12 +101,13 @@ def test_plain_rounds_probabilities_like_jax_kernel_bf16(block):
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [24, 32, 96])
+@pytest.mark.parametrize("d", [12, 24, 32, 96, 264])
 def test_plain_matches_jax_kernel_at_other_head_dims(d, causal, dtype, tol):
     """Head dims besides 64 and 128 (examples/transformer_lm.py has 16,
-    bench.py's small LMs 32): the plain version, which the card's kernels
-    are held to at every multiple of 8 up to 256, agrees with the Pallas
-    kernel in one tile and across 16-wide tiles."""
+    bench.py's small LMs 32; 12 is not a multiple of 8 and 264 is past the
+    kernels' compile-time tiles): the plain version, which the card's
+    kernels are held to at every head dim, agrees with the Pallas kernel
+    in one tile and across 16-wide tiles."""
     q, k, v = _qkv(32, d=d, seed=d + causal)
     for block in (None, 16):
         want_out, want_lse = _jax_out_lse(q, k, v, causal, block=block,
@@ -118,22 +119,84 @@ def test_plain_matches_jax_kernel_at_other_head_dims(d, causal, dtype, tol):
 
 
 def test_kernel_envelope_takes_every_multiple_of_8_up_to_256():
-    """The head dims, q_len and dtypes the card's attention kernels take:
-    every multiple of 8 from 8 to 256 at any q_len, in f32 and bf16; any
-    other head dim is refused naming the open fault (ROADMAP Queue 3)."""
-    from analytics_zoo_tpu_torch.ops.attention import (MAX_HEAD_DIM,
-                                                       kernel_envelope)
+    """Every multiple of 8 from 8 to 256 at any q_len, in f32 and bf16, is
+    still taken; the head dims this test once saw refused (not a multiple
+    of 8, or above 256) are taken too, and only a head dim below 1, a
+    q_len below 1 or another dtype is refused."""
+    from analytics_zoo_tpu_torch.ops.attention import kernel_envelope
 
-    assert MAX_HEAD_DIM == 256
     for dtype in (torch.float32, torch.bfloat16):
         for d in range(8, 257, 8):
             for q_len in (1, 16, 17, 48, 64, 128, 2048):
                 assert kernel_envelope(d, q_len, dtype) is None
-        for d in [x for x in range(0, 300) if x % 8 or x > 256 or x == 0]:
-            why = kernel_envelope(d, 1, dtype)
-            assert why is not None and "Queue 3" in why, (d, why)
+        for d in [x for x in range(1, 300) if x % 8 or x > 256]:
+            assert kernel_envelope(d, 1, dtype) is None, d
+        assert "not positive" in kernel_envelope(0, 1, dtype)
         assert "q_len" in kernel_envelope(64, 0, dtype)
     assert "dtype" in kernel_envelope(64, 1, torch.float16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_len", [1, 17, 128, 2048])
+def test_kernel_envelope_takes_every_head_dim(dtype, q_len):
+    """The card's attention kernels (K1-K4) take every head dim from 1 to
+    well past 512 at any q_len, as the JAX kernels take any; the
+    compile-time tiles end at 256 and the wide kernels take the rest."""
+    from analytics_zoo_tpu_torch.ops.attention import (TILE_MAX_HEAD_DIM,
+                                                       kernel_envelope)
+
+    assert TILE_MAX_HEAD_DIM == 256
+    for d in range(1, 1025):
+        assert kernel_envelope(d, q_len, dtype) is None, d
+    for d in (0, -8):
+        assert "not positive" in kernel_envelope(d, q_len, dtype)
+
+
+def test_kernel_head_dim_pads_only_bf16_head_dims_off_the_8_grid():
+    """bf16 head dims up to 256 that are not a multiple of 8 run at the
+    next multiple of 8 (TMA moves whole 16-byte rows); f32, the multiples
+    of 8 and the wide head dims run as they are."""
+    for d in range(1, 600):
+        w = tfa.kernel_head_dim(d, torch.bfloat16)
+        if d % 8 and d <= 256:
+            assert w % 8 == 0 and d < w < d + 8, (d, w)
+        else:
+            assert w == d
+        assert tfa.kernel_head_dim(d, torch.float32) == d
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [4, 12, 20, 100])
+def test_pad_path_slices_back_to_the_unpadded_result(d, causal):
+    """The route of a bf16 head dim that is not a multiple of 8, in plain
+    code: q, k, v and dO zero-padded to ``kernel_head_dim``, the forward
+    and both backward halves run at the true d's scale, the outputs'
+    padded columns exactly zero and their first d columns (and the LSE)
+    the unpadded result's. Computed in f32, where only the summation order
+    differs."""
+    w = tfa.kernel_head_dim(d, torch.bfloat16)
+    rng = np.random.default_rng(d)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(2, 19, 2, d)).astype(
+        np.float32)) for _ in range(4))
+    pad = lambda t: tfa.pad_head_dim(t, w)        # noqa: E731
+    assert pad(q).shape == (2, 19, 2, w) and pad(q).is_contiguous()
+    assert tfa.pad_head_dim(q, d) is q
+    scale = 1.0 / np.sqrt(d)
+    out, lse = tfa.flash_attention_plain(q, k, v, causal)
+    out_p, lse_p = tfa.flash_attention_plain(pad(q), pad(k), pad(v), causal,
+                                             scale=scale)
+    delta = tfa.flash_bwd_delta(out, g)
+    grads = (tfa.flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, causal),
+             *tfa.flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta,
+                                                causal))
+    args = (pad(q), pad(k), pad(v), pad(g), lse, delta, causal)
+    grads_p = (tfa.flash_attention_bwd_dq_plain(*args, scale=scale),
+               *tfa.flash_attention_bwd_dkv_plain(*args, scale=scale))
+    assert float((lse_p - lse).abs().max()) <= TOL
+    for want, got in ((out, out_p), *zip(grads, grads_p)):
+        assert got.shape[-1] == w
+        assert float(got[..., d:].abs().max()) == 0.0
+        assert float((got[..., :d] - want).abs().max()) <= TOL
 
 
 def test_wrapper_on_cpu_takes_plain_version_without_launching():

@@ -72,10 +72,11 @@ def test_plain_backward_matches_jax_kernel_vjp(dtype, causal, t, block):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [24, 32, 96])
+@pytest.mark.parametrize("d", [12, 24, 32, 96, 264])
 def test_plain_backward_matches_jax_kernel_vjp_at_other_head_dims(dtype,
                                                                   causal, d):
-    """K3/K4's plain versions at head dims besides 64 and 128, against the
+    """K3/K4's plain versions at head dims besides 64 and 128 (12 off the
+    8 grid, 264 past the compile-time tiles), against the
     VJP through the Pallas kernels across 8-wide tiles."""
     q, k, v, g = _case(32, dtype, d=d, seed=d + causal)
     _, vjp = jax.vjp(lambda *a: jflash(*a, causal, 8, 8, True),

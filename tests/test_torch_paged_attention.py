@@ -2,7 +2,8 @@
 
 On the CPU: the plain version against the JAX package's Pallas kernel run in
 interpret mode, on the JAX fixture's serving-cache layouts at q_len 1, 4 and
-16 and at the prefill chunk widths 48 and 64 (max |diff| <= 1e-5 in f32 and
+16, at the prefill chunk widths 48 and 64 and at head dims 12 and 264
+(max |diff| <= 1e-5 in f32 and
 <= 2e-2 in bf16; zero-length slots exactly 0), and the wrapper's routing.
 The kernel itself is held against its plain version on the card by
 ``tests/test_torch_cuda.py``.
@@ -72,6 +73,25 @@ def test_plain_matches_jax_kernel_at_prefill_chunk_widths(q_len, dtype, tol):
                       np.float32)
     got = tpa.paged_attention_plain(*_to_torch(case), page_size=PAGE)
     assert got.shape == (len(lengths), q_len, H, D)
+    assert float(np.abs(want - got.float().numpy()).max()) <= tol
+    assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", TOL), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("q_len", [1, 17])
+@pytest.mark.parametrize("d", [12, 264])
+def test_plain_matches_jax_kernel_at_any_head_dim(d, q_len, dtype, tol):
+    """Head dims off the 8 grid (12; the card runs K2's wide kernel there
+    in bf16) and past the compile-time tiles (264, the wide kernel in both
+    dtypes): the plain version agrees with the Pallas kernel."""
+    lengths = [0, q_len, q_len + 5, 2 * PPS * PAGE]
+    case = jcase(len(lengths), 2 * PPS, PAGE, H, d, q_len=q_len,
+                 lengths=lengths,
+                 dtype=getattr(jnp, dtype), rng=np.random.default_rng(d))
+    want = np.asarray(jpaged(*case, page_size=PAGE, interpret=True),
+                      np.float32)
+    got = tpa.paged_attention_plain(*_to_torch(case), page_size=PAGE)
+    assert got.shape == (len(lengths), q_len, H, d)
     assert float(np.abs(want - got.float().numpy()).max()) <= tol
     assert float(got[0].abs().max()) == 0.0
 
