@@ -13,24 +13,36 @@
 // they quantize to 0, so their scale never matters. x in f32 or bf16, y
 // (B, Ho, Wo, Cout) in x's dtype.
 //
-// What bounds it on the H100: 2 * B * Ho * Wo * Cout * KH * KW * Cin integer
-// operations against 1979 TOP/s of int8 tensor cores at ResNet-50's 3x3
-// convs; the 1x1 convs at 7 px and the stem sit nearer the bytes (x, Wq and
-// y once).
+// What bounds it on the H100: the bytes (x, the weights and y once) at
+// ResNet-50's convs at batch 32 (51 MB, 15.3 us at the 3x3/1 64->64 at 56
+// px); 2 * B * Ho * Wo * Cout * KH * KW * Cin integer operations against
+// 1979 TOP/s come second.
 //
-// What the simple design does: one block per (64 output pixels of the
-// flattened B x Ho x Wo, 64 output channels), so every block owns its
-// outputs, nothing is carried between blocks, and the small late-stage
-// images (7, 14 px) fill whole tiles. It walks the taps in order; per tap it
-// finds each row's input pixel (or the zero padding) and takes its abs-max
-// over the whole Cin (a warp per pixel, a thread at Cin <= 8), then walks
-// Cin in 64-wide chunks (4-wide at Cin <= 4: the stem's 3 channels),
-// quantizing the pixels as it loads them into shared memory and __dp4a-ing
-// them against the tap's (Cin, Cout) int8 slice into int32 partials,
-// rescaled into the f32 accumulator at the tap's end. One launch: no
-// quantized activation and no padded copy of x reaches device memory. A
-// pixel's scale is recomputed for every tap that reads it, and tensor cores
-// are later work.
+// The design (int8_tile.cuh): two launches on the caller's stream.
+// - The quantize pass codes every input pixel once: one row of cp bytes
+//   (Cin rounded up to 32, the pad zero) and one f32 scale a pixel, to the
+//   scratch the wrapper passes. x in f32 is read once (4 bytes a value)
+//   and its codes (1 byte) are what the taps read back: at the 3x3/1
+//   64->64 at 56 px, batch 32, 25.7 MB of x read, 6.4 MB of codes and 0.4
+//   MB of scales written, then read by 9 taps mostly from L2, where the
+//   __dp4a kernel this replaces took each pixel's abs-max and divided it
+//   again at each of the 9 taps. A 1x1 conv with no padding codes only the
+//   pixels it reads (B x Ho x Wo rows: a quarter at stride 2) and runs as a
+//   matmul with one segment.
+// - The tensor-core GEMM is an implicit GEMM: rows are the output pixels
+//   (B x Ho x Wo flattened), columns Cout, and the segments the taps, each
+//   walked in 64-byte chunks of Cin; a row's chunk is its input pixel's at
+//   that tap, zero-filled by cp.async on the padding. Each tap's int32
+//   partial is folded into the f32 accumulator with the pixel's scale.
+// - Cin <= 4 (the stem's 3 channels): padding to 32 would multiply the
+//   work by 8, so the codes keep one 32-bit word a pixel and a __dp4a
+//   kernel walks the taps (conv_dp4a_kernel). At the 7x7/2 stem, batch
+//   32, on the H100 (scripts/torch_int8_variants.py --stem-tc): the
+//   tensor-core path on channels padded to 8 took 0.73 ms device, this
+//   kernel 0.32 (4 x 16 outputs a thread; 8 x 4 took 0.50). What bounds
+//   it is the fold: 49 taps x 3 f32 operations an output.
+// The weights come kernel-major, (KH, KW, Cout, Cin) with Cin padded to cp
+// (`packed["qt"]`, made once where the layer is packed).
 #include <stdint.h>
 
 #include "int8_tile.cuh"
@@ -39,159 +51,208 @@ namespace {
 
 using namespace zoo::i8;
 
+// named for the profiler: K6's instances of the shared kernels
+struct ConvTaps : TapGather {};
+struct ConvRows : RowGather {};
+struct ConvPixels : SameRows {};
+struct ConvStrided : StridedPixels {};
+
 struct ConvShape {
   int B, H, W, Cin, Ho, Wo, Cout, KH, KW, sh, sw, pt, pl;
 };
 
-template <typename T, int BK>
-__global__ void __launch_bounds__(kThreads)
-    int8_conv_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
+// the codes' bytes a pixel
+int pitch_of(int cin) { return cin <= 4 ? 4 : depth_of(cin); }
+
+// a 1x1 window that never reads the padding codes only the pixels it reads
+bool direct_rows(const ConvShape& s) {
+  return s.Cin > 4 && s.KH == 1 && s.KW == 1 && s.pt == 0 && s.pl == 0 &&
+         (long long)(s.Ho - 1) * s.sh < s.H &&
+         (long long)(s.Wo - 1) * s.sw < s.W;
+}
+
+// the scratch rows the quantize pass codes
+long long scratch_rows(const ConvShape& s) {
+  return direct_rows(s) ? (long long)s.B * s.Ho * s.Wo
+                        : (long long)s.B * s.H * s.W;
+}
+
+// the Cin <= 4 kernel's block: 256 threads, 64 output channels, each
+// thread kRPT rows x kCPT columns
+constexpr int kStemCols = 64, kStemThreads = 256, kRPT = 4, kCPT = 16;
+constexpr int kTX = kStemCols / kCPT, kTY = kStemThreads / kTX;
+constexpr int kStemRows = kTY * kRPT;
+constexpr int kStemMaxK = 32;  // window rows and columns a mask holds
+constexpr int kStemMaxSmem = 227 * 1024;  // the weights of a window
+
+// Cin <= 4: each thread owns kRPT x kCPT outputs of a kStemRows x 64 tile
+// (rows ty + kTY i, columns tx + kTX j). A row keeps its window's first
+// input pixel and two masks of the window rows and columns that fall on
+// the image, so a tap costs a row one add, two bit tests and two loads
+// (its code word and scale: L1 hits, the kTX threads of a row share them);
+// the tap's weights come from shared memory, one word a column; the tap's
+// __dp4a partial starts at kMagic, so one subtraction converts it.
+template <typename T>
+__global__ void __launch_bounds__(kStemThreads)
+    conv_dp4a_kernel(const ConvTaps g, const int8_t* __restrict__ wt,
                      const float* __restrict__ ws, T* __restrict__ y,
-                     ConvShape s, int rule, float recip) {
-  __shared__ Tile<BK> t;
-  __shared__ const T* px[kBM];  // this tap's input pixel of each row, or null
+                     int KH, int Cin, int Cout) {
+  extern __shared__ int wsm[];  // [tap][kStemCols], Cin bytes a word
   const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const long long n_px = (long long)s.B * s.Ho * s.Wo;
-  const long long p0 = (long long)blockIdx.x * kBM;  // first output pixel
-  const int n0 = blockIdx.y * kBN;
-
-  float acc[4][4];
-  int part[4][4];
+  const int tx = tid % kTX, ty = tid / kTX;
+  const long long m0 = (long long)blockIdx.x * kStemRows;
+  const int n0 = blockIdx.y * kStemCols;
+  const int KW = g.KW;
+  for (int idx = tid; idx < KH * KW * kStemCols; idx += kStemThreads) {
+    const int t = idx / kStemCols, n = n0 + idx % kStemCols;
+    uint32_t w = 0;
+    if (n < Cout)
+      for (int c = 0; c < Cin; ++c)
+        w |= (uint32_t)(uint8_t)wt[(t * Cout + n) * Cin + c] << (8 * c);
+    wsm[idx] = (int)w;
+  }
+  int base[kRPT];
+  uint32_t hmask[kRPT], wmask[kRPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kRPT; ++i) {
+    const typename ConvTaps::Row r = g.row(m0 + ty + kTY * i);
+    base[i] = r.pix0 + r.hi0 * g.W + r.wi0;
+    hmask[i] = wmask[i] = 0;
+    for (int k = 0; k < KH; ++k)
+      hmask[i] |= (uint32_t)((unsigned)(r.hi0 + k) < (unsigned)g.H) << k;
+    for (int k = 0; k < KW; ++k)
+      wmask[i] |= (uint32_t)((unsigned)(r.wi0 + k) < (unsigned)g.W) << k;
+  }
+  __syncthreads();
+  const int* cw = reinterpret_cast<const int*>(g.codes);
+  float acc[kRPT][kCPT];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[i][j] = 0.f;
-      part[i][j] = 0;
-    }
-
-  for (int kh = 0; kh < s.KH; ++kh) {
-    for (int kw = 0; kw < s.KW; ++kw) {
-      // 1. each row's input pixel at this tap, and its abs-max over the
-      //    whole Cin (a thread per pixel at a small Cin, else a warp)
-      if (tid < kBM) {
-        const long long p = p0 + tid;
-        const T* ptr = nullptr;
-        if (p < n_px) {
-          const int b = (int)(p / ((long long)s.Ho * s.Wo));
-          const int rem = (int)(p % ((long long)s.Ho * s.Wo));
-          const int hi = (rem / s.Wo) * s.sh + kh - s.pt;
-          const int wi = (rem % s.Wo) * s.sw + kw - s.pl;
-          if (hi >= 0 && hi < s.H && wi >= 0 && wi < s.W)
-            ptr = x + (((long long)b * s.H + hi) * s.W + wi) * s.Cin;
-        }
-        px[tid] = ptr;
+  for (int i = 0; i < kRPT; ++i)
+#pragma unroll
+    for (int j = 0; j < kCPT; ++j) acc[i][j] = 0.f;
+  for (int kh = 0; kh < KH; ++kh) {
+    for (int kw = 0; kw < KW; ++kw) {
+      const int* wrow = wsm + (kh * KW + kw) * kStemCols + tx;
+      int w[kCPT];
+#pragma unroll
+      for (int j = 0; j < kCPT; ++j) w[j] = wrow[kTX * j];
+#pragma unroll
+      for (int i = 0; i < kRPT; ++i) {
+        const bool ok = (hmask[i] >> kh) & (wmask[i] >> kw) & 1u;
+        const int p = base[i] + kh * g.W + kw;
+        const int a = ok ? __ldg(cw + p) : 0;
+        const float s = ok ? __ldg(g.scales + p) : 0.f;
+#pragma unroll
+        for (int j = 0; j < kCPT; ++j)
+          acc[i][j] = __fadd_rn(
+              acc[i][j],
+              __fmul_rn(part_to_f(__dp4a(a, w[j], kMagic), true), s));
       }
-      __syncthreads();
-      if (s.Cin <= 8) {
-        if (tid < kBM) {
-          float amax = 0.f;
-          if (px[tid] != nullptr)
-            for (int c = 0; c < s.Cin; ++c)
-              amax = fmaxf(amax, fabsf(zoo::to_f(px[tid][c])));
-          t.scale[tid] = group_scale(amax, rule, recip);
-        }
-      } else {
-        for (int r = warp; r < kBM; r += kWarps) {
-          float amax = 0.f;
-          if (px[r] != nullptr)
-            for (int c = lane; c < s.Cin; c += 32)
-              amax = fmaxf(amax, fabsf(zoo::to_f(px[r][c])));
-          amax = zoo::warp_max(amax);
-          if (lane == 0) t.scale[r] = group_scale(amax, rule, recip);
-        }
-      }
-      const int8_t* wt = wq + (long long)(kh * s.KW + kw) * s.Cin * s.Cout;
-      for (int c0 = 0; c0 < s.Cin; c0 += BK) {
-        __syncthreads();  // scales written; the previous chunk consumed
-        // 2. quantize the pixels' chunk, stage the weights as [n][k]
-        for (int idx = tid; idx < kBM * BK; idx += kThreads) {
-          const int r = idx / BK;
-          const int c = idx % BK;
-          int8_t q = 0;
-          if (px[r] != nullptr && c0 + c < s.Cin)
-            q = quantize(zoo::to_f(px[r][c0 + c]), t.scale[r]);
-          bytes(t.a[r])[c] = q;
-        }
-        for (int idx = tid; idx < BK * kBN; idx += kThreads) {
-          const int kk = idx / kBN;
-          const int n = idx % kBN;
-          int8_t w = 0;
-          if (c0 + kk < s.Cin && n0 + n < s.Cout)
-            w = wt[(long long)(c0 + kk) * s.Cout + n0 + n];
-          bytes(t.b[n])[kk] = w;
-        }
-        __syncthreads();
-        // 3. int32 products over the chunk
-        tile_dot(t, ty, tx, part);
-      }
-      // 4. the tap's partial, rescaled by each pixel's scale
-      fold(t, ty, part, acc);
-      __syncthreads();  // the next tap overwrites px and t.scale
     }
   }
-  // 5. the channel scale on writeback (NHWC: pixel-major)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long p = p0 + ty + 16 * i;
-    if (p >= n_px) continue;
+  for (int i = 0; i < kRPT; ++i) {
+    const long long m = m0 + ty + kTY * i;
+    if (m >= g.M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < s.Cout)
-        y[p * s.Cout + n] = zoo::from_f<T>(__fmul_rn(acc[i][j], ws[n]));
+    for (int j = 0; j < kCPT; ++j) {
+      const int n = n0 + tx + kTX * j;
+      if (n < Cout)
+        y[m * Cout + n] = zoo::from_f<T>(__fmul_rn(acc[i][j], ws[n]));
     }
   }
 }
 
 template <typename T>
-void launch(const void* x, const int8_t* wq, const float* ws, void* y,
-            const ConvShape& s, int rule, float recip, cudaStream_t stream) {
-  const long long n_px = (long long)s.B * s.Ho * s.Wo;
-  dim3 grid((unsigned)((n_px + kBM - 1) / kBM), (s.Cout + kBN - 1) / kBN);
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-  if (s.Cin <= 4)  // the stem's 3 channels: a 4-wide chunk, not 64
-    int8_conv_kernel<T, 4><<<grid, kThreads, 0, stream>>>(xt, wq, ws, yt, s,
-                                                          rule, recip);
-  else
-    int8_conv_kernel<T, kBK><<<grid, kThreads, 0, stream>>>(xt, wq, ws, yt, s,
-                                                            rule, recip);
+cudaError_t run(const T* x, const int8_t* wt, const float* ws, T* y,
+                int8_t* codes, float* scales, const ConvShape& s, int rule,
+                float recip, cudaStream_t st) {
+  const int cp = pitch_of(s.Cin);
+  const long long n_out = (long long)s.B * s.Ho * s.Wo;
+  if (direct_rows(s)) {
+    // at stride 1 the pixels it reads are all of them, in order
+    cudaError_t err =
+        s.sh == 1 && s.sw == 1
+            ? launch_quantize(x, codes, scales, ConvPixels{{(int)n_out}},
+                              s.Cin, s.Cin, cp, rule, recip, st)
+            : launch_quantize(x, codes, scales,
+                              ConvStrided{{(int)n_out, s.Wo, s.Ho * s.Wo,
+                                           s.sh, s.sw, s.W, s.H * s.W}},
+                              s.Cin, s.Cin, cp, rule, recip, st);
+    if (err != cudaSuccess) return err;
+    const ConvRows rows{{codes, scales, n_out, 1, cp}};
+    const Operands op{wt, cp, 0, ws, s.Cout, 1, cp};
+    return launch_gemm(rows, op, y, st);
+  }
+  const ConvPixels map{{s.B * s.H * s.W}};
+  cudaError_t err =
+      launch_quantize(x, codes, scales, map, s.Cin, s.Cin, cp, rule, recip,
+                      st);
+  if (err != cudaSuccess) return err;
+  const ConvTaps taps{{codes, scales, n_out, s.H, s.W, s.Ho, s.Wo, s.KW, s.sh,
+                       s.sw, s.pt, s.pl, cp}};
+  const int n_taps = s.KH * s.KW;
+  if (s.Cin <= 4) {
+    // the grant is the most any window takes: it caps every launch's
+    static std::atomic<uint64_t> granted{0};
+    auto kernel = conv_dp4a_kernel<T>;
+    const int smem = n_taps * kStemCols * 4;
+    err = zoo::mma::grant_smem(kernel, kStemMaxSmem, granted);
+    if (err != cudaSuccess) return err;
+    const long long mt = (n_out + kStemRows - 1) / kStemRows;
+    const int nt = (s.Cout + kStemCols - 1) / kStemCols;
+    if (mt > 2147483647LL || nt > 65535) return cudaErrorInvalidValue;
+    kernel<<<dim3((unsigned)mt, (unsigned)nt), kStemThreads, smem, st>>>(
+        taps, wt, ws, y, s.KH, s.Cin, s.Cout);
+    return cudaGetLastError();
+  }
+  const Operands op{wt, cp, (long long)s.Cout * cp, ws, s.Cout, n_taps, cp};
+  return launch_gemm(taps, op, y, st);
 }
 
 }  // namespace
 
 // x (B, H, W, Cin) and y (B, Ho, Wo, Cout) contiguous in the dtype `dtype`
-// (0 f32, 1 bf16); wq (KH, KW, Cin, Cout) int8 and ws (Cout,) f32
-// contiguous. Strides sh, sw >= 1; pad_top/pad_left place the window (the
-// bottom/right padding follows from Ho, Wo). rule 0: scale = max(amax,
-// 1e-12) * recip; rule 1: / 127. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for arguments it does not take).
-extern "C" int zoo_int8_conv(const void* x, const void* wq, const void* ws,
-                             void* y, int dtype, int B, int H, int W, int Cin,
-                             int Ho, int Wo, int Cout, int KH, int KW, int sh,
-                             int sw, int pad_top, int pad_left, int rule,
-                             float recip, void* stream) {
+// (0 f32, 1 bf16); wt (KH, KW, Cout, wp) int8, the weights kernel-major,
+// with wp = Cin at Cin <= 4 and the codes' pitch (Cin rounded up to 32,
+// the pad zero) above; ws (Cout,) f32; the scratch codes (rows, pitch)
+// int8 and scales (rows,) f32, all contiguous and 16-byte aligned: rows
+// B * Ho * Wo for a 1x1 window at Cin > 4 that reads no padding (it codes
+// only the pixels it reads), else B * H * W; pitch 4 at Cin <= 4, else Cin
+// rounded up to 32. The caller's rows and pitch must be these. Strides
+// sh, sw >= 1; pad_top/pad_left place the window (the bottom/right padding
+// follows from Ho, Wo). rule 0: scale = max(amax, 1e-12) * recip; rule 1:
+// / 127. Returns the first CUDA error of the two launches
+// (cudaErrorInvalidValue for arguments it does not take).
+extern "C" int zoo_int8_conv(const void* x, const void* wt, const void* ws,
+                             void* y, void* codes, void* scales, int dtype,
+                             int B, int H, int W, int Cin, int Ho, int Wo,
+                             int Cout, int KH, int KW, int sh, int sw,
+                             int pad_top, int pad_left, int rule, float recip,
+                             long long rows, int pitch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* w = static_cast<const int8_t*>(wq);
+  const int8_t* w = static_cast<const int8_t*>(wt);
   const float* sc = static_cast<const float*>(ws);
-  const ConvShape s{B,  H,  W,  Cin, Ho, Wo,      Cout,
-                    KH, KW, sh, sw,  pad_top, pad_left};
+  int8_t* c = static_cast<int8_t*>(codes);
+  float* s = static_cast<float*>(scales);
+  const ConvShape shape{B,  H,  W,  Cin, Ho, Wo,      Cout,
+                        KH, KW, sh, sw,  pad_top, pad_left};
   if (B < 1 || H < 1 || W < 1 || Cin < 1 || Ho < 1 || Wo < 1 || Cout < 1 ||
       KH < 1 || KW < 1 || sh < 1 || sw < 1 || pad_top < 0 || pad_left < 0 ||
-      ((long long)B * Ho * Wo + kBM - 1) / kBM > 2147483647LL ||
-      (Cout + kBN - 1) / kBN > 65535 ||
-      (long long)Cin * 127 * 127 > 2147483647LL || (rule != 0 && rule != 1))
+      (long long)B * H * W > 2147483647LL ||
+      (long long)B * Ho * Wo > 2147483647LL ||
+      (long long)Cin * 127 * 127 > 2147483647LL ||
+      (Cin <= 4 && (KH > kStemMaxK || KW > kStemMaxK ||
+                    KH * KW * kStemCols * 4 > kStemMaxSmem)) ||
+      (rule != 0 && rule != 1) || rows != scratch_rows(shape) ||
+      pitch != pitch_of(Cin))
     return (int)cudaErrorInvalidValue;
   if (dtype == zoo::kF32)
-    launch<float>(x, w, sc, y, s, rule, recip, st);
-  else if (dtype == zoo::kBF16)
-    launch<__nv_bfloat16>(x, w, sc, y, s, rule, recip, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)run(static_cast<const float*>(x), w, sc,
+                    static_cast<float*>(y), c, s, shape, rule, recip, st);
+  if (dtype == zoo::kBF16)
+    return (int)run(static_cast<const __nv_bfloat16*>(x), w, sc,
+                    static_cast<__nv_bfloat16*>(y), c, s, shape, rule, recip,
+                    st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -332,7 +332,7 @@ class InferenceModel:
         params = {n: p.detach() for n, p in module.named_parameters()}
         state = {}
         for n, b in module.named_buffers():
-            (params if n.endswith(("kernel_q", "kernel_scale"))
+            (params if n.endswith(("kernel_q", "kernel_scale", "kernel_qt"))
              else state)[n] = b
 
         def apply_fn(p, s, x):

@@ -5,7 +5,9 @@ Parameters keep the JAX names and layout: ``kernel`` (in, out) and
 ``bias``. After ``InferenceModel.quantize_int8`` packs a Dense, its
 ``kernel`` parameter is replaced by the buffers ``kernel_q`` (int8) and
 ``kernel_scale`` (f32, per output channel) and the forward runs the int8
-matmul (``ops/int8.py``: K5 on the card).
+matmul (``ops/int8.py``: K5 on the card). A third, non-persistent buffer,
+``kernel_qt``, holds ``kernel_q`` kernel-major for the kernels, so state
+dicts and the bridge see only the first two.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from torch import nn
 
 from ...ops.int8 import int8_matmul
+from ...ops.int8_fused import kernel_major
 from ..activations import get_activation
 from ..module import Layer, as_compute, get_initializer
 
@@ -40,17 +43,28 @@ class Int8Kernel:
 
     @property
     def packed_kernel(self):
-        return {"q": self.kernel_q, "scale": self.kernel_scale}
+        """``{"q", "scale", "qt"}``; ``qt`` is made again when ``kernel_q``
+        was replaced or written since (``load_state_dict``, ``to``, a
+        functional call with other weights)."""
+        q = self.kernel_q
+        stamp = (q.data_ptr(), q._version)
+        if self.__dict__.get("_qt_stamp") != stamp:
+            self._buffers["kernel_qt"] = kernel_major(q)
+            self._qt_stamp = stamp
+        return {"q": q, "scale": self.kernel_scale, "qt": self.kernel_qt}
 
     def pack_int8(self, packed) -> None:
         """Replace the float ``kernel`` by ``quantize_weight``'s numpy
-        packing, as buffers on the kernel's device."""
+        packing, as buffers on the kernel's device, and its kernel-major
+        copy (``ops/int8_fused.kernel_major``) as a non-persistent one."""
         dev = self.kernel.device
         del self.kernel
-        self.register_buffer("kernel_q", torch.from_numpy(
-            np.ascontiguousarray(packed["q"])).to(dev))
+        q = torch.from_numpy(np.ascontiguousarray(packed["q"])).to(dev)
+        self.register_buffer("kernel_q", q)
         self.register_buffer("kernel_scale", torch.from_numpy(
             np.ascontiguousarray(packed["scale"])).to(dev))
+        self.register_buffer("kernel_qt", kernel_major(q), persistent=False)
+        self._qt_stamp = (q.data_ptr(), q._version)
 
 
 class Dense(Int8Kernel, Layer):

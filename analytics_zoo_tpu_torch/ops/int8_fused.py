@@ -27,6 +27,14 @@ fused route, K on the lax one) and K6 the stride and the rule. There is no
 routing switch: CPU tensors take the plain versions, CUDA tensors launch
 the kernel or raise.
 
+On the card each wrapper call is two launches on the current stream (one
+count): a quantize pass that writes every activation's int8 code and every
+group's scale once to scratch from ``torch.empty`` (each group padded with
+zero codes to ``DEPTH`` bytes; a conv's pixels at 4 bytes when Cin <= 4),
+then the int8 tensor-core product, which reads the weights kernel-major
+(k contiguous: :func:`kernel_major`, made once where a layer is packed and
+passed as ``packed["qt"]``; made per call when the dict has none).
+
 The plain versions compute the integer products in float64, which is exact
 (|sum| <= 127^2 * K < 2^53) and runs on CUDA too, then round to f32 as
 ``part.astype(f32)`` does, and fold segments and taps in JAX's order with
@@ -56,13 +64,21 @@ _RULE_CODES = {"fused": 0, "lax": 1}
 _RECIP127 = float(np.float32(1.0 / 127.0))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GROUP = (2 ** 31 - 1) // (127 * 127)    # int32 partials cannot overflow
+_STEM_MAX_K = 32      # K6's window at Cin <= 4: rows and columns of a mask
 # serving threads launch concurrently; a count must not lose an increment
 _COUNT_LOCK = threading.Lock()
 
-_SIG_MM = {"zoo_int8_matmul": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+#: bytes of k one int8 tensor-core product takes: a scale group's codes
+#: and weights are padded with zeros to a multiple of it
+DEPTH = 32
+
+_SIG_MM = {"zoo_int8_matmul": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+           + [ctypes.c_float, ctypes.c_void_p],
+           "zoo_int8_quantize": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
            + [ctypes.c_float, ctypes.c_void_p]}
-_SIG_CONV = {"zoo_int8_conv": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
-             + [ctypes.c_float, ctypes.c_void_p]}
+_SIG_CONV = {"zoo_int8_conv": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
+             + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_void_p]}
 
 
 def _pow2_floor(v: int) -> int:
@@ -125,6 +141,62 @@ def quantize_groups(xf: torch.Tensor, rule: str
     return q, scale
 
 
+def depth_of(n: int) -> int:
+    """``n`` rounded up to a multiple of :data:`DEPTH`."""
+    return -(-int(n) // DEPTH) * DEPTH
+
+
+def kernel_major(wq: torch.Tensor) -> torch.Tensor:
+    """The int8 weights with k contiguous, as the tensor cores take them:
+    (K, N) -> (N, K) and (KH, KW, Cin, Cout) -> (KH, KW, Cout, Cin)."""
+    return wq.transpose(-1, -2).contiguous()
+
+
+def quantize_rows_plain(x2: torch.Tensor, g: int, rule: str
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the kernels' quantize pass writes for the rows of ``x2`` (R,
+    L): int8 codes (R, L / g * depth_of(g)), each group's codes followed by
+    zeros to ``depth_of(g)`` bytes, and f32 scales (R, L / g), by
+    :func:`quantize_groups`."""
+    _check_rule(rule)
+    r, k = x2.shape
+    if k % g:
+        raise ValueError(f"group {g} does not divide {k}")
+    q, scale = quantize_groups(x2.float().reshape(r, k // g, g), rule)
+    codes = F.pad(q.to(torch.int8), (0, depth_of(g) - g))
+    return codes.reshape(r, -1), scale.reshape(r, k // g)
+
+
+def int8_quantize_rows(x2: torch.Tensor, g: int, rule: str = "fused"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' quantize pass alone, for checking it: CPU tensors take
+    :func:`quantize_rows_plain`, CUDA tensors launch the pass K5 launches
+    or raise."""
+    if x2.device.type == "cpu":
+        return quantize_rows_plain(x2, g, rule)
+    _check_rule(rule)
+    lib = _build.load_library("int8_matmul", _SIG_MM)
+    if x2.device.type != "cuda" or x2.dtype not in _DTYPE_CODES \
+            or x2.dim() != 2 or x2.shape[0] == 0:
+        raise ValueError(f"int8_quantize_rows: x must be a non-empty 2-d "
+                         f"float32/bfloat16 CUDA tensor, got {x2.dtype}"
+                         f"{tuple(x2.shape)} on {x2.device}")
+    r, k = x2.shape
+    if not 1 <= g <= _MAX_GROUP or k % g:
+        raise ValueError(f"int8_quantize_rows: group {g} must divide {k} "
+                         f"and be at most {_MAX_GROUP}")
+    x2 = x2.contiguous()
+    codes = torch.empty((r, k // g * depth_of(g)), dtype=torch.int8,
+                        device=x2.device)
+    scales = torch.empty((r, k // g), dtype=torch.float32, device=x2.device)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    err = lib.zoo_int8_quantize(x2.data_ptr(), codes.data_ptr(),
+                                scales.data_ptr(), _DTYPE_CODES[x2.dtype], r,
+                                k, g, _RULE_CODES[rule], _RECIP127, stream)
+    _build.check_launch(err, "int8_quantize_rows")
+    return codes, scales
+
+
 # ----------------------------------------------------------------- K5 matmul
 
 def int8_matmul_fused_plain(x: torch.Tensor, packed: Dict[str, torch.Tensor],
@@ -171,6 +243,24 @@ def _check_packed(packed, ndim: int, what: str, dev) -> Tuple[torch.Tensor,
     return wq, ws
 
 
+def _weights_kernel_major(packed, wq: torch.Tensor, what: str
+                          ) -> torch.Tensor:
+    """``packed["qt"]`` checked against ``kernel_major(q)``'s geometry, or
+    that copy made now when the dict has none."""
+    qt = packed.get("qt")
+    if qt is None:
+        return kernel_major(wq)
+    want = wq.shape[:-2] + (wq.shape[-1], wq.shape[-2])
+    if qt.dtype != torch.int8 or tuple(qt.shape) != tuple(want) \
+            or not qt.is_contiguous() or qt.device != wq.device \
+            or qt.data_ptr() % 16:
+        raise ValueError(f"{what}: packed['qt'] must be q kernel-major, a "
+                         f"contiguous 16-byte aligned int8 {tuple(want)} on "
+                         f"{wq.device}, got {qt.dtype}{tuple(qt.shape)} on "
+                         f"{qt.device}")
+    return qt
+
+
 def int8_matmul_fused(x: torch.Tensor, packed: Dict[str, torch.Tensor],
                       block_k: int, rule: str = "fused") -> torch.Tensor:
     """``x @ W`` over a packed (K, N) int8 kernel with the activations
@@ -193,18 +283,38 @@ def int8_matmul_fused(x: torch.Tensor, packed: Dict[str, torch.Tensor],
         raise ValueError(f"int8_matmul_fused: block_k {block_k} must divide "
                          f"K={k} and be at most {_MAX_GROUP}")
     lead = tuple(x.shape[:-1])
-    m = math.prod(lead)
-    y = torch.empty(lead + (n,), dtype=x.dtype, device=x.device)
-    if m == 0:
-        return y
-    x2 = x.reshape(m, k).contiguous()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.zoo_int8_matmul(x2.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-                              y.data_ptr(), _DTYPE_CODES[x.dtype], m, n, k,
-                              block_k, _RULE_CODES[rule], _RECIP127, stream)
-    _build.check_launch(err, "int8_matmul_fused")
+    if math.prod(lead) == 0:
+        return torch.empty(lead + (n,), dtype=x.dtype, device=x.device)
+    qt = _weights_kernel_major(packed, wq, "int8_matmul_fused")
+    y = _matmul_on(lib, x.reshape(-1, k), qt, ws, block_k, rule)
     with _COUNT_LOCK:
         int8_matmul_fused.launches += 1
+    return y.reshape(lead + (n,))
+
+
+def _matmul_on(lib, x2: torch.Tensor, qt: torch.Tensor, ws: torch.Tensor,
+               block_k: int, rule: str) -> torch.Tensor:
+    """K5's launch through ``lib``'s C entry (this tree's library, or an
+    edited copy's in ``scripts/torch_int8_variants.py``): x2 (M, K) on the
+    card, qt the kernel-major (N, K) weights; returns y (M, N)."""
+    (m, k), n = x2.shape, qt.shape[0]
+    gp = depth_of(block_k)
+    if gp != block_k:                 # each group padded to the depth
+        qt = F.pad(qt.view(n, k // block_k, block_k),
+                   (0, gp - block_k)).reshape(n, -1)
+    x2 = x2.contiguous()
+    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    codes = torch.empty((m, k // block_k * gp), dtype=torch.int8,
+                        device=x2.device)
+    scales = torch.empty((m, k // block_k), dtype=torch.float32,
+                         device=x2.device)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    err = lib.zoo_int8_matmul(x2.data_ptr(), qt.data_ptr(), ws.data_ptr(),
+                              y.data_ptr(), codes.data_ptr(),
+                              scales.data_ptr(), _DTYPE_CODES[x2.dtype], m,
+                              n, k, block_k, _RULE_CODES[rule], _RECIP127,
+                              stream)
+    _build.check_launch(err, "int8_matmul_fused")
     return y
 
 
@@ -242,6 +352,22 @@ def conv_pads(padding, in_hw: Sequence[int], k_hw: Sequence[int],
             return ((0, 0), (0, 0))
         raise ValueError(f"unknown padding {padding!r}")
     return tuple(tuple(int(v) for v in p) for p in padding)
+
+
+def conv_scratch(b: int, h: int, w: int, cin: int, ho: int, wo: int,
+                 kh: int, kw: int, stride: Sequence[int], pad_top: int,
+                 pad_left: int) -> Tuple[int, int]:
+    """The rows and the pitch in bytes of the codes K6's quantize pass
+    writes: a 1x1 window at Cin > 4 that reads no padding codes only the
+    pixels it reads (B * Ho * Wo rows: a quarter at stride 2), every other
+    conv every input pixel (B * H * W); a row is Cin rounded up to
+    :data:`DEPTH` bytes, or one 4-byte word at Cin <= 4 (the __dp4a
+    kernel's)."""
+    sh, sw = stride
+    direct = (cin > 4 and kh == kw == 1 and pad_top == pad_left == 0
+              and (ho - 1) * sh < h and (wo - 1) * sw < w)
+    rows = b * ho * wo if direct else b * h * w
+    return rows, (4 if cin <= 4 else depth_of(cin))
 
 
 def int8_conv2d_fused_plain(x: torch.Tensor, packed: Dict[str, torch.Tensor],
@@ -304,7 +430,7 @@ def int8_conv2d_fused(x: torch.Tensor, packed: Dict[str, torch.Tensor],
     sh, sw = (int(s) for s in stride)
     (pt, pb), (pl, pr) = pads
     if c != cin or sh < 1 or sw < 1 or min(pt, pb, pl, pr) < 0 \
-            or cin > _MAX_GROUP:
+            or cin > _MAX_GROUP or (cin <= 4 and max(kh, kw) > _STEM_MAX_K):
         raise ValueError(f"int8_conv2d_fused: x {tuple(x.shape)} vs kernel "
                          f"{tuple(wq.shape)}, stride {stride}, pads {pads}")
     ho = conv_out_size(h, kh, sh, (pt, pb))
@@ -312,18 +438,41 @@ def int8_conv2d_fused(x: torch.Tensor, packed: Dict[str, torch.Tensor],
     if ho < 1 or wo < 1:
         raise ValueError(f"int8 conv: window {kh}x{kw} larger than the "
                          f"padded input {h}x{w}")
-    y = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
     if b == 0:
-        return y
-    x = x.contiguous()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.zoo_int8_conv(x.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-                            y.data_ptr(), _DTYPE_CODES[x.dtype], b, h, w,
-                            cin, ho, wo, cout, kh, kw, sh, sw, pt, pl,
-                            _RULE_CODES[rule], _RECIP127, stream)
-    _build.check_launch(err, "int8_conv2d_fused")
+        return torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
+    qt = _weights_kernel_major(packed, wq, "int8_conv2d_fused")
+    y = _conv_on(lib, x, qt, ws, (sh, sw), pads, rule)
     with _COUNT_LOCK:
         int8_conv2d_fused.launches += 1
+    return y
+
+
+def _conv_on(lib, x: torch.Tensor, qt: torch.Tensor, ws: torch.Tensor,
+             stride: Tuple[int, int], pads, rule: str) -> torch.Tensor:
+    """K6's launch through ``lib``'s C entry (this tree's library, or an
+    edited copy's in ``scripts/torch_int8_variants.py``): x (B, H, W, Cin)
+    on the card, qt the kernel-major (KH, KW, Cout, Cin) weights; returns
+    y (B, Ho, Wo, Cout)."""
+    kh, kw, cout, cin = qt.shape
+    b, h, w, _ = x.shape
+    (sh, sw), ((pt, pb), (pl, pr)) = stride, pads
+    ho = conv_out_size(h, kh, sh, (pt, pb))
+    wo = conv_out_size(w, kw, sw, (pl, pr))
+    rows, pitch = conv_scratch(b, h, w, cin, ho, wo, kh, kw, (sh, sw), pt,
+                               pl)
+    if cin > 4 and pitch != cin:      # Cin padded to the depth
+        qt = F.pad(qt, (0, pitch - cin))
+    x = x.contiguous()
+    y = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
+    codes = torch.empty((rows, pitch), dtype=torch.int8, device=x.device)
+    scales = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.zoo_int8_conv(x.data_ptr(), qt.data_ptr(), ws.data_ptr(),
+                            y.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                            _DTYPE_CODES[x.dtype], b, h, w, cin, ho, wo, cout,
+                            kh, kw, sh, sw, pt, pl, _RULE_CODES[rule],
+                            _RECIP127, rows, pitch, stream)
+    _build.check_launch(err, "int8_conv2d_fused")
     return y
 
 
@@ -331,8 +480,9 @@ def int8_conv2d_fused(x: torch.Tensor, packed: Dict[str, torch.Tensor],
 int8_conv2d_fused.launches = 0
 
 
-__all__ = ["DEFAULT_BLOCK_K", "DEFAULT_BLOCK_M", "DEFAULT_BLOCK_N", "RULES",
-           "conv_out_size", "conv_pads", "group_scale", "int8_conv2d_fused",
-           "int8_conv2d_fused_plain", "int8_matmul_fused",
-           "int8_matmul_fused_plain", "quantize_groups", "resolve_blocks",
-           "same_pads"]
+__all__ = ["DEFAULT_BLOCK_K", "DEFAULT_BLOCK_M", "DEFAULT_BLOCK_N", "DEPTH",
+           "RULES", "conv_out_size", "conv_pads", "conv_scratch", "depth_of",
+           "group_scale", "int8_conv2d_fused", "int8_conv2d_fused_plain",
+           "int8_matmul_fused", "int8_matmul_fused_plain",
+           "int8_quantize_rows", "kernel_major", "quantize_groups",
+           "quantize_rows_plain", "resolve_blocks", "same_pads"]

@@ -6,7 +6,7 @@ paths on one NVIDIA card.
     python3 chip_smoke.py --quick    # device, build and kernel checks only
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns
     python3 chip_smoke.py --parent _archive/parent   # plus the parent's
-                                     # K1-K4, timed beside this tree's
+                                     # K1-K6, timed beside this tree's
 
 Phases, each fatal on failure (no result line is printed then):
 
@@ -15,7 +15,10 @@ Phases, each fatal on failure (no result line is printed then):
 2. build: compile every kernel in ``analytics_zoo_tpu_torch/csrc`` with
    nvcc (one process per source, all at once), timed; print ptxas'
    registers and spills per kernel, and check from ``cuobjdump -sass``
-   that the bf16 K1, K3 and K4 run on wgmma (HGMMA) fed by TMA (UTMALDG).
+   that the bf16 K1, K3 and K4 run on wgmma (HGMMA) fed by TMA (UTMALDG)
+   and that every instance of K5's and K6's GEMMs runs on the int8 tensor
+   cores (IMMA for mma.sync, IGMMA for K5's wgmma, no IDP: __dp4a only in
+   K6's Cin <= 4 kernel).
 3. kernels: K1 (flash forward, out + LSE), K2 (paged attention, q_len 1,
    4 and 16, with a zero-length slot; bf16 also at pages of 8 and 32; then
    q_len 1, 16, 17, 48, 64 and 128, and at q_len 1, 17 and 64 head dims
@@ -103,13 +106,22 @@ Phases, each fatal on failure (no result line is printed then):
    Estimator Adam step (K1, K3, K4) gives the CPU's loss within 1e-4 and
    its next loss within 1e-3.
 
-Phase 3 also holds K5 (the MLP's shapes with block_k 512 in f32 and bf16,
-a ragged M = 1000, the ResNet head on the lax route) and K6 (ResNet-50's
-3x3/1 and 1x1/1 convs at 56 px, the 1x1/2 at 28 px and the 7x7/2 stem,
-batch 32, f32 and bf16) to their plain versions, f32 within 1e-5 and bf16
-within 1e-2 of max(1, max|plain|), and times them beside their bounds at
-1979 TOP/s int8 and a labelled library call (``torch._int_mm``, the int8
-product alone; ``F.conv2d`` in bf16, a float conv).
+Phase 3 also holds the int8 kernels to their plain versions bit for bit
+(``torch.equal``), f32 and bf16: the quantize pass both launch (codes and
+scales against ``quantize_rows_plain``), K5 (the MLP's shapes with
+block_k 512, a ragged M = 1000, groups off the 32 grid, a 3-D x, the
+ResNet head on the lax route) and K6 (every one of ResNet-50's 20
+distinct conv shapes at batch 2 and, f32, at batch 32, with Cin 48, a
+3x3 at stride 2 on the lax route, VALID and a Cin <= 4 3x3 beside). It
+times them beside their bounds at 1979 TOP/s int8 and a labelled library
+call (``torch._int_mm``, the int8 product alone, Timer and device-only;
+``F.conv2d`` in bf16, a float conv): K5 at the MLP's layers and the
+ResNet head, K6 at the 3x3/1 64->64 and 1x1/1 256->64 at 56 px, the
+1x1/2 512->1024 at 28 px and the 7x7/2 stem, device-only with ``--parent``
+in turns parent, change, change, parent; and K6 device-only at each of
+the 20 shapes at batch 32, times its launches a predict, summed
+(``resnet50_device_ms_per_predict``; ``--profile`` prints the profiled
+predict's K6 total beside).
 
 The kernels line's ``launches`` are each kernel's count on its path (K1's
 on training, with ``launches_by_path`` for serving and training; the
@@ -164,8 +176,6 @@ K2_D = (16, 32, 96)
 # Dense 4096 relu, Dense 128 softmax at batch 2048)
 IMG, CLASSES, IMG_BATCH, IMG_THREADS = 224, 1000, 32, 4
 MLP_HIDDEN, MLP_CLASSES, MLP_BATCH = 4096, 128, 2048
-# K5/K6 vs their plain versions: relative to max(1, max|plain|)
-I8_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
 def log(*a):
@@ -281,7 +291,7 @@ def phase_device(torch):
 def load_parent(path):
     """``--parent DIR``: the port package of another checkout (the parent
     commit, unpacked with ``git archive``), imported as ``parent_port``
-    beside this one, so that its K1-K4 are timed in the same process,
+    beside this one, so that its K1-K6 are timed in the same process,
     on the same inputs, by the same Timer. Its kernels build from its own
     sources into its own ``_build/``."""
     import importlib
@@ -299,7 +309,8 @@ def load_parent(path):
         root=str(pkg.parent),
         build=importlib.import_module("parent_port.ops._build"),
         flash=importlib.import_module("parent_port.ops.flash_attention"),
-        paged=importlib.import_module("parent_port.ops.paged_attention"))
+        paged=importlib.import_module("parent_port.ops.paged_attention"),
+        int8=importlib.import_module("parent_port.ops.int8_fused"))
 
 
 def phase_build(parent=None):
@@ -308,11 +319,12 @@ def phase_build(parent=None):
     t0 = time.perf_counter()
     errors = []
     if parent is not None:
-        # the parent's K1-K4 sources build beside this checkout's
+        # the parent's K1-K6 sources build beside this checkout's
         def build_parent():
             try:
                 parent.build.build(["flash_fwd", "flash_bwd",
-                                    "paged_attention"])
+                                    "paged_attention", "int8_matmul",
+                                    "int8_conv"])
             except Exception as e:            # raised below
                 errors.append(e)
 
@@ -324,7 +336,7 @@ def phase_build(parent=None):
         if errors:
             raise errors[0]
         log(f"[build] parent {parent.root}: flash_fwd, flash_bwd, "
-            f"paged_attention")
+            f"paged_attention, int8_matmul, int8_conv")
     log(f"[build] {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f}s into {_build.BUILD_DIR}")
     for name, text in _build.BUILD_LOG.items():
@@ -339,20 +351,27 @@ def phase_build(parent=None):
                          ("flash_bwd", ("flash_bwd_dq_wgmma_kernel",
                                         "flash_bwd_dkv_wgmma_kernel"))):
         check_wgmma_sass(_build, lib, kernels)
+    check_imma_sass(_build)
+
+
+def _sass_functions(_build, lib: str):
+    """(mangled name, SASS text) of every function in a built library, from
+    ``cuobjdump -sass``."""
+    cuobjdump = str(Path(_build.nvcc_path()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path(lib))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    return [(part.split("\n", 1)[0].strip(), part)
+            for part in sass.split("Function : ")[1:]]
 
 
 def check_wgmma_sass(_build, lib: str, kernels):
     """The bf16 K1, K3 and K4 must run on wgmma (HGMMA) fed by TMA
     (UTMALDG): read from ``cuobjdump -sass`` of the built library, every
     compiled instance of each of ``kernels``."""
-    cuobjdump = str(Path(_build.nvcc_path()).with_name("cuobjdump"))
-    sass = subprocess.run([cuobjdump, "-sass",
-                           str(_build.library_path(lib))],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
     found = {k: [] for k in kernels}
-    for part in sass.split("Function : ")[1:]:
-        name = part.split("\n", 1)[0].strip()
+    for name, part in _sass_functions(_build, lib):
         for k in kernels:
             if k in name:
                 found[k].append((part.count("HGMMA"), part.count("UTMALDG")))
@@ -360,6 +379,30 @@ def check_wgmma_sass(_build, lib: str, kernels):
     for k, counts in found.items():
         if not counts or not all(a and b for a, b in counts):
             raise AssertionError(f"{k} does not run on HGMMA fed by UTMALDG")
+
+
+def check_imma_sass(_build):
+    """K5's and K6's products must run on the int8 tensor cores: every
+    compiled instance of ``gemm_kernel`` (mma.sync) in both libraries
+    holds IMMA, every one of K5's ``matmul_wgmma_kernel`` IGMMA, and none
+    IDP (__dp4a). K6's Cin <= 4 kernel (``conv_dp4a_kernel``) is the one
+    __dp4a loop, and is listed beside."""
+    kinds = (("wgmma_kernel", "IGMMA"), ("gemm_kernel", "IMMA"),
+             ("dp4a_kernel", "IDP"))
+    for lib in ("int8_matmul", "int8_conv"):
+        counts = []
+        for name, part in _sass_functions(_build, lib):
+            for kind, op in kinds:
+                if kind in name:
+                    counts.append((kind, op, part.count(op),
+                                   part.count("IDP")))
+                    break
+        log(f"[build] {lib} SASS (kernel, op, op count, IDP) per instance: "
+            f"{counts}")
+        gemms = [c for c in counts if c[0] != "dp4a_kernel"]
+        if not gemms or not all(n and not idp for _, _, n, idp in gemms):
+            raise AssertionError(f"{lib}: a GEMM instance does not run on "
+                                 f"the int8 tensor cores alone")
 
 
 def _kernel_label(mangled: str) -> str:
@@ -977,148 +1020,280 @@ def check_sampler(torch, timer):
 
 
 def _i8_packed(torch, rng, shape):
+    """Random weights packed as a quantized layer passes them: q, scale and
+    q kernel-major (``qt``)."""
     from analytics_zoo_tpu_torch.ops.int8 import quantize_weight
+    from analytics_zoo_tpu_torch.ops.int8_fused import kernel_major
 
-    return {k: torch.from_numpy(v).cuda() for k, v in
-            quantize_weight(rng.normal(size=shape).astype("float32")).items()}
+    packed = {k: torch.from_numpy(v).cuda() for k, v in quantize_weight(
+        rng.normal(size=shape).astype("float32")).items()}
+    packed["qt"] = kernel_major(packed["q"])
+    return packed
 
 
 def _i8_check(got, ref, dt: str, label: str) -> float:
-    """Hold a K5/K6 result to its plain version; returns max |d|."""
-    e = _rel_err(got, ref)
-    ok = e <= I8_TOL[dt]
-    log(f"{label} {dt}: max|d|/max(1, max|plain|) {e:.3g} (tol "
-        f"{I8_TOL[dt]}) {'ok' if ok else 'FAIL'}")
+    """Hold a K5/K6 result (or the quantize pass's codes and scales) to its
+    plain version bit for bit; returns max |d| (0.0)."""
+    ok = (got.dtype == ref.dtype and got.shape == ref.shape
+          and bool(got.equal(ref)))
+    e = maxerr(got, ref) if got.shape == ref.shape else float("inf")
+    log(f"{label} {dt}: bitwise equal to its plain version: {ok} (max|d| "
+        f"{e:.3g}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{label} disagrees with its plain version "
-                             f"in {dt}")
-    return maxerr(got, ref)
+        raise AssertionError(f"{label} is not bitwise equal to its plain "
+                             f"version in {dt}")
+    return e
 
 
-def _int_mm_ms(torch, timer, m: int, n: int, k: int):
-    """torch._int_mm at (M, K) x (K, N): the int8 product alone, a
-    yardstick that excludes K5's quantize and rescale. Returns (ms,
-    note)."""
-    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda")
-    b = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda")
-    return (timer(lambda: torch._int_mm(a, b)),
-            "torch._int_mm: int8 product only, excludes quantize/rescale")
+def _i8_times(torch, timer, dtimer, fn, plain_fn, parent_fn=None):
+    """A K5/K6 call timed in the Timer and device-only (in turns with the
+    parent's when given), and its plain version in the Timer."""
+    t = in_turns(timer, dtimer, fn, parent_fn, n=20)
+    t["plain_ms"] = timer(plain_fn, n=5)
+    return t
 
 
-def check_k5(torch, timer):
-    """K5 against its plain version: the MLP's layers with block_k 512 (f32
-    and bf16 x), a ragged M = 1000, and the ResNet head (32, 2048) x (2048,
-    1000) on the lax route (one group of K, ``/ 127``); timed at the MLP
-    and head shapes. The kernels line carries the MLP's first layer."""
+def check_quantize_pass(torch):
+    """The kernels' quantize pass (K5's launch of it) against
+    ``quantize_rows_plain`` (``quantize_groups`` per group, zero codes to
+    the depth): codes and scales bit for bit, at the MLP's rows (g 512),
+    the ResNet head's (lax, one group of 2048), groups off the 32 grid
+    and a 3-value group, f32 and bf16, with an all-zero row."""
+    from analytics_zoo_tpu_torch.ops.int8_fused import (int8_quantize_rows,
+                                                         quantize_rows_plain)
+
+    for r, k, g, rule in ((MLP_BATCH, MLP_HIDDEN, 512, "fused"),
+                          (IMG_BATCH, 2048, 2048, "lax"),
+                          (7, 300, 100, "fused"), (33, 3, 3, "lax"),
+                          (9, 200, 40, "fused")):
+        for dt in ("float32", "bfloat16"):
+            x = (torch.randn((r, k), device="cuda") * 3).to(getattr(torch,
+                                                                    dt))
+            x[0] = 0
+            codes, scales = int8_quantize_rows(x, g, rule)
+            want = quantize_rows_plain(x, g, rule)
+            tag = f"[quantize] ({r}, {k}) g={g} {rule}"
+            _i8_check(codes, want[0], dt, f"{tag} codes")
+            _i8_check(scales, want[1], dt, f"{tag} scales")
+
+
+def check_k5(torch, timer, dtimer, parent=None):
+    """K5 against its plain version bit for bit: the MLP's layers with
+    block_k 512 (f32 and bf16 x), a ragged M = 1000, groups off the 32 grid
+    (g = 100 and a lax K = 200), a 3-D x, and the ResNet head (32, 2048) x
+    (2048, 1000) on the lax route (one group of K, ``/ 127``); timed at the
+    MLP and head shapes, device-only too, with the parent's in turns when
+    given, beside ``torch._int_mm`` (the int8 product alone). The kernels
+    line carries the MLP's first layer."""
     from analytics_zoo_tpu_torch.ops.int8_fused import (
         int8_matmul_fused, int8_matmul_fused_plain)
 
+    check_quantize_pass(torch)
     rng = np.random.default_rng(20)
-    cases = [("MLP hidden", MLP_BATCH, MLP_HIDDEN, MLP_HIDDEN, 512, "fused",
+    cases = [("MLP hidden", (MLP_BATCH,), MLP_HIDDEN, MLP_HIDDEN, 512,
+              "fused", "float32", True),
+             ("MLP hidden", (MLP_BATCH,), MLP_HIDDEN, MLP_HIDDEN, 512,
+              "fused", "bfloat16", False),
+             ("MLP head", (MLP_BATCH,), MLP_HIDDEN, MLP_CLASSES, 512, "fused",
               "float32", True),
-             ("MLP hidden", MLP_BATCH, MLP_HIDDEN, MLP_HIDDEN, 512, "fused",
-              "bfloat16", False),
-             ("MLP head", MLP_BATCH, MLP_HIDDEN, MLP_CLASSES, 512, "fused",
-              "float32", True),
-             ("ragged M", 1000, MLP_HIDDEN, MLP_HIDDEN, 512, "fused",
+             ("ragged M", (1000,), MLP_HIDDEN, MLP_HIDDEN, 512, "fused",
               "float32", False),
-             ("ResNet head", IMG_BATCH, 2048, CLASSES, 2048, "lax",
+             ("g off the 32 grid", (77,), 300, 50, 100, "fused", "float32",
+              False),
+             ("lax K off the 32 grid", (13,), 200, 33, 200, "lax",
+              "bfloat16", False),
+             ("3-d x", (4, 9), 1024, 384, 512, "fused", "bfloat16", False),
+             ("ResNet head", (IMG_BATCH,), 2048, CLASSES, 2048, "lax",
               "float32", True)]
     packs = {}
     out = []
-    for label, m, k, n, g, rule, dt, timed in cases:
+    for label, lead, k, n, g, rule, dt, timed in cases:
         packed = packs.setdefault((k, n), _i8_packed(torch, rng, (k, n)))
-        x = (torch.randn((m, k), device="cuda") * 3).to(getattr(torch, dt))
-        tag = f"[K5] {label} ({m}, {k}) x ({k}, {n}) g={g} {rule}"
+        x = (torch.randn(lead + (k,), device="cuda") * 3).to(
+            getattr(torch, dt))
+        m = math.prod(lead)
+        tag = f"[K5] {label} {lead + (k,)} x ({k}, {n}) g={g} {rule}"
         err = _i8_check(int8_matmul_fused(x, packed, g, rule),
                         int8_matmul_fused_plain(x, packed, g, rule), dt, tag)
         if not timed:
             continue
-        ms = timer(lambda: int8_matmul_fused(x, packed, g, rule))
-        plain = timer(lambda: int8_matmul_fused_plain(x, packed, g, rule),
-                      n=5)
-        lib, note = _int_mm_ms(torch, timer, m, n, k)
+        t = _i8_times(
+            torch, timer, dtimer,
+            lambda: int8_matmul_fused(x, packed, g, rule),
+            lambda: int8_matmul_fused_plain(x, packed, g, rule),
+            None if parent is None else
+            (lambda: parent.int8.int8_matmul_fused(x, packed, g, rule)))
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda")
+        b = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda")
+        lib = timer(lambda: torch._int_mm(a, b))
+        lib_dev = dtimer(lambda: torch._int_mm(a, b))
         elt = x.element_size()
         bms, by = bound_ms(m * k * elt + k * n + 4 * n + m * n * elt,
                            2 * m * n * k, "int8")
-        log(f"{tag} {dt}: {ms:.4f} ms (plain {plain:.4f}, bound {bms:.5f} "
-            f"by {by}, torch._int_mm {lib})")
+        log(f"{tag} {dt}: {t['ms']:.4f} ms, device {t['device_ms']:.5f} "
+            f"(parent {t['parent_device_ms']}), plain {t['plain_ms']:.4f}, "
+            f"bound {bms:.5f} by {by}, torch._int_mm {lib:.4f} device "
+            f"{lib_dev:.5f}")
         out.append({"case": label, "shape": f"({m}, {k}) x ({k}, {n})",
                     "block_k": g, "rule": rule, "dtype": dt,
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                    "bound_ms": bms, "bound_by": by, "library_ms": lib,
-                    "library_note": note})
+                    "max_abs_err": err, **t, "bound_ms": bms,
+                    "bound_by": by, "library_ms": lib,
+                    "library_device_ms": lib_dev,
+                    "library_note": "torch._int_mm: int8 product only, "
+                                    "excludes quantize/rescale"})
     main = out[0]
     return {"name": "int8_matmul", "route": "cuda",
             "source": "analytics_zoo_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "analytics_zoo_tpu/ops/int8_fused.py:157",
-            "launches": None,
-            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms",
-                                    "library_note", "shape", "dtype")},
-            "cases": out}
+            "cuda_kernels": "quantize_rows_kernel, then "
+                            "matmul_wgmma_kernel (wgmma m64n128k32 s8 fed "
+                            "by TMA) where groups are whole 128-byte "
+                            "chunks and 128 x 128 tiles fill the SMs, else "
+                            "gemm_kernel (mma.sync m16n8k32 s8; "
+                            "csrc/int8_tile.cuh)",
+            "launches": None, **main, "cases": out}
 
 
-def check_k6(torch, timer):
-    """K6 against its plain version at ResNet-50's conv shapes, batch 32, f32
-    and bf16: 3x3/1 64->64 and 1x1/1 256->64 at 56 px (fused rule), 1x1/2
-    512->1024 at 28 px and the 7x7/2 stem 3->64 at 224 px (lax rule), SAME
-    padding; each timed in f32. The kernels line carries the 3x3."""
+def resnet50_convs(torch):
+    """ResNet-50's conv layers at IMG x IMG: ``[((H, Cin, k, stride,
+    Cout), count), ...]`` in first-use order, from pre-hooks on one float
+    forward at batch 1 on the card (20 distinct shapes over 53 convs)."""
+    from analytics_zoo_tpu_torch.models.image.backbones import resnet50
+    from analytics_zoo_tpu_torch.nn.layers import Convolution2D
+
+    model = resnet50((IMG, IMG, 3), CLASSES, device="cuda", seed=0)
+    seen = {}
+
+    def hook(mod, args):
+        _, h, w, cin = args[0].shape
+        assert h == w and mod.padding == "SAME"
+        key = (h, cin, mod.kernel_size[0], mod.strides[0], mod.filters)
+        seen[key] = seen.get(key, 0) + 1
+
+    hooks = [layer.register_forward_pre_hook(hook) for layer in model.layers
+             if isinstance(layer, Convolution2D)]
+    with torch.no_grad():
+        model(torch.zeros((1, IMG, IMG, 3), device="cuda"))
+    for h in hooks:
+        h.remove()
+    if len(seen) != 20 or sum(seen.values()) != 53:
+        raise AssertionError(f"ResNet-50 has {len(seen)} conv shapes over "
+                             f"{sum(seen.values())} convs, not 20 over 53")
+    return list(seen.items())
+
+
+def check_k6(torch, timer, dtimer, parent=None):
+    """K6 against its plain version bit for bit at every distinct conv
+    shape of ResNet-50 (20 over its 53 convs, SAME padding; stride 1 on the
+    fused rule, stride 2 on the lax one) at batch 2 in f32 and bf16 and at
+    batch 32 in f32, and at shapes ResNet-50 lacks: Cin 48 (off the 32
+    grid), a 3x3 at stride 2 on the lax route, VALID with a ragged Cout,
+    and a Cin <= 4 3x3. Each shape at batch 32 is timed device-only; times
+    launches per predict, the sum is K6's device time a predict (set
+    beside the profiled predict's by ``--profile``). The 3x3/1 64->64 and
+    1x1/1 256->64 at 56 px, the 1x1/2 512->1024 at 28 px and the 7x7/2 stem
+    are also timed in the Timer, device-only in turns with the parent's
+    when given, beside their plain versions and F.conv2d in bf16. The
+    kernels line carries the 3x3."""
     import torch.nn.functional as F
 
     from analytics_zoo_tpu_torch.ops.int8_fused import (
         int8_conv2d_fused, int8_conv2d_fused_plain, same_pads)
 
     rng = np.random.default_rng(21)
-    cases = [("3x3/1 64->64 @56", 56, 3, 64, 64, 1, "fused"),
-             ("1x1/1 256->64 @56", 56, 1, 256, 64, 1, "fused"),
-             ("1x1/2 512->1024 @28", 28, 1, 512, 1024, 2, "lax"),
-             ("stem 7x7/2 3->64 @224", IMG, 7, 3, 64, 2, "lax")]
-    out = []
-    for label, hw, k, cin, cout, st, rule in cases:
+    shapes = resnet50_convs(torch)
+    extra = [((14, 48, 3, 1, 40), "Cin off the 32 grid"),
+             ((15, 64, 3, 2, 96), "3x3 at stride 2, lax"),
+             ((17, 3, 3, 1, 130), "Cin <= 4 3x3")]
+    for (hw, cin, k, st, cout), _ in shapes + extra:
         packed = _i8_packed(torch, rng, (k, k, cin, cout))
         pads = same_pads((hw, hw), (k, k), (st, st))
-        args = ((st, st), pads, rule)
-        x32 = torch.randn((IMG_BATCH, hw, hw, cin), device="cuda")
-        tag = f"[K6] {label} B={IMG_BATCH} {rule}"
+        rule = "fused" if st == 1 else "lax"
+        x32 = torch.randn((2, hw, hw, cin), device="cuda")
         for dt in ("float32", "bfloat16"):
             x = x32.to(getattr(torch, dt))
-            err = _i8_check(int8_conv2d_fused(x, packed, *args),
-                            int8_conv2d_fused_plain(x, packed, *args), dt,
-                            tag)
-            if dt == "float32":
-                err32 = err
-        ms = timer(lambda: int8_conv2d_fused(x32, packed, *args))
-        plain = timer(lambda: int8_conv2d_fused_plain(x32, packed, *args),
-                      n=5)
+            _i8_check(int8_conv2d_fused(x, packed, (st, st), pads, rule),
+                      int8_conv2d_fused_plain(x, packed, (st, st), pads,
+                                              rule), dt,
+                      f"[K6] B=2 {hw}px {k}x{k}/{st} {cin}->{cout} {rule}")
+    x = torch.randn((2, 9, 9, 8), device="cuda")
+    packed = _i8_packed(torch, rng, (3, 3, 8, 70))
+    _i8_check(int8_conv2d_fused(x, packed, (1, 1), ((0, 0), (0, 0))),
+              int8_conv2d_fused_plain(x, packed, (1, 1), ((0, 0), (0, 0))),
+              "float32", "[K6] B=2 9px 3x3/1 8->70 VALID fused")
+
+    main = {(56, 64, 3, 1, 64): "3x3/1 64->64 @56",
+            (56, 256, 1, 1, 64): "1x1/1 256->64 @56",
+            (28, 512, 1, 2, 1024): "1x1/2 512->1024 @28",
+            (IMG, 3, 7, 2, 64): "stem 7x7/2 3->64 @224"}
+    per_shape, out = [], {}
+    for (hw, cin, k, st, cout), count in shapes:
+        packed = _i8_packed(torch, rng, (k, k, cin, cout))
+        pads = same_pads((hw, hw), (k, k), (st, st))
+        args = ((st, st), pads, "fused" if st == 1 else "lax")
+        x32 = torch.randn((IMG_BATCH, hw, hw, cin), device="cuda")
+        label = f"{k}x{k}/{st} {cin}->{cout} @{hw}"
+        err = _i8_check(int8_conv2d_fused(x32, packed, *args),
+                        int8_conv2d_fused_plain(x32, packed, *args),
+                        "float32", f"[K6] B={IMG_BATCH} {label} {args[2]}")
+        ho = -(-hw // st)
+        # x as far as the conv reads it: all of it but for a window that
+        # skips pixels (a 1x1 at stride 2 reads a quarter)
+        x_read = min(x32.numel(), IMG_BATCH * ho * ho * k * k * cin)
+        bms, by = bound_ms(
+            x_read * 4 + k * k * cin * cout + 4 * cout
+            + IMG_BATCH * ho * ho * cout * 4,
+            2 * IMG_BATCH * ho * ho * cout * k * k * cin, "int8")
+        fn = lambda: int8_conv2d_fused(x32, packed, *args)  # noqa: E731
+        dev = dtimer(fn)
+        per_shape.append({"shape": label, "rule": args[2],
+                          "launches_per_predict": count, "device_ms": dev,
+                          "device_ms_x_launches": dev * count,
+                          "bound_ms": bms, "bound_by": by})
+        log(f"[K6] B={IMG_BATCH} {label}: device {dev:.5f} ms x {count} "
+            f"= {dev * count:.5f} (bound {bms:.5f} by {by})")
+        if (hw, cin, k, st, cout) not in main:
+            continue
+        t = _i8_times(
+            torch, timer, dtimer, fn,
+            lambda: int8_conv2d_fused_plain(x32, packed, *args),
+            None if parent is None else
+            (lambda: parent.int8.int8_conv2d_fused(x32, packed, *args)))
+        _i8_check(int8_conv2d_fused(x32.bfloat16(), packed, *args),
+                  int8_conv2d_fused_plain(x32.bfloat16(), packed, *args),
+                  "bfloat16", f"[K6] B={IMG_BATCH} {label} {args[2]}")
         xc = x32.permute(0, 3, 1, 2).to(torch.bfloat16)
         wc = torch.randn((cout, cin, k, k), device="cuda").to(
             torch.bfloat16).contiguous(memory_format=torch.channels_last)
         lib = timer(lambda: F.conv2d(xc, wc, stride=st, padding=k // 2))
-        ho, wo = -(-hw // st), -(-hw // st)
-        bms, by = bound_ms(
-            x32.numel() * 4 + k * k * cin * cout + 4 * cout
-            + IMG_BATCH * ho * wo * cout * 4,
-            2 * IMG_BATCH * ho * wo * cout * k * k * cin, "int8")
-        log(f"{tag} float32: {ms:.4f} ms (plain {plain:.4f}, bound "
-            f"{bms:.5f} by {by}, F.conv2d bf16 {lib:.4f})")
-        out.append({"case": label, "shape": f"B={IMG_BATCH} {hw}x{hw}x{cin}"
-                    f" -> {ho}x{wo}x{cout}, {k}x{k}/{st} SAME",
-                    "rule": rule, "dtype": "float32", "max_abs_err": err32,
-                    "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                    "bound_by": by, "library_ms": lib,
-                    "library_note": "F.conv2d in bf16 (cuDNN, channels-"
-                                    "last): a float conv, not the same "
-                                    "function"})
-    main = out[0]
+        log(f"[K6] B={IMG_BATCH} {label} float32: {t['ms']:.4f} ms, device "
+            f"{t['device_ms']:.5f} (parent {t['parent_device_ms']}), plain "
+            f"{t['plain_ms']:.4f}, bound {bms:.5f} by {by}, F.conv2d bf16 "
+            f"{lib:.4f}")
+        out[(hw, cin, k, st, cout)] = {
+            "case": main[(hw, cin, k, st, cout)],
+            "shape": f"B={IMG_BATCH} {hw}x{hw}x{cin} -> {ho}x{ho}x{cout}, "
+                     f"{k}x{k}/{st} SAME",
+            "rule": args[2], "dtype": "float32", "max_abs_err": err, **t,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            "library_note": "F.conv2d in bf16 (cuDNN, channels-last): a "
+                            "float conv, not the same function"}
+    total = sum(r["device_ms_x_launches"] for r in per_shape)
+    bound = sum(r["bound_ms"] * r["launches_per_predict"] for r in per_shape)
+    log(f"[K6] ResNet-50 at batch {IMG_BATCH}: {len(per_shape)} shapes, "
+        f"device ms x launches summed {total:.4f} ms a predict (bound "
+        f"{bound:.4f})")
+    cases = [out[key] for key in main]
     return {"name": "int8_conv", "route": "cuda",
             "source": "analytics_zoo_tpu_torch/csrc/int8_conv.cu",
             "replaces": "analytics_zoo_tpu/ops/int8_fused.py:248",
-            "launches": None,
-            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms",
-                                    "library_note", "shape", "dtype")},
-            "cases": out}
+            "cuda_kernels": "quantize_rows_kernel, then gemm_kernel "
+                            "(mma.sync m16n8k32 s8; csrc/int8_tile.cuh), "
+                            "or conv_dp4a_kernel at Cin <= 4",
+            "launches": None, **cases[0], "cases": cases,
+            "resnet50_shapes": per_shape,
+            "resnet50_device_ms_per_predict": total,
+            "resnet50_bound_ms_per_predict": bound}
 
 
 def full_model(torch, device):
@@ -1747,6 +1922,10 @@ def profile_int8_predict(torch, im, xb, smi):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a trace can lose its first kernels' events (the predict's first
+        # conv went missing so): one small kernel takes that place
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         im.predict(xb)
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1756,6 +1935,14 @@ def profile_int8_predict(torch, im, xb, smi):
         f"({busy / wall_ms:.3f} of wall)")
     for key, count, ms in _shown(rows, 15):
         log(f"[profile-int8] {ms:9.3f} ms {count:6d} calls  {key[:100]}")
+    # K6's kernels carry "Conv" (its gather and row maps) or are
+    # conv_dp4a_kernel; K5's carry "Matmul" or are matmul_wgmma_kernel
+    for name, marks in (("K6", ("Conv", "conv_dp4a")),
+                        ("K5", ("Matmul", "matmul_wgmma"))):
+        mine = [(c, ms) for key, c, ms in rows if any(m in key for m in marks)]
+        log(f"[profile-int8] {name} total {sum(ms for _, ms in mine):.4f} ms "
+            f"device over {sum(c for c, _ in mine)} kernel launches "
+            f"({sum(ms for _, ms in mine) / busy:.3f} of busy)")
 
 
 def phase_example(torch):
@@ -1846,7 +2033,7 @@ def main(argv=None) -> int:
                          "where the device time goes")
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout of the repo (e.g. the parent "
-                         "commit from git archive): time its K1-K4 "
+                         "commit from git archive): time its K1-K6 "
                          "beside this one's, in this process")
     args = ap.parse_args(argv)
     try:
@@ -1873,7 +2060,8 @@ def main(argv=None) -> int:
                    check_k2(torch, timer, dtimer, parent),
                    *check_k3_k4(torch, timer, dtimer, parent),
                    check_sampler(torch, timer),
-                   check_k5(torch, timer), check_k6(torch, timer)]
+                   check_k5(torch, timer, dtimer, parent),
+                   check_k6(torch, timer, dtimer, parent)]
         wide = check_wide(torch, timer, dtimer)
         for k in kernels:
             if k["name"] in wide:

@@ -28,6 +28,9 @@ draws the plain version's tokens exactly; it trains on the card (K1, K3,
 K4) to the CPU's loss, with K1 launched once per block and micro-step
 under remat "flash" and twice under "full"; autograd through the flash
 Function matches SDPA's grads, and no CUDA tensor takes a plain backward.
+The int8 kernels (K5, K6) and their quantize pass are bitwise equal to
+their plain versions (``torch.equal``) in f32 and bf16, K6 at every one of
+ResNet-50's conv shapes.
 """
 
 import math
@@ -557,60 +560,174 @@ def _rel(got, ref):
         1.0, float(ref.float().abs().max()))
 
 
-I8_TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)]
+I8_DTYPES = [torch.float32, torch.bfloat16]
 
 
-@pytest.mark.parametrize("dtype,tol", I8_TOLS)
+def _packed_kernel_major(rng, shape, cuda):
+    """Packed as a quantized layer passes it: with q kernel-major."""
+    from analytics_zoo_tpu_torch.ops.int8_fused import kernel_major
+
+    packed = _packed(rng, shape, cuda)
+    packed["qt"] = kernel_major(packed["q"])
+    return packed
+
+
+@pytest.mark.parametrize("dtype", I8_DTYPES)
 @pytest.mark.parametrize("lead,k,n,g,rule", [
     ((64,), 512, 256, 128, "fused"), ((100,), 1024, 384, 512, "fused"),
     ((2, 9), 256, 128, 256, "fused"), ((8,), 2048, 1000, 2048, "lax"),
-    ((5,), 96, 20, 96, "lax"), ((0,), 256, 128, 128, "fused")])
-def test_int8_matmul_kernel_matches_plain(cuda, dtype, tol, lead, k, n, g,
-                                          rule):
-    """K5 against its plain version: the fused route's segments, ragged M,
-    3-D leading dims, the lax route's one group of K (N = 1000 and a K
-    that is no multiple of the chunk), M = 0 (no launch)."""
+    ((5,), 96, 20, 96, "lax"), ((0,), 256, 128, 128, "fused"),
+    ((77,), 300, 50, 100, "fused"), ((13,), 200, 33, 200, "lax"),
+    ((3000,), 640, 130, 160, "fused"), ((1, 1), 256, 8, 256, "fused"),
+    ((2048,), 1024, 2048, 512, "fused"), ((2100,), 512, 1000, 128, "fused"),
+    ((2100,), 256, 999, 256, "lax")])
+def test_int8_matmul_kernel_matches_plain(cuda, dtype, lead, k, n, g, rule):
+    """K5 bitwise equal to its plain version: the fused route's segments,
+    ragged M, 3-D leading dims, the lax route's one group of K (N = 1000
+    and a K that is no multiple of the chunk), groups that are no multiple
+    of 32 (g = 100, a lax K = 200), an M over many tiles with a ragged
+    last one, one row, M = 0 (no launch), and shapes whose 128 x 128 tiles
+    fill the SMs (the wgmma GEMM; ragged M and N, an odd N); with and
+    without the packed kernel-major copy."""
     from analytics_zoo_tpu_torch.ops import int8_fused as f8
 
     rng = np.random.default_rng(k + n)
-    packed = _packed(rng, (k, n), cuda)
+    packed = _packed_kernel_major(rng, (k, n), cuda)
     x = torch.from_numpy(rng.normal(size=lead + (k,)).astype(np.float32)
                          * 3).to(cuda).to(dtype)
     before = f8.int8_matmul_fused.launches
     y = f8.int8_matmul_fused(x, packed, g, rule)
+    y_made_here = f8.int8_matmul_fused(
+        x, {"q": packed["q"], "scale": packed["scale"]}, g, rule)
     ref = f8.int8_matmul_fused_plain(x, packed, g, rule)
     torch.cuda.synchronize()
     assert y.shape == lead + (n,) and y.dtype == dtype
-    assert f8.int8_matmul_fused.launches == before + (math.prod(lead) > 0)
-    if math.prod(lead):
-        assert _rel(y, ref) <= tol
+    assert f8.int8_matmul_fused.launches == before + 2 * (
+        math.prod(lead) > 0)
+    assert torch.equal(y, ref) and torch.equal(y_made_here, ref)
 
 
-@pytest.mark.parametrize("dtype,tol", I8_TOLS)
-@pytest.mark.parametrize("hw,k,cin,cout,stride,padding,rule", [
-    (14, 3, 16, 32, 1, "SAME", "fused"), (8, 1, 64, 16, 1, "SAME", "fused"),
-    (9, 3, 8, 70, 1, "VALID", "fused"), (14, 1, 32, 64, 2, "SAME", "lax"),
-    (32, 7, 3, 16, 2, "SAME", "lax"), (70, 3, 4, 8, 1, "SAME", "fused")])
-def test_int8_conv_kernel_matches_plain(cuda, dtype, tol, hw, k, cin, cout,
+@pytest.mark.parametrize("dtype", I8_DTYPES)
+@pytest.mark.parametrize("b,hw,k,cin,cout,stride,padding,rule", [
+    (2, 14, 3, 16, 32, 1, "SAME", "fused"), (2, 8, 1, 64, 16, 1, "SAME",
+                                             "fused"),
+    (2, 9, 3, 8, 70, 1, "VALID", "fused"), (2, 14, 1, 32, 64, 2, "SAME",
+                                            "lax"),
+    (2, 32, 7, 3, 16, 2, "SAME", "lax"), (2, 70, 3, 4, 8, 1, "SAME", "fused"),
+    (2, 14, 3, 48, 40, 1, "SAME", "fused"), (2, 15, 3, 64, 96, 2, "SAME",
+                                             "lax"),
+    (3, 70, 3, 32, 72, 1, "SAME", "fused"), (2, 33, 11, 3, 20, 4, "SAME",
+                                             "lax"),
+    (2, 13, 1, 40, 24, 2, "VALID", "lax"), (8, 28, 1, 256, 512, 1, "SAME",
+                                            "fused"),
+    (16, 56, 1, 256, 250, 2, "SAME", "lax"), (32, 56, 1, 256, 64, 1,
+                                              "SAME", "fused")])
+def test_int8_conv_kernel_matches_plain(cuda, dtype, b, hw, k, cin, cout,
                                         stride, padding, rule):
-    """K6 against its plain version: 3x3 and 1x1 at stride 1 (fused rule),
-    VALID with a ragged Cout, the stride-2 1x1 and the 7x7/2 stem on the
-    lax rule, and an output row wider than the 64-column tile."""
+    """K6 bitwise equal to its plain version: 3x3 and 1x1 at stride 1
+    (fused rule), VALID with a ragged Cout, the stride-2 1x1 and the 7x7/2
+    stem on the lax rule, an output row wider than a tile, Cin 48 (no
+    multiple of 32), a 3x3 at stride 2 on the lax route, an M of 14700
+    rows (many tiles, a ragged last one), an 11x11/4 window at Cin 3, a
+    strided 1x1 VALID at an odd size, and 1x1 convs over many tiles (a
+    ragged and a narrow Cout, stride 2); with and without the packed
+    kernel-major copy."""
     from analytics_zoo_tpu_torch.ops import int8_fused as f8
 
     rng = np.random.default_rng(hw + cin)
-    packed = _packed(rng, (k, k, cin, cout), cuda)
-    x = torch.from_numpy(rng.normal(size=(2, hw, hw, cin)).astype(
+    packed = _packed_kernel_major(rng, (k, k, cin, cout), cuda)
+    x = torch.from_numpy(rng.normal(size=(b, hw, hw, cin)).astype(
         np.float32)).to(cuda).to(dtype)
     pads = (f8.same_pads((hw, hw), (k, k), (stride, stride))
             if padding == "SAME" else ((0, 0), (0, 0)))
     before = f8.int8_conv2d_fused.launches
     y = f8.int8_conv2d_fused(x, packed, (stride, stride), pads, rule)
+    y_made_here = f8.int8_conv2d_fused(
+        x, {"q": packed["q"], "scale": packed["scale"]}, (stride, stride),
+        pads, rule)
     ref = f8.int8_conv2d_fused_plain(x, packed, (stride, stride), pads, rule)
     torch.cuda.synchronize()
     assert y.shape == ref.shape and y.dtype == dtype
-    assert f8.int8_conv2d_fused.launches == before + 1
-    assert _rel(y, ref) <= tol
+    assert f8.int8_conv2d_fused.launches == before + 2
+    assert torch.equal(y, ref) and torch.equal(y_made_here, ref)
+
+
+def test_int8_conv_kernel_at_every_resnet50_shape(cuda):
+    """K6 bitwise equal to its plain version at each of ResNet-50's 20
+    distinct conv shapes (224 x 224 input, batch 2), f32 and bf16, on the
+    route the router gives each (fused at stride 1, lax at stride 2)."""
+    from analytics_zoo_tpu_torch.models.image.backbones import resnet50
+    from analytics_zoo_tpu_torch.nn.layers import Convolution2D
+    from analytics_zoo_tpu_torch.ops import int8 as i8
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    model = resnet50((224, 224, 3), 1000, device=cuda, seed=0)
+    shapes = {}
+
+    def hook(mod, args):
+        shapes[(tuple(args[0].shape[1:]), mod.kernel_size[0],
+                mod.strides[0], mod.filters)] = mod.padding
+
+    hooks = [layer.register_forward_pre_hook(hook) for layer in model.layers
+             if isinstance(layer, Convolution2D)]
+    with torch.no_grad():
+        model(torch.zeros((1, 224, 224, 3), device=cuda))
+    for h in hooks:
+        h.remove()
+    assert len(shapes) == 20
+    rng = np.random.default_rng(3)
+    for ((h, w, cin), k, st, cout), padding in shapes.items():
+        packed = _packed_kernel_major(rng, (k, k, cin, cout), cuda)
+        pads = f8.conv_pads(padding, (h, w), (k, k), (st, st))
+        rule = "fused" if st == 1 else "lax"
+        x = torch.from_numpy(rng.normal(size=(2, h, w, cin)).astype(
+            np.float32)).to(cuda)
+        for dtype in I8_DTYPES:
+            xd = x.to(dtype)
+            y = i8.int8_conv2d(xd, packed, strides=(st, st),
+                               padding=padding)
+            ref = f8.int8_conv2d_fused_plain(xd, packed, (st, st), pads,
+                                             rule)
+            assert torch.equal(y, ref), ((h, cin, k, st, cout), dtype)
+
+
+@pytest.mark.parametrize("dtype", I8_DTYPES)
+@pytest.mark.parametrize("r,k,g,rule", [
+    (64, 512, 128, "fused"), (100, 4096, 512, "fused"), (7, 300, 100, "lax"),
+    (5, 96, 96, "lax"), (33, 3, 3, "fused"), (9, 200, 40, "fused"),
+    (3, 8192, 8192, "lax")])
+def test_int8_quantize_pass_matches_quantize_groups(cuda, dtype, r, k, g,
+                                                    rule):
+    """The kernels' quantize pass writes, bit for bit, the codes and scales
+    of ``quantize_groups`` per group (codes padded with zeros to 32 bytes
+    a group), an all-zero row included, at groups held in registers and at
+    a group long enough to be read twice."""
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    x = (torch.randn((r, k), device=cuda) * 3).to(dtype)
+    x[0] = 0
+    codes, scales = f8.int8_quantize_rows(x, g, rule)
+    torch.cuda.synchronize()
+    xf = x.float().cpu().reshape(r, k // g, g)
+    q, s = f8.quantize_groups(xf, rule)
+    want = torch.nn.functional.pad(q.to(torch.int8), (0, f8.depth_of(g) - g))
+    assert torch.equal(codes.cpu(), want.reshape(r, -1))
+    assert torch.equal(scales.cpu(), s.reshape(r, k // g))
+
+
+def test_int8_kernels_refuse_a_kernel_major_copy_of_another_shape(cuda):
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    rng = np.random.default_rng(1)
+    packed = _packed(rng, (256, 64), cuda)
+    packed["qt"] = packed["q"].clone()            # (K, N), not (N, K)
+    with pytest.raises(ValueError, match="kernel-major"):
+        f8.int8_matmul_fused(torch.randn((4, 256), device=cuda), packed, 128)
+    packed = _packed(rng, (3, 3, 16, 8), cuda)
+    packed["qt"] = packed["q"].clone()
+    with pytest.raises(ValueError, match="kernel-major"):
+        f8.int8_conv2d_fused(torch.randn((1, 8, 8, 16), device=cuda), packed,
+                             (1, 1), ((1, 1), (1, 1)))
 
 
 def test_int8_routers_launch_the_kernels_on_both_routes(cuda):

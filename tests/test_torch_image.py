@@ -25,6 +25,7 @@ from analytics_zoo_tpu_torch.inference.inference_model import InferenceModel
 from analytics_zoo_tpu_torch.models.image import backbones as tbb
 from analytics_zoo_tpu_torch.models.image.classification import ImageClassifier
 from analytics_zoo_tpu_torch.nn import layers as TL
+from analytics_zoo_tpu_torch.ops.int8 import quantize_weight
 
 TOL = 1e-5
 
@@ -241,3 +242,61 @@ def test_entry_points_need_cuda_or_a_device():
         ImageClassifier("resnet-18", (32, 32, 3), 10)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceModel()
+
+
+def test_pack_int8_keeps_the_state_dict_keys_and_adds_a_kernel_major_copy(
+        jax_resnet):
+    """quantize_int8 replaces each packed ``kernel`` by ``kernel_q`` and
+    ``kernel_scale`` in the state dict, as JAX's packed tree has them; the
+    kernel-major copy the kernels read (``kernel_qt``) is a buffer outside
+    the state dict, equal to ``kernel_q`` transposed, and the state dict
+    loads back into another packed model."""
+    from analytics_zoo_tpu_torch.ops.int8_fused import kernel_major
+
+    _, params, state = jax_resnet
+    im = InferenceModel(max_batch_size=2, device="cpu").load(
+        tbb.resnet50((32, 32, 3), 10, device="cpu"), params, state)
+    before = set(im._module.state_dict())
+    im.quantize_int8()
+    after = im._module.state_dict()
+    packed = {s for s in im.packed_slots}
+    want = {k for k in before if k.rsplit(".", 1)[0] not in packed
+            or not k.endswith(".kernel")}
+    want |= {f"{s}.{leaf}" for s in packed for leaf in ("kernel_q",
+                                                        "kernel_scale")}
+    assert set(after) == want
+    assert not any(k.endswith("kernel_qt") for k in after)
+    layers = [l for l in im._module.layers if getattr(l, "is_int8", False)]
+    assert len(layers) == 54
+    for layer in layers:
+        assert "kernel_qt" in dict(layer.named_buffers())
+        assert torch.equal(layer.packed_kernel["qt"],
+                           kernel_major(layer.kernel_q))
+    other = InferenceModel(max_batch_size=2, device="cpu").load(
+        tbb.resnet50((32, 32, 3), 10, device="cpu"), params,
+        state).quantize_int8()
+    other._module.load_state_dict(after)
+    x = np.random.default_rng(9).normal(size=(2, 32, 32, 3)).astype(
+        np.float32)
+    np.testing.assert_array_equal(other.predict(x), im.predict(x))
+
+
+def test_kernel_major_copy_follows_a_rewritten_kernel():
+    """``packed_kernel["qt"]`` is made again when ``kernel_q`` was written
+    (load_state_dict copies in place) or replaced, never stale."""
+    layer = TL.Dense(16, input_shape=(64,))
+    layer.build((64,), torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(10)
+    w = rng.normal(size=(2, 64, 16)).astype(np.float32)
+    layer.pack_int8(quantize_weight(w[0]))
+    first = layer.packed_kernel["qt"]
+    assert torch.equal(first, layer.kernel_q.t())
+    assert layer.packed_kernel["qt"] is first             # made once
+    new = quantize_weight(w[1])
+    layer.load_state_dict({"kernel_q": torch.from_numpy(new["q"]),
+                           "kernel_scale": torch.from_numpy(new["scale"]),
+                           "bias": layer.bias.detach()})
+    assert torch.equal(layer.packed_kernel["qt"],
+                       torch.from_numpy(new["q"]).t())
+    layer.kernel_q = torch.zeros_like(layer.kernel_q)
+    assert not layer.packed_kernel["qt"].any()

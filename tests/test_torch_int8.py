@@ -239,3 +239,81 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu_only():
         tfused.int8_matmul_fused_plain(_t(np.ones((3, 128))), tp, 128, "x")
     with pytest.raises(ValueError, match="divide"):
         tfused.int8_matmul_fused_plain(_t(np.ones((3, 128))), tp, 100)
+
+
+@pytest.mark.parametrize("shape", [(96, 48), (4096, 128), (3, 3, 8, 16),
+                                   (7, 7, 3, 64), (1, 1, 2048, 512)])
+def test_kernel_major_copy_is_q_transposed(shape):
+    """The kernels' weights: k contiguous, (K, N) -> (N, K) and (KH, KW,
+    Cin, Cout) -> (KH, KW, Cout, Cin), the same int8 values."""
+    w = np.random.default_rng(5).normal(size=shape).astype(np.float32)
+    q = torch.from_numpy(tint8.quantize_weight(w)["q"])
+    qt = tfused.kernel_major(q)
+    assert qt.dtype == torch.int8 and qt.is_contiguous()
+    assert tuple(qt.shape) == shape[:-2] + (shape[-1], shape[-2])
+    assert torch.equal(qt, q.transpose(-1, -2))
+    assert torch.equal(qt.transpose(-1, -2), q)
+
+
+@pytest.mark.parametrize("rule", ["fused", "lax"])
+@pytest.mark.parametrize("k,g", [(1024, 512), (2048, 2048), (300, 100),
+                                 (3, 3), (64, 64)])
+def test_quantize_pass_layout_holds_jax_codes(rule, k, g):
+    """What the kernels' quantize pass writes (``quantize_rows_plain``):
+    each group's codes and scale are JAX's for that group (the lax rule's
+    ``_quant_activations``; the fused rule's kernel lines), followed by
+    zero codes to 32 bytes a group."""
+    x = (np.random.default_rng(6).normal(size=(9, k)) * 4).astype(np.float32)
+    x[2] = 0.0
+    codes, scales = tfused.quantize_rows_plain(_t(x), g, rule)
+    gp = tfused.depth_of(g)
+    assert gp % tfused.DEPTH == 0 and gp - g < tfused.DEPTH
+    assert codes.dtype == torch.int8 and tuple(codes.shape) == (9, k // g * gp)
+    assert scales.dtype == torch.float32 and tuple(scales.shape) == (9, k // g)
+    codes = codes.reshape(9, k // g, gp).numpy()
+    assert not codes[:, :, g:].any()
+    for j in range(k // g):
+        xg = jnp.asarray(x[:, j * g:(j + 1) * g])
+        if rule == "lax":
+            jq, js = jint8._quant_activations(xg)
+        else:
+            js = jnp.maximum(jnp.max(jnp.abs(xg), axis=1, keepdims=True),
+                             1e-12) * (1.0 / 127.0)
+            jq = jnp.clip(jnp.round(xg / js), -127, 127).astype(jnp.int8)
+        np.testing.assert_array_equal(codes[:, j, :g], np.asarray(jq))
+        np.testing.assert_array_equal(scales[:, j:j + 1].numpy(),
+                                      np.asarray(js))
+
+
+@pytest.mark.parametrize("args,want", [
+    ((32, 56, 56, 64, 56, 56, 3, 3, (1, 1), 1, 1), (32 * 56 * 56, 64)),
+    ((32, 56, 56, 256, 28, 28, 1, 1, (2, 2), 0, 0), (32 * 28 * 28, 256)),
+    ((32, 224, 224, 3, 112, 112, 7, 7, (2, 2), 2, 2), (32 * 224 * 224, 4)),
+    ((2, 14, 14, 48, 14, 14, 1, 1, (1, 1), 0, 0), (2 * 14 * 14, 64)),
+    ((2, 13, 13, 40, 7, 7, 1, 1, (2, 2), 0, 0), (2 * 7 * 7, 64)),
+    ((2, 8, 8, 40, 9, 9, 1, 1, (1, 1), 0, 0), (2 * 8 * 8, 64)),
+    ((1, 8, 8, 4, 8, 8, 1, 1, (1, 1), 0, 0), (64, 4))])
+def test_conv_scratch_codes_only_the_pixels_a_1x1_reads(args, want):
+    """K6's codes: a 1x1 window at Cin > 4 that reads no padding codes its
+    output pixels' inputs only (a quarter at stride 2); any other conv
+    (a 3x3, the Cin <= 4 stem, a 1x1 whose output reaches the padding)
+    codes every input pixel. A row is Cin rounded up to 32 bytes, one word
+    at Cin <= 4."""
+    assert tfused.conv_scratch(*args) == want
+
+
+def test_wrappers_on_cpu_give_the_same_bits_with_the_kernel_major_copy():
+    """A packed dict with ``qt`` (as a packed layer passes it) runs the same
+    plain arithmetic as one without."""
+    rng = np.random.default_rng(8)
+    _, tp = _packs(rng.normal(size=(256, 64)).astype(np.float32))
+    x = _t(rng.normal(size=(5, 256)))
+    with_qt = {**tp, "qt": tfused.kernel_major(tp["q"])}
+    assert torch.equal(tfused.int8_matmul_fused(x, with_qt, 128),
+                       tfused.int8_matmul_fused(x, tp, 128))
+    _, tc = _packs(rng.normal(size=(3, 3, 8, 16)).astype(np.float32))
+    xc = _t(rng.normal(size=(2, 6, 6, 8)))
+    with_qt = {**tc, "qt": tfused.kernel_major(tc["q"])}
+    pads = ((1, 1), (1, 1))
+    assert torch.equal(tfused.int8_conv2d_fused(xc, with_qt, (1, 1), pads),
+                       tfused.int8_conv2d_fused(xc, tc, (1, 1), pads))
