@@ -1,8 +1,10 @@
 """TransformerLM (port of ``analytics_zoo_tpu/models/transformer.py``).
 
 A decoder-only transformer over int token ids (B, T) → logits (B, T, V),
-with the cache-threaded serving steps ``prefill`` and ``decode_step`` over
-the paged KV cache. Parameters live in the module, named as in the JAX
+with the cache-threaded serving steps ``prefill``, ``decode_step``,
+``verify_step`` (speculative), ``prefill_chunk`` and ``prefill_from``
+(chunked prefill, and prefill from a shared-prefix hit) over the paged KV
+cache. Parameters live in the module, named as in the JAX
 param tree (``token_embeddings``, ``block0.attn.qkv_kernel``, ``ln_f.gamma``,
 ...), so ``model.load_state_dict(bridge.params_from_jax(tree))`` loads a JAX
 model's weights. The JAX methods take ``params`` first; here the module's
@@ -24,14 +26,20 @@ K1 never runs again in backward (the guarantee of the JAX
 ``FLASH_REMAT_POLICY``; unlike it, q/k/v stay saved rather than being
 recomputed from the block input). ``"dots"`` is not ported.
 
-Not ported yet: remat ``"dots"``, ``prefill_from``, ``prefill_chunk``,
-``verify_step`` and ``PipelinedTransformerLM`` (ROADMAP Queue 1).
+``prefill_chunk`` looks its padding rows' positions up at most at the
+last row of the position table: the JAX package's lookup fills NaN past
+it, which reaches the chunk's valid rows through the scratch page (0·NaN);
+the valid rows, all below ``max_seq_len <= seq_len``, are unchanged.
+
+Not ported yet: remat ``"dots"`` and ``PipelinedTransformerLM`` (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -41,8 +49,9 @@ from ..nn.layers.normalization import LayerNormalization
 from ..nn.module import (as_compute, compute_dtype, embedding_normal,
                          glorot_uniform, precision_policy, resolve_device)
 from ..nn.topology import KerasNet
-from ..ops.kv_cache import (KVCacheConfig, init_cache, prefill_write,
-                            sample_tokens)
+from ..ops.kv_cache import (KVCacheConfig, _host_list, init_cache,
+                            prefill_write, sample_tokens)
+from ..ops.speculative import verify_draft_tokens
 
 _REMAT_MODES = (False, "flash", "full")
 
@@ -220,19 +229,81 @@ class TransformerLM(KerasNet, nn.Module):
                                  top_k=top_k)
         return next_ids, logits, cache
 
-    def prefill_from(self, *args, **kwargs):
-        raise NotImplementedError("prefill_from is not ported yet (ROADMAP "
-                                  "Queue 1: shared-prefix cache)")
+    @torch.no_grad()
+    def prefill_from(self, cache, ids, start, lengths, table, *,
+                     page_size: int):
+        """Suffix prefill from the divergence point of a shared-prefix hit:
+        ``ids`` (B, T_bucket) are the suffix tokens at positions ``start ..
+        start + T_bucket - 1``; ``start``: (B,) the first position to
+        compute (everything below it is cached, on shared pages);
+        ``lengths``: (B,) the TOTAL true prompt length. The bucket's padding
+        may reach past the table; those writes are dropped. Returns
+        ``(logits (B, V) f32 at position lengths - 1, cache)``."""
+        start = np.asarray(_host_list(start), np.int64)
+        lengths = np.asarray(_host_list(lengths), np.int64)
+        return self.prefill_chunk(cache, ids, start, lengths - start, table,
+                                  page_size=page_size)
 
-    def prefill_chunk(self, *args, **kwargs):
-        raise NotImplementedError("prefill_chunk is not ported yet (ROADMAP "
-                                  "Queue 1: speculative verify + chunked "
-                                  "prefill)")
+    @torch.no_grad()
+    def prefill_chunk(self, cache, ids, n_done, n_valid, table, *,
+                      page_size: int):
+        """One prefill chunk against a cache that already holds ``n_done``
+        tokens of the same prompt (in place): ``ids`` (B, chunk) are the
+        tokens at positions ``n_done .. n_done + chunk - 1``, right-padded
+        past ``n_valid`` (B,) true tokens; ``table`` must cover every
+        position the chunk's true tokens write (padding past the table is
+        dropped; entries past the allocated pages are scratch). Returns
+        ``(logits (B, V) f32 at position n_done + n_valid - 1, cache)``."""
+        ids = self._ids(ids)
+        n_done_host = np.asarray(_host_list(n_done), np.int64)
+        n_valid = self._ids(n_valid)
+        table = self._i32(table)
+        t = ids.shape[1]
+        in_table = int(n_done_host.max()) + t <= table.shape[1] * page_size
+        n_done = self._i32(n_done_host)
+        positions = n_done.long()[:, None] + torch.arange(
+            t, device=self.device)[None]
+        # padding rows past the position table read its last row (the JAX
+        # lookup fills NaN there); true tokens never reach it
+        h = (self.token_embeddings[ids]
+             + self.pos_embeddings[positions.clamp(max=self.seq_len - 1)])
+        h = as_compute(h)
+        for i, blk in enumerate(self.blocks):
+            h, _, _ = blk.verify_step(h, cache["k"][i], cache["v"][i], table,
+                                      n_done, page_size=page_size,
+                                      in_table=in_table)
+        h = self.ln_f(h)
+        last = h[torch.arange(h.shape[0], device=h.device),
+                 (n_valid - 1).clamp_min(0)]                   # (B, hidden)
+        return self._head(last).float(), cache
 
-    def verify_step(self, *args, **kwargs):
-        raise NotImplementedError("verify_step is not ported yet (ROADMAP "
-                                  "Queue 1: speculative verify + chunked "
-                                  "prefill)")
+    @torch.no_grad()
+    def verify_step(self, cache, ids, lengths, table, seeds, token_idx,
+                    temperature, *, page_size: int, top_k: int = 0):
+        """One speculative verify step: score ``k`` tokens per slot in one
+        dispatch (K2 at q_len k). ``ids``: (B, k) — column 0 the previous
+        step's sampled token, columns 1.. the drafts — at positions
+        ``lengths .. lengths + k - 1`` (pages allocated through the last);
+        ``token_idx``: (B,) the ordinal of the FIRST token this step emits.
+        Returns ``(accepted (B,) int32, tokens (B, k) int32, draft_probs
+        (B, k-1) f32, cache)``: ``tokens[:, :accepted+1]`` are the emitted
+        tokens (:func:`~analytics_zoo_tpu_torch.ops.speculative.
+        verify_draft_tokens`)."""
+        ids = self._ids(ids)
+        pos = self._i32(lengths)
+        table = self._i32(table)
+        k = ids.shape[1]
+        positions = pos.long()[:, None] + torch.arange(
+            k, device=self.device)[None]
+        h = self.token_embeddings[ids] + self.pos_embeddings[positions]
+        h = as_compute(h)
+        for i, blk in enumerate(self.blocks):
+            h, _, _ = blk.verify_step(h, cache["k"][i], cache["v"][i], table,
+                                      pos, page_size=page_size, in_table=True)
+        logits = self._head(self.ln_f(h)).float()               # (B, k, V)
+        accepted, tokens, draft_probs = verify_draft_tokens(
+            logits, ids[:, 1:], seeds, token_idx, temperature, top_k=top_k)
+        return accepted, tokens, draft_probs, cache
 
 
 def lm_loss(y_true, logits) -> torch.Tensor:

@@ -197,18 +197,30 @@ class TransformerLayer(nn.Module):
         ``pos``: (B,) int32 — the position being decoded. Returns
         ``(x_out, k_pages, v_pages)``."""
         return self._cached_step(x, k_pages, v_pages, table, pos,
-                                 page_size=page_size)
+                                 page_size=page_size, in_table=True)
+
+    def verify_step(self, x, k_pages, v_pages, table, pos, *,
+                    page_size: int, in_table: bool = False):
+        """The multi-token twin of :meth:`decode_step` (the speculative
+        verify step and prefill chunks): ``x``: (B, q_len, hidden); ``pos``:
+        (B,) — the FIRST position written; token i lands at ``pos + i`` and
+        attends causally to itself, the earlier new tokens and the cached
+        prefix. Writes past the table are dropped (``in_table=True``: the
+        caller guarantees there are none)."""
+        return self._cached_step(x, k_pages, v_pages, table, pos,
+                                 page_size=page_size, in_table=in_table)
 
     def _cached_step(self, x, k_pages, v_pages, table, pos, *,
-                     page_size: int):
+                     page_size: int, in_table: bool):
         """Write the q_len new tokens' K/V into the paged pool FIRST, then
         attend (so each token sees itself): the lengths handed to the
         kernel include the new tokens, ``pos + q_len``."""
         x = as_compute(x)
         q_len = x.shape[1]
         q, k, v = self.attn.qkv_proj(self.ln1(x))          # (B, q_len, H, D)
-        paged_write_multi(k_pages, table, pos, k, page_size=page_size)
-        paged_write_multi(v_pages, table, pos, v, page_size=page_size)
+        for pages, new in ((k_pages, k), (v_pages, v)):
+            paged_write_multi(pages, table, pos, new, page_size=page_size,
+                              in_table=in_table)
         lengths = (pos + q_len).to(torch.int32)
         o = paged_attention(q, k_pages, v_pages, table, lengths,
                             page_size=page_size)

@@ -18,17 +18,20 @@ for bit: :func:`gumbel_max_plain` in torch ops (the CPU path and the
 yardstick), :func:`gumbel_max` in one CUDA launch (``csrc/sample.cu``) for
 tensors on the card.
 
-Not ported yet: ``PrefixCache``, ``prefix_block_key`` and ``copy_page``
-(the shared-prefix cache).
+The shared-prefix cache is host-side: :class:`PrefixCache` indexes
+published page-aligned prompt blocks under a chain hash
+(:func:`prefix_block_key`, the JAX package's keys byte for byte), and
+:func:`copy_page` is the copy-on-write of a boundary page, in place.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import hashlib
 import math
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -186,6 +189,280 @@ class OutOfPages(RuntimeError):
 
 
 # ---------------------------------------------------------------------------
+# content-addressed prefix cache — host-side index over published KV pages
+# ---------------------------------------------------------------------------
+
+def prefix_block_key(parent: Optional[str], tokens) -> str:
+    """Chain hash of one page-aligned prefix block: blake2b (digest 16) of
+    the parent key and the block's int32 token bytes, so a block's identity
+    is the identity of the whole prefix through it (lookup is a
+    longest-prefix walk) and equal blocks under different prefixes never
+    collide."""
+    h = hashlib.blake2b(digest_size=16)
+    if parent is not None:
+        h.update(parent.encode("ascii"))
+    h.update(b"|")
+    h.update(np.ascontiguousarray(tokens, dtype=np.int32).tobytes())
+    return h.hexdigest()
+
+
+class _PrefixEntry:
+    """One published block: the pages backing ``block_tokens`` tokens of
+    some prompt prefix, plus the chain bookkeeping."""
+
+    __slots__ = ("key", "parent", "pages", "n_tokens", "last_used",
+                 "active", "children")
+
+    def __init__(self, key: str, parent: Optional[str], pages: List[int],
+                 n_tokens: int, last_used: int):
+        self.key = key
+        self.parent = parent
+        self.pages = pages          # page ids this entry holds one ref each
+        self.n_tokens = n_tokens    # cumulative prefix tokens through here
+        self.last_used = last_used  # logical clock, bumped per hit
+        self.active = 0             # streams currently matched through here
+        self.children: set = set()  # keys chained directly off this block
+
+
+class PrefixMatch:
+    """Result of a :meth:`PrefixCache.lookup` hit. The caller OWNS one pool
+    reference per page in ``pages`` (taken by lookup) and must either
+    install them in a stream's table or release them."""
+
+    __slots__ = ("keys", "pages", "n_tokens")
+
+    def __init__(self, keys: List[str], pages: List[int], n_tokens: int):
+        self.keys = keys
+        self.pages = pages
+        self.n_tokens = n_tokens
+
+
+class PrefixCache:
+    """Content-addressed index of published prefix KV pages.
+
+    Completed prefills :meth:`publish` their full page-aligned blocks under
+    the chain hash; new prefills :meth:`lookup` their prompt and get the
+    longest cached prefix back as shared pages (a refcount bump, no
+    compute). The cache holds its own pool reference on every published
+    page, so entries outlive their publisher; eviction
+    (:meth:`evict_to_budget`, :meth:`reclaim_pages`) is LRU over entries no
+    live stream is matched through, leaf blocks first.
+
+    Thread-safe: every mutation is all-or-nothing under one lock, which
+    takes the pool's lock as a leaf. Published K/V depends on the weights,
+    so new weights must :meth:`invalidate` it.
+    """
+
+    def __init__(self, pool: PagePool, *, block_tokens: int, page_size: int,
+                 max_pages: int):
+        if block_tokens < 1 or block_tokens % page_size:
+            raise ValueError(
+                f"prefix_block_tokens must be a positive multiple of "
+                f"page_size {page_size}, got {block_tokens}")
+        if max_pages < 1:
+            raise ValueError(f"prefix cache budget must be >= 1 page, "
+                             f"got {max_pages}")
+        self.pool = pool
+        self.block_tokens = int(block_tokens)
+        self.page_size = int(page_size)
+        self.max_pages = int(max_pages)
+        self._lock = threading.Lock()
+        self._entries: Dict[str, _PrefixEntry] = {}
+        self._held_pages = 0
+        self._clock = 0
+        self.hits = 0
+        self.misses = 0
+        self.evicted_pages = 0
+        self.evict_sweeps = 0
+
+    # ------------------------------------------------------------ read side
+
+    def _pages_per_block(self) -> int:
+        return self.block_tokens // self.page_size
+
+    def lookup(self, tokens) -> Optional[PrefixMatch]:
+        """Longest-prefix match of ``tokens`` against the published chains.
+        On a hit, takes one pool reference per matched page for the caller
+        (atomic with the walk, so no eviction can reclaim a matched page
+        first) and marks each matched entry stream-active until
+        :meth:`release_stream`. Returns ``None`` on a miss."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        n = int(tokens.size)
+        bt = self.block_tokens
+        with self._lock:
+            keys: List[str] = []
+            pages: List[int] = []
+            matched = 0
+            parent: Optional[str] = None
+            while matched + bt <= n:
+                key = prefix_block_key(parent, tokens[matched:matched + bt])
+                entry = self._entries.get(key)
+                if entry is None:
+                    break
+                keys.append(key)
+                pages.extend(entry.pages)
+                matched += bt
+                parent = key
+            if not keys:
+                self.misses += 1
+                return None
+            self._clock += 1
+            for k in keys:
+                e = self._entries[k]
+                e.last_used = self._clock
+                e.active += 1
+            self.pool.incref(pages)      # the caller's references
+            self.hits += 1
+            return PrefixMatch(keys, list(pages), matched)
+
+    def release_stream(self, keys: Sequence[str]) -> None:
+        """Drop a stream's active marks (retire, cancel, failed prefill).
+        Keys already gone (an intervening :meth:`invalidate`) are skipped:
+        the stream's own page references were its safety."""
+        with self._lock:
+            for k in keys:
+                e = self._entries.get(k)
+                if e is not None and e.active > 0:
+                    e.active -= 1
+
+    # ----------------------------------------------------------- write side
+
+    def publish(self, tokens, n_tokens: int, pages: Sequence[int]) -> int:
+        """Publish a completed prefill's FULL blocks: those wholly below
+        ``n_tokens`` (decode writes start there). ``pages``: the stream's
+        page ids in table order. The cache takes its own reference on every
+        newly published page; blocks already present are skipped (first
+        publisher wins — identical content by construction). The whole
+        chain goes in under one lock hold. Returns blocks newly
+        published."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        bt = self.block_tokens
+        ppb = self._pages_per_block()
+        n_full = int(n_tokens) // bt
+        if n_full < 1:
+            return 0
+        with self._lock:
+            parent: Optional[str] = None
+            fresh: List[Tuple[str, Optional[str], List[int], int]] = []
+            for b in range(n_full):
+                key = prefix_block_key(parent, tokens[b * bt:(b + 1) * bt])
+                if key not in self._entries:
+                    blk = [int(p) for p in pages[b * ppb:(b + 1) * ppb]]
+                    fresh.append((key, parent, blk, (b + 1) * bt))
+                parent = key
+            if not fresh:
+                return 0
+            self._clock += 1
+            for key, par, blk, ntok in fresh:
+                self.pool.incref(blk)   # the cache's own references
+                self._entries[key] = _PrefixEntry(key, par, blk, ntok,
+                                                  self._clock)
+                self._held_pages += len(blk)
+                if par is not None:
+                    self._entries[par].children.add(key)
+        return len(fresh)
+
+    # ------------------------------------------------------------- eviction
+
+    def _remove_locked(self, entry: _PrefixEntry) -> None:
+        del self._entries[entry.key]
+        self._held_pages -= len(entry.pages)
+        if entry.parent is not None:
+            par = self._entries.get(entry.parent)
+            if par is not None:
+                par.children.discard(entry.key)
+        self.pool.release(entry.pages)
+
+    def _evict_locked(self, done) -> Tuple[int, int]:
+        """LRU-evict leaf entries with no active stream until ``done()`` or
+        no candidate remains. Caller holds the lock."""
+        n_entries = n_pages = 0
+        while not done():
+            cands = [e for e in self._entries.values()
+                     if not e.children and e.active == 0]
+            if not cands:
+                break
+            victim = min(cands, key=lambda e: e.last_used)
+            self._remove_locked(victim)
+            n_entries += 1
+            n_pages += len(victim.pages)
+        return n_entries, n_pages
+
+    def evict_to_budget(self) -> Dict[str, int]:
+        """Shrink cache-held pages to ``max_pages`` (LRU, leaf-first).
+        Returns the sweep's stats (zeros when already under budget)."""
+        with self._lock:
+            if self._held_pages <= self.max_pages:
+                return {"entries": 0, "pages": 0,
+                        "held_pages": self._held_pages}
+            n_entries, n_pages = self._evict_locked(
+                lambda: self._held_pages <= self.max_pages)
+            self.evict_sweeps += 1
+            self.evicted_pages += n_pages
+            return {"entries": n_entries, "pages": n_pages,
+                    "held_pages": self._held_pages}
+
+    def reclaim_pages(self, need_free: int) -> int:
+        """Pool-pressure valve: evict (LRU, leaf-first) until the pool has
+        ``need_free`` free pages or nothing evictable remains. Returns the
+        pages released."""
+        with self._lock:
+            _, n_pages = self._evict_locked(
+                lambda: self.pool.free_count() >= need_free)
+            if n_pages:
+                self.evict_sweeps += 1
+                self.evicted_pages += n_pages
+            return n_pages
+
+    def invalidate(self) -> int:
+        """Drop every entry and the cache's page references (new weights,
+        or the batcher closing). Streams matched through dropped entries
+        keep their own page references. Returns pages released."""
+        with self._lock:
+            released = 0
+            for e in self._entries.values():
+                self.pool.release(e.pages)
+                released += len(e.pages)
+            self._entries.clear()
+            self._held_pages = 0
+            return released
+
+    # ---------------------------------------------------------- diagnostics
+
+    def held_pages(self) -> int:
+        with self._lock:
+            return self._held_pages
+
+    def reclaimable_pages(self) -> int:
+        """Cache-held pages whose only reference is the cache's (refcount
+        1, entry not stream-active): what an eviction sweep would hand back
+        to the free list now."""
+        with self._lock:
+            return sum(1 for e in self._entries.values() if e.active == 0
+                       for p in e.pages if self.pool.ref_count(p) == 1)
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            entries = len(self._entries)
+            held = self._held_pages
+            active = sum(1 for e in self._entries.values() if e.active)
+        total = self.hits + self.misses
+        return {
+            "entries": entries,
+            "held_pages": held,
+            "budget_pages": self.max_pages,
+            "block_tokens": self.block_tokens,
+            "stream_active_entries": active,
+            "reclaimable_pages": self.reclaimable_pages(),
+            "hits": self.hits,
+            "misses": self.misses,
+            "hit_rate": round(self.hits / total, 4) if total else 0.0,
+            "evicted_pages": self.evicted_pages,
+            "evict_sweeps": self.evict_sweeps,
+        }
+
+
+# ---------------------------------------------------------------------------
 # device ops — pools are (P, page_size, H, D) views of ONE layer, updated in
 # place
 # ---------------------------------------------------------------------------
@@ -231,16 +508,40 @@ def prefill_write(pages: torch.Tensor, table: torch.Tensor, kv: torch.Tensor,
 
 def paged_write_multi(pages: torch.Tensor, table: torch.Tensor,
                       pos: torch.Tensor, new: torch.Tensor, *,
-                      page_size: int) -> torch.Tensor:
+                      page_size: int, in_table: bool = False
+                      ) -> torch.Tensor:
     """Write ``T`` consecutive tokens' K or V per slot, in place: ``new``
-    (B, T, H, D) lands at positions ``pos .. pos+T-1``. The caller keeps
-    ``pos + T <= pages_per_slot * page_size``."""
+    (B, T, H, D) lands at positions ``pos .. pos+T-1``. A position whose
+    page index falls past the table row is dropped, as the JAX package's
+    scatter drops it (a suffix prefill's pow2 bucket can reach past the
+    table; its padding rows are never read). ``in_table=True``: the caller
+    guarantees every position is inside the table (the decode and verify
+    steps), which skips the mask — on a CUDA tensor its compaction waits
+    for the card."""
     t = new.shape[1]
     positions = pos.long()[:, None] + torch.arange(
         t, device=pos.device)[None]                                  # (B, T)
-    page_ids = table.long().gather(1, positions // page_size)        # (B, T)
-    pages[page_ids, positions % page_size] = new.to(pages.dtype)
+    page_idx = positions // page_size
+    new = new.to(pages.dtype)
+    if not in_table:
+        keep = page_idx < table.shape[1]
+        rows, cols = keep.nonzero(as_tuple=True)
+        page_ids = table.long()[rows, page_idx[rows, cols]]
+        pages[page_ids, positions[rows, cols] % page_size] = new[rows, cols]
+        return pages
+    page_ids = table.long().gather(1, page_idx)                      # (B, T)
+    pages[page_ids, positions % page_size] = new
     return pages
+
+
+def copy_page(cache: Dict[str, torch.Tensor], src: int, dst: int
+              ) -> Dict[str, torch.Tensor]:
+    """Copy one page's K and V across every layer, ``src`` -> ``dst``, in
+    place — the copy-on-write of the one partially shared boundary page of
+    a whole-prompt prefix hit. Returns the cache."""
+    for pages in cache.values():
+        pages[:, int(dst)] = pages[:, int(src)]
+    return cache
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -433,9 +734,10 @@ def sample_tokens(logits: torch.Tensor, seeds, token_idx, temperature, *,
 
 
 __all__ = [
-    "KVCacheConfig", "OutOfPages", "PagePool", "SCRATCH_PAGE",
-    "decode_attention", "decode_attention_multi", "gumbel_max",
-    "gumbel_max_plain", "init_cache", "paged_read",
-    "paged_write", "paged_write_multi", "prefill_write", "sample_bits",
-    "sample_tokens", "threefry2x32",
+    "KVCacheConfig", "OutOfPages", "PagePool", "PrefixCache", "PrefixMatch",
+    "SCRATCH_PAGE", "copy_page", "decode_attention",
+    "decode_attention_multi", "gumbel_max", "gumbel_max_plain",
+    "init_cache", "paged_read", "paged_write", "paged_write_multi",
+    "prefill_write", "prefix_block_key", "sample_bits", "sample_tokens",
+    "threefry2x32",
 ]

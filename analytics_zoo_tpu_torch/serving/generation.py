@@ -1,19 +1,24 @@
 """Autoregressive generation serving: continuous micro-batching + streaming
-(port of the plain serving loop of ``analytics_zoo_tpu/serving/generation.py``).
+(port of ``ContinuousBatcher`` in ``analytics_zoo_tpu/serving/generation.py``).
 
 :class:`ContinuousBatcher` runs ``n_slots`` concurrent decode sequences over
 one paged KV cache. One daemon loop thread admits pending requests into free
-slots in FIFO order (whole-prompt prefill into a power-of-two bucket), runs
-one fixed-shape decode step over all slots, emits per-stream token deltas,
-and retires finished sequences — all per step, so aggregate throughput
-tracks active tokens instead of the slowest request of a batch.
+slots in FIFO order (whole-prompt prefill into a power-of-two bucket, or
+chunked prefill under a per-pass token budget), runs one decode step over
+the live slots (single-token, or a speculative verify of ``spec_k``
+tokens), emits per-stream token deltas, and retires finished sequences —
+all per step, so aggregate throughput tracks active tokens instead of the
+slowest request of a batch. With a prefix cache, a prompt's published
+blocks are shared (refcounted pages, copy-on-write at the boundary) and
+only its suffix is prefilled. Speculation, chunking and prefix sharing
+change the cost of a stream, never its tokens.
 
 Not ported yet, and raising ``NotImplementedError`` where a caller asks for
-them (ROADMAP Queue 1): speculative decode (``spec_k``), the shared-prefix
-cache (``prefix_cache_pages``), chunked prefill (``prefill_chunk_tokens``),
-priorities, deadlines and preemption, ``swap_params``, the run-to-completion
-``admit_policy="batch"`` baseline, telemetry and chaos hooks, and the
-broker-facing ``GenerationEngine``/``GenerationClient``.
+them (ROADMAP Queue 1): priorities, deadlines and preemption,
+``swap_params``, the run-to-completion ``admit_policy="batch"`` baseline,
+``cancel_uri``, telemetry, the flight recorder, events and chaos hooks,
+``graph_checks`` and ``hbm_budget_bytes``, and the broker-facing
+``GenerationEngine``/``GenerationClient``.
 """
 
 from __future__ import annotations
@@ -29,8 +34,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis.rules.decode import lint_prefix_write_isolation
 from ..nn.module import resolve_device
-from ..ops.kv_cache import OutOfPages, PagePool, SCRATCH_PAGE, sample_tokens
+from ..ops.kv_cache import (OutOfPages, PagePool, PrefixCache, SCRATCH_PAGE,
+                            copy_page, sample_tokens)
+from ..ops.speculative import propose_kgram
+from .qos import ServiceTimeEMA, prefill_budget_decision
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.serving.generation")
 
@@ -131,15 +140,34 @@ class StreamHandle:
 class _Slot:
     """One decode slot's host-side state (device state lives in the cache)."""
 
-    __slots__ = ("request", "length", "generated", "last_token", "pages")
+    __slots__ = ("request", "length", "generated", "last_token", "pages",
+                 "history", "pending_drafts", "prefix_keys", "prefilling",
+                 "prefill_done", "chunks", "admitted_t", "order")
 
     def __init__(self, request: _Request, length: int, last_token: int,
-                 pages: List[int]):
+                 pages: List[int], order: int,
+                 history: Optional[List[int]] = None,
+                 prefix_keys: Optional[List[str]] = None):
         self.request = request
         self.length = length            # tokens already in the cache
         self.generated = 1              # prefill samples token 0
         self.last_token = last_token    # sampled, not yet cached
-        self.pages = pages              # owned page ids (freed on retire)
+        self.pages = pages              # page references (released on retire)
+        self.order = order              # admission order (chunk FIFO)
+        # chunked prefill: a prefilling slot owns its pages and table row
+        # but is masked out of every decode/verify dispatch until
+        # _finalize_prefill samples token 0 and flips it live
+        self.prefilling = False
+        self.prefill_done = 0           # prompt tokens already in the cache
+        self.chunks = 0                 # chunk dispatches spent on this slot
+        self.admitted_t = time.perf_counter()
+        # prompt + emitted tokens: the k-gram proposer's corpus
+        self.history: List[int] = history if history is not None else []
+        # drafted, not yet verified: proposed right after each step
+        self.pending_drafts: Optional[List[int]] = None
+        # prefix-cache entries this stream matched through at admission,
+        # released when the slot retires (the page references ride pages)
+        self.prefix_keys: List[str] = prefix_keys or []
 
 
 class ContinuousBatcher:
@@ -149,30 +177,58 @@ class ContinuousBatcher:
     TransformerLM` (its own parameters are served). ``device`` must be the
     model's device; it defaults to CUDA and raises when CUDA is absent, as
     every entry point of the port does.
+
+    ``spec_k`` >= 2 decodes speculatively (``spec_k`` tokens scored per
+    verify step, ``spec_ngram`` the proposer's longest n-gram; 0 and 1 are
+    plain decode). ``prefill_chunk_tokens`` > 0 (a multiple of
+    ``page_size``) prefills every prompt in chunks of that many tokens, at
+    most ``prefill_token_budget`` tokens a loop pass (or the headroom that
+    ``prefill_slo_itl_s`` leaves; one chunk at least) before each decode
+    step. ``prefix_cache_pages`` > 0 shares published prompt blocks of
+    ``prefix_block_tokens`` (default ``page_size``) tokens between streams,
+    the cache holding at most that many pages of the pool.
+
+    The pool is written in place, so the JAX package's ``donate_cache``
+    has no counterpart here.
     """
 
     def __init__(self, model, *, n_slots: int = 8, page_size: int = 16,
                  max_seq_len: Optional[int] = None,
                  n_pages: Optional[int] = None, top_k: int = 0,
-                 spec_k: int = 0, prefix_cache_pages: int = 0,
+                 spec_k: int = 0, spec_ngram: int = 3,
+                 admit_policy: str = "continuous",
+                 prefix_cache_pages: int = 0,
+                 prefix_block_tokens: int = 0,
                  prefill_chunk_tokens: int = 0,
-                 admit_policy: str = "continuous", device=None,
-                 autostart: bool = True):
-        if spec_k > 0:
-            _unported("speculative decode (spec_k > 0)",
-                      "speculative verify + chunked prefill")
-        if prefix_cache_pages > 0:
-            _unported("the shared-prefix KV cache (prefix_cache_pages > 0)",
-                      "shared-prefix cache")
-        if prefill_chunk_tokens > 0:
-            _unported("chunked prefill (prefill_chunk_tokens > 0)",
-                      "speculative verify + chunked prefill")
+                 prefill_token_budget: int = 0,
+                 prefill_slo_itl_s: Optional[float] = None,
+                 graph_checks: Optional[str] = None,
+                 hbm_budget_bytes: Optional[int] = None,
+                 device=None, autostart: bool = True):
         if admit_policy != "continuous":
             _unported(f"admit_policy={admit_policy!r}", "serving remainder")
+        if graph_checks and graph_checks != "off":
+            _unported("graph_checks (the decode graph lint)", "breadth")
+        if hbm_budget_bytes is not None:
+            _unported("hbm_budget_bytes (the static memory lint)", "breadth")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if page_size & (page_size - 1):
             raise ValueError(f"page_size must be a power of two, got "
                              f"{page_size} (prefill buckets are pow2 and "
                              f"must tile by pages)")
+        if prefill_chunk_tokens < 0 or (prefill_chunk_tokens
+                                        and prefill_chunk_tokens % page_size):
+            raise ValueError(f"prefill_chunk_tokens must be 0 (whole-prompt "
+                             f"prefill) or a positive multiple of page_size "
+                             f"{page_size}, got {prefill_chunk_tokens}")
+        if prefill_token_budget < 0:
+            raise ValueError(f"prefill_token_budget must be >= 0, got "
+                             f"{prefill_token_budget}")
+        if prefill_token_budget and not prefill_chunk_tokens:
+            raise ValueError("prefill_token_budget requires "
+                             "prefill_chunk_tokens > 0 (the budget is spent "
+                             "in whole chunks)")
         self.device = resolve_device(device)
         if not _same_device(torch.device(model.device), self.device):
             raise ValueError(f"model lives on {model.device}, batcher asked "
@@ -185,6 +241,16 @@ class ContinuousBatcher:
             n_slots, page_size=page_size, max_seq_len=max_seq_len,
             n_pages=n_pages)
         self.pool = PagePool(self.cfg)
+        # shared-prefix cache: its budget counts cache-held pages inside
+        # the one pool, reclaimed under pool pressure before any stream is
+        # truncated for pages the cache sits on
+        self.prefix_cache: Optional[PrefixCache] = None
+        if int(prefix_cache_pages) > 0:
+            self.prefix_cache = PrefixCache(
+                self.pool,
+                block_tokens=int(prefix_block_tokens) or page_size,
+                page_size=page_size, max_pages=int(prefix_cache_pages))
+        self.prefix_tokens_saved = 0
         self.peak_pages_in_use = 0
         # host-side page tables (fixed shape), copied to the device per step
         self._table = np.full((self.n_slots, self.cfg.pages_per_slot),
@@ -194,17 +260,38 @@ class ContinuousBatcher:
         # FIFO staging between the submit queue and admission; owned by the
         # loop thread (a request the dry pool turned away waits at its head)
         self._backlog: "collections.deque[_Request]" = collections.deque()
+        self._admitted = 0
         self._wake = threading.Event()
         self._stop = threading.Event()
         # guards _slots and _table against stats readers; final-frame
         # callbacks run outside it
         self._lock = threading.Lock()
+        # measured decode-step and prefill-chunk service times (the
+        # SLO-derived prefill budget reads both)
+        self.step_ema = ServiceTimeEMA()
+        self.chunk_ema = ServiceTimeEMA()
+        self.prefill_chunk_tokens = int(prefill_chunk_tokens)
+        self.prefill_token_budget = int(prefill_token_budget)
+        self.prefill_slo_itl_s = (float(prefill_slo_itl_s)
+                                  if prefill_slo_itl_s else None)
+        self._last_budget: Optional[Dict[str, Any]] = None
+        self.spec_k = 0 if int(spec_k) == 1 else int(spec_k)
+        self.spec_ngram = int(spec_ngram)
+        # accounting; steps counts decode and verify dispatches
         self.steps = 0
         self.tokens_generated = 0
         self.requests_finished: Dict[str, int] = {}
         self.prefill_buckets: set = set()
         self.decode_shapes: set = set()
+        self.chunk_shapes: set = set()
+        self.prefill_chunks_total = 0
+        self.prefills_whole = 0          # whole-prompt prefill dispatches
+        self.prefills_from = 0           # suffix prefills from a prefix hit
+        self.spec_steps = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         self._occupied_slot_steps = 0
+        self._decode_tokens = 0          # decode-phase tokens (not prefill)
         self._threads: List[threading.Thread] = []
         if autostart:
             self.start()
@@ -222,8 +309,9 @@ class ContinuousBatcher:
         return self
 
     def close(self, timeout_s: float = 30.0):
-        """Stop the loop thread, join it, and fail every request still
-        queued or in flight."""
+        """Stop the loop thread, join it, fail every request still queued
+        or in flight, and drop the prefix cache's page references (so a
+        closed batcher's pool sums back to capacity)."""
         self._stop.set()
         self._wake.set()
         for t in self._threads:
@@ -238,6 +326,8 @@ class ContinuousBatcher:
             self._finish_cb(req, [], "error",
                             error="generator closed before admission")
         self._fail_all_active("generator closed mid-stream")
+        if self.prefix_cache is not None:
+            self.prefix_cache.invalidate()
 
     def swap_params(self, *args, **kwargs):
         _unported("swap_params (hot swap)", "serving remainder")
@@ -301,12 +391,17 @@ class ContinuousBatcher:
             while not self._stop.is_set():
                 try:
                     self._admit()
+                    if self.prefill_chunk_tokens:
+                        # at most one budget of prefill chunks, THEN one
+                        # decode step: running streams advance every pass
+                        # however deep the prefill backlog
+                        self._prefill_chunks()
                     if self.active_slots() == 0:
                         if self._pending.empty() and not self._backlog:
                             self._wake.wait(timeout=0.05)
                             self._wake.clear()
                         continue
-                    self._step_plain()
+                    self._step()
                 except Exception as e:
                     # a failing step fails the in-flight streams instead of
                     # killing the loop
@@ -356,50 +451,271 @@ class ContinuousBatcher:
                 logger.exception("prefill failed for %s", req.uri)
                 self._finish_cb(req, [], "error", error=str(e))
 
+    def _alloc_pages(self, n: int) -> List[int]:
+        """``pool.alloc`` with the prefix cache as a pressure valve: a dry
+        pool first evicts cache-held entries no stream uses (LRU) before
+        :class:`OutOfPages` reaches a stream."""
+        try:
+            return self.pool.alloc(n)
+        except OutOfPages:
+            if self.prefix_cache is None \
+                    or not self.prefix_cache.reclaim_pages(n):
+                raise
+            return self.pool.alloc(n)
+
     def _note_pool_peak(self) -> None:
         used = self.pool.capacity - self.pool.free_count()
         if used > self.peak_pages_in_use:
             self.peak_pages_in_use = used
 
-    def _prefill_into_slot(self, req: _Request):
-        slot_idx = self._slots.index(None)
+    def _claim_pages(self, req: _Request):
+        """Claim a new stream's pages: the prefix cache's match first (the
+        lookup takes this stream's references on the shared pages), a
+        copy-on-write of the boundary page when the WHOLE prompt is cached
+        (token 0 still needs the last position's logits, and its K/V write
+        must not land in a shared page), then fresh pages for the rest.
+        Returns ``(row, keys, start)``: the page row, the matched entry keys
+        and the first position to compute. On failure every page and
+        prefix reference taken here is handed back."""
         cfg = self.cfg
         n_prompt = int(req.prompt.size)
         n_pg = -(-n_prompt // cfg.page_size)
-        row = self.pool.alloc(n_pg)
+        match = (self.prefix_cache.lookup(req.prompt)
+                 if self.prefix_cache is not None else None)
+        keys: List[str] = [] if match is None else match.keys
+        row: List[int] = [] if match is None else list(match.pages)
+        held: List[int] = list(row)     # pages this stream holds refs on
+        start = 0 if match is None else match.n_tokens
         try:
+            if match is not None and start >= n_prompt:
+                start = n_prompt - 1
+                bp = start // cfg.page_size
+                (cow,) = self._alloc_pages(1)
+                held.append(cow)
+                # in place and in stream order: the copy lands before the
+                # suffix writes into the page
+                copy_page(self.cache, row[bp], cow)
+                self.pool.release([row[bp]])
+                held.remove(row[bp])
+                row[bp] = cow
+            if len(row) < n_pg:
+                fresh = self._alloc_pages(n_pg - len(row))
+                row.extend(fresh)
+                held.extend(fresh)
             self._note_pool_peak()
-            bucket = min(max(_next_pow2(n_prompt), cfg.page_size),
+            if start:
+                # every page the suffix can write must be this stream's alone
+                findings = lint_prefix_write_isolation(
+                    self.pool, row, start, page_size=cfg.page_size)
+                if findings:
+                    raise RuntimeError(
+                        "prefix-share write isolation violated: "
+                        + "; ".join(f.message for f in findings))
+        except BaseException:
+            self._release_claim(keys, held)
+            raise
+        return row, keys, start
+
+    def _release_claim(self, keys: List[str], pages: List[int]) -> None:
+        if keys and self.prefix_cache is not None:
+            self.prefix_cache.release_stream(keys)
+        self.pool.release(pages)
+
+    def _publish(self, req: _Request, pages: List[int]) -> None:
+        if self.prefix_cache is not None:
+            self.prefix_cache.publish(req.prompt, int(req.prompt.size), pages)
+            self.prefix_cache.evict_to_budget()
+
+    def _install(self, slot_idx: int, slot: _Slot) -> None:
+        with self._lock:
+            self._table[slot_idx, :] = SCRATCH_PAGE
+            self._table[slot_idx, :len(slot.pages)] = slot.pages
+            self._slots[slot_idx] = slot
+
+    def _prefill_into_slot(self, req: _Request):
+        if self.prefill_chunk_tokens:
+            # chunked mode routes EVERY prefill through chunks (a short
+            # prompt takes one): one code path
+            return self._begin_chunked_prefill(req)
+        t_admit = time.perf_counter()
+        slot_idx = self._slots.index(None)
+        cfg = self.cfg
+        n_prompt = int(req.prompt.size)
+        row, keys, start = self._claim_pages(req)
+        try:
+            n_suffix = n_prompt - start
+            bucket = min(max(_next_pow2(n_suffix), cfg.page_size),
                          cfg.max_seq_len)
             if bucket % cfg.page_size:
                 bucket = -(-bucket // cfg.page_size) * cfg.page_size
             ids = np.zeros((1, bucket), np.int32)
-            ids[0, :n_prompt] = req.prompt
+            ids[0, :n_suffix] = req.prompt[start:]
             table = np.full((1, cfg.pages_per_slot), SCRATCH_PAGE, np.int32)
-            table[0, :n_pg] = row
-            logits, self.cache = self.model.prefill(
-                self.cache, ids, np.array([n_prompt], np.int32), table,
-                page_size=cfg.page_size)
-            first = sample_tokens(logits, [req.seed], [0], [req.temperature],
-                                  top_k=self.top_k)
-            tok = int(first[0])
+            table[0, :len(row)] = row
+            if start:
+                logits, self.cache = self.model.prefill_from(
+                    self.cache, ids, np.array([start], np.int32),
+                    np.array([n_prompt], np.int32), table,
+                    page_size=cfg.page_size)
+                self.prefills_from += 1
+            else:
+                logits, self.cache = self.model.prefill(
+                    self.cache, ids, np.array([n_prompt], np.int32), table,
+                    page_size=cfg.page_size)
+                self.prefills_whole += 1
+            tok = int(sample_tokens(logits, [req.seed], [0],
+                                    [req.temperature], top_k=self.top_k)[0])
+            self._publish(req, row)
         except BaseException:
-            # a failed prefill hands back every page it took
-            self.pool.release(row)
+            # a failed prefill hands back every page and reference it took
+            self._release_claim(keys, row)
             raise
         self.prefill_buckets.add(bucket)
-        slot = _Slot(req, n_prompt, tok, list(row))
-        with self._lock:
-            self._table[slot_idx, :] = SCRATCH_PAGE
-            self._table[slot_idx, :n_pg] = row
-            self._slots[slot_idx] = slot
+        self.prefix_tokens_saved += start
+        self._admitted += 1
+        slot = _Slot(req, n_prompt, tok, list(row), self._admitted,
+                     history=req.prompt.tolist() + [tok], prefix_keys=keys)
+        slot.admitted_t = t_admit
+        if self.spec_k >= 2:
+            slot.pending_drafts = propose_kgram(
+                slot.history, self.spec_k - 1, self.spec_ngram)
+        self._install(slot_idx, slot)
         self._emit(slot, [tok])
         self._maybe_finish(slot_idx)
 
+    # chunked prefill -----------------------------------------------------------
+
+    def _begin_chunked_prefill(self, req: _Request):
+        """Admit a request into the ``prefilling`` phase: claim its pages
+        (warm prefix blocks first, so a warm stream starts at its suffix)
+        and install the slot masked out of every decode dispatch;
+        :meth:`_prefill_chunks` fills the prompt chunk by chunk. Nothing is
+        dispatched here. Once installed, :meth:`_retire_locked` owns the
+        release of its pages and references."""
+        slot_idx = self._slots.index(None)
+        row, keys, start = self._claim_pages(req)
+        self.prefix_tokens_saved += start
+        self._admitted += 1
+        slot = _Slot(req, int(req.prompt.size), -1, list(row),
+                     self._admitted, prefix_keys=keys)
+        slot.generated = 0              # token 0 samples at finalize
+        slot.prefilling = True
+        slot.prefill_done = start
+        self._install(slot_idx, slot)
+
+    def _prefill_budget(self) -> int:
+        """Tokens this loop pass may spend on prefill chunks."""
+        decision = prefill_budget_decision({
+            "chunk_tokens": self.prefill_chunk_tokens,
+            "static_budget": self.prefill_token_budget,
+            "itl_target_s": self.prefill_slo_itl_s,
+            "decode_ema_s": round(self.step_ema.value(), 6),
+            "chunk_ema_s": round(self.chunk_ema.value(), 6)})
+        self._last_budget = decision
+        return int(decision["budget_tokens"])
+
+    def _prefill_chunks(self):
+        """Spend at most one token budget on pending chunks, oldest
+        admission first. The FIRST chunk always runs (the progress floor),
+        then chunks run while they fit."""
+        budget: Optional[int] = None
+        spent = 0
+        while True:
+            with self._lock:
+                cands = [(s.order, i) for i, s in enumerate(self._slots)
+                         if s is not None and s.prefilling]
+            if not cands:
+                return
+            if budget is None:
+                budget = self._prefill_budget()
+            if spent and spent + self.prefill_chunk_tokens > budget:
+                return
+            spent += self._prefill_one_chunk(min(cands)[1])
+
+    def _prefill_one_chunk(self, idx: int) -> int:
+        """Run ONE chunk of slot ``idx``'s prompt; finalize the stream when
+        the prompt completes. Returns the chunk tokens spent (0 when the
+        slot retired instead)."""
+        cfg = self.cfg
+        ct = self.prefill_chunk_tokens
+        fin = None
+        with self._lock:
+            slot = self._slots[idx]
+            if slot is None or not slot.prefilling:
+                return 0
+            if slot.request.cancelled:
+                fin = self._retire_locked(idx, "cancelled")
+        if fin is not None:
+            self._finish_cb(*fin)
+            return 0
+        req = slot.request
+        n_prompt = int(req.prompt.size)
+        n_done = slot.prefill_done
+        n_valid = min(ct, n_prompt - n_done)
+        # WIDE table: a chunk ending at n_done + ct - 1 can reach page
+        # pages_per_slot - 1 + ct/page_size; entries past the row are scratch
+        wide = cfg.pages_per_slot + ct // cfg.page_size
+        try:
+            ids = np.zeros((1, ct), np.int32)
+            ids[0, :n_valid] = req.prompt[n_done:n_done + n_valid]
+            table = np.full((1, wide), SCRATCH_PAGE, np.int32)
+            table[0, :len(slot.pages)] = slot.pages
+            t0 = time.monotonic()
+            logits, self.cache = self.model.prefill_chunk(
+                self.cache, ids, np.array([n_done], np.int32),
+                np.array([n_valid], np.int32), table,
+                page_size=cfg.page_size)
+            self.chunk_ema.observe(time.monotonic() - t0)
+        except Exception as e:
+            # a chunk failure fails THIS stream, not the loop
+            logger.exception("prefill chunk failed for %s", req.uri)
+            with self._lock:
+                if self._slots[idx] is slot:
+                    fin = self._retire_locked(
+                        idx, "error", error=f"prefill chunk failed: {e}")
+            if fin is not None:
+                self._finish_cb(*fin)
+            return ct
+        slot.prefill_done = n_done + n_valid
+        slot.chunks += 1
+        self.prefill_chunks_total += 1
+        self.chunk_shapes.add((ct, wide))
+        if slot.prefill_done >= n_prompt:
+            self._finalize_prefill(idx, slot, logits)
+        return ct
+
+    def _finalize_prefill(self, idx: int, slot: _Slot, logits) -> None:
+        """Flip a fully prefilled slot live: sample token 0 (the ordinal-0
+        draw whole-prompt prefill takes, so chunking never changes a
+        stream), THEN publish to the prefix cache."""
+        req = slot.request
+        tok = int(sample_tokens(logits, [req.seed], [0], [req.temperature],
+                                top_k=self.top_k)[0])
+        slot.last_token = tok
+        slot.generated = 1
+        slot.history = req.prompt.tolist() + [tok]
+        if self.spec_k >= 2:
+            slot.pending_drafts = propose_kgram(
+                slot.history, self.spec_k - 1, self.spec_ngram)
+        self._publish(req, slot.pages)
+        slot.prefilling = False
+        self._emit(slot, [tok])
+        self._maybe_finish(idx)
+
     # decode ------------------------------------------------------------------
 
-    def _step_plain(self):
-        """One single-token decode dispatch over every occupied slot."""
+    def _step(self):
+        if self.spec_k >= 2:
+            return self._step_spec()
+        self._step_plain()
+
+    def _step_plain(self, rows: Optional[List[int]] = None):
+        """One single-token decode dispatch. ``rows=None`` steps every
+        occupied slot over the fixed (n_slots, pages_per_slot) shape; a
+        row subset (speculative mode's tail: slots within k of the cache
+        cap, or squeezed out of the k-page lookahead by a dry pool) steps
+        only those slots, in a dispatch of just their rows. Prefilling
+        slots never take part."""
         cfg = self.cfg
         b = self.n_slots
         ids = np.zeros(b, np.int32)
@@ -410,18 +726,20 @@ class ContinuousBatcher:
         finishes = []
         live: List[int] = []
         with self._lock:
-            for i in range(b):
+            for i in (range(b) if rows is None else rows):
                 slot = self._slots[i]
                 if slot is None:
                     continue
                 if slot.request.cancelled:
                     finishes.append(self._retire_locked(i, "cancelled"))
                     continue
+                if slot.prefilling:
+                    continue
                 # grow: the position written this step needs its page
                 p = slot.length // cfg.page_size
                 if self._table[i, p] == SCRATCH_PAGE:
                     try:
-                        (pg,) = self.pool.alloc(1)
+                        (pg,) = self._alloc_pages(1)
                     except OutOfPages:
                         finishes.append(self._retire_locked(
                             i, "truncated", error="kv page pool exhausted"))
@@ -440,11 +758,21 @@ class ContinuousBatcher:
             self._finish_cb(*fin)
         if not live:
             return
-        self.decode_shapes.add((b, cfg.pages_per_slot, cfg.page_size))
+        if rows is None:
+            # rows that are not live (empty, prefilling) write to scratch
+            for i in set(range(b)) - set(live):
+                table[i, :] = SCRATCH_PAGE
+            sel = list(range(b))
+        else:
+            sel = live
+        self.decode_shapes.add((len(sel), cfg.pages_per_slot, cfg.page_size))
+        t0 = time.monotonic()
         next_ids, _logits, self.cache = self.model.decode_step(
-            self.cache, ids, lengths, table, seeds, tok_idx, temps,
-            page_size=cfg.page_size, top_k=self.top_k)
-        next_ids = next_ids.cpu().numpy()
+            self.cache, ids[sel], lengths[sel], table[sel], seeds[sel],
+            tok_idx[sel], temps[sel], page_size=cfg.page_size,
+            top_k=self.top_k)
+        next_ids = dict(zip(sel, next_ids.cpu().tolist()))
+        self.step_ema.observe(time.monotonic() - t0)
         self.steps += 1
         self._occupied_slot_steps += len(live)
         for i in live:
@@ -456,16 +784,148 @@ class ContinuousBatcher:
             slot.length += 1           # last_token is now cached
             slot.last_token = tok
             slot.generated += 1
+            slot.history.append(tok)
+            self._decode_tokens += 1
             self._emit(slot, [tok])
             self._maybe_finish(i)
+
+    def _step_spec(self):
+        """One speculative verify step: draft k-1 tokens per slot, score all
+        k positions in ONE dispatch (K2 at q_len k), and advance each slot
+        by its accepted run plus the target's correction or bonus token.
+
+        Slots that cannot take a whole verify step — within k of the cache
+        cap, or unable to claim the k-page lookahead from a dry pool — take
+        a single-token step instead (:meth:`_step_plain` over just those
+        rows), so speculation never changes what a stream emits: not its
+        tokens and not its truncation point."""
+        cfg = self.cfg
+        b = self.n_slots
+        k = self.spec_k
+        ids = np.zeros((b, k), np.int32)
+        lengths = np.zeros(b, np.int32)
+        seeds = np.zeros(b, np.int64)
+        tok_idx = np.zeros(b, np.int64)
+        temps = np.zeros(b, np.float32)
+        finishes = []
+        tail: List[int] = []
+        spec_rows: List[int] = []
+        with self._lock:
+            for i, slot in enumerate(self._slots):
+                if slot is None:
+                    continue
+                if slot.request.cancelled:
+                    finishes.append(self._retire_locked(i, "cancelled"))
+                    continue
+                if slot.prefilling:
+                    continue
+                if slot.length + k > cfg.max_seq_len:
+                    tail.append(i)      # fewer than k positions remain
+                    continue
+                # the step writes positions length .. length+k-1: claim
+                # every page they span. A dry pool mid-lookahead is not a
+                # truncation (plain decode would need only the first page):
+                # the slot takes the single-token path this pass, keeping
+                # the pages it claimed for later positions
+                dry = False
+                for p in range(slot.length // cfg.page_size,
+                               (slot.length + k - 1) // cfg.page_size + 1):
+                    if self._table[i, p] != SCRATCH_PAGE:
+                        continue
+                    try:
+                        (pg,) = self._alloc_pages(1)
+                    except OutOfPages:
+                        dry = True
+                        break
+                    self._table[i, p] = pg
+                    slot.pages.append(pg)
+                    self._note_pool_peak()
+                if dry:
+                    tail.append(i)
+                    continue
+                drafts = slot.pending_drafts
+                if drafts is None or len(drafts) != k - 1:
+                    drafts = propose_kgram(slot.history, k - 1,
+                                           self.spec_ngram)
+                    slot.pending_drafts = drafts
+                ids[i, 0] = slot.last_token
+                ids[i, 1:] = drafts
+                lengths[i] = slot.length
+                seeds[i] = slot.request.seed
+                tok_idx[i] = slot.generated
+                temps[i] = slot.request.temperature
+                spec_rows.append(i)
+            table = self._table.copy()
+        for i in set(range(b)) - set(spec_rows):
+            # rows outside the verify write to scratch: never past a tail
+            # row's table, never into a half-prefilled prompt
+            table[i, :] = SCRATCH_PAGE
+        for fin in finishes:       # final-frame callbacks OUTSIDE the lock
+            self._finish_cb(*fin)
+        if spec_rows:
+            self._verify(spec_rows, ids, lengths, table, seeds, tok_idx,
+                         temps)
+        if tail:
+            self._step_plain(rows=tail)
+
+    def _verify(self, spec_rows, ids, lengths, table, seeds, tok_idx, temps):
+        cfg = self.cfg
+        k = self.spec_k
+        self.decode_shapes.add((self.n_slots, cfg.pages_per_slot,
+                                cfg.page_size, k))
+        t0 = time.monotonic()
+        accepted, tokens, _probs, self.cache = self.model.verify_step(
+            self.cache, ids, lengths, table, seeds, tok_idx, temps,
+            page_size=cfg.page_size, top_k=self.top_k)
+        accepted = accepted.cpu().numpy()
+        tokens = tokens.cpu().numpy()
+        self.step_ema.observe(time.monotonic() - t0)
+        self.steps += 1
+        self.spec_steps += 1
+        self._occupied_slot_steps += len(spec_rows)
+        for i in spec_rows:
+            with self._lock:
+                slot = self._slots[i]
+            if slot is None:
+                continue
+            req = slot.request
+            a = int(accepted[i])
+            # the confirmed run + the correction/bonus, clipped at eos and
+            # the budget (a clip also satisfies _maybe_finish)
+            emit: List[int] = []
+            for tok in (int(tokens[i, j]) for j in range(a + 1)):
+                emit.append(tok)
+                if req.eos_id is not None and tok == req.eos_id:
+                    break
+                if slot.generated + len(emit) >= req.max_new_tokens:
+                    break
+            slot.length += a + 1       # certain token + accepted drafts
+            slot.last_token = emit[-1]
+            slot.generated += len(emit)
+            slot.history.extend(emit)
+            slot.pending_drafts = None
+            self._decode_tokens += len(emit)
+            self.spec_drafted += k - 1
+            self.spec_accepted += a
+            self._emit(slot, emit)
+            self._maybe_finish(i)
+            with self._lock:
+                slot = self._slots[i]
+            if slot is not None:
+                # draft the next proposals now, while the history is hot
+                slot.pending_drafts = propose_kgram(
+                    slot.history, k - 1, self.spec_ngram)
 
     def _emit(self, slot: _Slot, tokens: List[int]):
         now = time.perf_counter()
         req = slot.request
         meta: Dict[str, Any] = {"uri": req.uri}
         if req.last_emit_t is None:
-            # first token of the stream: TTFT (submit -> first emit)
+            # first token of the stream: TTFT (submit -> first emit), the
+            # chunks its prefill took and its admission -> first-token wait
             meta["ttft_s"] = round(now - req.submitted_t, 6)
+            meta["chunks"] = slot.chunks
+            meta["prefill_wait_ms"] = round((now - slot.admitted_t) * 1e3, 3)
         req.last_emit_t = now
         self.tokens_generated += len(tokens)
         cb = req.on_chunk
@@ -501,13 +961,16 @@ class ContinuousBatcher:
 
     def _retire_locked(self, slot_idx: int, outcome: str,
                        error: Optional[str] = None):
-        """Free the slot's pages. Caller holds ``_lock`` and MUST invoke
-        ``_finish_cb(*returned)`` after releasing it."""
+        """Release the slot's page references (a shared prefix page just
+        drops this stream's) and its prefix-cache marks. Caller holds
+        ``_lock`` and MUST invoke ``_finish_cb(*returned)`` after releasing
+        it."""
         slot = self._slots[slot_idx]
         self._slots[slot_idx] = None
         self._table[slot_idx, :] = SCRATCH_PAGE
-        self.pool.release(slot.pages)
+        self._release_claim(slot.prefix_keys, slot.pages)
         slot.pages = []
+        slot.prefix_keys = []
         return (slot.request, [], outcome, error, slot.generated)
 
     def _finish_cb(self, req: _Request, tokens: List[int], outcome: str,
@@ -529,10 +992,14 @@ class ContinuousBatcher:
     def stats(self) -> Dict[str, Any]:
         with self._lock:
             active = sum(s is not None for s in self._slots)
-        return {
+            prefilling = sum(s is not None and s.prefilling
+                             for s in self._slots)
+        out = {
             "slots": self.n_slots,
             "active_slots": active,
+            "prefilling": prefilling,
             "backlog": len(self._backlog) + self._pending.qsize(),
+            "step_ema_s": round(self.step_ema.value(), 6),
             "free_pages": self.pool.free_count(),
             "page_capacity": self.pool.capacity,
             "peak_pages_in_use": self.peak_pages_in_use,
@@ -544,7 +1011,47 @@ class ContinuousBatcher:
             "slot_occupancy": round(
                 self._occupied_slot_steps / (self.steps * self.n_slots), 4)
             if self.steps else 0.0,
+            # decode tokens per occupied slot-step: 1.0 for plain decode,
+            # ~1 + acceptance * (k-1) for speculative decode
+            "tokens_per_slot_step": round(
+                self._decode_tokens / self._occupied_slot_steps, 4)
+            if self._occupied_slot_steps else 0.0,
+            # model dispatches by kind: each runs K2 (decode, verify, chunk,
+            # prefill_from) or K1 (prefill) once a layer
+            "dispatches": {"decode": self.steps - self.spec_steps,
+                           "verify": self.spec_steps,
+                           "chunk": self.prefill_chunks_total,
+                           "prefill_from": self.prefills_from,
+                           "prefill": self.prefills_whole},
         }
+        if self.prefix_cache is not None:
+            out["prefix"] = dict(self.prefix_cache.stats(),
+                                 tokens_saved=self.prefix_tokens_saved,
+                                 shared_pages=self.pool.shared_count())
+        if self.prefill_chunk_tokens:
+            out["prefill"] = {
+                "chunk_tokens": self.prefill_chunk_tokens,
+                "chunks": self.prefill_chunks_total,
+                "distinct_chunk_shapes": len(self.chunk_shapes),
+                "chunk_ema_s": round(self.chunk_ema.value(), 6),
+                "budget": (dict(self._last_budget)
+                           if self._last_budget else None),
+            }
+        if self.spec_k >= 2 or self.spec_steps:
+            out["spec"] = {
+                "k": self.spec_k,
+                "ngram": self.spec_ngram,
+                "steps": self.spec_steps,
+                "drafted": self.spec_drafted,
+                "accepted": self.spec_accepted,
+                "acceptance_rate": round(
+                    self.spec_accepted / self.spec_drafted, 4)
+                if self.spec_drafted else 0.0,
+                "tokens_per_step": round(
+                    self.tokens_generated / self.steps, 3)
+                if self.steps else 0.0,
+            }
+        return out
 
 
 __all__ = ["ContinuousBatcher", "StreamHandle"]

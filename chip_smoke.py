@@ -5,6 +5,7 @@ paths on one NVIDIA card.
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel checks only
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns
+                                     # (phase 5b's arms too)
     python3 chip_smoke.py --parent _archive/parent   # plus the parent's
                                      # K1-K6, timed beside this tree's
 
@@ -22,7 +23,11 @@ Phases, each fatal on failure (no result line is printed then):
 3. kernels: K1 (flash forward, out + LSE), K2 (paged attention, q_len 1,
    4 and 16, with a zero-length slot; bf16 also at pages of 8 and 32; then
    q_len 1, 16, 17, 48, 64 and 128, and at q_len 1, 17 and 64 head dims
-   16, 32, 96 and the WIDE_D ones 4, 12, 20, 100, 264, 384 and 512), K3
+   16, 32, 96 and the WIDE_D ones 4, 12, 20, 100, 264, 384 and 512; then
+   the serving features' q_len 256, 512 and 1024, q_len 128 on a chunk's
+   wide table of pages_per_slot + 8 entries, the extra ones scratch, and
+   q_len 1024 with lengths past pages_per_slot * page_size, the suffix
+   prefill of a prefix hit), K3
    (flash backward dQ) and K4 (flash backward dK/dV; D in {64, 128}, T in
    {16, 100, 1024} and at the 64-row tile edges {1, 63, 64, 65, 127, 129},
    causal and not; then the head dims 8, 16, 32, 96, 160 and 256 and the
@@ -51,7 +56,11 @@ Phases, each fatal on failure (no result line is printed then):
    (``device_ms``: torch.profiler's device time of the kernels a call
    launches, the L2 flush's own kernel left out, over 20 calls) for K1
    and SDPA's forward at the training micro-batch, K3, K4 and SDPA's
-   backward, and K2 at decode, q_len 16 and 64 and full context. The wide
+   backward, and K2 at decode, q_len 16 and 64 and full context. K2 is
+   also timed at the serving features' shapes: a verify step (q_len 4 on
+   the half-full ladder), a chunk (q_len 128 on one slot with 512 cached,
+   the wide table) and a suffix (q_len 1024 on one slot after a 480-token
+   hit, lengths past the table). The wide
    kernels of K1, K3, K4 (B=1 T=1024 H=16 causal) and K2 (decode) are
    timed at D=264 and 512 in bf16 (``wide_head``). The sampling kernel
    (threefry bits,
@@ -69,6 +78,24 @@ Phases, each fatal on failure (no result line is printed then):
    one K2 launch per decode step and layer, the sampling kernel at least
    once, and greedy tokens must be the argmax of a full forward over the
    emitted sequence.
+5b. serving features: the same model and batcher geometry, one fresh
+   batcher an arm: plain, spec_k=4, prefill_chunk_tokens=128,
+   prefix_cache_pages=256 and all three. Traffic: 4 tenants with a
+   480-token shared prefix each; 4 users a tenant with a unique 8..64-token
+   suffix and 32 new tokens (12 greedy, 4 at temperature 0.8); one greedy
+   1000-token request on tenant 0's prefix with 16 new tokens (its suffix
+   bucket of 1024 reaches past the page table); after a warm-up of one
+   prefix + [1, 2, 3] request a tenant. Every stream ends ok with its
+   token count; K2 launches = 12 x (decode + verify + chunk + prefill_from
+   dispatches) and K1 = 12 x whole-prompt prefills, from the batcher's
+   counters (launch counts set to 0 before each arm); spec arms take a
+   verify step and >= 1 token a slot-step; chunked arms one chunk shape;
+   prefix arms 17 hits and 17 x 480 tokens saved, the pool conserved after
+   close; greedy argmax margins <= 0.1 for three streams, the 1000-token
+   one among them. Prints each arm's tokens/s, TTFT, ITL, steps,
+   acceptance, chunks, tokens saved, peak pages and how many greedy
+   streams equal the plain arm's (bf16 rounds a verify step unlike a
+   decode step, so they may differ).
 6. training parity: the full-width f32 model on the card (K1, K3, K4)
    against the same seeded model on the CPU on one (1, 256) batch: loss
    within 1e-4 relative, every gradient leaf's max |d| within 1e-3 of that
@@ -101,10 +128,14 @@ Phases, each fatal on failure (no result line is printed then):
    1e-3 and the same top-1 wherever the CPU's top-2 margin is above 1e-3.
 11. example: examples/transformer_lm.py's model (vocab 256, hidden 64, 2
    blocks, 4 heads, so head dim 16; seed 0) on the card against the same
-   seeded model on the CPU: 4 greedy requests through ContinuousBatcher
-   (K1 prefill, K2 decode, counted) give the CPU's token streams, and one
-   Estimator Adam step (K1, K3, K4) gives the CPU's loss within 1e-4 and
-   its next loss within 1e-3.
+   seeded model on the CPU: 4 greedy requests and a prompt pair (20
+   tokens, then 60 sharing one 16-token block) through ContinuousBatcher
+   in four arms (plain; spec_k=3; prefix_cache_pages=8, whose suffix
+   bucket passes the page and position tables; prefill_chunk_tokens=32
+   with prefix_cache_pages=8) give the CPU's token streams, every arm the
+   plain arm's (K1 prefill, K2 decode, counted), and one Estimator Adam
+   step (K1, K3, K4) gives the CPU's loss within 1e-4 and its next loss
+   within 1e-3.
 
 Phase 3 also holds the int8 kernels to their plain versions bit for bit
 (``torch.equal``), f32 and bf16: the quantize pass both launch (codes and
@@ -124,7 +155,9 @@ the 20 shapes at batch 32, times its launches a predict, summed
 predict's K6 total beside).
 
 The kernels line's ``launches`` are each kernel's count on its path (K1's
-on training, with ``launches_by_path`` for serving and training; the
+on training, with ``launches_by_path`` for serving and training; K2's on
+phase 5's serving, with ``launches_by_path`` for serving and phase 5b's
+spec, chunked, prefix and all arms; the
 sampling kernel's on serving; K5's and K6's on the int8 serving burst,
 with K5's per MLP predict beside it).
 The last three lines of standard output are the card's name and power
@@ -170,7 +203,20 @@ WIDE_D = (4, 12, 20, 100, 264, 384, 512)
 # the wide kernels' timed head dims
 WIDE_TIMED = (264, 512)
 K2_QLEN = (1, 16, 17, 48, 64, 128)
+# K2's q_len on the serving features' paths past 128: chunks and the pow2
+# suffix bucket of a prefix hit (up to max_seq_len)
+K2_FEATURE_QLEN = (256, 512, 1024)
 K2_D = (16, 32, 96)
+# phase 5b: the serving features on the phase-5 model (tenants' shared
+# prefixes as bench.py's prefix workload, bench.py:1644; the reference's
+# widest documented chunk, bench.py:1812)
+FEATURE_TENANTS, FEATURE_USERS, FEATURE_PREFIX = 4, 4, 480
+FEATURE_ARMS = (
+    ("plain", {}), ("spec", {"spec_k": 4}),
+    ("chunked", {"prefill_chunk_tokens": 128}),
+    ("prefix", {"prefix_cache_pages": 256}),
+    ("all", {"spec_k": 4, "prefill_chunk_tokens": 128,
+             "prefix_cache_pages": 256}))
 # the int8 slice: ResNet-50 (ImageClassifier's default backbone) served by
 # InferenceModel, and the int8 MLP of serving_bench.py (Dense 4096 relu,
 # Dense 4096 relu, Dense 128 softmax at batch 2048)
@@ -580,18 +626,125 @@ def host_us(fns, n: int = 200, rounds: int = 5):
     return [statistics.median(t) for t in times]
 
 
+def _k2_feature_case(torch, gen, q_len, kind, dtype):
+    """K2's inputs as the serving features hand them over: ``"ladder"``,
+    slots at 0 and at least q_len (a long chunk or suffix bucket);
+    ``"wide"``, a chunk's table (``pages_per_slot`` + 8 entries, the extra
+    ones scratch) with lengths reaching into the scratch entries, as the
+    chunk's padding rows do; ``"past"``, the suffix prefill of a prefix
+    hit, whose lengths (start + bucket) pass ``pages_per_slot *
+    page_size``, so the kernel clamps the span to the table."""
+    cap = MAX_SEQ
+    want = {"ladder": [0, 37, 130, 255, 400, 600, 777, 1024],
+            "wide": [0, 128, 300, 640, 1000, 1024, 1100, 1152],
+            "past": [0, 1024, 1100, 1504, 1504, 2047, 1030, 1200]}[kind]
+    want = [max(n, q_len) if n else 0 for n in want]
+    q, kp, vp, table, lens = _k2_case(torch, gen, [min(n, cap) for n in want],
+                                      q_len, dtype=dtype)
+    if kind == "wide":
+        table = torch.cat([table, torch.zeros_like(table[:, :8])], 1) \
+            .contiguous()
+    lens = torch.tensor(want, dtype=torch.int32, device="cuda")
+    return q, kp, vp, table, lens
+
+
+def _k2_one_slot(torch, gen, q_len, length, extra_pages=0):
+    """One slot of ``length`` valid positions (q_len of them new), bf16,
+    on a pool of ``pages_per_slot`` pages (+ ``extra_pages`` scratch table
+    entries): the chunk and suffix shapes of the serving features."""
+    cap = MAX_SEQ
+    q, kp, vp, table, _ = _k2_case(torch, gen, [min(length, cap)] + [0] * 7,
+                                   q_len)
+    table = table[:1]
+    if extra_pages:
+        table = torch.cat([table, torch.zeros_like(table[:, :extra_pages])],
+                          1)
+    lens = torch.tensor([length], dtype=torch.int32, device="cuda")
+    return q[:1].contiguous(), kp, vp, table.contiguous(), lens
+
+
+def _k2_timed(torch, timer, dtimer, label, case, parent=None):
+    """K2 at one bf16 shape: the Timer and device-only times beside its
+    plain version, SDPA over the K/V gathered beforehand with a length
+    mask, the bound from these inputs and (``--parent``, q_len <= 16) the
+    parent's kernel; the wrapper's host microseconds."""
+    import torch.nn.functional as F
+    from analytics_zoo_tpu_torch.ops.kv_cache import paged_read
+    from analytics_zoo_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_plain)
+
+    q, kp, vp, table, lens = case
+    b, q_len, h, d = q.shape
+    out = paged_attention(*case, page_size=PAGE)
+    err = maxerr(out, paged_attention_plain(*case, page_size=PAGE))
+    if err > TOL["bfloat16"]:
+        raise AssertionError(f"K2 disagrees with its plain version at "
+                             f"the timed {label} shape: {err:.3g}")
+    ks, vs = paged_read(kp, table), paged_read(vp, table)
+    bound = (lens.long()[:, None] - q_len
+             + torch.arange(q_len, device="cuda")[None])      # (B, q_len)
+    mask = (torch.arange(ks.shape[1], device="cuda")[None, None, :]
+            <= bound[:, :, None])[:, None]                   # (B,1,q,T)
+    qt, kt, vt = q.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
+    ms = timer(lambda: paged_attention(*case, page_size=PAGE))
+    dev = dtimer(lambda: paged_attention(*case, page_size=PAGE))
+    plain = timer(lambda: paged_attention_plain(*case, page_size=PAGE))
+    lib = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       attn_mask=mask))
+    fns = [lambda: paged_attention(*case, page_size=PAGE)]
+    parent_ms = parent_hus = parent_dev = None
+    if parent is not None and q_len <= 16:
+        pk = parent.paged.paged_attention
+        parent_ms = timer(lambda: pk(*case, page_size=PAGE))
+        parent_dev = dtimer(lambda: pk(*case, page_size=PAGE))
+        fns.append(lambda: pk(*case, page_size=PAGE))
+    hus, *rest = host_us(fns)
+    if rest:
+        parent_hus = rest[0]
+    # what these inputs need: each slot's positions up to its length, at
+    # most the table's (the kernel clamps there), each read once
+    n_pos = lens.long().clamp(max=table.shape[1] * PAGE)
+    pairs = int(torch.minimum((bound + 1).clamp(min=0),
+                              n_pos[:, None]).sum())   # (row, position)
+    elt = 2
+    nbytes = (2 * int(n_pos.sum()) * h * d * elt          # K and V read
+              + 2 * b * q_len * h * d * elt               # q in, out
+              + int((-(-n_pos // PAGE)).sum()) * 4 + b * 4)
+    flops = 4 * h * d * pairs
+    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    log(f"[K2] {label} q_len={q_len} bf16: {ms:.4f} ms, device "
+        f"{dev:.4f} ms (parent {parent_ms}, device {parent_dev}; plain "
+        f"{plain:.4f}, bound {bms:.5f} by {by}), "
+        f"SDPA {lib:.4f} ms; wrapper host {hus:.1f} us (parent "
+        f"{parent_hus}); max err {err:.3g}")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib, "parent_ms": parent_ms,
+            "parent_device_ms": parent_dev, "host_us": hus,
+            "parent_host_us": parent_hus,
+            "shape": (f"slots={b} table={table.shape[1]} pool_pps="
+                      f"{MAX_SEQ // PAGE} page={PAGE} H={h} D={d} "
+                      f"q_len={q_len} lengths={lens.tolist()}"),
+            "dtype": "bfloat16"}
+
+
 def check_k2(torch, timer, dtimer, parent=None):
     """K2 against its plain version: f32 and bf16 at q_len 1, 4 and 16 on
     a ladder with a zero-length slot, bf16 at pages of 8 and 32 too, then
     at q_len 1, 16, 17, 48, 64 and 128 and at head dims 16, 32 and 96 (a
-    live slot at least q_len long, as every caller makes it); then timed
+    live slot at least q_len long, as every caller makes it); then at the
+    serving features' q_len and tables: q_len 256, 512 and 1024, q_len 128
+    on a chunk's wide table (8 scratch entries past the pool's pages, the
+    lengths reaching into them) and q_len 1024 with lengths past the
+    table (a prefix hit's suffix; the kernel clamps the span). Then timed
     in bf16 at the decode shape (q_len 1, a half-full ladder: the kernels
-    line), at q_len 16 and 64 on the same ladder, and on 8 full-length
-    (1024) slots, each beside its plain version, SDPA over the pre-gathered
-    K/V with a length mask, its bound, its device-only time and
-    (``--parent``) the parent's kernel (which takes q_len up to 16)."""
-    import torch.nn.functional as F
-    from analytics_zoo_tpu_torch.ops.kv_cache import paged_read
+    line), at q_len 16 and 64 on the same ladder, on 8 full-length (1024)
+    slots, and at the serving features' shapes: the verify step (q_len 4,
+    the half-full ladder), a chunk (q_len 128 on one slot with 512 cached,
+    the wide table) and a suffix (q_len 1024 on one slot after a 480-token
+    hit), each beside its plain version, SDPA over the pre-gathered K/V
+    with a length mask, its bound, its device-only time and (``--parent``)
+    the parent's kernel (which takes q_len up to 16)."""
     from analytics_zoo_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_plain)
 
@@ -622,64 +775,44 @@ def check_k2(torch, timer, dtimer, parent=None):
         if not ok:
             raise AssertionError(f"K2 disagrees with its plain version "
                                  f"at q_len={q_len} page={page} D={d} {dt}")
-    d = HIDDEN // N_HEAD
+    feature = [(dt, q_len, "ladder") for dt in ("float32", "bfloat16")
+               for q_len in K2_FEATURE_QLEN]
+    feature += [(dt, 128, "wide") for dt in ("float32", "bfloat16")]
+    feature += [(dt, 1024, "past") for dt in ("float32", "bfloat16")]
+    for dt, q_len, kind in feature:
+        case = _k2_feature_case(torch, gen, q_len, kind, dt)
+        out = paged_attention(*case, page_size=PAGE)
+        ref = paged_attention_plain(*case, page_size=PAGE)
+        torch.cuda.synchronize()
+        e = maxerr(out, ref)
+        zero = float(out[0].float().abs().max())
+        finite = bool(torch.isfinite(out).all())
+        ok = e <= TOL[dt] and zero == 0.0 and finite
+        log(f"[K2] {kind} table={case[3].shape[1]} q_len={q_len} {dt} "
+            f"lengths={case[4].tolist()}: max|d| {e:.3g} (tol {TOL[dt]}), "
+            f"zero-length slot max|out| {zero} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K2 disagrees with its plain version on "
+                                 f"the {kind} case at q_len={q_len} {dt}")
+        del case, out, ref
     timed = {}
     # the decode shape of the serving path (q_len 1, bf16) with a half-full
     # ladder of lengths (the steady serving regime), then q_len 16 and 64
-    # on the same ladder, then every slot at the full context
+    # on the same ladder, then every slot at the full context; then the
+    # serving features' shapes
     for label, q_len, lens_in in (("decode", 1, None), ("q_len16", 16, None),
                                   ("q_len64", 64, None),
-                                  ("full_context", 1, [MAX_SEQ] * N_SLOTS)):
-        case = _k2_case(torch, gen, lens_in, q_len)
-        q, kp, vp, table, lens = case
-        out = paged_attention(*case, page_size=PAGE)
-        err = maxerr(out, paged_attention_plain(*case, page_size=PAGE))
-        if err > TOL["bfloat16"]:
-            raise AssertionError(f"K2 disagrees with its plain version at "
-                                 f"the timed {label} shape: {err:.3g}")
-        ks, vs = paged_read(kp, table), paged_read(vp, table)
-        bound = (lens.long()[:, None] - q_len
-                 + torch.arange(q_len, device="cuda")[None])  # (B, q_len)
-        mask = (torch.arange(ks.shape[1], device="cuda")[None, None, :]
-                <= bound[:, :, None])[:, None]               # (B,1,q,T)
-        qt, kt, vt = q.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
-        ms = timer(lambda: paged_attention(*case, page_size=PAGE))
-        dev = dtimer(lambda: paged_attention(*case, page_size=PAGE))
-        plain = timer(lambda: paged_attention_plain(*case, page_size=PAGE))
-        lib = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                           attn_mask=mask))
-        fns = [lambda: paged_attention(*case, page_size=PAGE)]
-        parent_ms = parent_hus = parent_dev = None
-        if parent is not None and q_len <= 16:
-            pk = parent.paged.paged_attention
-            parent_ms = timer(lambda: pk(*case, page_size=PAGE))
-            parent_dev = dtimer(lambda: pk(*case, page_size=PAGE))
-            fns.append(lambda: pk(*case, page_size=PAGE))
-        hus, *rest = host_us(fns)
-        if rest:
-            parent_hus = rest[0]
-        n_valid = int(lens.sum())
-        pairs = int((bound + 1).clamp(min=0).sum())   # (row, position)
-        elt = 2
-        nbytes = (2 * n_valid * N_HEAD * d * elt          # K and V read
-                  + 2 * N_SLOTS * q_len * N_HEAD * d * elt  # q in, out
-                  + sum(-(-int(x) // PAGE) for x in lens) * 4 + N_SLOTS * 4)
-        flops = 4 * N_HEAD * d * pairs
-        bms, by = bound_ms(nbytes, flops, "bfloat16")
-        timed[label] = {
-            "max_abs_err": err, "ms": ms, "device_ms": dev,
-            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib, "parent_ms": parent_ms,
-            "parent_device_ms": parent_dev, "host_us": hus,
-            "parent_host_us": parent_hus,
-            "shape": (f"slots={N_SLOTS} pps={MAX_SEQ // PAGE} page={PAGE} "
-                      f"H={N_HEAD} D={d} q_len={q_len} "
-                      f"lengths={lens.tolist()}"), "dtype": "bfloat16"}
-        log(f"[K2] {label} q_len={q_len} bf16: {ms:.4f} ms, device "
-            f"{dev:.4f} ms (parent {parent_ms}, device {parent_dev}; plain "
-            f"{plain:.4f}, bound {bms:.5f} by {by}), "
-            f"SDPA {lib:.4f} ms; wrapper host {hus:.1f} us (parent "
-            f"{parent_hus}); max err {err:.3g}")
+                                  ("full_context", 1, [MAX_SEQ] * N_SLOTS),
+                                  ("verify_q4", 4, None)):
+        timed[label] = _k2_timed(torch, timer, dtimer, label,
+                                 _k2_case(torch, gen, lens_in, q_len), parent)
+    timed["chunk_q128"] = _k2_timed(
+        torch, timer, dtimer, "chunk_q128",
+        _k2_one_slot(torch, gen, 128, 512 + 128, extra_pages=128 // PAGE),
+        parent)
+    timed["suffix_q1024"] = _k2_timed(
+        torch, timer, dtimer, "suffix_q1024",
+        _k2_one_slot(torch, gen, 1024, 480 + 1024), parent)
     main = timed.pop("decode")
     return {"name": "paged_attention", "route": "cuda",
             "source": "analytics_zoo_tpu_torch/csrc/paged_attention.cu",
@@ -1448,6 +1581,192 @@ def phase_serving(torch, model, smi):
     return k1, k2, ks
 
 
+def feature_traffic(rng):
+    """Phase 5b's seeded traffic: 4 tenants, each with a 480-token shared
+    prefix; 4 users a tenant with a unique 8..64-token suffix and 32 new
+    tokens (user 3 of each tenant samples at 0.8, the rest are greedy); one
+    greedy 1000-token request whose first 480 tokens are tenant 0's
+    prefix, 16 new tokens. The warm-up is one ``prefix + [1, 2, 3]``
+    request a tenant, 1 new token."""
+    prefixes = [rng.integers(1, VOCAB, size=FEATURE_PREFIX).astype(np.int32)
+                for _ in range(FEATURE_TENANTS)]
+    burst = []
+    for t, pre in enumerate(prefixes):
+        for u in range(FEATURE_USERS):
+            suffix = rng.integers(1, VOCAB, size=int(rng.integers(8, 65)))
+            burst.append((np.concatenate([pre, suffix]).astype(np.int32), 32,
+                          0.8 if u == FEATURE_USERS - 1 else 0.0,
+                          1000 + FEATURE_USERS * t + u))
+    tail = rng.integers(1, VOCAB, size=1000 - FEATURE_PREFIX)
+    burst.append((np.concatenate([prefixes[0], tail]).astype(np.int32), 16,
+                  0.0, 2000))
+    warm = [np.concatenate([pre, [1, 2, 3]]).astype(np.int32)
+            for pre in prefixes]
+    return warm, burst
+
+
+def _feature_arm(torch, model, opts, warm, burst, trace=None):
+    """One arm of phase 5b on a fresh batcher: the warm-up, then the burst
+    at once (inside ``trace()``, a profiler context, when given). Returns
+    the batcher, the streams, their frames, the wall time, the K1/K2
+    launch counts of the arm (set to 0 just before it) and the batcher's
+    stats after the warm-up and after the burst."""
+    import contextlib
+
+    from analytics_zoo_tpu_torch.ops.flash_attention import \
+        flash_attention_fwd
+    from analytics_zoo_tpu_torch.ops.paged_attention import paged_attention
+    from analytics_zoo_tpu_torch.serving.generation import ContinuousBatcher
+
+    flash_attention_fwd.launches = 0
+    paged_attention.launches = 0
+    b = ContinuousBatcher(model, n_slots=N_SLOTS, page_size=PAGE,
+                          max_seq_len=MAX_SEQ, device="cuda",
+                          autostart=False, **opts)
+    emits = [[] for _ in burst]
+    try:
+        hs = [b.submit(p, max_new_tokens=1, seed=i)
+              for i, p in enumerate(warm)]
+        b.start()
+        for h in hs:
+            h.result(timeout_s=600)
+        before = b.stats()
+        with (trace or contextlib.nullcontext)():
+            t0 = time.perf_counter()
+            hs = [b.submit(p, max_new_tokens=n, temperature=temp, seed=seed,
+                           on_chunk=lambda toks, final, meta, i=i:
+                           emits[i].append((time.perf_counter(), len(toks),
+                                            final, meta)))
+                  for i, (p, n, temp, seed) in enumerate(burst)]
+            outs = [h.result(timeout_s=600) for h in hs]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        k1, k2 = flash_attention_fwd.launches, paged_attention.launches
+        after = b.stats()
+    finally:
+        b.close()
+    return b, outs, emits, wall, k1, k2, before, after
+
+
+def _greedy_margins(torch, model, burst, outs, idx):
+    """Phase 5's check on streams ``idx``: the chosen token's logit within
+    how much of the row max of a full forward over prompt + emitted."""
+    margins = []
+    for i in idx:
+        prompt, n_new = burst[i][0], len(outs[i])
+        seq = np.concatenate([prompt, np.asarray(outs[i][:-1], np.int32)])
+        with torch.no_grad():
+            lg = model.apply(torch.as_tensor(seq[None]))[0].float()
+        rows = lg[len(prompt) - 1:]
+        chosen = rows[torch.arange(n_new), torch.as_tensor(outs[i]).long()]
+        margins.append(float((rows.max(dim=-1).values - chosen).max()))
+    return margins
+
+
+def phase_serving_features(torch, model, smi):
+    """Phase 5b: speculative decode, chunked prefill and the shared-prefix
+    cache on phase 5's model (bf16, 8 slots, page 16, max_seq_len 1024),
+    one fresh batcher an arm: plain; spec_k=4; prefill_chunk_tokens=128;
+    prefix_cache_pages=256; all three. Gates (each fatal): every stream ok
+    with its token count; greedy argmax margins vs a full forward <= 0.1
+    for three streams, the 1000-token one among them; K2 launches = 12 x
+    (decode + verify + chunk + prefill_from dispatches) and K1 = 12 x
+    whole-prompt prefills, from the batcher's counters; spec arms take a
+    verify step and >= 1 token a slot-step; chunked arms one chunk shape;
+    prefix arms 17 hits and 17 x 480 tokens saved over the burst, and the
+    pool conserved after close. Printed beside the plain arm's: tokens/s,
+    TTFT, ITL, steps, acceptance, chunks, tokens saved, peak pages, and
+    how many greedy streams equal the plain arm's (bf16: cuBLAS picks its
+    kernel by M, so a verify step rounds unlike a decode step). Returns
+    each arm's K2 launches."""
+    warm, burst = feature_traffic(np.random.default_rng(5))
+    greedy = [i for i, r in enumerate(burst) if r[2] == 0.0]
+    k2_by_arm, plain_outs = {}, None
+    for name, opts in FEATURE_ARMS:
+        b, outs, emits, wall, k1, k2, before, st = _feature_arm(
+            torch, model, opts, warm, burst)
+        finals = [e[-1][3] for e in emits]
+        bad = [(i, f.get("outcome"), len(outs[i]), r[1])
+               for i, (f, r) in enumerate(zip(finals, burst))
+               if f.get("outcome") != "ok" or len(outs[i]) != r[1]]
+        if bad:
+            raise AssertionError(f"[{name}] streams not ok with their token "
+                                 f"counts: {bad}")
+        d = st["dispatches"]
+        want_k2 = N_BLOCK * (d["decode"] + d["verify"] + d["chunk"]
+                             + d["prefill_from"])
+        want_k1 = N_BLOCK * d["prefill"]
+        log(f"[features:{name}] launches K1 {k1} (need {want_k1} = "
+            f"{N_BLOCK} x {d['prefill']} whole-prompt prefills), K2 {k2} "
+            f"(need {want_k2} = {N_BLOCK} x dispatches {d})")
+        if k1 != want_k1 or k2 != want_k2 or k2 == 0:
+            raise AssertionError(f"[{name}] launch counts do not match the "
+                                 f"batcher's dispatches")
+        if opts.get("spec_k") and (st["spec"]["steps"] < 1
+                                   or st["tokens_per_slot_step"] < 1.0):
+            raise AssertionError(f"[{name}] no speculative verify step: "
+                                 f"{st.get('spec')}")
+        if opts.get("prefill_chunk_tokens") \
+                and st["prefill"]["distinct_chunk_shapes"] != 1:
+            raise AssertionError(f"[{name}] chunk shapes: {st['prefill']}")
+        saved = hits = None
+        if opts.get("prefix_cache_pages"):
+            hits = st["prefix"]["hits"] - before["prefix"]["hits"]
+            saved = (st["prefix"]["tokens_saved"]
+                     - before["prefix"]["tokens_saved"])
+            held = b.prefix_cache.held_pages()
+            b.pool.check_conservation()
+            free = b.pool.free_count()
+            log(f"[features:{name}] prefix hits {hits} (need 17), tokens "
+                f"saved {saved} (need {17 * FEATURE_PREFIX}); after close: "
+                f"free {free} == capacity {b.pool.capacity} - held {held}")
+            if hits != 17 or saved != 17 * FEATURE_PREFIX \
+                    or free != b.pool.capacity - held:
+                raise AssertionError(f"[{name}] prefix cache accounting")
+        margins = _greedy_margins(torch, model, burst, outs,
+                                  greedy[:2] + [len(burst) - 1])
+        log(f"[features:{name}] greedy argmax margins vs full forward "
+            f"(users 0, 1 and the 1000-token request): "
+            f"{[round(m, 4) for m in margins]}")
+        if max(margins) > 0.1:
+            raise AssertionError(f"[{name}] greedy tokens are not the argmax "
+                                 f"of a full forward")
+        if plain_outs is None:
+            plain_outs = outs
+        same = [outs[i] == plain_outs[i] for i in greedy]
+        first_diff = [next((j for j, (a, c) in enumerate(zip(outs[i],
+                                                            plain_outs[i]))
+                            if a != c), None) for i in greedy]
+        first_diff = min((j for j in first_diff if j is not None),
+                         default=None)
+        ttft = [f[0][3]["ttft_s"] for f in emits]
+        itl = []
+        for e in emits:
+            ts = [t for t, n, final, _ in e if not final and n]
+            itl += [bb - a for a, bb in zip(ts, ts[1:])]
+        n_tok = sum(len(o) for o in outs)
+        res = {"arm": name, "opts": opts, "requests": len(burst),
+               "tokens": n_tok, "wall_s": wall,
+               "tokens_per_s": n_tok / wall,
+               "ttft_p50_ms": pct(ttft, 50) * 1e3,
+               "itl_p50_ms": pct(itl, 50) * 1e3,
+               "itl_p95_ms": pct(itl, 95) * 1e3,
+               "decode_steps": st["steps"] - before["steps"],
+               "dispatches": d, "launches": {"K1": k1, "K2": k2},
+               "acceptance_rate": (st.get("spec") or {}).get(
+                   "acceptance_rate"),
+               "tokens_per_slot_step": st["tokens_per_slot_step"],
+               "chunks": (st.get("prefill") or {}).get("chunks"),
+               "prefix_hits": hits, "prefix_tokens_saved": saved,
+               "peak_pages_in_use": st["peak_pages_in_use"],
+               "greedy_equal_to_plain": f"{sum(same)}/{len(same)}",
+               "first_differing_step": first_diff, "margins": margins,
+               "card": smi}
+        log(f"[features] {json.dumps(res)}")
+        k2_by_arm[name] = k2
+    return k2_by_arm
+
+
 def phase_train_parity(torch):
     """The full-width f32 model on the card (K1, K3, K4) against the same
     seeded model on the CPU (plain versions): loss and every gradient leaf
@@ -1617,6 +1936,33 @@ def phase_profile(torch, model, smi):
         f"{busy:.1f} ms ({busy / wall_ms:.3f} of wall)")
     for key, count, ms in _shown(rows, 15):
         log(f"[profile] {ms:9.3f} ms {count:6d} calls  {key[:100]}")
+
+
+def profile_feature_arms(torch, model, smi):
+    """Trace phase 5b's burst in each arm (after its warm-up, on a fresh
+    batcher) and print the device's busy share of the wall and the device
+    time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    warm, burst = feature_traffic(np.random.default_rng(5))
+    for name, opts in FEATURE_ARMS:
+        holder = {}
+
+        def trace():
+            holder["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+            return holder["prof"]
+
+        _, _, _, wall, _, _, before, st = _feature_arm(
+            torch, model, opts, warm, burst, trace=trace)
+        rows, busy = _device_rows(holder["prof"])
+        wall_ms = wall * 1e3
+        log(f"[profile:features:{name}] {smi} | {len(burst)} requests, "
+            f"dispatches {st['dispatches']}, wall {wall_ms:.1f} ms, device "
+            f"busy {busy:.1f} ms ({busy / wall_ms:.3f} of wall)")
+        for key, count, ms in _shown(rows, 8):
+            log(f"[profile:features:{name}] {ms:9.3f} ms {count:6d} calls  "
+                f"{key[:100]}")
 
 
 def _shown(rows, n):
@@ -1950,9 +2296,15 @@ def phase_example(torch):
     blocks, 4 heads: head dim 16; remat "flash"; seed 0) in f32 on the card
     against the same seeded model on the CPU: 4 greedy requests through
     ContinuousBatcher must give the same token streams (K1 on every prefill
-    and layer, K2 on every decode step and layer), and one Estimator Adam
-    step (K1 = K3 = K4 = 2, one a layer) the same loss within 1e-4 and the
-    same next loss within 1e-3."""
+    and layer, K2 on every decode step and layer), then a prompt pair (20
+    tokens, then 60 sharing its first 16), in four arms: plain,
+    ``spec_k=3``, ``prefix_cache_pages=8`` (the 60-token prompt's 44-token
+    suffix takes a 64 bucket at positions 16..79, past the 4-page table and
+    the 64-row position table) and ``prefill_chunk_tokens=32`` with
+    ``prefix_cache_pages=8`` (chunks at 16..47 and 48..79); on each side
+    every arm's streams equal the plain arm's, and the card's the CPU's.
+    One Estimator Adam step (K1 = K3 = K4 = 2, one a layer) gives the same
+    loss within 1e-4 and the same next loss within 1e-3."""
     from analytics_zoo_tpu_torch.common.config import TrainConfig
     from analytics_zoo_tpu_torch.engine.estimator import Estimator
     from analytics_zoo_tpu_torch.models.transformer import (TransformerLM,
@@ -1971,23 +2323,48 @@ def phase_example(torch):
                for n in (5, 17, 30, 40)]
     ids = rng.integers(0, vocab, size=(8, seq + 1))
     x, y = ids[:, :-1].astype(np.int32), ids[:, 1:].astype(np.int32)
+    pair_rng = np.random.default_rng(15)
+    first = pair_rng.integers(1, vocab, size=20).astype(np.int32)
+    pair = [first, np.concatenate([first[:16], pair_rng.integers(
+        1, vocab, size=44)]).astype(np.int32)]
+    arms = (("plain", {}), ("spec", {"spec_k": 3}),
+            ("prefix", {"prefix_cache_pages": 8}),
+            ("chunked_prefix", {"prefill_chunk_tokens": 32,
+                                "prefix_cache_pages": 8}))
     streams, losses, counts = {}, {}, {}
     for dev in ("cuda", "cpu"):
         model = TransformerLM(device=dev, **kw)
-        batcher = ContinuousBatcher(model, n_slots=4, page_size=16,
-                                    max_seq_len=seq, device=dev,
-                                    autostart=False)
-        try:
-            tfa.flash_attention_fwd.launches = 0
-            paged_attention.launches = 0
-            handles = [batcher.submit(p, max_new_tokens=12) for p in prompts]
-            batcher.start()
-            streams[dev] = [h.result(timeout_s=300) for h in handles]
-            steps = batcher.stats()["steps"]
-        finally:
-            batcher.close()
-        counts[dev] = {"K1": tfa.flash_attention_fwd.launches,
-                       "K2": paged_attention.launches, "steps": steps}
+        for arm, opts in arms:
+            batcher = ContinuousBatcher(model, n_slots=4, page_size=16,
+                                        max_seq_len=seq, device=dev,
+                                        autostart=False, **opts)
+            try:
+                tfa.flash_attention_fwd.launches = 0
+                paged_attention.launches = 0
+                handles = [batcher.submit(p, max_new_tokens=12)
+                           for p in prompts]
+                batcher.start()
+                out = [h.result(timeout_s=300) for h in handles]
+                # the pair in turn: the second finds the first's block
+                out += [batcher.generate(p, max_new_tokens=3,
+                                         timeout_s=300) for p in pair]
+                st = batcher.stats()
+            finally:
+                batcher.close()
+            streams[(dev, arm)] = out
+            counts[(dev, arm)] = {"K1": tfa.flash_attention_fwd.launches,
+                                  "K2": paged_attention.launches,
+                                  "steps": st["steps"],
+                                  "dispatches": st["dispatches"]}
+            if opts.get("prefix_cache_pages") and (
+                    st["prefix"]["hits"] < 1
+                    or st["dispatches"]["chunk"] + st["dispatches"][
+                        "prefill_from"] < 1):
+                raise AssertionError(f"[example:{arm}] the pair took no "
+                                     f"prefix hit: {st}")
+        counts[dev] = counts[(dev, "plain")]
+        log(f"[example] {dev}: launches and dispatches by arm "
+            f"{ {arm: counts[(dev, arm)] for arm, _ in arms} }")
         with torch.no_grad():
             before = float(lm_loss(y, model.apply(x)))
         est = Estimator(model, optimizer="adam", loss=lm_loss,
@@ -2003,15 +2380,19 @@ def phase_example(torch):
             losses[dev] = (before, float(lm_loss(y, model.apply(x))))
         del model, est
     c = counts["cuda"]
-    same = streams["cuda"] == streams["cpu"]
+    same = all(streams[("cuda", arm)] == streams[("cpu", arm)]
+               for arm, _ in arms)
+    arms_same = all(streams[(dev, arm)] == streams[(dev, "plain")]
+                    for dev in ("cuda", "cpu") for arm, _ in arms)
     d0 = abs(losses["cuda"][0] - losses["cpu"][0])
     d1 = abs(losses["cuda"][1] - losses["cpu"][1])
     launched = (c["K1"] >= len(prompts) * blocks
                 and c["K2"] >= c["steps"] * blocks and c["steps"] >= 1
                 and c["train"] == (blocks,) * 3)
-    ok = same and d0 <= 1e-4 and d1 <= 1e-3 and launched
+    ok = same and arms_same and d0 <= 1e-4 and d1 <= 1e-3 and launched
     log(f"[example] examples/transformer_lm.py config (hidden 64, 4 heads, "
-        f"D=16) f32 cuda vs cpu: greedy streams identical {same}; launches "
+        f"D=16) f32 cuda vs cpu: greedy streams identical {same} (every "
+        f"arm equal to plain on both sides: {arms_same}); launches "
         f"{c} (need K1 >= {len(prompts) * blocks}, K2 >= steps x {blocks}, "
         f"train K1 = K3 = K4 = {blocks}); loss {losses['cuda'][0]:.6f} vs "
         f"{losses['cpu'][0]:.6f} (|d| {d0:.3g}, tol 1e-4), after one Adam "
@@ -2027,7 +2408,8 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="device, build and kernel checks only")
     ap.add_argument("--profile", action="store_true",
-                    help="after serving, trace one more burst, after "
+                    help="after serving, trace one more burst and phase "
+                         "5b's burst in each arm, after "
                          "training one more step and after the int8 burst "
                          "one int8 predict, with torch.profiler, and print "
                          "where the device time goes")
@@ -2071,8 +2453,10 @@ def main(argv=None) -> int:
             gpu_model = full_model(torch, "cuda")
             phase_parity(torch, gpu_model)
             k1_serving, k2, ks = phase_serving(torch, gpu_model, smi)
+            k2_features = phase_serving_features(torch, gpu_model, smi)
             if args.profile:
                 phase_profile(torch, gpu_model, smi)
+                profile_feature_arms(torch, gpu_model, smi)
             del gpu_model
             torch.cuda.empty_cache()
             phase_train_parity(torch)
@@ -2082,6 +2466,10 @@ def main(argv=None) -> int:
                 k["launches"] = n
             kernels[0]["launches_by_path"] = {"serving": k1_serving,
                                               "training": k1}
+            kernels[1]["launches_by_path"] = {
+                "serving": k2, **{arm: k2_features[arm]
+                                  for arm in ("spec", "chunked", "prefix",
+                                              "all")}}
             torch.cuda.empty_cache()
             state = resnet_state(torch)
             k5, k6 = phase_int8_serving(torch, state, smi,

@@ -16,7 +16,9 @@ take; the wgmma K3 and K4 give the same bits twice at the training
 shape too. The bf16 K4 is held over D in {64, 128}, causal or not, T in
 {1, 63, 64, 65, 127, 129, 2048} and Tq != Tk both ways; K2 over q_len
 {1, 4, 16}, pages of 8, 16 and 32 positions and lengths at 0, 1, q_len, on
-and around each split boundary and at the full 1024. Every head dim runs
+and around each split boundary and at the full 1024, and at the serving
+features' shapes: q_len 256, 512 and 1024, a chunk's wide table and lengths
+past the table (which the kernel clamps). Every head dim runs
 K1-K4: 4, 8, 12, 16, 20, 24, 32, 96, 100, 160, 256, 264, 384 and 512 over
 the tile edges, causal or not (off the 8 grid through the bf16 pad route,
 above 256 on the wide kernels), and K2 runs at q_len 1, 16, 17, 48, 64 and
@@ -24,7 +26,8 @@ above 256 on the wide kernels), and K2 runs at q_len 1, 16, 17, 48, 64 and
 4, 12, 20, 100, 264, 384 and 512. The small model runs its
 cache-threaded path on the card (K1, K2) against the same seeded model on
 the CPU (plain versions), f32 logits within 1e-4; the sampling kernel
-draws the plain version's tokens exactly; it trains on the card (K1, K3,
+draws the plain version's tokens exactly; its speculative, chunked and
+prefix-cache serving gives the CPU's greedy streams; it trains on the card (K1, K3,
 K4) to the CPU's loss, with K1 launched once per block and micro-step
 under remat "flash" and twice under "full"; autograd through the flash
 Function matches SDPA's grads, and no CUDA tensor takes a plain backward.
@@ -207,6 +210,37 @@ def test_paged_kernel_at_every_head_dim_matches_plain(cuda, dtype, tol,
     assert float(out[0].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("q_len,kind", [(256, "ladder"), (512, "ladder"),
+                                        (1024, "ladder"), (128, "wide"),
+                                        (1024, "past")])
+def test_paged_kernel_at_the_serving_features_shapes(cuda, dtype, tol, q_len,
+                                                     kind):
+    """K2 as the serving features launch it: long q_len (chunks, a prefix
+    hit's suffix bucket), a chunk's wide table (8 scratch entries past the
+    pool's pages, lengths reaching into them), and lengths past
+    ``pages_per_slot * page_size`` (the suffix bucket of a hit), which the
+    kernel clamps to the table."""
+    want = {"ladder": [0, 37, 130, 255, 400, 600, 777, 1024],
+            "wide": [0, 128, 300, 640, 1000, 1024, 1100, 1152],
+            "past": [0, 1024, 1100, 1504, 1504, 2047, 1030, 1200]}[kind]
+    want = [max(n, q_len) if n else 0 for n in want]
+    q, kp, vp, table, _ = tpa.synthetic_paged_case(
+        len(want), 64, 16, 4, 64, q_len=q_len, dtype=dtype,
+        lengths=[min(n, 1024) for n in want], device=cuda,
+        generator=torch.Generator().manual_seed(q_len))
+    if kind == "wide":
+        table = torch.cat([table, torch.zeros_like(table[:, :8])],
+                          1).contiguous()
+    lens = torch.tensor(want, dtype=torch.int32, device=cuda)
+    out = tpa.paged_attention(q, kp, vp, table, lens, page_size=16)
+    ref = tpa.paged_attention_plain(q, kp, vp, table, lens, page_size=16)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert float(out[0].abs().max()) == 0.0
+
+
 def test_paged_kernel_rejects_bad_input(cuda):
     q, kp, vp, table, lens = tpa.synthetic_paged_case(
         2, 4, 16, 2, 64, q_len=17, device=cuda)
@@ -293,6 +327,41 @@ def test_small_model_cached_path_on_card_matches_cpu(cuda):
         tok = np.array([int(logits["cpu"][0].argmax()), 0], np.int32)
     assert tfa.flash_attention_fwd.launches - k1 == 2
     assert tpa.paged_attention.launches - k2 == 2 * 4
+
+
+def test_small_model_serving_features_on_card_match_cpu(cuda):
+    """Speculative decode, chunked prefill and a prefix hit whose suffix
+    bucket passes the page and position tables, on the card (K1, K2)
+    against the CPU: the same greedy streams in every arm, equal to the
+    plain arm's."""
+    from analytics_zoo_tpu_torch.serving.generation import ContinuousBatcher
+
+    kw = dict(vocab=128, hidden_size=64, n_block=2, n_head=4, seq_len=64,
+              attn_strategy="flash", seed=3)
+    rng = np.random.default_rng(2)
+    first = rng.integers(1, 128, size=20).astype(np.int32)
+    prompts = [rng.integers(1, 128, size=n).astype(np.int32)
+               for n in (5, 30)]
+    pair = [first, np.concatenate([first[:16],
+                                   rng.integers(1, 128, size=44)])]
+    streams = {}
+    for dev in (cuda, "cpu"):
+        model = TransformerLM(device=dev, **kw)
+        for arm, opts in (("plain", {}), ("spec", dict(spec_k=3)),
+                          ("prefix", dict(prefix_cache_pages=8)),
+                          ("chunked", dict(prefill_chunk_tokens=32,
+                                           prefix_cache_pages=8))):
+            b = ContinuousBatcher(model, n_slots=2, page_size=16,
+                                  max_seq_len=64, device=dev, **opts)
+            try:
+                out = [b.generate(p, max_new_tokens=8) for p in prompts]
+                out += [b.generate(p, max_new_tokens=3) for p in pair]
+            finally:
+                b.close()
+            streams[(str(dev), arm)] = out
+    for arm in ("plain", "spec", "prefix", "chunked"):
+        assert streams[("cuda", arm)] == streams[("cpu", arm)]
+        assert streams[("cuda", arm)] == streams[("cuda", "plain")]
 
 
 # ------------------------------------------------------- K3/K4 and training

@@ -137,8 +137,8 @@ def test_close_joins_the_loop_and_fails_queued_requests(models):
 
 def test_unported_options_raise(models, batcher):
     tm = models[2]
-    for kw in (dict(spec_k=2), dict(prefix_cache_pages=8),
-               dict(prefill_chunk_tokens=8), dict(admit_policy="batch")):
+    for kw in (dict(admit_policy="batch"), dict(graph_checks="raise"),
+               dict(hbm_budget_bytes=1 << 30)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ContinuousBatcher(tm, device="cpu", autostart=False, **KW, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -149,9 +149,6 @@ def test_unported_options_raise(models, batcher):
         batcher.swap_params({})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         batcher.cancel_uri("some-uri")
-    for name in ("prefill_from", "prefill_chunk", "verify_step"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(tm, name)()
 
 
 def test_device_must_match_the_model(models, monkeypatch):
