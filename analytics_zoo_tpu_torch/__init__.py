@@ -7,9 +7,12 @@ and public names so each counterpart is easy to find
 
 What is ported so far: the autoregressive LM serving path (``TransformerLM``
 over the paged KV cache, driven by ``serving.generation.ContinuousBatcher``)
-and the LM training path (``engine.estimator.Estimator``, or
+the LM training path (``engine.estimator.Estimator``, or
 ``compile``/``fit`` on the model, with the optimizers, losses and
-mixed-precision master weights). Their four attention kernels (flash
+mixed-precision master weights), int8 inference
+(``inference.inference_model.InferenceModel``) and the NCF recommender
+(``models.recommendation``: ``fit``/``evaluate``/``predict``, top-K
+recommendation, device-cached epochs). Their six kernels (flash
 forward and backward, paged attention) are CUDA C++ for Hopper
 (``csrc/``), built with ``nvcc`` at first use (``ops/_build.py``). Plain
 PyTorch versions sit beside them; a wrapper takes the plain version only

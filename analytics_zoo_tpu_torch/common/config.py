@@ -62,11 +62,7 @@ _UNPORTED = {
     "retry_deadline_s": ((None,), _ROADMAP_CKPT + ": retry from checkpoint"),
     "graceful_shutdown": ((True,), _ROADMAP_CKPT + ": SIGTERM final save"),
     "donate_state": ((True,), _ROADMAP_EST + ": the port updates in place"),
-    "cache_on_device": ((False,), _ROADMAP_EST + ": device-cached scan "
-                        "epochs"),
-    "scan_block_steps": ((100,), _ROADMAP_EST + ": device-cached scan "
-                         "epochs"),
-    "prefetch_depth": ((2, 0), "ROADMAP Queue 1, item 4 (pinned-memory "
+    "prefetch_depth": ((2, 0), "ROADMAP Queue 1, item 12 (pinned-memory "
                        "prefetch; the port's loader is synchronous)"),
     "update_sharding": ((False, None), "ROADMAP Queue 1, item 9 "
                         "(multi-GPU)"),

@@ -10,7 +10,7 @@ arrays; the Estimator moves them to the card.
 
 Not ported yet: the disk and PMEM tiers, multi-host sharding, the byte,
 TFRecord, DataFrame and generator constructors, and the background
-prefetch loader (pinned-memory prefetch is ROADMAP Queue 1, item 4).
+prefetch loader (ROADMAP Queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ class FeatureSet:
         if memory_type != "DRAM":
             raise NotImplementedError(
                 f"memory_type {memory_type!r}: only DRAM is ported (the disk "
-                f"and PMEM tiers are ROADMAP Queue 1, item 11)")
+                f"and PMEM tiers are ROADMAP Queue 1, item 12)")
         leaves = _tree_leaves(data)
         if not leaves:
             raise ValueError("empty FeatureSet")

@@ -11,6 +11,14 @@ contiguous microbatches whose gradients are summed in f32 accumulators and
 divided by K once: one update per global step, and the step's loss is the
 mean of the micro-losses — the JAX accumulation contract.
 
+The rng schedule is the JAX one, on :mod:`..common.prng` (``jax.random``'s
+bits): the first ``fit`` splits ``PRNGKey(seed)`` into ``(k_init,
+k_train)``; step ``n`` hands ``fold_in(k_train, n)`` to the model (a model
+whose ``apply`` takes ``rng=``, such as ``ImplicitNCF`` drawing its
+negatives), and under accumulation micro-step ``i`` gets
+``fold_in(step_rng, i)``. The model's weights are its own (drawn at
+construction); ``k_init`` is unused.
+
 Mixed precision (``TrainConfig(compute_dtype="bfloat16")``): the model's
 parameters are cast to bf16 in place (the JAX ``cast_params``) and the f32
 masters exist only in the optimizer state; each forward/backward runs
@@ -19,29 +27,39 @@ under the bf16 precision policy.
 :meth:`Estimator.fit` walks :class:`~..data.featureset.FeatureSet`
 epochs in the JAX order (the same seeded permutation; remainders
 dropped) until the end trigger fires, and records the loss and the
-pre-clip gradient norm at every ``log_every_n_steps``. Runs on CUDA unless
-given ``device="cpu"`` (or a model that lives on the CPU); without CUDA
-and without a device it raises.
+pre-clip gradient norm at every ``log_every_n_steps``. With
+``TrainConfig(cache_on_device=True)`` the dataset goes to the card once
+and each epoch's order is ``jax.random.permutation(PRNGKey(seed + epoch *
+1_000_003), n)``, computed on the card; steps run in blocks of
+``scan_block_steps`` (the JAX ``lax.scan``; a Python loop over the block
+here), batches gathered on the card, log points at block granularity, and
+the steps that do not fill a block after the last one. :meth:`evaluate`
+streams metrics (``nn/metrics.py``) over batches in order, the last one
+partial. Runs on CUDA unless given ``device="cpu"`` (or a model that
+lives on the CPU); without CUDA and without a device it raises.
 
 Not ported yet (ROADMAP Queue 1): meshes and sharded updates, checkpoints
-and retry from them, TensorBoard summaries, chaos hooks, device-cached
-scan epochs, ``evaluate`` (it needs ``nn/metrics.py``) and validation.
+and retry from them, TensorBoard summaries, chaos hooks, and validation
+during ``fit``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import inspect
 import logging
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..common import prng
 from ..common.config import TrainConfig, check_ported
 from ..common.triggers import MaxEpoch, Trigger, TrainerState
-from ..data.featureset import FeatureSet, _tree_map
+from ..data.featureset import FeatureSet, _tree_leaves, _tree_map
 from ..nn.losses import get_loss
+from ..nn.metrics import get_metric
 from ..nn.module import cast_params, precision_policy, resolve_device
 from ..nn.optimizers import (apply_updates, get_optimizer, global_norm,
                              with_clipping)
@@ -70,7 +88,8 @@ def _model_device(model) -> Optional[torch.device]:
 
 class Estimator:
     """Drives the training step of ``model`` (any module whose
-    ``apply(x)`` returns the prediction) on one device."""
+    ``apply(x)`` returns the prediction; ``apply(x, rng=key)`` if it
+    draws randomness in training) on one device."""
 
     def __init__(self, model, optimizer="adam", loss="mse", mesh=None,
                  config: Optional[TrainConfig] = None, param_sharding=None,
@@ -89,6 +108,7 @@ class Estimator:
             raise ValueError(f"the model's parameters live on {have}, the "
                              f"Estimator runs on {self.device}")
         self._base_tx = get_optimizer(optimizer)
+        self._takes_rng = "rng" in inspect.signature(model.apply).parameters
         self.train_state: Optional[Dict[str, Any]] = None
         self.trainer_state = TrainerState()
         #: one entry per log point: epoch, iteration, loss, grad_norm and
@@ -96,6 +116,9 @@ class Estimator:
         self.history: List[Dict[str, float]] = []
         #: the last step's f32 pre-clip gradient norm (0-d tensor)
         self.last_grad_norm: Optional[torch.Tensor] = None
+        # cache_on_device: the dataset on the card, keyed by its arrays
+        self._device_data = None
+        self._device_data_key = None
         self._rebuild_tx()
 
     def _rebuild_tx(self) -> "Estimator":
@@ -141,30 +164,55 @@ class Estimator:
         return _tree_map(put, tree)
 
     # ------------------------------------------------------------------ build
-    def _init_state(self) -> None:
-        """Optimizer state from the model's current weights. Under mixed
-        precision the masters are taken in f32 first, then the model's
-        copy is cast down."""
+    def _init_state(self, seed: int = 0) -> None:
+        """Optimizer state from the model's current weights, and the
+        training key: ``split(PRNGKey(seed))[1]``. Under mixed precision
+        the masters are taken in f32 first, then the model's copy is cast
+        down."""
         values = {n: p.detach() for n, p in self._params().items()}
         opt_state = self.tx.init(values)
         if self._mp_dtype is not None:
             cast_params(self.model, self._mp_dtype)
-        self.train_state = {"opt_state": opt_state, "step": 0}
+        _k_init, k_train = prng.split(prng.PRNGKey(seed))
+        self.train_state = {"opt_state": opt_state, "step": 0,
+                            "rng": k_train}
 
-    def _loss_of(self, x, y) -> torch.Tensor:
-        return self.loss_fn(y, self.model.apply(x))
+    def reset_optimizer(self) -> "Estimator":
+        """Restart the optimizer from the model's current weights (moments
+        and step count back to zero, the training key kept): what loading
+        new weights into a trained model needs."""
+        if self.train_state is not None:
+            values = {n: p.detach() for n, p in self._params().items()}
+            self.train_state = {"opt_state": self.tx.init(values), "step": 0,
+                                "rng": self.train_state["rng"]}
+        return self
 
-    def _grads(self, batch):
+    def _loss_of(self, x, y, rng) -> torch.Tensor:
+        y_hat = (self.model.apply(x, rng=rng) if self._takes_rng
+                 else self.model.apply(x))
+        return self.loss_fn(y, y_hat)
+
+    def _step_key(self):
+        """The next step's key, ``fold_in(k_train, step)``."""
+        ts = self.train_state
+        if ts is None:
+            return prng.fold_in(prng.split(prng.PRNGKey(0))[1], 0)
+        return prng.fold_in(ts["rng"], ts["step"])
+
+    def _grads(self, batch, rng=None):
         """``(loss, grads)`` of one global batch, grads in the params'
         dtype (K = 1) or summed over K microbatches in f32 and divided by
-        K once."""
+        K once; micro-step ``i`` sees ``fold_in(rng, i)`` (``rng``: the
+        next step's key unless given)."""
         x, y = batch
+        if rng is None:
+            rng = self._step_key()
         params = self._params()
 
-        def one(xb, yb):
+        def one(xb, yb, key):
             for p in params.values():
                 p.grad = None
-            loss = self._loss_of(xb, yb)
+            loss = self._loss_of(xb, yb, key)
             loss.backward()
             return loss.detach(), {
                 n: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -172,14 +220,14 @@ class Estimator:
 
         k = max(1, int(self.config.grad_accum_steps))
         if k == 1:
-            return one(x, y)
+            return one(x, y, rng)
         m = _tree_leading(batch) // k
         acc = {n: torch.zeros_like(p, dtype=torch.float32)
                for n, p in params.items()}
         losses = []
         for i in range(k):
             part = _tree_map(lambda a: a[i * m:(i + 1) * m], (x, y))
-            loss, g = one(*part)
+            loss, g = one(*part, prng.fold_in(rng, i))
             for n, a in acc.items():
                 a.add_(g[n].float())
             losses.append(loss)
@@ -188,23 +236,23 @@ class Estimator:
     def _step(self, batch):
         """One optimizer step; returns ``(loss, grad_norm)`` as 0-d
         tensors (no host sync)."""
+        ts = self.train_state
         with self._policy():
-            loss, grads = self._grads(batch)
+            loss, grads = self._grads(batch, self._step_key())
         params = self._params()
         g32 = {n: g.float() for n, g in grads.items()}
         for p in params.values():
             p.grad = None
         gnorm = global_norm(g32)
         values = {n: p.detach() for n, p in params.items()}
-        updates, new_opt = self.tx.update(g32, self.train_state["opt_state"],
-                                          values)
+        updates, new_opt = self.tx.update(g32, ts["opt_state"], values)
         new = updates if self._mp_dtype is not None else apply_updates(
             values, updates)
         with torch.no_grad():
             for n, p in params.items():
                 p.copy_(new[n])
-        self.train_state = {"opt_state": new_opt,
-                            "step": self.train_state["step"] + 1}
+        self.train_state = {"opt_state": new_opt, "step": ts["step"] + 1,
+                            "rng": ts["rng"]}
         return loss, gnorm
 
     # -------------------------------------------------------------------- fit
@@ -214,18 +262,15 @@ class Estimator:
             validation_metrics=(), checkpoint_trigger=None, seed: int = 0):
         """Train until ``end_trigger`` (default ``MaxEpoch(epochs or
         config.max_epochs)``). ``data``: a FeatureSet or an (x, y) pair;
-        ``batch_size`` is global. The weights are the model's own (drawn
-        from its constructor's seed), so ``seed`` must stay 0."""
+        ``batch_size`` is global. ``seed`` keys the training rng at the
+        first ``fit`` (the JAX ``PRNGKey(seed)`` split); the weights are
+        the model's own, drawn from its constructor's seed."""
         cfg = check_ported(self.config)
         if validation_data is not None or validation_metrics \
                 or checkpoint_trigger is not None:
             raise NotImplementedError(
-                f"validation and checkpoint triggers need evaluate and "
-                f"checkpoints ({_ROADMAP})")
-        if seed:
-            raise NotImplementedError(
-                "fit(seed=...) re-draws the JAX model's weights; the port's "
-                "model draws them at construction (TransformerLM(seed=...))")
+                f"validation and checkpoint triggers during fit are not "
+                f"ported ({_ROADMAP}); call evaluate after fit instead")
         batch_size = batch_size or cfg.batch_size
         accum = max(1, int(cfg.grad_accum_steps))
         if batch_size % accum:
@@ -235,19 +280,47 @@ class Estimator:
         end_trigger = end_trigger or MaxEpoch(
             epochs if epochs is not None else cfg.max_epochs)
         if self.train_state is None:
-            self._init_state()
+            self._init_state(seed)
         # training mode for the steps, as JAX's apply(training=True); a
         # layer whose training mode is not ported (BatchNormalization)
         # raises instead of silently running its inference form
         self.model.train()
         try:
             while not end_trigger(self.trainer_state):
-                self._run_epoch(train_set, batch_size)
+                if cfg.cache_on_device:
+                    self._run_epoch_cached(train_set, batch_size)
+                else:
+                    self._run_epoch(train_set, batch_size)
         finally:
             self.model.eval()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
+
+    def _log_point(self, loss, gnorm, win_t0: float, win_steps: int,
+                   win_data: float) -> None:
+        """One history record: the loss and gradient norm (this syncs),
+        and the window's per-step data and compute milliseconds."""
+        ts = self.trainer_state
+        loss_val, gnorm_val = float(loss), float(gnorm)
+        ts.last_loss = loss_val
+        now = time.perf_counter()
+        rec = {"epoch": ts.epoch, "iteration": ts.iteration,
+               "loss": loss_val, "grad_norm": gnorm_val,
+               "data_ms": win_data / win_steps * 1e3,
+               "compute_ms": max(0.0, now - win_t0 - win_data)
+               / win_steps * 1e3}
+        self.history.append(rec)
+        logger.info("epoch %d iter %d loss %.4f gnorm %.3f (data %.2fms "
+                    "compute %.2fms /step)", ts.epoch, ts.iteration,
+                    loss_val, gnorm_val, rec["data_ms"], rec["compute_ms"])
+
+    def _finish_epoch(self, loss, seen: int) -> None:
+        ts = self.trainer_state
+        if loss is not None:
+            ts.last_loss = loss                # lazy: read on demand
+        ts.epoch += 1
+        ts.records_processed += seen
 
     def _run_epoch(self, train_set: FeatureSet, batch_size: int) -> None:
         cfg = self.config
@@ -270,24 +343,94 @@ class Estimator:
             win_steps += 1
             seen += batch_size
             if ts.iteration % cfg.log_every_n_steps == 0:
-                loss_val, gnorm_val = float(loss), float(gnorm)   # syncs
-                ts.last_loss = loss_val
-                now = time.perf_counter()
-                rec = {"epoch": ts.epoch, "iteration": ts.iteration,
-                       "loss": loss_val, "grad_norm": gnorm_val,
-                       "data_ms": win_data / win_steps * 1e3,
-                       "compute_ms": max(0.0, now - win_t0 - win_data)
-                       / win_steps * 1e3}
-                self.history.append(rec)
-                logger.info("epoch %d iter %d loss %.4f gnorm %.3f (data "
-                            "%.2fms compute %.2fms /step)", ts.epoch,
-                            ts.iteration, loss_val, gnorm_val,
-                            rec["data_ms"], rec["compute_ms"])
+                self._log_point(loss, gnorm, win_t0, win_steps, win_data)
                 win_t0, win_steps, win_data = time.perf_counter(), 0, 0.0
-        if loss is not None:
-            ts.last_loss = loss                # lazy: read on demand
-        ts.epoch += 1
-        ts.records_processed += seen
+        self._finish_epoch(loss, seen)
+
+    def _cache_dataset(self, train_set: FeatureSet) -> None:
+        """Put the dataset on the card once, keyed on its arrays (strong
+        references, so a new dataset can never alias an old id)."""
+        leaves = _tree_leaves(train_set.data)
+        key = self._device_data_key
+        if key is None or len(key) != len(leaves) or any(
+                a is not b for a, b in zip(key, leaves)):
+            self._device_data = self._to_device(train_set.data)
+            self._device_data_key = leaves
+
+    def epoch_order(self, train_set: FeatureSet, epoch: int) -> torch.Tensor:
+        """The device-cached epoch's example order on the card:
+        ``jax.random.permutation(PRNGKey(seed + epoch * 1_000_003), n)``
+        (``arange(n)`` without shuffling)."""
+        n = len(train_set)
+        if not self.config.shuffle:
+            return torch.arange(n, device=self.device)
+        return prng.permutation(
+            prng.PRNGKey(train_set.seed + epoch * 1_000_003), n,
+            device=self.device)
+
+    def _run_epoch_cached(self, train_set: FeatureSet,
+                          batch_size: int) -> None:
+        """An epoch over the dataset on the card
+        (``TrainConfig(cache_on_device=True)``): blocks of
+        ``scan_block_steps`` steps, each batch gathered on the card by its
+        indices; log points at block granularity (where a block crosses a
+        multiple of ``log_every_n_steps`` counted from the epoch's start,
+        as the JAX scan does); the steps that do not fill a block after
+        the last block."""
+        cfg = self.config
+        ts = self.trainer_state
+        self._cache_dataset(train_set)
+        data = self._device_data
+        idx = self.epoch_order(train_set, ts.epoch)
+        n_steps = len(train_set) // batch_size
+        block = max(1, min(cfg.scan_block_steps, n_steps))
+        n_blocks = n_steps // block
+        seen = 0
+        loss = None
+        win_t0, win_steps = time.perf_counter(), 0
+        every = cfg.log_every_n_steps
+
+        def take(s):
+            sel = idx[s * batch_size:(s + 1) * batch_size]
+            return _tree_map(lambda a: a.index_select(0, sel), data)
+
+        for b in range(n_blocks):
+            for s in range(b * block, (b + 1) * block):
+                loss, gnorm = self._step(take(s))
+            self.last_grad_norm = gnorm
+            win_steps += block
+            ts.iteration += block
+            seen += block * batch_size
+            if every and (b + 1) * block >= every \
+                    and ((b + 1) * block) // every > (b * block) // every:
+                self._log_point(loss, gnorm, win_t0, win_steps, 0.0)
+                win_t0, win_steps = time.perf_counter(), 0
+        for s in range(n_blocks * block, n_steps):
+            loss, self.last_grad_norm = self._step(take(s))
+            ts.iteration += 1
+            seen += batch_size
+        self._finish_epoch(loss, seen)
+
+    # --------------------------------------------------------------- evaluate
+    def evaluate(self, data, batch_size: int = 256,
+                 metrics: Sequence = ("accuracy",)) -> Dict[str, float]:
+        """Streaming metrics over ``data`` (a FeatureSet or an (x, y)
+        pair) in order, in batches of ``batch_size`` (the last one
+        partial), the model in inference mode: ``{metric.name: value}``.
+        The accumulators stay on the card; each result is read once."""
+        eval_set = _as_featureset(data)
+        if self.train_state is None:
+            self._init_state()
+        metric_objs = [get_metric(m) for m in metrics]
+        accs = [m.init(device=self.device) for m in metric_objs]
+        with torch.no_grad(), self._policy():
+            for hb in eval_set.batches(batch_size, shuffle=False,
+                                       drop_remainder=False):
+                x, y = self._to_device(hb)
+                y_hat = self.model.apply(x)
+                accs = [m.update(a, y, y_hat)
+                        for m, a in zip(metric_objs, accs)]
+        return {m.name: m.result(a) for m, a in zip(metric_objs, accs)}
 
     # ---------------------------------------------------------------- predict
     def predict(self, x, batch_size: int = 256) -> np.ndarray:

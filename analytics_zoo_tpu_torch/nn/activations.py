@@ -19,6 +19,10 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
+
+
 def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return torch.softmax(x, dim=axis)
 
@@ -28,7 +32,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 ACTIVATIONS = {"linear": linear, "identity": linear, "relu": relu,
-               "softmax": softmax, "gelu": gelu}
+               "sigmoid": sigmoid, "softmax": softmax, "gelu": gelu}
 
 
 def get_activation(name):
@@ -46,4 +50,4 @@ def get_activation(name):
 
 
 __all__ = ["ACTIVATIONS", "gelu", "get_activation", "linear", "relu",
-           "softmax"]
+           "sigmoid", "softmax"]

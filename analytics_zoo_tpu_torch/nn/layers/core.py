@@ -1,4 +1,4 @@
-"""Core layers: InputLayer, Dense, Activation (port of
+"""Core layers: InputLayer, Dense, Narrow, Activation (port of
 ``analytics_zoo_tpu/nn/layers/core.py``).
 
 Parameters keep the JAX names and layout: ``kernel`` (in, out) and
@@ -106,6 +106,26 @@ class Dense(Int8Kernel, Layer):
         return tuple(input_shape[:-1]) + (self.output_dim,)
 
 
+class Narrow(Layer):
+    """Slice ``length`` elements starting at ``offset`` along ``dim``
+    (0-indexed over the non-batch dims; negative counts from the end); a
+    view of the input."""
+
+    def __init__(self, dim: int, offset: int, length: int = 1, name=None,
+                 input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.dim, self.offset, self.length = int(dim), int(offset), int(length)
+
+    def apply(self, x):
+        axis = self.dim + 1 if self.dim >= 0 else self.dim
+        return x.narrow(axis, self.offset, self.length)
+
+    def compute_output_shape(self, input_shape):
+        shape = list(input_shape)
+        shape[self.dim] = self.length
+        return tuple(shape)
+
+
 class Activation(Layer):
     def __init__(self, activation, name: Optional[str] = None,
                  input_shape=None):
@@ -116,4 +136,4 @@ class Activation(Layer):
         return self.activation(as_compute(x))
 
 
-__all__ = ["Activation", "Dense", "InputLayer", "Int8Kernel"]
+__all__ = ["Activation", "Dense", "InputLayer", "Int8Kernel", "Narrow"]

@@ -1,5 +1,6 @@
 """Merge (port of ``analytics_zoo_tpu/nn/layers/merge.py``): the modes
-``sum`` and ``concat`` that the ported backbones use."""
+``sum`` and ``concat`` that the ported backbones and NeuralCF use, and
+the functional helper ``merge``."""
 
 from __future__ import annotations
 
@@ -51,4 +52,9 @@ class Merge(Layer):
         return shapes[0]
 
 
-__all__ = ["Merge"]
+def merge(inputs, mode: str = "sum", concat_axis: int = -1, name=None):
+    """Functional-graph helper: ``merge([a, b], mode="concat")``."""
+    return Merge(mode=mode, concat_axis=concat_axis, name=name)(list(inputs))
+
+
+__all__ = ["Merge", "merge"]

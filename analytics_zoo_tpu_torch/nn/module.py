@@ -131,6 +131,20 @@ def embedding_normal(gen: torch.Generator,
     return w.to(param_dtype())
 
 
+def normal_init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    """normal · 0.01 — the JAX package's ``"normal"`` (NeuralCF's
+    tables)."""
+    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32) * 0.01
+    return w.to(param_dtype())
+
+
+def uniform_init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    """U(-0.05, 0.05) — the JAX package's ``"uniform"`` (``Embedding``'s
+    default)."""
+    u = torch.rand(tuple(shape), generator=gen, dtype=torch.float32)
+    return (u * 0.1 - 0.05).to(param_dtype())
+
+
 def zeros_init(shape: Sequence[int]) -> torch.Tensor:
     return torch.zeros(tuple(shape), dtype=param_dtype())
 
@@ -140,12 +154,15 @@ def ones_init(shape: Sequence[int]) -> torch.Tensor:
 
 
 def get_initializer(init: Union[str, Callable]) -> Callable:
-    """``init(gen, shape) -> tensor``: the Keras layers' kernel and bias
-    initializers that are ported (glorot-uniform, zeros, ones)."""
+    """``init(gen, shape) -> tensor``: the Keras layers' kernel, bias and
+    table initializers that are ported (glorot-uniform, normal, uniform,
+    zeros, ones)."""
     if callable(init):
         return init
     table: Dict[str, Callable] = {
         "glorot_uniform": glorot_uniform, "xavier": glorot_uniform,
+        "normal": normal_init, "gaussian": normal_init,
+        "uniform": uniform_init,
         "zero": lambda gen, shape: zeros_init(shape),
         "zeros": lambda gen, shape: zeros_init(shape),
         "one": lambda gen, shape: ones_init(shape),
@@ -213,5 +230,5 @@ class Layer(nn.Module):
 
 __all__ = ["Layer", "as_compute", "cast_params", "compute_dtype",
            "embedding_normal", "get_initializer", "glorot_uniform",
-           "ones_init", "param_dtype", "precision_policy", "resolve_device",
-           "set_policy", "zeros_init"]
+           "normal_init", "ones_init", "param_dtype", "precision_policy",
+           "resolve_device", "set_policy", "uniform_init", "zeros_init"]

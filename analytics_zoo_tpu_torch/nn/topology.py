@@ -2,18 +2,21 @@
 ``Sequential`` and ``Model``.
 
 :class:`KerasNet` is the mixin that gives a module ``compile`` / ``fit`` /
-``predict`` over the port's :class:`~..engine.estimator.Estimator`. Put it
-before ``nn.Module`` in the bases: its ``compile`` (the Keras one)
-shadows ``nn.Module.compile``. :class:`Sequential` and :class:`Model` are
-the graph containers of ``nn/graph.py`` with that API.
+``evaluate`` / ``predict`` over the port's
+:class:`~..engine.estimator.Estimator`, and weight bundles in the JAX
+package's format (``save_model`` / ``load_weights``,
+``models/common/zoo_model.py``). Put it before ``nn.Module`` in the
+bases: its ``compile`` (the Keras one) shadows ``nn.Module.compile``.
+:class:`Sequential` and :class:`Model` are the graph containers of
+``nn/graph.py`` with that API.
 
-Not ported yet: ``evaluate`` and metrics (``nn/metrics.py``), weights
-files, TensorBoard and checkpoint sugar (ROADMAP Queue 1).
+Not ported yet: validation during ``fit``, TensorBoard and checkpoint
+sugar (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -31,10 +34,11 @@ class KerasNet:
                 param_sharding=None, *, device=None) -> "KerasNet":
         """Configure the learning process: builds the Estimator."""
         from ..engine.estimator import Estimator
+        from .metrics import get_metric
 
-        if metrics:
-            raise NotImplementedError(
-                "metrics need evaluate and nn/metrics.py (ROADMAP Queue 1)")
+        for m in metrics:
+            get_metric(m)                      # an unknown name raises here
+        self._metrics = list(metrics)
         self.estimator = Estimator(self, optimizer=optimizer, loss=loss,
                                    mesh=mesh, config=config,
                                    param_sharding=param_sharding,
@@ -75,6 +79,24 @@ class KerasNet:
                            validation_data=validation_data, seed=seed)
         return self
 
+    def evaluate(self, x, y=None, batch_size: int = 32,
+                 metrics: Optional[Sequence] = None) -> Dict[str, float]:
+        """Metrics over ``x`` (a FeatureSet, or arrays with ``y``): those
+        given, else the compiled ones, else ``("accuracy",)``; keyed by
+        metric name (``"sparse_categorical_accuracy"``, ...)."""
+        from ..data.featureset import FeatureSet
+
+        self._require_compiled()
+        if isinstance(x, FeatureSet):
+            data = x
+        else:
+            xs = tuple(x) if isinstance(x, (list, tuple)) else x
+            data = FeatureSet.from_numpy(xs, y)
+        if metrics is None:
+            metrics = getattr(self, "_metrics", None) or ("accuracy",)
+        return self.estimator.evaluate(data, batch_size=batch_size,
+                                       metrics=metrics)
+
     def predict(self, x, batch_size: int = 256,
                 distributed: bool = True) -> np.ndarray:
         self._require_compiled()
@@ -84,6 +106,27 @@ class KerasNet:
                         zero_based_label=True):
         cls = np.argmax(self.predict(x, batch_size), axis=-1)
         return cls if zero_based_label else cls + 1
+
+
+    # -- weight bundles (the JAX package's on-disk format) -----------------
+    def save_model(self, path: str):
+        """Write this model's weights as a bundle (``weights.npz``,
+        ``manifest.json``, ``config.json``)."""
+        from ..models.common.zoo_model import save_model_bundle
+
+        save_model_bundle(path, self)
+
+    def load_weights(self, path: str):
+        """Load a weight bundle (written by either package) into this
+        model in place; a compiled model's optimizer restarts from the
+        loaded weights."""
+        from ..models.common.zoo_model import load_weights
+
+        load_weights(path, self)
+        est = getattr(self, "estimator", None)
+        if est is not None:
+            est.reset_optimizer()
+        return self
 
 
 class Sequential(KerasNet, SequentialModule):

@@ -36,6 +36,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..common import prng
+from ..common.prng import _M32, threefry2x32
 from . import _build
 
 NEG_INF = -1e30
@@ -584,54 +586,23 @@ def decode_attention_multi(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # with the JAX package's threefry bits so both packages sample alike
 # ---------------------------------------------------------------------------
 
-_M32 = 0xFFFFFFFF
-_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
 def _host_list(x) -> list:
     if isinstance(x, torch.Tensor):
         return x.reshape(-1).tolist()
     return np.asarray(x).reshape(-1).tolist()
 
 
-def threefry2x32(k1, k2, x1, x2):
-    """The Threefry-2x32 hash (20 rounds), as ``jax.random`` computes it:
-    uint32 arithmetic carried in Python ints or int64 tensors (every value
-    in ``[0, 2**32)``, masked after each add). Tensor arguments broadcast;
-    returns the two output words."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x1 = (x1 + ks[0]) & _M32
-    x2 = (x2 + ks[1]) & _M32
-    for i in range(5):
-        for r in _THREEFRY_ROTATIONS[i % 2]:
-            x1 = (x1 + x2) & _M32
-            x2 = ((x2 << r) | (x2 >> (32 - r))) & _M32
-            x2 = x1 ^ x2
-        x1 = (x1 + ks[(i + 1) % 3]) & _M32
-        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return x1, x2
-
-
 def _fold_keys(seeds, token_idx) -> List[tuple]:
-    """``fold_in(PRNGKey(seed), idx)`` per row, on the host in Python ints
-    (a few rows, no device launches): the key ``(0, seed mod 2**32)``
-    hashes the count pair ``(0, idx)``."""
-    return [threefry2x32(0, int(s) & _M32, 0, int(i) & _M32)
+    """``fold_in(PRNGKey(seed mod 2**32), idx)`` per row, on the host in
+    Python ints (a few rows, no device launches)."""
+    return [prng.fold_in(prng.PRNGKey(int(s) & _M32), i)
             for s, i in zip(_host_list(seeds), _host_list(token_idx))]
 
 
 def sample_bits(seeds, token_idx, v: int, device=None) -> torch.Tensor:
     """``jax.random.bits(fold_in(PRNGKey(seed), token_idx), (v,), uint32)``
-    for each row, as an int64 (B, v) tensor on ``device``: with
-    ``jax_threefry_partitionable`` (the default of the JAX the package is
-    tested against) element ``j`` is the xor of the two words hashed from
-    the count pair ``(0, j)`` under the folded key."""
-    keys = _fold_keys(seeds, token_idx)
-    k1, k2 = (torch.tensor([k[w] for k in keys], dtype=torch.int64,
-                           device=device)[:, None] for w in (0, 1))
-    j = torch.arange(v, dtype=torch.int64, device=device)[None, :]
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(j), j)
-    return b1 ^ b2
+    for each row, as an int64 (B, v) tensor on ``device``."""
+    return prng.bits_per_key(_fold_keys(seeds, token_idx), v, device)
 
 
 def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and int8 inference
-paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, int8 inference and
+NCF recommendation paths on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel checks only
@@ -55,8 +55,10 @@ Phases, each fatal on failure (no result line is printed then):
    and K3/K4 in turns parent, change, change, parent). Device-only times
    (``device_ms``: torch.profiler's device time of the kernels a call
    launches, the L2 flush's own kernel left out, over 20 calls) for K1
-   and SDPA's forward at the training micro-batch, K3, K4 and SDPA's
-   backward, and K2 at decode, q_len 16 and 64 and full context. K2 is
+   and SDPA's forward at the serving shape and the training micro-batch,
+   K3, K4 and SDPA's backward, and K2 and SDPA over its pre-gathered K/V
+   (``library_device_ms``) at every timed K2 shape: decode, q_len 16 and
+   64, full context and the serving features' shapes below. K2 is
    also timed at the serving features' shapes: a verify step (q_len 4 on
    the half-full ladder), a chunk (q_len 128 on one slot with 512 cached,
    the wide table) and a suffix (q_len 1024 on one slot after a 480-token
@@ -136,6 +138,27 @@ Phases, each fatal on failure (no result line is printed then):
    plain arm's (K1 prefill, K2 decode, counted), and one Estimator Adam
    step (K1, K3, K4) gives the CPU's loss within 1e-4 and its next loss
    within 1e-3.
+12. NCF (the NCF slice's main path; no kernel of its own): bench.py's
+   MovieLens-1M recipe on the synthetic ML-1M (1,000,209 ratings, seed
+   0; leave-one-out: the first 1000 users' last ratings held out, 1
+   positive + 99 unseen negatives each) through ``compile``/``fit``/
+   ``predict``. For explicit ``NeuralCF(6040, 3706, 5)`` (Adam 1e-3,
+   sparse CE) and then ``ImplicitNCF(6040, 3706, n_negatives=4)`` (Adam
+   2.5e-3, BCE, negatives drawn on the card each step), default widths,
+   batch 8192, device-cached epochs: the first 8 steps in f32 (the first
+   8 x 8192 training pairs) on the card twice and on the CPU, losses
+   within 1e-5 relative and the implicit negatives bit for bit the CPU's
+   (whether the two card runs' losses are bit-identical is printed); then
+   4 epochs in bf16 on the card (the first a warm-up), printing samples/s
+   over epochs 2-4, the median step ms (the Estimator's per-epoch window),
+   HR@10 and NDCG@10 (expected rating, or probability), the final loss
+   and the peak device memory above what the phase found allocated,
+   beside the card's name and power limit
+   (``--profile``: one more epoch traced, the device's busy share); the
+   card's HR@10 after epoch 1 within 0.03 of a one-epoch CPU run of the
+   same recipe, both and the card's final HR@10 above the 0.10 random
+   floor; ``recommend_for_user`` on 20 users in (-prediction,
+   -probability) order.
 
 Phase 3 also holds the int8 kernels to their plain versions bit for bit
 (``torch.equal``), f32 and bf16: the quantize pass both launch (codes and
@@ -167,6 +190,7 @@ limit, the per-kernel JSON, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import re
@@ -222,6 +246,9 @@ FEATURE_ARMS = (
 # Dense 4096 relu, Dense 128 softmax at batch 2048)
 IMG, CLASSES, IMG_BATCH, IMG_THREADS = 224, 1000, 32, 4
 MLP_HIDDEN, MLP_CLASSES, MLP_BATCH = 4096, 128, 2048
+# the NCF slice: bench.py's MovieLens-1M recipe (global batch 8192, 1000
+# leave-one-out users), 4 epochs, the first 8 steps held to the CPU in f32
+NCF_BATCH, NCF_EPOCHS, NCF_EVAL_USERS, NCF_PARITY_STEPS = 8192, 4, 1000, 8
 
 
 def log(*a):
@@ -504,6 +531,8 @@ def check_k1(torch, timer, dtimer, parent=None):
     plain = timer(lambda: flash_attention_plain(q, k, v, True))
     lib = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=True))
+    lib_dev = dtimer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
     fns = [lambda: flash_attention_fwd(q, k, v, True)]
     parent_ms = parent_hus = None
     if parent is not None:
@@ -522,8 +551,9 @@ def check_k1(torch, timer, dtimer, parent=None):
     bms, by = bound_ms(nbytes, flops, dt)
     log(f"[K1] B=1 T={t} H={N_HEAD} D={d} causal {dt} (serving): {ms:.4f} "
         f"ms, device {dev_s:.4f} (parent {parent_ms}, device {parent_dev_s};"
-        f" plain {plain:.4f}, bound {bms:.5f} by {by}), SDPA {lib:.4f} ms; "
-        f"wrapper host {hus:.1f} us (parent {parent_hus})")
+        f" plain {plain:.4f}, bound {bms:.5f} by {by}), SDPA {lib:.4f} ms, "
+        f"device {lib_dev:.4f} ms; wrapper host {hus:.1f} us (parent "
+        f"{parent_hus})")
     # and at the training micro-batch, q/k/v strided out of one fused QKV
     # tensor as the model hands them over
     b, t = TRAIN_BATCH // GRAD_ACCUM, SEQ_LEN
@@ -562,7 +592,8 @@ def check_k1(torch, timer, dtimer, parent=None):
                              "f32: flash_fwd_kernel"),
             "launches": None, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib, "device_ms": dev_s, "parent_ms": parent_ms,
+            "library_ms": lib, "library_device_ms": lib_dev,
+            "device_ms": dev_s, "parent_ms": parent_ms,
             "parent_device_ms": parent_dev_s, "host_us": hus,
             "parent_host_us": parent_hus,
             "shape": f"B=1 T=1024 H={N_HEAD} D={d} causal", "dtype": dt,
@@ -691,6 +722,8 @@ def _k2_timed(torch, timer, dtimer, label, case, parent=None):
     plain = timer(lambda: paged_attention_plain(*case, page_size=PAGE))
     lib = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        attn_mask=mask))
+    lib_dev = dtimer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
     fns = [lambda: paged_attention(*case, page_size=PAGE)]
     parent_ms = parent_hus = parent_dev = None
     if parent is not None and q_len <= 16:
@@ -715,11 +748,12 @@ def _k2_timed(torch, timer, dtimer, label, case, parent=None):
     log(f"[K2] {label} q_len={q_len} bf16: {ms:.4f} ms, device "
         f"{dev:.4f} ms (parent {parent_ms}, device {parent_dev}; plain "
         f"{plain:.4f}, bound {bms:.5f} by {by}), "
-        f"SDPA {lib:.4f} ms; wrapper host {hus:.1f} us (parent "
-        f"{parent_hus}); max err {err:.3g}")
+        f"SDPA {lib:.4f} ms, device {lib_dev:.4f} ms; wrapper host "
+        f"{hus:.1f} us (parent {parent_hus}); max err {err:.3g}")
     return {"max_abs_err": err, "ms": ms, "device_ms": dev,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib, "parent_ms": parent_ms,
+            "library_ms": lib, "library_device_ms": lib_dev,
+            "parent_ms": parent_ms,
             "parent_device_ms": parent_dev, "host_us": hus,
             "parent_host_us": parent_hus,
             "shape": (f"slots={b} table={table.shape[1]} pool_pps="
@@ -2403,6 +2437,288 @@ def phase_example(torch):
                              "the cpu or skipped its kernels")
 
 
+# ------------------------------------------------------------- NCF slice
+
+def ncf_data():
+    """The synthetic MovieLens-1M (1,000,209 ratings, seed 0) split as
+    bench.py's leave-one-out (``bench.py:139-159``): each of the first
+    1000 users' last rating held out of training; each of them gets the
+    held-out positive and 99 unseen negatives."""
+    from analytics_zoo_tpu_torch.data.datasets import (
+        ML1M_ITEMS, leave_one_out_eval_sets, movielens_1m)
+
+    pairs, ratings = movielens_1m(seed=0)
+    ev = leave_one_out_eval_sets(pairs, ML1M_ITEMS, n_negatives=99,
+                                 max_users=NCF_EVAL_USERS)
+    users = pairs[:, 0]
+    last_row = len(users) - 1 - np.unique(users[::-1], return_index=True)[1]
+    drop = last_row[np.isin(np.unique(users), ev[:, 0, 0])]
+    mask = np.ones(len(users), dtype=bool)
+    mask[drop] = False
+    return (np.ascontiguousarray(pairs[mask]),
+            np.ascontiguousarray((ratings[mask] - 1).astype(np.int32)), ev)
+
+
+def _ncf_model(kind, device):
+    """``(model, loss, optimizer, labels)`` of one recipe at ML-1M's
+    width: explicit NeuralCF (5 rating classes, Adam 1e-3) or ImplicitNCF
+    (4 negatives a positive, BCE, Adam 2.5e-3), default widths, seed 0."""
+    from analytics_zoo_tpu_torch.data.datasets import ML1M_ITEMS, ML1M_USERS
+    from analytics_zoo_tpu_torch.models.recommendation import (
+        ImplicitNCF, NeuralCF, implicit_bce_loss)
+    from analytics_zoo_tpu_torch.nn.optimizers import Adam
+
+    if kind == "explicit":
+        return (NeuralCF(ML1M_USERS, ML1M_ITEMS, class_num=5, device=device),
+                "sparse_categorical_crossentropy", Adam(lr=1e-3), "ratings")
+    return (ImplicitNCF(ML1M_USERS, ML1M_ITEMS, n_negatives=4,
+                        device=device),
+            implicit_bce_loss, Adam(lr=2.5e-3), "dummy")
+
+
+def _ncf_labels(which, y):
+    return y if which == "ratings" else np.zeros(len(y), np.float32)
+
+
+def _ncf_rank(torch, model, kind, ev):
+    """HR@10 and NDCG@10 over the leave-one-out groups through
+    ``nn/metrics.py``: explicit scored by expected rating (``bench.py:
+    162-169``), implicit by probability."""
+    from analytics_zoo_tpu_torch.nn.metrics import NDCG, HitRate
+
+    probs = model.predict(ev.reshape(-1, 2), batch_size=NCF_BATCH)
+    if kind == "explicit":
+        probs = probs @ np.arange(1, probs.shape[1] + 1, dtype=np.float32)
+    scores = torch.from_numpy(np.ascontiguousarray(
+        probs.reshape(ev.shape[0], ev.shape[1])))
+    out = []
+    for m in (HitRate(10), NDCG(10)):
+        out.append(m.result(m.update(m.init(), None, scores)))
+    return out
+
+
+def ncf_parity(torch, kind, x, y):
+    """The first 8 steps of the recipe in f32 (device-cached, batch 8192,
+    the first 8 x 8192 training pairs), card twice and CPU once: the
+    card's per-step losses within 1e-5 relative of the CPU's, and
+    (implicit) the negatives drawn on the card bit for bit the CPU's.
+    The same steps in bf16 run twice on the card as well. Returns whether
+    the two card runs gave the same losses bit for bit, in f32 and in
+    bf16."""
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+
+    n = NCF_PARITY_STEPS * NCF_BATCH
+    xs = np.ascontiguousarray(x[:n])
+    runs = {}
+    for run in ("cuda", "cuda_again", "cpu", "bf16", "bf16_again"):
+        dev = "cpu" if run == "cpu" else "cuda"
+        model, loss, opt, which = _ncf_model(kind, dev)
+        negs = []
+        if kind == "implicit":
+            draw = model.negatives
+
+            def recording(pos, rng, draw=draw, negs=negs):
+                out = draw(pos, rng)
+                negs.append(out.cpu())
+                return out
+
+            model.negatives = recording
+        model.compile(optimizer=opt, loss=loss, device=dev,
+                      config=TrainConfig(
+                          cache_on_device=True, scan_block_steps=1,
+                          log_every_n_steps=1,
+                          compute_dtype="bfloat16" if run.startswith("bf16")
+                          else None))
+        model.fit(xs, _ncf_labels(which, y[:n]), batch_size=NCF_BATCH,
+                  nb_epoch=1)
+        runs[run] = ([h["loss"] for h in model.estimator.history], negs)
+        del model
+    (lg, ng), (lg2, _), (lc, nc) = runs["cuda"], runs["cuda_again"], \
+        runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    same_neg = (len(ng) == len(nc) == NCF_PARITY_STEPS and all(
+        torch.equal(a, b) for a, b in zip(ng, nc))) if kind == "implicit" \
+        else None
+    repeat = {"f32": lg == lg2,
+              "bf16": runs["bf16"][0] == runs["bf16_again"][0]}
+    ok = (len(lg) == len(lc) == NCF_PARITY_STEPS and rel <= 1e-5
+          and same_neg is not False)
+    log(f"[ncf-parity] {kind} f32, {NCF_PARITY_STEPS} steps of {NCF_BATCH}"
+        f" cached, cuda vs cpu: losses {[round(v, 6) for v in lg]} vs "
+        f"{[round(v, 6) for v in lc]} (max rel {rel:.3g}, tol 1e-5); "
+        f"negatives bit-identical over {len(ng)} steps: {same_neg}; two "
+        f"card runs give the same losses: f32 {repeat['f32']}, bf16 "
+        f"{repeat['bf16']} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"NCF {kind} training on the card disagrees "
+                             f"with the cpu")
+    return repeat
+
+
+def ncf_train(torch, kind, x, y, ev, smi, profile: bool = False):
+    """The recipe in bf16 at full ML-1M width on the card: batch 8192,
+    device-cached epochs of one block each, 4 epochs (the first a
+    warm-up). Returns its numbers with HR@10 after the first epoch, for
+    the CPU reference."""
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+
+    model, loss, opt, which = _ncf_model(kind, "cuda")
+    labels = _ncf_labels(which, y)
+    n_steps = len(x) // NCF_BATCH
+    model.compile(optimizer=opt, loss=loss, device="cuda", config=TrainConfig(
+        compute_dtype="bfloat16", cache_on_device=True,
+        scan_block_steps=n_steps, log_every_n_steps=n_steps))
+    # earlier phases' models sit in reference cycles (model.estimator.model)
+    # until the collector runs: free them, and count the peak above what
+    # is still allocated when the phase starts
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.fit(x, labels, batch_size=NCF_BATCH, nb_epoch=1)
+    warm_s = time.perf_counter() - t0
+    hr1, ndcg1 = _ncf_rank(torch, model, kind, ev)
+    t1 = time.perf_counter()
+    model.fit(x, labels, batch_size=NCF_BATCH, nb_epoch=NCF_EPOCHS)
+    wall = time.perf_counter() - t1            # fit syncs before it returns
+    hr, ndcg = _ncf_rank(torch, model, kind, ev)
+    hist = model.estimator.history
+    step_ms = [h["compute_ms"] for h in hist]
+    res = {"model": kind, "batch": NCF_BATCH, "steps_per_epoch": n_steps,
+           "train_pairs": len(x), "epochs": NCF_EPOCHS,
+           "warmup_epoch_s": warm_s, "timed_epochs_s": wall,
+           "samples_per_s": (NCF_EPOCHS - 1) * n_steps * NCF_BATCH / wall,
+           "step_ms_by_epoch": step_ms,
+           "step_ms_median": statistics.median(step_ms[1:]),
+           "epoch_losses": [h["loss"] for h in hist],
+           "final_loss": float(model.estimator.trainer_state.last_loss),
+           "hr@10": hr, "ndcg@10": ndcg, "hr@10_epoch1": hr1,
+           "ndcg@10_epoch1": ndcg1,
+           "peak_memory_above_start": torch.cuda.max_memory_allocated() - base,
+           "memory_allocated_at_start": base, "card": smi}
+    if profile:
+        res["profile"] = profile_ncf_epoch(torch, model, x, labels, smi, kind)
+    log(f"[ncf] {json.dumps(res)}")
+    finite = all(math.isfinite(v) for v in res["epoch_losses"])
+    if not finite or len(res["epoch_losses"]) != NCF_EPOCHS:
+        raise AssertionError(f"NCF {kind}: losses not finite or missing: "
+                             f"{res['epoch_losses']}")
+    return model, res
+
+
+def profile_ncf_epoch(torch, model, x, labels, smi, kind):
+    """Trace one more epoch (torch.profiler, device activity only: host
+    ops' events would stretch the epoch and take seconds to fold): the
+    device's busy share and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    epoch = model.estimator.trainer_state.epoch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.fit(x, labels, batch_size=NCF_BATCH, nb_epoch=epoch + 1)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, busy = _device_rows(prof)
+    log(f"[profile-ncf] {smi} | {kind}, one epoch of "
+        f"{len(x) // NCF_BATCH} steps, wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms ({busy / wall_ms:.3f} of wall)")
+    for key, count, ms in rows[:15]:
+        log(f"[profile-ncf] {ms:9.3f} ms {count:6d} calls  {key[:100]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms}
+
+
+def ncf_cpu_reference(torch, kind, x, y, ev):
+    """The same bf16 recipe on the CPU for one epoch: HR@10 and NDCG@10
+    after it (the card's are read after its first epoch too)."""
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+
+    model, loss, opt, which = _ncf_model(kind, "cpu")
+    n_steps = len(x) // NCF_BATCH
+    model.compile(optimizer=opt, loss=loss, device="cpu", config=TrainConfig(
+        compute_dtype="bfloat16", cache_on_device=True,
+        scan_block_steps=n_steps, log_every_n_steps=n_steps))
+    t0 = time.perf_counter()
+    model.fit(x, _ncf_labels(which, y), batch_size=NCF_BATCH, nb_epoch=1)
+    hr, ndcg = _ncf_rank(torch, model, kind, ev)
+    return hr, ndcg, time.perf_counter() - t0
+
+
+def ncf_recommend_gate(model, ev) -> None:
+    """``recommend_for_user`` on 20 users' 100 candidates each: 10 items
+    a user, users ascending, each list in (-prediction, -probability)
+    order, the predictions those of ``predict_user_item_pair``."""
+    cands = ev[:20].reshape(-1, 2)
+    recs = model.recommend_for_user(cands, max_items=10)
+    by_user = {}
+    for r in recs:
+        by_user.setdefault(r.user_id, []).append(r)
+    pred = {(p.user_id, p.item_id): (p.prediction, p.probability)
+            for p in model.predict_user_item_pair(cands)}
+    keys = {u: [(-r.prediction, -r.probability) for r in rs]
+            for u, rs in by_user.items()}
+    ok = (list(by_user) == sorted(set(cands[:, 0].tolist()))
+          and all(len(k) == 10 and k == sorted(k) for k in keys.values())
+          and all(pred[(r.user_id, r.item_id)] == (r.prediction,
+                                                   r.probability)
+                  for r in recs))
+    log(f"[ncf] recommend_for_user: {len(by_user)} users x 10 items, each "
+        f"in (-prediction, -probability) order: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("recommend_for_user broke its ordering")
+
+
+def phase_ncf(torch, smi, profile: bool = False):
+    """NCF, the reference's headline workload (``bench.py:228-258``), at
+    MovieLens-1M's width through ``compile``/``fit``/``predict``: the f32
+    parity of the first 8 steps with the CPU (and the implicit negatives
+    bit for bit), then explicit NeuralCF and ImplicitNCF trained in bf16
+    for 4 epochs on the card, HR@10 held to a one-epoch CPU run of the
+    same recipe, and ``recommend_for_user``'s order."""
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+
+    set_policy(compute_dtype="float32")
+    t0 = time.perf_counter()
+    x, y, ev = ncf_data()
+    wall = {"data": time.perf_counter() - t0}
+    log(f"[ncf] data: {len(x)} training pairs, {ev.shape[0]} eval users x "
+        f"{ev.shape[1]} candidates ({wall['data']:.1f} s)")
+    out = {}
+    for kind in ("explicit", "implicit"):
+        t = time.perf_counter()
+        repeat = ncf_parity(torch, kind, x, y)
+        wall[f"{kind}_parity"] = time.perf_counter() - t
+        t = time.perf_counter()
+        model, res = ncf_train(torch, kind, x, y, ev, smi, profile)
+        wall[f"{kind}_card"] = time.perf_counter() - t
+        t = time.perf_counter()
+        hr_cpu, ndcg_cpu, cpu_s = ncf_cpu_reference(torch, kind, x, y, ev)
+        wall[f"{kind}_cpu_reference"] = time.perf_counter() - t
+        gap = abs(res["hr@10_epoch1"] - hr_cpu)
+        above = min(res["hr@10_epoch1"], hr_cpu, res["hr@10"]) > 0.10
+        ok = gap <= 0.03 and above
+        log(f"[ncf] {kind} HR@10 after epoch 1: card {res['hr@10_epoch1']:.4f}"
+            f" vs cpu {hr_cpu:.4f} (|d| {gap:.4f}, tol 0.03; NDCG@10 "
+            f"{res['ndcg@10_epoch1']:.4f} vs {ndcg_cpu:.4f}; cpu epoch "
+            f"{cpu_s:.1f} s); after {NCF_EPOCHS} epochs HR@10 "
+            f"{res['hr@10']:.4f}; all above the 0.10 random floor: {above} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"NCF {kind}: the card's HR@10 is off the "
+                                 f"cpu's or at the random floor")
+        if kind == "explicit":
+            ncf_recommend_gate(model, ev)
+        res.update(hr_at_10_cpu_epoch1=hr_cpu, card_runs_repeat=repeat)
+        out[kind] = res
+        del model
+        torch.cuda.empty_cache()
+    wall["phase"] = time.perf_counter() - t0
+    log(f"[ncf] phase wall s: {json.dumps(wall)}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2482,6 +2798,8 @@ def main(argv=None) -> int:
             kernels[6]["launches"] = k6
             torch.cuda.empty_cache()
             phase_example(torch)
+            torch.cuda.empty_cache()
+            phase_ncf(torch, smi, profile=args.profile)
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):

@@ -39,6 +39,23 @@ def test_importing_every_port_module_leaves_jax_out():
         assert f"analytics_zoo_tpu_torch.{mod}" in res["modules"]
 
 
+def test_the_ncf_slice_is_in_the_port():
+    """The NCF slice's modules mirror the JAX package's paths, and the
+    walk above (which imports every module of the port) reaches them."""
+    for rel in ("common/prng.py", "data/datasets.py", "nn/metrics.py",
+                "nn/layers/embedding.py", "models/common/zoo_model.py",
+                "models/common/ranker.py",
+                "models/recommendation/neuralcf.py",
+                "models/recommendation/recommender.py"):
+        assert (PKG / rel).is_file(), rel
+        assert (ROOT / "analytics_zoo_tpu" / rel).is_file() or \
+            rel == "common/prng.py", rel
+    import analytics_zoo_tpu_torch.models.recommendation  # noqa: F401
+    from analytics_zoo_tpu_torch.models.common import MODEL_REGISTRY
+
+    assert {"NeuralCF", "ImplicitNCF"} <= set(MODEL_REGISTRY)
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -306,11 +306,11 @@ def test_entry_points_raise_without_cuda_and_no_device(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("checkpoint_dir", "/nowhere"), ("checkpoint_every_n_iters", 5),
-    ("update_sharding", True), ("cache_on_device", True),
+    ("update_sharding", True), ("retry_backoff_s", 1.0),
     ("graph_checks", "raise"), ("hbm_budget_mb", 100.0),
     ("prefetch_depth", 4), ("donate_state", False), ("retry_times", 2),
     ("graceful_shutdown", False), ("async_checkpoint", False),
-    ("scan_block_steps", 10)])
+    ("retry_deadline_s", 60.0)])
 def test_unported_train_config_fields_raise(field, value):
     cfg = TrainConfig(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -332,7 +332,7 @@ def test_fit_rejects_what_is_not_ported(jax_weights, tokens):
     _, tree = jax_weights
     tm = _port_model(tree)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.compile(optimizer="adam", loss=lm_loss, metrics=["accuracy"])
+        tm.compile(optimizer="rmsprop", loss=lm_loss, metrics=["accuracy"])
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         Estimator(tm, mesh=object(), loss=lm_loss)
     est = Estimator(tm, optimizer="sgd", loss=lm_loss)
