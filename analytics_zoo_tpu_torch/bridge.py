@@ -17,6 +17,18 @@ buffers in the port) share their slot keys (``12_convolution2d``,
 
 bf16 leaves (numpy arrays of ``ml_dtypes.bfloat16``) cross as their raw
 16-bit patterns, so no value is rounded either way.
+
+The Estimator's whole training state crosses the same way, as the JAX
+package's train-state tree ``{"params", "opt_state", "model_state",
+"step", "rng"}`` (:func:`train_state_to_jax`, :func:`train_state_from_jax`):
+the module's parameters and persistent buffers (BN statistics, the JAX
+``model_state``) nested by their dotted names, the optimizer state as
+optax's NamedTuples with its per-parameter dicts nested the same way and
+its host counts as 0-d int32, ``step`` as a 0-d int32 and the training
+key as the (2,) uint32 array ``jax.random.split`` gives. Flattened in
+JAX's order (``engine/checkpoint.py``), its leaves and their paths are
+those of a checkpoint the JAX Estimator writes for the same model and
+optimizer.
 """
 
 from __future__ import annotations
@@ -71,22 +83,109 @@ def params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
     """The inverse: the module's parameters as a nested dict of numpy
     arrays in the JAX tree's shape. bf16 parameters come back as
     ``ml_dtypes.bfloat16`` arrays (imported only then)."""
-    tree: Dict[str, Any] = {}
+    flat: Dict[str, Any] = {}
     for name, t in model.state_dict().items():
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             import ml_dtypes
 
-            arr = t.view(torch.int16).numpy().view(np.uint16).view(
+            flat[name] = t.view(torch.int16).numpy().view(np.uint16).view(
                 ml_dtypes.bfloat16)
         else:
-            arr = t.numpy().copy()
+            flat[name] = t.numpy().copy()
+    return nest(flat)
+
+
+def nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """A dict keyed by dotted names as the nested dict of the JAX tree."""
+    tree: Dict[str, Any] = {}
+    for name, v in flat.items():
         node = tree
         *parents, leaf = name.split(".")
         for p in parents:
             node = node.setdefault(p, {})
-        node[leaf] = arr
+        node[leaf] = v
     return tree
 
 
-__all__ = ["params_from_jax", "params_to_numpy", "state_dict_from_jax"]
+def _lookup(tree: Mapping[str, Any], name: str):
+    for p in name.split("."):
+        tree = tree[p]
+    return tree
+
+
+def opt_state_to_jax(state):
+    """The port's optimizer state in optax's shape: NamedTuples and tuples
+    kept, per-parameter dicts nested, host counts as 0-d int32 arrays."""
+    if state is None:
+        return None
+    if isinstance(state, dict):
+        return nest(state)
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(opt_state_to_jax(v) for v in state))
+    if isinstance(state, (tuple, list)):
+        return tuple(opt_state_to_jax(v) for v in state)
+    if isinstance(state, int):
+        return np.asarray(state, np.int32)
+    return state
+
+
+def opt_state_from_jax(tree, like):
+    """The inverse of :func:`opt_state_to_jax` in the structure of the
+    port's state ``like``."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        return {n: opt_state_from_jax(_lookup(tree, n), v)
+                for n, v in like.items()}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(opt_state_from_jax(getattr(tree, f), v)
+                            for f, v in zip(like._fields, like)))
+    if isinstance(like, (tuple, list)):
+        return type(like)(opt_state_from_jax(t, v)
+                          for t, v in zip(tree, like))
+    if isinstance(like, int):
+        return int(np.asarray(tree))
+    return tree
+
+
+def _buffers(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    names = {n for n, _ in model.named_parameters()}
+    return {n: t for n, t in model.state_dict(keep_vars=True).items()
+            if n not in names}
+
+
+def train_state_to_jax(model: torch.nn.Module,
+                       train_state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX Estimator's train-state tree over the port's live tensors
+    (no copies): what ``engine/checkpoint.py`` saves."""
+    return {
+        "params": nest({n: p.detach() for n, p in model.named_parameters()}),
+        "opt_state": opt_state_to_jax(train_state["opt_state"]),
+        "model_state": nest({n: b.detach()
+                             for n, b in _buffers(model).items()}),
+        "step": np.asarray(train_state["step"], np.int32),
+        "rng": np.asarray(train_state["rng"], np.uint32),
+    }
+
+
+def train_state_from_jax(model: torch.nn.Module, tree: Mapping[str, Any],
+                         like: Mapping[str, Any]) -> Dict[str, Any]:
+    """Install a train-state tree (structured as :func:`train_state_to_jax`
+    gives it, leaves on the model's device) into ``model`` in place, and
+    return the Estimator's ``train_state`` in the structure of ``like``."""
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(_lookup(tree["params"], n))
+        for n, b in _buffers(model).items():
+            b.copy_(_lookup(tree["model_state"], n))
+    rng = np.asarray(tree["rng"]).reshape(-1).tolist()
+    return {"opt_state": opt_state_from_jax(tree["opt_state"],
+                                            like["opt_state"]),
+            "step": int(np.asarray(tree["step"])),
+            "rng": (int(rng[0]), int(rng[1]))}
+
+
+__all__ = ["nest", "opt_state_from_jax", "opt_state_to_jax",
+           "params_from_jax", "params_to_numpy", "state_dict_from_jax",
+           "train_state_from_jax", "train_state_to_jax"]

@@ -45,23 +45,12 @@ class TrainConfig:
     async_checkpoint: bool = True
 
 
-_ROADMAP_CKPT = "ROADMAP Queue 1, item 7 (checkpoint reader/writer)"
-_ROADMAP_EST = "ROADMAP Queue 1 (Estimator remainder)"
-
 #: fields whose machinery the port does not have yet: the values it
 #: accepts (the default, and for ``prefetch_depth`` the synchronous 0 that
 #: the port's loader is) and where the work is queued
 _UNPORTED = {
-    "checkpoint_dir": ((None,), _ROADMAP_CKPT),
-    "checkpoint_every_n_iters": ((None,), _ROADMAP_CKPT),
-    "async_checkpoint": ((True,), _ROADMAP_CKPT),
-    "retry_times": ((5,), _ROADMAP_CKPT + ": retry from checkpoint"),
-    "retry_backoff_s": ((0.0,), _ROADMAP_CKPT + ": retry from checkpoint"),
-    "retry_max_backoff_s": ((30.0,),
-                            _ROADMAP_CKPT + ": retry from checkpoint"),
-    "retry_deadline_s": ((None,), _ROADMAP_CKPT + ": retry from checkpoint"),
-    "graceful_shutdown": ((True,), _ROADMAP_CKPT + ": SIGTERM final save"),
-    "donate_state": ((True,), _ROADMAP_EST + ": the port updates in place"),
+    "donate_state": ((True,), "ROADMAP Queue 1 (Estimator remainder): the "
+                     "port updates in place"),
     "prefetch_depth": ((2, 0), "ROADMAP Queue 1, item 12 (pinned-memory "
                        "prefetch; the port's loader is synchronous)"),
     "update_sharding": ((False, None), "ROADMAP Queue 1, item 9 "

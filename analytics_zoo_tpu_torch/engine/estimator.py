@@ -38,9 +38,30 @@ streams metrics (``nn/metrics.py``) over batches in order, the last one
 partial. Runs on CUDA unless given ``device="cpu"`` (or a model that
 lives on the CPU); without CUDA and without a device it raises.
 
-Not ported yet (ROADMAP Queue 1): meshes and sharded updates, checkpoints
-and retry from them, TensorBoard summaries, chaos hooks, and validation
-during ``fit``.
+Fault tolerance is the JAX ``fit``'s (``engine/checkpoint.py``'s format,
+so each package resumes the other's checkpoints):
+
+- with ``TrainConfig(checkpoint_dir=...)`` the first ``fit`` resumes from
+  the newest checkpoint there (state, iteration and epoch); every epoch
+  ends with a durable save, and ``checkpoint_trigger`` (default
+  ``SeveralIteration(checkpoint_every_n_iters)``) saves mid-epoch through
+  the async writer (``async_checkpoint``);
+- a step that raises rolls back to the newest durable checkpoint (after
+  draining the writer) and re-runs the failed epoch from there, up to
+  ``retry_times`` times, with ``RetryPolicy``'s seeded backoff;
+- with ``graceful_shutdown`` a SIGTERM (main thread only) sets a flag that
+  the next step turns into ``_GracefulStop``, a BaseException the retry
+  cannot absorb: one final durable save, then ``SystemExit(143)``; the
+  previous handler is restored on every exit.
+
+``fit(validation_data=..., validation_metrics=...)`` evaluates after each
+epoch, and :meth:`set_tensorboard` writes the JAX package's TensorBoard
+scalars (``Loss``, ``Throughput``, ``GradNorm``, ``DataWaitMs``,
+``ComputeMs`` at log points and epoch ends; each validation metric).
+``chaos_point("estimator.step")`` marks every step (every block of the
+device-cached path).
+
+Not ported yet (ROADMAP Queue 1): meshes and sharded updates (item 9).
 """
 
 from __future__ import annotations
@@ -48,15 +69,22 @@ from __future__ import annotations
 import contextlib
 import inspect
 import logging
+import signal
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import bridge
 from ..common import prng
+from ..common.chaos import chaos_point
 from ..common.config import TrainConfig, check_ported
-from ..common.triggers import MaxEpoch, Trigger, TrainerState
+from ..common.resilience import ResilienceError, RetryPolicy
+from ..common.summary import TrainSummary, ValidationSummary
+from ..common.triggers import (MaxEpoch, SeveralIteration, Trigger,
+                               TrainerState)
 from ..data.featureset import FeatureSet, _tree_leaves, _tree_map
 from ..nn.losses import get_loss
 from ..nn.metrics import get_metric
@@ -64,10 +92,14 @@ from ..nn.module import cast_params, precision_policy, resolve_device
 from ..nn.optimizers import (apply_updates, get_optimizer, global_norm,
                              with_clipping)
 from ..parallel.update_sharding import with_master_weights
+from . import checkpoint as ckpt
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.estimator")
 
-_ROADMAP = "ROADMAP Queue 1 (Estimator remainder)"
+
+class _GracefulStop(BaseException):
+    """Raised at the next step after SIGTERM requested a clean exit; a
+    BaseException so the retry-from-checkpoint handler cannot absorb it."""
 
 
 def _as_featureset(data) -> FeatureSet:
@@ -119,6 +151,12 @@ class Estimator:
         # cache_on_device: the dataset on the card, keyed by its arrays
         self._device_data = None
         self._device_data_key = None
+        self.train_summary: Optional[TrainSummary] = None
+        self.val_summary: Optional[ValidationSummary] = None
+        # the at-most-one-in-flight async checkpoint writer (made at the
+        # first async save)
+        self._ckpt_writer: Optional[ckpt.CheckpointWriter] = None
+        self._sigterm = False
         self._rebuild_tx()
 
     def _rebuild_tx(self) -> "Estimator":
@@ -263,14 +301,12 @@ class Estimator:
         """Train until ``end_trigger`` (default ``MaxEpoch(epochs or
         config.max_epochs)``). ``data``: a FeatureSet or an (x, y) pair;
         ``batch_size`` is global. ``seed`` keys the training rng at the
-        first ``fit`` (the JAX ``PRNGKey(seed)`` split); the weights are
-        the model's own, drawn from its constructor's seed."""
+        first ``fit`` (the JAX ``PRNGKey(seed)`` split) and the retry
+        backoff's jitter; the weights are the model's own, drawn from its
+        constructor's seed, unless a checkpoint in ``checkpoint_dir``
+        resumes them. Validation, checkpoints, retry and the SIGTERM save
+        as the module docstring says."""
         cfg = check_ported(self.config)
-        if validation_data is not None or validation_metrics \
-                or checkpoint_trigger is not None:
-            raise NotImplementedError(
-                f"validation and checkpoint triggers during fit are not "
-                f"ported ({_ROADMAP}); call evaluate after fit instead")
         batch_size = batch_size or cfg.batch_size
         accum = max(1, int(cfg.grad_accum_steps))
         if batch_size % accum:
@@ -279,27 +315,193 @@ class Estimator:
         train_set = _as_featureset(data)
         end_trigger = end_trigger or MaxEpoch(
             epochs if epochs is not None else cfg.max_epochs)
+        if checkpoint_trigger is None and cfg.checkpoint_every_n_iters:
+            checkpoint_trigger = SeveralIteration(cfg.checkpoint_every_n_iters)
         if self.train_state is None:
             self._init_state(seed)
+            if cfg.checkpoint_dir:
+                latest = ckpt.latest_checkpoint(cfg.checkpoint_dir)
+                if latest:
+                    self._restore(latest)
+                    logger.info("resumed from %s (iter %d)", latest,
+                                self.trainer_state.iteration)
+        retry_policy = RetryPolicy(
+            max_attempts=cfg.retry_times + 1, base_delay_s=cfg.retry_backoff_s,
+            max_delay_s=cfg.retry_max_backoff_s,
+            deadline_s=cfg.retry_deadline_s, jitter=0.1, seed=seed)
+        tracker = retry_policy.tracker()
+        self._sigterm = False
+        prev_handler = None
+        handler_installed = (cfg.graceful_shutdown
+                             and threading.current_thread()
+                             is threading.main_thread())
+        if handler_installed:
+            prev_handler = signal.signal(
+                signal.SIGTERM, lambda *_: setattr(self, "_sigterm", True))
         # training mode for the steps, as JAX's apply(training=True); a
         # layer whose training mode is not ported (BatchNormalization)
         # raises instead of silently running its inference form
         self.model.train()
         try:
             while not end_trigger(self.trainer_state):
-                if cfg.cache_on_device:
-                    self._run_epoch_cached(train_set, batch_size)
-                else:
-                    self._run_epoch(train_set, batch_size)
+                try:
+                    if cfg.cache_on_device:
+                        self._run_epoch_cached(train_set, batch_size,
+                                               checkpoint_trigger)
+                    else:
+                        self._run_epoch(train_set, batch_size,
+                                        checkpoint_trigger)
+                except (KeyboardInterrupt, ValueError, TypeError):
+                    raise
+                except Exception as e:          # retry from checkpoint
+                    if not cfg.checkpoint_dir:
+                        raise
+                    # never roll back onto a write still in flight; a failed
+                    # one is forfeited for the last durable snapshot
+                    self._drain_checkpoints(raise_errors=False)
+                    latest = ckpt.latest_checkpoint(cfg.checkpoint_dir)
+                    if latest is None:
+                        raise
+                    try:
+                        delay = tracker.record_failure(e)
+                    except ResilienceError:
+                        raise e
+                    logger.warning("step failed (%s); retry %d/%d from %s "
+                                   "in %.2fs", e, tracker.attempts,
+                                   cfg.retry_times, latest, delay)
+                    if delay > 0:
+                        time.sleep(delay)
+                    self._restore(latest)
+                    continue
+                if validation_data is not None and validation_metrics:
+                    self._validate(validation_data, batch_size,
+                                   validation_metrics)
+            # fit returning means the newest checkpoint is durable
+            self._drain_checkpoints()
+        except _GracefulStop:
+            self._sync()
+            if cfg.checkpoint_dir:
+                self._save(cfg.checkpoint_dir, durable=True,
+                           raise_drain_errors=False)
+                logger.warning("SIGTERM: final checkpoint saved at iter %d; "
+                               "exiting", self.trainer_state.iteration)
+            raise SystemExit(143)
         finally:
+            if handler_installed:
+                signal.signal(signal.SIGTERM, prev_handler)
+            self._drain_checkpoints(raise_errors=False)
             self.model.eval()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         return self
 
-    def _log_point(self, loss, gnorm, win_t0: float, win_steps: int,
-                   win_data: float) -> None:
-        """One history record: the loss and gradient norm (this syncs),
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _validate(self, data, batch_size: int, metrics) -> Dict[str, float]:
+        """Evaluate after an epoch, in inference mode; the first metric is
+        the score triggers read."""
+        self.model.eval()
+        try:
+            results = self.evaluate(data, batch_size=batch_size,
+                                    metrics=metrics)
+        finally:
+            self.model.train()
+        ts = self.trainer_state
+        ts.last_score = next(iter(results.values()))
+        if self.val_summary:
+            self.val_summary.add_scalars(ts.iteration, results)
+        logger.info("epoch %d validation: %s", ts.epoch, results)
+        return results
+
+    def set_tensorboard(self, log_dir: str, app_name: str) -> "Estimator":
+        """Train and validation summaries under ``log_dir/app_name``."""
+        self.train_summary = TrainSummary(log_dir, app_name)
+        self.val_summary = ValidationSummary(log_dir, app_name)
+        return self
+
+    # ------------------------------------------------------------ checkpoints
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """The train state as the JAX package's tree over the live tensors
+        (``bridge.train_state_to_jax``): what a checkpoint holds."""
+        if self.train_state is None:
+            self._init_state()
+        return bridge.train_state_to_jax(self.model, self.train_state)
+
+    def _restore(self, path: str) -> Dict[str, Any]:
+        """Load a checkpoint (written by either package) into the model and
+        the optimizer state, and its iteration and epoch into the loop."""
+        restored, meta = ckpt.load_checkpoint(path, self.checkpoint_state())
+        self.train_state = bridge.train_state_from_jax(
+            self.model, restored, self.train_state)
+        self.trainer_state.iteration = meta["iteration"]
+        self.trainer_state.epoch = meta["epoch"]
+        return meta
+
+    def _save(self, directory: str, durable: bool = False,
+              raise_drain_errors: bool = True) -> str:
+        """A trigger save (``durable=False``) returns after the snapshot and
+        writes on the writer thread when ``async_checkpoint``; a durable
+        save (epoch ends, SIGTERM) drains the writer and writes before it
+        returns. ``raise_drain_errors=False`` forfeits an earlier failed
+        async write instead of raising it."""
+        writer = None
+        if self.config.async_checkpoint and not durable:
+            if self._ckpt_writer is None:
+                self._ckpt_writer = ckpt.CheckpointWriter()
+            writer = self._ckpt_writer
+        else:
+            self._drain_checkpoints(raise_errors=raise_drain_errors)
+        return ckpt.save_checkpoint(directory, self.checkpoint_state(),
+                                    iteration=self.trainer_state.iteration,
+                                    epoch=self.trainer_state.epoch,
+                                    writer=writer)
+
+    def _drain_checkpoints(self, raise_errors: bool = True) -> None:
+        """Block until the async write in flight is durable; with
+        ``raise_errors=False`` a failed write is logged and forfeited."""
+        w = self._ckpt_writer
+        if w is None:
+            return
+        try:
+            w.drain()
+        except BaseException:
+            if raise_errors:
+                raise
+            logger.exception("async checkpoint write failed; continuing "
+                             "with the last durable snapshot")
+
+    def _check_interrupt(self) -> None:
+        """SIGTERM lands between steps, never inside one."""
+        if self._sigterm:
+            raise _GracefulStop()
+
+    @staticmethod
+    def _trigger_crossed(trigger: Trigger, ts: TrainerState,
+                         block: int) -> bool:
+        """Block-granular trigger test: after a block of ``block`` steps an
+        interval trigger fires if the block crossed one of its multiples."""
+        if isinstance(trigger, SeveralIteration):
+            return (ts.iteration // trigger.interval
+                    > (ts.iteration - block) // trigger.interval)
+        return trigger(ts)
+
+    def _maybe_save(self, trigger: Optional[Trigger],
+                    block: Optional[int] = None) -> None:
+        """A mid-epoch save where ``trigger`` fires (after a block of the
+        cached path: where it was crossed)."""
+        d = self.config.checkpoint_dir
+        if trigger is None or not d:
+            return
+        ts = self.trainer_state
+        if (trigger(ts) if block is None
+                else self._trigger_crossed(trigger, ts, block)):
+            self._save(d)
+
+    def _log_point(self, loss, gnorm, t0: float, seen: int, win_t0: float,
+                   win_steps: int, win_data: float) -> None:
+        """One history record (and train-summary event): the loss and
+        gradient norm (this syncs), the epoch's records per second so far,
         and the window's per-step data and compute milliseconds."""
         ts = self.trainer_state
         loss_val, gnorm_val = float(loss), float(gnorm)
@@ -311,23 +513,43 @@ class Estimator:
                "compute_ms": max(0.0, now - win_t0 - win_data)
                / win_steps * 1e3}
         self.history.append(rec)
+        if self.train_summary:
+            self.train_summary.add_scalars(ts.iteration, {
+                "Loss": loss_val, "Throughput": seen / max(now - t0, 1e-9),
+                "GradNorm": gnorm_val, "DataWaitMs": rec["data_ms"],
+                "ComputeMs": rec["compute_ms"]})
         logger.info("epoch %d iter %d loss %.4f gnorm %.3f (data %.2fms "
                     "compute %.2fms /step)", ts.epoch, ts.iteration,
                     loss_val, gnorm_val, rec["data_ms"], rec["compute_ms"])
 
-    def _finish_epoch(self, loss, seen: int) -> None:
+    def _finish_epoch(self, t0: float, seen: int, loss, batch_size: int,
+                      data_wait_s: float = 0.0) -> None:
+        """The epoch's summary event, its counters, then a durable save."""
         ts = self.trainer_state
         if loss is not None:
             ts.last_loss = loss                # lazy: read on demand
+            if self.train_summary:
+                steps = max(1, seen // batch_size)
+                dt = time.perf_counter() - t0
+                self.train_summary.add_scalars(ts.iteration, {
+                    "Loss": ts.last_loss, "Throughput": seen / max(dt, 1e-9),
+                    "DataWaitMs": data_wait_s / steps * 1e3,
+                    "ComputeMs": max(0.0, dt - data_wait_s) / steps * 1e3})
         ts.epoch += 1
         ts.records_processed += seen
+        if self.config.checkpoint_dir:
+            self._save(self.config.checkpoint_dir, durable=True)
+        if self.train_summary:
+            self.train_summary.flush()
 
-    def _run_epoch(self, train_set: FeatureSet, batch_size: int) -> None:
+    def _run_epoch(self, train_set: FeatureSet, batch_size: int,
+                   checkpoint_trigger: Optional[Trigger] = None) -> None:
         cfg = self.config
         ts = self.trainer_state
         seen = 0
         loss = None
-        win_t0, win_steps, win_data = time.perf_counter(), 0, 0.0
+        t0 = time.perf_counter()
+        win_t0, win_steps, win_data, epoch_data = t0, 0, 0.0, 0.0
         it = train_set.batches(batch_size, epoch=ts.epoch,
                                shuffle=cfg.shuffle)
         while True:
@@ -336,16 +558,22 @@ class Estimator:
                 batch = self._to_device(next(it))
             except StopIteration:
                 break
-            win_data += time.perf_counter() - td
+            dw = time.perf_counter() - td
+            win_data += dw
+            epoch_data += dw
+            self._check_interrupt()
+            chaos_point("estimator.step")
             loss, gnorm = self._step(batch)
             self.last_grad_norm = gnorm
             ts.iteration += 1
             win_steps += 1
             seen += batch_size
             if ts.iteration % cfg.log_every_n_steps == 0:
-                self._log_point(loss, gnorm, win_t0, win_steps, win_data)
+                self._log_point(loss, gnorm, t0, seen, win_t0, win_steps,
+                                win_data)
                 win_t0, win_steps, win_data = time.perf_counter(), 0, 0.0
-        self._finish_epoch(loss, seen)
+            self._maybe_save(checkpoint_trigger)
+        self._finish_epoch(t0, seen, loss, batch_size, epoch_data)
 
     def _cache_dataset(self, train_set: FeatureSet) -> None:
         """Put the dataset on the card once, keyed on its arrays (strong
@@ -368,15 +596,18 @@ class Estimator:
             prng.PRNGKey(train_set.seed + epoch * 1_000_003), n,
             device=self.device)
 
-    def _run_epoch_cached(self, train_set: FeatureSet,
-                          batch_size: int) -> None:
+    def _run_epoch_cached(self, train_set: FeatureSet, batch_size: int,
+                          checkpoint_trigger: Optional[Trigger] = None
+                          ) -> None:
         """An epoch over the dataset on the card
         (``TrainConfig(cache_on_device=True)``): blocks of
         ``scan_block_steps`` steps, each batch gathered on the card by its
-        indices; log points at block granularity (where a block crosses a
-        multiple of ``log_every_n_steps`` counted from the epoch's start,
-        as the JAX scan does); the steps that do not fill a block after
-        the last block."""
+        indices; log points, interrupts, chaos points and checkpoint
+        triggers at block granularity (a log point where a block crosses a
+        multiple of ``log_every_n_steps`` counted from the epoch's start, a
+        save where it crosses a multiple of an interval trigger's, as the
+        JAX scan does); the steps that do not fill a block after the last
+        block, one at a time."""
         cfg = self.config
         ts = self.trainer_state
         self._cache_dataset(train_set)
@@ -387,7 +618,8 @@ class Estimator:
         n_blocks = n_steps // block
         seen = 0
         loss = None
-        win_t0, win_steps = time.perf_counter(), 0
+        t0 = time.perf_counter()
+        win_t0, win_steps = t0, 0
         every = cfg.log_every_n_steps
 
         def take(s):
@@ -395,6 +627,8 @@ class Estimator:
             return _tree_map(lambda a: a.index_select(0, sel), data)
 
         for b in range(n_blocks):
+            self._check_interrupt()
+            chaos_point("estimator.step")
             for s in range(b * block, (b + 1) * block):
                 loss, gnorm = self._step(take(s))
             self.last_grad_norm = gnorm
@@ -403,13 +637,18 @@ class Estimator:
             seen += block * batch_size
             if every and (b + 1) * block >= every \
                     and ((b + 1) * block) // every > (b * block) // every:
-                self._log_point(loss, gnorm, win_t0, win_steps, 0.0)
+                self._log_point(loss, gnorm, t0, seen, win_t0, win_steps,
+                                0.0)
                 win_t0, win_steps = time.perf_counter(), 0
+            self._maybe_save(checkpoint_trigger, block)
         for s in range(n_blocks * block, n_steps):
+            self._check_interrupt()
+            chaos_point("estimator.step")
             loss, self.last_grad_norm = self._step(take(s))
             ts.iteration += 1
             seen += batch_size
-        self._finish_epoch(loss, seen)
+            self._maybe_save(checkpoint_trigger)
+        self._finish_epoch(t0, seen, loss, batch_size)
 
     # --------------------------------------------------------------- evaluate
     def evaluate(self, data, batch_size: int = 256,

@@ -18,10 +18,13 @@ It packs the loaded module in place (the port's modules hold their
 weights, where the JAX package packs a separate params tree): load a
 second module to keep a float one.
 
-Not ported: the model loaders other than ``load`` (``load_zoo``,
-``load_tf``, ``load_fn``), the weight-only int8 path for modules without
-int8 layers, hot-swap and row deltas, the graph checks, and the
-InferenceSummary; each raises ``NotImplementedError`` naming ROADMAP.
+``load_zoo`` serves a weight bundle (``models/common/zoo_model.py``,
+written by either package) as ``load`` serves a module.
+
+Not ported: the model loaders ``load_tf`` and ``load_fn``, the weight-only
+int8 path for modules without int8 layers, hot-swap and row deltas, the
+graph checks, and the InferenceSummary; each raises
+``NotImplementedError`` naming ROADMAP.
 """
 
 from __future__ import annotations
@@ -157,8 +160,17 @@ class InferenceModel:
         self.packed_slots = []
         return self
 
-    def load_zoo(self, path: str, model_class=None):
-        raise _not_ported("load_zoo (model bundles)", 7)
+    def load_zoo(self, path: str, model_class=None) -> "InferenceModel":
+        """Serve the model bundle at ``path``: the architecture rebuilt
+        from its config (``model_class(device=...)`` when given, else the
+        registered class it names) on this model's device, then its
+        weights."""
+        from ..models.common.zoo_model import load_model_bundle
+
+        model, _cfg = load_model_bundle(
+            path, device=self.device, model=None if model_class is None
+            else model_class(device=self.device))
+        return self.load(model)
 
     def load_tf(self, path: str, *args, **kwargs):
         raise _not_ported("load_tf (the TF importer)", 11)

@@ -13,7 +13,8 @@ embeddings`` is ``params/0_fusedpairembedding/embeddings``, and a
 persistent buffer (BatchNormalization's moving statistics, a frozen
 table) is under ``state/``. Loading fails loudly on any missing or
 unexpected key and on any shape that differs; values are cast to the
-module's dtypes. bf16 leaves cross as their 16-bit patterns.
+module's dtypes. bf16 leaves cross as their 16-bit patterns (stored as
+2-byte voids, as numpy writes JAX's bfloat16 arrays).
 """
 
 from __future__ import annotations
@@ -46,10 +47,7 @@ def _leaves(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes
-
-        return t.view(torch.int16).numpy().view(np.uint16).view(
-            ml_dtypes.bfloat16)
+        return t.view(torch.int16).numpy().view(np.dtype("V2")).copy()
     return t.numpy().copy()
 
 

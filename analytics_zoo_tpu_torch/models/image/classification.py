@@ -1,12 +1,13 @@
 """ImageClassifier (port of ``analytics_zoo_tpu/models/image/
 classification.py``): a named backbone, its label map and top-n, with
-``predict`` over arrays.
+``predict`` over arrays, and ``save_model``/``load_model`` as a weight
+bundle in the JAX package's format (its config holds the model name,
+input shape, class count and label map).
 
 Not ported: training (``compile``/``fit``: BatchNormalization's training
-mode), the ``ImageSet`` paths (``predict_image_set``, ``fit_image_set``,
-the ImagenetConfig preprocessing chain) and the model bundle
-(``save_model``/``load_model``), which need ``data/image.py`` and the
-checkpoint reader (ROADMAP Queue 1, items 7 and 11).
+mode) and the ``ImageSet`` paths (``predict_image_set``, ``fit_image_set``,
+the ImagenetConfig preprocessing chain), which need ``data/image.py``
+(ROADMAP Queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -16,9 +17,10 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..common.zoo_model import load_weights, save_model_bundle
 from .backbones import build_backbone
 
-_ROADMAP = "ROADMAP Queue 1, items 7 and 11"
+_ROADMAP = "ROADMAP Queue 1, item 11"
 
 
 class ImageClassifier:
@@ -65,11 +67,26 @@ class ImageClassifier:
         raise NotImplementedError(f"ImageSet training ({_ROADMAP})")
 
     def save_model(self, path: str):
-        raise NotImplementedError(f"model bundles ({_ROADMAP})")
+        save_model_bundle(path, self.model, config={
+            "model_name": self.model_name,
+            "input_shape": list(self.input_shape),
+            "num_classes": self.num_classes, "label_map": self.label_map})
 
     @classmethod
-    def load_model(cls, path: str) -> "ImageClassifier":
-        raise NotImplementedError(f"model bundles ({_ROADMAP})")
+    def load_model(cls, path: str, *, device=None) -> "ImageClassifier":
+        """Rebuild the classifier a bundle describes (on ``device``, CUDA
+        unless given) and load its weights."""
+        import json
+        import os
+
+        with open(os.path.join(path, "config.json")) as f:
+            config = json.load(f)["config"]
+        clf = cls(model_name=config["model_name"],
+                  input_shape=tuple(config["input_shape"]),
+                  num_classes=config["num_classes"],
+                  label_map=config.get("label_map"), device=device)
+        load_weights(path, clf.model)
+        return clf
 
 
 __all__ = ["ImageClassifier"]

@@ -24,25 +24,31 @@ out-projection+MLP segment of each block separately and keeps the flash
 call between them, whose Function holds its own ``(q, k, v, out, lse)`` —
 K1 never runs again in backward (the guarantee of the JAX
 ``FLASH_REMAT_POLICY``; unlike it, q/k/v stay saved rather than being
-recomputed from the block input). ``"dots"`` is not ported.
+recomputed from the block input). ``"dots"`` is ``"flash"`` with the
+outputs of the plain matmuls (``aten.mm``/``addmm``: the projections and
+the MLP, the JAX ``dots_with_no_batch_dims_saveable``) saved through
+``torch.utils.checkpoint``'s selective policy, so backward recomputes
+only the layer norms, activations and adds; K1 never runs again either.
 
 ``prefill_chunk`` looks its padding rows' positions up at most at the
 last row of the position table: the JAX package's lookup fills NaN past
 it, which reaches the chunk's valid rows through the scratch page (0·NaN);
 the valid rows, all below ``max_seq_len <= seq_len``, are unchanged.
 
-Not ported yet: remat ``"dots"`` and ``PipelinedTransformerLM`` (ROADMAP
-Queue 1).
+Not ported yet: ``PipelinedTransformerLM`` (ROADMAP Queue 1, item 9).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..nn.layers.attention import TransformerLayer
 from ..nn.layers.normalization import LayerNormalization
@@ -53,20 +59,28 @@ from ..ops.kv_cache import (KVCacheConfig, _host_list, init_cache,
                             prefill_write, sample_tokens)
 from ..ops.speculative import verify_draft_tokens
 
-_REMAT_MODES = (False, "flash", "full")
+_REMAT_MODES = (False, "flash", "full", "dots")
+
+#: what remat "dots" saves: the outputs of matmuls with no batch dims
+_DOT_OPS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
-def _checkpointed(fn, *args):
+def _checkpointed(fn, *args, save_dots: bool = False):
     """``torch.utils.checkpoint`` of ``fn`` with the compute dtype of this
-    forward pinned for its recompute in backward."""
+    forward pinned for its recompute in backward; ``save_dots``: keep the
+    plain matmuls' outputs instead of recomputing them."""
     dt = compute_dtype()
 
     def seg(*a):
         with precision_policy(compute_dtype=dt):
             return fn(*a)
 
+    kw = {}
+    if save_dots:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _DOT_OPS)
     return checkpoint(seg, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+                      preserve_rng_state=False, **kw)
 
 
 class TransformerLM(KerasNet, nn.Module):
@@ -75,7 +89,7 @@ class TransformerLM(KerasNet, nn.Module):
     device is given. ``seed`` draws the initial weights (normal·0.02
     embeddings, glorot-uniform kernels, zero biases) from a CPU generator,
     so a seed gives the same weights on every device. ``remat``: False,
-    True/"flash" or "full" (module docstring)."""
+    True/"flash", "full" or "dots" (module docstring)."""
 
     def __init__(self, vocab: int, hidden_size: int = 256, n_block: int = 4,
                  n_head: int = 8, seq_len: int = 512,
@@ -84,10 +98,6 @@ class TransformerLM(KerasNet, nn.Module):
                  device=None, seed: int = 0):
         super().__init__()
         remat = "flash" if remat is True else remat
-        if remat == "dots":
-            raise NotImplementedError(
-                "remat='dots' (the flash policy plus saved matmul outputs) "
-                "is not ported (ROADMAP Queue 1); use 'flash' or 'full'")
         if remat not in _REMAT_MODES:
             raise ValueError(f"unknown remat mode {remat!r}; known: False, "
                              f"True/'flash', 'full', 'dots'")
@@ -130,11 +140,13 @@ class TransformerLM(KerasNet, nn.Module):
             return blk.apply(h)
         if self.remat == "full":
             return _checkpointed(blk.apply, h)
-        # "flash": the attention call sits between two checkpointed
+        # "flash"/"dots": the attention call sits between two checkpointed
         # segments, so its saved (q, k, v, out, lse) survive and backward
         # goes straight to K3 + K4
-        qkv = _checkpointed(blk.attn_qkv, h)
-        return _checkpointed(blk.attn_tail, h, blk.attend(qkv))
+        dots = self.remat == "dots"
+        qkv = _checkpointed(blk.attn_qkv, h, save_dots=dots)
+        return _checkpointed(blk.attn_tail, h, blk.attend(qkv),
+                             save_dots=dots)
 
     def apply_features(self, x) -> torch.Tensor:
         """Hidden states before the LM head: (B, T, hidden). Pair with

@@ -5,13 +5,14 @@
 ``evaluate`` / ``predict`` over the port's
 :class:`~..engine.estimator.Estimator`, and weight bundles in the JAX
 package's format (``save_model`` / ``load_weights``,
-``models/common/zoo_model.py``). Put it before ``nn.Module`` in the
-bases: its ``compile`` (the Keras one) shadows ``nn.Module.compile``.
+``models/common/zoo_model.py``), with the JAX package's sugar for
+checkpoints (``set_checkpoint``), TensorBoard summaries
+(``set_tensorboard``, ``get_train_summary``, ``get_validation_summary``)
+and validation after each epoch of ``fit`` (``validation_data``, scored
+by the compiled metrics). Put it before ``nn.Module`` in the bases: its
+``compile`` (the Keras one) shadows ``nn.Module.compile``.
 :class:`Sequential` and :class:`Model` are the graph containers of
 ``nn/graph.py`` with that API.
-
-Not ported yet: validation during ``fit``, TensorBoard and checkpoint
-sugar (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -61,22 +62,49 @@ class KerasNet:
                                                          max_value))
         return self
 
+    def set_tensorboard(self, log_dir: str, app_name: str):
+        """Train and validation summaries under ``log_dir/app_name``."""
+        self._require_compiled()
+        self.estimator.set_tensorboard(log_dir, app_name)
+        return self
+
+    def set_checkpoint(self, path: str, over_write: bool = True):
+        """Checkpoint into ``path`` at every epoch end (and resume from it
+        at the first ``fit``)."""
+        self._require_compiled()
+        self.estimator.config.checkpoint_dir = path
+        return self
+
+    def get_train_summary(self, tag: str):
+        """``[(iteration, value), ...]`` of a train-summary scalar."""
+        self._require_compiled()
+        if self.estimator.train_summary is None:
+            return []
+        return self.estimator.train_summary.read_scalar(tag)
+
+    def get_validation_summary(self, tag: str):
+        self._require_compiled()
+        if self.estimator.val_summary is None:
+            return []
+        return self.estimator.val_summary.read_scalar(tag)
+
     def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 1,
             validation_data=None, end_trigger: Optional[Trigger] = None,
             seed: int = 0):
         """Train on a FeatureSet, or on ``x`` (an array or a list of
-        arrays) and ``y``."""
-        from ..data.featureset import FeatureSet
-
+        arrays) and ``y``; ``validation_data`` (a FeatureSet or an
+        ``(x, y)`` pair) is scored by the compiled metrics after each
+        epoch."""
         self._require_compiled()
-        if isinstance(x, FeatureSet):
-            data = x
-        else:
-            xs = tuple(x) if isinstance(x, (list, tuple)) else x
-            data = FeatureSet.from_numpy(xs, y)
+        data = _featureset(x, y)
+        val = None
+        if validation_data is not None:
+            val = _featureset(*((validation_data, None) if not isinstance(
+                validation_data, (tuple, list)) else validation_data))
         self.estimator.fit(data, batch_size=batch_size, epochs=nb_epoch,
-                           end_trigger=end_trigger,
-                           validation_data=validation_data, seed=seed)
+                           end_trigger=end_trigger, validation_data=val,
+                           validation_metrics=getattr(self, "_metrics", ()),
+                           seed=seed)
         return self
 
     def evaluate(self, x, y=None, batch_size: int = 32,
@@ -84,14 +112,8 @@ class KerasNet:
         """Metrics over ``x`` (a FeatureSet, or arrays with ``y``): those
         given, else the compiled ones, else ``("accuracy",)``; keyed by
         metric name (``"sparse_categorical_accuracy"``, ...)."""
-        from ..data.featureset import FeatureSet
-
         self._require_compiled()
-        if isinstance(x, FeatureSet):
-            data = x
-        else:
-            xs = tuple(x) if isinstance(x, (list, tuple)) else x
-            data = FeatureSet.from_numpy(xs, y)
+        data = _featureset(x, y)
         if metrics is None:
             metrics = getattr(self, "_metrics", None) or ("accuracy",)
         return self.estimator.evaluate(data, batch_size=batch_size,
@@ -127,6 +149,17 @@ class KerasNet:
         if est is not None:
             est.reset_optimizer()
         return self
+
+
+def _featureset(x, y):
+    """A FeatureSet as given, or one over ``x`` (an array or a list of
+    arrays) and ``y``."""
+    from ..data.featureset import FeatureSet
+
+    if isinstance(x, FeatureSet):
+        return x
+    return FeatureSet.from_numpy(tuple(x) if isinstance(x, (list, tuple))
+                                 else x, y)
 
 
 class Sequential(KerasNet, SequentialModule):

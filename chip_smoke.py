@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, int8 inference and
-NCF recommendation paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, int8 inference, NCF
+recommendation and checkpoint/resume paths on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel checks only
@@ -159,6 +159,30 @@ Phases, each fatal on failure (no result line is printed then):
    same recipe, both and the card's final HR@10 above the 0.10 random
    floor; ``recommend_for_user`` on 20 users in (-prediction,
    -probability) order.
+13. checkpoint and resume (the eleventh slice), in a temp directory whose
+   free space is checked first (5 x the ~3.06 GB checkpoint) and which is
+   deleted at the end: (a) phase 7's training with ``checkpoint_dir`` and
+   ``checkpoint_every_n_iters=3``: leg 1 runs 2 epochs (an async trigger
+   save at iteration 3, durable epoch-end saves at 2 and 4), equal to
+   phase 7's steps 1-4; a model from seed 1 resumes to epoch 4: its
+   losses and gradient norms equal phase 7's steps 5-8 bit for bit, the
+   state it loaded equals leg 1's final state bit for bit, K1 = K3 = K4 =
+   12 x 8 (counts set to 0 just before); prints the checkpoint's GB, each
+   save's cost to the loop, the snapshot, write and load+verify ms and
+   MB/s. (b) phase 12's explicit recipe, 2 epochs with a trigger every 61
+   iterations (each 121-step block crosses one: an async save, then the
+   epoch's durable one), then a model from seed 1 resumed to epoch 4:
+   final loss, HR@10 and NDCG@10 equal phase 12's bit for bit. (c) a
+   child process at phase 11's example width, one step an epoch, slowed
+   0.2 s a step by a chaos delay, SIGTERM'd after its first checkpoint:
+   exit 143 with a final checkpoint; a resume 3 epochs on equals an
+   uninterrupted run bit for bit. (d) at that width, 4 steps an epoch,
+   checkpoints every 3: a step raising twice at iteration 7 ends at
+   iteration 14, epoch 3 (``tests/test_fault_injection.py``'s counts);
+   twice at iteration 8 ends on the uninterrupted run's losses bit for
+   bit. (e) phase 7's first step under remat "dots" and "flash": K1 = K3
+   = K4 = 12 x 2 each, loss and gradient norm the same bits as phase
+   7's; the peak memory of each.
 
 Phase 3 also holds the int8 kernels to their plain versions bit for bit
 (``torch.equal``), f32 and bf16: the quantize pass both launch (codes and
@@ -178,7 +202,8 @@ the 20 shapes at batch 32, times its launches a predict, summed
 predict's K6 total beside).
 
 The kernels line's ``launches`` are each kernel's count on its path (K1's
-on training, with ``launches_by_path`` for serving and training; K2's on
+on training, with ``launches_by_path`` for serving and training, and
+K1's, K3's and K4's for phase 13's resumed leg and remat "dots"; K2's on
 phase 5's serving, with ``launches_by_path`` for serving and phase 5b's
 spec, chunked, prefix and all arms; the
 sampling kernel's on serving; K5's and K6's on the int8 serving burst,
@@ -193,6 +218,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1846,6 +1872,27 @@ def phase_train_parity(torch):
                              "with the cpu")
 
 
+def train_model(TransformerLM, lm_loss, TrainConfig, seed: int = 0,
+                remat: str = "flash", **cfg):
+    """Phase 7's model, compiled with its TrainConfig (``cfg`` adds
+    fields): bf16 with f32 masters, Adam, clipping 1.0, accumulation 2."""
+    model = TransformerLM(vocab=VOCAB, hidden_size=HIDDEN, n_block=N_BLOCK,
+                          n_head=N_HEAD, seq_len=SEQ_LEN,
+                          attn_strategy="flash", remat=remat,
+                          device="cuda", seed=seed)
+    model.compile(optimizer="adam", loss=lm_loss, config=TrainConfig(
+        compute_dtype="bfloat16", gradient_clip_norm=1.0,
+        grad_accum_steps=GRAD_ACCUM, shuffle=False, log_every_n_steps=1,
+        **cfg))
+    return model
+
+
+def train_ids():
+    """Phase 7's seeded token ids: TRAIN_SEQS sequences of SEQ_LEN + 1."""
+    return np.random.default_rng(8).integers(
+        0, VOCAB, size=(TRAIN_SEQS, SEQ_LEN + 1)).astype(np.int32)
+
+
 def phase_training(torch, smi, profile: bool = False):
     """The slice's main path: the full-width model trained through
     ``compile``/``fit`` in bf16 with f32 masters, remat="flash", gradient
@@ -1859,15 +1906,8 @@ def phase_training(torch, smi, profile: bool = False):
     from analytics_zoo_tpu_torch.ops import flash_attention as tfa
 
     set_policy(compute_dtype="float32")
-    model = TransformerLM(vocab=VOCAB, hidden_size=HIDDEN, n_block=N_BLOCK,
-                          n_head=N_HEAD, seq_len=SEQ_LEN,
-                          attn_strategy="flash", remat="flash",
-                          device="cuda", seed=0)
-    model.compile(optimizer="adam", loss=lm_loss, config=TrainConfig(
-        compute_dtype="bfloat16", gradient_clip_norm=1.0,
-        grad_accum_steps=GRAD_ACCUM, shuffle=False, log_every_n_steps=1))
-    ids = np.random.default_rng(8).integers(
-        0, VOCAB, size=(TRAIN_SEQS, SEQ_LEN + 1)).astype(np.int32)
+    model = train_model(TransformerLM, lm_loss, TrainConfig, seed=0)
+    ids = train_ids()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tfa.flash_attention_fwd.launches = 0
@@ -1908,7 +1948,7 @@ def phase_training(torch, smi, profile: bool = False):
                              "once per layer and micro-step")
     if profile:
         profile_training_step(torch, model, ids, smi)
-    return k1, k3, k4
+    return k1, k3, k4, hist
 
 
 def time_sampling(torch):
@@ -2716,7 +2756,406 @@ def phase_ncf(torch, smi, profile: bool = False):
         torch.cuda.empty_cache()
     wall["phase"] = time.perf_counter() - t0
     log(f"[ncf] phase wall s: {json.dumps(wall)}")
-    return out
+    return out, (x, y, ev)
+
+# --------------------------------------------------------- checkpoint slice
+
+def _bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype and np.array_equal(
+        np.ascontiguousarray(a).reshape(-1).view(np.uint8),
+        np.ascontiguousarray(b).reshape(-1).view(np.uint8)))
+
+
+def _launch_counts(tfa):
+    return (tfa.flash_attention_fwd.launches,
+            tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches)
+
+
+def _zero_launches(tfa) -> None:
+    for f in (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+              tfa.flash_attention_bwd_dkv):
+        f.launches = 0
+
+
+def _timed_saves(est, record) -> None:
+    """Wrap the Estimator's ``_save``: what each save cost the loop."""
+    save = est._save
+
+    def timed(directory, durable=False, **kw):
+        t0 = time.perf_counter()
+        out = save(directory, durable=durable, **kw)
+        record.append({"iteration": est.trainer_state.iteration,
+                       "durable": durable,
+                       "loop_ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    est._save = timed
+
+
+def ckpt_lm_resume(torch, smi, base_hist, tmp):
+    """13a: phase 7's training checkpointed every 3 iterations; leg 1 runs
+    its first 2 epochs (an async trigger save at iteration 3, durable
+    epoch-end saves at 2 and 4), then a model from another seed resumes
+    from the directory to epoch 4. Its 4 steps' losses and gradient norms
+    equal phase 7's steps 5-8 bit for bit, the state it loaded equals leg
+    1's final state bit for bit, and K1 = K3 = K4 = 12 x its 8
+    micro-steps."""
+    import shutil
+
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.engine import checkpoint as tck
+    from analytics_zoo_tpu_torch.models.transformer import (TransformerLM,
+                                                            lm_loss)
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    set_policy(compute_dtype="float32")
+    d = os.path.join(tmp, "lm")
+    ids = train_ids()
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    def model(seed):
+        return train_model(TransformerLM, lm_loss, TrainConfig, seed=seed,
+                           checkpoint_dir=d, checkpoint_every_n_iters=3)
+
+    m1 = model(0)
+    n_params = sum(p.numel() for p in m1.parameters())
+    est_bytes = n_params * (2 + 3 * 4)      # bf16 params; masters, mu, nu
+    free = shutil.disk_usage(tmp).free
+    log(f"[ckpt] {n_params} parameters: a checkpoint of ~{est_bytes / 1e9:.2f}"
+        f" GB; {free / 1e9:.1f} GB free under {tmp}")
+    if free < 5 * est_bytes:
+        raise AssertionError(f"{tmp} has {free / 1e9:.1f} GB free; phase 13 "
+                             f"needs {5 * est_bytes / 1e9:.1f} GB")
+    saves = []
+    _timed_saves(m1.estimator, saves)
+    for k in tck.timings.values():
+        k.clear()
+    t0 = time.perf_counter()
+    m1.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=2)
+    leg1_s = time.perf_counter() - t0
+    writes = list(tck.timings["write"])
+    snaps = list(tck.timings["snapshot"])
+    leg1 = [(h["loss"], h["grad_norm"]) for h in m1.estimator.history]
+    base = [(h["loss"], h["grad_norm"]) for h in base_hist]
+    final = tck.snapshot_state(m1.estimator.checkpoint_state()).wait()
+    latest = tck.latest_checkpoint(d)
+    manifest = tck.read_manifest(latest)
+    names = sorted(os.listdir(d))
+    del m1
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in names:             # only the newest is needed from here on
+        if os.path.join(d, name) != latest:
+            shutil.rmtree(os.path.join(d, name))
+
+    m2 = model(1)
+    restore, loaded = m2.estimator._restore, {}
+
+    def restore_and_compare(path):
+        t = time.perf_counter()
+        meta = restore(path)
+        torch.cuda.synchronize()
+        loaded["s"] = time.perf_counter() - t
+        got = tck.snapshot_state(m2.estimator.checkpoint_state()).wait()
+        loaded["same"] = len(got) == len(final) and all(
+            _bits_equal(a, b) for a, b in zip(got, final))
+        return meta
+
+    m2.estimator._restore = restore_and_compare
+    saves2 = []
+    _timed_saves(m2.estimator, saves2)
+    _zero_launches(tfa)
+    t0 = time.perf_counter()
+    m2.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=TRAIN_EPOCHS)
+    leg2_s = time.perf_counter() - t0
+    k1, k3, k4 = _launch_counts(tfa)
+    leg2 = [(h["loss"], h["grad_norm"]) for h in m2.estimator.history]
+    micro = len(leg2) * GRAD_ACCUM
+    gb = manifest["state_bytes"] / 1e9
+    res = {"checkpoint_gb": gb, "n_leaves": manifest["n_leaves"],
+           "leg1_saves": saves, "leg2_saves": saves2,
+           "snapshot_ms": [v * 1e3 for v in snaps],
+           "write_ms": [v * 1e3 for v in writes],
+           "write_mb_per_s": [manifest["state_bytes"] / v / 1e6
+                              for v in writes],
+           "load_verify_ms": loaded.get("s", float("nan")) * 1e3,
+           "load_mb_per_s": manifest["state_bytes"] / loaded.get(
+               "s", float("nan")) / 1e6,
+           "leg1_s": leg1_s, "leg2_s": leg2_s, "resumed_from": latest,
+           "launches": {"K1": k1, "K3": k3, "K4": k4}, "card": smi}
+    log(f"[ckpt] {json.dumps(res)}")
+    ok = (leg1 == base[:4] and leg2 == base[4:8] and loaded.get("same")
+          and k1 == k3 == k4 == N_BLOCK * micro and micro == 8
+          and manifest["iteration"] == 4 and manifest["epoch"] == 2)
+    log(f"[ckpt] full-width LM resumed at iteration {manifest['iteration']} "
+        f"from a {gb:.3f} GB checkpoint: leg 1 = phase 7's steps 1-4 "
+        f"{leg1 == base[:4]}, the resumed steps = phase 7's steps 5-8 bit "
+        f"for bit {leg2 == base[4:8]}, loaded state = leg 1's final state "
+        f"bit for bit {loaded.get('same')}, K1/K3/K4 {k1}/{k3}/{k4} (need "
+        f"{N_BLOCK} x {micro}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the full-width resume is not exact: {leg2} "
+                             f"vs {base[4:8]}")
+    del m2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k1, k3, k4
+
+
+def ckpt_ncf_resume(torch, smi, straight, data, tmp):
+    """13b: phase 12's explicit recipe (bf16, device-cached epochs of one
+    block) with checkpoints: 2 epochs with a trigger every 61 iterations,
+    which the 121-step blocks cross, then a model from another seed
+    resumes to epoch 4. Its final loss, HR@10 and NDCG@10 equal phase 12's
+    straight 4-epoch run bit for bit."""
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.data.datasets import ML1M_ITEMS, ML1M_USERS
+    from analytics_zoo_tpu_torch.engine import checkpoint as tck
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.nn.optimizers import Adam
+
+    set_policy(compute_dtype="float32")
+    x, y, ev = data
+    n_steps = len(x) // NCF_BATCH
+    every = n_steps // 2 + 1
+    d = os.path.join(tmp, "ncf")
+
+    def leg(seed, epochs):
+        model = NeuralCF(ML1M_USERS, ML1M_ITEMS, class_num=5, device="cuda",
+                         seed=seed)
+        model.compile(optimizer=Adam(lr=1e-3),
+                      loss="sparse_categorical_crossentropy", device="cuda",
+                      config=TrainConfig(
+                          compute_dtype="bfloat16", cache_on_device=True,
+                          scan_block_steps=n_steps, log_every_n_steps=n_steps,
+                          checkpoint_dir=d, checkpoint_every_n_iters=every))
+        saves = []
+        _timed_saves(model.estimator, saves)
+        model.fit(x, y, batch_size=NCF_BATCH, nb_epoch=epochs)
+        return model, saves
+
+    t0 = time.perf_counter()
+    m1, saves = leg(0, 2)
+    del m1
+    m2, _ = leg(1, NCF_EPOCHS)
+    wall = time.perf_counter() - t0
+    hr, ndcg = _ncf_rank(torch, m2, "explicit", ev)
+    loss = float(m2.estimator.trainer_state.last_loss)
+    want = (straight["final_loss"], straight["hr@10"], straight["ndcg@10"])
+    # every block crossed a multiple of the trigger: an async save after
+    # each, then the epoch's durable one
+    kinds = [(s["iteration"], s["durable"]) for s in saves]
+    ok = ((loss, hr, ndcg) == want and m2.estimator.trainer_state.epoch
+          == NCF_EPOCHS and kinds == [(n_steps, False), (n_steps, True),
+                                      (2 * n_steps, False),
+                                      (2 * n_steps, True)])
+    log(f"[ckpt-ncf] explicit NCF, {n_steps}-step cached blocks, trigger "
+        f"every {every}: leg 1's saves (iteration, durable) {kinds}; "
+        f"resumed to "
+        f"epoch {NCF_EPOCHS}: final loss {loss!r}, HR@10 {hr!r}, NDCG@10 "
+        f"{ndcg!r} vs the straight run's {want} (bit for bit); "
+        f"{wall:.1f} s, {smi} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the NCF resume differs from the straight run")
+    del m2
+    torch.cuda.empty_cache()
+
+
+EXAMPLE_KW = dict(vocab=256, hidden_size=64, n_block=2, n_head=4,
+                  seq_len=64, attn_strategy="flash", remat="flash")
+
+SIGTERM_CHILD = """
+import sys
+import numpy as np
+sys.path.insert(0, sys.argv[2])
+from analytics_zoo_tpu_torch.common.chaos import ChaosSchedule, install_chaos
+from analytics_zoo_tpu_torch.common.config import TrainConfig
+from analytics_zoo_tpu_torch.models.transformer import TransformerLM, lm_loss
+
+install_chaos(ChaosSchedule().delay("estimator.step", at=None, seconds=0.2))
+ids = np.random.default_rng(16).integers(0, 256, size=(8, 65)).astype(np.int32)
+model = TransformerLM(device="cuda", seed=0, **{kw})
+model.compile(optimizer="adam", loss=lm_loss, config=TrainConfig(
+    checkpoint_dir=sys.argv[1], shuffle=False, log_every_n_steps=1))
+model.fit(ids[:, :-1], ids[:, 1:], batch_size=8, nb_epoch=100000)
+print("FINISHED", flush=True)
+"""
+
+
+def _example_model(TransformerLM, lm_loss, TrainConfig, seed=0, **cfg):
+    """Phase 11's example model on the card, compiled for Adam in f32."""
+    model = TransformerLM(device="cuda", seed=seed, **EXAMPLE_KW)
+    model.compile(optimizer="adam", loss=lm_loss, config=TrainConfig(
+        shuffle=False, log_every_n_steps=1, **cfg))
+    return model
+
+
+def ckpt_sigterm(torch, smi, tmp):
+    """13c: a training process at phase 11's example width (one step an
+    epoch, every step slowed 0.2 s by a chaos delay) gets SIGTERM after
+    its first checkpoint: it saves a final checkpoint and exits 143; a
+    model from another seed resumes from it 3 epochs further, and its
+    losses equal an uninterrupted run's bit for bit."""
+    import signal
+
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.engine import checkpoint as tck
+    from analytics_zoo_tpu_torch.models.transformer import (TransformerLM,
+                                                            lm_loss)
+
+    d = os.path.join(tmp, "sigterm")
+    code = SIGTERM_CHILD.replace("{kw}", repr(EXAMPLE_KW))
+    proc = subprocess.Popen([sys.executable, "-c", code, d, str(ROOT)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        t0 = time.perf_counter()
+        while tck.latest_checkpoint(d) is None:
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                raise AssertionError("the child wrote no checkpoint: "
+                                     + proc.stderr.read().decode()[-2000:])
+            time.sleep(0.05)
+        first = tck.read_manifest(tck.latest_checkpoint(d))["iteration"]
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    final = tck.verify_checkpoint(tck.latest_checkpoint(d))
+    k = final["iteration"]
+    ids = np.random.default_rng(16).integers(0, 256, size=(8, 65)).astype(
+        np.int32)
+    x, y = ids[:, :-1], ids[:, 1:]
+    straight = _example_model(TransformerLM, lm_loss, TrainConfig)
+    straight.fit(x, y, batch_size=8, nb_epoch=k + 3)
+    resumed = _example_model(TransformerLM, lm_loss, TrainConfig, seed=1,
+                             checkpoint_dir=d)
+    resumed.fit(x, y, batch_size=8, nb_epoch=k + 3)
+    want = [h["loss"] for h in straight.estimator.history][k:]
+    got = [h["loss"] for h in resumed.estimator.history]
+    ok = (proc.returncode == 143 and b"FINISHED" not in out and k >= first
+          and final["epoch"] == k and got == want and len(got) == 3)
+    log(f"[ckpt-sigterm] child exit {proc.returncode} (need 143), first "
+        f"checkpoint at {first}, final at {k}; resumed losses {got} vs the "
+        f"uninterrupted run's {want} (bit for bit) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("SIGTERM on the card: " + err.decode()[-2000:])
+
+
+def ckpt_retry(torch, smi, tmp):
+    """13d: at the example width, 4 steps an epoch, checkpoints every 3:
+    a step that raises twice at iteration 7 rolls back to 6 and replays
+    its epoch (iteration 14, epoch 3: tests/test_fault_injection.py's
+    counts); one that raises twice at iteration 8, an epoch's first, ends
+    on the uninterrupted run's losses bit for bit."""
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.models.transformer import (TransformerLM,
+                                                            lm_loss)
+
+    ids = np.random.default_rng(17).integers(0, 256, size=(16, 65)).astype(
+        np.int32)
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    def run(fail_at, directory):
+        m = _example_model(TransformerLM, lm_loss, TrainConfig,
+                           checkpoint_dir=directory,
+                           checkpoint_every_n_iters=3, retry_times=3)
+        est, fails = m.estimator, {"left": 2}
+        step = est._step
+
+        def flaky(batch):
+            if est.train_state["step"] == fail_at and fails["left"]:
+                fails["left"] -= 1
+                raise RuntimeError("injected failure")
+            return step(batch)
+
+        est._step = flaky
+        m.fit(x, y, batch_size=4, nb_epoch=3)
+        ts = est.trainer_state
+        return (ts.iteration, ts.epoch, fails["left"],
+                [h["loss"] for h in est.history])
+
+    clean = _example_model(TransformerLM, lm_loss, TrainConfig)
+    clean.fit(x, y, batch_size=4, nb_epoch=3)
+    want = [h["loss"] for h in clean.estimator.history]
+    a = run(7, os.path.join(tmp, "retry7"))
+    b = run(8, os.path.join(tmp, "retry8"))
+    ok = (a[:3] == (14, 3, 0) and b[:3] == (12, 3, 0)
+          and b[3][-4:] == want[-4:])
+    log(f"[ckpt-retry] fail twice at 7: iteration {a[0]}, epoch {a[1]} "
+        f"(need 14, 3); fail twice at 8: iteration {b[0]}, epoch {b[1]}, "
+        f"last epoch's losses {b[3][-4:]} vs uninterrupted {want[-4:]} (bit "
+        f"for bit) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("retry from checkpoint on the card")
+
+
+def ckpt_remat_dots(torch, smi, base_hist):
+    """13e: phase 7's first step (2 micro-steps) under remat "dots" and
+    "flash": K1 = K3 = K4 = 12 x 2 each, the loss and gradient norm the
+    same bits (and phase 7's first step's); the peak memory of each."""
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.models.transformer import (TransformerLM,
+                                                            lm_loss)
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    set_policy(compute_dtype="float32")
+    ids = train_ids()[:TRAIN_BATCH]
+    out = {}
+    for remat in ("flash", "dots"):
+        m = train_model(TransformerLM, lm_loss, TrainConfig, remat=remat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches(tfa)
+        m.fit(ids[:, :-1], ids[:, 1:], batch_size=TRAIN_BATCH, nb_epoch=1)
+        h = m.estimator.history[0]
+        out[remat] = {"loss": h["loss"], "grad_norm": h["grad_norm"],
+                      "launches": _launch_counts(tfa),
+                      "peak_above_start": torch.cuda.max_memory_allocated()
+                      - start, "step_ms": h["data_ms"] + h["compute_ms"]}
+        del m
+    base = (base_hist[0]["loss"], base_hist[0]["grad_norm"])
+    same = all((out[r]["loss"], out[r]["grad_norm"]) == base
+               for r in out)
+    ok = same and all(out[r]["launches"] == (N_BLOCK * GRAD_ACCUM,) * 3
+                      for r in out)
+    log(f"[ckpt-remat] {json.dumps({'card': smi, **out})}")
+    log(f"[ckpt-remat] one full-width step, remat 'dots' vs 'flash': loss and"
+        f" grad norm the same bits (and phase 7's step 1) {same}; peak memory"
+        f" above start {out['dots']['peak_above_start'] / 2**30:.2f} GiB vs "
+        f"{out['flash']['peak_above_start'] / 2**30:.2f} GiB "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("remat 'dots' differs from 'flash'")
+    torch.cuda.empty_cache()
+    return out["dots"]["launches"]
+
+
+def phase_checkpoint(torch, smi, train_hist, ncf_straight, ncf_data_):
+    """Phase 13: checkpoint and resume (13a-13e) in a temp directory that
+    is deleted at the end."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="zoo-ckpt-")
+    t0 = time.perf_counter()
+    try:
+        launches = ckpt_lm_resume(torch, smi, train_hist, tmp)
+        ckpt_ncf_resume(torch, smi, ncf_straight, ncf_data_, tmp)
+        ckpt_sigterm(torch, smi, tmp)
+        ckpt_retry(torch, smi, tmp)
+        dots = ckpt_remat_dots(torch, smi, train_hist)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[ckpt] phase wall s: {time.perf_counter() - t0:.1f}")
+    return launches, dots
 
 
 def main(argv=None) -> int:
@@ -2777,7 +3216,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             phase_train_parity(torch)
             torch.cuda.empty_cache()
-            k1, k3, k4 = phase_training(torch, smi, profile=args.profile)
+            k1, k3, k4, train_hist = phase_training(torch, smi,
+                                                    profile=args.profile)
             for k, n in zip(kernels, (k1, k2, k3, k4, ks)):
                 k["launches"] = n
             kernels[0]["launches_by_path"] = {"serving": k1_serving,
@@ -2799,7 +3239,14 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             phase_example(torch)
             torch.cuda.empty_cache()
-            phase_ncf(torch, smi, profile=args.profile)
+            ncf, ncf_data_ = phase_ncf(torch, smi, profile=args.profile)
+            torch.cuda.empty_cache()
+            resume, dots = phase_checkpoint(torch, smi, train_hist,
+                                            ncf["explicit"], ncf_data_)
+            for k, n_resume, n_dots in zip(
+                    (kernels[0], kernels[2], kernels[3]), resume, dots):
+                k.setdefault("launches_by_path", {}).update(
+                    training_resumed=n_resume, training_remat_dots=n_dots)
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):

@@ -157,7 +157,7 @@ def _planted(fault):
                 c2 = topt._bias_correction(0.999, count)
                 out = {n: ((mu[n] / c1) / (torch.sqrt(nu[n] / c2) + 1e-8))
                        .float() for n in g}
-                return out, topt.AdamState(count, mu, nu)
+                return out, topt.ScaleByAdamState(count, mu, nu)
 
             return topt.GradientTransformation(inner.init, update)
 

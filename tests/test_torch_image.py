@@ -227,8 +227,7 @@ def test_image_classifier_predicts_arrays():
         whole = clf.model.apply(torch.from_numpy(x.astype(np.float32)))
     _close(whole, probs)
     for call in (lambda: clf.predict_image_set(None),
-                 lambda: clf.fit_image_set(None), lambda: clf.save_model("p"),
-                 lambda: ImageClassifier.load_model("p")):
+                 lambda: clf.fit_image_set(None)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 

@@ -228,7 +228,7 @@ def test_device_apply_runs_the_quantized_forward():
 
 
 @pytest.mark.parametrize("call", [
-    lambda im: im.load_zoo("p"), lambda im: im.load_tf("p"),
+    lambda im: im.load_tf("p"),
     lambda im: im.load_fn(None, {}), lambda im: im.host_params(),
     lambda im: im.probe_forward({}, None), lambda im: im.swap_params({}),
     lambda im: im.apply_row_delta([]), lambda im: im.last_served_version(),

@@ -149,12 +149,11 @@ def test_seeded_init_is_deterministic_and_remat_unported():
                                   b.state_dict().items()):
         assert na == nb and torch.equal(pa, pb)
     assert abs(float(a.token_embeddings.detach().std()) - 0.02) < 0.005
-    # remat is ported: True means "flash", as in the JAX package; "dots"
-    # is the one mode still queued, and an unknown mode is an error
+    # every remat mode is ported: True means "flash", as in the JAX
+    # package, and an unknown mode is an error
     assert TransformerLM(remat=True, **kw).remat == "flash"
     assert TransformerLM(remat="full", **kw).remat == "full"
+    assert TransformerLM(remat="dots", **kw).remat == "dots"
     assert TransformerLM(**kw).remat is False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerLM(remat="dots", **kw)
     with pytest.raises(ValueError, match="remat"):
         TransformerLM(remat="everything", **kw)
