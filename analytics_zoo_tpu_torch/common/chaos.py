@@ -19,9 +19,11 @@ A copy of the JAX package's schedule and sites. The JAX one takes its
 lock from ``common/locks.py`` (a traced lock feeding
 ``common/telemetry.py``) and emits a ``chaos.injected`` decision event per
 fault; here the lock is a plain ``threading.Lock`` and no event is
-emitted. Its site registry (read by the lint), its ``counts()`` (read by
-the flight recorder) and its pickling (for the TaskPool's workers) wait
-with those modules for ROADMAP Queue 1, items 8 and 11.
+emitted. :data:`KNOWN_SITES` lists the sites the port marks (a test holds
+every ``chaos_point`` of the package to it, as the JAX lint does); the
+runtime ``register_chaos_site``, ``counts()`` (read by the flight
+recorder) and the pickling (for the TaskPool's workers) wait with those
+modules for ROADMAP Queue 1, items 8 and 11.
 """
 
 from __future__ import annotations
@@ -137,6 +139,14 @@ class ChaosSchedule:
         uninstall_chaos()
 
 
+#: the chaos sites the port's code marks: a typo'd site never fires, so a
+#: drill aimed at it would test nothing
+KNOWN_SITES = frozenset({
+    "ckpt.write",         # engine/checkpoint.py writer (serialize->publish)
+    "data.prefetch",      # data/pipeline.py, once a produced batch
+    "estimator.step",     # engine/estimator.py, every step (or block)
+})
+
 _active: Optional[ChaosSchedule] = None
 
 
@@ -158,5 +168,5 @@ def chaos_point(site: str, tag: Any = None) -> None:
         sched.fire(site, tag)
 
 
-__all__ = ["ChaosSchedule", "WorkerKilled", "chaos_point", "install_chaos",
-           "uninstall_chaos"]
+__all__ = ["ChaosSchedule", "KNOWN_SITES", "WorkerKilled", "chaos_point",
+           "install_chaos", "uninstall_chaos"]

@@ -46,13 +46,10 @@ class TrainConfig:
 
 
 #: fields whose machinery the port does not have yet: the values it
-#: accepts (the default, and for ``prefetch_depth`` the synchronous 0 that
-#: the port's loader is) and where the work is queued
+#: accepts (the default first) and where the work is queued
 _UNPORTED = {
     "donate_state": ((True,), "ROADMAP Queue 1 (Estimator remainder): the "
                      "port updates in place"),
-    "prefetch_depth": ((2, 0), "ROADMAP Queue 1, item 12 (pinned-memory "
-                       "prefetch; the port's loader is synchronous)"),
     "update_sharding": ((False, None), "ROADMAP Queue 1, item 9 "
                         "(multi-GPU)"),
     "graph_checks": ((None, "off"), "ROADMAP Queue 1, item 11 (the "

@@ -27,8 +27,16 @@ under the bf16 precision policy.
 :meth:`Estimator.fit` walks :class:`~..data.featureset.FeatureSet`
 epochs in the JAX order (the same seeded permutation; remainders
 dropped) until the end trigger fires, and records the loss and the
-pre-clip gradient norm at every ``log_every_n_steps``. With
-``TrainConfig(cache_on_device=True)`` the dataset goes to the card once
+pre-clip gradient norm at every ``log_every_n_steps``. A streaming epoch
+takes its batches through ``data/pipeline.py``'s ``PrefetchLoader``:
+``TrainConfig.prefetch_depth`` batches ahead on a producer thread, each
+staged in pinned memory and copied to the card on a side stream while
+the step on the batch before runs (depth 0: in line, no thread), in the
+synchronous order, so every depth gives the same batches; ``DataWaitMs``
+is the time the loop waits for the next batch. ``evaluate`` and
+``predict`` read their batches the same way. With
+``TrainConfig(cache_on_device=True)`` (a DRAM FeatureSet of arrays; a
+memmap tier or byte records stream) the dataset goes to the card once
 and each epoch's order is ``jax.random.permutation(PRNGKey(seed + epoch *
 1_000_003), n)``, computed on the card; steps run in blocks of
 ``scan_block_steps`` (the JAX ``lax.scan``; a Python loop over the block
@@ -86,6 +94,7 @@ from ..common.summary import TrainSummary, ValidationSummary
 from ..common.triggers import (MaxEpoch, SeveralIteration, Trigger,
                                TrainerState)
 from ..data.featureset import FeatureSet, _tree_leaves, _tree_map
+from ..data.pipeline import device_prefetch
 from ..nn.losses import get_loss
 from ..nn.metrics import get_metric
 from ..nn.module import cast_params, precision_policy, resolve_device
@@ -345,7 +354,8 @@ class Estimator:
         try:
             while not end_trigger(self.trainer_state):
                 try:
-                    if cfg.cache_on_device:
+                    if (cfg.cache_on_device and train_set.memory_type
+                            == "DRAM" and not hasattr(train_set, "decoder")):
                         self._run_epoch_cached(train_set, batch_size,
                                                checkpoint_trigger)
                     else:
@@ -550,30 +560,40 @@ class Estimator:
         loss = None
         t0 = time.perf_counter()
         win_t0, win_steps, win_data, epoch_data = t0, 0, 0.0, 0.0
-        it = train_set.batches(batch_size, epoch=ts.epoch,
-                               shuffle=cfg.shuffle)
-        while True:
-            td = time.perf_counter()
-            try:
-                batch = self._to_device(next(it))
-            except StopIteration:
-                break
-            dw = time.perf_counter() - td
-            win_data += dw
-            epoch_data += dw
-            self._check_interrupt()
-            chaos_point("estimator.step")
-            loss, gnorm = self._step(batch)
-            self.last_grad_norm = gnorm
-            ts.iteration += 1
-            win_steps += 1
-            seen += batch_size
-            if ts.iteration % cfg.log_every_n_steps == 0:
-                self._log_point(loss, gnorm, t0, seen, win_t0, win_steps,
-                                win_data)
-                win_t0, win_steps, win_data = time.perf_counter(), 0, 0.0
-            self._maybe_save(checkpoint_trigger)
+        with self._device_batches(train_set, batch_size, epoch=ts.epoch,
+                                  shuffle=cfg.shuffle) as it:
+            while True:
+                td = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                dw = time.perf_counter() - td
+                win_data += dw
+                epoch_data += dw
+                self._check_interrupt()
+                chaos_point("estimator.step")
+                loss, gnorm = self._step(batch)
+                self.last_grad_norm = gnorm
+                ts.iteration += 1
+                win_steps += 1
+                seen += batch_size
+                if ts.iteration % cfg.log_every_n_steps == 0:
+                    self._log_point(loss, gnorm, t0, seen, win_t0,
+                                    win_steps, win_data)
+                    win_t0, win_steps, win_data = time.perf_counter(), 0, 0.0
+                self._maybe_save(checkpoint_trigger)
         self._finish_epoch(t0, seen, loss, batch_size, epoch_data)
+
+    def _device_batches(self, data: FeatureSet, batch_size: int, **kw):
+        """``data.batches(batch_size, **kw)`` on the device through
+        ``device_prefetch`` at ``prefetch_depth``, as a context manager:
+        the epoch's end, a step's exception and the SIGTERM unwind all
+        close the loader, so its producer thread never outlives the
+        loop."""
+        return contextlib.closing(device_prefetch(
+            data.batches(batch_size, **kw), self.device,
+            depth=self.config.prefetch_depth))
 
     def _cache_dataset(self, train_set: FeatureSet) -> None:
         """Put the dataset on the card once, keyed on its arrays (strong
@@ -662,10 +682,10 @@ class Estimator:
             self._init_state()
         metric_objs = [get_metric(m) for m in metrics]
         accs = [m.init(device=self.device) for m in metric_objs]
-        with torch.no_grad(), self._policy():
-            for hb in eval_set.batches(batch_size, shuffle=False,
-                                       drop_remainder=False):
-                x, y = self._to_device(hb)
+        with torch.no_grad(), self._policy(), self._device_batches(
+                eval_set, batch_size, shuffle=False,
+                drop_remainder=False) as batches:
+            for x, y in batches:
                 y_hat = self.model.apply(x)
                 accs = [m.update(a, y, y_hat)
                         for m, a in zip(metric_objs, accs)]
@@ -676,13 +696,12 @@ class Estimator:
         """The model's outputs over ``x`` in batches (the last one
         partial), as a numpy array; bf16 outputs come back as f32."""
         data = (x,) if not isinstance(x, (tuple, list)) else tuple(x)
-        fs = FeatureSet(data)
         outs = []
-        with torch.no_grad(), self._policy():
-            for hb in fs.batches(batch_size, shuffle=False,
-                                 drop_remainder=False):
-                xb = hb[0] if len(hb) == 1 else list(hb)
-                y = self.model.apply(self._to_device(xb))
+        with torch.no_grad(), self._policy(), self._device_batches(
+                FeatureSet(data), batch_size, shuffle=False,
+                drop_remainder=False) as batches:
+            for xb in batches:
+                y = self.model.apply(xb[0] if len(xb) == 1 else list(xb))
                 outs.append((y.float() if y.dtype == torch.bfloat16 else y)
                             .cpu().numpy())
         return np.concatenate(outs, axis=0)

@@ -23,6 +23,15 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(x)
 
 
+def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``clip(0.2 x + 0.5, 0, 1)``: the recurrent layers' default gate."""
+    return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
+
+
 def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return torch.softmax(x, dim=axis)
 
@@ -32,7 +41,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 ACTIVATIONS = {"linear": linear, "identity": linear, "relu": relu,
-               "sigmoid": sigmoid, "softmax": softmax, "gelu": gelu}
+               "sigmoid": sigmoid, "hard_sigmoid": hard_sigmoid,
+               "tanh": tanh, "softmax": softmax, "gelu": gelu}
 
 
 def get_activation(name):
@@ -49,5 +59,5 @@ def get_activation(name):
                          f"{sorted(ACTIVATIONS)}") from None
 
 
-__all__ = ["ACTIVATIONS", "gelu", "get_activation", "linear", "relu",
-           "sigmoid", "softmax"]
+__all__ = ["ACTIVATIONS", "gelu", "get_activation", "hard_sigmoid",
+           "linear", "relu", "sigmoid", "softmax", "tanh"]

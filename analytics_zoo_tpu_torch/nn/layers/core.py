@@ -1,5 +1,5 @@
-"""Core layers: InputLayer, Dense, Narrow, Activation (port of
-``analytics_zoo_tpu/nn/layers/core.py``).
+"""Core layers: InputLayer, Dense, SparseDense, Select, Narrow, Activation
+and Lambda (port of ``analytics_zoo_tpu/nn/layers/core.py``).
 
 Parameters keep the JAX names and layout: ``kernel`` (in, out) and
 ``bias``. After ``InferenceModel.quantize_int8`` packs a Dense, its
@@ -12,7 +12,7 @@ dicts and the bridge see only the first two.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -106,6 +106,31 @@ class Dense(Int8Kernel, Layer):
         return tuple(input_shape[:-1]) + (self.output_dim,)
 
 
+class SparseDense(Dense):
+    """Dense over a dense multi-hot input (Wide & Deep's wide part): the
+    JAX package keeps the wide vector dense, since one matmul beats a
+    gather at these widths, and so does the port."""
+
+
+class Select(Layer):
+    """Index ``index`` along ``dim`` (0-indexed over the non-batch dims;
+    negative counts from the end), the dim dropped. The input keeps its
+    dtype: float ids stay float until ``Embedding`` casts them."""
+
+    def __init__(self, dim: int, index: int, name=None, input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.dim, self.index = int(dim), int(index)
+
+    def apply(self, x):
+        return x.select(self.dim + 1 if self.dim >= 0 else self.dim,
+                        self.index)
+
+    def compute_output_shape(self, input_shape):
+        shape = list(input_shape)
+        del shape[self.dim]
+        return tuple(shape)
+
+
 class Narrow(Layer):
     """Slice ``length`` elements starting at ``offset`` along ``dim``
     (0-indexed over the non-batch dims; negative counts from the end); a
@@ -136,4 +161,29 @@ class Activation(Layer):
         return self.activation(as_compute(x))
 
 
-__all__ = ["Activation", "Dense", "InputLayer", "Int8Kernel", "Narrow"]
+class Lambda(Layer):
+    """A torch function as a layer (autograd differentiates it):
+    ``fn(x)``, or ``fn(*xs)`` over a list of inputs; ``output_shape_fn``
+    maps the input shape (batch dim excluded) to the output's, identity
+    when not given."""
+
+    def __init__(self, fn: Callable,
+                 output_shape_fn: Optional[Callable] = None, name=None,
+                 input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.fn = fn
+        self.output_shape_fn = output_shape_fn
+
+    def apply(self, x):
+        if isinstance(x, (list, tuple)):
+            return self.fn(*x)
+        return self.fn(x)
+
+    def compute_output_shape(self, input_shape):
+        if self.output_shape_fn is not None:
+            return self.output_shape_fn(input_shape)
+        return input_shape
+
+
+__all__ = ["Activation", "Dense", "InputLayer", "Int8Kernel", "Lambda",
+           "Narrow", "Select", "SparseDense"]

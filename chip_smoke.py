@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, int8 inference, NCF
-recommendation and checkpoint/resume paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, int8 inference, NCF,
+Wide & Deep and session recommendation, checkpoint/resume and
+input-pipeline paths on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel checks only
@@ -183,6 +184,37 @@ Phases, each fatal on failure (no result line is printed then):
    bit. (e) phase 7's first step under remat "dots" and "flash": K1 = K3
    = K4 = 12 x 2 each, loss and gradient norm the same bits as phase
    7's; the peak memory of each.
+
+14. recommenders and the input pipeline (the twelfth slice; no kernel of
+   its own, and none of K1-K6 launches: their counts are printed before
+   and after). (a) Wide & Deep, ``wide_n_deep``, on the synthetic ML-1M
+   (1,000,209 ratings, seed 0) with the reference app's columns (wide
+   occupation 21, gender 3, the age-gender cross in 100 hash buckets;
+   indicators genres 19, gender 3; userId 6040 -> 64 and itemId 3706 ->
+   64 embeddings; age continuous; side columns drawn from
+   ``default_rng(1)``), hidden 40-20-10, 5 classes, an 80/20
+   ``train_test_split_by_user``, batch 8192, Adam 1e-3, bf16 with f32
+   masters, streaming at ``prefetch_depth=2``, 4 epochs: the numpy
+   features equal ``rows_to_batch`` on the first 10,000 rows; the first 8
+   steps in f32 card vs CPU within 1e-5 relative; epoch 1 at depth 0 and
+   a second card run at depth 2 bit-identical to the first run's epoch 1;
+   ``evaluate``'s Top-1 accuracy equal to ``predict``'s argmax on the
+   20%. (b) SessionRecommender (3706 items, item_embed 64, GRUs 40-20,
+   MLP 40-20, session and history 10) on each user's ratings cut into
+   windows of 11, the first 1000 users' last windows held out, batch
+   1024, bf16, depth 2, 2 epochs: the f32 parity of 8 steps, two card
+   runs bit-identical, ``recommend_for_session(10)`` of the trained
+   weights in f32 on the card giving the CPU's items on the held-out
+   sessions without ties (probabilities within 1e-5), the top-10 hit
+   rate. (c) ``bench.py::run_data_pipeline``'s recipe (1024 byte records
+   of 8192 float32s, the sort + matmul decoder, batch 128, Dense 768 relu
+   x3 -> Dense 1, SGD at 1e-6, MSE, 3 epochs after a warm-up) at depth 0
+   and 2: the async stream byte-identical to the sync one, the losses
+   finite and bit-identical. Prints samples/s, step ms, DataWaitMs a step, accuracy,
+   hit rate and peak memory (``[rec-wnd]``, ``[rec-session]``,
+   ``[rec-pipeline]``), and the wall by part; ``--profile`` adds launches
+   a step, the largest kernels, the H2D copies and their overlap with
+   kernels, and one GRU time step's launches (``[profile-rec]``).
 
 Phase 3 also holds the int8 kernels to their plain versions bit for bit
 (``torch.equal``), f32 and bf16: the quantize pass both launch (codes and
@@ -3158,6 +3190,615 @@ def phase_checkpoint(torch, smi, train_hist, ncf_straight, ncf_data_):
     return launches, dots
 
 
+# ------------------------------------- recommenders and the input pipeline
+
+# phase 14: 14a Wide & Deep on MovieLens-1M (the reference's
+# recommendation-wide-n-deep app), 14b SessionRecommender on ML-1M
+# sessions, 14c bench.py's input-pipeline recipe (bench.py:491-620)
+ML1M_AGES = (1, 18, 25, 35, 45, 50, 56)        # ML-1M's seven age codes
+WND_BATCH, WND_EPOCHS, WND_PARITY_STEPS, WND_CHECK_ROWS = 8192, 4, 8, 10_000
+SESS_WINDOW, SESS_BATCH, SESS_EPOCHS, SESS_HELD_USERS = 11, 1024, 2, 1000
+SESS_PARITY_STEPS = 8
+PIPE_RECORDS, PIPE_FLOATS, PIPE_BATCH, PIPE_EPOCHS = 1024, 8192, 128, 3
+PIPE_HIDDEN = 768
+# SGD's rate in 14c: the decoded features reach ~130, and at sgd's default
+# 0.01 (bench.py's) the loss overflows to inf by the fourth step
+PIPE_LR = 1e-6
+REC_RATINGS = None                     # None: ML-1M's 1,000,209 ratings
+
+
+def rec_ratings():
+    """The synthetic ML-1M of phase 12 (seed 0)."""
+    from analytics_zoo_tpu_torch.data.datasets import (ML1M_RATINGS,
+                                                       synthetic_movielens)
+
+    return synthetic_movielens(REC_RATINGS or ML1M_RATINGS, seed=0)
+
+
+def wnd_columns():
+    """The reference app's columns (its public notebook): wide base
+    occupation 21 and gender 3, the age-gender cross in 100 hash buckets,
+    indicators genres 19 and gender 3, userId 6040 -> 64 and itemId 3706
+    -> 64 embeddings, age continuous."""
+    from analytics_zoo_tpu_torch.data.datasets import ML1M_ITEMS, ML1M_USERS
+    from analytics_zoo_tpu_torch.models.recommendation import \
+        ColumnFeatureInfo
+
+    return ColumnFeatureInfo(
+        wide_base_cols=["occupation", "gender"], wide_base_dims=[21, 3],
+        wide_cross_cols=["age-gender"], wide_cross_dims=[100],
+        indicator_cols=["genres", "gender"], indicator_dims=[19, 3],
+        embed_cols=["userId", "itemId"],
+        embed_in_dims=[ML1M_USERS, ML1M_ITEMS], embed_out_dims=[64, 64],
+        continuous_cols=["age"], label="label")
+
+
+def wnd_data(pairs, ratings):
+    """14a's four inputs and labels over every rating, built with numpy:
+    per-user gender (1 F, 2 M), age code and occupation and per-item genre
+    from ``default_rng(1)``; the first ``WND_CHECK_ROWS`` rows are held
+    to ``rows_to_batch`` over the same rows as mappings."""
+    from analytics_zoo_tpu_torch.data.datasets import ML1M_ITEMS, ML1M_USERS
+    from analytics_zoo_tpu_torch.models.recommendation import (hash_bucket,
+                                                               rows_to_batch)
+
+    rng = np.random.default_rng(1)
+    gender = rng.integers(1, 3, ML1M_USERS + 1)
+    age = np.asarray(ML1M_AGES)[rng.integers(0, 7, ML1M_USERS + 1)]
+    occupation = rng.integers(0, 21, ML1M_USERS + 1)
+    genre = rng.integers(0, 19, ML1M_ITEMS + 1)
+    cross_lut = np.array([[hash_bucket(f"{a}_{g}", 100) if g else 0
+                           for g in range(3)] for a in ML1M_AGES])
+    u, i = pairs[:, 0], pairs[:, 1]
+    g, a = gender[u], age[u]
+    cross = cross_lut[np.searchsorted(ML1M_AGES, a), g]
+    n, rows = len(u), np.arange(len(u))
+    wide = np.zeros((n, 124), np.float32)
+    wide[rows, occupation[u]] = 1.0
+    wide[rows, 21 + g] = 1.0
+    wide[rows, 24 + cross] = 1.0
+    ind = np.zeros((n, 22), np.float32)
+    ind[rows, genre[i]] = 1.0
+    ind[rows, 19 + g] = 1.0
+    xs = [wide, ind, np.stack([u, i], 1).astype(np.float32),
+          a[:, None].astype(np.float32)]
+    y = (ratings - 1).astype(np.int32)
+    m = min(WND_CHECK_ROWS, n)
+    mapped = [{"occupation": occupation[u[r]], "gender": g[r],
+               "age-gender": hash_bucket(f"{a[r]}_{g[r]}", 100),
+               "genres": genre[i[r]], "userId": u[r], "itemId": i[r],
+               "age": a[r], "label": y[r]} for r in range(m)]
+    want, want_y = rows_to_batch(mapped, wnd_columns())
+    same = all(np.array_equal(w, x[:m]) for w, x in zip(want, xs)) and \
+        np.array_equal(want_y, y[:m].astype(np.float32))
+    log(f"[rec] 14a features of {n} ratings built with numpy; the first "
+        f"{m} rows equal rows_to_batch's: {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("Wide & Deep features differ from "
+                             "rows_to_batch")
+    return xs, y
+
+
+def _rec_train(torch, make, x, y, *, dev, batch, epochs, depth, bf16,
+               lr=1e-3, optimizer="adam", loss="sparse_categorical_crossentropy",
+               model=None):
+    """``compile``/``fit`` a streaming run (``prefetch_depth=depth``,
+    shuffled epochs of seed 0); the loss of every step is kept on the
+    device and read after the fit, so no step waits for the host. Log
+    points fall at each epoch's end (its data and compute ms a step).
+    Returns the model and the step losses."""
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.nn.optimizers import SGD, Adam
+
+    if model is None:
+        model = make(dev)
+        steps = len(x if y is None else y) // batch
+        model.compile(
+            optimizer=(Adam(lr=lr) if optimizer == "adam" else SGD(lr=lr)),
+            loss=loss, device=dev, config=TrainConfig(
+                compute_dtype="bfloat16" if bf16 else None,
+                prefetch_depth=depth, log_every_n_steps=steps))
+        est = model.estimator
+        est.step_losses = []
+        step = est._step
+
+        def recording(b):
+            out = step(b)
+            est.step_losses.append(out[0].detach())
+            return out
+
+        est._step = recording
+    model.fit(x, y, batch_size=batch,
+              nb_epoch=model.estimator.trainer_state.epoch + epochs)
+    losses = [float(v) for v in torch.stack(model.estimator.step_losses)
+              .float().cpu()]
+    return model, losses
+
+
+def _peak_start(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return base
+
+
+def _rel(a, b) -> float:
+    return max(abs(p - q) / max(abs(q), 1e-12) for p, q in zip(a, b))
+
+
+def _parity(torch, make, x, y, batch, steps, label):
+    """The first ``steps`` steps in f32, streaming at depth 2, on the card
+    and on the CPU: per-step losses within 1e-5 relative."""
+    n = steps * batch
+    xs = [a[:n] for a in x] if isinstance(x, list) else x[:n]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runs[dev] = _rec_train(torch, make, xs, y[:n], dev=DEV[dev],
+                               batch=batch, epochs=1, depth=2, bf16=False)[1]
+    rel = _rel(runs["cuda"], runs["cpu"])
+    ok = len(runs["cuda"]) == len(runs["cpu"]) == steps and rel <= 1e-5
+    log(f"[rec-parity] {label} f32, {steps} steps of {batch}, cuda vs cpu: "
+        f"losses {[round(v, 6) for v in runs['cuda']]} vs "
+        f"{[round(v, 6) for v in runs['cpu']]} (max rel {rel:.3g}, tol "
+        f"1e-5) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the card's f32 losses are off the "
+                             f"cpu's")
+    return rel
+
+
+#: phase 14's devices; a rehearsal on a host without a card maps both to
+#: the CPU
+DEV = {"cuda": "cuda", "cpu": "cpu"}
+
+
+def _epoch_windows(model):
+    """The log points' per-step data and compute ms (one an epoch)."""
+    hist = model.estimator.history
+    return [h["data_ms"] for h in hist], [h["compute_ms"] for h in hist]
+
+
+def phase_wide_and_deep(torch, smi, pairs, ratings, profile=False):
+    """14a: Wide & Deep (wide_n_deep, hidden 40-20-10, 5 classes) on the
+    synthetic ML-1M with the reference app's columns, an 80/20 split,
+    batch 8192, Adam 1e-3, bf16 with f32 masters, streaming at depth 2."""
+    from analytics_zoo_tpu_torch.data.datasets import \
+        train_test_split_by_user
+    from analytics_zoo_tpu_torch.models.recommendation import WideAndDeep
+
+    wall = {}
+    t = time.perf_counter()
+    xs, y = wnd_data(pairs, ratings)
+    n = len(y)
+    (tr, _), (te, _) = train_test_split_by_user(np.arange(n), np.arange(n),
+                                                test_frac=0.2)
+    x_tr = [np.ascontiguousarray(a[tr]) for a in xs]
+    x_te = [np.ascontiguousarray(a[te]) for a in xs]
+    y_tr, y_te = y[tr], y[te]
+    del xs
+    wall["data"] = time.perf_counter() - t
+    ci = wnd_columns()
+
+    def make(dev):
+        return WideAndDeep(5, ci, "wide_n_deep", device=dev, seed=0)
+
+    t = time.perf_counter()
+    rel = _parity(torch, make, x_tr, y_tr, WND_BATCH, WND_PARITY_STEPS,
+                  "14a wide_n_deep")
+    wall["parity"] = time.perf_counter() - t
+    steps = len(y_tr) // WND_BATCH
+    t = time.perf_counter()
+    base = _peak_start(torch)
+    t0 = time.perf_counter()
+    model, first = _rec_train(torch, make, x_tr, y_tr, dev=DEV["cuda"],
+                              batch=WND_BATCH, epochs=1, depth=2, bf16=True)
+    warm_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    model, losses = _rec_train(torch, None, x_tr, y_tr, dev=DEV["cuda"],
+                               batch=WND_BATCH, epochs=WND_EPOCHS - 1,
+                               depth=2, bf16=True, model=model)
+    timed_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    data_ms, compute_ms = _epoch_windows(model)
+    wall["card_train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    metrics = model.evaluate(x_te, y_te, batch_size=WND_BATCH)
+    acc = next(iter(metrics.values()))
+    probs = model.predict(x_te, batch_size=WND_BATCH)
+    acc_pred = float(np.mean(probs.argmax(-1) == y_te))
+    wall["evaluate_predict"] = time.perf_counter() - t
+    t = time.perf_counter()
+    runs = {}
+    for name, depth in (("depth0", 0), ("again", 2)):
+        m, runs[name] = _rec_train(torch, make, x_tr, y_tr, dev=DEV["cuda"],
+                                   batch=WND_BATCH, epochs=1, depth=depth,
+                                   bf16=True)
+        if name == "depth0":
+            data0 = _epoch_windows(m)[0][0]
+        del m
+    wall["card_reruns"] = time.perf_counter() - t
+    d0_same = runs["depth0"] == losses[:steps]
+    again_same = runs["again"] == losses[:steps]
+    res = {"steps_per_epoch": steps, "train_rows": len(y_tr),
+           "test_rows": len(y_te), "epochs": WND_EPOCHS,
+           "warmup_epoch_s": warm_s, "timed_epochs_s": timed_s,
+           "samples_per_s": (WND_EPOCHS - 1) * steps * WND_BATCH / timed_s,
+           "step_ms_by_epoch": compute_ms,
+           "data_wait_ms_by_epoch_depth2": data_ms,
+           "data_wait_ms_epoch1_depth0": data0,
+           "epoch_final_losses": [losses[(e + 1) * steps - 1]
+                                  for e in range(WND_EPOCHS)],
+           "top1_accuracy": acc, "top1_accuracy_from_predict": acc_pred,
+           "peak_memory_above_start": peak, "parity_max_rel": rel,
+           "depth0_equals_depth2_epoch1": d0_same,
+           "two_card_runs_equal_epoch1": again_same, "card": smi}
+    log(f"[rec-wnd] {json.dumps(res)}")
+    ok = (d0_same and again_same and abs(acc - acc_pred) <= 1e-6
+          and all(math.isfinite(v) for v in losses)
+          and probs.shape == (len(y_te), 5) and np.isfinite(probs).all()
+          and np.allclose(probs.sum(-1), 1.0, atol=2e-2)
+          and acc > 0.2)
+    log(f"[rec-wnd] epoch 1 at depth 0 and at depth 2 bit-identical: "
+        f"{d0_same}; two card runs bit-identical: {again_same}; evaluate "
+        f"accuracy {acc:.4f} = predict's {acc_pred:.4f}; probabilities "
+        f"finite, rows sum to 1 {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("Wide & Deep on the card failed a gate")
+    if profile:
+        res["profile"] = profile_rec(torch, model, x_tr, y_tr, WND_BATCH,
+                                     smi, "wnd")
+    del model
+    return res, wall
+
+
+def session_data(pairs):
+    """14b's sessions: each user's ratings in data order cut into
+    non-overlapping windows of 11; 10 items predict the 11th (0-based
+    label); the 10 items before the window are the history, 0-padded.
+    Each of the first 1000 users' last window is held out."""
+    users, items = pairs[:, 0], pairs[:, 1]
+    order = np.argsort(users, kind="stable")
+    it = items[order]
+    _, start, count = np.unique(users[order], return_index=True,
+                                return_counts=True)
+    n_win = count // SESS_WINDOW
+    owner = np.repeat(np.arange(len(count)), n_win)
+    k = np.arange(n_win.sum()) - np.repeat(np.cumsum(n_win) - n_win, n_win)
+    s = start[owner] + k * SESS_WINDOW
+    span = np.arange(SESS_WINDOW - 1)
+    sess = it[s[:, None] + span].astype(np.float32)
+    label = (it[s + SESS_WINDOW - 1] - 1).astype(np.int32)
+    hpos = s[:, None] - (SESS_WINDOW - 1) + span
+    hist = np.where(hpos >= start[owner][:, None], it[np.maximum(hpos, 0)],
+                    0).astype(np.float32)
+    held = (owner < SESS_HELD_USERS) & (k == n_win[owner] - 1)
+    return sess, hist, label, held
+
+
+def phase_session(torch, smi, pairs, profile=False):
+    """14b: SessionRecommender (3706 items, item_embed 64, GRUs 40-20, MLP
+    40-20, session 10, history 10) on ML-1M sessions, batch 1024, Adam
+    1e-3, bf16 with f32 masters, streaming at depth 2, 2 epochs."""
+    from analytics_zoo_tpu_torch.data.datasets import ML1M_ITEMS
+    from analytics_zoo_tpu_torch.models.recommendation import \
+        SessionRecommender
+
+    wall = {}
+    t = time.perf_counter()
+    sess, hist, label, held = session_data(pairs)
+    x_tr = [np.ascontiguousarray(sess[~held]), np.ascontiguousarray(
+        hist[~held])]
+    y_tr = label[~held]
+    x_ho = [sess[held], hist[held]]
+    y_ho = label[held]
+    wall["data"] = time.perf_counter() - t
+
+    def make(dev):
+        return SessionRecommender(
+            ML1M_ITEMS, 64, rnn_hidden_layers=(40, 20),
+            session_length=SESS_WINDOW - 1, include_history=True,
+            mlp_hidden_layers=(40, 20), history_length=SESS_WINDOW - 1,
+            device=dev, seed=0)
+
+    t = time.perf_counter()
+    rel = _parity(torch, make, x_tr, y_tr, SESS_BATCH, SESS_PARITY_STEPS,
+                  "14b session")
+    wall["parity"] = time.perf_counter() - t
+    steps = len(y_tr) // SESS_BATCH
+    t = time.perf_counter()
+    base = _peak_start(torch)
+    model, _ = _rec_train(torch, make, x_tr, y_tr, dev=DEV["cuda"],
+                          batch=SESS_BATCH, epochs=1, depth=2, bf16=True)
+    t1 = time.perf_counter()
+    model, losses = _rec_train(torch, None, x_tr, y_tr, dev=DEV["cuda"],
+                               batch=SESS_BATCH, epochs=SESS_EPOCHS - 1,
+                               depth=2, bf16=True, model=model)
+    timed_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    data_ms, compute_ms = _epoch_windows(model)
+    wall["card_train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    again, again_losses = _rec_train(torch, make, x_tr, y_tr,
+                                     dev=DEV["cuda"], batch=SESS_BATCH,
+                                     epochs=1, depth=2, bf16=True)
+    del again
+    same = again_losses == losses[:steps]
+    wall["card_rerun"] = time.perf_counter() - t
+    t = time.perf_counter()
+    probs = model.predict(x_ho, batch_size=SESS_BATCH)
+    top = np.argsort(-probs, axis=-1)[:, :10]
+    hit = float(np.mean((top == y_ho[:, None]).any(-1)))
+    # the trained weights in f32 on the card and on the CPU:
+    # recommend_for_session's items and probabilities
+    weights = {k: v.float().cpu() for k, v in model.state_dict().items()}
+    recs = {}
+    for dev in ("cuda", "cpu"):
+        m = make(DEV[dev])
+        m.load_state_dict(weights)
+        m.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                  device=DEV[dev])
+        recs[dev] = (m.recommend_for_session(x_ho, max_items=10),
+                     m.predict(x_ho, batch_size=SESS_BATCH))
+        del m
+    p_cpu = recs["cpu"][1]
+    top11 = -np.sort(-p_cpu, axis=-1)[:, :11]
+    untied = np.diff(-top11, axis=-1).min(axis=-1) > 1e-5
+    same_items = [[i for i, _ in a] == [i for i, _ in b]
+                  for a, b in zip(recs["cuda"][0], recs["cpu"][0])]
+    items_ok = all(s for s, u in zip(same_items, untied) if u)
+    prob_gap = float(np.abs(recs["cuda"][1] - p_cpu).max())
+    wall["recommend"] = time.perf_counter() - t
+    res = {"sessions_train": len(y_tr), "sessions_held": len(y_ho),
+           "steps_per_epoch": steps, "epochs": SESS_EPOCHS,
+           "timed_epochs_s": timed_s,
+           "samples_per_s": (SESS_EPOCHS - 1) * steps * SESS_BATCH / timed_s,
+           "step_ms_by_epoch": compute_ms,
+           "data_wait_ms_by_epoch": data_ms,
+           "epoch_final_losses": [losses[(e + 1) * steps - 1]
+                                  for e in range(SESS_EPOCHS)],
+           "hit_rate_at_10": hit, "parity_max_rel": rel,
+           "two_card_runs_equal_epoch1": same,
+           "recommend_untied_sessions": int(untied.sum()),
+           "recommend_same_items_untied": items_ok,
+           "recommend_same_items_all": int(sum(same_items)),
+           "recommend_max_prob_diff": prob_gap,
+           "peak_memory_above_start": peak, "card": smi}
+    log(f"[rec-session] {json.dumps(res)}")
+    ok = (same and items_ok and untied.sum() >= len(y_ho) // 2
+          and prob_gap <= 1e-5 and all(math.isfinite(v) for v in losses)
+          and np.isfinite(probs).all() and hit > 10 / ML1M_ITEMS)
+    log(f"[rec-session] two card runs bit-identical: {same}; "
+        f"recommend_for_session(10) on {len(y_ho)} held-out sessions: card "
+        f"= cpu items on the {int(untied.sum())} without ties (all "
+        f"{int(sum(same_items))}), max |d prob| {prob_gap:.3g} (tol 1e-5); "
+        f"hit rate @10 {hit:.4f} (random {10 / ML1M_ITEMS:.4f}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("SessionRecommender on the card failed a gate")
+    if profile:
+        res["profile"] = profile_rec(torch, model, x_tr, y_tr, SESS_BATCH,
+                                     smi, "session")
+        res["profile"]["gru_step_launches"] = profile_gru_step(torch, model)
+    del model
+    return res, wall
+
+
+def _pipe_recipe():
+    """bench.py::run_data_pipeline's records and decoder: 1024 records of
+    8192 float32s; a record decodes by a sort and a (90, 90) x (90, 64)
+    product to 64 features and a 0/1 label."""
+    rng = np.random.default_rng(0)
+    side = int(np.sqrt(PIPE_FLOATS))
+    records = [rng.normal(size=PIPE_FLOATS).astype(np.float32).tobytes()
+               for _ in range(PIPE_RECORDS)]
+
+    def decoder(r):
+        a = np.sort(np.frombuffer(r, np.float32))
+        m = a[:side * side].reshape(side, side)
+        v = (m @ m[:64].T).mean(axis=1)[:64]
+        return v.astype(np.float32), np.float32(v[0] > 0)
+
+    return records, decoder
+
+
+def phase_input_pipeline(torch, smi):
+    """14c: the recipe trained at prefetch_depth 0 and then 2 (Dense 768
+    relu x3 -> Dense 1, SGD, MSE, batch 128, a warm-up epoch then 3):
+    the async stream byte-identical to the sync one, the losses finite
+    and bit-identical, DataWaitMs a step and samples/s at each depth."""
+    from analytics_zoo_tpu_torch.data import FeatureSet, PrefetchLoader
+    from analytics_zoo_tpu_torch.nn import layers as L
+    from analytics_zoo_tpu_torch.nn.topology import Sequential
+
+    records, decoder = _pipe_recipe()
+
+    def fs():
+        return FeatureSet.from_bytes(records, decoder, seed=7)
+
+    sync = list(fs().batches(PIPE_BATCH, epoch=1))
+    with PrefetchLoader(fs(), PIPE_BATCH, epoch=1, depth=2) as loader:
+        stream = list(loader)
+    same_stream = len(sync) == len(stream) and all(
+        a.tobytes() == b.tobytes() and a.dtype == b.dtype
+        for s, q in zip(sync, stream) for a, b in zip(s, q))
+
+    def make(dev):
+        return Sequential([L.Dense(PIPE_HIDDEN, activation="relu",
+                                   input_shape=(64,)),
+                           L.Dense(PIPE_HIDDEN, activation="relu"),
+                           L.Dense(PIPE_HIDDEN, activation="relu"),
+                           L.Dense(1)], device=dev, seed=0)
+
+    steps = PIPE_RECORDS // PIPE_BATCH
+    out = {}
+    for depth in (0, 2):
+        model, _ = _rec_train(torch, make, fs(), None, dev=DEV["cuda"],
+                              batch=PIPE_BATCH, epochs=1, depth=depth,
+                              bf16=False, lr=PIPE_LR, optimizer="sgd",
+                              loss="mse")
+        t0 = time.perf_counter()
+        model, losses = _rec_train(torch, None, fs(), None, dev=DEV["cuda"],
+                                   batch=PIPE_BATCH, epochs=PIPE_EPOCHS,
+                                   depth=depth, bf16=False, model=model)
+        dt = time.perf_counter() - t0
+        data_ms, compute_ms = _epoch_windows(model)
+        out[depth] = {"losses": losses,
+                      "final_loss": losses[-1],
+                      "data_wait_ms_per_step": statistics.mean(data_ms[1:]),
+                      "compute_ms_per_step": statistics.mean(compute_ms[1:]),
+                      "samples_per_s": PIPE_EPOCHS * steps * PIPE_BATCH / dt}
+        del model
+    same_losses = out[0]["losses"] == out[2]["losses"]
+    res = {"records": PIPE_RECORDS, "record_bytes": PIPE_FLOATS * 4,
+           "batch": PIPE_BATCH, "steps_per_epoch": steps,
+           "byte_identical_stream": same_stream,
+           "losses_bit_identical": same_losses,
+           **{f"depth{d}": {k: v for k, v in r.items() if k != "losses"}
+              for d, r in out.items()}, "card": smi}
+    log(f"[rec-pipeline] {json.dumps(res)}")
+    finite = all(math.isfinite(v) for r in out.values() for v in r["losses"])
+    ok = same_stream and same_losses and finite
+    log(f"[rec-pipeline] async stream byte-identical to the sync one: "
+        f"{same_stream}; depth 0 and depth 2 losses bit-identical: "
+        f"{same_losses}; losses finite: {finite}; DataWaitMs a step {out[0]['data_wait_ms_per_step']:.3f}"
+        f" (depth 0) vs {out[2]['data_wait_ms_per_step']:.3f} (depth 2) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the input pipeline changed the stream or the "
+                             "losses")
+    return res
+
+
+def _overlap_share(prof):
+    """The share of the traced H2D copies' device time that a kernel ran
+    beside, and the copies' count and ms."""
+    from torch.autograd import DeviceType
+
+    evs = [e for e in prof.events()
+           if getattr(e, "device_type", None) == DeviceType.CUDA]
+    copies = [(e.time_range.start, e.time_range.end) for e in evs
+              if "HtoD" in e.name]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs
+                   if "Memcpy" not in e.name and "Memset" not in e.name)
+    merged = []
+    for a, b in spans:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = sum(b - a for a, b in copies)
+    shared = sum(max(0.0, min(b, mb) - max(a, ma))
+                 for a, b in copies for ma, mb in merged)
+    return len(copies), total / 1e3, (shared / total if total else 0.0)
+
+
+def profile_rec(torch, model, x, y, batch, smi, label, steps: int = 8):
+    """Trace ``steps`` more streaming steps of a trained model (device
+    activity): launches a step, the largest kernels, the H2D copies and
+    how much of their time a kernel ran beside."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = steps * batch
+    xs = [a[:n] for a in x] if isinstance(x, list) else x[:n]
+    est = model.estimator
+    est.step_losses = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.fit(xs, y[:n], batch_size=batch,
+                  nb_epoch=est.trainer_state.epoch + 1)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, busy = _device_rows(prof)
+    launches = sum(c for k, c, _ in rows if "Memcpy" not in k
+                   and "Memset" not in k)
+    n_copy, copy_ms, share = _overlap_share(prof)
+    log(f"[profile-rec] {smi} | {label}, {steps} steps of {batch}, wall "
+        f"{wall_ms:.1f} ms, device busy {busy:.1f} ms ({busy / wall_ms:.3f}"
+        f" of wall), {launches / steps:.0f} kernel launches a step; H2D "
+        f"copies {n_copy} ({copy_ms:.3f} ms), {share:.3f} of their time "
+        f"beside a kernel")
+    for key, count, ms in rows[:15]:
+        log(f"[profile-rec] {ms:9.3f} ms {count:6d} calls  {key[:100]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms,
+            "launches_per_step": launches / steps, "h2d_copies": n_copy,
+            "h2d_ms": copy_ms, "h2d_share_beside_kernels": share}
+
+
+def profile_gru_step(torch, model):
+    """Device launches of one GRU time step, forward only, at the
+    model's shapes: a step of the training forward launches this many,
+    ten time steps a layer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.nn.layers import GRU
+
+    out = {}
+    for gru in (m for m in model.modules() if isinstance(m, GRU)):
+        dt = next(model.parameters()).dtype
+        h = torch.zeros((SESS_BATCH, gru.output_dim), dtype=dt,
+                        device="cuda")
+        xw = torch.zeros((SESS_BATCH, 3 * gru.output_dim), dtype=dt,
+                         device="cuda")
+        u = gru.recurrent_kernel.detach()
+        with torch.no_grad():
+            gru.step(xw, h, u)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                gru.step(xw, h, u)
+                torch.cuda.synchronize()
+        out[gru.name] = sum(c for _, c, _ in _device_rows(prof)[0])
+    log(f"[profile-rec] one GRU time step's forward launches by layer: "
+        f"{out} (x {SESS_WINDOW - 1} steps a layer a forward)")
+    return out
+
+
+def kernel_launch_counts():
+    """The launch counts of K1-K6 and the sampler."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+    from analytics_zoo_tpu_torch.ops.kv_cache import gumbel_max
+    from analytics_zoo_tpu_torch.ops.paged_attention import paged_attention
+
+    return {"K1": tfa.flash_attention_fwd.launches,
+            "K2": paged_attention.launches,
+            "K3": tfa.flash_attention_bwd_dq.launches,
+            "K4": tfa.flash_attention_bwd_dkv.launches,
+            "K5": f8.int8_matmul_fused.launches,
+            "K6": f8.int8_conv2d_fused.launches,
+            "sampler": gumbel_max.launches}
+
+
+def phase_recommenders(torch, smi, profile: bool = False):
+    """Phase 14: 14a, 14b and 14c, and that none of K1-K6 launched."""
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+
+    set_policy(compute_dtype="float32")
+    before = kernel_launch_counts()
+    t0 = time.perf_counter()
+    pairs, ratings = rec_ratings()
+    wall = {"ratings": time.perf_counter() - t0}
+    wnd, w = phase_wide_and_deep(torch, smi, pairs, ratings, profile)
+    wall.update({f"14a_{k}": v for k, v in w.items()})
+    torch.cuda.empty_cache()
+    sess, w = phase_session(torch, smi, pairs, profile)
+    wall.update({f"14b_{k}": v for k, v in w.items()})
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    pipe = phase_input_pipeline(torch, smi)
+    wall["14c"] = time.perf_counter() - t
+    after = kernel_launch_counts()
+    wall["phase"] = time.perf_counter() - t0
+    log(f"[rec] launch counts of K1-K6 and the sampler before phase 14 "
+        f"{json.dumps(before)}, after {json.dumps(after)}: "
+        f"{'none launched ok' if before == after else 'FAIL'}")
+    log(f"[rec] phase wall s: {json.dumps(wall)}")
+    if before != after:
+        raise AssertionError("phase 14 launched a kernel of K1-K6")
+    return {"wide_and_deep": wnd, "session": sess, "pipeline": pipe}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3243,6 +3884,9 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             resume, dots = phase_checkpoint(torch, smi, train_hist,
                                             ncf["explicit"], ncf_data_)
+            del ncf_data_
+            torch.cuda.empty_cache()
+            phase_recommenders(torch, smi, profile=args.profile)
             for k, n_resume, n_dots in zip(
                     (kernels[0], kernels[2], kernels[3]), resume, dots):
                 k.setdefault("launches_by_path", {}).update(

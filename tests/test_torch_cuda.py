@@ -35,7 +35,11 @@ The int8 kernels (K5, K6) and their quantize pass are bitwise equal to
 their plain versions (``torch.equal``) in f32 and bf16, K6 at every one of
 ResNet-50's conv shapes. NeuralCF and ImplicitNCF train device-cached
 steps on the card to the CPU's losses (f32 1e-5 relative, bf16 2e-2),
-the implicit negatives bit for bit the CPU's.
+the implicit negatives bit for bit the CPU's. The pinned-memory loader
+(``data/pipeline.py``'s ``PinnedCopy``) yields the host batches on the
+card at depths 0, 2 and 4, and Wide & Deep and SessionRecommender train
+streaming steps on the card to the CPU's losses, the same bits at
+depths 0 and 2.
 """
 
 import math
@@ -894,3 +898,86 @@ def test_ncf_training_steps_on_card_match_cpu(cuda, kind, dtype, tol):
             else abs(a - b) <= tol
     assert len(ng) == len(nc)
     assert all(torch.equal(a, b) for a, b in zip(ng, nc))
+
+
+@pytest.mark.parametrize("depth", [0, 2, 4])
+def test_pinned_copy_stream_equals_the_host_batches_on_card(cuda, depth):
+    """``PrefetchLoader`` over ``PinnedCopy`` on the card (pinned staging, a
+    side-stream copy, the consumer's stream waiting on its event): every
+    batch, read on the consumer's stream after a kernel that overwrites
+    the previous batch's storage, equals its host batch, over many
+    batches (so freed blocks come back to the side stream)."""
+    from analytics_zoo_tpu_torch.data import FeatureSet, PinnedCopy, \
+        PrefetchLoader
+
+    rng = np.random.default_rng(depth)
+    x = rng.normal(size=(4096, 257)).astype(np.float32)
+    y = rng.integers(0, 7, 4096).astype(np.int64)
+    fs = FeatureSet((x, y), seed=1)
+    want = list(fs.batches(64, epoch=2))
+    copy = PinnedCopy(cuda)
+    got, prev = [], None
+    with PrefetchLoader(fs, 64, epoch=2, put_fn=copy, depth=depth) as ld:
+        for item in ld:
+            bx, by = copy.ready(item)
+            if prev is not None:
+                prev.mul_(0).add_(1)          # a step that writes its batch
+            got.append((bx.cpu().numpy(), by.cpu().numpy()))
+            prev = bx
+    assert len(got) == len(want)
+    for (gx, gy), (wx, wy) in zip(got, want):
+        np.testing.assert_array_equal(gy, wy)
+        np.testing.assert_array_equal(gx, wx)
+
+
+@pytest.mark.parametrize("kind", ["wide_n_deep", "session"])
+def test_recommender_steps_on_card_match_cpu_at_every_depth(cuda, kind):
+    """Wide & Deep and SessionRecommender (narrow widths) train 6
+    streaming f32 steps on the card at prefetch_depth 0 and 2 and on the
+    CPU from the same seeded weights: the card's two depths give the same
+    bits, and the CPU's losses within 1e-5 relative."""
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.models.recommendation import (
+        SessionRecommender, WideAndDeep)
+
+    rng = np.random.default_rng(5)
+    n = 6 * 128
+    if kind == "session":
+        x = [rng.integers(1, 301, (n, 10)).astype(np.float32),
+             rng.integers(0, 301, (n, 10)).astype(np.float32)]
+        y = rng.integers(0, 300, n).astype(np.int32)
+
+        def make(dev):
+            return SessionRecommender(300, 16, (12, 8), session_length=10,
+                                      include_history=True,
+                                      mlp_hidden_layers=(16,),
+                                      history_length=10, device=dev)
+    else:
+        cols = dict(wide_base_cols=["a"], wide_base_dims=[9],
+                    indicator_cols=["b"], indicator_dims=[4],
+                    embed_cols=["u", "i"], embed_in_dims=[700, 90],
+                    embed_out_dims=[8, 8], continuous_cols=["c"])
+        x = [np.eye(9, dtype=np.float32)[rng.integers(0, 9, n)],
+             np.eye(4, dtype=np.float32)[rng.integers(0, 4, n)],
+             np.stack([rng.integers(1, 701, n), rng.integers(1, 91, n)],
+                      1).astype(np.float32),
+             rng.normal(size=(n, 1)).astype(np.float32)]
+        y = rng.integers(0, 5, n).astype(np.int32)
+
+        def make(dev):
+            return WideAndDeep(5, cols, hidden_layers=(16, 8), device=dev)
+
+    runs = {}
+    for dev, depth in ((cuda, 0), (cuda, 2), ("cpu", 2)):
+        model = make(dev)
+        model.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                      device=dev, config=TrainConfig(prefetch_depth=depth,
+                                                     log_every_n_steps=1))
+        model.fit(x, y, batch_size=128, nb_epoch=1)
+        runs[(str(dev), depth)] = [h["loss"] for h in model.estimator.history]
+    card0, card2, cpu = runs[(str(cuda), 0)], runs[(str(cuda), 2)], \
+        runs[("cpu", 2)]
+    assert len(card0) == len(cpu) == 6
+    assert card0 == card2
+    for a, b in zip(card2, cpu):
+        assert abs(a - b) <= 1e-5 * abs(b)

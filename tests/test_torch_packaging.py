@@ -38,7 +38,10 @@ def test_importing_every_port_module_leaves_jax_out():
                 "nn.layers.merge", "inference.inference_model",
                 "models.image.backbones", "models.image.classification",
                 "common.chaos", "common.resilience", "common.summary",
-                "engine.checkpoint"):
+                "engine.checkpoint", "data.pipeline", "nn.layers.recurrent",
+                "models.recommendation.features",
+                "models.recommendation.wide_and_deep",
+                "models.recommendation.session_recommender"):
         assert f"analytics_zoo_tpu_torch.{mod}" in res["modules"]
 
 
