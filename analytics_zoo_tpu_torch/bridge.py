@@ -29,6 +29,11 @@ key as the (2,) uint32 array ``jax.random.split`` gives. Flattened in
 JAX's order (``engine/checkpoint.py``), its leaves and their paths are
 those of a checkpoint the JAX Estimator writes for the same model and
 optimizer.
+
+A hot swap lands new weights by reference: :func:`stage_tensors` copies
+them to the device on a side stream before the flip, and
+:func:`land_tensors` makes the serving stream wait for that copy at the
+flip, so the flip itself copies nothing.
 """
 
 from __future__ import annotations
@@ -186,6 +191,55 @@ def train_state_from_jax(model: torch.nn.Module, tree: Mapping[str, Any],
             "rng": (int(rng[0]), int(rng[1]))}
 
 
-__all__ = ["nest", "opt_state_from_jax", "opt_state_to_jax",
+def flat_tree(params) -> Dict[str, torch.Tensor]:
+    """A param tree as ``{dotted name: tensor}``: the port's own form (a
+    state dict of tensors) as it is, a JAX-layout tree of numpy arrays
+    through :func:`params_from_jax`."""
+    if isinstance(params, Mapping) and params and all(
+            isinstance(v, torch.Tensor) for v in params.values()):
+        return dict(params)
+    return params_from_jax(params)
+
+
+def stage_tensors(tensors: Mapping[str, torch.Tensor], device,
+                  make: Any = None):
+    """Fresh copies of ``tensors`` on ``device``, made off the serving
+    stream: ``(staged, ready)``. On the card the copies (and
+    ``make(staged)``, which may add entries computed from them) run on a
+    side stream that first waits for the caller's stream, and ``ready`` is
+    the side stream's event; on the CPU ``ready`` is None."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        staged = {n: t.detach().to(device, copy=True)
+                  for n, t in tensors.items()}
+        if make is not None:
+            make(staged)
+        return staged, None
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        staged = {n: t.detach().to(device, copy=True, non_blocking=True)
+                  for n, t in tensors.items()}
+        if make is not None:
+            make(staged)
+        ready = torch.cuda.Event()
+        ready.record(side)
+    return staged, ready
+
+
+def land_tensors(staged: Mapping[str, torch.Tensor], ready, device) -> None:
+    """Make the current stream wait for a :func:`stage_tensors` copy and
+    hand the staged tensors to it (``record_stream``: the allocator must
+    not give their blocks back to the side stream while this stream reads
+    them)."""
+    if ready is None:
+        return
+    stream = torch.cuda.current_stream(torch.device(device))
+    stream.wait_event(ready)
+    for t in staged.values():
+        t.record_stream(stream)
+
+
+__all__ = ["flat_tree", "land_tensors", "nest", "opt_state_from_jax", "stage_tensors", "opt_state_to_jax",
            "params_from_jax", "params_to_numpy", "state_dict_from_jax",
            "train_state_from_jax", "train_state_to_jax"]

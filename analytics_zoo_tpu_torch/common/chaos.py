@@ -15,24 +15,24 @@ is installed:
     with sched:                                           # install/uninstall
         ... train ...
 
-A copy of the JAX package's schedule and sites. The JAX one takes its
-lock from ``common/locks.py`` (a traced lock feeding
-``common/telemetry.py``) and emits a ``chaos.injected`` decision event per
-fault; here the lock is a plain ``threading.Lock`` and no event is
-emitted. :data:`KNOWN_SITES` lists the sites the port marks (a test holds
-every ``chaos_point`` of the package to it, as the JAX lint does); the
-runtime ``register_chaos_site``, ``counts()`` (read by the flight
-recorder) and the pickling (for the TaskPool's workers) wait with those
-modules for ROADMAP Queue 1, items 8 and 11.
+A copy of the JAX package's schedule and sites: every injected fault is a
+``chaos.injected`` decision event (``observability/events.py``), and
+:meth:`ChaosSchedule.counts` is what the flight recorder folds into its
+dump. :data:`KNOWN_SITES` lists the sites the port marks (a test holds
+every ``chaos_point`` of the package to it, as the JAX lint does);
+:func:`register_chaos_site` adds one at run time. Schedules pickle
+(counters reset on unpickle), so a process pool can forward one to
+its workers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import threading
 import time
 from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
+
+from .locks import traced_lock
 
 
 class WorkerKilled(BaseException):
@@ -77,8 +77,8 @@ class ChaosSchedule:
     def __init__(self, seed: int = 0):
         self.seed = seed
         self._rules: List[_Rule] = []
-        # fire() counts under it, actions run outside
-        self._lock = threading.Lock()
+        # zoo-lock: leaf — fire() counts under it, actions run outside
+        self._lock = traced_lock("ChaosSchedule._lock")
         self._counts: Dict[Tuple[str, Any], int] = {}
 
     # -- authoring -----------------------------------------------------------
@@ -117,6 +117,14 @@ class ChaosSchedule:
             self._counts[key] = n
             hits = [r for r in self._rules if r.matches(site, tag, n)]
         for r in hits:
+            # every injected fault is a decision event: a drill's faults are
+            # auditable next to what they provoked (lazy import: chaos must
+            # stay importable before observability)
+            from ..observability import events as _ev
+
+            _ev.emit("chaos.injected", severity="warning", site=site,
+                     tag=repr(tag) if tag is not None else None,
+                     action=r.action, occurrence=n)
             if r.action == "delay":
                 time.sleep(r.delay_s)
             elif r.action == "fail":
@@ -130,6 +138,26 @@ class ChaosSchedule:
         with self._lock:
             return self._counts.get((site, tag), 0)
 
+    def counts(self) -> List[Dict[str, Any]]:
+        """Every site this schedule has fired, with occurrence counts: the
+        flight recorder folds this into its dump."""
+        with self._lock:
+            items = sorted(self._counts.items(),
+                           key=lambda kv: (kv[0][0], str(kv[0][1])))
+        return [{"site": site, "tag": tag, "fired": n}
+                for (site, tag), n in items]
+
+    # -- pickling: counters/lock are process-local ---------------------------
+    def __getstate__(self):
+        return {"seed": self.seed, "_rules": self._rules}
+
+    def __setstate__(self, state):
+        self.seed = state["seed"]
+        self._rules = state["_rules"]
+        # zoo-lock: leaf — see __init__
+        self._lock = traced_lock("ChaosSchedule._lock")
+        self._counts = {}
+
     # -- install -------------------------------------------------------------
     def __enter__(self) -> "ChaosSchedule":
         install_chaos(self)
@@ -141,11 +169,23 @@ class ChaosSchedule:
 
 #: the chaos sites the port's code marks: a typo'd site never fires, so a
 #: drill aimed at it would test nothing
-KNOWN_SITES = frozenset({
+KNOWN_SITES = {
     "ckpt.write",         # engine/checkpoint.py writer (serialize->publish)
     "data.prefetch",      # data/pipeline.py, once a produced batch
     "estimator.step",     # engine/estimator.py, every step (or block)
-})
+    "overload.shed",      # serving/generation.py, each deadline shed
+    "prefill.chunk",      # serving/generation.py, before each chunk dispatch
+    "prefix.publish",     # serving/generation.py, between a stream's prefill
+                          # and its prefix-cache publish
+    "serving.generate",   # serving/generation.py, each decode-loop pass
+}
+
+
+def register_chaos_site(site: str) -> str:
+    """Register a chaos-point site name at run time (generated sites,
+    tests). Returns ``site`` so it can be used inline."""
+    KNOWN_SITES.add(site)
+    return site
 
 _active: Optional[ChaosSchedule] = None
 
@@ -161,6 +201,10 @@ def uninstall_chaos() -> None:
     _active = None
 
 
+def get_chaos() -> Optional[ChaosSchedule]:
+    return _active
+
+
 def chaos_point(site: str, tag: Any = None) -> None:
     """Production-code fault point. Free when no schedule is installed."""
     sched = _active
@@ -169,4 +213,5 @@ def chaos_point(site: str, tag: Any = None) -> None:
 
 
 __all__ = ["ChaosSchedule", "KNOWN_SITES", "WorkerKilled", "chaos_point",
-           "install_chaos", "uninstall_chaos"]
+           "get_chaos", "install_chaos", "register_chaos_site",
+           "uninstall_chaos"]

@@ -1,15 +1,20 @@
-"""Retry policies (port of the retry half of ``common/resilience.py``).
+"""Resilience primitives (port of ``common/resilience.py``, which needs no
+JAX): retry/backoff policies and heartbeat-based health tracking.
 
-:class:`RetryPolicy` is the JAX package's one retry implementation: max
-attempts, exponential backoff with jitter drawn from ``random.Random(seed)``
-(so the two packages sleep the same delays for the same seed), an overall
-deadline and a retryable-exception predicate. ``Estimator.fit``'s
-rollback loop drives its retries through a :class:`RetryTracker`. Every
-primitive takes injectable ``clock``/``sleep``.
+* :class:`RetryPolicy` — max attempts, exponential backoff with jitter
+  drawn from ``random.Random(seed)`` (so the two packages sleep the same
+  delays for the same seed), an overall deadline and a retryable-exception
+  predicate. ``Estimator.fit``'s rollback loop drives its retries through
+  a :class:`RetryTracker`; every failure it records counts in
+  ``zoo_retry_attempts_total``.
+* :class:`HealthRegistry` / :class:`Heartbeat` — liveness bookkeeping for
+  worker threads (``zoo_component_alive``); ``ContinuousBatcher(registry=)``
+  accepts one, as the JAX batcher does.
 
-A copy of the JAX package's classes, which need no JAX. Not ported yet:
-``CircuitBreaker``, ``Heartbeat``, ``HealthRegistry`` and the
-``zoo_retry_attempts_total`` counter (ROADMAP Queue 1, item 8).
+Every primitive takes injectable ``clock``/``sleep`` so the deterministic
+fault-injection harness (:mod:`.chaos`) can test them without real
+flakiness or wall-clock waits. Not ported yet: ``CircuitBreaker``, which
+comes with its first caller, the serving client (ROADMAP Queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -17,7 +22,35 @@ from __future__ import annotations
 import dataclasses
 import random
 import time
-from typing import Any, Callable, Iterable, Optional, Tuple, Union
+import weakref
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
+
+from . import telemetry as _tm
+from .locks import traced_lock
+
+# heartbeat state lands on the shared scrape: live registries sit in a
+# weak set and a scrape-time collector walks them
+_LIVE_REGISTRIES: "weakref.WeakSet[HealthRegistry]" = weakref.WeakSet()
+_RETRIES = _tm.counter("zoo_retry_attempts_total",
+                       "Failures recorded by retry trackers (each implies a "
+                       "backoff or a terminal retry error)")
+
+
+def _collect_component_liveness():
+    # keyed by (registry, component): two registries in one process (e.g. two
+    # serving jobs) may register same-named components, and last-write-wins
+    # over a bare component label would nondeterministically report a dead
+    # job's entry for a live one
+    out = {}
+    for reg in list(_LIVE_REGISTRIES):
+        for name, comp in reg.status()["components"].items():
+            out[(reg.name, name)] = 1.0 if comp["alive"] else 0.0
+    return out.items()
+
+
+_tm.collector("zoo_component_alive",
+              "Heartbeat liveness per registered component (1=alive)",
+              _collect_component_liveness, labels=("registry", "component"))
 
 
 class ResilienceError(Exception):
@@ -161,6 +194,7 @@ class RetryTracker:
     def record_failure(self, exc: BaseException) -> float:
         self.attempts += 1
         self.last_error = exc
+        _RETRIES.inc()
         if self.exhausted:
             raise RetryExhaustedError(
                 f"gave up after {self.attempts} attempts: {exc}") from exc
@@ -184,6 +218,171 @@ class RetryTracker:
         return delay
 
 
-__all__ = ["CircuitOpenError", "DeadlineExceededError", "ResilienceError",
+# --------------------------------------------------------------------------
+# heartbeats / health
+# --------------------------------------------------------------------------
+
+class Heartbeat:
+    """One component's liveness handle. ``beat()`` refreshes it; ``stop()``
+    deregisters. Usable as a context manager."""
+
+    def __init__(self, registry: "HealthRegistry", name: str):
+        self.registry = registry
+        self.name = name
+
+    def beat(self, **meta):
+        self.registry.beat(self.name, **meta)
+
+    def stop(self):
+        self.registry.deregister(self.name)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+
+class HealthRegistry:
+    """Last-beat bookkeeping for a set of named components.
+
+    A component is *alive* while its most recent beat is younger than its
+    timeout. ``status()`` is the ``/healthz`` payload; ``dead()`` drives the
+    serving supervisor's respawn and the TaskPool watchdog.
+    """
+
+    _seq = 0
+    # zoo-lock: leaf
+    _seq_lock = traced_lock("HealthRegistry._seq_lock")
+
+    def __init__(self, default_timeout_s: float = 5.0,
+                 clock: Optional[Callable[[], float]] = None,
+                 name: Optional[str] = None):
+        self.default_timeout_s = default_timeout_s
+        if name is None:
+            with HealthRegistry._seq_lock:
+                HealthRegistry._seq += 1
+                name = f"hr{HealthRegistry._seq}"
+        self.name = name     # distinguishes registries on the shared scrape
+        self._clock = clock or time.monotonic
+        # zoo-lock: guards(_entries, _listeners, _last_dead) — transition
+        # listeners fire OUTSIDE it (check_transitions), so listing a
+        # callback here would be a hold-hazard, not a convenience
+        self._lock = traced_lock("HealthRegistry._lock")
+        self._entries: Dict[str, Dict[str, Any]] = {}
+        # liveness-transition listeners (fleet eviction/readmission hooks):
+        # fired by check_transitions(), never under the lock
+        self._listeners: List[Callable[[str, bool], None]] = []
+        self._last_dead: set = set()
+        _LIVE_REGISTRIES.add(self)
+
+    def register(self, name: str, timeout_s: Optional[float] = None,
+                 **meta) -> Heartbeat:
+        with self._lock:
+            self._entries[name] = {
+                "last": self._clock(),
+                "timeout_s": (self.default_timeout_s if timeout_s is None
+                              else timeout_s),
+                "beats": 0,
+                "meta": dict(meta),
+            }
+        return Heartbeat(self, name)
+
+    def beat(self, name: str, **meta):
+        with self._lock:
+            e = self._entries.get(name)
+            if e is None:  # implicit registration keeps call sites simple
+                self._entries[name] = e = {
+                    "last": 0.0, "timeout_s": self.default_timeout_s,
+                    "beats": 0, "meta": {}}
+            e["last"] = self._clock()
+            e["beats"] += 1
+            if meta:
+                e["meta"].update(meta)
+
+    def deregister(self, name: str):
+        with self._lock:
+            self._entries.pop(name, None)
+
+    def _age(self, e) -> float:
+        return self._clock() - e["last"]
+
+    def alive(self, name: str) -> bool:
+        with self._lock:
+            e = self._entries.get(name)
+            return e is not None and self._age(e) < e["timeout_s"]
+
+    def beats(self, name: str) -> int:
+        """How many times ``name`` has beaten since its last register()."""
+        with self._lock:
+            e = self._entries.get(name)
+            return 0 if e is None else e["beats"]
+
+    def components(self) -> List[str]:
+        with self._lock:
+            return sorted(self._entries)
+
+    def dead(self) -> List[str]:
+        with self._lock:
+            return sorted(n for n, e in self._entries.items()
+                          if self._age(e) >= e["timeout_s"])
+
+    def add_transition_listener(self,
+                                fn: Callable[[str, bool], None]) -> None:
+        """Subscribe ``fn(component, alive)`` to liveness TRANSITIONS:
+        called with ``alive=False`` when a component's heartbeat goes stale
+        (eviction hook — e.g. trip a replica's circuit breaker) and
+        ``alive=True`` when a previously-dead component beats again or is
+        re-registered (readmission hook). Transitions are detected by
+        :meth:`check_transitions`, which the supervising loop must poll."""
+        with self._lock:
+            self._listeners.append(fn)
+
+    def check_transitions(self) -> List[Tuple[str, bool]]:
+        """Diff liveness against the last check and fire listeners for every
+        component that changed state. Listeners run OUTSIDE the registry
+        lock (they typically call back into breakers/routers that may read
+        this registry). Returns the ``(component, alive)`` transition list.
+
+        A deregistered component produces no transition — deregistration is
+        deliberate shutdown, not death."""
+        with self._lock:
+            dead_now = {n for n, e in self._entries.items()
+                        if self._age(e) >= e["timeout_s"]}
+            newly_dead = dead_now - self._last_dead
+            # revived = was dead at last check AND still registered AND alive
+            revived = {n for n in self._last_dead - dead_now
+                       if n in self._entries}
+            self._last_dead = dead_now
+            listeners = list(self._listeners)
+        transitions = [(n, False) for n in sorted(newly_dead)] + \
+                      [(n, True) for n in sorted(revived)]
+        for name, alive in transitions:
+            for fn in listeners:
+                try:
+                    fn(name, alive)
+                except Exception:   # a broken listener must not stop the
+                    pass            # supervisor loop or its peers
+        return transitions
+
+    def healthy(self) -> bool:
+        return not self.dead()
+
+    def status(self) -> Dict[str, Any]:
+        """``/healthz`` payload: overall status + per-component detail."""
+        with self._lock:
+            comps = {
+                n: {"alive": self._age(e) < e["timeout_s"],
+                    "age_s": round(self._age(e), 3),
+                    "beats": e["beats"],
+                    **({"meta": e["meta"]} if e["meta"] else {})}
+                for n, e in self._entries.items()}
+        return {"status": "ok" if all(c["alive"] for c in comps.values())
+                else "unhealthy",
+                "components": comps}
+
+
+__all__ = ["CircuitOpenError", "DeadlineExceededError",
+           "HealthRegistry", "Heartbeat", "ResilienceError",
            "RetryAbortedError", "RetryExhaustedError", "RetryPolicy",
            "RetryTracker"]

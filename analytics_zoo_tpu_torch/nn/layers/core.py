@@ -54,16 +54,29 @@ class Int8Kernel:
         return {"q": q, "scale": self.kernel_scale, "qt": self.kernel_qt}
 
     def pack_int8(self, packed) -> None:
-        """Replace the float ``kernel`` by ``quantize_weight``'s numpy
-        packing, as buffers on the kernel's device, and its kernel-major
-        copy (``ops/int8_fused.kernel_major``) as a non-persistent one."""
-        dev = self.kernel.device
-        del self.kernel
-        q = torch.from_numpy(np.ascontiguousarray(packed["q"])).to(dev)
+        """Replace the float ``kernel`` (or the packing in place) by
+        ``packed``: ``quantize_weight``'s numpy packing, moved to the
+        kernel's device, or tensors already there (a hot swap's staged
+        re-pack, its kernel-major copy as ``"qt"``). The kernel-major copy
+        (``ops/int8_fused.kernel_major``) is a non-persistent buffer. Only
+        references change, so a swap can flip a packing between two
+        dispatches."""
+        dev = (self._parameters["kernel"] if "kernel" in self._parameters
+               else self.kernel_q).device
+        if "kernel" in self._parameters:
+            del self.kernel
+
+        def on_dev(a):
+            if isinstance(a, np.ndarray):
+                a = torch.from_numpy(np.ascontiguousarray(a))
+            return a.to(dev)
+
+        q = on_dev(packed["q"])
+        qt = packed.get("qt")
         self.register_buffer("kernel_q", q)
-        self.register_buffer("kernel_scale", torch.from_numpy(
-            np.ascontiguousarray(packed["scale"])).to(dev))
-        self.register_buffer("kernel_qt", kernel_major(q), persistent=False)
+        self.register_buffer("kernel_scale", on_dev(packed["scale"]))
+        self.register_buffer("kernel_qt", kernel_major(q) if qt is None
+                             else qt, persistent=False)
         self._qt_stamp = (q.data_ptr(), q._version)
 
 

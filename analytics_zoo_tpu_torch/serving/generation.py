@@ -3,45 +3,151 @@
 
 :class:`ContinuousBatcher` runs ``n_slots`` concurrent decode sequences over
 one paged KV cache. One daemon loop thread admits pending requests into free
-slots in FIFO order (whole-prompt prefill into a power-of-two bucket, or
-chunked prefill under a per-pass token budget), runs one decode step over
-the live slots (single-token, or a speculative verify of ``spec_k``
-tokens), emits per-stream token deltas, and retires finished sequences —
-all per step, so aggregate throughput tracks active tokens instead of the
-slowest request of a batch. With a prefix cache, a prompt's published
-blocks are shared (refcounted pages, copy-on-write at the boundary) and
-only its suffix is prefilled. Speculation, chunking and prefix sharing
-change the cost of a stream, never its tokens.
+slots in ``(priority, deadline, submission)`` order (whole-prompt prefill
+into a power-of-two bucket, or chunked prefill under a per-pass token
+budget), runs one decode step over the live slots (single-token, or a
+speculative verify of ``spec_k`` tokens), emits per-stream token deltas,
+and retires finished sequences — all per step, so aggregate throughput
+tracks active tokens instead of the slowest request of a batch
+(``admit_policy="batch"`` is the run-to-completion baseline the bench
+compares against). With a prefix cache, a prompt's published blocks are
+shared (refcounted pages, copy-on-write at the boundary) and only its
+suffix is prefilled. Speculation, chunking and prefix sharing change the
+cost of a stream, never its tokens.
+
+Overload QoS (``serving/qos.py``): a request whose deadline provably cannot
+be met is shed before any page is spent on it (outcome ``shed`` with a
+computed ``retry_after_s``); a ``critical`` request on a full batcher
+preempts the least urgent ``bulk`` slot, whose stream parks with its KV
+pages and resumes later with nothing recomputed. ``swap_params`` lands a
+(weights, speculative schedule) pair between decode steps; a supervisor
+thread respawns a chaos-killed loop with slot and cache state intact.
+Every decision counts in the port's telemetry (the ``zoo_gen_*``
+families), emits decision events and, with a flight recorder installed,
+records its inputs.
 
 Not ported yet, and raising ``NotImplementedError`` where a caller asks for
-them (ROADMAP Queue 1): priorities, deadlines and preemption,
-``swap_params``, the run-to-completion ``admit_policy="batch"`` baseline,
-``cancel_uri``, telemetry, the flight recorder, events and chaos hooks,
-``graph_checks`` and ``hbm_budget_bytes``, and the broker-facing
-``GenerationEngine``/``GenerationClient``.
+them (ROADMAP Queue 1, item 11): ``graph_checks`` and ``hbm_budget_bytes``
+(the decode graph and memory lints) and the memory witness's decode
+sample. The broker-facing ``GenerationEngine``/``GenerationClient`` wait
+with the broker for item 8.
 """
 
 from __future__ import annotations
 
-import collections
 import logging
 import queue
 import threading
 import time
 import uuid
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import weakref
+from collections import deque
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..analysis.rules.decode import lint_prefix_write_isolation
+from ..bridge import flat_tree, land_tensors, stage_tensors
+from ..common import telemetry as _tm
+from ..common.chaos import WorkerKilled, chaos_point
+from ..common.locks import traced_lock
+from ..common.resilience import HealthRegistry
 from ..nn.module import resolve_device
+from ..observability import events as _events
+from ..observability import recorder as _flight
 from ..ops.kv_cache import (OutOfPages, PagePool, PrefixCache, SCRATCH_PAGE,
                             copy_page, sample_tokens)
-from ..ops.speculative import propose_kgram
-from .qos import ServiceTimeEMA, prefill_budget_decision
+from ..ops.speculative import SpecDecodeConfig, propose_kgram
+from . import qos as _qos
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.serving.generation")
+
+# the JAX package's families, names, labels and buckets: a scrape of either
+# package's registry reads the same
+_GEN_TOKENS = _tm.counter("zoo_gen_tokens_total",
+                          "Tokens processed by generation serving, by phase "
+                          "(prefill = prompt tokens, decode = generated)",
+                          labels=("phase",))
+_GEN_REQS = _tm.counter("zoo_gen_requests_total",
+                        "Generation requests finished, by outcome",
+                        labels=("outcome",))
+_GEN_STEPS = _tm.counter("zoo_gen_decode_steps_total",
+                         "Multi-slot decode steps executed")
+_GEN_ITL = _tm.histogram("zoo_gen_inter_token_seconds",
+                         "Per-stream time between consecutive emitted tokens",
+                         buckets=(.001, .0025, .005, .01, .025, .05, .1,
+                                  .25, .5, 1.0, 2.5))
+_GEN_TTFT = _tm.histogram(
+    "zoo_gen_ttft_seconds",
+    "Per-stream time from submit to the first emitted token, by priority "
+    "class — queue wait + prefill wait + prefill compute",
+    labels=("priority",),
+    buckets=(.005, .01, .025, .05, .1, .25, .5, 1.0, 2.5, 5.0, 10.0))
+_GEN_PREFILL_CHUNKS = _tm.counter(
+    "zoo_gen_prefill_chunks_total",
+    "Chunked-prefill dispatches executed (each fills at most "
+    "prefill_chunk_tokens positions of one stream's prompt)")
+_GEN_SHED = _tm.counter("zoo_gen_shed_total",
+                        "Generation requests shed by the continuous batcher "
+                        "instead of decoded, by overload class",
+                        labels=("reason",))
+_GEN_PREEMPT = _tm.counter(
+    "zoo_gen_preemptions_total",
+    "Bulk decode slots preempted for latency-critical requests (the "
+    "preempted stream keeps its KV pages and resumes in a later slot)")
+_GEN_SPEC_STEPS = _tm.counter(
+    "zoo_gen_spec_steps_total",
+    "Speculative verify steps executed (each scores spec_k tokens per slot "
+    "in one dispatch)")
+_GEN_SPEC_TOKENS = _tm.counter(
+    "zoo_gen_spec_tokens_total",
+    "Speculative-decode draft accounting: drafted = k-1 proposals per slot "
+    "per verify step, accepted = drafts the target confirmed (acceptance "
+    "rate = accepted/drafted)", labels=("kind",))
+_GEN_SPEC_ACCEPT_PROB = _tm.histogram(
+    "zoo_gen_spec_accept_prob",
+    "Per-draft acceptance probability under the target distribution "
+    "(pi(draft) from the verify step — the expected-acceptance signal)",
+    buckets=(.01, .05, .1, .25, .5, .75, .9, .99))
+_GEN_SWAPS = _tm.counter(
+    "zoo_gen_swaps_total",
+    "Atomic (target params, draft schedule) hot-swap pairs applied by live "
+    "continuous batchers between decode steps")
+_GEN_PREFIX_HITS = _tm.counter(
+    "zoo_gen_prefix_hits_total",
+    "Prefills that matched at least one published prefix block in the "
+    "shared-prefix KV cache (matched pages mapped read-only, zero compute)")
+_GEN_PREFIX_MISSES = _tm.counter(
+    "zoo_gen_prefix_misses_total",
+    "Prefills that matched no published prefix block (full cold prefill)")
+_GEN_PREFIX_TOKENS_SAVED = _tm.counter(
+    "zoo_gen_prefix_tokens_saved_total",
+    "Prompt tokens NOT recomputed because their KV pages came from the "
+    "shared-prefix cache (per warm prefill: tokens before the divergence "
+    "point)")
+_GEN_PREFIX_EVICTED = _tm.counter(
+    "zoo_gen_prefix_evicted_pages_total",
+    "KV pages released by prefix-cache eviction sweeps (LRU over entries "
+    "no live stream is matched through: budget overflow + pool-pressure "
+    "reclaims)")
+_LIVE_GENERATORS: "weakref.WeakSet[ContinuousBatcher]" = weakref.WeakSet()
+_tm.collector("zoo_gen_active_slots",
+              "Occupied decode slots summed over live continuous batchers",
+              lambda: [((), float(sum(g.active_slots()
+                                      for g in list(_LIVE_GENERATORS))))])
+_tm.collector("zoo_gen_free_pages",
+              "Free KV-cache pages summed over live continuous batchers",
+              lambda: [((), float(sum(g.pool.free_count()
+                                      for g in list(_LIVE_GENERATORS))))])
+_tm.collector("zoo_gen_prefix_reclaimable_pages",
+              "Prefix-cache pages whose only reference is the cache's own "
+              "(no live stream attached) — pages an eviction sweep would "
+              "return to the free list",
+              lambda: [((), float(sum(
+                  g.prefix_cache.reclaimable_pages()
+                  for g in list(_LIVE_GENERATORS)
+                  if g.prefix_cache is not None)))])
 
 
 def _unported(what: str, item: str):
@@ -71,11 +177,13 @@ class _Request:
     """One generation request's host-side state."""
 
     __slots__ = ("uri", "prompt", "max_new_tokens", "temperature", "seed",
-                 "eos_id", "on_chunk", "submitted_t", "cancelled",
-                 "last_emit_t")
+                 "eos_id", "on_chunk", "ctx", "submitted_t", "cancelled",
+                 "last_emit_t", "priority", "deadline", "seq",
+                 "cached_prefix_tokens")
 
     def __init__(self, uri, prompt, max_new_tokens, temperature, seed,
-                 eos_id, on_chunk):
+                 eos_id, on_chunk, ctx=None, priority=None, deadline=None,
+                 seq=0):
         self.uri = uri
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
@@ -83,9 +191,22 @@ class _Request:
         self.seed = int(seed) & 0xFFFFFFFF
         self.eos_id = eos_id
         self.on_chunk = on_chunk
+        self.ctx = ctx
         self.submitted_t = time.perf_counter()
         self.cancelled = False
         self.last_emit_t: Optional[float] = None
+        # overload QoS: admission runs in (priority, deadline, seq) order;
+        # critical requests may preempt bulk decode slots
+        self.priority = _qos.normalize_priority(priority)
+        self.deadline = _qos.normalize_deadline(deadline)
+        self.seq = seq
+        # prompt tokens served from the shared-prefix cache (set at
+        # admission)
+        self.cached_prefix_tokens = 0
+
+    @property
+    def order_key(self) -> Tuple:
+        return _qos.order_key(self.priority, self.deadline, self.seq)
 
 
 class StreamHandle:
@@ -121,11 +242,18 @@ class StreamHandle:
                 return
 
     def tokens(self, timeout_s: float = 60.0):
-        """Yield token-chunk lists until the final frame; raises on an
-        errored stream."""
+        """Yield token-chunk lists until the final frame; raises
+        :class:`~.qos.ShedError` on a shed stream and ``RuntimeError`` on an
+        errored one."""
         for tokens, final, meta in self.frames(timeout_s=timeout_s):
             if tokens:
                 yield tokens
+            if final and meta.get("outcome") == "shed":
+                raise _qos.ShedError(
+                    f"generation request {self.uri!r} shed: "
+                    f"{meta.get('error', 'overloaded')}",
+                    retry_after_s=float(meta.get("retry_after_s", 1.0)),
+                    reason="deadline")
             if final and meta.get("error"):
                 raise RuntimeError(
                     f"generation failed for {self.uri!r}: {meta['error']}")
@@ -142,18 +270,16 @@ class _Slot:
 
     __slots__ = ("request", "length", "generated", "last_token", "pages",
                  "history", "pending_drafts", "prefix_keys", "prefilling",
-                 "prefill_done", "chunks", "admitted_t", "order")
+                 "prefill_done", "chunks", "admitted_t")
 
     def __init__(self, request: _Request, length: int, last_token: int,
-                 pages: List[int], order: int,
-                 history: Optional[List[int]] = None,
+                 pages: List[int], history: Optional[List[int]] = None,
                  prefix_keys: Optional[List[str]] = None):
         self.request = request
         self.length = length            # tokens already in the cache
         self.generated = 1              # prefill samples token 0
         self.last_token = last_token    # sampled, not yet cached
         self.pages = pages              # page references (released on retire)
-        self.order = order              # admission order (chunk FIFO)
         # chunked prefill: a prefilling slot owns its pages and table row
         # but is masked out of every decode/verify dispatch until
         # _finalize_prefill samples token 0 and flips it live
@@ -161,13 +287,36 @@ class _Slot:
         self.prefill_done = 0           # prompt tokens already in the cache
         self.chunks = 0                 # chunk dispatches spent on this slot
         self.admitted_t = time.perf_counter()
-        # prompt + emitted tokens: the k-gram proposer's corpus
+        # prompt + emitted tokens: the k-gram proposer's corpus, kept in
+        # plain mode too so a swap into speculative mode drafts at once
         self.history: List[int] = history if history is not None else []
-        # drafted, not yet verified: proposed right after each step
+        # drafted, not yet verified: proposed right after each step, so a
+        # preempted slot parks carrying its pending drafts
         self.pending_drafts: Optional[List[int]] = None
         # prefix-cache entries this stream matched through at admission,
         # released when the slot retires (the page references ride pages)
         self.prefix_keys: List[str] = prefix_keys or []
+
+
+def _flat_params(params, names: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """A swap's params as ``{dotted name: tensor}``: the port's own tree (a
+    state dict of tensors, as :meth:`ContinuousBatcher.host_params` gives)
+    as it is, a JAX-layout tree of numpy arrays through the bridge. Every
+    name, shape and dtype must be the model's: the flip swaps references
+    and compiles nothing, so a different tree is refused here."""
+    flat = flat_tree(params)
+    missing = sorted(set(names) - set(flat))
+    extra = sorted(set(flat) - set(names))
+    if missing or extra:
+        raise ValueError(f"swap params do not match the model: missing "
+                         f"{missing[:5]}, unknown {extra[:5]}")
+    for n, p in names.items():
+        t = flat[n]
+        if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
+            raise ValueError(f"swap param {n} is {tuple(t.shape)} {t.dtype}, "
+                             f"the model's {tuple(p.shape)} {p.dtype}")
+    return flat
 
 
 class ContinuousBatcher:
@@ -188,6 +337,16 @@ class ContinuousBatcher:
     ``prefix_block_tokens`` (default ``page_size``) tokens between streams,
     the cache holding at most that many pages of the pool.
 
+    ``admit_policy``: ``"continuous"`` (default) admits whenever a slot is
+    free; ``"batch"`` is the run-to-completion baseline — admission only
+    when EVERY slot is free, and only once a full wave is pending or
+    ``batch_window_s`` passed since the first request waited. A supervisor
+    thread respawns a loop that a chaos kill ended, with slot and cache
+    state intact. ``registry``: a
+    :class:`~analytics_zoo_tpu_torch.common.resilience.HealthRegistry`,
+    accepted and stored for parity with the JAX batcher's signature;
+    nothing reads it, in either package.
+
     The pool is written in place, so the JAX package's ``donate_cache``
     has no counterpart here.
     """
@@ -197,6 +356,7 @@ class ContinuousBatcher:
                  n_pages: Optional[int] = None, top_k: int = 0,
                  spec_k: int = 0, spec_ngram: int = 3,
                  admit_policy: str = "continuous",
+                 batch_window_s: float = 0.05,
                  prefix_cache_pages: int = 0,
                  prefix_block_tokens: int = 0,
                  prefill_chunk_tokens: int = 0,
@@ -204,13 +364,14 @@ class ContinuousBatcher:
                  prefill_slo_itl_s: Optional[float] = None,
                  graph_checks: Optional[str] = None,
                  hbm_budget_bytes: Optional[int] = None,
+                 registry: Optional[HealthRegistry] = None,
                  device=None, autostart: bool = True):
-        if admit_policy != "continuous":
-            _unported(f"admit_policy={admit_policy!r}", "serving remainder")
+        if admit_policy not in ("continuous", "batch"):
+            raise ValueError(f"unknown admit_policy {admit_policy!r}")
         if graph_checks and graph_checks != "off":
-            _unported("graph_checks (the decode graph lint)", "breadth")
+            _unported("graph_checks (the decode graph lint)", "item 11")
         if hbm_budget_bytes is not None:
-            _unported("hbm_budget_bytes (the static memory lint)", "breadth")
+            _unported("hbm_budget_bytes (the static memory lint)", "item 11")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if page_size & (page_size - 1):
@@ -237,6 +398,11 @@ class ContinuousBatcher:
         self.n_slots = int(n_slots)
         # clamp to the vocabulary: top-k with k > V has no meaning
         self.top_k = min(int(top_k), int(model.vocab))
+        self.admit_policy = admit_policy
+        # batch mode only: how long to wait for a full wave before sealing
+        # a partial one (a wave of 1 would flatter continuous mode)
+        self.batch_window_s = float(batch_window_s)
+        self._pending_since: Optional[float] = None
         self.cfg, self.cache = model.init_kv_cache(
             n_slots, page_size=page_size, max_seq_len=max_seq_len,
             n_pages=n_pages)
@@ -252,24 +418,30 @@ class ContinuousBatcher:
                 page_size=page_size, max_pages=int(prefix_cache_pages))
         self.prefix_tokens_saved = 0
         self.peak_pages_in_use = 0
+        self.registry = registry
         # host-side page tables (fixed shape), copied to the device per step
         self._table = np.full((self.n_slots, self.cfg.pages_per_slot),
                               SCRATCH_PAGE, np.int32)
         self._slots: List[Optional[_Slot]] = [None] * self.n_slots
         self._pending: "queue.Queue[_Request]" = queue.Queue()
-        # FIFO staging between the submit queue and admission; owned by the
-        # loop thread (a request the dry pool turned away waits at its head)
-        self._backlog: "collections.deque[_Request]" = collections.deque()
-        self._admitted = 0
+        # (priority, deadline, seq)-ordered staging between the submit
+        # queue and admission; owned by the loop thread. Preempted bulk
+        # slots park on _preempted with their KV pages intact
+        self._backlog: List[_Request] = []
+        self._preempted: List[_Slot] = []
+        self._seq = 0
+        # uris cancelled while still queued (bounded: unknown uris age out)
+        self._cancelled_uris: "deque[str]" = deque(maxlen=1024)
         self._wake = threading.Event()
         self._stop = threading.Event()
-        # guards _slots and _table against stats readers; final-frame
-        # callbacks run outside it
-        self._lock = threading.Lock()
-        # measured decode-step and prefill-chunk service times (the
-        # SLO-derived prefill budget reads both)
-        self.step_ema = ServiceTimeEMA()
-        self.chunk_ema = ServiceTimeEMA()
+        # guards _slots, _table, _seq and _preempted against stats readers;
+        # final-frame callbacks run outside it
+        self._lock = traced_lock("ContinuousBatcher._lock")
+        # measured decode-step and prefill-chunk service times: the shed
+        # proof for queued requests, the Retry-After, and the SLO-derived
+        # prefill budget
+        self.step_ema = _qos.ServiceTimeEMA()
+        self.chunk_ema = _qos.ServiceTimeEMA()
         self.prefill_chunk_tokens = int(prefill_chunk_tokens)
         self.prefill_token_budget = int(prefill_token_budget)
         self.prefill_slo_itl_s = (float(prefill_slo_itl_s)
@@ -277,10 +449,17 @@ class ContinuousBatcher:
         self._last_budget: Optional[Dict[str, Any]] = None
         self.spec_k = 0 if int(spec_k) == 1 else int(spec_k)
         self.spec_ngram = int(spec_ngram)
+        # a staged (params, event, version, spec) flip, landed by the loop
+        # thread between decode steps
+        self._pending_swap: Optional[Tuple] = None
+        self.version: Optional[str] = None
+        self.swaps = 0
+        self.preemptions = 0
         # accounting; steps counts decode and verify dispatches
         self.steps = 0
         self.tokens_generated = 0
         self.requests_finished: Dict[str, int] = {}
+        self.loop_respawns = 0
         self.prefill_buckets: set = set()
         self.decode_shapes: set = set()
         self.chunk_shapes: set = set()
@@ -292,66 +471,96 @@ class ContinuousBatcher:
         self.spec_accepted = 0
         self._occupied_slot_steps = 0
         self._decode_tokens = 0          # decode-phase tokens (not prefill)
+        _LIVE_GENERATORS.add(self)
         self._threads: List[threading.Thread] = []
+        self._loop_thread: Optional[threading.Thread] = None
         if autostart:
             self.start()
 
     # ------------------------------------------------------------------ control
 
     def start(self) -> "ContinuousBatcher":
-        if any(t.is_alive() for t in self._threads):
+        running = self._loop_thread
+        if running is not None and running.is_alive():
             return self          # idempotent: already running
         self._stop.clear()
+        self._loop_thread = self._spawn_loop()
+        sup = threading.Thread(target=self._supervise, daemon=True,
+                               name="zoo-torch-gen-supervisor")
+        sup.start()
+        self._threads = [self._loop_thread, sup]
+        return self
+
+    def _spawn_loop(self) -> threading.Thread:
         t = threading.Thread(target=self._loop, daemon=True,
                              name="zoo-torch-gen-batcher")
         t.start()
-        self._threads = [t]
-        return self
+        return t
+
+    def _supervise(self):
+        """Respawn a dead decode loop (a chaos kill) with slot and cache
+        state intact: in-flight streams continue where they stopped."""
+        while not self._stop.is_set():
+            if not self._loop_thread.is_alive() and not self._stop.is_set():
+                logger.warning("respawning dead generation decode loop")
+                self.loop_respawns += 1
+                self._loop_thread = self._spawn_loop()
+            self._stop.wait(0.05)
 
     def close(self, timeout_s: float = 30.0):
-        """Stop the loop thread, join it, fail every request still queued
-        or in flight, and drop the prefix cache's page references (so a
-        closed batcher's pool sums back to capacity)."""
+        """Stop the loop and supervisor threads, join them, fail every
+        request still queued, parked or in flight, and drop the prefix
+        cache's page references (so a closed batcher's pool sums back to
+        capacity)."""
         self._stop.set()
         self._wake.set()
-        for t in self._threads:
+        # the supervisor first: once it has stopped, no loop is respawned
+        for t in self._threads[1:] + [self._loop_thread]:
+            if t is None:
+                continue
             t.join(timeout=timeout_s)
             if t.is_alive():
-                raise RuntimeError(f"generation loop thread did not stop "
+                raise RuntimeError(f"generation thread {t.name} did not stop "
                                    f"within {timeout_s}s")
         self._threads = []
-        self._drain_pending()
-        backlog, self._backlog = list(self._backlog), collections.deque()
+        while True:
+            try:
+                self._backlog.append(self._pending.get_nowait())
+            except queue.Empty:
+                break
+        backlog, self._backlog = self._backlog, []
         for req in backlog:
             self._finish_cb(req, [], "error",
                             error="generator closed before admission")
+        with self._lock:
+            parked, self._preempted = self._preempted, []
+            for slot in parked:
+                self._release_claim(slot.prefix_keys, slot.pages)
+                slot.pages = []
+                slot.prefix_keys = []
+        for slot in parked:
+            self._finish_cb(slot.request, [], "error",
+                            error="generator closed mid-stream",
+                            n_tokens=slot.generated)
         self._fail_all_active("generator closed mid-stream")
         if self.prefix_cache is not None:
             self.prefix_cache.invalidate()
-
-    def swap_params(self, *args, **kwargs):
-        _unported("swap_params (hot swap)", "serving remainder")
-
-    def cancel_uri(self, uri: str):
-        _unported("cancel by stream id (the broker-facing cancel)",
-                  "serving remainder; StreamHandle.cancel() works")
 
     # ------------------------------------------------------------------- client
 
     def submit(self, prompt, max_new_tokens: int = 32,
                temperature: float = 0.0, seed: int = 0,
                eos_id: Optional[int] = None, uri: Optional[str] = None,
-               on_chunk: Optional[Callable] = None,
+               on_chunk: Optional[Callable] = None, ctx=None,
                priority: Optional[str] = None,
                deadline: Optional[float] = None) -> StreamHandle:
         """Enqueue one generation request; returns a :class:`StreamHandle`.
         ``on_chunk(tokens, final, meta)`` additionally mirrors every
-        frame."""
-        if priority is not None:
-            _unported("request priorities and preemption",
-                      "serving remainder")
-        if deadline is not None:
-            _unported("request deadlines", "serving remainder")
+        frame. ``priority`` (critical/normal/bulk) and ``deadline``
+        (absolute epoch seconds) order admission; a critical request may
+        preempt a bulk slot, and a request whose deadline provably cannot
+        be met finishes with outcome ``shed``. ``ctx``: a trace wire
+        context the request's spans join."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must hold at least one token")
@@ -361,8 +570,12 @@ class ContinuousBatcher:
         if prompt.size >= limit:
             raise ValueError(f"prompt of {prompt.size} tokens exceeds the "
                              f"cache's max_seq_len {limit}")
+        with self._lock:
+            self._seq += 1
+            seq = self._seq
         req = _Request(uri or uuid.uuid4().hex, prompt, max_new_tokens,
-                       temperature, seed, eos_id, on_chunk)
+                       temperature, seed, eos_id, on_chunk, ctx,
+                       priority=priority, deadline=deadline, seq=seq)
         handle = StreamHandle(req)
 
         def fanout(tokens, final, meta, _h=handle, _cb=on_chunk):
@@ -371,6 +584,8 @@ class ContinuousBatcher:
                 _cb(tokens, final, meta)
 
         req.on_chunk = fanout
+        if self._pending.empty() and not self._backlog:
+            self._pending_since = time.monotonic()
         self._pending.put(req)
         self._wake.set()
         return handle
@@ -380,6 +595,21 @@ class ContinuousBatcher:
         timeout_s = kw.pop("timeout_s", 120.0)
         return self.submit(prompt, **kw).result(timeout_s=timeout_s)
 
+    def cancel_uri(self, uri: str) -> None:
+        """Cancel by stream id: marks an active or parked slot's request
+        cancelled, or remembers the uri (bounded) so a still-queued request
+        is dropped at admission."""
+        with self._lock:
+            for slot in self._slots:
+                if slot is not None and slot.request.uri == uri:
+                    slot.request.cancelled = True
+                    return
+            for slot in self._preempted:
+                if slot.request.uri == uri:
+                    slot.request.cancelled = True
+                    return
+            self._cancelled_uris.append(uri)
+
     # ------------------------------------------------------------------- loop
 
     def active_slots(self) -> int:
@@ -387,27 +617,37 @@ class ContinuousBatcher:
             return sum(s is not None for s in self._slots)
 
     def _loop(self):
-        with torch.no_grad():
-            while not self._stop.is_set():
-                try:
-                    self._admit()
-                    if self.prefill_chunk_tokens:
-                        # at most one budget of prefill chunks, THEN one
-                        # decode step: running streams advance every pass
-                        # however deep the prefill backlog
-                        self._prefill_chunks()
-                    if self.active_slots() == 0:
-                        if self._pending.empty() and not self._backlog:
-                            self._wake.wait(timeout=0.05)
-                            self._wake.clear()
-                        continue
-                    self._step()
-                except Exception as e:
-                    # a failing step fails the in-flight streams instead of
-                    # killing the loop
-                    logger.exception("decode step failed; failing the "
-                                     "active streams")
-                    self._fail_all_active(f"decode step failed: {e}")
+        try:
+            with torch.no_grad():
+                while not self._stop.is_set():
+                    # the kill drill's fault site: the supervisor respawns
+                    # the loop with slot and cache state intact
+                    chaos_point("serving.generate")
+                    try:
+                        self._apply_pending_swap()
+                        self._admit()
+                        if self.prefill_chunk_tokens:
+                            # at most one budget of prefill chunks, THEN one
+                            # decode step: running streams advance every
+                            # pass however deep the prefill backlog
+                            self._prefill_chunks()
+                        if self.active_slots() == 0:
+                            if (self._pending.empty() and not self._backlog
+                                    and not self._preempted):
+                                self._wake.wait(timeout=0.05)
+                                self._wake.clear()
+                            continue
+                        self._step()
+                    except Exception as e:
+                        # a failing step fails the in-flight streams instead
+                        # of killing the loop (a WorkerKilled, a simulated
+                        # crash, still reaches the supervisor)
+                        logger.exception("decode step failed; failing the "
+                                         "active streams")
+                        self._fail_all_active(f"decode step failed: {e}")
+        except WorkerKilled:
+            logger.warning("generation decode loop killed mid-stream; "
+                           "slots and cache intact, awaiting respawn")
 
     def _fail_all_active(self, error: str):
         with self._lock:
@@ -418,20 +658,143 @@ class ContinuousBatcher:
 
     # admission ---------------------------------------------------------------
 
+    def _take_cancelled(self, req: _Request) -> bool:
+        """Whether ``req`` was cancelled, by its handle or by uri."""
+        if req.uri in self._cancelled_uris:
+            self._cancelled_uris.remove(req.uri)
+            req.cancelled = True
+        return req.cancelled
+
     def _drain_pending(self) -> None:
+        """Move submitted requests into the ordered backlog, dropping
+        cancelled ones and SHEDDING every request whose deadline provably
+        cannot be met (the measured decode-step time is the proof) before
+        any slot or page is spent on it."""
         while True:
             try:
                 self._backlog.append(self._pending.get_nowait())
             except queue.Empty:
-                return
+                break
+        if not self._backlog:
+            return
+        ema = self.step_ema.value()
+        now = time.time()
+        keep: List[_Request] = []
+        for req in sorted(self._backlog, key=lambda r: r.order_key):
+            if self._take_cancelled(req):
+                self._finish_cb(req, [], "cancelled")
+                continue
+            rec = _flight.get()
+            # no recorder: the bare predicate on the hot path (every backlog
+            # entry is judged again each pass); a recorded decision goes
+            # through the full pure function, which agrees by definition
+            if rec is None and not _qos.cannot_meet(req.deadline, 0.0, ema,
+                                                    now=now):
+                keep.append(req)
+                continue
+            inputs = {"now": now, "deadline": req.deadline,
+                      "est_wait_s": 0.0, "service_ema_s": ema,
+                      "depth": len(self._backlog),
+                      "concurrency": self.n_slots,
+                      "priority": req.priority}
+            decision = _qos.admission_decision(inputs)
+            if rec is not None:
+                rec.record("admission.generation", inputs, decision)
+            if decision["action"] == "shed":
+                chaos_point("overload.shed", tag="generation")
+                _GEN_SHED.labels(reason="deadline").inc()
+                self._finish_cb(
+                    req, [], "shed",
+                    error="deadline cannot be met by the decode loop",
+                    retry_after_s=decision["retry_after_s"])
+                continue
+            keep.append(req)
+        self._backlog = keep
+
+    def _admission_open(self) -> bool:
+        if self.admit_policy == "continuous":
+            return any(s is None for s in self._slots) or bool(
+                self._backlog and self._backlog[0].priority == "critical")
+        # run-to-completion: only between waves, and only once a FULL wave
+        # is pending (or the batching window expired)
+        if any(s is not None for s in self._slots):
+            return False
+        if len(self._backlog) >= self.n_slots:
+            return True
+        since = self._pending_since
+        return since is not None and \
+            time.monotonic() - since >= self.batch_window_s
+
+    def _preempt_for(self, req: _Request) -> bool:
+        """Make room for a critical request by preempting the least urgent
+        BULK slot: its host state (pages included: its K/V stays where it
+        is) parks on ``_preempted`` and resumes in a later free slot with
+        nothing recomputed. Returns whether a slot was freed."""
+        if req.priority != "critical":
+            return False
+        with self._lock:
+            victims = [(s.request.order_key, i) for i, s in
+                       enumerate(self._slots)
+                       if s is not None and s.request.priority == "bulk"]
+            if not victims:
+                return False
+            _, idx = max(victims)
+            slot = self._slots[idx]
+            self._slots[idx] = None
+            self._table[idx, :] = SCRATCH_PAGE
+            self._preempted.append(slot)
+        self.preemptions += 1
+        _GEN_PREEMPT.inc()
+        logger.info("generation: preempted bulk stream %s for critical %s",
+                    slot.request.uri, req.uri)
+        return True
+
+    def _resume_slot(self, parked: _Slot) -> None:
+        """Re-install a parked stream into a free slot: its page-table row
+        goes back exactly (its pages, then scratch), so decode continues
+        with no prefill and no token lost."""
+        if parked.request.cancelled:
+            with self._lock:
+                self._release_claim(parked.prefix_keys, parked.pages)
+                parked.pages = []
+                parked.prefix_keys = []
+            self._finish_cb(parked.request, [], "cancelled")
+            return
+        self._install(self._slots.index(None), parked)
 
     def _admit(self):
         self._drain_pending()
-        while not self._stop.is_set() and self._backlog:
-            if not any(s is None for s in self._slots):
+        # the policy gate opens ONCE a pass; a wave then fills every free
+        # slot (checking it per request would seal a batch wave after its
+        # first admission)
+        if not self._admission_open():
+            return
+        while not self._stop.is_set():
+            # parked streams compete with the backlog under the same order:
+            # a parked bulk stream does not jump a queued critical request
+            with self._lock:
+                cand_resume = min(self._preempted,
+                                  key=lambda s: s.request.order_key,
+                                  default=None)
+            cand_new = self._backlog[0] if self._backlog else None
+            if cand_resume is not None and (
+                    cand_new is None
+                    or cand_resume.request.order_key <= cand_new.order_key):
+                if not any(s is None for s in self._slots):
+                    return
+                with self._lock:
+                    self._preempted.remove(cand_resume)
+                self._resume_slot(cand_resume)
+                continue
+            if cand_new is None:
                 return
-            req = self._backlog.popleft()
-            if req.cancelled:
+            if not any(s is None for s in self._slots):
+                # full house: a critical head may evict a bulk slot (pages
+                # intact); anything else waits for a retirement
+                if not self._preempt_for(cand_new):
+                    return
+            req = self._backlog.pop(0)
+            if self._take_cancelled(req):
                 self._finish_cb(req, [], "cancelled")
                 continue
             try:
@@ -444,9 +807,24 @@ class ContinuousBatcher:
                                           f"pool capacity "
                                           f"{self.pool.capacity}")
                     continue
-                # pool temporarily dry: wait at the head for retirements
-                self._backlog.appendleft(req)
+                # pool temporarily dry: back at the head of the backlog
+                # (first of its class) to wait for retirements
+                self._backlog.insert(0, req)
+                if self.active_slots() == 0 and self._preempted:
+                    # every page is held by PARKED streams: resume one so
+                    # the pool can drain, or the critical head and the
+                    # parked bulk streams would wait on each other forever
+                    with self._lock:
+                        parked = min(self._preempted,
+                                     key=lambda s: s.request.order_key)
+                        self._preempted.remove(parked)
+                    self._resume_slot(parked)
                 return
+            except WorkerKilled:
+                # a kill mid-prefill: every page and reference was handed
+                # back, so requeue the request for the respawned loop
+                self._backlog.insert(0, req)
+                raise
             except Exception as e:   # a bad request must not kill the loop
                 logger.exception("prefill failed for %s", req.uri)
                 self._finish_cb(req, [], "error", error=str(e))
@@ -458,9 +836,14 @@ class ContinuousBatcher:
         try:
             return self.pool.alloc(n)
         except OutOfPages:
-            if self.prefix_cache is None \
-                    or not self.prefix_cache.reclaim_pages(n):
+            if self.prefix_cache is None:
                 raise
+            freed = self.prefix_cache.reclaim_pages(n)
+            if not freed:
+                raise
+            _GEN_PREFIX_EVICTED.inc(freed)
+            _events.emit("gen.prefix.evicted", severity="info",
+                         reason="pool_pressure", pages=freed)
             return self.pool.alloc(n)
 
     def _note_pool_peak(self) -> None:
@@ -480,8 +863,10 @@ class ContinuousBatcher:
         cfg = self.cfg
         n_prompt = int(req.prompt.size)
         n_pg = -(-n_prompt // cfg.page_size)
-        match = (self.prefix_cache.lookup(req.prompt)
-                 if self.prefix_cache is not None else None)
+        match = None
+        if self.prefix_cache is not None:
+            match = self.prefix_cache.lookup(req.prompt)
+            (_GEN_PREFIX_MISSES if match is None else _GEN_PREFIX_HITS).inc()
         keys: List[str] = [] if match is None else match.keys
         row: List[int] = [] if match is None else list(match.pages)
         held: List[int] = list(row)     # pages this stream holds refs on
@@ -522,9 +907,26 @@ class ContinuousBatcher:
         self.pool.release(pages)
 
     def _publish(self, req: _Request, pages: List[int]) -> None:
-        if self.prefix_cache is not None:
-            self.prefix_cache.publish(req.prompt, int(req.prompt.size), pages)
-            self.prefix_cache.evict_to_budget()
+        if self.prefix_cache is None:
+            return
+        # the fault site between a stream's prefill and its publish: a kill
+        # here hands back every reference the stream took (the callers'
+        # handlers), and publish is all-or-nothing under the cache's lock
+        chaos_point("prefix.publish")
+        self.prefix_cache.publish(req.prompt, int(req.prompt.size), pages)
+        sweep = self.prefix_cache.evict_to_budget()
+        if sweep["pages"]:
+            _GEN_PREFIX_EVICTED.inc(sweep["pages"])
+            _events.emit("gen.prefix.evicted", severity="info",
+                         reason="budget", entries=sweep["entries"],
+                         pages=sweep["pages"],
+                         held_pages=sweep["held_pages"])
+
+    def _note_prefix_saved(self, req: _Request, start: int) -> None:
+        if start:
+            req.cached_prefix_tokens = start
+            self.prefix_tokens_saved += start
+            _GEN_PREFIX_TOKENS_SAVED.inc(start)
 
     def _install(self, slot_idx: int, slot: _Slot) -> None:
         with self._lock:
@@ -548,32 +950,37 @@ class ContinuousBatcher:
                          cfg.max_seq_len)
             if bucket % cfg.page_size:
                 bucket = -(-bucket // cfg.page_size) * cfg.page_size
-            ids = np.zeros((1, bucket), np.int32)
-            ids[0, :n_suffix] = req.prompt[start:]
-            table = np.full((1, cfg.pages_per_slot), SCRATCH_PAGE, np.int32)
-            table[0, :len(row)] = row
-            if start:
-                logits, self.cache = self.model.prefill_from(
-                    self.cache, ids, np.array([start], np.int32),
-                    np.array([n_prompt], np.int32), table,
-                    page_size=cfg.page_size)
-                self.prefills_from += 1
-            else:
-                logits, self.cache = self.model.prefill(
-                    self.cache, ids, np.array([n_prompt], np.int32), table,
-                    page_size=cfg.page_size)
-                self.prefills_whole += 1
-            tok = int(sample_tokens(logits, [req.seed], [0],
-                                    [req.temperature], top_k=self.top_k)[0])
+            with _tm.span("serving.gen.prefill", remote=req.ctx, uri=req.uri,
+                          bucket=bucket, cached_tokens=start):
+                ids = np.zeros((1, bucket), np.int32)
+                ids[0, :n_suffix] = req.prompt[start:]
+                table = np.full((1, cfg.pages_per_slot), SCRATCH_PAGE,
+                                np.int32)
+                table[0, :len(row)] = row
+                if start:
+                    logits, self.cache = self.model.prefill_from(
+                        self.cache, ids, np.array([start], np.int32),
+                        np.array([n_prompt], np.int32), table,
+                        page_size=cfg.page_size)
+                    self.prefills_from += 1
+                else:
+                    logits, self.cache = self.model.prefill(
+                        self.cache, ids, np.array([n_prompt], np.int32),
+                        table, page_size=cfg.page_size)
+                    self.prefills_whole += 1
+                tok = int(sample_tokens(logits, [req.seed], [0],
+                                        [req.temperature],
+                                        top_k=self.top_k)[0])
             self._publish(req, row)
         except BaseException:
-            # a failed prefill hands back every page and reference it took
+            # a failed prefill (a chaos kill too) hands back every page and
+            # reference it took
             self._release_claim(keys, row)
             raise
         self.prefill_buckets.add(bucket)
-        self.prefix_tokens_saved += start
-        self._admitted += 1
-        slot = _Slot(req, n_prompt, tok, list(row), self._admitted,
+        _GEN_TOKENS.labels(phase="prefill").inc(n_suffix)
+        self._note_prefix_saved(req, start)
+        slot = _Slot(req, n_prompt, tok, list(row),
                      history=req.prompt.tolist() + [tok], prefix_keys=keys)
         slot.admitted_t = t_admit
         if self.spec_k >= 2:
@@ -594,35 +1001,45 @@ class ContinuousBatcher:
         release of its pages and references."""
         slot_idx = self._slots.index(None)
         row, keys, start = self._claim_pages(req)
-        self.prefix_tokens_saved += start
-        self._admitted += 1
+        self._note_prefix_saved(req, start)
         slot = _Slot(req, int(req.prompt.size), -1, list(row),
-                     self._admitted, prefix_keys=keys)
+                     prefix_keys=keys)
         slot.generated = 0              # token 0 samples at finalize
         slot.prefilling = True
         slot.prefill_done = start
         self._install(slot_idx, slot)
 
     def _prefill_budget(self) -> int:
-        """Tokens this loop pass may spend on prefill chunks."""
-        decision = prefill_budget_decision({
-            "chunk_tokens": self.prefill_chunk_tokens,
-            "static_budget": self.prefill_token_budget,
-            "itl_target_s": self.prefill_slo_itl_s,
-            "decode_ema_s": round(self.step_ema.value(), 6),
-            "chunk_ema_s": round(self.chunk_ema.value(), 6)})
-        self._last_budget = decision
+        """Tokens this loop pass may spend on prefill chunks, through the
+        pure decision function (recorded on the flight recorder, and
+        emitted as an event, whenever the verdict changes)."""
+        inputs = {"chunk_tokens": self.prefill_chunk_tokens,
+                  "static_budget": self.prefill_token_budget,
+                  "itl_target_s": self.prefill_slo_itl_s,
+                  "decode_ema_s": round(self.step_ema.value(), 6),
+                  "chunk_ema_s": round(self.chunk_ema.value(), 6)}
+        decision = _qos.prefill_budget_decision(inputs)
+        if decision != self._last_budget:
+            rec = _flight.get()
+            if rec is not None:
+                rec.record("gen.prefill.budget", inputs, decision)
+            _events.emit("gen.prefill.budget", severity="info",
+                         budget_tokens=decision["budget_tokens"],
+                         chunks=decision["chunks"],
+                         source=decision["source"])
+            self._last_budget = decision
         return int(decision["budget_tokens"])
 
     def _prefill_chunks(self):
-        """Spend at most one token budget on pending chunks, oldest
-        admission first. The FIRST chunk always runs (the progress floor),
-        then chunks run while they fit."""
+        """Spend at most one token budget on pending chunks, in (priority,
+        deadline, seq) order. The FIRST chunk always runs (the progress
+        floor), then chunks run while they fit."""
         budget: Optional[int] = None
         spent = 0
         while True:
             with self._lock:
-                cands = [(s.order, i) for i, s in enumerate(self._slots)
+                cands = [(s.request.order_key, i)
+                         for i, s in enumerate(self._slots)
                          if s is not None and s.prefilling]
             if not cands:
                 return
@@ -655,17 +1072,23 @@ class ContinuousBatcher:
         # WIDE table: a chunk ending at n_done + ct - 1 can reach page
         # pages_per_slot - 1 + ct/page_size; entries past the row are scratch
         wide = cfg.pages_per_slot + ct // cfg.page_size
+        # the fault site BEFORE the dispatch: a kill here leaves the slot
+        # untouched, so the respawned loop runs exactly this chunk again
+        # (the same K/V into pages this stream alone owns)
+        chaos_point("prefill.chunk")
         try:
-            ids = np.zeros((1, ct), np.int32)
-            ids[0, :n_valid] = req.prompt[n_done:n_done + n_valid]
-            table = np.full((1, wide), SCRATCH_PAGE, np.int32)
-            table[0, :len(slot.pages)] = slot.pages
-            t0 = time.monotonic()
-            logits, self.cache = self.model.prefill_chunk(
-                self.cache, ids, np.array([n_done], np.int32),
-                np.array([n_valid], np.int32), table,
-                page_size=cfg.page_size)
-            self.chunk_ema.observe(time.monotonic() - t0)
+            with _tm.span("serving.gen.prefill.chunk", remote=req.ctx,
+                          uri=req.uri, n_done=n_done, n_valid=n_valid):
+                ids = np.zeros((1, ct), np.int32)
+                ids[0, :n_valid] = req.prompt[n_done:n_done + n_valid]
+                table = np.full((1, wide), SCRATCH_PAGE, np.int32)
+                table[0, :len(slot.pages)] = slot.pages
+                t0 = time.monotonic()
+                logits, self.cache = self.model.prefill_chunk(
+                    self.cache, ids, np.array([n_done], np.int32),
+                    np.array([n_valid], np.int32), table,
+                    page_size=cfg.page_size)
+                self.chunk_ema.observe(time.monotonic() - t0)
         except Exception as e:
             # a chunk failure fails THIS stream, not the loop
             logger.exception("prefill chunk failed for %s", req.uri)
@@ -680,6 +1103,8 @@ class ContinuousBatcher:
         slot.chunks += 1
         self.prefill_chunks_total += 1
         self.chunk_shapes.add((ct, wide))
+        _GEN_PREFILL_CHUNKS.inc()
+        _GEN_TOKENS.labels(phase="prefill").inc(n_valid)
         if slot.prefill_done >= n_prompt:
             self._finalize_prefill(idx, slot, logits)
         return ct
@@ -687,18 +1112,20 @@ class ContinuousBatcher:
     def _finalize_prefill(self, idx: int, slot: _Slot, logits) -> None:
         """Flip a fully prefilled slot live: sample token 0 (the ordinal-0
         draw whole-prompt prefill takes, so chunking never changes a
-        stream), THEN publish to the prefix cache."""
+        stream), THEN publish to the prefix cache. The order matters: a
+        kill at the publish site leaves a clean decoding slot that merely
+        never published."""
         req = slot.request
         tok = int(sample_tokens(logits, [req.seed], [0], [req.temperature],
                                 top_k=self.top_k)[0])
         slot.last_token = tok
         slot.generated = 1
         slot.history = req.prompt.tolist() + [tok]
+        slot.prefilling = False
         if self.spec_k >= 2:
             slot.pending_drafts = propose_kgram(
                 slot.history, self.spec_k - 1, self.spec_ngram)
         self._publish(req, slot.pages)
-        slot.prefilling = False
         self._emit(slot, [tok])
         self._maybe_finish(idx)
 
@@ -775,6 +1202,7 @@ class ContinuousBatcher:
         self.step_ema.observe(time.monotonic() - t0)
         self.steps += 1
         self._occupied_slot_steps += len(live)
+        _GEN_STEPS.inc()
         for i in live:
             with self._lock:
                 slot = self._slots[i]
@@ -874,15 +1302,18 @@ class ContinuousBatcher:
         self.decode_shapes.add((self.n_slots, cfg.pages_per_slot,
                                 cfg.page_size, k))
         t0 = time.monotonic()
-        accepted, tokens, _probs, self.cache = self.model.verify_step(
+        accepted, tokens, draft_probs, self.cache = self.model.verify_step(
             self.cache, ids, lengths, table, seeds, tok_idx, temps,
             page_size=cfg.page_size, top_k=self.top_k)
         accepted = accepted.cpu().numpy()
         tokens = tokens.cpu().numpy()
+        draft_probs = draft_probs.float().cpu().numpy()
         self.step_ema.observe(time.monotonic() - t0)
         self.steps += 1
         self.spec_steps += 1
         self._occupied_slot_steps += len(spec_rows)
+        _GEN_STEPS.inc()
+        _GEN_SPEC_STEPS.inc()
         for i in spec_rows:
             with self._lock:
                 slot = self._slots[i]
@@ -907,6 +1338,10 @@ class ContinuousBatcher:
             self._decode_tokens += len(emit)
             self.spec_drafted += k - 1
             self.spec_accepted += a
+            _GEN_SPEC_TOKENS.labels(kind="drafted").inc(k - 1)
+            _GEN_SPEC_TOKENS.labels(kind="accepted").inc(a)
+            for j in range(min(a + 1, k - 1)):
+                _GEN_SPEC_ACCEPT_PROB.observe(float(draft_probs[i, j]))
             self._emit(slot, emit)
             self._maybe_finish(i)
             with self._lock:
@@ -920,14 +1355,19 @@ class ContinuousBatcher:
         now = time.perf_counter()
         req = slot.request
         meta: Dict[str, Any] = {"uri": req.uri}
-        if req.last_emit_t is None:
+        if req.last_emit_t is not None:
+            _GEN_ITL.observe(now - req.last_emit_t)
+        else:
             # first token of the stream: TTFT (submit -> first emit), the
             # chunks its prefill took and its admission -> first-token wait
+            _GEN_TTFT.labels(priority=req.priority).observe(
+                now - req.submitted_t)
             meta["ttft_s"] = round(now - req.submitted_t, 6)
             meta["chunks"] = slot.chunks
             meta["prefill_wait_ms"] = round((now - slot.admitted_t) * 1e3, 3)
         req.last_emit_t = now
         self.tokens_generated += len(tokens)
+        _GEN_TOKENS.labels(phase="decode").inc(len(tokens))
         cb = req.on_chunk
         if cb is not None:
             try:
@@ -974,18 +1414,99 @@ class ContinuousBatcher:
         return (slot.request, [], outcome, error, slot.generated)
 
     def _finish_cb(self, req: _Request, tokens: List[int], outcome: str,
-                   error: Optional[str] = None, n_tokens: int = 0):
+                   error: Optional[str] = None, n_tokens: int = 0,
+                   retry_after_s: Optional[float] = None):
         self.requests_finished[outcome] = \
             self.requests_finished.get(outcome, 0) + 1
+        _GEN_REQS.labels(outcome=outcome).inc()
         meta = {"uri": req.uri, "outcome": outcome, "n_tokens": n_tokens}
         if error:
             meta["error"] = error
+        if retry_after_s is not None:
+            # shed outcomes: the computed backoff rides the final frame
+            meta["retry_after_s"] = round(retry_after_s, 4)
         if req.on_chunk is not None:
             try:
                 req.on_chunk(tokens, True, meta)
             except Exception:   # a consumer bug must not poison the loop
                 logger.exception("final-frame callback failed for %s",
                                  req.uri)
+
+    # ------------------------------------------------------------- hot swap
+
+    def swap_params(self, params, version: Optional[str] = None,
+                    spec=None) -> None:
+        """Stage an atomic (target params, draft schedule) flip: ``params``
+        (the port's own tree, ``{dotted name: tensor}`` as
+        :meth:`host_params` gives it, or a JAX-layout tree of numpy arrays)
+        and ``spec`` (a :class:`~analytics_zoo_tpu_torch.ops.speculative.
+        SpecDecodeConfig` or its dict form) land as ONE pair between decode
+        steps, so no step verifies new-model drafts with old weights or
+        the other way round. In-flight streams continue: their pending
+        drafts are dropped (the k-gram history survives), the prefix
+        cache's index is invalidated (its K/V came from the old weights),
+        and the sampler's per-stream seeds are untouched.
+
+        The new tensors are staged here, on the caller's thread: on the
+        card, copied on a side stream whose event the serving stream waits
+        on before the first step under them. The flip on the loop thread
+        then swaps each parameter's reference (``param.data``) and copies
+        nothing; the old tensors die with the last step that reads them."""
+        if spec is not None:
+            if isinstance(spec, dict):
+                spec = SpecDecodeConfig(**spec)
+            elif not isinstance(spec, SpecDecodeConfig):
+                raise TypeError(f"spec must be a SpecDecodeConfig or dict, "
+                                f"got {type(spec).__name__}")
+        names = dict(self.model.named_parameters())
+        staged, ready = stage_tensors(_flat_params(params, names),
+                                      self.device)
+        self._pending_swap = (staged, ready, version, spec)
+        self._wake.set()
+
+    def _apply_pending_swap(self):
+        """Land a staged (params, spec schedule) pair between decode steps:
+        the loop thread is the only dispatcher, so no step ever sees a
+        mixed pair."""
+        pend = self._pending_swap
+        if pend is None:
+            return
+        self._pending_swap = None
+        staged, ready, version, spec = pend
+        land_tensors(staged, ready, self.device)
+        for n, p in self.model.named_parameters():
+            p.data = staged[n]
+        self.version = version
+        if spec is not None:
+            self.spec_k = 0 if spec.k == 1 else int(spec.k)
+            self.spec_ngram = int(spec.max_ngram)
+        with self._lock:
+            parked = list(self._preempted)
+            live = [s for s in self._slots if s is not None]
+        for slot in live + parked:
+            # drafts proposed under the OLD target die with it; the k-gram
+            # corpus (history) is model-independent and survives
+            slot.pending_drafts = None
+        if self.prefix_cache is not None:
+            # published K/V was computed under the OLD weights: one
+            # invalidate between steps. In-flight warm streams keep their
+            # own page references; only the index dies
+            dropped = self.prefix_cache.invalidate()
+            if dropped:
+                _events.emit("gen.prefix.invalidated", severity="info",
+                             reason="hot_swap", pages=dropped,
+                             version=str(version))
+        self.swaps += 1
+        _GEN_SWAPS.inc()
+        logger.info("generation batcher swapped to version=%s spec_k=%d",
+                    version, self.spec_k)
+
+    def host_params(self) -> Dict[str, torch.Tensor]:
+        """The served params as host tensors, ``{dotted name: tensor}`` (a
+        state dict: ``swap_params`` takes it back, and
+        ``bridge.nest`` of its numpy views gives the JAX tree)."""
+        return {n: p.detach().to("cpu", copy=True)
+                for n, p in self.model.named_parameters()}
 
     # ------------------------------------------------------------- diagnostics
 
@@ -994,10 +1515,12 @@ class ContinuousBatcher:
             active = sum(s is not None for s in self._slots)
             prefilling = sum(s is not None and s.prefilling
                              for s in self._slots)
+            preempted = len(self._preempted)
         out = {
             "slots": self.n_slots,
             "active_slots": active,
             "prefilling": prefilling,
+            "preempted_parked": preempted,
             "backlog": len(self._backlog) + self._pending.qsize(),
             "step_ema_s": round(self.step_ema.value(), 6),
             "free_pages": self.pool.free_count(),
@@ -1006,6 +1529,7 @@ class ContinuousBatcher:
             "steps": self.steps,
             "tokens_generated": self.tokens_generated,
             "requests": dict(self.requests_finished),
+            "loop_respawns": self.loop_respawns,
             "prefill_buckets": sorted(self.prefill_buckets),
             "distinct_decode_shapes": len(self.decode_shapes),
             "slot_occupancy": round(
@@ -1023,6 +1547,9 @@ class ContinuousBatcher:
                            "chunk": self.prefill_chunks_total,
                            "prefill_from": self.prefills_from,
                            "prefill": self.prefills_whole},
+            "model_version": self.version,
+            "swaps": self.swaps,
+            "preemptions": self.preemptions,
         }
         if self.prefix_cache is not None:
             out["prefix"] = dict(self.prefix_cache.stats(),

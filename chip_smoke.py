@@ -216,6 +216,48 @@ Phases, each fatal on failure (no result line is printed then):
    a step, the largest kernels, the H2D copies and their overlap with
    kernels, and one GRU time step's launches (``[profile-rec]``).
 
+15. the serving remainder (the thirteenth slice), on phase 5's model (bf16,
+   8 slots, page 16, max_seq_len 1024; rebuilt from seed 0) and phase 8's
+   int8 ResNet-50, counts of K1, K2, K5 and K6 set to 0 just before each
+   path, ``zoo_gen_*`` telemetry reset at the start. (a) 8 bulk streams
+   (phase 5's first 8 prompts, 32 greedy tokens) fill the slots; at bulk
+   0's fourth token 2 critical and 4 normal requests arrive (one with a
+   deadline already past, one generous, one cancelled by uri while queued)
+   and at its sixth bulk 1 is cancelled by uri: bulk streams equal an
+   uninterrupted run (bulk 1's a prefix of it), both criticals end before
+   the two bulk streams they preempted, nothing stays parked, the pool sums back, outcomes shed
+   (retry_after_s >= 0.05) and cancelled, one ``admission.generation`` shed
+   record on the flight recorder, K1 = 12 x prefills and K2 = 12 x decode
+   steps; TTFT p50 by priority. (b) phase 5's burst under
+   ``admit_policy="batch"`` and ``"continuous"`` in turns (b, c, c, b):
+   identical streams, tokens/s and their ratio printed. (c) phase 5b's
+   tenant traffic with prefix_cache_pages=256; after 64 emitted tokens
+   another thread swaps to the weights x 1.01 (f32, cast to bf16) with
+   spec k 4: every stream reaches its length, swaps 1, version "v2", the
+   prefix index invalidated, ``host_params()`` the new weights bit for bit,
+   a request after the swap equal to a fresh spec_k=4 batcher's; the time
+   from ``swap_params`` to the first frame under the new weights. (d) 4
+   threads predict fixed batches of 32 on the int8 ResNet-50 while
+   ``swap_params`` re-packs the float params x 1.01: every output equals
+   the old or the new model's bit for bit (computed beforehand),
+   ``last_served_version`` moves, K5/K6 launch after the swap, no plain
+   version runs; stage and gate-hold ms, images/s before, during and
+   after (windows of 4 s before and after the swap, each predict's
+   images counted by its overlap with the window, the predicts each window
+   overlaps printed); phase 14b's SessionRecommender packed weight-only at
+   min_elements 100000 (its two item tables) within 2e-2 of float, within
+   1e-6 of the output's scale of a float model loaded with the tables'
+   ``q * scale`` (a numpy quantization written out here), and holding the
+   tables as int8 codes and scales alone. (e) a
+   chaos kill of the decode loop at its 20th pass during phase 5's burst:
+   one respawn, streams equal to (b)'s; NeuralCF at ML-1M's width served
+   by InferenceModel, 100 user rows published by ``save_row_delta`` over a
+   port checkpoint, read back and applied: untouched users bit-identical,
+   all predictions equal a full swap's, the delta smaller than the base, a
+   quantized model refusing it. (f) the registry's Prometheus text parses
+   and its request, preemption, shed and swap counters equal phase 15's
+   batchers' ``stats()``.
+
 Phase 3 also holds the int8 kernels to their plain versions bit for bit
 (``torch.equal``), f32 and bf16: the quantize pass both launch (codes and
 scales against ``quantize_rows_plain``), K5 (the MLP's shapes with
@@ -239,7 +281,8 @@ K1's, K3's and K4's for phase 13's resumed leg and remat "dots"; K2's on
 phase 5's serving, with ``launches_by_path`` for serving and phase 5b's
 spec, chunked, prefix and all arms; the
 sampling kernel's on serving; K5's and K6's on the int8 serving burst,
-with K5's per MLP predict beside it).
+with K5's per MLP predict beside it; K1's, K2's, K5's and K6's on phase
+15 as ``launches_by_path["serving_remainder"]``).
 The last three lines of standard output are the card's name and power
 limit, the per-kernel JSON, and ``{"ok": true, "device": {...}}``.
 """
@@ -1583,6 +1626,16 @@ def pct(xs, p):
     return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
 
 
+def serving_burst():
+    """Phase 5's seeded burst: 16 prompts of 8..700 tokens, 32 new tokens
+    each, 12 greedy and 4 at temperature 0.8."""
+    rng = np.random.default_rng(4)
+    lens = rng.integers(8, 701, size=16)
+    prompts = [rng.integers(1, VOCAB, size=int(n)).astype(np.int32)
+               for n in lens]
+    return prompts, [0.0] * 12 + [0.8] * 4, 32
+
+
 def phase_serving(torch, model, smi):
     import numpy as np
 
@@ -1595,12 +1648,8 @@ def phase_serving(torch, model, smi):
 
     set_policy(compute_dtype="bfloat16")
     model.to(torch.bfloat16)
-    rng = np.random.default_rng(4)
-    n_req, n_new = 16, 32
-    lens = rng.integers(8, 701, size=n_req)
-    prompts = [rng.integers(1, VOCAB, size=int(n)).astype(np.int32)
-               for n in lens]
-    temps = [0.0] * 12 + [0.8] * 4
+    prompts, temps, n_new = serving_burst()
+    n_req, lens = len(prompts), np.array([len(p) for p in prompts])
     batcher = ContinuousBatcher(model, n_slots=N_SLOTS, page_size=PAGE,
                                 max_seq_len=MAX_SEQ, device="cuda",
                                 autostart=False)
@@ -3754,6 +3803,707 @@ def profile_gru_step(torch, model):
     return out
 
 
+# ------------------------------------------------- phase 15: serving remainder
+
+def _finals_by_name(streams):
+    """An on_chunk factory recording each named stream's tokens, the time
+    and meta of its first frame and of its final one, in ``streams``."""
+    def cb_for(name):
+        def cb(tokens, final, meta):
+            ent = streams.setdefault(name, {"tokens": [], "first": None,
+                                        "final": None, "final_t": None})
+            ent["tokens"].extend(tokens)
+            if ent["first"] is None:
+                ent["first"] = dict(meta)
+            if final:
+                ent["final"] = dict(meta)
+                ent["final_t"] = time.perf_counter()
+        return cb
+    return cb_for
+
+
+def _serve(torch, model, prompts, temps, n_new, stats_sink, **opts):
+    """One fresh batcher on ``model`` serving ``prompts`` at once; returns
+    the streams and the wall time, and appends the batcher's stats to
+    ``stats_sink``."""
+    from analytics_zoo_tpu_torch.serving.generation import ContinuousBatcher
+
+    b = ContinuousBatcher(model, n_slots=N_SLOTS, page_size=PAGE,
+                          max_seq_len=MAX_SEQ, device=DEV["cuda"],
+                          autostart=False, **opts)
+    try:
+        hs = [b.submit(p, max_new_tokens=n_new, temperature=t, seed=100 + i)
+              for i, (p, t) in enumerate(zip(prompts, temps))]
+        t0 = time.perf_counter()
+        b.start()
+        outs = [h.result(timeout_s=600) for h in hs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats_sink.append(b.stats())
+    finally:
+        b.close()
+    return outs, wall
+
+
+def phase15_priorities(torch, model, smi, stats_sink):
+    """15a: 8 bulk streams (phase 5's first 8 prompts, 32 greedy tokens)
+    fill the 8 slots; at bulk 0's fourth token (from its callback, on the
+    loop thread) 2 critical and 4 normal requests arrive: one with a
+    deadline already past, one with a generous one, one cancelled by uri
+    while still queued; at its sixth, bulk 1 is cancelled by uri. Gates:
+    the bulk streams equal an uninterrupted run (bulk 1's tokens a prefix
+    of it), the criticals preempt bulk 7 and 6 and both end before either
+    of them, nothing stays
+    parked, the pool sums back, shed / cancelled outcomes, one
+    ``admission.generation`` shed record, K1 = 12 x prefills and K2 = 12 x
+    decode steps."""
+    from analytics_zoo_tpu_torch.observability import recorder as rec_mod
+    from analytics_zoo_tpu_torch.ops.flash_attention import \
+        flash_attention_fwd
+    from analytics_zoo_tpu_torch.ops.paged_attention import paged_attention
+    from analytics_zoo_tpu_torch.serving import qos
+    from analytics_zoo_tpu_torch.serving.generation import ContinuousBatcher
+
+    prompts, _, n_new = serving_burst()
+    bulk = prompts[:N_SLOTS]
+    want, _ = _serve(torch, model, bulk, [0.0] * N_SLOTS, n_new, stats_sink)
+    rng = np.random.default_rng(15)
+    arrivals = [  # name, prompt length, priority, deadline, new tokens
+        ("critical-0", 64, "critical", None, 16),
+        ("critical-1", 96, "critical", None, 16),
+        ("normal", 48, "normal", None, 16),
+        ("shed", 32, "normal", "past", 16),
+        ("generous", 40, "normal", "generous", 16),
+        ("queued-cancel", 24, "normal", None, 16)]
+    arr_prompts = {name: rng.integers(1, VOCAB, size=n).astype(np.int32)
+                   for name, n, _, _, _ in arrivals}
+    rec = rec_mod.install(capacity=1 << 16)
+    b = ContinuousBatcher(model, n_slots=N_SLOTS, page_size=PAGE,
+                          max_seq_len=MAX_SEQ, device=DEV["cuda"],
+                          autostart=False)
+    streams = {}
+    cb = _finals_by_name(streams)
+
+    def bulk0_cb(tokens, final, meta):
+        cb("bulk-0")(tokens, final, meta)
+        n_out = len(streams["bulk-0"]["tokens"])
+        if n_out == 4 and not final:
+            for name, _, prio, dl, n in arrivals:
+                deadline = {None: None, "past": time.time() - 1.0,
+                            "generous": time.time() + 600.0}[dl]
+                b.submit(arr_prompts[name], max_new_tokens=n, uri=name,
+                         priority=prio, deadline=deadline,
+                         on_chunk=cb(name))
+            b.cancel_uri("queued-cancel")
+        if n_out == 6 and not final:
+            # after both criticals took their slots: an active cancel
+            b.cancel_uri("bulk-1")
+
+    try:
+        flash_attention_fwd.launches = 0
+        paged_attention.launches = 0
+        t0 = time.perf_counter()
+        for i, p in enumerate(bulk):
+            b.submit(p, max_new_tokens=n_new, seed=100 + i, uri=f"bulk-{i}",
+                     priority="bulk",
+                     on_chunk=bulk0_cb if i == 0 else cb(f"bulk-{i}"))
+        b.start()
+        names = [f"bulk-{i}" for i in range(N_SLOTS)] + \
+            [a[0] for a in arrivals]
+        deadline = time.monotonic() + 600
+        while not all(streams.get(n, {}).get("final") for n in names):
+            if time.monotonic() > deadline:
+                raise AssertionError("15a streams did not finish")
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2 = flash_attention_fwd.launches, paged_attention.launches
+        st = b.stats()
+        conserved = b.pool.free_count() == b.pool.capacity
+    finally:
+        b.close()
+        rec_mod.uninstall()
+    stats_sink.append(st)
+    outcome = {n: streams[n]["final"]["outcome"] for n in names}
+    expect = {n: "ok" for n in names}
+    expect.update({"bulk-1": "cancelled", "queued-cancel": "cancelled",
+                   "shed": "shed"})
+    same = [streams[f"bulk-{i}"]["tokens"] == want[i]
+            for i in range(N_SLOTS) if i != 1]
+    prefix1 = want[1][:len(streams["bulk-1"]["tokens"])] == \
+        streams["bulk-1"]["tokens"]
+    # the least urgent bulk slots (latest submitted) are the victims
+    preempted = [f"bulk-{N_SLOTS - 1}", f"bulk-{N_SLOTS - 2}"]
+    crit_end = max(streams[n]["final_t"] for n in ("critical-0", "critical-1"))
+    order_ok = all(crit_end < streams[n]["final_t"] for n in preempted)
+    retry = streams["shed"]["final"].get("retry_after_s", 0.0)
+    shed_recs = [r for r in rec.records("admission.generation")
+                 if r["decision"]["action"] == "shed"]
+    n_prefill = st["dispatches"]["prefill"]
+    n_decode = st["dispatches"]["decode"]
+    ttft = {}
+    for n in names:
+        if streams[n]["first"] and "ttft_s" in streams[n]["first"]:
+            prio = "bulk" if n.startswith("bulk") else \
+                dict((a[0], a[2]) for a in arrivals)[n]
+            ttft.setdefault(prio, []).append(streams[n]["first"]["ttft_s"])
+    res = {"wall_s": wall, "outcomes": outcome,
+           "bulk_identical": sum(same), "bulk1_prefix": prefix1,
+           "criticals_first": order_ok, "preempted": preempted,
+           "preemptions": st["preemptions"],
+           "preempted_parked": st["preempted_parked"],
+           "pool_conserved": conserved, "retry_after_s": retry,
+           "shed_records": len(shed_recs),
+           "ttft_p50_ms_by_priority": {k: pct(v, 50) * 1e3
+                                       for k, v in ttft.items()},
+           "ttft_n_by_priority": {k: len(v) for k, v in ttft.items()},
+           "launches": {"K1": k1, "K2": k2},
+           "prefills": n_prefill, "decode_steps": n_decode, "card": smi}
+    log_line = json.dumps(res)
+    log(f"[serve-qos] 15a {log_line}")
+    ok = (outcome == expect and all(same) and prefix1 and order_ok
+          and st["preemptions"] == 2 and st["preempted_parked"] == 0
+          and conserved and retry >= qos.MIN_RETRY_AFTER_S
+          and len(shed_recs) == 1 and k1 == N_BLOCK * n_prefill
+          and k2 == N_BLOCK * n_decode and k1 > 0 and k2 > 0)
+    if not ok:
+        raise AssertionError("15a: priorities, preemption, shedding or "
+                             "cancel failed a gate")
+    return k1, k2
+
+
+def phase15_batch_policy(torch, model, smi, stats_sink):
+    """15b: phase 5's burst under ``admit_policy="batch"`` and
+    ``"continuous"`` in turns (batch, continuous, continuous, batch): the
+    streams must be identical; tokens/s of each and their ratio are
+    printed (the reference's bench asks for >= 1.5x; not gated)."""
+    prompts, temps, n_new = serving_burst()
+    runs = {"batch": [], "continuous": []}
+    outs0 = None
+    for policy in ("batch", "continuous", "continuous", "batch"):
+        outs, wall = _serve(torch, model, prompts, temps, n_new, stats_sink,
+                            admit_policy=policy)
+        if outs0 is None:
+            outs0 = outs
+        if outs != outs0:
+            raise AssertionError(f"15b: {policy} streams differ")
+        runs[policy].append(sum(len(o) for o in outs) / wall)
+    ratio = statistics.median(runs["continuous"]) / \
+        statistics.median(runs["batch"])
+    log(f"[serve-qos] 15b " + json.dumps(
+        {"tokens_per_s": runs, "continuous_over_batch": ratio,
+         "streams_identical": True, "card": smi}))
+    return outs0
+
+
+def phase15_hot_swap(torch, model, smi, stats_sink):
+    """15c: phase 5b's tenant traffic on a batcher with
+    prefix_cache_pages=256; once the burst has emitted 64 tokens, another
+    thread calls ``swap_params(params x 1.01 (f32, cast to bf16),
+    version="v2", spec={"k": 4, "max_ngram": 3})``. Gates: every stream
+    reaches its length, ``swaps == 1``, ``model_version == "v2"``, the
+    prefix index emptied at the flip (``gen.prefix.invalidated``), the new
+    k adds one decode shape, ``host_params()`` equals the new params bit
+    for bit, and a request after the swap equals a fresh spec_k=4 batcher
+    on the new weights. Prints the wall time from ``swap_params`` to its
+    return (the staging), to the flip on the loop thread and to the first
+    emitted frame under the new weights."""
+    from analytics_zoo_tpu_torch.observability import events as ev
+    from analytics_zoo_tpu_torch.serving.generation import ContinuousBatcher
+
+    old = {n: p.detach().clone() for n, p in model.named_parameters()}
+    params2 = {n: (p.float() * 1.01).to(torch.bfloat16).cpu()
+               for n, p in old.items()}
+    warm, burst = feature_traffic(np.random.default_rng(5))
+    ev.reset_events()
+    b = ContinuousBatcher(model, n_slots=N_SLOTS, page_size=PAGE,
+                          max_seq_len=MAX_SEQ, device=DEV["cuda"],
+                          prefix_cache_pages=256, autostart=False)
+    emitted = [0]
+    trigger = threading.Event()
+    first_new = []
+    streams = {}
+    cb = _finals_by_name(streams)
+
+    def counting(i):
+        inner = cb(f"s{i}")
+
+        def on_chunk(tokens, final, meta):
+            inner(tokens, final, meta)
+            emitted[0] += len(tokens)
+            if emitted[0] >= 64:
+                trigger.set()
+            if b.swaps and not first_new and tokens:
+                first_new.append(time.perf_counter())
+        return on_chunk
+
+    try:
+        hs = [b.submit(p, max_new_tokens=1, seed=i)
+              for i, p in enumerate(warm)]
+        b.start()
+        for h in hs:
+            h.result(timeout_s=600)
+        entries_before = b.prefix_cache.stats()["entries"]
+        for i, (p, n, temp, seed) in enumerate(burst):
+            b.submit(p, max_new_tokens=n, temperature=temp, seed=seed,
+                     on_chunk=counting(i))
+        if not trigger.wait(600):
+            raise AssertionError("15c: the burst never emitted 64 tokens")
+        t_call, wall_call = time.perf_counter(), time.time()
+        b.swap_params(params2, version="v2", spec={"k": 4, "max_ngram": 3})
+        t_staged = time.perf_counter()
+        deadline = time.monotonic() + 600
+        while not all(streams.get(f"s{i}", {}).get("final")
+                      for i in range(len(burst))):
+            if time.monotonic() > deadline:
+                raise AssertionError("15c streams did not finish")
+            time.sleep(0.01)
+        post = np.random.default_rng(16).integers(1, VOCAB, size=200).astype(
+            np.int32)
+        after = b.generate(post, max_new_tokens=32, timeout_s=600)
+        st = b.stats()
+        host = b.host_params()
+    finally:
+        b.close()
+    stats_sink.append(st)
+    lengths_ok = all(streams[f"s{i}"]["final"]["outcome"] == "ok"
+                     and len(streams[f"s{i}"]["tokens"]) == burst[i][1]
+                     for i in range(len(burst)))
+    inval = ev.events(kind="gen.prefix.invalidated")
+    host_same = all(host[n].equal(params2[n]) for n in params2)
+    ks = sorted({s[3] for s in b.decode_shapes if len(s) > 3})
+    fresh = ContinuousBatcher(model, n_slots=N_SLOTS, page_size=PAGE,
+                              max_seq_len=MAX_SEQ, device=DEV["cuda"],
+                              spec_k=4,
+                              spec_ngram=3)
+    try:
+        fresh_out = fresh.generate(post, max_new_tokens=32, timeout_s=600)
+        stats_sink.append(fresh.stats())
+    finally:
+        fresh.close()
+    swap_ms = (first_new[0] - t_call) * 1e3 if first_new else None
+    res = {"streams_reach_length": lengths_ok, "swaps": st["swaps"],
+           "model_version": st["model_version"],
+           "prefix_entries_before": entries_before,
+           "invalidated_pages": inval[-1].fields["pages"] if inval else 0,
+           "spec_ks": ks, "host_params_equal": host_same,
+           "post_swap_equals_fresh": after == fresh_out,
+           "swap_params_call_ms": (t_staged - t_call) * 1e3,
+           # the flip's event stamps time.time() on the loop thread
+           "swap_to_flip_ms": (inval[-1].ts - wall_call) * 1e3
+           if inval else None,
+           "swap_to_first_new_step_ms": swap_ms, "card": smi}
+    log(f"[serve-qos] 15c {json.dumps(res)}")
+    with torch.no_grad():       # phase 15's other paths serve the seed
+        for n, p in model.named_parameters():
+            p.data = old[n]
+    if not (lengths_ok and st["swaps"] == 1 and st["model_version"] == "v2"
+            and entries_before > 0 and inval
+            and inval[-1].fields["pages"] > 0 and ks == [4] and host_same
+            and after == fresh_out and swap_ms is not None):
+        raise AssertionError("15c: the hot swap failed a gate")
+
+
+def phase15_chaos(torch, model, smi, stats_sink, want):
+    """15e, first half: a ChaosSchedule kills the decode loop at its 20th
+    pass through ``serving.generate`` during phase 5's burst; the
+    supervisor respawns it once, and every stream equals 15b's (the same
+    burst without the kill)."""
+    from analytics_zoo_tpu_torch.common.chaos import ChaosSchedule
+
+    prompts, temps, n_new = serving_burst()
+    sched = ChaosSchedule(seed=7).kill("serving.generate", at=20)
+    with sched:
+        outs, wall = _serve(torch, model, prompts, temps, n_new, stats_sink)
+    st = stats_sink[-1]
+    res = {"loop_respawns": st["loop_respawns"],
+           "streams_identical": outs == want,
+           "fired": sched.occurrences("serving.generate"), "wall_s": wall,
+           "card": smi}
+    log(f"[serve-qos] 15e chaos {json.dumps(res)}")
+    if st["loop_respawns"] != 1 or outs != want:
+        raise AssertionError("15e: the chaos kill changed a stream or did "
+                             "not respawn the loop exactly once")
+
+
+def _count_plain(mod, names):
+    """Wrap ``mod``'s functions ``names`` to count their calls; returns
+    (counts, restore)."""
+    counts = {n: 0 for n in names}
+    orig = {n: getattr(mod, n) for n in names}
+
+    def wrap(n):
+        def f(*a, **k):
+            counts[n] += 1
+            return orig[n](*a, **k)
+        return f
+    for n in names:
+        setattr(mod, n, wrap(n))
+    return counts, lambda: [setattr(mod, n, f) for n, f in orig.items()]
+
+
+SWAP_WINDOW_S = 4.0
+
+
+def _held_bytes(module):
+    """Bytes of the storages a module's params and buffers hold (a
+    weight-only leaf holds its int8 codes and f32 scales)."""
+    seen = {}
+    for t in list(module.parameters()) + list(module.buffers()):
+        for u in ((t.q, t.scale) if hasattr(t, "q") else (t,)):
+            st = u.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _weight_only_reference(w):
+    """JAX's weight-only packing written out in numpy (per-output-channel
+    symmetric int8, amax floor 1e-8), returned dequantized."""
+    amax = np.max(np.abs(w), axis=tuple(range(w.ndim - 1)), keepdims=True)
+    scale = (np.maximum(amax, np.float32(1e-8)) / np.float32(127.0)).astype(
+        np.float32)
+    q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+    return q.astype(np.float32) * scale
+
+
+def phase15_int8_swap(torch, state, smi):
+    """15d: the int8 ResNet-50 of phase 8 swapped under load. 4 threads
+    predict fixed batches of 32 in a loop; meanwhile ``swap_params`` flips
+    to the float params x 1.01 and re-packs them. Every output equals,
+    bit for bit, the old or the new model's output for its batch (both
+    computed on the card beforehand), ``last_served_version`` moves, K5/K6
+    launch again after the swap and no plain version runs. Images/s over
+    ``SWAP_WINDOW_S`` before and after the swap and over the swap call
+    itself, each predict counted by the share of its time inside the
+    window. Then the weight-only path: phase 14b's SessionRecommender at
+    min_elements 100000 (its largest Dense kernel has 74120 elements, so
+    none packs to K5; its two 3707 x 64 item tables pack weight-only)
+    predicts within 2e-2 of float and within 1e-6 of its output's scale of
+    a float model that holds the tables' numpy-quantized ``q * scale``,
+    and holds those tables as int8 codes and f32 scales only."""
+    from analytics_zoo_tpu_torch.data.datasets import ML1M_ITEMS
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.models.recommendation import \
+        SessionRecommender
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    set_policy(compute_dtype="float32")
+    rng = np.random.default_rng(17)
+    batches = [rng.normal(size=(IMG_BATCH, IMG, IMG, 3)).astype(np.float32)
+               for _ in range(IMG_THREADS)]
+    model = resnet_on(torch, state, DEV["cuda"])
+    pnames = {n for n, _ in model.named_parameters()}
+    state2 = {k: (v * 1.01 if k in pnames else v) for k, v in state.items()}
+    params2 = {k: state2[k] for k in pnames}
+    ref_new = InferenceModel(max_batch_size=IMG_BATCH,
+                             device=DEV["cuda"]).load(
+        resnet_on(torch, state2, DEV["cuda"])).quantize_int8()
+    new = [ref_new.predict(x) for x in batches]
+    del ref_new
+    im = InferenceModel(supported_concurrent_num=IMG_THREADS,
+                        max_batch_size=IMG_BATCH,
+                        device=DEV["cuda"]).load(model)
+    im.quantize_int8()
+    old = [im.predict(x) for x in batches]
+    plain, restore = _count_plain(f8, ["int8_matmul_fused_plain",
+                                       "int8_conv2d_fused_plain",
+                                       "quantize_rows_plain"])
+    f8.int8_matmul_fused.launches = 0
+    f8.int8_conv2d_fused.launches = 0
+    done, stop, errors = [], threading.Event(), []
+
+    def worker(i):
+        try:
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                y = im.predict(batches[i])
+                done.append((t0, time.perf_counter(), i, y,
+                             im.last_served_version()))
+        except Exception as e:           # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(IMG_THREADS)]
+    try:
+        for th in threads:
+            th.start()
+        # "before" starts once every thread has finished its first predict
+        # (a thread's first call on the card sets up its library handles)
+        t_lim = time.perf_counter() + 120
+        while len({j for _, _, j, *_ in list(done)}) < IMG_THREADS \
+                and not errors and time.perf_counter() < t_lim:
+            time.sleep(0.01)
+        t_warm = time.perf_counter()
+        time.sleep(SWAP_WINDOW_S)
+        t_call = time.perf_counter()
+        im.swap_params(params2, version="v2")
+        t_done = time.perf_counter()
+        at_swap = (f8.int8_matmul_fused.launches,
+                   f8.int8_conv2d_fused.launches)
+        time.sleep(SWAP_WINDOW_S)
+        t_end = time.perf_counter()
+        stop.set()
+        for th in threads:
+            th.join(timeout=600)
+    finally:
+        stop.set()
+        restore()
+    k5, k6 = f8.int8_matmul_fused.launches, f8.int8_conv2d_fused.launches
+    kinds = {"old": 0, "new": 0, "neither": 0}
+    for _, _, i, y, v in done:
+        if np.array_equal(y, old[i]) and v is None:
+            kinds["old"] += 1
+        elif np.array_equal(y, new[i]) and v == "v2":
+            kinds["new"] += 1
+        else:
+            kinds["neither"] += 1
+
+    def window(lo, hi):
+        """Images/s over [lo, hi), each predict's batch counted by the
+        share of its time inside; the predicts overlapping the window."""
+        images, n = 0.0, 0
+        for t0, t1, *_ in done:
+            inside = min(t1, hi) - max(t0, lo)
+            if inside > 0:
+                images += IMG_BATCH * inside / (t1 - t0)
+                n += 1
+        return {"images_per_s": images / (hi - lo), "predicts": n,
+                "s": hi - lo}
+
+    res = {"outputs": kinds, "errors": errors,
+           "stage_ms": im.swap_timings["stage_ms"],
+           "gate_hold_ms": im.swap_timings["gate_ms"],
+           "windows": {"before": window(t_warm, t_call),
+                       "during": window(t_call, t_done),
+                       "after": window(t_done, t_end)},
+           "launches": {"K5": k5, "K6": k6, "K5_after_swap": k5 - at_swap[0],
+                        "K6_after_swap": k6 - at_swap[1]},
+           "plain_calls": plain, "card": smi}
+    ok = (not errors and kinds["neither"] == 0 and kinds["new"] > 0
+          and kinds["old"] > 0 and k5 > at_swap[0] and k6 > at_swap[1]
+          and not any(plain.values()))
+    # weight-only packing
+    sx = np.random.default_rng(18).integers(1, ML1M_ITEMS + 1, size=(
+        256, 10)).astype(np.float32)
+    sh = np.random.default_rng(19).integers(0, ML1M_ITEMS + 1, size=(
+        256, 10)).astype(np.float32)
+
+    def session(seed_model):
+        return SessionRecommender(
+            ML1M_ITEMS, 64, rnn_hidden_layers=(40, 20), session_length=10,
+            include_history=True, mlp_hidden_layers=(40, 20),
+            history_length=10, device=DEV["cuda"], seed=seed_model)
+
+    fim = InferenceModel(max_batch_size=256,
+                         device=DEV["cuda"]).load(session(0))
+    qim = InferenceModel(max_batch_size=256, device=DEV["cuda"]).load(
+        session(0)).quantize_int8(min_elements=100_000)
+    y_float, y_packed = fim.predict([sx, sh]), qim.predict([sx, sh])
+    d = float(np.abs(y_float - y_packed).max())
+    packed = {n: str(p["q"].dtype) for n, p in qim._wo_packed.items()}
+    # the plain reference: a float model holding numpy's q * scale where
+    # the rule packs (float leaves of >= 2 dims and >= 100000 elements)
+    plain_mod = session(0)
+    expect = []
+    with torch.no_grad():
+        for n, p in plain_mod.named_parameters():
+            if p.dim() >= 2 and p.numel() >= 100_000:
+                expect.append(n)
+                w = p.detach().cpu().numpy()
+                p.copy_(torch.from_numpy(_weight_only_reference(w)))
+    y_plain = InferenceModel(max_batch_size=256, device=DEV["cuda"]).load(
+        plain_mod).predict([sx, sh])
+    d_plain = float(np.abs(y_plain - y_packed).max())
+    scale_out = float(np.abs(y_plain).max())
+    float_bytes, packed_bytes = _held_bytes(fim._module), \
+        _held_bytes(qim._module)
+    want_bytes = float_bytes - sum(
+        3 * p["q"].numel() - 4 * p["scale"].numel()
+        for p in qim._wo_packed.values())
+    res["weight_only"] = {"packed": packed, "native_slots": qim.packed_slots,
+                          "max_abs_diff_vs_float": d,
+                          "max_abs_diff_vs_plain": d_plain,
+                          "plain_max_abs_output": scale_out,
+                          "bit_equal_to_plain": bool(
+                              np.array_equal(y_plain, y_packed)),
+                          "held_bytes": {"float": float_bytes,
+                                         "packed": packed_bytes}}
+    log(f"[serve-qos] 15d {json.dumps(res)}")
+    ok = ok and qim.packed_slots == [] and sorted(packed) == sorted(
+        expect) and len(packed) == 2 and all(
+        v == "torch.int8" for v in packed.values()) and d <= 2e-2 \
+        and d_plain <= 1e-6 * scale_out and packed_bytes == want_bytes
+    if not ok:
+        raise AssertionError("15d: the int8 swap under load or the "
+                             "weight-only packing failed a gate")
+    return k5 - at_swap[0], k6 - at_swap[1]
+
+
+def phase15_row_delta(torch, smi):
+    """15e, second half: the explicit NeuralCF at ML-1M's width (seed 0,
+    f32) served by InferenceModel; a base checkpoint saved with the port,
+    100 user rows of its embedding table perturbed and published with
+    ``save_row_delta``, read back with ``read_row_delta`` and applied with
+    ``apply_row_delta``. Gates: untouched users' predictions bit-identical,
+    touched users' equal a full ``swap_params`` to the perturbed params bit
+    for bit, the delta's state.npz smaller than the base's, and a quantized
+    model refusing the patch."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.bridge import nest
+    from analytics_zoo_tpu_torch.data.datasets import ML1M_ITEMS, ML1M_USERS
+    from analytics_zoo_tpu_torch.engine import checkpoint as ck
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+
+    def ncf():
+        return NeuralCF(ML1M_USERS, ML1M_ITEMS, class_num=5,
+                        device=DEV["cuda"])
+
+    rng = np.random.default_rng(20)
+    x = np.stack([rng.integers(1, ML1M_USERS + 1, size=50_000),
+                  rng.integers(1, ML1M_ITEMS + 1, size=50_000)], 1).astype(
+        np.int32)
+    touched = rng.choice(np.arange(1, ML1M_USERS + 1), size=100,
+                         replace=False)
+    im = InferenceModel(max_batch_size=8192, device=DEV["cuda"]).load(ncf())
+    before = im.predict(x)
+    base_params = im.host_params()
+    table = "0_fusedpairembedding.embeddings"
+    p2 = dict(base_params)
+    emb = p2[table].clone()
+    emb[torch.as_tensor(touched)] = emb[torch.as_tensor(touched)] * 1.5 \
+        + 0.01
+    p2[table] = emb
+    tmp = tempfile.mkdtemp(prefix="zoo_rowdelta_")
+    try:
+        base = ck.save_checkpoint(tmp, nest(base_params), iteration=1,
+                                  epoch=0)
+        delta = ck.save_row_delta(tmp, nest(p2), base, iteration=2)
+        base_bytes = os.path.getsize(os.path.join(base, "state.npz"))
+        delta_bytes = os.path.getsize(os.path.join(delta, "state.npz"))
+        entries, _ = ck.read_row_delta(
+            delta, im.load_avals,
+            live_version=ck.read_manifest(base)["version"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    im.apply_row_delta(entries, version="delta-2")
+    torch.cuda.synchronize()
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    got = im.predict(x)
+    full = InferenceModel(max_batch_size=8192, device=DEV["cuda"]).load(ncf())
+    full.swap_params(p2, version="full-2")
+    want = full.predict(x)
+    hit = np.isin(x[:, 0], touched)
+    untouched_same = np.array_equal(got[~hit], before[~hit])
+    touched_full = np.array_equal(got, want)
+    moved = not np.array_equal(got[hit], before[hit])
+    q = InferenceModel(max_batch_size=8192, device=DEV["cuda"]).load(
+        ncf()).quantize_int8()
+    try:
+        q.apply_row_delta(entries)
+        refused = False
+    except RuntimeError:
+        refused = True
+    res = {"delta_bytes": delta_bytes, "base_bytes": base_bytes,
+           "rows": int(sum(len(i) for _, i, _ in entries if i is not None)),
+           "apply_ms": apply_ms, "untouched_bit_identical": untouched_same,
+           "equals_full_swap": touched_full, "touched_moved": moved,
+           "quantized_refuses": refused, "pairs": len(x),
+           "touched_pairs": int(hit.sum()), "card": smi}
+    log(f"[serve-qos] 15e row delta {json.dumps(res)}")
+    if not (untouched_same and touched_full and moved and refused
+            and delta_bytes < base_bytes and res["rows"] == 100):
+        raise AssertionError("15e: the row delta failed a gate")
+
+
+def phase15_telemetry(torch, stats_sink):
+    """15f: the port's registry renders Prometheus text that
+    ``parse_prometheus`` accepts; ``zoo_gen_requests_total{outcome}``,
+    ``zoo_gen_preemptions_total``, ``zoo_gen_shed_total`` and
+    ``zoo_gen_swaps_total`` equal the sums of phase 15's batchers'
+    ``stats()`` (the registry was reset at the phase's start)."""
+    from analytics_zoo_tpu_torch.common import telemetry as tm
+
+    fam = tm.parse_prometheus(tm.render_prometheus())
+
+    def total(name, **labels):
+        return sum(v for _, lab, v in fam.get(name, {}).get("samples", [])
+                   if all(lab.get(k) == w for k, w in labels.items()))
+
+    want_reqs = {}
+    for st in stats_sink:
+        for k, v in st["requests"].items():
+            want_reqs[k] = want_reqs.get(k, 0) + v
+    got_reqs = {lab["outcome"]: v for _, lab, v in
+                fam["zoo_gen_requests_total"]["samples"] if v}
+    res = {"families": len(fam),
+           "requests": got_reqs, "stats_requests": want_reqs,
+           "preemptions": total("zoo_gen_preemptions_total"),
+           "stats_preemptions": sum(s["preemptions"] for s in stats_sink),
+           "shed": total("zoo_gen_shed_total", reason="deadline"),
+           "stats_shed": sum(s["requests"].get("shed", 0)
+                             for s in stats_sink),
+           "swaps": total("zoo_gen_swaps_total"),
+           "stats_swaps": sum(s["swaps"] for s in stats_sink)}
+    log(f"[serve-qos] 15f {json.dumps(res)}")
+    if not (got_reqs == {k: float(v) for k, v in want_reqs.items()}
+            and res["preemptions"] == res["stats_preemptions"]
+            and res["shed"] == res["stats_shed"]
+            and res["swaps"] == res["stats_swaps"]):
+        raise AssertionError("15f: telemetry disagrees with the batchers' "
+                             "stats")
+
+
+def phase_serving_remainder(torch, state, smi):
+    """Phase 15: priorities, preemption, shedding and cancel (15a),
+    run-to-completion against continuous (15b), the hot swap mid-burst
+    (15c), the int8 swap under load and weight-only packing (15d), the
+    chaos kill and the row delta (15e), telemetry (15f). Returns the
+    launch counts of K1, K2 (15a), K5 and K6 (15d, after the swap)."""
+    from analytics_zoo_tpu_torch.common import telemetry as tm
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+
+    t0 = time.perf_counter()
+    tm.reset_telemetry()
+    wall = {}
+    set_policy(compute_dtype="bfloat16")
+    model = full_model(torch, DEV["cuda"]).to(torch.bfloat16)
+    model.eval()
+    stats_sink = []
+    t = time.perf_counter()
+    k1, k2 = phase15_priorities(torch, model, smi, stats_sink)
+    wall["15a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cont = phase15_batch_policy(torch, model, smi, stats_sink)
+    wall["15b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase15_hot_swap(torch, model, smi, stats_sink)
+    wall["15c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase15_chaos(torch, model, smi, stats_sink, cont)
+    wall["15e_chaos"] = time.perf_counter() - t
+    del model
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    k5, k6 = phase15_int8_swap(torch, state, smi)
+    wall["15d"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    phase15_row_delta(torch, smi)
+    wall["15e_delta"] = time.perf_counter() - t
+    phase15_telemetry(torch, stats_sink)
+    wall["phase"] = time.perf_counter() - t0
+    log(f"[serve-qos] phase wall s: {json.dumps(wall)}")
+    set_policy(compute_dtype="float32")
+    return {"K1": k1, "K2": k2, "K5": k5, "K6": k6}
+
+
 def kernel_launch_counts():
     """The launch counts of K1-K6 and the sampler."""
     from analytics_zoo_tpu_torch.ops import flash_attention as tfa
@@ -3887,6 +4637,12 @@ def main(argv=None) -> int:
             del ncf_data_
             torch.cuda.empty_cache()
             phase_recommenders(torch, smi, profile=args.profile)
+            torch.cuda.empty_cache()
+            remainder = phase_serving_remainder(torch, state, smi)
+            for k, key in ((kernels[0], "K1"), (kernels[1], "K2"),
+                           (kernels[5], "K5"), (kernels[6], "K6")):
+                k.setdefault("launches_by_path", {})[
+                    "serving_remainder"] = remainder[key]
             for k, n_resume, n_dots in zip(
                     (kernels[0], kernels[2], kernels[3]), resume, dots):
                 k.setdefault("launches_by_path", {}).update(

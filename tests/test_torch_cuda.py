@@ -39,7 +39,11 @@ the implicit negatives bit for bit the CPU's. The pinned-memory loader
 (``data/pipeline.py``'s ``PinnedCopy``) yields the host batches on the
 card at depths 0, 2 and 4, and Wide & Deep and SessionRecommender train
 streaming steps on the card to the CPU's losses, the same bits at
-depths 0 and 2.
+depths 0 and 2. The serving remainder on the card: a preempted stream
+resumes with the CPU's tokens, a (params, spec) swap serves a fresh
+batcher's tokens, a chaos-killed loop respawns with its streams, an int8
+swap serves K5 on the re-packed kernels bit for bit, and a row delta
+equals a full swap.
 """
 
 import math
@@ -981,3 +985,219 @@ def test_recommender_steps_on_card_match_cpu_at_every_depth(cuda, kind):
     assert card0 == card2
     for a, b in zip(card2, cpu):
         assert abs(a - b) <= 1e-5 * abs(b)
+
+
+# -------------------------------------------------- the serving remainder
+
+def _lm_pair(cuda, **extra):
+    kw = dict(vocab=128, hidden_size=64, n_block=2, n_head=4, seq_len=64,
+              attn_strategy="flash", seed=3, **extra)
+    return TransformerLM(device=cuda, **kw), TransformerLM(device="cpu", **kw)
+
+
+def test_preempted_stream_resumes_on_card_as_on_cpu(cuda):
+    """One slot: a critical request preempts the bulk stream at its third
+    token (from the loop thread); on the card (K1, K2) the streams and the
+    finish order equal the CPU's, and the bulk stream equals an
+    uninterrupted run's."""
+    from analytics_zoo_tpu_torch.serving.generation import ContinuousBatcher
+
+    got = []
+    for dev, model in zip((cuda, "cpu"), _lm_pair(cuda)):
+        ref = ContinuousBatcher(model, n_slots=1, page_size=16,
+                                max_seq_len=64, device=dev)
+        try:
+            want = ref.generate([5, 6, 7, 8], max_new_tokens=10)
+        finally:
+            ref.close()
+        b = ContinuousBatcher(model, n_slots=1, page_size=16, max_seq_len=64,
+                              device=dev)
+        order, toks = [], {"bulk": [], "crit": []}
+
+        def on(name):
+            def cb(tokens, final, meta):
+                toks[name].extend(tokens)
+                if final:
+                    order.append(name)
+                if name == "bulk" and len(toks["bulk"]) == 3 and not final:
+                    b.submit([9, 10, 11], max_new_tokens=4,
+                             priority="critical", on_chunk=on("crit"))
+            return cb
+        try:
+            b.submit([5, 6, 7, 8], max_new_tokens=10, priority="bulk",
+                     on_chunk=on("bulk")).result(timeout_s=120)
+            import time
+            deadline = time.monotonic() + 60
+            while len(order) < 2 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            st = b.stats()
+        finally:
+            b.close()
+        assert toks["bulk"] == want and order == ["crit", "bulk"]
+        assert st["preemptions"] == 1 and st["preempted_parked"] == 0
+        assert b.pool.free_count() == b.pool.capacity
+        got.append((toks, order))
+    assert got[0] == got[1]
+
+
+def test_swap_params_on_card_equals_a_fresh_batcher(cuda):
+    """A swap to the weights x 1.01 with spec k 3 lands between steps on
+    the card: the staged copy waits on its event, the flip swaps
+    references, the stream survives, and a request after the swap gives a
+    fresh spec_k=3 batcher's tokens on the same weights."""
+    from analytics_zoo_tpu_torch.serving.generation import ContinuousBatcher
+
+    model, _ = _lm_pair(cuda)
+    params2 = {n: (p.detach().float() * 1.01).to(p.dtype).cpu()
+               for n, p in model.named_parameters()}
+    b = ContinuousBatcher(model, n_slots=2, page_size=16, max_seq_len=64,
+                          device=cuda, prefix_cache_pages=8)
+    toks = []
+
+    def cb(tokens, final, meta):
+        toks.extend(tokens)
+        if len(toks) >= 2 and not hasattr(cb, "sent"):
+            cb.sent = True
+            b.swap_params(params2, version="v2",
+                          spec={"k": 3, "max_ngram": 2})
+    try:
+        b.submit(list(range(1, 20)), max_new_tokens=20, on_chunk=cb).result(
+            timeout_s=120)
+        after = b.generate([3, 1, 4, 1, 5], max_new_tokens=8)
+        host = b.host_params()
+        assert b.swaps == 1 and b.version == "v2" and b.spec_k == 3
+    finally:
+        b.close()
+    assert len(toks) == 20
+    assert all(host[n].equal(params2[n]) for n in params2)
+    assert all(p.device.type == torch.device(cuda).type
+               for p in model.parameters())
+    fresh = ContinuousBatcher(model, n_slots=2, page_size=16, max_seq_len=64,
+                              device=cuda, spec_k=3, spec_ngram=2)
+    try:
+        assert fresh.generate([3, 1, 4, 1, 5], max_new_tokens=8) == after
+    finally:
+        fresh.close()
+
+
+def test_chaos_kill_on_card_keeps_streams(cuda):
+    from analytics_zoo_tpu_torch.common.chaos import ChaosSchedule
+    from analytics_zoo_tpu_torch.serving.generation import ContinuousBatcher
+
+    model, _ = _lm_pair(cuda)
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8], [9, 10]]
+
+    def burst():
+        b = ContinuousBatcher(model, n_slots=2, page_size=16,
+                              max_seq_len=64, device=cuda)
+        try:
+            hs = [b.submit(p, max_new_tokens=8, temperature=0.5, seed=i)
+                  for i, p in enumerate(prompts)]
+            return [h.result(timeout_s=120) for h in hs], b.loop_respawns
+        finally:
+            b.close()
+
+    clean = burst()
+    with ChaosSchedule(seed=1).kill("serving.generate", at=5):
+        killed = burst()
+    assert killed == (clean[0], 1) and clean[1] == 0
+
+
+def _int8_mlp(dev, seed=0):
+    from analytics_zoo_tpu_torch.nn.layers import Dense
+    from analytics_zoo_tpu_torch.nn.topology import Sequential
+
+    return Sequential([Dense(256, activation="relu", input_shape=(256,)),
+                       Dense(64, activation="softmax")], device=dev,
+                      seed=seed)
+
+
+def test_int8_swap_on_card_serves_the_repacked_kernels(cuda):
+    """A quantized InferenceModel swapped to new weights re-packs them and
+    serves through K5 bit for bit what a fresh model quantized from them
+    serves; no plain version runs."""
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    x = np.random.default_rng(0).normal(size=(8, 256)).astype(np.float32)
+    im = InferenceModel(max_batch_size=8, device=cuda).load(
+        _int8_mlp(cuda)).quantize_int8()
+    old = im.predict(x)
+    params2 = {n: t * 1.01 for n, t in im.host_params().items()}
+    ref = InferenceModel(max_batch_size=8, device=cuda).load(
+        _int8_mlp(cuda))
+    ref.swap_params(params2)
+    ref.quantize_int8()
+    f8.int8_matmul_fused.launches = 0
+    im.swap_params(params2, version="v2")
+    got = im.predict(x)
+    assert f8.int8_matmul_fused.launches >= 2
+    np.testing.assert_array_equal(got, ref.predict(x))
+    assert not np.array_equal(got, old)
+    assert im.last_served_version() == "v2"
+
+
+def test_weight_only_on_card_holds_int8_and_equals_the_dequantized(cuda):
+    """A model with no int8-computable layer packs its embedding table
+    weight-only: the card holds the table's int8 codes and scales and no
+    float copy, and the predict equals, bit for bit, a float model that
+    holds the table's ``q * scale``."""
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel, _quantize_leaf
+    from analytics_zoo_tpu_torch.nn.layers import GRU, Dense, Embedding
+    from analytics_zoo_tpu_torch.nn.topology import Sequential
+
+    def model():
+        return Sequential([Embedding(500, 32, input_shape=(5,)), GRU(8),
+                           Dense(4, activation="softmax")], device=cuda,
+                          seed=0)
+
+    x = np.random.default_rng(0).integers(0, 500, size=(16, 5)).astype(
+        np.int32)
+    im = InferenceModel(max_batch_size=16, device=cuda).load(
+        model()).quantize_int8()
+    name = "0_embedding.embeddings"
+    table = im._module.get_parameter(name)
+    assert table.q.dtype == torch.int8 and table.q.is_cuda
+    assert not any(type(t) is torch.nn.Parameter and t.shape == table.shape
+                   for t in im._module.parameters())
+    plain = model()
+    with torch.no_grad():
+        w = plain.get_parameter(name)
+        packed = _quantize_leaf(w.cpu().numpy())
+        w.copy_(torch.from_numpy(packed["q"].astype(np.float32)
+                                 * packed["scale"]))
+    ref = InferenceModel(max_batch_size=16, device=cuda).load(plain)
+    np.testing.assert_array_equal(im.predict(x), ref.predict(x))
+
+
+def test_row_delta_on_card_equals_a_full_swap(cuda, tmp_path):
+    from analytics_zoo_tpu_torch.bridge import nest
+    from analytics_zoo_tpu_torch.engine import checkpoint as ck
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+
+    x = np.stack([np.arange(1, 201) % 50 + 1, np.arange(200) % 30 + 1],
+                 1).astype(np.int32)
+    im = InferenceModel(max_batch_size=256, device=cuda).load(
+        NeuralCF(50, 30, class_num=5, device=cuda))
+    base = im.host_params()
+    p2 = dict(base)
+    table = "0_fusedpairembedding.embeddings"
+    p2[table] = base[table].clone()
+    p2[table][[3, 7]] += 0.5
+    b = ck.save_checkpoint(str(tmp_path), nest(base), iteration=1, epoch=0)
+    d = ck.save_row_delta(str(tmp_path), nest(p2), b, iteration=2)
+    entries, _ = ck.read_row_delta(d, im.load_avals)
+    before = im.predict(x)
+    im.apply_row_delta(entries)
+    got = im.predict(x)
+    full = InferenceModel(max_batch_size=256, device=cuda).load(
+        NeuralCF(50, 30, class_num=5, device=cuda))
+    full.swap_params(p2)
+    np.testing.assert_array_equal(got, full.predict(x))
+    hit = np.isin(x[:, 0], [3, 7])
+    np.testing.assert_array_equal(got[~hit], before[~hit])
+    assert not np.array_equal(got[hit], before[hit])

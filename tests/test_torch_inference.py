@@ -146,11 +146,8 @@ def test_quantize_int8_packs_the_slots_jax_packs(min_elements):
     jm, params, state, tm = _pair_models()
     want = _jax_packed_slots(jm, params, min_elements)
     im = InferenceModel(device="cpu").load(tm, params, state)
-    if not want:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            im.quantize_int8(min_elements)
-        return
     im.quantize_int8(min_elements)
+    # no int8-computable slot at this floor: both packages pack weight-only
     assert im.packed_slots == want
     x = np.random.default_rng(2).normal(size=(3, 8, 8, 4)).astype(np.float32)
     jim = JaxInferenceModel(max_batch_size=4).load(jm, params, state)
@@ -229,9 +226,7 @@ def test_device_apply_runs_the_quantized_forward():
 
 @pytest.mark.parametrize("call", [
     lambda im: im.load_tf("p"),
-    lambda im: im.load_fn(None, {}), lambda im: im.host_params(),
-    lambda im: im.probe_forward({}, None), lambda im: im.swap_params({}),
-    lambda im: im.apply_row_delta([]), lambda im: im.last_served_version(),
+    lambda im: im.load_fn(None, {}),
     lambda im: im.check_fused_dispatch(None),
     lambda im: im.check_memory(None),
     lambda im: im.warm_up(np.ones((1, 16), np.float32), graph_checks="warn")])

@@ -41,8 +41,29 @@ def test_importing_every_port_module_leaves_jax_out():
                 "engine.checkpoint", "data.pipeline", "nn.layers.recurrent",
                 "models.recommendation.features",
                 "models.recommendation.wide_and_deep",
-                "models.recommendation.session_recommender"):
+                "models.recommendation.session_recommender",
+                "common.telemetry", "common.locks", "observability",
+                "observability.events", "observability.recorder",
+                "observability.traces", "serving.qos", "inference.summary"):
         assert f"analytics_zoo_tpu_torch.{mod}" in res["modules"]
+
+
+def test_the_serving_remainder_is_in_the_port():
+    """The serving remainder's modules mirror the JAX package's paths; the
+    walk above imports them without JAX, and the observability package
+    exports only what the port has."""
+    for rel in ("common/telemetry.py", "common/locks.py",
+                "observability/events.py", "observability/recorder.py",
+                "observability/traces.py", "serving/qos.py",
+                "inference/summary.py"):
+        assert (PKG / rel).is_file(), rel
+        assert (ROOT / "analytics_zoo_tpu" / rel).is_file(), rel
+    import analytics_zoo_tpu_torch.observability as obs
+
+    assert set(obs.__all__) == {"FlightRecorder", "attach_jsonl", "emit",
+                                "events", "export_trace", "recorder",
+                                "reset_events", "trace_summaries", "traces"}
+    assert all(hasattr(obs, name) for name in obs.__all__)
 
 
 def test_the_ncf_slice_is_in_the_port():
