@@ -170,14 +170,20 @@ class ChaosSchedule:
 #: the chaos sites the port's code marks: a typo'd site never fires, so a
 #: drill aimed at it would test nothing
 KNOWN_SITES = {
+    "broker.handle",      # serving/broker.py, each command dispatch
     "ckpt.write",         # engine/checkpoint.py writer (serialize->publish)
+    "conn.call",          # serving/client.py, each broker round trip
     "data.prefetch",      # data/pipeline.py, once a produced batch
     "estimator.step",     # engine/estimator.py, every step (or block)
-    "overload.shed",      # serving/generation.py, each deadline shed
+    "overload.shed",      # each deadline or admission shed (the frontend,
+                          # the micro-batcher, the engines)
     "prefill.chunk",      # serving/generation.py, before each chunk dispatch
     "prefix.publish",     # serving/generation.py, between a stream's prefill
                           # and its prefix-cache publish
     "serving.generate",   # serving/generation.py, each decode-loop pass
+    "serving.infer",      # serving/engine.py, each infer-worker batch
+    "swap.stage",         # serving/hotswap.py, between a swap's checks and
+                          # its load
 }
 
 

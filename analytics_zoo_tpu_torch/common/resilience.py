@@ -7,18 +7,22 @@ JAX): retry/backoff policies and heartbeat-based health tracking.
   predicate. ``Estimator.fit``'s rollback loop drives its retries through
   a :class:`RetryTracker`; every failure it records counts in
   ``zoo_retry_attempts_total``.
+* :class:`CircuitBreaker` — closed/open/half-open over a sliding outcome
+  window (``zoo_breaker_state``, ``zoo_breaker_opens_total``, a
+  ``breaker.open`` event); the HTTP frontend guards its broker path with
+  one, so a dead broker answers 503 at once.
 * :class:`HealthRegistry` / :class:`Heartbeat` — liveness bookkeeping for
   worker threads (``zoo_component_alive``); ``ContinuousBatcher(registry=)``
-  accepts one, as the JAX batcher does.
+  and ``ClusterServing`` take one, as the JAX ones do.
 
 Every primitive takes injectable ``clock``/``sleep`` so the deterministic
 fault-injection harness (:mod:`.chaos`) can test them without real
-flakiness or wall-clock waits. Not ported yet: ``CircuitBreaker``, which
-comes with its first caller, the serving client (ROADMAP Queue 1, item 8).
+flakiness or wall-clock waits.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import random
 import time
@@ -28,12 +32,30 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 from . import telemetry as _tm
 from .locks import traced_lock
 
-# heartbeat state lands on the shared scrape: live registries sit in a
-# weak set and a scrape-time collector walks them
+# breaker/heartbeat state lands on the shared scrape: live instances register
+# into weak sets and scrape-time collectors walk them — no per-beat overhead
+# beyond what the classes already pay
+_LIVE_BREAKERS: "weakref.WeakSet[CircuitBreaker]" = weakref.WeakSet()
 _LIVE_REGISTRIES: "weakref.WeakSet[HealthRegistry]" = weakref.WeakSet()
+_BREAKER_STATE_VALUE = {"closed": 0.0, "half_open": 1.0, "open": 2.0}
+_BREAKER_OPENS = _tm.counter("zoo_breaker_opens_total",
+                             "Circuit-breaker open transitions",
+                             labels=("name",))
 _RETRIES = _tm.counter("zoo_retry_attempts_total",
                        "Failures recorded by retry trackers (each implies a "
                        "backoff or a terminal retry error)")
+
+
+def _collect_breaker_states():
+    # same-named breakers (two frontends in one process both default to
+    # "serving-frontend") aggregate by WORST state, so an open breaker can
+    # never be masked by a healthy same-named sibling on the scrape
+    out = {}
+    for b in list(_LIVE_BREAKERS):
+        key = (b.name,)
+        v = _BREAKER_STATE_VALUE.get(b.state, -1.0)
+        out[key] = max(out.get(key, -1.0), v)
+    return out.items()
 
 
 def _collect_component_liveness():
@@ -48,6 +70,9 @@ def _collect_component_liveness():
     return out.items()
 
 
+_tm.collector("zoo_breaker_state",
+              "Circuit-breaker state (0=closed, 1=half_open, 2=open)",
+              _collect_breaker_states, labels=("name",))
 _tm.collector("zoo_component_alive",
               "Heartbeat liveness per registered component (1=alive)",
               _collect_component_liveness, labels=("registry", "component"))
@@ -219,6 +244,165 @@ class RetryTracker:
 
 
 # --------------------------------------------------------------------------
+# circuit breaker
+# --------------------------------------------------------------------------
+
+class CircuitBreaker:
+    """Closed/open/half-open breaker over a sliding outcome window.
+
+    CLOSED: calls flow; outcomes land in a ``window``-sized deque; when the
+    window holds >= ``failure_threshold`` failures the circuit OPENs.
+    OPEN: ``allow()`` is False until ``reset_timeout_s`` passes, then the
+    breaker goes HALF_OPEN and admits up to ``half_open_max_calls`` probes.
+    HALF_OPEN: a probe success closes the circuit (window cleared); a probe
+    failure re-opens it and restarts the timer.
+
+    Thread-safe; ``clock`` is injectable for deterministic tests.
+    """
+
+    CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
+
+    def __init__(self, failure_threshold: int = 5, window: int = 20,
+                 reset_timeout_s: float = 5.0, half_open_max_calls: int = 1,
+                 name: str = "breaker",
+                 clock: Optional[Callable[[], float]] = None):
+        if failure_threshold < 1:
+            raise ValueError("failure_threshold must be >= 1")
+        self.name = name
+        self.failure_threshold = failure_threshold
+        self.reset_timeout_s = reset_timeout_s
+        self.half_open_max_calls = half_open_max_calls
+        self._clock = clock or time.monotonic
+        # the breaker lock is taken UNDER other locks (the router resolves
+        # probes while holding ReplicaRouter._lock) and acquires no lock of
+        # its own — the leaf declaration is what makes that nesting legal,
+        # and the static pass + runtime witness both enforce it
+        # zoo-lock: leaf
+        self._lock = traced_lock("CircuitBreaker._lock")
+        self._outcomes: collections.deque = collections.deque(maxlen=window)
+        self._state = self.CLOSED
+        self._opened_at = 0.0
+        self._probes = 0
+        _LIVE_BREAKERS.add(self)
+
+    # -- state ---------------------------------------------------------------
+    @property
+    def state(self) -> str:
+        with self._lock:
+            self._maybe_half_open()
+            return self._state
+
+    def _maybe_half_open(self):  # caller holds the lock
+        if self._state == self.OPEN and \
+                self._clock() - self._opened_at >= self.reset_timeout_s:
+            self._state = self.HALF_OPEN
+            self._probes = 0
+
+    def _open(self):  # caller holds the lock
+        self._state = self.OPEN
+        self._opened_at = self._clock()
+        self._outcomes.clear()
+        _BREAKER_OPENS.labels(name=self.name).inc()
+
+    def retry_after_s(self) -> float:
+        """Seconds until the next probe is admitted (0 when not open)."""
+        with self._lock:
+            if self._state != self.OPEN:
+                return 0.0
+            return max(0.0, self.reset_timeout_s
+                       - (self._clock() - self._opened_at))
+
+    # -- protocol ------------------------------------------------------------
+    def allow(self) -> bool:
+        """True if a call may proceed right now (reserves a half-open probe
+        slot — pair every allowed call with a record_success/failure)."""
+        with self._lock:
+            self._maybe_half_open()
+            if self._state == self.OPEN:
+                return False
+            if self._state == self.HALF_OPEN:
+                if self._probes >= self.half_open_max_calls:
+                    return False
+                self._probes += 1
+            return True
+
+    def record_success(self):
+        with self._lock:
+            if self._state == self.HALF_OPEN:
+                self._state = self.CLOSED
+                self._outcomes.clear()
+                self._probes = 0
+            else:
+                self._outcomes.append(True)
+
+    def _emit_open(self, cause: str) -> None:
+        """Decision event for an OPEN transition — emitted OUTSIDE the
+        breaker lock (the lock is a declared leaf). Callers may still hold
+        THEIR locks here (the router resolves probes under its own); emit is
+        safe there — sink I/O runs on the event log's drain thread, never
+        on this thread."""
+        from ..observability import events as _ev
+
+        _ev.emit("breaker.open", severity="warning", name=self.name,
+                 cause=cause)
+
+    def record_failure(self):
+        opened = False
+        with self._lock:
+            if self._state == self.HALF_OPEN:
+                self._open()
+                opened = True
+            else:
+                self._outcomes.append(False)
+                if sum(1 for ok in self._outcomes if not ok) \
+                        >= self.failure_threshold:
+                    self._open()
+                    opened = True
+        if opened:
+            self._emit_open("failures")
+
+    def trip(self):
+        """Force the circuit OPEN immediately, regardless of the outcome
+        window — out-of-band eviction (a health registry declaring the
+        guarded component dead shouldn't wait for ``failure_threshold``
+        doomed calls to discover it). The normal open → half-open → probe
+        readmission path applies from here."""
+        opened = False
+        with self._lock:
+            if self._state != self.OPEN:
+                self._open()
+                opened = True
+            else:
+                self._opened_at = self._clock()   # restart the probe timer
+        if opened:
+            self._emit_open("tripped")
+
+    def reset(self):
+        """Force-close on out-of-band proof of recovery — the inverse of
+        :meth:`trip`. A supervisor that SEES the guarded component healthy
+        again (a re-registered host heartbeating) shouldn't make traffic
+        wait out the reset timeout to rediscover it; the outcome window
+        restarts clean."""
+        with self._lock:
+            self._state = self.CLOSED
+            self._outcomes.clear()
+            self._probes = 0
+
+    def call(self, fn: Callable, *args, **kw) -> Any:
+        """Run ``fn`` through the breaker; raises :class:`CircuitOpenError`
+        without calling when open."""
+        if not self.allow():
+            raise CircuitOpenError(self.name, self.retry_after_s())
+        try:
+            result = fn(*args, **kw)
+        except BaseException:
+            self.record_failure()
+            raise
+        self.record_success()
+        return result
+
+
+# --------------------------------------------------------------------------
 # heartbeats / health
 # --------------------------------------------------------------------------
 
@@ -382,7 +566,7 @@ class HealthRegistry:
                 "components": comps}
 
 
-__all__ = ["CircuitOpenError", "DeadlineExceededError",
+__all__ = ["CircuitBreaker", "CircuitOpenError", "DeadlineExceededError",
            "HealthRegistry", "Heartbeat", "ResilienceError",
            "RetryAbortedError", "RetryExhaustedError", "RetryPolicy",
            "RetryTracker"]

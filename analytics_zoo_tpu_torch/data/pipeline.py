@@ -16,9 +16,10 @@ producers feeding a bounded queue, and the pinned-memory copy to the card.
   the consuming stream waits on), and :func:`device_prefetch` over it.
 
 The JAX package's producer-stall and consumer-wait histograms and its
-``zoo_data_prefetch_queue_depth`` gauge wait for the telemetry module
-(ROADMAP Queue 1, item 8); :meth:`PrefetchLoader.queue_depth` stands in
-for the gauge.
+``zoo_data_prefetch_queue_depth`` gauge are not ported yet: they come with
+the training counters (ROADMAP Queue 1, item 8's next slice; the registry
+they report to, ``common/telemetry.py``, is ported).
+:meth:`PrefetchLoader.queue_depth` stands in for the gauge.
 """
 
 from __future__ import annotations

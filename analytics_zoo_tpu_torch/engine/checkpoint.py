@@ -43,8 +43,8 @@ returns ``[(leaf_index, idx, rows)]`` for
 ``(shape, dtype)`` digest a swap is validated by.
 
 Not ported: the ``zoo_train_checkpoint_snapshot_seconds`` /
-``..._write_seconds`` histograms (ROADMAP Queue 1, item 8);
-:data:`timings` keeps the same two durations.
+``..._write_seconds`` histograms (the training counters, ROADMAP Queue 1,
+item 8's next slice); :data:`timings` keeps the same two durations.
 """
 
 from __future__ import annotations

@@ -29,14 +29,16 @@ the device keeps the JAX path's ~4x size cut.
 
 Hot swap: ``load`` records the load-time template (parameter names in
 JAX's flatten order, ``(shape, dtype)`` per leaf, the signature).
-``swap_params`` stages new weights — re-packed for a quantized model,
-copied to the device on a side stream — BEFORE it holds every concurrency
-slot (``_hold_all_slots``, which also waits for borrowed
+``swap_params`` stages new weights (``stage_params``: re-packed for a
+quantized model, copied to the device on a side stream; ``probe_staged``
+runs them on a private copy of the module) BEFORE it holds every
+concurrency slot (``_hold_all_slots``, which also waits for borrowed
 ``predict_async`` slots), and inside that gate only flips references, so
 no request ever sees mixed weights; K5/K6 serve the re-packed kernels with
-nothing else changed. ``apply_row_delta`` scatters a row-delta publish
-(``engine/checkpoint.read_row_delta``) into copies of the touched leaves
-and flips those in the same way; a quantized model refuses it.
+nothing else changed. ``apply_row_delta`` scatters
+a row-delta publish (``engine/checkpoint.read_row_delta``) into copies of
+the touched leaves and flips those in the same way; a quantized model
+refuses it.
 ``last_served_version`` is the version that served this thread's last
 ``predict``. ``summary=`` feeds an ``InferenceSummary``.
 
@@ -65,6 +67,7 @@ from ..bridge import flat_tree, land_tensors, stage_tensors, \
 from ..common import telemetry as _tm
 from ..common.locks import traced_lock
 from ..engine.checkpoint import leaf_dtype_name, param_tree_signature
+from ..nn.graph import GraphModule
 from ..nn.module import resolve_device
 from ..ops.int8 import quantize_weight
 from ..ops.int8_fused import kernel_major
@@ -188,8 +191,38 @@ def _set_param(module, name: str, tensor: torch.Tensor) -> None:
         leaf, torch.nn.Parameter(tensor, requires_grad=False))
 
 
+def _deepcopy_module(module, memo: Dict[int, Any]):
+    """``copy.deepcopy(module, memo)``, each graph's nodes copied first in
+    topological order: a node's copy then finds its inbound nodes' copies
+    in the memo, where a deep graph (ResNet-50's ~175 nodes) would
+    otherwise recurse along the inbound chain past Python's limit."""
+    for m in module.modules():
+        if isinstance(m, GraphModule):
+            for node in m.nodes:
+                copy.deepcopy(node, memo)
+    return copy.deepcopy(module, memo)
+
+
 def _host_f32(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32).numpy()
+
+
+class StagedParams:
+    """New weights on the model's device, ready to probe and flip
+    (:meth:`InferenceModel.stage_params`). ``tensors``: the staged tensors
+    by name (a packed leaf as ``#q``/``#scale``, a kernel's kernel-major
+    copy as ``#qt``); ``ready``: the side stream's event (None on the
+    CPU); ``install(module)`` puts them into a module by reference, the
+    live one at the flip or the probe's private copy; ``packing``: the
+    ``(packed slots, weight-only leaves)`` they carry, None for a float
+    model; ``stage_ms``: what staging took."""
+
+    __slots__ = ("tensors", "ready", "install", "packing", "stage_ms")
+
+    def __init__(self, tensors, ready, install, packing=None):
+        self.tensors, self.ready = tensors, ready
+        self.install, self.packing = install, packing
+        self.stage_ms = 0.0
 
 
 def _to_numpy(y, m: int):
@@ -324,10 +357,10 @@ class InferenceModel:
             raise RuntimeError("the model is already quantized")
         t0 = time.perf_counter()
         self._quant_min_elements = min_elements
-        staged, ready, flips = self._build_quantized(self.host_params(),
-                                                     min_elements)
-        land_tensors(staged, ready, self.device)
-        flips()
+        staged = self._build_quantized(self.host_params(), min_elements)
+        land_tensors(staged.tensors, staged.ready, self.device)
+        staged.install(self._module)
+        self.packed_slots, self._wo_packed = staged.packing
         self._keys.clear()
         self._quantized = True
         self.quantize_seconds += time.perf_counter() - t0
@@ -339,12 +372,10 @@ class InferenceModel:
         return _quantize_module_params(self._module, min_elements)
 
     def _build_quantized(self, host: Dict[str, torch.Tensor],
-                         min_elements: int):
+                         min_elements: int) -> "StagedParams":
         """Pack ``host`` (an unquantized host tree in the load-time layout)
-        for int8 serving and stage the result on the device. Returns
-        ``(staged, ready, flips)``: ``flips()`` installs the staged tensors
-        by reference (call it after :func:`~..bridge.land_tensors`). Shared
-        by :meth:`quantize_int8` and the swap's re-pack, so a swap lands a
+        for int8 serving and stage the result on the device. Shared by
+        :meth:`quantize_int8` and a swap's re-pack, so a swap lands a
         consistent set."""
         slots = (self.packed_slots if self._quantized
                  else self._native_slots(min_elements))
@@ -372,25 +403,22 @@ class InferenceModel:
                 staged[n + "#qt"] = kernel_major(staged[n + "#q"])
 
         staged, ready = stage_tensors(tensors, self.device, make)
-        params = dict(self._module.named_parameters())
-        module = self._module
 
-        def flips():
+        def install(module):
             for n, slot in kernels.items():
                 module.get_submodule(slot).pack_int8(
                     {k: staged[f"{n}#{k}"] for k in ("q", "scale", "qt")})
             for n in wo:
                 _set_param(module, n, _WeightOnlyInt8(staged[n + "#q"],
                                                       staged[n + "#scale"]))
-            for n, p in params.items():
+            for n, p in module.named_parameters():
                 if n in staged:
                     p.data = staged[n]
-            self.packed_slots = list(slots)
-            self._wo_packed = {n: {"q": staged[n + "#q"],
-                                   "scale": staged[n + "#scale"]}
-                               for n in wo}
 
-        return staged, ready, flips
+        packing = (list(slots), {n: {"q": staged[n + "#q"],
+                                     "scale": staged[n + "#scale"]}
+                                 for n in wo})
+        return StagedParams(staged, ready, install, packing)
 
     def _param_dtype(self, name: str) -> torch.dtype:
         # the aval's numpy name ("float32", "bfloat16") is torch's too
@@ -448,7 +476,7 @@ class InferenceModel:
         # the packed leaves are not copied: the candidate replaces them
         skip = {id(self._module.get_parameter(n)): None
                 for n in self._wo_packed}
-        probe = copy.deepcopy(self._module, memo=skip)
+        probe = _deepcopy_module(self._module, skip)
         for slot in self.packed_slots:
             layer = probe.get_submodule(slot)
             for b in ("kernel_q", "kernel_scale", "kernel_qt"):
@@ -463,9 +491,58 @@ class InferenceModel:
                     _set_param(probe, n, value)
                 else:
                     named[n].data = value
-            xs = [torch.as_tensor(np.asarray(a)).to(self.device) for a in
-                  (x if isinstance(x, (list, tuple)) else [x])]
-            return probe(xs if isinstance(x, (list, tuple)) else xs[0])
+            return probe(self._device_inputs(x))
+
+    def stage_params(self, params) -> StagedParams:
+        """Validate ``params`` (a tree in the load-time layout: the port's
+        ``{dotted name: tensor}`` or a JAX-layout numpy tree) and put them
+        on the device for a flip, the tree's one crossing to the card: a
+        quantized model re-packs on the host first; the tensors cross in
+        a side-stream copy (``bridge.stage_tensors``), with the
+        kernel-major copies made there. Nothing live changes:
+        :meth:`probe_staged` runs the result, :meth:`swap_params` flips it
+        in."""
+        flat = self._check_tree(params)
+        t0 = time.perf_counter()
+        if self._quantized:
+            staged = self._build_quantized(flat,
+                                           self._quant_min_elements or 4096)
+        else:
+            tensors, ready = stage_tensors(
+                {n: flat[n].to(self._param_dtype(n))
+                 for n in self.load_names}, self.device)
+
+            def install(module):
+                named = dict(module.named_parameters())
+                for n in self.load_names:
+                    named[n].data = tensors[n]
+
+            staged = StagedParams(tensors, ready, install)
+        staged.stage_ms = (time.perf_counter() - t0) * 1e3
+        return staged
+
+    def probe_staged(self, staged: StagedParams, x):
+        """Run the forward with ``staged`` on a private copy of the module,
+        without touching the live model: the swap's warm-up probe on the
+        very tensors the flip installs (packed for a quantized model, so
+        its kernels run). The copy shares the buffers and holds no copy of
+        the live weights."""
+        memo: Dict[int, Any] = {
+            id(p): torch.nn.Parameter(torch.empty(0, dtype=p.dtype,
+                                                  device=p.device),
+                                      requires_grad=False)
+            for p in self._module.parameters()}
+        memo.update({id(b): b for b in self._module.buffers()})
+        probe = _deepcopy_module(self._module, memo)
+        with torch.no_grad():
+            land_tensors(staged.tensors, staged.ready, self.device)
+            staged.install(probe)
+            return probe(self._device_inputs(x))
+
+    def _device_inputs(self, x):
+        xs = [torch.as_tensor(np.asarray(a)).to(self.device) for a in
+              (x if isinstance(x, (list, tuple)) else [x])]
+        return xs if isinstance(x, (list, tuple)) else xs[0]
 
     def _acquire_slot(self) -> None:
         with self._turnstile:
@@ -489,9 +566,9 @@ class InferenceModel:
 
     def swap_params(self, params, version: Optional[str] = None
                     ) -> "InferenceModel":
-        """Atomically replace the live params with ``params`` (a tree in
-        the load-time layout: the port's ``{dotted name: tensor}`` or a
-        JAX-layout numpy tree).
+        """Atomically replace the live params with ``params``: a tree in
+        the load-time layout, which goes through :meth:`stage_params`
+        first, or what :meth:`stage_params` returned.
 
         All the expensive work — re-packing a quantized model on the host,
         the copy to the device on a side stream, the kernel-major copies —
@@ -499,26 +576,16 @@ class InferenceModel:
         only swaps references, so it lands between dispatch waves. Per
         swap, ``swap_timings`` records ``stage_ms`` (re-pack and staging)
         and ``gate_ms`` (waiting for the slots and flipping)."""
-        flat = self._check_tree(params)
-        t0 = time.perf_counter()
-        if self._quantized:
-            staged, ready, flips = self._build_quantized(
-                flat, self._quant_min_elements or 4096)
-        else:
-            tensors = {n: flat[n].to(self._param_dtype(n))
-                       for n in self.load_names}
-            staged, ready = stage_tensors(tensors, self.device)
-            named = dict(self._module.named_parameters())
-
-            def flips():
-                for n in self.load_names:
-                    named[n].data = staged[n]
+        staged = params if isinstance(params, StagedParams) \
+            else self.stage_params(params)
         t1 = time.perf_counter()
         with self._hold_all_slots():
-            land_tensors(staged, ready, self.device)
-            flips()
+            land_tensors(staged.tensors, staged.ready, self.device)
+            staged.install(self._module)
+            if staged.packing is not None:
+                self.packed_slots, self._wo_packed = staged.packing
             self.version = version
-        self.swap_timings = {"stage_ms": (t1 - t0) * 1e3,
+        self.swap_timings = {"stage_ms": staged.stage_ms,
                              "gate_ms": (time.perf_counter() - t1) * 1e3}
         return self
 

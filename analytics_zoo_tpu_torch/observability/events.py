@@ -15,9 +15,10 @@ trace. Events land in:
 
 * a bounded in-process ring (``events()``);
 * ``zoo_events_total{kind,severity}`` on the port's metric registry;
-* optional sinks: a JSONL file (:func:`attach_jsonl`), drained by a
-  background thread so ``emit`` never blocks on a disk. The JAX package's
-  broker-stream sink waits with the broker for ROADMAP Queue 1, item 8.
+* optional sinks: a JSONL file (:func:`attach_jsonl`) and a broker stream
+  (:func:`attach_broker`), drained by a background thread so ``emit`` never
+  blocks on a disk or the network; the JAX package's ``cli events`` reads
+  the stream from another process.
 
 High-rate sites pass ``throttle_s``: repeats of the same ``(kind, reason)``
 within the window are counted, not stored, and the next stored event
@@ -26,7 +27,8 @@ carries the ``suppressed`` count.
 Lock discipline: the ring lock is a plain terminal ``threading.Lock``
 (nothing is acquired under it). Sink fan-out runs on ONE background drain
 thread behind a bounded drop-oldest queue: ``emit`` itself never touches a
-file, so emitters that hold other locks are never stalled by a slow disk.
+file or socket, so emitters that hold other locks are never stalled by a
+slow disk or broker.
 """
 
 from __future__ import annotations
@@ -40,8 +42,11 @@ from typing import Any, Callable, Dict, List, Optional
 
 from ..common import telemetry as _tm
 
-__all__ = ["Event", "EventLog", "SEVERITIES", "emit", "events",
-           "attach_jsonl", "detach_sinks", "reset_events", "default_log"]
+__all__ = ["Event", "EventLog", "EVENT_STREAM", "SEVERITIES", "emit",
+           "events", "attach_jsonl", "attach_broker", "detach_sinks",
+           "reset_events", "default_log"]
+
+EVENT_STREAM = "events"
 
 SEVERITIES = ("info", "warning", "error")
 
@@ -199,7 +204,7 @@ class EventLog:
 
     def remove_sink(self, fn: Callable[[Event], None]) -> None:
         """Detach ONE sink (the flight recorder uninstalls its dump trigger
-        this way without disturbing the jsonl sinks). Unknown fns are
+        this way without disturbing jsonl/broker sinks). Unknown fns are
         ignored; the drain thread stays up — it is harmless idle."""
         with self._lock:
             try:
@@ -247,6 +252,66 @@ class _JsonlSink:
                 pass
 
 
+class _BrokerSink:
+    """XADD events onto the broker's ``events`` stream from a drain thread.
+
+    ``emit`` only does a non-blocking put on a bounded queue — when the
+    broker is slow or down, the OLDEST queued event is dropped (the ring
+    still holds it in-process); the audit stream is best-effort by design.
+    """
+
+    def __init__(self, host: str, port: int, stream: str = EVENT_STREAM,
+                 maxq: int = 512):
+        from ..serving.client import _Conn
+
+        self._q: "queue.Queue[Optional[Event]]" = queue.Queue(maxsize=maxq)
+        self._stop = threading.Event()
+        self._conn_cls = _Conn
+        self._host, self._port, self._stream = host, port, stream
+        self._thread = threading.Thread(target=self._drain, daemon=True,
+                                        name="zoo-events-broker-sink")
+        self._thread.start()
+
+    def __call__(self, ev: Event) -> None:
+        try:
+            self._q.put_nowait(ev)
+        except queue.Full:
+            try:
+                self._q.get_nowait()      # drop oldest, keep newest
+                self._q.put_nowait(ev)
+            except (queue.Empty, queue.Full):
+                pass
+
+    def _drain(self) -> None:
+        from ..common.resilience import RetryPolicy
+
+        policy = RetryPolicy(max_attempts=None, base_delay_s=0.05,
+                             max_delay_s=0.5, attempt_timeout_s=5.0,
+                             retryable=(ConnectionError, OSError))
+        conn = self._conn_cls(self._host, self._port, policy=policy,
+                              abort=self._stop.is_set, tag="events.sink")
+        try:
+            while True:
+                ev = self._q.get()
+                if ev is None or self._stop.is_set():
+                    break
+                try:
+                    conn.call("XADD", self._stream, ev.to_dict())
+                except Exception:
+                    if self._stop.is_set():
+                        break
+        finally:
+            conn.close()
+
+    def close(self) -> None:
+        self._stop.set()
+        try:
+            self._q.put_nowait(None)
+        except queue.Full:
+            pass
+        self._thread.join(timeout=2.0)
+
+
 _LOG = EventLog()
 
 
@@ -269,6 +334,12 @@ def events(kind: Optional[str] = None, min_severity: Optional[str] = None,
 def attach_jsonl(path: str) -> None:
     """Append every subsequent event to ``path`` as one JSON line."""
     _LOG.add_sink(_JsonlSink(path))
+
+
+def attach_broker(host: str, port: int, stream: str = EVENT_STREAM) -> None:
+    """Mirror every subsequent event onto a broker stream (best-effort,
+    background-drained) so ``cli events`` works from another process."""
+    _LOG.add_sink(_BrokerSink(host, port, stream=stream))
 
 
 def detach_sinks() -> None:

@@ -26,11 +26,22 @@ Every decision counts in the port's telemetry (the ``zoo_gen_*``
 families), emits decision events and, with a flight recorder installed,
 records its inputs.
 
+Over the broker (port of the JAX module's ``GenerationEngine`` and
+``GenerationClient``): :class:`GenerationEngine` consumes requests from the
+``generation_stream``, runs them through a :class:`ContinuousBatcher` built
+from the ``ServingConfig``'s ``gen_*`` fields on ``device``, and streams
+token deltas as frames on ``genout:<uri>``; :class:`GenerationClient`
+submits, cancels and reads them back in ``seq`` order.
+
 Not ported yet, and raising ``NotImplementedError`` where a caller asks for
 them (ROADMAP Queue 1, item 11): ``graph_checks`` and ``hbm_budget_bytes``
 (the decode graph and memory lints) and the memory witness's decode
-sample. The broker-facing ``GenerationEngine``/``GenerationClient`` wait
-with the broker for item 8.
+sample; ``GenerationEngine`` with ``graph_checks="warn"`` (the config's
+default) logs one warning at ``start`` instead. The JAX engine arms the
+SLO-derived prefill budget from the config's ITL objective; the port's
+config has no objectives until the SLO engine comes (item 8's next
+slice), so its engine passes none. The JAX engine's fleet mode (a replica
+reading its own routed ``stream``) comes with ``fleet.py`` in that slice.
 """
 
 from __future__ import annotations
@@ -48,11 +59,12 @@ import numpy as np
 import torch
 
 from ..analysis.rules.decode import lint_prefix_write_isolation
-from ..bridge import flat_tree, land_tensors, stage_tensors
+from ..bridge import flat_tree, land_tensors, params_from_jax, stage_tensors
 from ..common import telemetry as _tm
 from ..common.chaos import WorkerKilled, chaos_point
 from ..common.locks import traced_lock
-from ..common.resilience import HealthRegistry
+from ..common.resilience import (HealthRegistry, RetryAbortedError,
+                                 RetryPolicy)
 from ..nn.module import resolve_device
 from ..observability import events as _events
 from ..observability import recorder as _flight
@@ -60,8 +72,18 @@ from ..ops.kv_cache import (OutOfPages, PagePool, PrefixCache, SCRATCH_PAGE,
                             copy_page, sample_tokens)
 from ..ops.speculative import SpecDecodeConfig, propose_kgram
 from . import qos as _qos
+from .client import _Conn, default_conn_policy
+from .config import GRAPH_CHECKS_WARNING, ServingConfig
+from .schema import (DEADLINE_KEY, PRIORITY_KEY, TRACE_KEY, payload_deadline,
+                     payload_priority, payload_trace)
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.serving.generation")
+
+GEN_STREAM = "generation_stream"
+GEN_OUT_PREFIX = "genout:"
+# broker-side stats hash (per consumer group): the engine's source loop
+# republishes GenerationEngine.stats() here ~1/s
+GEN_STATS_PREFIX = "gen:stats:"
 
 # the JAX package's families, names, labels and buckets: a scrape of either
 # package's registry reads the same
@@ -1581,4 +1603,341 @@ class ContinuousBatcher:
         return out
 
 
-__all__ = ["ContinuousBatcher", "StreamHandle"]
+# ---------------------------------------------------------------------------
+# broker-facing engine + client
+# ---------------------------------------------------------------------------
+
+class GenerationEngine:
+    """Streaming generation job over the broker fabric.
+
+    Consumes request payloads from ``generation_stream`` and streams token
+    deltas as frame-per-chunk entries on ``genout:<uri>``:
+
+        {"sid": uri, "seq": n, "tokens": int32[...], "final": false}
+        ...
+        {"sid": uri, "seq": n, "tokens": [], "final": true,
+         "outcome": "ok"|"error"|"cancelled"|"truncated", "n_tokens": N}
+
+    Chunk writes ride a sink thread so the decode loop never blocks on a
+    broker RTT; a request is XACKed only after its final frame is durably in
+    the broker (at-least-once, like the one-shot engine).
+
+    ``model``: a :class:`ContinuousBatcher` (served as it is) or a
+    ``TransformerLM``, for which the engine builds one on ``device`` (CUDA
+    unless the caller names another; it raises without CUDA) with the
+    config's ``gen_*`` fields, as the JAX engine maps them. ``params``: an
+    optional JAX-layout tree (numpy leaves) loaded into the model first
+    through the bridge.
+    """
+
+    def __init__(self, model, params=None,
+                 config: Optional[ServingConfig] = None,
+                 group: str = "generation",
+                 registry: Optional[HealthRegistry] = None, *,
+                 device=None):
+        self.config = config or ServingConfig()
+        self.group = group
+        self.stream = GEN_STREAM
+        self.registry = registry if registry is not None else HealthRegistry(
+            default_timeout_s=self.config.heartbeat_timeout_s)
+        cfg = self.config
+        if isinstance(model, ContinuousBatcher):
+            self.batcher = model
+        else:
+            if params is not None:
+                model.load_state_dict(params_from_jax(params,
+                                                      device=model.device))
+            self.batcher = ContinuousBatcher(
+                model, n_slots=cfg.gen_slots,
+                page_size=cfg.gen_page_size, max_seq_len=cfg.gen_max_seq_len,
+                n_pages=cfg.gen_pages or None, top_k=cfg.gen_top_k,
+                spec_k=getattr(cfg, "gen_spec_k", 0),
+                spec_ngram=getattr(cfg, "gen_spec_ngram", 3),
+                prefix_cache_pages=getattr(cfg, "gen_prefix_cache_pages", 0),
+                prefix_block_tokens=getattr(cfg, "gen_prefix_block_tokens",
+                                            0),
+                prefill_chunk_tokens=getattr(cfg, "gen_prefill_chunk_tokens",
+                                             0),
+                prefill_token_budget=getattr(cfg,
+                                             "gen_prefill_token_budget", 0),
+                device=device, autostart=False)
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
+        self._sink_q: "queue.Queue" = queue.Queue(maxsize=1024)
+        self.served_streams = 0
+
+    def _connect(self, tag: str) -> _Conn:
+        policy = RetryPolicy(max_attempts=None, base_delay_s=0.05,
+                             max_delay_s=0.5, attempt_timeout_s=5.0,
+                             retryable=(ConnectionError, OSError))
+        return _Conn(self.config.queue_host, self.config.queue_port,
+                     policy=policy, abort=self._stop.is_set, tag=tag)
+
+    def _warm(self):
+        """The JAX engine's startup decode-graph check is not ported (item
+        11): ``graph_checks="warn"`` says so once (``"raise"`` raised when
+        the config was made)."""
+        if getattr(self.config, "graph_checks", "warn") == "warn":
+            logger.warning(GRAPH_CHECKS_WARNING)
+
+    def start(self) -> "GenerationEngine":
+        self._stop.clear()
+        self._warm()
+        self.batcher.start()
+        conn = self._connect("gen.control")
+        try:
+            # shared stream: tail semantics (see ClusterServing.start)
+            conn.call("XGROUPCREATE", self.stream, self.group, "$")
+        except RetryAbortedError:
+            pass
+        finally:
+            conn.close()
+        for name, fn in (("source", self._source_loop),
+                         ("sink", self._sink_loop)):
+            t = threading.Thread(target=fn, daemon=True,
+                                 name=f"zoo-gen-{name}")
+            t.start()
+            self._threads.append(t)
+        return self
+
+    def _source_loop(self):
+        conn = self._connect("gen.source")
+        hb = self.registry.register("serving.gen.source")
+        stats_pub = 0.0
+        try:
+            while not self._stop.is_set():
+                hb.beat()
+                now = time.time()
+                if now - stats_pub >= 1.0:
+                    stats_pub = now
+                    try:
+                        conn.call("HSET", GEN_STATS_PREFIX + self.group,
+                                  dict(self.stats(), ts=now))
+                    except RetryAbortedError:
+                        break
+                try:
+                    entries = conn.call("XREADGROUP", self.stream, self.group,
+                                        8, 200)
+                except RetryAbortedError:
+                    break
+                for entry_id, payload in entries or ():
+                    self._admit_entry(entry_id, payload)
+        finally:
+            hb.stop()
+            conn.close()
+
+    def _admit_entry(self, entry_id: str, payload: Any):
+        ctx = payload_trace(payload)
+        # resolve the reply stream FIRST: a payload with a good uri but a
+        # bad field (max_new_tokens="abc") must get its error frame on the
+        # stream the client is actually polling
+        uri = (payload.get("uri") if isinstance(payload, dict) else None) \
+            or str(payload)[:64]
+        if isinstance(payload, dict) and payload.get("cancel"):
+            # client-sent cancel frame: stop decoding for an abandoned
+            # stream (the stream's own final frame reports "cancelled");
+            # the cancel entry itself just needs acking
+            self.batcher.cancel_uri(uri)
+            self._sink_q.put(("ack", entry_id, uri, 0, [], {}, False, None))
+            return
+        try:
+            prompt = np.asarray(payload["prompt"], np.int32).reshape(-1)
+            kw = dict(
+                max_new_tokens=int(payload.get("max_new_tokens", 32)),
+                temperature=float(payload.get("temperature", 0.0)),
+                seed=int(payload.get("seed", 0)),
+                eos_id=(int(payload["eos_id"])
+                        if payload.get("eos_id") is not None else None),
+                # overload QoS rides the payload (durable across AOF replay
+                # and failover requeue); absent from old clients
+                priority=payload_priority(payload),
+                deadline=payload_deadline(payload))
+        except Exception as e:
+            logger.exception("malformed generation request %s", entry_id)
+            self._sink_q.put(("chunk", entry_id, uri, 0, [],
+                              {"outcome": "error",
+                               "error": f"malformed request: {e}"}, True,
+                              ctx))
+            return
+        seq_counter = [0]
+        t0 = time.perf_counter()
+
+        def on_chunk(tokens, final, meta, _uri=uri, _eid=entry_id, _ctx=ctx):
+            seq = seq_counter[0]
+            seq_counter[0] += 1
+            if final:
+                meta = dict(meta)
+                meta.setdefault("outcome", "ok")
+                _tm.record_span("serving.gen.stream", t0, time.perf_counter(),
+                                remote=_ctx, uri=_uri,
+                                n_tokens=meta.get("n_tokens", 0))
+            self._sink_q.put(("chunk", _eid, _uri, seq, list(tokens),
+                              meta if final else {}, final, _ctx))
+
+        try:
+            self.batcher.submit(prompt, uri=uri, on_chunk=on_chunk,
+                                ctx=ctx, **kw)
+        except Exception as e:   # invalid prompt (too long, empty)
+            self._sink_q.put(("chunk", entry_id, uri, 0, [],
+                              {"outcome": "error", "error": str(e)}, True,
+                              ctx))
+
+    def _sink_loop(self):
+        conn = self._connect("gen.sink")
+        hb = self.registry.register("serving.gen.sink")
+        try:
+            while True:
+                hb.beat()
+                try:
+                    item = self._sink_q.get(timeout=0.1)
+                except queue.Empty:
+                    if self._stop.is_set():
+                        break
+                    continue
+                kind, entry_id, uri, seq, tokens, meta, final, ctx = item
+                try:
+                    if kind == "ack":   # cancel frames carry no reply
+                        conn.call("XACK", self.stream, self.group, [entry_id])
+                        continue
+                    frame = {"sid": uri, "seq": seq,
+                             "tokens": np.asarray(tokens, np.int32),
+                             "final": bool(final)}
+                    if final:
+                        frame.update({k: v for k, v in meta.items()
+                                      if k in ("outcome", "error",
+                                               "n_tokens",
+                                               "retry_after_s")})
+                    if ctx is not None:
+                        frame[TRACE_KEY] = ctx
+                    conn.call("XADD", GEN_OUT_PREFIX + uri, frame)
+                    if final:
+                        conn.call("XACK", self.stream, self.group, [entry_id])
+                        self.served_streams += 1
+                except RetryAbortedError:
+                    break
+        finally:
+            hb.stop()
+            conn.close()
+
+    def stats(self) -> Dict[str, Any]:
+        out = {"served_streams": self.served_streams,
+               "graph_checks": "not_ported"}
+        out.update(self.batcher.stats())
+        return out
+
+    def stop(self, drain_s: float = 1.0):
+        deadline = time.time() + drain_s
+        while time.time() < deadline and (self.batcher.active_slots()
+                                          or not self._sink_q.empty()):
+            time.sleep(0.01)
+        # close the batcher BEFORE signalling stop: closing fails whatever is
+        # still pending/active, and those final error frames must land on
+        # _sink_q while the sink loop is still guaranteed to drain it (the
+        # sink only exits on stop-AND-empty)
+        self.batcher.close()
+        drain2 = time.time() + drain_s
+        while time.time() < drain2 and not self._sink_q.empty():
+            time.sleep(0.01)
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=2.0)
+        self._threads.clear()
+
+
+class GenerationClient:
+    """Producer/consumer for broker-backed generation streams."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 6380,
+                 policy: Optional[RetryPolicy] = None):
+        self._conn = _Conn(host, port,
+                           policy=policy or default_conn_policy(),
+                           tag="client.gen")
+
+    def submit(self, prompt, max_new_tokens: int = 32,
+               temperature: float = 0.0, seed: int = 0,
+               eos_id: Optional[int] = None,
+               uri: Optional[str] = None,
+               priority: Optional[str] = None,
+               deadline_ms: Optional[float] = None,
+               deadline: Optional[float] = None) -> str:
+        """Enqueue one generation request; returns its stream id.
+        ``priority``/``deadline_ms`` (or absolute ``deadline``) arm
+        (priority, deadline)-ordered admission and deadline shedding at the
+        decode tier — a shed stream's final frame reports outcome ``shed``
+        with a computed ``retry_after_s``."""
+        uri = uri or uuid.uuid4().hex
+        dl = _qos.normalize_deadline(deadline)
+        if dl is None:
+            dl = _qos.deadline_from_ms(deadline_ms)
+        with _tm.span("serving.gen.send", uri=uri) as sp:
+            payload = {"uri": uri, TRACE_KEY: sp.wire_context(),
+                       "prompt": np.asarray(prompt, np.int32).reshape(-1),
+                       "max_new_tokens": int(max_new_tokens),
+                       "temperature": float(temperature), "seed": int(seed),
+                       "eos_id": int(eos_id) if eos_id is not None else None}
+            if priority is not None:
+                payload[PRIORITY_KEY] = _qos.normalize_priority(priority)
+            if dl is not None:
+                payload[DEADLINE_KEY] = dl
+            self._conn.call("XADD", GEN_STREAM, payload)
+        return uri
+
+    def cancel(self, uri: str) -> None:
+        """Ask the engine to stop decoding ``uri`` (abandoned stream): the
+        request's own final frame will report outcome ``cancelled``."""
+        self._conn.call("XADD", GEN_STREAM, {"uri": uri, "cancel": True})
+
+    def stream(self, uri: str, timeout_s: float = 60.0):
+        """Yield token chunks (int32 ndarrays) for ``uri`` until the final
+        frame; raises on an errored stream. Frame-per-chunk over the binary
+        wire protocol; chunks reassemble in ``seq`` order (the broker stream
+        is ordered). The per-request broker stream is deleted after its
+        terminal frame is consumed (the streaming twin of OutputQueue's
+        HDEL-after-query), so finished streams don't accumulate broker
+        state."""
+        cursor = 0
+        deadline = time.monotonic() + timeout_s
+        stream_key = GEN_OUT_PREFIX + uri
+        while True:
+            block = max(1, min(500, int((deadline - time.monotonic()) * 1e3)))
+            cursor, entries = self._conn.call("XREAD", stream_key, cursor,
+                                              64, block)
+            for _id, frame in entries:
+                toks = np.asarray(frame.get("tokens", ()), np.int32)
+                if toks.size:
+                    yield toks
+                if frame.get("final"):
+                    try:
+                        self._conn.call("XDELSTREAM", stream_key)
+                    except Exception:   # cleanup is best-effort
+                        pass
+                    if frame.get("outcome") == "shed":
+                        raise _qos.ShedError(
+                            f"generation request {uri!r} shed: "
+                            f"{frame.get('error', 'overloaded')}",
+                            retry_after_s=float(
+                                frame.get("retry_after_s", 1.0)),
+                            reason="deadline")
+                    if frame.get("error") or frame.get("outcome") == "error":
+                        raise RuntimeError(
+                            f"generation failed for {uri!r}: "
+                            f"{frame.get('error', 'unknown error')}")
+                    return
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"no final frame for {uri!r} within "
+                                   f"{timeout_s}s")
+
+    def generate(self, prompt, timeout_s: float = 60.0, **kw) -> List[int]:
+        uri = self.submit(prompt, **kw)
+        out: List[int] = []
+        for chunk in self.stream(uri, timeout_s=timeout_s):
+            out.extend(chunk.tolist())
+        return out
+
+    def close(self):
+        self._conn.close()
+
+
+__all__ = ["ContinuousBatcher", "GenerationClient", "GenerationEngine",
+           "GEN_OUT_PREFIX", "GEN_STATS_PREFIX", "GEN_STREAM",
+           "StreamHandle"]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, int8 inference, NCF,
-Wide & Deep and session recommendation, checkpoint/resume and
-input-pipeline paths on one NVIDIA card.
+Wide & Deep and session recommendation, checkpoint/resume,
+input-pipeline and serving data-plane paths on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel checks only
@@ -257,6 +257,35 @@ Phases, each fatal on failure (no result line is printed then):
    quantized model refusing it. (f) the registry's Prometheus text parses
    and its request, preemption, shed and swap counters equal phase 15's
    batchers' ``stats()``.
+16. the serving data plane (the fourteenth slice), on a broker of the port
+   started in this process, phase 8's calibrated ResNet-50 and phase 5's
+   LM geometry. (a) ``ClusterServing`` over the int8 ResNet-50
+   (``int8=True``, batch_size 32, concurrent_num 4, warmup_shape
+   224x224x3): 4 client threads enqueue 256 seeded 224x224x3 f32 images
+   (602 KB each, over the shm ring), 16 in flight a thread, and query them
+   back: every uri answered once, no error record, each answer bit for bit
+   the direct ``predict`` of its image (made in batches of 32: K5 and K6
+   quantize per row), shm bytes > 0, K6 = 53 and K5 = 1 per batch the
+   engine dispatched (counts set to 0 just before); images/s, latency p50
+   and p99. (b) ``FrontEndApp``: 64 ``/predict`` requests of one image in
+   queue mode and 64 in direct mode (``MicroBatcher``) from 4 threads each,
+   every answer equal to (a)'s; ``/metrics`` parses and carries the
+   zoo_broker_*, zoo_http_* and zoo_infer_* families; requests/s and p50.
+   (c) ``ModelPublisher`` announces a checkpoint of the float weights x
+   1.01 written by ``engine/checkpoint.py``; the engine's ``ModelSwapper``
+   re-packs it and stages it on the card in one copy, probes the packed
+   tensors (K5, K6) and flips them in while 4 threads keep enqueueing: every
+   answer carries one version and equals that version's direct predict bit
+   for bit, none begun after the flip is old; a NaN checkpoint is then
+   rejected (``model_rejections`` gets a record) and the new version keeps
+   answering; stage, probe and flip ms, images/s before, during and after
+   (2 s windows of >= 30 requests). (d) ``GenerationEngine`` over phase 5's
+   bf16 LM (8 slots, page 16, max_seq_len 1024) and phase 5's 16-request
+   burst through ``GenerationClient``: every stream ok with 32 tokens,
+   greedy streams equal to phase 5's direct ones (or argmax margin <= 0.1
+   where one differs), K1 = 12 x prefills and K2 = 12 x decode steps
+   (counts set to 0 just before); tokens/s, TTFT p50, ITL p50 and p95
+   beside phase 5's. Prints the wall by part (``[data-plane]`` lines).
 
 Phase 3 also holds the int8 kernels to their plain versions bit for bit
 (``torch.equal``), f32 and bf16: the quantize pass both launch (codes and
@@ -266,8 +295,9 @@ ResNet head on the lax route) and K6 (every one of ResNet-50's 20
 distinct conv shapes at batch 2 and, f32, at batch 32, with Cin 48, a
 3x3 at stride 2 on the lax route, VALID and a Cin <= 4 3x3 beside). It
 times them beside their bounds at 1979 TOP/s int8 and a labelled library
-call (``torch._int_mm``, the int8 product alone, Timer and device-only;
-``F.conv2d`` in bf16, a float conv): K5 at the MLP's layers and the
+call (``torch._int_mm``, the int8 product alone, Timer and device-only:
+for K6's 3x3 over the im2col matrix of int8 codes; ``F.conv2d`` in bf16,
+a float conv, beside it): K5 at the MLP's layers and the
 ResNet head, K6 at the 3x3/1 64->64 and 1x1/1 256->64 at 56 px, the
 1x1/2 512->1024 at 28 px and the 7x7/2 stem, device-only with ``--parent``
 in turns parent, change, change, parent; and K6 device-only at each of
@@ -282,7 +312,8 @@ phase 5's serving, with ``launches_by_path`` for serving and phase 5b's
 spec, chunked, prefix and all arms; the
 sampling kernel's on serving; K5's and K6's on the int8 serving burst,
 with K5's per MLP predict beside it; K1's, K2's, K5's and K6's on phase
-15 as ``launches_by_path["serving_remainder"]``).
+15 as ``launches_by_path["serving_remainder"]`` and on phase 16 as
+``launches_by_path["data_plane"]``).
 The last three lines of standard output are the card's name and power
 limit, the per-kernel JSON, and ``{"ok": true, "device": {...}}``.
 """
@@ -1533,19 +1564,43 @@ def check_k6(torch, timer, dtimer, parent=None):
         xc = x32.permute(0, 3, 1, 2).to(torch.bfloat16)
         wc = torch.randn((cout, cin, k, k), device="cuda").to(
             torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        lib = timer(lambda: F.conv2d(xc, wc, stride=st, padding=k // 2))
+        conv = timer(lambda: F.conv2d(xc, wc, stride=st, padding=k // 2))
+        lib = {"library_ms": conv,
+               "library_note": "F.conv2d in bf16 (cuDNN, channels-last): a "
+                               "float conv, not the same function"}
+        if (k, st) == (3, 1):
+            # the int8 product of the same conv, as K5's yardstick: the
+            # im2col matrix of int8 codes (made once, outside the timing)
+            # times the (k*k*Cin, Cout) codes by torch._int_mm
+            codes = torch.randint(-127, 128, (IMG_BATCH, cin, hw, hw),
+                                  device="cuda", dtype=torch.float32)
+            cols = F.unfold(codes, k, padding=k // 2).transpose(1, 2) \
+                .reshape(-1, k * k * cin).to(torch.int8).contiguous()
+            del codes
+            wq = torch.randint(-127, 128, (k * k * cin, cout),
+                               dtype=torch.int8, device="cuda")
+            lib = {"library_ms": timer(lambda: torch._int_mm(cols, wq)),
+                   "library_device_ms": dtimer(
+                       lambda: torch._int_mm(cols, wq)),
+                   "library_note": "torch._int_mm over the im2col int8 "
+                                   f"matrix ({cols.shape[0]}, "
+                                   f"{cols.shape[1]}) x ({k * k * cin}, "
+                                   f"{cout}): the int8 product only, as "
+                                   "K5's; excludes the quantize pass, the "
+                                   "im2col and the rescale",
+                   "conv2d_bf16_ms": conv}
+            del cols, wq
         log(f"[K6] B={IMG_BATCH} {label} float32: {t['ms']:.4f} ms, device "
             f"{t['device_ms']:.5f} (parent {t['parent_device_ms']}), plain "
             f"{t['plain_ms']:.4f}, bound {bms:.5f} by {by}, F.conv2d bf16 "
-            f"{lib:.4f}")
+            f"{conv:.4f}, library {lib['library_ms']:.4f} device "
+            f"{lib.get('library_device_ms')}")
         out[(hw, cin, k, st, cout)] = {
             "case": main[(hw, cin, k, st, cout)],
             "shape": f"B={IMG_BATCH} {hw}x{hw}x{cin} -> {ho}x{ho}x{cout}, "
                      f"{k}x{k}/{st} SAME",
             "rule": args[2], "dtype": "float32", "max_abs_err": err, **t,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib,
-            "library_note": "F.conv2d in bf16 (cuDNN, channels-last): a "
-                            "float conv, not the same function"}
+            "bound_ms": bms, "bound_by": by, **lib}
     total = sum(r["device_ms_x_launches"] for r in per_shape)
     bound = sum(r["bound_ms"] * r["launches_per_predict"] for r in per_shape)
     log(f"[K6] ResNet-50 at batch {IMG_BATCH}: {len(per_shape)} shapes, "
@@ -1715,11 +1770,12 @@ def phase_serving(torch, model, smi):
            "tokens_per_s": n_tok / wall, "ttft_p50_ms": pct(ttft, 50) * 1e3,
            "itl_p50_ms": pct(itl, 50) * 1e3, "itl_p95_ms": pct(itl, 95) * 1e3,
            "decode_steps": steps, "prompt_tokens": int(lens.sum()),
+           "step_ema_ms": stats["step_ema_s"] * 1e3,
            "prefill_buckets": stats["prefill_buckets"],
            "slot_occupancy": stats["slot_occupancy"],
            "sample_tokens_ms": sample_ms, "card": smi}
     log(f"[serving] {json.dumps(res)}")
-    return k1, k2, ks
+    return k1, k2, ks, {"outs": outs, "res": res}
 
 
 def feature_traffic(rng):
@@ -4504,6 +4560,517 @@ def phase_serving_remainder(torch, state, smi):
     return {"K1": k1, "K2": k2, "K5": k5, "K6": k6}
 
 
+# ------------------------------------------------------------ phase 16
+
+# the data plane: 256 seeded 224x224x3 f32 images (602 KB each, over the
+# shm ring) from 4 client threads, 16 in flight a thread; 64 HTTP requests a
+# mode; swap windows of 2 s
+DP_IMAGES, DP_CLIENTS, DP_WINDOW, DP_HTTP = 256, 4, 16, 64
+DP_SWAP_WINDOW_S = 2.0
+
+
+def _rate_windows(done, bounds):
+    """Images/s over each named ``(lo, hi)`` of ``bounds``, every request
+    (one image) counted by the share of its time inside; and the requests
+    each window overlaps."""
+    out = {}
+    for name, (lo, hi) in bounds.items():
+        images, n = 0.0, 0
+        for t0, t1, *_ in done:
+            inside = min(t1, hi) - max(t0, lo)
+            if inside > 0:
+                images += inside / (t1 - t0)
+                n += 1
+        out[name] = {"images_per_s": images / (hi - lo), "requests": n,
+                     "s": hi - lo}
+    return out
+
+
+def phase16_queue(torch, job, im, port, images, smi):
+    """16a: the int8 ResNet-50 behind ClusterServing, 256 images from 4
+    client threads through the broker. Every uri answered once, no error
+    record, each answer bit for bit the direct ``predict`` of its image
+    (made beforehand in batches of 32, another batch composition than the
+    engine's: K5 and K6 quantize per row), the images over the shm ring,
+    K6 = 53 and K5 = 1 per batch the engine dispatched. Returns the direct
+    answers and the K5/K6 launches."""
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+    from analytics_zoo_tpu_torch.serving import InputQueue, OutputQueue
+    from analytics_zoo_tpu_torch.serving.wire import wire_stats
+
+    direct = np.concatenate([im.predict(images[i:i + IMG_BATCH])
+                             for i in range(0, DP_IMAGES, IMG_BATCH)])
+    calls, busy, predict = [0], [0.0], im.predict
+
+    def counted(x):
+        calls[0] += 1
+        t = time.perf_counter()
+        y = predict(x)
+        busy[0] += time.perf_counter() - t
+        return y
+
+    im.predict = counted            # the engine's infer loop calls this
+    results, lat, errors = {}, [], []
+
+    def client(t):
+        iq, oq = InputQueue(port=port), OutputQueue(port=port)
+        try:
+            idx = list(range(t, DP_IMAGES, DP_CLIENTS))
+            for w in range(0, len(idx), DP_WINDOW):
+                sent = []
+                for i in idx[w:w + DP_WINDOW]:
+                    t0 = time.perf_counter()
+                    sent.append((i, iq.enqueue(f"img-{i}", input=images[i]),
+                                 t0))
+                for i, uri, t0 in sent:
+                    y = oq.query(uri, timeout_s=300)
+                    lat.append(time.perf_counter() - t0)
+                    results[i] = (y, oq.last_model_version)
+        except Exception as e:               # reported below
+            errors.append(repr(e))
+        finally:
+            iq.close()
+            oq.close()
+
+    shm0 = wire_stats()["shm_bytes"]
+    served0 = job.served
+    f8.int8_matmul_fused.launches = 0
+    f8.int8_conv2d_fused.launches = 0
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(DP_CLIENTS)]
+    t0 = time.perf_counter()
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+    finally:
+        del im.predict
+    wall = time.perf_counter() - t0
+    k5, k6 = f8.int8_matmul_fused.launches, f8.int8_conv2d_fused.launches
+    shm = wire_stats()["shm_bytes"] - shm0
+    # answered once: each result hash was consumed by its query
+    oq, again = OutputQueue(port=port), 0
+    try:
+        for i in range(DP_IMAGES):
+            try:
+                oq.query(f"img-{i}", timeout_s=0)
+                again += 1
+            except TimeoutError:
+                pass
+    finally:
+        oq.close()
+    t_lim = time.perf_counter() + 30
+    while job.served - served0 < DP_IMAGES and time.perf_counter() < t_lim:
+        time.sleep(0.01)          # the sink counts just after its write
+    served, errs = job.served - served0, job.stats()["errors"]
+    exact = sum(np.array_equal(results[i][0], direct[i]) for i in results)
+    maxd = max((float(np.abs(results[i][0] - direct[i]).max())
+                for i in results), default=float("nan"))
+    versions = sorted({v for _, v in results.values()})
+    res = {"images": DP_IMAGES, "clients": DP_CLIENTS, "in_flight": DP_WINDOW,
+           "wall_s": wall, "images_per_s": DP_IMAGES / wall,
+           "latency_p50_ms": pct(lat, 50) * 1e3,
+           "latency_p99_ms": pct(lat, 99) * 1e3, "shm_bytes": shm,
+           "engine_batches": calls[0],
+           "mean_batch": DP_IMAGES / max(1, calls[0]),
+           "engine_predict_s": busy[0],
+           "engine_predict_ms_mean": busy[0] / max(1, calls[0]) * 1e3,
+           "engine_predict_share": busy[0] / wall,
+           "launches": {"K5": k5, "K6": k6}, "served": served,
+           "error_records": errs, "answered_again": again,
+           "bit_equal_direct": f"{exact}/{len(results)}",
+           "max_abs_diff_direct": maxd, "versions": versions, "card": smi}
+    log(f"[data-plane] 16a queue serving {json.dumps(res)}")
+    ok = (not errors and len(results) == DP_IMAGES and served == DP_IMAGES
+          and errs == 0 and again == 0 and exact == DP_IMAGES and shm > 0
+          and versions == ["initial"] and calls[0] > 0
+          and k6 == 53 * calls[0] and k5 == calls[0])
+    if not ok:
+        raise AssertionError(f"16a: a data-plane gate failed (errors "
+                             f"{errors[:3]})")
+    return direct, k5, k6
+
+
+def _post_json(port, path, body: bytes, timeout=300):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def phase16_http(torch, job, im, port, images, direct, smi):
+    """16b: the same model through ``FrontEndApp``: 64 ``/predict``
+    requests of one image in queue mode (through the broker and 16a's
+    engine) and 64 in direct mode (``MicroBatcher`` over the model), from 4
+    threads each; every answer equals 16a's for the same image (JSON
+    carries each f32 exactly); ``/metrics`` parses with the zoo_broker_*,
+    zoo_http_* and zoo_infer_* families."""
+    import urllib.request
+
+    from analytics_zoo_tpu_torch.common.telemetry import parse_prometheus
+    from analytics_zoo_tpu_torch.serving import FrontEndApp, ServingConfig
+
+    cfg = ServingConfig(queue_port=port, batch_size=IMG_BATCH)
+    t = time.perf_counter()
+    bodies = [json.dumps({"instances": [{"input": images[i].tolist()}]})
+              .encode() for i in range(DP_HTTP)]
+    encode_s = time.perf_counter() - t
+    apps = {"queue": FrontEndApp(cfg, port=0, engine_stats=job.stats),
+            "direct": FrontEndApp(cfg, port=0, model=im, max_batch=IMG_BATCH,
+                                  max_delay_ms=5.0)}
+    res = {"request_json_mb": len(bodies[0]) / 1e6, "encode_s": encode_s}
+    try:
+        for mode, app in apps.items():
+            app.start()
+            got, lat, errors = {}, [], []
+
+            def client(k, app=app, got=got, lat=lat, errors=errors):
+                try:
+                    for i in range(k, DP_HTTP, DP_CLIENTS):
+                        t0 = time.perf_counter()
+                        out = _post_json(app.port, "/predict", bodies[i])
+                        lat.append(time.perf_counter() - t0)
+                        got[i] = np.asarray(out["predictions"][0],
+                                            np.float32)
+                except Exception as e:           # reported below
+                    errors.append(repr(e))
+
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(DP_CLIENTS)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            wall = time.perf_counter() - t0
+            equal = sum(np.array_equal(got[i], direct[i]) for i in got)
+            res[mode] = {"requests": len(got), "wall_s": wall,
+                         "requests_per_s": len(got) / wall,
+                         "latency_p50_ms": pct(lat, 50) * 1e3,
+                         "equal_to_16a": f"{equal}/{DP_HTTP}",
+                         "errors": errors[:3]}
+            if errors or equal != DP_HTTP:
+                raise AssertionError(f"16b {mode}: {errors[:3]}, "
+                                     f"{equal}/{DP_HTTP} equal to 16a")
+        res["direct"]["batching"] = apps["direct"]._batcher.stats()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{apps['queue'].port}/metrics",
+                timeout=60) as r:
+            fams = parse_prometheus(r.read().decode())
+    finally:
+        for app in apps.values():
+            app.stop()
+    prefixes = ("zoo_broker_", "zoo_http_", "zoo_infer_")
+    found = {p: sorted(f for f in fams if f.startswith(p)) for p in prefixes}
+    res["metrics_families"] = {p: len(v) for p, v in found.items()}
+    res["card"] = smi
+    log(f"[data-plane] 16b http {json.dumps(res)}")
+    if not all(found.values()):
+        raise AssertionError(f"16b: /metrics lacks a family: {found}")
+
+
+def phase16_swap(torch, job, im, port, state, images, direct, smi):
+    """16c: phase 15d's swap through the data plane. ``ModelPublisher``
+    announces a checkpoint of the float weights x 1.01 written by
+    ``engine/checkpoint.py``; the engine's ``ModelSwapper`` re-packs and
+    stages it (one side-stream copy), probes the packed tensors and
+    flips them in while 4 threads keep enqueueing one image each and
+    querying it back. Every
+    answer carries one version and equals that version's direct predict
+    bit for bit; no answer begun after the flip is old. Then a checkpoint
+    with a NaN is published and rejected, a record lands on
+    ``model_rejections`` and the new version keeps answering."""
+    import queue as queue_mod
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.bridge import nest
+    from analytics_zoo_tpu_torch.engine import checkpoint as ck
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.serving import InputQueue, OutputQueue
+    from analytics_zoo_tpu_torch.serving.client import _Conn
+    from analytics_zoo_tpu_torch.serving.hotswap import (MODEL_REJECT_STREAM,
+                                                         ModelPublisher)
+
+    names = list(im.load_names)
+    params2 = {n: state[n] * 1.01 for n in names}
+    state2 = {k: params2.get(k, v) for k, v in state.items()}
+    ref = InferenceModel(max_batch_size=IMG_BATCH, device=DEV["cuda"]).load(
+        resnet_on(torch, state2, DEV["cuda"])).quantize_int8()
+    new = ref.predict(images[:DP_CLIENTS])
+    del ref
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="zoo-dataplane-")
+    swapped = queue_mod.Queue()
+    report = job._report_rejection
+
+    def reported(conn, record):
+        report(conn, record)
+        swapped.put((time.perf_counter(), job._swap_state, job._swap_error,
+                     job.model_version, dict(job.swapper.timings),
+                     dict(getattr(im, "swap_timings", {}))))
+
+    job._report_rejection = reported
+    done, errors, stop = [], [], threading.Event()
+
+    def client(t):
+        iq, oq = InputQueue(port=port), OutputQueue(port=port)
+        try:
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                y = oq.query(iq.enqueue(None, input=images[t]),
+                             timeout_s=300)
+                done.append((t0, time.perf_counter(), t, y,
+                             oq.last_model_version))
+        except Exception as e:               # reported below
+            errors.append(repr(e))
+        finally:
+            iq.close()
+            oq.close()
+
+    pub = ModelPublisher(port=port)
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(DP_CLIENTS)]
+    try:
+        good = ck.save_checkpoint(tmp, nest(params2), iteration=1, epoch=0)
+        bad_params = dict(params2)
+        bad_params[names[0]] = bad_params[names[0]].clone()
+        bad_params[names[0]].view(-1)[0] = float("nan")
+        bad = ck.save_checkpoint(tmp, nest(bad_params), iteration=2,
+                                 epoch=0, keep=5)
+        for th in threads:
+            th.start()
+        t_lim = time.perf_counter() + 120
+        while len({j for _, _, j, *_ in list(done)}) < DP_CLIENTS \
+                and not errors and time.perf_counter() < t_lim:
+            time.sleep(0.01)
+        t_warm = time.perf_counter()
+        time.sleep(DP_SWAP_WINDOW_S)
+        t_pub = time.perf_counter()
+        rec = pub.publish(good)
+        t_swapped, state_ok, err_ok, ver, sw_ms, im_ms = swapped.get(
+            timeout=300)
+        time.sleep(DP_SWAP_WINDOW_S)
+        t_end = time.perf_counter()
+        rec_bad = pub.publish(bad)
+        t_rej, state_bad, err_bad, ver_bad, *_ = swapped.get(timeout=300)
+        n_before_bad = len(done)
+        time.sleep(0.5)
+        stop.set()
+        for th in threads:
+            th.join(timeout=600)
+        conn = _Conn("127.0.0.1", port, timeout=60.0)
+        try:
+            rejected = [p for _, p in conn.call("XREAD", MODEL_REJECT_STREAM,
+                                                0, 64, 0)[1]]
+        finally:
+            conn.close()
+    finally:
+        stop.set()
+        job._report_rejection = report
+        pub.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    v2 = rec["version"]
+    kinds = {"old": 0, "new": 0, "neither": 0, "old_after_flip": 0}
+    for t0, t1, i, y, v in done:
+        if v == "initial" and np.array_equal(y, direct[i]):
+            kinds["old"] += 1
+            kinds["old_after_flip"] += t0 > t_swapped
+        elif v == v2 and np.array_equal(y, new[i]):
+            kinds["new"] += 1
+        else:
+            kinds["neither"] += 1
+    after_bad = [v for t0, _, _, _, v in done[n_before_bad:]]
+    # the swapper's stage_ms holds the re-pack and copy (swap_params_ms'
+    # stage_ms) and its probe; its flip_ms holds the rollback snapshot
+    # and the gate hold (gate_ms)
+    res = {"version": v2, "swap": {"state": state_ok, "error": err_ok,
+                                   "swapper_ms": sw_ms,
+                                   "swap_params_ms": im_ms},
+           "answers": kinds, "errors": errors[:3],
+           "windows": _rate_windows(done, {
+               "before": (t_warm, t_pub), "during": (t_pub, t_swapped),
+               "after": (t_swapped, t_end)}),
+           "nan_publish": {"version": rec_bad["version"], "state": state_bad,
+                           "error": err_bad, "serving": ver_bad,
+                           "answers_after": len(after_bad),
+                           "rejection_records": len(rejected)},
+           "card": smi}
+    log(f"[data-plane] 16c hot swap {json.dumps(res)}")
+    w = res["windows"]
+    ok = (not errors and state_ok == "ok" and ver == v2
+          and kinds["neither"] == 0 and kinds["old_after_flip"] == 0
+          and kinds["old"] > 0 and kinds["new"] > 0
+          and state_bad == "error" and str(err_bad).startswith("nan:")
+          and ver_bad == v2 and all(v == v2 for v in after_bad)
+          and any(r.get("version") == rec_bad["version"] for r in rejected)
+          and w["before"]["requests"] >= 30 and w["after"]["requests"] >= 30)
+    if not ok:
+        raise AssertionError("16c: the hot swap through the data plane "
+                             "failed a gate")
+
+
+def phase16_generation(torch, port, direct5, smi):
+    """16d: ``GenerationEngine`` over phase 5's bf16 LM (rebuilt from seed
+    0; gen_slots 8, page 16, max_seq_len 1024) and phase 5's 16-request
+    burst through ``GenerationClient`` (submitted in phase 5's order, each
+    stream read by its own thread). Every stream ends ok with 32 tokens;
+    each greedy stream equals phase 5's direct stream token for token, or
+    differs where its argmax margin is <= 0.1; K1 = 12 x prefills and K2 =
+    12 x decode steps, counted from 0 before the burst. Returns K1, K2."""
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.ops.flash_attention import \
+        flash_attention_fwd
+    from analytics_zoo_tpu_torch.ops.paged_attention import paged_attention
+    from analytics_zoo_tpu_torch.serving import ServingConfig
+    from analytics_zoo_tpu_torch.serving.generation import (GenerationClient,
+                                                            GenerationEngine)
+
+    set_policy(compute_dtype="bfloat16")
+    model = full_model(torch, DEV["cuda"]).to(torch.bfloat16)
+    model.eval()
+    cfg = ServingConfig(queue_port=port, gen_slots=N_SLOTS,
+                        gen_page_size=PAGE, gen_max_seq_len=MAX_SEQ)
+    eng = GenerationEngine(model, config=cfg, device=DEV["cuda"]).start()
+    prompts, temps, n_new = serving_burst()
+    n_req = len(prompts)
+    arrivals = [[] for _ in range(n_req)]
+    outs, errors = [None] * n_req, []
+    sender = GenerationClient(port=port)
+
+    def reader(i, uri, t_sub):
+        gc = GenerationClient(port=port)
+        try:
+            toks = []
+            for chunk in gc.stream(uri, timeout_s=600):
+                arrivals[i].append(time.perf_counter())
+                toks.extend(chunk.tolist())
+            outs[i] = toks
+        except Exception as e:               # reported below
+            errors.append(repr(e))
+        finally:
+            gc.close()
+
+    try:
+        flash_attention_fwd.launches = 0
+        paged_attention.launches = 0
+        t0 = time.perf_counter()
+        subs = []
+        for i in range(n_req):
+            subs.append((sender.submit(prompts[i], max_new_tokens=n_new,
+                                       temperature=temps[i], seed=100 + i),
+                         time.perf_counter()))
+        threads = [threading.Thread(target=reader, args=(i, u, ts))
+                   for i, (u, ts) in enumerate(subs)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2 = flash_attention_fwd.launches, paged_attention.launches
+        stats = eng.batcher.stats()
+    finally:
+        sender.close()
+        eng.stop()
+    d = stats["dispatches"]
+    if errors or any(o is None or len(o) != n_new for o in outs):
+        raise AssertionError(f"16d: streams not ok with {n_new} tokens: "
+                             f"{errors[:3]}")
+    greedy = [i for i in range(n_req) if temps[i] == 0.0]
+    differ = [i for i in greedy if outs[i] != direct5["outs"][i]]
+    margins = {}
+    for i in differ:
+        seq = np.concatenate([prompts[i], np.asarray(outs[i][:-1], np.int32)])
+        with torch.no_grad():
+            lg = model.apply(torch.as_tensor(seq[None]))[0].float()
+        rows = lg[len(prompts[i]) - 1:]
+        chosen = rows[torch.arange(n_new), torch.as_tensor(outs[i]).long()]
+        margins[i] = float((rows.max(dim=-1).values - chosen).max())
+    ttft = [a[0] - ts for a, (_, ts) in zip(arrivals, subs)]
+    itl = [b - a for ar in arrivals for a, b in zip(ar, ar[1:])]
+    n_tok = sum(len(o) for o in outs)
+    res = {"requests": n_req, "tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "ttft_p50_ms": pct(ttft, 50) * 1e3,
+           "itl_p50_ms": pct(itl, 50) * 1e3, "itl_p95_ms": pct(itl, 95) * 1e3,
+           "greedy_equal_to_phase5": f"{len(greedy) - len(differ)}/"
+                                     f"{len(greedy)}",
+           "differing_margins": margins, "dispatches": d,
+           "step_ema_ms": stats["step_ema_s"] * 1e3,
+           "launches": {"K1": k1, "K2": k2},
+           "phase5_direct": {k: direct5["res"][k] for k in (
+               "tokens_per_s", "ttft_p50_ms", "itl_p50_ms", "itl_p95_ms",
+               "step_ema_ms")},
+           "card": smi}
+    log(f"[data-plane] 16d generation {json.dumps(res)}")
+    del model
+    set_policy(compute_dtype="float32")
+    ok = (k1 == N_BLOCK * d["prefill"] and d["prefill"] == n_req
+          and k2 == N_BLOCK * d["decode"] and d["decode"] > 0
+          and all(m <= 0.1 for m in margins.values()))
+    if not ok:
+        raise AssertionError("16d: the generation data plane failed a gate")
+    return k1, k2
+
+
+def phase_data_plane(torch, state, direct5, smi):
+    """Phase 16: the serving data plane on the card (16a-16d), on a broker
+    of the port started in this process. Returns the data-plane launches
+    of K1, K2 (16d), K5 and K6 (16a)."""
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.serving import (ClusterServing,
+                                                 ServingConfig, start_broker)
+
+    t_phase = time.perf_counter()
+    wall = {}
+    set_policy(compute_dtype="float32")
+    images = np.random.default_rng(30).normal(
+        size=(DP_IMAGES, IMG, IMG, 3)).astype(np.float32)
+    broker = start_broker()
+    try:
+        t = time.perf_counter()
+        im = InferenceModel(supported_concurrent_num=IMG_THREADS,
+                            max_batch_size=IMG_BATCH, device=DEV["cuda"])
+        im.load(resnet_on(torch, state, DEV["cuda"]))
+        cfg = ServingConfig(queue_port=broker.port, batch_size=IMG_BATCH,
+                            concurrent_num=IMG_THREADS, int8=True,
+                            warmup_shape=(IMG, IMG, 3))
+        job = ClusterServing(im, cfg, group="data-plane").start()
+        wall["start"] = time.perf_counter() - t
+        try:
+            t = time.perf_counter()
+            direct, k5, k6 = phase16_queue(torch, job, im, broker.port,
+                                           images, smi)
+            wall["16a"] = time.perf_counter() - t
+            t = time.perf_counter()
+            phase16_http(torch, job, im, broker.port, images, direct, smi)
+            wall["16b"] = time.perf_counter() - t
+            t = time.perf_counter()
+            phase16_swap(torch, job, im, broker.port, state, images, direct,
+                         smi)
+            wall["16c"] = time.perf_counter() - t
+        finally:
+            job.stop()
+        del im, job
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        k1, k2 = phase16_generation(torch, broker.port, direct5, smi)
+        wall["16d"] = time.perf_counter() - t
+    finally:
+        broker.shutdown()
+        broker.server_close()
+    torch.cuda.empty_cache()
+    wall["phase"] = time.perf_counter() - t_phase
+    log(f"[data-plane] phase wall s: {json.dumps(wall)}")
+    return {"K1": k1, "K2": k2, "K5": k5, "K6": k6}
+
+
 def kernel_launch_counts():
     """The launch counts of K1-K6 and the sampler."""
     from analytics_zoo_tpu_torch.ops import flash_attention as tfa
@@ -4598,7 +5165,8 @@ def main(argv=None) -> int:
         if not args.quick:
             gpu_model = full_model(torch, "cuda")
             phase_parity(torch, gpu_model)
-            k1_serving, k2, ks = phase_serving(torch, gpu_model, smi)
+            k1_serving, k2, ks, direct5 = phase_serving(torch, gpu_model,
+                                                        smi)
             k2_features = phase_serving_features(torch, gpu_model, smi)
             if args.profile:
                 phase_profile(torch, gpu_model, smi)
@@ -4647,6 +5215,11 @@ def main(argv=None) -> int:
                     (kernels[0], kernels[2], kernels[3]), resume, dots):
                 k.setdefault("launches_by_path", {}).update(
                     training_resumed=n_resume, training_remat_dots=n_dots)
+            torch.cuda.empty_cache()
+            plane = phase_data_plane(torch, state, direct5, smi)
+            for k, key in ((kernels[0], "K1"), (kernels[1], "K2"),
+                           (kernels[5], "K5"), (kernels[6], "K6")):
+                k["launches_by_path"]["data_plane"] = plane[key]
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):

@@ -43,7 +43,12 @@ depths 0 and 2. The serving remainder on the card: a preempted stream
 resumes with the CPU's tokens, a (params, spec) swap serves a fresh
 batcher's tokens, a chaos-killed loop respawns with its streams, an int8
 swap serves K5 on the re-packed kernels bit for bit, and a row delta
-equals a full swap.
+equals a full swap. The data plane on the card (``-k data_plane``): an int8
+ResNet-50 behind ClusterServing answers through the broker and the shm ring
+bit for bit as its direct predict (K6 = 53, K5 = 1 a batch), a
+GenerationEngine streams a ContinuousBatcher's tokens (K1 a prefill and
+layer, K2 a decode step and layer), and ModelSwapper's staged tensors are
+the ones the model serves after the flip.
 """
 
 import math
@@ -1201,3 +1206,144 @@ def test_row_delta_on_card_equals_a_full_swap(cuda, tmp_path):
     hit = np.isin(x[:, 0], [3, 7])
     np.testing.assert_array_equal(got[~hit], before[~hit])
     assert not np.array_equal(got[hit], before[hit])
+
+
+# ----------------------------------------------------------- the data plane
+
+def test_data_plane_int8_queue_serving_on_card(cuda):
+    """An int8 ResNet-50 (80 px, 10 classes) behind ClusterServing on the
+    card, images (76.8 KB each, over the shm ring) through the port's
+    broker: every answer bit for bit the direct predict of its image, K6 =
+    53 and K5 = 1 per batch the engine dispatched."""
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.models.image.backbones import resnet50
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+    from analytics_zoo_tpu_torch.serving import (ClusterServing, InputQueue,
+                                                 OutputQueue, ServingConfig,
+                                                 start_broker)
+    from analytics_zoo_tpu_torch.serving.wire import wire_stats
+
+    x = np.random.default_rng(0).normal(size=(12, 80, 80, 3)).astype(
+        np.float32)
+    im = InferenceModel(max_batch_size=8, device=cuda).load(
+        resnet50((80, 80, 3), 10, device=cuda, seed=2))
+    broker = start_broker()
+    job = ClusterServing(im, ServingConfig(
+        queue_port=broker.port, batch_size=8, int8=True,
+        warmup_shape=(80, 80, 3)), group="card").start()
+    try:
+        direct = im.predict(x)
+        calls, predict = [0], im.predict
+
+        def counted(b):
+            calls[0] += 1
+            return predict(b)
+
+        im.predict = counted
+        f8.int8_matmul_fused.launches = f8.int8_conv2d_fused.launches = 0
+        shm = wire_stats()["shm_bytes"]
+        iq, oq = InputQueue(port=broker.port), OutputQueue(port=broker.port)
+        uris = [iq.enqueue(None, input=x[i]) for i in range(len(x))]
+        got = np.stack([oq.query(u, timeout_s=120) for u in uris])
+        iq.close()
+        oq.close()
+    finally:
+        job.stop()
+        broker.shutdown()
+        broker.server_close()
+    np.testing.assert_array_equal(got, direct)
+    assert wire_stats()["shm_bytes"] > shm
+    assert f8.int8_conv2d_fused.launches == 53 * calls[0]
+    assert f8.int8_matmul_fused.launches == calls[0] > 0
+
+
+def test_data_plane_generation_on_card_matches_the_batcher(cuda):
+    """GenerationEngine on the card streams, through the broker, the tokens
+    a ContinuousBatcher on the card gives for the same requests, with K1
+    once per prefill and layer and K2 once per decode step and layer."""
+    from analytics_zoo_tpu_torch.serving import ServingConfig, start_broker
+    from analytics_zoo_tpu_torch.serving.generation import (
+        ContinuousBatcher, GenerationClient, GenerationEngine)
+
+    kw = dict(vocab=256, hidden_size=64, n_block=2, n_head=4, seq_len=128,
+              seed=0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 256, int(n)).astype(np.int32)
+               for n in (5, 17, 33, 9)]
+    direct = ContinuousBatcher(TransformerLM(device=cuda, **kw), n_slots=4,
+                               page_size=8, max_seq_len=96, device=cuda)
+    want = [direct.generate(p, max_new_tokens=12) for p in prompts]
+    direct.close()
+    broker = start_broker()
+    cfg = ServingConfig(queue_port=broker.port, gen_slots=4, gen_page_size=8,
+                        gen_max_seq_len=96)
+    eng = GenerationEngine(TransformerLM(device=cuda, **kw), config=cfg,
+                           device=cuda).start()
+    client = GenerationClient(port=broker.port)
+    try:
+        tfa.flash_attention_fwd.launches = tpa.paged_attention.launches = 0
+        got = [client.generate(p, max_new_tokens=12, timeout_s=120)
+               for p in prompts]
+        d = eng.batcher.stats()["dispatches"]
+        k1, k2 = tfa.flash_attention_fwd.launches, \
+            tpa.paged_attention.launches
+    finally:
+        client.close()
+        eng.stop()
+        broker.shutdown()
+        broker.server_close()
+    assert got == want
+    assert k1 == 2 * d["prefill"] == 2 * len(prompts)
+    assert k2 == 2 * d["decode"] > 0
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_data_plane_swapper_flips_the_staged_tensors_on_card(
+        cuda, tmp_path, monkeypatch, int8):
+    """ModelSwapper on the card, float or int8: the checkpoint's leaves
+    (re-packed for an int8 model) cross to the card once, from host
+    tensors through one side-stream staging; the probe runs on those
+    tensors (K5 on the int8 model) and the flip installs them by
+    reference; the answers equal a fresh model swapped to the new
+    weights, bit for bit."""
+    from analytics_zoo_tpu_torch.bridge import nest
+    from analytics_zoo_tpu_torch.engine import checkpoint as ck
+    from analytics_zoo_tpu_torch.inference import inference_model as tim
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+    from analytics_zoo_tpu_torch.serving.hotswap import (ModelSwapper,
+                                                         publish_record)
+
+    def model():
+        im = tim.InferenceModel(max_batch_size=8, device=cuda).load(
+            _int8_mlp(cuda))
+        return im.quantize_int8() if int8 else im
+
+    im = model()
+    params2 = {n: t * 1.01 for n, t in im.host_params().items()}
+    path = ck.save_checkpoint(str(tmp_path), nest(params2), iteration=1,
+                              epoch=0)
+    crossings, stage = [], tim.stage_tensors
+
+    def counted(tensors, *a, **k):
+        crossings.append(all(t.device.type == "cpu"
+                             for t in tensors.values()))
+        return stage(tensors, *a, **k)
+
+    monkeypatch.setattr(tim, "stage_tensors", counted)
+    sw = ModelSwapper(im, probe_shape=(256,))
+    f8.int8_matmul_fused.launches = 0
+    staged = sw.stage(publish_record(path))
+    assert crossings == [True]
+    assert f8.int8_matmul_fused.launches == (2 if int8 else 0)
+    assert all(t.is_cuda for t in staged.tensors.values())
+    sw.swap(staged, publish_record(path))
+    assert crossings == [True]
+    held = {t.data_ptr() for t in im._module.parameters()} | \
+        {t.data_ptr() for t in im._module.buffers()}
+    assert all(t.data_ptr() in held for t in staged.tensors.values())
+    monkeypatch.undo()
+    ref = model()
+    ref.swap_params(params2)
+    x = np.random.default_rng(2).normal(size=(8, 256)).astype(np.float32)
+    np.testing.assert_array_equal(im.predict(x), ref.predict(x))

@@ -117,3 +117,34 @@ def test_kernel_sources_ship_with_the_package():
     assert all((PKG / "csrc" / f"{k}.cu").is_file() for k in _build.KERNELS)
     text = (ROOT / "pyproject.toml").read_text()
     assert "csrc/*.cu" in text and "csrc/*.cuh" in text
+
+
+DATA_PLANE = ("serving/wire.py", "serving/shm.py", "serving/schema.py",
+              "serving/config.py", "serving/broker.py", "serving/client.py",
+              "serving/slo_metrics.py", "serving/batching.py",
+              "serving/hotswap.py", "serving/engine.py",
+              "serving/http_frontend.py", "observability/debug.py")
+
+
+def test_the_serving_data_plane_is_in_the_port_without_jax():
+    """The data plane's modules mirror the JAX package's paths, and
+    importing them (and the serving package) in a fresh interpreter pulls
+    in neither JAX, the JAX package nor ml_dtypes."""
+    for rel in DATA_PLANE:
+        assert (PKG / rel).is_file(), rel
+        assert (ROOT / "analytics_zoo_tpu" / rel).is_file(), rel
+    mods = ["analytics_zoo_tpu_torch.serving"] + [
+        "analytics_zoo_tpu_torch." + rel[:-3].replace("/", ".")
+        for rel in DATA_PLANE]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from analytics_zoo_tpu_torch.serving import generation\n"
+        "assert hasattr(generation, 'GenerationEngine')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'analytics_zoo_tpu', 'ml_dtypes'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

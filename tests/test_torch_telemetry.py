@@ -308,6 +308,60 @@ def test_health_registry_matches():
     assert out[0] == out[1]
 
 
+def test_circuit_breaker_matches():
+    """The same outcomes on the same clock walk both packages' breakers
+    through the same states, retry-after hints, opens (counted in
+    ``zoo_breaker_opens_total`` and the ``zoo_breaker_state`` collector)
+    and ``breaker.open`` events."""
+    out = []
+    for res, tm, ev in ((tres, ttm, tev), (jres, jtm, jev)):
+        tm.reset_telemetry()
+        ev.reset_events()
+        clk = _Clock()
+        b = res.CircuitBreaker(failure_threshold=2, window=4,
+                               reset_timeout_s=1.0, name="t-breaker",
+                               clock=clk)
+        trace = []
+
+        def step(what):
+            if what == "ok":
+                b.record_success()
+            elif what == "fail":
+                b.record_failure()
+            elif what == "allow":
+                trace.append(b.allow())
+            elif what == "trip":
+                b.trip()
+            elif what == "reset":
+                b.reset()
+            else:
+                clk.t += what
+            trace.append((b.state, round(b.retry_after_s(), 6)))
+
+        for what in ["ok", "fail", "allow", "fail", "allow", 0.5, "allow",
+                     0.6, "allow", "allow", "fail", 1.0, "allow", "ok",
+                     "trip", "allow", "reset", "allow"]:
+            step(what)
+        with pytest.raises(res.CircuitOpenError):
+            b.trip()
+            b.call(lambda: None)
+        text = tm.render_prometheus()
+        fams = tm.parse_prometheus(text)
+        opens = [v for _n, l, v in fams["zoo_breaker_opens_total"]["samples"]
+                 if l.get("name") == "t-breaker"]
+        states = [v for _n, l, v in fams["zoo_breaker_state"]["samples"]
+                  if l.get("name") == "t-breaker"]
+        kinds = [(e.kind, e.fields["cause"]) for e in ev.events("breaker.open")]
+        out.append((trace, opens, states, kinds))
+        tm.reset_telemetry()
+        ev.reset_events()
+    assert out[0] == out[1]
+    trace, opens, states, kinds = out[0]
+    assert opens == [4.0] and states == [2.0]
+    assert kinds == [("breaker.open", "failures")] * 2 + \
+        [("breaker.open", "tripped")] * 2
+
+
 def test_retry_policy_counts_attempts_in_telemetry():
     ttm.reset_telemetry()
     pol = tres.RetryPolicy(max_attempts=3, base_delay_s=0.0, jitter=0.0,
