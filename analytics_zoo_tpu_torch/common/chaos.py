@@ -170,16 +170,22 @@ class ChaosSchedule:
 #: the chaos sites the port's code marks: a typo'd site never fires, so a
 #: drill aimed at it would test nothing
 KNOWN_SITES = {
+    "autoscale.scale",    # serving/fleet.py, each autoscaler scale event
     "broker.handle",      # serving/broker.py, each command dispatch
     "ckpt.write",         # engine/checkpoint.py writer (serialize->publish)
     "conn.call",          # serving/client.py, each broker round trip
     "data.prefetch",      # data/pipeline.py, once a produced batch
     "estimator.step",     # engine/estimator.py, every step (or block)
+    "fleet.host_respawn",  # serving/fleet.py, whole-host failover respawns
+    "fleet.respawn",      # serving/fleet.py, each dead-replica respawn
+    "fleet.route",        # serving/fleet.py, each routing decision
+    "host.heartbeat",     # serving/hostagent.py, each agent round
     "overload.shed",      # each deadline or admission shed (the frontend,
-                          # the micro-batcher, the engines)
+                          # the router, the micro-batcher, the engines)
     "prefill.chunk",      # serving/generation.py, before each chunk dispatch
     "prefix.publish",     # serving/generation.py, between a stream's prefill
                           # and its prefix-cache publish
+    "rollout.phase",      # serving/hotswap.py, each rollout phase entry
     "serving.generate",   # serving/generation.py, each decode-loop pass
     "serving.infer",      # serving/engine.py, each infer-worker batch
     "swap.stage",         # serving/hotswap.py, between a swap's checks and

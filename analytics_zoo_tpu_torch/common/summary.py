@@ -9,8 +9,8 @@ same ``(step, wall_time, scalars)`` both packages write the same bytes.
 
 Not ported: the ``zoo_summary_scalar`` gauge and the
 ``zoo_summary_events_total`` counter that mirror every scalar into
-``common/telemetry.py`` (the training counters, ROADMAP Queue 1, item 8's
-next slice).
+``common/telemetry.py`` (the training counters, ROADMAP Queue 1, item 8,
+step 7).
 """
 
 from __future__ import annotations

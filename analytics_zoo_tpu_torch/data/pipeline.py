@@ -17,7 +17,7 @@ producers feeding a bounded queue, and the pinned-memory copy to the card.
 
 The JAX package's producer-stall and consumer-wait histograms and its
 ``zoo_data_prefetch_queue_depth`` gauge are not ported yet: they come with
-the training counters (ROADMAP Queue 1, item 8's next slice; the registry
+the training counters (ROADMAP Queue 1, item 8, step 7; the registry
 they report to, ``common/telemetry.py``, is ported).
 :meth:`PrefetchLoader.queue_depth` stands in for the gauge.
 """

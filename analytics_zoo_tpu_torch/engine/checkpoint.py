@@ -44,7 +44,7 @@ returns ``[(leaf_index, idx, rows)]`` for
 
 Not ported: the ``zoo_train_checkpoint_snapshot_seconds`` /
 ``..._write_seconds`` histograms (the training counters, ROADMAP Queue 1,
-item 8's next slice); :data:`timings` keeps the same two durations.
+item 8, step 7); :data:`timings` keeps the same two durations.
 """
 
 from __future__ import annotations

@@ -109,9 +109,25 @@ def save_model_bundle(path: str, model, config: Optional[Dict] = None
 def load_model_bundle(path: str, model=None, *, device=None):
     """Load a bundle. With ``model``, into it; otherwise rebuild the
     architecture from :data:`MODEL_REGISTRY` on ``device`` (CUDA unless
-    given) and load into that. Returns ``(model, config)``."""
+    given) and load into that. Returns ``(model, config)``.
+
+    An ``ImageClassifier`` bundle names its backbone's graph class
+    (``Model``), which no registry entry rebuilds; its config names the
+    backbone (``model_name``, ``input_shape``, ``num_classes``), so the
+    backbone is rebuilt from that. The JAX package's ``load_model_bundle``
+    refuses such a bundle (ROADMAP Queue 3)."""
     with open(os.path.join(path, "config.json")) as f:
         cfg = json.load(f)
+    conf = cfg["config"]
+    if model is None and cfg["class"] not in MODEL_REGISTRY \
+            and "model_name" in conf:
+        from ..image.backbones import build_backbone
+
+        model = build_backbone(conf["model_name"],
+                               tuple(conf["input_shape"]),
+                               conf["num_classes"], device=device)
+        load_weights(path, model)
+        return model, cfg
     if model is None:
         cls = MODEL_REGISTRY.get(cfg["class"])
         if cls is None:

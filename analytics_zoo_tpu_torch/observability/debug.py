@@ -1,11 +1,6 @@
 """The ``/debug`` ops surface — stdlib-only HTML + JSON views (port of
 ``analytics_zoo_tpu/observability/debug.py``, which needs no JAX: a copy).
 
-The port has no metrics history, SLO engine or host row cache yet (ROADMAP
-Queue 1, item 8's next slice): ``/debug/slo`` answers ``enabled: false``,
-the sparklines say "no data", and ``/debug/rowcache`` answers an empty
-``caches`` — what the JAX surface answers when none of them is installed.
-
 Served by the HTTP frontend (``serving/http_frontend.py`` routes every
 ``/debug*`` path here). Pure functions over the observability plane: no
 framework, no static assets — the dashboard is one self-contained HTML page
@@ -113,9 +108,8 @@ class DebugSurface:
             if route == "/debug/events":
                 return self._json(self._events_payload(query))
             if route == "/debug/rowcache":
-                # no row cache in the port yet: the JAX surface's answer
-                # when no cache is registered
-                return self._json({"caches": {}})
+                from ..serving import rowcache as _rc
+                return self._json({"caches": _rc.cache_stats()})
             if route == "/debug/traces":
                 return self._json({"traces":
                                    _traces.interesting_traces(

@@ -4,8 +4,8 @@ JAX).
 
 A bounded, synchronized ring of **control-input records** — for every
 consequential decision, the exact observation dict the decision function
-consumed plus the decision it returned (the decode loop records
-``admission.generation`` and ``gen.prefill.budget``) — assembled on demand
+consumed plus the decision it returned (admission, autoscale, prefill
+budget, failover, rollout) — assembled on demand
 with the event ring, recent traces, chaos-site firings and the metric
 snapshot into ONE versioned self-contained JSON artifact (``schema:
 zoo-flight-v1``, the JAX package's format).
@@ -15,10 +15,12 @@ Dump triggers:
 * **process fault** — ``atexit`` plus chained signal handlers installed by
   :func:`install`; the previous handler still runs after the dump.
 * **auto** — an event sink watches the decision stream from the events
-  drain thread and cuts a dump on a chaos kill (``chaos.injected`` with
-  ``action=kill``) and on the fleet and SLO events of the JAX package's
-  serving tiers, throttled by ``min_auto_dump_interval_s``.
-* **operator** — :meth:`FlightRecorder.dump` directly.
+  drain thread and cuts a dump on a fast-burn SLO page (``slo.firing``), a
+  chaos kill (``chaos.injected`` with ``action=kill``) or a fleet death
+  (``fleet.failover`` / ``fleet.host_failed``), throttled by
+  ``min_auto_dump_interval_s``.
+* **operator** — ``cli dump`` (through the ``/debug/flight`` endpoint) or
+  :meth:`FlightRecorder.dump` directly.
 
 Lock discipline mirrors ``events.py``: the ring sits behind one plain
 terminal lock touched only for O(1) appends and list copies; serialization
@@ -26,9 +28,10 @@ and file I/O happen outside it, and the auto trigger runs on the events
 drain thread, so ``record()``/``emit()`` during a dump never block. Dumps
 are written tmp-then-rename, so a reader never sees a torn artifact.
 
-The JAX package's metric-history windows and SLO verdicts ride a dump when
-a ``plane`` is attached; the port has no such plane yet, so its dumps carry
-``"slo": null`` and an empty ``"history"``.
+Metric-history windows and SLO verdicts ride a dump when an
+:class:`~.ObservabilityPlane` is attached as ``plane`` (the serving stack
+attaches its own); without one a dump carries ``"slo": null`` and an empty
+``"history"``.
 """
 
 from __future__ import annotations

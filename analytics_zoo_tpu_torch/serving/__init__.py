@@ -1,26 +1,29 @@
 """Serving (port of ``analytics_zoo_tpu/serving``): the stream broker, the
 binary wire and its same-host shm ring, the queue clients, ``ClusterServing``
 (source → batched inference → sink), the HTTP frontend, hot swap from
-published checkpoints, and generation — ``ContinuousBatcher`` in process or
-``GenerationEngine``/``GenerationClient`` over the broker.
-
-Not ported yet (ROADMAP Queue 1, item 8's next slice): the replica fleet
-(``FleetSupervisor``, ``ReplicaRouter``, ``RolloutController``), the host
-agents, the hot-row cache, the serving stack and its CLI.
+published checkpoints, generation — ``ContinuousBatcher`` in process or
+``GenerationEngine``/``GenerationClient`` over the broker — and the control
+plane: the replica fleet (``ReplicaRouter``, ``FleetSupervisor``, the
+autoscaler), canary rollout (``RolloutController``), the host agents, the
+hot-row cache (``HostRowCache``), the one-command ``stack`` and the ``cli``.
 """
 
 from .broker import QueueBroker, start_broker
 from .client import InputQueue, OutputQueue
 from .config import ServingConfig
 from .engine import ClusterServing
+from .fleet import FleetSupervisor, ReplicaRouter
 from .generation import (ContinuousBatcher, GenerationClient,
                          GenerationEngine, StreamHandle)
-from .hotswap import ModelPublisher, ModelSwapper, SwapRejected
+from .hotswap import (ModelPublisher, ModelSwapper, RolloutController,
+                      SwapRejected)
 from .http_frontend import FrontEndApp
 from .qos import PRIORITIES, ShedError
+from .rowcache import HostRowCache
 
-__all__ = ["ClusterServing", "ContinuousBatcher", "FrontEndApp",
-           "GenerationClient", "GenerationEngine", "InputQueue",
-           "ModelPublisher", "ModelSwapper", "OutputQueue", "PRIORITIES",
-           "QueueBroker", "ServingConfig", "ShedError", "StreamHandle",
+__all__ = ["ClusterServing", "ContinuousBatcher", "FleetSupervisor",
+           "FrontEndApp", "GenerationClient", "GenerationEngine",
+           "HostRowCache", "InputQueue", "ModelPublisher", "ModelSwapper",
+           "OutputQueue", "PRIORITIES", "QueueBroker", "ReplicaRouter",
+           "RolloutController", "ServingConfig", "ShedError", "StreamHandle",
            "SwapRejected", "start_broker"]

@@ -31,9 +31,8 @@ the client sees the ack. On startup the log is replayed, so acknowledged
 requests and results survive a broker kill. Delivered-but-unacknowledged
 entries (tracked in a per-group pending list, Redis PEL semantics — consumers
 ``XACK`` after writing results) are re-delivered ahead of new traffic after a
-crash restart. The JAX package's ``serving.cli restart`` (the
-cluster-serving-restart equivalent) is not ported yet (ROADMAP Queue 1,
-item 8's next slice).
+crash restart. ``python -m analytics_zoo_tpu_torch.serving.cli restart``
+is the cluster-serving-restart equivalent.
 """
 
 from __future__ import annotations

@@ -12,11 +12,12 @@ it is set away from its default:
 * ``graph_checks="raise"`` and ``hbm_budget_mb`` (the dispatch and memory
   lints, item 11); the default ``"warn"`` makes each engine log one warning
   at start naming item 11, and its ``stats()`` report
-  ``graph_checks: "not_ported"``;
-* ``replicas > 1``, ``fleet_hosts > 0`` and ``autoscale`` (the replica
-  fleet, its autoscaler and the host agents, the next slice of item 8);
-* ``slo_objectives`` and the YAML ``slo:`` section (the SLO engine,
-  ``observability/slo.py``, the next slice of item 8).
+  ``graph_checks: "not_ported"``.
+
+The fleet fields (``replicas``, ``fleet_*``, ``autoscale*``,
+``rollout_*``) drive ``serving/fleet.py``; the ``slo:`` section is checked
+by ``observability/slo.py``'s ``parse_objectives`` when the config is read,
+so a typo'd objective fails here, not in a running engine.
 """
 
 from __future__ import annotations
@@ -224,18 +225,6 @@ class ServingConfig:
         if self.hbm_budget_mb is not None:
             raise _not_ported("hbm_budget_mb (the static memory lint)",
                               "item 11")
-        if self.replicas > 1:
-            raise _not_ported("replicas > 1 (the replica fleet)",
-                              "item 8's next slice")
-        if self.fleet_hosts > 0:
-            raise _not_ported("fleet_hosts > 0 (the host agents)",
-                              "item 8's next slice")
-        if self.autoscale:
-            raise _not_ported("autoscale (the fleet autoscaler)",
-                              "item 8's next slice")
-        if self.slo_objectives:
-            raise _not_ported("slo_objectives (the SLO engine)",
-                              "item 8's next slice")
 
     @classmethod
     def from_yaml(cls, path: str) -> "ServingConfig":
@@ -427,9 +416,29 @@ class ServingConfig:
                                      else cls.min_replicas)):
             raise ValueError(f"autoscale max_replicas ({hi!r}) must be >= "
                              f"min_replicas")
-        if raw.get("slo"):
-            raise _not_ported("section slo: (the SLO engine, "
-                              "observability/slo.py)", "item 8's next slice")
+        slo = raw.get("slo") or {}
+        if slo:
+            objectives = slo.get("objectives") or []
+            if not isinstance(objectives, list) or not all(
+                    isinstance(o, dict) for o in objectives):
+                raise ValueError("slo objectives must be a list of mappings")
+            # validate declaratively at CONFIG time (a typo'd objective must
+            # fail here, not wedge the engine at runtime) — parse_objectives
+            # raises on unknown type / bad target / duplicate names
+            from ..observability.slo import parse_objectives
+
+            parse_objectives(objectives)
+            flat["slo_objectives"] = tuple(dict(o) for o in objectives)
+            for key, alias in (("slo_fast_window_s", "fast_window_s"),
+                               ("slo_slow_window_s", "slow_window_s"),
+                               ("slo_burn_factor", "burn_factor")):
+                if alias in slo:
+                    flat[key] = float(slo[alias])
+            fast = flat.get("slo_fast_window_s", cls.slo_fast_window_s)
+            slow = flat.get("slo_slow_window_s", cls.slo_slow_window_s)
+            if fast >= slow:
+                raise ValueError(f"slo fast_window_s ({fast}) must be < "
+                                 f"slow_window_s ({slow})")
         for key in ("infer_workers", "heartbeat_timeout_s",
                     "http_max_inflight", "breaker_failure_threshold",
                     "breaker_reset_timeout_s"):

@@ -23,17 +23,21 @@ stream (``serving/hotswap.py``), stages each published checkpoint off the
 hot path and flips it between dispatch waves; every result carries the
 version that computed it.
 
-Not ported: the replica-fleet mode of the JAX engine (per-replica dispatch
-streams, the ``fleet:hb:``/``fleet:ctl:`` heartbeat and control hashes,
-first-write-wins results, swap commands from the RolloutController) comes
-with the fleet (ROADMAP Queue 1, item 8's next slice). The warm-up's graph
-checks are not ported (item 11): ``graph_checks="warn"`` logs one warning at
-``start`` and ``stats()`` reports ``graph_checks: "not_ported"``.
+Replica mode (``stream``/``replica_id``, driven by ``serving/fleet.py``): the
+engine consumes its own routed dispatch stream under a group that starts at
+``"0"``, heartbeats into the ``fleet:hb:<replica_id>`` hash, polls
+``fleet:ctl:<replica_id>`` for drain and nonce-deduped swap commands from
+the ``RolloutController``, and writes results first-write-wins
+(``HSETNX``), so a requeued request answered twice reaches
+the client once. The warm-up's graph checks are not ported (item 11):
+``graph_checks="warn"`` logs one warning at ``start`` and ``stats()``
+reports ``graph_checks: "not_ported"``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -64,6 +68,10 @@ _RECORDS = _tm.counter("zoo_serving_records_total",
                        labels=("outcome",))
 _RESPAWNS = _tm.counter("zoo_serving_worker_respawns_total",
                         "Dead model-worker slots respawned by the supervisor")
+_DUP_RESULTS = _tm.counter(
+    "zoo_fleet_duplicate_results_dropped_total",
+    "Result writes a dedup-mode sink dropped because another replica "
+    "already answered the uri (HSETNX returned 0)")
 _ENGINE_SHED = _tm.counter(
     "zoo_serving_shed_total",
     "Requests the engine shed instead of served, by overload class "
@@ -73,6 +81,12 @@ _ENGINE_SHED = _tm.counter(
 # once in serving/slo_metrics.py
 _REQ_LAT = _slo_metrics.REQUEST_LATENCY
 _REQ_OUTCOMES = _slo_metrics.REQUEST_OUTCOMES
+
+# fleet coordination keys on the broker (written by replica engines, read by
+# the ReplicaRouter/FleetSupervisor in serving/fleet.py)
+FLEET_HB_PREFIX = "fleet:hb:"     # per-replica heartbeat hash
+FLEET_CTL_PREFIX = "fleet:ctl:"   # per-replica control hash (drain commands)
+
 
 class ClusterServing:
     """Streaming inference job.
@@ -85,11 +99,19 @@ class ClusterServing:
 
     def __init__(self, model=None, config: Optional[ServingConfig] = None,
                  group: str = "serving",
-                 registry: Optional[HealthRegistry] = None, *,
+                 registry: Optional[HealthRegistry] = None,
+                 stream: Optional[str] = None,
+                 replica_id: Optional[str] = None, *,
                  device=None):
         self.config = config or ServingConfig()
         self.group = group
-        self.stream = INPUT_STREAM
+        # fleet wiring: a replica consumes its OWN stream (the router's
+        # per-replica dispatch stream) under its own consumer group, announces
+        # itself via a broker-side heartbeat hash, and writes results
+        # first-write-wins (HSETNX) so a requeued request answered twice
+        # reaches the client exactly once
+        self.stream = stream or INPUT_STREAM
+        self.replica_id = replica_id
         # liveness registry: every stage thread registers + beats; the
         # supervisor respawns dead model workers; /healthz reads status()
         self.registry = registry if registry is not None else HealthRegistry(
@@ -116,8 +138,8 @@ class ClusterServing:
         # already in flight (the zero-downtime rolling-restart precondition)
         self._draining = threading.Event()
         # hard kill: every loop exits at its next check WITHOUT acking or
-        # sinking — simulates engine death for failover drills (claimed
-        # entries stay pending broker-side and are redelivered)
+        # sinking — simulates replica death for failover drills (claimed
+        # entries stay pending broker-side and get requeued by the fleet)
         self._killed = threading.Event()
         self._threads: List[threading.Thread] = []
         # model-worker threads are tracked by slot so the supervisor can
@@ -133,17 +155,21 @@ class ClusterServing:
         self.served = 0
         self.errors = 0                 # records answered with an error —
                                         # the canary-validation signal
-        # per-RECORD compute time (pickup->computed / batch size): the
-        # computed Retry-After of an in-flight shed; it excludes queue wait,
+        self._lat_ema_s = 0.0           # EMA of receipt->computed latency
+        # per-RECORD compute time (pickup->computed / batch size) — the
+        # router's shed-proof evidence; unlike lat it excludes queue wait,
         # so depth x svc doesn't double-count
         self._svc_ema = _qos.ServiceTimeEMA()
-        # model hot-swap (serving/hotswap.py): staging + the atomic flip,
-        # driven by the publisher stream (config.hot_swap)
+        # model hot-swap (serving/hotswap.py): staging + the atomic flip.
+        # Commands arrive via the fleet control hash (replica mode) or the
+        # publisher stream directly (single-engine mode, config.hot_swap)
         self.swapper = ModelSwapper(
             self.model, warmup=getattr(self.config, "swap_warmup", True),
             probe_shape=getattr(self.config, "warmup_shape", None))
         self._swap_state = "idle"       # idle | staging | ok | error
         self._swap_error: Optional[str] = None
+        self._swap_thread: Optional[threading.Thread] = None
+        self._swap_nonce_seen: Any = None
 
     # ------------------------------------------------------------------ stages
 
@@ -281,6 +307,11 @@ class ClusterServing:
                     ver = ((getver() if getver is not None else None)
                            or self.model_version)
                     t_done = time.perf_counter()
+                    # receipt -> computed latency EMA, published in the fleet
+                    # heartbeat — the canary-validation latency signal
+                    lat = t_done - min(rec[4] for rec in batch)
+                    self._lat_ema_s = (lat if self._lat_ema_s == 0.0
+                                       else 0.8 * self._lat_ema_s + 0.2 * lat)
                     self._svc_ema.observe((t_done - t_pick)
                                           / max(1, len(batch)))
                     for rec in batch:
@@ -408,9 +439,14 @@ class ClusterServing:
             conn.close()
 
     def _write_result(self, conn: _Conn, uri: str, value: Any) -> None:
-        """One result write (the JAX fleet's first-write-wins mode comes
-        with the fleet)."""
-        conn.call("HSET", RESULT_PREFIX + uri, value)
+        """One result write. A replica lets only the FIRST answer per uri
+        land — the broker's HSETNX tombstones make a slow-not-dead
+        replica's duplicate answer for a requeued request a counted no-op."""
+        if self.replica_id is not None:
+            if conn.call("HSETNX", RESULT_PREFIX + uri, value) == 0:
+                _DUP_RESULTS.inc()
+        else:
+            conn.call("HSET", RESULT_PREFIX + uri, value)
 
     # ----------------------------------------------------------------- control
 
@@ -464,13 +500,20 @@ class ClusterServing:
         self._draining.clear()
         self._killed.clear()
         self._warm_model()
-        # Register the consumer group before consuming. The group starts at
-        # the TAIL (FlinkRedisSource.scala:44 xgroupCreate parity): a fresh
-        # job sees only traffic from now on; a restarted job (same group)
-        # resumes its preserved cursor.
+        # Register the consumer group before consuming. On the SHARED client
+        # stream the group starts at the TAIL (FlinkRedisSource.scala:44
+        # xgroupCreate parity): a fresh job sees only traffic from now on; a
+        # restarted job (same group) resumes its preserved cursor. A fleet
+        # replica's dispatch stream is PRIVATE to this replica, and the
+        # router may forward to it before this call lands (model load /
+        # compile on spawn, or the respawn window after a failover XTRANSFER
+        # deleted the stream + cursor) — tail semantics would silently skip
+        # those already-acked-at-origin entries, so fleet groups replay from
+        # '0' instead.
         conn = self._connect("engine.control")
         try:
-            conn.call("XGROUPCREATE", self.stream, self.group, "$")
+            conn.call("XGROUPCREATE", self.stream, self.group,
+                      "0" if self.replica_id is not None else "$")
         except RetryAbortedError:
             pass
         finally:
@@ -478,9 +521,13 @@ class ClusterServing:
         loops = [("source", self._source_loop),
                  ("sink", self._sink_loop),
                  ("supervisor", self._supervise_loop)]
-        if getattr(self.config, "hot_swap", True) and self.swapper.supported():
+        if self.replica_id is not None:
+            loops.append(("fleet-hb", self._fleet_heartbeat_loop))
+        elif getattr(self.config, "hot_swap", True) \
+                and self.swapper.supported():
             # single-engine hot-swap: consume the trainer's publish stream
-            # directly
+            # directly (fleet replicas get swap commands from the
+            # RolloutController via the control hash instead)
             loops.append(("swap-listener", self._swap_listener_loop))
         for name, fn in loops:
             t = threading.Thread(target=fn, daemon=True, name=f"serving-{name}")
@@ -499,10 +546,11 @@ class ClusterServing:
         return getattr(self.model, "version", None) or "initial"
 
     def _run_swap(self, record: Dict[str, Any]) -> None:
-        """Stage + swap one published version (listener thread — staging is
+        """Stage + swap one published version (worker thread — staging is
         OFF the hot path; only the reference flip holds the dispatch gate).
-        A chaos kill inside staging is engine death mid-swap: the whole
-        engine goes silent."""
+        A chaos kill inside staging is replica death mid-swap: the whole
+        engine goes silent so the supervisor respawns it (and the rollout
+        reconciler brings the respawn back to the correct version)."""
         if record.get("rollback"):
             self._swap_state = "staging"
             self._swap_error = None
@@ -525,12 +573,31 @@ class ClusterServing:
             self._swap_error = f"{e.reason}: {e}"
             logger.warning("model swap rejected (%s): %s", e.reason, e)
         except WorkerKilled:
-            logger.warning("engine killed mid-swap (chaos)")
+            logger.warning("replica killed mid-swap (chaos)")
             self.kill()
         except Exception as e:
             self._swap_state = "error"
             self._swap_error = f"swap failed: {e!r}"
             logger.exception("model swap failed")
+
+    def _handle_swap_command(self, swap: Dict[str, Any]) -> None:
+        """One swap command from the control hash (deduped by nonce); runs
+        on a dedicated thread so heartbeats keep flowing while staging. The
+        nonce is published back in the heartbeat so the controller can scope
+        ``swap_state``/``swap_error`` to ITS command — a stale error from a
+        previously rejected version must not fail a later good rollout."""
+        nonce = swap.get("nonce")
+        if nonce == self._swap_nonce_seen:
+            return
+        if self._swap_thread is not None and self._swap_thread.is_alive():
+            return          # staging busy: the command re-arrives next poll
+        self._swap_nonce_seen = nonce
+        self._swap_state = "staging"
+        self._swap_error = None
+        self._swap_thread = threading.Thread(
+            target=self._run_swap, args=(dict(swap),), daemon=True,
+            name="serving-swap")
+        self._swap_thread.start()
 
     def _swap_listener_loop(self):
         """Single-engine (non-fleet) hot-swap: consume the trainer's publish
@@ -581,12 +648,12 @@ class ClusterServing:
         except Exception:
             logger.exception("rejection record write failed")
 
-    # -------------------------------------------------------------- lifecycle
+    # ------------------------------------------------------------- fleet mode
 
     def state(self) -> str:
-        """Lifecycle state: ``up`` → ``draining`` (drain requested,
-        in-flight work finishing) → ``drained`` (nothing left; safe to
-        stop)."""
+        """Replica lifecycle state published in the fleet heartbeat:
+        ``up`` → ``draining`` (drain requested, in-flight work finishing) →
+        ``drained`` (nothing left; safe to stop/deregister)."""
         if self._draining.is_set():
             return "drained" if not self._busy() else "draining"
         return "up"
@@ -607,13 +674,68 @@ class ClusterServing:
         return self._draining.is_set() and not self._busy()
 
     def kill(self) -> None:
-        """Hard death (chaos drills): all loops exit at their next check;
-        nothing further is sunk or acked, so every claimed-but-unacked
-        request stays pending on the broker and is redelivered to the next
-        reader after ``reclaim_idle_ms``. The in-process analog of
-        ``SIGKILL``."""
+        """Hard replica death (chaos drills, supervisor force-respawn): all
+        loops exit at their next check; nothing further is sunk or acked, so
+        every claimed-but-unacked request stays pending on the broker for
+        the fleet's claim-transfer requeue (or, outside a fleet, for the next
+        reader after ``reclaim_idle_ms``). The in-process analog of
+        ``SIGKILL`` on a replica process."""
         self._killed.set()
         self._stop.set()
+
+    def _fleet_heartbeat_loop(self):
+        """Replica presence on the broker: periodically HSET
+        ``fleet:hb:<replica_id>`` with a wall-clock timestamp, lifecycle
+        state, and progress counters (the router's half-open probe readmission
+        watches ``served`` advance), and poll ``fleet:ctl:<replica_id>`` for
+        drain commands. A killed/crashed replica simply stops beating — the
+        supervisor detects staleness, requeues its claimed work, respawns."""
+        conn = self._connect("engine.fleet-hb")
+        interval = max(0.05, float(
+            getattr(self.config, "fleet_heartbeat_s", 0.5)))
+        ctl_seen: Any = None
+        try:
+            while not self._stop.is_set() and not self._killed.is_set():
+                try:
+                    conn.call("HSET", FLEET_HB_PREFIX + self.replica_id,
+                              {"ts": time.time(), "state": self.state(),
+                               "pid": os.getpid(), "served": self.served,
+                               "inflight": self._infer_q.qsize(),
+                               "errors": self.errors,
+                               "lat_ms": round(self._lat_ema_s * 1e3, 3),
+                               "svc_ms": round(self._svc_ema.value() * 1e3,
+                                               3),
+                               "model_version": self.model_version,
+                               "swap_state": self._swap_state,
+                               "swap_error": self._swap_error,
+                               "swap_nonce": self._swap_nonce_seen})
+                    ctl = conn.call("HGET",
+                                    FLEET_CTL_PREFIX + self.replica_id, 0)
+                except RetryAbortedError:
+                    break
+                if isinstance(ctl, dict) and ctl != ctl_seen:
+                    ctl_seen = ctl
+                    if ctl.get("state") == "drain":
+                        self.drain()
+                if isinstance(ctl, dict) and isinstance(ctl.get("swap"),
+                                                        dict):
+                    # swap commands are nonce-deduped (NOT ctl_seen-deduped:
+                    # a busy staging thread defers the command to the next
+                    # poll instead of dropping it)
+                    self._handle_swap_command(ctl["swap"])
+                self._stop.wait(interval)
+            # deliberate shutdown (not kill): publish a terminal state so the
+            # supervisor can tell "stopped on purpose" from "went silent"
+            if not self._killed.is_set():
+                try:
+                    conn.call("HSET", FLEET_HB_PREFIX + self.replica_id,
+                              {"ts": time.time(), "state": "stopped",
+                               "pid": os.getpid(), "served": self.served,
+                               "inflight": 0})
+                except Exception:
+                    pass
+        finally:
+            conn.close()
 
     def stats(self) -> Dict[str, Any]:
         """Engine-side observability: records served, worker respawns, the

@@ -37,11 +37,14 @@ Not ported yet, and raising ``NotImplementedError`` where a caller asks for
 them (ROADMAP Queue 1, item 11): ``graph_checks`` and ``hbm_budget_bytes``
 (the decode graph and memory lints) and the memory witness's decode
 sample; ``GenerationEngine`` with ``graph_checks="warn"`` (the config's
-default) logs one warning at ``start`` instead. The JAX engine arms the
-SLO-derived prefill budget from the config's ITL objective; the port's
-config has no objectives until the SLO engine comes (item 8's next
-slice), so its engine passes none. The JAX engine's fleet mode (a replica
-reading its own routed ``stream``) comes with ``fleet.py`` in that slice.
+default) logs one warning at ``start`` instead.
+
+``GenerationEngine`` arms the SLO-derived prefill budget from the config's
+inter-token-latency objective (a latency objective whose name mentions
+``itl``), as the JAX engine does; the engine's ``stats()`` report it as
+``itl_target_s``. Given a ``stream``, the engine is a fleet replica: it
+reads its own routed dispatch stream (``serving/fleet.py``'s
+``ReplicaRouter`` forwards there) under a group that starts at ``"0"``.
 """
 
 from __future__ import annotations
@@ -1607,6 +1610,17 @@ class ContinuousBatcher:
 # broker-facing engine + client
 # ---------------------------------------------------------------------------
 
+def _itl_objective_target_s(cfg) -> Optional[float]:
+    """The declared inter-token-latency objective's threshold (seconds), if
+    any: a latency-type SLO objective whose name mentions ``itl`` arms the
+    SLO-derived prefill budget (``qos.prefill_budget_from_slo``)."""
+    for obj in getattr(cfg, "slo_objectives", ()) or ():
+        if (str(obj.get("type", "")).lower() == "latency"
+                and "itl" in str(obj.get("name", "")).lower()):
+            return float(obj.get("threshold_ms", 1000.0)) / 1e3
+    return None
+
+
 class GenerationEngine:
     """Streaming generation job over the broker fabric.
 
@@ -1627,17 +1641,23 @@ class GenerationEngine:
     unless the caller names another; it raises without CUDA) with the
     config's ``gen_*`` fields, as the JAX engine maps them. ``params``: an
     optional JAX-layout tree (numpy leaves) loaded into the model first
-    through the bridge.
+    through the bridge. ``stream``: a routed per-replica dispatch stream
+    (fleet mode) in place of the shared ``generation_stream``.
     """
 
     def __init__(self, model, params=None,
                  config: Optional[ServingConfig] = None,
                  group: str = "generation",
-                 registry: Optional[HealthRegistry] = None, *,
+                 registry: Optional[HealthRegistry] = None,
+                 stream: Optional[str] = None, *,
                  device=None):
         self.config = config or ServingConfig()
         self.group = group
-        self.stream = GEN_STREAM
+        # fleet mode: a replica consumes its own routed dispatch stream
+        # (serving/fleet.py ReplicaRouter) instead of the shared one; the
+        # per-request genout:* reply streams are unaffected by routing
+        self._routed = stream is not None
+        self.stream = stream or GEN_STREAM
         self.registry = registry if registry is not None else HealthRegistry(
             default_timeout_s=self.config.heartbeat_timeout_s)
         cfg = self.config
@@ -1660,6 +1680,7 @@ class GenerationEngine:
                                              0),
                 prefill_token_budget=getattr(cfg,
                                              "gen_prefill_token_budget", 0),
+                prefill_slo_itl_s=_itl_objective_target_s(cfg),
                 device=device, autostart=False)
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
@@ -1686,8 +1707,12 @@ class GenerationEngine:
         self.batcher.start()
         conn = self._connect("gen.control")
         try:
-            # shared stream: tail semantics (see ClusterServing.start)
-            conn.call("XGROUPCREATE", self.stream, self.group, "$")
+            # shared stream: tail semantics (see ClusterServing.start). A
+            # routed per-replica stream is private to this engine and the
+            # router may have forwarded before this call lands — replay
+            # from '0' so nothing dispatched early is skipped
+            conn.call("XGROUPCREATE", self.stream, self.group,
+                      "0" if self._routed else "$")
         except RetryAbortedError:
             pass
         finally:
@@ -1820,8 +1845,12 @@ class GenerationEngine:
             conn.close()
 
     def stats(self) -> Dict[str, Any]:
+        """The batcher's stats plus the engine's: ``itl_target_s`` is the
+        ITL objective's threshold the prefill budget is derived from
+        (``None`` when the config declares none)."""
         out = {"served_streams": self.served_streams,
-               "graph_checks": "not_ported"}
+               "graph_checks": "not_ported",
+               "itl_target_s": self.batcher.prefill_slo_itl_s}
         out.update(self.batcher.stats())
         return out
 

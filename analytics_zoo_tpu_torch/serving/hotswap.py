@@ -33,21 +33,35 @@ port's swapper serves an ``InferenceModel``. Row deltas are read by
 ``apply_row_delta``. Rejections carry the JAX swapper's reasons and
 messages.
 
-Not ported here: the fleet-level ``RolloutController`` (canary rollout,
-automatic rollback, the reconciler) and the ``model:rollout`` key; they come
-with the replica fleet (ROADMAP Queue 1, item 8's next slice).
+* :class:`RolloutController` (fleet level, owned by the
+  :class:`~.fleet.FleetSupervisor`; a copy of the JAX controller, which
+  needs no JAX) — staged canary deployment: swap ONE replica, route
+  ``rollout_canary_fraction`` of traffic to it via the
+  :class:`~.fleet.ReplicaRouter`'s traffic-weight hook, compare its
+  error-rate/latency telemetry against the stable cohort over a validation
+  window, then promote fleet-wide or roll back automatically. Rollback also
+  triggers on poisoned checkpoints (checksum mismatch, NaN/Inf params,
+  validation-gate failure) and on a canary that dies mid-rollout; every
+  rejection lands on the ``model_rejections`` stream. The idle-phase
+  reconciler re-issues the current version to any replica whose heartbeat
+  reports a different one — which is how a replica respawned mid-swap (or
+  joining mid-rollout) converges on the *correct* version. Each replica
+  stages through its own :class:`ModelSwapper`, so an int8 swap still
+  crosses to the card once per replica.
 
 Broker keys::
 
     model_updates          publisher XADDs (one record per durable ckpt)
-    model_rejections       XADDs of rejected versions
-    model:current          promoted-version record (the fleet's target)
+    model_rejections       controller XADDs (rejected/rolled-back versions)
+    model:current          promoted-version record (respawn/reconcile target)
+    model:rollout          controller phase hash (fleet-status / cli info)
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -56,21 +70,23 @@ import torch
 
 from ..common import telemetry as _tm
 from ..common.chaos import chaos_point
-from ..common.resilience import RetryPolicy
+from ..common.resilience import RetryAbortedError, RetryPolicy
 from ..engine.checkpoint import (CheckpointCorruptError, RowDeltaRejected,
                                  _from_host, _stored_dtype_name,
                                  param_tree_signature, read_manifest,
                                  read_row_delta, verify_checkpoint)
 from ..observability import events as _ev
 from .client import _Conn
+from .config import ServingConfig
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.serving.hotswap")
 
 MODEL_STREAM = "model_updates"
 MODEL_REJECT_STREAM = "model_rejections"
 MODEL_CURRENT_KEY = "model:current"
+ROLLOUT_KEY = "model:rollout"
 
-# the JAX package's families (the rollout ones come with the fleet)
+# the JAX package's families
 _PUBLISHED = _tm.counter("zoo_swap_published_total",
                          "Checkpoint versions announced on the publisher "
                          "stream, by outcome", labels=("outcome",))
@@ -119,6 +135,17 @@ class _StagedRowDelta:
         self.base_version = base_version
         self.rows_touched = rows_touched
         self.nbytes = nbytes
+_ROLLOUTS = _tm.counter(
+    "zoo_rollout_total",
+    "Canary rollouts finished, by outcome (promoted / rolled_back / "
+    "aborted / skipped)", labels=("outcome",))
+_ROLLOUT_PHASES = _tm.counter(
+    "zoo_rollout_phase_transitions_total",
+    "Rollout state-machine phase entries", labels=("phase",))
+_RECONCILES = _tm.counter(
+    "zoo_rollout_reconcile_swaps_total",
+    "Swap commands re-issued by the idle-phase reconciler (respawned or "
+    "late-joining replica converging on the current version)")
 
 
 def _conn_policy() -> RetryPolicy:
@@ -502,5 +529,495 @@ class ModelSwapper:
         return version or "initial"
 
 
+# ---------------------------------------------------------------------------
+# fleet-level canary rollout
+# ---------------------------------------------------------------------------
+
+class RolloutController:
+    """Staged canary deployment over a replica fleet.
+
+    Consumes the publisher stream, drives per-replica swap commands through
+    the fleet control hashes (so thread- and process-mode replicas take the
+    same path), weights canary traffic via the router hook, and promotes or
+    rolls back on the canary's error/latency telemetry. Owned and started by
+    :class:`~.fleet.FleetSupervisor`; runs one rollout at a time.
+    """
+
+    PHASES = ("idle", "canary", "validating", "promoting", "rolling_back")
+
+    def __init__(self, supervisor, config: Optional[ServingConfig] = None,
+                 *, group: str = "rollout-ctl"):
+        self.sup = supervisor
+        self.config = config or supervisor.config
+        self.group = group
+        self.phase = "idle"
+        self.target: Optional[Dict] = None     # record being rolled out
+        self.current: Optional[Dict] = None    # last promoted record
+        self.canary: Optional[str] = None
+        self.outcomes: List[Tuple[str, str]] = []   # (version, outcome)
+        self._swap_nonce = 0
+        # (rid -> (version, generation)) of reconcile commands in flight
+        self._reconciling: Dict[str, Tuple[str, int]] = {}
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._conn: Optional[_Conn] = None
+        self._state_published: Optional[Tuple] = None
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> "RolloutController":
+        self._stop.clear()
+        self._conn = _Conn(self.config.queue_host, self.config.queue_port,
+                           policy=_conn_policy(), abort=self._stop.is_set,
+                           tag="rollout.ctl")
+        try:
+            # group first (tail), THEN the catch-up peek: anything published
+            # before the peek is covered by XLAST, anything after by the
+            # group cursor — no gap, no replay of full history
+            self._conn.call("XGROUPCREATE", MODEL_STREAM, self.group, "$")
+            cur = self._conn.call("HGET", MODEL_CURRENT_KEY, 0)
+            if isinstance(cur, dict) and cur.get("version"):
+                self.current = cur
+        except RetryAbortedError:
+            pass
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="zoo-rollout-ctl")
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+        if self._conn is not None:
+            self._conn.close()
+            self._conn = None
+
+    # -- introspection -------------------------------------------------------
+
+    def state(self) -> Dict[str, Any]:
+        return {"phase": self.phase,
+                "current": (self.current or {}).get("version"),
+                "target": (self.target or {}).get("version"),
+                "canary": self.canary,
+                "outcomes": list(self.outcomes[-8:])}
+
+    def _set_phase(self, phase: str) -> None:
+        if phase != self.phase:
+            self.phase = phase
+            _ROLLOUT_PHASES.labels(phase=phase).inc()
+        self._publish_state()
+
+    def _publish_state(self) -> None:
+        st = self.state()
+        key = (st["phase"], st["current"], st["target"], st["canary"])
+        if key == self._state_published:
+            return
+        self._state_published = key
+        try:
+            self._conn.call("HSET", ROLLOUT_KEY, {**st, "ts": time.time()})
+        except Exception:
+            pass
+
+    # -- main loop -----------------------------------------------------------
+
+    def _loop(self):
+        # catch-up: a version published while no controller was running
+        pending: Optional[Dict] = None
+        try:
+            last = self._conn.call("XLAST", MODEL_STREAM)
+            if last is not None:
+                _id, rec = last
+                cur_step = int((self.current or {}).get("step", -1))
+                if isinstance(rec, dict) and int(rec.get("step", 0)) > cur_step:
+                    pending = rec
+        except RetryAbortedError:
+            return
+        except Exception:
+            logger.exception("rollout: publish-stream catch-up failed")
+        self._publish_state()
+        while not self._stop.is_set():
+            try:
+                if pending is not None:
+                    rec, pending = pending, None
+                    self._rollout(rec)
+                    continue
+                entries = self._conn.call("XREADGROUP", MODEL_STREAM,
+                                          self.group, 1, 200)
+                if entries:
+                    entry_id, rec = entries[0]
+                    try:
+                        if isinstance(rec, dict):
+                            self._rollout(rec)
+                    finally:
+                        self._conn.call("XACK", MODEL_STREAM, self.group,
+                                        [entry_id])
+                else:
+                    self._reconcile()
+            except RetryAbortedError:
+                break
+            except Exception:
+                logger.exception("rollout: controller iteration failed")
+                self._stop.wait(0.2)
+
+    # -- swap command plumbing -----------------------------------------------
+
+    def _command_swap(self, rid: str, record: Dict,
+                      force: bool = False) -> int:
+        """Write a swap command into the replica's control hash (merged so a
+        concurrent drain command is not clobbered); returns the nonce."""
+        from .engine import FLEET_CTL_PREFIX
+
+        self._swap_nonce += 1
+        ctl = self._conn.call("HGET", FLEET_CTL_PREFIX + rid, 0)
+        ctl = dict(ctl) if isinstance(ctl, dict) else {}
+        ctl["swap"] = {**record, "force": bool(force),
+                       "nonce": self._swap_nonce}
+        self._conn.call("HSET", FLEET_CTL_PREFIX + rid, ctl)
+        return self._swap_nonce
+
+    def _slot(self, rid: str):
+        # locked router accessor: a bare _slots read would race membership
+        # churn (failover remove/respawn add) from the supervisor threads
+        return self.sup.router.slot(rid)
+
+    def _generation(self, rid: str) -> int:
+        h = self.sup._handles.get(rid)
+        return h.generation if h is not None else -1
+
+    def _wait_swap(self, rid: str, version: str, gen: int, timeout_s: float,
+                   nonce: Any = None) -> Tuple[bool, str]:
+        """Wait for the replica's heartbeat to confirm ``version`` (ok) or
+        report a swap error / die / get respawned (failed). ``nonce`` scopes
+        the error to THIS command: a heartbeat still carrying the error of a
+        previously rejected version (the replica hasn't polled the new
+        command yet) must not fail a later good rollout."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline and not self._stop.is_set():
+            slot = self._slot(rid)
+            if slot is None:
+                return False, "replica removed"
+            if self._generation(rid) != gen:
+                return False, "replica respawned mid-swap"
+            if not slot.alive:
+                return False, "replica died mid-swap"
+            if slot.model_version == version:
+                return True, "ok"
+            err = slot.swap_error
+            if err and (nonce is None or slot.swap_nonce == nonce):
+                return False, err
+            time.sleep(0.05)
+        return False, f"swap not confirmed within {timeout_s}s"
+
+    # -- the rollout state machine -------------------------------------------
+
+    def _reject(self, record: Dict, reason: str, outcome: str) -> None:
+        """Trip the publisher stream with a rejection record and count the
+        rollout outcome — the trainer-visible 'this version did not ship'."""
+        logger.warning("rollout: rejecting %s: %s",
+                       record.get("version"), reason)
+        try:
+            self._conn.call("XADD", MODEL_REJECT_STREAM,
+                            {"version": record.get("version"),
+                             "step": record.get("step"),
+                             "reason": reason, "outcome": outcome,
+                             "ts": time.time()})
+        except Exception:
+            logger.exception("rollout: rejection record write failed")
+        _ROLLOUTS.labels(outcome=outcome).inc()
+        self.outcomes.append((str(record.get("version")), outcome))
+        # decision event, trace-linked via the ambient rollout span — a
+        # rollback on /debug/events resolves to the full rollout timeline
+        _ev.emit("rollout.rejected", severity="warning",
+                 version=str(record.get("version")), outcome=outcome,
+                 reason=reason)
+
+    def _cohort_snapshot(self, exclude: str) -> Dict[str, Tuple[int, int]]:
+        """(served, errors) per stable-cohort replica."""
+        out = {}
+        for rid in self.sup.router.replica_ids():
+            if rid == exclude:
+                continue
+            slot = self._slot(rid)
+            if slot is not None and slot.alive:
+                out[rid] = (slot.served, slot.errors)
+        return out
+
+    def _rollout(self, record: Dict) -> None:
+        cfg = self.config
+        version = str(record.get("version"))
+        step = int(record.get("step", 0))
+        cur_step = int((self.current or {}).get("step", -1))
+        seen = {v for v, _ in self.outcomes}
+        if step <= cur_step or version == (self.current or {}).get("version") \
+                or version in seen:
+            # duplicate or out-of-order publish (at-least-once stream):
+            # skipped, not an error — and never re-deploys an older version
+            _ROLLOUTS.labels(outcome="skipped").inc()
+            logger.info("rollout: skipping %s (step %d <= current %d or "
+                        "already decided)", version, step, cur_step)
+            return
+        chaos_point("rollout.phase", tag="start")
+        self.target = record
+        # one span covers the whole rollout (entered manually: the body
+        # below returns from several phases); every decision event emitted
+        # inside — rejection or promotion — inherits its trace id, so
+        # /debug/events links straight to the rollout's Perfetto timeline
+        rollout_span = _tm.span("rollout", version=version)
+        rollout_span.__enter__()
+        try:
+            # ---- phase 1: canary swap -------------------------------------
+            self._set_phase("canary")
+            canary = None
+            deadline = time.monotonic() + cfg.swap_timeout_s
+            while canary is None and time.monotonic() < deadline \
+                    and not self._stop.is_set():
+                eligible = self.sup.router.eligible_ids()
+                if eligible:
+                    canary = eligible[0]
+                else:
+                    time.sleep(0.05)
+            if canary is None:
+                self._reject(record, "no eligible replica to canary",
+                             "aborted")
+                return
+            self.canary = canary
+            self._publish_state()
+            gen = self._generation(canary)
+            nonce = self._command_swap(canary, record)
+            ok, why = self._wait_swap(canary, version, gen,
+                                      cfg.swap_timeout_s, nonce=nonce)
+            if not ok:
+                # staging failed (poisoned checkpoint: checksum/NaN/shape →
+                # "rolled_back") or the canary died mid-swap ("aborted").
+                # Either way the stable cohort never saw the version; a dead
+                # canary respawns on its boot params and the reconciler
+                # converges it back to `current`.
+                died = any(s in why for s in ("died", "respawned", "removed",
+                                              "not confirmed"))
+                self._reject(record, f"canary {canary}: {why}",
+                             "aborted" if died else "rolled_back")
+                return
+            # ---- phase 2: canary validation window ------------------------
+            self._set_phase("validating")
+            chaos_point("rollout.phase", tag="validating")
+            self.sup.router.set_traffic_fraction(
+                canary, cfg.rollout_canary_fraction)
+            try:
+                verdict, why = self._validate(canary, gen)
+                if verdict == "fail":
+                    # roll back BEFORE restoring the traffic weight: a canary
+                    # that just failed validation must stay quarantined at
+                    # the canary fraction until the rollback is confirmed —
+                    # not promoted to a full rotation share of a known-bad
+                    # model for the whole ctl-poll + restage window
+                    self._set_phase("rolling_back")
+                    self._command_rollback(canary, gen)
+                    self._reject(record, f"canary validation failed: {why}",
+                                 "rolled_back")
+                    return
+            finally:
+                # dead/ok/exception paths — and the fail path above, where
+                # the rollback has already confirmed (or the canary died)
+                self.sup.router.set_traffic_fraction(canary, 1.0)
+            if verdict == "dead":
+                # canary killed mid-rollout: abort cleanly; its requeued work
+                # re-serves on the stable cohort and the respawn reconciles
+                # back to the stable version
+                self._reject(record, f"canary {canary} died during "
+                             f"validation: {why}", "aborted")
+                return
+            # ---- phase 3: fleet-wide promotion ----------------------------
+            self._set_phase("promoting")
+            chaos_point("rollout.phase", tag="promoting")
+            swapped = [canary]
+            for rid in self.sup.router.replica_ids():
+                if rid == canary or self._stop.is_set():
+                    continue
+                slot = self._slot(rid)
+                if slot is None or not slot.alive:
+                    continue    # dead replica: the reconciler catches it up
+                g = self._generation(rid)
+                n = self._command_swap(rid, record)
+                ok, why = self._wait_swap(rid, version, g, cfg.swap_timeout_s,
+                                          nonce=n)
+                if ok:
+                    swapped.append(rid)
+                elif self._generation(rid) != g or not (
+                        self._slot(rid) and self._slot(rid).alive):
+                    # died during promotion: requeue machinery keeps its
+                    # work; once respawned the reconciler converges it onto
+                    # whatever version wins below
+                    logger.warning("rollout: %s died during promotion (%s); "
+                                   "reconciler will converge it", rid, why)
+                else:
+                    # live replica refused the version late: roll everything
+                    # back to the stable version rather than serve split
+                    self._set_phase("rolling_back")
+                    for sid in swapped:
+                        self._command_rollback(sid, self._generation(sid))
+                    self._reject(record, f"promotion failed on {rid}: {why}",
+                                 "rolled_back")
+                    return
+            # ---- promoted --------------------------------------------------
+            self.current = record
+            try:
+                self._conn.call("HSET", MODEL_CURRENT_KEY, record)
+            except Exception:
+                logger.exception("rollout: model:current update failed")
+            _ROLLOUTS.labels(outcome="promoted").inc()
+            self.outcomes.append((version, "promoted"))
+            _ev.emit("rollout.promoted", version=version,
+                     replicas=len(swapped))
+            logger.info("rollout: %s promoted fleet-wide (%d replicas)",
+                        version, len(swapped))
+        finally:
+            # propagate the in-flight exception (if any) into the span so a
+            # crashed rollout records status=error and earns the recorder's
+            # errored-trace retention
+            import sys as _sys
+
+            rollout_span.__exit__(*_sys.exc_info())
+            self.target = None
+            self.canary = None
+            self._set_phase("idle")
+
+    def _validate(self, canary: str, gen: int) -> Tuple[str, str]:
+        """Compare the canary against the stable cohort over the validation
+        window. Returns ("ok"|"fail"|"dead", why).
+
+        Promotion requires the canary's heartbeat FRESH (within ~2 beat
+        intervals) at window end, not merely "not yet declared dead": a
+        canary killed in the window's final ``failover_timeout_s`` would
+        otherwise look alive (staleness not yet expired) and promote a dead
+        replica's version on evidence gathered before its death — the window
+        extends (bounded by the hard deadline) until the heartbeat refreshes
+        or the death is confirmed."""
+        cfg = self.config
+        hb_fresh_s = max(2 * getattr(cfg, "fleet_heartbeat_s", 0.5) + 0.2,
+                         0.5)
+
+        def fresh(s) -> bool:
+            return (time.monotonic() - s.last_seen) <= hb_fresh_s
+
+        slot = self._slot(canary)
+        if slot is None:
+            return "dead", "slot removed"
+        c_served0, c_errors0 = slot.served, slot.errors
+        cohort0 = self._cohort_snapshot(exclude=canary)
+        t0 = time.monotonic()
+        hard_deadline = t0 + max(cfg.rollout_window_s * 3,
+                                 cfg.rollout_window_s + 1.0)
+        while not self._stop.is_set():
+            time.sleep(0.05)
+            slot = self._slot(canary)
+            if slot is None or self._generation(canary) != gen:
+                return "dead", "respawned"
+            if not slot.alive:
+                return "dead", "heartbeat lost"
+            if slot.swap_error:
+                return "fail", slot.swap_error
+            elapsed = time.monotonic() - t0
+            c_served = slot.served - c_served0
+            if elapsed >= cfg.rollout_window_s and \
+                    c_served >= cfg.rollout_min_requests and fresh(slot):
+                break
+            if time.monotonic() >= hard_deadline:
+                # low traffic: decide on whatever evidence exists
+                break
+        slot = self._slot(canary)
+        if slot is None or not slot.alive:
+            return "dead", "heartbeat lost at window end"
+        if not fresh(slot):
+            return "dead", "heartbeat stale at window end"
+        c_served = max(0, slot.served - c_served0)
+        c_errors = max(0, slot.errors - c_errors0)
+        cohort1 = self._cohort_snapshot(exclude=canary)
+        s_served = s_errors = 0
+        for rid, (sv0, er0) in cohort0.items():
+            sv1, er1 = cohort1.get(rid, (sv0, er0))
+            s_served += max(0, sv1 - sv0)
+            s_errors += max(0, er1 - er0)
+        c_rate = c_errors / c_served if c_served else 0.0
+        s_rate = s_errors / s_served if s_served else 0.0
+        if c_errors and c_rate > s_rate + cfg.rollout_max_error_delta:
+            return "fail", (f"canary error rate {c_rate:.3f} vs stable "
+                            f"{s_rate:.3f} (+{cfg.rollout_max_error_delta} "
+                            "allowed)")
+        c_lat = slot.lat_ms
+        s_lats = [self._slot(r).lat_ms for r in cohort1
+                  if self._slot(r) is not None and self._slot(r).lat_ms > 0]
+        if c_lat > 0 and s_lats:
+            s_lat = sorted(s_lats)[len(s_lats) // 2]
+            if s_lat > 0 and c_lat > s_lat * cfg.rollout_max_latency_ratio:
+                return "fail", (f"canary latency {c_lat:.1f}ms > "
+                                f"{cfg.rollout_max_latency_ratio}x stable "
+                                f"median {s_lat:.1f}ms")
+        return "ok", (f"served={c_served} errors={c_errors} "
+                      f"lat={c_lat:.1f}ms")
+
+    def _command_rollback(self, rid: str, gen: int) -> None:
+        from .engine import FLEET_CTL_PREFIX
+
+        self._swap_nonce += 1
+        try:
+            ctl = self._conn.call("HGET", FLEET_CTL_PREFIX + rid, 0)
+            ctl = dict(ctl) if isinstance(ctl, dict) else {}
+            ctl["swap"] = {"rollback": True, "nonce": self._swap_nonce}
+            self._conn.call("HSET", FLEET_CTL_PREFIX + rid, ctl)
+        except Exception:
+            logger.exception("rollout: rollback command for %s failed", rid)
+            return
+        want = (self.current or {}).get("version")
+        deadline = time.monotonic() + self.config.swap_timeout_s
+        while time.monotonic() < deadline and not self._stop.is_set():
+            slot = self._slot(rid)
+            if slot is None or self._generation(rid) != gen \
+                    or not slot.alive:
+                return      # death → respawn → reconciler path
+            if want is None or slot.model_version in (want, "initial", None):
+                return
+            time.sleep(0.05)
+
+    # -- idle-phase reconciler ------------------------------------------------
+
+    def _reconcile(self) -> None:
+        """Converge every live replica onto the promoted version: a replica
+        respawned mid-swap boots on its factory params, one joining
+        mid-rollout boots stale — both heartbeat a version that differs from
+        ``model:current``, and get the swap command re-issued (deduped per
+        (replica, version, incarnation))."""
+        if self.current is None or self.phase != "idle":
+            return
+        want = self.current.get("version")
+        for rid in self.sup.router.replica_ids():
+            slot = self._slot(rid)
+            if slot is None or not slot.alive or slot.state != "up":
+                continue
+            if slot.model_version in (want, None):
+                # None = heartbeat predates the version field (replica still
+                # starting); wait for a real report before commanding
+                if slot.model_version == want:
+                    self._reconciling.pop(rid, None)
+                continue
+            if slot.swap_state == "staging":
+                continue
+            gen = self._generation(rid)
+            if self._reconciling.get(rid) == (want, gen):
+                continue        # command already in flight for this incarnation
+            logger.info("rollout: reconciling %s from %s to %s",
+                        rid, slot.model_version, want)
+            try:
+                self._command_swap(rid, self.current, force=True)
+            except Exception:
+                logger.exception("rollout: reconcile command for %s failed",
+                                 rid)
+                continue
+            self._reconciling[rid] = (want, gen)
+            _RECONCILES.inc()
+
+
 __all__ = ["MODEL_CURRENT_KEY", "MODEL_REJECT_STREAM", "MODEL_STREAM",
-           "ModelPublisher", "ModelSwapper", "SwapRejected", "publish_record"]
+           "ROLLOUT_KEY", "ModelPublisher", "ModelSwapper",
+           "RolloutController", "SwapRejected", "publish_record"]

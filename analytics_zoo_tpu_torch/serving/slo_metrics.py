@@ -1,7 +1,6 @@
 """The per-priority SLO-evidence metric families, registered ONCE (port of
 ``analytics_zoo_tpu/serving/slo_metrics.py``, which needs no JAX; the SLO
-engine that reads them, ``observability/slo.py``, comes with item 8's next
-slice).
+engine that reads them is ``observability/slo.py``).
 
 Three tiers feed these (the engine, the router, the HTTP frontend) and the
 observability SLO engine reads them; registering the family in each consumer

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, int8 inference, NCF,
 Wide & Deep and session recommendation, checkpoint/resume,
-input-pipeline and serving data-plane paths on one NVIDIA card.
+input-pipeline, serving data-plane and control-plane paths on one NVIDIA
+card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel checks only
@@ -286,6 +287,40 @@ Phases, each fatal on failure (no result line is printed then):
    where one differs), K1 = 12 x prefills and K2 = 12 x decode steps
    (counts set to 0 just before); tokens/s, TTFT p50, ITL p50 and p95
    beside phase 5's. Prints the wall by part (``[data-plane]`` lines).
+17. the serving control plane (the fifteenth slice), each part on a broker
+   of its own, phase 16's 256 images and the int8 ResNet-50 replica config
+   (batch 32, concurrency 4). (a) two thread replicas behind the
+   ``ReplicaRouter`` (``FleetSupervisor``), phase 16a's burst,
+   ``kill_replica("r0")`` once a third is answered: every uri answered once,
+   bit for bit the direct predict, ``requeued > 0``, the fleet back to 2
+   eligible, K6 = 53 and K5 = 1 per predict the replicas ran (counts set
+   to 0 once both heartbeat). (c) on the same fleet under a 4-client
+   load, ``ModelPublisher`` announces the weights x 1.01 (the canary
+   swaps, validates, the rollout promotes) and then NaN weights (the
+   canary refuses them, the rollout rolls back, one ``model_rejections``
+   record); every answer equals its version's direct predict bit for bit.
+   (b) two replica processes on the card (``fleet_spawn: process``,
+   ``--device cuda``) load a bundle this phase wrote
+   (``ImageClassifier.save_model``, ``InferenceModel.load_zoo``, int8 from
+   the YAML config): the burst (images/s, p50, p99 beside 16a's), a
+   rolling restart under load with every answer bit for bit, ``cli
+   fleet-status`` and ``cli drain --replica r1``, spawn-to-first-heartbeat
+   seconds. (e) the autoscaler grows a one-replica fleet to 2 under the
+   burst and drains it back to 1 when idle, zero loss; two stand-in host
+   agents as subprocesses (``--demo --device cuda``), one whole host
+   killed mid-burst: zero loss, one ``fleet.host_failed`` event. (f)
+   ``python -m analytics_zoo_tpu_torch.serving.stack --model <bundle>
+   --int8 --replicas 2``: ``/readyz`` 200, ``/predict`` bit for bit,
+   ``cli info`` and ``cli events``, SIGTERM with a request in flight
+   answers it and exits 0. (d) two ``GenerationEngine`` replicas over
+   phase 5's LM behind a round-robin router with an ITL objective: phase
+   5's burst, greedy streams as in 16d, K1 = 12 x prefills and K2 = 12 x
+   decode steps over both, ``itl_target_s`` set, ``/debug/slo`` listing
+   the objective; tokens/s, TTFT, ITL beside 16d's. (g) ``HostRowCache``
+   over a 1,000,000 x 64 f32 table with 65,536 hot rows on the card and
+   48 Zipf(1.1) batches of 8192 ids: every gather byte-exact; hit rate,
+   misses, evictions, gather ms. Prints the wall by part
+   (``[control-plane]`` lines).
 
 Phase 3 also holds the int8 kernels to their plain versions bit for bit
 (``torch.equal``), f32 and bf16: the quantize pass both launch (codes and
@@ -312,8 +347,9 @@ phase 5's serving, with ``launches_by_path`` for serving and phase 5b's
 spec, chunked, prefix and all arms; the
 sampling kernel's on serving; K5's and K6's on the int8 serving burst,
 with K5's per MLP predict beside it; K1's, K2's, K5's and K6's on phase
-15 as ``launches_by_path["serving_remainder"]`` and on phase 16 as
-``launches_by_path["data_plane"]``).
+15 as ``launches_by_path["serving_remainder"]``, on phase 16 as
+``launches_by_path["data_plane"]`` and on phase 17 as
+``launches_by_path["control_plane"]``).
 The last three lines of standard output are the card's name and power
 limit, the per-kernel JSON, and ``{"ok": true, "device": {...}}``.
 """
@@ -4586,6 +4622,84 @@ def _rate_windows(done, bounds):
     return out
 
 
+def _client(port, images, idx, prefix, window, answer, errors, stop=None):
+    """One client thread of 16a's burst: enqueues ``images[idx]`` under
+    uris ``<prefix>-<i>`` (the broker's own uris when ``prefix`` is None)
+    ``window`` at a time and queries them back, calling ``answer(i, y,
+    version, latency s)`` for each; with ``stop``, it cycles over ``idx``
+    until ``stop`` is set."""
+    from analytics_zoo_tpu_torch.serving import InputQueue, OutputQueue
+
+    iq, oq = InputQueue(port=port), OutputQueue(port=port)
+    try:
+        while True:
+            for w in range(0, len(idx), window):
+                if stop is not None and stop.is_set():
+                    return
+                sent = []
+                for i in idx[w:w + window]:
+                    t0 = time.perf_counter()
+                    uri = None if prefix is None else f"{prefix}-{i}"
+                    sent.append((i, iq.enqueue(uri, input=images[i]), t0))
+                for i, uri, t0 in sent:
+                    y = oq.query(uri, timeout_s=300)
+                    answer(i, y, oq.last_model_version,
+                           time.perf_counter() - t0)
+            if stop is None:
+                return
+    except Exception as e:                   # reported by the caller
+        errors.append(repr(e))
+    finally:
+        iq.close()
+        oq.close()
+
+
+def _burst(port, images, prefix, on_answer=None, window=DP_WINDOW):
+    """16a's clients: 4 threads, each enqueueing its share of
+    ``images`` under uris ``<prefix>-<i>`` ``window`` at a time and
+    querying them back. Returns ``({i: (answer, version)}, latencies s,
+    wall s, errors)``; ``on_answer(n)`` runs after the n-th answer."""
+    n = len(images)
+    results, lat, errors = {}, [], []
+    lock = threading.Lock()
+
+    def answer(i, y, version, latency):
+        with lock:
+            lat.append(latency)
+            results[i] = (y, version)
+            k = len(results)
+        if on_answer is not None:
+            on_answer(k)
+
+    threads = [threading.Thread(target=_client, args=(
+        port, images, list(range(t, n, DP_CLIENTS)), prefix, window, answer,
+        errors)) for t in range(DP_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    return results, lat, time.perf_counter() - t0, errors
+
+
+def _answered_again(port, prefix, n) -> int:
+    """How many of ``<prefix>-<i>`` still have a result to read: each was
+    consumed by its query, so an answer written twice shows here."""
+    from analytics_zoo_tpu_torch.serving import OutputQueue
+
+    oq, again = OutputQueue(port=port), 0
+    try:
+        for i in range(n):
+            try:
+                oq.query(f"{prefix}-{i}", timeout_s=0)
+                again += 1
+            except TimeoutError:
+                pass
+    finally:
+        oq.close()
+    return again
+
+
 def phase16_queue(torch, job, im, port, images, smi):
     """16a: the int8 ResNet-50 behind ClusterServing, 256 images from 4
     client threads through the broker. Every uri answered once, no error
@@ -4595,7 +4709,6 @@ def phase16_queue(torch, job, im, port, images, smi):
     K6 = 53 and K5 = 1 per batch the engine dispatched. Returns the direct
     answers and the K5/K6 launches."""
     from analytics_zoo_tpu_torch.ops import int8_fused as f8
-    from analytics_zoo_tpu_torch.serving import InputQueue, OutputQueue
     from analytics_zoo_tpu_torch.serving.wire import wire_stats
 
     direct = np.concatenate([im.predict(images[i:i + IMG_BATCH])
@@ -4610,56 +4723,18 @@ def phase16_queue(torch, job, im, port, images, smi):
         return y
 
     im.predict = counted            # the engine's infer loop calls this
-    results, lat, errors = {}, [], []
-
-    def client(t):
-        iq, oq = InputQueue(port=port), OutputQueue(port=port)
-        try:
-            idx = list(range(t, DP_IMAGES, DP_CLIENTS))
-            for w in range(0, len(idx), DP_WINDOW):
-                sent = []
-                for i in idx[w:w + DP_WINDOW]:
-                    t0 = time.perf_counter()
-                    sent.append((i, iq.enqueue(f"img-{i}", input=images[i]),
-                                 t0))
-                for i, uri, t0 in sent:
-                    y = oq.query(uri, timeout_s=300)
-                    lat.append(time.perf_counter() - t0)
-                    results[i] = (y, oq.last_model_version)
-        except Exception as e:               # reported below
-            errors.append(repr(e))
-        finally:
-            iq.close()
-            oq.close()
-
     shm0 = wire_stats()["shm_bytes"]
     served0 = job.served
     f8.int8_matmul_fused.launches = 0
     f8.int8_conv2d_fused.launches = 0
-    threads = [threading.Thread(target=client, args=(t,))
-               for t in range(DP_CLIENTS)]
-    t0 = time.perf_counter()
     try:
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=600)
+        results, lat, wall, errors = _burst(port, images[:DP_IMAGES], "img")
     finally:
         del im.predict
-    wall = time.perf_counter() - t0
     k5, k6 = f8.int8_matmul_fused.launches, f8.int8_conv2d_fused.launches
     shm = wire_stats()["shm_bytes"] - shm0
     # answered once: each result hash was consumed by its query
-    oq, again = OutputQueue(port=port), 0
-    try:
-        for i in range(DP_IMAGES):
-            try:
-                oq.query(f"img-{i}", timeout_s=0)
-                again += 1
-            except TimeoutError:
-                pass
-    finally:
-        oq.close()
+    again = _answered_again(port, "img", DP_IMAGES)
     t_lim = time.perf_counter() + 30
     while job.served - served0 < DP_IMAGES and time.perf_counter() < t_lim:
         time.sleep(0.01)          # the sink counts just after its write
@@ -4689,7 +4764,7 @@ def phase16_queue(torch, job, im, port, images, smi):
     if not ok:
         raise AssertionError(f"16a: a data-plane gate failed (errors "
                              f"{errors[:3]})")
-    return direct, k5, k6
+    return direct, k5, k6, res
 
 
 def _post_json(port, path, body: bytes, timeout=300):
@@ -5014,13 +5089,13 @@ def phase16_generation(torch, port, direct5, smi):
           and all(m <= 0.1 for m in margins.values()))
     if not ok:
         raise AssertionError("16d: the generation data plane failed a gate")
-    return k1, k2
+    return k1, k2, res
 
 
 def phase_data_plane(torch, state, direct5, smi):
     """Phase 16: the serving data plane on the card (16a-16d), on a broker
     of the port started in this process. Returns the data-plane launches
-    of K1, K2 (16d), K5 and K6 (16a)."""
+    of K1, K2 (16d), K5 and K6 (16a), and 16a's and 16d's results."""
     from analytics_zoo_tpu_torch.inference.inference_model import \
         InferenceModel
     from analytics_zoo_tpu_torch.nn.module import set_policy
@@ -5045,8 +5120,8 @@ def phase_data_plane(torch, state, direct5, smi):
         wall["start"] = time.perf_counter() - t
         try:
             t = time.perf_counter()
-            direct, k5, k6 = phase16_queue(torch, job, im, broker.port,
-                                           images, smi)
+            direct, k5, k6, res16a = phase16_queue(torch, job, im,
+                                                   broker.port, images, smi)
             wall["16a"] = time.perf_counter() - t
             t = time.perf_counter()
             phase16_http(torch, job, im, broker.port, images, direct, smi)
@@ -5060,7 +5135,8 @@ def phase_data_plane(torch, state, direct5, smi):
         del im, job
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        k1, k2 = phase16_generation(torch, broker.port, direct5, smi)
+        k1, k2, res16d = phase16_generation(torch, broker.port, direct5,
+                                            smi)
         wall["16d"] = time.perf_counter() - t
     finally:
         broker.shutdown()
@@ -5068,6 +5144,958 @@ def phase_data_plane(torch, state, direct5, smi):
     torch.cuda.empty_cache()
     wall["phase"] = time.perf_counter() - t_phase
     log(f"[data-plane] phase wall s: {json.dumps(wall)}")
+    return {"K1": k1, "K2": k2, "K5": k5, "K6": k6, "16a": res16a,
+            "16d": res16d}
+
+
+# ------------------------------------------------------------ phase 17
+
+# the control plane: phase 16's 256 seeded images (seed 30) through replica
+# fleets; 17c's load loops over the first 32 of them; the row cache's
+# table (1,000,000 x 64 f32, 256 MB) with 65,536 rows on the card, read by
+# Zipf(1.1) batches of 8192 ids
+CP_LOAD_IMAGES = 32
+CP_FLEET = dict(fleet_heartbeat_s=0.1, fleet_failover_timeout_s=1.0,
+                fleet_spawn_grace_s=120.0, breaker_reset_timeout_s=0.3)
+CP_ROLLOUT = dict(rollout_window_s=1.5, rollout_min_requests=16,
+                  rollout_canary_fraction=0.5, swap_timeout_s=120.0)
+ITL_OBJECTIVE = {"name": "gen-itl", "type": "latency", "threshold_ms": 50.0,
+                 "target": 0.99}
+RC_ROWS, RC_WIDTH, RC_HOT, RC_BATCH, RC_BATCHES = (1_000_000, 64, 65_536,
+                                                   8192, 48)
+
+
+def _cp_cfg(port, **kw):
+    """An int8 ResNet-50 replica's config: phase 16's batch 32 and
+    concurrency 4, with the fleet's heartbeat and failover timeouts."""
+    from analytics_zoo_tpu_torch.serving import ServingConfig
+
+    return ServingConfig(queue_port=port, batch_size=IMG_BATCH,
+                         concurrent_num=IMG_THREADS, int8=True,
+                         **CP_FLEET, **kw)
+
+
+def _cp_factory(torch, state, calls):
+    """Thread-replica model factory: each replica its own int8 ResNet-50
+    ``InferenceModel`` on the card (the engine quantizes it at start), its
+    ``predict`` counted in ``calls[0]``."""
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+
+    lock = threading.Lock()
+
+    def make():
+        im = InferenceModel(supported_concurrent_num=IMG_THREADS,
+                            max_batch_size=IMG_BATCH, device=DEV["cuda"])
+        im.load(resnet_on(torch, state, DEV["cuda"]))
+        predict = im.predict
+
+        def counted(x):
+            with lock:
+                calls[0] += 1
+            return predict(x)
+
+        im.predict = counted
+        return im
+
+    return make
+
+
+class _Load:
+    """Closed-loop clients, a context: 16a's 4 client threads, each with
+    one of its share of ``images`` in flight, cycling until the context
+    exits; ``done`` holds ``(i, answer, version)``."""
+
+    def __init__(self, port, images):
+        self.done, self.errors = [], []
+        self._stop = threading.Event()
+
+        def answer(i, y, version, _latency):
+            self.done.append((i, y, version))
+
+        self._threads = [threading.Thread(target=_client, args=(
+            port, images, list(range(c, len(images), DP_CLIENTS)), None, 1,
+            answer, self.errors, self._stop)) for c in range(DP_CLIENTS)]
+
+    def __enter__(self):
+        for th in self._threads:
+            th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for th in self._threads:
+            th.join(timeout=600)
+
+
+def _bit_equal(results, direct) -> int:
+    return sum(np.array_equal(y, direct[i]) for i, (y, _) in results.items())
+
+
+def _wait_until(pred, timeout_s: float, poll_s: float = 0.02) -> bool:
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        if pred():
+            return True
+        time.sleep(poll_s)
+    return pred()
+
+
+def phase17_thread_fleet(torch, state, port, images, direct, smi):
+    """17a: two int8 ResNet-50 replicas (thread mode) behind the
+    ``ReplicaRouter``, phase 16a's burst, ``kill_replica("r0")`` once a
+    third of it is answered. Every uri answered once, bit for bit the direct
+    predict; ``requeued > 0``; the respawned r0 heartbeats and the fleet is
+    back to 2 eligible; K6 = 53 and K5 = 1 per predict the replicas ran
+    (their warm-up predicts included), counted from 0 once both replicas
+    heartbeat. Returns the running fleet (17c reuses it) and K5, K6."""
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+    from analytics_zoo_tpu_torch.serving import FleetSupervisor
+
+    calls = [0]
+    cfg = _cp_cfg(port, replicas=2, warmup_shape=(IMG, IMG, 3), **CP_ROLLOUT)
+    t = time.perf_counter()
+    fleet = FleetSupervisor(cfg, model_factory=_cp_factory(torch, state,
+                                                           calls),
+                            device=DEV["cuda"]).start()
+    try:
+        if not _wait_until(lambda: all(fleet._hb_seen.get(r)
+                                       for r in ("r0", "r1")), 120):
+            raise AssertionError("17a: the replicas never heartbeat")
+        start_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        calls[0] = 0
+        f8.int8_matmul_fused.launches = 0
+        f8.int8_conv2d_fused.launches = 0
+        killed = []
+
+        def kill_at(k):
+            if k >= len(images) // 3 and not killed:
+                killed.append(time.perf_counter())
+                fleet.kill_replica("r0")
+
+        results, lat, wall, errors = _burst(port, images, "a", kill_at)
+        again = _answered_again(port, "a", len(images))
+        back = _wait_until(lambda: fleet.respawns >= 1
+                           and fleet._hb_seen.get("r0")
+                           and len(fleet.router.eligible_ids()) == 2, 120)
+        reconverge_s = time.perf_counter() - killed[0] if killed else None
+        torch.cuda.synchronize()
+        k5, k6 = f8.int8_matmul_fused.launches, f8.int8_conv2d_fused.launches
+        exact = _bit_equal(results, direct)
+        res = {"images": len(images), "start_s": start_s, "wall_s": wall,
+               "images_per_s": len(images) / wall,
+               "latency_p50_ms": pct(lat, 50) * 1e3,
+               "latency_p99_ms": pct(lat, 99) * 1e3,
+               "killed": "r0", "requeued": fleet.requeued,
+               "respawns": fleet.respawns, "reconverged": bool(back),
+               "kill_to_two_eligible_s": reconverge_s,
+               "eligible": fleet.router.eligible_ids(),
+               "answered_again": again,
+               "bit_equal_direct": f"{exact}/{len(results)}",
+               "predicts": calls[0], "launches": {"K5": k5, "K6": k6},
+               "errors": errors[:3], "card": smi}
+        log(f"[control-plane] 17a thread fleet {json.dumps(res)}")
+        ok = (not errors and len(results) == len(images) and again == 0
+              and exact == len(images) and fleet.requeued > 0 and back
+              and calls[0] > 0 and k6 == 53 * calls[0] and k5 == calls[0])
+        if not ok:
+            raise AssertionError("17a: a thread-fleet gate failed")
+    except BaseException:
+        fleet.stop(drain_s=1.0)
+        raise
+    return fleet, k5, k6, res
+
+
+def _spawn_times(fleet, rids, t0, timeout_s):
+    """Seconds from ``t0`` to each replica's first heartbeat."""
+    seen = {}
+    deadline = time.perf_counter() + timeout_s
+    while len(seen) < len(rids) and time.perf_counter() < deadline:
+        for r in rids:
+            if r not in seen and fleet._hb_seen.get(r):
+                seen[r] = time.perf_counter() - t0
+        time.sleep(0.02)
+    return seen
+
+
+def phase17_process_fleet(torch, state, port, images, direct, tmp, smi,
+                          plane16):
+    """17b: two replica processes on the one card (``fleet_spawn:
+    process``, ``python -m analytics_zoo_tpu_torch.serving.fleet --device
+    cuda``) load the int8 ResNet-50 bundle this phase wrote with
+    ``ImageClassifier.save_model`` (``InferenceModel.load_zoo``, int8 from
+    the YAML config the supervisor hands them). A clean burst (images/s,
+    p50, p99 beside 16a's one-interpreter numbers), then a rolling restart
+    under a closed-loop load of 4 clients; every answer bit for bit the
+    direct predict, every uri answered once; ``cli fleet-status`` and
+    ``cli drain --replica r1`` against the live broker; each replica's
+    spawn-to-first-heartbeat seconds, cold and on restart. Returns the
+    bundle path."""
+    import contextlib
+    import io
+
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.models.image.classification import \
+        ImageClassifier
+    from analytics_zoo_tpu_torch.serving import FleetSupervisor, ServingConfig
+    from analytics_zoo_tpu_torch.serving import cli as tcli
+
+    t = time.perf_counter()
+    bundle = os.path.join(tmp, "resnet50")
+    ImageClassifier("resnet-50", (IMG, IMG, 3), CLASSES, device="cpu",
+                    model=resnet_on(torch, state, "cpu")).save_model(bundle)
+    im = InferenceModel(max_batch_size=IMG_BATCH, device=DEV["cuda"])
+    im.load_zoo(bundle).quantize_int8()
+    bundle_direct = np.concatenate([im.predict(images[i:i + IMG_BATCH])
+                                    for i in range(0, len(images),
+                                                   IMG_BATCH)])
+    del im
+    bundle_equal = bool(np.array_equal(bundle_direct, direct))
+    save_s = time.perf_counter() - t
+    yaml = os.path.join(tmp, "serving.yaml")
+    with open(yaml, "w") as f:
+        f.write(f"model:\n  path: {bundle}\n  int8: true\n"
+                f"params:\n  batchSize: {IMG_BATCH}\n"
+                f"  coreNum: {IMG_THREADS}\n"
+                "fleet:\n  replicas: 2\n  spawn: process\n"
+                "  heartbeat_s: 0.1\n  failover_timeout_s: 5.0\n"
+                "  spawn_grace_s: 120\nhot_swap: false\n")
+    cfg = ServingConfig.from_yaml(yaml)
+    cfg.queue_port = port
+    fleet = FleetSupervisor(cfg, config_path=yaml, device=DEV["cuda"])
+    t0 = time.perf_counter()
+    fleet.start()
+    try:
+        cmds = [h.proc.args for h in fleet._handles.values()]
+        spawn_cold = _spawn_times(fleet, ("r0", "r1"), t0, 180)
+        if len(spawn_cold) != 2 or not fleet.wait_eligible(2, 60):
+            raise AssertionError(f"17b: replicas never came up "
+                                 f"({spawn_cold})")
+        results, lat, wall, errors = _burst(port, images, "b")
+        again = _answered_again(port, "b", len(images))
+        exact = _bit_equal(results, direct)
+        # the rolling restart under a closed-loop load
+        with _Load(port, images) as load:
+            done = load.done
+            _wait_until(lambda: len(done) >= 32, 60)
+            t1 = time.perf_counter()
+            spawn_restart = {}
+            restarted = True
+            for rid in ("r0", "r1"):
+                t_r = time.perf_counter()
+                restarted = fleet.restart_replica(rid, timeout_s=180) \
+                    and restarted
+                spawn_restart[rid] = time.perf_counter() - t_r
+            rolling_s = time.perf_counter() - t1
+            n_during = len(done)
+            _wait_until(lambda: len(done) >= n_during + 32, 60)
+        lerr = load.errors
+        rolled_exact = sum(np.array_equal(y, direct[i]) for i, y, _ in done)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc_status = tcli.main(["fleet-status", "--port", str(port)])
+        status = json.loads(out.getvalue())
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc_drain = tcli.main(["drain", "--replica", "r1", "--port",
+                                  str(port)])
+        drained = fleet.wait_state("r1", "drained", timeout_s=60)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            tcli.main(["fleet-status", "--port", str(port)])
+        after = json.loads(out.getvalue())
+    finally:
+        fleet.stop(drain_s=2.0)
+    a16 = plane16["16a"]
+    res = {"images": len(images), "bundle_save_and_direct_s": save_s,
+           "bundle_direct_equals_17a_direct": bundle_equal,
+           "replica_cmd": cmds[0][:3] + cmds[0][3:][-2:],
+           "spawn_to_first_hb_s": spawn_cold,
+           "wall_s": wall, "images_per_s": len(images) / wall,
+           "latency_p50_ms": pct(lat, 50) * 1e3,
+           "latency_p99_ms": pct(lat, 99) * 1e3,
+           "one_interpreter_16a": {k: a16[k] for k in (
+               "images_per_s", "latency_p50_ms", "latency_p99_ms")},
+           "answered_again": again,
+           "bit_equal_direct": f"{exact}/{len(results)}",
+           "rolling_restart": {"ok": restarted, "s": rolling_s,
+                               "per_replica_s": spawn_restart,
+                               "answers": len(done),
+                               "answers_during": n_during,
+                               "bit_equal_direct":
+                                   f"{rolled_exact}/{len(done)}",
+                               "requeued": fleet.requeued,
+                               "errors": lerr[:3]},
+           "cli": {"fleet_status_rc": rc_status,
+                   "replicas": sorted(status.get("replicas", {})),
+                   "drain_rc": rc_drain, "r1_drained": drained,
+                   "r1_state_after": after.get("replicas", {}).get(
+                       "r1", {}).get("state")},
+           "errors": errors[:3], "card": smi}
+    log(f"[control-plane] 17b process fleet {json.dumps(res)}")
+    ok = (bundle_equal and not errors and len(results) == len(images)
+          and again == 0 and exact == len(images) and restarted
+          and not lerr and rolled_exact == len(done) and len(done) > 64
+          and rc_status == 0 and status.get("spawn") == "process"
+          and sorted(status.get("replicas", {})) == ["r0", "r1"]
+          and rc_drain == 0 and drained
+          and res["cli"]["r1_state_after"] == "drained"
+          and all(c[1:3] == ["-m", "analytics_zoo_tpu_torch.serving.fleet"]
+                  for c in cmds))
+    if not ok:
+        raise AssertionError("17b: a process-fleet gate failed")
+    return bundle, res
+
+
+def phase17_rollout(torch, state, fleet, port, images, direct, tmp, smi):
+    """17c: 17a's fleet (its ``RolloutController`` on) under a closed-loop
+    load of 4 clients over the first 32 images. ``ModelPublisher``
+    announces the float weights x 1.01: the canary swaps, validates and
+    the rollout promotes fleet-wide. Then a checkpoint with a NaN: the
+    canary refuses it, the rollout rolls back, ``model_rejections`` holds
+    one record, the fleet stays on the x 1.01 version. Every answer
+    carries a version and equals that version's direct predict bit for
+    bit."""
+    from analytics_zoo_tpu_torch.bridge import nest
+    from analytics_zoo_tpu_torch.engine import checkpoint as ck
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.serving.hotswap import ModelPublisher
+
+    n_load = CP_LOAD_IMAGES
+    ref = InferenceModel(max_batch_size=IMG_BATCH, device=DEV["cuda"])
+    ref.load(resnet_on(torch, state, DEV["cuda"]))
+    names = list(ref.load_names)
+    params2 = {n: state[n] * 1.01 for n in names}
+    state2 = {k: params2.get(k, v) for k, v in state.items()}
+    ref.load(resnet_on(torch, state2, DEV["cuda"])).quantize_int8()
+    new = ref.predict(images[:n_load])
+    del ref
+    torch.cuda.empty_cache()
+    good = ck.save_checkpoint(os.path.join(tmp, "ckpt"), nest(params2),
+                              iteration=1, epoch=0)
+    bad_params = dict(params2)
+    bad_params[names[0]] = bad_params[names[0]].clone()
+    bad_params[names[0]].view(-1)[0] = float("nan")
+    bad = ck.save_checkpoint(os.path.join(tmp, "ckpt"), nest(bad_params),
+                             iteration=2, epoch=0, keep=5)
+    pub = ModelPublisher(port=port)
+    ro = fleet.rollout
+    load = _Load(port, images[:n_load])
+    done = load.done
+    try:
+        load.__enter__()
+        _wait_until(lambda: len(done) >= 16, 60)
+        t = time.perf_counter()
+        rec = pub.publish(good)
+        v1 = rec["version"]
+        promoted = _wait_until(
+            lambda: any(v == v1 for v, _ in ro.outcomes)
+            and set(fleet.model_versions().values()) == {v1}
+            and ro.state()["phase"] == "idle", 180)
+        promote_s = time.perf_counter() - t
+        t = time.perf_counter()
+        rec_bad = pub.publish(bad)
+        v2 = rec_bad["version"]
+        decided = _wait_until(
+            lambda: any(v == v2 for v, _ in ro.outcomes)
+            and ro.state()["phase"] == "idle", 180)
+        rollback_s = time.perf_counter() - t
+        n_at = len(done)
+        _wait_until(lambda: len(done) >= n_at + 16, 60)
+    finally:
+        load.__exit__()
+    try:
+        rejections = pub.check_rejections()
+        versions_after = fleet.model_versions()
+    finally:
+        pub.close()
+    errors = load.errors
+    want = {"initial": direct, v1: new}
+    kinds = {"initial": 0, v1: 0, "wrong": 0}
+    for i, y, v in done:
+        if v in want and np.array_equal(y, want[v][i]):
+            kinds[v] += 1
+        else:
+            kinds["wrong"] += 1
+    after = [v for _, _, v in done[n_at:]]
+    res = {"promote": {"version": v1, "ok": promoted, "s": promote_s},
+           "nan_publish": {"version": v2, "decided": decided,
+                           "s": rollback_s,
+                           "rejections": [(r.get("version"),
+                                           r.get("outcome"),
+                                           r.get("reason"))
+                                          for r in rejections]},
+           "outcomes": list(ro.outcomes), "versions_after": versions_after,
+           "answers": kinds, "answers_after_rollback": len(after),
+           "errors": errors[:3], "card": smi}
+    log(f"[control-plane] 17c canary rollout {json.dumps(res)}")
+    ok = (promoted and decided and not errors
+          and list(ro.outcomes) == [(v1, "promoted"), (v2, "rolled_back")]
+          and len(rejections) == 1 and rejections[0].get("version") == v2
+          and "nan" in str(rejections[0].get("reason"))
+          and set(versions_after.values()) == {v1}
+          and kinds["wrong"] == 0 and kinds["initial"] > 0
+          and kinds[v1] > 0 and after and all(v == v1 for v in after))
+    if not ok:
+        raise AssertionError("17c: a canary-rollout gate failed")
+    return res
+
+
+def phase17_generation(torch, port, direct5, plane16, smi):
+    """17d: two ``GenerationEngine`` replicas, each over its own copy of
+    phase 5's bf16 LM (seed 0; 8 slots, page 16), reading the routed
+    streams ``fleet:gen:g0``/``g1`` behind a round-robin ``ReplicaRouter``
+    on the generation stream, with an ITL objective declared. Phase 5's
+    16-request burst through ``GenerationClient``: every stream ok with 32
+    tokens, each greedy stream equal to phase 5's or differing where its
+    argmax margin is <= 0.1; K1 = 12 x prefills and K2 = 12 x decode
+    steps, summed over both replicas; each engine's ``itl_target_s`` is
+    the objective's 50 ms; ``/debug/slo`` of a frontend over the config's
+    ``ObservabilityPlane`` lists it. Returns K1, K2."""
+    import urllib.request
+
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.observability import ObservabilityPlane
+    from analytics_zoo_tpu_torch.ops.flash_attention import \
+        flash_attention_fwd
+    from analytics_zoo_tpu_torch.ops.paged_attention import paged_attention
+    from analytics_zoo_tpu_torch.serving import (FrontEndApp, ReplicaRouter,
+                                                 ServingConfig)
+    from analytics_zoo_tpu_torch.serving.generation import (GEN_STREAM,
+                                                            GenerationClient,
+                                                            GenerationEngine)
+
+    set_policy(compute_dtype="bfloat16")
+    cfg = ServingConfig(queue_port=port, gen_slots=N_SLOTS,
+                        gen_page_size=PAGE, gen_max_seq_len=MAX_SEQ,
+                        slo_objectives=(ITL_OBJECTIVE,))
+    rids = ("g0", "g1")
+    models = [full_model(torch, DEV["cuda"]).to(torch.bfloat16).eval()
+              for _ in rids]
+    engines = [GenerationEngine(m, config=cfg, group=f"fleet-{rid}",
+                                stream="fleet:gen:" + rid,
+                                device=DEV["cuda"]).start()
+               for m, rid in zip(models, rids)]
+    router = ReplicaRouter(cfg, rids, stream=GEN_STREAM, prefix="fleet:gen:",
+                           group="gen-router", policy="round_robin",
+                           name="genfleet").start()
+    plane = ObservabilityPlane.from_config(cfg).start()
+    app = FrontEndApp(cfg, port=0, plane=plane).start()
+    prompts, temps, n_new = serving_burst()
+    n_req = len(prompts)
+    arrivals = [[] for _ in range(n_req)]
+    outs, errors = [None] * n_req, []
+    sender = GenerationClient(port=port)
+
+    def reader(i, uri):
+        gc = GenerationClient(port=port)
+        try:
+            toks = []
+            for chunk in gc.stream(uri, timeout_s=600):
+                arrivals[i].append(time.perf_counter())
+                toks.extend(chunk.tolist())
+            outs[i] = toks
+        except Exception as e:               # reported below
+            errors.append(repr(e))
+        finally:
+            gc.close()
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{app.port}/debug/slo",
+                                    timeout=60) as r:
+            slo = json.loads(r.read())
+        flash_attention_fwd.launches = 0
+        paged_attention.launches = 0
+        t0 = time.perf_counter()
+        subs = [(sender.submit(prompts[i], max_new_tokens=n_new,
+                               temperature=temps[i], seed=100 + i),
+                 time.perf_counter()) for i in range(n_req)]
+        threads = [threading.Thread(target=reader, args=(i, u))
+                   for i, (u, _) in enumerate(subs)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2 = flash_attention_fwd.launches, paged_attention.launches
+        stats = [e.stats() for e in engines]
+        routed = router.stats()["replicas"]
+    finally:
+        sender.close()
+        router.stop()
+        for e in engines:
+            e.stop()
+        app.stop()
+        plane.stop()
+    if errors or any(o is None or len(o) != n_new for o in outs):
+        raise AssertionError(f"17d: streams not ok with {n_new} tokens: "
+                             f"{errors[:3]}")
+    prefills = sum(s["dispatches"]["prefill"] for s in stats)
+    decodes = sum(s["dispatches"]["decode"] for s in stats)
+    greedy = [i for i in range(n_req) if temps[i] == 0.0]
+    differ = [i for i in greedy if outs[i] != direct5["outs"][i]]
+    margins = {}
+    for i in differ:
+        seq = np.concatenate([prompts[i], np.asarray(outs[i][:-1], np.int32)])
+        with torch.no_grad():
+            lg = models[0].apply(torch.as_tensor(seq[None]))[0].float()
+        rows = lg[len(prompts[i]) - 1:]
+        chosen = rows[torch.arange(n_new), torch.as_tensor(outs[i]).long()]
+        margins[i] = float((rows.max(dim=-1).values - chosen).max())
+    ttft = [a[0] - ts for a, (_, ts) in zip(arrivals, subs)]
+    itl = [b - a for ar in arrivals for a, b in zip(ar, ar[1:])]
+    n_tok = sum(len(o) for o in outs)
+    res = {"requests": n_req, "replicas": len(rids), "tokens": n_tok,
+           "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "ttft_p50_ms": pct(ttft, 50) * 1e3,
+           "itl_p50_ms": pct(itl, 50) * 1e3, "itl_p95_ms": pct(itl, 95) * 1e3,
+           "dispatched": {r: routed[r]["dispatched"] for r in rids},
+           "greedy_equal_to_phase5": f"{len(greedy) - len(differ)}/"
+                                     f"{len(greedy)}",
+           "differing_margins": margins,
+           "dispatches": {"prefill": prefills, "decode": decodes},
+           "itl_target_s": [s["itl_target_s"] for s in stats],
+           "debug_slo": [o["name"] for o in slo.get("objectives", [])],
+           "launches": {"K1": k1, "K2": k2},
+           "one_engine_16d": {k: plane16["16d"][k] for k in (
+               "tokens_per_s", "ttft_p50_ms", "itl_p50_ms", "itl_p95_ms")},
+           "card": smi}
+    log(f"[control-plane] 17d routed generation {json.dumps(res)}")
+    del models
+    set_policy(compute_dtype="float32")
+    ok = (k1 == N_BLOCK * prefills and prefills == n_req
+          and k2 == N_BLOCK * decodes and decodes > 0
+          and all(m <= 0.1 for m in margins.values())
+          and all(s == ITL_OBJECTIVE["threshold_ms"] / 1e3
+                  for s in res["itl_target_s"])
+          and res["debug_slo"] == [ITL_OBJECTIVE["name"]]
+          and slo.get("enabled") is True
+          and sorted(res["dispatched"].values()) == [n_req // 2, n_req // 2])
+    if not ok:
+        raise AssertionError("17d: a routed-generation gate failed")
+    return k1, k2, res
+
+
+def phase17_autoscale(torch, state, port, images, direct, smi):
+    """17e, first half: a thread fleet of int8 ResNet-50 replicas with the
+    queue-driven autoscaler (``min_replicas`` 1, ``max_replicas`` 2, up
+    at 8 owed requests a replica sustained 0.3 s, down after 1.5 s idle).
+    Phase 16a's burst with 64 requests in flight a client: the fleet
+    scales up to 2 and, idle, drains back to 1; every uri answered once,
+    bit for bit the direct predict."""
+    from analytics_zoo_tpu_torch.serving import FleetSupervisor
+
+    cfg = _cp_cfg(port, replicas=1, autoscale=True, min_replicas=1,
+                  max_replicas=2, autoscale_up_depth=8.0,
+                  autoscale_sustain_s=0.3, autoscale_idle_s=1.5,
+                  autoscale_cooldown_s=0.3, hot_swap=False)
+    fleet = FleetSupervisor(cfg, model_factory=_cp_factory(torch, state,
+                                                           [0]),
+                            device=DEV["cuda"]).start()
+    try:
+        if not _wait_until(lambda: fleet._hb_seen.get("r0"), 120):
+            raise AssertionError("17e: the first replica never heartbeat")
+        peak = [1]
+
+        def watch(k):
+            peak[0] = max(peak[0], len(fleet._handles))
+
+        results, lat, wall, errors = _burst(port, images, "e", watch,
+                                               window=64)
+        again = _answered_again(port, "e", len(images))
+        t = time.perf_counter()
+        down = _wait_until(lambda: len(fleet._handles) == 1
+                           and any(e[0] == "down"
+                                   for e in fleet.scale_events), 60)
+        down_s = time.perf_counter() - t
+        events = list(fleet.scale_events)
+    finally:
+        fleet.stop(drain_s=2.0)
+    exact = _bit_equal(results, direct)
+    res = {"images": len(images), "wall_s": wall,
+           "images_per_s": len(images) / wall, "peak_replicas": peak[0],
+           "scale_events": events, "back_to_one": down,
+           "idle_to_one_s": down_s, "answered_again": again,
+           "bit_equal_direct": f"{exact}/{len(results)}",
+           "errors": errors[:3], "card": smi}
+    log(f"[control-plane] 17e autoscale {json.dumps(res)}")
+    ok = (not errors and len(results) == len(images) and again == 0
+          and exact == len(images) and down
+          and any(e[0] == "up" for e in events) and peak[0] >= 2)
+    if not ok:
+        raise AssertionError("17e: an autoscale gate failed")
+    return res
+
+
+def phase17_host_failover(torch, port, bundle, images, direct, tmp, smi):
+    """17e, second half: two stand-in host agents as subprocesses
+    (``python -m analytics_zoo_tpu_torch.serving.hostagent --config <yaml>
+    --device cuda``), each serving one int8 ResNet-50 replica loaded from
+    17b's bundle (int8 from the YAML); 16a's burst of 256 images from 4
+    clients, and ``kill_host`` of the first replica's host (SIGKILL of its
+    agent) once a quarter are answered. Every uri answered once, bit for bit
+    the direct predict; exactly one ``fleet.host_failed`` event, naming that
+    host; its replica respawned on the surviving agent, heartbeating and
+    answering 32 more images bit for bit. Records each replica's
+    spawn-to-first-heartbeat seconds and the seconds from the kill to the
+    failover and to the respawned replica's first heartbeat."""
+    from analytics_zoo_tpu_torch.observability import events as tev
+    from analytics_zoo_tpu_torch.serving import (FleetSupervisor,
+                                                 ServingConfig)
+
+    yaml = os.path.join(tmp, "hosts.yaml")
+    with open(yaml, "w") as f:
+        f.write(f"model:\n  path: {bundle}\n  int8: true\n"
+                f"params:\n  batchSize: {IMG_BATCH}\n"
+                f"  coreNum: {IMG_THREADS}\n"
+                "fleet:\n  replicas: 2\n  hosts: 2\n  heartbeat_s: 0.1\n"
+                "  failover_timeout_s: 3.0\n  spawn_grace_s: 120\n"
+                "hot_swap: false\n")
+    cfg = ServingConfig.from_yaml(yaml)
+    cfg.queue_port, cfg.breaker_reset_timeout_s = port, 0.3
+    tev.reset_events()
+    fleet = FleetSupervisor(cfg, config_path=yaml, device=DEV["cuda"])
+    t0 = time.perf_counter()
+    fleet.start()
+    try:
+        cmds = [s.proc.args for s in fleet._hosts.values()]
+        spawn = _spawn_times(fleet, ("r0", "r1"), t0, 180)
+        if len(spawn) != 2 or not fleet.wait_eligible(2, 60):
+            raise AssertionError(f"17e: host replicas never came up "
+                                 f"({spawn})")
+        victim = fleet._handles["r0"].host
+        moved = sorted(r for r, h in fleet._handles.items()
+                       if h.host == victim)
+        marks = {}
+
+        def watch(t_kill):
+            # the failover, then the moved replicas' first heartbeats on
+            # another host, each in seconds from the kill
+            deadline = t_kill + 180
+            while "respawn_hb" not in marks and \
+                    time.perf_counter() < deadline:
+                if "failover" not in marks and fleet.host_failovers >= 1:
+                    marks["failover"] = time.perf_counter() - t_kill
+                if "failover" in marks and all(
+                        fleet._handles[r].host not in (None, victim)
+                        and fleet._hb_seen.get(r) for r in moved):
+                    marks["respawn_hb"] = time.perf_counter() - t_kill
+                time.sleep(0.01)
+
+        watcher = []
+
+        def kill_at(k):
+            if k >= len(images) // 4 and not watcher:
+                t_kill = time.perf_counter()
+                fleet.kill_host(victim)
+                watcher.append(threading.Thread(target=watch,
+                                                args=(t_kill,)))
+                watcher[0].start()
+
+        results, lat, wall, errors = _burst(port, images, "h", kill_at)
+        again = _answered_again(port, "h", len(images))
+        if watcher:
+            watcher[0].join(timeout=200)
+        back = fleet.wait_eligible(2, 60)
+        respawned_on = {r: fleet._handles[r].host for r in moved}
+        after, _, _, errors_after = _burst(port, images[:32], "h2")
+        # one decision: no second failover once the dead agent's last
+        # heartbeat would have aged out and expired again
+        _wait_until(lambda: fleet.host_failovers > 1,
+                    2 * cfg.fleet_failover_timeout_s + 1.0)
+        events = [e.fields for e in tev.events(kind="fleet.host_failed")]
+    finally:
+        fleet.stop(drain_s=2.0)
+    exact = _bit_equal(results, direct)
+    exact_after = _bit_equal(after, direct)
+    res = {"images": len(images), "agent_cmd": cmds[0][1:],
+           "spawn_to_first_hb_s": spawn, "killed_host": victim,
+           "moved": moved, "respawned_on": respawned_on,
+           "kill_to_failover_s": marks.get("failover"),
+           "kill_to_respawned_hb_s": marks.get("respawn_hb"),
+           "wall_s": wall, "images_per_s": len(images) / wall,
+           "latency_p50_ms": pct(lat, 50) * 1e3,
+           "latency_p99_ms": pct(lat, 99) * 1e3,
+           "requeued": fleet.requeued, "host_failovers": fleet.host_failovers,
+           "host_failed_events": [{k: e.get(k) for k in (
+               "host", "replicas", "respawned", "requeued")}
+               for e in events],
+           "answered_again": again,
+           "bit_equal_direct": f"{exact}/{len(results)}",
+           "after_respawn_bit_equal": f"{exact_after}/{len(after)}",
+           "errors": (errors + errors_after)[:3], "card": smi}
+    log(f"[control-plane] 17e host failover {json.dumps(res)}")
+    ok = (not errors and not errors_after and len(results) == len(images)
+          and again == 0 and exact == len(images) and back
+          and exact_after == len(after) == 32
+          and "respawn_hb" in marks and len(events) == 1
+          and events[0].get("host") == victim
+          and all(h not in (None, victim) for h in respawned_on.values())
+          and all(c[1:3] == ["-m", "analytics_zoo_tpu_torch.serving."
+                                   "hostagent"] and "--config" in c
+                  for c in cmds))
+    if not ok:
+        raise AssertionError("17e: a host-failover gate failed")
+    return res
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase17_stack(torch, bundle, images, direct, tmp, smi):
+    """17f: ``python -m analytics_zoo_tpu_torch.serving.stack --model
+    <17b's bundle> --int8 --replicas 2`` as a subprocess (thread replicas,
+    each loading the bundle on the card). ``/readyz`` answers 200; four
+    ``/predict`` requests of one image each answer bit for bit the direct
+    predict; ``cli info`` and ``cli events`` answer against its broker; a
+    SIGTERM sent once a request is inside a replica (owed on its dispatch
+    stream) still answers it, and the process exits 0."""
+    import contextlib
+    import io
+    import signal
+    import urllib.request
+
+    from analytics_zoo_tpu_torch.serving import cli as tcli
+    from analytics_zoo_tpu_torch.serving.client import _Conn
+
+    http_port, broker_port = _free_port(), _free_port()
+    log_path = os.path.join(tmp, "stack.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "analytics_zoo_tpu_torch.serving.stack",
+             "--model", bundle, "--int8", "--replicas", "2",
+             "--device", DEV["cuda"],
+             "--http-port", str(http_port), "--broker-port",
+             str(broker_port), "--flight-dir", tmp],
+            cwd=str(ROOT), stdout=logf, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{http_port}"
+
+    def ready():
+        if proc.poll() is not None:
+            return True
+        try:
+            with urllib.request.urlopen(url + "/readyz", timeout=2) as r:
+                return r.status == 200
+        except OSError:
+            return False
+
+    try:
+        up = _wait_until(ready, 240) and proc.poll() is None
+        ready_s = time.perf_counter() - t0
+        if not up:
+            with open(log_path) as f:
+                raise AssertionError("17f: the stack never became ready: "
+                                     + f.read()[-3000:])
+        got = [np.asarray(_post_json(http_port, "/predict", json.dumps(
+            {"instances": [{"input": images[i].tolist()}]}).encode())[
+                "predictions"][0], np.float32) for i in range(4)]
+        exact = sum(np.array_equal(g, direct[i]) for i, g in enumerate(got))
+        outs = {}
+        for verb in (["info"], ["events", "--count", "20"]):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = tcli.main(verb + ["--port", str(broker_port)])
+            outs[verb[0]] = (rc, out.getvalue())
+        info = json.loads(outs["info"][1])
+        inflight = {}
+        body = json.dumps({"instances": [{"input": images[4].tolist()}]}
+                          ).encode()
+
+        def request():
+            try:
+                inflight["y"] = _post_json(http_port, "/predict", body)
+            except Exception as e:           # reported below
+                inflight["error"] = repr(e)
+
+        # SIGTERM once the request is owed on a replica's dispatch stream:
+        # routed there and claimed (or claimed in the next ms), so the
+        # ordered shutdown must let it finish
+        conn = _Conn("127.0.0.1", broker_port, timeout=30.0)
+        seen = []
+
+        def owed_now():
+            if sum(int(conn.call("LEN", f"fleet:req:{r}", f"fleet-{r}"))
+                   for r in ("r0", "r1")):
+                seen.append(time.perf_counter())
+            return bool(seen) or not th.is_alive()
+
+        try:
+            th = threading.Thread(target=request)
+            th.start()
+            _wait_until(owed_now, 60, poll_s=0.001)
+        finally:
+            conn.close()
+        owed = bool(seen)
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        th.join(timeout=120)
+        rc_exit = proc.wait(timeout=120)
+        term_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    inflight_ok = "y" in inflight and np.array_equal(
+        np.asarray(inflight["y"]["predictions"][0], np.float32), direct[4])
+    res = {"ready_s": ready_s, "bit_equal_direct": f"{exact}/4",
+           "cli_info_rc": outs["info"][0],
+           "cli_info_keys": sorted(info)[:12],
+           "cli_events_rc": outs["events"][0],
+           "cli_events_lines": len(outs["events"][1].splitlines()),
+           "inflight_seen_on_a_replica": bool(owed),
+           "inflight_answered_bit_equal": bool(inflight_ok),
+           "inflight_error": inflight.get("error"),
+           "sigterm_to_exit_s": term_s, "exit_code": rc_exit, "card": smi}
+    log(f"[control-plane] 17f stack {json.dumps(res)}")
+    ok = (exact == 4 and outs["info"][0] == 0 and outs["events"][0] == 0
+          and owed and inflight_ok and rc_exit == 0)
+    if not ok:
+        raise AssertionError("17f: a serving-stack gate failed")
+    return res
+
+
+def phase17_rowcache(torch, smi):
+    """17g: ``HostRowCache`` over a 1,000,000 x 64 f32 table (256 MB, the
+    memmap cold tier) with 65,536 hot rows on the card, read by 48 batches
+    of 8192 Zipf(1.1) ids (scattered over the table by a seeded
+    permutation). Every gather is byte-exact against ``table[ids]``; the
+    hit rate, misses, evictions and gather ms are recorded."""
+    from analytics_zoo_tpu_torch.serving import rowcache as rc
+
+    rng = np.random.default_rng(32)
+    t = time.perf_counter()
+    table = rng.standard_normal((RC_ROWS, RC_WIDTH), dtype=np.float32)
+    perm = rng.permutation(RC_ROWS)
+    batches = [perm[(rng.zipf(1.1, RC_BATCH) - 1) % RC_ROWS]
+               for _ in range(RC_BATCHES)]
+    data_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cache = rc.HostRowCache(table, hot_rows=RC_HOT, name="control-plane",
+                            device=DEV["cuda"])
+    build_s = time.perf_counter() - t
+    ms, exact = [], 0
+    try:
+        for ids in batches:
+            t = time.perf_counter()
+            got = cache.gather(ids)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            exact += got.cpu().numpy().tobytes() == table[ids].tobytes()
+        stats = cache.stats()
+    finally:
+        with rc._REGISTRY_LOCK:
+            rc._REGISTRY.pop("control-plane", None)
+        del cache
+    res = {"rows": RC_ROWS, "width": RC_WIDTH, "hot_rows": RC_HOT,
+           "batch": RC_BATCH, "batches": RC_BATCHES, "data_s": data_s,
+           "build_s": build_s, "byte_exact": f"{exact}/{RC_BATCHES}",
+           "hit_rate": stats["hit_rate"], "hits": stats["hits"],
+           "misses": stats["misses"], "evictions": stats["evictions"],
+           "hot_rows_pinned": stats["hot_rows"],
+           "gather_ms_first": ms[0], "gather_ms_p50": pct(ms, 50),
+           "gather_ms_p50_last_16": pct(ms[-16:], 50),
+           "hot_bytes": stats["hot_bytes"],
+           "host_bytes": stats["host_bytes"], "card": smi}
+    log(f"[control-plane] 17g row cache {json.dumps(res)}")
+    if exact != RC_BATCHES or stats["evictions"] == 0:
+        raise AssertionError("17g: a row-cache gate failed")
+    return res
+
+
+def phase_control_plane(torch, state, direct5, plane16, smi):
+    """Phase 17: the serving control plane on the card (17a-17g), each
+    part on a broker of its own. Returns the control-plane launches of K1,
+    K2 (17d), K5 and K6 (17a)."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.serving import start_broker
+
+    t_phase = time.perf_counter()
+    wall = {}
+    set_policy(compute_dtype="float32")
+    # spawned replicas, agents and the stack import this checkout's package
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    tmp = tempfile.mkdtemp(prefix="zoo-control-plane-")
+    brokers = []
+
+    def broker():
+        b = start_broker()
+        brokers.append(b)
+        return b.port
+
+    try:
+        t = time.perf_counter()
+        images = np.random.default_rng(30).normal(
+            size=(DP_IMAGES, IMG, IMG, 3)).astype(np.float32)
+        im = InferenceModel(max_batch_size=IMG_BATCH, device=DEV["cuda"])
+        im.load(resnet_on(torch, state, DEV["cuda"])).quantize_int8()
+        direct = np.concatenate([im.predict(images[i:i + IMG_BATCH])
+                                 for i in range(0, DP_IMAGES, IMG_BATCH)])
+        del im
+        torch.cuda.empty_cache()
+        wall["direct"] = time.perf_counter() - t
+        t = time.perf_counter()
+        port = broker()
+        fleet, k5, k6, _ = phase17_thread_fleet(torch, state, port, images,
+                                                direct, smi)
+        wall["17a"] = time.perf_counter() - t
+        try:
+            t = time.perf_counter()
+            phase17_rollout(torch, state, fleet, port, images, direct, tmp,
+                            smi)
+            wall["17c"] = time.perf_counter() - t
+        finally:
+            fleet.stop(drain_s=2.0)
+        del fleet
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        bundle, _ = phase17_process_fleet(torch, state, broker(), images,
+                                          direct, tmp, smi, plane16)
+        wall["17b"] = time.perf_counter() - t
+        t = time.perf_counter()
+        phase17_autoscale(torch, state, broker(), images, direct, smi)
+        wall["17e_autoscale"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        phase17_host_failover(torch, broker(), bundle, images, direct, tmp,
+                              smi)
+        wall["17e_hosts"] = time.perf_counter() - t
+        t = time.perf_counter()
+        phase17_stack(torch, bundle, images, direct, tmp, smi)
+        wall["17f"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        k1, k2, _ = phase17_generation(torch, broker(), direct5, plane16,
+                                       smi)
+        wall["17d"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        phase17_rowcache(torch, smi)
+        wall["17g"] = time.perf_counter() - t
+    finally:
+        for b in brokers:
+            b.shutdown()
+            b.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    wall["phase"] = time.perf_counter() - t_phase
+    log(f"[control-plane] phase wall s: {json.dumps(wall)} | {smi}")
     return {"K1": k1, "K2": k2, "K5": k5, "K6": k6}
 
 
@@ -5220,6 +6248,11 @@ def main(argv=None) -> int:
             for k, key in ((kernels[0], "K1"), (kernels[1], "K2"),
                            (kernels[5], "K5"), (kernels[6], "K6")):
                 k["launches_by_path"]["data_plane"] = plane[key]
+            torch.cuda.empty_cache()
+            control = phase_control_plane(torch, state, direct5, plane, smi)
+            for k, key in ((kernels[0], "K1"), (kernels[1], "K2"),
+                           (kernels[5], "K5"), (kernels[6], "K6")):
+                k["launches_by_path"]["control_plane"] = control[key]
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):

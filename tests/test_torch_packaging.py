@@ -60,9 +60,13 @@ def test_the_serving_remainder_is_in_the_port():
         assert (ROOT / "analytics_zoo_tpu" / rel).is_file(), rel
     import analytics_zoo_tpu_torch.observability as obs
 
-    assert set(obs.__all__) == {"FlightRecorder", "attach_jsonl", "emit",
-                                "events", "export_trace", "recorder",
-                                "reset_events", "trace_summaries", "traces"}
+    import analytics_zoo_tpu.observability as jobs
+
+    assert set(obs.__all__) == set(jobs.__all__)
+    assert {"FlightRecorder", "attach_jsonl", "emit", "events",
+            "export_trace", "recorder", "reset_events", "trace_summaries",
+            "traces", "ObservabilityPlane", "MetricsHistory", "SLOEngine",
+            "verify_incumbent"} <= set(obs.__all__)
     assert all(hasattr(obs, name) for name in obs.__all__)
 
 
@@ -148,3 +152,59 @@ def test_the_serving_data_plane_is_in_the_port_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+CONTROL_PLANE = ("observability/history.py", "observability/slo.py",
+                 "observability/replay.py", "serving/fleet.py",
+                 "serving/hostagent.py", "serving/stack.py", "serving/cli.py",
+                 "serving/rowcache.py")
+
+
+def test_the_control_plane_is_in_the_port_without_jax():
+    """The control plane's modules mirror the JAX package's paths, and the
+    four entry points answer ``--help`` in a fresh interpreter that pulls in
+    neither JAX, the JAX package nor ml_dtypes."""
+    for rel in CONTROL_PLANE:
+        assert (PKG / rel).is_file(), rel
+        assert (ROOT / "analytics_zoo_tpu" / rel).is_file(), rel
+    code = (
+        "import contextlib, io, json, runpy, sys\n"
+        "for m in ('stack', 'fleet', 'hostagent', 'cli'):\n"
+        "    sys.argv = [m, '--help']\n"
+        "    with contextlib.redirect_stdout(io.StringIO()):\n"
+        "        try:\n"
+        "            runpy.run_module('analytics_zoo_tpu_torch.serving.' + m,"
+        " run_name='__main__')\n"
+        "        except SystemExit as e:\n"
+        "            assert e.code == 0, (m, e.code)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'analytics_zoo_tpu', 'ml_dtypes'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_every_spawned_command_names_the_port():
+    """The supervisor, the host agents' launcher and the CLI start
+    ``python -m <module>`` subprocesses: every such module path is the
+    port's, never the JAX package's, and each names a module that exists."""
+    seen = set()
+    for rel in ("serving/fleet.py", "serving/hostagent.py",
+                "serving/cli.py", "serving/stack.py"):
+        tree = ast.parse((PKG / rel).read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.List) and len(node.elts) >= 3 and \
+                    isinstance(node.elts[1], ast.Constant) and \
+                    node.elts[1].value == "-m":
+                mod = node.elts[2]
+                assert isinstance(mod, ast.Constant), (rel, ast.dump(mod))
+                assert mod.value.startswith("analytics_zoo_tpu_torch."), \
+                    (rel, mod.value)
+                assert (ROOT / (mod.value.replace(".", "/") + ".py")
+                        ).is_file(), mod.value
+                seen.add(mod.value)
+    assert seen == {"analytics_zoo_tpu_torch.serving.fleet",
+                    "analytics_zoo_tpu_torch.serving.hostagent",
+                    "analytics_zoo_tpu_torch.serving.broker"}
