@@ -17,7 +17,11 @@ package is tested against):
   (two draws from a split key, combined through the multiplier
   ``(2**16 mod span)**2 mod span`` in wrapping uint32 arithmetic) and
   ``jax.random.permutation`` (rounds of a stable sort on fresh 32-bit
-  keys, the round count set by the length).
+  keys, the round count set by the length);
+* :func:`uniform` and :func:`bernoulli` follow ``jax.random.uniform`` and
+  ``jax.random.bernoulli`` in float32 (the top 23 bits of each draw OR'd
+  into the bits of ``1.0``, minus 1, scaled; a draw is kept where that
+  float is ``< p``), the masks of training-mode dropout.
 
 Bulk draws run as int64 tensor arithmetic (every value kept in
 ``[0, 2**32)``) on the device the caller names.
@@ -181,5 +185,34 @@ def permutation(key, x: Union[int, torch.Tensor], device=None
     return vals
 
 
-__all__ = ["Key", "PRNGKey", "as_key", "bits_per_key", "fold_in", "permutation", "randint",
-           "random_bits", "split", "threefry2x32"]
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
+    23 bits of each 32-bit draw as the mantissa of a float in [1, 2),
+    minus 1, times ``maxval - minval``, plus ``minval`` (rounded once, as
+    XLA's fused multiply-add; floored at ``minval``)."""
+    bits = random_bits(key, shape, device)
+    one = 0x3F800000                           # the bits of 1.0f
+    floats = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32)
+    hi = torch.tensor(maxval, dtype=torch.float32)
+    if float(lo) == 0.0 and float(hi) == 1.0:
+        return floats
+    # XLA fuses ``floats * span + lo`` into one FMA (one rounding): the
+    # product of two float32s is exact in float64, so the sum rounds once
+    # there and once to float32, which gives the FMA's bits
+    span = (hi - lo).double().to(floats.device)
+    scaled = (floats.double() * span + lo.double().to(floats.device)).float()
+    return torch.maximum(lo.to(floats.device), scaled)
+
+
+def bernoulli(key, p: float, shape, device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a float ``p``: a bool
+    tensor, ``uniform(key, shape) < p`` with ``p`` as float32."""
+    return uniform(key, shape, device=device) < torch.tensor(
+        p, dtype=torch.float32, device=device)
+
+
+__all__ = ["Key", "PRNGKey", "as_key", "bernoulli", "bits_per_key",
+           "fold_in", "permutation", "randint", "random_bits", "split",
+           "threefry2x32", "uniform"]

@@ -6,11 +6,9 @@ with hand-rolled protobuf encoding of ``tensorflow.Event`` scalar
 messages (masked CRC32-C framing), its reader, and the
 ``TrainSummary``/``ValidationSummary`` pair the Estimator feeds. For the
 same ``(step, wall_time, scalars)`` both packages write the same bytes.
-
-Not ported: the ``zoo_summary_scalar`` gauge and the
-``zoo_summary_events_total`` counter that mirror every scalar into
-``common/telemetry.py`` (the training counters, ROADMAP Queue 1, item 8,
-step 7).
+Every scalar written is mirrored on the port's registry
+(``common/telemetry.py``): the ``zoo_summary_scalar{app,kind,tag}`` gauge
+holds its latest value and ``zoo_summary_events_total`` counts them.
 """
 
 from __future__ import annotations
@@ -20,6 +18,14 @@ import os
 import struct
 import time
 from typing import Dict, List, Optional, Tuple
+
+from . import telemetry as _tm
+
+_SUMMARY_SCALAR = _tm.gauge(
+    "zoo_summary_scalar", "Latest value of each Train/Validation summary tag",
+    labels=("app", "kind", "tag"))
+_SUMMARY_EVENTS = _tm.counter(
+    "zoo_summary_events_total", "Scalar events written to summary files")
 
 # ----------------------------------------------------------------------------- crc32c
 # TFRecord framing uses masked CRC32-C (Castagnoli). Table-driven implementation.
@@ -243,6 +249,10 @@ class Summary:
         clean = {k: float(v) for k, v in scalars.items()}
         self.writer.add_scalars(step, clean)
         self._jsonl.write(json.dumps({"step": step, "ts": time.time(), **clean}) + "\n")
+        for tag, v in clean.items():
+            _SUMMARY_SCALAR.labels(app=self.app_name, kind=self.kind,
+                                   tag=tag).set(v)
+        _SUMMARY_EVENTS.inc(len(clean))
         self.flush()
 
     def read_scalar(self, tag: str) -> List[Tuple[int, float]]:

@@ -19,12 +19,21 @@ constructors :meth:`~FeatureSet.from_numpy`, ``from_generator``,
 ``from_dataframe`` (duck-typed: anything with ``df[col].to_numpy()``;
 pandas is never imported) and ``from_bytes`` (a :class:`BytesFeatureSet`
 that decodes each batch's records through ``pipeline.decode_map``) are
-the JAX package's.
+the JAX package's, and so are ``from_tfrecord`` (tf.Example files read
+by ``data/tfrecord.py``), ``from_xshards`` (``data/xshards.py``) and
+``from_tf_dataset`` (duck-typed on ``as_numpy_iterator()``; tensorflow is
+never imported).
 
-Not ported: ``from_tf_dataset``, ``from_tfrecord`` and ``from_xshards``
-(they need ``data/tfrecord.py`` and ``data/xshards.py``; ROADMAP Queue 1,
-item 11), and multi-host sharding, ``from_host_shard`` (item 9): they
-raise.
+Each batch a FeatureSet yields counts in ``zoo_data_batches_total`` and
+times its host materialisation (gather, memmap reads and a byte tier's
+decode) in ``zoo_data_batch_gather_seconds``; a byte tier's decode alone
+is ``zoo_data_decode_seconds``: the JAX package's families on the port's
+registry (``common/telemetry.py``). An Estimator's first ``fit`` or
+``evaluate`` reads one batch fewer than the JAX package's, which draws
+one to trace its step (``engine/estimator.py``).
+
+Not ported: multi-host sharding, ``from_host_shard`` (ROADMAP Queue 1,
+[9] multi-GPU): it raises.
 """
 
 from __future__ import annotations
@@ -33,9 +42,23 @@ import itertools
 import math
 import os
 import tempfile
+import time
 from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from ..common import telemetry as _tm
+
+_DATA_BATCHES = _tm.counter("zoo_data_batches_total",
+                            "Host batches produced by FeatureSet iterators")
+_DATA_GATHER = _tm.histogram("zoo_data_batch_gather_seconds",
+                             "Host time to materialize one batch "
+                             "(gather/slice, memmap reads, AND per-record "
+                             "decode for byte-record tiers)")
+_DATA_DECODE = _tm.histogram("zoo_data_decode_seconds",
+                             "Per-batch record-decode time "
+                             "(BytesFeatureSet.decoder over the gathered "
+                             "records; subset of zoo_data_batch_gather_seconds)")
 
 
 class MemoryType:
@@ -174,28 +197,58 @@ class FeatureSet:
         return BytesFeatureSet(records, decoder, **kw)
 
     @classmethod
-    def from_tf_dataset(cls, *a, **kw):
-        raise NotImplementedError(
-            "FeatureSet.from_tf_dataset is not ported (ROADMAP Queue 1, "
-            "item 11)")
+    def from_tf_dataset(cls, dataset, max_elements: Optional[int] = None,
+                        **kw) -> "FeatureSet":
+        """Materialize an unbatched ``tf.data.Dataset`` (anything with
+        ``as_numpy_iterator()``) of tensors, ``(x, y)`` tuples or dicts:
+        the pipeline runs on the host once, at most ``max_elements``
+        elements."""
+        it = dataset.as_numpy_iterator()
+        if max_elements is not None:
+            it = itertools.islice(it, max_elements)
+        return cls(_stack_rows(list(it), "tf.data dataset"), **kw)
 
     @classmethod
-    def from_tfrecord(cls, *a, **kw):
-        raise NotImplementedError(
-            "FeatureSet.from_tfrecord needs data/tfrecord.py, which is not "
-            "ported (ROADMAP Queue 1, item 11)")
+    def from_tfrecord(cls, paths, feature_cols: Optional[Sequence[str]] = None,
+                      label_cols: Optional[Sequence[str]] = None,
+                      max_records: Optional[int] = None, **kw) -> "FeatureSet":
+        """tf.Example TFRecord file(s) as a FeatureSet. Without
+        ``feature_cols`` the tree is a dict of every feature; with them,
+        ``(x,)`` or ``(x, y)``, where several columns make a tuple and a
+        label column of width 1 is squeezed to ``(N,)``."""
+        from .tfrecord import read_tfrecord_examples
+
+        table = read_tfrecord_examples(paths, max_records=max_records)
+
+        def label(c):
+            arr = table[c]
+            return arr[:, 0] if (arr.ndim == 2 and arr.shape[1] == 1) else arr
+
+        if feature_cols is None:
+            return cls(table, **kw)
+        feats = tuple(table[c] for c in feature_cols)
+        x = feats[0] if len(feats) == 1 else feats
+        if not label_cols:
+            return cls((x,), **kw)
+        labels = tuple(label(c) for c in label_cols)
+        y = labels[0] if len(labels) == 1 else labels
+        return cls((x, y), **kw)
 
     @classmethod
-    def from_xshards(cls, *a, **kw):
-        raise NotImplementedError(
-            "FeatureSet.from_xshards needs data/xshards.py, which is not "
-            "ported (ROADMAP Queue 1, item 11)")
+    def from_xshards(cls, shards, **kw) -> "FeatureSet":
+        """The partitions of an :class:`~.xshards.XShards`, concatenated."""
+        from .xshards import XShards
+
+        if not isinstance(shards, XShards):
+            raise TypeError(f"from_xshards wants an XShards, got "
+                            f"{type(shards).__name__}")
+        return cls(shards.collect_tree(), **kw)
 
     @classmethod
     def from_host_shard(cls, *a, **kw):
         raise NotImplementedError(
             "multi-host sharded ingest is multi-GPU work (ROADMAP Queue 1, "
-            "item 9)")
+            "[9] multi-GPU)")
 
     # ----------------------------------------------------------------- internals
     def _to_memmap(self, arr: np.ndarray, i: int) -> np.ndarray:
@@ -239,7 +292,24 @@ class FeatureSet:
                 drop_remainder: bool = True) -> Iterator:
         """Yield every batch of the epoch as a tree of numpy arrays, in the
         epoch's shuffled order (or in order: slices of the data),
-        remainder dropped unless ``drop_remainder=False``."""
+        remainder dropped unless ``drop_remainder=False``. Each batch
+        counts in ``zoo_data_batches_total`` and its host time in
+        ``zoo_data_batch_gather_seconds``."""
+        inner = self._iter_batches(batch_size, epoch=epoch, shuffle=shuffle,
+                                   drop_remainder=drop_remainder)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                b = next(inner)
+            except StopIteration:
+                return
+            _DATA_GATHER.observe(time.perf_counter() - t0)
+            _DATA_BATCHES.inc()
+            yield b
+
+    def _iter_batches(self, batch_size: int, *, epoch: int = 0,
+                      shuffle: bool = True,
+                      drop_remainder: bool = True) -> Iterator:
         nb = self.num_batches(batch_size, drop_remainder)
         if not shuffle:
             for b in range(nb):
@@ -266,7 +336,10 @@ class FeatureSet:
             raise IndexError(
                 f"row_slice indices out of range [0, {self._n_total}): "
                 f"min={sel.min()} max={sel.max()}")
-        return _tree_map(lambda a: self._gather(a, sel), self.data)
+        t0 = time.perf_counter()
+        out = _tree_map(lambda a: self._gather(a, sel), self.data)
+        _DATA_GATHER.observe(time.perf_counter() - t0)
+        return out
 
     def _slice_bounds(self, num_slices: Optional[int]) -> List[slice]:
         k = num_slices or self.num_slices
@@ -311,20 +384,23 @@ class BytesFeatureSet(FeatureSet):
         self.decoder = decoder
         self.decode_workers = decode_workers
 
-    def batches(self, batch_size: int, *, epoch: int = 0,
-                shuffle: bool = True,
-                drop_remainder: bool = True) -> Iterator:
+    def _iter_batches(self, batch_size: int, *, epoch: int = 0,
+                      shuffle: bool = True,
+                      drop_remainder: bool = True) -> Iterator:
         from .pipeline import decode_map
 
-        for (raw,) in super().batches(batch_size, epoch=epoch,
-                                      shuffle=shuffle,
-                                      drop_remainder=drop_remainder):
+        for (raw,) in super()._iter_batches(batch_size, epoch=epoch,
+                                            shuffle=shuffle,
+                                            drop_remainder=drop_remainder):
+            t0 = time.perf_counter()
             rows = decode_map(self.decoder, raw, self.decode_workers)
             first = rows[0]
             if isinstance(first, (dict, tuple, list)):
-                yield _stack_rows(rows, "decoder")
+                out = _stack_rows(rows, "decoder")
             else:
-                yield (np.stack(rows),)
+                out = (np.stack(rows),)
+            _DATA_DECODE.observe(time.perf_counter() - t0)
+            yield out
 
     def slices(self, num_slices: Optional[int] = None) -> List["FeatureSet"]:
         """Sub-epoch slices of the raw records; each keeps the decoder."""

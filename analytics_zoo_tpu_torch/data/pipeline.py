@@ -15,11 +15,12 @@ producers feeding a bounded queue, and the pinned-memory copy to the card.
   (a pinned staging copy, then ``non_blocking`` on a side stream, an event
   the consuming stream waits on), and :func:`device_prefetch` over it.
 
-The JAX package's producer-stall and consumer-wait histograms and its
-``zoo_data_prefetch_queue_depth`` gauge are not ported yet: they come with
-the training counters (ROADMAP Queue 1, item 8, step 7; the registry
-they report to, ``common/telemetry.py``, is ported).
-:meth:`PrefetchLoader.queue_depth` stands in for the gauge.
+Telemetry, the JAX package's families on the port's registry
+(``common/telemetry.py``): ``zoo_data_prefetch_producer_stall_seconds``
+(a put that found the queue full, timed until it lands),
+``zoo_data_prefetch_consumer_wait_seconds`` (every get from the queue,
+the end-of-epoch sentinel's included) and the scrape-time collector
+``zoo_data_prefetch_queue_depth`` (batches buffered across live loaders).
 """
 
 from __future__ import annotations
@@ -28,12 +29,35 @@ import itertools
 import os
 import queue
 import threading
+import time
+import weakref
 from typing import Any, Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
+from ..common import telemetry as _tm
 from ..common.chaos import chaos_point
+
+_STALL = _tm.histogram(
+    "zoo_data_prefetch_producer_stall_seconds",
+    "Producer time blocked on a full prefetch queue (consumer-bound pipeline)")
+_WAIT = _tm.histogram(
+    "zoo_data_prefetch_consumer_wait_seconds",
+    "Consumer time blocked on an empty prefetch queue (producer-bound "
+    "pipeline)")
+
+# every live loader, for the scrape-time queue-depth collector
+_LIVE_LOADERS: "weakref.WeakSet[PrefetchLoader]" = weakref.WeakSet()
+
+
+def _queue_depth_samples():
+    return [((), float(sum(l.queue_depth() for l in list(_LIVE_LOADERS))))]
+
+
+_tm.collector("zoo_data_prefetch_queue_depth",
+              "Batches currently buffered across live PrefetchLoaders",
+              _queue_depth_samples)
 
 _END = object()           # producer sentinel: source exhausted
 
@@ -89,6 +113,7 @@ class PrefetchLoader:
         self._iterated = False
         self._q: Optional[queue.Queue] = None
         self._thread: Optional[threading.Thread] = None
+        _LIVE_LOADERS.add(self)
         if self.depth == 0:        # synchronous control path: no thread
             return
         self._q = queue.Queue(maxsize=self.depth)
@@ -113,10 +138,18 @@ class PrefetchLoader:
             self._enqueue(_WorkerError(e))
 
     def _enqueue(self, item) -> bool:
-        """Stop-aware bounded put."""
+        """Stop-aware bounded put; the time a full queue holds it is the
+        stall."""
+        try:
+            self._q.put_nowait(item)
+            return True
+        except queue.Full:
+            pass
+        t0 = time.perf_counter()
         while not self._stop.is_set():
             try:
                 self._q.put(item, timeout=0.05)
+                _STALL.observe(time.perf_counter() - t0)
                 return True
             except queue.Full:
                 continue
@@ -135,6 +168,7 @@ class PrefetchLoader:
                 yield self._put(hb) if self._put is not None else hb
             return
         while True:
+            t0 = time.perf_counter()
             while True:
                 try:
                     item = self._q.get(timeout=0.5)
@@ -152,6 +186,7 @@ class PrefetchLoader:
                             raise RuntimeError(
                                 "prefetch producer died without a result "
                                 f"(thread {self._thread.name})") from None
+            _WAIT.observe(time.perf_counter() - t0)
             if item is _END:
                 return
             if isinstance(item, _WorkerError):

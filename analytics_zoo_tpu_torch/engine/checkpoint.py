@@ -42,9 +42,11 @@ returns ``[(leaf_index, idx, rows)]`` for
 ``InferenceModel.apply_row_delta``. :func:`param_tree_signature` is the
 ``(shape, dtype)`` digest a swap is validated by.
 
-Not ported: the ``zoo_train_checkpoint_snapshot_seconds`` /
-``..._write_seconds`` histograms (the training counters, ROADMAP Queue 1,
-item 8, step 7); :data:`timings` keeps the same two durations.
+Each snapshot's seconds land in ``zoo_train_checkpoint_snapshot_seconds``
+and each write's (checkpoint or row delta) in
+``zoo_train_checkpoint_write_seconds``, the JAX package's histograms on
+the port's registry; :data:`timings` keeps the same two durations as
+lists.
 """
 
 from __future__ import annotations
@@ -61,7 +63,18 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..common import telemetry as _tm
 from ..common.chaos import chaos_point
+
+_SNAPSHOT_TIME = _tm.histogram(
+    "zoo_train_checkpoint_snapshot_seconds",
+    "Device→host state-snapshot time — the only checkpoint cost the hot "
+    "loop pays in async mode")
+_WRITE_TIME = _tm.histogram(
+    "zoo_train_checkpoint_write_seconds",
+    "Checkpoint serialization + fsync + atomic-rename time (background "
+    "zoo-ckpt-write thread in async mode)",
+    buckets=(0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30))
 
 _CKPT_RE = re.compile(r"^checkpoint_(\d+)$")
 _DELTA_RE = re.compile(r"^rowdelta_(\d+)$")
@@ -207,7 +220,9 @@ def snapshot_state(state: Any) -> Snapshot:
     if on_card:
         ready = torch.cuda.Event()
         ready.record()
-    timings["snapshot"].append(time.perf_counter() - t0)
+    dt = time.perf_counter() - t0
+    timings["snapshot"].append(dt)
+    _SNAPSHOT_TIME.observe(dt)
     return Snapshot(host, dtypes, ready)
 
 
@@ -334,7 +349,9 @@ def _write_snapshot(directory: str, snap: Snapshot, meta: Dict,
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     finally:
-        timings["write"].append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        timings["write"].append(dt)
+        _WRITE_TIME.observe(dt)
     _gc(directory, keep)
     _announce(on_durable, path, manifest)
     return path
@@ -697,7 +714,9 @@ def save_row_delta(directory: str, params: Any, base_path: str, *,
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     finally:
-        timings["write"].append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        timings["write"].append(dt)
+        _WRITE_TIME.observe(dt)
     _gc(directory, keep)
     _announce(on_durable, path, manifest)
     return path

@@ -69,7 +69,33 @@ scalars (``Loss``, ``Throughput``, ``GradNorm``, ``DataWaitMs``,
 ``chaos_point("estimator.step")`` marks every step (every block of the
 device-cached path).
 
-Not ported yet (ROADMAP Queue 1): meshes and sharded updates (item 9).
+The Estimator reads the process's runtime context
+(``common/context.py::init_zoo_context``) when one was initialised: its
+mesh (a mesh of more than one device raises, multi-GPU being ROADMAP
+Queue 1, [9]) and its process index (process 0 writes the checkpoints).
+With none it makes none, and trains alone on its own device.
+``TrainConfig(donate_state=False)`` keeps the pre-step parameter tensors
+alive: a step installs its new parameters as new tensors instead of
+writing into the old ones (same bits).
+
+Telemetry: the JAX Estimator's families, on the port's registry
+(``common/telemetry.py``), with its names, labels and counts:
+``zoo_train_steps_total``, ``zoo_train_data_wait_seconds`` (each streamed
+batch's wait), ``zoo_train_compute_seconds`` and ``zoo_train_grad_norm``
+(each log point), ``zoo_train_rollbacks_total``,
+``zoo_train_checkpoints_total``, ``zoo_train_sigterm_exits_total`` and
+``zoo_train_comm_seconds`` (a dp axis above 1 only, so never on one
+card). ``zoo_train_compiles_total`` and ``zoo_train_compile_seconds``
+count XLA compiles in the JAX package, which the port does not have:
+here they record the first step of each new batch signature (shapes and
+dtypes; a scan block's shape on the device-cached path), which is where
+JAX compiles, timed to the device's finish: in the port that first step
+pays lazy kernel builds, library handles and allocator growth. Their
+counts are JAX's on the same run. The FeatureSet's
+``zoo_data_batches_total`` and ``zoo_data_batch_gather_seconds`` count
+one batch fewer than JAX's for an Estimator's first ``fit`` or
+``evaluate``: the JAX Estimator draws one host batch there to trace its
+step, the port builds its state without one.
 """
 
 from __future__ import annotations
@@ -87,7 +113,9 @@ import torch
 
 from .. import bridge
 from ..common import prng
+from ..common import telemetry as _tm
 from ..common.chaos import chaos_point
+from ..common.context import ZooContext, get_zoo_context
 from ..common.config import TrainConfig, check_ported
 from ..common.resilience import ResilienceError, RetryPolicy
 from ..common.summary import TrainSummary, ValidationSummary
@@ -105,6 +133,38 @@ from . import checkpoint as ckpt
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.estimator")
 
+_STEPS = _tm.counter("zoo_train_steps_total", "Optimizer steps run")
+_DATA_WAIT = _tm.histogram("zoo_train_data_wait_seconds",
+                           "Per-step host wait on the input pipeline")
+_COMPUTE = _tm.histogram("zoo_train_compute_seconds",
+                         "Per-step dispatch + device time (window mean, "
+                         "synced at log points)")
+_COMPILES = _tm.counter("zoo_train_compiles_total",
+                        "Train-step executables built (first dispatch of a "
+                        "jitted step/scan-block)")
+_COMPILE_TIME = _tm.histogram("zoo_train_compile_seconds",
+                              "Wall time of first-dispatch (compile) steps",
+                              buckets=(0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30,
+                                       60, 120))
+_ROLLBACKS = _tm.counter("zoo_train_rollbacks_total",
+                         "Checkpoint rollbacks taken by fit's retry loop")
+_CHECKPOINTS = _tm.counter("zoo_train_checkpoints_total",
+                           "Checkpoints saved")
+_SIGTERM_EXITS = _tm.counter("zoo_train_sigterm_exits_total",
+                             "Graceful SIGTERM teardowns (final checkpoint "
+                             "+ exit 143)")
+_GRAD_NORM = _tm.histogram("zoo_train_grad_norm",
+                           "f32 global (pre-clip) gradient L2 norm, observed "
+                           "at log points",
+                           buckets=(0.001, 0.01, 0.1, 0.5, 1, 2.5, 5, 10, 25,
+                                    100, 1000))
+_COMM = _tm.histogram("zoo_train_comm_seconds",
+                      "Measured one-round gradient-exchange time (param-sized "
+                      "collective probe on the dp axis, timed off the hot "
+                      "path at each log point)",
+                      buckets=(.0001, .0005, .001, .0025, .005, .01, .025,
+                               .05, .1, .25, 1))
+
 
 class _GracefulStop(BaseException):
     """Raised at the next step after SIGTERM requested a clean exit; a
@@ -117,6 +177,14 @@ def _as_featureset(data) -> FeatureSet:
     if isinstance(data, tuple) and len(data) == 2:
         return FeatureSet.from_numpy(data[0], data[1])
     raise TypeError(f"cannot build FeatureSet from {type(data)}")
+
+
+def _context() -> Optional[ZooContext]:
+    """The process's runtime context if one was initialised, else None."""
+    try:
+        return get_zoo_context(auto_init=False)
+    except RuntimeError:
+        return None
 
 
 def _model_device(model) -> Optional[torch.device]:
@@ -135,21 +203,29 @@ class Estimator:
     def __init__(self, model, optimizer="adam", loss="mse", mesh=None,
                  config: Optional[TrainConfig] = None, param_sharding=None,
                  *, device=None):
-        if mesh is not None or param_sharding is not None:
-            raise NotImplementedError(
-                "mesh / param_sharding: the port trains on one card "
-                "(multi-GPU is ROADMAP Queue 1, item 9)")
         self.model = model
         self.loss_fn = get_loss(loss)
         self.config = check_ported(config or TrainConfig())
         self.device = resolve_device(device if device is not None
                                      else getattr(model, "device", None))
+        ctx = _context()
+        self.mesh = mesh if mesh is not None or ctx is None else ctx.mesh
+        if (self.mesh is not None and getattr(self.mesh, "size", 0) != 1) \
+                or param_sharding is not None:
+            raise NotImplementedError(
+                f"mesh {getattr(self.mesh, 'shape', self.mesh)} / "
+                f"param_sharding: the port trains on one card (multi-GPU "
+                f"is ROADMAP Queue 1, [9])")
         have = _model_device(model)
         if have is not None and have.type != self.device.type:
             raise ValueError(f"the model's parameters live on {have}, the "
                              f"Estimator runs on {self.device}")
         self._base_tx = get_optimizer(optimizer)
         self._takes_rng = "rng" in inspect.signature(model.apply).parameters
+        # first-dispatch signatures: the streamed steps' batches, the
+        # device-cached scan blocks' shapes
+        self._step_shapes: set = set()
+        self._scan_shapes: set = set()
         self.train_state: Optional[Dict[str, Any]] = None
         self.trainer_state = TrainerState()
         #: one entry per log point: epoch, iteration, loss, grad_norm and
@@ -296,8 +372,12 @@ class Estimator:
         new = updates if self._mp_dtype is not None else apply_updates(
             values, updates)
         with torch.no_grad():
-            for n, p in params.items():
-                p.copy_(new[n])
+            if self.config.donate_state:
+                for n, p in params.items():
+                    p.copy_(new[n])
+            else:                       # the pre-step tensors stay as they were
+                for n, p in params.items():
+                    p.data = new[n]
         self.train_state = {"opt_state": new_opt, "step": ts["step"] + 1,
                             "rng": ts["rng"]}
         return loss, gnorm
@@ -355,7 +435,9 @@ class Estimator:
             while not end_trigger(self.trainer_state):
                 try:
                     if (cfg.cache_on_device and train_set.memory_type
-                            == "DRAM" and not hasattr(train_set, "decoder")):
+                            == "DRAM" and not hasattr(train_set, "decoder")
+                            and getattr(_context(), "process_count",
+                                        1) == 1):
                         self._run_epoch_cached(train_set, batch_size,
                                                checkpoint_trigger)
                     else:
@@ -379,6 +461,7 @@ class Estimator:
                     logger.warning("step failed (%s); retry %d/%d from %s "
                                    "in %.2fs", e, tracker.attempts,
                                    cfg.retry_times, latest, delay)
+                    _ROLLBACKS.inc()
                     if delay > 0:
                         time.sleep(delay)
                     self._restore(latest)
@@ -390,6 +473,7 @@ class Estimator:
             self._drain_checkpoints()
         except _GracefulStop:
             self._sync()
+            _SIGTERM_EXITS.inc()
             if cfg.checkpoint_dir:
                 self._save(cfg.checkpoint_dir, durable=True,
                            raise_drain_errors=False)
@@ -454,7 +538,11 @@ class Estimator:
         writes on the writer thread when ``async_checkpoint``; a durable
         save (epoch ends, SIGTERM) drains the writer and writes before it
         returns. ``raise_drain_errors=False`` forfeits an earlier failed
-        async write instead of raising it."""
+        async write instead of raising it. Only process 0 writes (it
+        returns ``None`` elsewhere)."""
+        if getattr(_context(), "process_index", 0) != 0:
+            return None
+        _CHECKPOINTS.inc()
         writer = None
         if self.config.async_checkpoint and not durable:
             if self._ckpt_writer is None:
@@ -512,9 +600,11 @@ class Estimator:
                    win_steps: int, win_data: float) -> None:
         """One history record (and train-summary event): the loss and
         gradient norm (this syncs), the epoch's records per second so far,
-        and the window's per-step data and compute milliseconds."""
+        and the window's per-step data and compute milliseconds (observed
+        in ``zoo_train_grad_norm`` and ``zoo_train_compute_seconds``)."""
         ts = self.trainer_state
         loss_val, gnorm_val = float(loss), float(gnorm)
+        _GRAD_NORM.observe(gnorm_val)
         ts.last_loss = loss_val
         now = time.perf_counter()
         rec = {"epoch": ts.epoch, "iteration": ts.iteration,
@@ -522,6 +612,7 @@ class Estimator:
                "data_ms": win_data / win_steps * 1e3,
                "compute_ms": max(0.0, now - win_t0 - win_data)
                / win_steps * 1e3}
+        _COMPUTE.observe(rec["compute_ms"] / 1e3)
         self.history.append(rec)
         if self.train_summary:
             self.train_summary.add_scalars(ts.iteration, {
@@ -533,7 +624,8 @@ class Estimator:
                     loss_val, gnorm_val, rec["data_ms"], rec["compute_ms"])
 
     def _finish_epoch(self, t0: float, seen: int, loss, batch_size: int,
-                      data_wait_s: float = 0.0) -> None:
+                      data_wait_s: float = 0.0,
+                      compile_s: float = 0.0) -> None:
         """The epoch's summary event, its counters, then a durable save."""
         ts = self.trainer_state
         if loss is not None:
@@ -544,7 +636,8 @@ class Estimator:
                 self.train_summary.add_scalars(ts.iteration, {
                     "Loss": ts.last_loss, "Throughput": seen / max(dt, 1e-9),
                     "DataWaitMs": data_wait_s / steps * 1e3,
-                    "ComputeMs": max(0.0, dt - data_wait_s) / steps * 1e3})
+                    "ComputeMs": max(0.0, dt - data_wait_s - compile_s)
+                    / steps * 1e3})
         ts.epoch += 1
         ts.records_processed += seen
         if self.config.checkpoint_dir:
@@ -560,6 +653,7 @@ class Estimator:
         loss = None
         t0 = time.perf_counter()
         win_t0, win_steps, win_data, epoch_data = t0, 0, 0.0, 0.0
+        epoch_compile = 0.0
         with self._device_batches(train_set, batch_size, epoch=ts.epoch,
                                   shuffle=cfg.shuffle) as it:
             while True:
@@ -571,9 +665,18 @@ class Estimator:
                 dw = time.perf_counter() - td
                 win_data += dw
                 epoch_data += dw
+                _DATA_WAIT.observe(dw)
                 self._check_interrupt()
                 chaos_point("estimator.step")
+                key = _batch_signature(batch)
+                t_step = time.perf_counter()
                 loss, gnorm = self._step(batch)
+                if key not in self._step_shapes:
+                    compile_s = self._first_dispatch(key, self._step_shapes,
+                                                     t_step)
+                    epoch_compile += compile_s
+                    win_t0 += compile_s
+                _STEPS.inc()
                 self.last_grad_norm = gnorm
                 ts.iteration += 1
                 win_steps += 1
@@ -583,7 +686,19 @@ class Estimator:
                                     win_steps, win_data)
                     win_t0, win_steps, win_data = time.perf_counter(), 0, 0.0
                 self._maybe_save(checkpoint_trigger)
-        self._finish_epoch(t0, seen, loss, batch_size, epoch_data)
+        self._finish_epoch(t0, seen, loss, batch_size, epoch_data,
+                           epoch_compile)
+
+    def _first_dispatch(self, key, seen_keys: set, t_start: float) -> float:
+        """A new batch signature's first step (where the JAX package
+        compiles): wait for the device, then count it and time it in
+        ``zoo_train_compiles_total``/``zoo_train_compile_seconds``."""
+        self._sync()
+        seen_keys.add(key)
+        compile_s = time.perf_counter() - t_start
+        _COMPILES.inc()
+        _COMPILE_TIME.observe(compile_s)
+        return compile_s
 
     def _device_batches(self, data: FeatureSet, batch_size: int, **kw):
         """``data.batches(batch_size, **kw)`` on the device through
@@ -640,6 +755,7 @@ class Estimator:
         loss = None
         t0 = time.perf_counter()
         win_t0, win_steps = t0, 0
+        epoch_compile = 0.0
         every = cfg.log_every_n_steps
 
         def take(s):
@@ -649,8 +765,16 @@ class Estimator:
         for b in range(n_blocks):
             self._check_interrupt()
             chaos_point("estimator.step")
+            t_blk = time.perf_counter()
             for s in range(b * block, (b + 1) * block):
                 loss, gnorm = self._step(take(s))
+            scan_key = (block, batch_size)
+            if scan_key not in self._scan_shapes:
+                compile_s = self._first_dispatch(scan_key, self._scan_shapes,
+                                                 t_blk)
+                epoch_compile += compile_s
+                win_t0 += compile_s
+            _STEPS.inc(block)
             self.last_grad_norm = gnorm
             win_steps += block
             ts.iteration += block
@@ -664,11 +788,19 @@ class Estimator:
         for s in range(n_blocks * block, n_steps):
             self._check_interrupt()
             chaos_point("estimator.step")
-            loss, self.last_grad_norm = self._step(take(s))
+            batch = take(s)
+            key = _batch_signature(batch)
+            t_step = time.perf_counter()
+            loss, self.last_grad_norm = self._step(batch)
+            if key not in self._step_shapes:
+                epoch_compile += self._first_dispatch(key, self._step_shapes,
+                                                      t_step)
+            _STEPS.inc()
             ts.iteration += 1
             seen += batch_size
             self._maybe_save(checkpoint_trigger)
-        self._finish_epoch(t0, seen, loss, batch_size)
+        self._finish_epoch(t0, seen, loss, batch_size,
+                           compile_s=epoch_compile)
 
     # --------------------------------------------------------------- evaluate
     def evaluate(self, data, batch_size: int = 256,
@@ -709,6 +841,12 @@ class Estimator:
     @property
     def params(self) -> Optional[Dict[str, torch.Tensor]]:
         return {n: p.detach() for n, p in self._params().items()}
+
+
+def _batch_signature(batch) -> tuple:
+    """Shapes and dtypes of a batch's leaves: the key the JAX step
+    re-traces on."""
+    return tuple((tuple(a.shape), str(a.dtype)) for a in _tree_leaves(batch))
 
 
 def _tree_leading(tree) -> int:

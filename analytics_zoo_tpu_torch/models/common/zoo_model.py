@@ -28,6 +28,21 @@ import torch
 
 MODEL_REGISTRY: Dict[str, Callable] = {}
 
+#: the packages whose models register themselves, imported when a bundle
+#: names a class not registered yet
+_BUILTIN_MODELS = ("..recommendation", "..textclassification")
+
+
+def registered_model(name: str) -> Optional[Callable]:
+    """The class registered under ``name`` (the built-in models' packages
+    imported first when it is not registered yet)."""
+    if name not in MODEL_REGISTRY:
+        import importlib
+
+        for mod in _BUILTIN_MODELS:
+            importlib.import_module(mod, __package__)
+    return MODEL_REGISTRY.get(name)
+
 
 def register_model(name: str):
     def deco(cls):
@@ -119,7 +134,7 @@ def load_model_bundle(path: str, model=None, *, device=None):
     with open(os.path.join(path, "config.json")) as f:
         cfg = json.load(f)
     conf = cfg["config"]
-    if model is None and cfg["class"] not in MODEL_REGISTRY \
+    if model is None and registered_model(cfg["class"]) is None \
             and "model_name" in conf:
         from ..image.backbones import build_backbone
 
@@ -129,7 +144,7 @@ def load_model_bundle(path: str, model=None, *, device=None):
         load_weights(path, model)
         return model, cfg
     if model is None:
-        cls = MODEL_REGISTRY.get(cfg["class"])
+        cls = registered_model(cfg["class"])
         if cls is None:
             raise ValueError(
                 f"unknown model class {cfg['class']!r}; pass model= "
@@ -140,4 +155,5 @@ def load_model_bundle(path: str, model=None, *, device=None):
 
 
 __all__ = ["MODEL_REGISTRY", "load_model_bundle", "load_weights",
-           "register_model", "save_model_bundle", "save_weights"]
+           "register_model", "registered_model", "save_model_bundle",
+           "save_weights"]

@@ -1,13 +1,15 @@
 """ImageClassifier (port of ``analytics_zoo_tpu/models/image/
 classification.py``): a named backbone, its label map and top-n, with
-``predict`` over arrays, and ``save_model``/``load_model`` as a weight
-bundle in the JAX package's format (its config holds the model name,
-input shape, class count and label map).
+``predict`` over arrays, ``predict_image_set`` over an ``ImageSet``
+(``ImagenetConfig.preprocessing()``: resize, center crop and channel-mean
+normalisation on the host, then the top-n ``(label, probability)`` lists),
+and ``save_model``/``load_model`` as a weight bundle in the JAX package's
+format (its config holds the model name, input shape, class count and
+label map).
 
-Not ported: training (``compile``/``fit``: BatchNormalization's training
-mode) and the ``ImageSet`` paths (``predict_image_set``, ``fit_image_set``,
-the ImagenetConfig preprocessing chain), which need ``data/image.py``
-(ROADMAP Queue 1, item 11).
+Not ported: training (``compile``/``fit``/``fit_image_set``), which needs
+BatchNormalization's training mode (ROADMAP Queue 1, [11], its layers
+item).
 """
 
 from __future__ import annotations
@@ -17,10 +19,26 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...data.image import (ImageCenterCrop, ImageChannelNormalize,
+                           ImageResize, ImageSet)
 from ..common.zoo_model import load_weights, save_model_bundle
 from .backbones import build_backbone
 
-_ROADMAP = "ROADMAP Queue 1, item 11"
+
+class ImagenetConfig:
+    """The ImageNet preprocessing recipe: resize (256/224 of the crop by
+    default), center crop, subtract the channel means."""
+
+    MEANS = (123.68, 116.779, 103.939)
+
+    @staticmethod
+    def preprocessing(crop_h: int = 224, crop_w: int = 224,
+                      resize: Optional[int] = None):
+        if resize is None:
+            resize = max(crop_h, crop_w) * 256 // 224
+        return (ImageResize(resize, resize)
+                >> ImageCenterCrop(crop_h, crop_w)
+                >> ImageChannelNormalize(*ImagenetConfig.MEANS))
 
 
 class ImageClassifier:
@@ -60,11 +78,29 @@ class ImageClassifier:
         return np.concatenate(outs, axis=0) if outs else np.zeros(
             (0, self.num_classes), np.float32)
 
-    def predict_image_set(self, image_set, batch_size: int = 32):
-        raise NotImplementedError(f"ImageSet prediction ({_ROADMAP})")
+    def _preprocess_set(self, image_set: ImageSet) -> np.ndarray:
+        h, w, _ = self.input_shape
+        processed = image_set.transform(ImagenetConfig.preprocessing(h, w))
+        return np.stack([f.get_image().astype("float32")
+                         for f in processed.features])
+
+    def predict_image_set(self, image_set: ImageSet, batch_size: int = 32):
+        """Per image, the top-n ``(class index or label, probability)``
+        pairs, after ``ImagenetConfig.preprocessing`` at the model's input
+        size."""
+        probs = self.predict(self._preprocess_set(image_set), batch_size)
+        order = np.argsort(-probs, axis=1)[:, :self.top_n]
+        results = []
+        for row, idx in zip(probs, order):
+            labels = [self.label_map[i] if self.label_map else int(i)
+                      for i in idx]
+            results.append(list(zip(labels, row[idx].tolist())))
+        return results
 
     def fit_image_set(self, image_set, labels=None, **kw):
-        raise NotImplementedError(f"ImageSet training ({_ROADMAP})")
+        raise NotImplementedError(
+            "ImageSet training needs BatchNormalization's training mode "
+            "(ROADMAP Queue 1, [11], its layers item)")
 
     def save_model(self, path: str):
         save_model_bundle(path, self.model, config={
@@ -89,4 +125,4 @@ class ImageClassifier:
         return clf
 
 
-__all__ = ["ImageClassifier"]
+__all__ = ["ImageClassifier", "ImagenetConfig"]

@@ -15,7 +15,10 @@ A container builds its layers' parameters when it is made, on the CPU from
 reproduce JAX's), then moves them to ``device``: CUDA unless the caller
 names another, and with no CUDA and no device it raises. Containers start
 in inference mode (``eval()``), as JAX's ``apply`` defaults to
-``training=False``.
+``training=False``. ``apply(x, rng=key)`` splits the key as the JAX
+containers do (a graph into one key a node, a Sequential into one a
+layer) and hands each layer that draws randomness its own
+(``Layer.takes_rng``: ``Dropout``, nested containers).
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import torch
 
 from .layers.core import InputLayer
-from .module import Layer, resolve_device
+from .module import (Layer, call_layer, draws_rng, resolve_device,
+                     split_rng)
 
 _UIDS = itertools.count(1)
 
@@ -83,6 +87,8 @@ def _slot_key(i: int, layer: Layer) -> str:
 class GraphModule(Layer):
     """DAG of layers between ``inputs`` and ``outputs`` nodes."""
 
+    takes_rng = True
+
     def __init__(self, inputs: Union[Node, Sequence[Node]],
                  outputs: Union[Node, Sequence[Node]],
                  name: Optional[str] = None, *, device=None, seed: int = 0):
@@ -132,19 +138,21 @@ class GraphModule(Layer):
         shapes = [n.shape for n in self.output_nodes]
         return shapes[0] if self.single_output else shapes
 
-    def apply(self, x):
+    def apply(self, x, rng=None):
         xs = [x] if self.single_input else list(x)
         if len(xs) != len(self.input_nodes):
             raise ValueError(f"expected {len(self.input_nodes)} inputs, got "
                              f"{len(xs)}")
         values: Dict[int, Any] = {n.uid: v
                                   for n, v in zip(self.input_nodes, xs)}
+        rngs = iter(split_rng(rng if draws_rng(self) else None,
+                              len(self.nodes)))
         for node in self.nodes:
             if node.uid in values:
                 continue
             inp = (values[node.inbound[0].uid] if len(node.inbound) == 1
                    else [values[p.uid] for p in node.inbound])
-            values[node.uid] = node.layer(inp)
+            values[node.uid] = call_layer(node.layer, inp, next(rngs))
         outs = [values[n.uid] for n in self.output_nodes]
         return outs[0] if self.single_output else outs
 
@@ -155,6 +163,8 @@ class GraphModule(Layer):
 class SequentialModule(Layer):
     """Linear stack of layers; the first needs ``input_shape=``. Layers are
     built as they are added."""
+
+    takes_rng = True
 
     def __init__(self, layers: Optional[Sequence[Layer]] = None, name=None,
                  *, device=None, seed: int = 0):
@@ -189,9 +199,10 @@ class SequentialModule(Layer):
                 "Sequential; address its params by position instead")
         return _slot_key(hits[0], layer)
 
-    def apply(self, x):
-        for layer in self.layers:
-            x = layer(x)
+    def apply(self, x, rng=None):
+        keys = split_rng(rng if draws_rng(self) else None, len(self.layers))
+        for layer, key in zip(self.layers, keys):
+            x = call_layer(layer, x, key)
         return x
 
     def compute_output_shape(self, input_shape):

@@ -14,10 +14,14 @@ points, :meth:`~TransformerLayer.attn_qkv` (ln1 + fused QKV) and
 caller can checkpoint each segment while the attention call between them
 keeps its own saved tensors (``TransformerLM(remat="flash")``).
 
-Not ported yet: ``PositionalEmbedding``, ``BERT``, the mesh-sharded
-strategies (``ring``, ``zigzag``, ``ulysses``) and dropout: ``TransformerLM``
-builds its blocks with ``dropout=0.0``, and ``TransformerLayer`` raises for
-any other rate (ROADMAP Queue 1).
+``TransformerLayer(dropout=rate)`` drops the attention block's output in
+training mode (``train()``) when its ``apply`` is given a key, with the
+JAX layer's mask: ``prng.bernoulli(fold_in(rng, 1), 1 - rate)``
+(``layers.core.dropout``). ``TransformerLM`` builds its blocks without
+dropout, as the JAX model does.
+
+Not ported yet: ``PositionalEmbedding``, ``BERT`` and the mesh-sharded
+strategies (``ring``, ``zigzag``, ``ulysses``; ROADMAP Queue 1, [9]).
 """
 
 from __future__ import annotations
@@ -27,12 +31,14 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...common import prng
 from ...ops.attention import full_attention, prefer_flash_single_device
 from ...ops.flash_attention import flash_attention
 from ...ops.kv_cache import paged_write_multi
 from ...ops.paged_attention import paged_attention
 from ..activations import get_activation
 from ..module import as_compute, glorot_uniform, zeros_init
+from .core import dropout as _dropout
 from .normalization import LayerNormalization
 
 _STRATEGIES = ("auto", "full", "flash")
@@ -130,10 +136,7 @@ class TransformerLayer(nn.Module):
                  dropout: float = 0.0, attn_strategy: str = "auto", *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        if dropout:
-            raise NotImplementedError(
-                f"dropout={dropout}: training-mode dropout is not ported "
-                f"(ROADMAP Queue 1); TransformerLM builds its blocks with 0")
+        self.dropout = float(dropout)
         self.hidden_size = hidden_size
         self.intermediate = intermediate_size or 4 * hidden_size
         self.activation = get_activation(activation)
@@ -159,12 +162,19 @@ class TransformerLayer(nn.Module):
              + self.mlp_down_bias.to(x.dtype))
         return x + h
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.apply(x)
+    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
+        return self.apply(x, rng=rng)
 
-    def apply(self, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, x: torch.Tensor, rng=None) -> torch.Tensor:
+        """The block; in training mode with a ``dropout`` rate and a key,
+        the attention output is dropped with ``fold_in(rng, 1)``'s mask
+        before the residual (the JAX layer has no dropout without a
+        key)."""
         x = as_compute(x)
-        x = x + self.attn.apply(self.ln1(x))
+        a = self.attn.apply(self.ln1(x))
+        if self.training and self.dropout > 0 and rng is not None:
+            a = _dropout(a, self.dropout, prng.fold_in(rng, 1))
+        x = x + a
         return self._mlp(x)
 
     def attn_qkv(self, x: torch.Tensor) -> torch.Tensor:

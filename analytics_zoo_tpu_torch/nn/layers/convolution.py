@@ -1,6 +1,6 @@
 """Convolution and pooling layers (port of
-``analytics_zoo_tpu/nn/layers/convolution.py``): Convolution2D,
-MaxPooling2D, GlobalAveragePooling2D.
+``analytics_zoo_tpu/nn/layers/convolution.py``): Convolution1D,
+Convolution2D, MaxPooling2D, GlobalMaxPooling1D, GlobalAveragePooling2D.
 
 The data layout is NHWC and conv kernels are HWIO, as in the JAX package.
 SAME padding is TF-style (``lax.padtype_to_pads``): the extra pixel of an
@@ -8,7 +8,9 @@ odd total goes to the bottom/right, so asymmetric pads go through
 ``F.pad`` (torch's ``padding=`` is symmetric). A float conv runs through
 ``F.conv2d`` on an NCHW view of the NHWC tensor (the JAX package's
 ``lax.conv_general_dilated`` has no Pallas kernel either); a packed conv
-runs the int8 conv (``ops/int8.py``: K6 on the card).
+runs the int8 conv (``ops/int8.py``: K6 on the card). Convolution1D
+(the TextClassifier's encoder) takes (B, steps, dim) with a (length, in,
+out) kernel and runs ``F.conv1d`` on the transposed view.
 """
 
 from __future__ import annotations
@@ -91,6 +93,54 @@ class Convolution2D(Int8Kernel, Layer):
                        self.strides) + (self.filters,)
 
 
+class Convolution1D(Layer):
+    """1D conv over (B, steps, dim); ``border_mode`` 'valid' | 'same'
+    (TF-style SAME: the extra step of an odd total pad goes last)."""
+
+    def __init__(self, nb_filter: int, filter_length: int, activation=None,
+                 border_mode: str = "valid", subsample_length: int = 1,
+                 init="glorot_uniform", bias_init="zeros",
+                 use_bias: bool = True, name=None, input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.filters = int(nb_filter)
+        self.kernel_size = int(filter_length)
+        self.stride = int(subsample_length)
+        self.padding = border_mode.upper()
+        self.activation = get_activation(activation)
+        self.init = get_initializer(init)
+        self.bias_init = get_initializer(bias_init)
+        self.use_bias = use_bias
+
+    def build(self, input_shape, gen: torch.Generator) -> None:
+        self.kernel = nn.Parameter(self.init(
+            gen, (self.kernel_size, input_shape[-1], self.filters)))
+        if self.use_bias:
+            self.bias = nn.Parameter(self.bias_init(gen, (self.filters,)))
+        self.built = True
+
+    def apply(self, x):
+        x = as_compute(x)
+        xc = x.transpose(1, 2)                               # (B, dim, steps)
+        if self.padding == "SAME":
+            n = x.shape[1]
+            out = -(-n // self.stride)
+            total = max((out - 1) * self.stride + self.kernel_size - n, 0)
+            xc = F.pad(xc, (total // 2, total - total // 2))
+        w = self.kernel.to(x.dtype).permute(2, 1, 0)         # (out, in, K)
+        y = F.conv1d(xc, w, stride=self.stride).transpose(1, 2)
+        if self.use_bias:
+            y = y + self.bias.to(x.dtype)
+        return self.activation(y)
+
+    def compute_output_shape(self, input_shape):
+        steps, _ = input_shape
+        if self.padding == "SAME":
+            out = -(-steps // self.stride)
+        else:
+            out = (steps - self.kernel_size) // self.stride + 1
+        return (out, self.filters)
+
+
 class MaxPooling2D(Layer):
     """Max pooling, NHWC; SAME pads with -inf (``reduce_window``'s init)."""
 
@@ -129,4 +179,15 @@ class GlobalAveragePooling2D(Layer):
         return (input_shape[-1],)
 
 
-__all__ = ["Convolution2D", "GlobalAveragePooling2D", "MaxPooling2D"]
+class GlobalMaxPooling1D(Layer):
+    """Max over the steps of (B, steps, dim)."""
+
+    def apply(self, x):
+        return x.amax(dim=1)
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[-1],)
+
+
+__all__ = ["Convolution1D", "Convolution2D", "GlobalAveragePooling2D",
+           "GlobalMaxPooling1D", "MaxPooling2D"]

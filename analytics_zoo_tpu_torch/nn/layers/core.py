@@ -1,5 +1,5 @@
-"""Core layers: InputLayer, Dense, SparseDense, Select, Narrow, Activation
-and Lambda (port of ``analytics_zoo_tpu/nn/layers/core.py``).
+"""Core layers: InputLayer, Dense, SparseDense, Select, Narrow, Activation,
+Dropout and Lambda (port of ``analytics_zoo_tpu/nn/layers/core.py``).
 
 Parameters keep the JAX names and layout: ``kernel`` (in, out) and
 ``bias``. After ``InferenceModel.quantize_int8`` packs a Dense, its
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...common import prng
 from ...ops.int8 import int8_matmul
 from ...ops.int8_fused import kernel_major
 from ..activations import get_activation
@@ -174,6 +175,42 @@ class Activation(Layer):
         return self.activation(as_compute(x))
 
 
+def dropout(x: torch.Tensor, rate: float, key) -> torch.Tensor:
+    """Inverted dropout with the JAX package's mask: keep where
+    ``prng.bernoulli(key, 1 - rate, x.shape)``, as ``x / keep`` in x's
+    dtype (``keep`` rounded to it, as JAX's weak-typed scalar is),
+    zero elsewhere. The mask is drawn on x's device: the same bits on
+    the card, the CPU and JAX."""
+    keep = 1.0 - rate
+    mask = prng.bernoulli(key, keep, x.shape, device=x.device)
+    kept = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, kept, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+
+
+class Dropout(Layer):
+    """Inverted dropout: the identity at inference; in training mode it
+    needs a key (``apply(x, rng=key)``, which a container or the Estimator
+    hands it) and raises without one. Starts in inference mode, as a JAX
+    layer's ``apply`` defaults to ``training=False``."""
+
+    takes_rng = True
+
+    def __init__(self, p: float, name: Optional[str] = None,
+                 input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.rate = float(p)
+        self.training = False
+
+    def apply(self, x, rng=None):
+        if not self.training or self.rate <= 0.0:
+            return x
+        if rng is None:
+            raise ValueError(f"{self.name}: dropout in training mode needs "
+                             f"an rng")
+        return dropout(x, self.rate, rng)
+
+
 class Lambda(Layer):
     """A torch function as a layer (autograd differentiates it):
     ``fn(x)``, or ``fn(*xs)`` over a list of inputs; ``output_shape_fn``
@@ -198,5 +235,5 @@ class Lambda(Layer):
         return input_shape
 
 
-__all__ = ["Activation", "Dense", "InputLayer", "Int8Kernel", "Lambda",
-           "Narrow", "Select", "SparseDense"]
+__all__ = ["Activation", "Dense", "Dropout", "InputLayer", "Int8Kernel",
+           "Lambda", "Narrow", "Select", "SparseDense", "dropout"]

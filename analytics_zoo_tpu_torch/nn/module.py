@@ -92,6 +92,16 @@ def as_compute(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def split_rng(rng, n: int):
+    """``n`` keys from ``rng`` (``jax.random.split``), or ``n`` Nones when
+    there is no key: how a container hands each layer its key."""
+    if rng is None:
+        return [None] * n
+    from ..common import prng
+
+    return prng.split(rng, n)
+
+
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     """The port's entry points run on the card unless the caller names
     another device. With no device given and no CUDA, raise: never drop to
@@ -196,7 +206,16 @@ class Layer(nn.Module):
     built. ``apply(x)`` is the forward (the JAX method name; it shadows
     ``nn.Module.apply(fn)``), so ``layer(tensor)`` runs it, while
     ``layer(node)`` on a graph :class:`~..graph.Node` connects the layer
-    into a functional graph, as in the JAX package."""
+    into a functional graph, as in the JAX package.
+
+    A layer that draws randomness in training (``Dropout``) sets
+    ``takes_rng`` and takes ``apply(x, rng=key)``; the containers split
+    their key among their layers as the JAX package's do, and hand each
+    such layer its share. Training mode is the module's ``training`` flag
+    (``train()``/``eval()``), the JAX ``apply(training=...)``."""
+
+    #: ``apply`` takes ``rng=`` (a :mod:`~..common.prng` key)
+    takes_rng = False
 
     def __init__(self, name: Optional[str] = None,
                  input_shape: Optional[Sequence[int]] = None):
@@ -213,8 +232,8 @@ class Layer(nn.Module):
     def apply(self, x):
         raise NotImplementedError
 
-    def forward(self, x):
-        return self.apply(x)
+    def forward(self, x, **kw):
+        return self.apply(x, **kw)
 
     def compute_output_shape(self, input_shape):
         return input_shape
@@ -228,7 +247,26 @@ class Layer(nn.Module):
         return super().__call__(x, *args, **kwargs)
 
 
-__all__ = ["Layer", "as_compute", "cast_params", "compute_dtype",
-           "embedding_normal", "get_initializer", "glorot_uniform",
-           "normal_init", "ones_init", "param_dtype", "precision_policy",
-           "resolve_device", "set_policy", "uniform_init", "zeros_init"]
+def draws_rng(layer) -> bool:
+    """Whether ``layer`` uses a key: a ``takes_rng`` layer, or a
+    container holding one (a container without one skips the split, whose
+    keys nothing would read)."""
+    if not getattr(layer, "takes_rng", False):
+        return False
+    inner = getattr(layer, "layers", None)
+    return inner is None or any(draws_rng(l) for l in inner)
+
+
+def call_layer(layer, x, rng):
+    """``layer(x)``, with ``rng=`` for a layer that takes a key."""
+    if getattr(layer, "takes_rng", False):
+        return layer(x, rng=rng)
+    return layer(x)
+
+
+__all__ = ["Layer", "as_compute", "call_layer", "cast_params",
+           "compute_dtype", "draws_rng", "embedding_normal",
+           "get_initializer",
+           "glorot_uniform", "normal_init", "ones_init", "param_dtype",
+           "precision_policy", "resolve_device", "set_policy", "split_rng",
+           "uniform_init", "zeros_init"]

@@ -9,7 +9,9 @@ package's format (``save_model`` / ``load_weights``,
 checkpoints (``set_checkpoint``), TensorBoard summaries
 (``set_tensorboard``, ``get_train_summary``, ``get_validation_summary``)
 and validation after each epoch of ``fit`` (``validation_data``, scored
-by the compiled metrics). Put it before ``nn.Module`` in the bases: its
+by the compiled metrics). ``fit``, ``evaluate`` and ``predict`` take a
+``TextSet`` or an ``ImageSet`` wherever they take arrays (its
+``to_arrays()``, as the JAX ``_unwrap_dataset``). Put it before ``nn.Module`` in the bases: its
 ``compile`` (the Keras one) shadows ``nn.Module.compile``.
 :class:`Sequential` and :class:`Model` are the graph containers of
 ``nn/graph.py`` with that API.
@@ -96,11 +98,12 @@ class KerasNet:
         ``(x, y)`` pair) is scored by the compiled metrics after each
         epoch."""
         self._require_compiled()
-        data = _featureset(x, y)
+        data = _featureset(*_unwrap_dataset(x, y))
         val = None
         if validation_data is not None:
-            val = _featureset(*((validation_data, None) if not isinstance(
-                validation_data, (tuple, list)) else validation_data))
+            val = _featureset(*_unwrap_dataset(*(
+                (validation_data, None) if not isinstance(
+                    validation_data, (tuple, list)) else validation_data)))
         self.estimator.fit(data, batch_size=batch_size, epochs=nb_epoch,
                            end_trigger=end_trigger, validation_data=val,
                            validation_metrics=getattr(self, "_metrics", ()),
@@ -113,7 +116,7 @@ class KerasNet:
         given, else the compiled ones, else ``("accuracy",)``; keyed by
         metric name (``"sparse_categorical_accuracy"``, ...)."""
         self._require_compiled()
-        data = _featureset(x, y)
+        data = _featureset(*_unwrap_dataset(x, y))
         if metrics is None:
             metrics = getattr(self, "_metrics", None) or ("accuracy",)
         return self.estimator.evaluate(data, batch_size=batch_size,
@@ -122,6 +125,7 @@ class KerasNet:
     def predict(self, x, batch_size: int = 256,
                 distributed: bool = True) -> np.ndarray:
         self._require_compiled()
+        x, _ = _unwrap_dataset(x, None)
         return self.estimator.predict(x, batch_size=batch_size)
 
     def predict_classes(self, x, batch_size: int = 256,
@@ -149,6 +153,18 @@ class KerasNet:
         if est is not None:
             est.reset_optimizer()
         return self
+
+
+def _unwrap_dataset(x, y):
+    """A TextSet or ImageSet as its ``(arrays, labels)`` (the labels
+    given win); anything else as it is."""
+    from ..data.image import ImageSet
+    from ..data.text import TextSet
+
+    if isinstance(x, (TextSet, ImageSet)):
+        xs, ys = x.to_arrays()
+        return xs, (ys if y is None else y)
+    return x, y
 
 
 def _featureset(x, y):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, int8 inference, NCF,
 Wide & Deep and session recommendation, checkpoint/resume,
-input-pipeline, serving data-plane and control-plane paths on one NVIDIA
-card.
+input-pipeline, serving data-plane and control-plane paths, and the
+runtime context, file and set data tiers and TextClassifier, on one
+NVIDIA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel checks only
@@ -321,6 +322,44 @@ Phases, each fatal on failure (no result line is printed then):
    48 Zipf(1.1) batches of 8192 ids: every gather byte-exact; hit rate,
    misses, evictions, gather ms. Prints the wall by part
    (``[control-plane]`` lines).
+18. files and sets to the card (``[files-sets]`` lines). (a)
+   ``init_zoo_context()`` on the card: one device, process 0 of 1, every
+   mesh axis 1; then a ``ClusterLauncher`` of 2 CPU workers on gloo
+   (``python -m analytics_zoo_tpu_torch.common.cluster``, logging to
+   files) passes a barrier as ranks 0 and 1 of 2 and exits 0. (b) phase
+   7's LM cell (bf16 with f32 masters, remat "flash", accumulation 2)
+   trained 2 optimizer steps from two TFRecord shards that
+   ``write_records``/``encode_example`` wrote, read by
+   ``FeatureSet.from_tfrecord`` under ``profile_steps`` (a Chrome trace
+   that must name the K1, K3 and K4 kernels) with one checkpoint and the
+   TensorBoard summaries, then from an ``XShards`` of the same tokens in 4
+   partitions (``FeatureSet.from_xshards``): each run's losses bit-identical
+   to the same batches fed as arrays from the same initial weights, K1 = K3
+   = K4 = 12 x 4 micro-steps a run (counts set to 0 before each), and the
+   training metrics (steps, checkpoints, snapshot and write times, summary
+   events, data batches, waits, log points, first dispatches, rollbacks,
+   SIGTERM exits) at this run's counts. (c) ``TransformerLayer(1024, 16,
+   causal, dropout=0.1)`` in training on (1, 256, 1024) f32, card vs CPU
+   within 1e-4, the dropout masks bit-identical (and a ``Dropout``
+   layer's). (d) ``TextClassifier`` at the news20 app's widths (sequence
+   500, embedding 200, cnn encoder of 256 filters, 20 classes, a
+   20000-word index) on 4096 seeded documents through ``TextSet``
+   (tokenize, normalize, word index, shape) and ``fit(TextSet)``, 2
+   epochs at batch 128: samples/s, step ms, peak memory, final loss; the
+   first 5 losses within 1e-4 of the same run on the CPU in f32; the
+   predictions after ``save_model`` and ``InferenceModel.load_zoo`` bit for
+   bit. (e) 64 seeded 300x300 images (near the channel means, each with
+   its own colour shift and gradient, so the softmax does not saturate
+   and the classes differ) as an ``ImageSet`` through
+   ``ImagenetConfig.preprocessing()`` into ``predict_image_set`` on the
+   ResNet-50 cell's float model: the preprocessed arrays within 1e-3 of
+   a plain resize (``F.interpolate``), centre crop and mean subtraction
+   written here; every top-5 probability within 5e-4 of the CPU model's
+   on those plain arrays, each top-5 class among the CPU's top classes
+   and the top-1 equal wherever the CPU's top-2 margin exceeds 1e-3; no
+   top-1 probability above 0.999 and more than one top-1 class across
+   the images; top-5 lists equal to ``predict`` on the set's own arrays.
+   Prints the wall by part.
 
 Phase 3 also holds the int8 kernels to their plain versions bit for bit
 (``torch.equal``), f32 and bf16: the quantize pass both launch (codes and
@@ -349,7 +388,9 @@ sampling kernel's on serving; K5's and K6's on the int8 serving burst,
 with K5's per MLP predict beside it; K1's, K2's, K5's and K6's on phase
 15 as ``launches_by_path["serving_remainder"]``, on phase 16 as
 ``launches_by_path["data_plane"]`` and on phase 17 as
-``launches_by_path["control_plane"]``).
+``launches_by_path["control_plane"]``; K1's, K3's and K4's on phase 18b's
+TFRecord- and XShards-fed runs as
+``launches_by_path["training_from_files"]``).
 The last three lines of standard output are the card's name and power
 limit, the per-kernel JSON, and ``{"ok": true, "device": {...}}``.
 """
@@ -6144,6 +6185,519 @@ def phase_recommenders(torch, smi, profile: bool = False):
     return {"wide_and_deep": wnd, "session": sess, "pipeline": pipe}
 
 
+# --------------------------------------------------------------- phase 18
+
+# phase 18d: the reference's news20 TextClassifier app (sequence length
+# 500, GloVe width 200, a CNN encoder of 256 filters, 20 classes, a
+# 20000-word index) on seeded synthetic documents
+TC_SEQ, TC_EMBED, TC_FILTERS, TC_CLASSES, TC_VOCAB = 500, 200, 256, 20, 20000
+TC_DOCS, TC_BATCH, TC_EPOCHS, TC_PARITY_STEPS = 4096, 128, 2, 5
+# phase 18e: ImageSet prediction through ImagenetConfig's preprocessing;
+# the images lie near the channel means with N(0, 1) noise (the scale the
+# ResNet-50 cell's batch norm is calibrated on), each with its own colour
+# shift and linear gradient of up to IS_SHIFT levels (at 2 levels and
+# more the softmax saturates on some images)
+IS_IMAGES, IS_SIDE, IS_SHIFT = 64, 300, 1.0
+IS_PREP_TOL, IS_PROB_TOL, IS_SATURATED = 1e-3, 5e-4, 0.999
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _metric_counts(snap) -> dict:
+    """``{family: value}``: a counter's value (summed over its children) or
+    a histogram's observation count."""
+    out = {}
+    for name, fam in snap.items():
+        total = 0.0
+        for v in fam["samples"].values():
+            total += v["count"] if isinstance(v, dict) else v
+        out[name] = total
+    return out
+
+
+def phase18_context(torch, smi):
+    """18a: the runtime context on the card, then a 2-worker gloo job of
+    the port's cluster worker on the CPU."""
+    from analytics_zoo_tpu_torch.common.cluster import (WORKER_MODULE,
+                                                        ClusterLauncher)
+    from analytics_zoo_tpu_torch.common.context import (init_zoo_context,
+                                                        reset_zoo_context)
+
+    ctx = init_zoo_context()
+    try:
+        res = {"devices": [str(d) for d in ctx.devices],
+               "process": [ctx.process_index, ctx.process_count],
+               "mesh": ctx.mesh.shape}
+    finally:
+        reset_zoo_context()
+    log(f"[files-sets] 18a context {json.dumps(res)}")
+    if (len(res["devices"]) != 1 or res["process"] != [0, 1]
+            or set(res["mesh"].values()) != {1}):
+        raise AssertionError(f"18a: the context on one card is not one "
+                             f"device, process 0 of 1, every axis 1: {res}")
+    t0 = time.perf_counter()
+    launcher = ClusterLauncher(
+        2, coordinator_port=_free_port(), platform="cpu", collectives="gloo",
+        env_extra={"PYTHONPATH": os.pathsep.join(
+            [str(ROOT)] + [p for p in os.environ.get(
+                "PYTHONPATH", "").split(os.pathsep) if p])})
+    monitor = launcher.launch()
+    rcs = monitor.wait(timeout_s=120)
+    wall = time.perf_counter() - t0
+    reports = []
+    for w in monitor.workers:
+        with open(w.log_path) as f:
+            lines = [l for l in f.read().splitlines() if l.startswith("{")]
+        reports.append(json.loads(lines[-1]) if lines else None)
+    job = {"rcs": rcs, "wall_s": wall, "argv": monitor.workers[0].cmd,
+           "logs": [w.log_path for w in monitor.workers],
+           "reports": reports}
+    log(f"[files-sets] 18a cluster {json.dumps(job)}")
+    if rcs != {0: 0, 1: 0}:
+        raise AssertionError(f"18a: the cluster workers exited {rcs}")
+    if any(WORKER_MODULE not in w.cmd or "analytics_zoo_tpu_torch" not in
+           " ".join(w.cmd) for w in monitor.workers):
+        raise AssertionError("18a: a worker's argv does not name the port")
+    if sorted((r or {}).get("rank", -1) for r in reports) != [0, 1] or \
+            any((r or {}).get("world") != 2 for r in reports):
+        raise AssertionError(f"18a: the workers did not pass the barrier as "
+                             f"ranks 0 and 1 of 2: {reports}")
+    return {"context": res, "cluster_wall_s": wall}
+
+
+def phase18_training_from_files(torch, smi):
+    """18b: phase 7's LM cell trained 2 optimizer steps from TFRecord
+    shards (under profile_steps, with a checkpoint and summaries) and from
+    an XShards of 4 partitions, each against the same batches fed as
+    arrays from the same initial weights."""
+    import tempfile
+
+    from analytics_zoo_tpu_torch.common import telemetry
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.common.profiling import (TRACE_FILE,
+                                                          profile_steps)
+    from analytics_zoo_tpu_torch.data.featureset import FeatureSet
+    from analytics_zoo_tpu_torch.data.tfrecord import (encode_example,
+                                                       write_records)
+    from analytics_zoo_tpu_torch.data.xshards import XShards
+    from analytics_zoo_tpu_torch.models.transformer import (TransformerLM,
+                                                            lm_loss)
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    set_policy(compute_dtype="float32")
+    ids = train_ids()
+    x, y = ids[:, :-1], ids[:, 1:]
+    n_steps = TRAIN_SEQS // TRAIN_BATCH
+    micro = n_steps * GRAD_ACCUM
+    tmp = tempfile.mkdtemp(prefix="zoo_p18_")
+    t0 = time.perf_counter()
+    shards = []
+    per = TRAIN_SEQS // 2
+    for s in range(2):
+        path = os.path.join(tmp, f"train-{s:05d}-of-00002.tfrecord")
+        write_records(path, [encode_example({"x": x[i], "y": y[i]})
+                             for i in range(s * per, (s + 1) * per)])
+        shards.append(path)
+    write_s = time.perf_counter() - t0
+    kernels = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+               tfa.flash_attention_bwd_dkv)
+
+    def run(data, **cfg):
+        model = train_model(TransformerLM, lm_loss, TrainConfig, seed=0,
+                            **cfg)
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        tw = time.perf_counter()
+        model.fit(*(data if isinstance(data, tuple) else (data,)),
+                  batch_size=TRAIN_BATCH, nb_epoch=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tw
+        counts = [k.launches for k in kernels]
+        losses = [h["loss"] for h in model.estimator.history]
+        est = model.estimator
+        del model, est
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, counts, wall
+
+    base, base_counts, base_wall = run((x, y))
+    # TFRecord shards, traced, with one checkpoint and the summaries
+    ckpt_dir, tb_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "tb")
+    trace_dir = os.path.join(tmp, "trace")
+    t0 = time.perf_counter()
+    fs_tf = FeatureSet.from_tfrecord(shards, feature_cols=["x"],
+                                     label_cols=["y"])
+    read_s = time.perf_counter() - t0
+    model = train_model(TransformerLM, lm_loss, TrainConfig, seed=0,
+                        checkpoint_dir=ckpt_dir)
+    model.set_tensorboard(tb_dir, "lm")
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    before = _metric_counts(telemetry.snapshot())
+    fit_ms = profile_steps(
+        lambda: model.fit(fs_tf, batch_size=TRAIN_BATCH, nb_epoch=1),
+        [()], trace_dir, warmup=0, steps=1)
+    after = _metric_counts(telemetry.snapshot())
+    tf_counts = [k.launches for k in kernels]
+    tf_losses = [h["loss"] for h in model.estimator.history]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # an XShards of the same tokens in 4 partitions
+    xs = XShards.partition({"x": x, "y": y}, num_partitions=4)
+    fs_xs = FeatureSet.from_xshards(xs).transform(
+        lambda t: (t["x"], t["y"]))
+    xs_losses, xs_counts, xs_wall = run(fs_xs)
+    delta = {k: after.get(k, 0.0) - before.get(k, 0.0) for k in after}
+    with open(os.path.join(trace_dir, TRACE_FILE)) as f:
+        trace = f.read()
+    names = {n: n in trace for n in ("flash_fwd_wgmma_kernel",
+                                     "flash_bwd_dq_wgmma_kernel",
+                                     "flash_bwd_dkv_wgmma_kernel")}
+    n_summary = n_steps * 5 + 4   # 5 scalars a log point, 4 at the epoch end
+    want = {"zoo_train_steps_total": n_steps,
+            "zoo_train_checkpoints_total": 1,
+            "zoo_train_checkpoint_snapshot_seconds": 1,
+            "zoo_train_checkpoint_write_seconds": 1,
+            "zoo_summary_events_total": n_summary,
+            "zoo_data_batches_total": n_steps,
+            "zoo_train_data_wait_seconds": n_steps,
+            "zoo_train_grad_norm": n_steps,
+            "zoo_train_compute_seconds": n_steps,
+            "zoo_train_compiles_total": 1,
+            "zoo_train_compile_seconds": 1,
+            "zoo_data_prefetch_consumer_wait_seconds": n_steps + 1,
+            "zoo_train_rollbacks_total": 0,
+            "zoo_train_sigterm_exits_total": 0,
+            "zoo_train_comm_seconds": 0}
+    got = {k: delta.get(k, 0.0) for k in want}
+    res = {"steps": n_steps, "micro_steps": micro,
+           "tfrecord": {"shards": len(shards), "write_s": write_s,
+                        "read_s": read_s, "fit_ms": fit_ms,
+                        "bytes": sum(os.path.getsize(p) for p in shards)},
+           "xshards": {"partitions": xs.num_partitions(),
+                       "fit_s": xs_wall},
+           "arrays_fit_s": base_wall, "losses": base,
+           "tfrecord_losses": tf_losses, "xshards_losses": xs_losses,
+           "launches": {"arrays": base_counts, "tfrecord": tf_counts,
+                        "xshards": xs_counts},
+           "trace_kernels": names,
+           "trace_mb": len(trace) / 1e6, "metrics": got, "card": smi}
+    log(f"[files-sets] 18b {json.dumps(res)}")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    if len(base) != n_steps or not all(math.isfinite(v) for v in base):
+        raise AssertionError(f"18b: array-fed losses {base}")
+    if tf_losses != base or xs_losses != base:
+        raise AssertionError("18b: the losses from TFRecord or XShards are "
+                             "not bit-identical to the array-fed run's")
+    need = N_BLOCK * micro
+    for what, c in (("arrays", base_counts), ("tfrecord", tf_counts),
+                    ("xshards", xs_counts)):
+        if c != [need] * 3:
+            raise AssertionError(f"18b: K1, K3, K4 launches {c} from "
+                                 f"{what}, need {need} each")
+    if not all(names.values()):
+        raise AssertionError(f"18b: the Chrome trace lacks a kernel: "
+                             f"{names}")
+    if got != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"18b: training metrics {got} != {want}")
+    return [tf_counts[i] + xs_counts[i] for i in range(3)]
+
+
+def phase18_dropout(torch, smi):
+    """18c: a TransformerLayer(1024, 16, causal, dropout=0.1) in training
+    on (1, 256, 1024) f32, card vs CPU; a Dropout layer's masks."""
+    import copy
+
+    from analytics_zoo_tpu_torch.common import prng
+    from analytics_zoo_tpu_torch.nn.layers import Dropout
+    from analytics_zoo_tpu_torch.nn.layers.attention import TransformerLayer
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+
+    set_policy(compute_dtype="float32")
+    g = torch.Generator().manual_seed(18)
+    cpu = TransformerLayer(HIDDEN, N_HEAD, causal=True, dropout=0.1,
+                           generator=g, device="cpu").train()
+    gpu = copy.deepcopy(cpu).to(DEV["cuda"]).train()
+    x = torch.from_numpy(np.random.default_rng(18).normal(
+        size=(1, 256, HIDDEN)).astype(np.float32))
+    key = prng.fold_in(prng.PRNGKey(18), 7)
+    with torch.no_grad():
+        want = cpu.apply(x, rng=key)
+        got = gpu.apply(x.to(DEV["cuda"]), rng=key)
+        ref = gpu.eval().apply(x.to(DEV["cuda"]))
+    err = float((got.cpu() - want).abs().max())
+    dropped = float((got - ref).abs().max())
+    mask_key = prng.fold_in(key, 1)
+    m_cpu = prng.bernoulli(mask_key, 0.9, (1, 256, HIDDEN))
+    m_gpu = prng.bernoulli(mask_key, 0.9, (1, 256, HIDDEN),
+                           device=DEV["cuda"])
+    layer = Dropout(0.2).train()
+    ones = torch.ones((512, 1024))
+    d_cpu = layer(ones, rng=key)
+    d_gpu = layer(ones.to(DEV["cuda"]), rng=key)
+    res = {"max_abs_err": err, "mask_equal": bool(torch.equal(
+        m_cpu, m_gpu.cpu())), "keep_share": float(m_cpu.float().mean()),
+        "dropout_layer_equal": bool(torch.equal(d_cpu, d_gpu.cpu())),
+        "dropout_layer_keep": float((d_cpu != 0).float().mean()),
+        "differs_from_inference": dropped, "card": smi}
+    log(f"[files-sets] 18c {json.dumps(res)}")
+    if not err <= TOL["float32"]:
+        raise AssertionError(f"18c: card vs CPU {err} > 1e-4")
+    if not (res["mask_equal"] and res["dropout_layer_equal"]):
+        raise AssertionError("18c: dropout masks differ card vs CPU")
+    if not dropped > 0:
+        raise AssertionError("18c: training mode dropped nothing")
+    return res
+
+
+def _news_texts(n: int, seed: int = 16):
+    """Seeded synthetic documents: ~25,000 distinct words, each class
+    drawing 60% of a document's words from its own slice of them; mixed
+    case and punctuation for the normalizer."""
+    rng = np.random.default_rng(seed)
+    # letters only: the normalizer keeps a-z
+    pool = np.array(["".join(chr(97 + (i // 26 ** p) % 26) for p in range(4))
+                     for i in range(25000)])
+    labels = rng.integers(0, TC_CLASSES, n)
+    texts = []
+    for c in labels:
+        length = int(rng.integers(80, 700))
+        own = rng.integers(c * 1000, c * 1000 + 1000, length)
+        other = rng.zipf(1.3, length) % len(pool)
+        words = pool[np.where(rng.random(length) < 0.6, own, other)]
+        texts.append(" ".join(w.upper() + "," if i % 11 == 0 else w
+                              for i, w in enumerate(words.tolist())))
+    return texts, labels.astype(np.int32)
+
+
+def phase18_text_classifier(torch, smi):
+    """18d: TextClassifier at the news20 app's widths trained on a TextSet,
+    the first steps held to the CPU, then a bundle round trip."""
+    import tempfile
+
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.data.text import TextSet
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.models.textclassification import \
+        TextClassifier
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+
+    set_policy(compute_dtype="float32")
+    t0 = time.perf_counter()
+    texts, labels = _news_texts(TC_DOCS)
+    ts = (TextSet.from_texts(texts, labels.tolist()).tokenize().normalize()
+          .word2idx(max_words_num=TC_VOCAB - 1).shape_sequence(TC_SEQ))
+    prep_s = time.perf_counter() - t0
+    vocab = max(ts.get_word_index().values()) + 1
+
+    def build(device):
+        m = TextClassifier(TC_CLASSES, sequence_length=TC_SEQ,
+                           encoder="cnn", encoder_output_dim=TC_FILTERS,
+                           vocab_size=vocab, embed_dim=TC_EMBED,
+                           device=device, seed=0)
+        m.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy"], config=TrainConfig(
+                      shuffle=False, log_every_n_steps=1), device=device)
+        return m
+
+    model = build(DEV["cuda"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.fit(ts, batch_size=TC_BATCH, nb_epoch=TC_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hist = model.estimator.history
+    losses = [h["loss"] for h in hist]
+    step_ms = [h["data_ms"] + h["compute_ms"] for h in hist]
+    peak = torch.cuda.max_memory_allocated()
+    cpu = build("cpu")
+    head = TextSet(ts.features[:TC_BATCH * TC_PARITY_STEPS])
+    head.word_index = ts.word_index
+    cpu.fit(head, batch_size=TC_BATCH, nb_epoch=1)
+    cpu_losses = [h["loss"] for h in cpu.estimator.history]
+    diffs = [abs(a - b) for a, b in zip(losses, cpu_losses)]
+    x, _ = ts.to_arrays()
+    x = x[:256]
+    with tempfile.TemporaryDirectory() as d:
+        model.save_model(d)
+        loaded = InferenceModel(1, TC_BATCH,
+                                device=DEV["cuda"]).load_zoo(d)
+        direct = InferenceModel(1, TC_BATCH,
+                                device=DEV["cuda"]).load(model)
+        p_loaded, p_direct = loaded.predict(x), direct.predict(x)
+    acc = model.evaluate(ts, batch_size=TC_BATCH)
+    med = statistics.median(step_ms)
+    res = {"docs": TC_DOCS, "vocab": vocab, "seq_len": TC_SEQ,
+           "embed": TC_EMBED, "filters": TC_FILTERS,
+           "classes": TC_CLASSES, "steps": len(hist), "prep_s": prep_s,
+           "fit_s": wall, "step_ms_median": med,
+           "samples_per_s": TC_BATCH / (med / 1e3),
+           "samples_per_s_fit": TC_DOCS * TC_EPOCHS / wall,
+           "max_memory_allocated": peak, "final_loss": losses[-1],
+           "first_losses": losses[:TC_PARITY_STEPS],
+           "cpu_losses": cpu_losses, "max_loss_diff": max(diffs),
+           "train_accuracy": acc,
+           "round_trip_equal": bool(np.array_equal(p_loaded, p_direct)),
+           "card": smi}
+    log(f"[files-sets] 18d {json.dumps(res)}")
+    if len(cpu_losses) != TC_PARITY_STEPS or not max(diffs) <= 1e-4:
+        raise AssertionError(f"18d: the first {TC_PARITY_STEPS} losses "
+                             f"card vs CPU differ by {max(diffs)} > 1e-4")
+    per_epoch = len(losses) // TC_EPOCHS
+    first, last = (statistics.mean(losses[:per_epoch]),
+                   statistics.mean(losses[-per_epoch:]))
+    if not all(math.isfinite(v) for v in losses) or not last < first:
+        raise AssertionError(f"18d: losses not finite, or the last epoch's "
+                             f"mean {last} not below the first's {first}")
+    if not res["round_trip_equal"]:
+        raise AssertionError("18d: predictions after save_model/load_zoo "
+                             "differ")
+    return res
+
+
+def _imagenet_plain(torch, imgs, crop):
+    """ImageNet preprocessing written without the port's stages: torch's
+    bilinear resize (half-pixel centres, no antialiasing) to 256/224 of
+    the crop, the centre crop, the channel means subtracted."""
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.models.image.classification import \
+        ImagenetConfig
+    side = crop * 256 // 224
+    t = torch.from_numpy(imgs).permute(0, 3, 1, 2)
+    t = F.interpolate(t, size=(side, side), mode="bilinear",
+                      align_corners=False)
+    o = (side - crop) // 2
+    t = t[:, :, o:o + crop, o:o + crop].permute(0, 2, 3, 1)
+    return (t.numpy() - np.asarray(ImagenetConfig.MEANS, np.float32)
+            ).astype(np.float32)
+
+
+def _is_images(n, side, shift, seed=19):
+    """``n`` seeded ``side`` x ``side`` RGB images near the channel means:
+    N(0, 1) noise, a colour shift and a linear gradient of up to ``shift``
+    levels each."""
+    from analytics_zoo_tpu_torch.models.image.classification import \
+        ImagenetConfig
+    rng = np.random.default_rng(seed)
+    ramp = np.linspace(-1.0, 1.0, side, dtype=np.float32)
+    col = rng.uniform(-shift, shift, size=(n, 1, 1, 3))
+    gy = rng.uniform(-shift, shift, size=(n, 1, 1, 3))
+    gx = rng.uniform(-shift, shift, size=(n, 1, 1, 3))
+    imgs = (np.asarray(ImagenetConfig.MEANS) + col
+            + gy * ramp[None, :, None, None] + gx * ramp[None, None, :, None]
+            + rng.normal(size=(n, side, side, 3)))
+    return imgs.astype(np.float32)
+
+
+def phase18_image_set(torch, state, smi):
+    """18e: an ImageSet of seeded 300x300 images through ImagenetConfig's
+    preprocessing into predict_image_set on the ResNet-50 cell's float
+    model, held against the CPU model on independently preprocessed
+    arrays (the module docstring lists the gates)."""
+    from analytics_zoo_tpu_torch.data.image import ImageSet
+    from analytics_zoo_tpu_torch.models.image.classification import (
+        ImageClassifier, ImagenetConfig)
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+
+    set_policy(compute_dtype="float32")
+    imgs = _is_images(IS_IMAGES, IS_SIDE, IS_SHIFT)
+    iset = ImageSet.from_arrays(imgs, seed=3)
+    clf = ImageClassifier("resnet-50", (IMG, IMG, 3), CLASSES,
+                          model=resnet_on(torch, state, DEV["cuda"]))
+    t0 = time.perf_counter()
+    top = clf.predict_image_set(iset, batch_size=IMG_BATCH)
+    set_s = time.perf_counter() - t0
+    x, _ = iset.transform(ImagenetConfig.preprocessing(IMG, IMG)).to_arrays()
+    probs = clf.predict(x, batch_size=IMG_BATCH)
+    order = np.argsort(-probs, axis=1)[:, :5]
+    want = [list(zip([int(i) for i in idx], row[idx].tolist()))
+            for row, idx in zip(probs, order)]
+    # the reference: plain preprocessing, the same weights on the CPU
+    plain = _imagenet_plain(torch, imgs, IMG)
+    prep_err = float(np.abs(x - plain).max()) if x.shape == plain.shape \
+        else float("inf")
+    t0 = time.perf_counter()
+    cpu = ImageClassifier("resnet-50", (IMG, IMG, 3), CLASSES,
+                          model=resnet_on(torch, state, "cpu")).predict(
+                              plain, batch_size=16)
+    cpu_s = time.perf_counter() - t0
+    cpu_sorted = -np.sort(-cpu, axis=1)
+    prob_err, misplaced, top1_wrong = 0.0, 0, 0
+    for i, pairs in enumerate(top):
+        idx = np.asarray([c for c, _ in pairs])
+        p = np.asarray([q for _, q in pairs])
+        prob_err = max(prob_err, float(np.abs(p - cpu[i, idx]).max()))
+        # each class the card ranks k-th is one the CPU ranks as high
+        misplaced += int((cpu[i, idx] < cpu_sorted[i, :5]
+                          - IS_PROB_TOL).sum())
+        if cpu_sorted[i, 0] - cpu_sorted[i, 1] > 2 * IS_PROB_TOL:
+            top1_wrong += int(idx[0] != int(np.argmax(cpu[i])))
+    top1 = np.argmax(cpu, axis=1)
+    res = {"images": IS_IMAGES, "side": IS_SIDE, "input": list(x.shape),
+           "predict_image_set_s": set_s, "cpu_predict_s": cpu_s,
+           "prep_max_abs_err": prep_err, "prep_tol": IS_PREP_TOL,
+           "prob_max_abs_err": prob_err, "prob_tol": IS_PROB_TOL,
+           "misplaced": misplaced, "top1_wrong": top1_wrong,
+           "top1_classes": len(set(top1.tolist())),
+           "top1_prob_min": float(cpu_sorted[:, 0].min()),
+           "top1_prob_max": float(cpu_sorted[:, 0].max()),
+           "equal_to_predict": top == want, "first": top[0], "card": smi}
+    log(f"[files-sets] 18e {json.dumps(res)}")
+    if x.shape != (IS_IMAGES, IMG, IMG, 3):
+        raise AssertionError(f"18e: preprocessed shape {x.shape}")
+    if not prep_err <= IS_PREP_TOL:
+        raise AssertionError(f"18e: ImagenetConfig.preprocessing differs "
+                             f"from the plain one by {prep_err}")
+    if not prob_err <= IS_PROB_TOL or misplaced or top1_wrong:
+        raise AssertionError("18e: predict_image_set's top-5 disagrees "
+                             "with the CPU model on the plain arrays")
+    if res["top1_prob_max"] > IS_SATURATED or res["top1_classes"] < 2:
+        raise AssertionError("18e: the softmax saturates or every image "
+                             "has the same top-1 class: the comparison "
+                             "would not see a mix-up")
+    if top != want:
+        raise AssertionError("18e: predict_image_set's top-5 lists differ "
+                             "from predict's on the same arrays")
+    return res
+
+
+def phase_files_and_sets(torch, state, smi):
+    """Phase 18: files and sets to the card (18a-18e); returns the K1, K3
+    and K4 launches of 18b's file-fed training."""
+    t0 = time.perf_counter()
+    wall = {}
+    for name, fn in (("18a", lambda: phase18_context(torch, smi)),
+                     ("18b", lambda: phase18_training_from_files(torch,
+                                                                 smi)),
+                     ("18c", lambda: phase18_dropout(torch, smi)),
+                     ("18d", lambda: phase18_text_classifier(torch, smi)),
+                     ("18e", lambda: phase18_image_set(torch, state, smi))):
+        t = time.perf_counter()
+        out = fn()
+        wall[name] = time.perf_counter() - t
+        if name == "18b":
+            launches = out
+        torch.cuda.empty_cache()
+    wall["phase"] = time.perf_counter() - t0
+    log(f"[files-sets] phase wall s: {json.dumps(wall)} card {smi}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -6253,6 +6807,10 @@ def main(argv=None) -> int:
             for k, key in ((kernels[0], "K1"), (kernels[1], "K2"),
                            (kernels[5], "K5"), (kernels[6], "K6")):
                 k["launches_by_path"]["control_plane"] = control[key]
+            torch.cuda.empty_cache()
+            files = phase_files_and_sets(torch, state, smi)
+            for k, n in zip((kernels[0], kernels[2], kernels[3]), files):
+                k["launches_by_path"]["training_from_files"] = n
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):

@@ -48,7 +48,10 @@ ResNet-50 behind ClusterServing answers through the broker and the shm ring
 bit for bit as its direct predict (K6 = 53, K5 = 1 a batch), a
 GenerationEngine streams a ContinuousBatcher's tokens (K1 a prefill and
 layer, K2 a decode step and layer), and ModelSwapper's staged tensors are
-the ones the model serves after the flip.
+the ones the model serves after the flip. Files and sets on the card
+(``-k files_and_sets``): dropout masks drawn on the card are the CPU's
+bits, and a TextClassifier trained on a TextSet on the card takes the
+CPU's per-step losses.
 """
 
 import math
@@ -1347,3 +1350,48 @@ def test_data_plane_swapper_flips_the_staged_tensors_on_card(
     ref.swap_params(params2)
     x = np.random.default_rng(2).normal(size=(8, 256)).astype(np.float32)
     np.testing.assert_array_equal(im.predict(x), ref.predict(x))
+
+
+def test_files_and_sets_dropout_masks_on_card_are_the_cpu_bits(cuda):
+    from analytics_zoo_tpu_torch.common import prng
+    from analytics_zoo_tpu_torch.nn.layers import Dropout
+
+    for seed, shape, p in ((0, (7,), 0.5), (3, (4, 33, 65), 0.9),
+                           (9, (2, 1024), 0.1)):
+        key = prng.fold_in(prng.PRNGKey(seed), 1)
+        assert torch.equal(prng.bernoulli(key, p, shape),
+                           prng.bernoulli(key, p, shape, device=cuda).cpu())
+        u = prng.uniform(key, shape, -1.5, 2.0)
+        assert torch.equal(u, prng.uniform(key, shape, -1.5, 2.0,
+                                           device=cuda).cpu())
+    layer = Dropout(0.3).train()
+    x = torch.randn(16, 48)
+    key = prng.PRNGKey(4)
+    assert torch.equal(layer(x, rng=key),
+                       layer(x.to(cuda), rng=key).cpu())
+
+
+def test_files_and_sets_text_classifier_trains_on_card_as_on_cpu(cuda):
+    from analytics_zoo_tpu_torch.data.text import TextSet
+    from analytics_zoo_tpu_torch.models.textclassification import \
+        TextClassifier
+
+    rng = np.random.default_rng(0)
+    words = ["alpha", "beta", "gamma", "delta", "eps", "zeta", "eta"]
+    labels = rng.integers(0, 3, 64)
+    texts = [" ".join(rng.choice(words[c * 2:c * 2 + 3], 9)) for c in labels]
+    ts = (TextSet.from_texts(texts, labels.tolist()).tokenize().normalize()
+          .word2idx().shape_sequence(10))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        m = TextClassifier(3, sequence_length=10, encoder="cnn",
+                           encoder_output_dim=16, vocab_size=10,
+                           embed_dim=8, device=dev)
+        m.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                  config=None)
+        m.estimator.config.log_every_n_steps = 1
+        m.fit(ts, batch_size=16, nb_epoch=2)
+        losses[dev] = [h["loss"] for h in m.estimator.history]
+    assert len(losses["cuda"]) == 8
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5,
+                               atol=1e-6)

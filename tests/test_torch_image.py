@@ -226,10 +226,10 @@ def test_image_classifier_predicts_arrays():
     with torch.no_grad():
         whole = clf.model.apply(torch.from_numpy(x.astype(np.float32)))
     _close(whole, probs)
-    for call in (lambda: clf.predict_image_set(None),
-                 lambda: clf.fit_image_set(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # ImageSet prediction is ported (tests/test_torch_image_text_sets.py);
+    # training still waits for BatchNormalization's training mode
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        clf.fit_image_set(None)
 
 
 def test_entry_points_need_cuda_or_a_device():

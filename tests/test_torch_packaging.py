@@ -208,3 +208,68 @@ def test_every_spawned_command_names_the_port():
     assert seen == {"analytics_zoo_tpu_torch.serving.fleet",
                     "analytics_zoo_tpu_torch.serving.hostagent",
                     "analytics_zoo_tpu_torch.serving.broker"}
+
+
+FILES_AND_SETS = ("common/context.py", "common/cluster.py",
+                  "common/profiling.py", "data/tfrecord.py",
+                  "data/xshards.py", "data/image.py", "data/image3d.py",
+                  "data/text.py",
+                  "models/textclassification/text_classifier.py")
+
+#: JAX package modules that have no counterpart in the port, and why
+NO_COUNTERPART = {
+    "common/compat.py": "it only papers over moves in JAX's API "
+                        "(shard_map, the Pallas compiler params); the port "
+                        "has no such surface",
+}
+
+
+def test_the_files_and_sets_slice_is_in_the_port_without_jax():
+    """The runtime context, cluster, profiling, file and set modules and
+    TextClassifier mirror the JAX package's paths; importing them, and
+    running the cluster worker's ``--help``, in a fresh interpreter pulls
+    in neither JAX, the JAX package nor ml_dtypes (nor pandas, PIL or
+    scipy, which only their readers and the 3D stages import)."""
+    for rel in FILES_AND_SETS:
+        assert (PKG / rel).is_file(), rel
+        assert (ROOT / "analytics_zoo_tpu" / rel).is_file(), rel
+    for rel in NO_COUNTERPART:
+        assert (ROOT / "analytics_zoo_tpu" / rel).is_file(), rel
+        assert not (PKG / rel).exists(), rel
+    mods = ["analytics_zoo_tpu_torch." + rel[:-3].replace("/", ".")
+            for rel in FILES_AND_SETS]
+    code = (
+        "import contextlib, importlib, io, json, runpy, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "sys.argv = ['cluster', '--help']\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    try:\n"
+        "        runpy.run_module('analytics_zoo_tpu_torch.common.cluster',"
+        " run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'analytics_zoo_tpu', 'ml_dtypes', 'pandas', "
+        "'PIL', 'scipy'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_cluster_launcher_spawns_the_port():
+    """The launcher's default worker, and every ``-m`` module its source
+    names, is the port's own module."""
+    from analytics_zoo_tpu_torch.common import cluster
+
+    launcher = cluster.ClusterLauncher(2, coordinator_port=1)
+    argv = launcher.command()
+    assert argv[1:] == ["-m", "analytics_zoo_tpu_torch.common.cluster"]
+    assert (ROOT / (argv[2].replace(".", "/") + ".py")).is_file()
+    tree = ast.parse((PKG / "common/cluster.py").read_text())
+    named = [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+             and isinstance(n.value, str)
+             and n.value.startswith("analytics_zoo_tpu")]
+    assert named and all(v.startswith("analytics_zoo_tpu_torch.")
+                         for v in named)

@@ -335,7 +335,7 @@ def test_entry_points_raise_without_cuda_and_no_device(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("update_sharding", True), ("graph_checks", "raise"),
-    ("hbm_budget_mb", 100.0), ("donate_state", False)])
+    ("hbm_budget_mb", 100.0), ("graph_checks", "warn")])
 def test_unported_train_config_fields_raise(field, value):
     cfg = TrainConfig(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
