@@ -161,12 +161,19 @@ def _buffers(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def train_state_to_jax(model: torch.nn.Module,
-                       train_state: Mapping[str, Any]) -> Dict[str, Any]:
+                       train_state: Mapping[str, Any], *,
+                       params: Mapping[str, torch.Tensor] = None,
+                       opt_is_jax: bool = False) -> Dict[str, Any]:
     """The JAX Estimator's train-state tree over the port's live tensors
-    (no copies): what ``engine/checkpoint.py`` saves."""
+    (no copies): what ``engine/checkpoint.py`` saves. ``params``: the
+    parameters' whole values where the module holds a rank's blocks;
+    ``opt_is_jax``: the optimizer state is already in the JAX shape."""
+    if params is None:
+        params = {n: p.detach() for n, p in model.named_parameters()}
+    opt = train_state["opt_state"]
     return {
-        "params": nest({n: p.detach() for n, p in model.named_parameters()}),
-        "opt_state": opt_state_to_jax(train_state["opt_state"]),
+        "params": nest(dict(params)),
+        "opt_state": opt if opt_is_jax else opt_state_to_jax(opt),
         "model_state": nest({n: b.detach()
                              for n, b in _buffers(model).items()}),
         "step": np.asarray(train_state["step"], np.int32),
@@ -175,13 +182,17 @@ def train_state_to_jax(model: torch.nn.Module,
 
 
 def train_state_from_jax(model: torch.nn.Module, tree: Mapping[str, Any],
-                         like: Mapping[str, Any]) -> Dict[str, Any]:
+                         like: Mapping[str, Any], *,
+                         block=None) -> Dict[str, Any]:
     """Install a train-state tree (structured as :func:`train_state_to_jax`
     gives it, leaves on the model's device) into ``model`` in place, and
-    return the Estimator's ``train_state`` in the structure of ``like``."""
+    return the Estimator's ``train_state`` in the structure of ``like``.
+    ``block(name, whole)``: a rank's block of a parameter it holds
+    sharded."""
     with torch.no_grad():
         for n, p in model.named_parameters():
-            p.copy_(_lookup(tree["params"], n))
+            whole = _lookup(tree["params"], n)
+            p.copy_(block(n, whole) if block is not None else whole)
         for n, b in _buffers(model).items():
             b.copy_(_lookup(tree["model_state"], n))
     rng = np.asarray(tree["rng"]).reshape(-1).tolist()
@@ -189,6 +200,71 @@ def train_state_from_jax(model: torch.nn.Module, tree: Mapping[str, Any],
                                             like["opt_state"]),
             "step": int(np.asarray(tree["step"])),
             "rng": (int(rng[0]), int(rng[1]))}
+
+
+def map_param_dicts(state, fn):
+    """``state`` (an optimizer state of the port) with each per-parameter
+    dict's entries replaced by ``fn(name, tensor)``: how a rank's blocks
+    of a sharded state cross to whole leaves and back."""
+    if isinstance(state, dict):
+        return {n: fn(n, v) if isinstance(v, torch.Tensor) else v
+                for n, v in state.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(map_param_dicts(v, fn) for v in state))
+    if isinstance(state, (tuple, list)):
+        return type(state)(map_param_dicts(v, fn) for v in state)
+    return state
+
+
+def _is_flat_dict(s) -> bool:
+    from .parallel.update_sharding import FLAT
+
+    return isinstance(s, dict) and set(s) == {FLAT}
+
+
+def flat_opt_state_to_jax(state, gather):
+    """A rank's flat-update state (``FlatUpdateState`` over ``{FLAT:
+    shard}``) as the JAX package's ``FlatUpdateState`` over (npad,)
+    vectors: ``gather(shard)`` makes each whole vector (every rank calls
+    it)."""
+    from .parallel.update_sharding import FLAT, FlatUpdateState
+
+    def walk(s):
+        if _is_flat_dict(s):
+            return gather(s[FLAT])
+        if isinstance(s, tuple) and hasattr(s, "_fields"):
+            return type(s)(*(walk(v) for v in s))
+        if isinstance(s, (tuple, list)):
+            return tuple(walk(v) for v in s)
+        if isinstance(s, int):
+            return np.asarray(s, np.int32)
+        return s
+
+    return FlatUpdateState(walk(state.inner_state),
+                           None if state.master is None
+                           else gather(state.master))
+
+
+def flat_opt_state_from_jax(tree, like, take):
+    """The inverse of :func:`flat_opt_state_to_jax` in the structure of the
+    rank's state ``like``: ``take(vector)`` is the rank's shard."""
+    from .parallel.update_sharding import FLAT, FlatUpdateState
+
+    def walk(t, s):
+        if _is_flat_dict(s):
+            return {FLAT: take(t)}
+        if isinstance(s, tuple) and hasattr(s, "_fields"):
+            return type(s)(*(walk(getattr(t, f), v)
+                             for f, v in zip(s._fields, s)))
+        if isinstance(s, (tuple, list)):
+            return type(s)(walk(a, v) for a, v in zip(t, s))
+        if isinstance(s, int):
+            return int(np.asarray(t))
+        return s if s is None else t
+
+    return FlatUpdateState(walk(tree.inner_state, like.inner_state),
+                           None if like.master is None
+                           else take(tree.master))
 
 
 def flat_tree(params) -> Dict[str, torch.Tensor]:
@@ -240,6 +316,7 @@ def land_tensors(staged: Mapping[str, torch.Tensor], ready, device) -> None:
         t.record_stream(stream)
 
 
-__all__ = ["flat_tree", "land_tensors", "nest", "opt_state_from_jax", "stage_tensors", "opt_state_to_jax",
+__all__ = ["flat_opt_state_from_jax", "flat_opt_state_to_jax",
+           "map_param_dicts", "flat_tree", "land_tensors", "nest", "opt_state_from_jax", "stage_tensors", "opt_state_to_jax",
            "params_from_jax", "params_to_numpy", "state_dict_from_jax",
            "train_state_from_jax", "train_state_to_jax"]

@@ -136,8 +136,6 @@ class TrainConfig:
 #: fields whose machinery the port does not have yet: the values it
 #: accepts (the default first) and where the work is queued
 _UNPORTED = {
-    "update_sharding": ((False, None), "ROADMAP Queue 1, item 9 "
-                        "(multi-GPU)"),
     "graph_checks": ((None, "off"), "ROADMAP Queue 1, item 11 (the "
                      "analysis rules)"),
     "hbm_budget_mb": ((None,), "ROADMAP Queue 1, item 11 (the analysis "

@@ -18,11 +18,15 @@ package's virtual host devices; torch has one CPU device, so the entries
 repeat it). On CUDA a process holds one card, its current device (the
 one :func:`~analytics_zoo_tpu_torch.common.cluster.configure_worker`
 pins), however many are visible, so a job of N processes describes N
-devices. The mesh is a description: the Estimator trains on one device
-and raises for a mesh with more than one (ROADMAP Queue 1, [9]
-multi-GPU, swaps this class for a ``DeviceMesh``). Nothing makes a
-context behind the caller's back: the Estimator reads one only when it
-was initialised, and otherwise trains alone on its own device.
+devices, one a rank. In a ``torch.distributed`` job the mesh is a mesh
+of ranks: rank r is the r-th entry of the device array in C order, its
+coordinates are that entry's index, and each axis has a process group of
+the ranks that differ only in that axis's coordinate
+(:meth:`Mesh.axis`; the collectives of ``parallel/comm.py`` run on
+them). An axis that spans every rank is the world group; with no job
+every axis is trivial. Nothing makes a context behind the caller's back:
+the Estimator reads one only when it was initialised, and otherwise
+trains alone on its own device.
 """
 
 from __future__ import annotations
@@ -43,10 +47,28 @@ _CONTEXT_LOCK = threading.Lock()
 _CURRENT: Optional["ZooContext"] = None
 
 
+#: process groups by their ranks: ``new_group`` is collective, and every
+#: rank builds the same meshes in the same order, so each reuses the same
+#: groups
+_GROUPS: Dict[Tuple[int, ...], object] = {}
+
+
+def _group(ranks: Tuple[int, ...]):
+    import torch.distributed as dist
+
+    if len(ranks) == dist.get_world_size():
+        return dist.group.WORLD
+    if ranks not in _GROUPS:
+        _GROUPS[ranks] = dist.new_group(list(ranks))
+    return _GROUPS[ranks]
+
+
 class Mesh:
     """Devices laid out over named axes: ``devices`` is a numpy array of
     ``torch.device`` whose shape is the axes' sizes; ``shape`` maps each
-    axis name to its size, as a JAX mesh's does."""
+    axis name to its size, as a JAX mesh's does. In a ``torch.distributed``
+    job, :meth:`bind` makes it this rank's view: its ``coords`` and one
+    :class:`~analytics_zoo_tpu_torch.parallel.comm.Axis` an axis."""
 
     def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
         if devices.ndim != len(axis_names):
@@ -54,6 +76,50 @@ class Mesh:
                              f"{len(axis_names)} axis names")
         self.devices = devices
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        self.rank: Optional[int] = None
+        self.coords: Dict[str, int] = {a: 0 for a in self.axis_names}
+        self._axes: Dict[str, object] = {}
+
+    def bind(self, rank: Optional[int]) -> "Mesh":
+        """This rank's coordinates and the axes' process groups (every rank
+        of the job calls it, in the same order); ``rank=None``: no job,
+        every axis trivial."""
+        import torch.distributed as dist
+
+        from ..parallel.comm import Axis
+
+        self.rank = rank
+        shape = self.devices.shape
+        if rank is None:
+            self._axes = {a: Axis(a, None, n, 0, (0,) * n)
+                          for a, n in zip(self.axis_names, shape)}
+            return self
+        if self.size != dist.get_world_size():
+            raise ValueError(f"mesh {self.shape} of {self.size} devices in a "
+                             f"job of a different number of ranks")
+        idx = np.unravel_index(rank, shape)
+        self.coords = {a: int(i) for a, i in zip(self.axis_names, idx)}
+        ids = np.arange(self.size).reshape(shape)
+        for d, a in enumerate(self.axis_names):
+            # every line of ranks along axis d, so each rank joins all groups
+            lines = np.moveaxis(ids, d, -1).reshape(-1, shape[d])
+            for line in lines:
+                ranks = tuple(int(r) for r in line)
+                group = _group(ranks)
+                if rank in ranks:
+                    self._axes[a] = Axis(a, group, shape[d],
+                                         ranks.index(rank), ranks)
+        return self
+
+    def axis(self, name: str):
+        """The named axis as this rank sees it (trivial before
+        :meth:`bind` or outside a job)."""
+        if name not in self.axis_names:
+            raise KeyError(f"mesh has no axis {name!r}; axes "
+                           f"{self.axis_names}")
+        if not self._axes:
+            self.bind(None)
+        return self._axes[name]
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -127,7 +193,8 @@ class ZooContext:
 
         set_policy(param_dtype=config.precision.param_dtype,
                    compute_dtype=config.precision.compute_dtype)
-        self.mesh = build_mesh(config.mesh, self.devices)
+        self.mesh = build_mesh(config.mesh, self.devices).bind(
+            self.process_index if dist.is_initialized() else None)
 
     @property
     def num_devices(self) -> int:

@@ -32,8 +32,13 @@ registry (``common/telemetry.py``). An Estimator's first ``fit`` or
 ``evaluate`` reads one batch fewer than the JAX package's, which draws
 one to trace its step (``engine/estimator.py``).
 
-Not ported: multi-host sharding, ``from_host_shard`` (ROADMAP Queue 1,
-[9] multi-GPU): it raises.
+Multi-process ingest: :meth:`FeatureSet.from_host_shard` holds only this
+process's rows (``data[process_index::process_count]`` of the global
+dataset, or any balanced split); its ``batches(batch_size)`` walks the
+local rows in a local seeded order and yields ``batch_size /
+process_count`` of them per global step, so no process ever holds the
+global dataset. The Estimator takes such a batch as the rank's own block
+(a pure-dp mesh whose dp equals the process count).
 """
 
 from __future__ import annotations
@@ -118,6 +123,11 @@ def _stack_rows(rows, what: str):
 
 class FeatureSet:
     """An immutable dataset of array trees sharing a leading dimension."""
+
+    #: the data is this process's shard (:meth:`from_host_shard`)
+    host_shard = False
+    process_index = 0
+    process_count = 1
 
     def __init__(self, data, memory_type: str = MemoryType.DRAM,
                  cache_dir: Optional[str] = None, seed: int = 0):
@@ -245,10 +255,33 @@ class FeatureSet:
         return cls(shards.collect_tree(), **kw)
 
     @classmethod
-    def from_host_shard(cls, *a, **kw):
-        raise NotImplementedError(
-            "multi-host sharded ingest is multi-GPU work (ROADMAP Queue 1, "
-            "[9] multi-GPU)")
+    def from_host_shard(cls, data, process_index: Optional[int] = None,
+                        process_count: Optional[int] = None,
+                        **kw) -> "FeatureSet":
+        """This process's slice of a dataset (e.g.
+        ``data[process_index::process_count]``): ``batches`` then yields
+        the local ``batch / process_count`` rows of each global step; keep
+        the shards balanced (within a batch) so processes stay in
+        lockstep. The ranks default to the ``torch.distributed`` job's
+        (0 of 1 without one)."""
+        import torch.distributed as dist
+
+        job = dist.is_available() and dist.is_initialized()
+        if process_index is None:
+            process_index = dist.get_rank() if job else 0
+        if process_count is None:
+            process_count = dist.get_world_size() if job else 1
+        fs = cls(data, **kw)
+        fs.host_shard = True
+        fs.process_index = int(process_index)
+        fs.process_count = int(process_count)
+        return fs
+
+    def _local_batch_size(self, batch_size: int) -> int:
+        if batch_size % self.process_count:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{self.process_count} processes")
+        return batch_size // self.process_count
 
     # ----------------------------------------------------------------- internals
     def _to_memmap(self, arr: np.ndarray, i: int) -> np.ndarray:
@@ -283,6 +316,8 @@ class FeatureSet:
         return rng.permutation(self._n_total)
 
     def num_batches(self, batch_size: int, drop_remainder: bool = True) -> int:
+        if self.host_shard:
+            batch_size = self._local_batch_size(batch_size)
         if drop_remainder:
             return self._n_total // batch_size
         return math.ceil(self._n_total / batch_size)
@@ -311,6 +346,8 @@ class FeatureSet:
                       shuffle: bool = True,
                       drop_remainder: bool = True) -> Iterator:
         nb = self.num_batches(batch_size, drop_remainder)
+        if self.host_shard:
+            batch_size = self._local_batch_size(batch_size)
         if not shuffle:
             for b in range(nb):
                 lo = b * batch_size

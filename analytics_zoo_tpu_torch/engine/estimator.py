@@ -71,9 +71,35 @@ device-cached path).
 
 The Estimator reads the process's runtime context
 (``common/context.py::init_zoo_context``) when one was initialised: its
-mesh (a mesh of more than one device raises, multi-GPU being ROADMAP
-Queue 1, [9]) and its process index (process 0 writes the checkpoints).
-With none it makes none, and trains alone on its own device.
+mesh and its process index (process 0 writes the checkpoints). With none
+it makes none, and trains alone on its own device.
+
+Multi-rank training (a mesh of N devices in a ``torch.distributed`` job of
+N ranks, one process a rank): every rank runs this same loop over the same
+global batches (one seeded order) and takes its block along the batch
+axes ``("dp", "fsdp")``: the contiguous ``1/dp`` of each global batch
+(under accumulation with per-leaf or replicated updates, its ``1/dp`` of
+each micro-batch, as the JAX step's micro-batches are laid out), and
+gradients are averaged over ``dp``. The update's layout is the JAX
+``_update_mode``: replicated (one all-reduce of every gradient that is
+not already sharded over ``dp``), ``"flat"`` (a pure-dp mesh, no
+``param_sharding``: ``parallel/update_sharding.py::flat_exchange``) or
+per-leaf (``"gspmd"`` in JAX: each leaf reduce-scattered along the dim
+``shard_spec_over_axis`` gives it, updated, all-gathered; a row-sharded
+table keeps its rows local). The step key is ``fold_in(k_train, step)``
+on every rank; the flat step folds the dp index in after that, as JAX's
+does, and the others do not: their dropout masks are drawn for the global
+batch and sliced (``nn/layers/core.py::dropout``). ``param_sharding``
+(``(name, leaf) -> P``) places leaves whose spec names ``dp`` (row-sharded
+tables) or ``pp`` (pipeline stages): each rank keeps its block. The axes
+``sp``, ``ep`` and ``pp`` shard work inside the model (ring attention, the
+MoE layer, the pipeline), whose gradients come out whole on every rank.
+Checkpoints stay in the JAX format: every rank gathers the sharded leaves
+and optimizer state, and process 0 writes; a restore slices each rank's
+blocks back out. At log points a dp axis above 1 times one param-sized
+exchange round (``make_comm_probe``) into ``zoo_train_comm_seconds``.
+Meshes with ``fsdp`` or ``tp`` above 1 raise (ROADMAP Queue 1: the rest
+of [9]).
 ``TrainConfig(donate_state=False)`` keeps the pre-step parameter tensors
 alive: a step installs its new parameters as new tensors instead of
 writing into the old ones (same bits).
@@ -84,8 +110,7 @@ Telemetry: the JAX Estimator's families, on the port's registry
 batch's wait), ``zoo_train_compute_seconds`` and ``zoo_train_grad_norm``
 (each log point), ``zoo_train_rollbacks_total``,
 ``zoo_train_checkpoints_total``, ``zoo_train_sigterm_exits_total`` and
-``zoo_train_comm_seconds`` (a dp axis above 1 only, so never on one
-card). ``zoo_train_compiles_total`` and ``zoo_train_compile_seconds``
+``zoo_train_comm_seconds`` (a dp axis above 1 only). ``zoo_train_compiles_total`` and ``zoo_train_compile_seconds``
 count XLA compiles in the JAX package, which the port does not have:
 here they record the first step of each new batch signature (shapes and
 dtypes; a scan block's shape on the device-cached path), which is where
@@ -128,6 +153,9 @@ from ..nn.metrics import get_metric
 from ..nn.module import cast_params, precision_policy, resolve_device
 from ..nn.optimizers import (apply_updates, get_optimizer, global_norm,
                              with_clipping)
+from ..parallel import comm
+from ..parallel import update_sharding as upd
+from ..parallel.sharding import P, spec_axes
 from ..parallel.update_sharding import with_master_weights
 from . import checkpoint as ckpt
 
@@ -210,12 +238,19 @@ class Estimator:
                                      else getattr(model, "device", None))
         ctx = _context()
         self.mesh = mesh if mesh is not None or ctx is None else ctx.mesh
-        if (self.mesh is not None and getattr(self.mesh, "size", 0) != 1) \
-                or param_sharding is not None:
-            raise NotImplementedError(
-                f"mesh {getattr(self.mesh, 'shape', self.mesh)} / "
-                f"param_sharding: the port trains on one card (multi-GPU "
-                f"is ROADMAP Queue 1, [9])")
+        self.param_sharding = param_sharding
+        if self.mesh is not None:
+            big = {a: n for a, n in self.mesh.shape.items()
+                   if a in ("fsdp", "tp") and n > 1}
+            if big:
+                raise NotImplementedError(
+                    f"mesh {self.mesh.shape}: fsdp/tp placement is not "
+                    f"ported (ROADMAP Queue 1, the rest of [9])")
+            if self.mesh.size > 1 and self.mesh.rank is None:
+                raise ValueError(
+                    f"mesh {self.mesh.shape} needs a torch.distributed job "
+                    f"of {self.mesh.size} ranks (init_zoo_context with a "
+                    f"coordinator, or parallel.comm.RankPool)")
         have = _model_device(model)
         if have is not None and have.type != self.device.type:
             raise ValueError(f"the model's parameters live on {have}, the "
@@ -242,6 +277,15 @@ class Estimator:
         # first async save)
         self._ckpt_writer: Optional[ckpt.CheckpointWriter] = None
         self._sigterm = False
+        # multi-rank layout, fixed at the first _init_state
+        self._specs: Dict[str, P] = {}
+        self._upd_dims: Dict[str, Optional[int]] = {}
+        self._flat_meta: Optional[upd.FlatParamMeta] = None
+        self._comm_probe = None
+        # the streamed batches are this rank's block already (host shards)
+        self._batches_local = False
+        # leaf name -> the axes its gradient's blocks are sharded over
+        self._norm_axes: Dict[str, tuple] = {}
         self._rebuild_tx()
 
     def _rebuild_tx(self) -> "Estimator":
@@ -250,7 +294,8 @@ class Estimator:
         low-precision params."""
         cfg = self.config
         self.tx = with_clipping(self._base_tx, cfg.gradient_clip_norm,
-                                cfg.gradient_clip_value)
+                                cfg.gradient_clip_value,
+                                norm_fn=self._global_norm)
         self._mp_dtype = None
         if cfg.compute_dtype not in (None, "float32"):
             self._mp_dtype = torch.bfloat16
@@ -286,14 +331,165 @@ class Estimator:
 
         return _tree_map(put, tree)
 
+    # ------------------------------------------------------------ the layout
+    def _dp_axis(self) -> Optional[comm.Axis]:
+        """The dp axis when it is above 1, else None."""
+        if self.mesh is None or self.mesh.shape.get("dp", 1) <= 1:
+            return None
+        return self.mesh.axis("dp")
+
+    def _update_mode(self) -> Optional[str]:
+        """``None`` (replicated update), ``"flat"`` (a pure-dp mesh and no
+        ``param_sharding``) or ``"gspmd"`` (per-leaf), as the JAX
+        ``_update_mode`` picks them."""
+        us = self.config.update_sharding
+        if not us or self._dp_axis() is None:
+            return None
+        pure_dp = all(n == 1 for a, n in self.mesh.shape.items() if a != "dp")
+        if us == "gspmd":
+            return "gspmd"
+        if pure_dp and self.param_sharding is None:
+            return "flat"
+        if us == "flat":
+            logger.warning("update_sharding='flat' needs a pure-dp mesh and "
+                           "no param_sharding rules; using per-leaf update "
+                           "sharding")
+        return "gspmd"
+
+    def _leaf_spec(self, name: str, leaf) -> P:
+        """``param_sharding``'s spec for a leaf, axes of size 1 dropped; a
+        dim may name one axis of dp, pp, ep and sp."""
+        if self.param_sharding is None or self.mesh is None:
+            return P()
+        out = []
+        for e in self.param_sharding(name, leaf):
+            axes = tuple(a for a in (e if isinstance(e, tuple) else (e,))
+                         if a is not None and self.mesh.shape.get(a, 1) > 1)
+            if len(axes) > 1 or any(a in ("fsdp", "tp") for a in axes):
+                raise NotImplementedError(
+                    f"param {name}: spec {e!r} (fsdp/tp and several axes on "
+                    f"one dim are ROADMAP Queue 1, the rest of [9])")
+            out.append(axes[0] if axes else None)
+        while out and out[-1] is None:
+            out.pop()
+        return P(*out)
+
+    def _place_params(self) -> None:
+        """Each leaf whose spec names an axis keeps this rank's block of
+        it (the JAX ``_place_state`` of the params)."""
+        for name, p in self._params().items():
+            spec = self._leaf_spec(name, p)
+            if not spec_axes(spec):
+                continue
+            block = p.detach()
+            for d, a in enumerate(spec):
+                if a is not None:
+                    ax = self.mesh.axis(a)
+                    if block.shape[d] % ax.size:
+                        raise ValueError(f"param {name}: dim {d} of size "
+                                         f"{block.shape[d]} does not split "
+                                         f"over {a}={ax.size}")
+                    block = block.chunk(ax.size, d)[ax.index]
+            p.data = block.clone()
+            self._specs[name] = spec
+
+    def _full(self, name: str, t: torch.Tensor, upd_dim=None) -> torch.Tensor:
+        """A leaf's whole value from this rank's block (every rank calls
+        it): the per-leaf update's dp shard first, then the spec's
+        blocks."""
+        if upd_dim is not None:
+            t = comm.all_gather(t, "dp", dim=upd_dim, tiled=True,
+                                mesh=self.mesh)
+        for d, a in enumerate(self._specs.get(name, ())):
+            if a is not None:
+                t = comm.all_gather(t, a, dim=d, tiled=True, mesh=self.mesh)
+        return t
+
+    def _block(self, name: str, t: torch.Tensor, upd_dim=None
+               ) -> torch.Tensor:
+        """The inverse of :meth:`_full`: this rank's block of a whole
+        leaf."""
+        for d, a in enumerate(self._specs.get(name, ())):
+            if a is not None:
+                ax = self.mesh.axis(a)
+                t = t.chunk(ax.size, d)[ax.index]
+        if upd_dim is not None:
+            ax = self.mesh.axis("dp")
+            t = t.chunk(ax.size, upd_dim)[ax.index]
+        return t.contiguous()
+
+    def _global_norm(self, g: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The f32 L2 norm of the whole gradient when ``g`` holds this
+        rank's blocks of some leaves: each group of leaves' sum of squares
+        summed over the axes its leaves are sharded on."""
+        if not self._norm_axes:
+            return global_norm(g)
+        groups: Dict[tuple, list] = {}
+        for n, x in g.items():
+            groups.setdefault(self._norm_axes.get(n, ()), []).append(
+                torch.sum(x.float() * x.float()))
+        total = None
+        for axes in sorted(groups):
+            t = sum(groups[axes])
+            for a in axes:
+                t = comm.psum(t, a, mesh=self.mesh)
+            total = t if total is None else total + t
+        return torch.sqrt(total)
+
+    def _local_values(self, values: Dict[str, torch.Tensor]):
+        """The per-leaf update's dp shards of ``values``."""
+        ax = self._dp_axis()
+        return {n: v.chunk(ax.size, self._upd_dims[n])[ax.index]
+                if self._upd_dims.get(n) is not None else v
+                for n, v in values.items()}
+
+    def _opt_init(self, values: Dict[str, torch.Tensor]):
+        """The optimizer state for ``values`` in this run's layout."""
+        mode = self._update_mode()
+        if mode == "flat":
+            return upd.flat_opt_init(self._base_tx, values, self._flat_meta,
+                                     keep_master=self._mp_dtype is not None,
+                                     index=self._dp_axis().index)
+        if mode == "gspmd":
+            return self.tx.init(self._local_values(values))
+        return self.tx.init(values)
+
     # ------------------------------------------------------------------ build
     def _init_state(self, seed: int = 0) -> None:
         """Optimizer state from the model's current weights, and the
         training key: ``split(PRNGKey(seed))[1]``. Under mixed precision
         the masters are taken in f32 first, then the model's copy is cast
-        down."""
+        down. On a mesh, sharded leaves keep their blocks first."""
+        self._place_params()
         values = {n: p.detach() for n, p in self._params().items()}
-        opt_state = self.tx.init(values)
+        self._norm_axes = {n: spec_axes(self._specs[n]) for n in values
+                           if spec_axes(self._specs.get(n, ()))}
+        mode = self._update_mode()
+        if mode == "gspmd":
+            ax = self._dp_axis()
+            for n, v in values.items():
+                base = self._specs.get(n, P())
+                if "dp" in spec_axes(base):
+                    self._upd_dims[n] = None
+                    continue
+                shape = list(v.shape)
+                for d, a in enumerate(base):
+                    if a is not None:
+                        shape[d] *= self.mesh.shape[a]
+                d = upd.dp_dim(upd.shard_spec_over_axis(base, shape,
+                                                        self.mesh))
+                if d is not None and v.shape[d] % ax.size:
+                    d = None
+                self._upd_dims[n] = d
+                if d is not None:
+                    self._norm_axes[n] = spec_axes(base) + ("dp",)
+        if mode == "flat":
+            model_vals = {n: v.to(self._mp_dtype) if self._mp_dtype
+                          is not None and v.is_floating_point() else v
+                          for n, v in values.items()}
+            self._flat_meta = upd.flat_meta(model_vals,
+                                            self._dp_axis().size)
+        opt_state = self._opt_init(values)
         if self._mp_dtype is not None:
             cast_params(self.model, self._mp_dtype)
         _k_init, k_train = prng.split(prng.PRNGKey(seed))
@@ -306,8 +502,8 @@ class Estimator:
         new weights into a trained model needs."""
         if self.train_state is not None:
             values = {n: p.detach() for n, p in self._params().items()}
-            self.train_state = {"opt_state": self.tx.init(values), "step": 0,
-                                "rng": self.train_state["rng"]}
+            self.train_state = {"opt_state": self._opt_init(values),
+                                "step": 0, "rng": self.train_state["rng"]}
         return self
 
     def _loss_of(self, x, y, rng) -> torch.Tensor:
@@ -356,21 +552,107 @@ class Estimator:
             losses.append(loss)
         return torch.stack(losses).mean(), {n: a / k for n, a in acc.items()}
 
+    def _batch_shard(self, mode) -> Optional[comm.BatchShard]:
+        ax = self._dp_axis()
+        if ax is None:
+            return None
+        return comm.BatchShard(ax.index, ax.size, "dp",
+                               global_draws=mode != "flat")
+
+    def _local_batch(self, batch, shard: comm.BatchShard, mode):
+        """This rank's rows of a global batch: its contiguous ``1/dp``, or
+        under accumulation outside the flat layout its ``1/dp`` of each
+        micro-batch (the JAX step's micro-batches are global rows
+        sharded over dp)."""
+        k = max(1, int(self.config.grad_accum_steps))
+        n, r = shard.count, shard.index
+
+        def take(a):
+            b = a.shape[0]
+            if b % (n * k):
+                raise ValueError(f"global batch {b} does not split over "
+                                 f"dp={n} x grad_accum_steps={k}")
+            if mode == "flat" or k == 1:
+                return a[r * (b // n):(r + 1) * (b // n)]
+            m = b // k
+            return a.reshape((k, n, m // n) + tuple(a.shape[1:]))[:, r] \
+                .reshape((b // n,) + tuple(a.shape[1:]))
+
+        return _tree_map(take, batch)
+
+    def _allreduce_mean(self, g: Dict[str, torch.Tensor], names) -> None:
+        """Average ``g[names]`` over dp in place: one all-reduce of the
+        leaves flattened in the JAX order."""
+        names = upd.leaf_order(names)
+        if not names:
+            return
+        ax = self._dp_axis()
+        flat = torch.cat([g[n].reshape(-1) for n in names])
+        flat = comm.psum(flat, "dp", mesh=self.mesh) / ax.size
+        off = 0
+        for n in names:
+            size = g[n].numel()
+            g[n] = flat[off:off + size].reshape(g[n].shape)
+            off += size
+
     def _step(self, batch):
         """One optimizer step; returns ``(loss, grad_norm)`` as 0-d
         tensors (no host sync)."""
         ts = self.train_state
-        with self._policy():
-            loss, grads = self._grads(batch, self._step_key())
+        mode = self._update_mode()
+        shard = self._batch_shard(mode)
+        key = self._step_key()
+        if shard is not None:
+            if not self._batches_local:
+                batch = self._local_batch(batch, shard, mode)
+            if mode == "flat":
+                # decorrelate the replicas' dropout and negative draws
+                key = prng.fold_in(key, shard.index)
+        with self._policy(), comm.batch_shard(shard):
+            loss, grads = self._grads(batch, key)
         params = self._params()
         g32 = {n: g.float() for n, g in grads.items()}
         for p in params.values():
             p.grad = None
-        gnorm = global_norm(g32)
         values = {n: p.detach() for n, p in params.items()}
-        updates, new_opt = self.tx.update(g32, ts["opt_state"], values)
-        new = updates if self._mp_dtype is not None else apply_updates(
-            values, updates)
+        if shard is not None:
+            loss = comm.psum(loss, "dp", mesh=self.mesh) / shard.count
+            # a leaf sharded over dp (a row-sharded table) got the sum of
+            # every rank's local-mean gradient through its exchange
+            for n in g32:
+                if "dp" in spec_axes(self._specs.get(n, ())):
+                    g32[n] = g32[n] / shard.count
+        if mode == "flat":
+            cfg = self.config
+            new, new_opt, gnorm = upd.flat_exchange(
+                values, g32, ts["opt_state"], self._flat_meta,
+                self._base_tx, mesh=self.mesh, clip_norm=cfg.gradient_clip_norm,
+                clip_value=cfg.gradient_clip_value)
+        else:
+            if shard is not None:
+                if mode == "gspmd":
+                    whole = [n for n in g32 if self._upd_dims.get(n) is None
+                             and "dp" not in spec_axes(self._specs.get(n, ()))]
+                    for n, d in self._upd_dims.items():
+                        if d is not None:
+                            g32[n] = comm.psum_scatter(
+                                g32[n], "dp", dim=d, tiled=True,
+                                mesh=self.mesh) / shard.count
+                else:
+                    whole = [n for n in g32 if "dp" not in spec_axes(
+                        self._specs.get(n, ()))]
+                self._allreduce_mean(g32, whole)
+            if mode == "gspmd":
+                values = self._local_values(values)
+            gnorm = self._global_norm(g32)
+            updates, new_opt = self.tx.update(g32, ts["opt_state"], values)
+            new = updates if self._mp_dtype is not None else apply_updates(
+                values, updates)
+            if mode == "gspmd":
+                new = {n: comm.all_gather(t, "dp", dim=self._upd_dims[n],
+                                          tiled=True, mesh=self.mesh)
+                       if self._upd_dims.get(n) is not None else t
+                       for n, t in new.items()}
         with torch.no_grad():
             if self.config.donate_state:
                 for n, p in params.items():
@@ -515,19 +797,61 @@ class Estimator:
         return self
 
     # ------------------------------------------------------------ checkpoints
+    def _sharded_state(self) -> bool:
+        return bool(self._specs) or self._update_mode() is not None
+
     def checkpoint_state(self) -> Dict[str, Any]:
         """The train state as the JAX package's tree over the live tensors
-        (``bridge.train_state_to_jax``): what a checkpoint holds."""
+        (``bridge.train_state_to_jax``): what a checkpoint holds. With
+        sharded leaves or a sharded optimizer state every rank must call
+        it: their blocks are gathered."""
         if self.train_state is None:
             self._init_state()
-        return bridge.train_state_to_jax(self.model, self.train_state)
+        if not self._sharded_state():
+            return bridge.train_state_to_jax(self.model, self.train_state)
+        ts = self.train_state
+        mode = self._update_mode()
+        if mode == "flat":
+            opt = bridge.flat_opt_state_to_jax(
+                ts["opt_state"], lambda t: comm.all_gather(
+                    t, "dp", dim=0, tiled=True, mesh=self.mesh))
+        else:
+            opt = bridge.opt_state_to_jax(bridge.map_param_dicts(
+                ts["opt_state"], lambda n, t: self._full(
+                    n, t, self._upd_dims.get(n))))
+        return bridge.train_state_to_jax(
+            self.model, {**ts, "opt_state": opt},
+            params={n: self._full(n, p.detach())
+                    for n, p in self.model.named_parameters()},
+            opt_is_jax=True)
 
     def _restore(self, path: str) -> Dict[str, Any]:
         """Load a checkpoint (written by either package) into the model and
-        the optimizer state, and its iteration and epoch into the loop."""
+        the optimizer state, and its iteration and epoch into the loop;
+        each rank keeps its blocks of sharded leaves and state."""
         restored, meta = ckpt.load_checkpoint(path, self.checkpoint_state())
-        self.train_state = bridge.train_state_from_jax(
-            self.model, restored, self.train_state)
+        if not self._sharded_state():
+            self.train_state = bridge.train_state_from_jax(
+                self.model, restored, self.train_state)
+        else:
+            ts = self.train_state
+            if self._update_mode() == "flat":
+                sh = self._flat_meta.shard_size
+                i = self._dp_axis().index
+                opt_tree = restored["opt_state"]
+                opt = bridge.flat_opt_state_from_jax(
+                    opt_tree, ts["opt_state"],
+                    lambda t: t[i * sh:(i + 1) * sh].clone())
+                restored = {**restored, "opt_state": None}
+            state = bridge.train_state_from_jax(
+                self.model, restored, {**ts, "opt_state": None},
+                block=self._block)
+            if self._update_mode() != "flat":
+                full = bridge.opt_state_from_jax(restored["opt_state"],
+                                                 ts["opt_state"])
+                opt = bridge.map_param_dicts(full, lambda n, t: self._block(
+                    n, t, self._upd_dims.get(n)))
+            self.train_state = {**state, "opt_state": opt}
         self.trainer_state.iteration = meta["iteration"]
         self.trainer_state.epoch = meta["epoch"]
         return meta
@@ -540,6 +864,7 @@ class Estimator:
         returns. ``raise_drain_errors=False`` forfeits an earlier failed
         async write instead of raising it. Only process 0 writes (it
         returns ``None`` elsewhere)."""
+        state = self.checkpoint_state() if self._sharded_state() else None
         if getattr(_context(), "process_index", 0) != 0:
             return None
         _CHECKPOINTS.inc()
@@ -550,7 +875,8 @@ class Estimator:
             writer = self._ckpt_writer
         else:
             self._drain_checkpoints(raise_errors=raise_drain_errors)
-        return ckpt.save_checkpoint(directory, self.checkpoint_state(),
+        return ckpt.save_checkpoint(directory, state or
+                                    self.checkpoint_state(),
                                     iteration=self.trainer_state.iteration,
                                     epoch=self.trainer_state.epoch,
                                     writer=writer)
@@ -605,6 +931,7 @@ class Estimator:
         ts = self.trainer_state
         loss_val, gnorm_val = float(loss), float(gnorm)
         _GRAD_NORM.observe(gnorm_val)
+        self._observe_comm()
         ts.last_loss = loss_val
         now = time.perf_counter()
         rec = {"epoch": ts.epoch, "iteration": ts.iteration,
@@ -622,6 +949,22 @@ class Estimator:
         logger.info("epoch %d iter %d loss %.4f gnorm %.3f (data %.2fms "
                     "compute %.2fms /step)", ts.epoch, ts.iteration,
                     loss_val, gnorm_val, rec["data_ms"], rec["compute_ms"])
+
+    def _observe_comm(self) -> None:
+        """Feed ``zoo_train_comm_seconds``: one param-sized exchange round
+        on the dp axis (psum, or reduce-scatter + all-gather under update
+        sharding), timed off the step."""
+        if self._dp_axis() is None:
+            return
+        if self._comm_probe is None:
+            n = sum(p.numel() for p in self._params().values())
+            self._comm_probe = upd.make_comm_probe(
+                n, sharded=self._update_mode() is not None, mesh=self.mesh,
+                device=self.device)
+        fn, vec = self._comm_probe
+        t0 = time.perf_counter()
+        fn(vec)
+        _COMM.observe(time.perf_counter() - t0)
 
     def _finish_epoch(self, t0: float, seen: int, loss, batch_size: int,
                       data_wait_s: float = 0.0,
@@ -649,6 +992,14 @@ class Estimator:
                    checkpoint_trigger: Optional[Trigger] = None) -> None:
         cfg = self.config
         ts = self.trainer_state
+        self._batches_local = train_set.host_shard
+        if train_set.host_shard:
+            dp = self._dp_axis()
+            if (dp.size if dp else 1) != train_set.process_count:
+                raise ValueError(
+                    f"a host-sharded FeatureSet of {train_set.process_count} "
+                    f"processes needs a dp axis of that size (mesh "
+                    f"{getattr(self.mesh, 'shape', None)})")
         seen = 0
         loss = None
         t0 = time.perf_counter()
@@ -745,6 +1096,7 @@ class Estimator:
         block, one at a time."""
         cfg = self.config
         ts = self.trainer_state
+        self._batches_local = False
         self._cache_dataset(train_set)
         data = self._device_data
         idx = self.epoch_order(train_set, ts.epoch)

@@ -87,6 +87,24 @@ class NeuralCF(Recommender):
                     hidden_layers=self.hidden_layers,
                     include_mf=self.include_mf, mf_embed=self.mf_embed)
 
+    @property
+    def table_rows(self) -> int:
+        """Rows of the fused pair table, ``(user_count+1) + (item_count+1)``
+        (the 1-based ids' +1s): row sharding needs them to divide the mesh
+        axis (``parallel.embedding_sharding.pad_rows``)."""
+        return self.user_count + 1 + self.item_count + 1
+
+    def shard_tables(self, mesh, *, axis: str = "dp", min_rows: int = 0,
+                     shard_batch: bool = True):
+        """Row-shard the fused table over ``mesh[axis]`` and return the
+        Estimator's ``param_sharding`` rule (replicated, and no marking,
+        when :attr:`table_rows` does not divide the axis)."""
+        from ...parallel.embedding_sharding import shard_embedding_tables
+
+        return shard_embedding_tables(self, mesh, axis=axis,
+                                      min_rows=min_rows,
+                                      shard_batch=shard_batch)
+
     @classmethod
     def load_model(cls, path: str, *, device=None) -> "NeuralCF":
         """Rebuild the architecture from a bundle's config.json and load

@@ -35,7 +35,12 @@ last row of the position table: the JAX package's lookup fills NaN past
 it, which reaches the chunk's valid rows through the scratch page (0·NaN);
 the valid rows, all below ``max_seq_len <= seq_len``, are unchanged.
 
-Not ported yet: ``PipelinedTransformerLM`` (ROADMAP Queue 1, item 9).
+:class:`PipelinedTransformerLM` is the ``pp`` strategy: its blocks'
+parameters are stacked on a leading ``(n_block, ...)`` axis under
+``blocks.*`` (one block module's structure, the JAX ``params["blocks"]``),
+and under a runtime context with ``pp > 1`` its blocks run as a GPipe
+pipeline (``parallel/pipeline.py``); off a pp mesh it applies them in
+turn, so one checkpoint serves both layouts.
 """
 
 from __future__ import annotations
@@ -318,6 +323,144 @@ class TransformerLM(KerasNet, nn.Module):
         return accepted, tokens, draft_probs, cache
 
 
+def _pp_mesh():
+    """The initialised context's mesh and its pp size when above 1, else
+    ``(None, 1)``."""
+    from ..common.context import get_zoo_context
+
+    try:
+        mesh = get_zoo_context(auto_init=False).mesh
+    except RuntimeError:
+        return None, 1
+    pp = mesh.shape.get("pp", 1) if mesh is not None else 1
+    return (mesh, pp) if pp > 1 else (None, 1)
+
+
+class PipelinedTransformerLM(KerasNet, nn.Module):
+    """TransformerLM whose blocks run as a GPipe pipeline over ``pp``.
+
+    ``blocks.*`` hold every block's parameters stacked on a leading axis;
+    :meth:`param_spec` shards that axis over ``pp`` for the Estimator's
+    ``param_sharding`` (each rank keeps its stage's blocks). Embeddings,
+    the final LN and the LM head stay replicated outside the pipeline.
+    ``seed`` draws the weights as :class:`TransformerLM`'s does (CPU
+    generator: tables, LM head, then each block in turn)."""
+
+    def __init__(self, vocab: int, hidden_size: int = 256, n_block: int = 4,
+                 n_head: int = 8, seq_len: int = 512,
+                 intermediate_size: Optional[int] = None,
+                 n_microbatches: int = 4, attn_strategy: str = "full", *,
+                 device=None, seed: int = 0):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.vocab = vocab
+        self.hidden_size = hidden_size
+        self.n_block = n_block
+        self.n_head = n_head
+        self.seq_len = seq_len
+        self.intermediate_size = intermediate_size
+        self.n_microbatches = n_microbatches
+        self.attn_strategy = attn_strategy
+        g = torch.Generator().manual_seed(int(seed))
+        dev = self.device
+        self.token_embeddings = nn.Parameter(
+            embedding_normal(g, (vocab, hidden_size)).to(dev))
+        self.pos_embeddings = nn.Parameter(
+            embedding_normal(g, (seq_len, hidden_size)).to(dev))
+        self.logits_kernel = nn.Parameter(
+            glorot_uniform(g, (hidden_size, vocab)).to(dev))
+        per_block = [TransformerLayer(hidden_size, n_head, intermediate_size,
+                                      causal=True,
+                                      attn_strategy=attn_strategy,
+                                      generator=g, device="cpu")
+                     for _ in range(n_block)]
+        # one block module holds the structure; its parameters are the
+        # stacked (n_block, ...) leaves, and a block applies through
+        # functional_call with its slice
+        self.blocks = per_block[0]
+        stacked = {n: torch.stack([dict(b.named_parameters())[n].detach()
+                                   for b in per_block])
+                   for n, _ in per_block[0].named_parameters()}
+        for name, t in stacked.items():
+            *path, leaf = name.split(".")
+            owner = self.blocks
+            for part in path:
+                owner = getattr(owner, part)
+            setattr(owner, leaf, nn.Parameter(t.to(dev)))
+        self.blocks.to(dev)
+        self.ln_f = LayerNormalization(hidden_size, device=dev)
+
+    def param_spec(self, path, leaf):
+        """``(name, leaf) -> P`` for ``Estimator(param_sharding=...)``:
+        the stacked ``blocks.*`` leaves shard their block axis over ``pp``
+        (a top-level ``blocks`` key only); everything else replicates."""
+        from ..parallel.sharding import P, path_keys
+
+        keys = path_keys(path)
+        if keys and keys[0] == "blocks" and getattr(leaf, "ndim", 0) >= 1:
+            _, pp = _pp_mesh()
+            if pp > 1 and self.n_block % pp:
+                raise ValueError(
+                    f"n_block={self.n_block} is not divisible by the mesh's "
+                    f"pp={pp}: pipeline stages must hold equal block counts")
+            return P("pp")
+        return P()
+
+    def _stacked(self) -> Dict[str, torch.Tensor]:
+        return dict(self.blocks.named_parameters())
+
+    def _apply_block_stack(self, stacked: Dict[str, torch.Tensor],
+                           h: torch.Tensor) -> torch.Tensor:
+        """The blocks of ``stacked`` (leaves (k, ...)) in turn."""
+        from torch.func import functional_call
+
+        k = next(iter(stacked.values())).shape[0]
+        for j in range(k):
+            h = functional_call(self.blocks,
+                                {n: p[j] for n, p in stacked.items()}, (h,))
+        return h
+
+    def apply_features(self, x) -> torch.Tensor:
+        ids = torch.as_tensor(x, device=self.device).long()
+        h = self.token_embeddings[ids] + self.pos_embeddings[:ids.shape[1]][None]
+        h = as_compute(h)
+        stacked = self._stacked()
+        mesh, pp = _pp_mesh()
+        if pp > 1:
+            from ..parallel.pipeline import pipeline_apply
+
+            if self.n_block % pp:
+                raise ValueError(f"n_block={self.n_block} not divisible by "
+                                 f"pp={pp}")
+            k = self.n_block // pp
+            lead = next(iter(stacked.values())).shape[0]
+            stages = {n: p.reshape((lead // k, k) + tuple(p.shape[1:]))
+                      for n, p in stacked.items()}
+            h = pipeline_apply(self._apply_block_stack, stages, h, mesh,
+                               n_microbatches=self.n_microbatches)
+        else:
+            h = self._apply_block_stack(stacked, h)
+        return self.ln_f(h)
+
+    def apply(self, x) -> torch.Tensor:
+        h = self.apply_features(x)
+        return h @ self.logits_kernel.to(h.dtype)
+
+    def forward(self, x) -> torch.Tensor:
+        return self.apply(x)
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape) + (self.vocab,)
+
+    def constructor_config(self):
+        return dict(vocab=self.vocab, hidden_size=self.hidden_size,
+                    n_block=self.n_block, n_head=self.n_head,
+                    seq_len=self.seq_len,
+                    intermediate_size=self.intermediate_size,
+                    n_microbatches=self.n_microbatches,
+                    attn_strategy=self.attn_strategy)
+
+
 def lm_loss(y_true, logits) -> torch.Tensor:
     """Next-token cross entropy over (B, T) int targets and (B, T, V)
     logits, in f32 and in the lse form (CE = logsumexp(z) − z[label]), as
@@ -329,4 +472,4 @@ def lm_loss(y_true, logits) -> torch.Tensor:
     return torch.mean(lse - picked)
 
 
-__all__ = ["TransformerLM", "lm_loss"]
+__all__ = ["PipelinedTransformerLM", "TransformerLM", "lm_loss"]

@@ -8,6 +8,7 @@ from .core import (Activation, Dense, Dropout, InputLayer, Lambda, Narrow,
 from .embedding import (Embedding, FusedPairEmbedding, SparseEmbedding,
                         WordEmbedding, load_glove_table)
 from .merge import Merge, merge
+from .moe import MoE
 from .normalization import BatchNormalization, LayerNormalization
 from .recurrent import (GRU, LSTM, Bidirectional, ConvLSTM2D, ConvLSTM3D,
                         SimpleRNN, TimeDistributed)
@@ -17,6 +18,6 @@ __all__ = ["Activation", "BatchNormalization", "Bidirectional",
            "Dense", "Dropout", "Embedding", "FusedPairEmbedding", "GRU",
            "GlobalAveragePooling2D", "GlobalMaxPooling1D",
            "InputLayer", "LSTM", "Lambda", "LayerNormalization",
-           "MaxPooling2D", "Merge", "Narrow", "Select", "SimpleRNN",
+           "MaxPooling2D", "Merge", "MoE", "Narrow", "Select", "SimpleRNN",
            "SparseDense", "SparseEmbedding", "TimeDistributed",
            "WordEmbedding", "load_glove_table", "merge"]

@@ -20,8 +20,13 @@ JAX layer's mask: ``prng.bernoulli(fold_in(rng, 1), 1 - rate)``
 (``layers.core.dropout``). ``TransformerLM`` builds its blocks without
 dropout, as the JAX model does.
 
-Not ported yet: ``PositionalEmbedding``, ``BERT`` and the mesh-sharded
-strategies (``ring``, ``zigzag``, ``ulysses``; ROADMAP Queue 1, [9]).
+Under a runtime context whose mesh is set (``init_zoo_context``), every
+strategy but ``"full"`` dispatches through
+``ops/attention.py::sharded_attention``: the sequence-parallel ``ring``,
+``zigzag`` and ``ulysses`` over the mesh's ``sp`` axis, single-device
+attention where ``sp`` is 1, as the JAX layer does.
+
+Not ported yet: ``PositionalEmbedding`` and ``BERT``.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ import torch
 from torch import nn
 
 from ...common import prng
-from ...ops.attention import full_attention, prefer_flash_single_device
+from ...ops.attention import (STRATEGIES, full_attention,
+                              prefer_flash_single_device, sharded_attention)
 from ...ops.flash_attention import flash_attention
 from ...ops.kv_cache import paged_write_multi
 from ...ops.paged_attention import paged_attention
@@ -41,11 +47,20 @@ from ..module import as_compute, glorot_uniform, zeros_init
 from .core import dropout as _dropout
 from .normalization import LayerNormalization
 
-_STRATEGIES = ("auto", "full", "flash")
 
 
 def _param(t: torch.Tensor, device) -> nn.Parameter:
     return nn.Parameter(t.to(device))
+
+
+def _context_mesh():
+    """The initialised runtime context's mesh, else None."""
+    from ...common.context import get_zoo_context
+
+    try:
+        return get_zoo_context(auto_init=False).mesh
+    except RuntimeError:
+        return None
 
 
 class MultiHeadAttention(nn.Module):
@@ -58,11 +73,9 @@ class MultiHeadAttention(nn.Module):
         if hidden_size % n_head:
             raise ValueError(f"hidden_size {hidden_size} must divide into "
                              f"{n_head} heads")
-        if attn_strategy not in _STRATEGIES:
-            raise NotImplementedError(
-                f"attn_strategy {attn_strategy!r}: only {_STRATEGIES} are "
-                f"ported (the sequence-parallel strategies are ROADMAP "
-                f"Queue 1, multi-GPU)")
+        if attn_strategy not in STRATEGIES:
+            raise ValueError(f"unknown attention strategy {attn_strategy!r};"
+                             f" known: {', '.join(STRATEGIES)}")
         self.hidden_size = hidden_size
         self.n_head = n_head
         self.head_dim = hidden_size // n_head
@@ -97,6 +110,11 @@ class MultiHeadAttention(nn.Module):
     def _attend(self, q, k, v, t: int):
         """Strategy dispatch: (B, T, n_head, head_dim) q/k/v → output of
         the same shape."""
+        mesh = _context_mesh()
+        if mesh is not None and self.attn_strategy != "full":
+            return sharded_attention(q, k, v, mesh,
+                                     strategy=self.attn_strategy,
+                                     causal=self.causal)
         if self._flash_single_device(t, q.device):
             return flash_attention(q, k, v, self.causal)
         return full_attention(q, k, v, causal=self.causal)

@@ -180,9 +180,21 @@ def dropout(x: torch.Tensor, rate: float, key) -> torch.Tensor:
     ``prng.bernoulli(key, 1 - rate, x.shape)``, as ``x / keep`` in x's
     dtype (``keep`` rounded to it, as JAX's weak-typed scalar is),
     zero elsewhere. The mask is drawn on x's device: the same bits on
-    the card, the CPU and JAX."""
+    the card, the CPU and JAX. On a rank's block of a global batch
+    (``parallel.comm.batch_shard``) whose step key is the same on every
+    rank, the mask is drawn for the global batch and the block's rows
+    taken, as the JAX step draws it over the global array."""
+    from ...parallel.comm import current_batch_shard
+
     keep = 1.0 - rate
-    mask = prng.bernoulli(key, keep, x.shape, device=x.device)
+    shard = current_batch_shard()
+    if shard is not None and shard.global_draws and shard.count > 1:
+        b = x.shape[0]
+        mask = prng.bernoulli(key, keep, (b * shard.count,) + tuple(
+            x.shape[1:]), device=x.device)[shard.index * b:
+                                           (shard.index + 1) * b]
+    else:
+        mask = prng.bernoulli(key, keep, x.shape, device=x.device)
     kept = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
     return torch.where(mask, kept, torch.zeros((), dtype=x.dtype,
                                                 device=x.device))

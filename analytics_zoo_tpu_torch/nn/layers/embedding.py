@@ -16,9 +16,11 @@ fills an out-of-range id; on the card ``F.embedding`` stops the stream with
 a device-side assert instead. No host check guards this, since it would
 wait for the card on every step: in-range ids are the caller's contract.
 
-Not ported: the row-sharded lookup (``table_sharding``, set by the JAX
-package's embedding sharding), which is multi-GPU work (ROADMAP Queue 1,
-item 9) and raises.
+A layer marked by ``parallel.embedding_sharding.shard_embedding_tables``
+(its ``table_sharding``) whose table holds this rank's block of rows (the
+Estimator places it) looks up through ``sharded_gather``: the model-
+parallel exchange, zero rows for out-of-range ids. While its table is
+still whole it takes the plain gather.
 """
 
 from __future__ import annotations
@@ -42,10 +44,15 @@ def _ids(x) -> torch.Tensor:
 
 
 def _lookup(layer, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    if getattr(layer, "table_sharding", None) is not None:
-        raise NotImplementedError(
-            "row-sharded embedding tables are multi-GPU work (ROADMAP "
-            "Queue 1, item 9)")
+    ts = getattr(layer, "table_sharding", None)
+    if ts is not None:
+        from ...parallel.embedding_sharding import (sharded_gather,
+                                                    table_rows)
+
+        n = ts.mesh.shape.get(ts.axis, 1)
+        if n > 1 and table.shape[0] * n == table_rows(layer):
+            return sharded_gather(table, ids, ts.mesh, ts.axis,
+                                  shard_batch=ts.shard_batch)
     return F.embedding(ids, table)
 
 

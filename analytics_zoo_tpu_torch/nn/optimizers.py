@@ -303,9 +303,16 @@ def global_norm(tree: Params) -> torch.Tensor:
                           for x in tree.values()))
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float,
+                        norm_fn: Optional[Callable[[Params], torch.Tensor]]
+                        = None) -> GradientTransformation:
+    """optax's rule: keep ``g`` below ``max_norm``, else ``g / norm *
+    max_norm``. ``norm_fn``: the norm of the whole gradient when ``g``
+    holds only this rank's shards of it (default :func:`global_norm`)."""
+    norm_fn = norm_fn or global_norm
+
     def update(g, state, params=None):
-        g_norm = global_norm(g)
+        g_norm = norm_fn(g)
         keep = g_norm < max_norm
         return {n: torch.where(keep, x, (x / g_norm.to(x.dtype)) * max_norm)
                 for n, x in g.items()}, state
@@ -425,12 +432,14 @@ def get_optimizer(opt) -> GradientTransformation:
 
 def with_clipping(tx: GradientTransformation,
                   clip_norm: Optional[float] = None,
-                  clip_value: Optional[tuple] = None
+                  clip_value: Optional[tuple] = None, *,
+                  norm_fn: Optional[Callable[[Params], torch.Tensor]] = None
                   ) -> GradientTransformation:
-    """Global-L2 and/or constant-range clipping composed before ``tx``."""
+    """Global-L2 and/or constant-range clipping composed before ``tx``
+    (``norm_fn``: as :func:`clip_by_global_norm`'s)."""
     parts = []
     if clip_norm is not None:
-        parts.append(clip_by_global_norm(clip_norm))
+        parts.append(clip_by_global_norm(clip_norm, norm_fn))
     if clip_value is not None:
         lo, hi = clip_value
         parts.append(clip_by_range(lo, hi))

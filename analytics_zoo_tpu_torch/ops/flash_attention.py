@@ -366,6 +366,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def grad_layout(g: torch.Tensor) -> torch.Tensor:
+    """An incoming output grad laid out for the backward kernels: itself
+    when contiguous and 16-byte aligned, else a contiguous copy (one
+    broadcast from ``.sum()`` has stride 0; the kernels take a contiguous
+    head dim and, in bf16, 16-byte-aligned rows)."""
+    if not g.is_contiguous() or g.data_ptr() % 16:
+        g = g.clone(memory_format=torch.contiguous_format)
+    return g
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """K1 forward saving ``(q, k, v, out, lse)``; K3 + K4 backward (the
     port of the JAX custom VJP). On CPU tensors both halves take their
@@ -381,12 +391,8 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        if not g.is_contiguous() or g.data_ptr() % 16:
-            # the incoming grad is ours to lay out (one broadcast from
-            # .sum() has stride 0): the kernels take a contiguous head dim
-            # and, in bf16, 16-byte-aligned rows
-            g = g.clone(memory_format=torch.contiguous_format)
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.causal)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, grad_layout(g),
+                                         ctx.causal)
         return dq, dk, dv, None
 
 
@@ -402,4 +408,5 @@ __all__ = ["FlashAttentionFunction", "flash_attention",
            "flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_plain",
            "flash_attention_fwd", "flash_attention_plain", "flash_bwd_delta",
+           "grad_layout",
            "kernel_head_dim", "pad_head_dim"]

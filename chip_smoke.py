@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, int8 inference, NCF,
 Wide & Deep and session recommendation, checkpoint/resume,
-input-pipeline, serving data-plane and control-plane paths, and the
-runtime context, file and set data tiers and TextClassifier, on one
-NVIDIA card.
+input-pipeline, serving data-plane and control-plane paths, the
+runtime context, file and set data tiers and TextClassifier, and
+multi-rank training, on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel checks only
@@ -360,6 +360,37 @@ Phases, each fatal on failure (no result line is printed then):
    top-1 probability above 0.999 and more than one top-1 class across
    the images; top-5 lists equal to ``predict`` on the set's own arrays.
    Prints the wall by part.
+19. multi-rank training (the seventeenth slice; ``[multi-rank]`` lines),
+   on 4 rank processes sharing the card (``parallel/comm.py::RankPool``,
+   gloo with CUDA tensors staged through pinned host buffers: NCCL refuses
+   ranks on one card), spawned once, after the kernels were built. (a)
+   ring, zigzag and Ulysses attention over sp=4, causal, at the LM cell's
+   shape (B=2, T=2048, H=16, D=64), bf16, and the ring in f32: output and
+   dq/dk/dv against the one-rank flash forward and K3/K4 backward on the
+   same inputs within 2e-2 (bf16) and 1e-4 (f32, gradients relative to
+   max(1, max|ref|)); K1 = K3 = K4 launches summed over the ranks 10
+   (ring: idx + 1 a rank, future blocks skipped, each rank checked), 36
+   (zigzag: 2n + 1 a rank) and 4 (Ulysses). (b) phase 7's model and
+   precision (bf16, f32 masters, remat "flash", Adam, clipping 1.0),
+   batch 4, 2 steps, over dp=4 with ``update_sharding="flat"`` and over
+   sp=4 with ``attn_strategy="ring"``: per-step losses and every final
+   parameter (rank 0's, against the saved one-rank run's) within 2e-2 of
+   the one-rank run on this process; K1 = K3 = K4 = 96 (dp) and 240 (sp)
+   over the ranks; the dp run's collectives: a reduce-scatter and an
+   all-gather a step plus the comm probe's rounds, two all-reduces a step.
+   (c) NCF at phase 12's width, its fused table row-sharded over dp=4
+   against replicated, 8 f32 Adam steps of 8192 seeded pairs: losses
+   within 1e-5, each rank holding 1/4 of the rows. (d)
+   ``MoE(1024, 8 experts, top 2)`` in f32 on (2, 2048, 1024) at ep=4
+   against ep=1, output and input gradient within 1e-4; the
+   ``PipelinedTransformerLM`` of the LM cell's 12 blocks over pp=4 with 4
+   micro-batches in bf16, logits within 2e-2 of the sequential
+   ``TransformerLM`` with the same weights, K1 = 84 (3 blocks x 7 steps a
+   rank). (e) an NCCL group at world size 1: one flat update exchange
+   (its reduce-scatter, norm all-reduce and all-gather on NCCL) gives the
+   plain Estimator step's parameters bit for bit. Prints each cell's
+   wall, per-rank peak memory and collectives beside the card's name and
+   power limit.
 
 Phase 3 also holds the int8 kernels to their plain versions bit for bit
 (``torch.equal``), f32 and bf16: the quantize pass both launch (codes and
@@ -390,7 +421,8 @@ with K5's per MLP predict beside it; K1's, K2's, K5's and K6's on phase
 ``launches_by_path["data_plane"]`` and on phase 17 as
 ``launches_by_path["control_plane"]``; K1's, K3's and K4's on phase 18b's
 TFRecord- and XShards-fed runs as
-``launches_by_path["training_from_files"]``).
+``launches_by_path["training_from_files"]``; K1's, K3's and K4's summed
+over phase 19's ranks and cells as ``launches_by_path["multi_rank"]``).
 The last three lines of standard output are the card's name and power
 limit, the per-kernel JSON, and ``{"ok": true, "device": {...}}``.
 """
@@ -6698,6 +6730,542 @@ def phase_files_and_sets(torch, state, smi):
     return launches
 
 
+# ------------------------------------------------------------- phase 19
+#: phase 19's rank processes, all on the one card (gloo, CUDA tensors
+#: staged through pinned host buffers: NCCL refuses ranks sharing a card)
+MR_WORLD = 4
+#: 19a's attention shape (the LM cell's), 19b's run (8 sequences, batch 4,
+#: 2 steps), 19c's NCF steps, 19d's MoE and pipeline inputs
+MR_ATT_B = 2
+MR_TRAIN_SEQS, MR_TRAIN_BATCH = 8, 4
+MR_NCF_STEPS = 8
+MR_MOE_SHAPE = (2, 2048)
+MR_PIPE_BATCH, MR_PIPE_MICRO = 4, 4
+#: 19b's limit on ||Δ − Δ_ref|| / ||Δ_ref||, the change of the f32 masters
+#: over the fit against the one-rank run's. On an H100 the dp run reads
+#: 0.015 and the sp run 0.067; a skipped update reads 1 and an update from
+#: one rank's gradient alone 1.11
+MR_DELTA_TOL = 0.2
+
+
+def _mr_ctx(**axes):
+    from analytics_zoo_tpu_torch.common.config import MeshConfig
+    from analytics_zoo_tpu_torch.common.context import (init_zoo_context,
+                                                        reset_zoo_context)
+
+    reset_zoo_context()
+    return init_zoo_context(mesh=MeshConfig(**axes))
+
+
+def _mr_reset():
+    from analytics_zoo_tpu_torch.common.context import reset_zoo_context
+
+    reset_zoo_context()
+
+
+def _mr_start(torch):
+    """Zero the attention kernels' and the collectives' counts and the
+    peak memory; return the start time."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+    from analytics_zoo_tpu_torch.parallel import comm
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches(tfa)
+    comm.reset_collective_counts()
+    return time.perf_counter()
+
+
+def _mr_end(torch, t0, out):
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+    from analytics_zoo_tpu_torch.parallel import comm
+
+    torch.cuda.synchronize()
+    out.update(wall_s=time.perf_counter() - t0,
+               launches=list(_launch_counts(tfa)),
+               collectives=comm.collective_counts(),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def mr_attention(strategy, dtype_name):
+    """19a, one rank: the strategy's causal forward and backward over sp=4
+    on the LM cell's attention shape, against the one-rank flash forward
+    and K3/K4 backward on the same inputs (run before the counts are
+    zeroed)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+    from analytics_zoo_tpu_torch.ops.attention import sharded_attention
+
+    ctx = _mr_ctx(sp=MR_WORLD)
+    try:
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator().manual_seed(19)
+        q, k, v, cot = (torch.randn((MR_ATT_B, SEQ_LEN, N_HEAD,
+                                     HIDDEN // N_HEAD), generator=g)
+                        .to("cuda", dtype) for _ in range(4))
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        ref = tfa.flash_attention(*leaves, True)
+        ref_grads = torch.autograd.grad(ref, leaves, cot)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        t0 = _mr_start(torch)
+        out = sharded_attention(*leaves, ctx.mesh, strategy=strategy,
+                                causal=True)
+        grads = torch.autograd.grad(out, leaves, cot)
+        res = _mr_end(torch, t0, {"sp_index": ctx.mesh.coords["sp"]})
+        res["max_abs_err"] = float((out.detach().float()
+                                    - ref.detach().float()).abs().max())
+        res["grad_err"] = max(
+            float((a.float() - b.float()).abs().max())
+            / max(1.0, float(b.float().abs().max()))
+            for a, b in zip(grads, ref_grads))
+        return res
+    finally:
+        _mr_reset()
+
+
+def _mr_lm(torch, strategy, seed=0):
+    from analytics_zoo_tpu_torch.models.transformer import TransformerLM
+
+    return TransformerLM(vocab=VOCAB, hidden_size=HIDDEN, n_block=N_BLOCK,
+                         n_head=N_HEAD, seq_len=SEQ_LEN,
+                         attn_strategy=strategy, remat="flash",
+                         device="cuda", seed=seed)
+
+
+def _mr_fit(torch, model, update_sharding=False, rows=None):
+    """19b's recipe: phase 7's precision (bf16, f32 masters, Adam,
+    clipping 1.0), batch MR_TRAIN_BATCH, no accumulation, 2 steps.
+    ``rows``: train on these sequences only, in batches of
+    ``MR_TRAIN_BATCH // MR_WORLD`` (one dp rank's share of each step)."""
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.models.transformer import lm_loss
+
+    ids = np.random.default_rng(8).integers(
+        0, VOCAB, size=(MR_TRAIN_SEQS, SEQ_LEN + 1)).astype(np.int32)
+    batch = MR_TRAIN_BATCH
+    if rows is not None:
+        ids, batch = ids[rows], MR_TRAIN_BATCH // MR_WORLD
+    model.compile(optimizer="adam", loss=lm_loss, config=TrainConfig(
+        compute_dtype="bfloat16", gradient_clip_norm=1.0, shuffle=False,
+        log_every_n_steps=1, update_sharding=update_sharding))
+    model.fit(ids[:, :-1], ids[:, 1:], batch_size=batch, nb_epoch=1)
+    return [h["loss"] for h in model.estimator.history]
+
+
+def _mr_init(model):
+    """The model's f32 weights before training (the masters' start)."""
+    return {n: p.detach().float().clone()
+            for n, p in model.named_parameters()}
+
+
+def _mr_masters(est):
+    """A fit's f32 masters, whole and by name on every rank: a ZeRO-1
+    flat shard is all-gathered over dp."""
+    import torch
+
+    from analytics_zoo_tpu_torch.parallel import comm
+    from analytics_zoo_tpu_torch.parallel import update_sharding as upd
+
+    st = est.train_state["opt_state"]
+    if isinstance(st, upd.FlatUpdateState):
+        meta = est._flat_meta
+        flat = comm.all_gather(st.master, "dp", dim=0, tiled=True)
+        return upd.unflatten_tree(flat, meta._replace(
+            dtypes=(torch.float32,) * len(meta.names)))
+    return dict(st.master)
+
+
+def _mr_delta(init, master):
+    return {n: master[n].float() - init[n] for n in init}
+
+
+def _mr_delta_err(delta, ref_delta):
+    """||Δ − Δ_ref|| / ||Δ_ref|| over every parameter (f64 sums), Δ the
+    f32 masters' change over the fit: a run whose update changed
+    nothing reads exactly 1."""
+    num = den = 0.0
+    for n, d_ref in ref_delta.items():
+        num += float((delta[n] - d_ref).double().square().sum())
+        den += float(d_ref.double().square().sum())
+    return math.sqrt(num / den)
+
+
+def mr_train(mode, ref_path):
+    """19b, one rank: the LM cell over dp=4 (flat update sharding) or sp=4
+    (ring attention); every rank holds the change of its f32 masters over
+    the fit to the one-rank run's saved change."""
+    import torch
+
+    axes = {"dp": MR_WORLD} if mode == "dp" else {"sp": MR_WORLD}
+    ctx = _mr_ctx(**axes)
+    try:
+        model = _mr_lm(torch, "flash" if mode == "dp" else "ring")
+        init = _mr_init(model)
+        t0 = _mr_start(torch)
+        losses = _mr_fit(torch, model, "flat" if mode == "dp" else False)
+        res = _mr_end(torch, t0, {"losses": losses,
+                                  "rank": ctx.process_index})
+        delta = _mr_delta(init, _mr_masters(model.estimator))
+        del init
+        ref_delta = torch.load(ref_path, map_location="cuda")
+        res["delta_err"] = _mr_delta_err(delta, ref_delta)
+        if ctx.process_index == 0:
+            # the control: a run that skipped the update
+            res["delta_err_skipped"] = _mr_delta_err(
+                {n: torch.zeros_like(d) for n, d in delta.items()},
+                ref_delta)
+        return res
+    finally:
+        _mr_reset()
+
+
+def mr_ncf(shard):
+    """19c, one rank: NCF at phase 12's width over dp=4, its fused table
+    row-sharded or replicated, 8 f32 Adam steps of batch 8192."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.data.datasets import ML1M_ITEMS, ML1M_USERS
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    from analytics_zoo_tpu_torch.nn.optimizers import Adam
+
+    ctx = _mr_ctx(dp=MR_WORLD)
+    try:
+        model = NeuralCF(ML1M_USERS, ML1M_ITEMS, class_num=5, device="cuda")
+        rule = model.shard_tables(ctx.mesh) if shard else None
+        est = Estimator(model, optimizer=Adam(lr=1e-3),
+                        loss="sparse_categorical_crossentropy",
+                        param_sharding=rule, device="cuda",
+                        config=TrainConfig(shuffle=False, log_every_n_steps=1,
+                                           prefetch_depth=0))
+        rng = np.random.default_rng(12)
+        n = MR_NCF_STEPS * NCF_BATCH
+        x = np.stack([rng.integers(1, ML1M_USERS + 1, n),
+                      rng.integers(1, ML1M_ITEMS + 1, n)], 1).astype(np.int32)
+        y = rng.integers(0, 5, n).astype(np.int32)
+        t0 = _mr_start(torch)
+        est.fit((x, y), batch_size=NCF_BATCH, epochs=1)
+        table = dict(model.named_parameters())[
+            next(n for n, _ in model.named_parameters()
+                 if n.endswith("embeddings"))]
+        return _mr_end(torch, t0, {
+            "losses": [h["loss"] for h in est.history],
+            "table_rows": int(table.shape[0]), "full_rows": model.table_rows})
+    finally:
+        _mr_reset()
+
+
+def mr_moe():
+    """19d, one rank: MoE(1024, 8 experts, top 2) in f32 over ep=4 against
+    the same layer without a mesh, output and input gradient."""
+    import torch
+
+    from analytics_zoo_tpu_torch.nn.layers import MoE
+
+    m = MoE(HIDDEN, n_experts=8, top_k=2)
+    m.build((None, None, HIDDEN), torch.Generator().manual_seed(19))
+    m.to("cuda")
+    g = torch.Generator().manual_seed(20)
+    x = torch.randn(MR_MOE_SHAPE + (HIDDEN,), generator=g).to("cuda")
+    cot = torch.randn(x.shape, generator=g).to("cuda")
+    outs = []
+    for ep in (MR_WORLD, 1):
+        if ep > 1:
+            _mr_ctx(ep=ep)
+        try:
+            xl = x.clone().requires_grad_(True)
+            t0 = _mr_start(torch)
+            y = m.apply(xl)
+            (gx,) = torch.autograd.grad(y, xl, cot)
+            res = _mr_end(torch, t0, {})
+            outs.append((y.detach(), gx, res))
+        finally:
+            _mr_reset()
+    (y4, g4, res), (y1, g1, _) = outs
+    res["max_abs_err"] = float((y4 - y1).abs().max())
+    res["grad_err"] = float((g4 - g1).abs().max()) / max(
+        1.0, float(g1.abs().max()))
+    return res
+
+
+def mr_pipeline():
+    """19d, one rank: PipelinedTransformerLM at the LM cell's width (12
+    blocks) over pp=4 with 4 micro-batches in bf16; rank 0 builds the
+    sequential TransformerLM from the same weights and measures the
+    logits against it."""
+    import torch
+
+    from analytics_zoo_tpu_torch.models.transformer import (
+        PipelinedTransformerLM, TransformerLM)
+    from analytics_zoo_tpu_torch.nn.module import (cast_params,
+                                                   precision_policy)
+
+    ctx = _mr_ctx(pp=MR_WORLD)
+    ids = torch.from_numpy(np.random.default_rng(21).integers(
+        0, VOCAB, size=(MR_PIPE_BATCH, SEQ_LEN))).to("cuda")
+    try:
+        m = PipelinedTransformerLM(VOCAB, HIDDEN, N_BLOCK, N_HEAD, SEQ_LEN,
+                                   n_microbatches=MR_PIPE_MICRO,
+                                   attn_strategy="flash", device="cuda")
+        cast_params(m, torch.bfloat16)
+        t0 = _mr_start(torch)
+        with torch.no_grad(), precision_policy(compute_dtype="bfloat16"):
+            logits = m.apply(ids)
+        res = _mr_end(torch, t0, {"rank": ctx.process_index})
+    finally:
+        _mr_reset()
+    if ctx.process_index == 0:
+        seq = TransformerLM(vocab=VOCAB, hidden_size=HIDDEN, n_block=N_BLOCK,
+                            n_head=N_HEAD, seq_len=SEQ_LEN,
+                            attn_strategy="flash", device="cuda")
+        cast_params(seq, torch.bfloat16)
+        sd = {n: p for n, p in m.named_parameters()
+              if not n.startswith("blocks.")}
+        for n, p in m.blocks.named_parameters():
+            for j in range(N_BLOCK):
+                sd[f"block{j}.{n}"] = p[j]
+        seq.load_state_dict(sd)
+        with torch.no_grad(), precision_policy(compute_dtype="bfloat16"):
+            want = seq.apply(ids)
+        res["max_abs_err"] = float((logits.float() - want.float())
+                                   .abs().max())
+    return res
+
+
+def phase19_nccl(torch, smi):
+    """19e: an NCCL group at world size 1 runs one flat update exchange
+    (reduce-scatter, norm all-reduce, all-gather on NCCL) that gives the
+    plain Estimator step's parameters bit for bit (f32, Adam: both
+    elementwise on the same values)."""
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.models.transformer import (TransformerLM,
+                                                            lm_loss)
+    from analytics_zoo_tpu_torch.parallel import comm
+    from analytics_zoo_tpu_torch.parallel import update_sharding as upd
+
+    ids = np.random.default_rng(22).integers(
+        0, EXAMPLE_KW["vocab"], size=(4, EXAMPLE_KW["seq_len"] + 1))
+    batch = (torch.from_numpy(ids[:, :-1]).cuda(),
+             torch.from_numpy(ids[:, 1:]).cuda())
+    store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        ctx = _mr_ctx()
+        ax = ctx.mesh.axis("dp")
+        plain = TransformerLM(**EXAMPLE_KW, device="cuda", seed=0)
+        flat = TransformerLM(**EXAMPLE_KW, device="cuda", seed=0)
+        est_a = Estimator(plain, optimizer="adam", loss=lm_loss,
+                          config=TrainConfig())
+        est_a._init_state()
+        est_a._step(batch)
+        est_b = Estimator(flat, optimizer="adam", loss=lm_loss,
+                          config=TrainConfig())
+        est_b._init_state()
+        _, grads = est_b._grads(batch)
+        values = {n: p.detach() for n, p in est_b._params().items()}
+        meta = upd.flat_meta(values, ax.size)
+        state = upd.flat_opt_init(est_b._base_tx, values, meta, False)
+        comm.reset_collective_counts()
+        new, _, gnorm = upd.flat_exchange(
+            values, {n: g.float() for n, g in grads.items()}, state, meta,
+            est_b._base_tx, mesh=ctx.mesh)
+        torch.cuda.synchronize()
+        counts = comm.collective_counts()
+        want = dict(plain.named_parameters())
+        same = all(torch.equal(new[n], want[n].detach()) for n in new)
+        res = {"backend": dist.get_backend(ax.group), "world": ax.size,
+               "collectives": counts, "bit_equal": same,
+               "grad_norm": float(gnorm), "card": smi}
+        log(f"[multi-rank] 19e nccl {json.dumps(res)}")
+        if not same or res["backend"] != "nccl" or counts["reduce-scatter"] \
+                != 1 or counts["all-gather"] != 1:
+            raise AssertionError(f"19e: the NCCL flat step at world size 1 "
+                                 f"is not the plain step: {res}")
+    finally:
+        _mr_reset()
+        dist.destroy_process_group()
+
+
+def _mr_check(label, cond, detail):
+    if not cond:
+        raise AssertionError(f"{label}: {detail}")
+
+
+def phase_multi_rank(torch, smi, tmp):
+    """Phase 19: multi-rank training on 4 rank processes sharing the card
+    (19a-19d), and NCCL at world size 1 (19e); returns the K1, K3 and K4
+    launches summed over the ranks of 19a, 19b and 19d."""
+    from analytics_zoo_tpu_torch.parallel import comm
+
+    t_phase = time.perf_counter()
+    wall, sums = {}, np.zeros(3, np.int64)
+    n_blk = N_BLOCK
+    # the one-rank run 19b is held to, on this process: the change of its
+    # f32 masters over the fit
+    t = time.perf_counter()
+    model = _mr_lm(torch, "flash")
+    init = _mr_init(model)
+    ref_losses = _mr_fit(torch, model)
+    ref_delta = _mr_delta(init, _mr_masters(model.estimator))
+    ref_path = os.path.join(tmp, "mr_ref_delta.pt")
+    torch.save(ref_delta, ref_path)
+    del model
+    wall["19b_reference"] = time.perf_counter() - t
+    # the control: one run on dp rank 0's sequences alone, as a dp run
+    # whose gradients were never averaged would update rank 0's shard
+    t = time.perf_counter()
+    model = _mr_lm(torch, "flash")
+    rows = [s * MR_TRAIN_BATCH + j for s in range(MR_TRAIN_SEQS
+                                                  // MR_TRAIN_BATCH)
+            for j in range(MR_TRAIN_BATCH // MR_WORLD)]
+    _mr_fit(torch, model, rows=rows)
+    err_unaveraged = _mr_delta_err(
+        _mr_delta(init, _mr_masters(model.estimator)), ref_delta)
+    del model, init, ref_delta
+    torch.cuda.empty_cache()
+    wall["19b_control"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pool = comm.RankPool(MR_WORLD, device="cuda", threads=0, timeout_s=600)
+    try:
+        pool.run(_mr_reset)
+        wall["spawn"] = time.perf_counter() - t
+        # 19a: K1/K3/K4 launches a rank: ring idx + 1 (future blocks
+        # skipped), zigzag 2n + 1, ulysses 1
+        want_sum = {"ring": MR_WORLD * (MR_WORLD + 1) // 2,
+                    "zigzag": MR_WORLD * (2 * MR_WORLD + 1),
+                    "ulysses": MR_WORLD}
+        for strategy, dt, tol in (("ring", "bfloat16", 2e-2),
+                                  ("zigzag", "bfloat16", 2e-2),
+                                  ("ulysses", "bfloat16", 2e-2),
+                                  ("ring", "float32", 1e-4)):
+            t = time.perf_counter()
+            res = pool.run(mr_attention, strategy, dt)
+            label = f"19a_{strategy}_{dt}"
+            wall[label] = time.perf_counter() - t
+            launches = np.sum([r["launches"] for r in res], 0)
+            err = max(r["max_abs_err"] for r in res)
+            gerr = max(r["grad_err"] for r in res)
+            log(f"[multi-rank] {label} {json.dumps({'launches': launches.tolist(), 'per_rank': [r['launches'] for r in res], 'max_abs_err': err, 'grad_err': gerr, 'rank_wall_s': [r['wall_s'] for r in res], 'peak_bytes': [r['peak_bytes'] for r in res], 'collectives': res[0]['collectives'], 'card': smi})}")
+            _mr_check(label, err <= tol and gerr <= tol,
+                      f"error {err} / grad {gerr} above {tol}")
+            _mr_check(label, list(launches) == [want_sum[strategy]] * 3,
+                      f"K1/K3/K4 launches {launches.tolist()}, want "
+                      f"{want_sum[strategy]} each")
+            if strategy == "ring":
+                _mr_check(label, all(
+                    r["launches"] == [r["sp_index"] + 1] * 3 for r in res),
+                    "the causal ring ran a future block")
+            sums += launches
+        # 19b: the LM cell over dp=4 (flat) and sp=4 (ring)
+        for mode in ("dp", "sp"):
+            t = time.perf_counter()
+            res = pool.run(mr_train, mode, ref_path)
+            label = f"19b_{mode}"
+            wall[label] = time.perf_counter() - t
+            launches = np.sum([r["launches"] for r in res], 0)
+            steps = MR_TRAIN_SEQS // MR_TRAIN_BATCH
+            per = (MR_WORLD * n_blk * steps if mode == "dp"
+                   else want_sum["ring"] * n_blk * steps)
+            loss_err = max(abs(a - b) for r in res
+                           for a, b in zip(r["losses"], ref_losses))
+            delta_err = max(r["delta_err"] for r in res)
+            info = {"losses": res[0]["losses"], "reference": ref_losses,
+                    "loss_err": loss_err, "delta_err": delta_err,
+                    "delta_err_by_rank": [r["delta_err"] for r in res],
+                    "delta_err_skipped": res[0]["delta_err_skipped"],
+                    "delta_err_unaveraged": err_unaveraged,
+                    "launches": launches.tolist(),
+                    "collectives": res[0]["collectives"],
+                    "rank_wall_s": [r["wall_s"] for r in res],
+                    "peak_bytes": [r["peak_bytes"] for r in res],
+                    "card": smi}
+            log(f"[multi-rank] {label} {json.dumps(info)}")
+            _mr_check(label, all(len(r["losses"]) == steps for r in res)
+                      and loss_err <= 2e-2 and delta_err <= MR_DELTA_TOL,
+                      f"losses/update off the one-rank run: {info}")
+            _mr_check(label, min(info["delta_err_skipped"],
+                                 err_unaveraged) > MR_DELTA_TOL,
+                      f"a control passes the update gate: {info}")
+            _mr_check(label, list(launches) == [per] * 3,
+                      f"K1/K3/K4 launches {launches.tolist()}, want {per}")
+            if mode == "dp":
+                # one exchange a step, and the comm probe's round at each
+                # log point (every step) plus its warm-up round
+                c = res[0]["collectives"]
+                _mr_check(label, c["reduce-scatter"] == 2 * steps + 1 and
+                          c["all-gather"] == 2 * steps + 1 and
+                          c["all-reduce"] == 2 * steps,
+                          f"flat exchange collectives {c}")
+            sums += launches
+        # 19c: NCF's table row-sharded against replicated
+        ncf = {}
+        for shard in (True, False):
+            t = time.perf_counter()
+            ncf[shard] = pool.run(mr_ncf, shard)
+            wall[f"19c_{'sharded' if shard else 'replicated'}"] = \
+                time.perf_counter() - t
+        sh, rep = ncf[True], ncf[False]
+        loss_err = max(abs(a - b) for a, b in zip(sh[0]["losses"],
+                                                  rep[0]["losses"]))
+        info = {"losses_sharded": sh[0]["losses"],
+                "losses_replicated": rep[0]["losses"], "loss_err": loss_err,
+                "table_rows": [r["table_rows"] for r in sh],
+                "full_rows": sh[0]["full_rows"],
+                "collectives_sharded": sh[0]["collectives"],
+                "peak_bytes_sharded": [r["peak_bytes"] for r in sh],
+                "peak_bytes_replicated": [r["peak_bytes"] for r in rep],
+                "rank_wall_s": [r["wall_s"] for r in sh], "card": smi}
+        log(f"[multi-rank] 19c {json.dumps(info)}")
+        _mr_check("19c", len(sh[0]["losses"]) == MR_NCF_STEPS
+                  and loss_err <= 1e-5
+                  and all(r["table_rows"] * MR_WORLD == r["full_rows"]
+                          for r in sh), f"sharded NCF off: {info}")
+        # 19d: MoE over ep=4, the pipeline over pp=4
+        t = time.perf_counter()
+        res = pool.run(mr_moe)
+        wall["19d_moe"] = time.perf_counter() - t
+        err = max(r["max_abs_err"] for r in res)
+        gerr = max(r["grad_err"] for r in res)
+        info = {"max_abs_err": err, "grad_err": gerr,
+                "collectives": res[0]["collectives"],
+                "peak_bytes": [r["peak_bytes"] for r in res], "card": smi}
+        log(f"[multi-rank] 19d_moe {json.dumps(info)}")
+        _mr_check("19d_moe", err <= 1e-4 and gerr <= 1e-4,
+                  f"ep=4 off ep=1: {info}")
+        t = time.perf_counter()
+        res = pool.run(mr_pipeline)
+        wall["19d_pipeline"] = time.perf_counter() - t
+        launches = np.sum([r["launches"] for r in res], 0)
+        want_k1 = MR_WORLD * (n_blk // MR_WORLD) * (MR_PIPE_MICRO
+                                                    + MR_WORLD - 1)
+        info = {"max_abs_err": res[0]["max_abs_err"],
+                "launches": launches.tolist(),
+                "collectives": res[0]["collectives"],
+                "rank_wall_s": [r["wall_s"] for r in res],
+                "peak_bytes": [r["peak_bytes"] for r in res], "card": smi}
+        log(f"[multi-rank] 19d_pipeline {json.dumps(info)}")
+        _mr_check("19d_pipeline", res[0]["max_abs_err"] <= 2e-2,
+                  f"pipelined logits off the sequential model: {info}")
+        _mr_check("19d_pipeline", list(launches) == [want_k1, 0, 0],
+                  f"K1 launches {launches.tolist()}, want {want_k1}")
+        sums += launches
+    finally:
+        pool.close()
+    os.remove(ref_path)
+    t = time.perf_counter()
+    phase19_nccl(torch, smi)
+    wall["19e"] = time.perf_counter() - t
+    wall["phase"] = time.perf_counter() - t_phase
+    log(f"[multi-rank] phase wall s: {json.dumps(wall)} card {smi}")
+    return [int(n) for n in sums]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -6811,6 +7379,14 @@ def main(argv=None) -> int:
             files = phase_files_and_sets(torch, state, smi)
             for k, n in zip((kernels[0], kernels[2], kernels[3]), files):
                 k["launches_by_path"]["training_from_files"] = n
+            del state
+            torch.cuda.empty_cache()
+            import tempfile
+
+            with tempfile.TemporaryDirectory(prefix="zoo_mr_") as tmp:
+                multi = phase_multi_rank(torch, smi, tmp)
+            for k, n in zip((kernels[0], kernels[2], kernels[3]), multi):
+                k["launches_by_path"]["multi_rank"] = n
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):

@@ -51,7 +51,16 @@ layer, K2 a decode step and layer), and ModelSwapper's staged tensors are
 the ones the model serves after the flip. Files and sets on the card
 (``-k files_and_sets``): dropout masks drawn on the card are the CPU's
 bits, and a TextClassifier trained on a TextSet on the card takes the
-CPU's per-step losses.
+CPU's per-step losses. Multi-rank attention on the card (``-k
+multi_rank``): the flash ring's per-block K1 calls merged by their LSEs,
+and its per-block K3/K4 calls against the global lse and δ, equal the
+plain whole-sequence forward and backward (one process); in 2 rank
+processes on the card (gloo, CUDA tensors staged through host buffers)
+the ring (causal and not) and zigzag give the one-process flash result,
+with K1 = K3 = K4 = idx + 1 launches on rank idx of the causal ring. On a
+host with two or more cards, ranks on cards of their own take NCCL by
+default: every collective and its transpose equal numpy's, and the causal
+flash ring over them gives the one-process result (it skips on one card).
 """
 
 import math
@@ -1395,3 +1404,238 @@ def test_files_and_sets_text_classifier_trains_on_card_as_on_cpu(cuda):
     assert len(losses["cuda"]) == 8
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5,
                                atol=1e-6)
+
+
+# ----------------------------------------------------- multi-rank attention
+def _mr_inputs(dtype, device, b=1, t=256, h=4, d=64, seed=11):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn((b, t, h, d), generator=g).to(device=device,
+                                                      dtype=dtype)
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_multi_rank_ring_blocks_and_lse_merge_on_card(cuda, dtype, tol):
+    """One process: q's second half against K/V in two blocks (past block
+    dense, diagonal block causal), K1 per block merged by the LSEs, equals
+    the plain causal attention over the whole sequence for those rows; K3
+    and K4 per block with the global lse and delta sum to the plain
+    backward's dq and give each block's dk/dv."""
+    from analytics_zoo_tpu_torch.ops.attention import _merge_blocks
+
+    q, k, v, g = _mr_inputs(dtype, cuda)
+    t = q.shape[1]
+    c = t // 2
+    out_ref, lse_ref = tfa.flash_attention_plain(q, k, v, True)
+    dq_ref, dk_ref, dv_ref = tfa.flash_attention_bwd_plain(
+        q, k, v, out_ref, lse_ref, g, True)
+    qh = q[:, c:].contiguous()
+    blocks = [(k[:, :c].contiguous(), v[:, :c].contiguous(), False),
+              (k[:, c:].contiguous(), v[:, c:].contiguous(), True)]
+    o = torch.zeros(qh.shape, dtype=torch.float32, device=cuda)
+    lse = torch.full((1, 4, c), -1e30, device=cuda)
+    for kb, vb, flag in blocks:
+        ob, lb = tfa.flash_attention_fwd(qh, kb, vb, flag)
+        o, lse = _merge_blocks(o, lse, ob, lb)
+    out = o.to(dtype)
+    assert (out.float() - out_ref[:, c:].float()).abs().max() <= tol
+    assert (lse - lse_ref[..., c:]).abs().max() <= tol
+    gh = g[:, c:].contiguous()
+    delta = tfa.flash_bwd_delta(out, gh)
+    lse = lse.contiguous()
+    dq = torch.zeros(qh.shape, dtype=torch.float32, device=cuda)
+    for i, (kb, vb, flag) in enumerate(blocks):
+        dq += tfa.flash_attention_bwd_dq(qh, kb, vb, gh, lse, delta,
+                                         flag).float()
+        dk, dv = tfa.flash_attention_bwd_dkv(qh, kb, vb, gh, lse, delta,
+                                             flag)
+        # the second half of q contributes this much to each block's dk/dv
+        _, dk_want, dv_want = tfa.flash_attention_bwd_plain(
+            q, k, v, out_ref, lse_ref,
+            torch.cat([torch.zeros_like(g[:, :c]), gh], 1), True)
+        sl = slice(i * c, (i + 1) * c)
+        scale = max(1.0, float(dk_want.float().abs().max()))
+        assert (dk.float() - dk_want[:, sl].float()).abs().max() \
+            <= tol * scale
+        assert (dv.float() - dv_want[:, sl].float()).abs().max() \
+            <= tol * scale
+    scale = max(1.0, float(dq_ref.float().abs().max()))
+    assert (dq - dq_ref[:, c:].float()).abs().max() <= tol * scale
+
+
+def _mr_rank(strategy, causal, dtype_name):
+    """Rank side (2 ranks on the card): the strategy's output and grads
+    and this rank's K1/K3/K4 launches."""
+    from analytics_zoo_tpu_torch.common.config import MeshConfig
+    from analytics_zoo_tpu_torch.common.context import (init_zoo_context,
+                                                        reset_zoo_context)
+    from analytics_zoo_tpu_torch.ops.attention import sharded_attention
+
+    dtype = getattr(torch, dtype_name)
+    ctx = init_zoo_context(mesh=MeshConfig(sp=2))
+    try:
+        q, k, v, g = _mr_inputs(dtype, "cuda")
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        for fn in (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                   tfa.flash_attention_bwd_dkv):
+            fn.launches = 0
+        out = sharded_attention(*leaves, ctx.mesh, strategy=strategy,
+                                causal=causal)
+        grads = torch.autograd.grad(out, leaves, g)
+        torch.cuda.synchronize()
+        counts = (tfa.flash_attention_fwd.launches,
+                  tfa.flash_attention_bwd_dq.launches,
+                  tfa.flash_attention_bwd_dkv.launches)
+        return (out.detach().float().cpu().numpy(),
+                [x.float().cpu().numpy() for x in grads], counts,
+                ctx.mesh.coords["sp"])
+    finally:
+        reset_zoo_context()
+
+
+@pytest.fixture(scope="module")
+def card_pool():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the port's kernels have no "
+                    "CPU mode")
+    from analytics_zoo_tpu_torch.parallel import comm
+
+    # build the kernels here, once, before any rank loads them
+    q = torch.zeros((1, 8, 1, 64), device="cuda", dtype=torch.bfloat16)
+    tfa.flash_attention_fwd(q, q, q, True)
+    tfa.flash_attention_bwd(q, q, q, q, torch.zeros((1, 1, 8),
+                                                    device="cuda"), q, True)
+    pool = comm.RankPool(2, device="cuda", threads=0, timeout_s=300)
+    yield pool
+    pool.close()
+
+
+@pytest.mark.parametrize("strategy,causal", [("ring", True),
+                                             ("ring", False),
+                                             ("zigzag", True)])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_multi_rank_two_processes_on_card(cuda, card_pool, strategy, causal,
+                                          dtype, tol):
+    q, k, v, g = _mr_inputs(dtype, cuda)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = tfa.flash_attention(*leaves, causal)
+    ref_grads = torch.autograd.grad(ref, leaves, g)
+    res = card_pool.run(_mr_rank, strategy, causal, str(dtype).split(".")[1])
+    for out, grads, counts, idx in res:
+        assert np.abs(out - ref.detach().float().cpu().numpy()).max() <= tol
+        for got, want in zip(grads, ref_grads):
+            want = want.float().cpu().numpy()
+            scale = max(1.0, float(np.abs(want).max()))
+            assert np.abs(got - want).max() <= tol * scale
+        n = (2 * 2 + 1) if strategy == "zigzag" else \
+            (idx + 1 if causal else 2)
+        assert counts == (n, n, n), counts
+
+
+def _nccl_rank(seed):
+    """Rank side, one card a rank: every collective's forward and backward
+    on CUDA tensors over dp = world, and the causal flash ring over sp =
+    world beside the one-process flash attention on the same inputs."""
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.common.config import MeshConfig
+    from analytics_zoo_tpu_torch.common.context import (init_zoo_context,
+                                                        reset_zoo_context)
+    from analytics_zoo_tpu_torch.ops.attention import sharded_attention
+    from analytics_zoo_tpu_torch.parallel import comm
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    ctx = init_zoo_context(mesh=MeshConfig(dp=n))
+    try:
+        backend = dist.get_backend(ctx.mesh.axis("dp").group)
+        xs = np.random.default_rng(seed).standard_normal(
+            (n, 4 * n, 6)).astype(np.float32)
+        ops = {"all_gather": lambda t: comm.all_gather(t, "dp", tiled=True),
+               "psum": lambda t: comm.psum(t, "dp"),
+               "psum_scatter": lambda t: comm.psum_scatter(t, "dp",
+                                                           tiled=True),
+               "all_to_all": lambda t: comm.all_to_all(t, "dp", 0, 1),
+               "ppermute": lambda t: comm.ppermute(t, "dp",
+                                                   comm.ring_perm(n))}
+        out = {}
+        for i, (name, fn) in enumerate(ops.items()):
+            x = torch.tensor(xs[r], device="cuda", requires_grad=True)
+            y = fn(x)
+            g = torch.tensor(np.random.default_rng(seed + 10 * i + r)
+                             .standard_normal(tuple(y.shape))
+                             .astype(np.float32), device="cuda")
+            (dx,) = torch.autograd.grad(y, x, g)
+            out[name] = tuple(a.detach().cpu().numpy() for a in (y, dx, g))
+    finally:
+        reset_zoo_context()
+    ctx = init_zoo_context(mesh=MeshConfig(sp=n))
+    try:
+        q, k, v, g = _mr_inputs(torch.float32, "cuda")
+        leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        ref = tfa.flash_attention(*leaves, True)
+        ref_grads = torch.autograd.grad(ref, leaves, g)
+        leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        o = sharded_attention(*leaves, ctx.mesh, strategy="ring",
+                              causal=True)
+        grads = torch.autograd.grad(o, leaves, g)
+        ring_err = max(float((a.detach() - b.detach()).abs().max())
+                       for a, b in zip((o, *grads), (ref, *ref_grads)))
+    finally:
+        reset_zoo_context()
+    return backend, xs, out, ring_err
+
+
+def _collective_oracle(name, xs, gs):
+    """numpy forward and backward of ``name`` over the per-rank inputs
+    ``xs`` (n, 4n, 6) and cotangents ``gs`` (rank order)."""
+    n, rows = len(xs), xs.shape[1] // len(xs)
+    blk = [slice(i * rows, (i + 1) * rows) for i in range(n)]
+    if name == "all_gather":
+        m = xs.shape[1]
+        return ([np.concatenate(xs, 0)] * n,
+                [sum(g[i * m:(i + 1) * m] for g in gs) for i in range(n)])
+    if name == "psum":
+        return [xs.sum(0)] * n, [sum(gs)] * n
+    if name == "psum_scatter":
+        return ([xs.sum(0)[blk[i]] for i in range(n)],
+                [np.concatenate(gs, 0)] * n)
+    if name == "all_to_all":
+        w = xs.shape[2]
+        return ([np.concatenate([xs[j][blk[i]] for j in range(n)], 1)
+                 for i in range(n)],
+                [np.concatenate([gs[j][:, i * w:(i + 1) * w]
+                                 for j in range(n)], 0) for i in range(n)])
+    return ([xs[(i - 1) % n] for i in range(n)],
+            [gs[(i + 1) % n] for i in range(n)])
+
+
+def test_collectives_and_ring_on_nccl_across_cards(cuda):
+    """Ranks on cards of their own take NCCL by default
+    (``comm.default_backend``): every collective and its transpose equal
+    numpy's, and the causal flash ring over sp = cards gives the
+    one-process flash forward and grads (f32, 1e-4)."""
+    from analytics_zoo_tpu_torch.parallel import comm
+
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        pytest.skip("needs two or more cards: NCCL refuses ranks that "
+                    "share one card")
+    # build the kernels here, once, before any rank loads them
+    q = torch.zeros((1, 8, 1, 64), device="cuda")
+    tfa.flash_attention_fwd(q, q, q, True)
+    tfa.flash_attention_bwd(q, q, q, q, torch.zeros((1, 1, 8),
+                                                    device="cuda"), q, True)
+    with comm.RankPool(n, threads=0, timeout_s=300) as pool:
+        res = pool.run(_nccl_rank, 5)
+    assert [r[0] for r in res] == ["nccl"] * n
+    xs = res[0][1]
+    for name in res[0][2]:
+        gs = [r[2][name][2] for r in res]
+        want_out, want_grad = _collective_oracle(name, xs, gs)
+        for i, r in enumerate(res):
+            y, dx, _ = r[2][name]
+            np.testing.assert_allclose(y, want_out[i], rtol=1e-6, atol=1e-5,
+                                       err_msg=f"{name} rank {i}")
+            np.testing.assert_allclose(dx, want_grad[i], rtol=1e-6,
+                                       atol=1e-5, err_msg=f"d{name} rank {i}")
+    assert max(r[3] for r in res) <= 1e-4, [r[3] for r in res]

@@ -328,11 +328,19 @@ def test_from_generator_and_dataframe_give_the_jax_batches():
 
 
 def test_unported_constructors_raise_naming_their_item(tmp_path):
-    """Multi-host ingest still raises, naming its ROADMAP item; the
-    tf.data, TFRecord and XShards constructors are ported (held to the JAX
-    package in tests/test_torch_file_data.py) and build a FeatureSet."""
-    with pytest.raises(NotImplementedError, match=r"\[9\]"):
-        tfs.FeatureSet.from_host_shard(None)
+    """Multi-host ingest is ported: a host shard yields its share of each
+    global batch, in the JAX package's order (the multi-rank fit is held
+    in tests/test_torch_update_sharding.py); the tf.data, TFRecord and
+    XShards constructors are ported (held to the JAX package in
+    tests/test_torch_file_data.py) and build a FeatureSet."""
+    rows = np.arange(40, dtype=np.float32).reshape(20, 2)
+    t = tfs.FeatureSet.from_host_shard(rows[1::2], process_index=1,
+                                       process_count=2, seed=3)
+    j = jfs.FeatureSet.from_host_shard(rows[1::2], process_index=1,
+                                       process_count=2, seed=3)
+    assert t.num_batches(4) == j.num_batches(4) == 5
+    _assert_same_stream(list(t.batches(4, epoch=1)),
+                        list(j.batches(4, epoch=1)))
     from analytics_zoo_tpu_torch.data.tfrecord import (encode_example,
                                                        write_records)
     from analytics_zoo_tpu_torch.data.xshards import XShards

@@ -88,8 +88,14 @@ def test_mha_apply_matches_jax(causal, strategy):
 
 
 def test_mha_rejects_unported_strategy():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiHeadAttention(HIDDEN, HEADS, attn_strategy="ring")
+    """Every strategy of the JAX layer is ported (the sequence-parallel
+    ones are held in tests/test_torch_sequence_parallel.py); an unknown one
+    raises as JAX's dispatch does."""
+    for strategy in ("ring", "zigzag", "ulysses"):
+        MultiHeadAttention(HIDDEN, HEADS, attn_strategy=strategy,
+                           device="cpu")
+    with pytest.raises(ValueError, match="unknown attention strategy"):
+        MultiHeadAttention(HIDDEN, HEADS, attn_strategy="bogus")
 
 
 def _layers(seed=2, strategy="flash"):

@@ -184,11 +184,21 @@ def test_narrow_matches_jax():
 
 
 def test_row_sharded_tables_are_not_ported():
+    """Row-sharded tables are ported (tests/test_torch_embedding_sharding.py
+    holds the multi-rank gather); a marked layer whose table is still
+    whole (not placed by an Estimator) takes the plain gather."""
+    from analytics_zoo_tpu_torch.common.config import MeshConfig
+    from analytics_zoo_tpu_torch.common.context import build_mesh
+    from analytics_zoo_tpu_torch.parallel.embedding_sharding import \
+        TableSharding
+
     tl = TL.Embedding(10, 4)
     tl.build((3,), torch.Generator().manual_seed(0))
-    tl.table_sharding = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.apply(torch.zeros((2, 3), dtype=torch.int64))
+    mesh = build_mesh(MeshConfig(dp=2), [torch.device("cpu")] * 2)
+    tl.table_sharding = TableSharding(mesh, "dp", True)
+    ids = torch.tensor([[0, 9, 3], [5, 5, 1]])
+    assert torch.equal(tl.apply(ids),
+                       torch.nn.functional.embedding(ids, tl.embeddings))
 
 
 @pytest.mark.parametrize("seed", [0, 5, 123456])

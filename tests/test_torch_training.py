@@ -334,8 +334,8 @@ def test_entry_points_raise_without_cuda_and_no_device(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("update_sharding", True), ("graph_checks", "raise"),
-    ("hbm_budget_mb", 100.0), ("graph_checks", "warn")])
+    ("graph_checks", "raise"), ("hbm_budget_mb", 100.0),
+    ("graph_checks", "warn")])
 def test_unported_train_config_fields_raise(field, value):
     cfg = TrainConfig(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -358,8 +358,13 @@ def test_fit_rejects_what_is_not_ported(jax_weights, tokens):
     tm = _port_model(tree)
     with pytest.raises(ValueError, match="unknown optimizer"):
         tm.compile(optimizer="rmsprop2", loss=lm_loss, metrics=["accuracy"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        Estimator(tm, mesh=object(), loss=lm_loss)
+    # fsdp/tp placement is the rest of [9]
+    from analytics_zoo_tpu_torch.common.config import MeshConfig
+    from analytics_zoo_tpu_torch.common.context import build_mesh
+
+    fsdp2 = build_mesh(MeshConfig(fsdp=2), [torch.device("cpu")] * 2)
+    with pytest.raises(NotImplementedError, match=r"fsdp/tp.*\[9\]"):
+        Estimator(tm, mesh=fsdp2, loss=lm_loss)
     est = Estimator(tm, optimizer="sgd", loss=lm_loss)
     with pytest.raises(ValueError, match="unknown metric"):
         est.fit(tokens, batch_size=BATCH, validation_data=tokens,
