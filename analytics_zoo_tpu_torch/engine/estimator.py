@@ -77,29 +77,36 @@ it makes none, and trains alone on its own device.
 Multi-rank training (a mesh of N devices in a ``torch.distributed`` job of
 N ranks, one process a rank): every rank runs this same loop over the same
 global batches (one seeded order) and takes its block along the batch
-axes ``("dp", "fsdp")``: the contiguous ``1/dp`` of each global batch
-(under accumulation with per-leaf or replicated updates, its ``1/dp`` of
-each micro-batch, as the JAX step's micro-batches are laid out), and
-gradients are averaged over ``dp``. The update's layout is the JAX
-``_update_mode``: replicated (one all-reduce of every gradient that is
-not already sharded over ``dp``), ``"flat"`` (a pure-dp mesh, no
-``param_sharding``: ``parallel/update_sharding.py::flat_exchange``) or
-per-leaf (``"gspmd"`` in JAX: each leaf reduce-scattered along the dim
-``shard_spec_over_axis`` gives it, updated, all-gathered; a row-sharded
-table keeps its rows local). The step key is ``fold_in(k_train, step)``
-on every rank; the flat step folds the dp index in after that, as JAX's
-does, and the others do not: their dropout masks are drawn for the global
-batch and sliced (``nn/layers/core.py::dropout``). ``param_sharding``
-(``(name, leaf) -> P``) places leaves whose spec names ``dp`` (row-sharded
-tables) or ``pp`` (pipeline stages): each rank keeps its block. The axes
-``sp``, ``ep`` and ``pp`` shard work inside the model (ring attention, the
-MoE layer, the pipeline), whose gradients come out whole on every rank.
+axes ``("dp", "fsdp")``, block ``dp_index * fsdp + fsdp_index`` (the JAX
+``P(("dp", "fsdp"))``): the contiguous ``1/(dp * fsdp)`` of each global
+batch (under accumulation with per-leaf or replicated updates, its share
+of each micro-batch, as the JAX step's micro-batches are laid out); tp
+ranks take the same block. Gradients are averaged over ``dp * fsdp``:
+each leaf is summed over the batch axes its own exchange has not summed
+it over (an fsdp-stored leaf's gather already did over fsdp, a row-sharded
+table's over dp), then divided. The update's layout is the JAX
+``_update_mode``: replicated (all-reduces of the gradients), ``"flat"`` (a
+pure-dp mesh, no ``param_sharding``:
+``parallel/update_sharding.py::flat_exchange``) or per-leaf (``"gspmd"``
+in JAX: each leaf reduce-scattered over dp along the dim
+``shard_spec_over_axis`` gives its spec, updated, all-gathered; a
+row-sharded table keeps its rows local). The step key is
+``fold_in(k_train, step)`` on every rank; the flat step folds the dp index
+in after that, as JAX's does, and the others do not: their dropout masks
+are drawn for the global batch and sliced (``nn/layers/core.py::dropout``).
+``param_sharding`` (``(name, leaf) -> P``, e.g.
+``parallel.sharding.make_param_sharding``) places every leaf whose spec
+names an axis above 1 (``parallel/placement.py``): each rank keeps its
+block; ``fsdp`` blocks are all-gathered where a module reads them;
+``TransformerLM``'s layers compute Megatron-style over ``tp`` on their
+blocks (vocab-parallel embeddings, head and ``lm_loss``), and any other
+leaf stored over ``tp`` is gathered where it is read. The axes ``sp``,
+``ep`` and ``pp`` shard work inside the model (ring attention, the MoE
+layer, the pipeline), whose gradients come out whole on every rank.
 Checkpoints stay in the JAX format: every rank gathers the sharded leaves
 and optimizer state, and process 0 writes; a restore slices each rank's
 blocks back out. At log points a dp axis above 1 times one param-sized
 exchange round (``make_comm_probe``) into ``zoo_train_comm_seconds``.
-Meshes with ``fsdp`` or ``tp`` above 1 raise (ROADMAP Queue 1: the rest
-of [9]).
 ``TrainConfig(donate_state=False)`` keeps the pre-step parameter tensors
 alive: a step installs its new parameters as new tensors instead of
 writing into the old ones (same bits).
@@ -128,6 +135,7 @@ from __future__ import annotations
 import contextlib
 import inspect
 import logging
+import math
 import signal
 import threading
 import time
@@ -153,9 +161,9 @@ from ..nn.metrics import get_metric
 from ..nn.module import cast_params, precision_policy, resolve_device
 from ..nn.optimizers import (apply_updates, get_optimizer, global_norm,
                              with_clipping)
-from ..parallel import comm
+from ..parallel import comm, placement
 from ..parallel import update_sharding as upd
-from ..parallel.sharding import P, spec_axes
+from ..parallel.sharding import P, entry_axes, spec_axes
 from ..parallel.update_sharding import with_master_weights
 from . import checkpoint as ckpt
 
@@ -240,12 +248,6 @@ class Estimator:
         self.mesh = mesh if mesh is not None or ctx is None else ctx.mesh
         self.param_sharding = param_sharding
         if self.mesh is not None:
-            big = {a: n for a, n in self.mesh.shape.items()
-                   if a in ("fsdp", "tp") and n > 1}
-            if big:
-                raise NotImplementedError(
-                    f"mesh {self.mesh.shape}: fsdp/tp placement is not "
-                    f"ported (ROADMAP Queue 1, the rest of [9])")
             if self.mesh.size > 1 and self.mesh.rank is None:
                 raise ValueError(
                     f"mesh {self.mesh.shape} needs a torch.distributed job "
@@ -277,8 +279,14 @@ class Estimator:
         # first async save)
         self._ckpt_writer: Optional[ckpt.CheckpointWriter] = None
         self._sigterm = False
-        # multi-rank layout, fixed at the first _init_state
+        # multi-rank layout, fixed at the first _init_state: each placed
+        # leaf's storage spec (axes above 1), the rule's own spec, and its
+        # placement
         self._specs: Dict[str, P] = {}
+        self._rule_specs: Dict[str, P] = {}
+        self._placements: Dict[str, placement.Placement] = {}
+        # a model's loss over its sharded outputs (a vocab-parallel head)
+        self._sharded_loss = None
         self._upd_dims: Dict[str, Optional[int]] = {}
         self._flat_meta: Optional[upd.FlatParamMeta] = None
         self._comm_probe = None
@@ -319,6 +327,13 @@ class Estimator:
             return contextlib.nullcontext()
         return precision_policy(compute_dtype=self.config.compute_dtype)
 
+    def _gathering(self):
+        """``placement.gathering()`` when this Estimator placed leaves;
+        otherwise nothing, and the step's saved tensors go unhooked."""
+        if not self._placements:
+            return contextlib.nullcontext()
+        return placement.gathering()
+
     def _params(self) -> Dict[str, torch.nn.Parameter]:
         return {n: p for n, p in self.model.named_parameters()
                 if p.requires_grad}
@@ -356,63 +371,73 @@ class Estimator:
                            "sharding")
         return "gspmd"
 
-    def _leaf_spec(self, name: str, leaf) -> P:
-        """``param_sharding``'s spec for a leaf, axes of size 1 dropped; a
-        dim may name one axis of dp, pp, ep and sp."""
-        if self.param_sharding is None or self.mesh is None:
-            return P()
+    def _batch_axes(self) -> tuple:
+        """The batch axes above 1, of ``("dp", "fsdp")`` (the JAX
+        ``_batch_axes``)."""
+        if self.mesh is None:
+            return ()
+        return tuple(a for a in ("dp", "fsdp")
+                     if self.mesh.shape.get(a, 1) > 1)
+
+    def _live_spec(self, spec: P) -> P:
+        """``spec`` with its axes of size 1 dropped; a tuple entry keeps
+        its order, the major axis first."""
         out = []
-        for e in self.param_sharding(name, leaf):
-            axes = tuple(a for a in (e if isinstance(e, tuple) else (e,))
-                         if a is not None and self.mesh.shape.get(a, 1) > 1)
-            if len(axes) > 1 or any(a in ("fsdp", "tp") for a in axes):
-                raise NotImplementedError(
-                    f"param {name}: spec {e!r} (fsdp/tp and several axes on "
-                    f"one dim are ROADMAP Queue 1, the rest of [9])")
-            out.append(axes[0] if axes else None)
+        for e in spec:
+            axes = tuple(a for a in entry_axes(e)
+                         if self.mesh.shape.get(a, 1) > 1)
+            out.append(None if not axes else axes[0] if len(axes) == 1
+                       else axes)
         while out and out[-1] is None:
             out.pop()
         return P(*out)
 
     def _place_params(self) -> None:
-        """Each leaf whose spec names an axis keeps this rank's block of
-        it (the JAX ``_place_state`` of the params)."""
-        for name, p in self._params().items():
-            spec = self._leaf_spec(name, p)
-            if not spec_axes(spec):
-                continue
-            block = p.detach()
-            for d, a in enumerate(spec):
-                if a is not None:
-                    ax = self.mesh.axis(a)
-                    if block.shape[d] % ax.size:
-                        raise ValueError(f"param {name}: dim {d} of size "
-                                         f"{block.shape[d]} does not split "
-                                         f"over {a}={ax.size}")
-                    block = block.chunk(ax.size, d)[ax.index]
-            p.data = block.clone()
-            self._specs[name] = spec
+        """Each leaf whose spec names an axis keeps this rank's block of it
+        (the JAX ``_place_state`` of the params), and the modules read
+        their leaves by ``parallel/placement.py``'s rules."""
+        if self.param_sharding is None or self.mesh is None:
+            return
+        params = self._params()
+        specs = {}
+        for name, p in params.items():
+            self._rule_specs[name] = P(*self.param_sharding(name, p))
+            spec = self._live_spec(self._rule_specs[name])
+            if spec_axes(spec):
+                specs[name] = spec
+        self._placements = placement.plan(self.model, specs, self.mesh)
+        for name, pl in self._placements.items():
+            p = params[name]
+            p.data = placement.block_of(p.detach(), pl).clone()
+            if spec_axes(pl.spec):
+                self._specs[name] = pl.spec
+        placement.install(self.model, self._placements)
+
+    def _whole_shape(self, name: str, t: torch.Tensor) -> tuple:
+        """A stored block's whole leaf's shape."""
+        shape = list(t.shape)
+        for d, e in enumerate(self._specs.get(name, ())):
+            for a in entry_axes(e):
+                shape[d] *= self.mesh.shape[a]
+        return tuple(shape)
 
     def _full(self, name: str, t: torch.Tensor, upd_dim=None) -> torch.Tensor:
-        """A leaf's whole value from this rank's block (every rank calls
-        it): the per-leaf update's dp shard first, then the spec's
-        blocks."""
+        """A leaf's whole value, in the JAX layout, from this rank's block
+        (every rank calls it): the per-leaf update's dp shard first, then
+        the placement's blocks."""
         if upd_dim is not None:
             t = comm.all_gather(t, "dp", dim=upd_dim, tiled=True,
                                 mesh=self.mesh)
-        for d, a in enumerate(self._specs.get(name, ())):
-            if a is not None:
-                t = comm.all_gather(t, a, dim=d, tiled=True, mesh=self.mesh)
-        return t
+        pl = self._placements.get(name)
+        return t if pl is None else placement.whole_of(t, pl)
 
     def _block(self, name: str, t: torch.Tensor, upd_dim=None
                ) -> torch.Tensor:
         """The inverse of :meth:`_full`: this rank's block of a whole
         leaf."""
-        for d, a in enumerate(self._specs.get(name, ())):
-            if a is not None:
-                ax = self.mesh.axis(a)
-                t = t.chunk(ax.size, d)[ax.index]
+        pl = self._placements.get(name)
+        if pl is not None:
+            t = placement.block_of(t, pl)
         if upd_dim is not None:
             ax = self.mesh.axis("dp")
             t = t.chunk(ax.size, upd_dim)[ax.index]
@@ -421,7 +446,9 @@ class Estimator:
     def _global_norm(self, g: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The f32 L2 norm of the whole gradient when ``g`` holds this
         rank's blocks of some leaves: each group of leaves' sum of squares
-        summed over the axes its leaves are sharded on."""
+        summed over the axes its leaves are sharded on (a leaf replicated
+        over an axis is whole, and the same, on its ranks, so it counts
+        once)."""
         if not self._norm_axes:
             return global_norm(g)
         groups: Dict[tuple, list] = {}
@@ -472,12 +499,11 @@ class Estimator:
                 if "dp" in spec_axes(base):
                     self._upd_dims[n] = None
                     continue
-                shape = list(v.shape)
-                for d, a in enumerate(base):
-                    if a is not None:
-                        shape[d] *= self.mesh.shape[a]
-                d = upd.dp_dim(upd.shard_spec_over_axis(base, shape,
-                                                        self.mesh))
+                # the rule's own spec, as JAX extends it (an axis of size 1
+                # still marks its dim sharded there)
+                d = upd.dp_dim(upd.shard_spec_over_axis(
+                    self._rule_specs.get(n, base), self._whole_shape(n, v),
+                    self.mesh))
                 if d is not None and v.shape[d] % ax.size:
                     d = None
                 self._upd_dims[n] = d
@@ -492,6 +518,9 @@ class Estimator:
         opt_state = self._opt_init(values)
         if self._mp_dtype is not None:
             cast_params(self.model, self._mp_dtype)
+        sharded_loss = getattr(self.model, "sharded_loss", None)
+        self._sharded_loss = (sharded_loss(self.loss_fn)
+                              if sharded_loss is not None else None)
         _k_init, k_train = prng.split(prng.PRNGKey(seed))
         self.train_state = {"opt_state": opt_state, "step": 0,
                             "rng": k_train}
@@ -507,6 +536,8 @@ class Estimator:
         return self
 
     def _loss_of(self, x, y, rng) -> torch.Tensor:
+        if self._sharded_loss is not None:
+            return self._sharded_loss(x, y)
         y_hat = (self.model.apply(x, rng=rng) if self._takes_rng
                  else self.model.apply(x))
         return self.loss_fn(y, y_hat)
@@ -553,17 +584,23 @@ class Estimator:
         return torch.stack(losses).mean(), {n: a / k for n, a in acc.items()}
 
     def _batch_shard(self, mode) -> Optional[comm.BatchShard]:
-        ax = self._dp_axis()
-        if ax is None:
+        """This rank's block of the global batch over the batch axes:
+        block ``dp_index * fsdp + fsdp_index`` of ``dp * fsdp``."""
+        axes = self._batch_axes()
+        if not axes:
             return None
-        return comm.BatchShard(ax.index, ax.size, "dp",
+        index, count = 0, 1
+        for a in axes:
+            ax = self.mesh.axis(a)
+            index, count = index * ax.size + ax.index, count * ax.size
+        return comm.BatchShard(index, count, axes,
                                global_draws=mode != "flat")
 
     def _local_batch(self, batch, shard: comm.BatchShard, mode):
-        """This rank's rows of a global batch: its contiguous ``1/dp``, or
-        under accumulation outside the flat layout its ``1/dp`` of each
-        micro-batch (the JAX step's micro-batches are global rows
-        sharded over dp)."""
+        """This rank's rows of a global batch: its contiguous block, or
+        under accumulation outside the flat layout its block of each
+        micro-batch (the JAX step's micro-batches are global rows sharded
+        over the batch axes)."""
         k = max(1, int(self.config.grad_accum_steps))
         n, r = shard.count, shard.index
 
@@ -571,7 +608,8 @@ class Estimator:
             b = a.shape[0]
             if b % (n * k):
                 raise ValueError(f"global batch {b} does not split over "
-                                 f"dp={n} x grad_accum_steps={k}")
+                                 f"{'x'.join(shard.axis)}={n} x "
+                                 f"grad_accum_steps={k}")
             if mode == "flat" or k == 1:
                 return a[r * (b // n):(r + 1) * (b // n)]
             m = b // k
@@ -580,20 +618,42 @@ class Estimator:
 
         return _tree_map(take, batch)
 
-    def _allreduce_mean(self, g: Dict[str, torch.Tensor], names) -> None:
-        """Average ``g[names]`` over dp in place: one all-reduce of the
-        leaves flattened in the JAX order."""
+    def _allreduce(self, g: Dict[str, torch.Tensor], names, axes) -> None:
+        """Sum ``g[names]`` over ``axes`` in place: per axis one
+        all-reduce of the leaves flattened in the JAX order."""
         names = upd.leaf_order(names)
-        if not names:
-            return
-        ax = self._dp_axis()
         flat = torch.cat([g[n].reshape(-1) for n in names])
-        flat = comm.psum(flat, "dp", mesh=self.mesh) / ax.size
+        for a in axes:
+            flat = comm.psum(flat, a, mesh=self.mesh)
         off = 0
         for n in names:
             size = g[n].numel()
             g[n] = flat[off:off + size].reshape(g[n].shape)
             off += size
+
+    def _mean_grads(self, g: Dict[str, torch.Tensor], count: int) -> None:
+        """The mean over the batch axes of the ranks' local-mean gradients,
+        in place: each leaf summed over the batch axes its own exchange has
+        not summed it over (an fsdp-stored leaf's gather backward sums over
+        fsdp, a row-sharded table's exchange over dp), reduce-scattered over
+        dp along its update dim under the per-leaf update, then divided by
+        ``count``."""
+        groups: Dict[tuple, list] = {}
+        for n in g:
+            stored = spec_axes(self._specs.get(n, ()))
+            axes = tuple(a for a in self._batch_axes() if a not in stored)
+            if self._upd_dims.get(n) is not None:
+                axes = tuple(a for a in axes if a != "dp")
+            groups.setdefault(axes, []).append(n)
+        for axes in sorted(groups):
+            if axes:
+                self._allreduce(g, groups[axes], axes)
+        for n, d in self._upd_dims.items():
+            if d is not None:
+                g[n] = comm.psum_scatter(g[n], "dp", dim=d, tiled=True,
+                                         mesh=self.mesh)
+        for n in g:
+            g[n] = g[n] / count
 
     def _step(self, batch):
         """One optimizer step; returns ``(loss, grad_norm)`` as 0-d
@@ -608,7 +668,7 @@ class Estimator:
             if mode == "flat":
                 # decorrelate the replicas' dropout and negative draws
                 key = prng.fold_in(key, shard.index)
-        with self._policy(), comm.batch_shard(shard):
+        with self._policy(), comm.batch_shard(shard), self._gathering():
             loss, grads = self._grads(batch, key)
         params = self._params()
         g32 = {n: g.float() for n, g in grads.items()}
@@ -616,12 +676,9 @@ class Estimator:
             p.grad = None
         values = {n: p.detach() for n, p in params.items()}
         if shard is not None:
-            loss = comm.psum(loss, "dp", mesh=self.mesh) / shard.count
-            # a leaf sharded over dp (a row-sharded table) got the sum of
-            # every rank's local-mean gradient through its exchange
-            for n in g32:
-                if "dp" in spec_axes(self._specs.get(n, ())):
-                    g32[n] = g32[n] / shard.count
+            for a in self._batch_axes():
+                loss = comm.psum(loss, a, mesh=self.mesh)
+            loss = loss / shard.count
         if mode == "flat":
             cfg = self.config
             new, new_opt, gnorm = upd.flat_exchange(
@@ -630,18 +687,7 @@ class Estimator:
                 clip_value=cfg.gradient_clip_value)
         else:
             if shard is not None:
-                if mode == "gspmd":
-                    whole = [n for n in g32 if self._upd_dims.get(n) is None
-                             and "dp" not in spec_axes(self._specs.get(n, ()))]
-                    for n, d in self._upd_dims.items():
-                        if d is not None:
-                            g32[n] = comm.psum_scatter(
-                                g32[n], "dp", dim=d, tiled=True,
-                                mesh=self.mesh) / shard.count
-                else:
-                    whole = [n for n in g32 if "dp" not in spec_axes(
-                        self._specs.get(n, ()))]
-                self._allreduce_mean(g32, whole)
+                self._mean_grads(g32, shard.count)
             if mode == "gspmd":
                 values = self._local_values(values)
             gnorm = self._global_norm(g32)
@@ -957,7 +1003,9 @@ class Estimator:
         if self._dp_axis() is None:
             return
         if self._comm_probe is None:
-            n = sum(p.numel() for p in self._params().values())
+            # the whole params' size, as JAX's probe counts the global tree
+            n = sum(math.prod(self._whole_shape(name, p))
+                    for name, p in self._params().items())
             self._comm_probe = upd.make_comm_probe(
                 n, sharded=self._update_mode() is not None, mesh=self.mesh,
                 device=self.device)
@@ -1160,15 +1208,17 @@ class Estimator:
         """Streaming metrics over ``data`` (a FeatureSet or an (x, y)
         pair) in order, in batches of ``batch_size`` (the last one
         partial), the model in inference mode: ``{metric.name: value}``.
-        The accumulators stay on the card; each result is read once."""
+        The accumulators stay on the card; each result is read once. On a
+        mesh every rank evaluates every batch (placed leaves gathered where
+        read)."""
         eval_set = _as_featureset(data)
         if self.train_state is None:
             self._init_state()
         metric_objs = [get_metric(m) for m in metrics]
         accs = [m.init(device=self.device) for m in metric_objs]
-        with torch.no_grad(), self._policy(), self._device_batches(
-                eval_set, batch_size, shuffle=False,
-                drop_remainder=False) as batches:
+        with torch.no_grad(), self._policy(), self._gathering(), \
+                self._device_batches(eval_set, batch_size, shuffle=False,
+                                     drop_remainder=False) as batches:
             for x, y in batches:
                 y_hat = self.model.apply(x)
                 accs = [m.update(a, y, y_hat)
@@ -1181,9 +1231,10 @@ class Estimator:
         partial), as a numpy array; bf16 outputs come back as f32."""
         data = (x,) if not isinstance(x, (tuple, list)) else tuple(x)
         outs = []
-        with torch.no_grad(), self._policy(), self._device_batches(
-                FeatureSet(data), batch_size, shuffle=False,
-                drop_remainder=False) as batches:
+        with torch.no_grad(), self._policy(), self._gathering(), \
+                self._device_batches(FeatureSet(data), batch_size,
+                                     shuffle=False,
+                                     drop_remainder=False) as batches:
             for xb in batches:
                 y = self.model.apply(xb[0] if len(xb) == 1 else list(xb))
                 outs.append((y.float() if y.dtype == torch.bfloat16 else y)

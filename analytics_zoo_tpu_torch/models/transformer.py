@@ -35,6 +35,19 @@ last row of the position table: the JAX package's lookup fills NaN past
 it, which reaches the chunk's valid rows through the scratch page (0·NaN);
 the valid rows, all below ``max_seq_len <= seq_len``, are unchanged.
 
+Under ``tp`` (the Estimator places ``TP_RULES``' leaves, ``parallel/
+placement.py``) the blocks run Megatron-style (``nn/layers/attention.py``)
+and the embeddings and head are vocab-parallel: ``token_embeddings``'
+rows are looked up by their owners and summed (``parallel/
+embedding_sharding.py``'s replicated-batch exchange), the position table
+is gathered where it is read, and ``logits_kernel`` gives each rank its
+vocab columns. In training the Estimator takes the loss through
+:meth:`TransformerLM.sharded_loss`: :func:`vocab_parallel_lm_loss`,
+Megatron's vocab-parallel cross entropy, so no rank holds ``(B, T,
+vocab)`` logits; ``apply`` (``predict``, ``evaluate``) returns whole
+logits through ``comm.gather_along``. The serving steps are not tp-aware:
+serve a tp-trained model from its gathered checkpoint.
+
 :class:`PipelinedTransformerLM` is the ``pp`` strategy: its blocks'
 parameters are stacked on a leading ``(n_block, ...)`` axis under
 ``blocks.*`` (one block module's structure, the JAX ``params["blocks"]``),
@@ -96,6 +109,10 @@ class TransformerLM(KerasNet, nn.Module):
     so a seed gives the same weights on every device. ``remat``: False,
     True/"flash", "full" or "dots" (module docstring)."""
 
+    #: the mesh whose ``tp`` axis the vocab is split over (module
+    #: docstring), or None
+    tp_mesh = None
+
     def __init__(self, vocab: int, hidden_size: int = 256, n_block: int = 4,
                  n_head: int = 8, seq_len: int = 512,
                  intermediate_size: Optional[int] = None,
@@ -137,7 +154,24 @@ class TransformerLM(KerasNet, nn.Module):
     def _i32(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device).to(torch.int32)
 
+    def tp_compute_dims(self, tp: int):
+        """Vocab-parallel embedding rows and head columns."""
+        return {"token_embeddings": (0, None), "logits_kernel": (1, None)}
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.tp_mesh is None:
+            return self.token_embeddings[ids]
+        from ..parallel.embedding_sharding import sharded_gather
+
+        return sharded_gather(self.token_embeddings, ids, self.tp_mesh, "tp",
+                              shard_batch=False)
+
     def _head(self, h: torch.Tensor) -> torch.Tensor:
+        """Logits; in tp mode this rank's vocab columns."""
+        if self.tp_mesh is not None:
+            from ..parallel import comm
+
+            h = comm.copy_to(h, "tp", mesh=self.tp_mesh)
         return h @ self.logits_kernel.to(h.dtype)
 
     def _block(self, blk: TransformerLayer, h: torch.Tensor) -> torch.Tensor:
@@ -158,15 +192,33 @@ class TransformerLM(KerasNet, nn.Module):
         :func:`~analytics_zoo_tpu_torch.ops.fused_ce.fused_softmax_xent`
         to train without the (B, T, vocab) logits."""
         ids = self._ids(x)
-        h = self.token_embeddings[ids] + self.pos_embeddings[:ids.shape[1]][None]
+        h = self._embed(ids) + self.pos_embeddings[:ids.shape[1]][None]
         h = as_compute(h)
         for blk in self.blocks:
             h = self._block(blk, h)
         return self.ln_f(h)
 
     def apply(self, x) -> torch.Tensor:
-        """Logits (B, T, vocab) in the compute dtype."""
-        return self._head(self.apply_features(x))
+        """Logits (B, T, vocab) in the compute dtype (whole on every rank
+        in tp mode)."""
+        logits = self._head(self.apply_features(x))
+        if self.tp_mesh is not None:
+            from ..parallel import comm
+
+            logits = comm.gather_along(logits, "tp", logits.dim() - 1,
+                                       mesh=self.tp_mesh)
+        return logits
+
+    def sharded_loss(self, loss_fn):
+        """The Estimator's loss in tp mode with :func:`lm_loss`: ``(x, y)
+        -> loss`` over this rank's vocab columns
+        (:func:`vocab_parallel_lm_loss`); else None (the loss of whole
+        logits)."""
+        if self.tp_mesh is None or loss_fn is not lm_loss:
+            return None
+        mesh = self.tp_mesh
+        return lambda x, y: vocab_parallel_lm_loss(
+            y, self._head(self.apply_features(x)), mesh)
 
     def forward(self, x) -> torch.Tensor:
         return self.apply(x)
@@ -472,4 +524,28 @@ def lm_loss(y_true, logits) -> torch.Tensor:
     return torch.mean(lse - picked)
 
 
-__all__ = ["PipelinedTransformerLM", "TransformerLM", "lm_loss"]
+def vocab_parallel_lm_loss(y_true, logits, mesh) -> torch.Tensor:
+    """:func:`lm_loss` over vocab shards (Megatron's vocab-parallel cross
+    entropy): ``logits`` (B, T, V/n) are this rank's contiguous block of
+    the vocab over ``tp``. The global max (``pmax``, no gradient: a
+    shift), the ``psum`` of the exp-sums beside the target logit from the
+    rank that owns it (one all-reduce), then the mean of ``lse −
+    z[label]`` in f32, the same on every rank."""
+    from ..parallel import comm
+
+    z = logits.float()
+    labels = torch.as_tensor(y_true, device=z.device).long()
+    v = z.shape[-1]
+    lo = comm.axis_index("tp", mesh) * v
+    m = comm.pmax(z.amax(-1), "tp", mesh=mesh)
+    local = labels - lo
+    own = (local >= 0) & (local < v)
+    picked = torch.gather(z, -1, torch.where(own, local, 0)[..., None])[..., 0]
+    picked = torch.where(own, picked, torch.zeros((), device=z.device))
+    sums = comm.reduce_from(torch.stack(
+        [torch.exp(z - m[..., None]).sum(-1), picked]), "tp", mesh=mesh)
+    return torch.mean(m + torch.log(sums[0]) - sums[1])
+
+
+__all__ = ["PipelinedTransformerLM", "TransformerLM", "lm_loss",
+           "vocab_parallel_lm_loss"]

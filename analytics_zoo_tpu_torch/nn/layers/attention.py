@@ -26,6 +26,18 @@ strategy but ``"full"`` dispatches through
 ``zigzag`` and ``ulysses`` over the mesh's ``sp`` axis, single-device
 attention where ``sp`` is 1, as the JAX layer does.
 
+Tensor parallelism (Megatron-style over the mesh's ``tp`` axis): the
+Estimator puts a layer in tp mode (``tp_mesh``) when it placed the layer's
+leaves over ``tp`` (``parallel/placement.py``, ``tp_compute_dims``). A
+rank then holds and attends over its own ``n_head / tp`` heads:
+``qkv_kernel`` and ``mlp_up_kernel`` are column-parallel (their input
+through ``comm.copy_to``; the QKV columns in
+``parallel.sharding.qkv_tp_permutation``'s order, so a rank's block holds
+its heads' q, k and v), ``out_kernel`` and ``mlp_down_kernel`` are
+row-parallel (their output through ``comm.reduce_from``, the bias added
+after the reduction). Under ``sp`` the attention strategy sees the local
+heads (Ulysses needs them to divide by ``sp``).
+
 Not ported yet: ``PositionalEmbedding`` and ``BERT``.
 """
 
@@ -37,6 +49,8 @@ import torch
 from torch import nn
 
 from ...common import prng
+from ...parallel import comm
+from ...parallel.sharding import qkv_tp_permutation
 from ...ops.attention import (STRATEGIES, full_attention,
                               prefer_flash_single_device, sharded_attention)
 from ...ops.flash_attention import flash_attention
@@ -53,6 +67,26 @@ def _param(t: torch.Tensor, device) -> nn.Parameter:
     return nn.Parameter(t.to(device))
 
 
+def _tp_size(module) -> int:
+    """The tp axis's size when ``module`` computes in tp mode, else 1."""
+    mesh = module.tp_mesh
+    return 1 if mesh is None else mesh.shape["tp"]
+
+
+def _tp_copy(module, x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel projection's input: the identity, whose backward
+    sums the tp ranks' partial gradients (tp mode only)."""
+    mesh = module.tp_mesh
+    return x if mesh is None else comm.copy_to(x, "tp", mesh=mesh)
+
+
+def _tp_reduce(module, y: torch.Tensor) -> torch.Tensor:
+    """A row-parallel projection's output: the sum of the tp ranks'
+    partials (tp mode only)."""
+    mesh = module.tp_mesh
+    return y if mesh is None else comm.reduce_from(y, "tp", mesh=mesh)
+
+
 def _context_mesh():
     """The initialised runtime context's mesh, else None."""
     from ...common.context import get_zoo_context
@@ -65,6 +99,10 @@ def _context_mesh():
 
 class MultiHeadAttention(nn.Module):
     """Self-attention with fused QKV projection and strategy dispatch."""
+
+    #: the mesh whose ``tp`` axis this layer computes over (module
+    #: docstring); None: the whole layer on every rank
+    tp_mesh = None
 
     def __init__(self, hidden_size: int, n_head: int, causal: bool = False,
                  attn_strategy: str = "auto", *,
@@ -89,11 +127,22 @@ class MultiHeadAttention(nn.Module):
                                  device)
         self.out_bias = _param(zeros_init((hidden_size,)), device)
 
+    def tp_compute_dims(self, tp: int):
+        """The dims this layer splits over tp: QKV column-parallel in
+        :func:`~...parallel.sharding.qkv_tp_permutation`'s order, the
+        out-projection row-parallel."""
+        perm = qkv_tp_permutation(self.hidden_size, self.n_head, tp)
+        return {"qkv_kernel": (1, perm), "qkv_bias": (0, perm),
+                "out_kernel": (0, None)}
+
     def qkv_fused(self, x: torch.Tensor) -> torch.Tensor:
-        """Fused QKV projection → one (B, T, 3, n_head, head_dim) tensor."""
+        """Fused QKV projection → one (B, T, 3, heads, head_dim) tensor
+        (this rank's ``n_head / tp`` heads in tp mode)."""
         b, t, _ = x.shape
+        x = _tp_copy(self, x)
         qkv = x @ self.qkv_kernel.to(x.dtype) + self.qkv_bias.to(x.dtype)
-        return qkv.reshape(b, t, 3, self.n_head, self.head_dim)
+        return qkv.reshape(b, t, 3, self.n_head // _tp_size(self),
+                           self.head_dim)
 
     def qkv_proj(self, x: torch.Tensor):
         """Fused QKV projection → (q, k, v), each a (B, T, n_head, head_dim)
@@ -102,10 +151,11 @@ class MultiHeadAttention(nn.Module):
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
     def out_proj(self, o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """(B, T, n_head, head_dim) attention output → (B, T, hidden)."""
+        """(B, T, heads, head_dim) attention output → (B, T, hidden)."""
         b, t = o.shape[:2]
-        o = o.reshape(b, t, self.hidden_size)
-        return o @ self.out_kernel.to(dtype) + self.out_bias.to(dtype)
+        o = o.reshape(b, t, -1)
+        return (_tp_reduce(self, o @ self.out_kernel.to(dtype))
+                + self.out_bias.to(dtype))
 
     def _attend(self, q, k, v, t: int):
         """Strategy dispatch: (B, T, n_head, head_dim) q/k/v → output of
@@ -148,6 +198,9 @@ class MultiHeadAttention(nn.Module):
 class TransformerLayer(nn.Module):
     """One pre-LN transformer block: MHA + MLP with residuals."""
 
+    #: as :attr:`MultiHeadAttention.tp_mesh`, for the MLP
+    tp_mesh = None
+
     def __init__(self, hidden_size: int, n_head: int,
                  intermediate_size: Optional[int] = None,
                  causal: bool = False, activation="gelu",
@@ -171,12 +224,17 @@ class TransformerLayer(nn.Module):
             glorot_uniform(g, (self.intermediate, hidden_size)), device)
         self.mlp_down_bias = _param(zeros_init((hidden_size,)), device)
 
+    def tp_compute_dims(self, tp: int):
+        """The MLP's dims over tp: up column-parallel, down row-parallel."""
+        return {"mlp_up_kernel": (1, None), "mlp_up_bias": (0, None),
+                "mlp_down_kernel": (0, None)}
+
     def _mlp(self, x: torch.Tensor) -> torch.Tensor:
         """ln2 + MLP + residual — the block tail shared by every path."""
-        h = self.ln2(x)
+        h = _tp_copy(self, self.ln2(x))
         h = h @ self.mlp_up_kernel.to(x.dtype) + self.mlp_up_bias.to(x.dtype)
         h = self.activation(h)
-        h = (h @ self.mlp_down_kernel.to(x.dtype)
+        h = (_tp_reduce(self, h @ self.mlp_down_kernel.to(x.dtype))
              + self.mlp_down_bias.to(x.dtype))
         return x + h
 

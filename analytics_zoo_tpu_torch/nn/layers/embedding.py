@@ -21,6 +21,12 @@ A layer marked by ``parallel.embedding_sharding.shard_embedding_tables``
 Estimator places it) looks up through ``sharded_gather``: the model-
 parallel exchange, zero rows for out-of-range ids. While its table is
 still whole it takes the plain gather.
+
+Over ``tp`` (the ``"embeddings"`` rule of ``TP_RULES``) a table is
+vocab-parallel: the Estimator places its rows over tp and puts the layer
+in tp mode (``tp_mesh``, ``parallel/placement.py``); tp ranks see the same
+batch, so a lookup is the replicated-batch exchange of ``sharded_gather``
+over ``tp``: the rows this rank owns, then one ``psum``.
 """
 
 from __future__ import annotations
@@ -35,6 +41,16 @@ from torch import nn
 from ..module import Layer, get_initializer, param_dtype
 
 
+class _VocabParallel:
+    """A table whose rows a tp rank may hold (module docstring)."""
+
+    #: the mesh whose ``tp`` axis the rows are placed over, or None
+    tp_mesh = None
+
+    def tp_compute_dims(self, tp: int):
+        return {"embeddings": (0, None)}
+
+
 def _ids(x) -> torch.Tensor:
     """Integer ids as a tensor (int32 and int64 pass through)."""
     x = torch.as_tensor(x)
@@ -44,6 +60,11 @@ def _ids(x) -> torch.Tensor:
 
 
 def _lookup(layer, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    if layer.tp_mesh is not None:
+        from ...parallel.embedding_sharding import sharded_gather
+
+        return sharded_gather(table, ids, layer.tp_mesh, "tp",
+                              shard_batch=False)
     ts = getattr(layer, "table_sharding", None)
     if ts is not None:
         from ...parallel.embedding_sharding import (sharded_gather,
@@ -56,7 +77,7 @@ def _lookup(layer, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(ids, table)
 
 
-class Embedding(Layer):
+class Embedding(_VocabParallel, Layer):
     """Lookup table ``(input_dim, output_dim)``; input is int ids ``(B,
     ...)``, output ``(B, ..., output_dim)``. ``weights``: a pretrained
     table; ``trainable=False`` keeps the table as a buffer."""
@@ -94,7 +115,7 @@ class Embedding(Layer):
         return tuple(input_shape) + (self.output_dim,)
 
 
-class FusedPairEmbedding(Layer):
+class FusedPairEmbedding(_VocabParallel, Layer):
     """All of NeuralCF's embedding tables in one gather.
 
     The four logical tables (mlp_user, mlp_item, mf_user, mf_item) live in

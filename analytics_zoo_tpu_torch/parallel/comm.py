@@ -10,7 +10,8 @@ axis's coordinate (``common/context.py::Mesh``). The collectives:
 - :func:`ppermute` (``(src, dst)`` pairs over axis coordinates; a rank
   that no pair sends to receives zeros, as in JAX);
 - :func:`all_gather` (``tiled``: concatenated along ``dim``, else stacked
-  on a new ``dim``), :func:`psum`, :func:`psum_scatter` (``tiled``: the
+  on a new ``dim``), :func:`psum`, :func:`pmax` (not differentiable: the
+  shift of a vocab-parallel softmax), :func:`psum_scatter` (``tiled``: the
   ``dim`` split into equal blocks, else a dim of size n dropped) and
   :func:`all_to_all` (split ``split_dim`` into n blocks, block i to
   coordinate i, the received blocks concatenated on ``concat_dim``).
@@ -172,6 +173,15 @@ def _raw_psum(x, ax: Axis) -> torch.Tensor:
     if w is x:
         w = x.clone()
     dist.all_reduce(w, group=ax.group)
+    return _from_wire(w, x)
+
+
+def _raw_pmax(x, ax: Axis) -> torch.Tensor:
+    _count("all-reduce")
+    w = _to_wire(x, ax.group, reduce=True)
+    if w is x:
+        w = x.clone()
+    dist.all_reduce(w, op=dist.ReduceOp.MAX, group=ax.group)
     return _from_wire(w, x)
 
 
@@ -366,6 +376,12 @@ def psum(x: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
     return x if ax is None else _Psum.apply(x, ax)
 
 
+def pmax(x: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
+    """The elementwise max over the axis's ranks (no gradient flows)."""
+    ax = _live(axis, mesh)
+    return x.detach() if ax is None else _raw_pmax(x.detach(), ax)
+
+
 def psum_scatter(x: torch.Tensor, axis: str, *, dim: int = 0,
                  tiled: bool = False, mesh=None) -> torch.Tensor:
     ax = _live(axis, mesh)
@@ -427,7 +443,9 @@ def ring_perm(n: int, shift: int = 1) -> Tuple[Tuple[int, int], ...]:
 # ----------------------------------------------------------- batch shards
 class BatchShard(NamedTuple):
     """This rank's block of a global batch: block ``index`` of ``count``
-    along dim 0, over ``axis``. ``global_draws``: a random mask drawn in
+    along dim 0, over the axes ``axis`` (the major one first: ``("dp",
+    "fsdp")`` is the JAX ``P(("dp", "fsdp"))``, block ``dp_index * fsdp +
+    fsdp_index``). ``global_draws``: a random mask drawn in
     a step is drawn for the global batch and sliced (the JAX step whose key
     carries no rank index draws it over the global array); otherwise the
     rank draws for its own block with a key that already differs by rank
@@ -435,7 +453,7 @@ class BatchShard(NamedTuple):
 
     index: int
     count: int
-    axis: str = "dp"
+    axis: Tuple[str, ...] = ("dp",)
     global_draws: bool = True
 
 
@@ -608,6 +626,7 @@ def spawn_ranks(fn: Callable, world: int, backend: Optional[str] = None, *,
 __all__ = ["Axis", "BatchShard", "KINDS", "batch_shard",
            "current_batch_shard", "RankError", "RankPool", "all_gather",
            "all_to_all", "axis_index", "axis_size", "collective_counts",
-           "copy_to", "default_backend", "gather_along", "get_axis", "ppermute",
-           "psum", "psum_scatter", "reduce_from", "reset_collective_counts",
-           "ring_perm", "shard_along", "spawn_ranks"]
+           "copy_to", "default_backend", "gather_along", "get_axis", "pmax",
+           "ppermute", "psum", "psum_scatter", "reduce_from",
+           "reset_collective_counts", "ring_perm", "shard_along",
+           "spawn_ranks"]

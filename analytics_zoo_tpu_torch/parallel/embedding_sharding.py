@@ -91,7 +91,7 @@ def sharded_gather(table: torch.Tensor, ids, mesh, axis: str = "dp", *,
         return F.embedding(flat, table).reshape(out_shape)
     lo = ax.index * table.shape[0]
     shard = comm.current_batch_shard()
-    if shard_batch and shard is not None and shard.axis == axis:
+    if shard_batch and shard is not None and axis in shard.axis:
         all_ids = comm.all_gather(flat, axis, dim=0, tiled=True, mesh=mesh)
         part = _owned_partial(table, all_ids, lo)
         out = comm.psum_scatter(part, axis, dim=0, tiled=True, mesh=mesh)

@@ -8,9 +8,12 @@ names. A rule is ``(path, leaf) -> P``; ``path`` is the parameter's dotted
 name in the port (a JAX key path works too: its keys are joined with
 ``/``), and matching is by substring, as in JAX.
 
-The Estimator places a leaf by its spec when the spec names ``dp`` (row-
-sharded tables) or ``pp`` (pipeline stages); meshes with ``fsdp`` or
-``tp`` above 1 raise (ROADMAP Queue 1: the rest of [9]).
+The Estimator places every leaf by its spec (``parallel/placement.py``):
+each rank keeps its block, ``fsdp`` blocks are gathered at use and ``tp``
+blocks are computed on Megatron-style by the modules that declare it.
+:func:`qkv_tp_permutation` is the one column order of a fused QKV
+projection under ``tp``: the placement, the checkpoint gather and restore
+and the layers all go through it.
 """
 
 from __future__ import annotations
@@ -111,6 +114,22 @@ def make_param_sharding(mesh, rules: Sequence[Tuple[str, P]] = TP_RULES,
     return rule
 
 
+def qkv_tp_permutation(hidden_size: int, n_head: int, tp: int
+                       ) -> np.ndarray:
+    """The column order of a fused ``(d, 3 * hidden_size)`` QKV projection
+    (columns read as ``(3, n_head, head_dim)``, the JAX layout) that puts
+    each tp rank's heads' q, k and v side by side: the contiguous ``1/tp``
+    block ``r`` of ``W[:, perm]`` holds q, then k, then v of heads
+    ``r * n_head / tp`` up to ``(r + 1) * n_head / tp``. A contiguous block
+    of the JAX layout holds no whole head (at tp=4 rank 0 would hold q of
+    heads 0-11 and nothing of k or v)."""
+    if n_head % tp:
+        raise ValueError(f"n_head={n_head} does not split over tp={tp}: a "
+                         f"tp rank attends over whole heads")
+    cols = np.arange(3 * hidden_size).reshape(3, tp, hidden_size // tp)
+    return np.ascontiguousarray(cols.transpose(1, 0, 2).reshape(-1))
+
+
 def replicated(mesh) -> Callable:
     return lambda path, leaf: P()
 
@@ -125,5 +144,13 @@ def spec_axes(spec) -> Tuple[str, ...]:
     return tuple(out)
 
 
-__all__ = ["P", "TP_RULES", "make_param_sharding", "path_keys", "path_str",
-           "replicated", "spec_axes"]
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The axes one spec entry names, the major one first."""
+    if entry is None:
+        return ()
+    return tuple(a for a in (entry if isinstance(entry, tuple) else (entry,))
+                 if a is not None)
+
+
+__all__ = ["P", "TP_RULES", "entry_axes", "make_param_sharding", "path_keys",
+           "path_str", "qkv_tp_permutation", "replicated", "spec_axes"]

@@ -360,10 +360,10 @@ Phases, each fatal on failure (no result line is printed then):
    top-1 probability above 0.999 and more than one top-1 class across
    the images; top-5 lists equal to ``predict`` on the set's own arrays.
    Prints the wall by part.
-19. multi-rank training (the seventeenth slice; ``[multi-rank]`` lines),
-   on 4 rank processes sharing the card (``parallel/comm.py::RankPool``,
-   gloo with CUDA tensors staged through pinned host buffers: NCCL refuses
-   ranks on one card), spawned once, after the kernels were built. (a)
+19. multi-rank training (``[multi-rank]`` lines), on 4 rank processes
+   sharing the card (``parallel/comm.py::RankPool``, gloo with CUDA
+   tensors staged through pinned host buffers: NCCL refuses ranks on one
+   card), spawned once, after the kernels were built. (a)
    ring, zigzag and Ulysses attention over sp=4, causal, at the LM cell's
    shape (B=2, T=2048, H=16, D=64), bf16, and the ring in f32: output and
    dq/dk/dv against the one-rank flash forward and K3/K4 backward on the
@@ -388,9 +388,17 @@ Phases, each fatal on failure (no result line is printed then):
    ``TransformerLM`` with the same weights, K1 = 84 (3 blocks x 7 steps a
    rank). (e) an NCCL group at world size 1: one flat update exchange
    (its reduce-scatter, norm all-reduce and all-gather on NCCL) gives the
-   plain Estimator step's parameters bit for bit. Prints each cell's
-   wall, per-rank peak memory and collectives beside the card's name and
-   power limit.
+   plain Estimator step's parameters bit for bit. (f-h) (b)'s recipe
+   with the JAX rules (``make_param_sharding``) placing the leaves:
+   fsdp=4 and tp=4 on the 4 ranks, dp=2 x fsdp=2 x tp=2 with update
+   sharding on 8 ranks of a second pool; each held to
+   (b)'s one-rank reference (losses within 2e-2, the f32 masters gathered
+   whole through the Estimator's ``_full`` within (b)'s Δ limit on every
+   rank, (b)'s controls), its per-rank parameter elements (80,846,336,
+   54,818,816 and 63,454,208), K1 = K3 = K4 = 12 x 2 a rank (96, 96, 192)
+   and the (B, T, heads, D) shape every K1/K3/K4 call saw (a tp rank's
+   16/tp heads). Prints each cell's wall, per-rank peak memory and
+   collectives beside the card's name and power limit.
 
 Phase 3 also holds the int8 kernels to their plain versions bit for bit
 (``torch.equal``), f32 and bf16: the quantize pass both launch (codes and
@@ -1100,18 +1108,18 @@ def check_k2(torch, timer, dtimer, parent=None):
             **timed}
 
 
-def _bwd_case(torch, gen, b, t, d, dtype, causal):
+def _bwd_case(torch, gen, b, t, d, dtype, causal, h=N_HEAD):
     """q, k, v as strided views of one fused (B, T, 3, H, D) tensor (as the
     QKV projection hands them over), K1's out and LSE, a random output
     grad and δ."""
     from analytics_zoo_tpu_torch.ops.flash_attention import (
         flash_attention_fwd, flash_bwd_delta)
 
-    qkv = torch.randn((b, t, 3, N_HEAD, d), generator=gen,
+    qkv = torch.randn((b, t, 3, h, d), generator=gen,
                       device="cuda").to(dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     out, lse = flash_attention_fwd(q, k, v, causal)
-    g = torch.randn((b, t, N_HEAD, d), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dtype)
     return q, k, v, g, lse, flash_bwd_delta(out, g)
 
 
@@ -6741,6 +6749,16 @@ MR_TRAIN_SEQS, MR_TRAIN_BATCH = 8, 4
 MR_NCF_STEPS = 8
 MR_MOE_SHAPE = (2, 2048)
 MR_PIPE_BATCH, MR_PIPE_MICRO = 4, 4
+#: 19f-19h: fsdp=4 and tp=4 on the 4 ranks, dp=2 x fsdp=2 x tp=2 (update
+#: sharding on) on 8 ranks of a second pool; 19b's recipe and gates, the
+#: JAX rules (make_param_sharding) placing the leaves
+MR_WORLD8 = 8
+MR_MESHES = {"fsdp": dict(fsdp=4), "tp": dict(tp=4),
+             "dp_fsdp_tp": dict(dp=2, fsdp=2, tp=2)}
+#: the parameter elements a rank holds under those rules, at the LM cell's
+#: width (the JAX model's leaves, each over its spec's axes)
+MR_ELEMENTS = {"fsdp": 80_846_336, "tp": 54_818_816,
+               "dp_fsdp_tp": 63_454_208}
 #: 19b's limit on ||Δ − Δ_ref|| / ||Δ_ref||, the change of the f32 masters
 #: over the fit against the one-rank run's. On an H100 the dp run reads
 #: 0.015 and the sp run 0.067; a skipped update reads 1 and an update from
@@ -6765,10 +6783,13 @@ def _mr_reset():
 
 def _mr_start(torch):
     """Zero the attention kernels' and the collectives' counts and the
-    peak memory; return the start time."""
+    peak memory (after collecting what earlier cells on this rank left in
+    reference cycles, such as a model and its Estimator, so the peak is
+    this cell's); return the start time."""
     from analytics_zoo_tpu_torch.ops import flash_attention as tfa
     from analytics_zoo_tpu_torch.parallel import comm
 
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches(tfa)
@@ -6825,20 +6846,24 @@ def mr_attention(strategy, dtype_name):
         _mr_reset()
 
 
-def _mr_lm(torch, strategy, seed=0):
+def _mr_lm(torch, strategy, seed=0, remat="flash"):
     from analytics_zoo_tpu_torch.models.transformer import TransformerLM
 
     return TransformerLM(vocab=VOCAB, hidden_size=HIDDEN, n_block=N_BLOCK,
                          n_head=N_HEAD, seq_len=SEQ_LEN,
-                         attn_strategy=strategy, remat="flash",
+                         attn_strategy=strategy, remat=remat,
                          device="cuda", seed=seed)
 
 
-def _mr_fit(torch, model, update_sharding=False, rows=None):
+def _mr_fit(torch, model, update_sharding=False, rows=None,
+            param_sharding=None, compute_dtype="bfloat16"):
     """19b's recipe: phase 7's precision (bf16, f32 masters, Adam,
     clipping 1.0), batch MR_TRAIN_BATCH, no accumulation, 2 steps.
     ``rows``: train on these sequences only, in batches of
-    ``MR_TRAIN_BATCH // MR_WORLD`` (one dp rank's share of each step)."""
+    ``MR_TRAIN_BATCH // MR_WORLD`` (one dp rank's share of each step).
+    ``param_sharding``: the leaves' placement rule (19f-19h).
+    ``compute_dtype`` "float32": the same in f32, the params their own
+    masters (``scripts/torch_fsdp_tp_probe.py``)."""
     from analytics_zoo_tpu_torch.common.config import TrainConfig
     from analytics_zoo_tpu_torch.models.transformer import lm_loss
 
@@ -6848,37 +6873,45 @@ def _mr_fit(torch, model, update_sharding=False, rows=None):
     if rows is not None:
         ids, batch = ids[rows], MR_TRAIN_BATCH // MR_WORLD
     model.compile(optimizer="adam", loss=lm_loss, config=TrainConfig(
-        compute_dtype="bfloat16", gradient_clip_norm=1.0, shuffle=False,
-        log_every_n_steps=1, update_sharding=update_sharding))
+        compute_dtype=compute_dtype, gradient_clip_norm=1.0, shuffle=False,
+        log_every_n_steps=1, update_sharding=update_sharding),
+        param_sharding=param_sharding)
     model.fit(ids[:, :-1], ids[:, 1:], batch_size=batch, nb_epoch=1)
     return [h["loss"] for h in model.estimator.history]
 
 
 def _mr_init(model):
-    """The model's f32 weights before training (the masters' start)."""
-    return {n: p.detach().float().clone()
+    """The model's f32 weights before training (the masters' start), on
+    the host."""
+    return {n: p.detach().float().cpu()
             for n, p in model.named_parameters()}
 
 
 def _mr_masters(est):
-    """A fit's f32 masters, whole and by name on every rank: a ZeRO-1
-    flat shard is all-gathered over dp."""
+    """A fit's f32 masters, whole (the JAX layout) and by name on every
+    rank: a ZeRO-1 flat shard all-gathered over dp, placed blocks and
+    per-leaf update shards through the Estimator's own ``_full``."""
     import torch
 
     from analytics_zoo_tpu_torch.parallel import comm
     from analytics_zoo_tpu_torch.parallel import update_sharding as upd
 
     st = est.train_state["opt_state"]
+    if getattr(st, "master", None) is None:
+        # f32: the params are the masters
+        return {n: est._full(n, p.detach())
+                for n, p in est.model.named_parameters()}
     if isinstance(st, upd.FlatUpdateState):
         meta = est._flat_meta
         flat = comm.all_gather(st.master, "dp", dim=0, tiled=True)
         return upd.unflatten_tree(flat, meta._replace(
             dtypes=(torch.float32,) * len(meta.names)))
-    return dict(st.master)
+    return {n: est._full(n, t, est._upd_dims.get(n))
+            for n, t in st.master.items()}
 
 
 def _mr_delta(init, master):
-    return {n: master[n].float() - init[n] for n in init}
+    return {n: master[n].float().cpu() - init[n] for n in init}
 
 
 def _mr_delta_err(delta, ref_delta):
@@ -6892,24 +6925,73 @@ def _mr_delta_err(delta, ref_delta):
     return math.sqrt(num / den)
 
 
-def mr_train(mode, ref_path):
+class _MrShapes:
+    """Record the (B, T, heads, D) q shape of every K1, K3 and K4 call
+    while it is entered. The recording functions stand in the module for
+    the wrappers, so each carries its wrapper's launch count (the wrappers
+    add to the module's name) and hands it back on exit."""
+
+    NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+
+    def __init__(self, tfa):
+        self.tfa, self.seen, self.orig = tfa, set(), {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = self.orig[name] = getattr(self.tfa, name)
+
+            def wrapped(q, *a, _fn=fn, _name=name, **kw):
+                self.seen.add((_name, tuple(q.shape)))
+                return _fn(q, *a, **kw)
+
+            wrapped.launches = fn.launches
+            setattr(self.tfa, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            fn.launches = getattr(self.tfa, name).launches
+            setattr(self.tfa, name, fn)
+        return False
+
+
+def mr_train(mode, ref_path, compute_dtype="bfloat16", remat="flash"):
     """19b, one rank: the LM cell over dp=4 (flat update sharding) or sp=4
-    (ring attention); every rank holds the change of its f32 masters over
-    the fit to the one-rank run's saved change."""
+    (ring attention); 19f-19h over fsdp=4, tp=4 or dp=2 x fsdp=2 x tp=2
+    (update sharding on) with the JAX rules placing the leaves. Every rank
+    holds the change of its f32 masters over the fit (gathered whole) to
+    the one-rank run's saved change."""
     import torch
 
-    axes = {"dp": MR_WORLD} if mode == "dp" else {"sp": MR_WORLD}
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+    from analytics_zoo_tpu_torch.parallel.sharding import make_param_sharding
+
+    axes = MR_MESHES.get(mode) or ({"dp": MR_WORLD} if mode == "dp"
+                                   else {"sp": MR_WORLD})
     ctx = _mr_ctx(**axes)
     try:
-        model = _mr_lm(torch, "flash" if mode == "dp" else "ring")
+        model = _mr_lm(torch, "ring" if mode == "sp" else "flash",
+                       remat=remat)
         init = _mr_init(model)
-        t0 = _mr_start(torch)
-        losses = _mr_fit(torch, model, "flat" if mode == "dp" else False)
-        res = _mr_end(torch, t0, {"losses": losses,
-                                  "rank": ctx.process_index})
-        delta = _mr_delta(init, _mr_masters(model.estimator))
+        rules = make_param_sharding(ctx.mesh) if mode in MR_MESHES else None
+        us = {"dp": "flat", "dp_fsdp_tp": True}.get(mode, False)
+        with _MrShapes(tfa) as shapes:
+            t0 = _mr_start(torch)
+            losses = _mr_fit(torch, model, us, param_sharding=rules,
+                             compute_dtype=compute_dtype)
+            res = _mr_end(torch, t0, {"losses": losses,
+                                      "rank": ctx.process_index})
+        est = model.estimator
+        master = getattr(est.train_state["opt_state"], "master", None)
+        res["shapes"] = sorted(shapes.seen)
+        res["elements"] = sum(p.numel() for p in model.parameters())
+        # the masters a rank holds (a flat shard: not by leaf)
+        res["master_elements"] = (sum(t.numel() for t in master.values())
+                                  if isinstance(master, dict) else None)
+        delta = _mr_delta(init, _mr_masters(est))
         del init
-        ref_delta = torch.load(ref_path, map_location="cuda")
+        ref_delta = torch.load(ref_path, map_location="cpu")
         res["delta_err"] = _mr_delta_err(delta, ref_delta)
         if ctx.process_index == 0:
             # the control: a run that skipped the update
@@ -7097,15 +7179,116 @@ def _mr_check(label, cond, detail):
         raise AssertionError(f"{label}: {detail}")
 
 
+def _mr_rank_kernels(torch, smi):
+    """K1, K3 and K4 at the shape each rank of 19f-19h launches them at
+    ((B / (dp * fsdp), 2048, 16 / tp, 64), causal, bf16, q/k/v strided
+    out of one fused (B, T, 3, H, D) tensor as the QKV projection hands
+    them over), held to their plain versions on the same inputs before the
+    cells run: K1's out and LSE within TOL["bfloat16"], K3's dQ and K4's
+    dK and dV within it relative to max(1, max|plain|), as phase 7 holds
+    them. Returns ``{label: errors}``."""
+    from analytics_zoo_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd, flash_attention_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    tol, out_errs = TOL["bfloat16"], {}
+    for mode, label in (("fsdp", "19f"), ("tp", "19g"),
+                        ("dp_fsdp_tp", "19h")):
+        mesh = MR_MESHES[mode]
+        rows = MR_TRAIN_BATCH // (mesh.get("dp", 1) * mesh.get("fsdp", 1))
+        heads = N_HEAD // mesh.get("tp", 1)
+        d = HIDDEN // N_HEAD
+        case = _bwd_case(torch, gen, rows, SEQ_LEN, d, torch.bfloat16, True,
+                         h=heads)
+        q, k, v = case[:3]
+        out, lse = flash_attention_fwd(q, k, v, True)
+        ref, ref_lse = flash_attention_plain(q, k, v, True)
+        torch.cuda.synchronize()
+        e_out, e_lse = maxerr(out, ref), maxerr(lse, ref_lse)
+        del out, lse, ref, ref_lse
+        shape = f"B={rows} T={SEQ_LEN} H={heads} D={d}"
+        a3, a4 = _check_bwd_case(torch, case, True, "bfloat16",
+                                 f"{label} rank shape {shape}")
+        info = {"shape": [rows, SEQ_LEN, heads, d],
+                "row_stride": int(q.stride(1)), "k1_out": e_out,
+                "k1_lse": e_lse, "k3_dq_abs": a3, "k4_dkv_abs": a4,
+                "tol": tol}
+        log(f"[multi-rank] {label} rank-shape kernels {json.dumps(info)} "
+            f"card {smi}")
+        _mr_check(label, e_out <= tol and e_lse <= tol,
+                  f"K1 off its plain version at {shape}: {info}")
+        out_errs[label] = info
+        del case, q, k, v
+    torch.cuda.empty_cache()
+    return out_errs
+
+
+def _mr_sharded_cell(pool, mode, world, ref_path, ref_losses,
+                     err_unaveraged, wall, smi):
+    """19f-19h: one fsdp/tp cell on ``pool``'s ranks, held to 19b's
+    one-rank reference (losses within 2e-2, Δ within MR_DELTA_TOL on every
+    rank), its per-rank elements to MR_ELEMENTS, its K1/K3/K4 launches to
+    12 layers x 2 steps a rank; returns the launches summed over ranks."""
+    label = {"fsdp": "19f_fsdp4", "tp": "19g_tp4",
+             "dp_fsdp_tp": "19h_dp2_fsdp2_tp2"}[mode]
+    t = time.perf_counter()
+    res = pool.run(mr_train, mode, ref_path)
+    wall[label] = time.perf_counter() - t
+    launches = np.sum([r["launches"] for r in res], 0)
+    steps = MR_TRAIN_SEQS // MR_TRAIN_BATCH
+    per = world * N_BLOCK * steps
+    loss_err = max(abs(a - b) for r in res
+                   for a, b in zip(r["losses"], ref_losses))
+    info = {"mesh": MR_MESHES[mode], "losses": res[0]["losses"],
+            "reference": ref_losses, "loss_err": loss_err,
+            "delta_err_by_rank": [r["delta_err"] for r in res],
+            "delta_err_skipped": res[0]["delta_err_skipped"],
+            "delta_err_unaveraged": err_unaveraged,
+            "elements": [r["elements"] for r in res],
+            "master_elements": [r["master_elements"] for r in res],
+            "shapes": res[0]["shapes"], "launches": launches.tolist(),
+            "collectives": res[0]["collectives"],
+            "rank_wall_s": [r["wall_s"] for r in res],
+            "peak_bytes": [r["peak_bytes"] for r in res], "card": smi}
+    log(f"[multi-rank] {label} {json.dumps(info)}")
+    _mr_check(label, all(len(r["losses"]) == steps for r in res)
+              and loss_err <= 2e-2
+              and max(info["delta_err_by_rank"]) <= MR_DELTA_TOL,
+              f"losses/update off the one-rank run: {info}")
+    _mr_check(label, min(info["delta_err_skipped"], err_unaveraged)
+              > MR_DELTA_TOL, f"a control passes the update gate: {info}")
+    _mr_check(label, info["elements"] == [MR_ELEMENTS[mode]] * world,
+              f"per-rank elements {info['elements']}, want "
+              f"{MR_ELEMENTS[mode]}")
+    if mode != "dp_fsdp_tp":
+        # no update sharding: the masters are the placed blocks
+        _mr_check(label, info["master_elements"] == info["elements"],
+                  f"masters {info['master_elements']} are not the blocks")
+    _mr_check(label, list(launches) == [per] * 3,
+              f"K1/K3/K4 launches {launches.tolist()}, want {per}")
+    heads = N_HEAD // MR_MESHES[mode].get("tp", 1)
+    rows = MR_TRAIN_BATCH // (MR_MESHES[mode].get("dp", 1)
+                              * MR_MESHES[mode].get("fsdp", 1))
+    want = (rows, SEQ_LEN, heads, HIDDEN // N_HEAD)
+    _mr_check(label, {shape for _, shape in info["shapes"]} == {want},
+              f"K1/K3/K4 saw {info['shapes']}, want {want}")
+    return launches
+
+
 def phase_multi_rank(torch, smi, tmp):
     """Phase 19: multi-rank training on 4 rank processes sharing the card
-    (19a-19d), and NCCL at world size 1 (19e); returns the K1, K3 and K4
-    launches summed over the ranks of 19a, 19b and 19d."""
+    (19a-19d, 19f fsdp=4, 19g tp=4), on 8 (19h dp=2 x fsdp=2 x tp=2), and
+    NCCL at world size 1 (19e), after K1/K3/K4 are held to their plain
+    versions at 19f-19h's rank shapes; returns the K1, K3 and K4 launches
+    summed over the ranks of 19a, 19b, 19d and 19f-19h, and those
+    checks' errors."""
     from analytics_zoo_tpu_torch.parallel import comm
 
     t_phase = time.perf_counter()
     wall, sums = {}, np.zeros(3, np.int64)
     n_blk = N_BLOCK
+    rank_shapes = _mr_rank_kernels(torch, smi)
+    wall["rank_shape_kernels"] = time.perf_counter() - t_phase
     # the one-rank run 19b is held to, on this process: the change of its
     # f32 masters over the fit
     t = time.perf_counter()
@@ -7255,6 +7438,20 @@ def phase_multi_rank(torch, smi, tmp):
         _mr_check("19d_pipeline", list(launches) == [want_k1, 0, 0],
                   f"K1 launches {launches.tolist()}, want {want_k1}")
         sums += launches
+        # 19f, 19g: fsdp=4 and tp=4 on these 4 ranks
+        for mode in ("fsdp", "tp"):
+            sums += _mr_sharded_cell(pool, mode, MR_WORLD, ref_path,
+                                     ref_losses, err_unaveraged, wall, smi)
+    finally:
+        pool.close()
+    # 19h: dp=2 x fsdp=2 x tp=2 with update sharding, 8 ranks
+    t = time.perf_counter()
+    pool = comm.RankPool(MR_WORLD8, device="cuda", threads=1, timeout_s=900)
+    try:
+        pool.run(_mr_reset)
+        wall["spawn8"] = time.perf_counter() - t
+        sums += _mr_sharded_cell(pool, "dp_fsdp_tp", MR_WORLD8, ref_path,
+                                 ref_losses, err_unaveraged, wall, smi)
     finally:
         pool.close()
     os.remove(ref_path)
@@ -7263,7 +7460,7 @@ def phase_multi_rank(torch, smi, tmp):
     wall["19e"] = time.perf_counter() - t
     wall["phase"] = time.perf_counter() - t_phase
     log(f"[multi-rank] phase wall s: {json.dumps(wall)} card {smi}")
-    return [int(n) for n in sums]
+    return [int(n) for n in sums], rank_shapes
 
 
 def main(argv=None) -> int:
@@ -7384,9 +7581,10 @@ def main(argv=None) -> int:
             import tempfile
 
             with tempfile.TemporaryDirectory(prefix="zoo_mr_") as tmp:
-                multi = phase_multi_rank(torch, smi, tmp)
+                multi, rank_shapes = phase_multi_rank(torch, smi, tmp)
             for k, n in zip((kernels[0], kernels[2], kernels[3]), multi):
                 k["launches_by_path"]["multi_rank"] = n
+                k["multi_rank_shapes"] = rank_shapes
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):

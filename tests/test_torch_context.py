@@ -113,8 +113,8 @@ def test_cpu_context(fresh_context):
     assert get_zoo_context() is ctx
     with ctx as entered:
         assert entered is ctx
-    # a mesh of more than one device reaches the Estimator's raise
-    with pytest.raises(NotImplementedError, match=r"\[9\]"):
+    # a mesh of more than one device outside a torch.distributed job
+    with pytest.raises(ValueError, match="needs a torch.distributed job"):
         Estimator(torch.nn.Linear(2, 2), optimizer="sgd", device="cpu")
     reset_zoo_context()
     assert tmod.compute_dtype() == torch.float32

@@ -61,6 +61,9 @@ with K1 = K3 = K4 = idx + 1 launches on rank idx of the causal ring. On a
 host with two or more cards, ranks on cards of their own take NCCL by
 default: every collective and its transpose equal numpy's, and the causal
 flash ring over them gives the one-process result (it skips on one card).
+fsdp and tp on the card (``-k multi_rank``): K1/K3/K4 at a tp rank's 4
+and 8 heads against their plain versions, and 4 rank processes on
+tp=2 x fsdp=2 training two f32 steps to the one-process CPU run.
 """
 
 import math
@@ -1639,3 +1642,99 @@ def test_collectives_and_ring_on_nccl_across_cards(cuda):
             np.testing.assert_allclose(dx, want_grad[i], rtol=1e-6,
                                        atol=1e-5, err_msg=f"d{name} rank {i}")
     assert max(r[3] for r in res) <= 1e-4, [r[3] for r in res]
+
+
+# ------------------------------------------------------- fsdp and tp
+@pytest.mark.parametrize("heads", [4, 8])
+def test_multi_rank_flash_kernels_at_local_head_counts(cuda, heads):
+    """K1, K3 and K4 on a tp rank's heads (the LM cell's 16 heads over
+    tp=4 and tp=2), as the layer hands them over: bf16 q/k/v views of one
+    (B, T, 3, heads, 64) QKV block, against their plain versions within
+    2e-2 (gradients relative to max(1, max|plain|))."""
+    g = torch.Generator(device=cuda).manual_seed(heads)
+    qkv = torch.randn((2, 512, 3, heads, 64), generator=g,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    go = torch.randn((2, 512, heads, 64), generator=g,
+                     device=cuda).to(torch.bfloat16)
+    before = [f.launches for f in (tfa.flash_attention_fwd,
+                                   tfa.flash_attention_bwd_dq,
+                                   tfa.flash_attention_bwd_dkv)]
+    out, lse = tfa.flash_attention_fwd(q, k, v, True)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, True)
+    delta = tfa.flash_bwd_delta(out, go)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, go, lse, delta, True)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, go, lse, delta, True)
+    rq = tfa.flash_attention_bwd_dq_plain(q, k, v, go, lse, delta, True)
+    rk, rv = tfa.flash_attention_bwd_dkv_plain(q, k, v, go, lse, delta, True)
+    torch.cuda.synchronize()
+    after = [f.launches for f in (tfa.flash_attention_fwd,
+                                  tfa.flash_attention_bwd_dq,
+                                  tfa.flash_attention_bwd_dkv)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert float((out.float() - ref.float()).abs().max()) <= 2e-2
+    assert float((lse - ref_lse).abs().max()) <= 2e-2
+    for got, want in ((dq, rq), (dk, rk), (dv, rv)):
+        scale = max(1.0, float(want.float().abs().max()))
+        assert float((got.float() - want.float()).abs().max()) \
+            <= 2e-2 * scale
+
+
+#: the small LM of the on-card fsdp x tp case (4 heads: 2 a tp rank)
+TP_LM = dict(vocab=64, hidden_size=64, n_block=2, n_head=4, seq_len=64)
+
+
+def _tp_fsdp_fit(device, axes):
+    """Two f32 Adam steps of the small LM with flash attention (and remat
+    "flash"); on ``axes`` with the JAX rules when given. Losses and the
+    params gathered whole."""
+    from analytics_zoo_tpu_torch.common.config import MeshConfig, TrainConfig
+    from analytics_zoo_tpu_torch.common.context import (init_zoo_context,
+                                                        reset_zoo_context)
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.models.transformer import lm_loss
+    from analytics_zoo_tpu_torch.nn import optimizers as topt
+    from analytics_zoo_tpu_torch.parallel.sharding import make_param_sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = init_zoo_context(mesh=MeshConfig(**axes)) if axes else None
+    try:
+        tm = TransformerLM(**TP_LM, attn_strategy="flash", remat="flash",
+                           device=device, seed=4)
+        rules = make_param_sharding(ctx.mesh) if ctx else None
+        est = Estimator(tm, optimizer=topt.Adam(lr=1e-2, epsilon=1e-4),
+                        loss=lm_loss, param_sharding=rules,
+                        config=TrainConfig(log_every_n_steps=1,
+                                           shuffle=False))
+        ids = np.random.default_rng(6).integers(
+            0, TP_LM["vocab"], size=(8, TP_LM["seq_len"] + 1))
+        est.fit((ids[:, :-1], ids[:, 1:]), batch_size=4, epochs=1)
+        return ([h["loss"] for h in est.history],
+                {n: est._full(n, p.detach()).float().cpu().numpy()
+                 for n, p in tm.named_parameters()},
+                tfa.flash_attention_fwd.launches)
+    finally:
+        if ctx is not None:
+            reset_zoo_context()
+
+
+def test_multi_rank_tp2_fsdp2_on_card_matches_cpu(cuda):
+    """4 rank processes on the card, tp=2 x fsdp=2 (Megatron blocks on 2
+    heads a rank, vocab-parallel head and loss, fsdp blocks gathered at
+    use; K1/K3/K4 on the card): two f32 steps give the one-process CPU
+    run's losses and params within 1e-4."""
+    from analytics_zoo_tpu_torch.parallel import comm
+
+    q = torch.zeros((1, 8, 1, 16), device="cuda")
+    tfa.flash_attention_fwd(q, q, q, True)
+    tfa.flash_attention_bwd(q, q, q, q, torch.zeros((1, 1, 8),
+                                                    device="cuda"), q, True)
+    with comm.RankPool(4, device="cuda", threads=0, timeout_s=300) as pool:
+        res = pool.run(_tp_fsdp_fit, "cuda", dict(fsdp=2, tp=2))
+    want, wparams, _ = _tp_fsdp_fit("cpu", None)
+    for losses, params, launches in res:
+        assert launches == 2 * TP_LM["n_block"]
+        np.testing.assert_allclose(losses, want, rtol=0, atol=1e-4)
+        for n, v in wparams.items():
+            np.testing.assert_allclose(params[n], v, rtol=0, atol=1e-4,
+                                       err_msg=n)
