@@ -8,11 +8,12 @@ names as the JAX package: ``ZOO_TPU_MESH_TP=2``,
 The field names and defaults are the JAX package's, so a config written for
 one package reads the same in the other. ``RuntimeConfig.platform`` takes
 ``None`` (CUDA; with no CUDA the context raises), ``"cpu"``, or
-``"gpu"``/``"cuda"``. Part of the machinery behind ``TrainConfig`` is not
-ported yet: :func:`check_ported` raises ``NotImplementedError`` naming the
-ROADMAP queue for every such field set away from its default, so no
-setting is ever silently ignored. The Estimator calls it at construction
-and at the start of every ``fit``.
+``"gpu"``/``"cuda"``. :func:`check_ported` validates a ``TrainConfig``'s
+choices (``compute_dtype``, ``graph_checks``); the Estimator calls it at
+construction and at the start of every ``fit``. ``graph_checks`` ("off" /
+"warn" / "raise") and ``hbm_budget_mb`` run the analysis tier's trace rules
+on the recorded train step at ``fit`` start
+(``engine/estimator.py::Estimator._run_graph_checks``).
 """
 
 from __future__ import annotations
@@ -133,29 +134,12 @@ class TrainConfig:
     async_checkpoint: bool = True
 
 
-#: fields whose machinery the port does not have yet: the values it
-#: accepts (the default first) and where the work is queued
-_UNPORTED = {
-    "graph_checks": ((None, "off"), "ROADMAP Queue 1, item 11 (the "
-                     "analysis rules)"),
-    "hbm_budget_mb": ((None,), "ROADMAP Queue 1, item 11 (the analysis "
-                      "rules)"),
-}
-
-
 def check_ported(cfg: TrainConfig) -> TrainConfig:
-    """Raise ``NotImplementedError`` for the first field set to a value
-    whose machinery is not ported; return ``cfg`` otherwise."""
-    for f in dataclasses.fields(cfg):
-        rule = _UNPORTED.get(f.name)
-        if rule is None:
-            continue
-        accepted, where = rule
-        val = getattr(cfg, f.name)
-        if val not in accepted:
-            raise NotImplementedError(
-                f"TrainConfig.{f.name}={val!r} is not supported by the "
-                f"PyTorch port yet ({where}); leave it at {accepted[0]!r}")
+    """Raise ``ValueError`` for a choice the port does not know; return
+    ``cfg`` otherwise."""
+    if cfg.graph_checks not in (None, "off", "warn", "raise"):
+        raise ValueError(f"TrainConfig.graph_checks={cfg.graph_checks!r}; "
+                         f"known: None, 'off', 'warn', 'raise'")
     if cfg.compute_dtype not in (None, "float32", "bfloat16"):
         raise ValueError(f"TrainConfig.compute_dtype={cfg.compute_dtype!r}; "
                          f"known: None, 'float32', 'bfloat16'")

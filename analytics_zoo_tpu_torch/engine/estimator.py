@@ -111,6 +111,20 @@ exchange round (``make_comm_probe``) into ``zoo_train_comm_seconds``.
 alive: a step installs its new parameters as new tensors instead of
 writing into the old ones (same bits).
 
+``TrainConfig.graph_checks`` ("warn"/"raise") runs the analysis tier at
+``fit`` start (:meth:`Estimator._run_graph_checks`): one step on the first
+batch is recorded without running (fake tensors: no kernel launches, and
+the parameters, optimizer state, step count, key and every
+``zoo_train_*`` counter stay as they were) and held to the collective
+budget (the flat update: one reduce-scatter and one all-gather, none in
+the accumulation loop), ``host-transfer``, ``large-constant``,
+``dtype-discipline`` under a bf16 policy, and the memory tier
+(``donation-missed`` for ``donate_state=False``, ``hbm-budget`` under
+``hbm_budget_mb``, ``peak-temporary``). "raise" fails before the first
+update. The memory witness samples site ``estimator.step`` at log points
+and epoch ends, and each new step signature feeds a recompilation-hazard
+tracker.
+
 Telemetry: the JAX Estimator's families, on the port's registry
 (``common/telemetry.py``), with its names, labels and counts:
 ``zoo_train_steps_total``, ``zoo_train_data_wait_seconds`` (each streamed
@@ -145,6 +159,7 @@ import numpy as np
 import torch
 
 from .. import bridge
+from ..common import memwitness as _mw
 from ..common import prng
 from ..common import telemetry as _tm
 from ..common.chaos import chaos_point
@@ -161,6 +176,7 @@ from ..nn.metrics import get_metric
 from ..nn.module import cast_params, precision_policy, resolve_device
 from ..nn.optimizers import (apply_updates, get_optimizer, global_norm,
                              with_clipping)
+from ..analysis import trace as _trace
 from ..parallel import comm, placement
 from ..parallel import update_sharding as upd
 from ..parallel.sharding import P, entry_axes, spec_axes
@@ -262,6 +278,7 @@ class Estimator:
         # first-dispatch signatures: the streamed steps' batches, the
         # device-cached scan blocks' shapes
         self._step_shapes: set = set()
+        self._recompile_tracker = None
         self._scan_shapes: set = set()
         self.train_state: Optional[Dict[str, Any]] = None
         self.trainer_state = TrainerState()
@@ -576,10 +593,11 @@ class Estimator:
                for n, p in params.items()}
         losses = []
         for i in range(k):
-            part = _tree_map(lambda a: a[i * m:(i + 1) * m], (x, y))
-            loss, g = one(*part, prng.fold_in(rng, i))
-            for n, a in acc.items():
-                a.add_(g[n].float())
+            with _trace.loop_region():
+                part = _tree_map(lambda a: a[i * m:(i + 1) * m], (x, y))
+                loss, g = one(*part, prng.fold_in(rng, i))
+                for n, a in acc.items():
+                    a.add_(g[n].float())
             losses.append(loss)
         return torch.stack(losses).mean(), {n: a / k for n, a in acc.items()}
 
@@ -760,6 +778,8 @@ class Estimator:
         # raises instead of silently running its inference form
         self.model.train()
         try:
+            if cfg.graph_checks and cfg.graph_checks != "off":
+                self._run_graph_checks(train_set, batch_size)
             while not end_trigger(self.trainer_state):
                 try:
                     if (cfg.cache_on_device and train_set.memory_type
@@ -986,6 +1006,7 @@ class Estimator:
                "compute_ms": max(0.0, now - win_t0 - win_data)
                / win_steps * 1e3}
         _COMPUTE.observe(rec["compute_ms"] / 1e3)
+        _mw.sample("estimator.step", self._witness_tensors)
         self.history.append(rec)
         if self.train_summary:
             self.train_summary.add_scalars(ts.iteration, {
@@ -1031,6 +1052,9 @@ class Estimator:
                     / steps * 1e3})
         ts.epoch += 1
         ts.records_processed += seen
+        # an epoch boundary is a witness point even when the epoch is
+        # shorter than log_every_n_steps
+        _mw.sample("estimator.step", self._witness_tensors)
         if self.config.checkpoint_dir:
             self._save(self.config.checkpoint_dir, durable=True)
         if self.train_summary:
@@ -1091,13 +1115,93 @@ class Estimator:
     def _first_dispatch(self, key, seen_keys: set, t_start: float) -> float:
         """A new batch signature's first step (where the JAX package
         compiles): wait for the device, then count it and time it in
-        ``zoo_train_compiles_total``/``zoo_train_compile_seconds``."""
+        ``zoo_train_compiles_total``/``zoo_train_compile_seconds``; a
+        streamed step's signature also feeds the recompilation-hazard
+        tracker."""
         self._sync()
         seen_keys.add(key)
+        if seen_keys is self._step_shapes:
+            self._note_step_signature(key)
         compile_s = time.perf_counter() - t_start
         _COMPILES.inc()
         _COMPILE_TIME.observe(compile_s)
         return compile_s
+
+    def _note_step_signature(self, key) -> None:
+        """Feed a new step signature to the ``recompile-hazard`` tracker: a
+        train step meeting more than a handful of distinct batch shapes
+        (unbucketed ragged batches, drifting dtypes) flags once."""
+        if self._recompile_tracker is None:
+            from ..analysis.graphlint import SignatureTracker
+
+            self._recompile_tracker = SignatureTracker("estimator.step",
+                                                       max_distinct=4)
+        self._recompile_tracker.add(key)
+
+    def _witness_tensors(self):
+        """What training holds on the device: the parameters and the
+        optimizer state (the memory witness's CPU reading)."""
+        ts = self.train_state or {}
+        return [list(self.model.parameters()),
+                list(self.model.buffers()), ts.get("opt_state")]
+
+    def _run_graph_checks(self, train_set: FeatureSet,
+                          batch_size: int) -> None:
+        """Record one step on the first batch (nothing runs: fake tensors,
+        no kernel launches) and run the trace rules on it per
+        ``TrainConfig.graph_checks``.
+
+        Expectations come from the config: the flat update-sharding path
+        has exactly one reduce-scatter + one all-gather per global step
+        and none inside the accumulation loop; a declared bf16 policy must
+        reach the matmuls; no host read of a device value and no large
+        host array may ride the step. The memory tier rides the same
+        trace: the parameters are replaced every step, so a step that
+        does not write them in place (``donate_state=False``) is
+        ``donation-missed``; a declared ``hbm_budget_mb`` bounds the
+        static peak; outsized temporaries warn. The parameters, optimizer
+        state, step count and key are left as they were."""
+        from ..analysis import (RuleContext, enforce, lint_trace,
+                                profile_trace, trace_call)
+        from ..analysis.rules.memory import lint_memory
+
+        cfg = self.config
+        self._batches_local = train_set.host_shard
+        host = next(iter(train_set.batches(batch_size, epoch=0,
+                                           shuffle=False)))
+        batch = self._to_device(host)
+        saved = self.train_state
+
+        def step(opt_state, batch):
+            self.train_state = {**saved, "opt_state": opt_state}
+            return self._step(batch)
+
+        def installed():
+            return ([p.detach() for p in self._params().values()],
+                    self.train_state["opt_state"])
+
+        try:
+            trace = trace_call(step, saved["opt_state"], batch,
+                               modules=[self.model], outputs=installed)
+        finally:
+            self.train_state = saved
+        trainable = {f"param:{n}" for n in self._params()}
+        budget = (int(cfg.hbm_budget_mb * 2 ** 20)
+                  if cfg.hbm_budget_mb else None)
+        ctx = RuleContext(
+            where="estimator.fit",
+            expect_collectives=({"reduce-scatter": 1, "all-gather": 1}
+                                if self._update_mode() == "flat" else None),
+            compute_dtype=cfg.compute_dtype, hbm_budget_bytes=budget,
+            dead_invars=[a.name in trainable for a in trace.args])
+        findings = lint_trace(trace, ctx=ctx,
+                              rules=["collective-budget", "host-transfer",
+                                     "large-constant", "dtype-discipline"])
+        findings += lint_memory(trace, ctx=ctx)
+        if _mw.enabled():
+            _mw.note_static("estimator.step",
+                            profile_trace(trace).peak_live_bytes, budget)
+        enforce(findings, cfg.graph_checks, logger)
 
     def _device_batches(self, data: FeatureSet, batch_size: int, **kw):
         """``data.batches(batch_size, **kw)`` on the device through

@@ -45,9 +45,15 @@ refuses it.
 ``load_zoo`` serves a weight bundle (``models/common/zoo_model.py``,
 written by either package) as ``load`` serves a module.
 
-Not ported: the model loaders ``load_tf`` and ``load_fn`` and the graph
-checks (ROADMAP Queue 1, item 11); each raises ``NotImplementedError``
-naming ROADMAP.
+Graph checks at model load: ``warm_up(graph_checks=)`` runs
+:meth:`check_fused_dispatch` (the ``fused-int8-dispatch`` rule over the
+recorded dispatch of a quantized model: K5/K6 sites, no quantize op and no
+int8 tensor outside them) and :meth:`check_memory` (``hbm-budget`` and
+``peak-temporary`` over its static live-range peak). Each ``predict``
+samples the memory witness at site ``inference.dispatch``.
+
+Not ported: the model loaders ``load_tf`` and ``load_fn`` (ROADMAP Queue 1,
+item 11); each raises ``NotImplementedError`` naming ROADMAP.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from torch.utils._pytree import tree_map
 
 from ..bridge import flat_tree, land_tensors, stage_tensors, \
     state_dict_from_jax
+from ..common import memwitness as _mw
 from ..common import telemetry as _tm
 from ..common.locks import traced_lock
 from ..engine.checkpoint import leaf_dtype_name, param_tree_signature
@@ -725,9 +732,16 @@ class InferenceModel:
                 self._give_back()
         finally:
             self._sem.release()
+        _mw.sample("inference.dispatch", self._witness_tensors)
         if self.summary is not None:
             self.summary.add_batch(n, time.perf_counter() - t0)
         return result
+
+    def _witness_tensors(self):
+        """What the dispatch holds on the device, for the memory witness."""
+        module = self._module
+        return (list(module.parameters()) + list(module.buffers())
+                if module is not None else [])
 
     def last_served_version(self) -> Optional[str]:
         """Version of the params that served THIS thread's last ``predict``
@@ -798,25 +812,78 @@ class InferenceModel:
 
     # ------------------------------------------------------------------- warmup
 
-    def warm_up(self, example_inputs, graph_checks=None) -> None:
+    def warm_up(self, example_inputs, graph_checks: Optional[str] = None
+                ) -> None:
         """Run one padded predict per bucket of the ladder ahead of
-        traffic."""
-        if graph_checks:
-            raise _not_ported("warm_up(graph_checks=...) (the analysis "
-                              "rules)", 11)
+        traffic. ``graph_checks`` ("warn"/"raise") then runs
+        :meth:`check_fused_dispatch` and :meth:`check_memory`, so a
+        quantized model whose kernels are not dispatching is caught here,
+        at model load."""
         multi = isinstance(example_inputs, (list, tuple))
         arrs = [np.asarray(a) for a in
                 (example_inputs if multi else [example_inputs])]
         for b in _buckets(self.max_batch_size):
             padded = [_pad_to(a[:1], b) for a in arrs]
             self.predict(padded if multi else padded[0])
+        if graph_checks:
+            self.check_fused_dispatch(example_inputs, mode=graph_checks)
+            self.check_memory(example_inputs, mode=graph_checks)
+
+    def _example_row(self, example_inputs):
+        """One example row on the device, as ``predict`` takes it."""
+        multi = isinstance(example_inputs, (list, tuple))
+        xs = self._device_inputs([np.asarray(a)[:1] for a in
+                                  (example_inputs if multi
+                                   else [example_inputs])])
+        return xs if multi else xs[0]
 
     def check_fused_dispatch(self, example_inputs, mode: str = "warn"):
-        raise _not_ported("check_fused_dispatch (the analysis rules)", 11)
+        """Run the ``fused-int8-dispatch`` rule over the recorded dispatch
+        :meth:`predict` runs on one example row: at least one K5/K6 site,
+        no standalone quantize op and no int8 tensor allocated outside the
+        kernel sites. No-op unless the model is quantized. ``mode``:
+        "warn" logs findings, "raise" raises
+        :class:`analytics_zoo_tpu_torch.analysis.GraphLintError`. Returns
+        the findings."""
+        import logging
+
+        from ..analysis import RuleContext, enforce
+        from ..analysis.rules.fused_int8 import lint_fused_dispatch
+
+        if not mode or mode == "off" or not self._quantized:
+            return []
+        findings = lint_fused_dispatch(
+            self, self._example_row(example_inputs),
+            ctx=RuleContext(where="inference.load", fused_expected=True))
+        return enforce(findings, mode,
+                       logging.getLogger("analytics_zoo_tpu_torch.inference"))
 
     def check_memory(self, example_inputs, mode: str = "warn",
-                     budget_bytes=None):
-        raise _not_ported("check_memory (the analysis rules)", 11)
+                     budget_bytes: Optional[int] = None):
+        """Run the memory tier over the recorded dispatch of one example
+        row: ``hbm-budget`` when ``budget_bytes`` declares a per-device
+        budget (``ServingConfig.hbm_budget_mb`` through ``_warm_model``)
+        and ``peak-temporary`` always. Notes the static peak into the
+        memory witness (site ``inference.dispatch``) when witnessing is
+        on. Returns the findings."""
+        import logging
+
+        from ..analysis import RuleContext, enforce, profile_trace
+        from ..analysis.rules.fused_int8 import trace_dispatch
+        from ..analysis.rules.memory import lint_memory
+
+        if not mode or mode == "off":
+            return []
+        trace = trace_dispatch(self, self._example_row(example_inputs))
+        findings = lint_memory(trace, ctx=RuleContext(
+            where="inference.load", hbm_budget_bytes=budget_bytes),
+            rules=["hbm-budget", "peak-temporary"])
+        if _mw.enabled():
+            _mw.note_static("inference.dispatch",
+                            profile_trace(trace).peak_live_bytes,
+                            budget_bytes)
+        return enforce(findings, mode,
+                       logging.getLogger("analytics_zoo_tpu_torch.inference"))
 
     @property
     def is_quantized(self) -> bool:

@@ -101,6 +101,18 @@ class GraphModule(Layer):
         self.single_input = isinstance(inputs, Node)
         self.single_output = isinstance(outputs, Node)
         self.nodes = _topo_order(self.output_nodes)
+        # each node's value is dropped after its last consumer, so a
+        # forward holds the live activations (as a compiled program does),
+        # not every one it made
+        last_use: Dict[int, int] = {}
+        for i, n in enumerate(self.nodes):
+            for p in n.inbound:
+                last_use[p.uid] = i
+        outputs = {n.uid for n in self.output_nodes}
+        self._drop_after: Dict[int, List[int]] = {}
+        for uid, i in last_use.items():
+            if uid not in outputs:
+                self._drop_after.setdefault(i, []).append(uid)
         for n in self.nodes:
             if isinstance(n.layer, InputLayer) and n not in self.input_nodes:
                 raise ValueError(f"graph uses Input node {n} not listed in "
@@ -147,12 +159,13 @@ class GraphModule(Layer):
                                   for n, v in zip(self.input_nodes, xs)}
         rngs = iter(split_rng(rng if draws_rng(self) else None,
                               len(self.nodes)))
-        for node in self.nodes:
-            if node.uid in values:
-                continue
-            inp = (values[node.inbound[0].uid] if len(node.inbound) == 1
-                   else [values[p.uid] for p in node.inbound])
-            values[node.uid] = call_layer(node.layer, inp, next(rngs))
+        for i, node in enumerate(self.nodes):
+            if node.uid not in values:
+                inp = (values[node.inbound[0].uid] if len(node.inbound) == 1
+                       else [values[p.uid] for p in node.inbound])
+                values[node.uid] = call_layer(node.layer, inp, next(rngs))
+            for uid in self._drop_after.get(i, ()):
+                del values[uid]
         outs = [values[n.uid] for n in self.output_nodes]
         return outs[0] if self.single_output else outs
 

@@ -22,6 +22,7 @@ from ...common import prng
 from ...ops.int8 import int8_matmul
 from ...ops.int8_fused import kernel_major
 from ..activations import get_activation
+from ...analysis import trace as _trace
 from ..module import Layer, as_compute, get_initializer
 
 
@@ -48,6 +49,11 @@ class Int8Kernel:
         was replaced or written since (``load_state_dict``, ``to``, a
         functional call with other weights)."""
         q = self.kernel_q
+        if _trace.RECORDING and _trace.recording():
+            # a recorded call reads the buffers it was handed: its fake
+            # kernel_qt stands for the current one, and the stamp of the
+            # real buffers stays as it is
+            return {"q": q, "scale": self.kernel_scale, "qt": self.kernel_qt}
         stamp = (q.data_ptr(), q._version)
         if self.__dict__.get("_qt_stamp") != stamp:
             self._buffers["kernel_qt"] = kernel_major(q)

@@ -35,6 +35,12 @@ strides with a contiguous head dim, so q/k/v sliced out of the fused QKV
 projection go in without a copy. A bf16 operand of the tensor-core kernels
 must also start on a 16-byte boundary with (batch, position, head) strides
 that are multiples of 8 elements: TMA's tensor maps take no other.
+
+While a trace records in this thread (``analysis/trace.py``), each wrapper
+records one site (K1, K3, K4) with its padded copies as scratch, computes
+its outputs' shapes with its plain version under the fake mode and
+launches nothing; ``flash_attention_bwd`` then goes through K3 and K4 on
+any device, as it does on the card.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..analysis import trace as _trace
 from .attention import NEG_INF, TILE_MAX_HEAD_DIM, kernel_envelope
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -164,6 +171,16 @@ def _prepare(what: str, **tensors: torch.Tensor):
     return d, width, tensors.values()
 
 
+def _pad_bytes(*tensors: torch.Tensor) -> int:
+    """The bytes of the zero-padded copies :func:`_prepare` makes of
+    ``tensors`` (a bf16 head dim off the 8 grid), 0 when it makes none."""
+    d = tensors[0].shape[-1]
+    width = kernel_head_dim(d, tensors[0].dtype)
+    if width == d:
+        return 0
+    return sum(t.numel() // d * width * t.element_size() for t in tensors)
+
+
 def _unpad(t: torch.Tensor, d: int) -> torch.Tensor:
     """An output's first ``d`` columns (itself when it has no others)."""
     return t if t.shape[-1] == d else t[..., :d]
@@ -175,6 +192,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash forward, (B, T, H, D) → ``(out (B, Tq, H, D), lse (B, H, Tq)
     f32)``. CPU tensors take :func:`flash_attention_plain`; CUDA tensors
     launch K1 or raise."""
+    if _trace.RECORDING and _trace.recording():
+        return _trace.kernel_site("K1", flash_attention_plain, q, k, v,
+                                  causal, scratch_bytes=_pad_bytes(q, k, v))
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, causal)
     lib = _build.load_library("flash_fwd", _SIG)
@@ -303,6 +323,10 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
     """K3: dQ (B, Tq, H, D) in q's dtype from the saved LSE and δ. CPU
     tensors take :func:`flash_attention_bwd_dq_plain`; CUDA tensors launch
     K3 or raise."""
+    if _trace.RECORDING and _trace.recording():
+        return _trace.kernel_site("K3", flash_attention_bwd_dq_plain, q, k,
+                                  v, g, lse, delta, causal,
+                                  scratch_bytes=_pad_bytes(q, k, v, g))
     if all(t.device.type == "cpu" for t in (q, k, v, g, lse, delta)):
         return flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, causal)
     lib = _build.load_library("flash_bwd", _BWD_SIG)
@@ -326,6 +350,10 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     """K4: ``(dk, dv)``, each (B, Tk, H, D) in k's/v's dtype. CPU tensors
     take :func:`flash_attention_bwd_dkv_plain`; CUDA tensors launch K4 or
     raise."""
+    if _trace.RECORDING and _trace.recording():
+        return _trace.kernel_site("K4", flash_attention_bwd_dkv_plain, q, k,
+                                  v, g, lse, delta, causal,
+                                  scratch_bytes=_pad_bytes(q, k, v, g))
     if all(t.device.type == "cpu" for t in (q, k, v, g, lse, delta)):
         return flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, causal)
     lib = _build.load_library("flash_bwd", _BWD_SIG)
@@ -353,9 +381,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash backward from K1's ``out`` and ``lse`` (B, H, Tq) f32 and the
     output grad ``g`` → ``(dq, dk, dv)``. CPU tensors take
-    :func:`flash_attention_bwd_plain`; CUDA tensors launch K3 then K4 or
-    raise."""
-    if all(t.device.type == "cpu" for t in (q, k, v, out, lse, g)):
+    :func:`flash_attention_bwd_plain`; CUDA tensors (and a recording
+    trace) launch K3 then K4 or raise."""
+    if all(t.device.type == "cpu" for t in (q, k, v, out, lse, g)) \
+            and not (_trace.RECORDING and _trace.recording()):
         return flash_attention_bwd_plain(q, k, v, out, lse, g, causal)
     if out.shape != q.shape or out.device != q.device:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} on "
@@ -371,7 +400,9 @@ def grad_layout(g: torch.Tensor) -> torch.Tensor:
     when contiguous and 16-byte aligned, else a contiguous copy (one
     broadcast from ``.sum()`` has stride 0; the kernels take a contiguous
     head dim and, in bf16, 16-byte-aligned rows)."""
-    if not g.is_contiguous() or g.data_ptr() % 16:
+    if not g.is_contiguous() or (
+            not (_trace.RECORDING and _trace.recording())
+            and g.data_ptr() % 16):
         g = g.clone(memory_format=torch.contiguous_format)
     return g
 

@@ -3,10 +3,14 @@ their plain versions.
 
 Port of ``analytics_zoo_tpu/ops/int8_fused.py``. K5 (``csrc/int8_matmul.cu``)
 replaces the Pallas ``_int8_matmul_kernel`` and K6 (``csrc/int8_conv.cu``)
-replaces ``_int8_conv_kernel``: the activations are quantized inside the
-kernel, the products run in int32, and the per-row (or per-pixel) scale and
-the per-channel weight scale are applied on the f32 accumulator, so no int8
-or dequantized intermediate reaches device memory.
+replaces ``_int8_conv_kernel``: the activations are quantized in the
+wrapper's quantize pass, the products run in int32, and the per-row (or
+per-pixel) scale and the per-channel weight scale are applied on the f32
+accumulator. The int8 codes and their scales cross device memory once,
+inside the wrapper: the quantize pass writes them to the wrapper's own
+scratch and the product reads them back (below); no dequantized
+intermediate reaches device memory, and no int8 tensor leaves the
+wrapper.
 
 The JAX package has two routes with different arithmetic, and the port
 reproduces each as the TPU takes it (``fused_mode() == "compiled"``, the
@@ -33,7 +37,10 @@ group's scale once to scratch from ``torch.empty`` (each group padded with
 zero codes to ``DEPTH`` bytes; a conv's pixels at 4 bytes when Cin <= 4),
 then the int8 tensor-core product, which reads the weights kernel-major
 (k contiguous: :func:`kernel_major`, made once where a layer is packed and
-passed as ``packed["qt"]``; made per call when the dict has none).
+passed as ``packed["qt"]``; made per call when the dict has none). While a
+trace records in this thread (``analysis/trace.py``), a wrapper records
+one site (K5, K6) whose scratch is those codes, scales and per-call
+weight copies, and launches nothing.
 
 The plain versions compute the integer products in float64, which is exact
 (|sum| <= 127^2 * K < 2^53) and runs on CUDA too, then round to f32 as
@@ -53,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..analysis import trace as _trace
 
 #: The TPU route's fixed schedule (``DEFAULT_BLOCK_M/N/K``) and its tiling
 #: floors (``_MIN_M/N/K``): the shapes that tile there take the fused route.
@@ -267,6 +275,10 @@ def int8_matmul_fused(x: torch.Tensor, packed: Dict[str, torch.Tensor],
     quantized per (row, ``block_k`` segment) inside the kernel. Returns
     ``x.shape[:-1] + (N,)`` in x's dtype. CPU tensors take
     :func:`int8_matmul_fused_plain`; CUDA tensors launch K5 or raise."""
+    if _trace.RECORDING and _trace.recording():
+        return _trace.kernel_site(
+            "K5", int8_matmul_fused_plain, x, packed, block_k, rule,
+            scratch_bytes=_matmul_scratch_bytes(x, packed, block_k))
     if x.device.type == "cpu":
         return int8_matmul_fused_plain(x, packed, block_k, rule)
     _check_rule(rule)
@@ -290,6 +302,23 @@ def int8_matmul_fused(x: torch.Tensor, packed: Dict[str, torch.Tensor],
     with _COUNT_LOCK:
         int8_matmul_fused.launches += 1
     return y.reshape(lead + (n,))
+
+
+def _matmul_scratch_bytes(x: torch.Tensor, packed, block_k: int) -> int:
+    """The bytes a K5 call allocates besides its output: the quantize
+    pass's codes and scales, the kernel-major weights when ``packed`` has
+    none, and their per-group padding when ``block_k`` is off the depth."""
+    k, n = packed["q"].shape
+    m = math.prod(tuple(x.shape[:-1]))
+    if k % block_k:
+        return 0                      # the plain version raises
+    gp = depth_of(block_k)
+    out = m * (k // block_k) * (gp + 4)
+    if packed.get("qt") is None:
+        out += n * k
+    if gp != block_k:
+        out += n * (k // block_k) * gp
+    return out
 
 
 def _matmul_on(lib, x2: torch.Tensor, qt: torch.Tensor, ws: torch.Tensor,
@@ -415,6 +444,10 @@ def int8_conv2d_fused(x: torch.Tensor, packed: Dict[str, torch.Tensor],
     kernel reads without a padded copy of x. Returns (B, Ho, Wo, Cout) in
     x's dtype. CPU tensors take :func:`int8_conv2d_fused_plain`; CUDA
     tensors launch K6 or raise."""
+    if _trace.RECORDING and _trace.recording():
+        return _trace.kernel_site(
+            "K6", int8_conv2d_fused_plain, x, packed, stride, pads, rule,
+            scratch_bytes=_conv_scratch_bytes(x, packed, stride, pads))
     if x.device.type == "cpu":
         return int8_conv2d_fused_plain(x, packed, stride, pads, rule)
     _check_rule(rule)
@@ -445,6 +478,28 @@ def int8_conv2d_fused(x: torch.Tensor, packed: Dict[str, torch.Tensor],
     with _COUNT_LOCK:
         int8_conv2d_fused.launches += 1
     return y
+
+
+def _conv_scratch_bytes(x: torch.Tensor, packed, stride, pads) -> int:
+    """The bytes a K6 call allocates besides its output: the quantize
+    pass's codes and scales (:func:`conv_scratch`), the kernel-major
+    weights when ``packed`` has none, and their Cin padding."""
+    kh, kw, cin, cout = packed["q"].shape
+    b, h, w, _ = x.shape
+    sh, sw = (int(s) for s in stride)
+    (pt, pb), (pl, pr) = pads
+    ho = conv_out_size(h, kh, sh, (pt, pb))
+    wo = conv_out_size(w, kw, sw, (pl, pr))
+    if ho < 1 or wo < 1:
+        return 0                      # the plain version raises
+    rows, pitch = conv_scratch(b, h, w, cin, ho, wo, kh, kw, (sh, sw), pt,
+                               pl)
+    out = rows * (pitch + 4)
+    if packed.get("qt") is None:
+        out += kh * kw * cout * cin
+    if cin > 4 and pitch != cin:
+        out += kh * kw * cout * pitch
+    return out
 
 
 def _conv_on(lib, x: torch.Tensor, qt: torch.Tensor, ws: torch.Tensor,

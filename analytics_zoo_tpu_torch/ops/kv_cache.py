@@ -16,7 +16,8 @@ the JAX ones.
 Sampling at temperature > 0 reproduces the JAX package's threefry draw bit
 for bit: :func:`gumbel_max_plain` in torch ops (the CPU path and the
 yardstick), :func:`gumbel_max` in one CUDA launch (``csrc/sample.cu``) for
-tensors on the card.
+tensors on the card (while a trace records in this thread,
+``analysis/trace.py``, a "sampler" site and no launch).
 
 The shared-prefix cache is host-side: :class:`PrefixCache` indexes
 published page-aligned prompt blocks under a chain hash
@@ -36,6 +37,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis import trace as _trace
 from ..common import prng
 from ..common.prng import _M32, threefry2x32
 from . import _build
@@ -638,6 +640,11 @@ def gumbel_max(scaled: torch.Tensor, rows: Sequence[int], seeds,
     (threefry bits, the Gumbel transform and the row argmax fused). CPU
     tensors take the plain version; CUDA tensors launch the kernel or
     raise. ``scaled`` must be a contiguous (B, V) f32 tensor."""
+    if _trace.RECORDING and _trace.recording():
+        # the (row, key) table the launch uploads is its scratch
+        return _trace.kernel_site("sampler", gumbel_max_plain, scaled, rows,
+                                  seeds, token_idx,
+                                  scratch_bytes=24 * len(rows))
     if scaled.device.type == "cpu":
         return gumbel_max_plain(scaled, rows, seeds, token_idx)
     lib = _build.load_library("sample", _SAMPLE_SIG)

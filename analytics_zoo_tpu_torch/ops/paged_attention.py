@@ -32,7 +32,9 @@ neither copied nor allocated wider for it), K2 runs its wide FMA kernel
 (``csrc/attn_wide.cuh``), which takes any head dim and any strides.
 
 There is no routing switch: CPU tensors take the plain version, CUDA
-tensors launch the kernel or raise.
+tensors launch the kernel or raise. While a trace records in this thread
+(``analysis/trace.py``), the wrapper records a K2 site with the scratch
+its launch would allocate and launches nothing.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import math
 import torch
 
 from . import _build
+from ..analysis import trace as _trace
 from .attention import TILE_MAX_HEAD_DIM, kernel_envelope
 from .flash_attention import _check_aligned
 from .kv_cache import decode_attention_multi, paged_read
@@ -142,6 +145,20 @@ def _on_tensor_cores(q: torch.Tensor) -> bool:
         and d <= TILE_MAX_HEAD_DIM
 
 
+def _split_geometry(q: torch.Tensor, pps: int, page_size: int):
+    """``(span, n_done, n_work)`` of the bf16 tensor-core kernel's split
+    across the context: positions a split covers, the split counters and
+    the f32 partials (m, l, acc) it needs; ``(0, 0, 0)`` for an FMA
+    kernel."""
+    if not _on_tensor_cores(q):
+        return 0, 0, 0
+    b, q_len, h, d = q.shape
+    span = page_size * -(-SPLIT_POSITIONS // page_size)
+    n_split = -(-(pps * page_size) // span)
+    return (span, b * h * -(-q_len // _Q_TILE),
+            b * h * n_split * q_len * (d + 2))
+
+
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, table: torch.Tensor,
                     lengths: torch.Tensor, *, page_size: int) -> torch.Tensor:
@@ -149,6 +166,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     ``k_pages``/``v_pages``: (P, page_size, H, D) — ONE layer's pool;
     ``table``: (B, pages_per_slot) int32; ``lengths``: (B,) int32 valid
     positions INCLUDING the q_len new tokens. Returns (B, q_len, H, D)."""
+    if _trace.RECORDING and _trace.recording():
+        _, n_done, n_work = _split_geometry(q, table.shape[1], page_size)
+        return _trace.kernel_site(
+            "K2", paged_attention_plain, q, k_pages, v_pages, table, lengths,
+            page_size=page_size, scratch_bytes=4 * (n_done + n_work))
     if q.is_cpu and k_pages.is_cpu and v_pages.is_cpu and table.is_cpu \
             and lengths.is_cpu:
         return paged_attention_plain(q, k_pages, v_pages, table, lengths,
@@ -161,13 +183,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     # the current stream's handle, without building a torch Stream (what
     # torch's own compiled kernels read)
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
-    span, done, work = 0, None, None
-    if _on_tensor_cores(q):
-        # (m, l, acc) in f32 for each (slot, head, split, row)
-        span = page_size * -(-SPLIT_POSITIONS // page_size)
-        n_split = -(-(pps * page_size) // span)
-        done, work = _scratch(q.device, stream, b * h * -(-q_len // _Q_TILE),
-                              b * h * n_split * q_len * (d + 2))
+    done, work = None, None
+    # (m, l, acc) in f32 for each (slot, head, split, row)
+    span, n_done, n_work = _split_geometry(q, pps, page_size)
+    if span:
+        done, work = _scratch(q.device, stream, n_done, n_work)
     err = lib.zoo_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         table.data_ptr(), lengths.data_ptr(), out.data_ptr(), work, done,

@@ -50,6 +50,10 @@ Every collective issued through a group adds one to its kind's count in
 ``all-gather``, ``reduce-scatter``, ``all-reduce``, ``all-to-all``,
 ``collective-permute``); an axis with no process group (no
 ``torch.distributed`` job) is trivial, issues nothing and counts nothing.
+While a trace records in this thread (``analysis/trace.py``: the
+graph checks' recorded step), a collective records a site (its kind, its
+axis, its input, whether it sits in the accumulation loop) and returns a
+tensor of its output's shape: nothing is issued or counted.
 
 :class:`RankPool` spawns ``world`` rank processes (the ``spawn`` start
 method, which CUDA needs), joins them in one process group over a
@@ -69,6 +73,8 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 
 import torch
 import torch.distributed as dist
+
+from ..analysis import trace as _trace
 
 KINDS = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all",
          "collective-permute")
@@ -159,6 +165,12 @@ def _from_wire(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def _raw_all_gather(x, ax: Axis, dim: int, tiled: bool) -> torch.Tensor:
+    if _trace.RECORDING and _trace.recording():
+        parts = [x] * ax.size
+        return _trace.collective_site(
+            "all-gather", ax.name, x,
+            lambda: torch.cat(parts, dim) if tiled else torch.stack(parts,
+                                                                    dim))
     _count("all-gather")
     w = _to_wire(x, ax.group, reduce=False)
     parts = [torch.empty_like(w) for _ in range(ax.size)]
@@ -168,6 +180,8 @@ def _raw_all_gather(x, ax: Axis, dim: int, tiled: bool) -> torch.Tensor:
 
 
 def _raw_psum(x, ax: Axis) -> torch.Tensor:
+    if _trace.RECORDING and _trace.recording():
+        return _trace.collective_site("all-reduce", ax.name, x, x.clone)
     _count("all-reduce")
     w = _to_wire(x, ax.group, reduce=True)
     if w is x:
@@ -177,6 +191,8 @@ def _raw_psum(x, ax: Axis) -> torch.Tensor:
 
 
 def _raw_pmax(x, ax: Axis) -> torch.Tensor:
+    if _trace.RECORDING and _trace.recording():
+        return _trace.collective_site("all-reduce", ax.name, x, x.clone)
     _count("all-reduce")
     w = _to_wire(x, ax.group, reduce=True)
     if w is x:
@@ -186,6 +202,12 @@ def _raw_pmax(x, ax: Axis) -> torch.Tensor:
 
 
 def _raw_psum_scatter(x, ax: Axis, dim: int, tiled: bool) -> torch.Tensor:
+    if _trace.RECORDING and _trace.recording():
+        def block():
+            out = x.chunk(ax.size, dim)[0].clone()
+            return out if tiled else out.squeeze(dim)
+
+        return _trace.collective_site("reduce-scatter", ax.name, x, block)
     _count("reduce-scatter")
     if not tiled and x.shape[dim] != ax.size:
         raise ValueError(f"psum_scatter: dim {dim} of size {x.shape[dim]} "
@@ -203,6 +225,10 @@ def _raw_psum_scatter(x, ax: Axis, dim: int, tiled: bool) -> torch.Tensor:
 
 def _raw_all_to_all(x, ax: Axis, split_dim: int,
                     concat_dim: int) -> torch.Tensor:
+    if _trace.RECORDING and _trace.recording():
+        return _trace.collective_site(
+            "all-to-all", ax.name, x,
+            lambda: torch.cat(x.chunk(ax.size, split_dim), concat_dim))
     _count("all-to-all")
     if x.shape[split_dim] % ax.size:
         raise ValueError(f"all_to_all: dim {split_dim} of size "
@@ -236,6 +262,9 @@ def _exchange(ops) -> None:
 
 
 def _raw_ppermute(x, ax: Axis, perm: Sequence[Tuple[int, int]]):
+    if _trace.RECORDING and _trace.recording():
+        return _trace.collective_site("collective-permute", ax.name, x,
+                                      x.clone)
     _count("collective-permute")
     w = _to_wire(x, ax.group, reduce=False)
     out = None

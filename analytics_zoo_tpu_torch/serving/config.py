@@ -5,14 +5,12 @@ Parity: the reference's cluster-serving ``config.yaml`` parsed by its
 ``ClusterServingHelper`` — model path, batch size, thread/parallelism knobs,
 queue endpoint, top-N post-processing.
 
-Nothing is silently ignored. A field whose machinery is not in the port
-raises ``NotImplementedError`` naming the ROADMAP item that brings it, when
-it is set away from its default:
-
-* ``graph_checks="raise"`` and ``hbm_budget_mb`` (the dispatch and memory
-  lints, item 11); the default ``"warn"`` makes each engine log one warning
-  at start naming item 11, and its ``stats()`` report
-  ``graph_checks: "not_ported"``.
+``graph_checks`` ("off" / "warn" / "raise") and ``hbm_budget_mb`` drive
+the analysis tier at engine start: the int8 dispatch checks
+(``InferenceModel.check_fused_dispatch``/``check_memory`` from
+``ClusterServing._warm_model``) and the decode checks
+(``ContinuousBatcher.check_decode_stability`` from ``GenerationEngine``).
+"warn" logs each finding and serves; "raise" fails ``start()``.
 
 The fleet fields (``replicas``, ``fleet_*``, ``autoscale*``,
 ``rollout_*``) drive ``serving/fleet.py``; the ``slo:`` section is checked
@@ -25,17 +23,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"ServingConfig {what} is not ported to the PyTorch package yet "
-        f"(ROADMAP Queue 1, {item})")
-
-
-#: the warning each engine logs once at start for graph_checks="warn"
-GRAPH_CHECKS_WARNING = ("graph_checks='warn': the dispatch graph lint is not "
-                        "ported to the PyTorch package yet (ROADMAP Queue 1, "
-                        "item 11); serving without it")
 
 
 @dataclasses.dataclass
@@ -55,22 +42,21 @@ class ServingConfig:
                                          # dim): engine start() pre-compiles
                                          # the bucket ladder for it
     graph_checks: str = "warn"           # static analysis of the dispatch
-                                         # computation at warmup (analysis/
-                                         # fused-int8-dispatch rule + the
-                                         # memory tier: hbm-budget /
-                                         # peak-temporary, and cache-alias
-                                         # on the decode warmup): "warn"
-                                         # logs findings, "raise" fails
-                                         # start() — catches the PR-6
-                                         # regression class at model-load
-                                         # time; "off" skips
-    hbm_budget_mb: Optional[float] = None  # per-device HBM budget for the
-                                         # serving dispatch / decode step:
-                                         # with graph_checks on, the static
-                                         # live-range peak must stay under
-                                         # it at warmup (hbm-budget rule);
+                                         # at warm-up (the fused-int8-
+                                         # dispatch rule + the memory tier:
+                                         # hbm-budget / peak-temporary, and
+                                         # decode-shape-stability /
+                                         # cache-alias on the decode
+                                         # warm-up): "warn" logs findings,
+                                         # "raise" fails start(); "off"
+                                         # skips
+    hbm_budget_mb: Optional[float] = None  # per-device memory budget for
+                                         # the serving dispatch / decode
+                                         # step: with graph_checks on, the
+                                         # static live-range peak must stay
+                                         # under it at warm-up (hbm-budget);
                                          # the memory witness re-checks
-                                         # measured bytes in CI
+                                         # measured bytes
     log_dir: Optional[str] = None        # InferenceSummary TB dir
     # --- autoregressive generation (serving/generation.py) ---
     gen_slots: int = 8                   # concurrent decode sequences (the
@@ -217,14 +203,6 @@ class ServingConfig:
     breaker_failure_threshold: int = 5   # broker-path failures in the window
                                          # that open the frontend's circuit
     breaker_reset_timeout_s: float = 2.0 # open->half-open probe delay
-
-    def __post_init__(self):
-        if self.graph_checks == "raise":
-            raise _not_ported("graph_checks='raise' (the dispatch graph "
-                              "lint)", "item 11")
-        if self.hbm_budget_mb is not None:
-            raise _not_ported("hbm_budget_mb (the static memory lint)",
-                              "item 11")
 
     @classmethod
     def from_yaml(cls, path: str) -> "ServingConfig":

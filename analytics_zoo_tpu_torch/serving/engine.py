@@ -29,9 +29,11 @@ engine consumes its own routed dispatch stream under a group that starts at
 ``fleet:ctl:<replica_id>`` for drain and nonce-deduped swap commands from
 the ``RolloutController``, and writes results first-write-wins
 (``HSETNX``), so a requeued request answered twice reaches
-the client once. The warm-up's graph checks are not ported (item 11):
-``graph_checks="warn"`` logs one warning at ``start`` and ``stats()``
-reports ``graph_checks: "not_ported"``.
+the client once. With ``graph_checks`` ("warn" default / "raise") and a
+``warmup_shape``, the warm-up runs the int8 dispatch checks
+(``InferenceModel.check_fused_dispatch`` and ``check_memory`` under
+``hbm_budget_mb``) before the engine takes traffic; ``stats()`` reports
+the mode and the warm-up's finding count.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ from ..inference.summary import InferenceSummary
 from . import qos as _qos
 from . import slo_metrics as _slo_metrics
 from .client import INPUT_STREAM, RESULT_PREFIX, _Conn
-from .config import GRAPH_CHECKS_WARNING, ServingConfig
+from .config import ServingConfig
 from .hotswap import MODEL_STREAM, ModelSwapper, SwapRejected
 from .schema import (MODEL_VERSION_KEY, decode_payload, payload_deadline,
                      payload_priority, payload_trace)
@@ -146,6 +148,8 @@ class ClusterServing:
         # respawn a dead one in place (reference: Flink task restarts)
         self._infer_threads: Dict[int, threading.Thread] = {}
         self.workers_respawned = 0
+        # the findings of the warm-up's graph checks (graph_checks)
+        self.graph_findings: list = []
         # bounded hand-off queues = operator-chain backpressure
         self._infer_q: "queue.Queue" = queue.Queue(maxsize=8)
         self._sink_q: "queue.Queue" = queue.Queue(maxsize=32)
@@ -454,14 +458,18 @@ class ClusterServing:
         """Startup warmup: int8 packing and, when the config names an input
         shape, one predict per bucket of the ladder happen HERE, not on the
         first request; the costs land in ``compile_stats``
-        (``quantize_seconds``, ``compiles``). The JAX engine also runs its
-        dispatch graph checks here; the port has none yet (item 11), and
-        ``graph_checks="warn"`` says so once."""
+        (``quantize_seconds``, ``compiles``).
+
+        With ``config.graph_checks`` ("warn" default / "raise"), the
+        warm-up also runs the ``fused-int8-dispatch`` rule and the memory
+        tier (``hbm-budget`` under ``hbm_budget_mb``, ``peak-temporary``)
+        over the dispatch the engine is about to serve, so a quantized
+        model whose kernels are not dispatching is caught at model LOAD.
+        The rules need an input shape, so they run only when
+        ``warmup_shape`` is set."""
         if self.config.int8 and not self.model.is_quantized:
             self.model.quantize_int8()
         checks = getattr(self.config, "graph_checks", "warn")
-        if checks == "warn":
-            logger.warning(GRAPH_CHECKS_WARNING)
         shape = getattr(self.config, "warmup_shape", None)
         if shape and hasattr(self.model, "warm_up"):
             sample = np.zeros((1,) + tuple(int(d) for d in shape),
@@ -472,6 +480,29 @@ class ClusterServing:
                 logger.exception("warmup predict failed (shape=%s); the "
                                  "first real request will run it instead",
                                  shape)
+            budget_mb = getattr(self.config, "hbm_budget_mb", None)
+            for name, kw in (("check_fused_dispatch", {}),
+                             ("check_memory", {
+                                 "budget_bytes": int(budget_mb * 2 ** 20)
+                                 if budget_mb else None})):
+                if not hasattr(self.model, name):
+                    continue
+                try:
+                    self.graph_findings += getattr(self.model, name)(
+                        sample, mode=checks, **kw)
+                except Exception:
+                    # a lint VERDICT fails start() in "raise" mode
+                    # (GraphLintError from the check itself); a trace that
+                    # fails in "warn" mode is tolerated like a failed
+                    # warm-up predict: log and serve
+                    if checks == "raise":
+                        raise
+                    logger.exception("%s failed (shape=%s); serving anyway",
+                                     name, shape)
+        elif self.config.int8 and checks and checks != "off":
+            logger.info("graph_checks: no warmup_shape configured — the "
+                        "int8 dispatch checks need an input shape and are "
+                        "skipped")
 
     def _spawn_infer_worker(self, widx: int) -> threading.Thread:
         t = threading.Thread(target=self._infer_loop, args=(widx,),
@@ -740,14 +771,16 @@ class ClusterServing:
     def stats(self) -> Dict[str, Any]:
         """Engine-side observability: records served, worker respawns, the
         swap state, and the model's per-bucket counters (``compiles`` flat
-        under traffic: no new batch shape mid-stream). ``graph_checks`` is
-        ``"not_ported"``: the port runs no dispatch graph check."""
+        under traffic: no new batch shape mid-stream), the warm-up's
+        ``graph_checks`` mode and its finding count."""
         out: Dict[str, Any] = {"served": self.served,
                                "errors": self.errors,
                                "workers_respawned": self.workers_respawned,
                                "model_version": self.model_version,
                                "swap_state": self._swap_state,
-                               "graph_checks": "not_ported"}
+                               "graph_checks": getattr(
+                                   self.config, "graph_checks", "warn"),
+                               "graph_findings": len(self.graph_findings)}
         if self._swap_error:
             out["swap_error"] = self._swap_error
         if hasattr(self.model, "compile_stats"):

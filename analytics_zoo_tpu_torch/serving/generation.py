@@ -33,11 +33,14 @@ from the ``ServingConfig``'s ``gen_*`` fields on ``device``, and streams
 token deltas as frames on ``genout:<uri>``; :class:`GenerationClient`
 submits, cancels and reads them back in ``seq`` order.
 
-Not ported yet, and raising ``NotImplementedError`` where a caller asks for
-them (ROADMAP Queue 1, item 11): ``graph_checks`` and ``hbm_budget_bytes``
-(the decode graph and memory lints) and the memory witness's decode
-sample; ``GenerationEngine`` with ``graph_checks="warn"`` (the config's
-default) logs one warning at ``start`` instead.
+Graph checks: ``ContinuousBatcher(graph_checks=, hbm_budget_bytes=)`` runs
+:meth:`ContinuousBatcher.check_decode_stability` at construction — the
+decode step (or the verify step at ``spec_k``, and the prefill chunk at
+``prefill_chunk_tokens``) recorded without running and held to
+``decode-shape-stability``, ``cache-alias`` and ``hbm-budget``;
+``GenerationEngine`` runs it at ``start`` under ``ServingConfig.
+graph_checks`` and ``hbm_budget_mb``. Every decode and verify step samples
+the memory witness at site ``serving.decode``.
 
 ``GenerationEngine`` arms the SLO-derived prefill budget from the config's
 inter-token-latency objective (a latency objective whose name mentions
@@ -63,6 +66,7 @@ import torch
 
 from ..analysis.rules.decode import lint_prefix_write_isolation
 from ..bridge import flat_tree, land_tensors, params_from_jax, stage_tensors
+from ..common import memwitness as _mw
 from ..common import telemetry as _tm
 from ..common.chaos import WorkerKilled, chaos_point
 from ..common.locks import traced_lock
@@ -76,7 +80,7 @@ from ..ops.kv_cache import (OutOfPages, PagePool, PrefixCache, SCRATCH_PAGE,
 from ..ops.speculative import SpecDecodeConfig, propose_kgram
 from . import qos as _qos
 from .client import _Conn, default_conn_policy
-from .config import GRAPH_CHECKS_WARNING, ServingConfig
+from .config import ServingConfig
 from .schema import (DEADLINE_KEY, PRIORITY_KEY, TRACE_KEY, payload_deadline,
                      payload_priority, payload_trace)
 
@@ -173,11 +177,6 @@ _tm.collector("zoo_gen_prefix_reclaimable_pages",
                   g.prefix_cache.reclaimable_pages()
                   for g in list(_LIVE_GENERATORS)
                   if g.prefix_cache is not None)))])
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to the PyTorch package "
-                              f"yet (ROADMAP Queue 1: {item})")
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -373,7 +372,10 @@ class ContinuousBatcher:
     nothing reads it, in either package.
 
     The pool is written in place, so the JAX package's ``donate_cache``
-    has no counterpart here.
+    has no counterpart here: ``cache-alias`` holds the step to writing it
+    in place. ``graph_checks`` ("warn"/"raise") runs
+    :meth:`check_decode_stability` at construction, with
+    ``hbm_budget_bytes`` as its budget.
     """
 
     def __init__(self, model, *, n_slots: int = 8, page_size: int = 16,
@@ -393,10 +395,6 @@ class ContinuousBatcher:
                  device=None, autostart: bool = True):
         if admit_policy not in ("continuous", "batch"):
             raise ValueError(f"unknown admit_policy {admit_policy!r}")
-        if graph_checks and graph_checks != "off":
-            _unported("graph_checks (the decode graph lint)", "item 11")
-        if hbm_budget_bytes is not None:
-            _unported("hbm_budget_bytes (the static memory lint)", "item 11")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if page_size & (page_size - 1):
@@ -496,6 +494,9 @@ class ContinuousBatcher:
         self.spec_accepted = 0
         self._occupied_slot_steps = 0
         self._decode_tokens = 0          # decode-phase tokens (not prefill)
+        self.hbm_budget_bytes = hbm_budget_bytes
+        if graph_checks and graph_checks != "off":
+            self.check_decode_stability(graph_checks)
         _LIVE_GENERATORS.add(self)
         self._threads: List[threading.Thread] = []
         self._loop_thread: Optional[threading.Thread] = None
@@ -1228,6 +1229,7 @@ class ContinuousBatcher:
         self.steps += 1
         self._occupied_slot_steps += len(live)
         _GEN_STEPS.inc()
+        _mw.sample("serving.decode", self._witness_tensors)
         for i in live:
             with self._lock:
                 slot = self._slots[i]
@@ -1339,6 +1341,7 @@ class ContinuousBatcher:
         self._occupied_slot_steps += len(spec_rows)
         _GEN_STEPS.inc()
         _GEN_SPEC_STEPS.inc()
+        _mw.sample("serving.decode", self._witness_tensors)
         for i in spec_rows:
             with self._lock:
                 slot = self._slots[i]
@@ -1535,6 +1538,57 @@ class ContinuousBatcher:
 
     # ------------------------------------------------------------- diagnostics
 
+    # ------------------------------------------------------------- diagnostics
+
+    def _witness_tensors(self):
+        """What the decode step holds on the device: the weights and the
+        page pool (the memory witness's CPU reading)."""
+        return [self.cache, list(self.model.parameters())]
+
+    def check_decode_stability(self, mode: str = "warn",
+                               hbm_budget_bytes: Optional[int] = None):
+        """Run the decode graph checks over the recorded decode step (the
+        verify step at ``spec_k``; also the prefill chunk at
+        ``prefill_chunk_tokens``; nothing runs, no kernel launches):
+        ``decode-shape-stability`` (the cache comes back in place, no host
+        reads, no per-step growth), ``cache-alias`` (no pool-sized
+        allocation in the step) and, under a budget, ``hbm-budget`` over
+        the static peak, which is also noted into the memory witness
+        (site ``serving.decode``). Returns the findings."""
+        import logging as _logging
+
+        from ..analysis import enforce
+        from ..analysis.rules.decode import lint_decode_stability
+
+        budget = (hbm_budget_bytes if hbm_budget_bytes is not None
+                  else self.hbm_budget_bytes)
+        findings = lint_decode_stability(
+            self.model, self.cfg, self.cache, top_k=self.top_k,
+            spec_k=self.spec_k, chunk_tokens=self.prefill_chunk_tokens,
+            where="serving.generation", hbm_budget_bytes=budget,
+            note_static_site="serving.decode")
+        return enforce(findings, mode,
+                       _logging.getLogger("analytics_zoo_tpu_torch.serving"))
+
+    def decode_memory(self) -> Dict[str, Any]:
+        """The memory picture of the decode step (the verify step at
+        ``spec_k``): its buffer table (``alias_size_in_bytes`` is the page
+        pool coming back in place), the pool's bytes and the static peak
+        of the recorded step."""
+        from ..analysis.memory import memory_fields, profile_trace
+        from ..analysis.rules.decode import trace_decode
+
+        trace = trace_decode(self.model, self.cfg, self.cache,
+                             top_k=self.top_k, spec_k=self.spec_k)
+        prof = profile_trace(trace)
+        return {"compiled": memory_fields(trace),
+                "cache_bytes": int(sum(t.numel() * t.element_size()
+                                       for t in self.cache.values())),
+                "static_peak_bytes": prof.peak_live_bytes,
+                "resident_bytes": prof.resident_bytes,
+                "aliased_bytes": prof.aliased_out_bytes,
+                "kernel_sites": trace.kernel_counts()}
+
     def stats(self) -> Dict[str, Any]:
         with self._lock:
             active = sum(s is not None for s in self._slots)
@@ -1681,11 +1735,15 @@ class GenerationEngine:
                 prefill_token_budget=getattr(cfg,
                                              "gen_prefill_token_budget", 0),
                 prefill_slo_itl_s=_itl_objective_target_s(cfg),
+                hbm_budget_bytes=int(cfg.hbm_budget_mb * 2 ** 20)
+                if cfg.hbm_budget_mb else None,
                 device=device, autostart=False)
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._sink_q: "queue.Queue" = queue.Queue(maxsize=1024)
         self.served_streams = 0
+        # the findings of the start-up decode check (graph_checks)
+        self.graph_findings: list = []
 
     def _connect(self, tag: str) -> _Conn:
         policy = RetryPolicy(max_attempts=None, base_delay_s=0.05,
@@ -1695,11 +1753,21 @@ class GenerationEngine:
                      policy=policy, abort=self._stop.is_set, tag=tag)
 
     def _warm(self):
-        """The JAX engine's startup decode-graph check is not ported (item
-        11): ``graph_checks="warn"`` says so once (``"raise"`` raised when
-        the config was made)."""
-        if getattr(self.config, "graph_checks", "warn") == "warn":
-            logger.warning(GRAPH_CHECKS_WARNING)
+        """Startup decode-graph check (``ServingConfig.graph_checks``): the
+        recorded decode step must be shape-stable, free of host reads and
+        write its pool in place (plus ``hbm-budget`` under a declared
+        ``hbm_budget_mb``) BEFORE the engine takes traffic. In "warn" mode
+        a check that fails to run is logged and the engine serves."""
+        checks = getattr(self.config, "graph_checks", "warn")
+        if not checks or checks == "off":
+            return
+        try:
+            self.graph_findings = self.batcher.check_decode_stability(checks)
+        except Exception:
+            if checks == "raise":
+                raise
+            logger.exception("decode-shape-stability check failed; "
+                             "serving anyway (graph_checks=warn)")
 
     def start(self) -> "GenerationEngine":
         self._stop.clear()
@@ -1849,7 +1917,8 @@ class GenerationEngine:
         ITL objective's threshold the prefill budget is derived from
         (``None`` when the config declares none)."""
         out = {"served_streams": self.served_streams,
-               "graph_checks": "not_ported",
+               "graph_checks": getattr(self.config, "graph_checks", "warn"),
+               "graph_findings": len(self.graph_findings),
                "itl_target_s": self.batcher.prefill_slo_itl_s}
         out.update(self.batcher.stats())
         return out

@@ -23,10 +23,10 @@ stale entries (a row looked up again since it was pushed) are refreshed when
 they reach the top, so the same victim is found in logarithmic time.
 
 Per-tier hit/miss telemetry (``zoo_embed_*``) feeds the observability plane
-and the ``/debug/rowcache`` ops surface. The JAX cache also reports its host
-bytes to the memory witness (site ``serving.rowcache.host``); the witness is
-not ported (ROADMAP Queue 1, item 11), so ``budget_bytes`` is only reported
-in :meth:`HostRowCache.stats`.
+and the ``/debug/rowcache`` ops surface. The cache reports its host bytes
+to the memory witness (site ``serving.rowcache.host``: the table's bytes
+with ``budget_bytes`` as the site's budget at construction, its host bytes
+after each gather), as the JAX cache does.
 
 Row-delta publishes land here via :meth:`HostRowCache.apply_row_delta` —
 touched rows overwrite the cold store and any pinned copies in place.
@@ -47,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..common import memwitness as _mw
 from ..common import telemetry as _tm
 from ..nn.module import resolve_device
 
@@ -56,6 +57,9 @@ _LOOKUPS = _tm.counter(
     "zoo_embed_cache_lookups_total",
     "Hot-row cache id lookups by serving tier: tier=hot was pinned in "
     "device memory, tier=cold paid a host row_slice fill", labels=("tier",))
+#: the memory-witness site the cache's host bytes are recorded under
+MEM_SITE = "serving.rowcache.host"
+
 _EVICTIONS = _tm.counter(
     "zoo_embed_cache_evictions_total",
     "Hot-tier rows displaced by a more frequently looked-up row")
@@ -143,8 +147,11 @@ class HostRowCache:
         self._hits = 0
         self._misses = 0
         self._evictions = 0
-        _HOST_BYTES.labels(cache=name).set(int(table.nbytes))
+        host_bytes = int(table.nbytes)
+        _HOST_BYTES.labels(cache=name).set(host_bytes)
         _HOT_BYTES.labels(cache=name).set(self._hot_nbytes())
+        _mw.note_static(MEM_SITE, host_bytes, budget_bytes)
+        _mw.record_bytes(MEM_SITE, host_bytes)
         register_cache(self)
 
     def _hot_nbytes(self) -> int:
@@ -184,6 +191,7 @@ class HostRowCache:
                             self._to_device(cold[inv]))
             self._admit(uniq, cold)
             _FILLS.observe(time.perf_counter() - t0)
+        _mw.record_bytes(MEM_SITE, self.host_bytes())
         return out
 
     def _coldest(self) -> int:

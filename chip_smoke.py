@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's serving, training, int8 inference, NCF,
 Wide & Deep and session recommendation, checkpoint/resume,
 input-pipeline, serving data-plane and control-plane paths, the
-runtime context, file and set data tiers and TextClassifier, and
-multi-rank training, on one NVIDIA card.
+runtime context, file and set data tiers and TextClassifier,
+multi-rank training, and the analysis tier, on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel checks only
@@ -399,6 +399,37 @@ Phases, each fatal on failure (no result line is printed then):
    and the (B, T, heads, D) shape every K1/K3/K4 call saw (a tp rank's
    16/tp heads). Prints each cell's wall, per-rank peak memory and
    collectives beside the card's name and power limit.
+20. the analysis tier (``[analysis]`` lines), in a fresh interpreter (so
+   the witness measures the phase's own device memory, not earlier
+   phases' module caches), the allocator's peak restarted before each
+   cell, the memory witness on (``ZOO_TPU_MEM_WITNESS``) for 20a-20c. (a) phase
+   5's model (bf16, 8 slots, page 16): a ``ContinuousBatcher`` with
+   ``hbm_budget_bytes`` of 1 MiB raises ``GraphLintError`` naming
+   ``hbm-budget`` (before the witness starts); then batchers with
+   ``graph_checks="raise"`` and the card's memory as budget (plain,
+   ``spec_k=4``, ``prefill_chunk_tokens=128``) pass and launch nothing;
+   the decode trace holds 12 K2 sites and the sampler, the verify trace
+   12 K2, the chunk's 12 K2; 4 of phase 5's prompts x 16 tokens served
+   through the checked batcher (K2 = 12 x decode steps, K1 = 12 x
+   prefills, counts taken just before) give the tokens of a batcher built
+   with ``graph_checks="off"``. (b) phase 8's ResNet-50, int8, at
+   ``max_batch_size=1``: ``warm_up(sample, graph_checks="raise")`` (its
+   one predict launches K6 53 times and K5 once; its checks launch
+   nothing), the census 53 K6 and 1 K5 sites with no quantize op or int8
+   tensor outside them, the static peak printed beside one batch-1
+   predict's measured peak. (c) phase 7's cell (bf16, f32 masters, remat
+   "flash", accumulation 2) with ``graph_checks="raise"`` and the card's
+   memory as ``hbm_budget_mb``: the fit-start check alone leaves the
+   parameters, optimizer state, step, key and ``zoo_train_*`` counters bit
+   for bit and launches nothing; ``fit`` then trains 2 steps with K1 = K3
+   = K4 = 12 x 4 micro-steps; ``donate_state=False`` under "warn" adds one
+   ``donation-missed`` to ``zoo_analysis_findings_total``. (d) ``python -m
+   analytics_zoo_tpu_torch.analysis --mem-witness`` on the dumped witness
+   exits 0, with no ``hbm-budget`` or ``mem-witness-divergence`` finding,
+   and the sites ``serving.decode``, ``inference.dispatch`` and
+   ``estimator.step`` printed with their measured and static bytes. (e)
+   ``python -m analytics_zoo_tpu_torch.analysis`` on the package exits 0.
+   Each check's wall ms is printed beside the card's name and power limit.
 
 Phase 3 also holds the int8 kernels to their plain versions bit for bit
 (``torch.equal``), f32 and bf16: the quantize pass both launch (codes and
@@ -430,7 +461,9 @@ with K5's per MLP predict beside it; K1's, K2's, K5's and K6's on phase
 ``launches_by_path["control_plane"]``; K1's, K3's and K4's on phase 18b's
 TFRecord- and XShards-fed runs as
 ``launches_by_path["training_from_files"]``; K1's, K3's and K4's summed
-over phase 19's ranks and cells as ``launches_by_path["multi_rank"]``).
+over phase 19's ranks and cells as ``launches_by_path["multi_rank"]``;
+every kernel's on phase 20 (20a's checked serve, 20b's warm-up, 20c's
+fit) as ``launches_by_path["analysis"]``).
 The last three lines of standard output are the card's name and power
 limit, the per-kernel JSON, and ``{"ok": true, "device": {...}}``.
 """
@@ -2133,7 +2166,7 @@ def train_model(TransformerLM, lm_loss, TrainConfig, seed: int = 0,
     model = TransformerLM(vocab=VOCAB, hidden_size=HIDDEN, n_block=N_BLOCK,
                           n_head=N_HEAD, seq_len=SEQ_LEN,
                           attn_strategy="flash", remat=remat,
-                          device="cuda", seed=seed)
+                          device=DEV["cuda"], seed=seed)
     model.compile(optimizer="adam", loss=lm_loss, config=TrainConfig(
         compute_dtype="bfloat16", gradient_clip_norm=1.0,
         grad_accum_steps=GRAD_ACCUM, shuffle=False, log_every_n_steps=1,
@@ -7463,6 +7496,397 @@ def phase_multi_rank(torch, smi, tmp):
     return [int(n) for n in sums], rank_shapes
 
 
+
+# ----------------------------------------------------------------- phase 20
+#: phase 20a's requests: phase 5's first prompts, this many new tokens each
+AN_REQS, AN_NEW = 4, 16
+
+
+def _fresh_memory(torch) -> None:
+    """Earlier cells' tensors out, the allocator's peak restarted: a
+    witness sample's peak is then this cell's."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _kernel_launches():
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+    from analytics_zoo_tpu_torch.ops.kv_cache import gumbel_max
+    from analytics_zoo_tpu_torch.ops.paged_attention import paged_attention
+
+    return {"K1": tfa.flash_attention_fwd.launches,
+            "K2": paged_attention.launches,
+            "K3": tfa.flash_attention_bwd_dq.launches,
+            "K4": tfa.flash_attention_bwd_dkv.launches,
+            "sampler": gumbel_max.launches,
+            "K5": f8.int8_matmul_fused.launches,
+            "K6": f8.int8_conv2d_fused.launches}
+
+
+def _findings_count(rule: str) -> float:
+    from analytics_zoo_tpu_torch.common import telemetry as ttm
+
+    samples = ttm.snapshot().get("zoo_analysis_findings_total", {}).get(
+        "samples", {})
+    return sum(v for k, v in samples.items() if k.split(",")[0] == rule)
+
+
+def phase20_decode(torch, smi, budget: int, witness_on):
+    """20a: a batcher with a 1 MiB budget must raise hbm-budget (before
+    ``witness_on()``: its static note would become the site's budget);
+    then the LM serving cell's decode checks under "raise" with the card's
+    memory as budget (decode, spec_k=4, chunks of 128), and 4 requests
+    served through the checked batcher and through one built with
+    graph_checks="off"."""
+    from analytics_zoo_tpu_torch.analysis import GraphLintError
+    from analytics_zoo_tpu_torch.analysis.rules.decode import (
+        trace_decode, trace_prefill_chunk)
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.serving.generation import ContinuousBatcher
+
+    dev = DEV["cuda"]
+    set_policy(compute_dtype="bfloat16")
+    model = full_model(torch, dev).to(torch.bfloat16)
+    geo = dict(n_slots=N_SLOTS, page_size=PAGE, max_seq_len=MAX_SEQ,
+               device=dev, autostart=False)
+    out = {"check_ms": {}, "sites": {}}
+    t0 = time.perf_counter()
+    try:
+        ContinuousBatcher(model, graph_checks="raise",
+                          hbm_budget_bytes=1 << 20, **geo).close()
+    except GraphLintError as e:
+        rules = sorted({f.rule for f in e.findings})
+        if rules != ["hbm-budget"]:
+            raise AssertionError(f"1 MiB budget raised {rules}")
+    else:
+        raise AssertionError("a 1 MiB budget did not raise hbm-budget")
+    log(f"[analysis] 20a a 1 MiB budget raised hbm-budget in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
+    witness_on()
+    before = _kernel_launches()
+    checked = None
+    for arm, kw in (("decode", {}), ("spec", dict(spec_k=4)),
+                    ("chunk", dict(prefill_chunk_tokens=128))):
+        t0 = time.perf_counter()
+        b = ContinuousBatcher(model, graph_checks="raise",
+                              hbm_budget_bytes=budget, **geo, **kw)
+        out["check_ms"][arm] = (time.perf_counter() - t0) * 1e3
+        tr = trace_decode(model, b.cfg, b.cache, top_k=b.top_k,
+                          spec_k=b.spec_k)
+        out["sites"][arm] = tr.kernel_counts()
+        if arm == "chunk":
+            out["sites"]["chunk_prefill"] = trace_prefill_chunk(
+                model, b.cfg, b.cache, 128).kernel_counts()
+        if arm == "decode":
+            checked = b
+        else:
+            b.close()
+        del b, tr
+    moved = {k: n - before[k] for k, n in _kernel_launches().items()
+             if n != before[k]}
+    log(f"[analysis] 20a decode checks (graph_checks='raise', budget "
+        f"{budget} B): wall ms {json.dumps(out['check_ms'])}; kernel sites "
+        f"{json.dumps(out['sites'])}; launches during the checks {moved}")
+    if moved:
+        raise AssertionError(f"the decode checks launched kernels: {moved}")
+    if out["sites"]["decode"] != {"K2": N_BLOCK, "sampler": 1} or \
+            out["sites"]["spec"].get("K2") != N_BLOCK or \
+            out["sites"]["chunk_prefill"] != {"K2": N_BLOCK}:
+        raise AssertionError(f"decode trace sites: {out['sites']}")
+    prompts, temps, _ = serving_burst()
+    prompts, temps = prompts[:AN_REQS], temps[:AN_REQS - 1] + [0.8]
+    streams = {}
+    for arm, batcher in (("raise", checked), ("off", None)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if batcher is None:
+            batcher = ContinuousBatcher(model, graph_checks="off", **geo)
+        try:
+            zero = _kernel_launches()
+            handles = [batcher.submit(p, max_new_tokens=AN_NEW,
+                                      temperature=t, seed=200 + i)
+                       for i, (p, t) in enumerate(zip(prompts, temps))]
+            batcher.start()
+            streams[arm] = [h.result(timeout_s=600) for h in handles]
+            torch.cuda.synchronize()
+            got = {k: n - zero[k] for k, n in _kernel_launches().items()}
+            disp = batcher.stats()["dispatches"]
+        finally:
+            batcher.close()
+        del batcher
+        checked = None
+        want_k2 = N_BLOCK * disp["decode"]
+        want_k1 = N_BLOCK * disp["prefill"]
+        log(f"[analysis] 20a serve ({arm}): {AN_REQS} requests x {AN_NEW} "
+            f"tokens; dispatches {disp}; K1 {got['K1']} (need {want_k1}), "
+            f"K2 {got['K2']} (need {N_BLOCK} x {disp['decode']} decode "
+            f"steps = "
+            f"{want_k2}), sampler {got['sampler']}")
+        if got["K2"] != want_k2 or got["K1"] != want_k1 or \
+                disp["decode"] < 1 or any(len(s) != AN_NEW
+                                          for s in streams[arm]):
+            raise AssertionError(f"20a {arm}: launches or streams wrong")
+        if arm == "raise":
+            out["launches"] = got
+    if streams["raise"] != streams["off"]:
+        raise AssertionError("a checked batcher's streams differ from an "
+                             "unchecked one's")
+    log("[analysis] 20a streams token-identical to graph_checks='off'")
+    del model
+    return out
+
+
+def phase20_int8(torch, state, smi):
+    """20b: the int8 ResNet-50 warmed up with graph_checks="raise": the
+    census (53 K6 and 1 K5 sites, nothing quantized or int8 outside
+    them), the checks' launches (none) and the static peak beside one
+    batch-1 predict's measured peak."""
+    from analytics_zoo_tpu_torch.analysis import profile_trace
+    from analytics_zoo_tpu_torch.analysis.rules.fused_int8 import (
+        fused_structure_counts, trace_dispatch)
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+
+    dev = DEV["cuda"]
+    set_policy(compute_dtype="float32")
+    # batch 1 only: the witness's samples then hold what the batch-1 trace
+    # estimates
+    im = InferenceModel(supported_concurrent_num=1, max_batch_size=1,
+                        device=dev)
+    im.load(resnet_on(torch, state, dev))
+    im.quantize_int8()
+    _fresh_memory(torch)
+    sample = np.random.default_rng(12).normal(
+        size=(1, IMG, IMG, 3)).astype(np.float32)
+    zero = _kernel_launches()
+    t0 = time.perf_counter()
+    im.warm_up(sample, graph_checks="raise")
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    got = {k: n - zero[k] for k, n in _kernel_launches().items()}
+    t0 = time.perf_counter()
+    trace = trace_dispatch(im, im._device_inputs(sample))
+    census = fused_structure_counts(trace)
+    trace_ms = (time.perf_counter() - t0) * 1e3
+    static = profile_trace(trace).peak_live_bytes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero = _kernel_launches()
+    im.predict(sample)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    one = {k: n - zero[k] for k, n in _kernel_launches().items()}
+    res = {"warm_up_ms": warm_ms, "trace_ms": trace_ms, "census": census,
+           "warm_up_launches": got, "static_peak_bytes": static,
+           "predict_peak_bytes": peak, "predict_delta_bytes": peak - base,
+           "card": smi}
+    log(f"[analysis] 20b {json.dumps(res)}")
+    if census["kernels"] != {"K5": 1, "K6": 53} or \
+            census["quantize_ops_outside_kernels"] or \
+            census["int8_intermediates_outside_kernels"] or \
+            not census["fused_invariants_hold"]:
+        raise AssertionError(f"int8 census wrong: {census}")
+    # warm_up's one bucket predict launches; its two checks must not
+    if got["K6"] != 53 or got["K5"] != 1 or one["K6"] != 53:
+        raise AssertionError(f"20b launches: warm_up {got}, predict {one}")
+    del im
+    return got
+
+
+def phase20_training(torch, smi, budget: int):
+    """20c: phase 7's cell trained 2 steps with graph_checks="raise" and
+    the card's memory as hbm_budget_mb; the check alone first, whose
+    parameters, optimizer state, step, key and zoo_train_* counters must
+    come back bit for bit; then donate_state=False under "warn"."""
+    from analytics_zoo_tpu_torch.common import telemetry as ttm
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.data.featureset import FeatureSet
+    from analytics_zoo_tpu_torch.models.transformer import (TransformerLM,
+                                                            lm_loss)
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+
+    set_policy(compute_dtype="float32")
+    model = train_model(TransformerLM, lm_loss, TrainConfig, seed=0,
+                        graph_checks="raise",
+                        hbm_budget_mb=budget / 2 ** 20)
+    ids = train_ids()
+    x, y = ids[:, :-1], ids[:, 1:]
+    est = model.estimator
+    est._init_state()
+    model.train()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt_before = [t.clone() for t in _tensor_leaves(
+        est.train_state["opt_state"])]
+    counters = {k: v for k, v in ttm.snapshot().items()
+                if k.startswith("zoo_train_")}
+    state = (est.train_state["step"], est.train_state["rng"])
+    zero = _kernel_launches()
+    t0 = time.perf_counter()
+    est._run_graph_checks(FeatureSet.from_numpy(x, y), TRAIN_BATCH)
+    check_ms = (time.perf_counter() - t0) * 1e3
+    moved = {k: n - zero[k] for k, n in _kernel_launches().items()
+             if n != zero[k]}
+    same = (all(torch.equal(p, before[n])
+                for n, p in model.named_parameters())
+            and all(torch.equal(a, b) for a, b in zip(
+                _tensor_leaves(est.train_state["opt_state"]), opt_before))
+            and (est.train_state["step"], est.train_state["rng"]) == state
+            and {k: v for k, v in ttm.snapshot().items()
+                 if k.startswith("zoo_train_")} == counters)
+    del before, opt_before
+    model.eval()
+    log(f"[analysis] 20c fit-start check alone: {check_ms:.1f} ms, "
+        f"launches {moved}, state and counters bit for bit: {same}")
+    if moved or not same:
+        raise AssertionError("the fit-start check launched kernels or "
+                             "changed the training state")
+    _fresh_memory(torch)
+    zero = _kernel_launches()
+    t0 = time.perf_counter()
+    model.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: n - zero[k] for k, n in _kernel_launches().items()}
+    micro = TRAIN_SEQS // TRAIN_BATCH * GRAD_ACCUM
+    losses = [h["loss"] for h in est.history]
+    log(f"[analysis] 20c fit (graph_checks='raise', {micro // GRAD_ACCUM} "
+        f"steps) in {wall:.2f} s: losses {losses}; K1 {got['K1']}, K3 "
+        f"{got['K3']}, K4 {got['K4']} (need {N_BLOCK} x {micro} = "
+        f"{N_BLOCK * micro}); peak {torch.cuda.max_memory_allocated()} B")
+    if not got["K1"] == got["K3"] == got["K4"] == N_BLOCK * micro or \
+            not all(math.isfinite(v) for v in losses):
+        raise AssertionError("20c did not train through K1, K3 and K4")
+    n0 = _findings_count("donation-missed")
+    est.config.donate_state = False
+    est.config.graph_checks = "warn"
+    est._run_graph_checks(FeatureSet.from_numpy(x, y), TRAIN_BATCH)
+    added = _findings_count("donation-missed") - n0
+    log(f"[analysis] 20c donate_state=False under 'warn': "
+        f"{added:g} donation-missed finding(s) counted")
+    if added != 1:
+        raise AssertionError("donate_state=False did not add one "
+                             "donation-missed finding")
+    del model, est
+    return got
+
+
+def _tensor_leaves(tree):
+    from torch.utils._pytree import tree_leaves
+
+    return [t for t in tree_leaves(tree) if hasattr(t, "untyped_storage")]
+
+
+def _analysis_cli(*args):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    env.pop("ZOO_TPU_MEM_WITNESS", None)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "analytics_zoo_tpu_torch.analysis", *args],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_analysis(torch, state, smi, tmp):
+    """Phase 20: the analysis tier on the card (20a-20e), from a clean
+    memory state, with the memory witness on for 20a-20c."""
+    from analytics_zoo_tpu_torch.common import memwitness as mw
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    witness = os.path.join(tmp, "mem_witness.jsonl")
+    _fresh_memory(torch)
+
+    def witness_on():
+        os.environ["ZOO_TPU_MEM_WITNESS"] = witness
+        mw.reset_witness()
+
+    try:
+        decode = phase20_decode(torch, smi, total, witness_on)
+        _fresh_memory(torch)
+        int8 = phase20_int8(torch, state, smi)
+        _fresh_memory(torch)
+        train = phase20_training(torch, smi, total)
+        mw.dump_witness(witness)
+    finally:
+        os.environ.pop("ZOO_TPU_MEM_WITNESS", None)
+        mw.reset_witness()
+        _fresh_memory(torch)
+    out, cli_ms = _analysis_cli("--mem-witness", witness, "--json")
+    if out.returncode != 0:
+        raise AssertionError(f"--mem-witness exited {out.returncode}: "
+                             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    rep = json.loads(out.stdout)
+    sites = ("serving.decode", "inference.dispatch", "estimator.step")
+    rows = {s: {"measured_bytes": max(
+                rep["mem_sites"][s]["max_live_bytes"],
+                rep["mem_sites"][s]["max_bytes_in_use"] or 0),
+                "static_bytes": rep["mem_statics"].get(s, {}).get(
+                    "peak_bytes"),
+                "samples": rep["mem_sites"][s]["n"]} for s in sites}
+    bad = [f for f in rep["findings"] if f["rule"] in (
+        "hbm-budget", "mem-witness-divergence")]
+    log(f"[analysis] 20d witness ({cli_ms:.0f} ms): {json.dumps(rows)}; "
+        f"findings {[f['rule'] for f in rep['findings']]}")
+    if bad or any(rows[s]["static_bytes"] is None for s in sites):
+        raise AssertionError(f"memory witness: {bad}, {rows}")
+    out, cli_ms = _analysis_cli()
+    log(f"[analysis] 20e `python -m analytics_zoo_tpu_torch.analysis` on "
+        f"the package: exit {out.returncode} in {cli_ms:.0f} ms "
+        f"({out.stderr.strip().splitlines()[-1] if out.stderr else ''}); "
+        f"{smi}")
+    if out.returncode != 0:
+        raise AssertionError(f"the package lints dirty: {out.stdout[-2000:]}")
+    launches = {k: decode["launches"].get(k, 0) + int8.get(k, 0)
+                + train.get(k, 0) for k in ("K1", "K2", "K3", "K4",
+                                              "sampler", "K5", "K6")}
+    return launches
+
+
+def analysis_child(smi: str, tmp: str) -> int:
+    """Phase 20 in this (fresh) interpreter: the witness then measures the
+    phase's own device memory, not what earlier phases' module caches keep
+    (K2's split scratch grows to ~0.3 GB at phase 3's q_len 1024). Writes
+    the launches to ``tmp/launches.json``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        launches = phase_analysis(torch, resnet_state(torch), smi, tmp)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    with open(os.path.join(tmp, "launches.json"), "w") as f:
+        json.dump(launches, f)
+    return 0
+
+
+def phase_analysis_isolated(smi: str, tmp: str):
+    """Phase 20 in a child interpreter (its [analysis] lines on this
+    stdout); returns its launches."""
+    sys.stdout.flush()
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; "
+            f"sys.exit(chip_smoke.analysis_child({smi!r}, {tmp!r}))")
+    t0 = time.perf_counter()
+    rc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                        timeout=900).returncode
+    log(f"[analysis] phase 20 in a fresh interpreter: exit {rc} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if rc != 0:
+        raise AssertionError("phase 20 failed")
+    with open(os.path.join(tmp, "launches.json")) as f:
+        return json.load(f)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -7576,7 +8000,6 @@ def main(argv=None) -> int:
             files = phase_files_and_sets(torch, state, smi)
             for k, n in zip((kernels[0], kernels[2], kernels[3]), files):
                 k["launches_by_path"]["training_from_files"] = n
-            del state
             torch.cuda.empty_cache()
             import tempfile
 
@@ -7585,6 +8008,14 @@ def main(argv=None) -> int:
             for k, n in zip((kernels[0], kernels[2], kernels[3]), multi):
                 k["launches_by_path"]["multi_rank"] = n
                 k["multi_rank_shapes"] = rank_shapes
+            del state
+            torch.cuda.empty_cache()
+            with tempfile.TemporaryDirectory(prefix="zoo_an_") as tmp:
+                analysis = phase_analysis_isolated(smi, tmp)
+            for k, key in zip(kernels, ("K1", "K2", "K3", "K4", "sampler",
+                                        "K5", "K6")):
+                k.setdefault("launches_by_path", {})["analysis"] = \
+                    analysis[key]
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):

@@ -63,7 +63,12 @@ default: every collective and its transpose equal numpy's, and the causal
 flash ring over them gives the one-process result (it skips on one card).
 fsdp and tp on the card (``-k multi_rank``): K1/K3/K4 at a tp rank's 4
 and 8 heads against their plain versions, and 4 rank processes on
-tp=2 x fsdp=2 training two f32 steps to the one-process CPU run.
+tp=2 x fsdp=2 training two f32 steps to the one-process CPU run. The
+analysis tier on the card (``-k analysis``): while a trace records, each
+wrapper (K1-K6, the sampler) launches nothing and records one site whose
+outputs have its launch's shapes and dtypes; a small model's decode trace
+holds one K2 site a block and the sampler, no host read; the memory
+witness reads the caching allocator.
 """
 
 import math
@@ -1738,3 +1743,107 @@ def test_multi_rank_tp2_fsdp2_on_card_matches_cpu(cuda):
         for n, v in wparams.items():
             np.testing.assert_allclose(params[n], v, rtol=0, atol=1e-4,
                                        err_msg=n)
+
+
+# ----------------------------------------------------------- analysis tier
+
+def _analysis_cases(cuda):
+    """``name -> (wrapper, launch counter owner, args, kwargs)`` at small
+    shapes, every input on the card."""
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn((2, 64, 4, 64), generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    out, lse = tfa.flash_attention_fwd(q, k, v, True)
+    gr = torch.randn(out.shape, generator=g, device=cuda).to(torch.bfloat16)
+    delta = tfa.flash_bwd_delta(out, gr)
+    paged = tpa.synthetic_paged_case(2, 4, 16, 4, 64, dtype=torch.bfloat16,
+                                     device=cuda)
+    rng = np.random.default_rng(3)
+    scaled = torch.randn((4, 1000), generator=g, device=cuda)
+    return {
+        "K1": (tfa.flash_attention_fwd, tfa.flash_attention_fwd,
+               (q, k, v, True), {}),
+        "K3": (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dq,
+               (q, k, v, gr, lse, delta, True), {}),
+        "K4": (tfa.flash_attention_bwd_dkv, tfa.flash_attention_bwd_dkv,
+               (q, k, v, gr, lse, delta, True), {}),
+        "K2": (tpa.paged_attention, tpa.paged_attention, paged,
+               {"page_size": 16}),
+        "K5": (f8.int8_matmul_fused, f8.int8_matmul_fused,
+               (torch.randn((8, 256), generator=g, device=cuda),
+                _packed_kernel_major(rng, (256, 128), cuda), 128), {}),
+        "K6": (f8.int8_conv2d_fused, f8.int8_conv2d_fused,
+               (torch.randn((1, 8, 8, 16), generator=g, device=cuda),
+                _packed_kernel_major(rng, (3, 3, 16, 32), cuda), (1, 1),
+                ((1, 1), (1, 1))), {}),
+        "sampler": (kvc.gumbel_max, kvc.gumbel_max,
+                    (scaled, [0, 2], [1, 2], [0, 0]), {}),
+    }
+
+
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K5", "K6",
+                                  "sampler"])
+def test_analysis_trace_branch_records_the_launch_shapes(cuda, name):
+    """While a trace records, each wrapper launches nothing and records one
+    site whose outputs have the shapes and dtypes its launch produces."""
+    from torch.utils._pytree import tree_leaves
+
+    from analytics_zoo_tpu_torch.analysis import trace_call
+
+    fn, owner, args, kwargs = _analysis_cases(cuda)[name]
+    real = [t for t in tree_leaves(fn(*args, **kwargs))
+            if isinstance(t, torch.Tensor)]
+    torch.cuda.synchronize()
+    launches = owner.launches
+    tr = trace_call(fn, *args, **kwargs)
+    assert owner.launches == launches
+    sites = tr.sites("kernel")
+    assert [s.name for s in sites] == [name]
+    assert [(o.shape, o.dtype, o.device.split(":")[0])
+            for o in sites[0].outputs] == \
+        [(tuple(t.shape), str(t.dtype).replace("torch.", ""), "cuda")
+         for t in real]
+
+
+def test_analysis_decode_trace_on_the_card(cuda):
+    """The decode warm-up's trace of a model on the card: one K2 site a
+    block and the sampler, no host read, no launch; the check is clean."""
+    from analytics_zoo_tpu_torch.analysis.rules.decode import trace_decode
+    from analytics_zoo_tpu_torch.serving.generation import ContinuousBatcher
+
+    tm = TransformerLM(vocab=64, hidden_size=64, n_block=2, n_head=2,
+                       seq_len=64, device=cuda)
+    b = ContinuousBatcher(tm, n_slots=2, page_size=16, max_seq_len=64,
+                          device=cuda, autostart=False)
+    try:
+        launches = (tpa.paged_attention.launches, kvc.gumbel_max.launches)
+        tr = trace_decode(tm, b.cfg, b.cache)
+        assert tr.kernel_counts() == {"K2": 2, "sampler": 1}
+        assert tr.host_reads == []
+        assert b.check_decode_stability("raise", 1 << 34) == []
+        assert (tpa.paged_attention.launches,
+                kvc.gumbel_max.launches) == launches
+    finally:
+        b.close()
+
+
+def test_analysis_witness_reads_the_allocator(cuda, tmp_path, monkeypatch):
+    """On the card a witness sample is the caching allocator's live bytes
+    and its peak, not the site's storages."""
+    from analytics_zoo_tpu_torch.common import memwitness as mw
+
+    monkeypatch.setenv("ZOO_TPU_MEM_WITNESS", str(tmp_path / "w.jsonl"))
+    mw.reset_witness()
+    try:
+        x = torch.zeros((1024, 1024), device=cuda)
+        mw.sample("card", [x[:1]])
+        agg = mw.witness_samples()["card"]
+        assert agg["max_live_bytes"] == torch.cuda.memory_allocated(cuda)
+        assert agg["max_live_bytes"] >= x.nbytes
+        assert agg["max_bytes_in_use"] == torch.cuda.max_memory_allocated(
+            cuda)
+    finally:
+        monkeypatch.delenv("ZOO_TPU_MEM_WITNESS")
+        mw.reset_witness()

@@ -136,12 +136,20 @@ def test_close_joins_the_loop_and_fails_queued_requests(models):
 
 
 def test_unported_options_raise(models, batcher):
-    """The decode graph and memory lints still raise naming their ROADMAP
-    item; an unknown admission policy is a ValueError, as in JAX."""
+    """The decode graph and memory lints are ported: a clean step passes
+    ``graph_checks="raise"`` under a roomy budget and a 1 KiB budget
+    raises ``hbm-budget``; an unknown admission policy is a ValueError, as
+    in JAX."""
+    from analytics_zoo_tpu_torch.analysis import GraphLintError
+
     tm = models[2]
     for kw in (dict(graph_checks="raise"), dict(hbm_budget_bytes=1 << 30)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-            ContinuousBatcher(tm, device="cpu", autostart=False, **KW, **kw)
+        b = ContinuousBatcher(tm, device="cpu", autostart=False, **KW, **kw)
+        assert b.check_decode_stability("raise") == []
+        b.close()
+    with pytest.raises(GraphLintError, match="hbm-budget"):
+        ContinuousBatcher(tm, device="cpu", autostart=False,
+                          graph_checks="raise", hbm_budget_bytes=1024, **KW)
     with pytest.raises(ValueError, match="admit_policy"):
         ContinuousBatcher(tm, device="cpu", autostart=False,
                           admit_policy="fifo", **KW)

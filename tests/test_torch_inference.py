@@ -224,16 +224,22 @@ def test_device_apply_runs_the_quantized_forward():
         fn(params, state, torch.from_numpy(x)).numpy(), im.predict(x))
 
 
-@pytest.mark.parametrize("call", [
-    lambda im: im.load_tf("p"),
-    lambda im: im.load_fn(None, {}),
-    lambda im: im.check_fused_dispatch(None),
-    lambda im: im.check_memory(None),
+_LOADERS = (lambda im: im.load_tf("p"), lambda im: im.load_fn(None, {}))
+
+
+@pytest.mark.parametrize("call", list(_LOADERS) + [
+    lambda im: im.check_fused_dispatch(np.ones((1, 16), np.float32)),
+    lambda im: im.check_memory(np.ones((1, 16), np.float32)),
     lambda im: im.warm_up(np.ones((1, 16), np.float32), graph_checks="warn")])
 def test_unported_paths_raise_naming_roadmap(call):
+    """The model loaders still raise naming ROADMAP; the graph checks are
+    ported and find nothing on a clean float model."""
     im = InferenceModel(device="cpu").load(_mlp())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(im)
+    if call in _LOADERS:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call(im)
+    else:
+        assert call(im) in ([], None)
 
 
 def test_quantize_guards():

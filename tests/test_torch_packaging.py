@@ -44,7 +44,15 @@ def test_importing_every_port_module_leaves_jax_out():
                 "models.recommendation.session_recommender",
                 "common.telemetry", "common.locks", "observability",
                 "observability.events", "observability.recorder",
-                "observability.traces", "serving.qos", "inference.summary"):
+                "observability.traces", "serving.qos", "inference.summary",
+                "analysis", "analysis.core", "analysis.trace",
+                "analysis.graphlint", "analysis.memory", "analysis.astlint",
+                "analysis.concurrency", "analysis.__main__",
+                "analysis.rules", "analysis.rules.collectives",
+                "analysis.rules.concurrency", "analysis.rules.decode",
+                "analysis.rules.docs", "analysis.rules.fused_int8",
+                "analysis.rules.graph_hygiene", "analysis.rules.memory",
+                "common.memwitness"):
         assert f"analytics_zoo_tpu_torch.{mod}" in res["modules"]
 
 
@@ -273,3 +281,42 @@ def test_the_cluster_launcher_spawns_the_port():
              and n.value.startswith("analytics_zoo_tpu")]
     assert named and all(v.startswith("analytics_zoo_tpu_torch.")
                          for v in named)
+
+
+ANALYSIS = ("analysis/core.py", "analysis/graphlint.py", "analysis/memory.py",
+            "analysis/astlint.py", "analysis/concurrency.py",
+            "analysis/__main__.py", "analysis/rules/collectives.py",
+            "analysis/rules/concurrency.py", "analysis/rules/decode.py",
+            "analysis/rules/docs.py", "analysis/rules/fused_int8.py",
+            "analysis/rules/graph_hygiene.py", "analysis/rules/memory.py",
+            "common/memwitness.py")
+
+
+def test_the_analysis_tier_is_in_the_port_without_jax():
+    """The analysis modules and the memory witness mirror the JAX
+    package's paths (the trace recorder, ``analysis/trace.py``, is the
+    port's own), and the CLI lists its rules in a fresh interpreter that
+    pulls in neither JAX, the JAX package nor ml_dtypes."""
+    for rel in ANALYSIS:
+        assert (PKG / rel).is_file(), rel
+        assert (ROOT / "analytics_zoo_tpu" / rel).is_file(), rel
+    assert (PKG / "analysis" / "trace.py").is_file()
+    code = (
+        "import contextlib, io, json, runpy, sys\n"
+        "sys.argv = ['analysis', '--list-rules']\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        "    try:\n"
+        "        runpy.run_module('analytics_zoo_tpu_torch.analysis',"
+        " run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code in (0, None), e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'analytics_zoo_tpu', 'ml_dtypes'))\n"
+        "print(json.dumps({'bad': bad, 'rules': len(buf.getvalue()"
+        ".splitlines())}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "rules": 23}

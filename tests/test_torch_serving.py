@@ -10,8 +10,8 @@ has them for JAX. ``MicroBatcher`` orders, sheds and buckets a seeded
 arrival schedule as JAX's does. The frontend answers ``/predict`` in queue
 and direct mode, ``/metrics`` (parsed by the port's ``parse_prometheus``),
 ``/healthz``, ``/readyz``, ``/debug``, and a fast 503 once its breaker
-opened against a dead broker. The config's not-ported fields raise, and
-``graph_checks="warn"`` warns once.
+opened against a dead broker. The config's graph-check fields build as the
+reference's, and ``graph_checks="warn"`` logs each warm-up finding once.
 """
 
 import json
@@ -375,7 +375,7 @@ def test_frontend_queue_and_direct_modes(models, brokers):
                    in fams["zoo_span_duration_seconds"]["samples"])
         code, _, raw = _get(app.port, "/metrics.json")
         stats = json.loads(raw)
-        assert stats["engine"]["graph_checks"] == "not_ported"
+        assert stats["engine"]["graph_checks"] == "warn"
         assert "wire" in stats and "http.predict" in stats
         assert _get(app.port, "/healthz")[0] == 200
         code, _, raw = _get(app.port, "/readyz")
@@ -427,17 +427,12 @@ def test_frontend_breaker_fast_fails_against_a_dead_broker():
                                 dict(autoscale=True),
                                 dict(slo_objectives=({"name": "p99"},))])
 def test_unported_config_fields_raise(kw):
-    """The graph-lint fields still raise; the fleet, autoscale and SLO
-    fields are ported and give the reference's values."""
+    """Every one of these fields is ported (the graph-lint fields since
+    the analysis tier) and gives the reference's values."""
     jcfg = JaxServingConfig(**kw)     # the reference accepts each
-    if set(kw) & {"graph_checks", "hbm_budget_mb"}:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1, item 11"):
-            ServingConfig(**kw)
-    else:
-        cfg = ServingConfig(**kw)
-        assert {f: getattr(cfg, f) for f in kw} == \
-            {f: getattr(jcfg, f) for f in kw}
+    cfg = ServingConfig(**kw)
+    assert {f: getattr(cfg, f) for f in kw} == \
+        {f: getattr(jcfg, f) for f in kw}
 
 
 def test_yaml_layout_and_the_slo_section(tmp_path):
@@ -459,23 +454,27 @@ def test_yaml_layout_and_the_slo_section(tmp_path):
 
 
 def test_graph_checks_warn_logs_once(models, brokers, caplog):
+    """At warm-up, ``graph_checks="warn"`` runs the dispatch checks: a
+    clean model logs nothing; a 1-byte ``hbm_budget_mb`` logs its one
+    ``hbm-budget`` finding once and serves; "off" runs nothing."""
     im, _, _, _ = models
     tb, _ = brokers
-    job = ClusterServing(im, ServingConfig(queue_port=tb.port),
-                         group="warn")
-    with caplog.at_level(logging.WARNING,
-                         logger="analytics_zoo_tpu_torch.serving"):
-        job.start()
-        job.stop()
-    warned = [r for r in caplog.records if "graph_checks" in r.getMessage()]
-    assert len(warned) == 1 and "item 11" in warned[0].getMessage()
-    assert job.stats()["graph_checks"] == "not_ported"
-    off = ClusterServing(im, ServingConfig(queue_port=tb.port,
-                                           graph_checks="off"), group="off")
-    caplog.clear()
-    with caplog.at_level(logging.WARNING,
-                         logger="analytics_zoo_tpu_torch.serving"):
-        off.start()
-        off.stop()
-    assert not [r for r in caplog.records
-                if "graph_checks" in r.getMessage()]
+    runs = {}
+    for group, kw in (("warn", {}), ("tight", dict(hbm_budget_mb=1e-6)),
+                      ("off", dict(graph_checks="off"))):
+        job = ClusterServing(im, ServingConfig(queue_port=tb.port,
+                                               warmup_shape=(8,), **kw),
+                             group=group)
+        caplog.clear()
+        with caplog.at_level(logging.WARNING,
+                             logger="analytics_zoo_tpu_torch.inference"):
+            job.start()
+            job.stop()
+        runs[group] = ([r.getMessage() for r in caplog.records
+                        if "graph-lint" in r.getMessage()], job.stats())
+    assert runs["warn"][0] == [] and runs["off"][0] == []
+    assert runs["warn"][1]["graph_checks"] == "warn"
+    warned, stats = runs["tight"]
+    assert len(warned) == 1 and "hbm-budget" in warned[0]
+    assert stats["graph_findings"] == 1 and runs["off"][1][
+        "graph_findings"] == 0

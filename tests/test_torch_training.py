@@ -337,12 +337,15 @@ def test_entry_points_raise_without_cuda_and_no_device(monkeypatch):
     ("graph_checks", "raise"), ("hbm_budget_mb", 100.0),
     ("graph_checks", "warn")])
 def test_unported_train_config_fields_raise(field, value):
+    """The graph-check fields are ported: each value builds; an unknown
+    ``graph_checks`` mode raises ``ValueError``."""
     cfg = TrainConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_ported(cfg)
-    with pytest.raises(NotImplementedError, match=field):
-        Estimator(torch.nn.Linear(2, 2), optimizer="sgd", config=cfg,
-                  device="cpu")
+    assert check_ported(cfg) is cfg
+    est = Estimator(torch.nn.Linear(2, 2), optimizer="sgd", config=cfg,
+                    device="cpu")
+    assert getattr(est.config, field) == value
+    with pytest.raises(ValueError, match="graph_checks"):
+        check_ported(TrainConfig(graph_checks="loud"))
 
 
 def test_train_config_mirrors_the_jax_fields():

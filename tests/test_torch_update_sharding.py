@@ -15,7 +15,9 @@ all-reduces: the norm and the loss), by the port's collective counter;
 with dropout on, the flat step folds the dp index into its key and the
 replicated step draws the global batch's mask, as JAX does (losses within
 1e-5); a flat checkpoint written by the port is the JAX layout and resumes
-both ways; the optimizer state is 1/dp a rank. One rank pool serves the
+both ways; the optimizer state is 1/dp a rank; ``graph_checks="raise"``
+passes the flat step's collective budget and fails an all-reduce exchange
+before the first update, in both packages. One rank pool serves the
 module.
 """
 
@@ -277,6 +279,69 @@ def test_flat_step_issues_one_reduce_scatter_and_one_all_gather(pool):
             assert c == {"reduce-scatter": 1, "all-gather": 1,
                          "all-reduce": 2, "all-to-all": 0,
                          "collective-permute": 0}, c
+
+
+def _graph_check_fit(tree, broken):
+    """Rank side: ``graph_checks="raise"`` on the flat update with
+    accumulation; ``broken`` swaps the exchange for one all-reduce of the
+    flat gradients (the pre-ZeRO-1 shape). Returns the rule ids raised, or
+    the steps trained."""
+    from analytics_zoo_tpu_torch.analysis import GraphLintError
+    from analytics_zoo_tpu_torch.bridge import params_from_jax
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.nn import optimizers as topt
+
+    _ctx(dp=4)
+    tm = _port_model(False)
+    tm.load_state_dict(params_from_jax(tree))
+    keep = tupd.flat_exchange
+    if broken:
+        def exchange(params, grads, opt_state, meta, tx, *, axis="dp",
+                     mesh=None, clip_norm=None, clip_value=None):
+            flat = tupd.flatten_tree(grads, meta, torch.float32)
+            g = comm.psum(flat, axis, mesh=mesh)
+            return params, opt_state, torch.sqrt(torch.sum(g * g))
+
+        tupd.flat_exchange = exchange
+    est = Estimator(tm, optimizer=topt.Adam(lr=0.01), loss="mse",
+                    config=TrainConfig(update_sharding="flat",
+                                       grad_accum_steps=2,
+                                       graph_checks="raise"))
+    try:
+        est.fit(_data(), batch_size=BATCH, epochs=1, seed=3)
+    except GraphLintError as e:
+        return sorted({f.rule for f in e.findings}) + [str(e)]
+    finally:
+        tupd.flat_exchange = keep    # the pool's ranks serve later tests
+    return est.trainer_state.iteration
+
+
+def test_graph_checks_flat_collective_budget_both_polarities(pool):
+    """The collective budget at fit start on dp=4: the flat step's one
+    reduce-scatter and one all-gather (none in the accumulation loop)
+    pass and train; an all-reduce exchange fails every rank before the
+    first update, as the JAX check fails the same break."""
+    params, state = _jax_model(False).build(jax.random.PRNGKey(1))
+    assert pool.run(_graph_check_fit, _np(params), False) == \
+        [N_ROWS // BATCH] * 4
+    for got in pool.run(_graph_check_fit, _np(params), True):
+        assert got[0] == "collective-budget" and "reduce-scatter" in got[-1]
+    from analytics_zoo_tpu import analysis as janalysis
+
+    def broken(params, grads, opt_state, meta, tx, *, axis="dp",
+               clip_norm=None, clip_value=None):
+        g = jax.lax.psum(jupd.flatten_tree(grads, meta, jnp.float32), axis)
+        return params, opt_state, jnp.sqrt(jnp.sum(g * g))
+
+    keep = jupd.flat_exchange
+    jupd.flat_exchange = broken
+    try:
+        with pytest.raises(janalysis.GraphLintError, match="reduce-scatter"):
+            _jax_fit(params, state, False, 2, dict(
+                update_sharding="flat", grad_accum_steps=2,
+                graph_checks="raise"))
+    finally:
+        jupd.flat_exchange = keep
 
 
 def test_flat_optimizer_state_is_one_over_dp(pool):
