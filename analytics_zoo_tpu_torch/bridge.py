@@ -154,7 +154,9 @@ def opt_state_from_jax(tree, like):
     return tree
 
 
-def _buffers(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+def model_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The persistent buffers of ``model`` by name: the JAX ``model_state``
+    (BatchNormalization's moving statistics, an int8 layer's packing)."""
     names = {n for n, _ in model.named_parameters()}
     return {n: t for n, t in model.state_dict(keep_vars=True).items()
             if n not in names}
@@ -175,7 +177,7 @@ def train_state_to_jax(model: torch.nn.Module,
         "params": nest(dict(params)),
         "opt_state": opt if opt_is_jax else opt_state_to_jax(opt),
         "model_state": nest({n: b.detach()
-                             for n, b in _buffers(model).items()}),
+                             for n, b in model_state(model).items()}),
         "step": np.asarray(train_state["step"], np.int32),
         "rng": np.asarray(train_state["rng"], np.uint32),
     }
@@ -193,7 +195,7 @@ def train_state_from_jax(model: torch.nn.Module, tree: Mapping[str, Any],
         for n, p in model.named_parameters():
             whole = _lookup(tree["params"], n)
             p.copy_(block(n, whole) if block is not None else whole)
-        for n, b in _buffers(model).items():
+        for n, b in model_state(model).items():
             b.copy_(_lookup(tree["model_state"], n))
     rng = np.asarray(tree["rng"]).reshape(-1).tolist()
     return {"opt_state": opt_state_from_jax(tree["opt_state"],
@@ -317,6 +319,6 @@ def land_tensors(staged: Mapping[str, torch.Tensor], ready, device) -> None:
 
 
 __all__ = ["flat_opt_state_from_jax", "flat_opt_state_to_jax",
-           "map_param_dicts", "flat_tree", "land_tensors", "nest", "opt_state_from_jax", "stage_tensors", "opt_state_to_jax",
+           "map_param_dicts", "flat_tree", "model_state", "land_tensors", "nest", "opt_state_from_jax", "stage_tensors", "opt_state_to_jax",
            "params_from_jax", "params_to_numpy", "state_dict_from_jax",
            "train_state_from_jax", "train_state_to_jax"]

@@ -21,7 +21,10 @@ package is tested against):
 * :func:`uniform` and :func:`bernoulli` follow ``jax.random.uniform`` and
   ``jax.random.bernoulli`` in float32 (the top 23 bits of each draw OR'd
   into the bits of ``1.0``, minus 1, scaled; a draw is kept where that
-  float is ``< p``), the masks of training-mode dropout.
+  float is ``< p``), the masks of training-mode dropout;
+* :func:`normal` follows ``jax.random.normal`` in float32 (a uniform draw
+  on ``(-1, 1)``, then ``sqrt(2) · erf_inv`` with XLA's polynomial),
+  within about one ulp of JAX's.
 
 Bulk draws run as int64 tensor arithmetic (every value kept in
 ``[0, 2**32)``) on the device the caller names.
@@ -213,6 +216,43 @@ def bernoulli(key, p: float, shape, device=None) -> torch.Tensor:
         p, dtype=torch.float32, device=device)
 
 
+# Giles' single-precision erfinv, XLA's ``ErfInv32`` polynomial: the
+# coefficients for w < 5 and for w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv``: ``w = -log1p(-x²)``, then a degree-8
+    polynomial in ``w - 2.5`` (w < 5) or ``sqrt(w) - 3``, times ``x``;
+    ±1 maps to ±max float. In float32 throughout; XLA's CPU code rounds
+    some steps differently (fused multiply-adds, its own log1p), so the
+    draws of :func:`normal` part from JAX's by about one ulp (4.8e-7
+    measured), where ``torch.erfinv``, another approximation, parts by
+    2e-5 (``tests/test_torch_prng.py``)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).float()
+    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, c_lt, c_ge).float() + p * w
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def normal(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: ``uniform(key, shape,
+    nextafter(-1, 0), 1)`` (the same bits as JAX's), then ``sqrt(2) ·
+    erf_inv``."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return erf_inv(uniform(key, shape, lo, 1.0, device=device)) * math.sqrt(
+        2.0)
+
+
 __all__ = ["Key", "PRNGKey", "as_key", "bernoulli", "bits_per_key",
-           "fold_in", "permutation", "randint", "random_bits", "split",
-           "threefry2x32", "uniform"]
+           "erf_inv", "fold_in", "normal", "permutation", "randint",
+           "random_bits", "split", "threefry2x32", "uniform"]

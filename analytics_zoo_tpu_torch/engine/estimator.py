@@ -19,6 +19,15 @@ negatives), and under accumulation micro-step ``i`` gets
 ``fold_in(step_rng, i)``. The model's weights are its own (drawn at
 construction); ``k_init`` is unused.
 
+The model's float buffers are the JAX ``model_state``:
+BatchNormalization's moving statistics move in each micro-batch's
+forward, in micro-batch order, and each micro-batch's loss carries the
+layers' regularization terms (``regularization()``), as the JAX
+``loss_of`` adds them. Over ranks the replicated and per-leaf steps
+normalise with the global batch's statistics (``comm.batch_psum``), the
+flat step with each rank's own and then averages the float buffers over
+dp; a BN model on a mesh with sp, pp, ep or tp above 1 raises.
+
 Mixed precision (``TrainConfig(compute_dtype="bfloat16")``): the model's
 parameters are cast to bf16 in place (the JAX ``cast_params``) and the f32
 masters exist only in the optimizer state; each forward/backward runs
@@ -171,6 +180,7 @@ from ..common.triggers import (MaxEpoch, SeveralIteration, Trigger,
                                TrainerState)
 from ..data.featureset import FeatureSet, _tree_leaves, _tree_map
 from ..data.pipeline import device_prefetch
+from ..nn.layers.normalization import has_batchnorm
 from ..nn.losses import get_loss
 from ..nn.metrics import get_metric
 from ..nn.module import cast_params, precision_policy, resolve_device
@@ -504,6 +514,14 @@ class Estimator:
         training key: ``split(PRNGKey(seed))[1]``. Under mixed precision
         the masters are taken in f32 first, then the model's copy is cast
         down. On a mesh, sharded leaves keep their blocks first."""
+        if self.mesh is not None and has_batchnorm(self.model):
+            axes = [a for a in ("sp", "pp", "ep", "tp")
+                    if self.mesh.shape.get(a, 1) > 1]
+            if axes:
+                raise NotImplementedError(
+                    f"BatchNormalization in training on a mesh with "
+                    f"{'/'.join(axes)} above 1 is not ported (ROADMAP Queue "
+                    f"1, [13]); dp and fsdp are")
         self._place_params()
         values = {n: p.detach() for n, p in self._params().items()}
         self._norm_axes = {n: spec_axes(self._specs[n]) for n in values
@@ -553,11 +571,19 @@ class Estimator:
         return self
 
     def _loss_of(self, x, y, rng) -> torch.Tensor:
+        """One (micro-)batch's loss, plus the layers' regularization
+        terms (0.0 without regularizers), where the JAX ``loss_of`` adds
+        them."""
         if self._sharded_loss is not None:
-            return self._sharded_loss(x, y)
-        y_hat = (self.model.apply(x, rng=rng) if self._takes_rng
-                 else self.model.apply(x))
-        return self.loss_fn(y, y_hat)
+            total = self._sharded_loss(x, y)
+        else:
+            y_hat = (self.model.apply(x, rng=rng) if self._takes_rng
+                     else self.model.apply(x))
+            total = self.loss_fn(y, y_hat)
+        reg = getattr(self.model, "regularization", None)
+        if reg is not None:
+            total = total + reg()
+        return total
 
     def _step_key(self):
         """The next step's key, ``fold_in(k_train, step)``."""
@@ -612,7 +638,7 @@ class Estimator:
             ax = self.mesh.axis(a)
             index, count = index * ax.size + ax.index, count * ax.size
         return comm.BatchShard(index, count, axes,
-                               global_draws=mode != "flat")
+                               global_draws=mode != "flat", mesh=self.mesh)
 
     def _local_batch(self, batch, shard: comm.BatchShard, mode):
         """This rank's rows of a global batch: its contiguous block, or
@@ -673,6 +699,23 @@ class Estimator:
         for n in g:
             g[n] = g[n] / count
 
+    def _mean_model_state(self) -> None:
+        """The flat step's float model state (BatchNormalization's moving
+        statistics, moved by each rank's local batch) averaged over dp in
+        place, in one all-reduce, as the JAX flat step's ``pmean`` keeps it
+        the same on every replica."""
+        floats = [b for b in bridge.model_state(self.model).values()
+                  if b.is_floating_point()]
+        if not floats:
+            return
+        with torch.no_grad():
+            flat = comm.psum(torch.cat([b.reshape(-1) for b in floats]),
+                             "dp", mesh=self.mesh) / self._dp_axis().size
+            off = 0
+            for b in floats:
+                b.copy_(flat[off:off + b.numel()].reshape(b.shape))
+                off += b.numel()
+
     def _step(self, batch):
         """One optimizer step; returns ``(loss, grad_norm)`` as 0-d
         tensors (no host sync)."""
@@ -698,6 +741,7 @@ class Estimator:
                 loss = comm.psum(loss, a, mesh=self.mesh)
             loss = loss / shard.count
         if mode == "flat":
+            self._mean_model_state()
             cfg = self.config
             new, new_opt, gnorm = upd.flat_exchange(
                 values, g32, ts["opt_state"], self._flat_meta,
@@ -773,9 +817,7 @@ class Estimator:
         if handler_installed:
             prev_handler = signal.signal(
                 signal.SIGTERM, lambda *_: setattr(self, "_sigterm", True))
-        # training mode for the steps, as JAX's apply(training=True); a
-        # layer whose training mode is not ported (BatchNormalization)
-        # raises instead of silently running its inference form
+        # training mode for the steps, as JAX's apply(training=True)
         self.model.train()
         try:
             if cfg.graph_checks and cfg.graph_checks != "off":

@@ -6,8 +6,8 @@ Each name maps to a builder producing a functional
 the JAX package's topology and slot names. Every builder takes
 ``input_shape=(H, W, 3)`` and ``num_classes``, plus ``device`` (CUDA unless
 the caller names another; raises with no CUDA and no device) and ``seed``
-(the weights' draw). The MobileNets need ``DepthwiseConv2D``, which is not
-ported (ROADMAP Queue 1, item 11): their names raise.
+(the weights' draw). ``mobilenet`` also takes the width multiplier
+``alpha`` (MobileNet v1, Howard et al., arXiv:1704.04861).
 """
 
 from __future__ import annotations
@@ -177,16 +177,51 @@ def inception_v1(input_shape=(224, 224, 3), num_classes=1000, *, device=None,
     return Model(inp, x, name="inception-v1", device=device, seed=seed)
 
 
-def _needs_depthwise(name: str) -> Callable:
-    def builder(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} needs DepthwiseConv2D, which is not ported (ROADMAP "
-            f"Queue 1, item 11)")
-    return builder
+# ------------------------------------------------------------------ mobilenet
+def mobilenet(input_shape=(224, 224, 3), num_classes=1000, alpha=1.0, *,
+              device=None, seed=0):
+    inp = Input(input_shape)
+    x = _conv_bn(inp, int(32 * alpha), 3, stride=2)
+    cfg = [(64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2),
+           (512, 1), (512, 1), (512, 1), (512, 1), (512, 1), (1024, 2),
+           (1024, 1)]
+    for filters, stride in cfg:
+        x = L.DepthwiseConv2D((3, 3), subsample=(stride, stride))(x)
+        x = L.BatchNormalization()(x)
+        x = L.Activation("relu")(x)
+        x = _conv_bn(x, int(filters * alpha), 1)
+    x = L.GlobalAveragePooling2D()(x)
+    x = L.Dense(num_classes, activation="softmax")(x)
+    return Model(inp, x, name="mobilenet", device=device, seed=seed)
 
 
-mobilenet = _needs_depthwise("mobilenet")
-mobilenet_v2 = _needs_depthwise("mobilenet-v2")
+def mobilenet_v2(input_shape=(224, 224, 3), num_classes=1000, *,
+                 device=None, seed=0):
+    def inverted_residual(x, filters, stride, expand):
+        in_ch = x.shape[-1]
+        y = _conv_bn(x, in_ch * expand, 1) if expand > 1 else x
+        y = L.DepthwiseConv2D((3, 3), subsample=(stride, stride))(y)
+        y = L.BatchNormalization()(y)
+        y = L.Activation("relu")(y)
+        y = L.Convolution2D(filters, 1, 1, border_mode="same",
+                            use_bias=False)(y)
+        y = L.BatchNormalization()(y)
+        if stride == 1 and in_ch == filters:
+            y = L.Merge(mode="sum")([x, y])
+        return y
+
+    inp = Input(input_shape)
+    x = _conv_bn(inp, 32, 3, stride=2)
+    cfg = [(16, 1, 1, 1), (24, 2, 2, 6), (32, 3, 2, 6), (64, 4, 2, 6),
+           (96, 3, 1, 6), (160, 3, 2, 6), (320, 1, 1, 6)]
+    for filters, reps, stride, expand in cfg:
+        for i in range(reps):
+            x = inverted_residual(x, filters, stride if i == 0 else 1, expand)
+    x = _conv_bn(x, 1280, 1)
+    x = L.GlobalAveragePooling2D()(x)
+    x = L.Dense(num_classes, activation="softmax")(x)
+    return Model(inp, x, name="mobilenet-v2", device=device, seed=seed)
+
 
 BACKBONES: Dict[str, Callable] = {
     "alexnet": alexnet,

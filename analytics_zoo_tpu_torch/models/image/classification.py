@@ -3,13 +3,11 @@ classification.py``): a named backbone, its label map and top-n, with
 ``predict`` over arrays, ``predict_image_set`` over an ``ImageSet``
 (``ImagenetConfig.preprocessing()``: resize, center crop and channel-mean
 normalisation on the host, then the top-n ``(label, probability)`` lists),
-and ``save_model``/``load_model`` as a weight bundle in the JAX package's
+training (``compile``, ``fit`` over arrays, ``fit_image_set`` over an
+``ImageSet`` through the same preprocessing as ``predict_image_set``), and
+``save_model``/``load_model`` as a weight bundle in the JAX package's
 format (its config holds the model name, input shape, class count and
 label map).
-
-Not ported: training (``compile``/``fit``/``fit_image_set``), which needs
-BatchNormalization's training mode (ROADMAP Queue 1, [11], its layers
-item).
 """
 
 from __future__ import annotations
@@ -97,10 +95,28 @@ class ImageClassifier:
             results.append(list(zip(labels, row[idx].tolist())))
         return results
 
-    def fit_image_set(self, image_set, labels=None, **kw):
-        raise NotImplementedError(
-            "ImageSet training needs BatchNormalization's training mode "
-            "(ROADMAP Queue 1, [11], its layers item)")
+    def compile(self, optimizer="adam",
+                loss="sparse_categorical_crossentropy",
+                metrics=("accuracy",), **kw) -> "ImageClassifier":
+        """The backbone's Estimator (``KerasNet.compile``)."""
+        self.model.compile(optimizer=optimizer, loss=loss,
+                           metrics=list(metrics), **kw)
+        return self
+
+    def fit(self, x, y=None, **kw) -> "ImageClassifier":
+        """Train on NHWC arrays (or a FeatureSet), as ``KerasNet.fit``."""
+        self.model.fit(x, y, **kw)
+        return self
+
+    def fit_image_set(self, image_set: ImageSet, labels=None,
+                      **kw) -> "ImageClassifier":
+        """Train with the same preprocessing chain ``predict_image_set``
+        applies; ``labels`` default to the set's own."""
+        x = self._preprocess_set(image_set)
+        y = np.asarray(labels if labels is not None
+                       else image_set.get_labels(), dtype="int32")
+        self.model.fit(x, y, **kw)
+        return self
 
     def save_model(self, path: str):
         save_model_bundle(path, self.model, config={

@@ -146,7 +146,7 @@ class TransformerLM(KerasNet, nn.Module):
                                    generator=g, device=dev)
             self.add_module(f"block{i}", blk)
             self.blocks.append(blk)
-        self.ln_f = LayerNormalization(hidden_size, device=dev)
+        self.ln_f = LayerNormalization(dim=hidden_size, device=dev)
 
     def _ids(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device).long()
@@ -440,7 +440,7 @@ class PipelinedTransformerLM(KerasNet, nn.Module):
                 owner = getattr(owner, part)
             setattr(owner, leaf, nn.Parameter(t.to(dev)))
         self.blocks.to(dev)
-        self.ln_f = LayerNormalization(hidden_size, device=dev)
+        self.ln_f = LayerNormalization(dim=hidden_size, device=dev)
 
     def param_spec(self, path, leaf):
         """``(name, leaf) -> P`` for ``Estimator(param_sharding=...)``:

@@ -1,4 +1,5 @@
-"""Activations used by the ported layers (port of ``nn/activations.py``).
+"""Activations (port of ``nn/activations.py``): every name of the JAX
+table.
 
 ``analytics_zoo_tpu.nn.activations.gelu`` is ``jax.nn.gelu``, whose default
 is the tanh approximation; torch's default gelu is the exact erf form, which
@@ -40,9 +41,49 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def log_softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return torch.log_softmax(x, dim=axis)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``logaddexp(x, 0)``, as ``jax.nn.softplus`` (torch's softplus
+    returns x itself above 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def softsign(x: torch.Tensor) -> torch.Tensor:
+    return x / (torch.abs(x) + 1)
+
+
+def elu(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    safe = torch.where(x > 0, torch.zeros_like(x), x)
+    return torch.where(x > 0, x, alpha * torch.expm1(safe))
+
+
+def selu(x: torch.Tensor) -> torch.Tensor:
+    return torch.selu(x)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01
+               ) -> torch.Tensor:
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
 ACTIVATIONS = {"linear": linear, "identity": linear, "relu": relu,
-               "sigmoid": sigmoid, "hard_sigmoid": hard_sigmoid,
-               "tanh": tanh, "softmax": softmax, "gelu": gelu}
+               "relu6": relu6, "sigmoid": sigmoid,
+               "hard_sigmoid": hard_sigmoid, "tanh": tanh,
+               "softmax": softmax, "log_softmax": log_softmax,
+               "softplus": softplus, "softsign": softsign, "elu": elu,
+               "selu": selu, "gelu": gelu, "leaky_relu": leaky_relu,
+               "leakyrelu": leaky_relu, "swish": swish, "silu": swish}
 
 
 def get_activation(name):
@@ -59,5 +100,6 @@ def get_activation(name):
                          f"{sorted(ACTIVATIONS)}") from None
 
 
-__all__ = ["ACTIVATIONS", "gelu", "get_activation", "hard_sigmoid",
-           "linear", "relu", "sigmoid", "softmax", "tanh"]
+__all__ = ["ACTIVATIONS", "elu", "gelu", "get_activation", "hard_sigmoid",
+           "leaky_relu", "linear", "log_softmax", "relu", "relu6", "selu",
+           "sigmoid", "softmax", "softplus", "softsign", "swish", "tanh"]

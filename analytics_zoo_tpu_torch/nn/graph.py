@@ -80,6 +80,15 @@ def _topo_order(outputs: Sequence[Node]) -> List[Node]:
     return order
 
 
+def _sum_regularization(layers):
+    total = 0.0
+    for layer in layers:
+        reg = getattr(layer, "regularization", None)
+        if reg is not None:
+            total = total + reg()
+    return total
+
+
 def _slot_key(i: int, layer: Layer) -> str:
     return f"{i}_{type(layer).__name__.lower()}"
 
@@ -144,6 +153,11 @@ class GraphModule(Layer):
 
     def slot(self, layer: Layer) -> str:
         return self._slots[id(layer)]
+
+    def regularization(self):
+        """The sum of the layers' regularization terms (0.0 without
+        regularizers): the training loss's penalty."""
+        return _sum_regularization(self.layers)
 
     @property
     def output_shape(self):
@@ -211,6 +225,9 @@ class SequentialModule(Layer):
                 f"layer {layer.name} appears {len(hits)} times in this "
                 "Sequential; address its params by position instead")
         return _slot_key(hits[0], layer)
+
+    def regularization(self):
+        return _sum_regularization(self.layers)
 
     def apply(self, x, rng=None):
         keys = split_rng(rng if draws_rng(self) else None, len(self.layers))

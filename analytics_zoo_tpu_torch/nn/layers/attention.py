@@ -215,8 +215,8 @@ class TransformerLayer(nn.Module):
         self.attn = MultiHeadAttention(hidden_size, n_head, causal=causal,
                                        attn_strategy=attn_strategy,
                                        generator=g, device=device)
-        self.ln1 = LayerNormalization(hidden_size, device=device)
-        self.ln2 = LayerNormalization(hidden_size, device=device)
+        self.ln1 = LayerNormalization(dim=hidden_size, device=device)
+        self.ln2 = LayerNormalization(dim=hidden_size, device=device)
         self.mlp_up_kernel = _param(
             glorot_uniform(g, (hidden_size, self.intermediate)), device)
         self.mlp_up_bias = _param(zeros_init((self.intermediate,)), device)

@@ -1,5 +1,8 @@
-"""Core layers: InputLayer, Dense, SparseDense, Select, Narrow, Activation,
-Dropout and Lambda (port of ``analytics_zoo_tpu/nn/layers/core.py``).
+"""Core layers (port of ``analytics_zoo_tpu/nn/layers/core.py``):
+InputLayer, Dense (with ``w_regularizer``/``b_regularizer``), SparseDense,
+Activation, Dropout, GaussianNoise, GaussianDropout, the shape layers
+(Flatten, Reshape, Permute, RepeatVector, Select, Narrow, Squeeze,
+ExpandDim), Masking, Highway, MaxoutDense and Lambda.
 
 Parameters keep the JAX names and layout: ``kernel`` (in, out) and
 ``bias``. After ``InferenceModel.quantize_int8`` packs a Dense, its
@@ -23,7 +26,8 @@ from ...ops.int8 import int8_matmul
 from ...ops.int8_fused import kernel_major
 from ..activations import get_activation
 from ...analysis import trace as _trace
-from ..module import Layer, as_compute, get_initializer
+from ..module import Layer, as_compute, get_initializer, zeros_init
+from ..regularizers import get_regularizer
 
 
 class InputLayer(Layer):
@@ -96,14 +100,13 @@ class Dense(Int8Kernel, Layer):
                  b_regularizer=None, name: Optional[str] = None,
                  input_shape=None):
         super().__init__(name=name, input_shape=input_shape)
-        if w_regularizer is not None or b_regularizer is not None:
-            raise NotImplementedError(
-                "regularizers are not ported (ROADMAP Queue 1, item 11)")
         self.output_dim = int(output_dim)
         self.activation = get_activation(activation)
         self.use_bias = use_bias
         self.init = get_initializer(init)
         self.bias_init = get_initializer(bias_init)
+        self.w_regularizer = get_regularizer(w_regularizer)
+        self.b_regularizer = get_regularizer(b_regularizer)
 
     def build(self, input_shape, gen: torch.Generator) -> None:
         self.kernel = nn.Parameter(self.init(gen, (input_shape[-1],
@@ -181,26 +184,39 @@ class Activation(Layer):
         return self.activation(as_compute(x))
 
 
-def dropout(x: torch.Tensor, rate: float, key) -> torch.Tensor:
-    """Inverted dropout with the JAX package's mask: keep where
-    ``prng.bernoulli(key, 1 - rate, x.shape)``, as ``x / keep`` in x's
-    dtype (``keep`` rounded to it, as JAX's weak-typed scalar is),
-    zero elsewhere. The mask is drawn on x's device: the same bits on
-    the card, the CPU and JAX. On a rank's block of a global batch
+def global_draw(draw: Callable, key, shape, device) -> torch.Tensor:
+    """``draw(key, shape, device)``, the JAX draw of a training step's
+    random tensor. On a rank's block of a global batch
     (``parallel.comm.batch_shard``) whose step key is the same on every
-    rank, the mask is drawn for the global batch and the block's rows
-    taken, as the JAX step draws it over the global array."""
+    rank, it is drawn for the global batch and the block's rows taken, as
+    the JAX step draws it over the global array."""
     from ...parallel.comm import current_batch_shard
 
-    keep = 1.0 - rate
     shard = current_batch_shard()
     if shard is not None and shard.global_draws and shard.count > 1:
-        b = x.shape[0]
-        mask = prng.bernoulli(key, keep, (b * shard.count,) + tuple(
-            x.shape[1:]), device=x.device)[shard.index * b:
-                                           (shard.index + 1) * b]
-    else:
-        mask = prng.bernoulli(key, keep, x.shape, device=x.device)
+        b = shape[0]
+        whole = draw(key, (b * shard.count,) + tuple(shape[1:]), device)
+        return whole[shard.index * b:(shard.index + 1) * b]
+    return draw(key, tuple(shape), device)
+
+
+def normal_draw(key, shape, device) -> torch.Tensor:
+    return global_draw(lambda k, s, d: prng.normal(k, s, device=d), key,
+                       shape, device)
+
+
+def dropout(x: torch.Tensor, rate: float, key, mask_shape=None
+            ) -> torch.Tensor:
+    """Inverted dropout with the JAX package's mask: keep where
+    ``prng.bernoulli(key, 1 - rate, mask_shape)`` (x's shape by default;
+    a mask of size 1 on a dim is shared along it), as ``x / keep`` in x's
+    dtype (``keep`` rounded to it, as JAX's weak-typed scalar is), zero
+    elsewhere. The mask is drawn on x's device (:func:`global_draw`): the
+    same bits on the card, the CPU and JAX."""
+    keep = 1.0 - rate
+    mask = global_draw(lambda k, s, d: prng.bernoulli(k, keep, s, device=d),
+                       key, x.shape if mask_shape is None else mask_shape,
+                       x.device)
     kept = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
     return torch.where(mask, kept, torch.zeros((), dtype=x.dtype,
                                                 device=x.device))
@@ -229,6 +245,215 @@ class Dropout(Layer):
         return dropout(x, self.rate, rng)
 
 
+def _needs_rng(layer, rng):
+    if rng is None:
+        raise ValueError(f"{layer.name}: needs rng in training mode")
+
+
+class GaussianNoise(Layer):
+    """``x + sigma · N(0, 1)`` in training (the JAX draw,
+    ``prng.normal``, from the layer's key); the identity at inference."""
+
+    takes_rng = True
+
+    def __init__(self, sigma: float, name=None, input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.sigma = float(sigma)
+        self.training = False
+
+    def apply(self, x, rng=None):
+        if not self.training:
+            return x
+        _needs_rng(self, rng)
+        return x + self.sigma * normal_draw(rng, x.shape, x.device).to(
+            x.dtype)
+
+
+class GaussianDropout(Layer):
+    """``x · (1 + sqrt(p / (1 - p)) · N(0, 1))`` in training; the
+    identity at inference."""
+
+    takes_rng = True
+
+    def __init__(self, p: float, name=None, input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.rate = float(p)
+        self.training = False
+
+    def apply(self, x, rng=None):
+        if not self.training or self.rate <= 0:
+            return x
+        _needs_rng(self, rng)
+        std = float(np.sqrt(self.rate / (1.0 - self.rate)))
+        return x * (1.0 + std * normal_draw(rng, x.shape, x.device).to(
+            x.dtype))
+
+
+class Flatten(Layer):
+    def apply(self, x):
+        return x.reshape(x.shape[0], -1)
+
+    def compute_output_shape(self, input_shape):
+        return (int(np.prod(input_shape)),)
+
+
+class Reshape(Layer):
+    """Reshape the non-batch dims; one target dim may be -1."""
+
+    def __init__(self, target_shape, name=None, input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.target_shape = tuple(target_shape)
+
+    def apply(self, x):
+        return x.reshape((x.shape[0],) + self.target_shape)
+
+    def compute_output_shape(self, input_shape):
+        if -1 in self.target_shape:
+            total = int(np.prod(input_shape))
+            known = -int(np.prod(self.target_shape))
+            return tuple(total // known if d == -1 else d
+                         for d in self.target_shape)
+        return self.target_shape
+
+
+class Permute(Layer):
+    """Permute the non-batch dims; ``dims`` are 1-indexed, as in Keras."""
+
+    def __init__(self, dims, name=None, input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.dims = tuple(dims)
+
+    def apply(self, x):
+        return x.permute((0,) + self.dims)
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape[d - 1] for d in self.dims)
+
+
+class RepeatVector(Layer):
+    """(B, D) to (B, n, D)."""
+
+    def __init__(self, n: int, name=None, input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.n = int(n)
+
+    def apply(self, x):
+        return x.unsqueeze(1).repeat(1, self.n, 1)
+
+    def compute_output_shape(self, input_shape):
+        return (self.n,) + tuple(input_shape)
+
+
+class Squeeze(Layer):
+    """Drop the (0-indexed, non-batch) ``dim`` of size 1."""
+
+    def __init__(self, dim: int, name=None, input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.dim = int(dim)
+
+    def apply(self, x):
+        if x.shape[self.dim + 1] != 1:
+            raise ValueError(f"{self.name}: dim {self.dim} has size "
+                             f"{x.shape[self.dim + 1]}, not 1")
+        return x.squeeze(self.dim + 1)
+
+    def compute_output_shape(self, input_shape):
+        shape = list(input_shape)
+        del shape[self.dim]
+        return tuple(shape)
+
+
+class ExpandDim(Layer):
+    """Insert a dim of size 1 at (0-indexed, non-batch) ``dim``."""
+
+    def __init__(self, dim: int, name=None, input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.dim = int(dim)
+
+    def apply(self, x):
+        return x.unsqueeze(self.dim + 1)
+
+    def compute_output_shape(self, input_shape):
+        shape = list(input_shape)
+        shape.insert(self.dim, 1)
+        return tuple(shape)
+
+
+class Masking(Layer):
+    """Zero the timesteps whose features all equal ``mask_value``."""
+
+    def __init__(self, mask_value: float = 0.0, name=None, input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.mask_value = mask_value
+
+    def apply(self, x):
+        keep = (x != self.mask_value).any(dim=-1, keepdim=True)
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+
+
+class Highway(Layer):
+    """``y = T · act(x W_h + b_h) + (1 - T) · x`` with the gate
+    ``T = sigmoid(x W_t + b_t)``: one (D, 2D) kernel, the gate's columns
+    first."""
+
+    def __init__(self, activation=None, use_bias: bool = True,
+                 init="glorot_uniform", name=None, input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.activation = get_activation(activation)
+        self.use_bias = use_bias
+        self.init = get_initializer(init)
+
+    def build(self, input_shape, gen: torch.Generator) -> None:
+        d = input_shape[-1]
+        self.kernel = nn.Parameter(self.init(gen, (d, 2 * d)))
+        if self.use_bias:
+            self.bias = nn.Parameter(zeros_init((2 * d,)))
+        self.built = True
+
+    def apply(self, x):
+        x = as_compute(x)
+        z = x @ self.kernel.to(x.dtype)
+        if self.use_bias:
+            z = z + self.bias.to(x.dtype)
+        d = x.shape[-1]
+        gate = torch.sigmoid(z[..., :d])
+        return gate * self.activation(z[..., d:]) + (1.0 - gate) * x
+
+
+class MaxoutDense(Layer):
+    """The max over ``nb_feature`` linear maps: one (D, nb_feature · out)
+    kernel, reshaped and reduced."""
+
+    def __init__(self, output_dim: int, nb_feature: int = 4,
+                 use_bias: bool = True, init="glorot_uniform", name=None,
+                 input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.output_dim = int(output_dim)
+        self.nb_feature = int(nb_feature)
+        self.use_bias = use_bias
+        self.init = get_initializer(init)
+
+    def build(self, input_shape, gen: torch.Generator) -> None:
+        n = self.nb_feature * self.output_dim
+        self.kernel = nn.Parameter(self.init(gen, (input_shape[-1], n)))
+        if self.use_bias:
+            self.bias = nn.Parameter(zeros_init((n,)))
+        self.built = True
+
+    def apply(self, x):
+        x = as_compute(x)
+        z = x @ self.kernel.to(x.dtype)
+        if self.use_bias:
+            z = z + self.bias.to(x.dtype)
+        z = z.reshape(tuple(z.shape[:-1]) + (self.nb_feature,
+                                              self.output_dim))
+        return z.amax(dim=-2)
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape[:-1]) + (self.output_dim,)
+
+
 class Lambda(Layer):
     """A torch function as a layer (autograd differentiates it):
     ``fn(x)``, or ``fn(*xs)`` over a list of inputs; ``output_shape_fn``
@@ -253,5 +478,8 @@ class Lambda(Layer):
         return input_shape
 
 
-__all__ = ["Activation", "Dense", "Dropout", "InputLayer", "Int8Kernel",
-           "Lambda", "Narrow", "Select", "SparseDense", "dropout"]
+__all__ = ["Activation", "Dense", "Dropout", "ExpandDim", "Flatten",
+           "GaussianDropout", "GaussianNoise", "Highway", "InputLayer",
+           "Int8Kernel", "Lambda", "Masking", "MaxoutDense", "Narrow",
+           "Permute", "RepeatVector", "Reshape", "Select", "SparseDense",
+           "Squeeze", "dropout", "global_draw", "normal_draw"]

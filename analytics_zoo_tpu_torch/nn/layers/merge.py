@@ -1,6 +1,6 @@
-"""Merge (port of ``analytics_zoo_tpu/nn/layers/merge.py``): the modes
-``sum`` and ``concat`` that the ported backbones and NeuralCF use, and
-the functional helper ``merge``."""
+"""Merge (port of ``analytics_zoo_tpu/nn/layers/merge.py``): every mode
+of the JAX layer (``concat``, ``sum``, ``mul``, ``ave``, ``max``,
+``min``, ``dot``, ``cos``) and the functional helper ``merge``."""
 
 from __future__ import annotations
 
@@ -8,13 +8,14 @@ import torch
 
 from ..module import Layer
 
-_PORTED = ("concat", "sum")
 _MODES = ("concat", "sum", "mul", "ave", "max", "min", "dot", "cos")
 
 
 class Merge(Layer):
     """Merge a list of inputs: ``concat`` (``concat_axis`` 0-indexed over
-    the non-batch dims) or ``sum``."""
+    the non-batch dims), the elementwise ``sum``, ``mul``, ``ave``,
+    ``max`` and ``min``, or over two inputs the last-axis ``dot`` and
+    cosine (``cos``, each norm plus 1e-8), as (B, ..., 1)."""
 
     def __init__(self, mode: str = "sum", concat_axis: int = -1, name=None,
                  input_shape=None):
@@ -22,24 +23,31 @@ class Merge(Layer):
         mode = mode.lower()
         if mode not in _MODES:
             raise ValueError(f"unknown merge mode {mode!r}")
-        if mode not in _PORTED:
-            raise NotImplementedError(
-                f"merge mode {mode!r} is not ported (ported: {_PORTED}; the "
-                f"rest is ROADMAP Queue 1, item 11)")
         self.mode = mode
         self.concat_axis = concat_axis
 
     def apply(self, xs):
         if not isinstance(xs, (list, tuple)) or len(xs) < 2:
             raise ValueError("Merge needs a list of >= 2 inputs")
-        if self.mode == "concat":
+        mode = self.mode
+        if mode == "concat":
             axis = self.concat_axis if self.concat_axis < 0 \
                 else self.concat_axis + 1
             return torch.cat(list(xs), dim=axis)
+        if mode in ("dot", "cos"):
+            a, b = xs
+            if mode == "cos":
+                a = a / (torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+                         + 1e-8)
+                b = b / (torch.linalg.vector_norm(b, dim=-1, keepdim=True)
+                         + 1e-8)
+            return torch.sum(a * b, dim=-1, keepdim=True)
+        op = {"sum": torch.add, "ave": torch.add, "mul": torch.mul,
+              "max": torch.maximum, "min": torch.minimum}[mode]
         out = xs[0]
         for x in xs[1:]:
-            out = out + x
-        return out
+            out = op(out, x)
+        return out / len(xs) if mode == "ave" else out
 
     def compute_output_shape(self, input_shapes):
         shapes = [tuple(s) for s in input_shapes]
@@ -49,6 +57,8 @@ class Merge(Layer):
             out = list(shapes[0])
             out[axis] = sum(s[axis] for s in shapes)
             return tuple(out)
+        if self.mode in ("dot", "cos"):
+            return (1,)
         return shapes[0]
 
 

@@ -16,8 +16,10 @@ order than JAX's per-step product; the two agree within 1e-5 in f32.
 ...}``; ``TimeDistributed`` holds its inner layer's parameters under its
 own slot, as the JAX tree does (no ``layer`` level).
 
-Not ported: ``ConvLSTM2D`` and ``ConvLSTM3D`` (ROADMAP Queue 1, item 11)
-raise.
+``ConvLSTM2D`` and ``ConvLSTM3D`` keep the JAX structure: one input conv
+(strided, ``border_mode``) giving 4·filters channels, hoisted over all T
+steps as one (B·T) conv, then a SAME recurrent conv on the hidden state
+each step, the gates [i, f, c, o] as in the JAX cell.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import torch
 from torch import nn
 
 from ..activations import get_activation
-from ..module import Layer, as_compute, get_initializer
+from ..module import Layer, as_compute, get_initializer, zeros_init
+from .conv_extended import conv_nd
 
 
 class _RNNBase(Layer):
@@ -166,19 +169,85 @@ class GRU(_RNNBase):
         return h, h
 
 
-class _ConvLSTMBase(Layer):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported (ROADMAP Queue 1, "
-            f"item 11)")
+class _ConvLSTMBase(_RNNBase):
+    """Convolutional LSTM over (B, T, *spatial, C), channels last:
+    ``kernel`` (*k, C, 4F), ``recurrent_kernel`` (*k, F, 4F), ``bias``
+    (4F,) zeros."""
+
+    n_spatial = 2
+
+    def __init__(self, output_dim: int, nb_kernel: int, activation="tanh",
+                 inner_activation="hard_sigmoid", border_mode: str = "valid",
+                 subsample: int = 1, return_sequences=False,
+                 go_backwards=False, init="glorot_uniform",
+                 inner_init="glorot_uniform", name=None, input_shape=None):
+        super().__init__(output_dim, activation, return_sequences,
+                         go_backwards, init, inner_init, name=name,
+                         input_shape=input_shape)
+        self.nb_kernel = int(nb_kernel)
+        self.padding = border_mode.upper()
+        self.stride = int(subsample)
+        self.inner_activation = get_activation(inner_activation)
+
+    def _spatial_out(self, spatial):
+        k, s = self.nb_kernel, self.stride
+        if self.padding == "SAME":
+            return tuple(-(-d // s) for d in spatial)
+        return tuple((d - k) // s + 1 for d in spatial)
+
+    def build(self, input_shape, gen: torch.Generator) -> None:
+        ksp = (self.nb_kernel,) * self.n_spatial
+        f = self.output_dim
+        self.kernel = nn.Parameter(self.init(gen, ksp + (input_shape[-1],
+                                                         4 * f)))
+        self.recurrent_kernel = nn.Parameter(self.inner_init(
+            gen, ksp + (f, 4 * f)))
+        self.bias = nn.Parameter(zeros_init((4 * f,)))
+        self.built = True
+
+    def apply(self, x):
+        x = as_compute(x)
+        nd = self.n_spatial
+        b, t = x.shape[0], x.shape[1]
+        if self.go_backwards:
+            x = x.flip(1)
+        dt = x.dtype
+        zx = conv_nd(x.reshape((b * t,) + tuple(x.shape[2:])), self.kernel,
+                     (self.stride,) * nd, self.padding)
+        zx = zx.reshape((b, t) + tuple(zx.shape[1:]))
+        u, bias = self.recurrent_kernel.to(dt), self.bias.to(dt)
+        h = x.new_zeros((b,) + tuple(zx.shape[2:-1]) + (self.output_dim,))
+        c = h
+        outs = []
+        for zx_t in zx.unbind(1):
+            z = zx_t + conv_nd(h, u, (1,) * nd, "SAME") + bias
+            i, f, g, o = z.chunk(4, dim=-1)
+            c = (self.inner_activation(f) * c
+                 + self.inner_activation(i) * self.activation(g))
+            h = self.inner_activation(o) * self.activation(c)
+            outs.append(h)
+        if not self.return_sequences:
+            return outs[-1]
+        seq = torch.stack(outs, dim=1)
+        return seq.flip(1) if self.go_backwards else seq
+
+    def compute_output_shape(self, input_shape):
+        out = self._spatial_out(input_shape[1:-1]) + (self.output_dim,)
+        if self.return_sequences:
+            return (input_shape[0],) + out
+        return out
 
 
 class ConvLSTM2D(_ConvLSTMBase):
-    """Not ported (ROADMAP Queue 1, item 11): raises."""
+    """(B, T, H, W, C) through a conv-LSTM."""
+
+    n_spatial = 2
 
 
 class ConvLSTM3D(_ConvLSTMBase):
-    """Not ported (ROADMAP Queue 1, item 11): raises."""
+    """(B, T, D, H, W, C) through a conv-LSTM."""
+
+    n_spatial = 3
 
 
 class Bidirectional(Layer):

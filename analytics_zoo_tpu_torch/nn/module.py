@@ -1,14 +1,15 @@
 """Precision policy, device resolution, initializers and the ``Layer`` base.
 
-Port of the parts of ``analytics_zoo_tpu/nn/module.py`` that the serving,
-training and int8 inference paths need: the process-wide (param, compute)
-dtype policy, its scoped form ``precision_policy``, ``as_compute``,
-``cast_params``, the ``glorot_uniform`` / normal·0.02 / zeros initializers
-that ``TransformerLM.build`` and the Keras-style layers draw from, and
-:class:`Layer`, the base of those layers. Draws come from an explicit
-``torch.Generator`` on the CPU, so a seed gives the same weights whatever
-device they end up on (they do not reproduce JAX's draws: parity tests load
-the JAX weights through :mod:`analytics_zoo_tpu_torch.bridge`).
+Port of ``analytics_zoo_tpu/nn/module.py``: the process-wide (param,
+compute) dtype policy, its scoped form ``precision_policy``,
+``as_compute``, ``cast_params``, every initializer of the JAX table
+(glorot uniform and normal, he and lecun normal, normal·0.01, uniform,
+zeros, ones; and the normal·0.02 of ``TransformerLM.build``), and
+:class:`Layer`, the base of the Keras-style layers, with its
+``regularization`` term. Draws come from an explicit ``torch.Generator``
+on the CPU, so a seed gives the same weights whatever device they end up
+on (they do not reproduce JAX's draws, only their fans and spread: parity
+tests load the JAX weights through :mod:`analytics_zoo_tpu_torch.bridge`).
 """
 
 from __future__ import annotations
@@ -134,18 +135,38 @@ def glorot_uniform(gen: torch.Generator,
     return ((u * 2.0 - 1.0) * limit).to(param_dtype())
 
 
+def _normal(gen: torch.Generator, shape: Sequence[int],
+            std: float) -> torch.Tensor:
+    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32) * std
+    return w.to(param_dtype())
+
+
+def glorot_normal(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    """normal · sqrt(2 / (fan_in + fan_out))."""
+    fan_in, fan_out = _fans(shape)
+    return _normal(gen, shape, math.sqrt(2.0 / (fan_in + fan_out)))
+
+
+def he_normal(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    """normal · sqrt(2 / fan_in)."""
+    return _normal(gen, shape, math.sqrt(2.0 / _fans(shape)[0]))
+
+
+def lecun_normal(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    """normal · sqrt(1 / fan_in)."""
+    return _normal(gen, shape, math.sqrt(1.0 / _fans(shape)[0]))
+
+
 def embedding_normal(gen: torch.Generator,
                      shape: Sequence[int]) -> torch.Tensor:
     """normal · 0.02 — the token and position tables."""
-    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32) * 0.02
-    return w.to(param_dtype())
+    return _normal(gen, shape, 0.02)
 
 
 def normal_init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
     """normal · 0.01 — the JAX package's ``"normal"`` (NeuralCF's
     tables)."""
-    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32) * 0.01
-    return w.to(param_dtype())
+    return _normal(gen, shape, 0.01)
 
 
 def uniform_init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
@@ -163,26 +184,28 @@ def ones_init(shape: Sequence[int]) -> torch.Tensor:
     return torch.ones(tuple(shape), dtype=param_dtype())
 
 
+INITIALIZERS: Dict[str, Callable] = {
+    "glorot_uniform": glorot_uniform, "xavier": glorot_uniform,
+    "glorot_normal": glorot_normal, "he_normal": he_normal,
+    "lecun_normal": lecun_normal,
+    "normal": normal_init, "gaussian": normal_init,
+    "uniform": uniform_init,
+    "zero": lambda gen, shape: zeros_init(shape),
+    "zeros": lambda gen, shape: zeros_init(shape),
+    "one": lambda gen, shape: ones_init(shape),
+    "ones": lambda gen, shape: ones_init(shape)}
+
+
 def get_initializer(init: Union[str, Callable]) -> Callable:
-    """``init(gen, shape) -> tensor``: the Keras layers' kernel, bias and
-    table initializers that are ported (glorot-uniform, normal, uniform,
-    zeros, ones)."""
+    """``init(gen, shape) -> tensor``: the initializer a layer names, or
+    a callable as it is."""
     if callable(init):
         return init
-    table: Dict[str, Callable] = {
-        "glorot_uniform": glorot_uniform, "xavier": glorot_uniform,
-        "normal": normal_init, "gaussian": normal_init,
-        "uniform": uniform_init,
-        "zero": lambda gen, shape: zeros_init(shape),
-        "zeros": lambda gen, shape: zeros_init(shape),
-        "one": lambda gen, shape: ones_init(shape),
-        "ones": lambda gen, shape: ones_init(shape)}
     try:
-        return table[init]
+        return INITIALIZERS[init]
     except KeyError:
-        raise NotImplementedError(
-            f"initializer {init!r} is not ported (known: {sorted(table)}; "
-            f"the rest is ROADMAP Queue 1, item 11)") from None
+        raise ValueError(f"unknown initializer {init!r}; known: "
+                         f"{sorted(INITIALIZERS)}") from None
 
 
 # ---------------------------------------------------------------- layers
@@ -238,6 +261,19 @@ class Layer(nn.Module):
     def compute_output_shape(self, input_shape):
         return input_shape
 
+    def regularization(self):
+        """This layer's term of the training loss: ``w_regularizer`` of
+        its ``kernel`` plus ``b_regularizer`` of its ``bias`` (0.0 without
+        them), summed into the loss by the Estimator."""
+        total = 0.0
+        w_reg = getattr(self, "w_regularizer", None)
+        b_reg = getattr(self, "b_regularizer", None)
+        if w_reg is not None and "kernel" in self._parameters:
+            total = total + w_reg(self.kernel)
+        if b_reg is not None and "bias" in self._parameters:
+            total = total + b_reg(self.bias)
+        return total
+
     def __call__(self, x, *args, **kwargs):
         from .graph import Node, apply_layer
 
@@ -264,9 +300,9 @@ def call_layer(layer, x, rng):
     return layer(x)
 
 
-__all__ = ["Layer", "as_compute", "call_layer", "cast_params",
-           "compute_dtype", "draws_rng", "embedding_normal",
-           "get_initializer",
-           "glorot_uniform", "normal_init", "ones_init", "param_dtype",
+__all__ = ["INITIALIZERS", "Layer", "as_compute", "call_layer",
+           "cast_params", "compute_dtype", "draws_rng", "embedding_normal",
+           "get_initializer", "glorot_normal", "glorot_uniform", "he_normal",
+           "lecun_normal", "normal_init", "ones_init", "param_dtype",
            "precision_policy", "resolve_device", "set_policy", "split_rng",
            "uniform_init", "zeros_init"]

@@ -372,13 +372,13 @@ def same_pads(in_hw: Sequence[int], k_hw: Sequence[int],
 
 def conv_pads(padding, in_hw: Sequence[int], k_hw: Sequence[int],
               strides: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
-    """((top, bottom), (left, right)) for ``padding``: "SAME" (TF-style),
-    "VALID", or explicit pairs."""
+    """Each spatial dim's (low, high) padding for ``padding``: "SAME"
+    (TF-style), "VALID", or explicit pairs."""
     if isinstance(padding, str):
         if padding.upper() == "SAME":
             return same_pads(in_hw, k_hw, strides)
         if padding.upper() == "VALID":
-            return ((0, 0), (0, 0))
+            return ((0, 0),) * len(in_hw)
         raise ValueError(f"unknown padding {padding!r}")
     return tuple(tuple(int(v) for v in p) for p in padding)
 

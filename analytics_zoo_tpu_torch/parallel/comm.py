@@ -14,7 +14,10 @@ axis's coordinate (``common/context.py::Mesh``). The collectives:
   shift of a vocab-parallel softmax), :func:`psum_scatter` (``tiled``: the
   ``dim`` split into equal blocks, else a dim of size n dropped) and
   :func:`all_to_all` (split ``split_dim`` into n blocks, block i to
-  coordinate i, the received blocks concatenated on ``concat_dim``).
+  coordinate i, the received blocks concatenated on ``concat_dim``);
+- :func:`batch_psum`: a :func:`psum` over the batch axes of the step
+  running in this thread (:func:`batch_shard`), the global statistics of
+  BatchNormalization in training.
 
 Each is a ``torch.autograd.Function`` whose backward is its transpose:
 ``ppermute`` the inverse permutation, ``all_gather`` ``psum_scatter`` and
@@ -478,12 +481,15 @@ class BatchShard(NamedTuple):
     a step is drawn for the global batch and sliced (the JAX step whose key
     carries no rank index draws it over the global array); otherwise the
     rank draws for its own block with a key that already differs by rank
-    (the flat update's step)."""
+    (the flat update's step). The same flag marks a step that computes
+    over the global batch (:func:`batch_psum`); ``mesh``: the mesh of the
+    axes (the context's when ``None``)."""
 
     index: int
     count: int
     axis: Tuple[str, ...] = ("dp",)
     global_draws: bool = True
+    mesh: Any = None
 
 
 _BATCH = threading.local()
@@ -503,6 +509,20 @@ def batch_shard(shard: Optional[BatchShard]):
 
 def current_batch_shard() -> Optional[BatchShard]:
     return getattr(_BATCH, "shard", None)
+
+
+def batch_psum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks that hold blocks of the global batch
+    (:func:`psum` over each batch axis: backward sums the gradient the
+    same way), inside a step that computes over the global batch (the
+    replicated and per-leaf updates, as under JAX's GSPMD); ``x`` as it is
+    outside one and in the flat step, whose statistics are local."""
+    shard = current_batch_shard()
+    if shard is None or not shard.global_draws:
+        return x
+    for a in shard.axis:
+        x = psum(x, a, mesh=shard.mesh)
+    return x
 
 
 # ---------------------------------------------------------------- rank pool
@@ -652,7 +672,7 @@ def spawn_ranks(fn: Callable, world: int, backend: Optional[str] = None, *,
         return pool.run(fn, *args)
 
 
-__all__ = ["Axis", "BatchShard", "KINDS", "batch_shard",
+__all__ = ["Axis", "BatchShard", "KINDS", "batch_psum", "batch_shard",
            "current_batch_shard", "RankError", "RankPool", "all_gather",
            "all_to_all", "axis_index", "axis_size", "collective_counts",
            "copy_to", "default_backend", "gather_along", "get_axis", "pmax",

@@ -795,6 +795,59 @@ def test_int8_conv_kernel_at_every_resnet50_shape(cuda):
             assert torch.equal(y, ref), ((h, cin, k, st, cout), dtype)
 
 
+#: MobileNet v1's packed pointwise convs at 224 x 224 (alpha 1): (px,
+#: Cin, Cout) a distinct shape; 12 convs over these 8 (512 -> 512 at 14 px
+#: five times); the first, 32 -> 64, has 2048 weights and stays float
+MOBILENET_1X1 = [(56, 64, 128), (56, 128, 128), (28, 128, 256),
+                 (28, 256, 256), (14, 256, 512), (14, 512, 512),
+                 (7, 512, 1024), (7, 1024, 1024)]
+
+
+@pytest.mark.parametrize("dtype", I8_DTYPES)
+@pytest.mark.parametrize("hw,cin,cout", MOBILENET_1X1)
+def test_int8_conv_kernel_at_mobilenet_pointwise_shapes(cuda, dtype, hw, cin,
+                                                        cout):
+    """K6 bitwise equal to its plain version at each of MobileNet v1's
+    packed 1x1 shapes at batch 32 (kh = kw = 1, Cin up to 1024, down to
+    7 x 7 px), through the router (the fused rule at stride 1)."""
+    from analytics_zoo_tpu_torch.ops import int8 as i8
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    rng = np.random.default_rng(hw * cin + cout)
+    packed = _packed_kernel_major(rng, (1, 1, cin, cout), cuda)
+    x = torch.from_numpy(rng.normal(size=(32, hw, hw, cin)).astype(
+        np.float32)).to(cuda).to(dtype)
+    before = f8.int8_conv2d_fused.launches
+    y = i8.int8_conv2d(x, packed, strides=(1, 1), padding="SAME")
+    ref = f8.int8_conv2d_fused_plain(x, packed, (1, 1), ((0, 0), (0, 0)),
+                                     "fused")
+    torch.cuda.synchronize()
+    assert f8.int8_conv2d_fused.launches == before + 1
+    assert y.shape == (32, hw, hw, cout) and torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("dtype", I8_DTYPES)
+def test_int8_matmul_kernel_at_the_mobilenet_head(cuda, dtype):
+    """K5 bitwise equal to its plain version at MobileNet's head, (32,
+    1024) x (1024, 1000), on the route the router gives it."""
+    from analytics_zoo_tpu_torch.ops import int8 as i8
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    rng = np.random.default_rng(1024)
+    packed = _packed_kernel_major(rng, (1024, 1000), cuda)
+    x = torch.from_numpy(np.abs(rng.normal(size=(32, 1024))).astype(
+        np.float32)).to(cuda).to(dtype)
+    blocks = f8.resolve_blocks(32, 1000, 1024)
+    block_k, rule = (1024, "lax") if blocks is None else (blocks[2],
+                                                          "fused")
+    before = f8.int8_matmul_fused.launches
+    y = i8.int8_matmul(x, packed)
+    ref = f8.int8_matmul_fused_plain(x, packed, block_k, rule)
+    torch.cuda.synchronize()
+    assert f8.int8_matmul_fused.launches == before + 1
+    assert y.shape == (32, 1000) and torch.equal(y, ref)
+
+
 @pytest.mark.parametrize("dtype", I8_DTYPES)
 @pytest.mark.parametrize("r,k,g,rule", [
     (64, 512, 128, "fused"), (100, 4096, 512, "fused"), (7, 300, 100, "lax"),

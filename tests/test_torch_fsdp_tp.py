@@ -16,7 +16,9 @@ table the vocab-parallel lookup over tp) and a ``Sequential`` with
 ``Dropout`` on dp=2 x fsdp=2 x tp=2 (the mask drawn for the global batch
 and sliced by the combined (dp, fsdp) block; the JAX ``TransformerLM``
 takes no dropout rate), under the JAX rules and with its kernels' rows
-over ``("fsdp", "tp")``, two axes on one dim. The chip's recipe (flash attention, remat
+over ``("fsdp", "tp")``, two axes on one dim; a ``Sequential`` with
+``BatchNormalization`` in training on dp=2 x fsdp=4 (the global batch's
+moments, its moving statistics too). The chip's recipe (flash attention, remat
 "flash") on dp=2 x fsdp=2 x tp=2 gives the one-process port run. Also:
 placement then ``_full`` gives every JAX
 leaf bit for bit, and a rank's QKV block holds its heads' q, k and v
@@ -46,7 +48,8 @@ from analytics_zoo_tpu.parallel import make_param_sharding as jrules
 from analytics_zoo_tpu_torch.parallel import comm
 
 from torch_fsdp_tp_ranks import (BATCH, LM, N_SEQS, WORLD, _ckpt_roundtrip,
-                                 _fit_lm, _fit_other, _mlp_data, _ncf_data,
+                                 _fit_bn, _fit_lm, _fit_other, _mlp_data,
+                                 _ncf_data,
                                  _placement, _port_lm, _saved_blocks, _tokens,
                                  _vocab_loss)
 
@@ -354,7 +357,8 @@ def _jax_two_axes_rule(path, leaf):
     return PartitionSpec()
 
 
-def _jax_other(jm, params, state, axes, data, loss, batch, two_axes=False):
+def _jax_other(jm, params, state, axes, data, loss, batch, two_axes=False,
+               with_state=False):
     jreset()
     ctx = jinit(mesh=JMeshConfig(**axes))
     try:
@@ -373,7 +377,10 @@ def _jax_other(jm, params, state, axes, data, loss, batch, two_axes=False):
 
         est._train_step = record
         est.fit(data, batch_size=batch, epochs=1, seed=3)
-        return want, _flat(_np(est.train_state["params"]))
+        out = (want, _flat(_np(est.train_state["params"])))
+        if with_state:
+            out += (_flat(_np(est.train_state["model_state"])),)
+        return out
     finally:
         jreset()
 
@@ -426,3 +433,32 @@ def test_dropout_on_dp_fsdp_tp_matches_jax(pool, two_axes):
         np.testing.assert_allclose(losses, want, rtol=0, atol=TOL)
         assert placed
     _assert_params(res[0][1], wparams)
+
+
+def test_batchnorm_on_dp_fsdp_matches_jax(pool):
+    """BatchNormalization in training on dp=2 x fsdp=4: the batch is
+    sharded over both axes, so every rank normalises with the global
+    batch's moments (``comm.batch_psum`` over dp and fsdp, the gradient
+    through it), as JAX's GSPMD step does; losses, the gathered params and
+    the moving statistics within 1e-5 of JAX's on every rank."""
+    from analytics_zoo_tpu.nn import layers as JL
+    from analytics_zoo_tpu.nn.topology import Sequential as JSequential
+
+    axes = dict(dp=2, fsdp=4)
+    jm = JSequential([JL.Dense(16, use_bias=False, input_shape=(8,)),
+                      JL.BatchNormalization(), JL.Activation("relu"),
+                      JL.Dense(4)])
+    params, state = jm.build(jax.random.PRNGKey(2))
+    params, state = _np(params), _np(state)
+    rng = np.random.default_rng(4)
+    state["1_batchnormalization"] = {
+        "moving_mean": rng.normal(size=16).astype(np.float32),
+        "moving_var": rng.uniform(0.5, 2, 16).astype(np.float32)}
+    want, wparams, wstate = _jax_other(jm, params, state, axes, _mlp_data(),
+                                       "mse", 16, with_state=True)
+    res = pool.run(_fit_bn, params, state, axes)
+    for losses, got, stats in res:
+        np.testing.assert_allclose(losses, want, rtol=0, atol=TOL)
+        _assert_params(stats, wstate)
+    _assert_params(res[0][1], wparams)
+

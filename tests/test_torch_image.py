@@ -91,8 +91,11 @@ def test_batchnorm_inference_matches_jax():
     t.load_state_dict(state_dict_from_jax(p, s))
     want, _ = j.apply(p, s, x)
     _close(want, t(torch.from_numpy(x)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.train()(torch.from_numpy(x))
+    # training mode: the batch statistics, and the moving ones moved once
+    want, new = j.apply(p, s, x, training=True)
+    _close(want, t.train()(torch.from_numpy(x)))
+    _close(new["moving_mean"], t.moving_mean)
+    _close(new["moving_var"], t.moving_var)
 
 
 @pytest.mark.parametrize("padding,pool,stride", [
@@ -124,8 +127,12 @@ def test_merge_matches_jax(mode):
     _close(want, t([torch.from_numpy(x) for x in xs]))
     assert tuple(want.shape[1:]) == t.compute_output_shape(
         [(3, 3, 4)] * 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.Merge(mode="mul")
+    # the other modes are ported too (dot and cos take two inputs)
+    for other in ("mul", "ave", "max", "min", "dot", "cos"):
+        ins = xs[:2] if other in ("dot", "cos") else xs
+        want, _ = JL.Merge(mode=other).apply({}, {}, ins)
+        _close(want, TL.Merge(mode=other)([torch.from_numpy(x)
+                                           for x in ins]))
 
 
 @pytest.mark.parametrize("activation", [None, "relu", "softmax"])
@@ -150,7 +157,7 @@ def jax_resnet():
 
 
 @pytest.mark.parametrize("name", ["resnet-18", "vgg-16", "squeezenet",
-                                  "alexnet"])
+                                  "alexnet", "mobilenet", "mobilenet-v2"])
 def test_backbone_slots_equal_jax(name):
     """The port's state dict keys are the JAX params and state trees'
     paths (slot ``f"{i}_{type}"``, then the leaf name); the output shape
@@ -169,10 +176,7 @@ def test_backbone_slots_equal_jax(name):
     assert tuple(y.shape) == (1, 10)
 
 
-def test_mobilenets_raise_until_depthwise_is_ported():
-    for name in ("mobilenet", "mobilenet-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbb.build_backbone(name, (32, 32, 3), 10, device="cpu")
+def test_unknown_backbone_raises():
     with pytest.raises(ValueError, match="unknown backbone"):
         tbb.build_backbone("lenet", device="cpu")
 
@@ -226,10 +230,21 @@ def test_image_classifier_predicts_arrays():
     with torch.no_grad():
         whole = clf.model.apply(torch.from_numpy(x.astype(np.float32)))
     _close(whole, probs)
-    # ImageSet prediction is ported (tests/test_torch_image_text_sets.py);
-    # training still waits for BatchNormalization's training mode
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        clf.fit_image_set(None)
+    # and it trains (BatchNormalization in training mode): one SGD step
+    # from an ImageSet moves the weights and every BN's statistics
+    from analytics_zoo_tpu_torch.data.image import ImageSet
+
+    before = {k: v.clone() for k, v in clf.model.state_dict().items()}
+    imgs = np.random.default_rng(9).integers(0, 256, (4, 40, 40, 3),
+                                             dtype=np.uint8)
+    clf.compile(optimizer="sgd").fit_image_set(
+        ImageSet.from_arrays(imgs, [0, 3, 5, 9]), batch_size=4, nb_epoch=1)
+    after = clf.model.state_dict()
+    assert all(not torch.equal(before[k], after[k]) for k in after
+               if k.endswith(("moving_mean", "moving_var", ".kernel")))
+    assert not clf.model.training
+    probs2 = clf.predict(x, batch_size=2)
+    assert np.isfinite(probs2).all() and not np.allclose(probs2, probs)
 
 
 def test_entry_points_need_cuda_or_a_device():

@@ -280,8 +280,32 @@ def test_predict_image_set_matches_jax():
     b = jimg.ImageSet.from_arrays(imgs).transform(JCfg.preprocessing(32, 32))
     _check_same_set(a, b)
     assert ImagenetConfig.MEANS == JCfg.MEANS
-    with pytest.raises(NotImplementedError, match=r"\[11\]"):
-        clf.fit_image_set(timg.ImageSet.from_arrays(imgs))
+    # training takes the same recipe: one SGD step of fit_image_set in
+    # both packages gives the same weights
+    from jax.sharding import Mesh
+
+    from analytics_zoo_tpu.nn import optimizers as jopt
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.nn import optimizers as topt
+
+    labels = [1, 4, 7, 2]
+    p0 = _np(params)
+    jclf.compile(optimizer=jopt.SGD(lr=0.1), mesh=Mesh(
+        np.array(jax.devices()[:1]).reshape((1,) * 6),
+        ("dp", "fsdp", "tp", "sp", "pp", "ep")))
+    jm.estimator.initial_weights = (p0, _np(state))
+    jclf.fit_image_set(jimg.ImageSet.from_arrays(imgs, labels),
+                       batch_size=4, nb_epoch=1)
+    clf.compile(optimizer=topt.SGD(lr=0.1))
+    clf.fit_image_set(timg.ImageSet.from_arrays(imgs, labels), batch_size=4,
+                      nb_epoch=1)
+    got = params_to_numpy(tm)
+    moved = 0
+    for slot, d in _np(jm.estimator.train_state["params"]).items():
+        for leaf, v in d.items():
+            np.testing.assert_allclose(got[slot][leaf], v, rtol=0, atol=1e-5)
+            moved += not np.array_equal(v, p0[slot][leaf])
+    assert moved > 0
 
 
 def test_keras_net_takes_text_and_image_sets():

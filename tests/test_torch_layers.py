@@ -53,14 +53,14 @@ def test_layernorm_matches_jax():
     params = {"gamma": rng.normal(size=HIDDEN).astype(np.float32),
               "beta": rng.normal(size=HIDDEN).astype(np.float32)}
     want, _ = jln.apply(params, {}, x)
-    ln = LayerNormalization(HIDDEN)
+    ln = LayerNormalization(dim=HIDDEN)
     ln.load_state_dict(params_from_jax(params))
     with torch.no_grad():
         _close(want, ln(torch.from_numpy(x)))
 
 
 def test_layernorm_bf16_keeps_input_dtype():
-    ln = LayerNormalization(HIDDEN)
+    ln = LayerNormalization(dim=HIDDEN)
     x = torch.randn(2, 3, HIDDEN).to(torch.bfloat16)
     with torch.no_grad():
         assert ln(x).dtype == torch.bfloat16

@@ -117,3 +117,23 @@ def test_the_sampler_hashes_through_the_shared_threefry():
     bits = tkv.sample_bits([seed], [idx], 64)
     np.testing.assert_array_equal(bits[0].numpy(),
                                   prng.random_bits(want, (64,)).numpy())
+
+
+@pytest.mark.parametrize("shape", [(100_000,), (3, 7, 5), (1,)])
+@pytest.mark.parametrize("seed", [0, 9])
+def test_normal_is_jax_normal_within_an_ulp(seed, shape):
+    """``prng.normal``: JAX's uniform bits on (-1, 1) exactly, then
+    ``sqrt(2) · erf_inv`` on XLA's polynomial; the gap to
+    ``jax.random.normal`` is held within 1e-6 (measured: one ulp of the
+    largest draws, ~4.8e-7). ``torch.erfinv`` would miss by ~2e-5."""
+    key = jax.random.PRNGKey(seed)
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    want_u = np.asarray(jax.random.uniform(key, shape, jnp.float32, lo, 1.0))
+    got_u = prng.uniform(prng.PRNGKey(seed), shape, float(lo), 1.0)
+    np.testing.assert_array_equal(got_u.numpy(), want_u)
+    want = np.asarray(jax.random.normal(key, shape, jnp.float32))
+    got = prng.normal(prng.PRNGKey(seed), shape)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    ends = prng.erf_inv(torch.tensor([-1.0, 1.0]))
+    assert ends[0] < -1e30 and ends[1] > 1e30

@@ -167,12 +167,6 @@ def test_recurrent_stack_in_a_graph_matches_jax():
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=TOL)
 
 
-@pytest.mark.parametrize("cls", ["ConvLSTM2D", "ConvLSTM3D"])
-def test_conv_lstm_is_not_ported(cls):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        getattr(TL, cls)(4, 3)
-
-
 @pytest.mark.parametrize("name", ["hard_sigmoid", "tanh"])
 def test_new_activations_match_jax(name):
     x = np.linspace(-4, 4, 101).astype(np.float32)

@@ -17,8 +17,10 @@ replicated step draws the global batch's mask, as JAX does (losses within
 1e-5); a flat checkpoint written by the port is the JAX layout and resumes
 both ways; the optimizer state is 1/dp a rank; ``graph_checks="raise"``
 passes the flat step's collective budget and fails an all-reduce exchange
-before the first update, in both packages. One rank pool serves the
-module.
+before the first update, in both packages; BatchNormalization trains on
+dp=4 with JAX's statistics (global under the replicated update, local
+then averaged under the flat one), its moving statistics within 1e-5.
+One rank pool serves the module.
 """
 
 import jax
@@ -258,6 +260,90 @@ def test_dp4_training_matches_jax(pool, case, dropout):
     assert res[0]["mode"] == jest._update_mode()
     for r in res:
         _compare(r, want, wparams)
+
+
+def _jax_bn_model():
+    # no bias before BN: BN cancels it, and Adam would scale its
+    # rounding-noise gradient up to lr a step
+    return JSequential([JL.Dense(8, use_bias=False, input_shape=(D_IN,)),
+                        JL.BatchNormalization(), JL.Activation("relu"),
+                        JL.Dense(3)])
+
+
+def _port_bn_fit(tree, state, cfg):
+    """Rank side: a Dense + BatchNormalization model on dp=4 from the JAX
+    weights and statistics; losses a step, the final params and buffers."""
+    from analytics_zoo_tpu_torch.bridge import (params_to_numpy,
+                                                state_dict_from_jax)
+    from analytics_zoo_tpu_torch.common.triggers import MaxIteration
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.nn import layers as TL
+    from analytics_zoo_tpu_torch.nn import optimizers as topt
+    from analytics_zoo_tpu_torch.nn.topology import Sequential
+
+    _ctx(dp=4)
+    tm = Sequential([TL.Dense(8, use_bias=False, input_shape=(D_IN,)),
+                     TL.BatchNormalization(), TL.Activation("relu"),
+                     TL.Dense(3)], device="cpu")
+    tm.load_state_dict(state_dict_from_jax(tree, state))
+    est = Estimator(tm, optimizer=topt.Adam(lr=0.01), loss="mse",
+                    config=TrainConfig(**cfg))
+    got, step = [], est._step
+
+    def record(b):
+        loss, gnorm = step(b)
+        got.append(float(loss))
+        return loss, gnorm
+
+    est._step = record
+    est.fit(_data(), batch_size=BATCH, end_trigger=MaxIteration(3), seed=3)
+    return {"losses": got, "params": params_to_numpy(tm),
+            "mode": est._update_mode()}
+
+
+@pytest.mark.parametrize("case", ["flat", "replicated_accum2"])
+def test_dp4_batchnorm_training_matches_jax(pool, case):
+    """BatchNormalization in training on dp=4, 3 Adam steps: the
+    replicated update normalises with the global batch's statistics (an
+    all-reduce whose backward all-reduces the gradient, as under JAX's
+    GSPMD), the flat one with each rank's own and then averages the
+    moving statistics over dp, as JAX's flat step ``pmean``s them.
+    Losses, params and moving statistics within 1e-5 of JAX's on every
+    rank."""
+    from analytics_zoo_tpu.common.triggers import MaxIteration
+
+    cfg = CASES[case]
+    rng = np.random.default_rng(2)
+    params, state = _jax_bn_model().build(jax.random.PRNGKey(1))
+    state = _np(state)
+    state["1_batchnormalization"] = {
+        "moving_mean": rng.normal(size=8).astype(np.float32),
+        "moving_var": rng.uniform(0.5, 2, 8).astype(np.float32)}
+    tree = _np(params)
+    jm = _jax_bn_model()
+    jest = JEstimator(jm, optimizer=jopt.Adam(lr=0.01), loss="mse",
+                      mesh=_mesh(4), config=jconfig.TrainConfig(**cfg))
+    jest.initial_weights = (params, state)
+    want, step = [], jest._make_train_step()
+
+    def record(st, b):
+        st, (loss, gnorm) = step(st, b)
+        want.append(float(loss))
+        return st, (loss, gnorm)
+
+    jest._train_step = record
+    jest.fit(_data(), batch_size=BATCH, end_trigger=MaxIteration(3), seed=3)
+    wstate = _np(jest.train_state["model_state"])
+    res = pool.run(_port_bn_fit, tree, state, cfg)
+    assert res[0]["mode"] == jest._update_mode()
+    for r in res:
+        _compare(r, want, _np(jest.train_state["params"]))
+        for leaf, v in wstate["1_batchnormalization"].items():
+            np.testing.assert_allclose(
+                r["params"]["1_batchnormalization"][leaf], v, rtol=0,
+                atol=TOL, err_msg=leaf)
+    assert not np.allclose(wstate["1_batchnormalization"]["moving_mean"],
+                           state["1_batchnormalization"]["moving_mean"])
 
 
 def test_bf16_flat_with_f32_masters_matches_jax(pool):

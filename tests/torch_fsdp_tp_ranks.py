@@ -233,3 +233,34 @@ def _mlp_data(seed=5):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(64, 8)).astype(np.float32),
             rng.normal(size=(64, 4)).astype(np.float32))
+
+
+def _port_bn_mlp():
+    from analytics_zoo_tpu_torch.nn import layers as TL
+    from analytics_zoo_tpu_torch.nn.topology import Sequential
+
+    return Sequential([TL.Dense(16, use_bias=False, input_shape=(8,)),
+                       TL.BatchNormalization(), TL.Activation("relu"),
+                       TL.Dense(4)], device="cpu")
+
+
+def _fit_bn(params, state, axes):
+    """Rank side: a Dense + BatchNormalization MLP under ``axes`` with the
+    JAX rules, one epoch: losses, the gathered params and the moving
+    statistics (the global batch's, over dp and fsdp together)."""
+    from analytics_zoo_tpu_torch.bridge import model_state, state_dict_from_jax
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.nn import optimizers as topt
+    from analytics_zoo_tpu_torch.parallel.sharding import make_param_sharding
+
+    ctx = _ctx(**axes)
+    tm = _port_bn_mlp()
+    tm.load_state_dict(state_dict_from_jax(params, state))
+    est = Estimator(tm, optimizer=topt.Adam(lr=1e-2), loss="mse",
+                    param_sharding=make_param_sharding(ctx.mesh),
+                    config=TrainConfig(log_every_n_steps=1))
+    est.fit(_mlp_data(), batch_size=16, epochs=1, seed=3)
+    return ([h["loss"] for h in est.history], _whole(est),
+            {n: b.numpy() for n, b in model_state(tm).items()})
+
