@@ -4,7 +4,8 @@
 A copy of the JAX package's module, which needs no JAX: a TFRecord writer
 with hand-rolled protobuf encoding of ``tensorflow.Event`` scalar
 messages (masked CRC32-C framing), its reader, and the
-``TrainSummary``/``ValidationSummary`` pair the Estimator feeds. For the
+``TrainSummary``/``ValidationSummary`` pair the Estimator feeds, and the
+``timing`` block (its stderr line is the JAX one). For the
 same ``(step, wall_time, scalars)`` both packages write the same bytes.
 Every scalar written is mirrored on the port's registry
 (``common/telemetry.py``): the ``zoo_summary_scalar{app,kind,tag}`` gauge
@@ -16,6 +17,7 @@ from __future__ import annotations
 import json
 import os
 import struct
+import sys
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -132,6 +134,9 @@ class EventWriter:
     def add_scalars(self, step: int, scalars: Dict[str, float],
                     wall_time: Optional[float] = None) -> None:
         self._write_record(_event_scalar(step, wall_time or time.time(), scalars))
+
+    def add_scalar(self, step: int, tag: str, value: float) -> None:
+        self.add_scalars(step, {tag: value})
 
     def flush(self) -> None:
         self._f.flush()
@@ -277,5 +282,28 @@ class ValidationSummary(Summary):
         super().__init__(log_dir, app_name, "validation")
 
 
+class timing:
+    """``with timing("phase"):`` wall-time logger: on exit, ``elapsed``
+    holds the block's seconds and one ``[timing] <name>: <ms> ms`` line
+    goes to ``logger.info``, or to stderr without a logger."""
+
+    def __init__(self, name: str, logger=None):
+        self.name = name
+        self.logger = logger
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self.t0
+        msg = f"[timing] {self.name}: {self.elapsed*1000:.2f} ms"
+        if self.logger:
+            self.logger.info(msg)
+        else:
+            print(msg, file=sys.stderr)
+        return False
+
+
 __all__ = ["EventWriter", "Summary", "TrainSummary", "ValidationSummary",
-           "crc32c", "read_scalars"]
+           "crc32c", "read_scalars", "timing"]

@@ -432,6 +432,11 @@ class CheckpointWriter:
         self._thread.start()
         return os.path.join(directory, f"checkpoint_{meta['iteration']}")
 
+    def in_flight(self) -> bool:
+        """Whether a submitted write is still running."""
+        t = self._thread
+        return t is not None and t.is_alive()
+
     def drain(self) -> Optional[str]:
         """Block until pending work is durable; re-raise a failed write."""
         t = self._thread

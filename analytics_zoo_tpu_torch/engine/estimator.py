@@ -71,6 +71,15 @@ so each package resumes the other's checkpoints):
   cannot absorb: one final durable save, then ``SystemExit(143)``; the
   previous handler is restored on every exit.
 
+Outside ``fit``: :meth:`Estimator.save` writes the train state as a
+checkpoint and returns with it durable (an async write in flight drained
+first), :meth:`Estimator.load` restores one (either package's);
+:meth:`Estimator.set_model_publisher` announces every durable save
+``fit`` makes on the serving fleet's publish stream
+(``serving/hotswap.py::ModelPublisher``); and
+:meth:`Estimator.recalibrate_batchnorm` re-estimates BatchNormalization's
+moving statistics under the current weights.
+
 ``fit(validation_data=..., validation_metrics=...)`` evaluates after each
 epoch, and :meth:`set_tensorboard` writes the JAX package's TensorBoard
 scalars (``Loss``, ``Throughput``, ``GradNorm``, ``DataWaitMs``,
@@ -983,11 +992,45 @@ class Estimator:
             writer = self._ckpt_writer
         else:
             self._drain_checkpoints(raise_errors=raise_drain_errors)
+        pub = getattr(self, "_model_publisher", None)
         return ckpt.save_checkpoint(directory, state or
                                     self.checkpoint_state(),
                                     iteration=self.trainer_state.iteration,
                                     epoch=self.trainer_state.epoch,
-                                    writer=writer)
+                                    writer=writer,
+                                    on_durable=(pub.on_durable if pub
+                                                is not None else None))
+
+    def set_model_publisher(self, publisher) -> "Estimator":
+        """Attach a :class:`~..serving.hotswap.ModelPublisher`: every durable
+        checkpoint this estimator's ``fit`` saves (on the async writer's
+        thread and the synchronous epoch-end and SIGTERM saves) is
+        announced on the serving fleet's publish stream."""
+        self._model_publisher = publisher
+        return self
+
+    def save(self, directory: str) -> str:
+        """Write the train state as a checkpoint under ``directory``,
+        synchronously: an async write in flight is drained first, and the
+        file is durable on return. Returns its path."""
+        self._drain_checkpoints()
+        if self.train_state is None:
+            self._init_state()
+        return ckpt.save_checkpoint(directory, self.checkpoint_state(),
+                                    iteration=self.trainer_state.iteration,
+                                    epoch=self.trainer_state.epoch)
+
+    def load(self, directory: str, sample_batch=None) -> "Estimator":
+        """Restore the newest checkpoint under ``directory`` (or the
+        checkpoint ``directory`` names): weights, optimizer state, step,
+        iteration and epoch. ``sample_batch`` is accepted for the JAX
+        signature; the port builds its state from the model's weights and
+        needs none."""
+        self._drain_checkpoints()
+        if self.train_state is None:
+            self._init_state()
+        self._restore(ckpt.latest_checkpoint(directory) or directory)
+        return self
 
     def _drain_checkpoints(self, raise_errors: bool = True) -> None:
         """Block until the async write in flight is durable; with
@@ -1383,13 +1426,89 @@ class Estimator:
                                      drop_remainder=False) as batches:
             for xb in batches:
                 y = self.model.apply(xb[0] if len(xb) == 1 else list(xb))
-                outs.append((y.float() if y.dtype == torch.bfloat16 else y)
-                            .cpu().numpy())
+                outs.append(_tree_map(_host, y))
+        if isinstance(outs[0], (tuple, list)):
+            # a model with several outputs: each one concatenated over the
+            # batches, as the JAX predict returns them
+            return [np.concatenate([o[i] for o in outs], axis=0)
+                    for i in range(len(outs[0]))]
         return np.concatenate(outs, axis=0)
 
     @property
     def params(self) -> Optional[Dict[str, torch.Tensor]]:
         return {n: p.detach() for n, p in self._params().items()}
+
+    # ----------------------------------------------- batchnorm recalibration
+    def recalibrate_batchnorm(self, x, batch_size: int = 32, passes: int = 2,
+                              momentum: float = 0.5) -> "Estimator":
+        """Re-estimate BatchNormalization's moving statistics under the
+        current weights: ``passes`` forward passes over ``x`` in training
+        mode with each BN layer's momentum set to ``momentum``, the
+        dropout family silenced (rate or sigma 0), under the key
+        ``PRNGKey(0)``; only the buffers change. ``x``: an array, a tuple
+        or list whose leading entries are the model's inputs (a fit-style
+        ``(x, y)`` pair), or a FeatureSet. A dict-tree batch raises
+        ``ValueError`` for a graph model, whose positional inputs it cannot
+        name. Momentum, rates and the model's mode are restored after."""
+        from ..nn.layers.advanced_activations import _SpatialDropout
+        from ..nn.layers.core import Dropout, GaussianDropout, GaussianNoise
+        from ..nn.layers.normalization import BatchNormalization
+
+        mods = list(self.model.modules())
+        bns = [m for m in mods if isinstance(m, BatchNormalization)]
+        if not bns:
+            return self
+        # exact classes, not hasattr(m, "rate"): the atrous convolutions
+        # keep their dilation in .rate
+        noisy = []
+        for m in mods:
+            if isinstance(m, (Dropout, GaussianDropout, _SpatialDropout)):
+                noisy.append((m, "rate"))
+            elif isinstance(m, GaussianNoise):
+                noisy.append((m, "sigma"))
+        saved = ([(m, "momentum", m.momentum) for m in bns]
+                 + [(m, attr, getattr(m, attr)) for m, attr in noisy])
+        was_training = self.model.training
+        for m in bns:
+            m.momentum = float(momentum)
+        for m, attr in noisy:
+            setattr(m, attr, 0.0)
+        fs = x if isinstance(x, FeatureSet) else FeatureSet(
+            tuple(x) if isinstance(x, (tuple, list)) else (x,))
+        n_in = len(getattr(self.model, "input_nodes", ()) or ()) or 1
+        key = prng.PRNGKey(0)
+        try:
+            self.model.train()
+            with torch.no_grad(), self._policy(), self._gathering():
+                for _ in range(max(1, passes)):
+                    with self._device_batches(fs, batch_size, shuffle=False,
+                                              drop_remainder=False) as bs:
+                        for hb in bs:
+                            if isinstance(hb, dict):
+                                if getattr(self.model, "input_nodes", None):
+                                    raise ValueError(
+                                        "recalibrate_batchnorm got a dict-tree"
+                                        " batch but the model takes "
+                                        "positional graph inputs; pass x as "
+                                        "an array/tuple FeatureSet instead")
+                                xb = hb
+                            else:
+                                hb = hb[:n_in]
+                                xb = hb[0] if len(hb) == 1 else list(hb)
+                            if self._takes_rng:
+                                self.model.apply(xb, rng=key)
+                            else:
+                                self.model.apply(xb)
+        finally:
+            for m, attr, v in saved:
+                setattr(m, attr, v)
+            self.model.train(was_training)
+        return self
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """An output on the host, bf16 as f32."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def _batch_signature(batch) -> tuple:

@@ -30,7 +30,8 @@ MODEL_REGISTRY: Dict[str, Callable] = {}
 
 #: the packages whose models register themselves, imported when a bundle
 #: names a class not registered yet
-_BUILTIN_MODELS = ("..recommendation", "..textclassification")
+_BUILTIN_MODELS = ("..anomalydetection", "..recommendation", "..text",
+                   "..textclassification", "..textmatching", "..transformer")
 
 
 def registered_model(name: str) -> Optional[Callable]:

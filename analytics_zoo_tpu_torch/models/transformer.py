@@ -76,6 +76,7 @@ from ..nn.topology import KerasNet
 from ..ops.kv_cache import (KVCacheConfig, _host_list, init_cache,
                             prefill_write, sample_tokens)
 from ..ops.speculative import verify_draft_tokens
+from .common.zoo_model import register_model
 
 _REMAT_MODES = (False, "flash", "full", "dots")
 
@@ -101,6 +102,7 @@ def _checkpointed(fn, *args, save_dots: bool = False):
                       preserve_rng_state=False, **kw)
 
 
+@register_model("TransformerLM")
 class TransformerLM(KerasNet, nn.Module):
     """Decoder-only LM. ``device``: where the weights live — CUDA unless
     the caller names another device; raises when CUDA is absent and no
@@ -208,6 +210,15 @@ class TransformerLM(KerasNet, nn.Module):
             logits = comm.gather_along(logits, "tp", logits.dim() - 1,
                                        mesh=self.tp_mesh)
         return logits
+
+    def constructor_config(self):
+        """The JAX model's config keys: what a weight bundle stores to
+        rebuild it (``models/common/zoo_model.py``)."""
+        return dict(vocab=self.vocab, hidden_size=self.hidden_size,
+                    n_block=self.n_block, n_head=self.blocks[0].attn.n_head,
+                    seq_len=self.seq_len,
+                    intermediate_size=self.intermediate_size,
+                    attn_strategy=self.attn_strategy, remat=self.remat)
 
     def sharded_loss(self, loss_fn):
         """The Estimator's loss in tp mode with :func:`lm_loss`: ``(x, y)
@@ -388,6 +399,7 @@ def _pp_mesh():
     return (mesh, pp) if pp > 1 else (None, 1)
 
 
+@register_model("PipelinedTransformerLM")
 class PipelinedTransformerLM(KerasNet, nn.Module):
     """TransformerLM whose blocks run as a GPipe pipeline over ``pp``.
 

@@ -1,13 +1,12 @@
 """Keras-style layers of the port (``analytics_zoo_tpu.nn.layers``): every
-name of the JAX package's ``__all__`` but the graph-layer forms of
-``BERT``, ``MultiHeadAttention``, ``PositionalEmbedding`` and
-``TransformerLayer`` (ROADMAP Queue 1, [11] item 7.3; the transformer
-blocks of ``TransformerLM`` are in ``attention.py``)."""
+name of the JAX package's ``__all__``."""
 
 from .advanced_activations import (ELU, LeakyReLU, PReLU, RReLU, SReLU,
                                    Softmax, SpatialDropout1D,
                                    SpatialDropout2D, SpatialDropout3D,
                                    ThresholdedReLU)
+from .attention import (BERT, MultiHeadAttention, PositionalEmbedding,
+                        TransformerLayer)
 from .conv_extended import (AtrousConvolution1D, AtrousConvolution2D,
                             AveragePooling3D, Convolution3D, Cropping1D,
                             Cropping2D, Cropping3D, Deconvolution2D,
@@ -52,7 +51,7 @@ LayerNorm = LayerNormalization
 __all__ = [
     "Input", "LayerNorm",
     "Activation", "AddConstant", "AtrousConvolution1D", "AtrousConvolution2D",
-    "AveragePooling1D", "AveragePooling2D", "AveragePooling3D",
+    "AveragePooling1D", "AveragePooling2D", "AveragePooling3D", "BERT",
     "BatchNormalization", "Bidirectional", "BinaryThreshold", "CAdd", "CMul",
     "CRF", "Conv1D", "Conv2D", "Conv3D", "ConvLSTM2D", "ConvLSTM3D",
     "Convolution1D", "Convolution2D", "Convolution3D", "Cropping1D",
@@ -66,14 +65,14 @@ __all__ = [
     "Highway", "Identity", "InputLayer", "KerasLayerWrapper", "LRN2D", "LSTM",
     "Lambda", "LayerNormalization", "LeakyReLU", "LocallyConnected1D",
     "LocallyConnected2D", "Log", "Masking", "MM", "Max", "MaxPooling1D",
-    "MaxPooling2D", "MaxPooling3D", "MaxoutDense", "Merge", "MoE", "Mul",
-    "MulConstant", "Narrow", "Negative", "PReLU", "Permute", "Power", "RReLU",
+    "MaxPooling2D", "MaxPooling3D", "MaxoutDense", "Merge", "MoE", "Mul", "MultiHeadAttention",
+    "MulConstant", "Narrow", "Negative", "PReLU", "Permute", "PositionalEmbedding", "Power", "RReLU",
     "RepeatVector", "Reshape", "ResizeBilinear", "SReLU", "Scale", "Select",
     "SelectTable", "SeparableConvolution2D", "ShareConv2D",
     "ShareConvolution2D", "SimpleRNN", "Softmax", "SoftShrink", "SparseDense",
     "SparseEmbedding", "SpatialDropout1D", "SpatialDropout2D",
     "SpatialDropout3D", "SplitTensor", "Sqrt", "Square", "Squeeze",
-    "Threshold", "ThresholdedReLU", "TimeDistributed", "UpSampling1D",
+    "Threshold", "ThresholdedReLU", "TimeDistributed", "TransformerLayer", "UpSampling1D",
     "UpSampling2D", "UpSampling3D", "WithinChannelLRN2D", "WordEmbedding",
     "ZeroPadding1D", "ZeroPadding2D", "ZeroPadding3D", "load_glove_table",
     "merge",

@@ -38,7 +38,13 @@ row-parallel (their output through ``comm.reduce_from``, the bias added
 after the reduction). Under ``sp`` the attention strategy sees the local
 heads (Ulysses needs them to divide by ``sp``).
 
-Not ported yet: ``PositionalEmbedding`` and ``BERT``.
+``PositionalEmbedding``, ``MultiHeadAttention``, ``TransformerLayer`` and
+``BERT`` are graph layers (``build(input_shape, gen)``,
+``compute_output_shape``, a ``name``): a ``Sequential`` or a ``Model``
+holds them under their slot keys, with the JAX tree's parameter names
+below the slot. ``BERT`` has two outputs, ``(sequence, pooled)``: its
+graph node's value is the pair and its shape the pair of shapes, as in
+the JAX graph.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...common import prng
@@ -57,14 +64,24 @@ from ...ops.flash_attention import flash_attention
 from ...ops.kv_cache import paged_write_multi
 from ...ops.paged_attention import paged_attention
 from ..activations import get_activation
-from ..module import as_compute, glorot_uniform, zeros_init
+from ..module import (Layer, as_compute, embedding_normal, glorot_uniform,
+                      split_rng, zeros_init)
 from .core import dropout as _dropout
 from .normalization import LayerNormalization
 
 
 
-def _param(t: torch.Tensor, device) -> nn.Parameter:
-    return nn.Parameter(t.to(device))
+def _build_now(layer: Layer, generator, device) -> None:
+    """Draw a layer's weights at construction (the standalone form,
+    :class:`MultiHeadAttention`): for an input of width ``hidden_size``
+    (``input_shape``'s last dim when given), moved to ``device``. Given a
+    generator or a device the layer is built; else it stays unbuilt and a
+    container that takes it builds it anew."""
+    shape = layer.input_shape_hint or (layer.hidden_size,)
+    layer.build(shape, generator if generator is not None
+                else torch.Generator())
+    layer.to(device)
+    layer.built = generator is not None or device is not None
 
 
 def _tp_size(module) -> int:
@@ -97,17 +114,45 @@ def _context_mesh():
         return None
 
 
-class MultiHeadAttention(nn.Module):
-    """Self-attention with fused QKV projection and strategy dispatch."""
+class PositionalEmbedding(Layer):
+    """Learned position embeddings added to the input: ``x +
+    pos_embeddings[:T]`` (a (max_len, dim) table, normal·0.02)."""
+
+    def __init__(self, max_len: int, dim: int, name=None, input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.max_len = int(max_len)
+        self.dim = int(dim)
+
+    def build(self, input_shape, gen: torch.Generator) -> None:
+        self.pos_embeddings = nn.Parameter(
+            embedding_normal(gen, (self.max_len, self.dim)))
+        self.built = True
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.pos_embeddings[:x.shape[1]].to(x.dtype)
+
+
+class MultiHeadAttention(Layer):
+    """Self-attention with fused QKV projection and strategy dispatch.
+
+    A graph layer (``build(input_shape, gen)``: ``qkv_kernel`` is (d,
+    3·hidden) for an input of width d) that also stands alone: made
+    outside a container it draws its weights at once for an input of
+    width ``hidden_size`` (``input_shape``'s last dim when given), from
+    ``generator`` on ``device``. Without either it draws from a fresh
+    CPU generator and stays unbuilt, so a Sequential or a Model that
+    takes it draws it anew from its own generator for its input shape;
+    ``lazy=True`` draws nothing until ``build``."""
 
     #: the mesh whose ``tp`` axis this layer computes over (module
     #: docstring); None: the whole layer on every rank
     tp_mesh = None
 
     def __init__(self, hidden_size: int, n_head: int, causal: bool = False,
-                 attn_strategy: str = "auto", *,
-                 generator: Optional[torch.Generator] = None, device=None):
-        super().__init__()
+                 attn_strategy: str = "auto", name=None, input_shape=None, *,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 lazy: bool = False):
+        super().__init__(name=name, input_shape=input_shape)
         if hidden_size % n_head:
             raise ValueError(f"hidden_size {hidden_size} must divide into "
                              f"{n_head} heads")
@@ -119,13 +164,19 @@ class MultiHeadAttention(nn.Module):
         self.head_dim = hidden_size // n_head
         self.causal = causal
         self.attn_strategy = attn_strategy
-        g = generator if generator is not None else torch.Generator()
-        self.qkv_kernel = _param(
-            glorot_uniform(g, (hidden_size, 3 * hidden_size)), device)
-        self.qkv_bias = _param(zeros_init((3 * hidden_size,)), device)
-        self.out_kernel = _param(glorot_uniform(g, (hidden_size, hidden_size)),
-                                 device)
-        self.out_bias = _param(zeros_init((hidden_size,)), device)
+        if not lazy:
+            _build_now(self, generator, device)
+
+    def build(self, input_shape, gen: torch.Generator) -> None:
+        d, h = input_shape[-1], self.hidden_size
+        self.qkv_kernel = nn.Parameter(glorot_uniform(gen, (d, 3 * h)))
+        self.qkv_bias = nn.Parameter(zeros_init((3 * h,)))
+        self.out_kernel = nn.Parameter(glorot_uniform(gen, (h, h)))
+        self.out_bias = nn.Parameter(zeros_init((h,)))
+        self.built = True
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape[:-1]) + (self.hidden_size,)
 
     def tp_compute_dims(self, tp: int):
         """The dims this layer splits over tp: QKV column-parallel in
@@ -178,9 +229,6 @@ class MultiHeadAttention(nn.Module):
             return prefer_flash_single_device(t, device)
         return False
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.apply(x)
-
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         x = as_compute(x)
         q, k, v = self.qkv_proj(x)
@@ -195,34 +243,50 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(o, x.dtype), k, v
 
 
-class TransformerLayer(nn.Module):
-    """One pre-LN transformer block: MHA + MLP with residuals."""
+class TransformerLayer(Layer):
+    """One pre-LN transformer block: MHA + MLP with residuals. Made and
+    built as :class:`MultiHeadAttention` is (``generator``, ``device``,
+    ``lazy``); its draws are the attention's, then ``mlp_up_kernel`` and
+    ``mlp_down_kernel``."""
 
     #: as :attr:`MultiHeadAttention.tp_mesh`, for the MLP
     tp_mesh = None
+    takes_rng = True
 
     def __init__(self, hidden_size: int, n_head: int,
                  intermediate_size: Optional[int] = None,
                  causal: bool = False, activation="gelu",
-                 dropout: float = 0.0, attn_strategy: str = "auto", *,
-                 generator: Optional[torch.Generator] = None, device=None):
-        super().__init__()
+                 dropout: float = 0.0, attn_strategy: str = "auto",
+                 name=None, input_shape=None, *,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 lazy: bool = False):
+        super().__init__(name=name, input_shape=input_shape)
         self.dropout = float(dropout)
         self.hidden_size = hidden_size
         self.intermediate = intermediate_size or 4 * hidden_size
         self.activation = get_activation(activation)
-        g = generator if generator is not None else torch.Generator()
         self.attn = MultiHeadAttention(hidden_size, n_head, causal=causal,
                                        attn_strategy=attn_strategy,
-                                       generator=g, device=device)
-        self.ln1 = LayerNormalization(dim=hidden_size, device=device)
-        self.ln2 = LayerNormalization(dim=hidden_size, device=device)
-        self.mlp_up_kernel = _param(
-            glorot_uniform(g, (hidden_size, self.intermediate)), device)
-        self.mlp_up_bias = _param(zeros_init((self.intermediate,)), device)
-        self.mlp_down_kernel = _param(
-            glorot_uniform(g, (self.intermediate, hidden_size)), device)
-        self.mlp_down_bias = _param(zeros_init((hidden_size,)), device)
+                                       name=f"{self.name}_attn", lazy=True)
+        self.ln1 = LayerNormalization(name=f"{self.name}_ln1")
+        self.ln2 = LayerNormalization(name=f"{self.name}_ln2")
+        if not lazy:
+            _build_now(self, generator, device)
+
+    def build(self, input_shape, gen: torch.Generator) -> None:
+        d = input_shape[-1]
+        for sub in (self.attn, self.ln1, self.ln2):
+            sub.build(input_shape, gen)
+        self.mlp_up_kernel = nn.Parameter(
+            glorot_uniform(gen, (d, self.intermediate)))
+        self.mlp_up_bias = nn.Parameter(zeros_init((self.intermediate,)))
+        self.mlp_down_kernel = nn.Parameter(
+            glorot_uniform(gen, (self.intermediate, self.hidden_size)))
+        self.mlp_down_bias = nn.Parameter(zeros_init((self.hidden_size,)))
+        self.built = True
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape[:-1]) + (self.hidden_size,)
 
     def tp_compute_dims(self, tp: int):
         """The MLP's dims over tp: up column-parallel, down row-parallel."""
@@ -237,9 +301,6 @@ class TransformerLayer(nn.Module):
         h = (_tp_reduce(self, h @ self.mlp_down_kernel.to(x.dtype))
              + self.mlp_down_bias.to(x.dtype))
         return x + h
-
-    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
-        return self.apply(x, rng=rng)
 
     def apply(self, x: torch.Tensor, rng=None) -> torch.Tensor:
         """The block; in training mode with a ``dropout`` rate and a key,
@@ -314,4 +375,77 @@ class TransformerLayer(nn.Module):
         return self._mlp(x), k_pages, v_pages
 
 
-__all__ = ["MultiHeadAttention", "TransformerLayer"]
+class BERT(Layer):
+    """BERT encoder: token + position + segment embeddings, ``n_block``
+    blocks without a causal mask (and no padding mask, as in the JAX
+    layer), a final LayerNorm and the pooler. Input ``ids`` (B, T) or
+    ``[ids, segment_ids]``; output ``(sequence (B, T, hidden), pooled (B,
+    hidden))`` with ``pooled = tanh(h[:, 0] @ pooler_kernel +
+    pooler_bias)``. Parameters keep the JAX tree: ``token_embeddings``,
+    ``pos_embeddings``, ``segment_embeddings``, ``block{i}``, ``ln_f``,
+    ``pooler_kernel``, ``pooler_bias``; ``build`` draws them in that
+    order. Attention dispatches as :class:`MultiHeadAttention` does: K1
+    on CUDA (K3/K4 in its backward), plain attention on the CPU."""
+
+    takes_rng = True
+
+    def __init__(self, vocab: int, hidden_size: int = 768, n_block: int = 12,
+                 n_head: int = 12, seq_len: int = 512,
+                 intermediate_size: int = 3072, attn_strategy: str = "auto",
+                 name=None, input_shape=None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.vocab = vocab
+        self.hidden_size = hidden_size
+        self.n_block = n_block
+        self.seq_len = seq_len
+        self.blocks = []
+        for i in range(n_block):
+            blk = TransformerLayer(hidden_size, n_head, intermediate_size,
+                                   causal=False, attn_strategy=attn_strategy,
+                                   name=f"{self.name}_block{i}", lazy=True)
+            self.add_module(f"block{i}", blk)
+            self.blocks.append(blk)
+        self.ln_f = LayerNormalization(name=f"{self.name}_lnf")
+
+    def build(self, input_shape, gen: torch.Generator) -> None:
+        h = self.hidden_size
+        self.token_embeddings = nn.Parameter(
+            embedding_normal(gen, (self.vocab, h)))
+        self.pos_embeddings = nn.Parameter(
+            embedding_normal(gen, (self.seq_len, h)))
+        self.segment_embeddings = nn.Parameter(embedding_normal(gen, (2, h)))
+        for blk in self.blocks:
+            blk.build((h,), gen)
+        self.ln_f.build((h,), gen)
+        self.pooler_kernel = nn.Parameter(glorot_uniform(gen, (h, h)))
+        self.pooler_bias = nn.Parameter(zeros_init((h,)))
+        self.built = True
+
+    def apply(self, x, rng=None):
+        ids, segs = x if isinstance(x, (list, tuple)) else (x, None)
+        dev = self.token_embeddings.device
+        ids = torch.as_tensor(ids, device=dev).long()
+        h = F.embedding(ids, self.token_embeddings)
+        h = h + self.pos_embeddings[:ids.shape[1]][None]
+        if segs is not None:
+            h = h + F.embedding(torch.as_tensor(segs, device=dev).long(),
+                                self.segment_embeddings)
+        h = as_compute(h)
+        for blk, key in zip(self.blocks, split_rng(rng, self.n_block)):
+            h = blk.apply(h, rng=key)
+        h = self.ln_f(h)
+        pooled = torch.tanh(h[:, 0] @ self.pooler_kernel.to(h.dtype)
+                            + self.pooler_bias.to(h.dtype))
+        return h, pooled
+
+    def compute_output_shape(self, input_shape):
+        """``[(T, hidden), (hidden,)]``; T is the first input's length
+        (``seq_len`` without a shape)."""
+        if input_shape and isinstance(input_shape[0], (tuple, list)):
+            input_shape = input_shape[0]
+        t = input_shape[0] if input_shape else self.seq_len
+        return [(t, self.hidden_size), (self.hidden_size,)]
+
+
+__all__ = ["BERT", "MultiHeadAttention", "PositionalEmbedding",
+           "TransformerLayer"]

@@ -3,7 +3,8 @@
 
 :class:`KerasNet` is the mixin that gives a module ``compile`` / ``fit`` /
 ``evaluate`` / ``predict`` over the port's
-:class:`~..engine.estimator.Estimator`, and weight bundles in the JAX
+:class:`~..engine.estimator.Estimator`, donated weights
+(``set_initial_weights``), and weight bundles in the JAX
 package's format (``save_model`` / ``load_weights``,
 ``models/common/zoo_model.py``), with the JAX package's sugar for
 checkpoints (``set_checkpoint``), TensorBoard summaries
@@ -22,6 +23,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..common.config import TrainConfig
 from ..common.triggers import Trigger
@@ -51,6 +53,34 @@ class KerasNet:
     def _require_compiled(self):
         if getattr(self, "estimator", None) is None:
             raise RuntimeError("call compile(...) first")
+
+    def set_initial_weights(self, params, state=None,
+                            partial: bool = False) -> "KerasNet":
+        """Donate weights (the transfer-learning surface): ``params`` and
+        ``state`` are the JAX package's trees (nested dicts of arrays keyed
+        as this model's parameters and buffers are named, e.g. from
+        ``bridge.params_to_numpy``). The port's weights live in the module,
+        so they are loaded at once, and the optimizer restarts from them.
+        ``partial=True`` overlays them: parameters absent from the trees
+        keep their current values (the freeze-then-new-head path); without
+        it every parameter and buffer must be given. A key the model does
+        not have raises ``ValueError`` either way."""
+        from .. import bridge
+
+        self._require_compiled()
+        given = bridge.state_dict_from_jax(params, state or {})
+        own = self.state_dict()
+        extra = sorted(set(given) - set(own))
+        missing = sorted(set(own) - set(given))
+        if extra or (missing and not partial):
+            raise ValueError(f"initial weights: {len(missing)} missing (e.g. "
+                             f"{missing[:5]}), {len(extra)} unexpected (e.g. "
+                             f"{extra[:5]})")
+        with torch.no_grad():
+            for name, value in given.items():
+                own[name].copy_(value)
+        self.estimator.reset_optimizer()
+        return self
 
     def set_gradient_clipping_by_l2_norm(self, clip_norm: float):
         self._require_compiled()

@@ -454,6 +454,27 @@ Phases, each fatal on failure (no result line is printed then):
    ConvLSTM2D, an L2-regularized Dense and a CRF, trained 2 SGD steps on
    the CRF's NLL, card vs CPU: losses within 1e-4 relative, every
    parameter within 1e-4 of its leaf's largest. Prints the wall by part.
+22. BERT and the text models (``[text]`` lines). (a) K1, K3 and K4 at
+   BERT-base's attention (B=8, T=512, H=12, D=64, no causal mask) against
+   their plain versions (f32 1e-4, bf16 2e-2) and timed in bf16 beside
+   their plain versions, bounds and SDPA (Timer and device-only); then
+   ``BERTClassifier`` at BERT-base (vocab 30522, 12 x 768, 12 heads, 512
+   positions, MLP 3072, 2 classes; Devlin et al., arXiv:1810.04805), seed
+   0: an f32 forward of 2 seeded sequences with segments within 1e-4 of
+   the CPU's on the same weights, then ``fit`` of 32 sequences in 4 steps
+   of 8 x 512 (bf16, f32 masters, Adam at the paper's 2e-5) and a
+   ``predict`` of 8, with K1 =
+   12 a forward and K3 = K4 = 12 a backward (counts set to 0 just
+   before), step ms, tokens/s and peak memory, then one more step traced
+   (device time by kernel, busy share). (b) ``BERTNER`` (9 tags)
+   and ``BERTSQuAD`` at width 768 with 2 blocks: a ``predict`` of 8 x 512
+   in f32 within 1e-4 of the CPU's. (c) NER ("reg" and "pad"),
+   SequenceTagger (softmax with chars, CRF on words), IntentEntity, KNRM
+   and AnomalyDetector at the JAX tests' sizes: 2 f32 Adam steps on the
+   card with the CPU's losses (1e-4), and a ``save_model``/``load_model``
+   round trip that predicts the same. (d) a TransformerLM bundle the port
+   saved serves its logits through ``InferenceModel.load_zoo`` on the
+   card. Prints the wall by part.
 
 Phase 3 also holds the int8 kernels to their plain versions bit for bit
 (``torch.equal``), f32 and bf16: the quantize pass both launch (codes and
@@ -490,7 +511,9 @@ every kernel's on phase 20 (20a's checked serve, 20b's warm-up, 20c's
 fit) as ``launches_by_path["analysis"]``; K5's and K6's on phase 21b's
 int8 MobileNet predict as ``launches_by_path["mobilenet_predict"]``, with
 each launch's shape, device ms and bound as ``mobilenet_head`` and
-``mobilenet_shapes``).
+``mobilenet_shapes``; K1's, K3's and K4's on phase 22a's BERT-base fit and
+predict as ``launches_by_path["bert"]``, with their checks and times at
+BERT's shape as ``bert_shape``).
 The last three lines of standard output are the card's name and power
 limit, the per-kernel JSON, and ``{"ok": true, "device": {...}}``.
 """
@@ -8286,6 +8309,447 @@ def phase_layers(torch, smi):
             "sequential_gaps": seq, "walls": walls}
 
 
+# BERT-base (Devlin et al., arXiv:1810.04805; the JAX ``BERT`` defaults and
+# BERT.scala's): 12 blocks of 768, 12 heads, 512 positions, 3072 MLP
+BERT_CFG = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
+                seq_len=512, intermediate_size=3072)
+BERT_CLASSES, BERT_BATCH, BERT_SEQS, BERT_PARITY_SEQS = 2, 8, 32, 2
+BERT_HEAD_BLOCKS, BERT_NER_TAGS = 2, 9
+#: the paper's fine-tuning rate (its grid: 5e-5, 4e-5, 3e-5, 2e-5)
+BERT_LR = 2e-5
+#: 22c's small text models: (sequences, batch), as the JAX tests size them
+TEXT_SMALL = (32, 16)
+
+
+def _bert_inputs(n: int, seed: int):
+    """Seeded ids and segment ids (n, seq_len): segment 1 from a per-row
+    split point on, as a sentence pair."""
+    rng = np.random.default_rng(seed)
+    t = BERT_CFG["seq_len"]
+    ids = rng.integers(0, BERT_CFG["vocab"], (n, t)).astype(np.int32)
+    cut = rng.integers(t // 4, 3 * t // 4, n)
+    segs = (np.arange(t)[None] >= cut[:, None]).astype(np.int32)
+    return ids, segs
+
+
+def phase22_bert_kernels(torch, smi):
+    """22a's kernel part: K1, K3 and K4 at BERT-base's attention (B=
+    BERT_BATCH, T=512, H=12, D=64, no causal mask; q/k/v strided out of
+    one fused QKV tensor) against their plain versions, f32 (1e-4) and
+    bf16 (2e-2; K3/K4 relative to max(1, max|plain|)), then timed in bf16:
+    the Timer and device-only, beside the plain version, the bound from
+    this shape and SDPA's forward (K1) or backward (K3/K4), Timer and
+    device-only. Returns one entry a kernel."""
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
+        flash_attention_fwd, flash_attention_plain)
+
+    b, t, h = BERT_BATCH, BERT_CFG["seq_len"], BERT_CFG["n_head"]
+    d = BERT_CFG["hidden_size"] // h
+    label = f"B={b} T={t} H={h} D={d}"
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    errs = {}
+    for dt in ("float32", "bfloat16"):
+        case = _bwd_case(torch, gen, b, t, d, getattr(torch, dt), False, h=h)
+        q, k, v = case[:3]
+        out, lse = flash_attention_fwd(q, k, v, False)
+        ref, ref_lse = flash_attention_plain(q, k, v, False)
+        torch.cuda.synchronize()
+        e1 = max(maxerr(out, ref), maxerr(lse, ref_lse))
+        del out, lse, ref, ref_lse
+        log(f"[text] 22a K1 {label} {dt} no causal mask: max|d out, lse| "
+            f"{e1:.3g} (tol {TOL[dt]}) {'ok' if e1 <= TOL[dt] else 'FAIL'}")
+        if e1 > TOL[dt]:
+            raise AssertionError(f"K1 disagrees with its plain version at "
+                                 f"BERT's shape {label} {dt}")
+        e3, e4 = _check_bwd_case(torch, case, False, dt,
+                                 f"BERT {label} (no causal mask)")
+        errs[dt] = (e1, e3, e4)
+        del case
+    timer = Timer(torch)
+    dtimer = DeviceTimer(torch, timer.flush)
+    case = _bwd_case(torch, gen, b, t, d, torch.bfloat16, False, h=h)
+    q, k, v, g = case[:4]
+    k1 = lambda: flash_attention_fwd(q, k, v, False)       # noqa: E731
+    k3 = lambda: flash_attention_bwd_dq(*case, False)      # noqa: E731
+    k4 = lambda: flash_attention_bwd_dkv(*case, False)     # noqa: E731
+    times = {"K1": in_turns(timer, dtimer, k1),
+             "K3": in_turns(timer, dtimer, k3, n=20),
+             "K4": in_turns(timer, dtimer, k4, n=20)}
+    plain = {"K1": timer(lambda: flash_attention_plain(q, k, v, False), n=5),
+             "K3": timer(lambda: flash_attention_bwd_dq_plain(*case, False),
+                         n=5),
+             "K4": timer(lambda: flash_attention_bwd_dkv_plain(*case, False),
+                         n=5)}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+    lib_f, lib_fd = timer(sdpa), dtimer(sdpa)
+    o = sdpa()
+    go = g.transpose(1, 2)
+    back = lambda: torch.autograd.grad(                    # noqa: E731
+        o, (qt, kt, vt), go, retain_graph=True)
+    lib_b, lib_bd = timer(back, n=20), dtimer(back)
+    del o
+    elt, pairs = 2, b * h * t * t
+    tens, rows = b * t * h * d * elt, b * h * t * 4
+    bounds = {"K1": bound_ms(4 * tens + rows, 4 * d * pairs, "bfloat16"),
+              "K3": bound_ms(5 * tens + 2 * rows, 6 * d * pairs, "bfloat16"),
+              "K4": bound_ms(6 * tens + 2 * rows, 8 * d * pairs, "bfloat16")}
+    out = {}
+    for i, key in enumerate(("K1", "K3", "K4")):
+        tt, (bms, by) = times[key], bounds[key]
+        lib, lib_d = (lib_f, lib_fd) if key == "K1" else (lib_b, lib_bd)
+        out[key] = {"shape": f"{label} no causal mask", "dtype": "bfloat16",
+                    "ms": tt["ms"], "device_ms": tt["device_ms"],
+                    "plain_ms": plain[key], "bound_ms": bms, "bound_by": by,
+                    "library_ms": lib, "library_device_ms": lib_d,
+                    "max_abs_err_f32": errs["float32"][i],
+                    "max_abs_err_bf16": errs["bfloat16"][i]}
+        log(f"[text] 22a {key} {label} no causal mask bf16: {tt['ms']:.4f} "
+            f"ms, device {tt['device_ms']:.4f} ms (plain {plain[key]:.4f}, "
+            f"bound {bms:.5f} by {by}), SDPA "
+            f"{'forward' if key == 'K1' else 'backward (dQ, dK, dV)'} "
+            f"{lib:.4f} ms, device {lib_d:.4f} ms {smi}")
+    del timer, dtimer, case
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase22_bert_classifier(torch, smi):
+    """22a's model part: BERTClassifier at BERT-base, seed 0. A card f32
+    forward of BERT_PARITY_SEQS sequences against the CPU's on the same
+    weights (sequence output, pooled output and probabilities within
+    1e-4); then ``fit``, 1 epoch of BERT_SEQS sequences in batches of
+    BERT_BATCH (4 steps), bf16 with f32 masters and Adam, and a
+    ``predict`` of BERT_BATCH: K1 = n_block a forward, K3 = K4 = n_block a
+    backward, counted from 0 just before. Returns the path's launches."""
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.models.text import BERTClassifier
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.nn.optimizers import Adam
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    set_policy(compute_dtype="float32")
+    dev, n_block = DEV["cuda"], BERT_CFG["n_block"]
+    ids, segs = _bert_inputs(BERT_SEQS, 0)
+    labels = np.random.default_rng(1).integers(0, BERT_CLASSES,
+                                               BERT_SEQS).astype(np.int32)
+    t0 = time.perf_counter()
+    card = BERTClassifier(BERT_CLASSES, device=dev, seed=0, **BERT_CFG)
+    cpu = BERTClassifier(BERT_CLASSES, device="cpu", seed=0, **BERT_CFG)
+    n = BERT_PARITY_SEQS
+    x = [torch.from_numpy(ids[:n]), torch.from_numpy(segs[:n])]
+    with torch.no_grad():
+        want = [*cpu.bert.apply(x), cpu.apply(x)]
+        xd = [a.to(dev) for a in x]
+        got = [*card.bert.apply(xd), card.apply(xd)]
+    errs = [maxerr(a.cpu(), b) for a, b in zip(got, want)]
+    parity_s = time.perf_counter() - t0
+    ok = max(errs) <= 1e-4
+    log(f"[text] 22a BERTClassifier BERT-base f32 cuda vs cpu, {n} x "
+        f"{BERT_CFG['seq_len']} with segments: max|d| sequence {errs[0]:.3g}"
+        f", pooled {errs[1]:.3g}, probabilities {errs[2]:.3g} (tol 1e-4) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("BERTClassifier on the card disagrees with the "
+                             "cpu")
+    del cpu, want, got
+    card.compile(optimizer=Adam(lr=BERT_LR),
+                 loss="sparse_categorical_crossentropy",
+                 config=TrainConfig(compute_dtype="bfloat16", shuffle=False,
+                                    log_every_n_steps=1))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfa.flash_attention_fwd.launches = 0
+    tfa.flash_attention_bwd_dq.launches = 0
+    tfa.flash_attention_bwd_dkv.launches = 0
+    t0 = time.perf_counter()
+    card.fit([ids, segs], labels, batch_size=BERT_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k1_fit = tfa.flash_attention_fwd.launches
+    probs = card.predict([ids[:BERT_BATCH], segs[:BERT_BATCH]],
+                         batch_size=BERT_BATCH)
+    launches = {"K1": tfa.flash_attention_fwd.launches,
+                "K3": tfa.flash_attention_bwd_dq.launches,
+                "K4": tfa.flash_attention_bwd_dkv.launches}
+    peak = torch.cuda.max_memory_allocated()
+    hist = card.estimator.history
+    losses = [h["loss"] for h in hist]
+    steps_ms = [h["data_ms"] + h["compute_ms"] for h in hist]
+    steps = BERT_SEQS // BERT_BATCH
+    med = statistics.median(steps_ms)
+    res = {"steps": len(hist), "batch": BERT_BATCH,
+           "seq_len": BERT_CFG["seq_len"], "fit_wall_s": fit_s,
+           "step_ms": steps_ms, "step_ms_median": med,
+           "tokens_per_s": BERT_BATCH * BERT_CFG["seq_len"] / (med / 1e3),
+           "max_memory_allocated": peak, "losses": losses,
+           "launches": launches, "k1_fit": k1_fit,
+           "parity_max_abs_d": errs, "parity_wall_s": parity_s}
+    log(f"[text] 22a BERTClassifier BERT-base fit bf16 + f32 masters, Adam: "
+        f"{json.dumps(res)} {smi}")
+    want_l = {"K1": n_block * (steps + 1), "K3": n_block * steps,
+              "K4": n_block * steps}
+    log(f"[text] 22a launches {launches} (need K1 {n_block} a forward: "
+        f"{n_block} x ({steps} steps + 1 predict); K3 = K4 = {n_block} x "
+        f"{steps} steps)")
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"BERT fit losses not finite or missing: "
+                             f"{losses}")
+    if launches != want_l or k1_fit != n_block * steps:
+        raise AssertionError("BERT's fit and predict did not run K1, K3 and "
+                             "K4 once a block and step")
+    if probs.shape != (BERT_BATCH, BERT_CLASSES) or \
+            not np.isfinite(probs).all() or \
+            np.abs(probs.sum(-1) - 1).max() > 1e-5:
+        raise AssertionError(f"BERT predict gave {probs}")
+    res["profile"] = profile_bert_step(torch, card, ids, segs, labels, smi)
+    del card
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def profile_bert_step(torch, model, ids, segs, labels, smi):
+    """Trace one more optimizer step of 22a's fit (batch BERT_BATCH x
+    512, bf16 with f32 masters) after a warm one; print the device time
+    by kernel and the busy share. Returns the busy share and the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    est = model.estimator
+    b = BERT_BATCH
+    batch = est._to_device(((ids[:b], segs[:b]), labels[:b]))
+    est._step(batch)                                   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        est._step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, busy = _device_rows(prof)
+    log(f"[text] 22a profile: one BERT-base step, batch {b} x "
+        f"{BERT_CFG['seq_len']}, wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms ({busy / wall_ms:.3f} of wall) {smi}")
+    for key, count, ms in _shown(rows, 12):
+        log(f"[text] 22a profile {ms:9.3f} ms {count:6d} calls  {key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share":
+            busy / wall_ms}
+
+
+def phase22_heads(torch, smi):
+    """22b: BERTNER (BERT_NER_TAGS tags) and BERTSQuAD at BERT-base width
+    with BERT_HEAD_BLOCKS blocks, seed 2: ``predict`` of BERT_BATCH x 512
+    on the card in f32 within 1e-4 of the CPU's forward on the same
+    weights, K1 = BERT_HEAD_BLOCKS a predict, and ``predict_tags`` /
+    ``predict_spans`` the argmax of the card's output."""
+    from analytics_zoo_tpu_torch.models.text import BERTNER, BERTSQuAD
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    cfg = {**BERT_CFG, "n_block": BERT_HEAD_BLOCKS}
+    ids, segs = _bert_inputs(BERT_BATCH, 2)
+    x = [torch.from_numpy(ids), torch.from_numpy(segs)]
+    out = {}
+    for cls, kw in ((BERTNER, {"num_entities": BERT_NER_TAGS}),
+                    (BERTSQuAD, {})):
+        card = cls(**kw, **cfg, device=DEV["cuda"], seed=2)
+        card.compile(optimizer="adam", loss=cls.loss)
+        cpu = cls(**kw, **cfg, device="cpu", seed=2)
+        before = tfa.flash_attention_fwd.launches
+        got = card.predict([ids, segs], batch_size=BERT_BATCH)
+        k1 = tfa.flash_attention_fwd.launches - before
+        with torch.no_grad():
+            want = cpu.apply(x).numpy()
+        d = float(np.abs(got - want).max())
+        if cls is BERTNER:
+            ok_arg = np.array_equal(card.predict_tags([ids, segs]),
+                                    got.argmax(-1))
+        else:
+            start, end = card.predict_spans([ids, segs])
+            ok_arg = (np.array_equal(start, got[:, 0].argmax(-1))
+                      and np.array_equal(end, got[:, 1].argmax(-1)))
+        ok = d <= 1e-4 and k1 == BERT_HEAD_BLOCKS and ok_arg
+        log(f"[text] 22b {cls.__name__} hidden {cfg['hidden_size']} x "
+            f"{BERT_HEAD_BLOCKS} blocks, predict {BERT_BATCH} x "
+            f"{cfg['seq_len']} f32 cuda vs cpu: out {tuple(got.shape)}, "
+            f"max|d log-prob| {d:.3g} (tol 1e-4), K1 {k1} (need "
+            f"{BERT_HEAD_BLOCKS}), argmax outputs {ok_arg} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{cls.__name__} on the card disagrees "
+                                 f"with the cpu")
+        out[cls.__name__] = d
+        del card, cpu
+    return out
+
+
+def _text_small_cases():
+    """22c's models, at the JAX tests' sizes: ``(name, make(device),
+    x, y, loss(model))``, from seeded data."""
+    from analytics_zoo_tpu_torch.models import text as T
+    from analytics_zoo_tpu_torch.models.anomalydetection import (
+        AnomalyDetector, unroll)
+    from analytics_zoo_tpu_torch.models.textmatching import KNRM
+
+    n = TEXT_SMALL[0]
+    rng = np.random.default_rng(22)
+    words = rng.integers(1, 40, (n, 8)).astype(np.int32)
+    chars = rng.integers(1, 20, (n, 8, 5)).astype(np.int32)
+    padded, pchars = words.copy(), chars.copy()
+    padded[:, -3:], pchars[:, -3:] = 0, 0
+    tags = (words % 4).astype(np.int32)
+    ptags = (padded % 4).astype(np.int32)
+    ptags[padded == 0] = -1
+    ner = dict(num_entities=4, word_vocab_size=40, char_vocab_size=20,
+               word_length=5, word_emb_dim=24, char_emb_dim=8,
+               tagger_lstm_dim=16)
+    tagger = dict(num_pos_labels=3, num_chunk_labels=2, word_vocab_size=40,
+                  word_length=5, feature_size=16)
+    series = np.sin(np.arange(n + 10, dtype=np.float32) / 10)
+    ax, ay = unroll(series, 10)
+    knrm_x = rng.integers(0, 40, (n, 12)).astype(np.int32)
+    return [
+        ("NER reg", lambda dev: T.NER(**ner, device=dev), [words, chars],
+         tags, lambda m: m.loss),
+        ("NER pad", lambda dev: T.NER(**ner, crf_mode="pad", device=dev),
+         [padded, pchars], ptags, lambda m: m.loss),
+        ("SequenceTagger softmax", lambda dev: T.SequenceTagger(
+            **tagger, char_vocab_size=20, device=dev), [words, chars],
+         ((words % 3).astype(np.int32), (words % 2).astype(np.int32)),
+         lambda m: m.loss),
+        ("SequenceTagger crf", lambda dev: T.SequenceTagger(
+            **tagger, classifier="crf", device=dev), words,
+         ((words % 3).astype(np.int32), (words % 2).astype(np.int32)),
+         lambda m: m.crf_loss),
+        ("IntentEntity", lambda dev: T.IntentEntity(
+            num_intents=3, num_entities=4, word_vocab_size=40,
+            char_vocab_size=20, word_length=5, word_emb_dim=24,
+            char_emb_dim=8, char_lstm_dim=8, tagger_lstm_dim=16,
+            device=dev), [words, chars],
+         ((words[:, 0] % 3).astype(np.int32), tags), lambda m: m.loss),
+        ("KNRM", lambda dev: KNRM(4, 8, vocab_size=40, embed_size=8,
+                                  kernel_num=5, device=dev), knrm_x,
+         rng.uniform(0, 1, (n, 1)).astype(np.float32),
+         lambda m: "rank_hinge"),
+        ("AnomalyDetector", lambda dev: AnomalyDetector(
+            (10, 1), (8, 8), (0.2, 0.2), device=dev), ax[:n], ay[:n],
+         lambda m: "mse")]
+
+
+def _host_outputs(out):
+    return [np.asarray(o) for o in out] if isinstance(out, (list, tuple)) \
+        else [np.asarray(out)]
+
+
+def phase22_small_models(torch, smi, tmp):
+    """22c: NER ("reg" and "pad"), SequenceTagger (softmax with chars, CRF
+    on words), IntentEntity, KNRM and AnomalyDetector at the JAX tests'
+    sizes: each fits 2 f32 Adam steps (dropout on) on the card and on the
+    CPU from the same seeded weights, the per-step losses within 1e-4;
+    then ``save_model``/``load_model`` on the card predicts within 1e-6
+    of the saved model."""
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+
+    n, batch = TEXT_SMALL
+    gaps = {}
+    for name, make, x, y, lossf in _text_small_cases():
+        losses = {}
+        models = {}
+        for side, dev in (("card", DEV["cuda"]), ("cpu", "cpu")):
+            m = make(dev)
+            m.compile(optimizer="adam", loss=lossf(m),
+                      config=TrainConfig(log_every_n_steps=1))
+            m.fit(x, y, batch_size=batch, nb_epoch=1, seed=22)
+            losses[side] = [h["loss"] for h in m.estimator.history]
+            models[side] = m
+        gap = max(abs(a - b) for a, b in zip(losses["card"], losses["cpu"]))
+        card = models["card"]
+        path = os.path.join(tmp, name.replace(" ", "_"))
+        card.save_model(path)
+        back = type(card).load_model(path, device=DEV["cuda"])
+        if getattr(back, "estimator", None) is None:
+            back.compile(optimizer="adam", loss=lossf(back))
+        a = _host_outputs(card.predict(x, batch_size=batch))
+        b = _host_outputs(back.predict(x, batch_size=batch))
+        d_back = max(float(np.abs(u - v).max()) for u, v in zip(a, b))
+        ok = (len(losses["card"]) == n // batch and gap <= 1e-4
+              and d_back <= 1e-6 and all(np.isfinite(u).all() for u in a))
+        log(f"[text] 22c {name}: losses card {losses['card']} cpu "
+            f"{losses['cpu']} (max|d| {gap:.3g}, tol 1e-4); bundle "
+            f"round trip max|d predict| {d_back:.3g} (tol 1e-6) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} on the card disagrees with the cpu"
+                                 f" or its bundle")
+        gaps[name] = gap
+        del models, card, back
+    return gaps
+
+
+def phase22_lm_bundle(torch, smi, tmp):
+    """22d: a TransformerLM bundle the port saves (phase 11's example
+    model, seed 22) loads through ``InferenceModel.load_zoo`` on the card
+    and serves the saved model's logits (K1 = n_block a predict)."""
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.models.transformer import TransformerLM
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    model = TransformerLM(device=DEV["cuda"], seed=22, **EXAMPLE_KW)
+    path = os.path.join(tmp, "lm")
+    model.save_model(path)
+    ids = np.random.default_rng(22).integers(
+        0, EXAMPLE_KW["vocab"], (4, EXAMPLE_KW["seq_len"])).astype(np.int32)
+    im = InferenceModel(1, 4, device=DEV["cuda"]).load_zoo(path)
+    before = tfa.flash_attention_fwd.launches
+    got = im.predict(ids)
+    k1 = tfa.flash_attention_fwd.launches - before
+    with torch.no_grad():
+        want = model.apply(torch.from_numpy(ids).to(DEV["cuda"])).cpu()
+    d = maxerr(torch.from_numpy(np.asarray(got)), want)
+    ok = d <= 1e-6 and k1 == EXAMPLE_KW["n_block"]
+    log(f"[text] 22d TransformerLM bundle through load_zoo on the card: "
+        f"logits {tuple(np.asarray(got).shape)}, max|d| {d:.3g} vs the "
+        f"saved model (tol 1e-6), K1 {k1} (need {EXAMPLE_KW['n_block']}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a TransformerLM bundle did not serve its "
+                             "logits through load_zoo")
+    return d
+
+
+def phase_text(torch, smi, tmp):
+    """Phase 22 (``[text]`` lines): BERT and the text models on the card.
+    (a) ``phase22_bert_kernels`` and ``phase22_bert_classifier``; (b)
+    ``phase22_heads``; (c) ``phase22_small_models``; (d)
+    ``phase22_lm_bundle``. Returns K1's, K3's and K4's launches on (a)'s
+    fit and predict and their entries at BERT's shape."""
+    walls = {}
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    shapes = phase22_bert_kernels(torch, smi)
+    walls["22a_kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches, fit = phase22_bert_classifier(torch, smi)
+    walls["22a_classifier"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase22_heads(torch, smi)
+    walls["22b_heads"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase22_small_models(torch, smi, tmp)
+    walls["22c_small_models"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase22_lm_bundle(torch, smi, tmp)
+    walls["22d_lm_bundle"] = time.perf_counter() - t0
+    walls["total"] = time.perf_counter() - t_all
+    log(f"[text] phase wall s {json.dumps(walls)} {smi}")
+    return {**launches, "shapes": shapes, "fit": fit, "walls": walls}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -8423,6 +8887,13 @@ def main(argv=None) -> int:
             kernels[6]["launches_by_path"]["mobilenet_predict"] = \
                 layers["K6"]
             kernels[6]["mobilenet_shapes"] = layers["k6_shapes"]
+            torch.cuda.empty_cache()
+            with tempfile.TemporaryDirectory(prefix="zoo_text_") as tmp:
+                text = phase_text(torch, smi, tmp)
+            for k, key in zip((kernels[0], kernels[2], kernels[3]),
+                              ("K1", "K3", "K4")):
+                k["launches_by_path"]["bert"] = text[key]
+                k["bert_shape"] = text["shapes"][key]
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):

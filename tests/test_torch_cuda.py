@@ -68,7 +68,12 @@ analysis tier on the card (``-k analysis``): while a trace records, each
 wrapper (K1-K6, the sampler) launches nothing and records one site whose
 outputs have its launch's shapes and dtypes; a small model's decode trace
 holds one K2 site a block and the sampler, no host read; the memory
-witness reads the caching allocator.
+witness reads the caching allocator. BERT on the card (``-k bert``): K1,
+K3 and K4 without a causal mask at 12 heads of 64 (B=8 T=512, BERT-base's
+fine-tuning batch, and T=8, 100, 129) against their plain versions; a
+small BERTClassifier's probabilities and two ``fit`` steps, and BERTNER's
+log-probs and an NER tagger's two dropout steps, to the CPU's on the same
+seeded weights.
 """
 
 import math
@@ -1900,3 +1905,112 @@ def test_analysis_witness_reads_the_allocator(cuda, tmp_path, monkeypatch):
     finally:
         monkeypatch.delenv("ZOO_TPU_MEM_WITNESS")
         mw.reset_witness()
+
+
+# ------------------------------------------------------- BERT (no causal mask)
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("b,t", [(8, 512), (2, 8), (2, 100), (3, 129)])
+def test_bert_flash_kernels_at_bert_shapes_match_plain(cuda, dtype, tol, b,
+                                                       t):
+    """K1, K3 and K4 at BERT-base's attention (12 heads of 64, no causal
+    mask; B=8 T=512 is BERT-base's fine-tuning batch, T=8 the JAX tests',
+    the others off the tile edge), q/k/v strided out of one fused QKV
+    tensor, against their plain versions; each wrapper launches once."""
+    g = torch.Generator(device=cuda).manual_seed(t)
+    qkv = torch.randn((b, t, 3, 12, 64), generator=g, device=cuda).to(dtype)
+    q, k, v = qkv.unbind(2)
+    before = (tfa.flash_attention_fwd.launches,
+              tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    out, lse = tfa.flash_attention_fwd(q, k, v, False)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, False)
+    go = torch.randn((b, t, 12, 64), generator=g, device=cuda).to(dtype)
+    delta = tfa.flash_bwd_delta(out, go)
+    case = (q, k, v, go, lse, delta)
+    dq = tfa.flash_attention_bwd_dq(*case, False)
+    dk, dv = tfa.flash_attention_bwd_dkv(*case, False)
+    rq = tfa.flash_attention_bwd_dq_plain(*case, False)
+    rk, rv = tfa.flash_attention_bwd_dkv_plain(*case, False)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_fwd.launches,
+            tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == tuple(
+                n + 1 for n in before)
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert float((lse - ref_lse).abs().max()) <= tol
+    for got, want in ((dq, rq), (dk, rk), (dv, rv)):
+        scale = max(1.0, float(want.float().abs().max()))
+        assert float((got.float() - want.float()).abs().max()) <= \
+            tol * scale
+
+
+def _bert_pair(cls, cuda, **kw):
+    cfg = dict(vocab=96, hidden_size=96, n_block=2, n_head=12, seq_len=64,
+               seed=3, **kw)
+    return cls(device=cuda, **cfg), cls(device="cpu", **cfg)
+
+
+def test_bert_classifier_on_card_matches_cpu(cuda):
+    """A small BERTClassifier (12 heads of 8) on the card against the same
+    seeded model on the CPU: f32 probabilities within 1e-4 with K1 once a
+    block; two Adam steps of ``fit`` to the CPU's losses, K3 and K4 once a
+    block and step."""
+    from analytics_zoo_tpu_torch.models.text import BERTClassifier
+
+    card, cpu = _bert_pair(BERTClassifier, cuda, num_classes=3)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, 96, (16, 64)).astype(np.int32)
+    segs = (np.arange(64)[None] >= rng.integers(8, 56, (16, 1))).astype(
+        np.int32)
+    y = rng.integers(0, 3, 16).astype(np.int32)
+    x = [torch.from_numpy(ids), torch.from_numpy(segs)]
+    before = tfa.flash_attention_fwd.launches
+    with torch.no_grad():
+        got = card.apply([a.to(cuda) for a in x]).cpu()
+        want = cpu.apply(x)
+    assert tfa.flash_attention_fwd.launches == before + 2
+    assert float((got - want).abs().max()) <= 1e-4
+    losses = {}
+    for name, m in (("cuda", card), ("cpu", cpu)):
+        m.compile(optimizer="adam", loss="sparse_categorical_crossentropy")
+        m.estimator.config.log_every_n_steps = 1
+        counts = (tfa.flash_attention_bwd_dq.launches,
+                  tfa.flash_attention_bwd_dkv.launches)
+        m.fit([ids, segs], y, batch_size=8, nb_epoch=1)
+        losses[name] = [h["loss"] for h in m.estimator.history]
+        if name == "cuda":
+            assert (tfa.flash_attention_bwd_dq.launches,
+                    tfa.flash_attention_bwd_dkv.launches) == (
+                        counts[0] + 4, counts[1] + 4)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0,
+                               atol=1e-4)
+
+
+def test_bert_ner_and_text_models_on_card_match_cpu(cuda):
+    """BERTNER's log-probs and tags, and an NER tagger's two dropout steps,
+    on the card against the CPU's on the same seeded weights."""
+    from analytics_zoo_tpu_torch.models.text import BERTNER, NER
+
+    card, cpu = _bert_pair(BERTNER, cuda, num_entities=5)
+    ids = np.random.default_rng(5).integers(0, 96, (4, 64)).astype(np.int32)
+    card.compile(optimizer="adam", loss=BERTNER.loss)
+    got = card.predict(ids)
+    with torch.no_grad():
+        want = cpu.apply(torch.from_numpy(ids)).numpy()
+    assert float(np.abs(got - want).max()) <= 1e-4
+    np.testing.assert_array_equal(card.predict_tags(ids), got.argmax(-1))
+    rng = np.random.default_rng(6)
+    words = rng.integers(1, 40, (32, 8)).astype(np.int32)
+    chars = rng.integers(1, 20, (32, 8, 5)).astype(np.int32)
+    losses = {}
+    for dev in ("cpu", cuda):
+        m = NER(num_entities=4, word_vocab_size=40, char_vocab_size=20,
+                word_length=5, word_emb_dim=24, char_emb_dim=8,
+                tagger_lstm_dim=16, device=dev)
+        m.compile(optimizer="adam", loss=m.loss)
+        m.estimator.config.log_every_n_steps = 1
+        m.fit([words, chars], (words % 4).astype(np.int32), batch_size=16,
+              nb_epoch=1)
+        losses[str(dev)] = [h["loss"] for h in m.estimator.history]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0,
+                               atol=1e-4)

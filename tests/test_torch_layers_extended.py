@@ -119,10 +119,9 @@ def _x(*shape, seed=0, lo=None, hi=None):
 
 
 # ------------------------------------------------------------ the names
-def test_all_names_but_the_attention_four_are_ported():
+def test_every_name_of_the_jax_layers_is_ported():
     missing = set(JL.__all__) - set(TL.__all__)
-    assert missing == {"BERT", "MultiHeadAttention", "PositionalEmbedding",
-                       "TransformerLayer"}
+    assert missing == set()
     assert all(hasattr(TL, n) for n in TL.__all__)
     for alias, name in [("Conv1D", "Convolution1D"),
                         ("Conv2D", "Convolution2D"),

@@ -320,3 +320,40 @@ def test_the_analysis_tier_is_in_the_port_without_jax():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"bad": [], "rules": 23}
+
+
+TEXT_SLICE = ("models/text/__init__.py", "models/text/bert_classifier.py",
+              "models/text/bert_estimators.py",
+              "models/text/sequence_models.py",
+              "models/textmatching/__init__.py", "models/textmatching/knrm.py",
+              "models/textmatching/text_matcher.py",
+              "models/anomalydetection/__init__.py",
+              "models/anomalydetection/anomaly_detector.py")
+
+
+def test_the_text_slice_is_in_the_port_without_jax():
+    """The text models mirror the JAX package's paths, and a fresh
+    interpreter that imports them, the attention layers and the zoo
+    registry's every entry pulls in neither JAX, the JAX package nor
+    ml_dtypes."""
+    for rel in TEXT_SLICE:
+        assert (PKG / rel).is_file(), rel
+        assert (ROOT / "analytics_zoo_tpu" / rel).is_file(), rel
+    code = (
+        "import json, sys\n"
+        "from analytics_zoo_tpu_torch.nn.layers import (BERT, "
+        "MultiHeadAttention, PositionalEmbedding, TransformerLayer)\n"
+        "from analytics_zoo_tpu_torch.models.common.zoo_model import "
+        "registered_model\n"
+        "names = ['BERTClassifier', 'BERTNER', 'BERTSQuAD', 'NER', "
+        "'SequenceTagger', 'IntentEntity', 'KNRM', 'AnomalyDetector', "
+        "'TransformerLM', 'PipelinedTransformerLM']\n"
+        "found = [n for n in names if registered_model(n) is not None]\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'analytics_zoo_tpu', 'ml_dtypes'))\n"
+        "print(json.dumps({'bad': bad, 'found': found}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == [] and len(res["found"]) == 10, res

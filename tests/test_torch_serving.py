@@ -18,6 +18,7 @@ import json
 import logging
 import socket
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -357,13 +358,19 @@ def test_frontend_queue_and_direct_modes(models, brokers):
         threads = [threading.Thread(target=one, args=(i,)) for i in range(8)]
         for t in threads:
             t.start()
+        # wait for the event asserted below, every request answered: all
+        # threads ended (each client call is bounded by its own timeout)
+        deadline = time.monotonic() + 120
         for t in threads:
-            t.join(timeout=60)
-        assert not errors
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        assert not [t for t in threads if t.is_alive()], "requests unanswered"
+        assert not errors, errors
+        assert all("predictions" in r for r in results), results
         np.testing.assert_allclose(
             np.asarray([r["predictions"][0] for r in results]),
             jim.predict(x[:8]), rtol=1e-5, atol=1e-5)
-        assert direct._batcher.stats()["records"] == 12
+        assert direct._batcher.stats()["records"] == 12, \
+            direct._batcher.stats()
         # metrics: Prometheus text the port's parser accepts
         code, _, text = _get(app.port, "/metrics")
         fams = parse_prometheus(text.decode())

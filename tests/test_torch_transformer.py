@@ -157,3 +157,59 @@ def test_seeded_init_is_deterministic_and_remat_unported():
     assert TransformerLM(**kw).remat is False
     with pytest.raises(ValueError, match="remat"):
         TransformerLM(remat="everything", **kw)
+
+
+def test_bundles_load_in_either_direction(models, tmp_path):
+    """A TransformerLM bundle the JAX package saves with its config (its
+    ``save_model_bundle`` given ``constructor_config()``, as its zoo models'
+    ``save_model`` do; the JAX ``KerasNet.save_model`` writes none) loads
+    through the port's ``load_model_bundle`` and ``InferenceModel.
+    load_zoo`` with the JAX logits within 1e-4; the port's own bundle round-trips and carries
+    the JAX config keys, and both LM classes are registered."""
+    from jax.sharding import Mesh
+
+    from analytics_zoo_tpu.models.common.zoo_model import \
+        save_model_bundle as jsave_model_bundle
+    from analytics_zoo_tpu.models.transformer import lm_loss as jlm_loss
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.models.common.zoo_model import (
+        MODEL_REGISTRY, load_model_bundle)
+    from analytics_zoo_tpu_torch.models.transformer import \
+        PipelinedTransformerLM
+
+    jm, params, _, tm = models
+    x = np.random.default_rng(5).integers(0, VOCAB, size=(3, 16)) \
+        .astype(np.int32)
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape((1,) * 6),
+                ("dp", "fsdp", "tp", "sp", "pp", "ep"))
+    jm.compile(optimizer="sgd", loss=jlm_loss, mesh=mesh)
+    jm.estimator.initial_weights = (params, {})
+    jm.estimator.train_state = jm.estimator._init_state((x, x))
+    jsave_model_bundle(str(tmp_path / "jax"), jm,
+                       config=jm.constructor_config())
+    want = np.asarray(jm.apply(params, {}, x)[0])
+    back, cfg = load_model_bundle(str(tmp_path / "jax"), device="cpu")
+    assert isinstance(back, TransformerLM) and cfg["class"] == "TransformerLM"
+    assert back.constructor_config() == jm.constructor_config() == \
+        tm.constructor_config()
+    with torch.no_grad():
+        got = back.apply(torch.from_numpy(x)).numpy()
+    assert float(np.abs(got - want).max()) <= TOL
+    im = InferenceModel(1, 8, device="cpu").load_zoo(str(tmp_path / "jax"))
+    assert float(np.abs(im.predict(x) - want).max()) <= TOL
+    tm.save_model(str(tmp_path / "pt"))
+    again, _ = load_model_bundle(str(tmp_path / "pt"), device="cpu")
+    with torch.no_grad():
+        assert torch.equal(again.apply(torch.from_numpy(x)),
+                           tm.apply(torch.from_numpy(x)))
+    assert MODEL_REGISTRY["TransformerLM"] is TransformerLM
+    assert MODEL_REGISTRY["PipelinedTransformerLM"] is PipelinedTransformerLM
+    pp = PipelinedTransformerLM(vocab=VOCAB, hidden_size=HIDDEN, n_block=2,
+                                n_head=HEADS, seq_len=SEQ, device="cpu")
+    pp.save_model(str(tmp_path / "pp"))
+    pback, _ = load_model_bundle(str(tmp_path / "pp"), device="cpu")
+    assert pback.constructor_config() == pp.constructor_config()
+    with torch.no_grad():
+        assert torch.equal(pback.apply(torch.from_numpy(x)),
+                           pp.apply(torch.from_numpy(x)))
