@@ -20,79 +20,13 @@ from __future__ import annotations
 
 import struct
 from typing import (Dict, Iterable, Iterator, List, Optional, Sequence,
-                    Tuple, Union)
+                    Union)
 
 import numpy as np
 
 from ..common.summary import _masked_crc
-
-# ------------------------------------------------- protobuf wire, the subset
-# a tf.Example needs (the JAX package's importers/onnx_proto.py readers and
-# writers; tag = field << 3 | wire type)
-
-
-def _read_varint(buf: bytes, pos: int) -> Tuple[int, int]:
-    result = 0
-    shift = 0
-    while True:
-        b = buf[pos]
-        pos += 1
-        result |= (b & 0x7F) << shift
-        if not b & 0x80:
-            return result, pos
-        shift += 7
-
-
-def _write_varint(v: int) -> bytes:
-    out = bytearray()
-    v &= (1 << 64) - 1
-    while True:
-        b = v & 0x7F
-        v >>= 7
-        if v:
-            out.append(b | 0x80)
-        else:
-            out.append(b)
-            return bytes(out)
-
-
-def _s64(v: int) -> int:
-    """Re-sign a varint decoded as unsigned 64-bit."""
-    return v - (1 << 64) if v >= (1 << 63) else v
-
-
-def _iter_fields(buf: bytes):
-    """Yield (field_number, wire_type, value) — value is int for varint/fixed,
-    bytes for length-delimited."""
-    pos = 0
-    n = len(buf)
-    while pos < n:
-        tag, pos = _read_varint(buf, pos)
-        fnum, wtype = tag >> 3, tag & 7
-        if wtype == 0:
-            v, pos = _read_varint(buf, pos)
-            yield fnum, wtype, v
-        elif wtype == 1:
-            yield fnum, wtype, struct.unpack_from("<q", buf, pos)[0]
-            pos += 8
-        elif wtype == 2:
-            ln, pos = _read_varint(buf, pos)
-            yield fnum, wtype, buf[pos:pos + ln]
-            pos += ln
-        elif wtype == 5:
-            yield fnum, wtype, struct.unpack_from("<i", buf, pos)[0]
-            pos += 4
-        else:
-            raise ValueError(f"unsupported wire type {wtype}")
-
-
-def _ld(fnum: int, payload: bytes) -> bytes:
-    return _write_varint((fnum << 3) | 2) + _write_varint(len(payload)) \
-        + payload
-
-
-def _vi(fnum: int, v: int) -> bytes:
-    return _write_varint(fnum << 3) + _write_varint(v)
+from ..importers.onnx_proto import (_iter_fields, _ld, _read_varint, _s64,
+                                    _vi)
 
 # ----------------------------------------------------------------- record IO
 

@@ -1,1 +1,6 @@
-"""Port of ``analytics_zoo_tpu.engine``."""
+"""Port of ``analytics_zoo_tpu.engine``: the Estimator, checkpoints and
+the GAN trainer."""
+
+from .gan import GANEstimator
+
+__all__ = ["GANEstimator"]

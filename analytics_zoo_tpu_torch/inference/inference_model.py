@@ -43,7 +43,11 @@ refuses it.
 ``predict``. ``summary=`` feeds an ``InferenceSummary``.
 
 ``load_zoo`` serves a weight bundle (``models/common/zoo_model.py``,
-written by either package) as ``load`` serves a module.
+written by either package) as ``load`` serves a module; ``load_tf`` a TF
+frozen graph or SavedModel (``importers/tf_net.py``) and ``load_fn`` a
+bare ``fn(params, state, x)``, whose params leaves become the served
+module's parameters (so ``quantize_int8`` takes the weight-only path, as
+in the JAX package: no K5 or K6 there).
 
 Graph checks at model load: ``warm_up(graph_checks=)`` runs
 :meth:`check_fused_dispatch` (the ``fused-int8-dispatch`` rule over the
@@ -51,9 +55,6 @@ recorded dispatch of a quantized model: K5/K6 sites, no quantize op and no
 int8 tensor outside them) and :meth:`check_memory` (``hbm-budget`` and
 ``peak-temporary`` over its static live-range peak). Each ``predict``
 samples the memory witness at site ``inference.dispatch``.
-
-Not ported: the model loaders ``load_tf`` and ``load_fn`` (ROADMAP Queue 1,
-item 11); each raises ``NotImplementedError`` naming ROADMAP.
 """
 
 from __future__ import annotations
@@ -75,7 +76,7 @@ from ..common import telemetry as _tm
 from ..common.locks import traced_lock
 from ..engine.checkpoint import leaf_dtype_name, param_tree_signature
 from ..nn.graph import GraphModule
-from ..nn.module import resolve_device
+from ..nn.module import register_dotted, resolve_device
 from ..ops.int8 import quantize_weight
 from ..ops.int8_fused import kernel_major
 from .summary import InferenceSummary, timing
@@ -91,9 +92,47 @@ _CACHE_HITS = _tm.counter("zoo_infer_cache_hits_total",
                           "Dispatches served by a compiled-cache dict lookup")
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported (ROADMAP Queue 1, "
-                               f"item {item})")
+def _tree_leaves(tree, path=()):
+    """((key, ...), leaf) of a nested dict, keys in sorted order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k], path + (str(k),))
+    else:
+        yield path, tree
+
+
+def _as_device_tensor(v, device) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(device)
+    return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+
+
+class _FnModule(torch.nn.Module):
+    """``fn(params, state, x)`` as a module (``InferenceModel.load_fn``):
+    each params leaf a parameter at its key path, a dotted name (a key's
+    own dots nest too), rebuilt into the caller's nesting for each call."""
+
+    def __init__(self, fn, params, state, device):
+        super().__init__()
+        self.fn = fn
+        self._paths: List[Tuple[Tuple[str, ...], str]] = []
+        for path, leaf in _tree_leaves(params or {}):
+            name = ".".join(path)
+            register_dotted(self, name, torch.nn.Parameter(
+                _as_device_tensor(leaf, device), requires_grad=False))
+            self._paths.append((path, name))
+        self.state = tree_map(lambda v: _as_device_tensor(v, device),
+                              state if state is not None else {})
+
+    def forward(self, x):
+        named = dict(self.named_parameters())
+        params: Dict[str, Any] = {}
+        for path, name in self._paths:
+            node = params
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = named[name]
+        return self.fn(params, self.state, x)
 
 
 def _buckets(max_batch: int) -> List[int]:
@@ -329,11 +368,38 @@ class InferenceModel:
             else model_class(device=self.device))
         return self.load(model)
 
-    def load_tf(self, path: str, *args, **kwargs):
-        raise _not_ported("load_tf (the TF importer)", 11)
+    def load_tf(self, path: str, signature: str = "serving_default",
+                inputs=None, outputs=None) -> "InferenceModel":
+        """Serve a TF frozen graph (``.pb``) or a SavedModel directory,
+        executed by ``importers.tf_net`` on this model's device. A
+        SavedModel's variables are the served parameters, so
+        ``quantize_int8`` packs them (weight-only); a frozen graph's
+        weights are Const nodes and stay float (it has no parameters)."""
+        import os
 
-    def load_fn(self, fn, params, state=None):
-        raise _not_ported("load_fn (imported graphs)", 11)
+        from ..importers.tf_net import from_frozen_graph, from_saved_model
+
+        if os.path.isdir(path):
+            net = from_saved_model(path, signature=signature, inputs=inputs,
+                                   outputs=outputs, device=self.device)
+        else:
+            net = from_frozen_graph(path, inputs=inputs, outputs=outputs,
+                                    device=self.device)
+
+        def apply(p, s, x, net=net):
+            xs = list(x) if isinstance(x, (list, tuple)) else [x]
+            return net._run(*xs, variables=p)
+
+        return self.load_fn(apply, params=dict(net.variables), state=None)
+
+    def load_fn(self, fn, params, state=None) -> "InferenceModel":
+        """Serve a bare ``fn(params, state, x) -> y`` (imported graphs land
+        here): ``params`` (a nested dict of arrays or tensors) become the
+        served module's parameters, handed back to ``fn`` in the same
+        nesting each call (weight-only int8 leaves after
+        ``quantize_int8``); ``state`` is handed back as given, on this
+        model's device."""
+        return self.load(_FnModule(fn, params, state, self.device))
 
     def _record_template(self) -> None:
         """Remember the as-loaded (unquantized) params' shape: names in the

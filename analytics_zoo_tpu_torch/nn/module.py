@@ -116,6 +116,21 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     return torch.device("cuda")
 
 
+def register_dotted(module: nn.Module, name: str, param) -> None:
+    """Register ``param`` on ``module`` at the dotted path ``name``,
+    making plain child modules for its parents: an imported tensor called
+    ``conv1.weight`` becomes child ``conv1``'s ``weight``, so the state
+    dict reads the name back as given."""
+    *parents, leaf = name.split(".")
+    for p in parents:
+        child = module._modules.get(p)
+        if child is None:
+            child = nn.Module()
+            module.add_module(p, child)
+        module = child
+    module.register_parameter(leaf, param)
+
+
 # ---------------------------------------------------------------- initializers
 
 def _fans(shape: Sequence[int]) -> Tuple[int, int]:

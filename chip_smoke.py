@@ -3,8 +3,9 @@
 Wide & Deep and session recommendation, checkpoint/resume,
 input-pipeline, serving data-plane and control-plane paths, the
 runtime context, file and set data tiers and TextClassifier,
-multi-rank training, the analysis tier, and the layer library with the
-MobileNets, on one NVIDIA card.
+multi-rank training, the analysis tier, the layer library with the
+MobileNets, BERT and the text models, and SSD300, Seq2seq, the GAN
+trainer and the importers, on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel checks only
@@ -475,6 +476,32 @@ Phases, each fatal on failure (no result line is printed then):
    round trip that predicts the same. (d) a TransformerLM bundle the port
    saved serves its logits through ``InferenceModel.load_zoo`` on the
    card. Prints the wall by part.
+23. SSD, Seq2seq, the GAN trainer and the importers (``[detect]``,
+   ``[seq2seq-gan]``, ``[importers]`` lines). (a) SSD300-VGG16 at full
+   width (``ObjectDetector.from_config("ssd-vgg16-300x300")``, 21 VOC
+   classes, 8732 anchors, seed 0) on seeded 300x300 mini-VOC images: one
+   f32 SGD step on the card and on the CPU (loss 1e-4 relative, update
+   1e-3), a ``fit`` of 4 steps at batch 8 (SGD 1e-3, momentum 0.9: step
+   ms, images/s, peak memory), then ``InferenceModel.quantize_int8``
+   (the six 3x3 heads pack; the atrous trunk stays float) and an int8
+   predict of 8: K6 = 6 launches, each bit for bit its plain version, the
+   raw outputs within twice the JAX package's own int8-vs-float gap
+   (``scripts/torch_ssd_int8_gap.py``), the detections of both, float and
+   int8 images/s, each head's K6 device ms from one traced predict beside
+   its bound and ``torch._int_mm``. (b) Seq2seq (2-layer LSTM encoder and
+   decoder at hidden 256: 2 Adam steps, ``infer`` 16 steps) and
+   GANEstimator (2 steps) against the CPU within 1e-4. (c) an ONNX stem
+   at ResNet-50's widths (224x224, batch 32), a TF MLP 2048→4096→4096
+   frozen and as a SavedModel through ``InferenceModel.load_tf`` (float
+   and weight-only int8: no K5/K6), a Caffe LeNet, each against the CPU
+   within 1e-4. Prints the wall by part.
+
+Depth cut to keep the script inside its time: phase 19's LM cell runs 4
+blocks (MR_N_BLOCK; from 12), phase 20's served and trained LM 2 blocks
+(AN_N_BLOCK; from 12), 18b's file-fed LM 2 blocks (FF_N_BLOCK; from 12),
+each at phase 7's width, vocabulary and sequence; 16b sends 16 HTTP
+requests a mode (DP_HTTP; from 64) and 15d reads 2 s windows
+(SWAP_WINDOW_S; from 4 s).
 
 Phase 3 also holds the int8 kernels to their plain versions bit for bit
 (``torch.equal``), f32 and bf16: the quantize pass both launch (codes and
@@ -513,7 +540,9 @@ int8 MobileNet predict as ``launches_by_path["mobilenet_predict"]``, with
 each launch's shape, device ms and bound as ``mobilenet_head`` and
 ``mobilenet_shapes``; K1's, K3's and K4's on phase 22a's BERT-base fit and
 predict as ``launches_by_path["bert"]``, with their checks and times at
-BERT's shape as ``bert_shape``).
+BERT's shape as ``bert_shape``; K6's on phase 23a's int8 SSD300 predict
+as ``launches_by_path["ssd_predict"]``, with each head's shape, device ms,
+bound and ``torch._int_mm`` ms as ``ssd_shapes``).
 The last three lines of standard output are the card's name and power
 limit, the per-kernel JSON, and ``{"ok": true, "device": {...}}``.
 """
@@ -2210,10 +2239,12 @@ def phase_train_parity(torch):
 
 
 def train_model(TransformerLM, lm_loss, TrainConfig, seed: int = 0,
-                remat: str = "flash", **cfg):
-    """Phase 7's model, compiled with its TrainConfig (``cfg`` adds
-    fields): bf16 with f32 masters, Adam, clipping 1.0, accumulation 2."""
-    model = TransformerLM(vocab=VOCAB, hidden_size=HIDDEN, n_block=N_BLOCK,
+                remat: str = "flash", n_block=None, **cfg):
+    """Phase 7's model (``n_block`` blocks, N_BLOCK unless given),
+    compiled with its TrainConfig (``cfg`` adds fields): bf16 with f32
+    masters, Adam, clipping 1.0, accumulation 2."""
+    model = TransformerLM(vocab=VOCAB, hidden_size=HIDDEN,
+                          n_block=N_BLOCK if n_block is None else n_block,
                           n_head=N_HEAD, seq_len=SEQ_LEN,
                           attn_strategy="flash", remat=remat,
                           device=DEV["cuda"], seed=seed)
@@ -4398,7 +4429,8 @@ def _count_plain(mod, names):
     return counts, lambda: [setattr(mod, n, f) for n, f in orig.items()]
 
 
-SWAP_WINDOW_S = 4.0
+#: 15d's images/s windows before and after the swap (cut from 4 s)
+SWAP_WINDOW_S = 2.0
 
 
 def _held_bytes(module):
@@ -4765,7 +4797,9 @@ def phase_serving_remainder(torch, state, smi):
 # the data plane: 256 seeded 224x224x3 f32 images (602 KB each, over the
 # shm ring) from 4 client threads, 16 in flight a thread; 64 HTTP requests a
 # mode; swap windows of 2 s
-DP_IMAGES, DP_CLIENTS, DP_WINDOW, DP_HTTP = 256, 4, 16, 64
+#: DP_HTTP /predict requests a mode in 16b (cut from 64: each carries a
+#: 3.2 MB JSON image, ~0.17 s of encoding and ~0.15 s a request)
+DP_IMAGES, DP_CLIENTS, DP_WINDOW, DP_HTTP = 256, 4, 16, 16
 DP_SWAP_WINDOW_S = 2.0
 
 
@@ -6394,8 +6428,14 @@ def phase18_context(torch, smi):
     return {"context": res, "cluster_wall_s": wall}
 
 
+#: 18b's LM depth (cut from phase 7's 12 blocks; width, vocabulary and
+#: sequence are phase 7's)
+FF_N_BLOCK = 2
+
+
 def phase18_training_from_files(torch, smi):
-    """18b: phase 7's LM cell trained 2 optimizer steps from TFRecord
+    """18b: phase 7's LM cell (FF_N_BLOCK blocks) trained 2 optimizer
+    steps from TFRecord
     shards (under profile_steps, with a checkpoint and summaries) and from
     an XShards of 4 partitions, each against the same batches fed as
     arrays from the same initial weights."""
@@ -6434,7 +6474,7 @@ def phase18_training_from_files(torch, smi):
 
     def run(data, **cfg):
         model = train_model(TransformerLM, lm_loss, TrainConfig, seed=0,
-                            **cfg)
+                            n_block=FF_N_BLOCK, **cfg)
         torch.cuda.synchronize()
         for k in kernels:
             k.launches = 0
@@ -6460,7 +6500,7 @@ def phase18_training_from_files(torch, smi):
                                      label_cols=["y"])
     read_s = time.perf_counter() - t0
     model = train_model(TransformerLM, lm_loss, TrainConfig, seed=0,
-                        checkpoint_dir=ckpt_dir)
+                        n_block=FF_N_BLOCK, checkpoint_dir=ckpt_dir)
     model.set_tensorboard(tb_dir, "lm")
     torch.cuda.synchronize()
     for k in kernels:
@@ -6524,7 +6564,7 @@ def phase18_training_from_files(torch, smi):
     if tf_losses != base or xs_losses != base:
         raise AssertionError("18b: the losses from TFRecord or XShards are "
                              "not bit-identical to the array-fed run's")
-    need = N_BLOCK * micro
+    need = FF_N_BLOCK * micro
     for what, c in (("arrays", base_counts), ("tfrecord", tf_counts),
                     ("xshards", xs_counts)):
         if c != [need] * 3:
@@ -6825,6 +6865,10 @@ def phase_files_and_sets(torch, state, smi):
 #: phase 19's rank processes, all on the one card (gloo, CUDA tensors
 #: staged through pinned host buffers: NCCL refuses ranks sharing a card)
 MR_WORLD = 4
+#: the LM cell's depth in phase 19 (cut from phase 7's 12 blocks; the
+#: width, vocabulary and sequence are phase 7's; 19d's pipeline puts one
+#: block on each of the 4 stages)
+MR_N_BLOCK = 4
 #: 19a's attention shape (the LM cell's), 19b's run (8 sequences, batch 4,
 #: 2 steps), 19c's NCF steps, 19d's MoE and pipeline inputs
 MR_ATT_B = 2
@@ -6840,8 +6884,8 @@ MR_MESHES = {"fsdp": dict(fsdp=4), "tp": dict(tp=4),
              "dp_fsdp_tp": dict(dp=2, fsdp=2, tp=2)}
 #: the parameter elements a rank holds under those rules, at the LM cell's
 #: width (the JAX model's leaves, each over its spec's axes)
-MR_ELEMENTS = {"fsdp": 80_846_336, "tp": 54_818_816,
-               "dp_fsdp_tp": 63_454_208}
+MR_ELEMENTS = {"fsdp": 55_653_888, "tp": 29_546_496,
+               "dp_fsdp_tp": 38_235_136}
 #: 19b's limit on ||Δ − Δ_ref|| / ||Δ_ref||, the change of the f32 masters
 #: over the fit against the one-rank run's. On an H100 the dp run reads
 #: 0.015 and the sp run 0.067; a skipped update reads 1 and an update from
@@ -6932,8 +6976,8 @@ def mr_attention(strategy, dtype_name):
 def _mr_lm(torch, strategy, seed=0, remat="flash"):
     from analytics_zoo_tpu_torch.models.transformer import TransformerLM
 
-    return TransformerLM(vocab=VOCAB, hidden_size=HIDDEN, n_block=N_BLOCK,
-                         n_head=N_HEAD, seq_len=SEQ_LEN,
+    return TransformerLM(vocab=VOCAB, hidden_size=HIDDEN,
+                         n_block=MR_N_BLOCK, n_head=N_HEAD, seq_len=SEQ_LEN,
                          attn_strategy=strategy, remat=remat,
                          device="cuda", seed=seed)
 
@@ -7172,7 +7216,7 @@ def mr_pipeline():
     ids = torch.from_numpy(np.random.default_rng(21).integers(
         0, VOCAB, size=(MR_PIPE_BATCH, SEQ_LEN))).to("cuda")
     try:
-        m = PipelinedTransformerLM(VOCAB, HIDDEN, N_BLOCK, N_HEAD, SEQ_LEN,
+        m = PipelinedTransformerLM(VOCAB, HIDDEN, MR_N_BLOCK, N_HEAD, SEQ_LEN,
                                    n_microbatches=MR_PIPE_MICRO,
                                    attn_strategy="flash", device="cuda")
         cast_params(m, torch.bfloat16)
@@ -7183,14 +7227,15 @@ def mr_pipeline():
     finally:
         _mr_reset()
     if ctx.process_index == 0:
-        seq = TransformerLM(vocab=VOCAB, hidden_size=HIDDEN, n_block=N_BLOCK,
-                            n_head=N_HEAD, seq_len=SEQ_LEN,
-                            attn_strategy="flash", device="cuda")
+        seq = TransformerLM(vocab=VOCAB, hidden_size=HIDDEN,
+                            n_block=MR_N_BLOCK, n_head=N_HEAD,
+                            seq_len=SEQ_LEN, attn_strategy="flash",
+                            device="cuda")
         cast_params(seq, torch.bfloat16)
         sd = {n: p for n, p in m.named_parameters()
               if not n.startswith("blocks.")}
         for n, p in m.blocks.named_parameters():
-            for j in range(N_BLOCK):
+            for j in range(MR_N_BLOCK):
                 sd[f"block{j}.{n}"] = p[j]
         seq.load_state_dict(sd)
         with torch.no_grad(), precision_policy(compute_dtype="bfloat16"):
@@ -7319,7 +7364,7 @@ def _mr_sharded_cell(pool, mode, world, ref_path, ref_losses,
     wall[label] = time.perf_counter() - t
     launches = np.sum([r["launches"] for r in res], 0)
     steps = MR_TRAIN_SEQS // MR_TRAIN_BATCH
-    per = world * N_BLOCK * steps
+    per = world * MR_N_BLOCK * steps
     loss_err = max(abs(a - b) for r in res
                    for a, b in zip(r["losses"], ref_losses))
     info = {"mesh": MR_MESHES[mode], "losses": res[0]["losses"],
@@ -7369,7 +7414,7 @@ def phase_multi_rank(torch, smi, tmp):
 
     t_phase = time.perf_counter()
     wall, sums = {}, np.zeros(3, np.int64)
-    n_blk = N_BLOCK
+    n_blk = MR_N_BLOCK
     rank_shapes = _mr_rank_kernels(torch, smi)
     wall["rank_shape_kernels"] = time.perf_counter() - t_phase
     # the one-rank run 19b is held to, on this process: the change of its
@@ -7550,6 +7595,10 @@ def phase_multi_rank(torch, smi, tmp):
 # ----------------------------------------------------------------- phase 20
 #: phase 20a's requests: phase 5's first prompts, this many new tokens each
 AN_REQS, AN_NEW = 4, 16
+#: phase 20's LM depth, set as N_BLOCK in its child interpreter (cut from
+#: 12 blocks: 20a's served model and 20c's training cell keep phase 5's
+#: and phase 7's width, vocabulary and sequence)
+AN_N_BLOCK = 2
 
 
 def _fresh_memory(torch) -> None:
@@ -7924,7 +7973,7 @@ def phase_analysis_isolated(smi: str, tmp: str):
     stdout); returns its launches."""
     sys.stdout.flush()
     code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
-            f"import chip_smoke; "
+            f"import chip_smoke; chip_smoke.N_BLOCK = chip_smoke.AN_N_BLOCK; "
             f"sys.exit(chip_smoke.analysis_child({smi!r}, {tmp!r}))")
     t0 = time.perf_counter()
     rc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -8750,6 +8799,646 @@ def phase_text(torch, smi, tmp):
     return {**launches, "shapes": shapes, "fit": fit, "walls": walls}
 
 
+# ----------------------------------------------------------------- phase 23
+#: 23a: SSD300-VGG16 (Liu et al., arXiv:1512.02325; the reference's
+#: ssd-vgg16-300x300 with VOC's 21 classes), seed 0: fit SSD_IMAGES seeded
+#: 300x300 images at batch SSD_BATCH (SSD_IMAGES // SSD_BATCH steps, the
+#: paper's SGD 1e-3, momentum 0.9), one f32 step of SSD_PARITY_BATCH images
+#: held to the CPU, then an int8 predict of SSD_BATCH images
+SSD_IMAGES, SSD_BATCH, SSD_PARITY_BATCH = 32, 8, 2
+SSD_LR, SSD_MOMENTUM = 1e-3, 0.9
+SSD_TIMED = 5
+#: the detections' score floor: 4 steps from random weights leave every
+#: class but the background near 1/21, under the default 0.3
+SSD_SCORE_THRESHOLD = 0.02
+#: the JAX package's own int8-vs-float gap of SSD300's raw head outputs
+#: (||int8 - float|| / ||float|| over (2, 8732, 25)), its fused int8 route
+#: in interpret mode, on the CPU at base_filters 8 from seeded weights and
+#: images: ``python3 scripts/torch_ssd_int8_gap.py``. 23a holds the card's
+#: gap at full width to twice this
+SSD_JAX_INT8_GAP = 0.005826776381582022
+
+
+def ssd_images(n: int, size: int, seed: int):
+    """Seeded mini-VOC images (``tests/test_ssd300.py::_shapes_dataset``):
+    class 1 a bright square, class 2 a horizontal bar, one object each;
+    NHWC float32, corner boxes normalised, labels."""
+    rng = np.random.default_rng(seed)
+    imgs = np.full((n, size, size, 3), 0.1, dtype="float32")
+    boxes, labels = [], []
+    for i in range(n):
+        cls = 1 + (i % 2)
+        if cls == 1:
+            s = rng.integers(size // 4, size // 2)
+            y0 = rng.integers(0, size - s)
+            x0 = rng.integers(0, size - s)
+            h = w = s
+        else:
+            h = rng.integers(size // 8, size // 5)
+            w = rng.integers(size // 2, 3 * size // 4)
+            y0 = rng.integers(0, size - h)
+            x0 = rng.integers(0, size - w)
+        color = [1.0, 0.2, 0.2] if cls == 1 else [0.2, 0.2, 1.0]
+        imgs[i, y0:y0 + h, x0:x0 + w] = color
+        boxes.append([[y0 / size, x0 / size, (y0 + h) / size,
+                       (x0 + w) / size]])
+        labels.append([cls])
+    return imgs, boxes, labels
+
+
+def _timed_fit(torch, est, fit, sync):
+    """Run ``fit()`` with the Estimator's step wrapped: each step's loss
+    and wall ms (synced before and after); returns (losses, step ms)."""
+    losses, ms, step = [], [], est._step
+
+    def record(batch):
+        sync()
+        t0 = time.perf_counter()
+        out = step(batch)
+        losses.append(float(out[0]))
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    est._step = record
+    try:
+        fit()
+    finally:
+        est._step = step
+    return losses, ms
+
+
+def _device_kernels(prof):
+    """The trace's device kernels in launch order: (name, µs)."""
+    from torch.autograd import DeviceType
+
+    evs = [e for e in prof.events()
+           if getattr(e, "device_type", None) == DeviceType.CUDA]
+    evs.sort(key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in evs]
+
+
+def _is_k6(name: str) -> bool:
+    # K6's kernels carry "Conv" (its gather and row maps) or are
+    # conv_dp4a_kernel (phase 8's profile reads them so)
+    return "Conv" in name or "conv_dp4a" in name
+
+
+def _traced(torch, fn, keep, want: int, n: int = 1):
+    """The device kernels ``keep(name)`` selects of ``n`` calls of ``fn``
+    under torch.profiler, (name, µs) in launch order, once a trace shows
+    at least ``want`` of them (a trace can lose events, late in the
+    script a whole trace's: up to 5 tries; one small kernel first)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(nm, us) for nm, us in _device_kernels(prof) if keep(nm)]
+        if len(rows) >= want:
+            return rows
+    raise AssertionError(f"no trace showed {want} kernels: last saw "
+                         f"{[nm[:60] for nm, _ in rows]}")
+
+
+def _not_elementwise(name: str) -> bool:
+    # the traces' leading small kernel (a fill and an add)
+    return "elementwise" not in name and "fill" not in name.lower()
+
+
+def phase23_ssd(torch, smi):
+    """23a: SSD300-VGG16 at full width, trained and int8-served (module
+    constants above). One f32 step (TF32 off since phase 1) on the card
+    and on the CPU from the same seed on the same images: loss within
+    1e-4 relative, the update within 1e-3 relative. The fit: step ms
+    (median), images/s, peak memory. ``InferenceModel.quantize_int8``
+    packs the six heads (the trunk's atrous convolutions stay float, as
+    in the JAX package): K6 = 6 launches a predict (counts set to 0 just
+    before, K5 none), each bit for bit its plain version on the same
+    inputs; the int8 raw outputs within twice SSD_JAX_INT8_GAP of the
+    float ones; ``ObjectDetector``'s decode and NMS over both; float and
+    int8 images/s (median of SSD_TIMED predicts); each head's K6 Timer ms
+    and device ms (the rows of one traced predict), beside its bound,
+    its plain version's ms (one call) and ``torch._int_mm`` over its
+    im2col codes (5 traced calls; N and M padded to its grid of 8 and at
+    least 32 rows)."""
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.models.image.objectdetection import \
+        ObjectDetector
+    from analytics_zoo_tpu_torch.nn.optimizers import SGD
+    from analytics_zoo_tpu_torch.ops import int8 as i8
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    walls = {}
+    t_all = time.perf_counter()
+    imgs, boxes, labels = ssd_images(SSD_IMAGES, 300, seed=23)
+    sync = torch.cuda.synchronize if DEV["cuda"] == "cuda" else \
+        (lambda: None)
+
+    def detector(dev):
+        det = ObjectDetector.from_config("ssd-vgg16-300x300", device=dev,
+                                         seed=0,
+                                         score_threshold=SSD_SCORE_THRESHOLD)
+        det.compile(optimizer=SGD(lr=SSD_LR, momentum=SSD_MOMENTUM))
+        return det
+
+    # one f32 step, card against cpu
+    t0 = time.perf_counter()
+    n = SSD_PARITY_BATCH
+    steps = {}
+    for where, dev in (("card", DEV["cuda"]), ("cpu", "cpu")):
+        det = detector(dev)
+        before = {k: v.detach().cpu().clone() for k, v in
+                  det.model.named_parameters()}
+        lo, _ = _timed_fit(torch, det.model.estimator, lambda: det.fit(
+            imgs[:n], boxes[:n], labels[:n], recalibrate_bn=False,
+            batch_size=n, nb_epoch=1), sync if where == "card" else
+            (lambda: None))
+        steps[where] = (lo, {k: v.detach().cpu() - before[k] for k, v in
+                             det.model.named_parameters()})
+        if where == "card":
+            card = det
+    (lc, dc), (lp, dp) = steps["card"], steps["cpu"]
+    n_params = sum(v.numel() for v in dp.values())
+    loss_gap = abs(lc[0] - lp[0]) / abs(lp[0])
+    num = sum(float((dc[k] - dp[k]).double().square().sum()) for k in dp)
+    den = sum(float(dp[k].double().square().sum()) for k in dp)
+    upd_gap = math.sqrt(num / den)
+    walls["23a_parity_step"] = time.perf_counter() - t0
+    ok = len(lc) == len(lp) == 1 and loss_gap <= 1e-4 and upd_gap <= 1e-3
+    log(f"[detect] 23a SSD300-VGG16, 21 classes, {n_params} parameters, "
+        f"8732 anchors: one f32 SGD step of {n} images, loss card "
+        f"{lc[0]:.7g} vs cpu {lp[0]:.7g} (relative gap {loss_gap:.3g}, tol "
+        f"1e-4), update relative gap {upd_gap:.3g} (tol 1e-3) "
+        f"{'ok' if ok else 'FAIL'} {smi}")
+    if not ok:
+        raise AssertionError("SSD300's f32 step on the card disagrees "
+                             "with the cpu")
+    del steps, dc, dp
+    # the fit on the card, continuing from that step
+    t0 = time.perf_counter()
+    card.compile(optimizer=SGD(lr=SSD_LR, momentum=SSD_MOMENTUM))
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = _timed_fit(torch, card.model.estimator,
+                                 lambda: card.fit(imgs, boxes, labels,
+                                                  batch_size=SSD_BATCH,
+                                                  nb_epoch=1), sync)
+    peak = torch.cuda.max_memory_allocated()
+    walls["23a_fit"] = time.perf_counter() - t0
+    med = statistics.median(step_ms)
+    log(f"[detect] 23a fit of {SSD_IMAGES} images at batch {SSD_BATCH}, "
+        f"SGD {SSD_LR} momentum {SSD_MOMENTUM}: {len(losses)} steps, "
+        f"losses {[round(v, 5) for v in losses]}, step ms "
+        f"{[round(v, 2) for v in step_ms]} (median {med:.2f}), "
+        f"{SSD_BATCH / med * 1e3:.1f} images/s, peak memory "
+        f"{peak / 2**20:.1f} MiB {smi}")
+    if len(losses) != SSD_IMAGES // SSD_BATCH or \
+            not np.isfinite(losses).all():
+        raise AssertionError("SSD300's fit on the card did not take its "
+                             "steps with finite losses")
+    # float predict, then int8
+    t0 = time.perf_counter()
+    x = imgs[:SSD_BATCH]
+    float_dets = card.predict(x, batch_size=SSD_BATCH)
+    im = InferenceModel(max_batch_size=SSD_BATCH, device=DEV["cuda"]).load(
+        card.model)
+    floats = im.predict(x)
+
+    def images_per_s(fn):
+        fn()
+        ts = []
+        for _ in range(SSD_TIMED):
+            sync()
+            t = time.perf_counter()
+            fn()
+            sync()
+            ts.append(time.perf_counter() - t)
+        return len(x) / statistics.median(ts)
+
+    float_rate = images_per_s(lambda: im.predict(x))
+    im.quantize_int8()
+    im.predict(x)
+    calls = {"K5": [], "K6": []}
+    orig = (i8.int8_matmul_fused, i8.int8_conv2d_fused)
+    i8.int8_matmul_fused = _recording(orig[0], calls["K5"])
+    i8.int8_conv2d_fused = _recording(orig[1], calls["K6"])
+    f8.int8_matmul_fused.launches = f8.int8_conv2d_fused.launches = 0
+    try:
+        raw = im.predict(x)
+    finally:
+        i8.int8_matmul_fused, i8.int8_conv2d_fused = orig
+    k5, k6 = f8.int8_matmul_fused.launches, f8.int8_conv2d_fused.launches
+    log(f"[detect] 23a int8 predict of {len(x)}: packed slots "
+        f"{len(im.packed_slots)} {im.packed_slots}; launches K6 {k6} (need "
+        f"6), K5 {k5} (need 0)")
+    if (k6, k5) != (6, 0) or len(calls["K6"]) != 6 or calls["K5"]:
+        raise AssertionError("the int8 SSD300 did not run K6 on its six "
+                             "heads")
+    int8_rate = images_per_s(lambda: im.predict(x))
+    heads = []
+    for args, kw, out in calls["K6"]:
+        xin, packed = args[0], args[1]
+        stride, pads, rule = kw["stride"], kw["pads"], kw["rule"]
+        _i8_check(out, f8.int8_conv2d_fused_plain(xin, packed, stride, pads,
+                                                  rule), "float32",
+                  f"[detect] 23a K6 {tuple(xin.shape)} -> "
+                  f"{tuple(out.shape)} {rule}")
+        heads.append((xin, packed, stride, pads, rule, out))
+    gap = float(np.linalg.norm(raw - floats) / np.linalg.norm(floats))
+    int8_dets = card._detections(raw)
+    tol = 2 * SSD_JAX_INT8_GAP
+    ok = raw.shape == floats.shape == (len(x), 8732, 25) and \
+        np.isfinite(raw).all() and gap <= tol
+    top_same = sum(bool(a) and bool(b) and a[0][0] == b[0][0]
+                   for a, b in zip(float_dets, int8_dets))
+    log(f"[detect] 23a int8 vs float raw outputs {raw.shape}: relative gap "
+        f"{gap:.4g} (tol 2 x the JAX package's {SSD_JAX_INT8_GAP:.4g} = "
+        f"{tol:.4g}) {'ok' if ok else 'FAIL'}; detections a image float "
+        f"{[len(d) for d in float_dets]}, int8 {[len(d) for d in int8_dets]}"
+        f", top class the same in {top_same}; images/s float "
+        f"{float_rate:.1f}, int8 {int8_rate:.1f} {smi}")
+    if not ok:
+        raise AssertionError("the int8 SSD300's outputs are off its float "
+                             "ones")
+    if len(float_dets) != len(x) or any(
+            not (0 <= c < 21 and np.isfinite(s) and len(b) == 4)
+            for d in float_dets + int8_dets for c, s, b in d):
+        raise AssertionError("SSD300's detections are malformed")
+    walls["23a_predict"] = time.perf_counter() - t0
+    # K6 a head, from the device rows of one traced predict
+    t0 = time.perf_counter()
+    shapes = []
+    if DEV["cuda"] == "cuda":
+        timer = Timer(torch)
+        rows = _traced(torch, lambda: im.predict(x), _is_k6, want=12)
+        if len(rows) != 12:
+            raise AssertionError(f"the traced predict shows {len(rows)} K6 "
+                                 f"kernels, not 12")
+    for i, (xin, packed, stride, pads, rule, out) in enumerate(heads):
+        b, h, w, cin = xin.shape
+        cout = out.shape[-1]
+        taps = (3 * h - 2) * (3 * w - 2)       # in-bounds (pixel, tap) pairs
+        bms, by = bound_ms(xin.numel() * 4 + 9 * cin * cout + 4 * cout
+                           + out.numel() * 4, 2 * b * taps * cin * cout,
+                           "int8")
+        row = {"shape": f"B={b} {h}x{w}x{cin} -> {cout}, 3x3/1 SAME",
+               "rule": rule, "launches_per_predict": 1, "bound_ms": bms,
+               "bound_by": by, "ms": float("nan"),
+               "device_ms": float("nan"),
+               "library_device_ms": float("nan"), "plain_ms": float("nan")}
+        if DEV["cuda"] == "cuda":
+            row["device_ms"] = (rows[2 * i][1] + rows[2 * i + 1][1]) / 1e3
+            row["ms"] = timer(lambda: orig[1](xin, packed, stride, pads,
+                                              rule), n=20)
+            m = max(-(-b * h * w // 8) * 8, 32)
+            nn_ = -(-cout // 8) * 8
+            a = torch.randint(-127, 128, (m, 9 * cin), dtype=torch.int8,
+                              device="cuda")
+            wq = torch.randint(-127, 128, (9 * cin, nn_), dtype=torch.int8,
+                               device="cuda")
+            lib = _traced(torch, lambda: torch._int_mm(a, wq),
+                          _not_elementwise, want=5, n=5)
+            row["library_device_ms"] = sum(us for _, us in lib) / 5 / 1e3
+            row["library_shape"] = f"({m}, {9 * cin}) x ({9 * cin}, {nn_})"
+            sync()
+            t = time.perf_counter()
+            f8.int8_conv2d_fused_plain(xin, packed, stride, pads, rule)
+            sync()
+            row["plain_ms"] = (time.perf_counter() - t) * 1e3
+        shapes.append(row)
+        log(f"[detect] 23a K6 {row['shape']} ({rule}): Timer "
+            f"{row['ms']:.5f} ms, device "
+            f"{row['device_ms']:.5f} ms a launch (traced predict; bound "
+            f"{bms:.5f} by {by}), plain {row['plain_ms']:.4f}, "
+            f"torch._int_mm {row.get('library_shape')} device "
+            f"{row['library_device_ms']:.5f} {smi}")
+    walls["23a_k6_rows"] = time.perf_counter() - t0
+    walls["23a"] = time.perf_counter() - t_all
+    del im, card
+    return {"K6": k6, "k6_shapes": shapes, "gap": gap, "step_ms": med,
+            "losses": losses, "walls": walls}
+
+
+#: 23b: Seq2seq, a 2-layer LSTM encoder and decoder at hidden S2S_HIDDEN
+#: over (S2S_T, S2S_FEATURES) sequences, 2 Adam steps of S2S_BATCH, then
+#: ``infer`` for S2S_INFER steps; the GANEstimator of
+#: ``tests/test_gan_profiling.py`` (Dense 16 → 2 from noise 4, Dense 16 →
+#: 1), 2 steps of 64
+S2S_HIDDEN, S2S_T, S2S_FEATURES, S2S_BATCH, S2S_INFER = 256, 32, 64, 16, 16
+#: 23c: an ONNX stem at ResNet-50's widths (7x7/2 3→64, BN, ReLU, 3x3/2
+#: max pool, global average, Gemm 64→1000) on 224x224 batches of
+#: IMP_BATCH; a TF MLP 2048→4096→4096 (frozen and SavedModel); the Caffe
+#: LeNet of ``tests/test_caffe_import.py``
+IMP_BATCH, IMP_MLP = 32, (2048, 4096, 4096)
+
+
+def _gap(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max())
+
+
+def phase23_seq2seq_gan(torch, smi):
+    """23b: Seq2seq and GANEstimator on the card and on the CPU from the
+    same seed on the same data: per-step losses within 1e-4 relative,
+    ``infer``'s outputs within 1e-4, the GAN's noise, losses and samples
+    within 1e-4."""
+    from analytics_zoo_tpu_torch.engine import GANEstimator
+    from analytics_zoo_tpu_torch.models.seq2seq import (Bridge, RNNDecoder,
+                                                        RNNEncoder, Seq2seq)
+    from analytics_zoo_tpu_torch.nn import layers as L
+    from analytics_zoo_tpu_torch.nn.optimizers import Adam
+    from analytics_zoo_tpu_torch.nn.topology import Sequential
+
+    rng = np.random.default_rng(23)
+    n = 2 * S2S_BATCH
+    enc_in = rng.normal(size=(n, S2S_T, S2S_FEATURES)).astype("float32")
+    dec_in = rng.normal(size=(n, S2S_T, S2S_FEATURES)).astype("float32")
+    target = rng.normal(size=(n, S2S_T, S2S_HIDDEN)).astype("float32")
+    sync = torch.cuda.synchronize if DEV["cuda"] == "cuda" else \
+        (lambda: None)
+    res = {}
+    for where, dev in (("card", DEV["cuda"]), ("cpu", "cpu")):
+        m = Seq2seq(RNNEncoder.initialize("lstm", 2, S2S_HIDDEN),
+                    RNNDecoder.initialize("lstm", 2, S2S_HIDDEN),
+                    input_shape=(S2S_T, S2S_FEATURES),
+                    output_shape=(S2S_T, S2S_FEATURES),
+                    bridge=Bridge.initialize("dense", S2S_HIDDEN),
+                    device=dev, seed=0)
+        m.compile(optimizer=Adam(lr=1e-3), loss="mse")
+        t0 = time.perf_counter()
+        losses, ms = _timed_fit(torch, m.estimator, lambda: m.fit(
+            [enc_in, dec_in], target, batch_size=S2S_BATCH, nb_epoch=1),
+            sync if where == "card" else (lambda: None))
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gen = m.infer(enc_in[:4], start_sign=np.zeros((4, S2S_FEATURES),
+                                                      "float32"),
+                      max_seq_len=S2S_INFER,
+                      build_output=lambda y: y[:, :S2S_FEATURES])
+        res[where] = (losses, gen, fit_s, time.perf_counter() - t0, ms)
+    (lc, gc, fc, ic, msc), (lp, gp, _, _, _) = res["card"], res["cpu"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    infer_gap = _gap(gc, gp)
+    ok = (len(lc) == len(lp) == 2 and gc.shape == (4, S2S_INFER, S2S_HIDDEN)
+          and np.isfinite(gc).all() and loss_gap <= 1e-4
+          and infer_gap <= 1e-4)
+    log(f"[seq2seq-gan] 23b Seq2seq LSTM 2x{S2S_HIDDEN} (encoder and "
+        f"decoder, dense bridge), {S2S_T} steps of {S2S_FEATURES}: 2 Adam "
+        f"steps of {S2S_BATCH}, losses card {[round(v, 6) for v in lc]} "
+        f"vs cpu {[round(v, 6) for v in lp]} (relative gap {loss_gap:.3g}, "
+        f"tol 1e-4); step ms {[round(v, 2) for v in msc]}, fit {fc:.2f} s;"
+        f" infer {S2S_INFER} steps of 4 in {ic:.2f} s, max|d| vs cpu "
+        f"{infer_gap:.3g} (tol 1e-4) {'ok' if ok else 'FAIL'} {smi}")
+    if not ok:
+        raise AssertionError("Seq2seq on the card disagrees with the cpu")
+    real = (np.random.default_rng(0).standard_normal((128, 2)) * 0.2
+            + np.array([3.0, -2.0])).astype("float32")
+    gan = {}
+    for where, dev in (("card", DEV["cuda"]), ("cpu", "cpu")):
+        g = Sequential([L.Dense(16, activation="relu", input_shape=(4,)),
+                        L.Dense(2)], device=dev, seed=0)
+        d = Sequential([L.Dense(16, activation="relu", input_shape=(2,)),
+                        L.Dense(1)], device=dev, seed=1)
+        est = GANEstimator(g, d, noise_dim=4, gen_optimizer=Adam(lr=5e-3),
+                           disc_optimizer=Adam(lr=5e-3))
+        steps, step = [], est._train_step
+
+        def record(batch, step=step, steps=steps):
+            d_l, g_l = step(batch)
+            steps.append((float(d_l), float(g_l)))
+            return d_l, g_l
+
+        est._train_step = record
+        t0 = time.perf_counter()
+        est.fit(real, batch_size=64, epochs=1)
+        gan[where] = (steps, est.generate(64, seed=3),
+                      time.perf_counter() - t0)
+    (sc, fc_, tc), (sp, fp, _) = gan["card"], gan["cpu"]
+    g_gap = max(abs(a - b) for x, y in zip(sc, sp) for a, b in zip(x, y))
+    s_gap = _gap(fc_, fp)
+    ok = len(sc) == len(sp) == 2 and g_gap <= 1e-4 and s_gap <= 1e-4
+    log(f"[seq2seq-gan] 23b GANEstimator (Dense 16 -> 2 from noise 4; Dense "
+        f"16 -> 1), 2 steps of 64: (d, g) losses card {sc} vs cpu {sp}, "
+        f"max|d| {g_gap:.3g}; generate(64) max|d| {s_gap:.3g} (tol 1e-4); "
+        f"fit {tc:.2f} s {'ok' if ok else 'FAIL'} {smi}")
+    if not ok:
+        raise AssertionError("the GAN on the card disagrees with the cpu")
+    return {"seq2seq_loss_gap": loss_gap, "infer_gap": infer_gap,
+            "gan_gap": g_gap}
+
+
+def _stem_onnx():
+    """The ONNX stem of 23c (port encoders), seeded weights."""
+    from analytics_zoo_tpu_torch.importers.onnx_proto import (
+        Attribute, Graph, Node, ValueInfo, encode_model)
+
+    rng = np.random.default_rng(24)
+
+    def ints(name, v):
+        return Attribute(name=name, ints=tuple(v))
+
+    g = Graph(name="resnet50_stem")
+    g.initializers = {
+        "w": (rng.standard_normal((64, 3, 7, 7)) * 0.1).astype("float32"),
+        "b": rng.standard_normal(64).astype("float32"),
+        "s": rng.uniform(0.5, 1.5, 64).astype("float32"),
+        "o": rng.standard_normal(64).astype("float32"),
+        "m": rng.standard_normal(64).astype("float32"),
+        "v": rng.uniform(0.5, 2.0, 64).astype("float32"),
+        "fc": (rng.standard_normal((1000, 64)) * 0.1).astype("float32"),
+        "fb": rng.standard_normal(1000).astype("float32")}
+    g.inputs = [ValueInfo("x", (None, 3, IMG, IMG))]
+    g.outputs = [ValueInfo("y", (None, 1000))]
+    g.nodes = [
+        Node("Conv", ["x", "w", "b"], ["c"], "conv1", attrs={
+            "kernel_shape": ints("kernel_shape", (7, 7)),
+            "strides": ints("strides", (2, 2)),
+            "pads": ints("pads", (3, 3, 3, 3))}),
+        Node("BatchNormalization", ["c", "s", "o", "m", "v"], ["n"], "bn1"),
+        Node("Relu", ["n"], ["r"], "relu"),
+        Node("MaxPool", ["r"], ["p"], "pool", attrs={
+            "kernel_shape": ints("kernel_shape", (3, 3)),
+            "strides": ints("strides", (2, 2)),
+            "pads": ints("pads", (1, 1, 1, 1))}),
+        Node("GlobalAveragePool", ["p"], ["gp"], "gap"),
+        Node("Flatten", ["gp"], ["f"], "flatten"),
+        Node("Gemm", ["f", "fc", "fb"], ["y"], "fc", attrs={
+            "transB": Attribute(name="transB", i=1)})]
+    return encode_model(g)
+
+
+def _tf_mlp(tmp, saved: bool):
+    """23c's TF MLP (port encoders): a frozen graph (weights as Consts) or
+    a SavedModel (weights as variables in a checkpoint bundle)."""
+    from analytics_zoo_tpu_torch.importers import tf_proto as tp
+
+    rng = np.random.default_rng(25)
+    d0, d1, d2 = IMP_MLP
+    w = {"w1": (rng.standard_normal((d0, d1)) / np.sqrt(d0)).astype(
+        "float32"), "b1": rng.standard_normal(d1).astype("float32") * 0.1,
+         "w2": (rng.standard_normal((d1, d2)) / np.sqrt(d1)).astype(
+        "float32"), "b2": rng.standard_normal(d2).astype("float32") * 0.1}
+
+    def node(name, op, inputs=(), **attrs):
+        nd = tp.TFNode(name=name, op=op, inputs=list(inputs))
+        for k, v in attrs.items():
+            nd.attrs[k] = tp.AttrValue(tensor=v)
+        return nd
+
+    if saved:
+        weights = [node(k, "VarHandleOp") for k in w] + [
+            node(f"{k}/Read", "ReadVariableOp", [k]) for k in w]
+        ref = {k: f"{k}/Read" for k in w}
+    else:
+        weights = [node(k, "Const", value=v) for k, v in w.items()]
+        ref = {k: k for k in w}
+    graph = tp.TFGraph(nodes=[node("x", "Placeholder")] + weights + [
+        node("mm1", "MatMul", ["x", ref["w1"]]),
+        node("h", "BiasAdd", ["mm1", ref["b1"]]),
+        node("r", "Relu", ["h"]), node("mm2", "MatMul", ["r", ref["w2"]]),
+        node("y", "BiasAdd", ["mm2", ref["b2"]])])
+    if not saved:
+        path = os.path.join(tmp, "mlp.pb")
+        with open(path, "wb") as f:
+            f.write(graph.encode())
+        return path
+    path = os.path.join(tmp, "mlp_saved")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "saved_model.pb"), "wb") as f:
+        f.write(tp.SavedModel(graph=graph, signatures={
+            "serving_default": tp.SignatureDef(
+                inputs={"x": "x:0"}, outputs={"y": "y:0"})}).encode())
+    tp.write_checkpoint_bundle(os.path.join(path, "variables", "variables"),
+                               w)
+    return path
+
+
+def phase23_importers(torch, smi, tmp):
+    """23c: imported graphs on the card against the same graphs on the
+    CPU, within 1e-4: the ONNX stem (``load_onnx``), the TF MLP frozen
+    and as a SavedModel through ``InferenceModel.load_tf``, float and
+    after ``quantize_int8`` (weight-only: no K5 or K6 there, counted), and
+    the Caffe LeNet. Prints each predict's ms on the card."""
+    from analytics_zoo_tpu_torch.importers import caffe, load_onnx
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    sync = torch.cuda.synchronize if DEV["cuda"] == "cuda" else \
+        (lambda: None)
+    rng = np.random.default_rng(26)
+    rows = {}
+
+    def timed(fn):
+        fn()
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t) * 1e3
+
+    buf = _stem_onnx()
+    x = rng.standard_normal((IMP_BATCH, 3, IMG, IMG)).astype("float32")
+    outs = {}
+    for where, dev in (("card", DEV["cuda"]), ("cpu", "cpu")):
+        m = load_onnx(buf, device=dev)
+        m.compile(optimizer="sgd", loss="mse")
+        outs[where] = timed(lambda: m.predict(x, batch_size=IMP_BATCH))
+    rows["onnx_stem"] = (_gap(outs["card"][0], outs["cpu"][0]),
+                         outs["card"][1], outs["card"][0].shape)
+    xm = rng.standard_normal((IMP_BATCH, IMP_MLP[0])).astype("float32")
+    for saved in (False, True):
+        path = _tf_mlp(tmp, saved)
+        for int8 in (False, True):
+            outs = {}
+            for where, dev in (("card", DEV["cuda"]), ("cpu", "cpu")):
+                im = InferenceModel(max_batch_size=IMP_BATCH,
+                                    device=dev).load_tf(path)
+                if int8:
+                    im.quantize_int8()
+                f8.int8_matmul_fused.launches = 0
+                f8.int8_conv2d_fused.launches = 0
+                outs[where] = timed(lambda: im.predict(xm))
+                if where == "card" and (f8.int8_matmul_fused.launches
+                                        or f8.int8_conv2d_fused.launches):
+                    raise AssertionError("a weight-only model launched K5 "
+                                         "or K6")
+                packed = len(im._wo_packed)
+            label = (f"tf_{'saved' if saved else 'frozen'}_"
+                     f"{'int8' if int8 else 'float'}")
+            rows[label] = (_gap(outs["card"][0], outs["cpu"][0]),
+                           outs["card"][1], outs["card"][0].shape)
+            if int8 and packed != (2 if saved else 0):
+                raise AssertionError(f"{label}: {packed} weight-only "
+                                     f"leaves packed")
+    proto = os.path.join(tmp, "lenet.prototxt")
+    with open(proto, "w") as f:
+        f.write(CAFFE_LENET)
+    weights = os.path.join(tmp, "lenet.caffemodel")
+    with open(weights, "wb") as f:
+        f.write(caffe.encode_caffemodel({
+            "conv1": [rng.standard_normal((6, 3, 3, 3)).astype("float32"),
+                      rng.standard_normal(6).astype("float32")],
+            "ip1": [rng.standard_normal((4, 216)).astype("float32"),
+                    rng.standard_normal(4).astype("float32")]}))
+    xc = rng.standard_normal((IMP_BATCH, 3, 12, 12)).astype("float32")
+    outs = {where: timed(lambda: caffe.load_caffe(
+        proto, weights, device=dev).predict(xc))
+        for where, dev in (("card", DEV["cuda"]), ("cpu", "cpu"))}
+    rows["caffe_lenet"] = (_gap(outs["card"][0], outs["cpu"][0]),
+                           outs["card"][1], outs["card"][0].shape)
+    ok = all(g <= 1e-4 for g, _, _ in rows.values())
+    for label, (g, ms, shape) in rows.items():
+        log(f"[importers] 23c {label} {tuple(shape)}: max|d| card vs cpu "
+            f"{g:.3g} (tol 1e-4), predict {ms:.2f} ms on the card {smi}")
+    if not ok:
+        raise AssertionError("an imported graph on the card disagrees with "
+                             "the cpu")
+    return {k: v[0] for k, v in rows.items()}
+
+
+CAFFE_LENET = """
+name: "MiniLeNet"
+layer { name: "data" type: "Input" top: "data"
+        input_param { shape { dim: 1 dim: 3 dim: 12 dim: 12 } } }
+layer { name: "conv1" type: "Convolution" bottom: "data" top: "conv1"
+        convolution_param { num_output: 6 kernel_size: 3 stride: 1 pad: 1 } }
+layer { name: "relu1" type: "ReLU" bottom: "conv1" top: "conv1" }
+layer { name: "pool1" type: "Pooling" bottom: "conv1" top: "pool1"
+        pooling_param { pool: MAX kernel_size: 2 stride: 2 } }
+layer { name: "ip1" type: "InnerProduct" bottom: "pool1" top: "ip1"
+        inner_product_param { num_output: 4 } }
+layer { name: "prob" type: "Softmax" bottom: "ip1" top: "prob" }
+"""
+
+
+def phase_detection(torch, smi, tmp):
+    """Phase 23 (``[detect]``, ``[seq2seq-gan]``, ``[importers]`` lines):
+    23a SSD300-VGG16, 23b Seq2seq and the GAN trainer, 23c the
+    importers. Returns 23a's K6 launches and rows."""
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+
+    set_policy(compute_dtype="float32")
+    t_all = time.perf_counter()
+    ssd = phase23_ssd(torch, smi)
+    torch.cuda.empty_cache()
+    walls = dict(ssd["walls"])
+    t0 = time.perf_counter()
+    phase23_seq2seq_gan(torch, smi)
+    walls["23b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase23_importers(torch, smi, tmp)
+    walls["23c"] = time.perf_counter() - t0
+    walls["total"] = time.perf_counter() - t_all
+    log(f"[detect] phase wall s {json.dumps(walls)} {smi}")
+    return ssd
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -8894,6 +9583,11 @@ def main(argv=None) -> int:
                               ("K1", "K3", "K4")):
                 k["launches_by_path"]["bert"] = text[key]
                 k["bert_shape"] = text["shapes"][key]
+            torch.cuda.empty_cache()
+            with tempfile.TemporaryDirectory(prefix="zoo_det_") as tmp:
+                det = phase_detection(torch, smi, tmp)
+            kernels[6]["launches_by_path"]["ssd_predict"] = det["K6"]
+            kernels[6]["ssd_shapes"] = det["k6_shapes"]
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):

@@ -73,7 +73,11 @@ K3 and K4 without a causal mask at 12 heads of 64 (B=8 T=512, BERT-base's
 fine-tuning batch, and T=8, 100, 129) against their plain versions; a
 small BERTClassifier's probabilities and two ``fit`` steps, and BERTNER's
 log-probs and an NER tagger's two dropout steps, to the CPU's on the same
-seeded weights.
+seeded weights. SSD and the importers on the card (``-k "ssd300 or
+importer"``): K6 at SSD300's six head shapes bitwise its plain version,
+an SSD300 f32 step to the CPU's loss and update with six K6 launches an
+int8 predict, and imported ONNX, TF and Caffe graphs to the CPU's
+outputs.
 """
 
 import math
@@ -2014,3 +2018,96 @@ def test_bert_ner_and_text_models_on_card_match_cpu(cuda):
         losses[str(dev)] = [h["loss"] for h in m.estimator.history]
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0,
                                atol=1e-4)
+
+
+#: SSD300-VGG16's six 3x3 stride-1 SAME detection heads at batch 8, the
+#: shapes an int8 predict gives K6: (px, Cin, Cout); Cout off the tile,
+#: and at 3 and 1 px most taps read padding
+SSD300_HEADS = [(38, 512, 100), (19, 1024, 150), (10, 512, 150),
+                (5, 256, 150), (3, 256, 100), (1, 256, 100)]
+
+
+@pytest.mark.parametrize("dtype", I8_DTYPES)
+@pytest.mark.parametrize("hw,cin,cout", SSD300_HEADS)
+def test_int8_conv_kernel_at_ssd300_head_shapes(cuda, dtype, hw, cin, cout):
+    """K6 bitwise equal to its plain version at each of SSD300's head
+    shapes, through the router (the fused rule at stride 1)."""
+    from analytics_zoo_tpu_torch.ops import int8 as i8
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    rng = np.random.default_rng(hw * 7 + cin + cout)
+    packed = _packed_kernel_major(rng, (3, 3, cin, cout), cuda)
+    x = torch.from_numpy(rng.normal(size=(8, hw, hw, cin)).astype(
+        np.float32)).to(cuda).to(dtype)
+    before = f8.int8_conv2d_fused.launches
+    y = i8.int8_conv2d(x, packed, strides=(1, 1), padding="SAME")
+    ref = f8.int8_conv2d_fused_plain(x, packed, (1, 1), ((1, 1), (1, 1)),
+                                     "fused")
+    torch.cuda.synchronize()
+    assert f8.int8_conv2d_fused.launches == before + 1
+    assert y.shape == (8, hw, hw, cout) and torch.equal(y, ref)
+
+
+def test_ssd300_step_on_card_matches_cpu(cuda):
+    """One f32 SGD step of SSD300-VGG16 (base_filters 8, 2 seeded 300x300
+    images; TF32 off for cuDNN) on the card to the CPU's loss and update,
+    and the int8 predict of its six heads: K6 six times."""
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.models.image import objectdetection as od
+    from analytics_zoo_tpu_torch.nn.optimizers import SGD
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+
+    torch.backends.cudnn.allow_tf32 = False      # f32 convs, as the CPU's
+    rng = np.random.default_rng(8)
+    imgs = rng.uniform(0, 1, (2, 300, 300, 3)).astype(np.float32)
+    boxes = [[[0.1, 0.2, 0.5, 0.6]], [[0.3, 0.1, 0.9, 0.4]]]
+    labels = [[1], [2]]
+    out = {}
+    for dev in ("cpu", cuda):
+        det = od.ObjectDetector(21, model_name="ssd-vgg16-300x300",
+                                base_filters=8, device=dev)
+        det.compile(optimizer=SGD(lr=1e-3, momentum=0.9))
+        before = {k: v.detach().cpu().clone()
+                  for k, v in det.model.named_parameters()}
+        det.model.estimator.config.log_every_n_steps = 1
+        det.fit(imgs, boxes, labels, batch_size=2, nb_epoch=1)
+        out[str(dev)] = ([h["loss"] for h in det.model.estimator.history],
+                         {k: v.detach().cpu() - before[k]
+                          for k, v in det.model.named_parameters()}, det)
+    (lc, dc, det), (lp, dp, _) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(lc, lp, rtol=1e-5, atol=0)
+    num = sum(float((dc[k] - dp[k]).double().square().sum()) for k in dp)
+    den = sum(float(dp[k].double().square().sum()) for k in dp)
+    assert math.sqrt(num / den) <= 1e-3
+    im = InferenceModel(max_batch_size=2, device=cuda).load(det.model)
+    floats = im.predict(imgs)
+    im.quantize_int8()
+    before = f8.int8_conv2d_fused.launches
+    raw = im.predict(imgs)
+    assert f8.int8_conv2d_fused.launches == before + 6
+    assert raw.shape == (2, 8732, 25) and np.isfinite(raw).all()
+    assert np.linalg.norm(raw - floats) / np.linalg.norm(floats) < 0.02
+
+
+def test_importer_graphs_on_card_match_cpu(cuda, tmp_path):
+    """An ONNX conv stem, a TF frozen MLP and SavedModel (through
+    ``InferenceModel.load_tf``, float and weight-only int8) and a Caffe
+    LeNet on the card against the CPU, within 1e-4 (TF32 off for
+    cuDNN)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+
+    torch.backends.cudnn.allow_tf32 = False      # f32 convs, as the CPU's
+    old = (cs.IMP_BATCH, cs.IMP_MLP, cs.IMG)
+    cs.IMP_BATCH, cs.IMP_MLP, cs.IMG = 4, (256, 512, 128), 64
+    try:
+        gaps = cs.phase23_importers(torch, "test", str(tmp_path))
+    finally:
+        cs.IMP_BATCH, cs.IMP_MLP, cs.IMG = old
+    assert set(gaps) == {"onnx_stem", "tf_frozen_float", "tf_frozen_int8",
+                         "tf_saved_float", "tf_saved_int8", "caffe_lenet"}
+    assert max(gaps.values()) <= 1e-4

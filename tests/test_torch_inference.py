@@ -224,7 +224,8 @@ def test_device_apply_runs_the_quantized_forward():
         fn(params, state, torch.from_numpy(x)).numpy(), im.predict(x))
 
 
-_LOADERS = (lambda im: im.load_tf("p"), lambda im: im.load_fn(None, {}))
+_LOADERS = (lambda im: im.load_tf("p"),
+            lambda im: im.load_fn(lambda p, s, x: x * 2.0, {}))
 
 
 @pytest.mark.parametrize("call", list(_LOADERS) + [
@@ -232,12 +233,18 @@ _LOADERS = (lambda im: im.load_tf("p"), lambda im: im.load_fn(None, {}))
     lambda im: im.check_memory(np.ones((1, 16), np.float32)),
     lambda im: im.warm_up(np.ones((1, 16), np.float32), graph_checks="warn")])
 def test_unported_paths_raise_naming_roadmap(call):
-    """The model loaders still raise naming ROADMAP; the graph checks are
-    ported and find nothing on a clean float model."""
+    """The model loaders are ported: ``load_tf`` of a missing file raises
+    FileNotFoundError and ``load_fn`` serves its function
+    (``tests/test_torch_importers.py`` holds both to the JAX package); the
+    graph checks find nothing on a clean float model."""
     im = InferenceModel(device="cpu").load(_mlp())
-    if call in _LOADERS:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if call is _LOADERS[0]:
+        with pytest.raises(FileNotFoundError):
             call(im)
+    elif call is _LOADERS[1]:
+        call(im)
+        x = np.ones((2, 16), np.float32)
+        np.testing.assert_array_equal(im.predict(x), 2 * x)
     else:
         assert call(im) in ([], None)
 

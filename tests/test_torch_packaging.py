@@ -357,3 +357,35 @@ def test_the_text_slice_is_in_the_port_without_jax():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == [] and len(res["found"]) == 10, res
+
+
+def test_the_detection_seq2seq_gan_and_importer_slice_is_in_the_port():
+    """SSD, Seq2seq, the GAN trainer and the eight importers mirror the
+    JAX package's paths and load in a fresh interpreter with none of
+    ``jax``, the JAX package, ``ml_dtypes``, ``h5py`` or ``tensorflow``
+    (the card's machine has neither of the last two)."""
+    rels = ["models/image/objectdetection.py", "models/seq2seq/__init__.py",
+            "models/seq2seq/seq2seq.py", "engine/gan.py"] + [
+        f"importers/{m}.py" for m in ("__init__", "onnx_proto",
+                                      "onnx_loader", "torch_loader",
+                                      "keras_h5", "tf_proto", "tf_net",
+                                      "caffe", "net")]
+    for rel in rels:
+        assert (PKG / rel).is_file(), rel
+        assert (ROOT / "analytics_zoo_tpu" / rel).is_file(), rel
+    mods = [("analytics_zoo_tpu_torch." + r[:-3].replace("/", "."))
+            .removesuffix(".__init__") for r in rels]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from analytics_zoo_tpu_torch.engine import GANEstimator\n"
+        "from analytics_zoo_tpu_torch.models.image import ObjectDetector\n"
+        "from analytics_zoo_tpu_torch.importers import Net\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'analytics_zoo_tpu', 'ml_dtypes', 'h5py', "
+        "'tensorflow'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
