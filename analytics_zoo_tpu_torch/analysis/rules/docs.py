@@ -46,7 +46,6 @@ NOT_YET_PORTED: Dict[str, str] = {
         "ROADMAP Queue 2, the Hopper tile table (ops/tuning.py)",
     "zoo_kernel_tuning_sweeps_total":
         "ROADMAP Queue 2, the Hopper tile table (ops/tuning.py)",
-    "zoo_orca_fit_total": "ROADMAP Queue 1, item 7.5 (orca/)",
 }
 
 

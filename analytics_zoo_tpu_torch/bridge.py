@@ -57,13 +57,18 @@ def params_from_jax(tree: Mapping[str, Any], *, device="cpu"
                     ) -> Dict[str, torch.Tensor]:
     """Flatten a nested dict of numpy arrays (a JAX param tree after
     ``tree_map(np.asarray, ...)``) into a state dict of tensors on
-    ``device``, keyed by the dotted tree path, dtypes unchanged."""
+    ``device``, keyed by the dotted tree path, dtypes unchanged. A list in
+    the tree (a layer's list of sub-trees) is keyed by index, as an
+    ``nn.ModuleList`` names its children."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, prefix):
         if isinstance(node, Mapping):
             for k, v in node.items():
                 walk(v, f"{prefix}{k}.")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}.")
         else:
             out[prefix[:-1]] = _to_tensor(node).to(device)
 

@@ -190,6 +190,7 @@ KNOWN_SITES = {
     "serving.infer",      # serving/engine.py, each infer-worker batch
     "swap.stage",         # serving/hotswap.py, between a swap's checks and
                           # its load
+    "task_pool.worker",   # orca/task_pool.py, before each task or actor call
 }
 
 

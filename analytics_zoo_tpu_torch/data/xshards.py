@@ -5,11 +5,9 @@ orca ``XShards``).
 A shard is a host-side partition list; ``transform_shard`` maps a function
 over partitions (eagerly, or lazily until the first materialisation), and
 ``collect_tree``/``to_featureset`` hand the data to the training engine
-(``FeatureSet.from_xshards``). pandas is imported only by the readers
-(``read_csv``, ``read_json``, ``read_parquet``).
-
-Not ported: ``parallel_apply``, whose worker processes are the orca
-``TaskPool`` (ROADMAP Queue 1, item 11, ``orca/``).
+(``FeatureSet.from_xshards``); ``parallel_apply`` runs partitions in the
+worker processes of orca's ``TaskPool``. pandas is imported only by the
+readers (``read_csv``, ``read_json``, ``read_parquet``).
 """
 
 from __future__ import annotations
@@ -34,7 +32,7 @@ class XShards:
     Transforms can be **lazy** (``transform_shard(fn, lazy=True)`` records the
     fn; the chain runs on first materialization — SparkXShards' deferred DAG
     semantics) and **parallel** (``parallel_apply`` fans partitions out over a
-    pool of worker processes — the Spark-executor role; not ported)."""
+    pool of worker processes — the Spark-executor role)."""
 
     def __init__(self, partitions: Sequence[Any],
                  pending: Sequence[Callable] = ()):
@@ -96,11 +94,24 @@ class XShards:
 
     def parallel_apply(self, fn: Callable, *args, num_workers: int = 4,
                        pool=None) -> "XShards":
-        """Apply ``fn`` to partitions in worker processes: needs the orca
-        ``TaskPool``, which is not ported."""
-        raise NotImplementedError(
-            "XShards.parallel_apply needs orca's TaskPool, which is not "
-            "ported (ROADMAP Queue 1, item 11, orca/)")
+        """Apply ``fn`` to partitions in worker processes (the role Spark
+        executors play for SparkXShards). Any pending lazy chain runs
+        inside the workers too. Pass ``pool`` to reuse a live
+        ``orca.TaskPool``; otherwise a temporary one is spawned. The
+        workers have no card (``orca/task_pool.py``)."""
+        from ..orca.task_pool import TaskPool
+
+        chain = list(self._pending)
+
+        def run(part):
+            for g in chain:
+                part = g(part)
+            return fn(part, *args)
+
+        if pool is not None:
+            return XShards(pool.map(run, self._parts))
+        with TaskPool(min(num_workers, max(1, len(self._parts)))) as p:
+            return XShards(p.map(run, self._parts))
 
     def _materialize_one(self, part):
         for g in self._pending:

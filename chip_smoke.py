@@ -4,8 +4,8 @@ Wide & Deep and session recommendation, checkpoint/resume,
 input-pipeline, serving data-plane and control-plane paths, the
 runtime context, file and set data tiers and TextClassifier,
 multi-rank training, the analysis tier, the layer library with the
-MobileNets, BERT and the text models, and SSD300, Seq2seq, the GAN
-trainer and the importers, on one NVIDIA card.
+MobileNets, BERT and the text models, SSD300, Seq2seq, the GAN trainer
+and the importers, and orca, AutoML and zouwu, on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel checks only
@@ -495,6 +495,30 @@ Phases, each fatal on failure (no result line is printed then):
    frozen and as a SavedModel through ``InferenceModel.load_tf`` (float
    and weight-only int8: no K5/K6), a Caffe LeNet, each against the CPU
    within 1e-4. Prints the wall by part.
+24. orca, AutoML and zouwu (``[orca]``, ``[automl]`` lines). (a) phase
+   7's LM cell at full width (seed 0) handed to ``orca.learn.Estimator.
+   from_keras`` with phase 7's loss and optimizer, fit over an
+   ``XShards.partition({"x", "y"}, 4)`` of 8 seeded sequences (batch 4 x
+   2048, ``grad_accum_steps=2`` and ``compute_dtype="bfloat16"`` through
+   orca's sticky knobs, remat "flash": 2 optimizer steps, 4 micro-steps):
+   its losses equal, bit for bit, those of an identically built model
+   that ``fit``s the same arrays with the same config; K1 = K3 = K4 = 12 x
+   4 launches in the orca fit (``launches_by_path["orca_fit"]``); step ms
+   (median), tokens/s, peak memory beside phase 7's; ``orca.predict`` over
+   an XShards of 2 partitions of one sequence returns 2 partitions, each
+   bit for bit ``model.predict`` of its row (K1 = 12 a partition,
+   ``launches_by_path["orca_predict"]``). (b) ``PPOTrainer`` on
+   ``CatchEnv`` with the default config and a 2-thread pool: one round's
+   update on the card within 1e-5 of the CPU's from the same rollouts,
+   then 3 more rounds (episode reward mean, wall). (c) with TF32 off:
+   ``SearchEngine`` over ``TimeSequenceModel`` (LSTM, Seq2Seq, MTNet), 4
+   samples, 2 rounds, 2 threads, on a seeded sine-plus-noise series: the
+   CPU's configs, stopped trials and best trial, trial metrics within
+   1e-4; ``LSTMForecaster``, ``MTNetForecaster`` (stacked GRUs),
+   ``Seq2SeqForecaster`` (horizon 4), ``TCMFForecaster`` and
+   ``AEDetector`` at the JAX tests' sizes: forecasts within 1e-4 of the
+   CPU's, ``predict_with_uncertainty`` mean and std within 1e-5 (the same
+   masks), the detector's indices the CPU's. Prints the wall by part.
 
 Depth cut to keep the script inside its time: phase 19's LM cell runs 4
 blocks (MR_N_BLOCK; from 12), phase 20's served and trained LM 2 blocks
@@ -542,7 +566,9 @@ each launch's shape, device ms and bound as ``mobilenet_head`` and
 predict as ``launches_by_path["bert"]``, with their checks and times at
 BERT's shape as ``bert_shape``; K6's on phase 23a's int8 SSD300 predict
 as ``launches_by_path["ssd_predict"]``, with each head's shape, device ms,
-bound and ``torch._int_mm`` ms as ``ssd_shapes``).
+bound and ``torch._int_mm`` ms as ``ssd_shapes``; K1's, K3's and K4's on
+phase 24a's orca fit as ``launches_by_path["orca_fit"]``, and K1's on its
+orca predict as ``launches_by_path["orca_predict"]``).
 The last three lines of standard output are the card's name and power
 limit, the per-kernel JSON, and ``{"ok": true, "device": {...}}``.
 """
@@ -8846,26 +8872,42 @@ def ssd_images(n: int, size: int, seed: int):
     return imgs, boxes, labels
 
 
-def _timed_fit(torch, est, fit, sync):
-    """Run ``fit()`` with the Estimator's step wrapped: each step's loss
-    and wall ms (synced before and after); returns (losses, step ms)."""
-    losses, ms, step = [], [], est._step
+class _RecordedSteps:
+    """Wrap the training engine's step at class level while open (every
+    Estimator, also the one orca compiles inside its fit): each step's
+    loss tensor (the f32 bits) and its wall ms, synced before and
+    after."""
 
-    def record(batch):
-        sync()
-        t0 = time.perf_counter()
-        out = step(batch)
-        losses.append(float(out[0]))
-        sync()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        return out
+    def __init__(self, sync):
+        self.sync, self.losses, self.ms = sync, [], []
 
-    est._step = record
-    try:
+    def __enter__(self):
+        from analytics_zoo_tpu_torch.engine import estimator as eng
+
+        self._cls, self._step = eng.Estimator, eng.Estimator._step
+
+        def record(est, batch, step=self._step):
+            self.sync()
+            t0 = time.perf_counter()
+            out = step(est, batch)
+            self.sync()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.losses.append(out[0].detach().float().cpu().clone())
+            return out
+
+        self._cls._step = record
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._step = self._step
+
+
+def _timed_fit(fit, sync):
+    """Run ``fit()`` with the Estimator's steps recorded: returns
+    (losses, step ms)."""
+    with _RecordedSteps(sync) as rec:
         fit()
-    finally:
-        est._step = step
-    return losses, ms
+    return [float(v) for v in rec.losses], rec.ms
 
 
 def _device_kernels(prof):
@@ -8955,7 +8997,7 @@ def phase23_ssd(torch, smi):
         det = detector(dev)
         before = {k: v.detach().cpu().clone() for k, v in
                   det.model.named_parameters()}
-        lo, _ = _timed_fit(torch, det.model.estimator, lambda: det.fit(
+        lo, _ = _timed_fit(lambda: det.fit(
             imgs[:n], boxes[:n], labels[:n], recalibrate_bn=False,
             batch_size=n, nb_epoch=1), sync if where == "card" else
             (lambda: None))
@@ -8984,10 +9026,9 @@ def phase23_ssd(torch, smi):
     t0 = time.perf_counter()
     card.compile(optimizer=SGD(lr=SSD_LR, momentum=SSD_MOMENTUM))
     torch.cuda.reset_peak_memory_stats()
-    losses, step_ms = _timed_fit(torch, card.model.estimator,
-                                 lambda: card.fit(imgs, boxes, labels,
-                                                  batch_size=SSD_BATCH,
-                                                  nb_epoch=1), sync)
+    losses, step_ms = _timed_fit(
+        lambda: card.fit(imgs, boxes, labels, batch_size=SSD_BATCH,
+                         nb_epoch=1), sync)
     peak = torch.cuda.max_memory_allocated()
     walls["23a_fit"] = time.perf_counter() - t0
     med = statistics.median(step_ms)
@@ -9171,7 +9212,7 @@ def phase23_seq2seq_gan(torch, smi):
                     device=dev, seed=0)
         m.compile(optimizer=Adam(lr=1e-3), loss="mse")
         t0 = time.perf_counter()
-        losses, ms = _timed_fit(torch, m.estimator, lambda: m.fit(
+        losses, ms = _timed_fit(lambda: m.fit(
             [enc_in, dec_in], target, batch_size=S2S_BATCH, nb_epoch=1),
             sync if where == "card" else (lambda: None))
         fit_s = time.perf_counter() - t0
@@ -9439,6 +9480,333 @@ def phase_detection(torch, smi, tmp):
     return ssd
 
 
+# phase 24: phase 7's LM cell through orca over ORCA_STEPS batches of an
+# XShards of ORCA_PARTITIONS partitions; the AutoML search's size; the
+# forecasters at the JAX tests' sizes
+ORCA_STEPS, ORCA_PARTITIONS = 2, 4
+AUTOML_SAMPLES, AUTOML_ROUNDS, AUTOML_SERIES = 4, 2, 200
+
+
+def orca_lm_run(torch, dev, ids, model_kw, sync):
+    """24a's two runs of the LM from seed 0 on ``dev``: an array-fed
+    ``compile``/``fit`` (bf16 with f32 masters, accumulation GRAD_ACCUM),
+    then one built alike and handed to ``orca.learn.Estimator`` with the
+    same loss and optimizer, fit over an XShards of the same arrays (the
+    knobs through orca's ``fit``), with K1/K3/K4 counted from 0 in the
+    orca fit; then ``orca.predict`` over 2 partitions of one sequence
+    against ``model.predict`` of each row."""
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.data.xshards import XShards
+    from analytics_zoo_tpu_torch.models.transformer import (TransformerLM,
+                                                            lm_loss)
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+    from analytics_zoo_tpu_torch.orca import Estimator as OrcaEstimator
+
+    def build():
+        return TransformerLM(**model_kw, attn_strategy="flash",
+                             remat="flash", device=dev, seed=0)
+
+    x, y = ids[:, :-1], ids[:, 1:]
+    batch = len(ids) // ORCA_STEPS
+    t0 = time.perf_counter()
+    twin = build()
+    twin.compile(optimizer="adam", loss=lm_loss, config=TrainConfig(
+        compute_dtype="bfloat16", grad_accum_steps=GRAD_ACCUM))
+    with _RecordedSteps(sync) as ref:
+        twin.fit(x, y, batch_size=batch, nb_epoch=1)
+    twin_s = time.perf_counter() - t0
+    del twin
+    gc.collect()
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+    model = build()
+    est = OrcaEstimator.from_keras(model, loss=lm_loss, optimizer="adam")
+    shards = XShards.partition({"x": x, "y": y},
+                               num_partitions=ORCA_PARTITIONS)
+    sync()
+    if dev != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    _zero_launches(tfa)
+    with _RecordedSteps(sync) as got:
+        t0 = time.perf_counter()
+        est.fit(shards, epochs=1, batch_size=batch,
+                grad_accum_steps=GRAD_ACCUM, compute_dtype="bfloat16")
+        sync()
+        fit_s = time.perf_counter() - t0
+    fit_launches = _launch_counts(tfa)
+    peak = torch.cuda.max_memory_allocated() if dev != "cpu" else 0
+    rows = XShards.partition(x[:2], num_partitions=2)
+    _zero_launches(tfa)
+    t0 = time.perf_counter()
+    pred = est.predict(rows, batch_size=1)
+    sync()
+    predict_s = time.perf_counter() - t0
+    predict_k1 = tfa.flash_attention_fwd.launches
+    parts = pred.collect()
+    same_rows = [_bits_equal(np.asarray(p), np.asarray(model.predict(
+        x[i:i + 1], batch_size=1))) for i, p in enumerate(parts)]
+    ref_l, got_l = torch.stack(ref.losses), torch.stack(got.losses)
+    return {"losses": [float(v) for v in got_l],
+            "twin_losses": [float(v) for v in ref_l],
+            "bit_equal": bool(len(got.losses) == len(ref.losses) == ORCA_STEPS
+                              and torch.equal(got_l, ref_l)),
+            "step_ms": got.ms, "fit_s": fit_s, "twin_s": twin_s,
+            "launches": fit_launches, "peak": peak,
+            "predict_partitions": len(parts), "predict_rows_equal": same_rows,
+            "predict_k1": predict_k1, "predict_s": predict_s,
+            "finite": bool(np.isfinite(np.asarray(parts[0])).all())}
+
+
+def phase24_orca_lm(torch, smi, train_hist, dev="cuda"):
+    """24a: the LM cell at full width through orca over XShards."""
+    sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
+    ids = train_ids()[:TRAIN_BATCH * ORCA_STEPS]
+    res = orca_lm_run(torch, dev, ids, dict(
+        vocab=VOCAB, hidden_size=HIDDEN, n_block=N_BLOCK, n_head=N_HEAD,
+        seq_len=SEQ_LEN), sync)
+    micro = ORCA_STEPS * GRAD_ACCUM
+    med = statistics.median(res["step_ms"])
+    p7 = [h["data_ms"] + h["compute_ms"] for h in (train_hist or ())]
+    out = {"steps": ORCA_STEPS, "micro_steps": micro, "batch": TRAIN_BATCH,
+           "seq_len": SEQ_LEN, "partitions": ORCA_PARTITIONS,
+           "losses": res["losses"], "twin_losses": res["twin_losses"],
+           "bit_equal": res["bit_equal"], "step_ms": res["step_ms"],
+           "step_ms_median": med,
+           "tokens_per_s": TRAIN_BATCH * SEQ_LEN / (med / 1e3),
+           "max_memory_allocated": res["peak"],
+           "phase7_step_ms_median": statistics.median(p7) if p7 else None,
+           "fit_s": res["fit_s"], "twin_build_fit_s": res["twin_s"],
+           "predict_s": res["predict_s"], "card": smi}
+    log(f"[orca] 24a {json.dumps(out)}")
+    k1, k3, k4 = res["launches"]
+    want = N_BLOCK * micro
+    ok = (res["bit_equal"] and k1 == k3 == k4 == want
+          and res["predict_partitions"] == 2
+          and all(res["predict_rows_equal"])
+          and res["predict_k1"] == 2 * N_BLOCK and res["finite"]
+          and all(math.isfinite(v) for v in res["losses"]))
+    log(f"[orca] 24a launches in the orca fit: K1 {k1}, K3 {k3}, K4 {k4} "
+        f"(need {N_BLOCK} blocks x {micro} micro-steps = {want} each); "
+        f"losses bit for bit the array-fed run's: {res['bit_equal']}; "
+        f"predict: {res['predict_partitions']} partitions, each bit for bit "
+        f"model.predict of its row: {res['predict_rows_equal']}, K1 "
+        f"{res['predict_k1']} (need {2 * N_BLOCK}) {'ok' if ok else 'FAIL'} "
+        f"{smi}")
+    if not ok:
+        raise AssertionError("the LM cell through orca over XShards "
+                             "disagrees with the array-fed run or missed a "
+                             "kernel")
+    return {"fit": res["launches"], "predict": res["predict_k1"]}
+
+
+def ppo_card_vs_cpu(torch, dev, more_rounds: int = 3):
+    """24b: one ``train()`` round of ``PPOTrainer`` (default config,
+    CatchEnv, a 2-thread pool) on ``dev`` and on the CPU from the same
+    rollouts: (the largest weight gap, the result dicts, then the
+    episode reward means and wall of ``more_rounds`` more rounds on
+    ``dev``)."""
+    import concurrent.futures as cf
+
+    from analytics_zoo_tpu_torch.orca import CatchEnv, PPOTrainer
+
+    with cf.ThreadPoolExecutor(2) as ex:
+        card = PPOTrainer(CatchEnv, pool=ex, device=dev)
+        cpu = PPOTrainer(CatchEnv, pool=ex, device="cpu")
+        t0 = time.perf_counter()
+        rc = card.train()
+        first_s = time.perf_counter() - t0
+        rp = cpu.train()
+        gap = max(float(np.abs(card.get_weights()[k] - v).max())
+                  for k, v in cpu.get_weights().items())
+        t0 = time.perf_counter()
+        rewards = [card.train()["episode_reward_mean"]
+                   for _ in range(more_rounds)]
+        wall = time.perf_counter() - t0
+    return gap, (rc, rp), rewards, first_s, wall
+
+
+def _ts_series(seed: int = 24):
+    rng = np.random.default_rng(seed)
+    series = (np.sin(np.arange(AUTOML_SERIES) / 5.0)
+              + 0.1 * rng.standard_normal(AUTOML_SERIES)).astype("float32")
+    idx = np.arange(12)[None, :] + np.arange(AUTOML_SERIES - 12)[:, None]
+    return series[idx][:, :, None], series[idx[:, -1] + 1][:, None]
+
+
+def automl_search(dev):
+    """24c's search on ``dev``: ``TimeSequenceModel`` trials (LSTM,
+    Seq2Seq, MTNet) drawn from a seed, AUTOML_ROUNDS rounds on 2 threads.
+    Returns (best, results, wall s)."""
+    from analytics_zoo_tpu_torch.automl import (Choice, SearchEngine,
+                                                TimeSequenceModel, Uniform)
+
+    x, y = _ts_series()
+
+    def trainable(config, trial_seed=0):
+        model = TimeSequenceModel(future_seq_len=1, device=dev)
+        return lambda: model.fit_eval(x, y, **config)
+
+    space = {"model": Choice(["LSTM", "Seq2Seq", "MTNet"]),
+             "lstm_1_units": Choice([8, 16]), "lstm_2_units": 8,
+             "latent_dim": 8, "time_step": 3, "long_num": 3,
+             "cnn_height": 2, "cnn_hid_size": 8, "rnn_hid_size": 8,
+             "lr": Uniform(1e-3, 1e-2), "epochs": 1, "batch_size": 32}
+    eng = SearchEngine(trainable, metric="mse", num_samples=AUTOML_SAMPLES,
+                       training_iteration=AUTOML_ROUNDS, max_workers=2,
+                       seed=1)
+    t0 = time.perf_counter()
+    best = eng.run(space)
+    return best, eng.results, time.perf_counter() - t0
+
+
+def zouwu_forecasts(dev):
+    """24c's forecasters and detector on ``dev`` at the JAX tests'
+    sizes: ``{name: array}`` of forecasts, MC means and stds, and the
+    detected indices, with the wall of each."""
+    from analytics_zoo_tpu_torch.zouwu import (AEDetector, LSTMForecaster,
+                                               MTNetForecaster,
+                                               Seq2SeqForecaster,
+                                               TCMFForecaster)
+
+    rng = np.random.default_rng(0)
+    out, walls = {}, {}
+    t0 = time.perf_counter()
+    x = rng.standard_normal((48, 5, 2)).astype("float32")
+    f = LSTMForecaster(target_dim=1, lstm_1_units=8, lstm_2_units=8,
+                       device=dev)
+    f.fit(x, x[:, -1, :1], epochs=2, batch_size=16)
+    out["lstm"] = f.predict(x)
+    out["lstm_mc_mean"], out["lstm_mc_std"] = f.predict_with_uncertainty(
+        x, n_iter=4)
+    walls["lstm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x = rng.standard_normal((16, 8, 2)).astype("float32")
+    f = MTNetForecaster(target_dim=1, long_series_num=1, series_length=4,
+                        ar_window_size=2, cnn_height=2, cnn_hid_size=8,
+                        rnn_hid_sizes=[8, 16], device=dev)
+    f.fit(x, rng.standard_normal((16, 1)).astype("float32"), epochs=1,
+          batch_size=8)
+    out["mtnet"] = f.predict(x)
+    out["mtnet_mc_mean"], out["mtnet_mc_std"] = f.predict_with_uncertainty(
+        x, n_iter=4)
+    walls["mtnet"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x = rng.standard_normal((24, 6, 1)).astype("float32")
+    f = Seq2SeqForecaster(horizon=4, latent_dim=8, device=dev)
+    f.fit(x, rng.standard_normal((24, 4)).astype("float32"), epochs=1,
+          batch_size=8)
+    out["seq2seq"] = f.predict(x)
+    out["seq2seq_mc_mean"], out["seq2seq_mc_std"] = \
+        f.predict_with_uncertainty(x, n_iter=4)
+    walls["seq2seq"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    basis_t = np.arange(68)
+    panel = rng.standard_normal((12, 3)) @ np.stack(
+        [np.sin(basis_t / 5), np.cos(basis_t / 7), 0.01 * basis_t])
+    f = TCMFForecaster(rank=4, max_iter=400, ar_lags=6, device=dev)
+    out["tcmf_loss"] = np.asarray([f.fit(panel[:, :60])])
+    out["tcmf"] = f.predict(horizon=8)
+    walls["tcmf"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    y = rng.standard_normal((128, 6)).astype("float32") * 0.1
+    y[5] += 8.0
+    det = AEDetector(latent_dim=2, hidden=8, epochs=5, ratio=0.02,
+                     device=dev).fit(y)
+    out["ae_indices"] = np.asarray(det.detect(y))
+    walls["ae"] = time.perf_counter() - t0
+    return out, walls
+
+
+def phase24_ppo_automl(torch, smi, dev="cuda"):
+    """24b and 24c: PPO's update, the AutoML search and the zouwu
+    forecasters on ``dev`` against the CPU, TF32 off."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        gap, (rc, rp), rewards, first_s, wall = ppo_card_vs_cpu(torch, dev)
+        walls["24b"] = time.perf_counter() - t0
+        ok = gap <= 1e-5 and rc == rp
+        log(f"[orca] 24b PPOTrainer (CatchEnv, default config, 2-thread "
+            f"pool): one round on the card vs the cpu from the same "
+            f"rollouts, weights max|d| {gap:.3g} (tol 1e-5), results "
+            f"{rc} vs {rp}; first round {first_s:.2f} s; 3 more rounds "
+            f"{wall:.2f} s, episode_reward_mean {rewards} "
+            f"{'ok' if ok else 'FAIL'} {smi}")
+        if not ok:
+            raise AssertionError("PPO's update on the card disagrees with "
+                                 "the cpu")
+        t0 = time.perf_counter()
+        best, results, card_s = automl_search(dev)
+        cbest, cresults, cpu_s = automl_search("cpu")
+        walls["24c_search"] = time.perf_counter() - t0
+        same = [(r.trial_id, r.config, r.stopped_early, r.error)
+                for r in results] == [(r.trial_id, r.config, r.stopped_early,
+                                       r.error) for r in cresults]
+        gaps = [abs(a - b) for r, c in zip(results, cresults)
+                for a, b in zip(r.history, c.history)]
+        ok = (same and best.trial_id == cbest.trial_id and gaps
+              and max(gaps) <= 1e-4)
+        log(f"[automl] 24c SearchEngine over TimeSequenceModel (LSTM, "
+            f"Seq2Seq, MTNet), {AUTOML_SAMPLES} samples x "
+            f"{AUTOML_ROUNDS} rounds, 2 threads: configs and stopped trials"
+            f" the cpu's: {same}; best trial {best.trial_id} "
+            f"({best.config['model']}, mse {best.metric:.6g}) vs cpu "
+            f"{cbest.trial_id}; trial metric max|d| "
+            f"{max(gaps) if gaps else float('nan'):.3g} (tol 1e-4); "
+            f"search {card_s:.2f} s on the card, {cpu_s:.2f} s on the cpu "
+            f"{'ok' if ok else 'FAIL'} {smi}")
+        if not ok:
+            raise AssertionError("the AutoML search on the card disagrees "
+                                 "with the cpu")
+        t0 = time.perf_counter()
+        card, card_walls = zouwu_forecasts(dev)
+        cpu, _ = zouwu_forecasts("cpu")
+        walls["24c_zouwu"] = time.perf_counter() - t0
+        fgaps = {k: float(np.abs(np.asarray(card[k], np.float64)
+                                 - np.asarray(cpu[k], np.float64)).max())
+                 for k in card if k != "ae_indices"}
+        mc = {k: v for k, v in fgaps.items() if "_mc_" in k}
+        ok = (all(v <= 1e-4 for v in fgaps.values())
+              and all(v <= 1e-5 for v in mc.values())
+              and np.array_equal(card["ae_indices"], cpu["ae_indices"])
+              and 5 in card["ae_indices"].tolist()
+              and all(np.isfinite(np.asarray(v)).all() for v in card.values()))
+        log(f"[automl] 24c zouwu at the JAX tests' sizes, card vs cpu "
+            f"max|d|: {json.dumps(fgaps)} (forecasts tol 1e-4, MC mean/std "
+            f"1e-5); AEDetector indices {card['ae_indices'].tolist()} vs "
+            f"{cpu['ae_indices'].tolist()}; card walls s "
+            f"{json.dumps(card_walls)} {'ok' if ok else 'FAIL'} {smi}")
+        if not ok:
+            raise AssertionError("a zouwu forecaster on the card disagrees "
+                                 "with the cpu")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return walls
+
+
+def phase_orca(torch, smi, train_hist):
+    """Phase 24 (``[orca]`` and ``[automl]`` lines): 24a the LM cell
+    through orca, 24b PPO, 24c AutoML and zouwu. Returns 24a's launches."""
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+
+    set_policy(compute_dtype="float32")
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    lm = phase24_orca_lm(torch, smi, train_hist, DEV["cuda"])
+    walls = {"24a": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+    walls.update(phase24_ppo_automl(torch, smi, DEV["cuda"]))
+    walls["total"] = time.perf_counter() - t_all
+    log(f"[orca] phase wall s {json.dumps(walls)} {smi}")
+    return lm
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -9588,6 +9956,12 @@ def main(argv=None) -> int:
                 det = phase_detection(torch, smi, tmp)
             kernels[6]["launches_by_path"]["ssd_predict"] = det["K6"]
             kernels[6]["ssd_shapes"] = det["k6_shapes"]
+            torch.cuda.empty_cache()
+            orca = phase_orca(torch, smi, train_hist)
+            for k, n in zip((kernels[0], kernels[2], kernels[3]),
+                            orca["fit"]):
+                k["launches_by_path"]["orca_fit"] = n
+            kernels[0]["launches_by_path"]["orca_predict"] = orca["predict"]
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):

@@ -77,7 +77,11 @@ seeded weights. SSD and the importers on the card (``-k "ssd300 or
 importer"``): K6 at SSD300's six head shapes bitwise its plain version,
 an SSD300 f32 step to the CPU's loss and update with six K6 launches an
 int8 predict, and imported ONNX, TF and Caffe graphs to the CPU's
-outputs.
+outputs. Orca, AutoML and zouwu on the card (``-k orca``): the LM fit
+through ``orca.learn.Estimator`` over an XShards takes the array-fed
+run's losses bit for bit with K1 = K3 = K4 a block and micro-step;
+``PPOTrainer``'s update, MTNet's core (TF32 off) and an ``NNClassifier``
+fit on a DataFrame give the CPU's.
 """
 
 import math
@@ -2111,3 +2115,96 @@ def test_importer_graphs_on_card_match_cpu(cuda, tmp_path):
     assert set(gaps) == {"onnx_stem", "tf_frozen_float", "tf_frozen_int8",
                          "tf_saved_float", "tf_saved_int8", "caffe_lenet"}
     assert max(gaps.values()) <= 1e-4
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+
+    return cs
+
+
+def test_orca_lm_fit_over_xshards_on_card_matches_array_fed(cuda):
+    """The LM (2 blocks at width 256, 4 heads of 64, T 256) fit through
+    ``orca.learn.Estimator`` over an XShards of 4 partitions, bf16 with
+    f32 masters, accumulation 2: its losses equal the array-fed run's bit
+    for bit, K1 = K3 = K4 = 2 blocks x 4 micro-steps in the orca fit, and
+    ``orca.predict`` over 2 partitions gives ``model.predict`` of each row
+    bit for bit (K1 twice a partition)."""
+    cs = _chip_smoke()
+    ids = np.random.default_rng(24).integers(
+        0, 512, size=(8, 257)).astype(np.int32)
+    res = cs.orca_lm_run(torch, "cuda", ids, dict(
+        vocab=512, hidden_size=256, n_block=2, n_head=4, seq_len=256),
+        torch.cuda.synchronize)
+    assert res["bit_equal"], (res["losses"], res["twin_losses"])
+    assert res["launches"] == (8, 8, 8)
+    assert res["predict_partitions"] == 2 and all(res["predict_rows_equal"])
+    assert res["predict_k1"] == 4 and res["finite"]
+
+
+def test_orca_ppo_update_on_card_matches_cpu(cuda):
+    """One ``PPOTrainer.train()`` round (default config) on the card and
+    on the CPU from the same rollouts: the same result dict, the weights
+    within 1e-5; another round on the card stays finite."""
+    cs = _chip_smoke()
+    gap, (rc, rp), rewards, _, _ = cs.ppo_card_vs_cpu(torch, cuda, 1)
+    assert rc == rp and gap <= 1e-5
+    assert all(-1.0 <= r <= 1.0 for r in rewards)
+
+
+def test_orca_mtnet_conv_on_card_matches_cpu(cuda):
+    """MTNet's core (the valid conv over time on ``F.conv1d``, the GRU
+    stack, attention and the AR term) on the card against the same
+    seeded model on the CPU, TF32 off for cuDNN: inference and training
+    mode (the same dropout masks from one key) within 1e-5."""
+    from analytics_zoo_tpu_torch.automl.models import MTNet
+
+    torch.backends.cudnn.allow_tf32 = False      # f32 convs, as the CPU's
+    x = np.random.default_rng(5).standard_normal((32, 16, 3)) \
+        .astype(np.float32)
+    cfg = dict(time_step=4, long_num=3, cnn_height=3, cnn_hid_size=16,
+               rnn_hid_sizes=[8, 16], ar_window=3)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        m = MTNet(future_seq_len=2, device=dev).build((16, 3), **cfg)
+        xt = torch.from_numpy(x).to(dev)
+        with torch.no_grad():
+            plain = m.model.apply(xt).cpu()
+            m.model.train()
+            drop = m.model.apply(xt, rng=(0, 7)).cpu()
+            m.model.eval()
+        outs[dev] = (plain, drop)
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-5
+    assert not torch.equal(outs["cpu"][0], outs["cpu"][1])
+
+
+def test_orca_nnframes_classifier_fit_on_card_matches_cpu(cuda):
+    """An ``NNClassifier`` fit on a DataFrame on the card (3 epochs of
+    4 steps) to the CPU's: the same classes, probabilities within 1e-5."""
+    pd = pytest.importorskip("pandas")
+    from analytics_zoo_tpu_torch.nn import layers as L
+    from analytics_zoo_tpu_torch.nn.topology import Sequential
+    from analytics_zoo_tpu_torch.nnframes import NNClassifier, NNModel
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((128, 4)).astype("float32")
+    df = pd.DataFrame({"features": list(x),
+                       "label": (x.sum(axis=1) > 0).astype("int64")})
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = Sequential([L.Dense(16, activation="relu", input_shape=(4,)),
+                        L.Dense(2, activation="softmax")], device=dev)
+        model = (NNClassifier(m).setFeaturesCol("features")
+                 .setLabelCol("label").setBatchSize(32).setMaxEpoch(3)
+                 .setLearningRate(0.05)).fit(df)
+        probs = NNModel(m, features_col="features").transform(df)
+        out[dev] = (model.transform(df)["prediction"].to_numpy(),
+                    np.stack(probs["prediction"]))
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0,
+                               atol=1e-5)

@@ -147,8 +147,9 @@ def test_xshards_match_jax(kind):
         _same_tree(a, b)
     with pytest.raises(TypeError):
         tfs.FeatureSet.from_xshards(t.collect())
-    with pytest.raises(NotImplementedError, match="orca"):
-        t.parallel_apply(double)
+    # parallel_apply runs in orca's TaskPool workers, as the serial apply
+    _same_tree(t.parallel_apply(double, num_workers=2).collect_tree(),
+               t.transform_shard(double).collect_tree())
 
 
 def test_xshards_to_featureset_over_frames_matches_jax():

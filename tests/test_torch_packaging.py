@@ -389,3 +389,67 @@ def test_the_detection_seq2seq_gan_and_importer_slice_is_in_the_port():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+ORCA_SLICE = ("orca/__init__.py", "orca/task_pool.py", "orca/rl.py",
+              "orca/learn/__init__.py", "orca/learn/estimator.py",
+              "nnframes/__init__.py", "nnframes/nn_estimator.py",
+              "nnframes/nn_image_reader.py", "nnframes/xgb.py",
+              "automl/__init__.py", "automl/space.py", "automl/metrics.py",
+              "automl/tpe.py", "automl/feature.py", "automl/models.py",
+              "automl/search.py", "automl/recipe.py", "automl/pipeline.py",
+              "automl/predictor.py", "zouwu/__init__.py",
+              "zouwu/model/__init__.py", "zouwu/model/forecast.py",
+              "zouwu/model/anomaly.py", "zouwu/autots/__init__.py",
+              "zouwu/autots/forecast.py")
+
+
+def test_orca_nnframes_automl_zouwu_are_in_the_port_without_their_extras():
+    """The four packages mirror the JAX package's paths and public names,
+    and import in a fresh interpreter that loads none of JAX, the JAX
+    package, pandas, scikit-learn, cloudpickle, PIL or xgboost (each is
+    imported inside the function that needs it)."""
+    for rel in ORCA_SLICE:
+        assert (PKG / rel).is_file(), rel
+        assert (ROOT / "analytics_zoo_tpu" / rel).is_file(), rel
+    pkgs = ("orca", "orca.learn", "nnframes", "automl", "zouwu",
+            "zouwu.model", "zouwu.autots")
+    code = (
+        "import importlib, json, sys\n"
+        f"alls = {{p: sorted(importlib.import_module("
+        f"'analytics_zoo_tpu_torch.' + p).__all__) for p in {pkgs!r}}}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'analytics_zoo_tpu', 'ml_dtypes', 'pandas', "
+        "'sklearn', 'cloudpickle', 'PIL', 'xgboost'))\n"
+        "print(json.dumps({'bad': bad, 'alls': alls}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    import importlib
+
+    for p, names in res["alls"].items():
+        jax_mod = importlib.import_module("analytics_zoo_tpu." + p)
+        assert names == sorted(jax_mod.__all__), p
+    from analytics_zoo_tpu.automl import models as jmodels
+    from analytics_zoo_tpu_torch.automl import models as tmodels
+
+    assert set(tmodels.MODEL_REGISTRY) == set(jmodels.MODEL_REGISTRY)
+
+
+def test_task_pool_workers_spawn_the_port():
+    """A TaskPool's workers are ``spawn``ed processes whose target is the
+    port's own worker loop (the child imports it by that module name),
+    and every module name the pool's source spells is the port's."""
+    from analytics_zoo_tpu_torch.orca import task_pool
+
+    assert task_pool._worker_main.__module__ == \
+        "analytics_zoo_tpu_torch.orca.task_pool"
+    tree = ast.parse((PKG / "orca/task_pool.py").read_text())
+    named = [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+             and isinstance(n.value, str)
+             and n.value.startswith("analytics_zoo_tpu")]
+    assert named and all(v.startswith("analytics_zoo_tpu_torch")
+                         for v in named)
+    assert '"spawn"' in (PKG / "orca/task_pool.py").read_text()

@@ -537,3 +537,41 @@ def test_host_shards_train_as_the_whole_data(pool):
             for leaf, v in d.items():
                 np.testing.assert_array_equal(p1[slot][leaf], v)
         assert c1 == N_ROWS // BATCH
+
+
+# ------------------------------------------------------------ orca knobs
+def _port_orca_fit(tree):
+    """Rank side: the orca Estimator on dp=4 with ``grad_accum_steps=2``
+    and ``update_sharding=True``: what the engine underneath built."""
+    from analytics_zoo_tpu_torch.bridge import params_from_jax
+    from analytics_zoo_tpu_torch.nn import optimizers as topt
+    from analytics_zoo_tpu_torch.orca.learn import Estimator as OrcaEstimator
+
+    _ctx(dp=4)
+    tm = _port_model(False)
+    tm.load_state_dict(params_from_jax(tree))
+    est = OrcaEstimator.from_keras(tm, loss="mse",
+                                   optimizer=topt.Adam(lr=0.01))
+    est.fit(_data(), epochs=1, batch_size=BATCH, grad_accum_steps=2,
+            update_sharding=True)
+    eng = tm.estimator
+    stats = est.train_stats()
+    return {"flat": isinstance(eng.train_state["opt_state"],
+                               tupd.FlatUpdateState),
+            "mode": eng._update_mode(),
+            "families": sorted(k for k in stats if k.startswith("zoo_train_")),
+            "accum": eng.config.grad_accum_steps,
+            "loss": float(eng.trainer_state.last_loss)}
+
+
+def test_orca_fit_threads_update_sharding_knobs(pool):
+    """The orca Estimator's sticky knobs reach the engine on dp=4: the
+    flat ZeRO-1 exchange is really engaged (its flat optimizer state), as
+    ``tests/test_update_sharding.py`` holds for the JAX package."""
+    params, _ = _jax_model(False).build(jax.random.PRNGKey(1))
+    res = pool.run(_port_orca_fit, _np(params))
+    for r in res:
+        assert r["flat"] and r["mode"] == "flat" and r["accum"] == 2
+        assert "zoo_train_grad_norm" in r["families"]
+        assert np.isfinite(r["loss"])
+    assert len({r["loss"] for r in res}) == 1
