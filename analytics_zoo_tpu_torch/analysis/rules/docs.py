@@ -38,15 +38,8 @@ _DOC_NAME_RE = re.compile(r"`(zoo_[a-zA-Z0-9_]+)")
 DOC_RELPATH = os.path.join("docs", "observability.md")
 
 #: documented families the port does not register yet -> the ROADMAP item
-#: that brings them
-NOT_YET_PORTED: Dict[str, str] = {
-    "zoo_kernel_tuning_cache_hits_total":
-        "ROADMAP Queue 2, the Hopper tile table (ops/tuning.py)",
-    "zoo_kernel_tuning_cache_misses_total":
-        "ROADMAP Queue 2, the Hopper tile table (ops/tuning.py)",
-    "zoo_kernel_tuning_sweeps_total":
-        "ROADMAP Queue 2, the Hopper tile table (ops/tuning.py)",
-}
+#: that brings them (none since the tile table registered the last three)
+NOT_YET_PORTED: Dict[str, str] = {}
 
 
 def _call_name(func: ast.AST) -> str:

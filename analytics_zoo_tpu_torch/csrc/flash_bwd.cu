@@ -442,7 +442,7 @@ __global__ void __launch_bounds__(zoo::wide::kThreads)
 // item's 128 rows of its two own operands (K3: Q and dO; K4: K and V),
 // then the streamed operands' tiles up to the causal limit (K3: K and V
 // tiles of BN keys; K4: Q and dO tiles of BN queries from the causal
-// start) into a three-stage ring of 128-byte-swizzled tiles, completing
+// start) into a ring of ST (three) 128-byte-swizzled tiles, completing
 // "full" mbarriers; the consumers' 256 threads complete the "empty" ones.
 // Two consumer warpgroups own 64 of the item's rows each:
 // - the two score tiles are wgmma m64nBNk16 with both operands in shared
@@ -483,14 +483,16 @@ constexpr int kBox = zoo::tma::kBox;  // columns a TMA box holds
 constexpr int kWgRows = 64;           // rows a consumer warpgroup owns
 constexpr int kItemRows = 2 * kWgRows;
 constexpr int kWgThreads = 3 * 128;   // two consumer warpgroups, a producer
-constexpr int kWgStages = 3;          // stages of the streamed ring
 
-template <int NB, int BN>
+// NB boxes of 64 columns, streamed tiles of BN rows in a ring of ST stages
+// (three by default; the tile table, `with_dq_tile`/`with_dkv_tile`
+// below, may pick two)
+template <int NB, int BN, int ST>
 struct BwdLayout {
   static constexpr int D = kBox * NB;
   static constexpr int kItem = NB * kItemRows * 128;  // bytes of an item operand
   static constexpr int kTile = NB * BN * 128;         // bytes of a ring tile
-  static constexpr int kSmem = 2 * kItem + 2 * kWgStages * kTile;
+  static constexpr int kSmem = 2 * kItem + 2 * ST * kTile;
 };
 
 // The work of a block: items it = 0 .. items - 1 are (row tile, unit)
@@ -573,7 +575,7 @@ __device__ __forceinline__ void store_acc(const float (&acc)[DO / 2],
 // A consumer warpgroup of K3: 64 query rows of each item's 128 over the K
 // and V tiles the producer streams in (`jt` counts them across items:
 // ring stage jt % S, phase (jt / S) & 1).
-template <int NB, int BK, int NS>
+template <int NB, int BK, int NS, int ST>
 __device__ __forceinline__ void dq_consume(
     const unsigned char* sq, const unsigned char* sg, const unsigned char* sk,
     const unsigned char* sv, uint64_t* q_full, uint64_t* q_empty,
@@ -583,8 +585,8 @@ __device__ __forceinline__ void dq_consume(
     int Tq, int Tk, int d, int causal, float scale) {
   namespace mm = zoo::mma;
   namespace wg = zoo::wg;
-  using L = BwdLayout<NB, BK>;
-  constexpr int S = kWgStages;
+  using L = BwdLayout<NB, BK, ST>;
+  constexpr int S = ST;
   constexpr int DO = L::D / NS;  // dQ columns an item owns
   wg::set_max_regs_inc<232>();
   const int warp = threadIdx.x >> 5;
@@ -726,7 +728,7 @@ __device__ __forceinline__ void dq_consume(
   }
 }
 
-template <int NB, int BK, int NS>
+template <int NB, int BK, int NS, int ST>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
@@ -738,8 +740,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                               int Tq, int Tk, int d, int causal,
                               float scale) {
   namespace wg = zoo::wg;
-  using L = BwdLayout<NB, BK>;
-  constexpr int S = kWgStages;
+  using L = BwdLayout<NB, BK, ST>;
+  constexpr int S = ST;
 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t q_full, q_empty, k_full[S], v_full[S], k_empty[S],
@@ -806,7 +808,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
   } else {
-    dq_consume<NB, BK, NS>(sq, sg, sk, sv, &q_full, &q_empty, k_full, v_full,
+    dq_consume<NB, BK, NS, ST>(sq, sg, sk, sv, &q_full, &q_empty, k_full, v_full,
                            k_empty, v_empty, work, nqt, lse, delta, dq, H, Tq,
                            Tk, d, causal, scale);
   }
@@ -815,7 +817,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // A consumer warpgroup of K4: 64 keys of each item's 128 over the Q and dO
 // tiles the producer streams in from the causal start (`jt` counts them
 // across items, `nl` the items that loaded K and V).
-template <int NB, int BQ, int NS>
+template <int NB, int BQ, int NS, int ST>
 __device__ __forceinline__ void dkv_consume(
     const unsigned char* sk, const unsigned char* sv, const unsigned char* sq,
     const unsigned char* sg, const float* srows, uint64_t* kv_full,
@@ -824,8 +826,8 @@ __device__ __forceinline__ void dkv_consume(
     int Tq, int Tk, int d, int causal, float scale) {
   namespace mm = zoo::mma;
   namespace wg = zoo::wg;
-  using L = BwdLayout<NB, BQ>;
-  constexpr int S = kWgStages;
+  using L = BwdLayout<NB, BQ, ST>;
+  constexpr int S = ST;
   constexpr int DO = L::D / NS;  // dK/dV columns an item owns
   wg::set_max_regs_inc<232>();
   const int warp = threadIdx.x >> 5;
@@ -981,7 +983,7 @@ __device__ __forceinline__ void dkv_consume(
   }
 }
 
-template <int NB, int BQ, int NS>
+template <int NB, int BQ, int NS, int ST>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
@@ -994,8 +996,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                                int Tq, int Tk, int d, int causal,
                                float scale) {
   namespace wg = zoo::wg;
-  using L = BwdLayout<NB, BQ>;
-  constexpr int S = kWgStages;
+  using L = BwdLayout<NB, BQ, ST>;
+  constexpr int S = ST;
 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t kv_full, kv_empty, t_full[S], t_empty[S];
@@ -1081,7 +1083,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
   } else {
-    dkv_consume<NB, BQ, NS>(sk, sv, sq, sg, &srows[0][0], &kv_full,
+    dkv_consume<NB, BQ, NS, ST>(sk, sv, sq, sg, &srows[0][0], &kv_full,
                             &kv_empty, t_full, t_empty, work, dk, dv, H, Tq,
                             Tk, d, causal, scale);
   }
@@ -1103,48 +1105,48 @@ bool encode_maps(CUtensorMap (&m)[4], const void* q, const void* k,
                              q_rows);
 }
 
-template <int NB, int BK, int NS>
+template <int NB, int BK, int NS, int ST>
 int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     const void* g, const void* lse, const void* delta,
                     void* dq, int B, int H, int Tq, int Tk, int d,
                     const Strides& s, int causal, float scale,
                     cudaStream_t stream) {
-  constexpr int smem = BwdLayout<NB, BK>::kSmem + 1024;
+  constexpr int smem = BwdLayout<NB, BK, ST>::kSmem + 1024;
   CUtensorMap m[4];
   if (!encode_maps(m, q, k, v, g, B, H, Tq, Tk, d, s, kItemRows, BK))
     return zoo::tma::kErrTensorMap;
   static std::atomic<uint64_t> granted{0};
   cudaError_t err = zoo::mma::grant_smem(
-      flash_bwd_dq_wgmma_kernel<NB, BK, NS>, smem, granted);
+      flash_bwd_dq_wgmma_kernel<NB, BK, NS, ST>, smem, granted);
   if (err != cudaSuccess) return (int)err;
   const int grid = zoo::tma::persistent_grid(
       (long long)B * H * NS * ((Tq + kItemRows - 1) / kItemRows), &err);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_wgmma_kernel<NB, BK, NS><<<grid, kWgThreads, smem, stream>>>(
+  flash_bwd_dq_wgmma_kernel<NB, BK, NS, ST><<<grid, kWgThreads, smem, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), B, H,
       Tq, Tk, d, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <int NB, int BQ, int NS>
+template <int NB, int BQ, int NS, int ST>
 int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      const void* g, const void* lse, const void* delta,
                      void* dk, void* dv, int B, int H, int Tq, int Tk, int d,
                      const Strides& s, int causal, float scale,
                      cudaStream_t stream) {
-  constexpr int smem = BwdLayout<NB, BQ>::kSmem + 1024;
+  constexpr int smem = BwdLayout<NB, BQ, ST>::kSmem + 1024;
   CUtensorMap m[4];
   if (!encode_maps(m, q, k, v, g, B, H, Tq, Tk, d, s, BQ, kItemRows))
     return zoo::tma::kErrTensorMap;
   static std::atomic<uint64_t> granted{0};
   cudaError_t err = zoo::mma::grant_smem(
-      flash_bwd_dkv_wgmma_kernel<NB, BQ, NS>, smem, granted);
+      flash_bwd_dkv_wgmma_kernel<NB, BQ, NS, ST>, smem, granted);
   if (err != cudaSuccess) return (int)err;
   const int grid = zoo::tma::persistent_grid(
       (long long)B * H * NS * ((Tk + kItemRows - 1) / kItemRows), &err);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_wgmma_kernel<NB, BQ, NS><<<grid, kWgThreads, smem, stream>>>(
+  flash_bwd_dkv_wgmma_kernel<NB, BQ, NS, ST><<<grid, kWgThreads, smem, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), B, H, Tq, Tk, d, causal, scale);
@@ -1214,6 +1216,51 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
   return (int)cudaGetLastError();
 }
 
+// An instance of K3's or K4's bf16 kernel: NB boxes, streamed tiles of BN
+// rows, NS column slices an item, ST ring stages
+template <int NB_, int BN_, int NS_, int ST_>
+struct BwdTile {
+  static constexpr int NB = NB_, BN = BN_, NS = NS_, ST = ST_;
+};
+
+// The bf16 tile tables: `f(BwdTile<...>{})` for candidate `tile` of the
+// head dim's class (D <= 64, <= 128, <= 256), cudaErrorInvalidValue past
+// the class's list. The candidates are those of K1 (FLASH_CANDIDATES in
+// ops/tuning.py: one index picks K1's, K3's and K4's instance); K3 and K4
+// vary their ring's stages, 3 (entry 0, the default) or 2.
+template <int BN64, int BN128, class F>
+int with_bwd_tile(int D, int tile, F&& f) {
+  if (D <= 64) {
+    switch (tile) {
+      case 0: return f(BwdTile<1, BN64, 1, 3>{});
+      case 1: return f(BwdTile<1, BN64, 1, 2>{});
+      case 2: return f(BwdTile<1, BN64, 1, 3>{});
+    }
+  } else if (D <= 128) {
+    switch (tile) {
+      case 0: return f(BwdTile<2, BN128, 1, 3>{});
+      case 1: return f(BwdTile<2, BN128, 1, 2>{});
+    }
+  } else {
+    switch (tile) {
+      case 0: return f(BwdTile<4, 32, 2, 3>{});
+      case 1: return f(BwdTile<4, 32, 2, 2>{});
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3 streams K/V tiles of 64 keys up to D = 128; K4 Q/dO tiles of 64
+// query rows at D <= 64 and 32 at D = 128; both 32 at D = 256
+template <class F>
+int with_dq_tile(int D, int tile, F&& f) {
+  return with_bwd_tile<64, 64>(D, tile, f);
+}
+template <class F>
+int with_dkv_tile(int D, int tile, F&& f) {
+  return with_bwd_tile<64, 32>(D, tile, f);
+}
+
 }  // namespace
 
 // Strides are in elements: (batch, position, head) for q, k, v and dO (g);
@@ -1225,10 +1272,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
 // other head dims), on the wgmma kernels (64, 128 or 256 columns); above
 // 256 both run the wide kernels. bf16 q, k, v and dO up to 256 must start
 // 16-byte aligned with strides of multiples of 8 elements (the wrapper
-// checks: TMA's tensor maps take no other). Each entry returns
-// cudaGetLastError() after its launch, cudaErrorInvalidValue for a
-// dtype/head dim it does not take, or zoo::tma::kErrTensorMap when a
-// tensor map cannot be encoded.
+// checks: TMA's tensor maps take no other). `tile` indexes the tile table
+// of the bf16 kernels (with_dq_tile, with_dkv_tile); every other kernel
+// has the one entry 0. Each entry returns cudaGetLastError() after its
+// launch, cudaErrorInvalidValue for a dtype/head dim it does not take or
+// a tile past the list, or zoo::tma::kErrTensorMap when a tensor map
+// cannot be encoded.
 extern "C" int zoo_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* g, const void* lse,
                                 const void* delta, void* dq, int dtype, int B,
@@ -1237,21 +1286,24 @@ extern "C" int zoo_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 long long kst, long long ksh, long long vsb,
                                 long long vst, long long vsh, long long gsb,
                                 long long gst, long long gsh, int causal,
-                                float scale, void* stream) {
+                                float scale, int tile, void* stream) {
   const Strides s{{qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh},
                   {gsb, gst, gsh}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Tq < 1 || Tk < 1 || B < 1 || H < 1 || D < 1)
+  if (Tq < 1 || Tk < 1 || B < 1 || H < 1 || D < 1 || tile < 0)
     return (int)cudaErrorInvalidValue;
+  const bool tc = dtype == zoo::kBF16 && D % 8 == 0 && D <= 256;
+  if (!tc && tile != 0) return (int)cudaErrorInvalidValue;
 #define ZOO_DQ(F, ...) F<__VA_ARGS__>(q, k, v, g, lse, delta, dq, B, H, Tq, Tk, D, s, causal, scale, st)
   if (D > 256)
     return dtype == zoo::kBF16 ? ZOO_DQ(launch_dq_wide, __nv_bfloat16)
            : dtype == zoo::kF32 ? ZOO_DQ(launch_dq_wide, float)
                                 : (int)cudaErrorInvalidValue;
-  if (dtype == zoo::kBF16 && D % 8 == 0)
-    return D <= 64    ? ZOO_DQ(launch_dq_wgmma, 1, 64, 1)
-           : D <= 128 ? ZOO_DQ(launch_dq_wgmma, 2, 64, 1)
-                      : ZOO_DQ(launch_dq_wgmma, 4, 32, 2);
+  if (tc)
+    return with_dq_tile(D, tile, [&](auto t) {
+      using T = decltype(t);
+      return ZOO_DQ(launch_dq_wgmma, T::NB, T::BN, T::NS, T::ST);
+    });
   if (dtype == zoo::kF32)
     return D <= 32    ? ZOO_DQ(launch_dq, 32)
            : D <= 64  ? ZOO_DQ(launch_dq, 64)
@@ -1270,21 +1322,24 @@ extern "C" int zoo_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  long long ksh, long long vsb, long long vst,
                                  long long vsh, long long gsb, long long gst,
                                  long long gsh, int causal, float scale,
-                                 void* stream) {
+                                 int tile, void* stream) {
   const Strides s{{qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh},
                   {gsb, gst, gsh}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Tq < 1 || Tk < 1 || B < 1 || H < 1 || D < 1)
+  if (Tq < 1 || Tk < 1 || B < 1 || H < 1 || D < 1 || tile < 0)
     return (int)cudaErrorInvalidValue;
+  const bool tc = dtype == zoo::kBF16 && D % 8 == 0 && D <= 256;
+  if (!tc && tile != 0) return (int)cudaErrorInvalidValue;
 #define ZOO_DKV(F, ...) F<__VA_ARGS__>(q, k, v, g, lse, delta, dk, dv, B, H, Tq, Tk, D, s, causal, scale, st)
   if (D > 256)
     return dtype == zoo::kBF16 ? ZOO_DKV(launch_dkv_wide, __nv_bfloat16)
            : dtype == zoo::kF32 ? ZOO_DKV(launch_dkv_wide, float)
                                 : (int)cudaErrorInvalidValue;
-  if (dtype == zoo::kBF16 && D % 8 == 0)
-    return D <= 64    ? ZOO_DKV(launch_dkv_wgmma, 1, 64, 1)
-           : D <= 128 ? ZOO_DKV(launch_dkv_wgmma, 2, 32, 1)
-                      : ZOO_DKV(launch_dkv_wgmma, 4, 32, 2);
+  if (tc)
+    return with_dkv_tile(D, tile, [&](auto t) {
+      using T = decltype(t);
+      return ZOO_DKV(launch_dkv_wgmma, T::NB, T::BN, T::NS, T::ST);
+    });
   if (dtype == zoo::kF32)
     return D <= 32    ? ZOO_DKV(launch_dkv, 32)
            : D <= 64  ? ZOO_DKV(launch_dkv, 64)
@@ -1292,4 +1347,28 @@ extern "C" int zoo_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       : ZOO_DKV(launch_dkv, 256);
 #undef ZOO_DKV
   return (int)cudaErrorInvalidValue;
+}
+
+// The tile table's records of K3's and K4's bf16 kernels at head dim D (a
+// multiple of 8 up to 256) and `tile`: registers a thread, static and
+// dynamic shared bytes into out[0..2] (zoo::kernel_attrs).
+// cudaErrorInvalidValue for any other head dim or a tile past the list.
+extern "C" int zoo_flash_bwd_dq_attrs(int D, int tile, int* out) {
+  if (D < 8 || D > 256 || D % 8 || tile < 0) return (int)cudaErrorInvalidValue;
+  return with_dq_tile(D, tile, [&](auto t) {
+    using T = decltype(t);
+    return zoo::kernel_attrs(
+        flash_bwd_dq_wgmma_kernel<T::NB, T::BN, T::NS, T::ST>,
+        BwdLayout<T::NB, T::BN, T::ST>::kSmem + 1024, out);
+  });
+}
+
+extern "C" int zoo_flash_bwd_dkv_attrs(int D, int tile, int* out) {
+  if (D < 8 || D > 256 || D % 8 || tile < 0) return (int)cudaErrorInvalidValue;
+  return with_dkv_tile(D, tile, [&](auto t) {
+    using T = decltype(t);
+    return zoo::kernel_attrs(
+        flash_bwd_dkv_wgmma_kernel<T::NB, T::BN, T::NS, T::ST>,
+        BwdLayout<T::NB, T::BN, T::ST>::kSmem + 1024, out);
+  });
 }

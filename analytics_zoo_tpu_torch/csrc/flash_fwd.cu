@@ -170,7 +170,7 @@ __global__ void __launch_bounds__(kThreads)
 // the blocks in snake order. One thread of the producer warpgroup keeps
 // TMA loads in flight (its warpgroup gives its registers to the others
 // with setmaxnreg): an item's Q, then its K and V tiles of BK keys up to
-// the causal limit into a two-stage ring of 128-byte-swizzled tiles. Each
+// the causal limit into a ring of ST 128-byte-swizzled tiles. Each
 // stage has "full" mbarriers for K and for V, which the TMA transactions
 // complete, and "empty" ones for K and for V, which the consumers' 256
 // threads complete: K as soon as S has read it, V after P V, so the next K
@@ -192,23 +192,27 @@ __global__ void __launch_bounds__(kThreads)
 // out-of-bounds fill gives zeros for rows past Tq/Tk and for columns
 // d..D (D = 64, 128 or 256, the 64-column boxes that hold d), so any head
 // dim that is a multiple of 8 and any T need no masking of the loads. O / l
-// goes out in bf16 from registers, the LSE in f32. D = 64 and 128 take
-// BK = 128 (80 and 160 KB of shared memory), D = 256 BK = 32 (128 KB),
-// which keeps the 240 registers a consumer thread has free of spills.
+// goes out in bf16 from registers, the LSE in f32. The K/V tile BK and
+// the ring's stages ST are template parameters: the tile table
+// (ops/tuning.py, `with_wgmma_tile` below) picks one of a few instances a
+// head-dim class. Its entry 0, what every call runs without a tuned
+// entry, is D = 64 and 128 at BK = 128 and two stages (80 and 160 KB of
+// shared memory), D = 256 at BK = 32 (128 KB), which keeps the 240
+// registers a consumer thread has free of spills.
 // Next: three consumer warpgroups (192 rows) at D = 64, exponentials
 // partly on the FMA pipes, a TMA store of O.
 constexpr int kWgRows = 64;                 // query rows a warpgroup owns
 constexpr int kWgBlockRows = 2 * kWgRows;   // query rows a block owns
 constexpr int kWgThreads = 3 * 128;  // two consumer warpgroups, a producer
 constexpr int kBox = zoo::tma::kBox;        // columns a TMA box holds
-constexpr int kWgStages = 2;                // stages of the K/V ring
 
-template <int NB, int BK>
+// NB boxes of 64 columns, K/V tiles of BK keys, ST stages of the K/V ring
+template <int NB, int BK, int ST>
 struct WgLayout {
   static constexpr int D = kBox * NB;
   static constexpr int kQ = NB * kWgBlockRows * 128;  // bytes of Q
   static constexpr int kKV = NB * BK * 128;           // bytes of a K/V tile
-  static constexpr int kSmem = kQ + 2 * kWgStages * kKV;
+  static constexpr int kSmem = kQ + 2 * ST * kKV;
 };
 
 // The work of a block of flash_fwd_wgmma_kernel: items i = 0 .. items - 1
@@ -230,7 +234,7 @@ struct WgItems {
 // A consumer warpgroup of flash_fwd_wgmma_kernel: 64 query rows of each
 // item's 128, over the K/V tiles the producer streams in (`jt` counts
 // them across items: ring stage jt % S, phase (jt / S) & 1).
-template <int NB, int BK>
+template <int NB, int BK, int ST>
 __device__ __forceinline__ void consume(
     const unsigned char* sq, const unsigned char* sk, const unsigned char* sv,
     uint64_t* q_full, uint64_t* q_empty, uint64_t* k_full, uint64_t* v_full,
@@ -239,8 +243,8 @@ __device__ __forceinline__ void consume(
     int Tk, int d, int causal, float scale) {
   namespace mm = zoo::mma;
   namespace wg = zoo::wg;
-  using L = WgLayout<NB, BK>;
-  constexpr int S = kWgStages;
+  using L = WgLayout<NB, BK, ST>;
+  constexpr int S = ST;
   constexpr int D = L::D;
   wg::set_max_regs_inc<240>();
   const int warp = threadIdx.x >> 5;
@@ -440,7 +444,7 @@ __device__ __forceinline__ void consume(
   }
 }
 
-template <int NB, int BK>
+template <int NB, int BK, int ST>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -449,8 +453,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                            float* __restrict__ lse, int B, int H, int Tq,
                            int Tk, int d, int causal, float scale) {
   namespace wg = zoo::wg;
-  using L = WgLayout<NB, BK>;
-  constexpr int S = kWgStages;
+  using L = WgLayout<NB, BK, ST>;
+  constexpr int S = ST;
 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t q_full, q_empty, k_full[S], v_full[S], k_empty[S],
@@ -512,19 +516,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
   } else {
-    consume<NB, BK>(sq, sk, sv, &q_full, &q_empty, k_full, v_full,
+    consume<NB, BK, ST>(sq, sk, sv, &q_full, &q_empty, k_full, v_full,
                        k_empty, v_empty, work, o, lse, H, Tq, Tk, d, causal,
                        scale);
   }
 }
 
-template <int NB, int BK>
+template <int NB, int BK, int ST>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  void* lse, int B, int H, int Tq, int Tk, int d,
                  const long long* qs, const long long* ks,
                  const long long* vs, int causal, float scale,
                  cudaStream_t stream) {
-  constexpr int smem = WgLayout<NB, BK>::kSmem + 1024;
+  constexpr int smem = WgLayout<NB, BK, ST>::kSmem + 1024;
   namespace tma = zoo::tma;
   CUtensorMap tq, tk, tv;
   if (!tma::cached_operand(&tq, q, B, H, Tq, d, qs[0], qs[1], qs[2],
@@ -534,7 +538,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     return tma::kErrTensorMap;
   static std::atomic<uint64_t> granted{0};
   const cudaError_t err = zoo::mma::grant_smem(
-      flash_fwd_wgmma_kernel<NB, BK>, smem, granted);
+      flash_fwd_wgmma_kernel<NB, BK, ST>, smem, granted);
   if (err != cudaSuccess) return (int)err;
   // persistent: one block an SM (its registers fill the SM), each taking
   // its share of the items
@@ -542,7 +546,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const int grid = tma::persistent_grid(
       (long long)B * H * ((Tq + kWgBlockRows - 1) / kWgBlockRows), &e);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_wgmma_kernel<NB, BK><<<grid, kWgThreads, smem, stream>>>(
+  flash_fwd_wgmma_kernel<NB, BK, ST><<<grid, kWgThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
       B, H, Tq, Tk, d, causal, scale);
   return (int)cudaGetLastError();
@@ -607,6 +611,39 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
+// An instance of the bf16 kernel: NB boxes, K/V tiles of BK keys, ST
+// stages
+template <int NB_, int BK_, int ST_>
+struct WgTile {
+  static constexpr int NB = NB_, BK = BK_, ST = ST_;
+};
+
+// The bf16 tile table: `f(WgTile<...>{})` for candidate `tile` of the head
+// dim's class (D <= 64, <= 128, <= 256), cudaErrorInvalidValue for an
+// index past the class's list. Entry 0 is the kernel's default. The list
+// mirrors FLASH_CANDIDATES' (K/V tile, stages) in ops/tuning.py.
+template <class F>
+int with_wgmma_tile(int D, int tile, F&& f) {
+  if (D <= 64) {
+    switch (tile) {
+      case 0: return f(WgTile<1, 128, 2>{});
+      case 1: return f(WgTile<1, 128, 3>{});
+      case 2: return f(WgTile<1, 64, 2>{});
+    }
+  } else if (D <= 128) {
+    switch (tile) {
+      case 0: return f(WgTile<2, 128, 2>{});
+      case 1: return f(WgTile<2, 64, 3>{});
+    }
+  } else {
+    switch (tile) {
+      case 0: return f(WgTile<4, 32, 2>{});
+      case 1: return f(WgTile<4, 32, 3>{});
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Strides are in elements: (batch, position, head) for q, k and v; the head
@@ -617,31 +654,36 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 // dims), on 64, 128 or 256; above 256 both run the wide kernel. bf16 q, k
 // and v up to 256 must start 16-byte aligned with strides of multiples of
 // 8 elements (the wrapper checks: TMA's tensor maps take no other).
-// Returns cudaGetLastError() after the launch, cudaErrorInvalidValue for a
-// dtype/head dim it does not take, or kErrTensorMap when a tensor map
-// cannot be encoded.
+// `tile` indexes the tile table of the bf16 kernel (with_wgmma_tile);
+// every other kernel has the one entry 0. Returns cudaGetLastError() after
+// the launch, cudaErrorInvalidValue for a dtype/head dim it does not take
+// or a tile past the list, or kErrTensorMap when a tensor map cannot be
+// encoded.
 extern "C" int zoo_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int dtype, int B, int H,
                              int Tq, int Tk, int D, long long qsb,
                              long long qst, long long qsh, long long ksb,
                              long long kst, long long ksh, long long vsb,
                              long long vst, long long vsh, int causal,
-                             float scale, void* stream) {
+                             float scale, int tile, void* stream) {
   const long long qs[3] = {qsb, qst, qsh};
   const long long kss[3] = {ksb, kst, ksh};
   const long long vss[3] = {vsb, vst, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Tq < 1 || Tk < 1 || B < 1 || H < 1 || D < 1)
+  if (Tq < 1 || Tk < 1 || B < 1 || H < 1 || D < 1 || tile < 0)
     return (int)cudaErrorInvalidValue;
+  const bool tc = dtype == zoo::kBF16 && D % 8 == 0 && D <= 256;
+  if (!tc && tile != 0) return (int)cudaErrorInvalidValue;
 #define ZOO_FWD(F, ...) F<__VA_ARGS__>(q, k, v, o, lse, B, H, Tq, Tk, D, qs, kss, vss, causal, scale, st)
   if (D > 256)
     return dtype == zoo::kBF16 ? ZOO_FWD(launch_wide, __nv_bfloat16)
            : dtype == zoo::kF32 ? ZOO_FWD(launch_wide, float)
                                 : (int)cudaErrorInvalidValue;
-  if (dtype == zoo::kBF16 && D % 8 == 0)
-    return D <= 64    ? ZOO_FWD(launch_wgmma, 1, 128)
-           : D <= 128 ? ZOO_FWD(launch_wgmma, 2, 128)
-                      : ZOO_FWD(launch_wgmma, 4, 32);
+  if (tc)
+    return with_wgmma_tile(D, tile, [&](auto t) {
+      using T = decltype(t);
+      return ZOO_FWD(launch_wgmma, T::NB, T::BK, T::ST);
+    });
   if (dtype == zoo::kF32)
     return D <= 32    ? ZOO_FWD(launch, 32)
            : D <= 64  ? ZOO_FWD(launch, 64)
@@ -649,4 +691,18 @@ extern "C" int zoo_flash_fwd(const void* q, const void* k, const void* v,
                       : ZOO_FWD(launch, 256);
 #undef ZOO_FWD
   return (int)cudaErrorInvalidValue;
+}
+
+// The tile table's record of the bf16 kernel at head dim D (a multiple of
+// 8 up to 256) and `tile`: registers a thread, static and dynamic shared
+// bytes into out[0..2] (zoo::kernel_attrs). cudaErrorInvalidValue for any
+// other head dim or a tile past the list.
+extern "C" int zoo_flash_fwd_attrs(int D, int tile, int* out) {
+  if (D < 8 || D > 256 || D % 8 || tile < 0) return (int)cudaErrorInvalidValue;
+  return with_wgmma_tile(D, tile, [&](auto t) {
+    using T = decltype(t);
+    return zoo::kernel_attrs(flash_fwd_wgmma_kernel<T::NB, T::BK, T::ST>,
+                             WgLayout<T::NB, T::BK, T::ST>::kSmem + 1024,
+                             out);
+  });
 }

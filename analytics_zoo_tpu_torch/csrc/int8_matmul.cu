@@ -34,6 +34,12 @@
 //   layer on the H100 (scripts/torch_int8_variants.py).
 // - Elsewhere (a narrow N, a small M, a group off the 128 grid): the
 //   mma.sync GEMM of int8_tile.cuh, which K6 shares.
+// That choice is entry 0 of the tile table (ops/tuning.py,
+// MATMUL_CANDIDATES); the others force the wgmma GEMM (groups of whole
+// 128-byte chunks only), or the mma.sync GEMM at 128 x 128 or 64 x 64.
+// Every entry computes the same bits: the int32 partials are exact and the
+// folds run in the same order with the same roundings. The table never
+// changes the group length g, which is numerics.
 #include <stdint.h>
 
 #include "int8_tile.cuh"
@@ -263,21 +269,40 @@ cudaError_t launch_wgmma(const int8_t* codes, const float* scales,
   return cudaGetLastError();
 }
 
+// The tile table: entry 0 the shape's own choice (wgmma where it fits,
+// else gemm_tile's mma.sync tile), 1 the wgmma GEMM, 2 and 3 the mma.sync
+// GEMM at 128 x 128 and 64 x 64 (int8_tile.cuh's codes 0 and 2)
+enum MatmulTile : int { kAuto = 0, kWgmma = 1, kMma128 = 2, kMma64 = 3 };
+constexpr int kMatmulTiles = 4;
+
+// The GEMM `tile` runs at this shape: kWgmma, or an mma.sync tile code of
+// int8_tile.cuh (0 .. 2) plus 10; -1 for a tile the shape cannot take
+int resolve_tile(long long M, int N, int gp, int tile) {
+  switch (tile) {
+    case kAuto:
+      return wgmma_fits(M, N, gp) ? kWgmma : 10 + gemm_tile(M, N);
+    case kWgmma: return gp % kWgBK == 0 ? kWgmma : -1;
+    case kMma128: return 10;
+    case kMma64: return 12;
+  }
+  return -1;
+}
+
 template <typename T>
 cudaError_t run(const void* x, const int8_t* wt, const float* ws, void* y,
                 int8_t* codes, float* scales, int M, int N, int K, int g,
-                int rule, float recip, cudaStream_t st) {
+                int rule, float recip, int gemm, cudaStream_t st) {
   const int gp = depth_of(g);
   const int G = K / g;
   cudaError_t err = launch_quantize(static_cast<const T*>(x), codes, scales,
                                     MatmulMap{{M}}, K, g, gp, rule, recip, st);
   if (err != cudaSuccess) return err;
-  if (wgmma_fits(M, N, gp))
+  if (gemm == kWgmma)
     return launch_wgmma(codes, scales, wt, ws, static_cast<T*>(y), M, N, G,
                         gp, st);
   const MatmulRows rows{{codes, scales, M, G, gp}};
   const Operands op{wt, (long long)G * gp, gp, ws, N, G, gp};
-  return launch_gemm(rows, op, static_cast<T*>(y), st);
+  return launch_gemm(rows, op, static_cast<T*>(y), st, gemm - 10);
 }
 
 bool bad_group(int K, int g) {
@@ -292,12 +317,14 @@ bool bad_group(int K, int g) {
 // groups padded with zeros to gp = g rounded up to 32; ws (N,) f32; the
 // scratch codes (M, G * gp) int8 and scales (M, G) f32, all contiguous and
 // 16-byte aligned. rule 0: scale = max(amax, 1e-12) * recip; rule 1: /
-// 127. Returns the first CUDA error of the two launches
-// (cudaErrorInvalidValue for arguments it does not take).
+// 127. `tile` indexes the tile table (MatmulTile). Returns the first CUDA
+// error of the two launches (cudaErrorInvalidValue for arguments it does
+// not take, a tile past the table or one the shape cannot take, before
+// either launch).
 extern "C" int zoo_int8_matmul(const void* x, const void* wt, const void* ws,
                                void* y, void* codes, void* scales, int dtype,
                                int M, int N, int K, int g, int rule,
-                               float recip, void* stream) {
+                               float recip, int tile, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* w = static_cast<const int8_t*>(wt);
   const float* s = static_cast<const float*>(ws);
@@ -305,12 +332,40 @@ extern "C" int zoo_int8_matmul(const void* x, const void* wt, const void* ws,
   float* sc = static_cast<float*>(scales);
   if (M < 1 || N < 1 || bad_group(K, g) || (rule != 0 && rule != 1))
     return (int)cudaErrorInvalidValue;
+  const int gemm = resolve_tile(M, N, depth_of(g), tile);
+  if (gemm < 0) return (int)cudaErrorInvalidValue;
   if (dtype == zoo::kF32)
-    return (int)run<float>(x, w, s, y, c, sc, M, N, K, g, rule, recip, st);
+    return (int)run<float>(x, w, s, y, c, sc, M, N, K, g, rule, recip, gemm,
+                           st);
   if (dtype == zoo::kBF16)
     return (int)run<__nv_bfloat16>(x, w, s, y, c, sc, M, N, K, g, rule,
-                                   recip, st);
+                                   recip, gemm, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tile table's record of the GEMM `tile` runs for an (M, K) x (K, N)
+// product at group length g in `dtype`: registers a thread, static and
+// dynamic shared bytes into out[0..2] (zoo::kernel_attrs).
+// cudaErrorInvalidValue where zoo_int8_matmul would refuse the tile.
+extern "C" int zoo_int8_matmul_attrs(int dtype, int M, int N, int K, int g,
+                                     int tile, int* out) {
+  if (M < 1 || N < 1 || bad_group(K, g) ||
+      (dtype != zoo::kF32 && dtype != zoo::kBF16))
+    return (int)cudaErrorInvalidValue;
+  const int gp = depth_of(g);
+  const int gemm = resolve_tile(M, N, gp, tile);
+  if (gemm < 0) return (int)cudaErrorInvalidValue;
+  auto attrs = [&](auto t) -> int {
+    using T = decltype(t);
+    if (gemm == kWgmma)
+      return zoo::kernel_attrs(matmul_wgmma_kernel<T>, kWgSmem, out);
+    return (int)with_gemm_cfg(gemm - 10, gp, [&](auto c) {
+      using C = decltype(c);
+      return (cudaError_t)zoo::kernel_attrs(gemm_kernel<C, MatmulRows, T>,
+                                            C::kSmem, out);
+    });
+  };
+  return dtype == zoo::kF32 ? attrs(float{}) : attrs(__nv_bfloat16{});
 }
 
 // The quantize pass alone, for checking it: x (R, L) -> codes (R, G * gp)

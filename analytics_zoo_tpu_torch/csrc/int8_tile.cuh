@@ -729,27 +729,44 @@ cudaError_t launch_gemm_as(const G& g, const Operands& op, T* y,
   return cudaGetLastError();
 }
 
-// The largest tile that gives at least two blocks an SM, else the small
-// one; BK 256 or 128 where a segment is at least that deep
-template <class G, typename T>
-cudaError_t launch_gemm(const G& g, const Operands& op, T* y,
-                        cudaStream_t st) {
+// The mma.sync tile of `launch_gemm`: 0 (128 x 128), 1 (128 x 64) or 2
+// (64 x 64), the largest that gives at least two blocks an SM, else the
+// small one
+inline int gemm_tile(long long M, int N) {
   const long long enough = 2LL * sm_count();
   auto blocks = [&](int bm, int bn) {
-    return (g.M + bm - 1) / bm * ((op.N + bn - 1) / bn);
+    return (M + bm - 1) / bm * ((N + bn - 1) / bn);
   };
-  const int tile = op.N > 64 && blocks(128, 128) >= enough ? 0
-                   : blocks(128, 64) >= enough              ? 1
-                                                            : 2;
-  if (op.D >= 256 && tile == 0) return launch_gemm_as<TileL256>(g, op, y, st);
-  if (op.D >= 128) {
-    if (tile == 0) return launch_gemm_as<TileL>(g, op, y, st);
-    if (tile == 1) return launch_gemm_as<TileM>(g, op, y, st);
-    return launch_gemm_as<TileS>(g, op, y, st);
+  return N > 64 && blocks(128, 128) >= enough ? 0
+         : blocks(128, 64) >= enough          ? 1
+                                              : 2;
+}
+
+// `f(C{})` for the Cfg of mma.sync tile `tile` (gemm_tile's codes) at a
+// segment `depth` bytes deep: BK 256 or 128 where a segment is at least
+// that deep
+template <class F>
+cudaError_t with_gemm_cfg(int tile, int depth, F&& f) {
+  if (depth >= 256 && tile == 0) return f(TileL256{});
+  if (depth >= 128) {
+    if (tile == 0) return f(TileL{});
+    if (tile == 1) return f(TileM{});
+    return f(TileS{});
   }
-  if (tile == 0) return launch_gemm_as<TileL64>(g, op, y, st);
-  if (tile == 1) return launch_gemm_as<TileM64>(g, op, y, st);
-  return launch_gemm_as<TileS64>(g, op, y, st);
+  if (tile == 0) return f(TileL64{});
+  if (tile == 1) return f(TileM64{});
+  return f(TileS64{});
+}
+
+// The GEMM at gemm_tile's choice, or at mma.sync tile `tile` when it is
+// 0, 1 or 2
+template <class G, typename T>
+cudaError_t launch_gemm(const G& g, const Operands& op, T* y,
+                        cudaStream_t st, int tile = -1) {
+  if (tile < 0) tile = gemm_tile(g.M, op.N);
+  return with_gemm_cfg(tile, op.D, [&](auto c) {
+    return launch_gemm_as<decltype(c)>(g, op, y, st);
+  });
 }
 
 }  // namespace i8

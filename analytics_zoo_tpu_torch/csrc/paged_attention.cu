@@ -292,8 +292,9 @@ int launch_wide(const void* q, const void* kp, const void* vp,
 //
 // What the design does about the bound above (bytes, and the latency of
 // reaching them): the grid is (head, slot, split x q tile), each split a
-// fixed span of `span` positions (a multiple of the page size, 128 for
-// pages up to 128), so the serving step's 8 slots x 16 heads become
+// fixed span of `span` positions (a multiple of the page size: 128 for
+// pages up to 128 by default, up to 1024 by the tile table's choice,
+// kSplitPositions), so the serving step's 8 slots x 16 heads become
 // hundreds of blocks, each with its whole span of K/V requested at once; a
 // split at or past the slot's length returns at once. A block reads its
 // span's table entries once into shared memory, then gathers each
@@ -324,6 +325,21 @@ int launch_wide(const void* q, const void* kp, const void* vp,
 // each) for the long q_len of prefill chunks.
 constexpr int kBK = 64;             // keys a tile, 16 per warp
 constexpr int kMaxSpanPages = 128;  // table entries a split reads
+
+// The tile table (ops/tuning.py, PAGED_CANDIDATES): the positions a split
+// covers, rounded up to whole pages and capped at kMaxSpanPages pages.
+// Entry 0, 128 positions, is the default; a longer span launches fewer
+// splits, so a long q_len writes fewer f32 partials and the last split
+// folds fewer of them, at the cost of fewer blocks in flight.
+constexpr int kSplitPositions[] = {128, 256, 512, 1024};
+constexpr int kSplitTiles = sizeof(kSplitPositions) / sizeof(int);
+
+constexpr int split_span(int page_size, int tile) {
+  return page_size *
+         ((kSplitPositions[tile] + page_size - 1) / page_size < kMaxSpanPages
+              ? (kSplitPositions[tile] + page_size - 1) / page_size
+              : kMaxSpanPages);
+}
 
 template <int D>
 __global__ void __launch_bounds__(zoo::mma::kThreads, 2)
@@ -658,16 +674,17 @@ int launch_mma(const void* q, const void* kp, const void* vp,
 // head) are in elements; the head dim D, any from 1, is contiguous in
 // both, and k_pages and v_pages share their strides. o is a contiguous
 // (B, q_len, H, D) tensor; q_len is any positive count. The bf16 tensor-
-// core kernel (D a multiple of 8 up to 256) takes `work`, f32 scratch of
+// core kernel (D a multiple of 8 up to 256) takes `tile`, an index of the
+// tile table (kSplitPositions), and `span`, which must be that tile's
+// split_span(page_size, tile); `work`, f32 scratch of
 // B * H * n_split * q_len * (D + 2) values, n_split =
-// ceil(pages_per_slot * page_size / span), with `span` a multiple of
-// page_size of at most 128 pages; `done`, B * H * ceil(q_len / 16)
+// ceil(pages_per_slot * page_size / span); `done`, B * H * ceil(q_len / 16)
 // unsigned counters that are 0 before the launch and 0 again after it (so
 // launches on one stream may share them); and pools whose rows start
 // 16-byte aligned (the wrapper checks: cp.async moves 16-byte chunks) when D
 // is a multiple of 8 up to 256. f32, and the wide kernel, take none of
-// them. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a shape or dtype it does not take).
+// them, and only tile 0. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a shape, dtype or tile it does not take).
 extern "C" int zoo_paged_attention(const void* q, const void* k_pages,
                                    const void* v_pages, const void* table,
                                    const void* lengths, void* o, void* work,
@@ -677,15 +694,17 @@ extern "C" int zoo_paged_attention(const void* q, const void* k_pages,
                                    int span, long long qsb, long long qst,
                                    long long qsh, long long psp,
                                    long long pst, long long psh, float scale,
-                                   void* stream) {
+                                   int tile, void* stream) {
   const long long qs[3] = {qsb, qst, qsh};
   const long long ps[3] = {psp, pst, psh};
   const int* tb = static_cast<const int*>(table);
   const int* ln = static_cast<const int*>(lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_len < 1 || B < 1 || H < 1 || page_size < 1 || pages_per_slot < 1 ||
-      D < 1)
+      D < 1 || tile < 0 || tile >= kSplitTiles)
     return (int)cudaErrorInvalidValue;
+  const bool tc = dtype == zoo::kBF16 && D % 8 == 0 && D <= 256;
+  if (!tc && tile != 0) return (int)cudaErrorInvalidValue;
 #define ZOO_K2(T) launch_wide<T>(q, k_pages, v_pages, tb, ln, o, B, H, D, q_len, page_size, pages_per_slot, qs, ps, scale, st)
   if (D > 256 || (dtype == zoo::kBF16 && D % 8))
     return dtype == zoo::kBF16 ? ZOO_K2(__nv_bfloat16)
@@ -693,8 +712,7 @@ extern "C" int zoo_paged_attention(const void* q, const void* k_pages,
                                 : (int)cudaErrorInvalidValue;
 #undef ZOO_K2
   if (dtype == zoo::kBF16) {
-    if (span < page_size || span % page_size ||
-        span / page_size > kMaxSpanPages || work == nullptr ||
+    if (span != split_span(page_size, tile) || work == nullptr ||
         done == nullptr)
       return (int)cudaErrorInvalidValue;
 #define ZOO_K2(D_) launch_mma<D_>(q, k_pages, v_pages, tb, ln, o, work, done, B, H, D, q_len, page_size, pages_per_slot, span, qs, ps, scale, st)
@@ -709,4 +727,17 @@ extern "C" int zoo_paged_attention(const void* q, const void* k_pages,
 #undef ZOO_K2
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The tile table's record of the bf16 kernel at head dim D (a multiple of
+// 8 up to 256): registers a thread, static and dynamic shared bytes into
+// out[0..2] (zoo::kernel_attrs); every tile runs the same instance.
+extern "C" int zoo_paged_attention_attrs(int D, int tile, int* out) {
+  if (D < 8 || D > 256 || D % 8 || tile < 0 || tile >= kSplitTiles)
+    return (int)cudaErrorInvalidValue;
+  namespace mm = zoo::mma;
+#define ZOO_K2(D_) zoo::kernel_attrs(paged_attn_mma_kernel<D_>, (16 + 4 * kBK) * mm::Tile<D_>::kPitch * 2, out)
+  return D <= 32 ? ZOO_K2(32) : D <= 64 ? ZOO_K2(64)
+         : D <= 128 ? ZOO_K2(128) : ZOO_K2(256);
+#undef ZOO_K2
 }

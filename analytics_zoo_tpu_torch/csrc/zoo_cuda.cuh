@@ -41,4 +41,20 @@ __device__ __forceinline__ float warp_sum(float x) {
 // dtype codes shared with the Python wrappers
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
+// What the tile table records of a kernel instance (ops/tuning.py): into
+// out[0..2] its registers a thread, its static shared memory and the
+// dynamic shared memory its launch asks for, in bytes. Returns the CUDA
+// error of cudaFuncGetAttributes.
+template <typename Kernel>
+inline int kernel_attrs(Kernel kernel, int dynamic_smem, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(kernel));
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = dynamic_smem;
+  return 0;
+}
+
 }  // namespace zoo

@@ -52,6 +52,7 @@ from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from .. import native
 from ..common import telemetry as _tm
 
 _DATA_BATCHES = _tm.counter("zoo_data_batches_total",
@@ -295,14 +296,23 @@ class FeatureSet:
 
     @staticmethod
     def _gather(a: np.ndarray, sel: np.ndarray) -> np.ndarray:
-        """The rows ``sel`` of ``a``, in that order; a memmap is read in
-        sorted index order (page-cache friendly)."""
+        """The rows ``sel`` of ``a``, in that order. A memmap is read in
+        sorted index order (page-cache friendly); a C-contiguous,
+        non-object DRAM array of at least 1 MiB goes through the native
+        threaded gather (``native.gather_rows``), as in the JAX package:
+        smaller ones are not worth the threads, a strided one would be
+        copied whole per batch, and an object array's pointers must not be
+        copied without their references."""
         if isinstance(a, np.memmap):
             order = np.argsort(sel, kind="stable")
             inv = np.empty_like(order)
             inv[order] = np.arange(len(order))
             return np.ascontiguousarray(a[sel[order]][inv])
-        return np.ascontiguousarray(np.asarray(a)[sel])
+        a = np.asarray(a)
+        if (native.native_available() and a.nbytes >= (1 << 20)
+                and a.flags["C_CONTIGUOUS"] and not a.dtype.hasobject):
+            return native.gather_rows(a, sel)
+        return np.ascontiguousarray(a[sel])
 
     # ------------------------------------------------------------------- API
     def size(self) -> int:

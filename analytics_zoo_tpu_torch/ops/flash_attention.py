@@ -52,20 +52,24 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, tuning
 from ..analysis import trace as _trace
 from .attention import NEG_INF, TILE_MAX_HEAD_DIM, kernel_envelope
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ATTRS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _SIG = {"zoo_flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
         + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_float,
-                                     ctypes.c_void_p]}
+                                     ctypes.c_int, ctypes.c_void_p],
+        "zoo_flash_fwd_attrs": _ATTRS}
 _TAIL = [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_float,
-                                     ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_void_p]
 _BWD_SIG = {"zoo_flash_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
             + _TAIL,
             "zoo_flash_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-            + _TAIL}
+            + _TAIL,
+            "zoo_flash_bwd_dq_attrs": _ATTRS,
+            "zoo_flash_bwd_dkv_attrs": _ATTRS}
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -186,12 +190,22 @@ def _unpad(t: torch.Tensor, d: int) -> torch.Tensor:
     return t if t.shape[-1] == d else t[..., :d]
 
 
+def _tile_of(q: torch.Tensor, t_k: int, d: int, width: int,
+             tile: Optional[int]) -> int:
+    """The tile K1/K3/K4 run for this call: ``tile`` when given (a sweep),
+    else the tile table's (``tuning.flash_tile``: entry 0 for a shape
+    never swept)."""
+    if tile is not None:
+        return tile
+    return tuning.flash_tile(q.shape[1], t_k, d, width, q.dtype, q.device)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = False
+                        causal: bool = False, *, tile: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash forward, (B, T, H, D) → ``(out (B, Tq, H, D), lse (B, H, Tq)
     f32)``. CPU tensors take :func:`flash_attention_plain`; CUDA tensors
-    launch K1 or raise."""
+    launch K1 at the tile table's tile (or ``tile``) or raise."""
     if _trace.RECORDING and _trace.recording():
         return _trace.kernel_site("K1", flash_attention_plain, q, k, v,
                                   causal, scratch_bytes=_pad_bytes(q, k, v))
@@ -211,7 +225,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        int(bool(causal)), 1.0 / math.sqrt(d), stream)
+        int(bool(causal)), 1.0 / math.sqrt(d),
+        _tile_of(q, t_k, d, width, tile), stream)
     _build.check_launch(err, "flash_attention")
     flash_attention_fwd.launches += 1
     return _unpad(out, d), lse
@@ -302,7 +317,7 @@ def _check_bwd(q, k, v, g, lse, delta) -> None:
                              f"{t.dtype}{tuple(t.shape)} on {t.device}")
 
 
-def _bwd_args(q, k, v, g, lse, delta, causal, scale):
+def _bwd_args(q, k, v, g, lse, delta, causal, scale, tile):
     """The C entries' pointers and the rest of their arguments, for
     operands already at the kernels' head dim."""
     b, t_q, h, width = q.shape
@@ -312,17 +327,18 @@ def _bwd_args(q, k, v, g, lse, delta, causal, scale):
     return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              lse.data_ptr(), delta.data_ptr()),
             (_DTYPE_CODES[q.dtype], b, h, t_q, k.shape[1], width, *strides,
-             int(bool(causal)), scale,
+             int(bool(causal)), scale, tile,
              torch.cuda.current_stream(q.device).cuda_stream))
 
 
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, g: torch.Tensor,
                            lse: torch.Tensor, delta: torch.Tensor,
-                           causal: bool = False) -> torch.Tensor:
+                           causal: bool = False, *,
+                           tile: Optional[int] = None) -> torch.Tensor:
     """K3: dQ (B, Tq, H, D) in q's dtype from the saved LSE and δ. CPU
     tensors take :func:`flash_attention_bwd_dq_plain`; CUDA tensors launch
-    K3 or raise."""
+    K3 at the tile table's tile (or ``tile``) or raise."""
     if _trace.RECORDING and _trace.recording():
         return _trace.kernel_site("K3", flash_attention_bwd_dq_plain, q, k,
                                   v, g, lse, delta, causal,
@@ -335,7 +351,8 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
                                   g=g)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ptrs, rest = _bwd_args(q, k, v, g, lse, delta, causal,
-                           1.0 / math.sqrt(d))
+                           1.0 / math.sqrt(d),
+                           _tile_of(q, k.shape[1], d, q.shape[-1], tile))
     err = lib.zoo_flash_bwd_dq(*ptrs, dq.data_ptr(), *rest)
     _build.check_launch(err, "flash_attention_bwd_dq (K3)")
     flash_attention_bwd_dq.launches += 1
@@ -345,11 +362,12 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, g: torch.Tensor,
                             lse: torch.Tensor, delta: torch.Tensor,
-                            causal: bool = False
+                            causal: bool = False, *,
+                            tile: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: ``(dk, dv)``, each (B, Tk, H, D) in k's/v's dtype. CPU tensors
-    take :func:`flash_attention_bwd_dkv_plain`; CUDA tensors launch K4 or
-    raise."""
+    take :func:`flash_attention_bwd_dkv_plain`; CUDA tensors launch K4 at
+    the tile table's tile (or ``tile``) or raise."""
     if _trace.RECORDING and _trace.recording():
         return _trace.kernel_site("K4", flash_attention_bwd_dkv_plain, q, k,
                                   v, g, lse, delta, causal,
@@ -363,7 +381,8 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     ptrs, rest = _bwd_args(q, k, v, g, lse, delta, causal,
-                           1.0 / math.sqrt(d))
+                           1.0 / math.sqrt(d),
+                           _tile_of(q, k.shape[1], d, q.shape[-1], tile))
     err = lib.zoo_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *rest)
     _build.check_launch(err, "flash_attention_bwd_dkv (K4)")
     flash_attention_bwd_dkv.launches += 1
@@ -377,12 +396,13 @@ flash_attention_bwd_dkv.launches = 0
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
-                        causal: bool = False
+                        causal: bool = False, *, tile: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash backward from K1's ``out`` and ``lse`` (B, H, Tq) f32 and the
     output grad ``g`` → ``(dq, dk, dv)``. CPU tensors take
     :func:`flash_attention_bwd_plain`; CUDA tensors (and a recording
-    trace) launch K3 then K4 or raise."""
+    trace) launch K3 then K4, at the tile table's tile (or ``tile``), or
+    raise."""
     if all(t.device.type == "cpu" for t in (q, k, v, out, lse, g)) \
             and not (_trace.RECORDING and _trace.recording()):
         return flash_attention_bwd_plain(q, k, v, out, lse, g, causal)
@@ -390,8 +410,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} on "
                          f"{out.device} does not match q {tuple(q.shape)}")
     delta = flash_bwd_delta(out, g)
-    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
+    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, causal, tile=tile)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal,
+                                     tile=tile)
     return dq, dk, dv
 
 

@@ -59,7 +59,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, tuning
 from ..analysis import trace as _trace
 
 #: The TPU route's fixed schedule (``DEFAULT_BLOCK_M/N/K``) and its tiling
@@ -81,7 +81,8 @@ _COUNT_LOCK = threading.Lock()
 DEPTH = 32
 
 _SIG_MM = {"zoo_int8_matmul": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-           + [ctypes.c_float, ctypes.c_void_p],
+           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+           "zoo_int8_matmul_attrs": [ctypes.c_int] * 6 + [ctypes.c_void_p],
            "zoo_int8_quantize": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
            + [ctypes.c_float, ctypes.c_void_p]}
 _SIG_CONV = {"zoo_int8_conv": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
@@ -113,7 +114,9 @@ def resolve_blocks(m: int, n: int, k: int) -> Optional[Tuple[int, int, int]]:
     fused matmul, or None when N or K cannot tile (the lax route). Pinned
     to the TPU's default decision: the defaults 256/256/512 and the floors
     8/128/128, with no env override and no tuning cache. Only ``block_k``
-    changes the arithmetic (it is the scale-group length)."""
+    changes the arithmetic (it is the scale-group length); the port's
+    tile table (``ops/tuning.py``) picks K5's CTA tile, stages and product
+    and never reads or changes it."""
     bm = max(min(_pow2_floor(DEFAULT_BLOCK_M), _pow2_ceil(max(m, 1))), _MIN_M)
     bn = _shrink_to_divisor(n, min(DEFAULT_BLOCK_N, n), _MIN_N)
     bk = _shrink_to_divisor(k, min(DEFAULT_BLOCK_K, k), _MIN_K)
@@ -270,11 +273,14 @@ def _weights_kernel_major(packed, wq: torch.Tensor, what: str
 
 
 def int8_matmul_fused(x: torch.Tensor, packed: Dict[str, torch.Tensor],
-                      block_k: int, rule: str = "fused") -> torch.Tensor:
+                      block_k: int, rule: str = "fused", *,
+                      tile: Optional[int] = None) -> torch.Tensor:
     """``x @ W`` over a packed (K, N) int8 kernel with the activations
     quantized per (row, ``block_k`` segment) inside the kernel. Returns
     ``x.shape[:-1] + (N,)`` in x's dtype. CPU tensors take
-    :func:`int8_matmul_fused_plain`; CUDA tensors launch K5 or raise."""
+    :func:`int8_matmul_fused_plain`; CUDA tensors launch K5 at the tile
+    table's tile (``tuning.matmul_tile``, or ``tile`` when given) or
+    raise. Every tile computes the same bits."""
     if _trace.RECORDING and _trace.recording():
         return _trace.kernel_site(
             "K5", int8_matmul_fused_plain, x, packed, block_k, rule,
@@ -298,7 +304,10 @@ def int8_matmul_fused(x: torch.Tensor, packed: Dict[str, torch.Tensor],
     if math.prod(lead) == 0:
         return torch.empty(lead + (n,), dtype=x.dtype, device=x.device)
     qt = _weights_kernel_major(packed, wq, "int8_matmul_fused")
-    y = _matmul_on(lib, x.reshape(-1, k), qt, ws, block_k, rule)
+    m = math.prod(lead)
+    if tile is None:
+        tile = tuning.matmul_tile(m, n, k, x.dtype, x.device)
+    y = _matmul_on(lib, x.reshape(-1, k), qt, ws, block_k, rule, tile)
     with _COUNT_LOCK:
         int8_matmul_fused.launches += 1
     return y.reshape(lead + (n,))
@@ -322,10 +331,11 @@ def _matmul_scratch_bytes(x: torch.Tensor, packed, block_k: int) -> int:
 
 
 def _matmul_on(lib, x2: torch.Tensor, qt: torch.Tensor, ws: torch.Tensor,
-               block_k: int, rule: str) -> torch.Tensor:
+               block_k: int, rule: str, tile: int = 0) -> torch.Tensor:
     """K5's launch through ``lib``'s C entry (this tree's library, or an
-    edited copy's in ``scripts/torch_int8_variants.py``): x2 (M, K) on the
-    card, qt the kernel-major (N, K) weights; returns y (M, N)."""
+    edited copy's in ``scripts/torch_int8_variants.py``) at tile ``tile``:
+    x2 (M, K) on the card, qt the kernel-major (N, K) weights; returns y
+    (M, N)."""
     (m, k), n = x2.shape, qt.shape[0]
     gp = depth_of(block_k)
     if gp != block_k:                 # each group padded to the depth
@@ -342,7 +352,7 @@ def _matmul_on(lib, x2: torch.Tensor, qt: torch.Tensor, ws: torch.Tensor,
                               y.data_ptr(), codes.data_ptr(),
                               scales.data_ptr(), _DTYPE_CODES[x2.dtype], m,
                               n, k, block_k, _RULE_CODES[rule], _RECIP127,
-                              stream)
+                              tile, stream)
     _build.check_launch(err, "int8_matmul_fused")
     return y
 

@@ -16,10 +16,13 @@ and prefill chunks (48, 64, 128 in the JAX package's benchmarks); the
 head dim is any from 1 (``attention.kernel_envelope``).
 
 bf16 runs split across the context on the tensor cores: one block per
-(head, slot, span of ``SPLIT_POSITIONS`` positions rounded up to whole
-pages, 16-row q tile) writes an f32 partial (m, l, acc), and the last
-split of a (head, slot, q tile) to finish, counted by an atomic counter,
-folds the partials into the output. The partials and the counters (which
+(head, slot, span of positions, 16-row q tile) writes an f32 partial
+(m, l, acc), and the last split of a (head, slot, q tile) to finish,
+counted by an atomic counter, folds the partials into the output. The
+span is the tile table's choice (``tuning.PAGED_CANDIDATES``:
+``SPLIT_POSITIONS`` = 128 positions rounded up to whole pages, the
+default, or a longer one a sweep chose for the cache geometry). The
+partials and the counters (which
 every launch leaves at 0) are made once per (device, stream) and reused:
 the wrapper runs once per layer and decode step in a host-bound loop, so
 it allocates nothing but the output and adds no launch, sync or pass
@@ -41,22 +44,27 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, tuning
 from ..analysis import trace as _trace
 from .attention import TILE_MAX_HEAD_DIM, kernel_envelope
 from .flash_attention import _check_aligned
 from .kv_cache import decode_attention_multi, paged_read
 
-#: positions one split of the bf16 kernel covers, rounded up to whole pages
-SPLIT_POSITIONS = 128
+#: positions one split of the bf16 kernel covers by default (the tile
+#: table's entry 0), rounded up to whole pages
+SPLIT_POSITIONS = tuning.PAGED_CANDIDATES[0]
 #: query rows a block of either kernel owns
 _Q_TILE = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIG = {"zoo_paged_attention": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-        + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p]}
+        + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_void_p],
+        "zoo_paged_attention_attrs": [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]}
 #: the bf16 kernel's scratch by (device, stream), made once and grown as
 #: calls need: (B*H*q-tile split counters, zero when made and left at zero
 #: by every launch; the splits' f32 partials). Launches in one stream's
@@ -145,15 +153,16 @@ def _on_tensor_cores(q: torch.Tensor) -> bool:
         and d <= TILE_MAX_HEAD_DIM
 
 
-def _split_geometry(q: torch.Tensor, pps: int, page_size: int):
+def _split_geometry(q: torch.Tensor, pps: int, page_size: int,
+                    tile: int = 0):
     """``(span, n_done, n_work)`` of the bf16 tensor-core kernel's split
-    across the context: positions a split covers, the split counters and
-    the f32 partials (m, l, acc) it needs; ``(0, 0, 0)`` for an FMA
-    kernel."""
+    across the context at tile ``tile``: positions a split covers, the
+    split counters and the f32 partials (m, l, acc) it needs;
+    ``(0, 0, 0)`` for an FMA kernel."""
     if not _on_tensor_cores(q):
         return 0, 0, 0
     b, q_len, h, d = q.shape
-    span = page_size * -(-SPLIT_POSITIONS // page_size)
+    span = tuning.split_span(page_size, tile)
     n_split = -(-(pps * page_size) // span)
     return (span, b * h * -(-q_len // _Q_TILE),
             b * h * n_split * q_len * (d + 2))
@@ -161,11 +170,14 @@ def _split_geometry(q: torch.Tensor, pps: int, page_size: int):
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, table: torch.Tensor,
-                    lengths: torch.Tensor, *, page_size: int) -> torch.Tensor:
+                    lengths: torch.Tensor, *, page_size: int,
+                    tile: Optional[int] = None) -> torch.Tensor:
     """Fused page-gather attention. ``q``: (B, q_len, H, D);
     ``k_pages``/``v_pages``: (P, page_size, H, D) — ONE layer's pool;
     ``table``: (B, pages_per_slot) int32; ``lengths``: (B,) int32 valid
-    positions INCLUDING the q_len new tokens. Returns (B, q_len, H, D)."""
+    positions INCLUDING the q_len new tokens. Returns (B, q_len, H, D).
+    The bf16 tensor-core kernel runs the tile table's split span for the
+    geometry (``tuning.paged_tile``), or tile ``tile`` when given."""
     if _trace.RECORDING and _trace.recording():
         _, n_done, n_work = _split_geometry(q, table.shape[1], page_size)
         return _trace.kernel_site(
@@ -184,8 +196,13 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     # torch's own compiled kernels read)
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
     done, work = None, None
-    # (m, l, acc) in f32 for each (slot, head, split, row)
-    span, n_done, n_work = _split_geometry(q, pps, page_size)
+    if tile is None:
+        tile = tuning.paged_tile(q_len, pps, page_size, h, d, q.dtype,
+                                 q.device) if _on_tensor_cores(q) else 0
+    # (m, l, acc) in f32 for each (slot, head, split, row); a tile past
+    # the table raises here or in the C entry
+    span, n_done, n_work = _split_geometry(q, pps, page_size, tile) \
+        if 0 <= tile < len(tuning.PAGED_CANDIDATES) else (0, 0, 0)
     if span:
         done, work = _scratch(q.device, stream, n_done, n_work)
     err = lib.zoo_paged_attention(
@@ -194,7 +211,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         _DTYPE_CODES[q.dtype], b, h, d, q_len, page_size, pps, span,
         q.stride(0), q.stride(1), q.stride(2),
         k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
-        1.0 / math.sqrt(d), stream)
+        1.0 / math.sqrt(d), tile, stream)
     _build.check_launch(err, "paged_attention")
     paged_attention.launches += 1
     return out

@@ -8,7 +8,8 @@ MobileNets, BERT and the text models, SSD300, Seq2seq, the GAN trainer
 and the importers, and orca, AutoML and zouwu, on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
-    python3 chip_smoke.py --quick    # device, build and kernel checks only
+    python3 chip_smoke.py --quick    # device, build, kernel checks and
+                                     # the tile table (phase 25) only
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns
                                      # (phase 5b's arms too)
     python3 chip_smoke.py --parent _archive/parent   # plus the parent's
@@ -519,6 +520,37 @@ Phases, each fatal on failure (no result line is printed then):
    ``AEDetector`` at the JAX tests' sizes: forecasts within 1e-4 of the
    CPU's, ``predict_with_uncertainty`` mean and std within 1e-5 (the same
    masks), the detector's indices the CPU's. Prints the wall by part.
+25. the tile table (``[tuning]`` lines; run last, and after phase 3 under
+   ``--quick`` too, in a fresh interpreter with a cache file of its own:
+   ``ops/tuning.py``). The default-tile runs first (an empty table): one
+   greedy prefill of a 1000-token prompt (bucket 1024) and 8 decode steps
+   of phase 5's model and batcher geometry, and one int8 predict of
+   phase 9's MLP. (a) The three sweeps at the main path's shapes, each
+   candidate held to its plain version (int8 bit for bit, attention 2e-2
+   in bf16) and timed with CUDA events around device work only (L2
+   flushed, the call queued behind a spin kernel, median of TUNE_ITERS): ``flash`` at (1, 1024, 16, 64) causal forward (the
+   serving prefill), (2, 2048, 16, 64) causal forward and backward (the
+   training micro-batch) and (8, 512, 12, 64) without a mask forward and
+   backward (BERT-base); ``paged`` at q_len 1, 128 and 1024 on phase 5's
+   cache geometry (8 slots, 64 pages of 16, H=16, D=64); ``int8_matmul``
+   at (2048, 4096)·(4096, 4096) and (32, 1024)·(1024, 1000) (MobileNet's
+   head, on the lax route), each candidate's ms printed beside the
+   default tile's, the bound (phase 3's formulas) and the library call
+   (SDPA, SDPA over the gathered K/V, ``torch._int_mm``). Every candidate
+   must hold. (b) The LM and the MLP again through the swept table: the
+   greedy tokens identical to the default-tile run, the int8 output bit
+   for bit, K1 = 12, K2 = 12 a decode step, K5 = 3, and the tiles they
+   ran. (c) The counters: ``zoo_kernel_tuning_sweeps_total`` one a swept
+   shape, hits in (b) for each op, a second predict adds no hit or miss
+   (the wrappers' memo), the MLP's head (never swept) a miss at tile 0.
+   (d) K1-K4's wrapper host us through the table's memo and with the tile
+   given (in turns), printed beside phase 3's, and the memo's lookup alone
+   (at most 2 us a call: the host-bound decode loop must not pay for the
+   table).
+
+The whole script pins the tile table: ``ZOO_TPU_TUNING_CACHE`` points at
+a fresh temporary file from its start, so every phase before 25 runs the
+default tiles whatever cache an earlier run left on the machine.
 
 Depth cut to keep the script inside its time: phase 19's LM cell runs 4
 blocks (MR_N_BLOCK; from 12), phase 20's served and trained LM 2 blocks
@@ -568,7 +600,9 @@ BERT's shape as ``bert_shape``; K6's on phase 23a's int8 SSD300 predict
 as ``launches_by_path["ssd_predict"]``, with each head's shape, device ms,
 bound and ``torch._int_mm`` ms as ``ssd_shapes``; K1's, K3's and K4's on
 phase 24a's orca fit as ``launches_by_path["orca_fit"]``, and K1's on its
-orca predict as ``launches_by_path["orca_predict"]``).
+orca predict as ``launches_by_path["orca_predict"]``; and for K1-K4 and
+K5 the tiles phase 25 exercised, ``tiles_exercised``: every candidate its
+sweeps launched and the one its main-path run took).
 The last three lines of standard output are the card's name and power
 limit, the per-kernel JSON, and ``{"ok": true, "device": {...}}``.
 """
@@ -582,8 +616,10 @@ import math
 import os
 import re
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -9807,10 +9843,394 @@ def phase_orca(torch, smi, train_hist):
 
 
 
+# ----------------------------------------------------------------- phase 25
+# The tile table (ops/tuning.py): each op's sweep at the main path's
+# shapes, in a fresh interpreter with a cache of its own, then the LM's and
+# the int8 MLP's paths through the swept table against their default-tile
+# runs. The flash shapes: the serving prefill (forward), the training
+# micro-batch and BERT-base's attention (forward and backward); K2 at
+# phase 5's cache geometry; K5 at the MLP's layer and MobileNet's head.
+TUNE_ITERS = 10
+TUNE_FLASH = ((1, 1024, 16, 64, True, False), (2, 2048, 16, 64, True, True),
+              (8, 512, 12, 64, False, True))
+TUNE_PAGED_QLEN = (1, 128, 1024)
+TUNE_MATMUL = ((2048, 4096, 4096), (32, 1024, 1000))
+TUNE_LM_PROMPT, TUNE_LM_STEPS = 1000, 8
+
+
+def _flash_bound(b, t, h, d, causal, bwd):
+    """The least ms of K1 (and with ``bwd`` K3 + K4) at (B, T, H, D), bf16:
+    the formulas of phase 3, each kernel's bound summed."""
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    tens = b * t * h * d * 2
+    parts = [bound_ms(4 * tens + b * h * t * 4, 4 * d * pairs, "bfloat16")]
+    if bwd:
+        rows = 2 * b * h * t * 4
+        parts += [bound_ms(5 * tens + rows, 6 * d * pairs, "bfloat16"),
+                  bound_ms(6 * tens + rows, 8 * d * pairs, "bfloat16")]
+    return sum(ms for ms, _ in parts), max(parts)[1]
+
+
+def _paged_bound(case):
+    """The least ms of K2 on ``case``: phase 3's formula, each slot's
+    positions up to its length read once."""
+    q, kp, vp, table, lens = case
+    b, q_len, h, d = q.shape
+    n_pos = lens.long().clamp(max=table.shape[1] * PAGE)
+    bound = (lens.long()[:, None] - q_len
+             + lens.new_tensor(range(q_len)).long()[None])  # (B, q_len)
+    pairs = int((bound + 1).clamp(min=0).minimum(n_pos[:, None]).sum())
+    nbytes = (4 * int(n_pos.sum()) * h * d + 4 * b * q_len * h * d
+              + int((-(-n_pos // PAGE)).sum()) * 4 + b * 4)
+    return bound_ms(nbytes, 4 * h * d * pairs, "bfloat16")
+
+
+def _tune_line(op, shape, best, bound, lib):
+    """Each candidate's ms beside the default tile's, the bound and the
+    library call; raises where a candidate failed (every tile must hold)."""
+    swept = best["swept"] if best else []
+    by_tile = {e["tile"]: e for e in swept}
+    bad = [e for e in swept if "error" in e]
+    default = by_tile.get(0, {}).get("elapsed_ms")
+    cands = ", ".join(
+        f"tile {e['tile']} {e['candidate']}: "
+        + (f"{e['elapsed_ms']:.5f} ms" if "elapsed_ms" in e
+           else f"ERROR {e['error']}") for e in swept)
+    log(f"[tuning] {op} {shape}: {cands}; default (tile 0) {default} ms, "
+        f"winner tile {best and best['tile']} "
+        f"{best and best['elapsed_ms']} ms; bound {bound[0]:.5f} ms by "
+        f"{bound[1]}; library {lib if lib is None else round(lib, 5)} ms")
+    if not best or bad or default is None:
+        raise AssertionError(f"the {op} sweep at {shape}: a tile failed or "
+                             f"none held: {swept}")
+    return {"shape": shape, "default_ms": default, "winner": best["tile"],
+            "winner_ms": best["elapsed_ms"], "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib,
+            "tiles": {e["tile"]: e["elapsed_ms"] for e in swept},
+            "attrs": {k: best[k] for k in best
+                      if k in ("regs", "static_smem", "dynamic_smem", "fwd",
+                               "bwd_dq", "bwd_dkv")}}
+
+
+def tune_sweeps(torch):
+    """25a: the three sweeps at the main path's shapes."""
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops import tuning
+    from analytics_zoo_tpu_torch.ops.kv_cache import paged_read
+    from analytics_zoo_tpu_torch.ops.paged_attention import \
+        synthetic_paged_case
+
+    def timer(fn, n):
+        return tuning._device_ms(fn, "cuda", n)
+
+    out = {"flash": [], "paged": [], "int8_matmul": []}
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    for b, t, h, d, causal, bwd in TUNE_FLASH:
+        best = tuning.tune_flash_blocks(t, t, batch=b, heads=h, d=d,
+                                        causal=causal, with_backward=bwd,
+                                        iters=TUNE_ITERS)
+        qt, kt, vt = (torch.randn((b, h, t, d), generator=gen, device="cuda")
+                      .to(torch.bfloat16).requires_grad_(bwd)
+                      for _ in range(3))
+        go = torch.randn_like(qt)
+
+        def sdpa():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            if bwd:
+                torch.autograd.grad(o, (qt, kt, vt), go)
+        lib = timer(sdpa, TUNE_ITERS)
+        shape = (f"B={b} T={t} H={h} D={d} {'causal' if causal else 'no mask'}"
+                 f" bf16 {'fwd+bwd' if bwd else 'fwd'}")
+        out["flash"].append(_tune_line("flash", shape, best,
+                                       _flash_bound(b, t, h, d, causal, bwd),
+                                       lib))
+    for q_len in TUNE_PAGED_QLEN:
+        best = tuning.tune_paged_attention(q_len, MAX_SEQ // PAGE, PAGE,
+                                           N_HEAD, HIDDEN // N_HEAD,
+                                           torch.bfloat16, n_slots=N_SLOTS,
+                                           iters=TUNE_ITERS)
+        case = synthetic_paged_case(
+            N_SLOTS, MAX_SEQ // PAGE, PAGE, N_HEAD, HIDDEN // N_HEAD,
+            q_len=q_len, dtype=torch.bfloat16, device="cuda",
+            generator=torch.Generator().manual_seed(0))
+        q, kp, vp, table, lens = case
+        ks, vs = paged_read(kp, table), paged_read(vp, table)
+        pos = torch.arange(ks.shape[1], device="cuda")
+        last = (lens.long()[:, None] - q_len
+                + torch.arange(q_len, device="cuda")[None])
+        mask = (pos[None, None, :] <= last[:, :, None])[:, None]
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2),
+            attn_mask=mask), TUNE_ITERS)
+        shape = (f"slots={N_SLOTS} pages={MAX_SEQ // PAGE} page={PAGE} "
+                 f"H={N_HEAD} D={HIDDEN // N_HEAD} q_len={q_len} bf16")
+        out["paged"].append(_tune_line("paged", shape, best,
+                                       _paged_bound(case), lib))
+        del case, ks, vs, mask
+    for m, k, n in TUNE_MATMUL:
+        best = tuning.tune_int8_matmul(m, n, k, torch.float32,
+                                       iters=TUNE_ITERS)
+        a = torch.randint(-127, 128, (m, k), device="cuda",
+                          dtype=torch.int8)
+        bt = torch.randint(-127, 128, (n, k), device="cuda",
+                           dtype=torch.int8).t()
+        lib = timer(lambda: torch._int_mm(a, bt), TUNE_ITERS)
+        shape = f"({m}, {k})·({k}, {n}) f32 x, {best and best['rule']}"
+        out["int8_matmul"].append(_tune_line(
+            "int8_matmul", shape, best,
+            bound_ms(m * k * 4 + k * n + 4 * n + m * n * 4, 2 * m * n * k,
+                     "int8"), lib))
+        del a, bt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tune_lm_run(torch, model, prompt):
+    """One prefill and TUNE_LM_STEPS decode steps of phase 5's batcher
+    geometry; the greedy tokens and K1/K2 launches."""
+    from analytics_zoo_tpu_torch.ops.flash_attention import \
+        flash_attention_fwd
+    from analytics_zoo_tpu_torch.ops.paged_attention import paged_attention
+    from analytics_zoo_tpu_torch.serving.generation import ContinuousBatcher
+
+    batcher = ContinuousBatcher(model, n_slots=N_SLOTS, page_size=PAGE,
+                                max_seq_len=MAX_SEQ, device="cuda",
+                                autostart=False)
+    try:
+        flash_attention_fwd.launches = paged_attention.launches = 0
+        h = batcher.submit(prompt, max_new_tokens=TUNE_LM_STEPS + 1,
+                           temperature=0.0, seed=0)
+        batcher.start()
+        toks = [int(t) for t in h.result(timeout_s=600)]
+        torch.cuda.synchronize()
+        steps = batcher.stats()["steps"]
+    finally:
+        batcher.close()
+    return toks, flash_attention_fwd.launches, paged_attention.launches, steps
+
+
+def _counts(fam):
+    from analytics_zoo_tpu_torch.common import telemetry
+
+    return dict(telemetry.snapshot().get(fam, {}).get("samples", {}))
+
+
+def tuning_child(tmp: str) -> int:
+    """Phase 25 in this (fresh) interpreter, its cache at
+    ``ZOO_TPU_TUNING_CACHE``: the default-tile runs of the LM and the int8
+    MLP, the sweeps (25a), the same runs through the swept table (25b),
+    the counters (25c) and the wrappers' host us with the table in place
+    (25d). Writes its results to ``tmp/tuning.json``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        res = _tuning_phase(torch)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    with open(os.path.join(tmp, "tuning.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _tuning_phase(torch):
+    from analytics_zoo_tpu_torch.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.nn.layers import Dense
+    from analytics_zoo_tpu_torch.nn.module import set_policy
+    from analytics_zoo_tpu_torch.nn.topology import Sequential
+    from analytics_zoo_tpu_torch.ops import int8_fused as f8
+    from analytics_zoo_tpu_torch.ops import tuning
+    from analytics_zoo_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+    from analytics_zoo_tpu_torch.ops.paged_attention import (
+        paged_attention, synthetic_paged_case)
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if os.path.exists(tuning.cache_path()):
+        raise AssertionError(f"phase 25's cache {tuning.cache_path()} is "
+                             f"not fresh")
+    # the two main paths at the default tiles (the table is empty)
+    set_policy(compute_dtype="bfloat16")
+    model = full_model(torch, "cuda").to(torch.bfloat16)
+    prompt = np.random.default_rng(25).integers(
+        1, VOCAB, size=TUNE_LM_PROMPT).astype(np.int32)
+    toks_a, *_ = _tune_lm_run(torch, model, prompt)
+    set_policy(compute_dtype="float32")
+    mlp = Sequential([
+        Dense(MLP_HIDDEN, activation="relu", input_shape=(MLP_HIDDEN,)),
+        Dense(MLP_HIDDEN, activation="relu"),
+        Dense(MLP_CLASSES, activation="softmax")], device="cuda", seed=0)
+    im = InferenceModel(max_batch_size=MLP_BATCH, device="cuda").load(mlp)
+    im.quantize_int8()
+    x = np.random.default_rng(13).normal(size=(MLP_BATCH, MLP_HIDDEN)).astype(
+        np.float32)
+    y_a = im.predict(x)
+    log(f"[tuning] 25 default-tile runs done in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    sweeps0 = _counts("zoo_kernel_tuning_sweeps_total")
+    t0 = time.perf_counter()
+    sweeps = tune_sweeps(torch)
+    sweep_s = time.perf_counter() - t0
+    swept_n = {op: _counts("zoo_kernel_tuning_sweeps_total").get(op, 0)
+               - sweeps0.get(op, 0) for op in sweeps}
+    # 25b: the same paths through the swept table
+    hits0 = _counts("zoo_kernel_tuning_cache_hits_total")
+    miss0 = _counts("zoo_kernel_tuning_cache_misses_total")
+    set_policy(compute_dtype="bfloat16")
+    toks_b, k1, k2, steps = _tune_lm_run(torch, model, prompt)
+    set_policy(compute_dtype="float32")
+    f8.int8_matmul_fused.launches = 0
+    y_b = im.predict(x)
+    k5 = f8.int8_matmul_fused.launches
+    dev = torch.cuda.current_device()
+    bf16, f32 = torch.bfloat16, torch.float32
+    d = HIDDEN // N_HEAD
+    keys = {"K1": (tuning.FLASH_OP, dev, 1024, 1024, d, bf16),
+            "K2": (tuning.PAGED_OP, dev, 1, MAX_SEQ // PAGE, PAGE, N_HEAD, d,
+                   bf16),
+            "K5": (tuning.MATMUL_OP, dev, MLP_BATCH, MLP_HIDDEN, MLP_HIDDEN,
+                   f32),
+            "K5 head": (tuning.MATMUL_OP, dev, MLP_BATCH, MLP_CLASSES,
+                        MLP_HIDDEN, f32)}
+    used = {name: tuning._tiles.get(key) for name, key in keys.items()}
+    ok = (toks_a == toks_b and np.array_equal(y_a, y_b) and k1 == N_BLOCK
+          and k2 == N_BLOCK * steps and steps >= TUNE_LM_STEPS and k5 == 3)
+    log(f"[tuning] 25b LM prefill of {TUNE_LM_PROMPT} tokens + {steps} "
+        f"decode steps through the swept table: greedy tokens "
+        f"{'identical to' if toks_a == toks_b else 'DIFFER from'} the "
+        f"default-tile run; K1 {k1} (need {N_BLOCK}), K2 {k2} (need "
+        f"{N_BLOCK * steps}); int8 MLP predict bit for bit "
+        f"{np.array_equal(y_a, y_b)}, K5 {k5} (need 3); tiles used {used} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("25b: the swept table changed the LM's tokens "
+                             "or the int8 MLP's bits, or a kernel was not "
+                             "launched")
+    # 25c: the counters
+    hits1 = _counts("zoo_kernel_tuning_cache_hits_total")
+    miss1 = _counts("zoo_kernel_tuning_cache_misses_total")
+    im.predict(x)
+    hits2 = _counts("zoo_kernel_tuning_cache_hits_total")
+    miss2 = _counts("zoo_kernel_tuning_cache_misses_total")
+    want_n = {"flash": len(TUNE_FLASH), "paged": len(TUNE_PAGED_QLEN),
+              "int8_matmul": len(TUNE_MATMUL)}
+    delta = {op: (hits1.get(op, 0) - hits0.get(op, 0),
+                  miss1.get(op, 0) - miss0.get(op, 0)) for op in want_n}
+    ok = (swept_n == want_n
+          and all(delta[op][0] >= 1 for op in want_n)
+          and delta["int8_matmul"][1] >= 1 and used["K5 head"] == 0
+          and hits2 == hits1 and miss2 == miss1)
+    log(f"[tuning] 25c counters: sweeps {swept_n} (one a swept shape: "
+        f"{want_n}); hits, misses in 25b {delta}; a second predict adds "
+        f"hits {hits2 == hits1 and 'none' or 'SOME'}, misses "
+        f"{miss2 == miss1 and 'none' or 'SOME'}; the MLP head "
+        f"({MLP_BATCH}, {MLP_HIDDEN})·({MLP_HIDDEN}, {MLP_CLASSES}), never "
+        f"swept: a miss, tile {used['K5 head']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("25c: the tile table's counters did not move "
+                             "as they must")
+    del model, im, mlp
+    torch.cuda.empty_cache()
+    # 25d: each wrapper's host us through the memo, beside the same call
+    # with its tile given (no lookup), in turns
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    q, k, v = (torch.randn((1, 1024, N_HEAD, d), generator=gen,
+                           device="cuda").to(bf16) for _ in range(3))
+    case2 = synthetic_paged_case(N_SLOTS, MAX_SEQ // PAGE, PAGE, N_HEAD, d,
+                                 q_len=1, dtype=bf16, device="cuda")
+    case34 = _bwd_case(torch, gen, TRAIN_BATCH // GRAD_ACCUM, SEQ_LEN, d,
+                       bf16, True)
+    t1 = tuning._tiles[keys["K1"]]
+    t2 = tuning._tiles[keys["K2"]]
+    flash_attention_bwd_dq(*case34, True)
+    t34 = tuning._tiles[(tuning.FLASH_OP, dev, SEQ_LEN, SEQ_LEN, d, bf16)]
+    fns = {"K1": (lambda: flash_attention_fwd(q, k, v, True),
+                  lambda: flash_attention_fwd(q, k, v, True, tile=t1)),
+           "K2": (lambda: paged_attention(*case2, page_size=PAGE),
+                  lambda: paged_attention(*case2, page_size=PAGE, tile=t2)),
+           "K3": (lambda: flash_attention_bwd_dq(*case34, True),
+                  lambda: flash_attention_bwd_dq(*case34, True, tile=t34)),
+           "K4": (lambda: flash_attention_bwd_dkv(*case34, True),
+                  lambda: flash_attention_bwd_dkv(*case34, True, tile=t34))}
+    # the lookup itself, as each wrapper makes it (the memo's read)
+    width = d
+    lookups = {
+        "K1": lambda: tuning.flash_tile(1024, 1024, d, width, bf16, q.device),
+        "K2": lambda: tuning.paged_tile(1, MAX_SEQ // PAGE, PAGE, N_HEAD, d,
+                                        bf16, q.device),
+        "K3": lambda: tuning.flash_tile(SEQ_LEN, SEQ_LEN, d, width, bf16,
+                                        q.device)}
+    lookups["K4"] = lookups["K3"]
+    host = {}
+    for name, (memo, given) in fns.items():
+        a, b = host_us([memo, given], n=100 if name in ("K3", "K4") else 200,
+                       rounds=9)
+        n = 20000
+        t0 = time.perf_counter()
+        for _ in range(n):
+            lookups[name]()
+        host[name] = {"table_us": a, "tile_given_us": b,
+                      "lookup_us": (time.perf_counter() - t0) / n * 1e6}
+    ok = all(h["lookup_us"] <= 2.0 for h in host.values())
+    log(f"[tuning] 25d wrapper host us through the table's memo, with the "
+        f"tile given, and the memo's lookup alone (at most 2 us): "
+        f"{json.dumps(host)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("25d: the table's lookup adds host time")
+    log(f"[tuning] 25 wall {time.perf_counter() - t_start:.1f} s, the "
+        f"sweeps {sweep_s:.1f} s")
+    return {"sweeps": sweeps, "used": used, "flash_training_tile": t34,
+            "host_us": host}
+
+
+def phase_tuning_isolated(smi: str, tmp: str, kernels):
+    """Phase 25 in a child interpreter with a cache file of its own (its
+    [tuning] lines on this stdout); prints the wrappers' host us beside
+    phase 3's and adds the tiles the phase exercised to the kernels line
+    (``tiles_exercised``)."""
+    sys.stdout.flush()
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; "
+            f"sys.exit(chip_smoke.tuning_child({tmp!r}))")
+    env = dict(os.environ, ZOO_TPU_TUNING_CACHE=os.path.join(tmp,
+                                                             "tiles.json"))
+    t0 = time.perf_counter()
+    rc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                        timeout=900).returncode
+    wall = time.perf_counter() - t0
+    log(f"[tuning] phase 25 in a fresh interpreter: exit {rc} in "
+        f"{wall:.1f} s ({smi})")
+    if rc != 0:
+        raise AssertionError("phase 25 failed")
+    with open(os.path.join(tmp, "tuning.json")) as f:
+        res = json.load(f)
+    phase3 = {"K1": kernels[0], "K2": kernels[1], "K3": kernels[2],
+              "K4": kernels[3]}
+    for name, h in res["host_us"].items():
+        log(f"[tuning] 25d {name} wrapper host {h['table_us']:.2f} us "
+            f"through the table (tile given {h['tile_given_us']:.2f}; "
+            f"phase 3 {phase3[name]['host_us']:.2f}; the lookup "
+            f"{h['lookup_us']:.3f})")
+    tiles = {op: sorted({int(t) for s in res["sweeps"][op]
+                         for t in s["tiles"]}) for op in res["sweeps"]}
+    for k, op, path in ((kernels[0], "flash", res["used"]["K1"]),
+                        (kernels[1], "paged", res["used"]["K2"]),
+                        (kernels[2], "flash", res["flash_training_tile"]),
+                        (kernels[3], "flash", res["flash_training_tile"]),
+                        (kernels[5], "int8_matmul", res["used"]["K5"])):
+        k["tiles_exercised"] = {"swept": tiles[op], "main_path": path}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="device, build and kernel checks only")
+                    help="device, build and kernel checks and the tile "
+                         "table (phase 25) only")
     ap.add_argument("--profile", action="store_true",
                     help="after serving, trace one more burst and phase "
                          "5b's burst in each arm, after "
@@ -9822,6 +10242,17 @@ def main(argv=None) -> int:
                          "commit from git archive): time its K1-K6 "
                          "beside this one's, in this process")
     args = ap.parse_args(argv)
+    # the tile table pinned for the whole run: every phase runs the default
+    # tiles, whatever cache an earlier run left in this home directory
+    tiles = tempfile.mkdtemp(prefix="zoo_tiles_")
+    os.environ["ZOO_TPU_TUNING_CACHE"] = os.path.join(tiles, "tuning.json")
+    try:
+        return _main(args)
+    finally:
+        shutil.rmtree(tiles, ignore_errors=True)
+
+
+def _main(args) -> int:
     try:
         import torch
     except ImportError:
@@ -9921,8 +10352,6 @@ def main(argv=None) -> int:
             for k, n in zip((kernels[0], kernels[2], kernels[3]), files):
                 k["launches_by_path"]["training_from_files"] = n
             torch.cuda.empty_cache()
-            import tempfile
-
             with tempfile.TemporaryDirectory(prefix="zoo_mr_") as tmp:
                 multi, rank_shapes = phase_multi_rank(torch, smi, tmp)
             for k, n in zip((kernels[0], kernels[2], kernels[3]), multi):
@@ -9962,6 +10391,9 @@ def main(argv=None) -> int:
                             orca["fit"]):
                 k["launches_by_path"]["orca_fit"] = n
             kernels[0]["launches_by_path"]["orca_predict"] = orca["predict"]
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="zoo_tune_") as tmp:
+            phase_tuning_isolated(smi, tmp, kernels)
         for k in kernels:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                         "max_abs_err"):

@@ -77,7 +77,7 @@ def caller(lib_path):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), 1, b, h, tq, k.shape[1], d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 1,
-                 d ** -0.5, torch.cuda.current_stream().cuda_stream)
+                 d ** -0.5, 0, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{lib_path}: launch failed ({err})")
         return out, lse

@@ -60,14 +60,14 @@ def main(argv=None) -> int:
     ptrs = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
             lens.data_ptr(), out.data_ptr())
     strides = (q.stride(0), q.stride(1), q.stride(2), kp.stride(0),
-               kp.stride(1), kp.stride(2), 1.0 / d ** 0.5, stream)
+               kp.stride(1), kp.stride(2), 1.0 / d ** 0.5)
     parts = {
         "wrapper": lambda: pa.paged_attention(*case, page_size=cs.PAGE),
         "other wrapper": lambda: other.paged.paged_attention(
             *case, page_size=cs.PAGE),
         "C entry": lambda: lib.zoo_paged_attention(
             *ptrs, work, done, 1, b, h, d, q_len, cs.PAGE, pps, span,
-            *strides),
+            *strides, 0, stream),
         "_check": lambda: pa._check(q, kp, vp, table, lens, cs.PAGE),
         "other _check": lambda: other.paged._check(q, kp, vp, table, lens,
                                                    cs.PAGE),
@@ -80,11 +80,16 @@ def main(argv=None) -> int:
         "raw stream": lambda: torch._C._cuda_getCurrentRawStream(
             q.device.index),
     }
-    if len(other.paged._SIG["zoo_paged_attention"]) < len(
-            pa._SIG["zoo_paged_attention"]):
+    n_args = len(other.paged._SIG["zoo_paged_attention"])
+    if n_args == len(pa._SIG["zoo_paged_attention"]) - 1:
+        # a tree from before the tile table: its C entry takes no tile
+        parts["other C entry"] = lambda: olib.zoo_paged_attention(
+            *ptrs, work, done, 1, b, h, d, q_len, cs.PAGE, pps, span,
+            *strides, stream)
+    elif n_args < len(pa._SIG["zoo_paged_attention"]) - 1:
         # a tree from before the split kernel: its C entry takes no scratch
         parts["other C entry"] = lambda: olib.zoo_paged_attention(
-            *ptrs, 1, b, h, d, q_len, cs.PAGE, pps, *strides)
+            *ptrs, 1, b, h, d, q_len, cs.PAGE, pps, *strides, stream)
     names = list(parts)
     times = cs.host_us([parts[n] for n in names], n=500, rounds=7)
     print(cs.smi_line())

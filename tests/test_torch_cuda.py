@@ -2208,3 +2208,154 @@ def test_orca_nnframes_classifier_fit_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0,
                                atol=1e-5)
+
+
+# ------------------------------------------------------ the tile table
+
+@pytest.fixture()
+def tile_cache(tmp_path, monkeypatch):
+    """An empty tile table in its own file (no cache left in the home
+    directory is read)."""
+    from analytics_zoo_tpu_torch.ops import tuning
+
+    monkeypatch.setenv("ZOO_TPU_TUNING_CACHE", str(tmp_path / "tiles.json"))
+    tuning.invalidate()
+    yield tuning
+    tuning.invalidate()
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("t,t_k,causal", [(129, 129, True),
+                                          (65, 200, False),
+                                          (200, 65, True)])
+def test_every_flash_tile_holds_to_the_plain_versions(cuda, tile_cache, d,
+                                                      t, t_k, causal):
+    """Every bf16 K1/K3/K4 tile of the head dim's class against the plain
+    versions (2e-2; the gradients relative to max(1, max|plain|)), the
+    same bits twice."""
+    q, k, v = _fwd_case(cuda, torch.bfloat16, t, t_k, d, False, seed=d + t)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(t)
+                    ).to(torch.bfloat16)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, causal)
+    refs = tfa.flash_attention_bwd_plain(q, k, v, ref, ref_lse, g, causal)
+    for tile in range(len(tile_cache.FLASH_CANDIDATES[d])):
+        out, lse = tfa.flash_attention_fwd(q, k, v, causal, tile=tile)
+        grads = tfa.flash_attention_bwd(q, k, v, out, lse, g, causal,
+                                        tile=tile)
+        torch.cuda.synchronize()
+        assert float((out.float() - ref.float()).abs().max()) <= 2e-2, tile
+        assert float((lse - ref_lse).abs().max()) <= 2e-2, tile
+        for got, want in zip(grads, refs):
+            assert _rel(got, want) <= 2e-2, tile
+        again = tfa.flash_attention_bwd(q, k, v, out, lse, g, causal,
+                                        tile=tile)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again)), tile
+
+
+@pytest.mark.parametrize("q_len", [1, 17, 128])
+def test_every_paged_tile_holds_to_the_plain_version(cuda, tile_cache,
+                                                     q_len):
+    """Every K2 split span against the plain version over lengths of 0,
+    1, q_len, a span's edges and the whole table (80 pages of 16)."""
+    for page in (8, 16):
+        pps = 1280 // page
+        case = tpa.synthetic_paged_case(
+            6, pps, page, 4, 64, q_len=q_len, dtype=torch.bfloat16,
+            lengths=[0, 1, q_len, 1023, 1025, 1280], device=cuda,
+            generator=torch.Generator().manual_seed(q_len))
+        ref = tpa.paged_attention_plain(*case, page_size=page)
+        for tile in range(len(tile_cache.PAGED_CANDIDATES)):
+            out = tpa.paged_attention(*case, page_size=page, tile=tile)
+            torch.cuda.synchronize()
+            assert float((out.float() - ref.float()).abs().max()) <= 2e-2, \
+                (page, tile)
+            assert torch.equal(out, tpa.paged_attention(
+                *case, page_size=page, tile=tile)), (page, tile)
+
+
+@pytest.mark.parametrize("dtype", I8_DTYPES)
+@pytest.mark.parametrize("m,k,n,g,rule", [
+    (32, 1024, 1000, 1024, "lax"), (256, 512, 384, 128, "fused"),
+    (2048, 1024, 2048, 512, "fused"), (5, 96, 20, 96, "lax")])
+def test_every_matmul_tile_is_bit_exact(cuda, tile_cache, dtype, m, k, n,
+                                        g, rule):
+    """Every K5 tile bitwise equal to the plain version; the wgmma tile
+    refuses a group off the 128-byte grid (it raises: no fallback)."""
+    from analytics_zoo_tpu_torch.ops import int8_fused as tf8
+
+    rng = np.random.default_rng(m + n)
+    packed = _packed_kernel_major(rng, (k, n), cuda)
+    x = (torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)) * 3
+         ).to(cuda, dtype)
+    ref = tf8.int8_matmul_fused_plain(x, packed, g, rule)
+    for tile in range(len(tile_cache.MATMUL_CANDIDATES)):
+        if tile == 1 and tf8.depth_of(g) % 128:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                tf8.int8_matmul_fused(x, packed, g, rule, tile=tile)
+            continue
+        y = tf8.int8_matmul_fused(x, packed, g, rule, tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ref), tile
+
+
+def test_an_out_of_range_tile_raises(cuda, tile_cache):
+    from analytics_zoo_tpu_torch.ops import int8_fused as tf8
+
+    q, k, v = _fwd_case(cuda, torch.bfloat16, 64, None, 64, False, seed=3)
+    for tile in (len(tile_cache.FLASH_CANDIDATES[64]), -1):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tfa.flash_attention_fwd(q, k, v, True, tile=tile)
+    out, lse = tfa.flash_attention_fwd(q, k, v, True)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfa.flash_attention_bwd(q, k, v, out, lse, out, True, tile=3)
+    with pytest.raises(RuntimeError, match="launch failed"):    # f32: one
+        tfa.flash_attention_fwd(q.float(), k.float(), v.float(), True,
+                                tile=1)
+    case = tpa.synthetic_paged_case(2, 8, 16, 4, 64, dtype=torch.bfloat16,
+                                    device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tpa.paged_attention(*case, page_size=16,
+                            tile=len(tile_cache.PAGED_CANDIDATES))
+    packed = _packed_kernel_major(np.random.default_rng(0), (256, 128), cuda)
+    x = torch.randn((8, 256), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tf8.int8_matmul_fused(x, packed, 128, tile=4)
+
+
+def test_a_sweep_is_read_back_by_the_wrappers(cuda, tile_cache):
+    """Each op's sweep records a winner that held to the plain version, and
+    the next wrapper call at that shape runs it (read once, then from the
+    memo)."""
+    import json
+
+    from analytics_zoo_tpu_torch.ops import int8_fused as tf8
+
+    tuning = tile_cache
+    best = tuning.tune_paged_attention(1, 16, 16, 4, 64, n_slots=4,
+                                       iters=2)
+    assert best is not None and "elapsed_ms" in best
+    assert all(("elapsed_ms" in e) != ("error" in e) for e in best["swept"])
+    assert {"regs", "static_smem", "dynamic_smem"} <= set(best)
+    case = tpa.synthetic_paged_case(4, 16, 16, 4, 64, q_len=1,
+                                    dtype=torch.bfloat16, device=cuda)
+    tpa.paged_attention(*case, page_size=16)
+    assert tuning._tiles[(tuning.PAGED_OP, torch.cuda.current_device(), 1,
+                          16, 16, 4, 64, torch.bfloat16)] == best["tile"]
+    best = tuning.tune_int8_matmul(32, 1000, 1024, iters=2)
+    assert best["rule"] == "lax" and best["group"] == 1024
+    packed = _packed_kernel_major(np.random.default_rng(0), (1024, 1000),
+                                  cuda)
+    tf8.int8_matmul_fused(torch.randn((30, 1024), device=cuda), packed,
+                          1024, "lax")
+    assert tuning._tiles[(tuning.MATMUL_OP, torch.cuda.current_device(), 32,
+                          1000, 1024, torch.float32)] == best["tile"]
+    best = tuning.tune_flash_blocks(128, 128, heads=2, d=64, iters=2)
+    assert best["with_backward"] and "fwd" in best and "bwd_dkv" in best
+    q, k, v = _fwd_case(cuda, torch.bfloat16, 128, None, 64, False, seed=5)
+    tfa.flash_attention_fwd(q, k, v, True)
+    assert tuning._tiles[(tuning.FLASH_OP, torch.cuda.current_device(), 128,
+                          128, 64, torch.bfloat16)] == best["tile"]
+    with open(tuning.cache_path()) as f:
+        ops = json.load(f)["devices"][torch.cuda.get_device_name()]
+    assert set(ops) == {"paged", "int8_matmul", "flash"}

@@ -453,3 +453,61 @@ def test_task_pool_workers_spawn_the_port():
     assert named and all(v.startswith("analytics_zoo_tpu_torch")
                          for v in named)
     assert '"spawn"' in (PKG / "orca/task_pool.py").read_text()
+
+
+def _modules(pkg: Path):
+    return {p.relative_to(pkg).as_posix() for p in pkg.rglob("*.py")
+            if p.name != "__init__.py" and "__pycache__" not in p.parts}
+
+
+def _packages(pkg: Path):
+    return {p.parent.relative_to(pkg).as_posix()
+            for p in pkg.rglob("__init__.py")}
+
+
+def test_every_jax_module_has_a_counterpart_but_compat():
+    """The two module trees compared (``__init__.py`` aside): every JAX
+    module and package has its counterpart in the port, but the modules
+    of NO_COUNTERPART, so a JAX module added without one fails here."""
+    jax_pkg = ROOT / "analytics_zoo_tpu"
+    assert _modules(jax_pkg) - _modules(PKG) == set(NO_COUNTERPART)
+    assert _packages(jax_pkg) - _packages(PKG) == set()
+
+
+def test_the_tile_table_native_runtime_and_keras2_import_without_jax():
+    """``ops/tuning.py``, ``native/`` (with its own copy of the C++
+    source) and ``keras2/`` mirror the JAX package's paths and names, and
+    import in a fresh interpreter without JAX, the JAX package or
+    ml_dtypes."""
+    for rel in ("ops/tuning.py", "native/lib.py", "native/__init__.py",
+                "keras2/__init__.py"):
+        assert (PKG / rel).is_file(), rel
+        assert (ROOT / "analytics_zoo_tpu" / rel).is_file(), rel
+    assert (PKG / "csrc" / "zoo_native.cpp").is_file()
+    assert "csrc/*.cpp" in (ROOT / "pyproject.toml").read_text()
+    code = (
+        "import importlib, json, sys\n"
+        "mods = ['ops.tuning', 'native', 'native.lib', 'keras2']\n"
+        "alls = {m: sorted(getattr(importlib.import_module("
+        "'analytics_zoo_tpu_torch.' + m), '__all__', [])) for m in mods}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'analytics_zoo_tpu', 'ml_dtypes'))\n"
+        "print(json.dumps({'bad': bad, 'alls': alls}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    import importlib
+
+    for m in ("native", "keras2"):
+        assert res["alls"][m] == sorted(
+            importlib.import_module("analytics_zoo_tpu." + m).__all__), m
+    from analytics_zoo_tpu.ops import tuning as jtuning
+    from analytics_zoo_tpu_torch.ops import tuning
+
+    public = {n for n in dir(jtuning) if not n.startswith("_")
+              and callable(getattr(jtuning, n))
+              and getattr(getattr(jtuning, n), "__module__", "")
+              == jtuning.__name__}
+    assert public <= set(dir(tuning)), public - set(dir(tuning))
