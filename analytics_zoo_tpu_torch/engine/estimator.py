@@ -26,7 +26,13 @@ layers' regularization terms (``regularization()``), as the JAX
 ``loss_of`` adds them. Over ranks the replicated and per-leaf steps
 normalise with the global batch's statistics (``comm.batch_psum``), the
 flat step with each rank's own and then averages the float buffers over
-dp; a BN model on a mesh with sp, pp, ep or tp above 1 raises.
+dp. On a mesh with sp, pp, ep or tp above 1 the moments are still summed
+over the batch axes alone: BN's input is whole on those ranks (attention
+gathers its sp blocks back, the MoE's ep combine and the tp layers'
+row-parallel products end in a sum over the axis, and BN runs outside the
+pipeline, replicated over pp, as JAX's stateless stage function forces),
+as JAX's GSPMD step gives BN the global batch on every mesh; the layer
+raises if its input is not its whole width.
 
 Mixed precision (``TrainConfig(compute_dtype="bfloat16")``): the model's
 parameters are cast to bf16 in place (the JAX ``cast_params``) and the f32
@@ -189,7 +195,6 @@ from ..common.triggers import (MaxEpoch, SeveralIteration, Trigger,
                                TrainerState)
 from ..data.featureset import FeatureSet, _tree_leaves, _tree_map
 from ..data.pipeline import device_prefetch
-from ..nn.layers.normalization import has_batchnorm
 from ..nn.losses import get_loss
 from ..nn.metrics import get_metric
 from ..nn.module import cast_params, precision_policy, resolve_device
@@ -523,14 +528,6 @@ class Estimator:
         training key: ``split(PRNGKey(seed))[1]``. Under mixed precision
         the masters are taken in f32 first, then the model's copy is cast
         down. On a mesh, sharded leaves keep their blocks first."""
-        if self.mesh is not None and has_batchnorm(self.model):
-            axes = [a for a in ("sp", "pp", "ep", "tp")
-                    if self.mesh.shape.get(a, 1) > 1]
-            if axes:
-                raise NotImplementedError(
-                    f"BatchNormalization in training on a mesh with "
-                    f"{'/'.join(axes)} above 1 is not ported (ROADMAP Queue "
-                    f"1, [13]); dp and fsdp are")
         self._place_params()
         values = {n: p.detach() for n, p in self._params().items()}
         self._norm_axes = {n: spec_axes(self._specs[n]) for n in values

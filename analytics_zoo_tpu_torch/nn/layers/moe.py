@@ -22,6 +22,31 @@ weights, the dispatched tokens and the combine weights, through
 ``psum`` of the partial combines (``comm.reduce_from``) gives the JAX
 result, capacity drops included. ``n_experts`` not divisible by ``ep``
 raises.
+
+Inside a step that computes over a global batch (a rank's block of it,
+``comm.global_batch_shard()``: the Estimator's replicated and per-leaf
+steps, BN's global-statistics test) the dispatch is the global batch's, as
+JAX's ``MoE.apply`` runs under GSPMD on global shapes. The global token
+order is the blocks' order (block ``dp_index * fsdp + fsdp_index``; under
+accumulation the rank's block of each global micro-batch). The capacity
+is ``ceil(k·N_global/E·capacity_factor)`` with ``N_global = N_local ·
+shard.count``, and slot s's positions in expert e start after every
+slot < s assignment to e over the whole global batch and every slot-s
+assignment to e on an earlier block. So what crosses ranks is one (count,
+k, E) table of each block's per-slot assignment counts, a ``psum`` over
+the batch axes of a layout holding this rank's row (one all-reduce per
+batch axis above 1), and no token: a capacity position depends on no
+other, so a rank's ``expert_in`` holds its own tokens at their global
+positions and its combine reads only those. The aux loss is the global
+one: the per-expert dispatch and probability sums are summed over the
+batch axes (a second all-reduce per axis) and divided by ``N_global``.
+The cost is memory: the dispatch and combine tensors are (N_local, E,
+cap_global), the per-device footprint of JAX's global (N_global, E,
+cap_global) sharded over the batch. The flat (ZeRO-1) step, and a forward
+outside a step, dispatch the rank's own tokens alone: the per-replica
+body of JAX's flat ``shard_map`` (which the JAX package cannot run with
+an MoE in it: the layer's ``build`` returns no state, its ``apply`` adds
+``aux_loss``).
 """
 
 from __future__ import annotations
@@ -33,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel import comm
 from ..activations import get_activation
 from ..module import Layer, as_compute, glorot_uniform, zeros_init
 
@@ -83,41 +109,58 @@ class MoE(Layer):
         self.expert_down_bias = nn.Parameter(zeros_init((e, d)))
         self.built = True
 
-    def dispatch(self, probs: torch.Tensor):
+    def dispatch(self, probs: torch.Tensor,
+                 shard: Optional[comm.BatchShard] = None):
         """``(dispatch, combine)``, each (N, E, capacity) f32, from the
-        router's (N, E) probabilities."""
+        router's (N, E) probabilities. With ``shard`` (``probs`` is block
+        ``shard.index`` of a global batch of ``shard.count`` blocks) the
+        capacity and the running fill are the global batch's (module
+        docstring)."""
         n_tok, e = probs.shape
-        cap = max(1, int(math.ceil(self.top_k * n_tok / e
+        k = self.top_k
+        count = 1 if shard is None else shard.count
+        cap = max(1, int(math.ceil(k * n_tok * count / e
                                    * self.capacity_factor)))
-        gate_vals, gate_idx = top_k_stable(probs, self.top_k)
+        gate_vals, gate_idx = top_k_stable(probs, k)
         gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                             min=1e-9)
+        onehots = F.one_hot(gate_idx, e).float()                  # (N, k, E)
+        totals = onehots.sum(0)                                   # (k, E)
+        before = torch.zeros_like(totals)
+        if shard is not None:
+            layout = torch.zeros((count,) + tuple(totals.shape),
+                                 dtype=totals.dtype, device=totals.device)
+            layout[shard.index] = totals
+            blocks = comm.batch_psum(layout)
+            totals = blocks.sum(0)
+            before = blocks[:shard.index].sum(0)
+        # slot s starts after every slot < s assignment (GShard's running
+        # fill) and, on a block of a global batch, after the slot-s ones
+        # of the blocks before it
+        fill = torch.cumsum(totals, 0) - totals + before
         dispatch = torch.zeros((n_tok, e, cap), dtype=torch.float32,
                                device=probs.device)
         combine = torch.zeros_like(dispatch)
-        fill = torch.zeros((e,), dtype=torch.float32, device=probs.device)
-        for slot in range(self.top_k):
-            onehot = F.one_hot(gate_idx[:, slot], e).float()      # (N, E)
-            pos = torch.cumsum(onehot, 0) - onehot + fill[None, :]
+        for slot in range(k):
+            onehot = onehots[:, slot]                             # (N, E)
+            pos = torch.cumsum(onehot, 0) - onehot + fill[slot][None, :]
             pos_tok = (pos * onehot).sum(1).to(torch.int64)        # (N,)
             keep = pos_tok < cap
             pos_oh = F.one_hot(torch.clamp(pos_tok, max=cap - 1), cap).float()
             contrib = (onehot * keep[:, None])[:, :, None] * pos_oh[:, None, :]
             dispatch = dispatch + contrib
             combine = combine + contrib * gate_vals[:, slot][:, None, None]
-            fill = fill + onehot.sum(0)
         return dispatch, combine
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        from ...parallel import comm
-
         x = as_compute(x)
         b, t, d = x.shape
         tokens = x.reshape(b * t, d)
         e = self.n_experts
         logits = (tokens @ self.router_kernel.to(x.dtype)).float()
         probs = torch.softmax(logits, dim=-1)
-        dispatch, combine = self.dispatch(probs)
+        shard = comm.global_batch_shard()
+        dispatch, combine = self.dispatch(probs, shard)
         expert_in = torch.einsum("nec,nd->ecd", dispatch,
                                  tokens.float()).to(x.dtype)
         up, up_b = self.expert_up, self.expert_up_bias
@@ -139,8 +182,11 @@ class MoE(Layer):
         y = torch.einsum("nec,ecd->nd", combine, out.float())
         if mesh is not None:
             y = comm.reduce_from(y, self.ep_axis, mesh=mesh)
-        frac_tokens = dispatch.sum(-1).mean(0)
-        frac_probs = probs.mean(0)
+        sums = torch.cat([dispatch.sum(-1).sum(0), probs.sum(0)])
+        if shard is not None:
+            sums = comm.batch_psum(sums)
+        means = sums / (b * t * (1 if shard is None else shard.count))
+        frac_tokens, frac_probs = means[:e], means[e:]
         aux = (frac_tokens * frac_probs).sum() * (e ** 2) / self.top_k
         self.state = {"aux_loss": aux}
         return y.to(x.dtype).reshape(b, t, d)

@@ -21,6 +21,12 @@ Two rules keep the buffers' history the JAX one:
   step keeps each rank's local statistics, and the Estimator averages the
   buffers over dp after the step (``engine/estimator.py``), as the JAX
   flat step's ``pmean`` does.
+
+The moments are summed over the batch axes only, on every mesh: BN's
+input is whole on every rank of the model-parallel axes (see
+:meth:`BatchNormalization._batch_moments`), and a forward whose input is
+not the width the layer was built for raises ``ValueError`` naming the
+mesh's model-parallel axes.
 """
 
 from __future__ import annotations
@@ -99,11 +105,26 @@ class BatchNormalization(Layer):
 
     def _batch_moments(self, xf: torch.Tensor, axis: int, bshape):
         """The batch's f32 mean and biased variance per channel: the
-        global batch's on a rank's block in a global-statistics step."""
+        global batch's on a rank's block in a global-statistics step.
+
+        The sums run over the batch axes (dp, fsdp) and no other, because
+        the port holds BN's input whole on every rank of the others, as
+        JAX's GSPMD step gives BN the global batch on every mesh (no
+        ``shard_map`` of the JAX package wraps a BN):
+
+        * sp: attention shards q/k/v along the sequence and gathers its
+          output back;
+        * ep: the MoE's combine ends in ``comm.reduce_from``;
+        * tp: the Megatron layers end in a row-parallel reduction, and the
+          vocab-parallel embedding returns whole rows;
+        * pp: JAX's stage function carries no state, so no stage holds a
+          BN: it runs outside the pipeline, replicated over pp.
+
+        :meth:`apply` checks the width against the built statistics."""
         dims = tuple(i for i in range(xf.dim()) if i != axis)
         n = xf.numel() // xf.shape[axis]
-        shard = comm.current_batch_shard()
-        if shard is None or not shard.global_draws or shard.count == 1:
+        shard = comm.global_batch_shard()
+        if shard is None:
             mean = xf.mean(dim=dims)
             var = (xf - mean.reshape(bshape)).square().mean(dim=dims)
             return mean, var
@@ -113,8 +134,34 @@ class BatchNormalization(Layer):
             (xf - mean.reshape(bshape)).square().sum(dim=dims)) / n
         return mean, var
 
+    def _check_width(self, c: int) -> None:
+        """A channel count other than the built one means the input came
+        sharded over a model-parallel axis: per-rank moments would be
+        wrong there, so it raises."""
+        want = self.moving_mean.shape[0]
+        if c == want:
+            return
+        shard = comm.current_batch_shard()
+        mesh = shard.mesh if shard is not None else None
+        if mesh is None:
+            from ...common.context import get_zoo_context
+
+            try:
+                mesh = get_zoo_context(auto_init=False).mesh
+            except RuntimeError:
+                mesh = None
+        shape = getattr(mesh, "shape", None) or {}
+        axes = [a for a in ("sp", "pp", "ep", "tp") if shape.get(a, 1) > 1]
+        where = (f"sharded over {'/'.join(axes)}" if axes
+                 else "not the width it was built for")
+        raise ValueError(
+            f"BatchNormalization {self.name} built for {want} channels got "
+            f"{c}: its input is {where}; BN needs the whole channel width "
+            f"on every rank")
+
     def apply(self, x):
         axis = self._axis(x.dim())
+        self._check_width(x.shape[axis])
         bshape = [1] * x.dim()
         bshape[axis] = x.shape[axis]
         xf = x.float()
@@ -146,12 +193,6 @@ class BatchNormalization(Layer):
         return y.to(x.dtype)
 
 
-def has_batchnorm(module: torch.nn.Module) -> bool:
-    """Whether ``module`` holds a BatchNormalization."""
-    return any(isinstance(m, BatchNormalization) for m in module.modules())
-
-
 LayerNorm = LayerNormalization
 
-__all__ = ["BatchNormalization", "LayerNorm", "LayerNormalization",
-           "has_batchnorm"]
+__all__ = ["BatchNormalization", "LayerNorm", "LayerNormalization"]

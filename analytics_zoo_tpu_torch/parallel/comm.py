@@ -511,6 +511,17 @@ def current_batch_shard() -> Optional[BatchShard]:
     return getattr(_BATCH, "shard", None)
 
 
+def global_batch_shard() -> Optional[BatchShard]:
+    """The current shard when the step computes over a global batch of
+    more than one block (the replicated and per-leaf updates: what
+    :func:`batch_psum` sums over), else None (no step, the flat step, one
+    block)."""
+    shard = current_batch_shard()
+    if shard is None or not shard.global_draws or shard.count == 1:
+        return None
+    return shard
+
+
 def batch_psum(x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the ranks that hold blocks of the global batch
     (:func:`psum` over each batch axis: backward sums the gradient the
@@ -675,7 +686,8 @@ def spawn_ranks(fn: Callable, world: int, backend: Optional[str] = None, *,
 __all__ = ["Axis", "BatchShard", "KINDS", "batch_psum", "batch_shard",
            "current_batch_shard", "RankError", "RankPool", "all_gather",
            "all_to_all", "axis_index", "axis_size", "collective_counts",
-           "copy_to", "default_backend", "gather_along", "get_axis", "pmax",
+           "copy_to", "default_backend", "gather_along", "get_axis",
+           "global_batch_shard", "pmax",
            "ppermute", "psum", "psum_scatter", "reduce_from",
            "reset_collective_counts", "ring_perm", "shard_along",
            "spawn_ranks"]

@@ -397,11 +397,22 @@ Phases, each fatal on failure (no result line is printed then):
    sharding on 8 ranks of a second pool; each held to
    (b)'s one-rank reference (losses within 2e-2, the f32 masters gathered
    whole through the Estimator's ``_full`` within (b)'s Δ limit on every
-   rank, (b)'s controls), its per-rank parameter elements (80,846,336,
-   54,818,816 and 63,454,208), K1 = K3 = K4 = 12 x 2 a rank (96, 96, 192)
-   and the (B, T, heads, D) shape every K1/K3/K4 call saw (a tp rank's
-   16/tp heads). Prints each cell's wall, per-rank peak memory and
-   collectives beside the card's name and power limit.
+   rank, (b)'s controls), its per-rank parameter elements
+   (``MR_ELEMENTS``), K1 = K3 = K4 = ``MR_N_BLOCK`` x 2 a rank and the (B,
+   T, heads, D) shape every K1/K3/K4 call saw (a tp rank's 16/tp heads).
+   (i) ``Dense(no bias) → BatchNormalization → TransformerLayer(1024, 16
+   heads, causal) → MoE(8 experts, top 2, capacity factor 1.0) →
+   BatchNormalization → Dense`` (bf16, f32 masters, SGD, 2 steps of 4
+   sequences of T 1024, each sequence with its own offset) on sp=4 (ring),
+   tp=4 and dp=2 x tp=2 (the JAX rules), ep=4, pp=4 and dp=4, on the 4
+   ranks, each held to the one-process run of the same batches on this
+   process: losses within 2e-2, the f32 masters' change within (b)'s Δ
+   limit, the change of BN's moving statistics and the MoE's aux loss
+   within 2e-2 relative, K1 = K3 = K4 = 2 a rank (the causal ring: 2 x
+   (sp index + 1)); the one-process run must drop tokens, and the flat
+   step on dp=4 (per-block statistics and dispatch) must fail that gate.
+   Prints each cell's wall, per-rank peak memory and collectives beside
+   the card's name and power limit.
 20. the analysis tier (``[analysis]`` lines), in a fresh interpreter (so
    the witness measures the phase's own device memory, not earlier
    phases' module caches), the allocator's peak restarted before each
@@ -4918,7 +4929,8 @@ def _burst(port, images, prefix, on_answer=None, window=DP_WINDOW):
     """16a's clients: 4 threads, each enqueueing its share of
     ``images`` under uris ``<prefix>-<i>`` ``window`` at a time and
     querying them back. Returns ``({i: (answer, version)}, latencies s,
-    wall s, errors)``; ``on_answer(n)`` runs after the n-th answer."""
+    wall s, errors)``; ``on_answer(n)`` runs after the n-th answer, under
+    the lock, so a callback that acts once (a kill) cannot act twice."""
     n = len(images)
     results, lat, errors = {}, [], []
     lock = threading.Lock()
@@ -4927,9 +4939,8 @@ def _burst(port, images, prefix, on_answer=None, window=DP_WINDOW):
         with lock:
             lat.append(latency)
             results[i] = (y, version)
-            k = len(results)
-        if on_answer is not None:
-            on_answer(k)
+            if on_answer is not None:
+                on_answer(len(results))
 
     threads = [threading.Thread(target=_client, args=(
         port, images, list(range(t, n, DP_CLIENTS)), prefix, window, answer,
@@ -6953,6 +6964,22 @@ MR_ELEMENTS = {"fsdp": 55_653_888, "tp": 29_546_496,
 #: 0.015 and the sp run 0.067; a skipped update reads 1 and an update from
 #: one rank's gradient alone 1.11
 MR_DELTA_TOL = 0.2
+#: 19i: BatchNormalization and the MoE in training on the model-parallel
+#: meshes: ``Dense(no bias) → BN → TransformerLayer(causal) → MoE(8
+#: experts, top 2, capacity factor 1.0) → BN → Dense`` at the LM cell's
+#: width, bf16 with f32 masters, SGD, 2 steps of a global batch of 4
+#: sequences, against the one-process run of the same batches. T is cut
+#: from 2048 to 1024 (four ranks' (N, E, cap) dispatch tensors and the
+#: phase's time). Each sequence carries its own offset, so a block's BN
+#: statistics and MoE drops are not the global batch's: the flat control
+#: (dp=4, per-block statistics and dispatch) must fail the gate
+MR_HY_T, MR_HY_SEQS, MR_HY_BATCH, MR_HY_EXPERTS = 1024, 8, 4, 8
+MR_HY_MESHES = {"sp4": dict(sp=4), "tp4": dict(tp=4), "ep4": dict(ep=4),
+                "pp4": dict(pp=4), "dp4": dict(dp=4),
+                "dp2_tp2": dict(dp=2, tp=2), "flat_dp4": dict(dp=4)}
+#: 19i's limit on the losses (absolute) and on the moving statistics'
+#: change over the fit and the aux loss (relative)
+MR_HY_TOL = 2e-2
 
 
 def _mr_ctx(**axes):
@@ -7371,7 +7398,8 @@ def _mr_check(label, cond, detail):
 
 def _mr_rank_kernels(torch, smi):
     """K1, K3 and K4 at the shape each rank of 19f-19h launches them at
-    ((B / (dp * fsdp), 2048, 16 / tp, 64), causal, bf16, q/k/v strided
+    ((B / (dp * fsdp), 2048, 16 / tp, 64), causal) and at 19i's (T 1024;
+    an sp ring rank's 256-row blocks, causal and not), bf16, q/k/v strided
     out of one fused (B, T, 3, H, D) tensor as the QKV projection hands
     them over), held to their plain versions on the same inputs before the
     cells run: K1's out and LSE within TOL["bfloat16"], K3's dQ and K4's
@@ -7382,24 +7410,36 @@ def _mr_rank_kernels(torch, smi):
 
     gen = torch.Generator(device="cuda").manual_seed(19)
     tol, out_errs = TOL["bfloat16"], {}
+    cases = []
     for mode, label in (("fsdp", "19f"), ("tp", "19g"),
                         ("dp_fsdp_tp", "19h")):
         mesh = MR_MESHES[mode]
-        rows = MR_TRAIN_BATCH // (mesh.get("dp", 1) * mesh.get("fsdp", 1))
-        heads = N_HEAD // mesh.get("tp", 1)
+        cases.append((label, MR_TRAIN_BATCH // (mesh.get("dp", 1)
+                                                * mesh.get("fsdp", 1)),
+                      SEQ_LEN, N_HEAD // mesh.get("tp", 1), True))
+    # 19i's: whole on one process, pp and ep; dp=4, tp=4 and dp=2 x tp=2
+    # ranks; an sp=4 ring rank's diagonal (causal) and earlier blocks
+    blk = MR_HY_T // 4
+    cases += [("19i", MR_HY_BATCH, MR_HY_T, N_HEAD, True),
+              ("19i_dp4", MR_HY_BATCH // 4, MR_HY_T, N_HEAD, True),
+              ("19i_tp4", MR_HY_BATCH, MR_HY_T, N_HEAD // 4, True),
+              ("19i_dp2_tp2", MR_HY_BATCH // 2, MR_HY_T, N_HEAD // 2, True),
+              ("19i_sp4_diagonal", MR_HY_BATCH, blk, N_HEAD, True),
+              ("19i_sp4_earlier", MR_HY_BATCH, blk, N_HEAD, False)]
+    for label, rows, t, heads, causal in cases:
         d = HIDDEN // N_HEAD
-        case = _bwd_case(torch, gen, rows, SEQ_LEN, d, torch.bfloat16, True,
+        case = _bwd_case(torch, gen, rows, t, d, torch.bfloat16, causal,
                          h=heads)
         q, k, v = case[:3]
-        out, lse = flash_attention_fwd(q, k, v, True)
-        ref, ref_lse = flash_attention_plain(q, k, v, True)
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        ref, ref_lse = flash_attention_plain(q, k, v, causal)
         torch.cuda.synchronize()
         e_out, e_lse = maxerr(out, ref), maxerr(lse, ref_lse)
         del out, lse, ref, ref_lse
-        shape = f"B={rows} T={SEQ_LEN} H={heads} D={d}"
-        a3, a4 = _check_bwd_case(torch, case, True, "bfloat16",
+        shape = f"B={rows} T={t} H={heads} D={d} causal={causal}"
+        a3, a4 = _check_bwd_case(torch, case, causal, "bfloat16",
                                  f"{label} rank shape {shape}")
-        info = {"shape": [rows, SEQ_LEN, heads, d],
+        info = {"shape": [rows, t, heads, d], "causal": causal,
                 "row_stride": int(q.stride(1)), "k1_out": e_out,
                 "k1_lse": e_lse, "k3_dq_abs": a3, "k4_dkv_abs": a4,
                 "tol": tol}
@@ -7465,12 +7505,179 @@ def _mr_sharded_cell(pool, mode, world, ref_path, ref_losses,
     return launches
 
 
+def _mr_hybrid(strategy):
+    """19i's model on the card, its weights drawn from one seed."""
+    from analytics_zoo_tpu_torch.nn import layers as TL
+    from analytics_zoo_tpu_torch.nn.topology import Sequential
+
+    return Sequential([
+        TL.Dense(HIDDEN, use_bias=False, input_shape=(MR_HY_T, HIDDEN)),
+        TL.BatchNormalization(),
+        TL.TransformerLayer(HIDDEN, N_HEAD, causal=True,
+                           attn_strategy=strategy),
+        TL.MoE(HIDDEN, n_experts=MR_HY_EXPERTS, top_k=2,
+               capacity_factor=1.0),
+        TL.BatchNormalization(), TL.Dense(HIDDEN)], device="cuda", seed=19)
+
+
+def _mr_hy_data():
+    rng = np.random.default_rng(191)
+    shift = rng.normal(size=(MR_HY_SEQS, 1, HIDDEN)) * 2.0
+    x = rng.standard_normal((MR_HY_SEQS, MR_HY_T, HIDDEN), np.float32)
+    y = rng.standard_normal((MR_HY_SEQS, MR_HY_T, HIDDEN), np.float32)
+    return (x + shift).astype(np.float32), y
+
+
+def _mr_hy_run(torch, axes, flat=False):
+    """19i, one process: the hybrid trained on ``axes`` (None: alone, no
+    mesh) with the JAX rules placing its leaves (``flat``: the ZeRO-1 step,
+    no rules). Returns the losses, the f32 masters' change, the moving
+    statistics' change, the MoE's last aux loss and the assignments it
+    dropped in each forward, beside the launches, collectives, wall and
+    peak memory of the fit."""
+    from analytics_zoo_tpu_torch.bridge import model_state
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.nn import optimizers as topt
+    from analytics_zoo_tpu_torch.parallel.sharding import make_param_sharding
+
+    ctx = _mr_ctx(**axes) if axes else None
+    model = _mr_hybrid("ring" if axes and axes.get("sp", 1) > 1
+                       else "auto")
+    init = _mr_init(model)
+    stats0 = {n: b.detach().float().cpu().clone()
+              for n, b in model_state(model).items()}
+    moe = model.layers[3]
+    dispatch, drops = moe.dispatch, []
+
+    def counted(probs, shard=None):
+        d, c = dispatch(probs, shard)
+        drops.append(probs.shape[0] * moe.top_k - d.sum().detach())
+        return d, c
+
+    moe.dispatch = counted
+    rules = (make_param_sharding(ctx.mesh) if ctx is not None and not flat
+             else None)
+    est = Estimator(model, optimizer=topt.SGD(lr=0.1), loss="mse",
+                    param_sharding=rules, config=TrainConfig(
+                        compute_dtype="bfloat16", shuffle=False,
+                        update_sharding="flat" if flat else False))
+    losses, step = [], est._step
+
+    def record(b):
+        loss, gnorm = step(b)
+        losses.append(loss.detach())
+        return loss, gnorm
+
+    est._step = record
+    x, y = _mr_hy_data()
+    t0 = _mr_start(torch)
+    est.fit((x, y), batch_size=MR_HY_BATCH, epochs=1)
+    res = _mr_end(torch, t0, {"mode": est._update_mode()})
+    res.update(
+        losses=[float(v) for v in losses],
+        delta=_mr_delta(init, _mr_masters(est)),
+        stats={n: b.detach().float().cpu() - stats0[n]
+               for n, b in model_state(model).items()},
+        aux=float(moe.state["aux_loss"].detach()),
+        dropped=[int(v) for v in drops],
+        sp_index=ctx.mesh.coords.get("sp", 0) if ctx is not None else 0,
+        placed=len(est._placements))
+    return res
+
+
+def _mr_hy_rel(a, b):
+    return float((a - b).double().norm() / b.double().norm())
+
+
+def mr_hybrid(cell, ref_path):
+    """19i, one rank: the hybrid on ``MR_HY_MESHES[cell]``, held to the
+    one-process run saved at ``ref_path``."""
+    import torch
+
+    try:
+        res = _mr_hy_run(torch, MR_HY_MESHES[cell], flat=cell == "flat_dp4")
+        ref = torch.load(ref_path, map_location="cpu")
+        res["loss_err"] = max(abs(a - b) for a, b in zip(res["losses"],
+                                                          ref["losses"]))
+        res["delta_err"] = _mr_delta_err(res.pop("delta"), ref["delta"])
+        stats = res.pop("stats")
+        res["stats_err"] = {n: _mr_hy_rel(stats[n], d)
+                            for n, d in ref["stats"].items()}
+        res["aux_err"] = abs(res["aux"] - ref["aux"]) / abs(ref["aux"])
+        return res
+    finally:
+        _mr_reset()
+
+
+def _mr_hy_gate(res, steps):
+    """19i's gate over a cell's ranks: the names of the checks it fails."""
+    out = []
+    if any(len(r["losses"]) != steps for r in res) or \
+            max(r["loss_err"] for r in res) > MR_HY_TOL:
+        out.append("losses")
+    if max(r["delta_err"] for r in res) > MR_DELTA_TOL:
+        out.append("masters")
+    if max(max(r["stats_err"].values()) for r in res) > MR_HY_TOL:
+        out.append("bn_statistics")
+    if max(r["aux_err"] for r in res) > MR_HY_TOL:
+        out.append("aux_loss")
+    return out
+
+
+def _mr_hybrid_cells(pool, ref, ref_path, wall, smi):
+    """19i on the pool's ranks: the six cells within the gate, each rank's
+    K1/K3/K4 launches as its schedule implies (the causal ring: sp index +
+    1 a step), and the flat control failing the gate. Returns the cells'
+    launches summed over ranks."""
+    steps = MR_HY_SEQS // MR_HY_BATCH
+    sums = np.zeros(3, np.int64)
+    for cell in MR_HY_MESHES:
+        t = time.perf_counter()
+        res = pool.run(mr_hybrid, cell, ref_path)
+        label = f"19i_{cell}"
+        wall[label] = time.perf_counter() - t
+        failed = _mr_hy_gate(res, steps)
+        launches = np.sum([r["launches"] for r in res], 0)
+        info = {"mesh": MR_HY_MESHES[cell], "mode": res[0]["mode"],
+                "losses": res[0]["losses"], "reference": ref["losses"],
+                "loss_err": max(r["loss_err"] for r in res),
+                "delta_err_by_rank": [r["delta_err"] for r in res],
+                "stats_err": {n: max(r["stats_err"][n] for r in res)
+                              for n in ref["stats"]},
+                "aux": [r["aux"] for r in res], "aux_ref": ref["aux"],
+                "aux_err": max(r["aux_err"] for r in res),
+                "dropped_by_rank": [r["dropped"] for r in res],
+                "dropped_one_process": ref["dropped"],
+                "gate_failed": failed,
+                "launches_by_rank": [r["launches"] for r in res],
+                "placed_leaves": res[0]["placed"],
+                "collectives": res[0]["collectives"],
+                "rank_wall_s": [r["wall_s"] for r in res],
+                "peak_bytes": [r["peak_bytes"] for r in res], "card": smi}
+        log(f"[multi-rank] {label} {json.dumps(info)}")
+        if cell == "flat_dp4":
+            _mr_check(label, res[0]["mode"] == "flat" and failed,
+                      f"the per-block control passes the gate: {info}")
+            continue
+        _mr_check(label, not failed, f"off the one-process run in "
+                  f"{failed}: {info}")
+        _mr_check(label, all(r["launches"] == [steps * (r["sp_index"] + 1)]
+                             * 3 for r in res),
+                  f"K1/K3/K4 launches a rank {info['launches_by_rank']}")
+        if "tp" in MR_HY_MESHES[cell]:
+            _mr_check(label, res[0]["placed"] > 0, "the rules placed no leaf")
+        sums += launches
+    return sums
+
+
 def phase_multi_rank(torch, smi, tmp):
     """Phase 19: multi-rank training on 4 rank processes sharing the card
-    (19a-19d, 19f fsdp=4, 19g tp=4), on 8 (19h dp=2 x fsdp=2 x tp=2), and
+    (19a-19d, 19f fsdp=4, 19g tp=4, 19i BN and the MoE on the
+    model-parallel meshes), on 8 (19h dp=2 x fsdp=2 x tp=2), and
     NCCL at world size 1 (19e), after K1/K3/K4 are held to their plain
     versions at 19f-19h's rank shapes; returns the K1, K3 and K4 launches
-    summed over the ranks of 19a, 19b, 19d and 19f-19h, and those
+    summed over the ranks of 19a, 19b, 19d and 19f-19i, and those
     checks' errors."""
     from analytics_zoo_tpu_torch.parallel import comm
 
@@ -7503,6 +7710,23 @@ def phase_multi_rank(torch, smi, tmp):
     del model, init, ref_delta
     torch.cuda.empty_cache()
     wall["19b_control"] = time.perf_counter() - t
+    # the one-process run 19i is held to: it must drop tokens, or the
+    # global dispatch would go unwitnessed
+    t = time.perf_counter()
+    hy_ref = _mr_hy_run(torch, None)
+    hy_path = os.path.join(tmp, "mr_hybrid_ref.pt")
+    torch.save(hy_ref, hy_path)
+    del hy_ref["delta"]
+    torch.cuda.empty_cache()
+    wall["19i_reference"] = time.perf_counter() - t
+    info = {k: hy_ref[k] for k in ("losses", "aux", "dropped", "launches",
+                                   "wall_s", "peak_bytes")}
+    log(f"[multi-rank] 19i_one_process {json.dumps(info)} card {smi}")
+    steps = MR_HY_SEQS // MR_HY_BATCH
+    _mr_check("19i", min(hy_ref["dropped"]) >= 1,
+              f"the one-process run dropped no token: {info}")
+    _mr_check("19i", hy_ref["launches"] == [steps] * 3,
+              f"K1/K3/K4 launches {hy_ref['launches']}, want {steps}")
     t = time.perf_counter()
     pool = comm.RankPool(MR_WORLD, device="cuda", threads=0, timeout_s=600)
     try:
@@ -7632,8 +7856,13 @@ def phase_multi_rank(torch, smi, tmp):
         for mode in ("fsdp", "tp"):
             sums += _mr_sharded_cell(pool, mode, MR_WORLD, ref_path,
                                      ref_losses, err_unaveraged, wall, smi)
+        # 19i: BN and the MoE on sp, tp, ep, pp, dp and dp x tp
+        t = time.perf_counter()
+        sums += _mr_hybrid_cells(pool, hy_ref, hy_path, wall, smi)
+        wall["19i"] = time.perf_counter() - t
     finally:
         pool.close()
+    os.remove(hy_path)
     # 19h: dp=2 x fsdp=2 x tp=2 with update sharding, 8 ranks
     t = time.perf_counter()
     pool = comm.RankPool(MR_WORLD8, device="cuda", threads=1, timeout_s=900)

@@ -10,10 +10,13 @@ step, in micro-batch order) and with a regularized Dense (the penalty
 in each micro-batch's loss); a recomputed (``torch.utils.checkpoint``)
 forward does not move the buffers twice; ``graph_checks`` records a step
 without touching the real buffers, and a fit with it gives the same bits
-as one without; BN on a mesh with tp above 1 raises. The dp cases
-(global statistics under the replicated update, local ones then a mean
-under the flat one) are in ``tests/test_torch_update_sharding.py``,
-whose rank pool they share.
+as one without; a forward given fewer channels than BN was built for (an
+input left sharded over a model-parallel axis) raises, naming the axis.
+The mesh cases (dp: global statistics under the replicated update, local
+ones then a mean under the flat one; sp, pp, ep, tp and their mixes with
+dp and fsdp: the global batch's, BN's input being whole on those ranks)
+are in ``tests/test_torch_update_sharding.py``, whose rank pool they
+share.
 """
 
 import jax
@@ -229,9 +232,17 @@ class _StubMesh:
 
 
 @pytest.mark.parametrize("axis", ["tp", "sp", "pp", "ep"])
-def test_batchnorm_on_a_model_parallel_mesh_raises(axis):
-    tm = Sequential(_model(TL), device="cpu")
-    est = Estimator(tm, optimizer="sgd", loss="mse",
-                    mesh=_StubMesh(**{axis: 2}))
-    with pytest.raises(NotImplementedError, match=r"\[13\]"):
-        est.fit(_data(), batch_size=BATCH, epochs=1)
+def test_an_input_narrower_than_built_raises_naming_the_axis(axis):
+    """BN's moments are summed over the batch axes alone, which is right
+    only while its input is whole on the model-parallel ranks: a forward
+    given a block of the channels raises, naming the mesh's axis."""
+    from analytics_zoo_tpu_torch.parallel import comm
+
+    bn = TL.BatchNormalization()
+    bn.build((8,), None)
+    bn.train()
+    shard = comm.BatchShard(0, 1, ("dp",), mesh=_StubMesh(**{axis: 4}))
+    with comm.batch_shard(shard):
+        with pytest.raises(ValueError, match=rf"sharded over {axis}"):
+            bn(torch.zeros(4, 2))
+        assert bn(torch.ones(4, 8)).shape == (4, 8)

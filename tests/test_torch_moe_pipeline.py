@@ -14,7 +14,13 @@ stacked params) within 1e-5, and a batch that does not split raising;
 ``PipelinedTransformerLM`` logits at pp=4 within 1e-4 of JAX's (and of its
 own sequential form), and 2 Estimator steps with the stages placed by
 ``param_spec`` within 1e-5 of the JAX Estimator's losses and final
-parameters. One rank pool serves the module.
+parameters. ``Dense → MoE(cf 1.25) → Dense`` trained 3 SGD steps on dp=4,
+fsdp=4 and dp=2 x ep=2 gives the JAX Estimator's losses, params and aux
+loss within 1e-5 (the dispatch over the global batch, on data whose
+per-block dispatch drops other tokens); under ``grad_accum_steps=2`` on
+dp=2 x ep=2 the one-process run's; the flat step's first loss is the
+mean of the four blocks' one-process losses (a per-block dispatch). One
+rank pool serves the module.
 """
 
 import jax
@@ -384,3 +390,208 @@ def test_pipelined_lm_two_step_fit_matches_jax(pool):
                 node = node[p.key]
             np.testing.assert_allclose(node, leaf, rtol=0, atol=TOL,
                                        err_msg=jax.tree_util.keystr(path))
+
+
+# ------------------------------------------- MoE on a batch-sharded mesh
+MOE_T, MOE_D, MOE_ROWS, MOE_BATCH = 4, 8, 48, 16
+MOE_MESHES = {"dp4": dict(dp=4), "fsdp4": dict(fsdp=4),
+              "dp2_ep2": dict(dp=2, ep=2)}
+
+
+def _moe_net(m):
+    return [m.Dense(MOE_D, input_shape=(MOE_T, 6)),
+            m.MoE(MOE_D, n_experts=4, intermediate_size=16, top_k=2),
+            m.Dense(3)]
+
+
+def _moe_data(seed=21):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(MOE_ROWS, MOE_T, 6)).astype(np.float32)
+    # a common offset: the router favours the same experts in every
+    # block, so blocks fill them unevenly and the drops depend on the
+    # dispatch's scope
+    x[..., :3] += 1.5
+    return x, rng.normal(size=(MOE_ROWS, MOE_T, 3)).astype(np.float32)
+
+
+def _jax_mesh_ctx(axes):
+    """The JAX context on a mesh of 4 of the CPU devices (the MoE's ep
+    constraint and the Estimator read it)."""
+    from analytics_zoo_tpu.common import init_zoo_context, reset_zoo_context
+
+    reset_zoo_context()
+    ctx = init_zoo_context()
+    sizes = tuple(axes.get(a, 1) for a in AXES)
+    ctx.mesh = Mesh(np.array(jax.devices()[:int(np.prod(sizes))]).reshape(
+        sizes), AXES)
+    return ctx
+
+
+def _moe_jax_fit(axes, params):
+    from analytics_zoo_tpu.common import config as jconfig
+    from analytics_zoo_tpu.common import reset_zoo_context
+    from analytics_zoo_tpu.engine.estimator import Estimator as JEstimator
+    from analytics_zoo_tpu.nn import layers as JL
+    from analytics_zoo_tpu.nn import optimizers as jopt
+    from analytics_zoo_tpu.nn.topology import Sequential as JSequential
+    from analytics_zoo_tpu.parallel import make_param_sharding as jrules
+
+    ctx = _jax_mesh_ctx(axes)
+    try:
+        jest = JEstimator(JSequential(_moe_net(JL)),
+                          optimizer=jopt.SGD(lr=0.5), loss="mse",
+                          mesh=ctx.mesh, param_sharding=jrules(ctx.mesh),
+                          config=jconfig.TrainConfig(shuffle=False))
+        jest.initial_weights = (params, {})
+        want, step = [], jest._make_train_step()
+
+        def record(st, b):
+            st, (loss, gnorm) = step(st, b)
+            want.append(float(loss))
+            return st, (loss, gnorm)
+
+        jest._train_step = record
+        jest.fit(_moe_data(), batch_size=MOE_BATCH, epochs=1, seed=3)
+        return (want, _np(jest.train_state["params"]),
+                float(jest.train_state["model_state"]["1_moe"]["aux_loss"]))
+    finally:
+        reset_zoo_context()
+
+
+def _moe_port_fit(tree, axes, cfg=None, rules=True):
+    """Rank side (or one process, ``axes`` None): the port's Estimator on
+    ``Dense → MoE → Dense`` from the JAX weights, one epoch of 3 SGD steps:
+    losses a step, the whole params and the MoE's last ``aux_loss``."""
+    from analytics_zoo_tpu_torch.bridge import params_from_jax
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.nn import layers as TL
+    from analytics_zoo_tpu_torch.nn import optimizers as topt
+    from analytics_zoo_tpu_torch.nn.topology import Sequential
+    from analytics_zoo_tpu_torch.parallel.sharding import make_param_sharding
+
+    mesh = _ctx(**axes).mesh if axes else None
+    if not axes:
+        _reset()
+    try:
+        tm = Sequential(_moe_net(TL), device="cpu")
+        tm.load_state_dict(params_from_jax(tree))
+        est = Estimator(tm, optimizer=topt.SGD(lr=0.5), loss="mse",
+                        param_sharding=(make_param_sharding(mesh)
+                                        if rules and mesh is not None
+                                        else None),
+                        config=TrainConfig(shuffle=False, **(cfg or {})))
+        got, step = [], est._step
+
+        def record(b):
+            loss, gnorm = step(b)
+            got.append(float(loss))
+            return loss, gnorm
+
+        est._step = record
+        est.fit(_moe_data(), batch_size=MOE_BATCH, epochs=1, seed=3)
+        whole = {n: est._full(n, p.detach()).numpy()
+                 for n, p in tm.named_parameters()}
+        return {"losses": got, "params": whole, "mode": est._update_mode(),
+                "aux": float(tm.layers[1].state["aux_loss"].detach())}
+    finally:
+        _reset()
+
+
+def _moe_kept(tree, blocks, rows=MOE_BATCH):
+    """Which (token, expert) assignments the first ``rows`` rows keep at
+    the initial weights, dispatched over them all and over each of
+    ``blocks`` blocks alone."""
+    from analytics_zoo_tpu_torch.nn import layers as TL
+    from analytics_zoo_tpu_torch.nn.topology import Sequential
+
+    tm = Sequential(_moe_net(TL), device="cpu")
+    tm.load_state_dict(params_from_jax(tree))
+    moe = tm.layers[1]
+    with torch.no_grad():
+        h = tm.layers[0](torch.from_numpy(_moe_data()[0][:rows]))
+        probs = torch.softmax(h.reshape(-1, MOE_D) @ moe.router_kernel, -1)
+        whole = moe.dispatch(probs)[0].sum(-1)
+        per = torch.cat([moe.dispatch(p)[0].sum(-1)
+                         for p in probs.chunk(blocks)])
+    return whole.numpy(), per.numpy()
+
+
+@pytest.mark.parametrize("case", sorted(MOE_MESHES))
+def test_moe_on_a_batch_sharded_mesh_matches_jax(pool, case):
+    """``Dense → MoE(cf 1.25) → Dense`` trained 3 SGD steps on a mesh whose
+    batch axes split each global batch: the MoE's capacity, running fill
+    and aux loss are the global batch's, as under JAX's GSPMD step.
+    Losses, params and ``aux_loss`` within 1e-5 of the JAX Estimator on
+    the same mesh, on every rank; the data makes a per-block dispatch
+    drop other tokens than the global one."""
+    from analytics_zoo_tpu.nn import layers as JL
+    from analytics_zoo_tpu.nn.topology import Sequential as JSequential
+
+    axes = MOE_MESHES[case]
+    params, _ = JSequential(_moe_net(JL)).build(jax.random.PRNGKey(4))
+    tree = _np(params)
+    whole, per = _moe_kept(tree, axes.get("dp", 1) * axes.get("fsdp", 1))
+    assert whole.sum() < 2 * MOE_BATCH * MOE_T         # drops, globally
+    assert not np.array_equal(whole, per)
+    want, wparams, waux = _moe_jax_fit(axes, params)
+    for r in pool.run(_moe_port_fit, tree, axes):
+        assert len(r["losses"]) == len(want) == MOE_ROWS // MOE_BATCH
+        assert r["mode"] is None
+        np.testing.assert_allclose(r["losses"], want, rtol=0, atol=TOL)
+        np.testing.assert_allclose(r["aux"], waux, rtol=0, atol=TOL)
+        for slot, d in wparams.items():
+            for leaf, v in d.items():
+                np.testing.assert_allclose(r["params"][f"{slot}.{leaf}"], v,
+                                           rtol=0, atol=TOL,
+                                           err_msg=f"{slot}.{leaf}")
+
+
+def test_moe_flat_step_dispatches_per_block(pool):
+    """The flat (ZeRO-1) step on dp=4 is JAX's per-replica ``shard_map``
+    body: each rank dispatches its own block alone, so the first step's
+    loss is the mean of four one-process forwards, one a block."""
+    from analytics_zoo_tpu.nn import layers as JL
+    from analytics_zoo_tpu.nn.topology import Sequential as JSequential
+    from analytics_zoo_tpu_torch.nn import layers as TL
+    from analytics_zoo_tpu_torch.nn.topology import Sequential
+
+    params, _ = JSequential(_moe_net(JL)).build(jax.random.PRNGKey(4))
+    tree = _np(params)
+    tm = Sequential(_moe_net(TL), device="cpu")
+    tm.load_state_dict(params_from_jax(tree))
+    x, y = (torch.from_numpy(a[:MOE_BATCH]) for a in _moe_data())
+    with torch.no_grad():
+        per = [float(((tm.apply(xb) - yb) ** 2).mean())
+               for xb, yb in zip(x.chunk(4), y.chunk(4))]
+        whole = float(((tm.apply(x) - y) ** 2).mean())
+    assert abs(np.mean(per) - whole) > 10 * TOL       # the scopes differ
+    for r in pool.run(_moe_port_fit, tree, dict(dp=4),
+                      dict(update_sharding="flat"), False):
+        assert r["mode"] == "flat"
+        np.testing.assert_allclose(r["losses"][0], np.mean(per), rtol=0,
+                                   atol=TOL)
+
+
+def test_moe_accumulation_on_dp_matches_one_process(pool):
+    """``grad_accum_steps=2`` on dp=2 (x ep=2): each micro-step dispatches
+    its global micro-batch, the rank's block of which it holds, so 3 SGD
+    steps give the one-process run's losses, params and aux loss within
+    1e-5. (The JAX Estimator cannot accumulate over an MoE, whose state
+    gains ``aux_loss`` in the step, so the port alone is the oracle.)"""
+    from analytics_zoo_tpu.nn import layers as JL
+    from analytics_zoo_tpu.nn.topology import Sequential as JSequential
+
+    params, _ = JSequential(_moe_net(JL)).build(jax.random.PRNGKey(4))
+    tree = _np(params)
+    whole, per = _moe_kept(tree, 2, rows=MOE_BATCH // 2)
+    assert not np.array_equal(whole, per)
+    cfg = dict(grad_accum_steps=2)
+    want = _moe_port_fit(tree, None, cfg)
+    for r in pool.run(_moe_port_fit, tree, dict(dp=2, ep=2), cfg):
+        np.testing.assert_allclose(r["losses"], want["losses"], rtol=0,
+                                   atol=TOL)
+        np.testing.assert_allclose(r["aux"], want["aux"], rtol=0, atol=TOL)
+        for n, v in want["params"].items():
+            np.testing.assert_allclose(r["params"][n], v, rtol=0, atol=TOL,
+                                       err_msg=n)

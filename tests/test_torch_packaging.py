@@ -511,3 +511,38 @@ def test_the_tile_table_native_runtime_and_keras2_import_without_jax():
               and getattr(getattr(jtuning, n), "__module__", "")
               == jtuning.__name__}
     assert public <= set(dir(tuning)), public - set(dir(tuning))
+
+
+def _raised_texts(tree: ast.AST):
+    """``(line, text)`` of every ``raise NotImplementedError(...)``: the
+    string parts of its arguments, f-strings' literal parts included."""
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Raise) or node.exc is None:
+            continue
+        call = node.exc
+        func = call.func if isinstance(call, ast.Call) else call
+        if getattr(func, "id", getattr(func, "attr", "")) != \
+                "NotImplementedError":
+            continue
+        parts = [c.value for c in ast.walk(call)
+                 if isinstance(c, ast.Constant) and isinstance(c.value, str)]
+        yield node.lineno, " ".join(parts)
+
+
+def test_no_refusal_of_the_port_cites_a_roadmap_item():
+    """The port is complete: no ``NotImplementedError`` it raises points at
+    ROADMAP or a Queue label (``Queue 1``, ``[13]``) as work still to
+    port. The importers' refusals of an op stay: they name an op the JAX
+    importers refuse too."""
+    import re
+
+    label = re.compile(r"ROADMAP|Queue\s*\d|\[\d+\]")
+    found, n_raises = [], 0
+    for path in sorted(PKG.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for line, text in _raised_texts(tree):
+            n_raises += 1
+            if label.search(text):
+                found.append(f"{path.relative_to(ROOT)}:{line}: {text}")
+    assert n_raises > 0                  # the scan sees the refusals
+    assert found == []

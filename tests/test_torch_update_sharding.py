@@ -19,8 +19,15 @@ both ways; the optimizer state is 1/dp a rank; ``graph_checks="raise"``
 passes the flat step's collective budget and fails an all-reduce exchange
 before the first update, in both packages; BatchNormalization trains on
 dp=4 with JAX's statistics (global under the replicated update, local
-then averaged under the flat one), its moving statistics within 1e-5.
-One rank pool serves the module.
+then averaged under the flat one), its moving statistics within 1e-5;
+``Dense → BN → TransformerLayer → MoE → BN → Dense`` trains 3 SGD steps
+on sp=4 (ring, Ulysses), pp=4, ep=4, tp=4, dp=2 x tp=2, dp=2 x sp=2,
+fsdp=2 x ep=2 (the JAX rules) and, without the MoE, dp=2 x sp=2 under
+``grad_accum_steps=2``, with JAX's losses, params, moving statistics and
+aux loss within 1e-5 (BN's input is whole on the model-parallel ranks,
+so its batch-axis moments are the global batch's), and
+``recalibrate_batchnorm`` on tp=4 gives JAX's statistics. One rank pool
+serves the module.
 """
 
 import jax
@@ -344,6 +351,179 @@ def test_dp4_batchnorm_training_matches_jax(pool, case):
                 atol=TOL, err_msg=leaf)
     assert not np.allclose(wstate["1_batchnormalization"]["moving_mean"],
                            state["1_batchnormalization"]["moving_mean"])
+
+
+# ------------------------------------ BN on the model-parallel meshes
+HY_T, HY_D, HY_ROWS, HY_BATCH = 8, 16, 48, 16
+HY_CASES = {
+    "sp4_ring": (dict(sp=4), "ring", {}, True),
+    "sp4_ulysses": (dict(sp=4), "ulysses", {}, True),
+    "pp4": (dict(pp=4), "auto", {}, True),
+    "ep4": (dict(ep=4), "auto", {}, True),
+    "tp4": (dict(tp=4), "auto", {}, True),
+    "dp2_tp2": (dict(dp=2, tp=2), "auto", {}, True),
+    "dp2_sp2": (dict(dp=2, sp=2), "ring", {}, True),
+    "fsdp2_ep2": (dict(fsdp=2, ep=2), "auto", {}, True),
+    # JAX cannot accumulate over an MoE (its state gains aux_loss)
+    "dp2_sp2_accum2_no_moe": (dict(dp=2, sp=2), "ring",
+                              dict(grad_accum_steps=2), False),
+}
+
+
+def _hybrid(m, strategy, moe):
+    # no bias before BN: BN cancels it, its gradient is rounding noise
+    layers = [m.Dense(HY_D, use_bias=False, input_shape=(HY_T, 6)),
+              m.BatchNormalization(),
+              m.TransformerLayer(HY_D, 4, causal=True,
+                                 attn_strategy=strategy)]
+    if moe:
+        layers.append(m.MoE(HY_D, n_experts=4, intermediate_size=32))
+    return layers + [m.BatchNormalization(), m.Dense(3)]
+
+
+def _hy_data(seed=9):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(HY_ROWS, HY_T, 6)).astype(np.float32) * 2 + 1,
+            rng.normal(size=(HY_ROWS, HY_T, 3)).astype(np.float32))
+
+
+def _hy_weights(strategy, moe):
+    params, state = JSequential(_hybrid(JL, strategy, moe)).build(
+        jax.random.PRNGKey(6))
+    rng = np.random.default_rng(6)
+    state = {k: {"moving_mean": rng.normal(size=HY_D).astype(np.float32),
+                 "moving_var": rng.uniform(0.5, 2, HY_D).astype(np.float32)}
+             if "batchnormalization" in k else v
+             for k, v in _np(state).items()}
+    return _np(params), state
+
+
+def _jax_hybrid_fit(axes, strategy, cfg, moe, recal):
+    """The JAX Estimator with the JAX rules on a mesh of 4 of the CPU
+    devices (its attention reads the context's mesh): losses, params,
+    model state and aux loss after 3 SGD steps (then, with ``recal``,
+    ``recalibrate_batchnorm``)."""
+    from analytics_zoo_tpu.common import init_zoo_context, reset_zoo_context
+    from analytics_zoo_tpu.parallel import make_param_sharding as jrules
+
+    params, state = _hy_weights(strategy, moe)
+    reset_zoo_context()
+    ctx = init_zoo_context()
+    sizes = tuple(axes.get(a, 1) for a in AXES)
+    ctx.mesh = Mesh(np.array(jax.devices()[:4]).reshape(sizes), AXES)
+    try:
+        jest = JEstimator(JSequential(_hybrid(JL, strategy, moe)),
+                          optimizer=jopt.SGD(lr=0.1), loss="mse",
+                          mesh=ctx.mesh, param_sharding=jrules(ctx.mesh),
+                          config=jconfig.TrainConfig(shuffle=False, **cfg))
+        jest.initial_weights = (params, state)
+        want, step = [], jest._make_train_step()
+
+        def record(st, b):
+            st, (loss, gnorm) = step(st, b)
+            want.append(float(loss))
+            return st, (loss, gnorm)
+
+        jest._train_step = record
+        jest.fit(_hy_data(), batch_size=HY_BATCH, epochs=1, seed=3)
+        if recal:
+            jest.recalibrate_batchnorm(_hy_data(4)[0], batch_size=HY_BATCH)
+        return (want, _np(jest.train_state["params"]),
+                _np(jest.train_state["model_state"]))
+    finally:
+        reset_zoo_context()
+
+
+def _port_hybrid_fit(tree, state, axes, strategy, cfg, moe, recal):
+    """Rank side: the hybrid from the JAX weights and statistics on
+    ``axes`` with the JAX rules: losses a step, the whole params, the
+    moving statistics and the MoE's last aux loss."""
+    from analytics_zoo_tpu_torch.bridge import model_state, state_dict_from_jax
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.nn import layers as TL
+    from analytics_zoo_tpu_torch.nn import optimizers as topt
+    from analytics_zoo_tpu_torch.nn.topology import Sequential
+    from analytics_zoo_tpu_torch.parallel.sharding import make_param_sharding
+
+    ctx = _ctx(**axes)
+    tm = Sequential(_hybrid(TL, strategy, moe), device="cpu")
+    tm.load_state_dict(state_dict_from_jax(tree, state))
+    est = Estimator(tm, optimizer=topt.SGD(lr=0.1), loss="mse",
+                    param_sharding=make_param_sharding(ctx.mesh),
+                    config=TrainConfig(shuffle=False, **cfg))
+    got, step = [], est._step
+
+    def record(b):
+        loss, gnorm = step(b)
+        got.append(float(loss))
+        return loss, gnorm
+
+    est._step = record
+    est.fit(_hy_data(), batch_size=HY_BATCH, epochs=1, seed=3)
+    if recal:
+        est.recalibrate_batchnorm(_hy_data(4)[0], batch_size=HY_BATCH)
+    moes = [m for m in tm.layers if isinstance(m, TL.MoE)]
+    return {"losses": got,
+            "params": {n: est._full(n, p.detach()).numpy()
+                       for n, p in tm.named_parameters()},
+            "state": {n: b.numpy() for n, b in model_state(tm).items()},
+            "aux": [float(m.state["aux_loss"].detach()) for m in moes],
+            "placed": sorted(est._placements)}
+
+
+def _hybrid_compare(axes, strategy, cfg, moe, recal, pool):
+    tree, state = _hy_weights(strategy, moe)
+    want, wparams, wstate = _jax_hybrid_fit(axes, strategy, cfg, moe, recal)
+    res = pool.run(_port_hybrid_fit, tree, state, axes, strategy, cfg, moe,
+                   recal)
+    wparams, wstate = _dotted(wparams), _dotted(wstate)
+    waux = [float(v) for n, v in wstate.items() if n.endswith("aux_loss")]
+    assert len(waux) == int(moe)
+    for r in res:
+        assert len(r["losses"]) == len(want) == HY_ROWS // HY_BATCH
+        np.testing.assert_allclose(r["losses"], want, rtol=0, atol=TOL)
+        np.testing.assert_allclose(r["aux"], waux, rtol=0, atol=TOL)
+        for n, v in wparams.items():
+            np.testing.assert_allclose(r["params"][n], v, rtol=0, atol=TOL,
+                                       err_msg=n)
+        for n, v in wstate.items():
+            if not n.endswith("aux_loss"):
+                np.testing.assert_allclose(r["state"][n], v, rtol=0,
+                                           atol=TOL, err_msg=n)
+                assert not np.allclose(v, _dotted(state)[n])   # it moved
+    return res
+
+
+def _dotted(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_dotted(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+@pytest.mark.parametrize("case", list(HY_CASES))
+def test_batchnorm_on_a_model_parallel_mesh_matches_jax(pool, case):
+    """``Dense → BN → TransformerLayer(causal) → MoE → BN → Dense`` trained
+    3 SGD steps with the JAX rules on sp, pp, ep and tp meshes and their
+    mixes with the batch axes: BN's input is whole on the model-parallel
+    ranks, so its moments summed over the batch axes alone are the global
+    batch's, as under JAX's GSPMD step. Losses, params (tp blocks
+    gathered whole), moving statistics and ``aux_loss`` within 1e-5 of
+    the JAX Estimator on the same mesh, on every rank."""
+    axes, strategy, cfg, moe = HY_CASES[case]
+    res = _hybrid_compare(axes, strategy, cfg, moe, False, pool)
+    if axes.get("tp", 1) > 1 or axes.get("fsdp", 1) > 1:
+        assert res[0]["placed"]                 # the rules placed leaves
+
+
+def test_recalibrate_batchnorm_on_tp4_matches_jax(pool):
+    """``recalibrate_batchnorm`` after the tp=4 fit: the whole batch on
+    every rank through the Megatron layers gives JAX's statistics."""
+    axes, strategy, cfg, moe = HY_CASES["tp4"]
+    _hybrid_compare(axes, strategy, cfg, moe, True, pool)
 
 
 def test_bf16_flat_with_f32_masters_matches_jax(pool):
